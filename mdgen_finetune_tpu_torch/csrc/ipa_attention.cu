@@ -1,0 +1,164 @@
+// ipa_attention: the core of Invariant Point Attention (c_z = 0), from the
+// scalar and point projections to the (rows, H*Ch + 4*H*Pv) output features.
+//
+// Replaces the IPA part of mdgen_finetune_tpu/ops/ipa_encoder.py::
+// _encoder_call (body _kernel: the frame lift, scalar + point logits,
+// softplus head weights, frame-mask bias and the scalar / point value
+// products with the inverse frame map). The projections on either side run
+// in adaln_linear.
+//
+// Inputs, per encoder element b (B elements of L residues, rows b*L + l):
+//   proj (rows, ld) f32 with column blocks
+//     [q (H*Ch) | k (H*Ch) | v (H*Ch) | q pts (3*H*Pq) | k pts (3*H*Pq) | v pts (3*H*Pv)],
+//     each point block coordinate-major (x | y | z), head-major inside;
+//   rot (rows, 3, 3) and trans (rows, 3) f32 frames; mask (rows,) f32;
+//   head_weights (H,) raw f32 (softplus in the kernel).
+// Per (b, head): lift the points by the frame; logits
+//   q.k * sqrt(1/(3 Ch)) - 0.5 softplus(hw) sqrt(1/(3 Pq 9/2)) |q_pts - k_pts|^2
+//   + 1e5 (mask_q mask_k - 1);
+// natural-exp softmax with max subtraction; scalar and point value sums;
+// inverse frame map of the point outputs; norms sqrt(|p|^2 + 1e-8). All the
+// point math is f32. Output features bf16, ordered scalars | x | y | z | norms.
+//
+// What bounds it on the H100: at L = 4 each (b, head) reads ~2 KB and does a
+// few thousand FLOP; the call is memory-bound (proj in, features out, ~3.3 KB
+// per row at the flagship widths). Design: one block of 64 threads per
+// (element, head); the block stages its L residues' scalars, lifted points
+// and frames in shared memory, forms the L x L logits there, and writes the
+// features once. No intermediate goes back to device memory.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int THREADS = 64;
+
+__global__ void __launch_bounds__(THREADS) ipa_attention_kernel(
+    const float* __restrict__ proj, long long ld, const float* __restrict__ rot,
+    const float* __restrict__ trans, const float* __restrict__ mask,
+    const float* __restrict__ head_weights, bf16* __restrict__ feats, long long ldf,
+    int B, int L, int H, int Ch, int Pq, int Pv) {
+  extern __shared__ float sm[];
+  const int b = blockIdx.x / H, h = blockIdx.x % H, tid = threadIdx.x;
+  const int HCh = H * Ch, HPq = H * Pq, HPv = H * Pv;
+  float* R = sm;                    // L x 9
+  float* Tr = R + L * 9;            // L x 3
+  float* Mk = Tr + L * 3;           // L
+  float* Q = Mk + L;                // L x Ch
+  float* K = Q + L * Ch;            // L x Ch
+  float* V = K + L * Ch;            // L x Ch
+  float* QP = V + L * Ch;           // L x Pq x 3 (global frame)
+  float* KP = QP + L * Pq * 3;      // L x Pq x 3
+  float* VP = KP + L * Pq * 3;      // L x Pv x 3
+  float* A = VP + L * Pv * 3;       // L x L
+
+  const long long row0 = (long long)b * L;
+  for (int e = tid; e < L * 13; e += THREADS) {
+    int l = e / 13, c = e % 13;
+    if (c < 9) R[l * 9 + c] = rot[(row0 + l) * 9 + c];
+    else if (c < 12) Tr[l * 3 + c - 9] = trans[(row0 + l) * 3 + c - 9];
+    else Mk[l] = mask[row0 + l];
+  }
+  for (int e = tid; e < 3 * L * Ch; e += THREADS) {
+    int which = e / (L * Ch), rem = e % (L * Ch), l = rem / Ch, c = rem % Ch;
+    float v = proj[(row0 + l) * ld + which * HCh + h * Ch + c];
+    (which == 0 ? Q : which == 1 ? K : V)[l * Ch + c] = v;
+  }
+  __syncthreads();
+  const int np = 2 * Pq + Pv;
+  for (int e = tid; e < L * np; e += THREADS) {
+    int l = e / np, p = e % np;
+    long long base;
+    int HP, pp;
+    float* dst;
+    if (p < Pq) { base = 3LL * HCh; HP = HPq; pp = p; dst = QP + (l * Pq + pp) * 3; }
+    else if (p < 2 * Pq) { base = 3LL * HCh + 3LL * HPq; HP = HPq; pp = p - Pq; dst = KP + (l * Pq + pp) * 3; }
+    else { base = 3LL * HCh + 6LL * HPq; HP = HPv; pp = p - 2 * Pq; dst = VP + (l * Pv + pp) * 3; }
+    int P = p < 2 * Pq ? Pq : Pv;
+    const float* src = proj + (row0 + l) * ld + base + h * P + pp;
+    float x = src[0], y = src[HP], z = src[2 * HP];
+    const float* r = R + l * 9;
+    const float* t = Tr + l * 3;
+    dst[0] = r[0] * x + r[1] * y + r[2] * z + t[0];
+    dst[1] = r[3] * x + r[4] * y + r[5] * z + t[1];
+    dst[2] = r[6] * x + r[7] * y + r[8] * z + t[2];
+  }
+  __syncthreads();
+
+  const float hw_raw = head_weights[h];
+  const float softplus = hw_raw > 20.f ? hw_raw : log1pf(expf(hw_raw));
+  const float hw = softplus * sqrtf(1.0f / (3.0f * (Pq * 9.0f / 2.0f))) * -0.5f;
+  const float c_sc = sqrtf(1.0f / (3.0f * Ch));
+  for (int e = tid; e < L * L; e += THREADS) {
+    int i = e / L, j = e % L;
+    float s = 0.f;
+    for (int c = 0; c < Ch; ++c) s += Q[i * Ch + c] * K[j * Ch + c];
+    float d2 = 0.f;
+    for (int p = 0; p < Pq; ++p)
+      for (int x = 0; x < 3; ++x) {
+        float d = QP[(i * Pq + p) * 3 + x] - KP[(j * Pq + p) * 3 + x];
+        d2 += d * d;
+      }
+    A[e] = s * c_sc + d2 * hw + 1e5f * (Mk[i] * Mk[j] - 1.0f);
+  }
+  __syncthreads();
+  for (int i = tid; i < L; i += THREADS) {
+    float m = -3.0e38f;
+    for (int j = 0; j < L; ++j) m = fmaxf(m, A[i * L + j]);
+    float sum = 0.f;
+    for (int j = 0; j < L; ++j) { float p = expf(A[i * L + j] - m); A[i * L + j] = p; sum += p; }
+    for (int j = 0; j < L; ++j) A[i * L + j] /= sum;
+  }
+  __syncthreads();
+
+  for (int e = tid; e < L * Ch; e += THREADS) {
+    int i = e / Ch, c = e % Ch;
+    float o = 0.f;
+    for (int j = 0; j < L; ++j) o += A[i * L + j] * V[j * Ch + c];
+    feats[(row0 + i) * ldf + h * Ch + c] = __float2bfloat16(o);
+  }
+  for (int e = tid; e < L * Pv; e += THREADS) {
+    int i = e / Pv, p = e % Pv;
+    float g[3] = {0.f, 0.f, 0.f};
+    for (int j = 0; j < L; ++j) {
+      float a = A[i * L + j];
+      for (int x = 0; x < 3; ++x) g[x] += a * VP[(j * Pv + p) * 3 + x];
+    }
+    const float* r = R + i * 9;
+    const float* t = Tr + i * 3;
+    float dx = g[0] - t[0], dy = g[1] - t[1], dz = g[2] - t[2];
+    float lx = r[0] * dx + r[3] * dy + r[6] * dz;
+    float ly = r[1] * dx + r[4] * dy + r[7] * dz;
+    float lz = r[2] * dx + r[5] * dy + r[8] * dz;
+    float nrm = sqrtf(lx * lx + ly * ly + lz * lz + 1e-8f);
+    bf16* f = feats + (row0 + i) * ldf + HCh + h * Pv + p;
+    f[0] = __float2bfloat16(lx);
+    f[HPv] = __float2bfloat16(ly);
+    f[2 * HPv] = __float2bfloat16(lz);
+    f[3 * HPv] = __float2bfloat16(nrm);
+  }
+}
+
+}  // namespace
+
+extern "C" int ipa_attention(const void* proj, long long ld, const void* rot, const void* trans,
+                             const void* mask, const void* head_weights, void* feats,
+                             long long ldf, int B, int L, int H, int Ch, int Pq, int Pv,
+                             void* stream) {
+  size_t smem = sizeof(float) * ((size_t)L * 13 + 3 * L * Ch + 3 * L * (2 * Pq + Pv) + L * L);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(ipa_attention_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  ipa_attention_kernel<<<(unsigned)B * H, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(proj), ld, static_cast<const float*>(rot),
+      static_cast<const float*>(trans), static_cast<const float*>(mask),
+      static_cast<const float*>(head_weights), static_cast<bf16*>(feats), ldf, B, L, H, Ch,
+      Pq, Pv);
+  return (int)cudaGetLastError();
+}

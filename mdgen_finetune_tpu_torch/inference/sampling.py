@@ -1,0 +1,145 @@
+"""Generative sampling and autoregressive rollout on the GPU.
+
+Counterpart of the JAX package's ``inference/sampling.py`` (reference
+NewMDGenWrapper.inference, src/mdgen/wrapper.py:416-514, and the
+sim_inference rollout loop, src/sim_inference.py:62-112) for its flagship
+path: 100 Euler steps of the velocity field on the flat latent, the weights
+folded once, and the whole t grid's t-embeddings, AdaLN rows and encoder
+outputs computed before the chain; each step is then one ``flat_call``.
+
+Entry points run on the card (``device="cuda"``) unless the caller asks for
+the CPU; without CUDA they raise. Randomness comes from an explicit
+``torch.Generator``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import MDGenConfig
+from ..data.featurize import featurize_atom14_batch
+from ..geometry import frames as G
+from ..geometry.rigid import Rigid, full_f32
+from ..models.denoiser import LatentMDGen
+from ..tasks import prep_batch
+from ..utils.weights import from_flax
+
+_TODO = "ROADMAP.md queue 1 item 8"
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on; CUDA must exist unless the CPU
+    was asked for (no quiet fall-back)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+    return device
+
+
+def sample_prior_latent(generator: torch.Generator, B: int, T: int, L: int,
+                        latent_dim: int, device=None) -> torch.Tensor:
+    """Gaussian prior draw (src/mdgen/wrapper.py:416-434), f32."""
+    z = torch.randn(B, T, L, latent_dim, generator=generator, device=generator.device)
+    return z.to(device) if device is not None else z
+
+
+def check_interval(cfg: MDGenConfig):
+    """ODE integration interval for sampling (src/mdgen/transport/transport.py:94-123)."""
+    t0, t1 = 0.0, 1.0
+    if cfg.transport.path_type == "VP":
+        t1 = 1 - cfg.transport.sample_eps
+    elif cfg.transport.prediction != "velocity":
+        t0, t1 = cfg.transport.sample_eps, 1 - cfg.transport.sample_eps
+    return t0, t1
+
+
+class InferenceEngine:
+    """``params``: the port's state_dict, or the JAX package's flax tree as
+    nested dicts of numpy arrays (converted by ``from_flax``)."""
+
+    def __init__(self, cfg: MDGenConfig, params, *, device="cuda", dtype=None,
+                 sampler: str = "ode"):
+        if sampler != "ode":
+            raise NotImplementedError(f"sampler {sampler!r} is not ported yet ({_TODO})")
+        t = cfg.transport
+        if t.sampling_method != "euler" or t.prediction != "velocity":
+            raise NotImplementedError(
+                f"{t.sampling_method} / {t.prediction} sampling is not ported yet ({_TODO})")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        full_f32()
+        dtype = dtype or (torch.bfloat16 if cfg.model.use_bf16 else torch.float32)
+        self.model = LatentMDGen(cfg, cfg.latent_dim, dtype=dtype)
+        if any(isinstance(v, dict) for v in params.values()):
+            params = from_flax(params, cfg)
+        self.model.load_state_dict(params)
+        self.model.to(self.device).eval()
+
+    def _tensor(self, v, dtype=None):
+        return torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v,
+                               device=self.device, dtype=dtype)
+
+    # ------------------------------------------------------------------
+    def _decode(self, samples, rigids: Rigid, seqres):
+        """Latents -> (atom14, aatype) (src/mdgen/wrapper.py:487-514)."""
+        B, T, L, _ = samples.shape
+        rel = Rigid.from_tensor_7(samples[..., :7], normalize_quats=True)
+        frames = rigids[:, 0:1].compose(rel)
+        torsions = samples[..., 7:21].reshape(B, T, L, 7, 2)
+        torsions = torsions / torch.linalg.vector_norm(torsions, dim=-1, keepdim=True)
+        aat = seqres[:, None].expand(B, T, L)
+        return G.frames_torsions_to_atom14(frames, torsions, aat), aat
+
+    @torch.no_grad()
+    def sample_with_zs0(self, batch: dict, zs0: torch.Tensor):
+        """Featurized batch + prior latent (B, T, L, lat) -> (atom14, aatype):
+        the Euler chain on the flat latent (src/mdgen/wrapper.py:436)."""
+        cfg, model = self.cfg, self.model
+        batch = {k: self._tensor(v) for k, v in batch.items()
+                 if isinstance(v, (np.ndarray, torch.Tensor))}
+        prep = prep_batch(cfg, batch)
+        kw = prep["model_kwargs"]
+        mask = kw["mask"].float().contiguous()
+        pack = model.make_trunk_pack()
+        consts = model.make_scan_consts(kw["x_cond"], kw["x_cond_mask"], mask,
+                                        aatype=kw["aatype"])
+        t0, t1 = check_interval(cfg)
+        n = cfg.transport.inference_steps
+        dt = (t1 - t0) / n
+        ts = t0 + dt * torch.arange(n, dtype=torch.float32, device=self.device)
+        encs = model.encode_steps(ts, mask, consts, pack, kw["start_frames"])
+        modss = model.embed_mods(model.embed_times(ts), pack)
+        xc = zs0.to(self.device, torch.float32).clone().contiguous()
+        for i in range(n):
+            model.flat_call(xc, mask, consts, pack, dt,
+                            enc=None if encs is None else encs[i], mods=modss[i:i + 1])
+        return self._decode(xc, prep["rigids"], batch["seqres"])
+
+    def sample(self, batch: dict, generator: torch.Generator):
+        """Featurized batch -> generated (atom14 (B, T, L, 14, 3), aatype)."""
+        B, T, L = batch["torsions"].shape[:3]
+        zs = sample_prior_latent(generator, B, T, L, self.cfg.latent_dim, self.device)
+        return self.sample_with_zs0(batch, zs)
+
+    # ------------------------------------------------------------------
+    def _expand_frame0(self, atom14_frame0, seqres, mask):
+        """One conditioning frame -> a full window (every frame copies frame
+        0, src/sim_inference.py:62-80), featurized."""
+        T = self.cfg.data.num_frames
+        B, L = seqres.shape
+        atom14 = atom14_frame0[:, None].expand(B, T, L, 14, 3)
+        return featurize_atom14_batch(atom14, seqres, mask)
+
+    def rollout(self, atom14_frame0, seqres, mask, num_rollouts: int,
+                generator: torch.Generator) -> np.ndarray:
+        """Autoregressive forward simulation (src/sim_inference.py:105-112):
+        atom14 (B, num_rollouts * num_frames, L, 14, 3) on the host."""
+        cur = self._tensor(atom14_frame0, torch.float32)
+        seqres = self._tensor(seqres).long()
+        mask = self._tensor(mask, torch.float32)
+        chunks = []
+        for _ in range(num_rollouts):
+            atom14, _ = self.sample(self._expand_frame0(cur, seqres, mask), generator)
+            chunks.append(atom14.cpu().numpy())
+            cur = atom14[:, -1]
+        return np.concatenate(chunks, axis=1)

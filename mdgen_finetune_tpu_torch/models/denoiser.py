@@ -1,0 +1,332 @@
+"""SiT-style latent denoiser with factorized frame x residue attention.
+
+Counterpart of the JAX package's ``models/denoiser.py::LatentMDGen``
+(reference src/mdgen/model/latent_model.py:43-326) for the configurations
+of this slice: plain continuous latents (``sim_condition`` and friends),
+with or without the prepend-IPA encoder, absolute position/time tables, the
+parent-orchestrated fused trunk. Parameters are named after the flax tree
+(``layers_3/mha_t/q_proj/kernel`` -> ``layers.3.mha_t.q_proj.weight``);
+``utils.weights.from_flax`` converts a JAX checkpoint.
+
+Two ways to run it, as in the JAX package:
+- ``forward(x, t, mask, ...)``: the plain call (``__call__``, :608-740);
+- the flat sampling path: ``make_trunk_pack`` (weights folded and stacked
+  once per sample), ``make_scan_consts`` (per-step-constant embed terms),
+  ``embed_times`` / ``embed_mods`` / ``encode_steps`` (the whole t grid's
+  t-embeddings, AdaLN rows and encoder outputs at once), then one
+  ``flat_call`` per Euler step, which updates the f32 latent carry
+  (B, T, L, lat) in place.
+
+``self.dtype`` is the compute dtype (bf16 on the card, f32 in the CPU
+tests); parameters stay f32 and packs are cast once.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from ..config import MDGenConfig
+from ..geometry.rigid import Rigid
+from ..ops.fused_layer import fused_trunk
+from ..ops.ipa_encoder import ipa_encoder
+from .attention import LOG2E, MHAParams
+from .ipa import IPAParams
+from .layers import TimestepEmbedder, sincos_pos_embed
+
+
+class IPALayer(nn.Module):
+    """Conditioning-encoder block parameters: IPA + residue MHA + MLP with
+    6-way AdaLN (src/mdgen/model/latent_model.py:341-394)."""
+
+    def __init__(self, cfg: MDGenConfig):
+        super().__init__()
+        m = cfg.model
+        C = m.embed_dim
+        self.adaLN = nn.Linear(C, 6 * C)
+        self.ipa_norm = nn.LayerNorm(C, eps=1e-5)
+        self.ipa = IPAParams(C, m.ipa_heads, m.ipa_head_dim, m.ipa_qk, m.ipa_v)
+        self.mha_l = MHAParams(C)
+        self.fc1 = nn.Linear(C, 4 * C)
+        self.fc2 = nn.Linear(4 * C, C)
+
+
+class TrunkLayer(nn.Module):
+    """LatentMDGenLayer parameters: 9-way AdaLN, residue and frame attention,
+    MLP (src/mdgen/model/latent_model.py:397-493)."""
+
+    def __init__(self, cfg: MDGenConfig):
+        super().__init__()
+        C = cfg.model.embed_dim
+        self.adaLN = nn.Linear(C, 9 * C)
+        self.mha_l = MHAParams(C)
+        self.mha_t = MHAParams(C)
+        self.fc1 = nn.Linear(C, 4 * C)
+        self.fc2 = nn.Linear(4 * C, C)
+
+
+class FinalLayer(nn.Module):
+    """AdaLN output head parameters (src/mdgen/model/layers.py:58-75)."""
+
+    def __init__(self, C: int, out_channels: int):
+        super().__init__()
+        self.adaLN = nn.Linear(C, 2 * C)
+        self.linear = nn.Linear(C, out_channels)
+
+
+def _unsupported(cfg: MDGenConfig):
+    m, t = cfg.model, cfg.task
+    for name in ("hyena", "interleave_ipa", "no_rope"):
+        if getattr(m, name):
+            return f"model.{name}", "9"
+    if m.dropout > 0.0:
+        return "model.dropout", "9"
+    for name in ("design", "mpnn", "dynamic_mpnn", "tps_condition", "inpainting", "no_frames"):
+        if getattr(t, name):
+            return f"task.{name}", "8"
+    return None
+
+
+def _detached(tree):
+    """A pack's tensors as plain tensors (``.to`` may hand back the
+    parameter itself)."""
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_detached(v) for v in tree)
+    return tree.detach() if torch.is_tensor(tree) else tree
+
+
+def _t(lin: nn.Linear, dt) -> torch.Tensor:
+    """nn.Linear weight in the kernels' (in, out) layout."""
+    return lin.weight.t().to(dt).contiguous()
+
+
+class LatentMDGen(nn.Module):
+    """Top-level denoiser: forward(x, t, mask, ...) -> velocity latents."""
+
+    def __init__(self, cfg: MDGenConfig, latent_dim: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        bad = _unsupported(cfg)
+        if bad is not None:
+            raise NotImplementedError(
+                f"{bad[0]} is not ported yet (ROADMAP.md queue 1 item {bad[1]})")
+        self.cfg = cfg
+        m = cfg.model
+        C = m.embed_dim
+        self.latent_dim = latent_dim or cfg.latent_dim
+        self.dtype = dtype
+        self.latent_to_emb = nn.Linear(self.latent_dim, C)
+        self.cond_to_emb = nn.Linear(self.latent_dim, C)
+        self.mask_to_emb = nn.Embedding(2, C)
+        if m.prepend_ipa:
+            if not m.no_aa_emb:
+                self.aatype_to_emb = nn.Embedding(21, C)
+            self.ipa_layers = nn.ModuleList([IPALayer(cfg) for _ in range(m.num_layers)])
+        self.layers = nn.ModuleList([TrunkLayer(cfg) for _ in range(m.num_layers)])
+        self.emb_to_latent = FinalLayer(C, self.latent_dim)
+        self.t_embedder = TimestepEmbedder(C)
+        if m.abs_pos_emb:
+            self.register_buffer("pos_embed", torch.from_numpy(
+                sincos_pos_embed(C, cfg.data.crop)), persistent=False)
+        if m.abs_time_emb:
+            self.register_buffer("time_embed", torch.from_numpy(
+                sincos_pos_embed(C, cfg.data.num_frames)), persistent=False)
+
+    # ------------------------------------------------------------------
+    def make_encoder_pack(self, dt=None):
+        """Encoder weights for ops.ipa_encoder: the layers' AdaLN projections
+        concatenated (one product for every layer's 6-way rows) and one dict
+        per layer (the JAX package's ``fold_encoder_ws``: kv split, MHA q
+        scale folded)."""
+        dt = dt or self.dtype
+        C, Hm = self.cfg.model.embed_dim, self.cfg.model.mha_heads
+        scale = (C // Hm) ** -0.5
+        layers = []
+        for lay in self.ipa_layers:
+            wproj, bproj = lay.ipa.projections()
+            mha = lay.mha_l
+            layers.append(dict(
+                ln_w=lay.ipa_norm.weight.float().contiguous(),
+                ln_b=lay.ipa_norm.bias.float().contiguous(),
+                wproj=wproj.to(dt).contiguous(), bproj=bproj.to(dt),
+                head_weights=lay.ipa.head_weights.float().contiguous(),
+                wo_i=_t(lay.ipa.linear_out, dt), bo_i=lay.ipa.linear_out.bias.to(dt),
+                wqkv_m=torch.cat([mha.q_proj.weight.t() * scale, mha.k_proj.weight.t(),
+                                  mha.v_proj.weight.t()], dim=1).to(dt).contiguous(),
+                bqkv_m=torch.cat([mha.q_proj.bias * scale, mha.k_proj.bias,
+                                  mha.v_proj.bias]).to(dt),
+                wo_m=_t(mha.out_proj, dt), bo_m=mha.out_proj.bias.to(dt),
+                bkm=mha.bias_k.to(dt).contiguous(), bvm=mha.bias_v.to(dt).contiguous(),
+                w1=_t(lay.fc1, dt), b1=lay.fc1.bias.to(dt),
+                w2=_t(lay.fc2, dt), b2=lay.fc2.bias.to(dt)))
+        wmods = torch.cat([lay.adaLN.weight.t() for lay in self.ipa_layers], 1).to(dt)
+        bmods = torch.cat([lay.adaLN.bias for lay in self.ipa_layers]).to(dt)
+        return _detached({"wmods": wmods, "bmods": bmods, "layers": layers})
+
+    @torch.no_grad()
+    def make_trunk_pack(self, dt=None):
+        """The trunk weights folded once per sample (the JAX package's
+        ``make_trunk_pack`` with ``_fold_fused_args``): both attention q
+        columns carry head_dim**-0.5 * log2(e) (the base-2 softmax fold),
+        qkv concatenated, (in, out) layout in the compute dtype; every
+        layer's AdaLN projection and the FinalLayer's in one (C, NL*9C+2C)
+        weight; the encoder pack."""
+        dt = dt or self.dtype
+        C, H = self.cfg.model.embed_dim, self.cfg.model.mha_heads
+        scale_t = (C // H) ** -0.5 * LOG2E
+
+        def qkv(mha):
+            return (torch.cat([mha.q_proj.weight.t() * scale_t, mha.k_proj.weight.t(),
+                               mha.v_proj.weight.t()], dim=1).to(dt).contiguous(),
+                    torch.cat([mha.q_proj.bias * scale_t, mha.k_proj.bias,
+                               mha.v_proj.bias]).to(dt))
+
+        layers = []
+        for lay in self.layers:
+            wl, bl = qkv(lay.mha_l)
+            wt, bt = qkv(lay.mha_t)
+            layers.append(dict(
+                wqkv_l=wl, bqkv_l=bl, wout_l=_t(lay.mha_l.out_proj, dt),
+                bout_l=lay.mha_l.out_proj.bias.to(dt),
+                wqkv_t=wt, bqkv_t=bt, wout_t=_t(lay.mha_t.out_proj, dt),
+                bout_t=lay.mha_t.out_proj.bias.to(dt),
+                w1=_t(lay.fc1, dt), b1=lay.fc1.bias.to(dt),
+                w2=_t(lay.fc2, dt), b2=lay.fc2.bias.to(dt),
+                bkl=lay.mha_l.bias_k.to(dt).contiguous(), bvl=lay.mha_l.bias_v.to(dt).contiguous(),
+                bkt=lay.mha_t.bias_k.to(dt).contiguous(), bvt=lay.mha_t.bias_v.to(dt).contiguous()))
+        fin = self.emb_to_latent
+        wmods = torch.cat([lay.adaLN.weight.t() for lay in self.layers]
+                          + [fin.adaLN.weight.t()], 1).to(dt)
+        bmods = torch.cat([lay.adaLN.bias for lay in self.layers] + [fin.adaLN.bias]).to(dt)
+        enc = self.make_encoder_pack(dt) if self.cfg.model.prepend_ipa else None
+        return _detached({"wmods": wmods, "bmods": bmods, "layers": layers,
+                          "fin": (_t(fin.linear, dt), fin.linear.bias.to(dt)), "enc": enc})
+
+    # ------------------------------------------------------------------
+    def _lin(self, lin: nn.Linear, x):
+        dt = self.dtype
+        return F.linear(x.to(dt), lin.weight.to(dt), lin.bias.to(dt))
+
+    def make_encoder_tokens(self, mask_l, aatype):
+        """The encoder's input tokens (B, L, C): zeros plus the aatype
+        embedding (sim_condition; reference latent_model.py:179-190)."""
+        B, L = mask_l.shape
+        x = torch.zeros(B, L, self.cfg.model.embed_dim, dtype=self.dtype, device=mask_l.device)
+        if aatype is not None and not self.cfg.model.no_aa_emb:
+            x = x + self.aatype_to_emb.weight.to(self.dtype)[aatype.long()]
+        return x
+
+    def run_ipa(self, t_emb, mask_l, frames: Rigid, tokens, pack):
+        """The conditioning encoder (reference latent_model.py:179-214):
+        tokens (Bn, L, C); t_emb (nb, C) with nb dividing Bn."""
+        m = self.cfg.model
+        enc = pack["enc"]
+        mods = F.silu(t_emb).to(self.dtype) @ enc["wmods"] + enc["bmods"]
+        return ipa_encoder(tokens, mods, enc["layers"], frames, mask_l,
+                           num_heads_mha=m.mha_heads, Hi=m.ipa_heads, Ch=m.ipa_head_dim,
+                           Pq=m.ipa_qk, Pv=m.ipa_v)
+
+    def _check_len(self, L: int):
+        if self.cfg.model.abs_pos_emb and L > self.pos_embed.shape[0]:
+            raise ValueError(f"peptide length {L} exceeds the absolute position table "
+                             f"(cfg.data.crop = {self.pos_embed.shape[0]})")
+
+    def _const_terms(self, h, x_cond, x_cond_mask):
+        """Add the position/time tables and the conditioning embeddings to
+        h (B, T, L, C), in the JAX package's order."""
+        B, T, L, C = h.shape
+        m = self.cfg.model
+        if m.abs_pos_emb:
+            self._check_len(L)
+            h = h + self.pos_embed[:L].to(self.dtype)
+        if m.abs_time_emb:
+            h = h + self.time_embed[:T, None].to(self.dtype)
+        if x_cond is not None:
+            h = (h + self._lin(self.cond_to_emb, x_cond)
+                 + self.mask_to_emb.weight.to(self.dtype)[x_cond_mask.long()])
+        return h
+
+    @torch.no_grad()
+    def forward(self, x, t, mask, start_frames: Optional[Rigid] = None,
+                end_frames: Optional[Rigid] = None, x_cond=None, x_cond_mask=None,
+                aatype=None, trunk_pack=None):
+        """x (B, T, L, lat), t (B,), mask (B, T, L) -> velocity (B, T, L, lat) f32."""
+        cfg = self.cfg
+        B, T, L = mask.shape
+        NL, C = len(self.layers), cfg.model.embed_dim
+        pack = trunk_pack if trunk_pack is not None else self.make_trunk_pack()
+        h = self._lin(self.latent_to_emb, x)
+        h = self._const_terms(h, x_cond, x_cond_mask)
+        t_emb = self.t_embedder(t * cfg.model.time_multiplier, self.dtype)
+        if cfg.model.prepend_ipa:
+            enc = self.run_ipa(t_emb, mask[:, 0], start_frames,
+                               self.make_encoder_tokens(mask[:, 0], aatype), pack)
+            h = h + enc[:, None]
+        mods_all = F.silu(t_emb).to(self.dtype) @ pack["wmods"] + pack["bmods"]
+        out = fused_trunk(h.contiguous(), mods_all[:, :NL * 9 * C], pack["layers"],
+                          mask, num_heads=cfg.model.mha_heads,
+                          final=(mods_all[:, NL * 9 * C:], *pack["fin"]))
+        return out.float()
+
+    # ------------------------------------------------------------------
+    # flat sampling path
+    @torch.no_grad()
+    def make_scan_consts(self, x_cond, x_cond_mask, mask, aatype=None):
+        """Per-step-constant terms of the Euler chain, once per sample:
+        ``wlat`` (lat, C) the latent projection; ``cadd`` (B, T, L, C) its
+        bias + position/time tables + conditioning embeddings; ``tokens``
+        the encoder's input tokens."""
+        B, T, L = mask.shape
+        C = self.cfg.model.embed_dim
+        add = self.latent_to_emb.bias.to(self.dtype).expand(B, T, L, C)
+        add = self._const_terms(add, x_cond, x_cond_mask).contiguous()
+        tokens = (self.make_encoder_tokens(mask[:, 0], aatype)
+                  if self.cfg.model.prepend_ipa else None)
+        return _detached({"wlat": _t(self.latent_to_emb, self.dtype), "cadd": add,
+                          "tokens": tokens})
+
+    @torch.no_grad()
+    def embed_times(self, ts):
+        """ts (S,) -> t-embeddings (S, C) in one batched call."""
+        return self.t_embedder(ts * self.cfg.model.time_multiplier, self.dtype)
+
+    @torch.no_grad()
+    def embed_mods(self, t_embs, pack):
+        """t_embs (S, C) -> every step's trunk + FinalLayer AdaLN rows
+        (S, NL*9*C + 2C). One row per step: the t grid is shared by the
+        batch, so the kernels broadcast it over the batch."""
+        return F.silu(t_embs).to(self.dtype) @ pack["wmods"] + pack["bmods"]
+
+    @torch.no_grad()
+    def encode_steps(self, ts, mask, consts, pack, start_frames: Rigid):
+        """The prepend-IPA encoder for the whole t grid in one pass:
+        ts (S,) -> enc (S, B, L, C). The conditioning is step-invariant;
+        only the AdaLN rows vary with t (one row per step, shared by B)."""
+        if not self.cfg.model.prepend_ipa:
+            return None
+        B, T, L = mask.shape
+        S = ts.shape[0]
+
+        def tile(a):
+            return a.unsqueeze(0).expand(S, *a.shape).reshape(S * a.shape[0], *a.shape[1:])
+
+        frames = Rigid(tile(start_frames.rot), tile(start_frames.trans))
+        enc = self.run_ipa(self.embed_times(ts), tile(mask[:, 0]), frames,
+                           tile(consts["tokens"]), pack)
+        return enc.view(S, B, L, -1)
+
+    @torch.no_grad()
+    def flat_call(self, xc, mask, consts, pack, step_dt: float, enc=None, mods=None):
+        """One Euler step on the f32 carry xc (B, T, L, lat), updated IN
+        PLACE: embed (+ constants + encoder rows) -> trunk -> head ->
+        xc + dt * v. ``mods`` (nb, NL*9*C + 2C), one step's AdaLN rows;
+        ``enc`` (B, L, C) that step's encoder output."""
+        NL, C = len(self.layers), self.cfg.model.embed_dim
+        return fused_trunk(xc, mods[:, :NL * 9 * C], pack["layers"], mask,
+                           num_heads=self.cfg.model.mha_heads,
+                           final=(mods[:, NL * 9 * C:], *pack["fin"]),
+                           embed=(consts["wlat"], consts["cadd"], enc), step_dt=step_dt)

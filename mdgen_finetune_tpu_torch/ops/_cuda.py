@@ -1,0 +1,108 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+Each ``csrc/<name>.cu`` is a shared library with a plain C interface,
+compiled with ``nvcc`` for ``sm_90a`` at first use into ``_build/`` (listed
+in .gitignore) and loaded with ctypes. The library file name carries a hash
+of the source and the flags, so an edited source is rebuilt. ``build_all``
+starts one ``nvcc`` per source at once and waits for all of them.
+
+Every C entry point takes device pointers and the CUDA stream as
+``c_void_p`` and returns ``cudaGetLastError()`` after its launch; ``check``
+raises on a non-zero code.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD = PKG / "_build"
+KERNELS = ("adaln_linear", "rope_attention", "ipa_attention")
+FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LIBS: dict = {}
+
+
+def nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME", "") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc", shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha1(src + " ".join(FLAGS).encode()).hexdigest()[:12]
+    return BUILD / f"lib{name}-{tag}.so"
+
+
+def build_all(names=KERNELS) -> float:
+    """Compile every missing library, one nvcc per source, all at once.
+    Returns the seconds spent; the compiler's report goes to _build/<name>.log."""
+    t0 = time.perf_counter()
+    todo = [n for n in names if not _target(n).exists()]
+    if not todo:
+        return 0.0
+    BUILD.mkdir(parents=True, exist_ok=True)
+    exe = nvcc()
+    procs = []
+    for n in todo:
+        tmp = _target(n).with_suffix(f".tmp{os.getpid()}")
+        log = open(BUILD / f"{n}.log", "w")
+        p = subprocess.Popen([exe, *FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+                             stdout=log, stderr=subprocess.STDOUT)
+        procs.append((n, tmp, p, log))
+    failed = []
+    for n, tmp, p, log in procs:
+        p.wait()
+        log.close()
+        if p.returncode != 0:
+            failed.append(n)
+        else:
+            os.replace(tmp, _target(n))
+    if failed:
+        msgs = "\n".join(f"--- {n}\n" + (BUILD / f"{n}.log").read_text()[-4000:] for n in failed)
+        raise RuntimeError(f"nvcc failed for {failed}:\n{msgs}")
+    return time.perf_counter() - t0
+
+
+def library(name: str, argtypes) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``; its entry point gets
+    ``argtypes`` and an int return."""
+    if name not in _LIBS:
+        build_all((name,))
+        lib = ctypes.CDLL(str(_target(name)))
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return _LIBS[name]
+
+
+def check(code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {code}")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+P = ctypes.c_void_p
+I32 = ctypes.c_int
+I64 = ctypes.c_longlong
+F32 = ctypes.c_float

@@ -1,0 +1,113 @@
+"""The denoiser trunk: every LatentMDGenLayer, with the embed, the output
+head and the Euler update optionally folded in.
+
+Counterpart of the JAX package's ``ops/fused_layer.py::fused_trunk`` in its
+inference form (``_trunk_call`` with ``embed``, ``final`` and ``step_dt``).
+The TPU ran the whole trunk as one streaming kernel with the activation
+resident across layers; here each layer is a short sequence of the
+hand-written kernels:
+
+    qkv_l = adaln_linear(LN + modulate)   stage 1: attention over residues
+    att   = rope_attention(B*T, L, 1)
+    x    += g_l * (att @ out_l)            (adaln_linear, gate_res, in place)
+    qkv_t = adaln_linear(LN + modulate)   stage 2: attention over frames
+    att   = rope_attention(B, T, L)
+    x    += g_t * (att @ out_t)
+    hid   = adaln_linear(LN + modulate, GELU)   stage 3: MLP
+    x    += g_m * (hid @ w2)
+
+On CPU tensors every op runs its plain PyTorch version, so the same code is
+the plain twin of the JAX package's ``_layer_xla`` / ``_embed_xla`` /
+``_trunk_final_xla`` chain. Fusing the layer into fewer launches is later
+work (ROADMAP).
+
+Layouts: the trunk activation is (B, T, L, C) contiguous (no frame padding);
+``mods`` holds every layer's 9-way AdaLN rows, (nb, NL*9*C) with nb = B or 1
+(one row shared by the batch); weights are (in, out) with the q columns
+carrying head_dim**-0.5 * log2(e) (the base-2 fold).
+"""
+from __future__ import annotations
+
+import torch
+
+from .adaln_linear import adaln_linear
+from .rope_attention import rope_attention
+
+# per-layer weight names (LatentMDGen.make_trunk_pack)
+LAYER_KEYS = ("wqkv_l", "bqkv_l", "wout_l", "bout_l", "wqkv_t", "bqkv_t", "wout_t",
+              "bout_t", "w1", "b1", "w2", "b2", "bkl", "bvl", "bkt", "bvt")
+
+
+def trunk_layer(x2, mod, w, mask, *, B: int, T: int, L: int, num_heads: int):
+    """One layer on the (B*T*L, C) activation ``x2``, updated in place.
+    ``mod`` (nb, 9C): shift/scale/gate rows for the three stages."""
+    C = x2.shape[1]
+
+    def m(j):
+        return mod[:, j * C:(j + 1) * C]
+
+    qkv = adaln_linear(x2, w["wqkv_l"], w["bqkv_l"], ln="plain", shift=m(0), scale=m(1))
+    att = rope_attention(qkv.view(B * T, L, 1, 3 * C), w["bkl"], w["bvl"],
+                         mask.reshape(B * T, L, 1), num_heads=num_heads, base2=True)
+    adaln_linear(att.view(-1, C), w["wout_l"], w["bout_l"], epilogue="gate_res",
+                 res=x2, gate=m(2), out=x2)
+    qkv = adaln_linear(x2, w["wqkv_t"], w["bqkv_t"], ln="plain", shift=m(3), scale=m(4))
+    att = rope_attention(qkv.view(B, T, L, 3 * C), w["bkt"], w["bvt"], mask,
+                         num_heads=num_heads, base2=True)
+    adaln_linear(att.view(-1, C), w["wout_t"], w["bout_t"], epilogue="gate_res",
+                 res=x2, gate=m(5), out=x2)
+    hid = adaln_linear(x2, w["w1"], w["b1"], ln="plain", shift=m(6), scale=m(7),
+                       epilogue="gelu")
+    adaln_linear(hid, w["w2"], w["b2"], epilogue="gate_res", res=x2, gate=m(8), out=x2)
+    return x2
+
+
+def fused_trunk(x, mods, ws, mask, *, num_heads: int, final=None, embed=None,
+                step_dt=None):
+    """All layers of the trunk.
+
+    - ``x`` (B, T, L, C) activation, or with ``embed`` the f32 latent carry
+      (B, T, L, lat);
+    - ``mods`` (nb, NL*9*C); ``ws`` a list of per-layer weight dicts
+      (``LAYER_KEYS``); ``mask`` (B, T, L) f32, 1 = valid;
+    - ``embed = (wlat (lat, C), cadd (B, T, L, C), enc (B, L, C) or None)``:
+      the first op projects the carry and adds the per-step-constant terms
+      and the encoder rows (the JAX kernel's folded embed);
+    - ``final = (modf (nb, 2C), wfin (C, out), bfin (out,))``: the
+      FinalLayer head (LN + modulate + linear) emits the latent in f32;
+    - ``step_dt``: with ``final``, the head's output is applied as the Euler
+      update ``carry + dt * v`` — written IN PLACE into the carry ``x``,
+      which is returned.
+
+    Without ``embed``, ``x`` itself is updated in place as the trunk runs.
+    Returns the trunk activation, the velocity (B, T, L, out) f32, or the
+    updated carry."""
+    B, T, L = mask.shape
+    M = B * T * L
+    if embed is not None:
+        wlat, cadd, enc = embed
+        C = wlat.shape[1]
+        h = adaln_linear(x.reshape(M, x.shape[-1]), wlat, None, epilogue="add",
+                         add1=cadd.reshape(M, C),
+                         add2=None if enc is None else enc.reshape(B * L, C),
+                         add2_map=(T * L, L, L), out_dtype=cadd.dtype)
+    else:
+        C = x.shape[-1]
+        h = x.reshape(M, C)
+    mask = mask.to(torch.float32).contiguous()
+    for i, w in enumerate(ws):
+        trunk_layer(h, mods[:, i * 9 * C:(i + 1) * 9 * C], w, mask, B=B, T=T, L=L,
+                    num_heads=num_heads)
+    if final is None:
+        return h.view(B, T, L, C)
+    modf, wfin, bfin = final
+    out_c = wfin.shape[1]
+    if step_dt is None:
+        carry = torch.zeros(M, out_c, dtype=torch.float32, device=h.device)
+        dt = 1.0
+    else:
+        carry = x.reshape(M, out_c)
+        dt = step_dt
+    adaln_linear(h, wfin, bfin, ln="plain", shift=modf[:, :C], scale=modf[:, C:],
+                 epilogue="euler", res=carry, dt=dt, out=carry)
+    return carry.view(B, T, L, out_c) if step_dt is None else x

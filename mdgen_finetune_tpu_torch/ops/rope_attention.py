@@ -1,0 +1,107 @@
+"""rope_attention: RoPE + bias-KV + masked softmax attention over one axis
+of a (G, N, I, 3C) qkv tensor — the attention core of trunk stage 1, trunk
+stage 2 and the encoder's residue MHA.
+
+Kernel: ``csrc/rope_attention.cu`` (one warp per (sequence, head), K/V in
+shared memory; it replaces the attention cores inside the JAX package's
+``ops/fused_layer.py::_trunk_call`` and ``ops/ipa_encoder.py::_encoder_call``).
+``rope_attention_plain`` is the same function in plain PyTorch (the op order
+of the JAX package's ``time_attention._xla_impl`` / ``dense_attn``); it runs
+for CPU tensors. For CUDA tensors the wrapper launches the kernel or raises.
+
+Attention runs over N for every (g, i): stage 1 views the trunk as
+(B*T, L, 1, 3C), stage 2 as (B, T, L, 3C), the encoder as (B, L, 1, 3C).
+``key_valid`` (G, N, I), 1 = attendable; the bias key (RoPE'd at position N)
+is always attendable. ``base2``: q carries scale*log2(e) and the softmax is
+exp2 with no max subtraction (the trunk); otherwise natural exp (encoder).
+Returns (G, N, I, C).
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ..models.attention import attention_core
+from ..models.rope import apply_rope, rope_tables_np
+from . import _cuda
+
+_ARGTYPES = [_cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P,
+             _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.P]
+
+
+def rope_attention_plain(qkv, bias_k, bias_v, key_valid, *, num_heads: int,
+                         base2: bool, out=None):
+    """Plain PyTorch version of ``rope_attention`` (same arguments)."""
+    if qkv.is_cuda:
+        rope_attention_plain.cuda_calls += 1
+    G, N, I, C3 = qkv.shape
+    C, H = C3 // 3, num_heads
+    D = C // H
+    S = G * I
+    x = qkv.permute(0, 2, 1, 3).reshape(S, N, C3)
+    q, k, v = x[..., :C], x[..., C:2 * C], x[..., 2 * C:]
+    k = torch.cat([k, bias_k.reshape(1, 1, C).to(k.dtype).expand(S, 1, C)], dim=1)
+    v = torch.cat([v, bias_v.reshape(1, 1, C).to(v.dtype).expand(S, 1, C)], dim=1)
+
+    def heads(t):
+        return t.reshape(S, t.shape[1], H, D).transpose(1, 2)
+
+    q, k, v = heads(q), heads(k), heads(v)
+    q, k = apply_rope(q, k)
+    valid = torch.cat([key_valid.permute(0, 2, 1).reshape(S, N).to(q.dtype),
+                       torch.ones(S, 1, dtype=q.dtype, device=q.device)], dim=1)
+    o = attention_core(q, k, v, valid, base2=base2)  # (S, H, N, D)
+    o = o.transpose(1, 2).reshape(G, I, N, C).permute(0, 2, 1, 3)
+    if out is not None:
+        out.copy_(o)
+        return out
+    return o.contiguous()
+
+
+rope_attention_plain.cuda_calls = 0
+
+
+@functools.lru_cache(maxsize=32)
+def _tables(n_pos: int, D: int, device: str):
+    cos, sin = rope_tables_np(n_pos, D)
+    return (torch.as_tensor(cos, device=device).contiguous(),
+            torch.as_tensor(sin, device=device).contiguous())
+
+
+def rope_attention(qkv, bias_k, bias_v, key_valid, *, num_heads: int, base2: bool,
+                   out=None):
+    """The attention core: the kernel on CUDA tensors, the plain version on
+    CPU tensors (see the module docstring)."""
+    if not qkv.is_cuda:
+        return rope_attention_plain(qkv, bias_k, bias_v, key_valid,
+                                    num_heads=num_heads, base2=base2, out=out)
+    G, N, I, C3 = qkv.shape
+    C = C3 // 3
+    D = C // num_heads
+    if qkv.dtype != torch.bfloat16 or not qkv.is_contiguous():
+        raise ValueError("rope_attention: qkv must be a contiguous bf16 (G, N, I, 3C) tensor")
+    if D not in (16, 24, 32, 64) or C % num_heads:
+        raise ValueError(f"rope_attention: head dim {C}/{num_heads} is not supported")
+    if (bias_k.dtype != torch.bfloat16 or bias_v.dtype != torch.bfloat16
+            or not bias_k.is_contiguous() or not bias_v.is_contiguous()):
+        raise ValueError("rope_attention: bias_k / bias_v must be contiguous bf16 (C,)")
+    if key_valid.dtype != torch.float32 or tuple(key_valid.shape) != (G, N, I) \
+            or not key_valid.is_contiguous():
+        raise ValueError("rope_attention: key_valid must be a contiguous f32 (G, N, I) tensor")
+    if out is None:
+        out = torch.empty(G, N, I, C, dtype=torch.bfloat16, device=qkv.device)
+    elif out.dtype != torch.bfloat16 or not out.is_contiguous() or tuple(out.shape) != (G, N, I, C):
+        raise ValueError("rope_attention: out must be a contiguous bf16 (G, N, I, C) tensor")
+    cos, sin = _tables(N + 1, D, str(qkv.device))
+    lib = _cuda.library("rope_attention", _ARGTYPES)
+    code = lib.rope_attention(qkv.data_ptr(), bias_k.data_ptr(), bias_v.data_ptr(),
+                              key_valid.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+                              out.data_ptr(), G, N, I, num_heads, C, int(base2),
+                              _cuda.stream_ptr(qkv))
+    _cuda.check(code, "rope_attention")
+    rope_attention.launches += 1
+    return out
+
+
+rope_attention.launches = 0

@@ -1,0 +1,96 @@
+"""Task conditioning: latent tokenization and conditioning masks.
+
+Counterpart of the frames path of the JAX package's ``tasks.py``
+(reference src/mdgen/wrapper.py:283-365). Latent token: 7-dim rigid offset
+(quat ‖ trans) then 14 torsion channels (7 x sin/cos) = 21.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from .config import MDGenConfig
+from .geometry.rigid import Rigid
+
+# conditioning residues of inpainting/design (src/mdgen/wrapper.py:41-43)
+COND_IDX = (0, 3)
+
+
+def get_offsets(ref_frame: Rigid, rigids: Rigid) -> torch.Tensor:
+    """Relative 7-tensors of ``rigids`` in ``ref_frame`` (src/mdgen/utils.py:7-14)."""
+    return ref_frame.invert().compose(rigids).to_tensor_7()
+
+
+def _fix_quat_sign(offsets: torch.Tensor) -> torch.Tensor:
+    """Quaternion sign with a non-negative real part (src/mdgen/wrapper.py:308-309)."""
+    sign = torch.where(offsets[..., 0:1] < 0, -1.0, 1.0)
+    return torch.cat([offsets[..., :4] * sign, offsets[..., 4:]], dim=-1)
+
+
+def make_cond_mask(cfg: MDGenConfig, B: int, T: int, L: int, device=None) -> torch.Tensor:
+    """(B, T, L) int mask of conditioning positions (src/mdgen/wrapper.py:337-346)."""
+    task = cfg.task
+    mask = torch.zeros(B, T, L, dtype=torch.int32, device=device)
+    if task.sim_condition:
+        mask[:, 0] = 1
+    if task.tps_condition:
+        mask[:, 0] = 1
+        mask[:, -1] = 1
+    if task.cond_interval:
+        mask[:, ::task.cond_interval] = 1
+    if task.inpainting or task.dynamic_mpnn or task.mpnn:
+        mask[:, :, list(COND_IDX)] = 1
+    return mask
+
+
+def _unsupported(cfg: MDGenConfig):
+    t = cfg.task
+    if t.no_frames:
+        return "no_frames"
+    if cfg.doubled_offsets:
+        return "tps / inpainting / dynamic_mpnn"
+    for name in ("design", "mpnn", "design_key_frames", "no_torsion",
+                 "no_design_torsion", "no_offsets"):
+        if getattr(t, name):
+            return name
+    return None
+
+
+def prep_batch(cfg: MDGenConfig, batch: Dict[str, torch.Tensor]) -> Dict:
+    """Batch dict -> {rigids, latents, loss_mask, model_kwargs} for the
+    frames tasks of this slice (src/mdgen/wrapper.py:283-365)."""
+    bad = _unsupported(cfg)
+    if bad is not None:
+        raise NotImplementedError(
+            f"task option {bad!r} is not ported yet (ROADMAP.md queue 1 item 8)")
+    task = cfg.task
+    rigids = Rigid(batch["rots"], batch["trans"])  # (B, T, L)
+    B, T, L = rigids.shape
+    offsets = _fix_quat_sign(get_offsets(rigids[:, 0:1], rigids))
+
+    frame_loss_mask = batch["mask"][..., None].expand(B, L, 7)
+    torsion_loss_mask = batch["torsion_mask"][..., None].expand(B, L, 7, 2).reshape(B, L, 14)
+    torsions = batch["torsions"].reshape(B, T, L, 14)
+    latents = torch.cat([offsets, torsions], dim=-1)
+    if task.supervise_all_torsions:
+        torsion_loss_mask = torch.ones_like(torsion_loss_mask)
+    elif task.supervise_no_torsions:
+        torsion_loss_mask = torch.zeros_like(torsion_loss_mask)
+    loss_mask = torch.cat([frame_loss_mask, torsion_loss_mask], dim=-1)
+    loss_mask = loss_mask[:, None].expand(B, T, L, loss_mask.shape[-1])
+
+    cond_mask = make_cond_mask(cfg, B, T, L, device=latents.device)
+    return {
+        "rigids": rigids,
+        "latents": latents,
+        "loss_mask": loss_mask,
+        "model_kwargs": {
+            "start_frames": rigids[:, 0],
+            "end_frames": rigids[:, -1],
+            "mask": batch["mask"][:, None].expand(B, T, L),
+            "aatype": batch["seqres"],
+            "x_cond": torch.where(cond_mask[..., None].bool(), latents, 0.0),
+            "x_cond_mask": cond_mask,
+        },
+    }

@@ -1,0 +1,152 @@
+"""Weights: the JAX package's flax parameter tree <-> the port's state_dict.
+
+``from_flax(tree, cfg)`` takes the tree as nested dicts of numpy arrays (as
+``jax.tree_util.tree_map(np.asarray, params)`` gives them; the top-level
+``"params"`` key is optional) and returns a state_dict for
+``models.denoiser.LatentMDGen``. It needs no JAX:
+
+- module ``ipa_layers_3`` / ``layers_3`` -> ``ipa_layers.3`` / ``layers.3``;
+- Dense ``kernel`` (in, out) -> ``weight`` (out, in); ``bias`` -> ``bias``;
+- LayerNorm ``scale`` and Embed ``embedding`` -> ``weight``;
+- ``bias_k`` / ``bias_v`` (1, 1, C) -> (C,);
+- IPA's fused ``linear_kv`` (per head [k | v]) and ``linear_kv_points``
+  (coordinate, head, [k points | v points]) are split by columns, as the
+  JAX package's ``fold_encoder_ws`` splits them.
+
+``to_flax`` is the exact inverse.
+"""
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+from ..config import MDGenConfig
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def _module_name(name: str) -> str:
+    return re.sub(r"^(ipa_layers|layers)_(\d+)$", r"\1.\2", name)
+
+
+def from_flax(tree: dict, cfg: MDGenConfig) -> dict:
+    """Flax parameter tree (numpy leaves) -> the port's state_dict (f32)."""
+    tree = tree.get("params", tree)
+    m = cfg.model
+    H, Ch, Pq, Pv = m.ipa_heads, m.ipa_head_dim, m.ipa_qk, m.ipa_v
+    sd = {}
+    for path, v in _flatten(tree):
+        mods = [_module_name(p) for p in path[:-1]]
+        leaf = path[-1]
+        v = np.asarray(v, np.float32)
+        if mods and mods[-1] in ("linear_kv", "linear_kv_points"):
+            base = ".".join(mods[:-1])
+            if mods[-1] == "linear_kv":
+                parts = v.reshape(-1, H, 2, Ch)
+                k, val = parts[..., 0, :], parts[..., 1, :]
+                names = ("linear_k", "linear_v")
+            else:
+                parts = v.reshape(-1, 3, H, Pq + Pv)
+                k, val = parts[..., :Pq], parts[..., Pq:]
+                names = ("linear_k_points", "linear_v_points")
+            for name, a in zip(names, (k, val)):
+                if leaf == "kernel":
+                    sd[f"{base}.{name}.weight"] = a.reshape(a.shape[0], -1).T
+                else:
+                    sd[f"{base}.{name}.bias"] = a.reshape(-1)
+            continue
+        prefix = ".".join(mods)
+        if leaf == "kernel":
+            sd[f"{prefix}.weight"] = v.T
+        elif leaf in ("scale", "embedding"):
+            sd[f"{prefix}.weight"] = v
+        elif leaf in ("bias_k", "bias_v"):
+            sd[f"{prefix}.{leaf}"] = v.reshape(-1)
+        else:
+            sd[f"{prefix}.{leaf}" if prefix else leaf] = v
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def to_flax(state_dict: dict, cfg: MDGenConfig) -> dict:
+    """The port's state_dict -> the flax parameter tree {"params": ...}
+    (numpy leaves); the inverse of ``from_flax``."""
+    m = cfg.model
+    H, Ch, Pq, Pv = m.ipa_heads, m.ipa_head_dim, m.ipa_qk, m.ipa_v
+    sd = {k: v.detach().cpu().float().numpy() for k, v in state_dict.items()}
+    out: dict = {}
+
+    def put(path, value):
+        d = out
+        for p in path[:-1]:
+            d = d.setdefault(p, {})
+        d[path[-1]] = value
+
+    def flax_path(key):
+        parts = key.split(".")
+        mods, leaf = parts[:-1], parts[-1]
+        if len(mods) >= 2 and mods[0] in ("ipa_layers", "layers") and mods[1].isdigit():
+            mods = [f"{mods[0]}_{mods[1]}"] + mods[2:]
+        return mods, leaf
+
+    done = set()
+    for key, v in sd.items():
+        mods, leaf = flax_path(key)
+        last = mods[-1] if mods else ""
+        if last in ("linear_k", "linear_v", "linear_k_points", "linear_v_points"):
+            fused = "linear_kv" if last in ("linear_k", "linear_v") else "linear_kv_points"
+            base = key.rsplit(".", 2)[0]
+            if (base, fused, leaf) in done:
+                continue
+            done.add((base, fused, leaf))
+            if fused == "linear_kv":
+                k = sd[f"{base}.linear_k.{leaf}"]
+                val = sd[f"{base}.linear_v.{leaf}"]
+                if leaf == "weight":
+                    a = np.stack([k.T.reshape(-1, H, Ch), val.T.reshape(-1, H, Ch)], axis=2)
+                    put(mods[:-1] + ["linear_kv", "kernel"], a.reshape(a.shape[0], -1))
+                else:
+                    a = np.stack([k.reshape(H, Ch), val.reshape(H, Ch)], axis=1)
+                    put(mods[:-1] + ["linear_kv", "bias"], a.reshape(-1))
+            else:
+                k = sd[f"{base}.linear_k_points.{leaf}"]
+                val = sd[f"{base}.linear_v_points.{leaf}"]
+                if leaf == "weight":
+                    a = np.concatenate([k.T.reshape(-1, 3, H, Pq), val.T.reshape(-1, 3, H, Pv)], -1)
+                    put(mods[:-1] + ["linear_kv_points", "kernel"], a.reshape(a.shape[0], -1))
+                else:
+                    a = np.concatenate([k.reshape(3, H, Pq), val.reshape(3, H, Pv)], -1)
+                    put(mods[:-1] + ["linear_kv_points", "bias"], a.reshape(-1))
+            continue
+        if leaf == "weight":
+            if last in ("mask_to_emb", "aatype_to_emb"):
+                put(mods + ["embedding"], v)
+            elif last == "ipa_norm":
+                put(mods + ["scale"], v)
+            else:
+                put(mods + ["kernel"], v.T)
+        elif leaf in ("bias_k", "bias_v"):
+            put(mods + [leaf], v.reshape(1, 1, -1))
+        else:
+            put(mods + [leaf], v)
+    return {"params": out}
+
+
+@torch.no_grad()
+def randomize_(model: torch.nn.Module, generator: torch.Generator, scale: float = 0.05):
+    """Overwrite every parameter with seeded N(0, scale^2) values (LayerNorm
+    weights 1 + noise). The JAX package zero-initialises the AdaLN and output
+    projections, which makes the model the identity; random weights make a
+    comparison of two implementations meaningful."""
+    for name, p in model.named_parameters():
+        r = torch.randn(p.shape, generator=generator, device=generator.device,
+                        dtype=torch.float32).to(p.device) * scale
+        p.copy_(r + 1.0 if name.endswith("ipa_norm.weight") else r)
+    return model

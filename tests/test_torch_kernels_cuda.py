@@ -1,0 +1,98 @@
+"""PyTorch port, the CUDA kernels against their plain twins on a card.
+
+These tests need an NVIDIA GPU (a CUDA kernel has no CPU mode): they carry
+the ``cuda`` marker and skip without a card. The file imports no JAX, so it
+runs where only PyTorch is installed:
+
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
+
+(``--noconftest``: the suite's conftest configures JAX). ``chip_smoke.py``
+makes the same comparisons at the flagship's full shapes.
+"""
+import pytest
+import torch
+
+from mdgen_finetune_tpu_torch.geometry.rigid import Rigid as TRigid
+
+
+def _close(got, ref, rel=1e-2):
+    """Kernel (bf16 out) against the plain twin run in f32 on the same
+    inputs: within ``rel`` of the output's scale (bf16 keeps 8 bits)."""
+    scale = max(1.0, ref.float().abs().max().item())
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= rel * scale, (err, scale)
+
+
+def _f32(kw):
+    return {k: (v.float() if torch.is_tensor(v) and v.dtype == torch.bfloat16 else v)
+            for k, v in kw.items()}
+
+
+@pytest.mark.cuda
+def test_trunk_kernels_match_plain_on_card():
+    """On the card: adaln_linear (both tilings, every prologue/epilogue of
+    the trunk and the encoder) and rope_attention (both axes, both softmax
+    modes) against their plain twins, at the flagship head dim 24."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.ops.adaln_linear import adaln_linear, adaln_linear_plain
+    from mdgen_finetune_tpu_torch.ops.rope_attention import rope_attention, rope_attention_plain
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    bf, f32 = torch.bfloat16, torch.float32
+    Bc, Tc, Lc, Cc, Hc = 2, 20, 4, 96, 4
+    M = Bc * Tc * Lc
+
+    def r(*s, sc=1.0, dtype=bf):
+        return (torch.randn(*s, generator=g, device="cuda") * sc).to(dtype)
+
+    x, w, b = r(M, Cc), r(Cc, 3 * Cc, sc=Cc ** -0.5), r(3 * Cc, sc=0.1)
+    sh, scl, gate = r(Bc, Cc, sc=0.3), r(Bc, Cc, sc=0.3), r(Bc, 3 * Cc, sc=0.3)
+    cases = [
+        (x, w, b, dict(ln="plain", shift=sh, scale=scl)),
+        (x, w, b, dict(ln="plain", shift=sh, scale=scl, epilogue="gelu")),
+        (x, w, b, dict(epilogue="gate_res", res=r(M, 3 * Cc), gate=gate)),
+        (x, w, b, dict(ln="affine", ln_weight=1 + r(Cc, sc=0.1, dtype=f32),
+                       ln_bias=r(Cc, sc=0.1, dtype=f32), out_dtype=f32)),
+        # the 64-tile path: N = 21 head with the Euler update, f32 embed input
+        (x, w[:, :21].contiguous(), b[:21].contiguous(),
+         dict(ln="plain", shift=sh[:1], scale=scl[:1], epilogue="euler", res=r(M, 21, dtype=f32), dt=0.1)),
+        (r(M, 21, dtype=f32), r(21, Cc, sc=0.2), None,
+         dict(epilogue="add", add1=r(M, Cc), add2=r(Bc * Lc, Cc), add2_map=(Tc * Lc, Lc, Lc))),
+    ]
+    for a_, w_, b_, kw in cases:
+        _close(adaln_linear(a_, w_, b_, **kw),
+               adaln_linear_plain(a_.float(), w_.float(), None if b_ is None else b_.float(), **_f32(kw)))
+    mask = torch.ones(Bc, Tc, Lc, device="cuda")
+    mask[1, :, -1] = 0
+    qkv = r(Bc, Tc, Lc, 3 * Cc)
+    bk, bv = r(Cc), r(Cc)
+    for view, mk in (((Bc * Tc, Lc, 1, 3 * Cc), (Bc * Tc, Lc, 1)), ((Bc, Tc, Lc, 3 * Cc), (Bc, Tc, Lc))):
+        q = qkv.view(view)
+        for base2 in (True, False):
+            _close(rope_attention(q, bk, bv, mask.view(mk), num_heads=Hc, base2=base2),
+                   rope_attention_plain(q.float(), bk.float(), bv.float(), mask.view(mk),
+                                        num_heads=Hc, base2=base2))
+
+
+@pytest.mark.cuda
+def test_ipa_attention_matches_plain_on_card():
+    """On the card: the IPA core kernel against its plain twin (f32 point
+    math in both; the kernel writes bf16 features)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.ops.ipa_attention import (
+        ipa_attention, ipa_attention_plain, proj_width)
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    Bc = 16
+    proj = torch.randn(Bc, 4, proj_width(4, 32, 8, 8), generator=g, device="cuda")
+    t7 = torch.randn(Bc, 4, 7, generator=g, device="cuda")
+    fr = TRigid.from_tensor_7(t7)
+    mask = torch.ones(Bc, 4, device="cuda")
+    mask[0, -1] = 0
+    hw = torch.randn(4, generator=g, device="cuda")
+    a = ipa_attention(proj, fr.rot.contiguous(), fr.trans.contiguous(), mask, hw,
+                      H=4, Ch=32, Pq=8, Pv=8)
+    p = ipa_attention_plain(proj, fr.rot, fr.trans, mask, hw, H=4, Ch=32, Pq=8, Pv=8)
+    _close(a, p)
