@@ -3,24 +3,37 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels of ``mdgen_finetune_tpu_torch/csrc``
-from this checkout, holds each kernel against its plain PyTorch twin at the
-shapes of the flagship sampler, checks one denoiser step on the card
-against the same step on the CPU, then drives the flagship forward-simulation
-sampler at full width (5 layers x 384, 16 heads, prepend-IPA, L = 4, T = 100,
-B = 64, 100 Euler steps, bf16, seeded random weights) through
-``InferenceEngine.sample`` and a 2-window ``rollout``, and traces one more
-sample with ``torch.profiler`` (device time by kernel, idle share). Each
-phase prints one JSON line; the kernel line (times, bounds, launches) comes
-second to last,
-and the last line is ``{"ok": true, "device": {...}}``. Any failed check
-raises and the script exits non-zero; without CUDA it exits non-zero before
-printing any result.
+from this checkout and holds each kernel against its plain PyTorch twin at
+the shapes of its path (the sampler's forward kernels at B = 64, the
+training backward kernels at B = 32). Then:
+
+- the sampler: one denoiser step on the card against the same step on the
+  CPU; the flagship forward-simulation sampler at full width (5 layers x
+  384, 16 heads, prepend-IPA, L = 4, T = 100, B = 64, 100 Euler steps,
+  bf16, seeded random weights) through ``InferenceEngine.sample`` and a
+  2-window ``rollout``; a ``torch.profiler`` trace of one more sample;
+- training: the loss and every parameter's gradient on the card (bf16
+  kernels) against the CPU (f32 twins) at full width, B = 2; the flagship
+  config trained through ``Trainer`` at B = 32, T = 100, L = 4 (2 warm-up
+  and 20 timed steps, 30 steps on one fixed batch, a checkpoint round
+  trip) from the port's real init on synthetic "AAGG" / "GHKL"
+  trajectories; a ``torch.profiler`` trace of one train step; the trunk's
+  training forward and backward as a whole (B = 32), timed with the kernels
+  and with their plain twins, and held to the twins in f32.
+
+Each phase prints one JSON line; the kernel line (times, bounds, launches)
+comes second to last, and the last line is ``{"ok": true, "device": {...}}``.
+Any failed check raises and the script exits non-zero; without CUDA it exits
+non-zero before printing any result. Scratch files go to
+``workdir/chip_smoke/`` (listed in .gitignore) and are removed at the end.
 """
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -28,6 +41,8 @@ PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
 PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
 B, T, L, C, H, NL, STEPS = 64, 100, 4, 384, 16, 5, 100
+B_TRAIN = 32  # the training shape of tools/train_step_bench.py
+SCRATCH = Path(__file__).resolve().parent / "workdir" / "chip_smoke"
 
 
 def emit(obj):
@@ -195,6 +210,398 @@ def phase_kernels(dev):
     return out
 
 
+def phase_bwd_kernels(dev):
+    """The training backward kernels against their plain twins (f32 on the
+    same inputs) at the training path's shapes (B = 32: M = 12,800 rows);
+    times of kernel, twin and a library yardstick."""
+    import torch.nn.functional as F
+
+    from mdgen_finetune_tpu_torch.ops.linear_bwd import linear_bwd, linear_bwd_plain
+    from mdgen_finetune_tpu_torch.ops.modln_bwd import modln_bwd, modln_bwd_plain
+    from mdgen_finetune_tpu_torch.ops.rope_attention_bwd import (
+        rope_attention_bwd, rope_attention_bwd_plain)
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    bf, f32 = torch.bfloat16, torch.float32
+    Bt = B_TRAIN
+    M = Bt * T * L
+
+    def r(*s, sc=1.0, dtype=bf):
+        return (torch.randn(*s, generator=g, device=dev) * sc).to(dtype)
+
+    def f(kw):
+        return {k: (v.float() if torch.is_tensor(v) and v.dtype == bf else v) for k, v in kw.items()}
+
+    out = {}
+    # ---- linear_bwd: dgrad and wgrad at the fc1/fc2 and qkv shapes ----
+    x, dout = r(M, C), r(M, C, dtype=f32)
+    sh, scl, gate = r(Bt, C, sc=0.3), r(Bt, C, sc=0.3), r(Bt, C, sc=0.3)
+    da, dqkv = r(M, 4 * C, sc=0.1), r(M, 3 * C, sc=0.1)
+    uses = {
+        "fc1_wgrad": ("wgrad", da, x, dict(ln=True, shift=sh, scale=scl)),
+        "fc1_dgrad": ("dgrad", da, r(C, 4 * C, sc=C ** -0.5), {}),
+        "fc2_wgrad": ("wgrad", dout, r(M, 4 * C), dict(gate=gate)),
+        "fc2_dgrad_gelu": ("dgrad", dout, r(4 * C, C, sc=(4 * C) ** -0.5),
+                           dict(gate=gate, act=r(M, 4 * C, sc=2.0, dtype=f32), out_dtype=bf)),
+        "qkv_wgrad": ("wgrad", dqkv, x, dict(ln=True, shift=sh, scale=scl)),
+        "qkv_dgrad": ("dgrad", dqkv, r(C, 3 * C, sc=C ** -0.5), {}),
+    }
+    errs, use_ms = {}, {}
+    for name, (mode, dy, xx, kw) in uses.items():
+        got = linear_bwd(mode, dy, xx, **kw)
+        ref = linear_bwd_plain(mode, dy.float(), xx.float(), **f(kw))
+        if mode == "wgrad":
+            e1, t1 = check(f"linear_bwd[{name}].dW", got[0], ref[0], 1e-2)
+            e2, _ = check(f"linear_bwd[{name}].db", got[1], ref[1], 1e-2)
+            errs[name] = (max(e1, e2), t1)
+        else:
+            errs[name] = check(f"linear_bwd[{name}]", got, ref, 1e-2)
+        use_ms[name] = time_ms(lambda: linear_bwd(mode, dy, xx, **kw))
+    mode, dy, xx, kw = uses["fc1_wgrad"]
+    K_, N_ = C, 4 * C
+    rows = lambda v: v.float().repeat_interleave(T * L, 0)  # noqa: E731
+    lib = lambda: torch.mm(  # noqa: E731
+        (F.layer_norm(xx.float(), (K_,), eps=1e-6) * (1 + rows(scl)) + rows(sh)).to(bf).t(), dy)
+    out["linear_bwd"] = dict(
+        shape=f"fc1 wgrad: LN+modulate({M},{K_})^T @ ({M},{N_}), f32 sum over {M} rows",
+        uses_ms=use_ms, max_abs_err=max(e for e, _ in errs.values()),
+        tol={k: t for k, (_, t) in errs.items()}, ms=use_ms["fc1_wgrad"],
+        plain_ms=time_ms(lambda: linear_bwd_plain(mode, dy, xx, **kw)), library_ms=time_ms(lib),
+        bound=bound_ms(nbytes(xx, dy, sh, scl) + (K_ * N_ + N_) * 4, 2.0 * M * K_ * N_))
+
+    # ---- modln_bwd at the trunk's (M, C) with B per-element rows ----
+    dh, y = r(M, C, dtype=f32), r(M, C, dtype=f32)
+    got = modln_bwd(x, dh, dout, y, scl)
+    ref = modln_bwd_plain(x.float(), dh, dout, y, scl.float())
+    e1 = check("modln_bwd.dx", got[0], ref[0], 1e-3)
+    e2 = check("modln_bwd.dmod", got[1], ref[1], 1e-3)
+    xl = x.float().requires_grad_()
+    hl = F.layer_norm(xl, (C,), eps=1e-6) * (1 + rows(scl)) + rows(sh)
+    out["modln_bwd"] = dict(
+        shape=f"({M},{C}) rows, {Bt} elements", max_abs_err=max(e1[0], e2[0]),
+        tol={"dx": e1[1], "dmod": e2[1]},
+        ms=time_ms(lambda: modln_bwd(x, dh, dout, y, scl)),
+        plain_ms=time_ms(lambda: modln_bwd_plain(x, dh, dout, y, scl)),
+        library_ms=time_ms(lambda: torch.autograd.grad(hl, xl, dh, retain_graph=True)),
+        bound=bound_ms(nbytes(x, dh, dout, y, scl) + M * C * 4 + Bt * 3 * C * 4, 20.0 * M * C))
+
+    # ---- rope_attention_bwd: stage 1 and stage 2 ----
+    mask = torch.ones(Bt, T, L, device=dev)
+    mask[0, :, -1] = 0
+    qkv = r(Bt, T, L, 3 * C)
+    bk, bv = r(C), r(C)
+    do = r(Bt, T, L, C)
+    errs = {}
+    for name, view in (("stage1", (Bt * T, L, 1)), ("stage2", (Bt, T, L))):
+        q, dd, mk = qkv.view(*view, 3 * C), do.view(*view, C), mask.view(view)
+        got = rope_attention_bwd(q, dd, bk, bv, mk, num_heads=H)
+        ref = rope_attention_bwd_plain(q.float(), dd.float(), bk.float(), bv.float(), mk,
+                                       num_heads=H)
+        es = [check(f"rope_attention_bwd[{name}][{i}]", a, b, 1e-2) for i, (a, b) in
+              enumerate(zip(got, ref))]
+        errs[name] = (max(e for e, _ in es), es[0][1])
+    run = lambda: rope_attention_bwd(qkv, do, bk, bv, mask, num_heads=H)  # noqa: E731
+    plain = lambda: rope_attention_bwd_plain(qkv, do, bk, bv, mask, num_heads=H)  # noqa: E731
+    # library yardstick: SDPA's backward on the same (pre-roped, bias-appended) heads
+    S, D = Bt * L, C // H
+
+    def heads(t, extra=None):
+        t = t.permute(0, 2, 1, 3).reshape(S, T, H, D)
+        if extra is not None:
+            t = torch.cat([t, extra.view(1, 1, H, D).expand(S, 1, H, D)], 1)
+        return t.transpose(1, 2).contiguous().requires_grad_()
+
+    qh, kh, vh = heads(qkv[..., :C]), heads(qkv[..., C:2 * C], bk), heads(qkv[..., 2 * C:], bv)
+    am = torch.cat([mask.permute(0, 2, 1).reshape(S, T), torch.ones(S, 1, device=dev)], 1) > 0
+    o = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=am[:, None, None, :])
+    go = do.permute(0, 2, 1, 3).reshape(S, T, H, D).transpose(1, 2).contiguous()
+    lib = lambda: torch.autograd.grad(o, (qh, kh, vh), go, retain_graph=True)  # noqa: E731
+    n_seq = Bt * L
+    out["rope_attention_bwd"] = dict(
+        shape=f"stage 2: {n_seq} sequences x {H} heads, {T} queries, {T + 1} keys, D={D}",
+        max_abs_err=max(e for e, _ in errs.values()), tol={k: t for k, (_, t) in errs.items()},
+        ms=time_ms(run), plain_ms=time_ms(plain), library_ms=time_ms(lib),
+        stage1_ms=time_ms(lambda: rope_attention_bwd(qkv.view(Bt * T, L, 1, 3 * C),
+                                                     do.view(Bt * T, L, 1, C), bk, bv,
+                                                     mask.view(Bt * T, L, 1), num_heads=H)),
+        bound=bound_ms(nbytes(qkv, do, bk, bv, mask) + qkv.numel() * 2 + 2 * C * 4,
+                       10.0 * n_seq * H * T * (T + 1) * D))
+    emit({"phase": "bwd_kernels", "kernels": out})
+    return out
+
+
+def train_config(batch_size):
+    from mdgen_finetune_tpu_torch.config import (DataConfig, MDGenConfig, ModelConfig,
+                                                 TaskConfig, TrainConfig)
+
+    return MDGenConfig(
+        model=ModelConfig(num_layers=NL, embed_dim=C, mha_heads=H, prepend_ipa=True,
+                          abs_pos_emb=True, use_bf16=True),
+        data=DataConfig(data_dir=str(SCRATCH / "data"), num_frames=T, crop=L),
+        task=TaskConfig(sim_condition=True),
+        train=TrainConfig(batch_size=batch_size, lr=1e-4, grad_clip=1.0, ema=True,
+                          ema_decay=0.999),
+        workdir=str(SCRATCH), run_name="train")
+
+
+def phase_grad_across_devices(dev):
+    """The loss and every parameter's gradient at full width (B = 2, T = 100,
+    L = 4, 5 x 384, seeded random weights, the same t and x0, the batch
+    featurized once on the CPU: the first residue's pre-omega torsion is
+    degenerate geometry, which each device rounds its own way) on the card
+    (bf16 kernels) against the CPU in f32 (the truth), held under the rule
+    of tests/test_fused_layer_bwd.py: each tensor's error is at most twice
+    that of the plain twins run in bf16 on the CPU, plus 0.01. Errors are
+    relative L2 per tensor; a tensor's norm is taken as at least 1e-3 of the
+    largest gradient norm (IPA's key bias has an exactly-zero gradient that
+    every run rounds differently)."""
+    from mdgen_finetune_tpu_torch.data.featurize import featurize_atom14_batch
+    from mdgen_finetune_tpu_torch.training import Trainer
+    from mdgen_finetune_tpu_torch.utils.weights import randomize_
+
+    cfg = train_config(2)
+    atom14, seqres, mask = make_inputs(2, 7, "cpu")
+    batch = {"atom14": atom14[:, None].expand(2, T, L, 14, 3).contiguous()
+             + 0.3 * torch.randn(2, T, L, 14, 3, generator=torch.Generator().manual_seed(8)),
+             "seqres": seqres, "mask": mask}
+    feats = featurize_atom14_batch(batch["atom14"], batch["seqres"], batch["mask"])
+    gen = torch.Generator().manual_seed(9)
+    t = torch.rand(2, generator=gen) * 0.9 + 0.05
+    x0 = torch.randn(2, T, L, cfg.latent_dim, generator=gen)
+    f32_cfg = cfg.replace(model=dataclasses.replace(cfg.model, use_bf16=False))
+    res = {}
+    for name, d, c in (("cuda", dev, cfg), ("cpu_f32", "cpu", f32_cfg), ("cpu_bf16", "cpu", cfg)):
+        tr = Trainer(c, device=d)
+        tr.init_state(0)
+        randomize_(tr.model, torch.Generator().manual_seed(12), scale=0.05)
+        loss, _ = tr._feature_loss({k: v.to(d) for k, v in feats.items()}, t=t.to(d),
+                                   x0=x0.to(d))
+        loss.backward()
+        res[name] = (loss.item(), {k: p.grad.float().cpu() for k, p in tr.model.named_parameters()})
+    lt, gt = res["cpu_f32"]
+    floor = 1e-3 * max(v.norm().item() for v in gt.values())
+
+    def rel(g):
+        return {k: ((g[k] - v).norm() / max(v.norm().item(), floor)).item() for k, v in gt.items()}
+
+    card, ref = rel(res["cuda"][1]), rel(res["cpu_bf16"][1])
+    over = {k: (card[k], ref[k]) for k in card if not card[k] <= 2 * ref[k] + 0.01}
+    worst = sorted(card, key=lambda k: card[k] - 2 * ref[k])[-5:]
+    loss_rel = abs(res["cuda"][0] - lt) / abs(lt)
+    emit({"phase": "grad_cuda_vs_cpu", "batch": 2, "loss_cuda": res["cuda"][0], "loss_cpu_f32": lt,
+          "loss_cpu_bf16": res["cpu_bf16"][0], "loss_rel": loss_rel, "params": len(card),
+          "rule": "rel_l2(card) <= 2 * rel_l2(cpu bf16) + 0.01 per tensor",
+          "worst_rel_l2": max(card.values()), "median_rel_l2": sorted(card.values())[len(card) // 2],
+          "worst_vs_rule": {k: [card[k], 2 * ref[k] + 0.01] for k in worst},
+          "tol": {"loss_rel": 1e-2}})
+    if over or not loss_rel <= 1e-2:
+        raise AssertionError(f"card vs CPU gradients over the rule: {over}, loss {loss_rel}")
+
+
+TRAIN_WRAPPERS = ("adaln_linear", "rope_attention", "ipa_attention", "linear_bwd", "modln_bwd",
+                  "rope_attention_bwd")
+
+
+def _counters():
+    """The six kernel wrappers and their plain twins."""
+    import importlib
+
+    mods = [importlib.import_module(f"mdgen_finetune_tpu_torch.ops.{n}") for n in TRAIN_WRAPPERS]
+    return ([getattr(m, n) for m, n in zip(mods, TRAIN_WRAPPERS)],
+            [getattr(m, n + "_plain") for m, n in zip(mods, TRAIN_WRAPPERS)])
+
+
+def phase_train_path(dev):
+    """The flagship config trained through ``Trainer`` from its real init."""
+    import numpy as np
+
+    from mdgen_finetune_tpu_torch.data.dataset import MDGenDataset, make_batch_iterator
+    from mdgen_finetune_tpu_torch.data.synthetic import make_synthetic_dataset
+    from mdgen_finetune_tpu_torch.ops.ipa_encoder import ipa_encoder
+    from mdgen_finetune_tpu_torch.training import Trainer
+
+    cfg = train_config(B_TRAIN)
+    split = make_synthetic_dataset(cfg.data.data_dir, ["AAGG", "GHKL"], num_frames=2 * T)
+    it = make_batch_iterator(MDGenDataset(cfg, split), B_TRAIN, seed=0)
+    batches = [{k: torch.as_tensor(np.asarray(v), device=dev) for k, v in next(it).items()
+                if k != "name"} for _ in range(22)]
+    it.close()
+    trainer = Trainer(cfg, device=dev)
+    state = trainer.init_state(0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    torch.cuda.reset_peak_memory_stats()
+    wrappers, twins = _counters()
+    for fn in wrappers:
+        fn.launches = 0
+    for fn in twins:
+        fn.cuda_calls = 0
+    ipa_encoder.bwd_recomputes = 0
+    metrics = []
+    for b in batches[:2]:  # warm-up
+        state, m = trainer.train_step(state, b, gen)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    before = {fn.__name__: fn.launches for fn in wrappers}
+    t0 = time.perf_counter()
+    for b in batches[2:]:
+        state, m = trainer.train_step(state, b, gen)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / 20
+    per_step = {fn.__name__: (fn.launches - before[fn.__name__]) / 20 for fn in wrappers}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # 30 steps on one fixed batch with fixed t and x0: the objective is fixed
+    fixed = []
+    for _ in range(30):
+        state, m = trainer.train_step(state, batches[0], torch.Generator(device=dev).manual_seed(5))
+        fixed.append(m["loss"])
+    fixed = [float(v) for v in fixed]
+
+    # checkpoint round trip
+    saved = {k: v.detach().clone() for k, v in state.params.items()}
+    saved_ema = {k: v.clone() for k, v in state.ema_params.items()}
+    path = trainer.save_checkpoint(state)
+    state, _ = trainer.train_step(state, batches[1], gen)
+    state = trainer.restore_checkpoint(path, state)
+    ckpt_ok = all(torch.equal(state.params[k], v) for k, v in saved.items()) and \
+        all(torch.equal(state.ema_params[k], v) for k, v in saved_ema.items())
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    twin_calls = {fn.__name__: fn.cuda_calls for fn in twins}
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    first5, last5 = sum(fixed[:5]) / 5, sum(fixed[-5:]) / 5
+    emit({"phase": "train_path", "B": B_TRAIN, "T": T, "L": L, "C": C, "layers": NL,
+          "dtype": "bf16", "ms_per_step": secs * 1e3, "trajectories_per_s": B_TRAIN / secs,
+          "peak_memory_gb": peak_gb, "losses": losses, "grad_norms": norms,
+          "fixed_batch_first5": first5, "fixed_batch_last5": last5,
+          "checkpoint_round_trip": ckpt_ok, "launches_per_step": per_step,
+          "launches": launches, "plain_calls_on_card": twin_calls,
+          "encoder_bwd_recomputes": ipa_encoder.bwd_recomputes})
+    if not all(np.isfinite(losses + norms + fixed)):
+        raise AssertionError("non-finite loss or gradient norm in training")
+    if not last5 < first5:
+        raise AssertionError(f"fixed-batch loss did not fall: {first5} -> {last5}")
+    if not ckpt_ok:
+        raise AssertionError("checkpoint round trip changed the state")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the training path never launched: {launches}")
+    if any(twin_calls.values()):
+        raise AssertionError(f"plain twins ran on the card: {twin_calls}")
+    return launches, (trainer, state, batches[0], gen)
+
+
+def phase_trunk_rows(dev):
+    """Rows 3 and 4 of the kernel table as a whole, at the training shape
+    (B = 32, T = 100, L = 4, 5 x 384, one padded residue, seeded random
+    weights): the trunk's training forward (``FusedTrunkFn.forward``: the
+    five layers and the head, saving x_in, X1, X2) and its backward (the
+    head's VJP, then ``fused_layer_bwd`` per layer). Each is timed with the
+    kernels and with every wrapper swapped for its plain twin on the same
+    bf16 card tensors, and both are held to the plain twins in f32 under the
+    rule of ``grad_cuda_vs_cpu``."""
+    import importlib
+
+    from mdgen_finetune_tpu_torch.models.denoiser import LatentMDGen
+    from mdgen_finetune_tpu_torch.utils.weights import randomize_
+
+    FL = importlib.import_module("mdgen_finetune_tpu_torch.ops.fused_layer")
+    FB = importlib.import_module("mdgen_finetune_tpu_torch.ops.fused_layer_bwd")
+    wrappers, twins = _counters()
+    twin_of = dict(zip(TRAIN_WRAPPERS, twins))
+    uses = [(m, n) for m in (FL, FB) for n in TRAIN_WRAPPERS if hasattr(m, n)]
+
+    def with_twins(fn):
+        kept = [getattr(m, n) for m, n in uses]
+        for m, n in uses:
+            setattr(m, n, twin_of[n])
+        try:
+            return fn()
+        finally:
+            for (m, n), k in zip(uses, kept):
+                setattr(m, n, k)
+
+    cfg = train_config(B_TRAIN)
+    model = randomize_(LatentMDGen(cfg).to(dev), torch.Generator().manual_seed(31), scale=0.05)
+    g = torch.Generator(device=dev).manual_seed(32)
+    M = B_TRAIN * T * L
+    mask = torch.ones(B_TRAIN, T, L, device=dev)
+    mask[0, :, -1] = 0
+    x = torch.randn(B_TRAIN, T, L, C, generator=g, device=dev)
+    mods = 0.3 * torch.randn(B_TRAIN, NL * 9 * C, generator=g, device=dev)
+    modf = 0.3 * torch.randn(B_TRAIN, 2 * C, generator=g, device=dev)
+    names = ["x", "mods", "modf", "wfin", "bfin"] + [f"{k}[{i}]" for i in range(NL)
+                                                     for k in FL.LAYER_KEYS]
+
+    def leaves(dt):
+        pack = model.make_trunk_pack(dt)
+        ins = [x.to(dt), mods.to(dt), modf.to(dt), *pack["fin"]]
+        ins += [w[k] for w in pack["layers"] for k in FL.LAYER_KEYS]
+        return [t.detach().clone().requires_grad_() for t in ins]
+
+    def forward(ins):
+        return FL.fused_trunk_train(ins[0], ins[1], FL._unflatten(ins[5:]), mask, num_heads=H,
+                                    final=tuple(ins[2:5]))
+
+    ins = leaves(torch.bfloat16)
+    out_c = ins[3].shape[1]
+    gv = torch.randn(B_TRAIN, T, L, out_c, generator=g, device=dev)
+
+    def run(ins, timed):
+        out = forward(ins)
+        ms = None
+        if timed:
+            ms = (time_ms(lambda: forward(ins), reps=10, warmup=2),
+                  time_ms(lambda: torch.autograd.grad(out, ins, gv, retain_graph=True),
+                          reps=10, warmup=2))
+        return [out.detach().float()] + [t.float() for t in torch.autograd.grad(out, ins, gv)], ms
+
+    before = {fn.__name__: fn.launches for fn in wrappers}
+    out = forward(ins)
+    mid = {fn.__name__: fn.launches for fn in wrappers}
+    torch.autograd.grad(out, ins, gv)
+    after = {fn.__name__: fn.launches for fn in wrappers}
+    del out
+    card, (fwd_ms, bwd_ms) = run(ins, True)
+    plain, (fwd_plain_ms, bwd_plain_ms) = with_twins(lambda: run(ins, True))
+    truth, _ = with_twins(lambda: run(leaves(torch.float32), False))
+    floor = 1e-3 * max(b.norm().item() for b in truth[1:])
+
+    def rel(got):
+        return [((a - b).norm() / max(b.norm().item(), floor)).item() for a, b in zip(got, truth)]
+
+    rc, rp = rel(card), rel(plain)
+    names = ["velocity"] + names
+    over = {n: (a, 2 * b + 0.01) for n, a, b in zip(names, rc, rp) if not a <= 2 * b + 0.01}
+    worst = sorted(range(len(names)), key=lambda i: rc[i] - 2 * rp[i])[-4:]
+
+    f_layer = 2.0 * M * C * C * 16 + 4.0 * M * (L + 1) * C + 4.0 * M * (T + 1) * C
+    flops_fwd = NL * f_layer + 2.0 * M * C * out_c
+    w_bytes = nbytes(*ins[3:])
+    saved_bytes = NL * 3 * M * C * 2
+    bound3 = bound_ms(nbytes(*ins[:3]) + w_bytes + saved_bytes + M * out_c * 4, flops_fwd)
+    # the backward recomputes each stage from its saved input (nothing else
+    # is kept), then takes the data and weight products: three forwards
+    bound4 = bound_ms(saved_bytes + nbytes(*ins) * 2 + gv.numel() * 4, 3.0 * flops_fwd)
+    rows = {
+        "row3_forward": dict(ms=fwd_ms, plain_ms=fwd_plain_ms, bound_ms=bound3[0],
+                             bound_by=bound3[1], library_ms=None,
+                             launches={k: mid[k] - before[k] for k in mid if mid[k] > before[k]}),
+        "row4_backward": dict(ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bound4[0],
+                              bound_by=bound4[1], library_ms=None,
+                              launches={k: after[k] - mid[k] for k in after if after[k] > mid[k]}),
+    }
+    emit({"phase": "trunk_rows", "B": B_TRAIN, "T": T, "L": L, "C": C, "layers": NL,
+          "saved_bytes": saved_bytes, **rows,
+          "rule": "rel_l2(card) <= 2 * rel_l2(plain bf16) + 0.01 per tensor, truth: plain f32",
+          "tensors": len(names), "worst_rel_l2": max(rc),
+          "worst_vs_rule": {names[i]: [rc[i], 2 * rp[i] + 0.01] for i in worst}})
+    if over:
+        raise AssertionError(f"trunk rows 3-4 over the rule: {over}")
+    return rows
+
+
 def random_engine(dev, cfg, seed):
     from mdgen_finetune_tpu_torch.inference import InferenceEngine
     from mdgen_finetune_tpu_torch.models.denoiser import LatentMDGen
@@ -230,7 +637,7 @@ def ptxas_report(log):
         if "Compiling entry function" in ln:
             name = ln.split("'")[1][:48]
         elif "registers" in ln or ("spill" in ln and " 0 bytes spill stores" not in ln):
-            out.append(f"{name}: {ln.split(':', 1)[1].strip()}")
+            out.append(f"{name}: {ln.split(':', 1)[-1].strip()}")
     return out
 
 
@@ -324,24 +731,27 @@ def phase_main_path(dev, cfg):
 
 
 KERNEL_OF = (("resident_kernel", "adaln_linear"), ("pipelined_kernel", "adaln_linear"),
-             ("tiled64_kernel", "adaln_linear"), ("rope_attention", "rope_attention"),
-             ("ipa_attention", "ipa_attention"))
+             ("tiled64_kernel", "adaln_linear"), ("rope_attention_bwd", "rope_attention_bwd"),
+             ("rope_attention", "rope_attention"), ("ipa_attention", "ipa_attention"),
+             ("dgrad_kernel", "linear_bwd"), ("wgrad_kernel", "linear_bwd"),
+             ("row_stats_kernel", "linear_bwd"), ("modln_bwd", "modln_bwd"),
+             ("colsum_kernel", "colsum (linear_bwd, modln_bwd, rope_attention_bwd)"))
 
 
-def phase_trace(eng, batch, gen):
-    """Where the device time of one flagship sample goes: torch.profiler over
-    one ``sample`` call; device time by kernel and the device's idle share of
-    the window from the first device activity to the last."""
+def phase_trace(name, run):
+    """Where the device time of ``run()`` goes: torch.profiler over one call;
+    device time by kernel and the device's idle share of the window from the
+    first device activity to the last."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        eng.sample(batch, gen)
+        run()
         torch.cuda.synchronize()
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
-        emit({"phase": "trace", "device_time": "not measured (the profiler recorded no device activity)"})
+        emit({"phase": name, "device_time": "not measured (the profiler recorded no device activity)"})
         return
     by_kernel, by_name = {}, {}
     for e in dev:
@@ -353,8 +763,12 @@ def phase_trace(eng, batch, gen):
         n[1] += 1
     busy = sum(by_kernel.values())
     window = (max(e.time_range.end for e in dev) - min(e.time_range.start for e in dev)) / 1e3
-    top = sorted(([k, v[0], v[1]] for k, v in by_name.items()), key=lambda r: -r[1])[:8]
-    emit({"phase": "trace", "window_ms": window, "device_busy_ms": busy,
+    top = sorted(([k, v[0], v[1]] for k, v in by_name.items()), key=lambda r: -r[1])[:12]
+    host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                  key=lambda e: -e.self_cpu_time_total)[:10]
+    emit({"phase": name, "window_ms": window, "device_busy_ms": busy,
+          "host_ops": sum(e.count for e in prof.key_averages() if e.key.startswith("aten::")),
+          "host_top_self_ms": [[e.key[:60], e.self_cpu_time_total / 1e3, e.count] for e in host],
           "idle_share": 1.0 - busy / window, "device_ms_by_kernel": by_kernel,
           "top_device_ms_calls": top})
 
@@ -383,10 +797,19 @@ def main():
         data=DataConfig(num_frames=T, crop=L), task=TaskConfig(sim_condition=True),
         transport=TransportConfig(sampling_method="euler", inference_steps=STEPS))
     kernels = phase_kernels(dev)
+    kernels.update(phase_bwd_kernels(dev))
     phase_step_across_devices(dev, cfg)
-    launches, sampled = phase_main_path(dev, cfg)
-    phase_trace(*sampled)
+    launches, (eng, batch, gen) = phase_main_path(dev, cfg)
+    phase_trace("trace", lambda: eng.sample(batch, gen))
+    del eng
+    phase_grad_across_devices(dev)
+    train_launches, (trainer, state, tbatch, tgen) = phase_train_path(dev)
+    phase_trace("train_trace", lambda: trainer.train_step(state, tbatch, tgen))
+    del trainer, state
+    phase_trunk_rows(dev)
+    shutil.rmtree(SCRATCH, ignore_errors=True)
 
+    bwd = "mdgen_finetune_tpu/ops/fused_layer_bwd.py:563 (_k3 :157, _k2 :323, _k1 :474)"
     meta = {
         "adaln_linear": ("mdgen_finetune_tpu_torch/csrc/adaln_linear.cu",
                          "mdgen_finetune_tpu/ops/fused_layer.py:579 + mdgen_finetune_tpu/ops/ipa_encoder.py:441"),
@@ -394,12 +817,20 @@ def main():
                            "mdgen_finetune_tpu/ops/fused_layer.py:579 + mdgen_finetune_tpu/ops/ipa_encoder.py:441"),
         "ipa_attention": ("mdgen_finetune_tpu_torch/csrc/ipa_attention.cu",
                           "mdgen_finetune_tpu/ops/ipa_encoder.py:441"),
+        "linear_bwd": ("mdgen_finetune_tpu_torch/csrc/linear_bwd.cu", bwd),
+        "modln_bwd": ("mdgen_finetune_tpu_torch/csrc/modln_bwd.cu", bwd),
+        "rope_attention_bwd": ("mdgen_finetune_tpu_torch/csrc/rope_attention_bwd.cu",
+                               "mdgen_finetune_tpu/ops/fused_layer_bwd.py:323 (_k2) + :474 (_k1)"),
     }
     line = []
     for name, k in kernels.items():
         src, rep = meta[name]
+        # launches: the sampler's main-path run for the forward kernels, the
+        # training path's run for the backward kernels
         line.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                     "launches": launches[name], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                     "launches": launches.get(name, train_launches[name]),
+                     "train_launches": train_launches[name],
+                     "max_abs_err": k["max_abs_err"], "tol": k["tol"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
                      "bound_by": k["bound"][1], "library_ms": k["library_ms"],
                      "shape": k["shape"]})

@@ -34,9 +34,24 @@ def _table_np(name: str) -> np.ndarray:
     return np.asarray(getattr(rc, name))
 
 
+@functools.lru_cache(maxsize=None)
+def _table_on(name: str, device: torch.device) -> torch.Tensor:
+    """A table on a device, copied there once (a copy per call would make
+    the host wait for the device every time); shared by every caller: never
+    write into it."""
+    return torch.as_tensor(_table_np(name), device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _psi_flip(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """The per-torsion sign (psi flipped), made once per device; shared:
+    never write into it."""
+    return torch.tensor([1.0, 1.0, -1.0, 1.0, 1.0, 1.0, 1.0], dtype=dtype, device=device)
+
+
 def _table(name: str, aatype: torch.Tensor, dtype=None) -> torch.Tensor:
     """TABLE[aatype] — per-residue rows of a numpy table, on aatype's device."""
-    t = torch.as_tensor(_table_np(name), device=aatype.device)
+    t = _table_on(name, aatype.device)
     if dtype is not None:
         t = t.to(dtype)
     return t[aatype.long()]
@@ -126,9 +141,7 @@ def atom37_to_torsions(all_atom_positions: torch.Tensor, aatype: torch.Tensor,
     fourth_rel = torsion_frames.invert_apply(torsions_pos[..., 3, :])
     sin_cos = torch.stack([fourth_rel[..., 2], fourth_rel[..., 1]], dim=-1)
     sin_cos = sin_cos / torch.sqrt((sin_cos ** 2).sum(-1, keepdim=True) + 1e-8)
-    conv = torch.tensor([1.0, 1.0, -1.0, 1.0, 1.0, 1.0, 1.0], dtype=sin_cos.dtype,
-                        device=sin_cos.device)
-    return sin_cos * conv[:, None], torsion_mask
+    return sin_cos * _psi_flip(sin_cos.device, sin_cos.dtype)[:, None], torsion_mask
 
 
 def torsion_angles_to_frames(frames: Rigid, alpha: torch.Tensor, aatype: torch.Tensor) -> Rigid:

@@ -12,6 +12,7 @@ also switch TF32 off (``full_f32``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -140,6 +141,8 @@ class Rigid:
                      torch.cat([r.trans for r in rigids], dim=td))
 
 
+@functools.lru_cache(maxsize=None)
 def rigid_vecs_flip(device=None) -> torch.Tensor:
-    """diag(-1, 1, -1) used to flip backbone frames (src/mdgen/geometry.py:227-230)."""
+    """diag(-1, 1, -1) used to flip backbone frames (src/mdgen/geometry.py:227-230);
+    made once per device and shared by every caller: never write into it."""
     return torch.diag(torch.tensor([-1.0, 1.0, -1.0], device=device))

@@ -22,6 +22,7 @@ from ..geometry import frames as G
 from ..geometry.rigid import Rigid, full_f32
 from ..models.denoiser import LatentMDGen
 from ..tasks import prep_batch
+from ..transport import check_interval
 from ..utils.weights import from_flax
 
 _TODO = "ROADMAP.md queue 1 item 8"
@@ -41,16 +42,6 @@ def sample_prior_latent(generator: torch.Generator, B: int, T: int, L: int,
     """Gaussian prior draw (src/mdgen/wrapper.py:416-434), f32."""
     z = torch.randn(B, T, L, latent_dim, generator=generator, device=generator.device)
     return z.to(device) if device is not None else z
-
-
-def check_interval(cfg: MDGenConfig):
-    """ODE integration interval for sampling (src/mdgen/transport/transport.py:94-123)."""
-    t0, t1 = 0.0, 1.0
-    if cfg.transport.path_type == "VP":
-        t1 = 1 - cfg.transport.sample_eps
-    elif cfg.transport.prediction != "velocity":
-        t0, t1 = cfg.transport.sample_eps, 1 - cfg.transport.sample_eps
-    return t0, t1
 
 
 class InferenceEngine:
@@ -73,7 +64,7 @@ class InferenceEngine:
         if any(isinstance(v, dict) for v in params.values()):
             params = from_flax(params, cfg)
         self.model.load_state_dict(params)
-        self.model.to(self.device).eval()
+        self.model.to(self.device).eval().requires_grad_(False)
 
     def _tensor(self, v, dtype=None):
         return torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v,
@@ -103,7 +94,7 @@ class InferenceEngine:
         pack = model.make_trunk_pack()
         consts = model.make_scan_consts(kw["x_cond"], kw["x_cond_mask"], mask,
                                         aatype=kw["aatype"])
-        t0, t1 = check_interval(cfg)
+        t0, t1 = check_interval(cfg, eval=True)
         n = cfg.transport.inference_steps
         dt = (t1 - t0) / n
         ts = t0 + dt * torch.arange(n, dtype=torch.float32, device=self.device)

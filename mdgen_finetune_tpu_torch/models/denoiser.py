@@ -9,7 +9,8 @@ parent-orchestrated fused trunk. Parameters are named after the flax tree
 ``utils.weights.from_flax`` converts a JAX checkpoint.
 
 Two ways to run it, as in the JAX package:
-- ``forward(x, t, mask, ...)``: the plain call (``__call__``, :608-740);
+- ``forward(x, t, mask, ...)``: the plain call (``__call__``, :608-740),
+  differentiable (the training path);
 - the flat sampling path: ``make_trunk_pack`` (weights folded and stacked
   once per sample), ``make_scan_consts`` (per-step-constant embed terms),
   ``embed_times`` / ``embed_mods`` / ``encode_steps`` (the whole t grid's
@@ -30,7 +31,7 @@ import torch.nn.functional as F
 
 from ..config import MDGenConfig
 from ..geometry.rigid import Rigid
-from ..ops.fused_layer import fused_trunk
+from ..ops.fused_layer import fused_trunk, fused_trunk_train
 from ..ops.ipa_encoder import ipa_encoder
 from .attention import LOG2E, MHAParams
 from .ipa import IPAParams
@@ -135,14 +136,52 @@ class LatentMDGen(nn.Module):
         if m.abs_time_emb:
             self.register_buffer("time_embed", torch.from_numpy(
                 sincos_pos_embed(C, cfg.data.num_frames)), persistent=False)
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self):
+        """The JAX package's init (reference latent_model.py:134-142):
+        xavier-uniform Linear weights (IPA's k/v and k/v-point projections
+        with the fan of their fused flax kernels) and zero biases; the AdaLN
+        projections, the FinalLayer's linear and IPA's linear_out zero; the
+        t-embedder N(0, 0.02); embeddings N(0, 1); the bias-KV tokens
+        N(0, 2 / (1 + C)). Draws from torch's global generator."""
+        C = self.cfg.model.embed_dim
+        for mod in self.modules():
+            if isinstance(mod, nn.Linear):
+                nn.init.xavier_uniform_(mod.weight)
+                nn.init.zeros_(mod.bias)
+            elif isinstance(mod, nn.Embedding):
+                nn.init.normal_(mod.weight)
+            elif isinstance(mod, MHAParams):
+                nn.init.normal_(mod.bias_k, std=(2.0 / (1 + C)) ** 0.5)
+                nn.init.normal_(mod.bias_v, std=(2.0 / (1 + C)) ** 0.5)
+        for lin in (self.t_embedder.mlp0, self.t_embedder.mlp2):
+            nn.init.normal_(lin.weight, std=0.02)
+        zero = [lay.adaLN for lay in self.layers] + [self.emb_to_latent.adaLN,
+                                                     self.emb_to_latent.linear]
+        for lay in getattr(self, "ipa_layers", ()):
+            zero += [lay.adaLN, lay.ipa.linear_out]
+            for a, b in ((lay.ipa.linear_k, lay.ipa.linear_v),
+                         (lay.ipa.linear_k_points, lay.ipa.linear_v_points)):
+                bound = (6.0 / (C + a.out_features + b.out_features)) ** 0.5
+                nn.init.uniform_(a.weight, -bound, bound)
+                nn.init.uniform_(b.weight, -bound, bound)
+        for lin in zero:
+            nn.init.zeros_(lin.weight)
+            nn.init.zeros_(lin.bias)
 
     # ------------------------------------------------------------------
     def make_encoder_pack(self, dt=None):
         """Encoder weights for ops.ipa_encoder: the layers' AdaLN projections
         concatenated (one product for every layer's 6-way rows) and one dict
         per layer (the JAX package's ``fold_encoder_ws``: kv split, MHA q
-        scale folded)."""
-        dt = dt or self.dtype
+        scale folded). Built in the caller's grad mode (see
+        ``make_trunk_pack``)."""
+        pack = self._encoder_pack(dt or self.dtype)
+        return pack if torch.is_grad_enabled() else _detached(pack)
+
+    def _encoder_pack(self, dt):
         C, Hm = self.cfg.model.embed_dim, self.cfg.model.mha_heads
         scale = (C // Hm) ** -0.5
         layers = []
@@ -165,17 +204,22 @@ class LatentMDGen(nn.Module):
                 w2=_t(lay.fc2, dt), b2=lay.fc2.bias.to(dt)))
         wmods = torch.cat([lay.adaLN.weight.t() for lay in self.ipa_layers], 1).to(dt)
         bmods = torch.cat([lay.adaLN.bias for lay in self.ipa_layers]).to(dt)
-        return _detached({"wmods": wmods, "bmods": bmods, "layers": layers})
+        return {"wmods": wmods, "bmods": bmods, "layers": layers}
 
-    @torch.no_grad()
     def make_trunk_pack(self, dt=None):
         """The trunk weights folded once per sample (the JAX package's
         ``make_trunk_pack`` with ``_fold_fused_args``): both attention q
         columns carry head_dim**-0.5 * log2(e) (the base-2 softmax fold),
         qkv concatenated, (in, out) layout in the compute dtype; every
         layer's AdaLN projection and the FinalLayer's in one (C, NL*9C+2C)
-        weight; the encoder pack."""
-        dt = dt or self.dtype
+        weight; the encoder pack. With grad mode on, the fold, the
+        concatenation and the cast run inside autograd, so that gradients of
+        the pack reach the f32 parameters (JAX traces ``make_trunk_pack``
+        inside ``__call__``); under ``torch.no_grad`` the pack is detached."""
+        pack = self._trunk_pack(dt or self.dtype)
+        return pack if torch.is_grad_enabled() else _detached(pack)
+
+    def _trunk_pack(self, dt):
         C, H = self.cfg.model.embed_dim, self.cfg.model.mha_heads
         scale_t = (C // H) ** -0.5 * LOG2E
 
@@ -202,9 +246,9 @@ class LatentMDGen(nn.Module):
         wmods = torch.cat([lay.adaLN.weight.t() for lay in self.layers]
                           + [fin.adaLN.weight.t()], 1).to(dt)
         bmods = torch.cat([lay.adaLN.bias for lay in self.layers] + [fin.adaLN.bias]).to(dt)
-        enc = self.make_encoder_pack(dt) if self.cfg.model.prepend_ipa else None
-        return _detached({"wmods": wmods, "bmods": bmods, "layers": layers,
-                          "fin": (_t(fin.linear, dt), fin.linear.bias.to(dt)), "enc": enc})
+        enc = self._encoder_pack(dt) if self.cfg.model.prepend_ipa else None
+        return {"wmods": wmods, "bmods": bmods, "layers": layers,
+                "fin": (_t(fin.linear, dt), fin.linear.bias.to(dt)), "enc": enc}
 
     # ------------------------------------------------------------------
     def _lin(self, lin: nn.Linear, x):
@@ -217,7 +261,7 @@ class LatentMDGen(nn.Module):
         B, L = mask_l.shape
         x = torch.zeros(B, L, self.cfg.model.embed_dim, dtype=self.dtype, device=mask_l.device)
         if aatype is not None and not self.cfg.model.no_aa_emb:
-            x = x + self.aatype_to_emb.weight.to(self.dtype)[aatype.long()]
+            x = x + F.embedding(aatype.long(), self.aatype_to_emb.weight.to(self.dtype))
         return x
 
     def run_ipa(self, t_emb, mask_l, frames: Rigid, tokens, pack):
@@ -247,14 +291,15 @@ class LatentMDGen(nn.Module):
             h = h + self.time_embed[:T, None].to(self.dtype)
         if x_cond is not None:
             h = (h + self._lin(self.cond_to_emb, x_cond)
-                 + self.mask_to_emb.weight.to(self.dtype)[x_cond_mask.long()])
+                 + F.embedding(x_cond_mask.long(), self.mask_to_emb.weight.to(self.dtype)))
         return h
 
-    @torch.no_grad()
     def forward(self, x, t, mask, start_frames: Optional[Rigid] = None,
                 end_frames: Optional[Rigid] = None, x_cond=None, x_cond_mask=None,
                 aatype=None, trunk_pack=None):
-        """x (B, T, L, lat), t (B,), mask (B, T, L) -> velocity (B, T, L, lat) f32."""
+        """x (B, T, L, lat), t (B,), mask (B, T, L) -> velocity (B, T, L, lat)
+        f32; differentiable in the parameters when grad mode is on (the
+        trunk through ``FusedTrunkFn``, the encoder through its recompute)."""
         cfg = self.cfg
         B, T, L = mask.shape
         NL, C = len(self.layers), cfg.model.embed_dim
@@ -267,10 +312,9 @@ class LatentMDGen(nn.Module):
                                self.make_encoder_tokens(mask[:, 0], aatype), pack)
             h = h + enc[:, None]
         mods_all = F.silu(t_emb).to(self.dtype) @ pack["wmods"] + pack["bmods"]
-        out = fused_trunk(h.contiguous(), mods_all[:, :NL * 9 * C], pack["layers"],
-                          mask, num_heads=cfg.model.mha_heads,
-                          final=(mods_all[:, NL * 9 * C:], *pack["fin"]))
-        return out.float()
+        return fused_trunk_train(h, mods_all[:, :NL * 9 * C], pack["layers"], mask,
+                                 num_heads=cfg.model.mha_heads,
+                                 final=(mods_all[:, NL * 9 * C:], *pack["fin"]))
 
     # ------------------------------------------------------------------
     # flat sampling path

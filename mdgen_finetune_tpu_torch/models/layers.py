@@ -1,8 +1,8 @@
 """DiT-style building blocks: AdaLN modulation, timestep embedding, GELUs.
 
 Counterpart of the JAX package's ``models/layers.py`` (reference
-src/mdgen/model/layers.py:14-85) plus ``_gelu_fast`` from its
-``ops/adaln_mlp.py``. Denoiser LayerNorms carry no affine parameters
+src/mdgen/model/layers.py:14-85) plus ``_gelu_fast`` and
+``_gelu_fast_with_grad`` from its ``ops/adaln_mlp.py``. Denoiser LayerNorms carry no affine parameters
 (eps 1e-6).
 """
 from __future__ import annotations
@@ -39,6 +39,30 @@ def gelu_fast(a: torch.Tensor) -> torch.Tensor:
     t32 = (z * p).float()
     f = (t32 * torch.rsqrt(1.0 + t32 * t32)).to(a.dtype)
     return torch.where(a32 < -6.0, torch.zeros_like(a), a * (0.5 + 0.5 * f))
+
+
+def gelu_fast_with_grad(a: torch.Tensor):
+    """(gelu_fast(a), d gelu_fast / da) in f32 for f32 ``a``: the analytic
+    derivative of the fit (df/dt = (1 + t^2)^(-3/2), dz/da = 1{|a| < 6}),
+    for the backward passes that recompute the pre-activation (the JAX
+    package's ``ops/adaln_mlp.py::_gelu_fast_with_grad``)."""
+    deg = len(GELU_KS) - 1
+    z = a.clamp(-6.0, 6.0)
+    u = z * z
+    p = GELU_KS[deg]
+    pp = deg * GELU_KS[deg]
+    for i in range(deg - 1, 0, -1):
+        p = p * u + GELU_KS[i]
+        pp = pp * u + i * GELU_KS[i]
+    p = p * u + GELU_KS[0]
+    t = z * p
+    r = torch.rsqrt(1.0 + t * t)
+    phi = 0.5 + 0.5 * t * r
+    fp = torch.where(a.abs() < 6.0, r * r * r * (p + 2.0 * u * pp), torch.zeros_like(a))
+    neg = a < -6.0
+    val = torch.where(neg, torch.zeros_like(a), a * phi)
+    dval = torch.where(neg, torch.zeros_like(a), phi + (0.5 * a) * fp)
+    return val, dval
 
 
 def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

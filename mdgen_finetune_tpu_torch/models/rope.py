@@ -22,7 +22,10 @@ def rope_tables_np(seq_len: int, dim: int):
     return np.cos(emb), np.sin(emb)
 
 
+@functools.lru_cache(maxsize=64)
 def rope_tables(seq_len: int, dim: int, device=None, dtype=torch.float32):
+    """cos, sin as tensors, made once per (size, device, dtype) and shared
+    by every caller: never write into them."""
     cos, sin = rope_tables_np(seq_len, dim)
     return (torch.as_tensor(cos, device=device, dtype=dtype),
             torch.as_tensor(sin, device=device, dtype=dtype))

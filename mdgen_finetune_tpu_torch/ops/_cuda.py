@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` is a shared library with a plain C interface,
 compiled with ``nvcc`` for ``sm_90a`` at first use into ``_build/`` (listed
 in .gitignore) and loaded with ctypes. The library file name carries a hash
-of the source and the flags, so an edited source is rebuilt. ``build_all``
+of the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source is rebuilt. ``build_all``
 starts one ``nvcc`` per source at once and waits for all of them.
 
 Every C entry point takes device pointers and the CUDA stream as
@@ -25,7 +26,8 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-KERNELS = ("adaln_linear", "rope_attention", "ipa_attention")
+KERNELS = ("adaln_linear", "rope_attention", "ipa_attention", "linear_bwd", "modln_bwd",
+           "rope_attention_bwd")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -41,7 +43,8 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha1(src + " ".join(FLAGS).encode()).hexdigest()[:12]
     return BUILD / f"lib{name}-{tag}.so"
 

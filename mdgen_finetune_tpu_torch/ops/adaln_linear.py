@@ -6,7 +6,8 @@ the LayerNorm/AdaLN prologue and the gate/GELU/Euler/embed epilogues fused;
 it replaces the products inside the JAX package's
 ``ops/fused_layer.py::_trunk_call`` and ``ops/ipa_encoder.py::_encoder_call``
 kernels). ``adaln_linear_plain`` is the same function in plain PyTorch, in
-the op order of the JAX package's XLA twins; it runs for CPU tensors. For
+the op order of the JAX package's XLA twins (its math, uncounted, is ``adaln_linear_math``);
+it runs for CPU tensors. For
 CUDA tensors the wrapper launches the kernel or raises.
 
 Arguments (all 2D row views, unit column stride):
@@ -46,13 +47,13 @@ def _rows(v: torch.Tensor, M: int) -> torch.Tensor:
     return v.repeat_interleave(M // v.shape[0], dim=0)
 
 
-def adaln_linear_plain(x, w, b=None, *, ln=None, ln_weight=None, ln_bias=None,
-                       shift=None, scale=None, epilogue="none", res=None, gate=None,
-                       dt=None, add1=None, add2=None, add2_map=None, out=None,
-                       out_dtype=None):
-    """Plain PyTorch version of ``adaln_linear`` (same arguments)."""
-    if x.is_cuda:
-        adaln_linear_plain.cuda_calls += 1
+def adaln_linear_math(x, w, b=None, *, ln=None, ln_weight=None, ln_bias=None,
+                      shift=None, scale=None, epilogue="none", res=None, gate=None,
+                      dt=None, add1=None, add2=None, add2_map=None, out=None,
+                      out_dtype=None):
+    """The plain PyTorch math of ``adaln_linear`` (same arguments), counted
+    nowhere: differentiable with ``out=None``, so the encoder's backward
+    recomputes through it."""
     cd = w.dtype
     M = x.shape[0]
     if ln == "plain":
@@ -94,6 +95,14 @@ def adaln_linear_plain(x, w, b=None, *, ln=None, ln_weight=None, ln_bias=None,
         out.copy_(y)
         return out
     return y
+
+
+def adaln_linear_plain(x, w, b=None, **kw):
+    """Plain PyTorch version of ``adaln_linear`` (same arguments); counts its
+    calls on CUDA tensors in ``cuda_calls``."""
+    if x.is_cuda:
+        adaln_linear_plain.cuda_calls += 1
+    return adaln_linear_math(x, w, b, **kw)
 
 
 adaln_linear_plain.cuda_calls = 0

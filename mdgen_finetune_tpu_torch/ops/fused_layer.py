@@ -2,7 +2,9 @@
 head and the Euler update optionally folded in.
 
 Counterpart of the JAX package's ``ops/fused_layer.py::fused_trunk`` in its
-inference form (``_trunk_call`` with ``embed``, ``final`` and ``step_dt``).
+inference form (``_trunk_call`` with ``embed``, ``final`` and ``step_dt``)
+and, as ``fused_trunk_train`` (``FusedTrunkFn``), in its training form
+(``_fused_trunk_pallas``, whose backward is ``ops/fused_layer_bwd.py``).
 The TPU ran the whole trunk as one streaming kernel with the activation
 resident across layers; here each layer is a short sequence of the
 hand-written kernels:
@@ -30,7 +32,8 @@ from __future__ import annotations
 
 import torch
 
-from .adaln_linear import adaln_linear
+from .adaln_linear import adaln_linear, adaln_linear_math
+from .fused_layer_bwd import fused_layer_bwd
 from .rope_attention import rope_attention
 
 # per-layer weight names (LatentMDGen.make_trunk_pack)
@@ -38,28 +41,31 @@ LAYER_KEYS = ("wqkv_l", "bqkv_l", "wout_l", "bout_l", "wqkv_t", "bqkv_t", "wout_
               "bout_t", "w1", "b1", "w2", "b2", "bkl", "bvl", "bkt", "bvt")
 
 
-def trunk_layer(x2, mod, w, mask, *, B: int, T: int, L: int, num_heads: int):
-    """One layer on the (B*T*L, C) activation ``x2``, updated in place.
-    ``mod`` (nb, 9C): shift/scale/gate rows for the three stages."""
-    C = x2.shape[1]
+def trunk_layer(x, mod, w, mask, *, B: int, T: int, L: int, num_heads: int, out=None):
+    """One layer on the (B*T*L, C) activation ``x``. ``mod`` (nb, 9C):
+    shift/scale/gate rows for the three stages. Each stage's residual
+    update writes into ``out`` (``out=x``: in place) or, with ``out=None``,
+    into a new tensor, so that the stage inputs survive. Returns the inputs
+    of the frame and MLP stages and the layer's output, (X1, X2, out)."""
+    C = x.shape[1]
 
     def m(j):
         return mod[:, j * C:(j + 1) * C]
 
-    qkv = adaln_linear(x2, w["wqkv_l"], w["bqkv_l"], ln="plain", shift=m(0), scale=m(1))
+    qkv = adaln_linear(x, w["wqkv_l"], w["bqkv_l"], ln="plain", shift=m(0), scale=m(1))
     att = rope_attention(qkv.view(B * T, L, 1, 3 * C), w["bkl"], w["bvl"],
                          mask.reshape(B * T, L, 1), num_heads=num_heads, base2=True)
-    adaln_linear(att.view(-1, C), w["wout_l"], w["bout_l"], epilogue="gate_res",
-                 res=x2, gate=m(2), out=x2)
-    qkv = adaln_linear(x2, w["wqkv_t"], w["bqkv_t"], ln="plain", shift=m(3), scale=m(4))
+    x1 = adaln_linear(att.view(-1, C), w["wout_l"], w["bout_l"], epilogue="gate_res",
+                      res=x, gate=m(2), out=out)
+    qkv = adaln_linear(x1, w["wqkv_t"], w["bqkv_t"], ln="plain", shift=m(3), scale=m(4))
     att = rope_attention(qkv.view(B, T, L, 3 * C), w["bkt"], w["bvt"], mask,
                          num_heads=num_heads, base2=True)
-    adaln_linear(att.view(-1, C), w["wout_t"], w["bout_t"], epilogue="gate_res",
-                 res=x2, gate=m(5), out=x2)
+    x2 = adaln_linear(att.view(-1, C), w["wout_t"], w["bout_t"], epilogue="gate_res",
+                      res=x1, gate=m(5), out=out)
     hid = adaln_linear(x2, w["w1"], w["b1"], ln="plain", shift=m(6), scale=m(7),
                        epilogue="gelu")
-    adaln_linear(hid, w["w2"], w["b2"], epilogue="gate_res", res=x2, gate=m(8), out=x2)
-    return x2
+    y = adaln_linear(hid, w["w2"], w["b2"], epilogue="gate_res", res=x2, gate=m(8), out=out)
+    return x1, x2, y
 
 
 def fused_trunk(x, mods, ws, mask, *, num_heads: int, final=None, embed=None,
@@ -97,7 +103,7 @@ def fused_trunk(x, mods, ws, mask, *, num_heads: int, final=None, embed=None,
     mask = mask.to(torch.float32).contiguous()
     for i, w in enumerate(ws):
         trunk_layer(h, mods[:, i * 9 * C:(i + 1) * 9 * C], w, mask, B=B, T=T, L=L,
-                    num_heads=num_heads)
+                    num_heads=num_heads, out=h)
     if final is None:
         return h.view(B, T, L, C)
     modf, wfin, bfin = final
@@ -111,3 +117,89 @@ def fused_trunk(x, mods, ws, mask, *, num_heads: int, final=None, embed=None,
     adaln_linear(h, wfin, bfin, ln="plain", shift=modf[:, :C], scale=modf[:, C:],
                  epilogue="euler", res=carry, dt=dt, out=carry)
     return carry.view(B, T, L, out_c) if step_dt is None else x
+
+
+# ---------------------------------------------------------------------------
+# training form
+# ---------------------------------------------------------------------------
+
+def _head(h, modf, wfin, bfin):
+    """The FinalLayer head (LN + modulate + linear) in plain PyTorch, f32
+    out: its backward is autograd through this, as the JAX package takes the
+    head's VJP through ``_trunk_final_xla``."""
+    C = h.shape[1]
+    return adaln_linear_math(h, wfin, bfin, ln="plain", shift=modf[:, :C],
+                             scale=modf[:, C:]).float()
+
+
+class FusedTrunkFn(torch.autograd.Function):
+    """The trunk with its output head, differentiable: the counterpart of
+    the JAX package's ``_fused_trunk_pallas`` custom VJP
+    (``ops/fused_layer.py:1162-1229``).
+
+    Forward: the same kernels as ``fused_trunk``, but every stage writes its
+    residual update into a new tensor, and each layer's input and its stage
+    inputs X1 and X2 are saved (3 x B*T*L*C elements per layer). Backward:
+    the head's VJP (autograd through ``_head``), then ``fused_layer_bwd``
+    for each layer in reverse. Inputs: x (B, T, L, C), mods (nb, NL*9C),
+    modf (nb, 2C), wfin (C, out), bfin (out,), mask (B, T, L) f32,
+    num_heads, then the layers' weights flattened in ``LAYER_KEYS`` order.
+    Returns the velocity (B, T, L, out) f32."""
+
+    @staticmethod
+    def forward(ctx, x, mods, modf, wfin, bfin, mask, num_heads, *flat_ws):
+        B, T, L, C = x.shape
+        M = B * T * L
+        ws = _unflatten(flat_ws)
+        h = x.reshape(M, C)
+        saved = []
+        for i, w in enumerate(ws):
+            x1, x2, y = trunk_layer(h, mods[:, i * 9 * C:(i + 1) * 9 * C], w, mask, B=B, T=T,
+                                    L=L, num_heads=num_heads)
+            saved += [h, x1, x2]
+            h = y
+        carry = torch.zeros(M, wfin.shape[1], dtype=torch.float32, device=h.device)
+        adaln_linear(h, wfin, bfin, ln="plain", shift=modf[:, :C], scale=modf[:, C:],
+                     epilogue="euler", res=carry, dt=1.0, out=carry)
+        ctx.save_for_backward(mods, modf, wfin, bfin, mask, h, *saved, *flat_ws)
+        ctx.num_heads = num_heads
+        ctx.dims = (B, T, L, C)
+        return carry.view(B, T, L, -1)
+
+    @staticmethod
+    def backward(ctx, gvel):
+        B, T, L, C = ctx.dims
+        mods, modf, wfin, bfin, mask, h_last, *rest = ctx.saved_tensors
+        NL = len(rest) // (3 + len(LAYER_KEYS))
+        saved, flat_ws = rest[:3 * NL], rest[3 * NL:]
+        ws = _unflatten(flat_ws)
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (h_last, modf, wfin, bfin)]
+            vel = _head(*leaves)
+            g, dmodf, dwfin, dbfin = torch.autograd.grad(vel, leaves, gvel.reshape(vel.shape))
+        g = g.float()
+        dmods = torch.empty(mods.shape[0], NL * 9 * C, dtype=torch.float32, device=g.device)
+        dws = [None] * NL
+        for i in reversed(range(NL)):
+            x_in, x1, x2 = saved[3 * i:3 * i + 3]
+            g, _, dws[i] = fused_layer_bwd(x_in, x1, x2, g, mods[:, i * 9 * C:(i + 1) * 9 * C],
+                                           ws[i], mask, ctx.num_heads,
+                                           dmod=dmods[:, i * 9 * C:(i + 1) * 9 * C])
+        dflat = [dws[i][k].to(w.dtype) for i in range(NL) for k, w in
+                 zip(LAYER_KEYS, flat_ws[i * len(LAYER_KEYS):(i + 1) * len(LAYER_KEYS)])]
+        return (g.view(B, T, L, C).to(h_last.dtype), dmods.to(mods.dtype), dmodf, dwfin, dbfin,
+                None, None, *dflat)
+
+
+def _unflatten(flat_ws):
+    n = len(LAYER_KEYS)
+    return [dict(zip(LAYER_KEYS, flat_ws[i:i + n])) for i in range(0, len(flat_ws), n)]
+
+
+def fused_trunk_train(x, mods, ws, mask, *, num_heads: int, final):
+    """The trunk and its head as a differentiable op (``FusedTrunkFn``):
+    x (B, T, L, C); mods (nb, NL*9C); ``ws`` the per-layer weight dicts;
+    ``final = (modf, wfin, bfin)``. Returns the velocity (B, T, L, out) f32."""
+    flat = [w[k] for w in ws for k in LAYER_KEYS]
+    return FusedTrunkFn.apply(x.contiguous(), mods, *final,
+                              mask.to(torch.float32).contiguous(), num_heads, *flat)

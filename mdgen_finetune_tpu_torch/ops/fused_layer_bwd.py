@@ -1,0 +1,112 @@
+"""The backward of one trunk layer, stage by stage.
+
+Counterpart of the JAX package's ``ops/fused_layer_bwd.py::fused_layer_bwd``
+(:563), which runs three Pallas kernels in the order MLP -> frame attention
+-> residue attention (``_k3_core`` :122, ``_k2_core`` :175, ``_k1_core``
+:342). Here each stage is a short sequence of hand-written kernels; like
+the TPU kernels, a stage RECOMPUTES its forward from its saved input (x_in,
+X1 or X2) and nothing else of the forward is kept:
+
+    MLP stage (input X2, upstream dOUT):
+      a   = adaln_linear(LN+mod, f32)          pre-activation (for gelu')
+      ge  = adaln_linear(LN+mod, GELU)         the hidden, as the forward
+      y   = adaln_linear(ge @ w2 + b2, f32)    the pre-gate output (for dg)
+      dW2, db2 = linear_bwd wgrad (ge, dOUT * g8)
+      da       = linear_bwd dgrad (dOUT * g8, w2) * gelu'(a)
+      dW1, db1 = linear_bwd wgrad (LN+mod(X2), da)
+      dh       = linear_bwd dgrad (da, w1)
+      dX2, (dsh, dsc, dg) = modln_bwd(X2, dh, dOUT, y)
+    attention stage (frame: input X1, view (B, T, L); residue: input x_in,
+    view (B*T, L, 1)):
+      qkv, att = adaln_linear + rope_attention (recompute)
+      y        = adaln_linear(att @ wout + bout, f32)
+      dWout, dbout = linear_bwd wgrad (att, dX * g)
+      datt         = linear_bwd dgrad (dX * g, wout)
+      dqkv, dbk, dbv = rope_attention_bwd(qkv, datt)
+      dWqkv, dbqkv = linear_bwd wgrad (LN+mod(X), dqkv)
+      dh           = linear_bwd dgrad (dqkv, wqkv)
+      dX_in, (dsh, dsc, dg) = modln_bwd(X, dh, dX, y)
+
+Weight and bias gradients are f32 sums over the whole batch; the AdaLN-row
+gradients are per batch element. On CPU tensors every op runs its plain
+version, so the same code is the plain twin.
+"""
+from __future__ import annotations
+
+import torch
+
+from .adaln_linear import adaln_linear
+from .linear_bwd import linear_bwd
+from .modln_bwd import modln_bwd
+from .rope_attention import rope_attention
+from .rope_attention_bwd import rope_attention_bwd
+
+
+def _attention_stage_bwd(X, dout, mod, j, wqkv, bqkv, wout, bout, bk, bv, mask, view,
+                         num_heads, dmod):
+    """One attention stage; ``j`` its first AdaLN row (0 residue, 3 frame),
+    ``view`` the (G, N, I) attention layout. Returns dX and the weight grads."""
+    C = X.shape[1]
+
+    def m(i):
+        return mod[:, i * C:(i + 1) * C]
+
+    qkv = adaln_linear(X, wqkv, bqkv, ln="plain", shift=m(j), scale=m(j + 1)).view(*view, 3 * C)
+    mk = mask.reshape(view)
+    att = rope_attention(qkv, bk, bv, mk, num_heads=num_heads, base2=True).view(-1, C)
+    y = adaln_linear(att, wout, bout, out_dtype=torch.float32)
+    dwout, dbout = linear_bwd("wgrad", dout, att, gate=m(j + 2))
+    datt = linear_bwd("dgrad", dout, wout, gate=m(j + 2), out_dtype=X.dtype)
+    dqkv, dbk, dbv = rope_attention_bwd(qkv, datt.view(*view, C), bk, bv, mk,
+                                        num_heads=num_heads)
+    dqkv = dqkv.view(-1, 3 * C)
+    dwqkv, dbqkv = linear_bwd("wgrad", dqkv, X, ln=True, shift=m(j), scale=m(j + 1))
+    dh = linear_bwd("dgrad", dqkv, wqkv)
+    dx, _ = modln_bwd(X, dh, dout, y, m(j + 1), dmod[:, j * C:(j + 3) * C])
+    return dx, (dwqkv, dbqkv, dwout, dbout, dbk, dbv)
+
+
+def fused_layer_bwd(x_in, X1, X2, dout, mod, w, mask, num_heads: int, dmod=None):
+    """The backward of ``trunk_layer`` for one layer.
+
+    - ``x_in``, ``X1``, ``X2`` (B*T*L, C): the layer's input and the inputs of
+      its frame and MLP stages, as the training forward saved them;
+    - ``dout`` (B*T*L, C) f32: the gradient of the layer's output;
+    - ``mod`` (nb, 9C) the layer's AdaLN rows; ``w`` its weight dict
+      (``ops/fused_layer.LAYER_KEYS``); ``mask`` (B, T, L) f32.
+
+    Returns ``(dx, dmod, dw)``: dx (B*T*L, C) f32; dmod (nb, 9C) f32 (written
+    into ``dmod`` when a row view is given); dw a dict of f32 weight grads
+    with ``LAYER_KEYS``' names."""
+    B, T, L = mask.shape
+    C = x_in.shape[1]
+    nb = mod.shape[0]
+    if dmod is None:
+        dmod = torch.empty(nb, 9 * C, dtype=torch.float32, device=x_in.device)
+
+    def m(i):
+        return mod[:, i * C:(i + 1) * C]
+
+    # ---- stage 3: the MLP ----
+    a = adaln_linear(X2, w["w1"], w["b1"], ln="plain", shift=m(6), scale=m(7),
+                     out_dtype=torch.float32)
+    ge = adaln_linear(X2, w["w1"], w["b1"], ln="plain", shift=m(6), scale=m(7), epilogue="gelu")
+    y = adaln_linear(ge, w["w2"], w["b2"], out_dtype=torch.float32)
+    dw2, db2 = linear_bwd("wgrad", dout, ge, gate=m(8))
+    da = linear_bwd("dgrad", dout, w["w2"], gate=m(8), act=a, out_dtype=X2.dtype)
+    del a
+    dw1, db1 = linear_bwd("wgrad", da, X2, ln=True, shift=m(6), scale=m(7))
+    dh = linear_bwd("dgrad", da, w["w1"])
+    dx2, _ = modln_bwd(X2, dh, dout, y, m(7), dmod[:, 6 * C:])
+    # ---- stage 2: attention over frames ----
+    dx1, (dwqkv_t, dbqkv_t, dwout_t, dbout_t, dbkt, dbvt) = _attention_stage_bwd(
+        X1, dx2, mod, 3, w["wqkv_t"], w["bqkv_t"], w["wout_t"], w["bout_t"], w["bkt"],
+        w["bvt"], mask, (B, T, L), num_heads, dmod)
+    # ---- stage 1: attention over residues ----
+    dx, (dwqkv_l, dbqkv_l, dwout_l, dbout_l, dbkl, dbvl) = _attention_stage_bwd(
+        x_in, dx1, mod, 0, w["wqkv_l"], w["bqkv_l"], w["wout_l"], w["bout_l"], w["bkl"],
+        w["bvl"], mask, (B * T, L, 1), num_heads, dmod)
+    dw = dict(wqkv_l=dwqkv_l, bqkv_l=dbqkv_l, wout_l=dwout_l, bout_l=dbout_l,
+              wqkv_t=dwqkv_t, bqkv_t=dbqkv_t, wout_t=dwout_t, bout_t=dbout_t,
+              w1=dw1, b1=db1, w2=dw2, b2=db2, bkl=dbkl, bvl=dbvl, bkt=dbkt, bvt=dbvt)
+    return dx, dmod, dw

@@ -35,12 +35,10 @@ def feat_width(H: int, Ch: int, Pv: int) -> int:
     return H * Ch + 4 * H * Pv
 
 
-def ipa_attention_plain(proj, rot, trans, mask, head_weights, *, H: int, Ch: int,
-                        Pq: int, Pv: int, out_dtype=None):
-    """Plain PyTorch version of ``ipa_attention`` (same arguments); the
-    scalar path runs in proj's dtype, the point path in f32."""
-    if proj.is_cuda:
-        ipa_attention_plain.cuda_calls += 1
+def ipa_attention_math(proj, rot, trans, mask, head_weights, *, H: int, Ch: int,
+                       Pq: int, Pv: int, out_dtype=None):
+    """The plain PyTorch math of ``ipa_attention`` (same arguments), counted
+    nowhere; the scalar path runs in proj's dtype, the point path in f32."""
     B, L, _ = proj.shape
     HCh, HPq, HPv = H * Ch, H * Pq, H * Pv
     q = proj[..., :HCh].reshape(B, L, H, Ch)
@@ -76,6 +74,14 @@ def ipa_attention_plain(proj, rot, trans, mask, head_weights, *, H: int, Ch: int
     dt = out_dtype or proj.dtype
     return torch.cat([o.to(dt), o_pt[..., 0].to(dt), o_pt[..., 1].to(dt), o_pt[..., 2].to(dt),
                       o_pt_norm.to(dt)], dim=-1)
+
+
+def ipa_attention_plain(proj, rot, trans, mask, head_weights, **kw):
+    """Plain PyTorch version of ``ipa_attention`` (same arguments); counts
+    its calls on CUDA tensors in ``cuda_calls``."""
+    if proj.is_cuda:
+        ipa_attention_plain.cuda_calls += 1
+    return ipa_attention_math(proj, rot, trans, mask, head_weights, **kw)
 
 
 ipa_attention_plain.cuda_calls = 0

@@ -16,49 +16,94 @@ the hand-written kernels:
 
 On CPU tensors every op runs its plain PyTorch version, so the same code is
 the plain twin of the JAX package's ``encoder_xla``.
+
+Training: ``ipa_encoder`` is differentiable. Its backward recomputes the
+stack through the ops' plain math (``*_math``, counted nowhere) and
+differentiates that with autograd, as the JAX package's ``_enc_bwd``
+(:560-574) takes ``jax.vjp`` through ``encoder_xla``; no kernel runs in the
+backward. ``ipa_encoder.bwd_recomputes`` counts those recomputes.
 """
 from __future__ import annotations
 
 import torch
 
 from ..geometry.rigid import Rigid
-from .adaln_linear import adaln_linear
-from .ipa_attention import ipa_attention
-from .rope_attention import rope_attention
+from .adaln_linear import adaln_linear, adaln_linear_math
+from .ipa_attention import ipa_attention, ipa_attention_math
+from .rope_attention import rope_attention, rope_attention_math
 
 # per-layer weight names (LatentMDGen.make_encoder_pack)
 ENC_KEYS = ("ln_w", "ln_b", "wproj", "bproj", "head_weights", "wo_i", "bo_i",
             "wqkv_m", "bqkv_m", "wo_m", "bo_m", "bkm", "bvm", "w1", "b1", "w2", "b2")
+
+KERNELS = (adaln_linear, rope_attention, ipa_attention)
+PLAIN_MATH = (adaln_linear_math, rope_attention_math, ipa_attention_math)
+
+
+def _stack(x, mods, flat_ws, rot, trans, mask, ops, dims):
+    """The encoder's layers through ``ops`` = (linear, attention, ipa);
+    every residual update writes a new tensor."""
+    lin, attn, ipa = ops
+    num_heads_mha, Hi, Ch, Pq, Pv = dims
+    Bn, L, C = x.shape
+    h = x.reshape(Bn * L, C)
+    n = len(ENC_KEYS)
+    for i in range(len(flat_ws) // n):
+        w = dict(zip(ENC_KEYS, flat_ws[i * n:(i + 1) * n]))
+        mod = mods[:, i * 6 * C:(i + 1) * 6 * C]
+
+        def m(j, mod=mod):
+            return mod[:, j * C:(j + 1) * C]
+
+        proj = lin(h, w["wproj"], w["bproj"], ln="affine", ln_weight=w["ln_w"],
+                   ln_bias=w["ln_b"], out_dtype=torch.float32)
+        feats = ipa(proj.view(Bn, L, -1), rot, trans, mask, w["head_weights"],
+                    H=Hi, Ch=Ch, Pq=Pq, Pv=Pv, out_dtype=h.dtype)
+        h = lin(feats.view(Bn * L, -1), w["wo_i"], w["bo_i"], epilogue="gate_res", res=h)
+        qkv = lin(h, w["wqkv_m"], w["bqkv_m"], ln="plain", shift=m(0), scale=m(1))
+        att = attn(qkv.view(Bn, L, 1, 3 * C), w["bkm"], w["bvm"], mask.view(Bn, L, 1),
+                   num_heads=num_heads_mha, base2=False)
+        h = lin(att.view(-1, C), w["wo_m"], w["bo_m"], epilogue="gate_res", res=h, gate=m(2))
+        hid = lin(h, w["w1"], w["b1"], ln="plain", shift=m(3), scale=m(4), epilogue="gelu")
+        h = lin(hid, w["w2"], w["b2"], epilogue="gate_res", res=h, gate=m(5))
+    return h.view(Bn, L, C)
+
+
+class _EncoderFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mods, rot, trans, mask, dims, *flat_ws):
+        ctx.save_for_backward(x, mods, rot, trans, mask, *flat_ws)
+        ctx.dims = dims
+        return _stack(x, mods, flat_ws, rot, trans, mask, KERNELS, dims)
+
+    @staticmethod
+    def backward(ctx, gout):
+        ipa_encoder.bwd_recomputes += 1
+        x, mods, rot, trans, mask, *flat_ws = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        ins = [x, mods] + flat_ws
+        flags = [need[0], need[1]] + list(need[6:])
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(f) for t, f in zip(ins, flags)]
+            out = _stack(leaves[0], leaves[1], leaves[2:], rot, trans, mask, PLAIN_MATH,
+                         ctx.dims)
+            wanted = [t for t, f in zip(leaves, flags) if f]
+            got = iter(torch.autograd.grad(out, wanted, gout, allow_unused=True))
+        grads = [next(got) if f else None for f in flags]
+        return (grads[0], grads[1], None, None, None, None, *grads[2:])
 
 
 def ipa_encoder(x, mods, ws, frames: Rigid, mask, *, num_heads_mha: int, Hi: int,
                 Ch: int, Pq: int, Pv: int):
     """x (Bn, L, C) tokens; mods (nb, NL*6*C) AdaLN rows, nb dividing Bn
     (consecutive elements share a row); ``ws`` a list of per-layer dicts
-    (``ENC_KEYS``); frames Rigid (Bn, L); mask (Bn, L). Returns (Bn, L, C)."""
-    Bn, L, C = x.shape
-    h = x.reshape(Bn * L, C).clone()
-    rot = frames.rot.to(torch.float32).contiguous()
-    trans = frames.trans.to(torch.float32).contiguous()
-    mask = mask.to(torch.float32).contiguous()
-    for i, w in enumerate(ws):
-        mod = mods[:, i * 6 * C:(i + 1) * 6 * C]
+    (``ENC_KEYS``); frames Rigid (Bn, L); mask (Bn, L). Returns (Bn, L, C),
+    differentiable in x, mods and the weights."""
+    flat = [w[k] for w in ws for k in ENC_KEYS]
+    return _EncoderFn.apply(x, mods, frames.rot.to(torch.float32).contiguous(),
+                            frames.trans.to(torch.float32).contiguous(),
+                            mask.to(torch.float32).contiguous(),
+                            (num_heads_mha, Hi, Ch, Pq, Pv), *flat)
 
-        def m(j, mod=mod):
-            return mod[:, j * C:(j + 1) * C]
 
-        proj = adaln_linear(h, w["wproj"], w["bproj"], ln="affine", ln_weight=w["ln_w"],
-                            ln_bias=w["ln_b"], out_dtype=torch.float32)
-        feats = ipa_attention(proj.view(Bn, L, -1), rot, trans, mask, w["head_weights"],
-                              H=Hi, Ch=Ch, Pq=Pq, Pv=Pv, out_dtype=h.dtype)
-        adaln_linear(feats.view(Bn * L, -1), w["wo_i"], w["bo_i"], epilogue="gate_res",
-                     res=h, out=h)
-        qkv = adaln_linear(h, w["wqkv_m"], w["bqkv_m"], ln="plain", shift=m(0), scale=m(1))
-        att = rope_attention(qkv.view(Bn, L, 1, 3 * C), w["bkm"], w["bvm"],
-                             mask.view(Bn, L, 1), num_heads=num_heads_mha, base2=False)
-        adaln_linear(att.view(-1, C), w["wo_m"], w["bo_m"], epilogue="gate_res", res=h,
-                     gate=m(2), out=h)
-        hid = adaln_linear(h, w["w1"], w["b1"], ln="plain", shift=m(3), scale=m(4),
-                           epilogue="gelu")
-        adaln_linear(hid, w["w2"], w["b2"], epilogue="gate_res", res=h, gate=m(5), out=h)
-    return h.view(Bn, L, C)
+ipa_encoder.bwd_recomputes = 0

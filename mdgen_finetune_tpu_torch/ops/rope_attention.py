@@ -18,23 +18,20 @@ Returns (G, N, I, C).
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from ..models.attention import attention_core
-from ..models.rope import apply_rope, rope_tables_np
+from ..models.rope import apply_rope, rope_tables
 from . import _cuda
 
 _ARGTYPES = [_cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P,
              _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.P]
 
 
-def rope_attention_plain(qkv, bias_k, bias_v, key_valid, *, num_heads: int,
-                         base2: bool, out=None):
-    """Plain PyTorch version of ``rope_attention`` (same arguments)."""
-    if qkv.is_cuda:
-        rope_attention_plain.cuda_calls += 1
+def rope_attention_math(qkv, bias_k, bias_v, key_valid, *, num_heads: int,
+                        base2: bool, out=None):
+    """The plain PyTorch math of ``rope_attention`` (same arguments), counted
+    nowhere and differentiable with ``out=None``."""
     G, N, I, C3 = qkv.shape
     C, H = C3 // 3, num_heads
     D = C // H
@@ -59,14 +56,15 @@ def rope_attention_plain(qkv, bias_k, bias_v, key_valid, *, num_heads: int,
     return o.contiguous()
 
 
+def rope_attention_plain(qkv, bias_k, bias_v, key_valid, **kw):
+    """Plain PyTorch version of ``rope_attention`` (same arguments); counts
+    its calls on CUDA tensors in ``cuda_calls``."""
+    if qkv.is_cuda:
+        rope_attention_plain.cuda_calls += 1
+    return rope_attention_math(qkv, bias_k, bias_v, key_valid, **kw)
+
+
 rope_attention_plain.cuda_calls = 0
-
-
-@functools.lru_cache(maxsize=32)
-def _tables(n_pos: int, D: int, device: str):
-    cos, sin = rope_tables_np(n_pos, D)
-    return (torch.as_tensor(cos, device=device).contiguous(),
-            torch.as_tensor(sin, device=device).contiguous())
 
 
 def rope_attention(qkv, bias_k, bias_v, key_valid, *, num_heads: int, base2: bool,
@@ -93,7 +91,7 @@ def rope_attention(qkv, bias_k, bias_v, key_valid, *, num_heads: int, base2: boo
         out = torch.empty(G, N, I, C, dtype=torch.bfloat16, device=qkv.device)
     elif out.dtype != torch.bfloat16 or not out.is_contiguous() or tuple(out.shape) != (G, N, I, C):
         raise ValueError("rope_attention: out must be a contiguous bf16 (G, N, I, C) tensor")
-    cos, sin = _tables(N + 1, D, str(qkv.device))
+    cos, sin = rope_tables(N + 1, D, device=qkv.device)
     lib = _cuda.library("rope_attention", _ARGTYPES)
     code = lib.rope_attention(qkv.data_ptr(), bias_k.data_ptr(), bias_v.data_ptr(),
                               key_valid.data_ptr(), cos.data_ptr(), sin.data_ptr(),

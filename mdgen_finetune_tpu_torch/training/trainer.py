@@ -1,0 +1,259 @@
+"""Training runtime on one GPU: the flow-matching loss, its backward through
+the hand-written kernels, global-norm clipping, Adam/AdamW, EMA and
+checkpoints.
+
+Counterpart of the JAX package's ``training/trainer.py`` (:40-215;
+reference src/mdgen/wrapper.py:46-172, src/train.py:44-77). One step is
+featurization, task prep and the loss on the device, the backward
+(``FusedTrunkFn`` for the trunk, a plain-math recompute for the encoder),
+then the optimizer with optax's semantics (``make_optimizer``) and the EMA.
+The state is updated in place and returned (the JAX step donates it).
+
+Entry points run on the card (``device="cuda"``) unless the caller asks for
+the CPU; without CUDA they raise. Randomness (t and the prior draw x0)
+comes from an explicit ``torch.Generator``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+from ..config import MDGenConfig
+from ..data.featurize import featurize_atom14_batch
+from ..geometry.rigid import full_f32
+from ..inference.sampling import resolve_device
+from ..models.denoiser import LatentMDGen
+from ..tasks import prep_batch
+from ..transport import create_transport
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    params: dict       # name -> f32 parameter: the trainer's model's own tensors
+    opt_state: dict
+    ema_params: dict   # name -> f32 tensor, buffers distinct from params
+
+
+class Optimizer:
+    """``optax.chain(clip_by_global_norm(clip), adam(lr) | adamw(lr))``,
+    wrapped in ``optax.MultiSteps(every_k)`` when ``every_k > 1``, with
+    optax's arithmetic: the clip scales by ``clip / ||g||`` only when
+    ``||g|| >= clip``; Adam b1 0.9, b2 0.999, eps 1e-8 with bias correction;
+    AdamW adds ``weight_decay * p`` (optax's default 1e-4) before the
+    learning rate; MultiSteps feeds the running mean of ``every_k`` gradients
+    to the inner chain and updates every ``every_k``-th call."""
+
+    def __init__(self, lr: float, clip: float, adamw: bool = False, every_k: int = 1,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 1e-4):
+        self.lr, self.clip, self.adamw, self.every_k = lr, clip, adamw, every_k
+        self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
+
+    def init(self, params: dict) -> dict:
+        def zeros():
+            return {k: torch.zeros_like(p) for k, p in params.items()}
+
+        state = {"count": 0, "mu": zeros(), "nu": zeros()}
+        if self.every_k > 1:
+            state.update(mini_step=0, acc=zeros())
+        return state
+
+    @torch.no_grad()
+    def step(self, params: dict, grads: dict, state: dict) -> None:
+        """Update ``params`` and ``state`` in place from ``grads`` (multi-tensor
+        ``torch._foreach_*`` ops: a few launches for all the parameters)."""
+        keys = list(params)
+        gs = [grads[k] for k in keys]
+        if self.every_k > 1:
+            n = state["mini_step"]
+            acc = [state["acc"][k] for k in keys]
+            torch._foreach_add_(acc, torch._foreach_div(torch._foreach_sub(gs, acc), n + 1))
+            state["mini_step"] = (n + 1) % self.every_k
+            if n != self.every_k - 1:
+                return
+            gs = [a.clone() for a in acc]
+            torch._foreach_zero_(acc)
+        g_norm = global_norm(dict(zip(keys, gs)))
+        factor = torch.where(g_norm < self.clip, torch.ones_like(g_norm), self.clip / g_norm)
+        gs = torch._foreach_mul(gs, factor)
+        state["count"] += 1
+        c1 = 1.0 - self.b1 ** state["count"]
+        c2 = 1.0 - self.b2 ** state["count"]
+        mu = [state["mu"][k] for k in keys]
+        nu = [state["nu"][k] for k in keys]
+        ps = [params[k] for k in keys]
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, gs, alpha=1 - self.b1)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_addcmul_(nu, gs, gs, value=1 - self.b2)
+        denom = torch._foreach_div(nu, c2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        upd = torch._foreach_div(mu, c1)
+        torch._foreach_div_(upd, denom)
+        if self.adamw:
+            torch._foreach_add_(upd, ps, alpha=self.weight_decay)
+        torch._foreach_add_(ps, upd, alpha=-self.lr)
+
+
+def make_optimizer(cfg: MDGenConfig) -> Optimizer:
+    t = cfg.train
+    return Optimizer(t.lr, t.grad_clip, adamw=t.adamW, every_k=t.accumulate_grad)
+
+
+def global_norm(tensors: dict) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors.values()))))
+
+
+class Trainer:
+    def __init__(self, cfg: MDGenConfig, device="cuda", dtype=None):
+        if cfg.model.grad_checkpointing:
+            raise NotImplementedError(
+                "model.grad_checkpointing is not ported yet (ROADMAP.md queue 1 item 9)")
+        if cfg.train.dp_size > 1 or cfg.train.sp_size > 1:
+            raise NotImplementedError(
+                "train.dp_size / sp_size > 1 is not ported yet (ROADMAP.md queue 1 item 12)")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        full_f32()
+        self.dtype = dtype or (torch.bfloat16 if cfg.model.use_bf16 else torch.float32)
+        self.transport = create_transport(cfg)
+        self.opt = make_optimizer(cfg)
+        self.model: Optional[LatentMDGen] = None
+        self.workdir = os.path.join(cfg.workdir, cfg.run_name)
+
+    # ------------------------------------------------------------------
+    def init_state(self, seed: int) -> TrainState:
+        """A fresh model with the JAX package's init, drawn on the CPU from
+        ``seed``, and its optimizer and EMA state."""
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            model = LatentMDGen(self.cfg, self.cfg.latent_dim, dtype=self.dtype)
+        self.model = model.to(self.device)
+        params = dict(self.model.named_parameters())
+        ema = {k: p.detach().clone() for k, p in params.items()}
+        return TrainState(step=0, params=params, opt_state=self.opt.init(params), ema_params=ema)
+
+    # ------------------------------------------------------------------
+    def _device_batch(self, batch: dict) -> dict:
+        return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v,
+                                   device=self.device)
+                for k, v in batch.items() if k in ("atom14", "seqres", "mask")}
+
+    def _loss_fn(self, batch: dict, generator: Optional[torch.Generator] = None, t=None,
+                 x0=None):
+        """Mean flow-matching loss of a raw batch (atom14, seqres, mask) and
+        the mean t: featurize -> prep_batch -> training_losses."""
+        b = self._device_batch(batch)
+        feats = featurize_atom14_batch(b["atom14"].float(), b["seqres"].long(),
+                                       b["mask"].float())
+        return self._feature_loss(feats, generator, t, x0)
+
+    def _feature_loss(self, feats: dict, generator=None, t=None, x0=None):
+        """``_loss_fn`` from a featurized batch (``featurize_atom14_batch``)."""
+        prep = prep_batch(self.cfg, feats)
+        kw = prep["model_kwargs"]
+
+        def model_fn(x, tt, mask, **kwargs):
+            return self.model(x, tt, mask.float(), **kwargs)
+
+        terms = self.transport.training_losses(model_fn, prep["latents"], mask=prep["loss_mask"],
+                                               model_kwargs=kw, generator=generator, t=t, x0=x0)
+        return terms["loss"].mean(), terms["t"].mean()
+
+    def _grads(self, state: TrainState, batch: dict, generator):
+        for p in state.params.values():
+            p.grad = None
+        loss, t_mean = self._loss_fn(batch, generator)
+        loss.backward()
+        grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+                 for k, p in state.params.items()}
+        for p in state.params.values():
+            p.grad = None
+        return loss.detach(), t_mean.detach(), grads
+
+    def train_step(self, state: TrainState, batch: dict, generator: torch.Generator):
+        """One step; ``state`` is updated in place and returned with the
+        metrics {loss, t_mean, grad_norm} as device scalars."""
+        loss, t_mean, grads = self._grads(state, batch, generator)
+        metrics = {"loss": loss, "t_mean": t_mean, "grad_norm": global_norm(grads)}
+        self.opt.step(state.params, grads, state.opt_state)
+        decay = self.cfg.train.ema_decay if self.cfg.train.ema else 0.0
+        with torch.no_grad():
+            ema = [state.ema_params[k] for k in state.params]
+            torch._foreach_mul_(ema, decay)
+            torch._foreach_add_(ema, list(state.params.values()), alpha=1 - decay)
+        state.step += 1
+        return state, metrics
+
+    def check_grad_coverage(self, state: TrainState, batch: dict,
+                            generator: torch.Generator) -> list:
+        """Parameter names receiving all-zero gradients (reference
+        --check_grad, src/mdgen/wrapper.py:115-118)."""
+        _, _, grads = self._grads(state, batch, generator)
+        return [k for k, g in grads.items() if not bool(g.abs().max() > 0)]
+
+    # ------------------------------------------------------------------
+    def fit(self, state: TrainState, batches: Iterator[dict], num_steps: int,
+            generator: torch.Generator, log_every: int = 50, log_fn=None) -> TrainState:
+        """``num_steps`` steps over ``batches``; every ``log_every`` steps
+        (and at the last) one JSON line {loss, t_mean, grad_norm, step, dur}."""
+        t_last = time.time()
+        for i in range(num_steps):
+            state, metrics = self.train_step(state, next(batches), generator)
+            if (i + 1) % log_every == 0 or i == num_steps - 1:
+                line = {k: float(v) for k, v in metrics.items()}
+                line.update(step=state.step, dur=time.time() - t_last)
+                t_last = time.time()
+                (log_fn or (lambda m: print(json.dumps(m), flush=True)))(line)
+        return state
+
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, state: TrainState, path: Optional[str] = None) -> str:
+        """``torch.save`` of the step, parameters, optimizer state and EMA
+        into ``path/state.pt``, and the config as ``path/config.json``."""
+        path = os.path.abspath(path or os.path.join(self.workdir, f"ckpt_{state.step}"))
+        os.makedirs(path, exist_ok=True)
+
+        def host(tree):
+            if isinstance(tree, dict):
+                return {k: host(v) for k, v in tree.items()}
+            return tree.detach().cpu() if torch.is_tensor(tree) else tree
+
+        torch.save({"step": state.step, "params": host(state.params),
+                    "opt_state": host(state.opt_state), "ema_params": host(state.ema_params)},
+                   os.path.join(path, "state.pt"))
+        with open(os.path.join(path, "config.json"), "w") as f:
+            f.write(self.cfg.to_json())
+        return path
+
+    def restore_checkpoint(self, path: str, template: TrainState) -> TrainState:
+        """Load a checkpoint into ``template``'s tensors (in place) and return
+        the restored state."""
+        saved = torch.load(os.path.join(os.path.abspath(path), "state.pt"), map_location="cpu",
+                           weights_only=True)
+
+        def load(dst, src):
+            out = {}
+            for k, v in src.items():
+                if isinstance(v, dict):
+                    out[k] = load(dst[k], v)
+                elif torch.is_tensor(v):
+                    with torch.no_grad():
+                        dst[k].copy_(v)
+                    out[k] = dst[k]
+                else:
+                    out[k] = v
+            return out
+
+        return TrainState(step=saved["step"], params=load(template.params, saved["params"]),
+                          opt_state=load(template.opt_state, saved["opt_state"]),
+                          ema_params=load(template.ema_params, saved["ema_params"]))

@@ -113,7 +113,8 @@ def test_encoder_matches_encoder_xla_and_pallas(models):
     ref_kernel = _encoder_pallas(jnp.asarray(x), mods, ws, jf.rot, jf.trans, jnp.asarray(mask),
                                  Hm, Hi, Ch, Pq, Pv, True)
 
-    tenc = m["tm"].make_trunk_pack()["enc"]
+    with torch.no_grad():
+        tenc = m["tm"].make_trunk_pack()["enc"]
     tmods = torch.nn.functional.silu(torch.from_numpy(temb)) @ tenc["wmods"] + tenc["bmods"]
     out = ipa_encoder(torch.from_numpy(x), tmods, tenc["layers"], tf, torch.from_numpy(mask),
                       num_heads_mha=Hm, Hi=Hi, Ch=Ch, Pq=Pq, Pv=Pv)

@@ -7,7 +7,8 @@ runs where only PyTorch is installed:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
 (``--noconftest``: the suite's conftest configures JAX). ``chip_smoke.py``
-makes the same comparisons at the flagship's full shapes.
+makes the same comparisons at the flagship's full shapes (sampling and
+training).
 """
 import pytest
 import torch
@@ -96,3 +97,53 @@ def test_ipa_attention_matches_plain_on_card():
                       H=4, Ch=32, Pq=8, Pv=8)
     p = ipa_attention_plain(proj, fr.rot, fr.trans, mask, hw, H=4, Ch=32, Pq=8, Pv=8)
     _close(a, p)
+
+
+@pytest.mark.cuda
+def test_backward_kernels_match_plain_on_card():
+    """On the card: linear_bwd (dgrad with gate and GELU' epilogue, wgrad
+    with the LN prologue), modln_bwd and rope_attention_bwd (both trunk
+    axes, a padded residue) against their plain twins on the same inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.ops.linear_bwd import linear_bwd, linear_bwd_plain
+    from mdgen_finetune_tpu_torch.ops.modln_bwd import modln_bwd, modln_bwd_plain
+    from mdgen_finetune_tpu_torch.ops.rope_attention_bwd import (
+        rope_attention_bwd, rope_attention_bwd_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    bf = torch.bfloat16
+    Bc, Tc, Lc, Cc, Hc = 2, 20, 4, 96, 4
+    M = Bc * Tc * Lc
+
+    def r(*s, sc=1.0, dtype=bf):
+        return (torch.randn(*s, generator=g, device="cuda") * sc).to(dtype)
+
+    x, dout = r(M, Cc), r(M, Cc, dtype=torch.float32)
+    sh, scl, gate = r(Bc, Cc, sc=0.3), r(Bc, Cc, sc=0.3), r(Bc, Cc, sc=0.3)
+    w1, w2 = r(Cc, 4 * Cc, sc=Cc ** -0.5), r(4 * Cc, Cc, sc=0.05)
+    act, da = r(M, 4 * Cc, sc=2.0, dtype=torch.float32), r(M, 4 * Cc)
+    cases = [
+        ("dgrad", dout, w2, dict(gate=gate, act=act, out_dtype=bf)),
+        ("dgrad", da, w1, dict()),
+        ("wgrad", da, x, dict(ln=True, shift=sh, scale=scl)),
+        ("wgrad", dout, r(M, 4 * Cc), dict(gate=gate)),
+    ]
+    for mode, dy, xx, kw in cases:
+        got, ref = linear_bwd(mode, dy, xx, **kw), linear_bwd_plain(mode, dy, xx, **kw)
+        for a, b in zip(got if mode == "wgrad" else (got,), ref if mode == "wgrad" else (ref,)):
+            _close(a, b)
+    dh, y = r(M, Cc, dtype=torch.float32), r(M, Cc, dtype=torch.float32)
+    dx, dmod = modln_bwd(x, dh, dout, y, scl)
+    rdx, rdmod = modln_bwd_plain(x, dh, dout, y, scl)
+    _close(dx, rdx, 1e-3)
+    _close(dmod, rdmod, 1e-3)
+    mask = torch.ones(Bc, Tc, Lc, device="cuda")
+    mask[1, :, -1] = 0
+    qkv = r(Bc, Tc, Lc, 3 * Cc)
+    bk, bv = r(Cc), r(Cc)
+    for view in ((Bc * Tc, Lc, 1), (Bc, Tc, Lc)):
+        q, do, mk = qkv.view(*view, 3 * Cc), r(*view, Cc), mask.view(view)
+        for a, b in zip(rope_attention_bwd(q, do, bk, bv, mk, num_heads=Hc),
+                        rope_attention_bwd_plain(q, do, bk, bv, mk, num_heads=Hc)):
+            _close(a, b)

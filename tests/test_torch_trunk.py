@@ -96,7 +96,8 @@ def test_trunk_twin_matches_jax_layer_chain(models):
     jmods = jnp.asarray(mods[:, :NL * 9 * C])
     ref = jfl.fused_trunk(hp, jmods, jpack[2], jnp.asarray(m["mask"]), num_heads=H, tl=(T, L))
     ref = np.asarray(ref)[:, :T].reshape(B, T, L, C)
-    tpack = m["tm"].make_trunk_pack()
+    with torch.no_grad():
+        tpack = m["tm"].make_trunk_pack()
     out = fused_trunk(torch.from_numpy(h.copy()), torch.from_numpy(mods[:, :NL * 9 * C]),
                       tpack["layers"], torch.from_numpy(m["mask"]), num_heads=H)
     np.testing.assert_allclose(out.numpy(), ref, rtol=RTOL, atol=ATOL)
@@ -144,7 +145,8 @@ def test_euler_step_matches_pallas_trunk_kernel(models):
     ref_xla = flat_to_latent(jfl.fused_trunk(*args, num_heads=H, tl=(T, L), **kw), T, L, lat)
 
     tm = m["tm"]
-    tpack = tm.make_trunk_pack()
+    with torch.no_grad():
+        tpack = tm.make_trunk_pack()
     tconsts = tm.make_scan_consts(torch.from_numpy(x_cond), torch.from_numpy(x_cond_mask),
                                   torch.from_numpy(m["mask"]), aatype=torch.from_numpy(aatype))
     tmods = tm.embed_mods(tm.embed_times(torch.full((1,), t)), tpack)
