@@ -5,13 +5,21 @@
 Builds the hand-written CUDA kernels of ``mdgen_finetune_tpu_torch/csrc``
 from this checkout and holds each kernel against its plain PyTorch twin at
 the shapes of its path (the sampler's forward kernels at B = 64, the
+key-tiled frame attention and the trunk's three stage ops at T = 1000, the
 training backward kernels at B = 32). Then:
 
 - the sampler: one denoiser step on the card against the same step on the
-  CPU; the flagship forward-simulation sampler at full width (5 layers x
-  384, 16 heads, prepend-IPA, L = 4, T = 100, B = 64, 100 Euler steps,
-  bf16, seeded random weights) through ``InferenceEngine.sample`` and a
-  2-window ``rollout``; a ``torch.profiler`` trace of one more sample;
+  CPU (and its launches: 32 ``adaln_linear``, 10 ``rope_attention``); the
+  flagship forward-simulation sampler at full width (5 layers x 384, 16
+  heads, prepend-IPA, L = 4, T = 100, B = 64, 100 Euler steps, bf16, seeded
+  random weights) through ``InferenceEngine.sample`` and a 2-window
+  ``rollout``; a ``torch.profiler`` trace of one more sample;
+- the 4AA forward-simulation preset (``preset_4aa_sim``: T = 1000, same
+  width): one velocity evaluation on the card against the CPU (B = 1);
+  ``InferenceEngine.sample`` at B = 8 with Euler-100, then Heun-10 and the
+  preset's dopri5 at B = 1 (accepted / rejected steps, evaluations); a
+  trace of one B = 8 sample; the ``sim_inference`` CLI writing a
+  2,000-frame PDB (dopri5) from a ``Trainer`` checkpoint, parsed back;
 - training: the loss and every parameter's gradient on the card (bf16
   kernels) against the CPU (f32 twins) at full width, B = 2; the flagship
   config trained through ``Trainer`` at B = 32, T = 100, L = 4 (2 warm-up
@@ -42,6 +50,7 @@ PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
 B, T, L, C, H, NL, STEPS = 64, 100, 4, 384, 16, 5, 100
 B_TRAIN = 32  # the training shape of tools/train_step_bench.py
+B_SIM, T_SIM = 8, 1000  # the 4AA forward-simulation preset (config.preset_4aa_sim)
 SCRATCH = Path(__file__).resolve().parent / "workdir" / "chip_smoke"
 
 
@@ -206,8 +215,123 @@ def phase_kernels(dev):
         library_ms=None,
         bound=bound_ms(nbytes(proj, rot, trans, emask, hw) + got.numel() * 2,
                        Lq * (2 * 32 + 8 * 3 * 3 + 2 * (32 + 8 * 3)), PEAK_F32_FLOPS))
-    emit({"phase": "kernels", "kernels": out})
+    out["tiled_attention"], stages = long_t_kernels(dev)
+    emit({"phase": "kernels", "kernels": out, "stages_1000": stages})
     return out
+
+
+def long_t_kernels(dev):
+    """The kernels of the 4AA forward-simulation preset (T = 1000): the
+    key-tiled frame-attention core against its plain twin at the path's
+    shape (B = 8, L = 4, 16 heads of D = 24, some frames masked) and at
+    N = 2048, D = 64; the trunk's three stage ops (rows 9, 6 and 5 of the
+    TPU kernel table) against their plain compositions at B = 1 and 8."""
+    import math
+
+    import torch.nn.functional as F
+
+    from mdgen_finetune_tpu_torch.models.rope import apply_rope
+    from mdgen_finetune_tpu_torch.ops import adaln_mlp as AM
+    from mdgen_finetune_tpu_torch.ops import residue_block as RB
+    from mdgen_finetune_tpu_torch.ops import time_attention as TA
+    from mdgen_finetune_tpu_torch.ops.tiled_attention import tiled_attention, tiled_attention_plain
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    bf = torch.bfloat16
+
+    def r(*s, sc=1.0):
+        return (torch.randn(*s, generator=g, device=dev) * sc).to(bf)
+
+    def attn_case(Bc, N, Lc, Hc, D):
+        Cc = Hc * D
+        qkv = r(Bc, N, Lc, 3 * Cc)
+        qkv[..., :Cc] *= 0.5 * D ** -0.5 * math.log2(math.e)  # the trunk's folded q scale
+        mask = torch.ones(Bc, N, Lc, device=dev)
+        mask[0, N // 2:, -1] = 0   # masked frames
+        mask[-1, 64:128] = 0       # a key tile of masked keys only
+        return qkv, r(Cc), r(Cc), mask, Hc
+
+    def sdpa_inputs(qkv, bk, bv, mask, Hc):
+        """The RoPE'd heads with the bias key, and the additive key mask."""
+        Bc, N, Lc, C3 = qkv.shape
+        Cc, S = C3 // 3, Bc * Lc
+        D = Cc // Hc
+
+        def heads(t, extra=None):
+            t = t.permute(0, 2, 1, 3).reshape(S, N, Hc, D)
+            if extra is not None:
+                t = torch.cat([t, extra.view(1, 1, Hc, D).expand(S, 1, Hc, D)], 1)
+            return t.transpose(1, 2)
+
+        q, k = apply_rope(heads(qkv[..., :Cc]), heads(qkv[..., Cc:2 * Cc], bk))
+        v = heads(qkv[..., 2 * Cc:], bv)
+        valid = torch.cat([mask.permute(0, 2, 1).reshape(S, N), torch.ones(S, 1, device=dev)], 1)
+        am = ((valid - 1.0) * 1e9).to(bf)[:, None, None, :]
+        return q.contiguous(), k.contiguous(), v.contiguous(), am
+
+    res = {}
+    for name, shape in (("4aa_T1000", (B_SIM, T_SIM, L, H, C // H)), ("n2048_d64", (4, 2048, 1, 6, 64))):
+        qkv, bk, bv, mask, Hc = attn_case(*shape)
+        got = tiled_attention(qkv, bk, bv, mask, num_heads=Hc)
+        ref = tiled_attention_plain(qkv.float(), bk.float(), bv.float(), mask, num_heads=Hc)
+        err = check(f"tiled_attention[{name}]", got, ref, 1e-2)
+        del ref
+        q, k, v, am = sdpa_inputs(qkv, bk, bv, mask, Hc)
+        Bc, N, Lc, C3 = qkv.shape
+        D = C3 // 3 // Hc
+        # SDPA's natural-exp softmax at scale ln 2 is the base-2 softmax of q.k
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am, scale=math.log(2))  # noqa: E731
+        res[name] = dict(
+            shape=f"{Bc * Lc} sequences x {Hc} heads, {N} queries, {N + 1} keys, D={D}",
+            max_abs_err=err[0], tol=err[1],
+            ms=time_ms(lambda: tiled_attention(qkv, bk, bv, mask, num_heads=Hc)),
+            plain_ms=time_ms(lambda: tiled_attention_plain(qkv, bk, bv, mask, num_heads=Hc), reps=5),
+            library_ms=time_ms(lib),
+            bound=bound_ms(nbytes(qkv, bk, bv, mask) + qkv.numel() // 3 * 2,
+                           4.0 * Bc * Lc * Hc * N * (N + 1) * D))
+        del q, k, v, am, qkv
+    tiled = dict(res["4aa_T1000"], n2048_d64=res["n2048_d64"])
+
+    # the trunk's stage ops at T = 1000 against their plain compositions (f32)
+    stages = {}
+    for Bc in (1, B_SIM):
+        M = Bc * T_SIM * L
+        mask = torch.ones(Bc, T_SIM, L, device=dev)
+        mask[0, :, -1] = 0
+        mask[-1, 900:] = 0
+        x = r(M, C)
+        mods = [r(Bc, C, sc=0.3) for _ in range(3)]
+        attn_ws = [r(C, 3 * C, sc=C ** -0.5), r(3 * C, sc=0.1), r(C, C, sc=C ** -0.5),
+                   r(C, sc=0.1), r(C), r(C)]
+        mlp_ws = [r(C, 4 * C, sc=C ** -0.5), r(4 * C, sc=0.1), r(4 * C, C, sc=(4 * C) ** -0.5),
+                  r(C, sc=0.1)]
+        dims = dict(B=Bc, T=T_SIM, L=L, num_heads=H)
+        f_att = 4.0 * Bc * L * H * T_SIM * (T_SIM + 1) * (C // H)
+        ops = {
+            "row9_residue_block": (RB.residue_block, RB.residue_block_plain, attn_ws + [mask], dims,
+                                   2.0 * M * C * 4 * C + 4.0 * M * (L + 1) * C),
+            "row6_time_attention_block": (TA.time_attention_block, TA.time_attention_block_plain,
+                                          attn_ws + [mask], dims, 2.0 * M * C * 4 * C + f_att),
+            "row5_adaln_mlp": (AM.adaln_mlp, AM.adaln_mlp_plain, mlp_ws, {}, 16.0 * M * C * C),
+        }
+        for name, (op, plain, ws, kw, flops) in ops.items():
+            # a composition of kernels, held as the trunk rows are: its error
+            # against the plain twins in f32 at most twice that of the plain
+            # twins in bf16, plus 0.01 (relative L2)
+            got = op(x, *mods, *ws, **kw).float()
+            ref = plain(x.float(), *[m.float() for m in mods], *[w.float() for w in ws], **kw)
+            rel = ((got - ref).norm() / ref.norm()).item()
+            rel_plain = ((plain(x, *mods, *ws, **kw).float() - ref).norm() / ref.norm()).item()
+            err = (got - ref).abs().max().item()
+            del got, ref
+            if not (rel <= 2 * rel_plain + 0.01) or err != err:
+                raise AssertionError(f"{name}[B={Bc}]: relative L2 {rel} > 2 x {rel_plain} + 0.01")
+            stages[f"{name}_B{Bc}"] = dict(
+                rel_l2=rel, tol=2 * rel_plain + 0.01, max_abs_err=err,
+                ms=time_ms(lambda: op(x, *mods, *ws, **kw)),
+                plain_ms=time_ms(lambda: plain(x, *mods, *ws, **kw), reps=5),
+                bound=bound_ms(nbytes(x, *mods, *ws) + M * C * 2, flops))
+    return tiled, stages
 
 
 def phase_bwd_kernels(dev):
@@ -492,6 +616,78 @@ def phase_train_path(dev):
     return launches, (trainer, state, batches[0], gen)
 
 
+def with_twins(fn):
+    """``fn()`` with every kernel wrapper that the trunk, its stage ops, its
+    backward and the encoder call swapped for its plain twin (run on the same
+    card tensors); the wrappers are put back after."""
+    import importlib
+
+    def ops(n):
+        return importlib.import_module(f"mdgen_finetune_tpu_torch.ops.{n}")
+
+    names = TRAIN_WRAPPERS + ("tiled_attention",)
+    twin_of = {n: getattr(ops(n), n + "_plain") for n in names}
+    users = [ops(m) for m in ("fused_layer", "fused_layer_bwd", "residue_block",
+                              "time_attention", "adaln_mlp")]
+    uses = [(m, n) for m in users for n in names if hasattr(m, n)]
+    kept = [getattr(m, n) for m, n in uses]
+    IE = ops("ipa_encoder")
+    kept_enc = IE.KERNELS
+    for m, n in uses:
+        setattr(m, n, twin_of[n])
+    IE.KERNELS = tuple(twin_of[f.__name__] for f in kept_enc)
+    try:
+        return fn()
+    finally:
+        for (m, n), k in zip(uses, kept):
+            setattr(m, n, k)
+        IE.KERNELS = kept_enc
+
+
+def phase_rows_1_2(dev, eng, batch):
+    """Rows 1 and 2 of the kernel table as a whole at the flagship sampler's
+    shape (B = 64, T = 100, L = 4, 5 x 384): one Euler step (``flat_call``:
+    the embed, five layers, the head and the update) and the encoder over the
+    100-point t grid (``encode_steps``), each timed with the kernels and with
+    every wrapper swapped for its plain twin on the same bf16 card tensors."""
+    from mdgen_finetune_tpu_torch.tasks import prep_batch
+
+    m = eng.model
+    prep = prep_batch(eng.cfg, {k: v for k, v in batch.items() if torch.is_tensor(v)})
+    kw = prep["model_kwargs"]
+    mask = kw["mask"].float().contiguous()
+    pack = m.make_trunk_pack()
+    consts = m.make_scan_consts(kw["x_cond"], kw["x_cond_mask"], mask, aatype=kw["aatype"])
+    ts = 0.01 * torch.arange(STEPS, dtype=torch.float32, device=dev)
+    encs = m.encode_steps(ts, mask, consts, pack, kw["start_frames"])
+    mods = m.embed_mods(m.embed_times(ts), pack)
+    lat = eng.cfg.latent_dim
+    xc = torch.randn(B, T, L, lat, generator=torch.Generator(device=dev).manual_seed(51),
+                     device=dev)
+
+    def step():
+        return m.flat_call(xc.clone(), mask, consts, pack, 0.01, enc=encs[0], mods=mods[0:1])
+
+    def encode():
+        return m.encode_steps(ts, mask, consts, pack, kw["start_frames"])
+
+    M = B * T * L
+    flops_step = (NL * (2.0 * M * C * C * 16 + 4.0 * M * (L + 1) * C
+                        + 4.0 * B * L * H * T * (T + 1) * (C // H)) + 2.0 * M * lat * C * 2)
+    weights = nbytes(*[w for layer in pack["layers"] for w in layer.values()], *pack["fin"])
+    b1 = bound_ms(weights + nbytes(xc, consts["cadd"], encs[0], mods[0], mask) + xc.numel() * 4,
+                  flops_step)
+    b2 = encoder_bound(STEPS * B)
+    rows = {
+        "row1_euler_step": dict(ms=time_ms(step, reps=10), plain_ms=with_twins(
+            lambda: time_ms(step, reps=5)), bound_ms=b1[0], bound_by=b1[1], library_ms=None),
+        "row2_encoder_grid": dict(ms=time_ms(encode, reps=10), plain_ms=with_twins(
+            lambda: time_ms(encode, reps=5)), bound_ms=b2[0], bound_by=b2[1], library_ms=None),
+    }
+    emit({"phase": "rows_1_2", "B": B, "T": T, "L": L, "C": C, "layers": NL,
+          "encoder_elements": STEPS * B, **rows})
+
+
 def phase_trunk_rows(dev):
     """Rows 3 and 4 of the kernel table as a whole, at the training shape
     (B = 32, T = 100, L = 4, 5 x 384, one padded residue, seeded random
@@ -501,27 +697,11 @@ def phase_trunk_rows(dev):
     kernels and with every wrapper swapped for its plain twin on the same
     bf16 card tensors, and both are held to the plain twins in f32 under the
     rule of ``grad_cuda_vs_cpu``."""
-    import importlib
-
     from mdgen_finetune_tpu_torch.models.denoiser import LatentMDGen
+    from mdgen_finetune_tpu_torch.ops import fused_layer as FL
     from mdgen_finetune_tpu_torch.utils.weights import randomize_
 
-    FL = importlib.import_module("mdgen_finetune_tpu_torch.ops.fused_layer")
-    FB = importlib.import_module("mdgen_finetune_tpu_torch.ops.fused_layer_bwd")
-    wrappers, twins = _counters()
-    twin_of = dict(zip(TRAIN_WRAPPERS, twins))
-    uses = [(m, n) for m in (FL, FB) for n in TRAIN_WRAPPERS if hasattr(m, n)]
-
-    def with_twins(fn):
-        kept = [getattr(m, n) for m, n in uses]
-        for m, n in uses:
-            setattr(m, n, twin_of[n])
-        try:
-            return fn()
-        finally:
-            for (m, n), k in zip(uses, kept):
-                setattr(m, n, k)
-
+    wrappers, _ = _counters()
     cfg = train_config(B_TRAIN)
     model = randomize_(LatentMDGen(cfg).to(dev), torch.Generator().manual_seed(31), scale=0.05)
     g = torch.Generator(device=dev).manual_seed(32)
@@ -659,7 +839,8 @@ def phase_step_across_devices(dev, cfg):
                           sd, device="cpu")
     atom14, seqres, mask = make_inputs(2, 3, "cpu")
     zs = torch.randn(2, T, L, cfg.latent_dim, generator=torch.Generator().manual_seed(4))
-    vel = {}
+    vel, per_step = {}, {}
+    wrappers, _ = fwd_counters()
     for name, e in (("cuda", eng), ("cpu", cpu)):
         d = e.device
         batch = e._expand_frame0(atom14.to(d), seqres.to(d), mask.to(d))
@@ -672,14 +853,100 @@ def phase_step_across_devices(dev, cfg):
         enc = m.encode_steps(ts, mk, consts, pack, kw["start_frames"])
         mods = m.embed_mods(m.embed_times(ts), pack)
         xc = zs.to(d).clone()
+        before = {fn.__name__: fn.launches for fn in wrappers}
         m.flat_call(xc, mk, consts, pack, 1.0, enc=enc[0], mods=mods)
+        if name == "cuda":
+            per_step = {fn.__name__: fn.launches - before[fn.__name__] for fn in wrappers}
         vel[name] = (xc - zs.to(d)).float().cpu()
     rel = ((vel["cuda"] - vel["cpu"]).norm() / vel["cpu"].norm()).item()
     tol = 5e-2
     emit({"phase": "step_cuda_vs_cpu", "batch": 2, "rel_l2": rel, "tol": tol,
-          "velocity_norm_cpu": vel["cpu"].norm().item()})
+          "velocity_norm_cpu": vel["cpu"].norm().item(), "launches_per_step": per_step})
     if not rel <= tol:
         raise AssertionError(f"card vs CPU step: relative L2 {rel} > {tol}")
+    want = {"adaln_linear": 32, "rope_attention": 10, "ipa_attention": 0, "tiled_attention": 0}
+    if per_step != want:
+        raise AssertionError(f"launches per Euler step at T = {T}: {per_step}, expected {want}")
+
+
+FWD_WRAPPERS = ("adaln_linear", "rope_attention", "ipa_attention", "tiled_attention")
+
+
+def fwd_counters():
+    """The sampler's kernel wrappers (their ``launches`` counts) and their
+    plain twins (their ``cuda_calls`` counts)."""
+    import importlib
+
+    mods = [importlib.import_module(f"mdgen_finetune_tpu_torch.ops.{n}") for n in FWD_WRAPPERS]
+    return ([getattr(m, n) for m, n in zip(mods, FWD_WRAPPERS)],
+            [getattr(m, n + "_plain") for m, n in zip(mods, FWD_WRAPPERS)])
+
+
+def sim_config(method, steps=None):
+    """The 4AA forward-simulation preset at full width (5 x 384, 16 heads,
+    prepend-IPA, T = 1000, L = 4, bf16) with the given ODE sampler."""
+    from mdgen_finetune_tpu_torch.config import (DataConfig, ModelConfig, TransportConfig,
+                                                 preset_4aa_sim)
+
+    cfg = preset_4aa_sim(
+        model=ModelConfig(num_layers=NL, embed_dim=C, mha_heads=H, prepend_ipa=True,
+                          abs_pos_emb=True, use_bf16=True),
+        transport=TransportConfig(sampling_method=method, inference_steps=steps or STEPS),
+        workdir=str(SCRATCH))
+    return cfg.replace(data=dataclasses.replace(cfg.data, num_frames=T_SIM))
+
+
+def phase_step_across_devices_1000(dev):
+    """One velocity evaluation (``forward_inference``) of the preset at
+    B = 1, T = 1000: the card (kernels, bf16) against the CPU (plain twins,
+    f32), same random weights, the batch featurized once on the CPU."""
+    from mdgen_finetune_tpu_torch.inference import InferenceEngine
+    from mdgen_finetune_tpu_torch.tasks import prep_batch
+
+    cfg = sim_config("dopri5")
+    eng, sd = random_engine(dev, cfg, seed=13)
+    cpu = InferenceEngine(cfg.replace(model=dataclasses.replace(cfg.model, use_bf16=False)),
+                          sd, device="cpu")
+    atom14, seqres, mask = make_inputs(1, 14, "cpu")
+    feats = cpu._expand_frame0(atom14, seqres, mask)
+    zs = torch.randn(1, T_SIM, L, cfg.latent_dim, generator=torch.Generator().manual_seed(15))
+    wrappers, _ = fwd_counters()
+    vel = {}
+    for name, e in (("cuda", eng), ("cpu", cpu)):
+        d = e.device
+        kw = prep_batch(e.cfg, {k: v.to(d) for k, v in feats.items()})["model_kwargs"]
+        before = {fn.__name__: fn.launches for fn in wrappers}
+        v = e.model.forward_inference(zs.to(d), torch.full((1,), 0.4, device=d), kw["mask"],
+                                      start_frames=kw["start_frames"], x_cond=kw["x_cond"],
+                                      x_cond_mask=kw["x_cond_mask"], aatype=kw["aatype"])
+        if name == "cuda":
+            per_eval = {fn.__name__: fn.launches - before[fn.__name__] for fn in wrappers}
+        vel[name] = v.float().cpu()
+    rel = ((vel["cuda"] - vel["cpu"]).norm() / vel["cpu"].norm()).item()
+    tol = 5e-2
+    emit({"phase": "step_cuda_vs_cpu_1000", "batch": 1, "T": T_SIM, "rel_l2": rel, "tol": tol,
+          "velocity_norm_cpu": vel["cpu"].norm().item(), "launches_per_eval": per_eval})
+    if not rel <= tol or not torch.isfinite(vel["cuda"]).all():
+        raise AssertionError(f"card vs CPU velocity at T = {T_SIM}: relative L2 {rel} > {tol}")
+    if per_eval["tiled_attention"] != NL or per_eval["rope_attention"] != 2 * NL:
+        raise AssertionError(f"launches per velocity evaluation: {per_eval}")
+
+
+def encoder_bound(Bn, Hi=4, Ch=32, Pq=8, Pv=8):
+    """The least time of the prepend-IPA encoder (row 2 of the TPU kernel
+    table) over Bn elements of L residues: its products (the affine-LN
+    projections, the IPA core, linear_out, the residue MHA and the MLP, for
+    NL layers) over the bf16 peak, or its bytes (tokens in and out, frames,
+    mask and every layer's weights once) over the memory rate."""
+    from mdgen_finetune_tpu_torch.ops.ipa_attention import feat_width, proj_width
+
+    tok = Bn * L
+    pw, fw = proj_width(Hi, Ch, Pq, Pv), feat_width(Hi, Ch, Pv)
+    core = L * L * Hi * Bn * (2 * Ch + Pq * 3 * 3 + 2 * (Ch + Pv * 3))
+    per_layer = (2.0 * tok * C * pw + core + 2.0 * tok * fw * C + 2.0 * tok * C * 4 * C
+                 + 4.0 * tok * (L + 1) * C + 16.0 * tok * C * C)
+    weights = NL * (C * pw + fw * C + 4 * C * C + 8 * C * C + 6 * C * C) * 2
+    return bound_ms(2 * tok * C * 2 + Bn * L * (12 + 1) * 4 + weights, NL * per_layer)
 
 
 def phase_main_path(dev, cfg):
@@ -710,6 +977,7 @@ def phase_main_path(dev, cfg):
     launches = {fn.__name__: fn.launches for fn in wrappers}
     twin_calls = {fn.__name__: fn.cuda_calls for fn in twins}
 
+    enc_bound = encoder_bound(STEPS * B)
     traj = torch.from_numpy(traj)
     assert out.shape == (B, T, L, 14, 3) and traj.shape == (B, 2 * T, L, 14, 3)
     assert torch.isfinite(out).all() and torch.isfinite(traj).all(), "non-finite output"
@@ -720,7 +988,8 @@ def phase_main_path(dev, cfg):
           "launches_per_sample": per_sample, "launches": launches,
           "plain_calls_on_card": twin_calls, "rollout_windows": 2,
           "n_ca_mean": n_ca.mean().item(), "ca_c_mean": ca_c.mean().item(),
-          "n_ca_max_dev": dev_nca, "ca_c_max_dev": dev_cac})
+          "n_ca_max_dev": dev_nca, "ca_c_max_dev": dev_cac,
+          "encoder_bound_ms": enc_bound[0], "encoder_bound_by": enc_bound[1]})
     if dev_nca > 1e-2 or dev_cac > 1e-2:
         raise AssertionError(f"backbone bonds off: N-CA {dev_nca}, CA-C {dev_cac}")
     if min(launches.values()) <= 0:
@@ -730,7 +999,138 @@ def phase_main_path(dev, cfg):
     return launches, (eng, batch, gen)
 
 
-KERNEL_OF = (("resident_kernel", "adaln_linear"), ("pipelined_kernel", "adaln_linear"),
+def sample_checks(name, out, mask, launches, twin_calls, evals):
+    """Finite output, ideal backbone bonds, the plain twins idle and, at
+    T = 1000, the frame stage on ``tiled_attention`` (once per layer per
+    velocity evaluation) with ``rope_attention`` serving only stage 1 and
+    the encoder."""
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{name}: non-finite output")
+    n_ca, ca_c = bonds(out.cpu(), mask.cpu())
+    dev_nca, dev_cac = (n_ca - 1.458).abs().max().item(), (ca_c - 1.522).abs().max().item()
+    if dev_nca > 1e-2 or dev_cac > 1e-2:
+        raise AssertionError(f"{name}: backbone bonds off: N-CA {dev_nca}, CA-C {dev_cac}")
+    if any(twin_calls.values()):
+        raise AssertionError(f"{name}: plain twins ran on the card: {twin_calls}")
+    if launches["tiled_attention"] != NL * evals:
+        raise AssertionError(f"{name}: tiled_attention launched {launches}, not {NL} per evaluation")
+    return dict(n_ca_mean=n_ca.mean().item(), ca_c_mean=ca_c.mean().item(),
+                n_ca_max_dev=dev_nca, ca_c_max_dev=dev_cac)
+
+
+def phase_sim_1000(dev):
+    """The 4AA forward-simulation preset on the card (T = 1000, L = 4,
+    5 x 384, bf16, seeded random weights) through ``InferenceEngine.sample``:
+    B = 8 with Euler-100 after a warm-up, then Heun-10 and the preset's own
+    dopri5 at B = 1 with the same weights."""
+    from mdgen_finetune_tpu_torch.inference import InferenceEngine
+
+    eng, sd = random_engine(dev, sim_config("euler"), seed=23)
+    atom14, seqres, mask = make_inputs(B_SIM, 24, dev)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    batch = eng._expand_frame0(atom14, seqres, mask)
+    eng.sample(batch, gen)  # warm-up
+    torch.cuda.synchronize()
+    wrappers, twins = fwd_counters()
+
+    def reset():
+        for fn in wrappers:
+            fn.launches = 0
+        for fn in twins:
+            fn.cuda_calls = 0
+
+    def read():
+        return ({fn.__name__: fn.launches for fn in wrappers},
+                {fn.__name__: fn.cuda_calls for fn in twins})
+
+    reset()
+    t0 = time.perf_counter()
+    out, _ = eng.sample(batch, gen)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, twin_calls = read()
+    assert out.shape == (B_SIM, T_SIM, L, 14, 3)
+    checks = sample_checks("sim_1000", out, mask, launches, twin_calls, STEPS)
+    if launches["rope_attention"] != NL * STEPS + NL:  # stage 1, and the encoder's one pass
+        raise AssertionError(f"sim_1000: rope_attention launched {launches}")
+    M = B_SIM * T_SIM * L
+    lat = eng.cfg.latent_dim
+    flops_step = (NL * (2.0 * M * C * C * 16 + 4.0 * M * (L + 1) * C
+                        + 4.0 * B_SIM * L * H * T_SIM * (T_SIM + 1) * (C // H))
+                  + 2.0 * M * lat * C * 2)
+    small = {}
+    for method, steps in (("heun", 10), ("dopri5", None)):
+        e = InferenceEngine(sim_config(method, steps), sd, device=dev)
+        b1 = e._expand_frame0(atom14[:1], seqres[:1], mask[:1])
+        reset()
+        t0 = time.perf_counter()
+        o, _ = e.sample(b1, gen)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        lz, tc = read()
+        small[method] = dict(sample_s=s, **e.last_counts, launches=lz,
+                             **sample_checks(method, o, mask[:1], lz, tc, e.last_counts["evals"]))
+        if lz["rope_attention"] != 2 * NL * e.last_counts["evals"]:
+            raise AssertionError(f"{method}: rope_attention launched {lz}")
+        del e
+    emit({"phase": "sim_1000", "B": B_SIM, "T": T_SIM, "L": L, "C": C, "layers": NL,
+          "steps": STEPS, "dtype": "bf16", "sample_s": secs, "frames_per_s": B_SIM * T_SIM / secs,
+          "steps_per_s": B_SIM * STEPS / secs, "ms_per_step": secs / STEPS * 1e3,
+          "bound_ms_per_step": flops_step / PEAK_BF16_FLOPS * 1e3, "flops_per_step": flops_step,
+          "launches_per_sample": launches, "plain_calls_on_card": twin_calls, **checks,
+          "b1_heun10": small["heun"], "b1_dopri5": small["dopri5"]})
+    return launches, (eng, batch, gen)
+
+
+def phase_sim_cli(dev):
+    """The forward-simulation CLI on the card: ``cli.synth_data`` writes one
+    1,100-frame peptide, a ``Trainer`` checkpoint of the preset with seeded
+    random weights is saved, and ``cli.sim_inference`` rolls out 2 windows
+    of 1,000 frames with the preset's dopri5; the PDB must parse back to
+    2,000 models of 4 residues with ideal backbone bonds."""
+    import numpy as np
+
+    from mdgen_finetune_tpu_torch.cli import sim_inference, synth_data
+    from mdgen_finetune_tpu_torch.geometry.protein import from_pdb_models, from_pdb_string
+    from mdgen_finetune_tpu_torch.training import Trainer
+    from mdgen_finetune_tpu_torch.utils.weights import randomize_
+
+    data, out, ckpt = SCRATCH / "sim_data", SCRATCH / "sim_out", SCRATCH / "sim_ckpt"
+    synth_data.main(["--outdir", str(data), "--peptides", "AAGG", "--num_frames", "1100",
+                     "--suffix", "_i100"])
+    trainer = Trainer(sim_config("dopri5"), device=dev)
+    state = trainer.init_state(0)
+    randomize_(trainer.model, torch.Generator().manual_seed(41), scale=0.05)
+    trainer.save_checkpoint(state, str(ckpt))
+    del trainer, state
+    t0 = time.perf_counter()
+    sim_inference.main(["--sim_ckpt", str(ckpt), "--data_dir", str(data),
+                        "--split", str(data / "split.csv"), "--out_dir", str(out),
+                        "--num_frames", str(T_SIM), "--num_rollouts", "2", "--suffix", "_i100",
+                        "--device", str(dev)])
+    secs = time.perf_counter() - t0
+    meta = json.loads((out / "AAGG_meta.json").read_text())
+    path = out / "AAGG.pdb"
+    models = from_pdb_models(str(path))
+    pos = np.stack([from_pdb_string(c).atom_positions
+                    for c in path.read_text().split("ENDMDL") if "ATOM" in c])
+    n_ca = np.linalg.norm(pos[:, :, 0] - pos[:, :, 1], axis=-1)
+    ca_c = np.linalg.norm(pos[:, :, 1] - pos[:, :, 2], axis=-1)
+    dev_nca, dev_cac = float(np.abs(n_ca - 1.458).max()), float(np.abs(ca_c - 1.522).max())
+    residues = sorted({len(a) for a, _ in models})
+    emit({"phase": "sim_cli", "meta": meta, "cli_s": secs, "models": len(models),
+          "residues_per_model": residues, "pdb_bytes": path.stat().st_size,
+          "n_ca_max_dev": dev_nca, "ca_c_max_dev": dev_cac})
+    for d in (data, out, ckpt):
+        shutil.rmtree(d, ignore_errors=True)
+    if len(models) != 2 * T_SIM or residues != [L] or meta["frames"] != 2 * T_SIM:
+        raise AssertionError(f"sim_cli: {len(models)} models of {residues} residues")
+    if not np.isfinite(pos).all() or dev_nca > 1e-2 or dev_cac > 1e-2:
+        raise AssertionError(f"sim_cli: backbone bonds off: N-CA {dev_nca}, CA-C {dev_cac}")
+
+
+KERNEL_OF = (("tiled_attention", "tiled_attention"),
+             ("resident_kernel", "adaln_linear"), ("pipelined_kernel", "adaln_linear"),
              ("tiled64_kernel", "adaln_linear"), ("rope_attention_bwd", "rope_attention_bwd"),
              ("rope_attention", "rope_attention"), ("ipa_attention", "ipa_attention"),
              ("dgrad_kernel", "linear_bwd"), ("wgrad_kernel", "linear_bwd"),
@@ -801,7 +1201,13 @@ def main():
     phase_step_across_devices(dev, cfg)
     launches, (eng, batch, gen) = phase_main_path(dev, cfg)
     phase_trace("trace", lambda: eng.sample(batch, gen))
+    phase_rows_1_2(dev, eng, batch)
     del eng
+    phase_step_across_devices_1000(dev)
+    sim_launches, (eng, batch, gen) = phase_sim_1000(dev)
+    phase_trace("trace_1000", lambda: eng.sample(batch, gen))
+    del eng
+    phase_sim_cli(dev)
     phase_grad_across_devices(dev)
     train_launches, (trainer, state, tbatch, tgen) = phase_train_path(dev)
     phase_trace("train_trace", lambda: trainer.train_step(state, tbatch, tgen))
@@ -821,15 +1227,21 @@ def main():
         "modln_bwd": ("mdgen_finetune_tpu_torch/csrc/modln_bwd.cu", bwd),
         "rope_attention_bwd": ("mdgen_finetune_tpu_torch/csrc/rope_attention_bwd.cu",
                                "mdgen_finetune_tpu/ops/fused_layer_bwd.py:323 (_k2) + :474 (_k1)"),
+        "tiled_attention": ("mdgen_finetune_tpu_torch/csrc/tiled_attention.cu",
+                            "mdgen_finetune_tpu/ops/time_attention.py:504 (_block_pallas_fwd_blocked, "
+                            "body _block_kernel_blocked :409)"),
     }
     line = []
     for name, k in kernels.items():
         src, rep = meta[name]
-        # launches: the sampler's main-path run for the forward kernels, the
-        # training path's run for the backward kernels
+        # launches: the flagship sampler's main-path run for the forward
+        # kernels (tiled_attention: the T = 1000 sampler's), the training
+        # path's run for the backward kernels
         line.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                     "launches": launches.get(name, train_launches[name]),
-                     "train_launches": train_launches[name],
+                     "launches": (sim_launches[name] if name == "tiled_attention"
+                                  else launches.get(name, train_launches.get(name))),
+                     "train_launches": train_launches.get(name, 0),
+                     "sim_1000_launches": sim_launches.get(name, 0),
                      "max_abs_err": k["max_abs_err"], "tol": k["tol"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
                      "bound_by": k["bound"][1], "library_ms": k["library_ms"],

@@ -2,10 +2,14 @@
 
 Counterpart of the JAX package's ``inference/sampling.py`` (reference
 NewMDGenWrapper.inference, src/mdgen/wrapper.py:416-514, and the
-sim_inference rollout loop, src/sim_inference.py:62-112) for its flagship
-path: 100 Euler steps of the velocity field on the flat latent, the weights
-folded once, and the whole t grid's t-embeddings, AdaLN rows and encoder
-outputs computed before the chain; each step is then one ``flat_call``.
+sim_inference rollout loop, src/sim_inference.py:62-112). Euler on the
+velocity field runs the flagship path: the weights folded once, and the
+whole t grid's t-embeddings, AdaLN rows and encoder outputs computed before
+the chain; each step is then one ``flat_call``. Heun and dopri5 (the
+forward-simulation presets' default) integrate the probability-flow drift
+of ``LatentMDGen.forward_inference`` with ``transport.sample_ode``. The
+reverse-SDE sampler, design and mpnn are not ported yet (ROADMAP.md queue 1
+item 8).
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; without CUDA they raise. Randomness comes from an explicit
@@ -22,10 +26,11 @@ from ..geometry import frames as G
 from ..geometry.rigid import Rigid, full_f32
 from ..models.denoiser import LatentMDGen
 from ..tasks import prep_batch
-from ..transport import check_interval
+from ..transport import check_interval, create_transport, sample_ode
 from ..utils.weights import from_flax
 
 _TODO = "ROADMAP.md queue 1 item 8"
+ODE_METHODS = ("euler", "heun", "dopri5")
 
 
 def resolve_device(device) -> torch.device:
@@ -46,17 +51,20 @@ def sample_prior_latent(generator: torch.Generator, B: int, T: int, L: int,
 
 class InferenceEngine:
     """``params``: the port's state_dict, or the JAX package's flax tree as
-    nested dicts of numpy arrays (converted by ``from_flax``)."""
+    nested dicts of numpy arrays (converted by ``from_flax``).
+    ``last_counts``: the ODE counts of the last sample (``transport.
+    samplers``: accepted and rejected steps, drift evaluations)."""
 
     def __init__(self, cfg: MDGenConfig, params, *, device="cuda", dtype=None,
                  sampler: str = "ode"):
         if sampler != "ode":
-            raise NotImplementedError(f"sampler {sampler!r} is not ported yet ({_TODO})")
-        t = cfg.transport
-        if t.sampling_method != "euler" or t.prediction != "velocity":
             raise NotImplementedError(
-                f"{t.sampling_method} / {t.prediction} sampling is not ported yet ({_TODO})")
+                f"the {sampler!r} sampler (reverse SDE) is not ported yet ({_TODO})")
+        if cfg.transport.sampling_method not in ODE_METHODS:
+            raise NotImplementedError(cfg.transport.sampling_method)
         self.cfg = cfg
+        self.transport = create_transport(cfg)
+        self.last_counts = None
         self.device = resolve_device(device)
         full_f32()
         dtype = dtype or (torch.bfloat16 if cfg.model.use_bf16 else torch.float32)
@@ -83,8 +91,11 @@ class InferenceEngine:
 
     @torch.no_grad()
     def sample_with_zs0(self, batch: dict, zs0: torch.Tensor):
-        """Featurized batch + prior latent (B, T, L, lat) -> (atom14, aatype):
-        the Euler chain on the flat latent (src/mdgen/wrapper.py:436)."""
+        """Featurized batch + prior latent (B, T, L, lat) -> (atom14, aatype)
+        (src/mdgen/wrapper.py:436): the Euler chain on the flat latent for
+        Euler with the velocity objective, else the generic ODE solve of
+        ``sample_ode`` over ``transport.drift_fn(forward_inference)`` (the
+        JAX package's ``_sample``, :231-249)."""
         cfg, model = self.cfg, self.model
         batch = {k: self._tensor(v) for k, v in batch.items()
                  if isinstance(v, (np.ndarray, torch.Tensor))}
@@ -96,14 +107,24 @@ class InferenceEngine:
                                         aatype=kw["aatype"])
         t0, t1 = check_interval(cfg, eval=True)
         n = cfg.transport.inference_steps
-        dt = (t1 - t0) / n
-        ts = t0 + dt * torch.arange(n, dtype=torch.float32, device=self.device)
-        encs = model.encode_steps(ts, mask, consts, pack, kw["start_frames"])
-        modss = model.embed_mods(model.embed_times(ts), pack)
         xc = zs0.to(self.device, torch.float32).clone().contiguous()
-        for i in range(n):
-            model.flat_call(xc, mask, consts, pack, dt,
-                            enc=None if encs is None else encs[i], mods=modss[i:i + 1])
+        method = cfg.transport.sampling_method
+        if method == "euler" and self.transport.prediction == "velocity":
+            dt = (t1 - t0) / n
+            ts = t0 + dt * torch.arange(n, dtype=torch.float32, device=self.device)
+            encs = model.encode_steps(ts, mask, consts, pack, kw["start_frames"])
+            modss = model.embed_mods(model.embed_times(ts), pack)
+            for i in range(n):
+                model.flat_call(xc, mask, consts, pack, dt,
+                                enc=None if encs is None else encs[i], mods=modss[i:i + 1])
+            self.last_counts = {"accepted": n, "rejected": 0, "evals": n}
+        else:
+            def model_fn(x, t):
+                return model.forward_inference(x, t, mask, start_frames=kw["start_frames"],
+                                               trunk_pack=pack, scan_consts=consts)
+
+            xc, self.last_counts = sample_ode(self.transport.drift_fn(model_fn), xc, t0=t0,
+                                              t1=t1, method=method, num_steps=n)
         return self._decode(xc, prep["rigids"], batch["seqres"])
 
     def sample(self, batch: dict, generator: torch.Generator):

@@ -8,9 +8,11 @@ parent-orchestrated fused trunk. Parameters are named after the flax tree
 (``layers_3/mha_t/q_proj/kernel`` -> ``layers.3.mha_t.q_proj.weight``);
 ``utils.weights.from_flax`` converts a JAX checkpoint.
 
-Two ways to run it, as in the JAX package:
+Three ways to run it, as in the JAX package:
 - ``forward(x, t, mask, ...)``: the plain call (``__call__``, :608-740),
   differentiable (the training path);
+- ``forward_inference(x, t, mask, ...)``: the same velocity without
+  gradients, for the generic ODE samplers (heun, dopri5);
 - the flat sampling path: ``make_trunk_pack`` (weights folded and stacked
   once per sample), ``make_scan_consts`` (per-step-constant embed terms),
   ``embed_times`` / ``embed_mods`` / ``encode_steps`` (the whole t grid's
@@ -362,6 +364,34 @@ class LatentMDGen(nn.Module):
         enc = self.run_ipa(self.embed_times(ts), tile(mask[:, 0]), frames,
                            tile(consts["tokens"]), pack)
         return enc.view(S, B, L, -1)
+
+    @torch.no_grad()
+    def forward_inference(self, x, t, mask, start_frames: Optional[Rigid] = None,
+                          end_frames: Optional[Rigid] = None, x_cond=None, x_cond_mask=None,
+                          aatype=None, trunk_pack=None, scan_consts=None):
+        """The velocity at any (x, t), for the ODE samplers: x (B, T, L, lat),
+        t (B,), mask (B, T, L) -> (B, T, L, lat) f32. The JAX package's
+        ``forward_inference`` (:952) for the tasks of this slice (no design
+        branch), computed as its ``__call__`` with ``trunk_pack``
+        (:608-740): per call the t-embeddings (``embed_times``), the AdaLN
+        rows (``embed_mods``) and the encoder (one row per element), then
+        ``fused_trunk`` with the embed and the output head folded in.
+        ``scan_consts`` (``make_scan_consts``) and ``trunk_pack`` are made
+        once per sample by the caller, or here when absent."""
+        NL, C = len(self.layers), self.cfg.model.embed_dim
+        mask = mask.float().contiguous()
+        pack = trunk_pack if trunk_pack is not None else self.make_trunk_pack()
+        consts = scan_consts if scan_consts is not None else self.make_scan_consts(
+            x_cond, x_cond_mask, mask, aatype=aatype)
+        t_emb = self.embed_times(t)
+        mods = self.embed_mods(t_emb, pack)
+        enc = None
+        if self.cfg.model.prepend_ipa:
+            enc = self.run_ipa(t_emb, mask[:, 0], start_frames, consts["tokens"], pack)
+        return fused_trunk(x.float().contiguous(), mods[:, :NL * 9 * C], pack["layers"], mask,
+                           num_heads=self.cfg.model.mha_heads,
+                           final=(mods[:, NL * 9 * C:], *pack["fin"]),
+                           embed=(consts["wlat"], consts["cadd"], enc))
 
     @torch.no_grad()
     def flat_call(self, xc, mask, consts, pack, step_dt: float, enc=None, mods=None):

@@ -6,22 +6,25 @@ inference form (``_trunk_call`` with ``embed``, ``final`` and ``step_dt``)
 and, as ``fused_trunk_train`` (``FusedTrunkFn``), in its training form
 (``_fused_trunk_pallas``, whose backward is ``ops/fused_layer_bwd.py``).
 The TPU ran the whole trunk as one streaming kernel with the activation
-resident across layers; here each layer is a short sequence of the
-hand-written kernels:
+resident across layers; here each layer is three stage ops, each a short
+sequence of the hand-written kernels (the JAX package's long-T path,
+``_layer_kernels``, has the same three stages):
 
-    qkv_l = adaln_linear(LN + modulate)   stage 1: attention over residues
-    att   = rope_attention(B*T, L, 1)
-    x    += g_l * (att @ out_l)            (adaln_linear, gate_res, in place)
-    qkv_t = adaln_linear(LN + modulate)   stage 2: attention over frames
-    att   = rope_attention(B, T, L)
-    x    += g_t * (att @ out_t)
-    hid   = adaln_linear(LN + modulate, GELU)   stage 3: MLP
-    x    += g_m * (hid @ w2)
+    residue_block          stage 1: attention over residues
+      qkv_l = adaln_linear(LN + modulate); att = rope_attention(B*T, L, 1)
+      x    += g_l * (att @ out_l)          (adaln_linear, gate_res, in place)
+    time_attention_block   stage 2: attention over frames
+      qkv_t = adaln_linear(LN + modulate)
+      att   = rope_attention(B, T, L) at T <= 256, tiled_attention above
+      x    += g_t * (att @ out_t)
+    adaln_mlp              stage 3: MLP
+      hid   = adaln_linear(LN + modulate, GELU); x += g_m * (hid @ w2)
 
-On CPU tensors every op runs its plain PyTorch version, so the same code is
-the plain twin of the JAX package's ``_layer_xla`` / ``_embed_xla`` /
-``_trunk_final_xla`` chain. Fusing the layer into fewer launches is later
-work (ROADMAP).
+So the flagship (T = 100) and the 4AA forward-simulation preset (T = 1000)
+run one code path. On CPU tensors every op runs its plain PyTorch version,
+so the same code is the plain twin of the JAX package's ``_layer_xla`` /
+``_embed_xla`` / ``_trunk_final_xla`` chain. Fusing the layer into fewer
+launches is later work (ROADMAP).
 
 Layouts: the trunk activation is (B, T, L, C) contiguous (no frame padding);
 ``mods`` holds every layer's 9-way AdaLN rows, (nb, NL*9*C) with nb = B or 1
@@ -33,8 +36,10 @@ from __future__ import annotations
 import torch
 
 from .adaln_linear import adaln_linear, adaln_linear_math
+from .adaln_mlp import adaln_mlp
 from .fused_layer_bwd import fused_layer_bwd
-from .rope_attention import rope_attention
+from .residue_block import residue_block
+from .time_attention import time_attention_block
 
 # per-layer weight names (LatentMDGen.make_trunk_pack)
 LAYER_KEYS = ("wqkv_l", "bqkv_l", "wout_l", "bout_l", "wqkv_t", "bqkv_t", "wout_t",
@@ -42,29 +47,24 @@ LAYER_KEYS = ("wqkv_l", "bqkv_l", "wout_l", "bout_l", "wqkv_t", "bqkv_t", "wout_
 
 
 def trunk_layer(x, mod, w, mask, *, B: int, T: int, L: int, num_heads: int, out=None):
-    """One layer on the (B*T*L, C) activation ``x``. ``mod`` (nb, 9C):
-    shift/scale/gate rows for the three stages. Each stage's residual
-    update writes into ``out`` (``out=x``: in place) or, with ``out=None``,
-    into a new tensor, so that the stage inputs survive. Returns the inputs
-    of the frame and MLP stages and the layer's output, (X1, X2, out)."""
+    """One layer on the (B*T*L, C) activation ``x``: ``residue_block`` ->
+    ``time_attention_block`` -> ``adaln_mlp``, as the JAX package's
+    ``_layer_kernels`` (:906-952). ``mod`` (nb, 9C): shift/scale/gate rows
+    for the three stages. Each stage's residual update writes into ``out``
+    (``out=x``: in place) or, with ``out=None``, into a new tensor, so that
+    the stage inputs survive. Returns the inputs of the frame and MLP stages
+    and the layer's output, (X1, X2, out)."""
     C = x.shape[1]
 
     def m(j):
         return mod[:, j * C:(j + 1) * C]
 
-    qkv = adaln_linear(x, w["wqkv_l"], w["bqkv_l"], ln="plain", shift=m(0), scale=m(1))
-    att = rope_attention(qkv.view(B * T, L, 1, 3 * C), w["bkl"], w["bvl"],
-                         mask.reshape(B * T, L, 1), num_heads=num_heads, base2=True)
-    x1 = adaln_linear(att.view(-1, C), w["wout_l"], w["bout_l"], epilogue="gate_res",
-                      res=x, gate=m(2), out=out)
-    qkv = adaln_linear(x1, w["wqkv_t"], w["bqkv_t"], ln="plain", shift=m(3), scale=m(4))
-    att = rope_attention(qkv.view(B, T, L, 3 * C), w["bkt"], w["bvt"], mask,
-                         num_heads=num_heads, base2=True)
-    x2 = adaln_linear(att.view(-1, C), w["wout_t"], w["bout_t"], epilogue="gate_res",
-                      res=x1, gate=m(5), out=out)
-    hid = adaln_linear(x2, w["w1"], w["b1"], ln="plain", shift=m(6), scale=m(7),
-                       epilogue="gelu")
-    y = adaln_linear(hid, w["w2"], w["b2"], epilogue="gate_res", res=x2, gate=m(8), out=out)
+    dims = dict(B=B, T=T, L=L, num_heads=num_heads, out=out)
+    x1 = residue_block(x, m(0), m(1), m(2), w["wqkv_l"], w["bqkv_l"], w["wout_l"], w["bout_l"],
+                       w["bkl"], w["bvl"], mask, **dims)
+    x2 = time_attention_block(x1, m(3), m(4), m(5), w["wqkv_t"], w["bqkv_t"], w["wout_t"],
+                              w["bout_t"], w["bkt"], w["bvt"], mask, **dims)
+    y = adaln_mlp(x2, m(6), m(7), m(8), w["w1"], w["b1"], w["w2"], w["b2"], out=out)
     return x1, x2, y
 
 

@@ -14,7 +14,9 @@ Attention runs over N for every (g, i): stage 1 views the trunk as
 ``key_valid`` (G, N, I), 1 = attendable; the bias key (RoPE'd at position N)
 is always attendable. ``base2``: q carries scale*log2(e) and the softmax is
 exp2 with no max subtraction (the trunk); otherwise natural exp (encoder).
-Returns (G, N, I, C).
+Returns (G, N, I, C). The kernel stages all N+1 keys of a head in shared
+memory, so N is capped (``max_keys``: 1184 at D = 24, 449 at D = 64); the
+wrapper raises ``ValueError`` beyond it, and ``tiled_attention`` takes any N.
 """
 from __future__ import annotations
 
@@ -26,6 +28,24 @@ from . import _cuda
 
 _ARGTYPES = [_cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P,
              _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.P]
+SMEM_BYTES = 232_448  # the shared memory one block may use on an H100
+
+
+def _head_bytes(N: int, D: int) -> int:
+    """Shared memory of one staged head (csrc/rope_attention.cu
+    ``head_floats``): N+1 roped keys and values of D f32 lanes and N+1 key
+    biases, 16-byte aligned."""
+    NK = N + 1
+    return 4 * (2 * NK * D + ((NK + 3) & ~3))
+
+
+def max_keys(D: int) -> int:
+    """The largest N whose N+1 keys of head dim D fit one block's shared
+    memory in the long-sequence kernel (N > 16): 1184 at D = 24, 449 at 64."""
+    N = SMEM_BYTES // (8 * D + 4)
+    while _head_bytes(N, D) > SMEM_BYTES:
+        N -= 1
+    return N
 
 
 def rope_attention_math(qkv, bias_k, bias_v, key_valid, *, num_heads: int,
@@ -81,6 +101,11 @@ def rope_attention(qkv, bias_k, bias_v, key_valid, *, num_heads: int, base2: boo
         raise ValueError("rope_attention: qkv must be a contiguous bf16 (G, N, I, 3C) tensor")
     if D not in (16, 24, 32, 64) or C % num_heads:
         raise ValueError(f"rope_attention: head dim {C}/{num_heads} is not supported")
+    if N > 16 and N > max_keys(D):
+        raise ValueError(
+            f"rope_attention: {N + 1} keys of head dim {D} need {_head_bytes(N, D):,} bytes of "
+            f"shared memory, more than the {SMEM_BYTES:,} a block may use (N <= {max_keys(D)} "
+            f"at D = {D}); ops.tiled_attention takes any N")
     if (bias_k.dtype != torch.bfloat16 or bias_v.dtype != torch.bfloat16
             or not bias_k.is_contiguous() or not bias_v.is_contiguous()):
         raise ValueError("rope_attention: bias_k / bias_v must be contiguous bf16 (C,)")

@@ -1,0 +1,88 @@
+"""tiled_attention: the frame-attention core at long T, with the same
+interface as ``rope_attention`` but no limit on N from shared memory.
+
+Kernel: ``csrc/tiled_attention.cu`` (a block per (sequence, head, 64-query
+tile); K and V stream through shared memory in 64-key tiles; mma.sync
+products with f32 accumulators). It replaces the attention core of the JAX
+package's ``ops/time_attention.py::_block_pallas_fwd_blocked`` (body
+``_block_kernel_blocked``), the TPU kernel of the frame stage at
+T > MAX_T. ``tiled_attention_plain`` is the same function in plain PyTorch
+(the op order of the JAX package's ``time_attention._xla_impl`` with
+``base2=True``); it runs for CPU tensors. For CUDA tensors the wrapper
+launches the kernel or raises.
+
+Arguments as ``rope_attention``: qkv (G, N, I, 3C) bf16, attention over N for
+every (g, i); bias_k / bias_v (C,), the bias key RoPE'd at position N and
+always attendable; key_valid (G, N, I) f32, 1 = attendable. Only the base-2
+softmax (q carries head_dim**-0.5 * log2(e), exp2 without a max) is
+supported: the natural-exp softmax raises ``ValueError``. Returns
+(G, N, I, C).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..models.rope import rope_tables
+from . import _cuda
+from .rope_attention import rope_attention_math
+
+_ARGTYPES = [_cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P,
+             _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.P]
+
+
+def _base2_only(base2: bool) -> None:
+    if not base2:
+        raise ValueError("tiled_attention: only the base-2 no-max softmax is supported; "
+                         "the natural-exp softmax is ROADMAP.md queue 2 item 10")
+
+
+def tiled_attention_plain(qkv, bias_k, bias_v, key_valid, *, num_heads: int,
+                          base2: bool = True, out=None):
+    """Plain PyTorch version of ``tiled_attention`` (same arguments); counts
+    its calls on CUDA tensors in ``cuda_calls``."""
+    _base2_only(base2)
+    if qkv.is_cuda:
+        tiled_attention_plain.cuda_calls += 1
+    return rope_attention_math(qkv, bias_k, bias_v, key_valid, num_heads=num_heads,
+                               base2=True, out=out)
+
+
+tiled_attention_plain.cuda_calls = 0
+
+
+def tiled_attention(qkv, bias_k, bias_v, key_valid, *, num_heads: int, base2: bool = True,
+                    out=None):
+    """The attention core: the kernel on CUDA tensors, the plain version on
+    CPU tensors (see the module docstring)."""
+    _base2_only(base2)
+    if not qkv.is_cuda:
+        return tiled_attention_plain(qkv, bias_k, bias_v, key_valid, num_heads=num_heads,
+                                     out=out)
+    G, N, I, C3 = qkv.shape
+    C = C3 // 3
+    D = C // num_heads
+    if qkv.dtype != torch.bfloat16 or not qkv.is_contiguous():
+        raise ValueError("tiled_attention: qkv must be a contiguous bf16 (G, N, I, 3C) tensor")
+    if D not in (16, 24, 32, 64) or C % num_heads:
+        raise ValueError(f"tiled_attention: head dim {C}/{num_heads} is not supported")
+    if (bias_k.dtype != torch.bfloat16 or bias_v.dtype != torch.bfloat16
+            or not bias_k.is_contiguous() or not bias_v.is_contiguous()):
+        raise ValueError("tiled_attention: bias_k / bias_v must be contiguous bf16 (C,)")
+    if key_valid.dtype != torch.float32 or tuple(key_valid.shape) != (G, N, I) \
+            or not key_valid.is_contiguous():
+        raise ValueError("tiled_attention: key_valid must be a contiguous f32 (G, N, I) tensor")
+    if out is None:
+        out = torch.empty(G, N, I, C, dtype=torch.bfloat16, device=qkv.device)
+    elif out.dtype != torch.bfloat16 or not out.is_contiguous() or tuple(out.shape) != (G, N, I, C):
+        raise ValueError("tiled_attention: out must be a contiguous bf16 (G, N, I, C) tensor")
+    cos, sin = rope_tables(N + 1, D, device=qkv.device)
+    lib = _cuda.library("tiled_attention", _ARGTYPES)
+    code = lib.tiled_attention(qkv.data_ptr(), bias_k.data_ptr(), bias_v.data_ptr(),
+                               key_valid.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+                               out.data_ptr(), G, N, I, num_heads, C, _cuda.stream_ptr(qkv))
+    _cuda.check(code, "tiled_attention")
+    tiled_attention.launches += 1
+    return out
+
+
+tiled_attention.launches = 0

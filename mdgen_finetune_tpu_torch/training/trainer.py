@@ -257,3 +257,14 @@ class Trainer:
         return TrainState(step=saved["step"], params=load(template.params, saved["params"]),
                           opt_state=load(template.opt_state, saved["opt_state"]),
                           ema_params=load(template.ema_params, saved["ema_params"]))
+
+
+def read_checkpoint(path: str):
+    """The config and the weights to sample with (the EMA when the config
+    trains one) of a checkpoint that ``Trainer.save_checkpoint`` wrote, on
+    the host, without building a trainer."""
+    path = os.path.abspath(path)
+    with open(os.path.join(path, "config.json")) as f:
+        cfg = MDGenConfig.from_json(f.read())
+    saved = torch.load(os.path.join(path, "state.pt"), map_location="cpu", weights_only=True)
+    return cfg, saved["ema_params"] if cfg.train.ema else saved["params"]

@@ -1,0 +1,124 @@
+"""ODE integrators of the probability-flow sampler.
+
+Counterpart of the JAX package's ``transport/samplers.py`` (:31-144;
+reference src/mdgen/transport/integrators.py and Sampler,
+src/mdgen/transport/transport.py:278-510) with the same arithmetic:
+
+- euler / heun: fixed steps on the grid t0 + dt * i (f32);
+- dopri5: adaptive Dormand-Prince 5(4) with JAX's tableau (``_DP_*``), FSAL,
+  the first step h0 = 0.01 * (t1 - t0), the RMS error norm against
+  atol + rtol * max(|y0|, |y1|), the step factor
+  clip(0.9 * (err + 1e-10)^-0.2, 0.2, 5) and at most ``max_steps`` attempts,
+  rejected ones included (torchdiffeq's defaults atol 1e-6, rtol 1e-3).
+
+JAX runs these inside ``lax.scan`` / ``lax.while_loop``; here they are host
+loops. dopri5 keeps t and h as f32 scalars on the host and reads the error
+norm back once per attempt, for the accept test: one host sync per attempt.
+
+Every integrator takes ``drift(x, t_vec)`` with t_vec (B,) and returns
+(x_final, counts) with counts {"accepted", "rejected", "evals"}: steps taken,
+steps refused, drift evaluations.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+_F32 = torch.float32
+
+
+def _tvec(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A host f32 scalar as the (B,) time vector on x's device (a fill, not
+    a copy: no wait for the device)."""
+    return torch.full((x.shape[0],), float(t), dtype=x.dtype, device=x.device)
+
+
+def _grid(t0: float, t1: float, num_steps: int):
+    dt = (t1 - t0) / num_steps
+    return dt, t0 + dt * torch.arange(num_steps, dtype=_F32)
+
+
+def ode_euler(drift: Callable, x: torch.Tensor, t0: float, t1: float, num_steps: int):
+    dt, ts = _grid(t0, t1, num_steps)
+    for t in ts:
+        x = x + drift(x, _tvec(t, x)) * dt
+    return x, {"accepted": num_steps, "rejected": 0, "evals": num_steps}
+
+
+def ode_heun(drift: Callable, x: torch.Tensor, t0: float, t1: float, num_steps: int):
+    dt, ts = _grid(t0, t1, num_steps)
+    for t in ts:
+        k1 = drift(x, _tvec(t, x))
+        k2 = drift(x + dt * k1, _tvec(t + dt, x))
+        x = x + dt * 0.5 * (k1 + k2)
+    return x, {"accepted": num_steps, "rejected": 0, "evals": 2 * num_steps}
+
+
+# Dormand-Prince 5(4) tableau (mdgen_finetune_tpu/transport/samplers.py:59-72)
+_DP_C = torch.tensor([0.0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0, 1.0], dtype=_F32)
+_DP_A = [
+    [],
+    [1 / 5],
+    [3 / 40, 9 / 40],
+    [44 / 45, -56 / 15, 32 / 9],
+    [19372 / 6561, -25360 / 2187, 64448 / 6561, -212 / 729],
+    [9017 / 3168, -355 / 33, 46732 / 5247, 49 / 176, -5103 / 18656],
+    [35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84],
+]
+_DP_B5 = [35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84, 0.0]
+_DP_B4 = [5179 / 57600, 0.0, 7571 / 16695, 393 / 640, -92097 / 339200, 187 / 2100, 1 / 40]
+
+
+def ode_dopri5(drift: Callable, x: torch.Tensor, t0: float, t1: float, atol: float = 1e-6,
+               rtol: float = 1e-3, max_steps: int = 1000):
+    """Adaptive RK45 from t0 to t1 (module docstring)."""
+    b5 = torch.tensor(_DP_B5, dtype=x.dtype, device=x.device)
+    b4 = torch.tensor(_DP_B4, dtype=x.dtype, device=x.device)
+    t0 = torch.tensor(t0, dtype=_F32)
+    t1 = torch.tensor(t1, dtype=_F32)
+
+    def err_norm(err, y0, y1):
+        scale = atol + rtol * torch.maximum(y0.abs(), y1.abs())
+        return torch.sqrt(torch.mean((err / scale) ** 2))
+
+    f = drift(x, _tvec(t0, x))
+    h = torch.tensor(0.01, dtype=_F32) * (t1 - t0)
+    t, y, n = t0, x, 0
+    counts = {"accepted": 0, "rejected": 0, "evals": 1}
+    while bool(t < t1) and n < max_steps:
+        h = torch.minimum(h, t1 - t)
+        ks = [f]
+        for i in range(1, 7):
+            yi = y
+            for j, a in enumerate(_DP_A[i]):
+                yi = yi + h * a * ks[j]
+            ks.append(drift(yi, _tvec(t + _DP_C[i] * h, y)))
+        counts["evals"] += 6
+        k = torch.stack(ks)
+        y5 = y + h * torch.tensordot(b5, k, dims=1)
+        y4 = y + h * torch.tensordot(b4, k, dims=1)
+        err = err_norm(y5 - y4, y, y5).to("cpu", _F32)  # the attempt's one sync
+        factor = torch.clamp(0.9 * (err + 1e-10) ** (-0.2), 0.2, 5.0)
+        if bool(err <= 1.0):
+            t, y, f = t + h, y5, ks[6]  # FSAL
+            counts["accepted"] += 1
+        else:
+            counts["rejected"] += 1
+        h = h * factor
+        n += 1
+    return y, counts
+
+
+def sample_ode(drift: Callable, x: torch.Tensor, *, t0: float = 0.0, t1: float = 1.0,
+               method: str = "dopri5", num_steps: int = 100, atol: float = 1e-6,
+               rtol: float = 1e-3):
+    """Integrate ``drift`` from t0 to t1 with ``method``; returns
+    (x_final, counts) (module docstring)."""
+    if method == "euler":
+        return ode_euler(drift, x, t0, t1, num_steps)
+    if method == "heun":
+        return ode_heun(drift, x, t0, t1, num_steps)
+    if method == "dopri5":
+        return ode_dopri5(drift, x, t0, t1, atol=atol, rtol=rtol)
+    raise NotImplementedError(method)

@@ -1,10 +1,11 @@
-"""Flow-matching training losses.
+"""Flow-matching training losses and the probability-flow drift.
 
 Counterpart of the JAX package's ``transport/transport.py::Transport``
-(:35-156; reference src/mdgen/transport/transport.py:137-222) for the
+(:35-180; reference src/mdgen/transport/transport.py:137-257) for the
 continuous objectives: velocity matching, and the noise / score objectives
-with their loss weightings. The Dirichlet flow matching of the design task
-is not ported yet (ROADMAP.md queue 1 item 8).
+with their loss weightings; ``drift_fn`` for the ODE samplers
+(``samplers.py``). The Dirichlet flow matching of the design task and the
+SDE sampler are not ported yet (ROADMAP.md queue 1 item 8).
 
 Randomness: ``training_losses`` draws t and x0 from a ``torch.Generator``,
 or takes them as given (the tests hand both packages the same draws).
@@ -106,6 +107,30 @@ class Transport:
         else:  # score
             terms["loss"] = mean_flat(weight * (out * sigma_t + x0) ** 2, mask)
         return terms
+
+    def drift_fn(self, model_fn: Callable) -> Callable:
+        """The probability-flow ODE drift ``drift(x, t)`` of ``model_fn(x, t)``
+        for the config's prediction type (src/mdgen/transport/transport.py:
+        224-257; the JAX package's ``Transport.drift_fn``, :159-180)."""
+        if self.prediction == "velocity":
+            return model_fn
+
+        if self.prediction == "score":
+            def score_ode(x, t):
+                te = expand_t(t, x)
+                drift_mean, drift_var = self.path.drift(x, te)
+                return -drift_mean + drift_var * model_fn(x, t)
+
+            return score_ode
+
+        def noise_ode(x, t):
+            te = expand_t(t, x)
+            drift_mean, drift_var = self.path.drift(x, te)
+            sigma_t, _ = self.path.sigma(te)
+            score = model_fn(x, t) / -sigma_t
+            return -drift_mean + drift_var * score
+
+        return noise_ode
 
 
 def create_transport(cfg: MDGenConfig) -> Transport:

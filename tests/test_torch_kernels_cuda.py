@@ -7,8 +7,8 @@ runs where only PyTorch is installed:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
 (``--noconftest``: the suite's conftest configures JAX). ``chip_smoke.py``
-makes the same comparisons at the flagship's full shapes (sampling and
-training).
+makes the same comparisons at the full shapes of each path (sampling at
+T = 100 and T = 1000, training).
 """
 import pytest
 import torch
@@ -147,3 +147,33 @@ def test_backward_kernels_match_plain_on_card():
         for a, b in zip(rope_attention_bwd(q, do, bk, bv, mk, num_heads=Hc),
                         rope_attention_bwd_plain(q, do, bk, bv, mk, num_heads=Hc)):
             _close(a, b)
+
+
+@pytest.mark.cuda
+def test_tiled_attention_matches_plain_on_card():
+    """On the card: the key-tiled frame-attention core against its plain
+    twin at every supported head dim and at N = 100, 1000 and 4096 (the JAX
+    package's fused_attention ceiling), with masked frames, a key tile of
+    64 keys that holds only masked keys, and one sequence whose only valid
+    key is the bias key."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.ops.tiled_attention import tiled_attention, tiled_attention_plain
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    Gc, Ic, Hc = 2, 2, 2
+    for D in (16, 24, 32, 64):
+        C = Hc * D
+        for N in (100, 1000, 4096):
+            qkv = torch.randn(Gc, N, Ic, 3 * C, generator=g, device="cuda").to(torch.bfloat16)
+            qkv[..., :C] *= 0.5 * D ** -0.5
+            bk = torch.randn(C, generator=g, device="cuda").to(torch.bfloat16)
+            bv = torch.randn(C, generator=g, device="cuda").to(torch.bfloat16)
+            mask = torch.ones(Gc, N, Ic, device="cuda")
+            mask[0, 64:128] = 0      # the whole second key tile
+            mask[0, N // 2:, 1] = 0  # masked frames
+            mask[1, :, 0] = 0        # only the bias key is valid
+            got = tiled_attention(qkv, bk, bv, mask, num_heads=Hc)
+            ref = tiled_attention_plain(qkv.float(), bk.float(), bv.float(), mask, num_heads=Hc)
+            torch.cuda.synchronize()
+            _close(got, ref)

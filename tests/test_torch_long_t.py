@@ -1,0 +1,120 @@
+"""PyTorch port, the trunk's stage ops at long T held against the JAX
+package's XLA twins on the CPU:
+
+- ``time_attention_block`` (above MAX_T its core is ``tiled_attention``)
+  against ``time_attention._block_xla_tl``;
+- ``residue_block`` against ``residue_block._s1_xla``;
+- ``adaln_mlp`` against ``adaln_mlp._xla_impl``;
+- ``tiled_attention_plain`` against ``time_attention._xla_impl(base2=True)``;
+- the wrappers' refusals: ``tiled_attention`` takes only the base-2 softmax,
+  and ``rope_attention``'s shared-memory limit on N.
+
+Sizes: T = 264 (above MAX_T = 256, not a multiple of 8), L = 3, C = 48 with
+2 heads (head dim 24, as the flagship), B = 2; frames 200.. of element 0 and
+the last residue of element 1 are masked. Inputs are seeded numpy, f32 on
+both sides. Tolerance: rtol 1e-4 / atol 5e-5 on outputs of unit scale
+(different summation orders; exp2 in the port's kernels' contract, exp of
+ln2-scaled logits in both twins).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mdgen_finetune_tpu.ops import adaln_mlp as jmlp
+from mdgen_finetune_tpu.ops import residue_block as jrb
+from mdgen_finetune_tpu.ops import time_attention as jta
+from mdgen_finetune_tpu_torch.ops import rope_attention as tra
+from mdgen_finetune_tpu_torch.ops.adaln_mlp import adaln_mlp
+from mdgen_finetune_tpu_torch.ops.residue_block import residue_block
+from mdgen_finetune_tpu_torch.ops.tiled_attention import tiled_attention, tiled_attention_plain
+from mdgen_finetune_tpu_torch.ops.time_attention import MAX_T, time_attention_block
+
+RTOL, ATOL = 1e-4, 5e-5
+B, T, L, C, H = 2, 264, 3, 48, 2
+
+
+@pytest.fixture(scope="module")
+def inputs():
+    rng = np.random.default_rng(0)
+
+    def r(*s, sc=1.0):
+        return (rng.normal(size=s) * sc).astype(np.float32)
+
+    mask = np.ones((B, T, L), np.float32)
+    mask[0, 200:] = 0.0
+    mask[1, :, -1] = 0.0
+    return dict(
+        x=r(B, T * L, C), sh=r(B, C, sc=0.3), sc=r(B, C, sc=0.3), g=r(B, C, sc=0.5),
+        wqkv=r(C, 3 * C, sc=C ** -0.5), bqkv=r(3 * C, sc=0.1), wout=r(C, C, sc=C ** -0.5),
+        bout=r(C, sc=0.1), bk=r(C), bv=r(C), w1=r(C, 4 * C, sc=C ** -0.5), b1=r(4 * C, sc=0.1),
+        w2=r(4 * C, C, sc=(4 * C) ** -0.5), b2=r(C, sc=0.1), mask=mask)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _attn_args(i):
+    return [i[k] for k in ("x", "sh", "sc", "g", "wqkv", "bqkv", "wout", "bout", "bk", "bv")]
+
+
+@pytest.mark.parametrize("stage", ["time_attention_block", "residue_block"])
+def test_attention_stage_matches_jax_twin(inputs, stage):
+    i = inputs
+    args = _attn_args(i)
+    if stage == "time_attention_block":
+        assert T > MAX_T  # the tiled core is the one on this path
+        ref = jta._block_xla_tl(*map(jnp.asarray, args), jnp.asarray(i["mask"].transpose(0, 2, 1)),
+                                H, T, L, None)
+        op = time_attention_block
+    else:
+        ref = jrb._s1_xla(*map(jnp.asarray, args), jnp.asarray(i["mask"]), H, T, L)
+        op = residue_block
+    targs = [_t(a) for a in args]
+    targs[0] = targs[0].reshape(B * T * L, C)
+    out = op(*targs, _t(i["mask"]), B=B, T=T, L=L, num_heads=H)
+    np.testing.assert_allclose(out.reshape(B, T * L, C).numpy(), np.asarray(ref),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_adaln_mlp_matches_jax_twin(inputs):
+    i = inputs
+    args = [i[k] for k in ("x", "sh", "sc", "g", "w1", "b1", "w2", "b2")]
+    ref = jmlp._xla_impl(*map(jnp.asarray, args))
+    targs = [_t(a) for a in args]
+    out = adaln_mlp(targs[0].reshape(-1, C), *targs[1:])
+    np.testing.assert_allclose(out.reshape(B, T * L, C).numpy(), np.asarray(ref),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_tiled_attention_plain_matches_jax_core(inputs):
+    rng = np.random.default_rng(1)
+    q, k, v = (rng.normal(size=(B, T, L, C)).astype(np.float32) for _ in range(3))
+    i = inputs
+    ref = jta._xla_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(i["bk"]),
+                        jnp.asarray(i["bv"]), jnp.asarray(i["mask"].transpose(0, 2, 1)), H,
+                        base2=True)
+    qkv = _t(np.concatenate([q, k, v], -1))
+    out = tiled_attention_plain(qkv, _t(i["bk"]), _t(i["bv"]), _t(i["mask"]), num_heads=H)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
+    # on CPU tensors the wrapper is the plain version
+    again = tiled_attention(qkv, _t(i["bk"]), _t(i["bv"]), _t(i["mask"]), num_heads=H)
+    np.testing.assert_array_equal(again.numpy(), out.numpy())
+
+
+@pytest.mark.parametrize("fn", [tiled_attention, tiled_attention_plain])
+def test_tiled_attention_refuses_the_natural_exp_softmax(inputs, fn):
+    qkv = torch.zeros(1, 4, 1, 3 * C)
+    with pytest.raises(ValueError, match="base-2"):
+        fn(qkv, torch.zeros(C), torch.zeros(C), torch.ones(1, 4, 1), num_heads=H, base2=False)
+
+
+def test_rope_attention_shared_memory_limit():
+    """The long rope_attention kernel stages N+1 keys of a head in shared
+    memory: N <= 1184 at D = 24 and N <= 449 at D = 64; the wrapper raises
+    a ValueError naming the limit instead of failing at launch."""
+    assert tra.max_keys(24) == 1184 and tra.max_keys(64) == 449
+    for D in (16, 24, 32, 64):
+        n = tra.max_keys(D)
+        assert tra._head_bytes(n, D) <= tra.SMEM_BYTES < tra._head_bytes(n + 1, D)

@@ -127,9 +127,14 @@ def test_entry_points_refuse_a_missing_card(setup, monkeypatch):
         TEngine(setup["tc"], setup["tree"])  # device defaults to "cuda"
 
 
-@pytest.mark.parametrize("change", [dict(sampling_method="heun"), dict(sampling_method="dopri5")])
+@pytest.mark.parametrize("change", [dict(sampler="sde"), dict(design=True)])
 def test_unported_samplers_raise(setup, change):
-    tc = setup["tc"]
+    """The ODE samplers (euler, heun, dopri5) are ported; the reverse-SDE
+    sampler and the design task's Dirichlet flow are not."""
+    tc, kw = setup["tc"], {}
+    if "sampler" in change:
+        kw = change
+    else:
+        tc = tc.replace(task=tcfg.TaskConfig(**{**tc.task.__dict__, **change}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEngine(tc.replace(transport=tcfg.TransportConfig(**{**tc.transport.__dict__, **change})),
-                setup["tree"], device="cpu")
+        TEngine(tc, setup["tree"], device="cpu", **kw)
