@@ -27,7 +27,18 @@ training backward kernels at B = 32). Then:
   trip) from the port's real init on synthetic "AAGG" / "GHKL"
   trajectories; a ``torch.profiler`` trace of one train step; the trunk's
   training forward and backward as a whole (B = 32), timed with the kernels
-  and with their plain twins, and held to the twins in f32.
+  and with their plain twins, and held to the twins in f32;
+- training the 4AA preset at T = 1000 (B = 8, ``grad_checkpointing``): the
+  ``fused_attention`` kernels (forward and backward, base 2 at the path's
+  shape and the natural-exp softmax at N = 2048, D = 64), ``adaln_mlp_bwd``
+  and ``time_attention_block_bwd`` against their plain twins
+  (``long_bwd_kernels``); every parameter's gradient card-vs-CPU at B = 1
+  (``grad_cuda_vs_cpu_1000``); ``Trainer`` for 2 warm-up and 10 timed
+  steps, 20 steps on one fixed batch, a checkpoint round trip and the
+  launches per step of all nine kernels (``train_1000``); a trace of one
+  step (``train_1000_trace``); the ``train`` CLI with the reference's
+  command, whose checkpoint drives one ``sim_inference`` window
+  (``train_cli``).
 
 Each phase prints one JSON line; the kernel line (times, bounds, launches)
 comes second to last, and the last line is ``{"ok": true, "device": {...}}``.
@@ -468,33 +479,36 @@ def train_config(batch_size):
         workdir=str(SCRATCH), run_name="train")
 
 
-def phase_grad_across_devices(dev):
-    """The loss and every parameter's gradient at full width (B = 2, T = 100,
-    L = 4, 5 x 384, seeded random weights, the same t and x0, the batch
-    featurized once on the CPU: the first residue's pre-omega torsion is
-    degenerate geometry, which each device rounds its own way) on the card
-    (bf16 kernels) against the CPU in f32 (the truth), held under the rule
-    of tests/test_fused_layer_bwd.py: each tensor's error is at most twice
-    that of the plain twins run in bf16 on the CPU, plus 0.01. Errors are
-    relative L2 per tensor; a tensor's norm is taken as at least 1e-3 of the
-    largest gradient norm (IPA's key bias has an exactly-zero gradient that
-    every run rounds differently)."""
+def phase_grad_across_devices(dev, cfg=None, phase="grad_cuda_vs_cpu"):
+    """The loss and every parameter's gradient at full width (seeded random
+    weights, the same t and x0, the batch featurized once on the CPU: the
+    first residue's pre-omega torsion is degenerate geometry, which each
+    device rounds its own way) on the card (bf16 kernels) against the CPU in
+    f32 (the truth), held under the rule of tests/test_fused_layer_bwd.py:
+    each tensor's error is at most twice that of the plain twins run in bf16
+    on the CPU, plus 0.01. Errors are relative L2 per tensor; a tensor's
+    norm is taken as at least 1e-3 of the largest gradient norm (IPA's key
+    bias has an exactly-zero gradient that every run rounds differently).
+    The flagship config at B = 2, T = 100 by default; ``cfg`` another
+    (its batch size and frames)."""
     from mdgen_finetune_tpu_torch.data.featurize import featurize_atom14_batch
     from mdgen_finetune_tpu_torch.training import Trainer
     from mdgen_finetune_tpu_torch.utils.weights import randomize_
 
-    cfg = train_config(2)
-    atom14, seqres, mask = make_inputs(2, 7, "cpu")
-    batch = {"atom14": atom14[:, None].expand(2, T, L, 14, 3).contiguous()
-             + 0.3 * torch.randn(2, T, L, 14, 3, generator=torch.Generator().manual_seed(8)),
+    cfg = cfg or train_config(2)
+    Bn, Tn = cfg.train.batch_size, cfg.data.num_frames
+    atom14, seqres, mask = make_inputs(Bn, 7, "cpu")
+    batch = {"atom14": atom14[:, None].expand(Bn, Tn, L, 14, 3).contiguous()
+             + 0.3 * torch.randn(Bn, Tn, L, 14, 3, generator=torch.Generator().manual_seed(8)),
              "seqres": seqres, "mask": mask}
     feats = featurize_atom14_batch(batch["atom14"], batch["seqres"], batch["mask"])
     gen = torch.Generator().manual_seed(9)
-    t = torch.rand(2, generator=gen) * 0.9 + 0.05
-    x0 = torch.randn(2, T, L, cfg.latent_dim, generator=gen)
+    t = torch.rand(Bn, generator=gen) * 0.9 + 0.05
+    x0 = torch.randn(Bn, Tn, L, cfg.latent_dim, generator=gen)
     f32_cfg = cfg.replace(model=dataclasses.replace(cfg.model, use_bf16=False))
-    res = {}
+    res, secs = {}, {}
     for name, d, c in (("cuda", dev, cfg), ("cpu_f32", "cpu", f32_cfg), ("cpu_bf16", "cpu", cfg)):
+        t0 = time.perf_counter()
         tr = Trainer(c, device=d)
         tr.init_state(0)
         randomize_(tr.model, torch.Generator().manual_seed(12), scale=0.05)
@@ -502,6 +516,8 @@ def phase_grad_across_devices(dev):
                                    x0=x0.to(d))
         loss.backward()
         res[name] = (loss.item(), {k: p.grad.float().cpu() for k, p in tr.model.named_parameters()})
+        secs[name] = time.perf_counter() - t0
+        del tr, loss
     lt, gt = res["cpu_f32"]
     floor = 1e-3 * max(v.norm().item() for v in gt.values())
 
@@ -512,27 +528,34 @@ def phase_grad_across_devices(dev):
     over = {k: (card[k], ref[k]) for k in card if not card[k] <= 2 * ref[k] + 0.01}
     worst = sorted(card, key=lambda k: card[k] - 2 * ref[k])[-5:]
     loss_rel = abs(res["cuda"][0] - lt) / abs(lt)
-    emit({"phase": "grad_cuda_vs_cpu", "batch": 2, "loss_cuda": res["cuda"][0], "loss_cpu_f32": lt,
+    emit({"phase": phase, "batch": Bn, "T": Tn, "layers": cfg.model.num_layers,
+          "grad_checkpointing": cfg.model.grad_checkpointing, "seconds": secs,
+          "loss_cuda": res["cuda"][0], "loss_cpu_f32": lt,
           "loss_cpu_bf16": res["cpu_bf16"][0], "loss_rel": loss_rel, "params": len(card),
           "rule": "rel_l2(card) <= 2 * rel_l2(cpu bf16) + 0.01 per tensor",
           "worst_rel_l2": max(card.values()), "median_rel_l2": sorted(card.values())[len(card) // 2],
           "worst_vs_rule": {k: [card[k], 2 * ref[k] + 0.01] for k in worst},
           "tol": {"loss_rel": 1e-2}})
     if over or not loss_rel <= 1e-2:
-        raise AssertionError(f"card vs CPU gradients over the rule: {over}, loss {loss_rel}")
+        raise AssertionError(f"{phase}: card vs CPU gradients over the rule: {over}, "
+                             f"loss {loss_rel}")
 
 
 TRAIN_WRAPPERS = ("adaln_linear", "rope_attention", "ipa_attention", "linear_bwd", "modln_bwd",
                   "rope_attention_bwd")
+# the T = 1000 training path's kernel wrappers, as (module, wrapper)
+WRAPPERS_1000 = tuple((n, n) for n in TRAIN_WRAPPERS + ("tiled_attention",)) + (
+    ("fused_attention", "fused_attention_fwd"), ("fused_attention", "fused_attention_bwd"))
 
 
-def _counters():
-    """The six kernel wrappers and their plain twins."""
+def _counters(pairs=tuple((n, n) for n in TRAIN_WRAPPERS)):
+    """Kernel wrappers (module, name) and their plain twins: by default the
+    six of the T = 100 training path."""
     import importlib
 
-    mods = [importlib.import_module(f"mdgen_finetune_tpu_torch.ops.{n}") for n in TRAIN_WRAPPERS]
-    return ([getattr(m, n) for m, n in zip(mods, TRAIN_WRAPPERS)],
-            [getattr(m, n + "_plain") for m, n in zip(mods, TRAIN_WRAPPERS)])
+    mods = [importlib.import_module(f"mdgen_finetune_tpu_torch.ops.{m}") for m, _ in pairs]
+    return ([getattr(m, n) for m, (_, n) in zip(mods, pairs)],
+            [getattr(m, n + "_plain") for m, (_, n) in zip(mods, pairs)])
 
 
 def phase_train_path(dev):
@@ -1129,7 +1152,300 @@ def phase_sim_cli(dev):
         raise AssertionError(f"sim_cli: backbone bonds off: N-CA {dev_nca}, CA-C {dev_cac}")
 
 
+def train_1000_config(batch_size):
+    """The 4AA forward-simulation preset's training at full width (5 x 384,
+    16 heads, prepend-IPA, T = 1000, L = 4, bf16) with the reference
+    command's ``--grad_checkpointing`` (scripts/train_4aa_forward_sim.sh),
+    Adam lr 1e-4, clip 1.0, EMA 0.999."""
+    from mdgen_finetune_tpu_torch.config import TrainConfig
+
+    cfg = sim_config("dopri5")
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, grad_checkpointing=True),
+        data=dataclasses.replace(cfg.data, data_dir=str(SCRATCH / "data_1000")),
+        train=TrainConfig(batch_size=batch_size, lr=1e-4, grad_clip=1.0, ema=True,
+                          ema_decay=0.999),
+        run_name="train_1000")
+
+
+def held_composite(name, op, plain, args, kw, names):
+    """A composition of kernels held as the trunk rows are: each output's
+    relative L2 error against the plain twins in f32 at most twice that of
+    the plain twins in bf16, plus 0.01. Returns {output: [error, limit]}."""
+    bf = torch.bfloat16
+    got = op(*args, **kw)
+    truth = plain(*[a.float() if torch.is_tensor(a) and a.dtype == bf else a for a in args], **kw)
+    twin = plain(*args, **kw)
+    out = {}
+    for n, a, b, t in zip(names, got, twin, truth):
+        norm = t.float().norm().item()
+        out[n] = [(a.float() - t.float()).norm().item() / norm,
+                  2 * (b.float() - t.float()).norm().item() / norm + 0.01]
+    over = {n: v for n, v in out.items() if not v[0] <= v[1]}
+    if over:
+        raise AssertionError(f"{name}: relative L2 over the rule: {over}")
+    return out
+
+
+def phase_long_bwd_kernels(dev):
+    """The T = 1000 training path's backward pieces against their plain
+    twins at the path's shapes: the fused_attention kernels (rows h and i:
+    B * L * H = 512 rows of 1,000 queries over 1,001 keys, D = 24, base 2,
+    masked frames; and the natural-exp softmax at N = 2048, D = 64 with a
+    fully masked key tile), ``adaln_mlp_bwd`` (row 5b) at 32,000 rows and
+    ``time_attention_block_bwd`` as a whole at B = 8, T = 1000. Library:
+    SDPA with the same mask, forward, and forward + backward through
+    autograd."""
+    import math
+
+    import torch.nn.functional as F
+
+    from mdgen_finetune_tpu_torch.ops import adaln_mlp as AM
+    from mdgen_finetune_tpu_torch.ops import fused_attention as FA
+    from mdgen_finetune_tpu_torch.ops import time_attention as TA
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def r(*s, sc=1.0, dtype=bf):
+        return (torch.randn(*s, generator=g, device=dev) * sc).to(dtype)
+
+    kern = {}
+    for name, (S, Hc, N, D, base2) in (("4aa_T1000", (B_SIM * L, H, T_SIM, C // H, True)),
+                                       ("n2048_d64_natural", (4, 6, 2048, 64, False))):
+        M = N + 1
+        q = r(S, Hc, N, D, sc=0.5 * D ** -0.5 * (math.log2(math.e) if base2 else 1.0))
+        k, v, do = r(S, Hc, M, D), r(S, Hc, M, D), r(S, Hc, N, D)
+        kv = torch.ones(S, M, device=dev)
+        kv[0, N // 2:N] = 0   # masked frames
+        kv[-1, 64:128] = 0    # a key tile of masked keys only
+        o, stat = FA.fused_attention_fwd(q, k, v, kv, base2=base2)
+        ro, rstat = FA.fused_attention_fwd_plain(q.float(), k.float(), v.float(), kv, base2=base2)
+        e_o = check(f"fused_attention_fwd[{name}]", o, ro, 1e-2)
+        e_s = check(f"fused_attention_fwd[{name}].stat", stat, rstat, 1e-3)
+        del ro, rstat
+        grads = FA.fused_attention_bwd(q, k, v, kv, o, stat, do, base2=base2)
+        refs = FA.fused_attention_bwd_plain(q.float(), k.float(), v.float(), kv, o.float(), stat,
+                                            do.float(), base2=base2)
+        es = [check(f"fused_attention_bwd[{name}].d{n}", a, b, 1e-2)
+              for n, a, b in zip("qkv", grads, refs)]
+        del refs, grads
+        # SDPA's natural softmax at scale ln 2 is the base-2 softmax of q.k
+        am = ((kv - 1.0) * 1e9).to(bf)[:, None, None, :]
+        scale = math.log(2) if base2 else 1.0
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+        def lib_fwd_bwd():
+            out = F.scaled_dot_product_attention(*leaves, attn_mask=am, scale=scale)
+            return torch.autograd.grad(out, leaves, do)
+
+        R = S * Hc
+        fwd_ms = time_ms(lambda: FA.fused_attention_fwd(q, k, v, kv, base2=base2))
+        bwd_ms = time_ms(lambda: FA.fused_attention_bwd(q, k, v, kv, o, stat, do, base2=base2))
+        shape = (f"{R} rows ({S} x {Hc} heads), {N} queries, {M} keys, D={D}, "
+                 f"{'base 2' if base2 else 'natural exp'}")
+        fwd = dict(shape=shape, max_abs_err=max(e_o[0], e_s[0]), tol={"o": e_o[1], "stat": e_s[1]},
+                   ms=fwd_ms,
+                   plain_ms=time_ms(lambda: FA.fused_attention_fwd_plain(q, k, v, kv, base2=base2),
+                                    reps=5),
+                   library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                       q, k, v, attn_mask=am, scale=scale)),
+                   bound=bound_ms(nbytes(q, k, v, kv, o, stat), 4.0 * R * N * M * D))
+        # the least a backward that recomputes P does: q.k, dout.v, p^T.dout,
+        # ds^T.q and ds.k
+        bwd = dict(shape=shape, max_abs_err=max(e for e, _ in es), tol=es[0][1], ms=bwd_ms,
+                   fwd_plus_bwd_ms=fwd_ms + bwd_ms,
+                   plain_ms=time_ms(lambda: FA.fused_attention_bwd_plain(
+                       q, k, v, kv, o, stat, do, base2=base2), reps=5),
+                   library_ms=time_ms(lib_fwd_bwd), library="SDPA forward + backward (autograd)",
+                   bound=bound_ms(nbytes(q, k, v, kv, o, stat, do) + nbytes(q, k, v),
+                                  10.0 * R * N * M * D))
+        del q, k, v, do, o, stat, leaves, am
+        if name == "4aa_T1000":
+            kern["fused_attention_fwd"], kern["fused_attention_bwd"] = fwd, bwd
+        else:
+            kern["fused_attention_fwd"][name], kern["fused_attention_bwd"][name] = fwd, bwd
+
+    # the two stage backwards of the T = 1000 train step, as a whole
+    M = B_SIM * T_SIM * L
+    mask = torch.ones(B_SIM, T_SIM, L, device=dev)
+    mask[0, :, -1] = 0
+    mask[-1, 900:] = 0
+    x, dout = r(M, C), r(M, C, dtype=f32)
+    mods = [r(B_SIM, C, sc=0.3) for _ in range(3)]
+    mlp_ws = [r(C, 4 * C, sc=C ** -0.5), r(4 * C, sc=0.1), r(4 * C, C, sc=(4 * C) ** -0.5),
+              r(C, sc=0.1)]
+    attn_ws = [r(C, 3 * C, sc=C ** -0.5), r(3 * C, sc=0.1), r(C, C, sc=C ** -0.5), r(C, sc=0.1),
+               r(C), r(C)]
+    dims = dict(B=B_SIM, T=T_SIM, L=L, num_heads=H)
+    R, Mk, D = B_SIM * L * H, T_SIM + 1, C // H
+    ops = {
+        # six products of 2 * M * C * 4C: fc1, the fc2 recompute, two wgrads, two dgrads
+        "row5b_adaln_mlp_bwd": (AM.adaln_mlp_bwd, AM.adaln_mlp_bwd_plain,
+                                [x, *mods, *mlp_ws, dout], {}, 12.0 * M * C * 4 * C,
+                                nbytes(x, dout, *mods, *mlp_ws) + M * C * 4
+                                + nbytes(*mlp_ws) * 2 + B_SIM * 3 * C * 4,
+                                ["dx", "dsh", "dsc", "dg", "dw1", "db1", "dw2", "db2"]),
+        # qkv, out and their backward products (24 M C^2) and the attention
+        # core forward (2 products) and backward (5)
+        "time_attention_block_bwd": (TA.time_attention_block_bwd, TA.time_attention_block_bwd_plain,
+                                     [x, *mods, *attn_ws, mask, dout], dims,
+                                     24.0 * M * C * C + 14.0 * R * T_SIM * Mk * D,
+                                     nbytes(x, dout, mask, *mods, *attn_ws) + M * C * 4
+                                     + nbytes(*attn_ws) * 2 + B_SIM * 3 * C * 4,
+                                     ["dx", "dsh", "dsc", "dg", "dwqkv", "dbqkv", "dwout",
+                                      "dbout", "dbk", "dbv"]),
+    }
+    stages = {}
+    for name, (op, plain, args, kw, flops, io, names) in ops.items():
+        errs = held_composite(name, op, plain, args, kw, names)
+        worst = max(errs, key=lambda n: errs[n][0] - errs[n][1])
+        stages[name] = dict(rel_l2=errs[worst][0], tol=errs[worst][1], worst=worst,
+                            rel_l2_vs_tol=errs, ms=time_ms(lambda: op(*args, **kw)),
+                            plain_ms=time_ms(lambda: plain(*args, **kw), reps=5),
+                            library_ms=None, bound=bound_ms(io, flops))
+    emit({"phase": "long_bwd_kernels", "kernels": kern, "stages": stages,
+          "rule": "stages: rel_l2(kernels) <= 2 * rel_l2(plain bf16) + 0.01 per output, "
+                  "truth: plain f32"})
+    return kern, stages
+
+
+def phase_train_1000(dev):
+    """The preset trained through ``Trainer`` at B = 8, T = 1000 from its
+    real init on synthetic "AAGG" / "GHKL" trajectories of 2,000 frames:
+    2 warm-up and 10 timed steps, 20 steps on one fixed batch (fixed t and
+    x0), a checkpoint round trip, and the launches of every kernel."""
+    import numpy as np
+
+    from mdgen_finetune_tpu_torch.data.dataset import MDGenDataset, make_batch_iterator
+    from mdgen_finetune_tpu_torch.data.synthetic import make_synthetic_dataset
+    from mdgen_finetune_tpu_torch.training import Trainer
+
+    cfg = train_1000_config(B_SIM)
+    split = make_synthetic_dataset(cfg.data.data_dir, ["AAGG", "GHKL"], num_frames=2 * T_SIM,
+                                   suffix=cfg.data.suffix)
+    it = make_batch_iterator(MDGenDataset(cfg, split), B_SIM, seed=0)
+    batches = [{k: torch.as_tensor(np.asarray(v), device=dev) for k, v in next(it).items()
+                if k != "name"} for _ in range(12)]
+    it.close()
+    trainer = Trainer(cfg, device=dev)
+    state = trainer.init_state(0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    wrappers, twins = _counters(WRAPPERS_1000)
+    for fn in wrappers:
+        fn.launches = 0
+    for fn in twins:
+        fn.cuda_calls = 0
+    torch.cuda.reset_peak_memory_stats()
+    metrics = []
+    for b in batches[:2]:  # warm-up
+        state, m = trainer.train_step(state, b, gen)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    before = {fn.__name__: fn.launches for fn in wrappers}
+    t0 = time.perf_counter()
+    for b in batches[2:]:
+        state, m = trainer.train_step(state, b, gen)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / 10
+    per_step = {fn.__name__: (fn.launches - before[fn.__name__]) / 10 for fn in wrappers}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    fixed = []
+    for _ in range(20):
+        state, m = trainer.train_step(state, batches[0], torch.Generator(device=dev).manual_seed(5))
+        fixed.append(m["loss"])
+    fixed = [float(v) for v in fixed]
+
+    saved = {k: v.detach().clone() for k, v in state.params.items()}
+    saved_ema = {k: v.clone() for k, v in state.ema_params.items()}
+    path = trainer.save_checkpoint(state)
+    state, _ = trainer.train_step(state, batches[1], gen)
+    state = trainer.restore_checkpoint(path, state)
+    ckpt_ok = all(torch.equal(state.params[k], v) for k, v in saved.items()) and \
+        all(torch.equal(state.ema_params[k], v) for k, v in saved_ema.items())
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    twin_calls = {fn.__name__: fn.cuda_calls for fn in twins}
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    first5, last5 = sum(fixed[:5]) / 5, sum(fixed[-5:]) / 5
+    # the least work of a step: the trunk's products three times (forward,
+    # data and weight gradients) and its frame attention 3.5 times (forward
+    # 2 products, backward 5); no recompute, encoder and head left out
+    M = B_SIM * T_SIM * L
+    products = NL * (2.0 * M * C * C * 16 + 4.0 * M * (L + 1) * C)
+    attention = NL * 4.0 * B_SIM * L * H * T_SIM * (T_SIM + 1) * (C // H)
+    flops = 3 * products + 3.5 * attention
+    emit({"phase": "train_1000", "B": B_SIM, "T": T_SIM, "L": L, "C": C, "layers": NL,
+          "dtype": "bf16", "grad_checkpointing": True, "ms_per_step": secs * 1e3,
+          "bound_ms_per_step": flops / PEAK_BF16_FLOPS * 1e3, "flops_per_step": flops,
+          "trajectories_per_s": B_SIM / secs, "frames_per_s": B_SIM * T_SIM / secs,
+          "peak_memory_gb": peak_gb, "losses": losses, "grad_norms": norms,
+          "fixed_batch_first5": first5, "fixed_batch_last5": last5,
+          "checkpoint_round_trip": ckpt_ok, "launches_per_step": per_step,
+          "launches": launches, "plain_calls_on_card": twin_calls})
+    if not all(np.isfinite(losses + norms + fixed)):
+        raise AssertionError("train_1000: non-finite loss or gradient norm")
+    if not last5 < first5:
+        raise AssertionError(f"train_1000: fixed-batch loss did not fall: {first5} -> {last5}")
+    if not ckpt_ok:
+        raise AssertionError("train_1000: checkpoint round trip changed the state")
+    if min(per_step.values()) <= 0:
+        raise AssertionError(f"train_1000: a kernel of the path never launched: {per_step}")
+    if any(twin_calls.values()):
+        raise AssertionError(f"train_1000: plain twins ran on the card: {twin_calls}")
+    return launches, per_step, (trainer, state, batches[0], gen)
+
+
+def phase_train_cli(dev):
+    """The training CLI on the card with the reference's T = 1000 command
+    (scripts/train_4aa_forward_sim.sh) plus ``--batch_size 8 --epochs 1
+    --steps_per_epoch 5 --val_batches 1``, on two synthetic 1,100-frame
+    peptides; its checkpoint then drives one ``sim_inference`` window of
+    1,000 frames (the CLI's default sampler, dopri5), parsed back."""
+    import numpy as np
+
+    from mdgen_finetune_tpu_torch.cli import sim_inference, synth_data, train
+    from mdgen_finetune_tpu_torch.geometry.protein import from_pdb_models
+
+    data, out = SCRATCH / "cli_data", SCRATCH / "cli_sim"
+    synth_data.main(["--outdir", str(data), "--peptides", "AAGG", "GHKL", "--num_frames", "1100",
+                     "--suffix", "_i100"])
+    split = str(data / "split.csv")
+    script = ["--sim_condition", "--train_split", split, "--val_split", split,
+              "--data_dir", str(data), "--num_frames", "1000", "--prepend_ipa", "--abs_pos_emb",
+              "--crop", "4", "--ckpt_freq", "40", "--val_repeat", "25", "--suffix", "_i100",
+              "--epochs", "10000", "--grad_checkpointing", "--run_name", "forward_sim"]
+    t0 = time.perf_counter()
+    state = train.main(script + ["--batch_size", "8", "--epochs", "1", "--steps_per_epoch", "5",
+                                 "--val_batches", "1", "--workdir", str(SCRATCH)])
+    train_s = time.perf_counter() - t0
+    run = SCRATCH / "forward_sim"
+    log = [json.loads(x) for x in (run / "log.jsonl").read_text().splitlines()]
+    ckpt = run / f"ckpt_{state.step}"
+    t0 = time.perf_counter()
+    sim_inference.main(["--sim_ckpt", str(ckpt), "--data_dir", str(data), "--split", split,
+                        "--out_dir", str(out), "--num_frames", "1000", "--num_rollouts", "1",
+                        "--suffix", "_i100", "--device", str(dev)])
+    sim_s = time.perf_counter() - t0
+    meta = json.loads((out / "AAGG_meta.json").read_text())
+    models = from_pdb_models(str(out / "AAGG.pdb"))
+    emit({"phase": "train_cli", "steps": state.step, "log": log, "train_cli_s": train_s,
+          "checkpoint": ckpt.name, "sim_meta": meta, "sim_cli_s": sim_s, "models": len(models)})
+    for d in (data, out, run):
+        shutil.rmtree(d, ignore_errors=True)
+    vals = [v for m in log for v in m.values()]
+    if state.step != 5 or not any("val_loss" in m for m in log) or not np.isfinite(vals).all():
+        raise AssertionError(f"train_cli: {state.step} steps, log {log}")
+    if len(models) != T_SIM or meta["frames"] != T_SIM:
+        raise AssertionError(f"train_cli: sim_inference wrote {len(models)} models")
+
+
 KERNEL_OF = (("tiled_attention", "tiled_attention"),
+             ("fused_attention_fwd", "fused_attention_fwd"),
+             ("fused_attention_d", "fused_attention_bwd"),
              ("resident_kernel", "adaln_linear"), ("pipelined_kernel", "adaln_linear"),
              ("tiled64_kernel", "adaln_linear"), ("rope_attention_bwd", "rope_attention_bwd"),
              ("rope_attention", "rope_attention"), ("ipa_attention", "ipa_attention"),
@@ -1213,6 +1529,13 @@ def main():
     phase_trace("train_trace", lambda: trainer.train_step(state, tbatch, tgen))
     del trainer, state
     phase_trunk_rows(dev)
+    long_bwd, _ = phase_long_bwd_kernels(dev)
+    kernels.update(long_bwd)
+    launches_1000, per_step_1000, (trainer, state, tbatch, tgen) = phase_train_1000(dev)
+    phase_trace("train_1000_trace", lambda: trainer.train_step(state, tbatch, tgen))
+    del trainer, state
+    phase_train_cli(dev)
+    phase_grad_across_devices(dev, train_1000_config(1), "grad_cuda_vs_cpu_1000")
     shutil.rmtree(SCRATCH, ignore_errors=True)
 
     bwd = "mdgen_finetune_tpu/ops/fused_layer_bwd.py:563 (_k3 :157, _k2 :323, _k1 :474)"
@@ -1230,18 +1553,31 @@ def main():
         "tiled_attention": ("mdgen_finetune_tpu_torch/csrc/tiled_attention.cu",
                             "mdgen_finetune_tpu/ops/time_attention.py:504 (_block_pallas_fwd_blocked, "
                             "body _block_kernel_blocked :409)"),
+        "fused_attention_fwd": ("mdgen_finetune_tpu_torch/csrc/fused_attention.cu",
+                                "mdgen_finetune_tpu/ops/fused_attention.py:66 (_fwd_tpu, "
+                                "pallas_call :75, body _fwd_kernel :44)"),
+        "fused_attention_bwd": ("mdgen_finetune_tpu_torch/csrc/fused_attention_bwd.cu",
+                                "mdgen_finetune_tpu/ops/fused_attention.py:138 (_bwd_tpu, "
+                                "pallas_call :149, body _bwd_kernel :94)"),
     }
     line = []
     for name, k in kernels.items():
         src, rep = meta[name]
         # launches: the flagship sampler's main-path run for the forward
         # kernels (tiled_attention: the T = 1000 sampler's), the training
-        # path's run for the backward kernels
+        # path's run for the backward kernels, and per T = 1000 train step
+        # for the fused_attention kernels
+        if name.startswith("fused_attention"):
+            n_launch = launches_1000[name]
+        elif name == "tiled_attention":
+            n_launch = sim_launches[name]
+        else:
+            n_launch = launches.get(name, train_launches.get(name))
         line.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                     "launches": (sim_launches[name] if name == "tiled_attention"
-                                  else launches.get(name, train_launches.get(name))),
+                     "launches": n_launch,
                      "train_launches": train_launches.get(name, 0),
                      "sim_1000_launches": sim_launches.get(name, 0),
+                     "train_1000_launches_per_step": per_step_1000.get(name, 0),
                      "max_abs_err": k["max_abs_err"], "tol": k["tol"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
                      "bound_by": k["bound"][1], "library_ms": k["library_ms"],

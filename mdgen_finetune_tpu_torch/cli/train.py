@@ -1,0 +1,123 @@
+"""Training CLI, flag-compatible with the reference's train.py.
+
+Counterpart of the JAX package's ``cli/train.py`` (:21-105). It writes
+``config.json`` and ``log.jsonl`` into ``workdir/run_name``, runs epochs of
+``Trainer.fit``, takes the validation loss without gradients on the EMA
+weights, and saves a checkpoint every ``ckpt_freq`` epochs (and after the
+last) that ``cli/sim_inference.py --sim_ckpt`` reads. It trains on the card
+unless ``--device cpu`` is given. The reference's 4AA forward-simulation
+command (``scripts/train_4aa_forward_sim.sh``):
+
+    python -m mdgen_finetune_tpu_torch.cli.train --sim_condition \\
+        --train_split splits/4AA_train.csv --val_split splits/4AA_val.csv \\
+        --data_dir data/4AA_data/ --num_frames 1000 --prepend_ipa --abs_pos_emb \\
+        --crop 4 --ckpt_freq 40 --val_repeat 25 --suffix _i100 --epochs 10000 \\
+        --grad_checkpointing --run_name forward_sim
+
+``--profile_dir`` writes a ``torch.profiler`` trace of the first epoch.
+Flags of branches that are not ported yet raise ``NotImplementedError``
+naming their ROADMAP item before anything is written: the design task and
+its designability probe (``--design``, ``--inference_batches``), Hyena,
+``--no_rope``, ``--interleave_ipa``, dropout, the other tasks, and
+``--dp_size`` / ``--sp_size`` above 1.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+
+import numpy as np
+import torch
+
+from ..data.dataset import MDGenDataset, make_batch_iterator
+from ..training import Trainer
+from .args import add_train_args, args_to_config
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir, device: torch.device):
+    """A torch.profiler trace of the enclosed region into
+    ``log_dir/trace.json`` when ``log_dir`` is set."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    os.makedirs(log_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    add_train_args(parser)
+    parser.add_argument("--steps_per_epoch", type=int, default=None)
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="write a torch.profiler trace of the first epoch's steps here")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (default; raises without a card) or cpu")
+    a = parser.parse_args(argv)
+    cfg = args_to_config(a)
+    if a.inference_batches and cfg.task.design:
+        raise NotImplementedError(
+            "the designability probe (--design --inference_batches) is not ported yet "
+            "(ROADMAP.md queue 1 item 8)")
+    trainer = Trainer(cfg, device=a.device)  # refuses what is not ported
+
+    workdir = os.path.join(cfg.workdir, cfg.run_name)
+    os.makedirs(workdir, exist_ok=True)
+    with open(os.path.join(workdir, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+
+    train_ds = MDGenDataset(cfg, cfg.data.train_split)
+    val_ds = MDGenDataset(cfg, cfg.data.val_split, repeat=a.val_repeat)
+    it = make_batch_iterator(train_ds, cfg.train.batch_size, seed=cfg.train.seed)
+    state = trainer.init_state(cfg.train.seed)
+    if a.ckpt:
+        state = trainer.restore_checkpoint(a.ckpt, state)
+        print(f"resumed from {a.ckpt} at step {state.step}", flush=True)
+
+    # --train_batches caps the epoch length (Lightning limit_train_batches,
+    # reference train.py:49); --steps_per_epoch is the explicit override
+    steps_per_epoch = a.steps_per_epoch or a.train_batches or max(
+        len(train_ds) // cfg.train.batch_size, 1)
+    log_path = os.path.join(workdir, "log.jsonl")
+    gen = torch.Generator(device=trainer.device).manual_seed(cfg.train.seed + 1)
+
+    def log_fn(m):
+        print(json.dumps(m), flush=True)
+        with open(log_path, "a") as f:
+            f.write(json.dumps(m) + "\n")
+
+    try:
+        for epoch in range(cfg.train.epochs):
+            with profile_trace(a.profile_dir if epoch == 0 else None, trainer.device):
+                state = trainer.fit(state, it, steps_per_epoch, gen,
+                                    log_every=cfg.train.print_freq, log_fn=log_fn)
+
+            if not a.no_validate and (epoch + 1) % a.val_epoch_freq == 0:
+                vrng = np.random.default_rng(0)
+                vgen = torch.Generator(device=trainer.device).manual_seed(cfg.train.seed + 2)
+                vals = [trainer.eval_loss(state, val_ds.batch(vrng, cfg.train.batch_size), vgen)
+                        for _ in range(a.val_batches or max(len(val_ds) // cfg.train.batch_size,
+                                                            1))]
+                mean = {f"val_{k}": float(np.mean([float(v[k]) for v in vals])) for k in vals[0]}
+                mean.update(epoch=epoch, step=state.step)
+                log_fn(mean)
+
+            if (epoch + 1) % cfg.train.ckpt_freq == 0 or epoch == cfg.train.epochs - 1:
+                path = trainer.save_checkpoint(state)
+                print(f"saved {path}", flush=True)
+    finally:
+        it.close()
+    return state
+
+
+if __name__ == "__main__":
+    main()

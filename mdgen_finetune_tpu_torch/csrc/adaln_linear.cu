@@ -14,7 +14,11 @@
 //   LN_AFFINE LayerNorm eps 1e-5 with f32 weight/bias (ipa_norm).
 // The normalised row is rounded to bf16 as it is staged for the tensor cores.
 // Epilogue (optional), on y = acc + bias:
-//   GELU      the algebraic-sigmoid erf fit (_gelu_fast) in f32;
+//   GELU      the algebraic-sigmoid erf fit (_gelu_fast) in f32; with a
+//             second output `pre` it also writes the f32 pre-activation
+//             acc + bias (the training backward's recompute of an MLP takes
+//             both from one product, as _pallas_bwd takes GELU and GELU'
+//             from one `a`, mdgen_finetune_tpu/ops/adaln_mlp.py:173-177);
 //   GATE_RES  res + gate_b * y (gate absent = 1), may write over res;
 //   EULER     carry + dt * bf16(bf16(acc) + bias) into an f32 carry (in place);
 //   ADD       bf16(bf16(bf16(acc) + add1[row]) + add2[map(row)]): the embed,
@@ -71,6 +75,7 @@ struct Args {
   float dt;
   const bf16* add1; long long ld_add1;
   const bf16* add2; long long ld_add2; int a2_div, a2_mul, a2_mod;
+  float* pre; long long ldp;   // GELU: the f32 pre-activation, or null
   int vec_epi;   // epilogue operands allow 8-column (16-byte) access
   int vec_mod;   // shift/scale rows allow 16-byte loads
 };
@@ -101,6 +106,7 @@ __device__ __forceinline__ float epilogue(const Args& a, float accv, int gr, int
   float y;
   switch (a.epi) {
     case EPI_GELU:
+      if (a.pre != nullptr) a.pre[(long long)gr * a.ldp + gc] = accv + b;
       y = gelu_fast(accv + b);
       break;
     case EPI_GATE_RES: {
@@ -295,7 +301,10 @@ __device__ __forceinline__ void epilogue8(const Args& a, const float* c, int gr,
   switch (a.epi) {
     case EPI_GELU:
 #pragma unroll
-      for (int e = 0; e < 8; ++e) y[e] = gelu_fast(c[e] + b[e]);
+      for (int e = 0; e < 8; ++e) t[e] = c[e] + b[e];
+      if (a.pre != nullptr) store8(a.pre + (long long)gr * a.ldp + gc, t);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) y[e] = gelu_fast(t[e]);
       break;
     case EPI_GATE_RES: {
       float g[8];
@@ -649,7 +658,7 @@ extern "C" int adaln_linear(
     const void* gate, long long ld_gate, int rows_per_gate, float dt,
     const void* add1, long long ld_add1,
     const void* add2, long long ld_add2, int a2_div, int a2_mul, int a2_mod,
-    void* stream) {
+    void* pre, long long ldp, void* stream) {
   Args a;
   a.x = x; a.lda = lda; a.w = static_cast<const bf16*>(w);
   a.bias = static_cast<const bf16*>(bias);
@@ -666,11 +675,12 @@ extern "C" int adaln_linear(
   a.add2 = static_cast<const bf16*>(add2); a.ld_add2 = ld_add2;
   a.a2_div = a2_div > 0 ? a2_div : 1; a.a2_mul = a2_mul;
   a.a2_mod = a2_mod > 0 ? a2_mod : 1;
+  a.pre = static_cast<float*>(pre); a.ldp = ldp;
   auto al16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   auto rows8 = [&](const void* p, long long ld) { return p == nullptr || (al16(p) && ld % 8 == 0); };
   a.vec_epi = N % 8 == 0 && rows8(out, ldo) && (bias == nullptr || al16(bias)) &&
               rows8(res, ldr) && rows8(gate, ld_gate) && rows8(add1, ld_add1) &&
-              rows8(add2, ld_add2);
+              rows8(add2, ld_add2) && rows8(pre, ldp);
   a.vec_mod = rows8(shift, ld_mod) && rows8(scale, ld_mod);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool aligned = !x_f32 && K % 8 == 0 && N % 8 == 0 && lda % 8 == 0 &&

@@ -47,11 +47,14 @@
 // each key tile for every query tile (through L2), pads D = 24 to 32 and
 // uses mma.sync, not wgmma/TMA: making it fast is later work.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <stdint.h>
 
-typedef __nv_bfloat16 bf16;
+#include "attention_tile.cuh"
+
+using attn_tile::bf16;
+using attn_tile::ld32;
+using attn_tile::mma16816;
+using attn_tile::pack2;
 
 namespace {
 
@@ -59,24 +62,6 @@ constexpr int QT = 64;        // queries per block: 4 warps x 16 rows
 constexpr int KT = 64;        // keys per shared-memory tile
 constexpr int THREADS = 128;
 constexpr int VS = KT + 8;    // row stride (bf16) of the transposed V tile
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulators
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Stage `rows` tokens n0.. of q (col = 0) or k (col = C) of head h into
 // dst (row stride S), RoPE'd at their positions. With `bias`, token N is the

@@ -92,6 +92,15 @@ def _unsupported(cfg: MDGenConfig):
     return None
 
 
+def refuse_unported(cfg: MDGenConfig) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item of a model or
+    task branch that is not ported yet."""
+    bad = _unsupported(cfg)
+    if bad is not None:
+        raise NotImplementedError(
+            f"{bad[0]} is not ported yet (ROADMAP.md queue 1 item {bad[1]})")
+
+
 def _detached(tree):
     """A pack's tensors as plain tensors (``.to`` may hand back the
     parameter itself)."""
@@ -113,10 +122,7 @@ class LatentMDGen(nn.Module):
     def __init__(self, cfg: MDGenConfig, latent_dim: Optional[int] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        bad = _unsupported(cfg)
-        if bad is not None:
-            raise NotImplementedError(
-                f"{bad[0]} is not ported yet (ROADMAP.md queue 1 item {bad[1]})")
+        refuse_unported(cfg)
         self.cfg = cfg
         m = cfg.model
         C = m.embed_dim
@@ -301,7 +307,8 @@ class LatentMDGen(nn.Module):
                 aatype=None, trunk_pack=None):
         """x (B, T, L, lat), t (B,), mask (B, T, L) -> velocity (B, T, L, lat)
         f32; differentiable in the parameters when grad mode is on (the
-        trunk through ``FusedTrunkFn``, the encoder through its recompute)."""
+        trunk through ``FusedTrunkFn``, which with ``grad_checkpointing``
+        saves only each layer's input; the encoder through its recompute)."""
         cfg = self.cfg
         B, T, L = mask.shape
         NL, C = len(self.layers), cfg.model.embed_dim
@@ -316,7 +323,8 @@ class LatentMDGen(nn.Module):
         mods_all = F.silu(t_emb).to(self.dtype) @ pack["wmods"] + pack["bmods"]
         return fused_trunk_train(h, mods_all[:, :NL * 9 * C], pack["layers"], mask,
                                  num_heads=cfg.model.mha_heads,
-                                 final=(mods_all[:, NL * 9 * C:], *pack["fin"]))
+                                 final=(mods_all[:, NL * 9 * C:], *pack["fin"]),
+                                 remat=cfg.model.grad_checkpointing)
 
     # ------------------------------------------------------------------
     # flat sampling path

@@ -16,7 +16,8 @@ Arguments (all 2D row views, unit column stride):
   ``ln_weight`` / ``ln_bias`` (K,) f32);
 - ``shift`` / ``scale`` (nb, K): AdaLN rows, row ``r`` of x uses
   ``r // (M // nb)``;
-- ``epilogue``: "none", "gelu", "gate_res" (``res + gate * y``; ``gate``
+- ``epilogue``: "none", "gelu" (with ``pre``, an f32 (M, N) row view, the
+  pre-activation ``y`` is written there too), "gate_res" (``res + gate * y``; ``gate``
   (ng, N) rows like shift, None = 1), "euler" (``res`` is the f32 carry,
   ``carry + dt * bf16(y)``), "add" (``y + add1[r] + add2[map(r)]`` with
   ``add2_map = (div, mul, mod)``: ``map(r) = (r // div) * mul + r % mod``);
@@ -39,7 +40,7 @@ _ARGTYPES = [_cuda.P, _cuda.I32, _cuda.I64, _cuda.P, _cuda.P,
              _cuda.P, _cuda.I64, _cuda.I32, _cuda.F32,
              _cuda.P, _cuda.I64,
              _cuda.P, _cuda.I64, _cuda.I32, _cuda.I32, _cuda.I32,
-             _cuda.P]
+             _cuda.P, _cuda.I64, _cuda.P]
 
 
 def _rows(v: torch.Tensor, M: int) -> torch.Tensor:
@@ -50,7 +51,7 @@ def _rows(v: torch.Tensor, M: int) -> torch.Tensor:
 def adaln_linear_math(x, w, b=None, *, ln=None, ln_weight=None, ln_bias=None,
                       shift=None, scale=None, epilogue="none", res=None, gate=None,
                       dt=None, add1=None, add2=None, add2_map=None, out=None,
-                      out_dtype=None):
+                      out_dtype=None, pre=None):
     """The plain PyTorch math of ``adaln_linear`` (same arguments), counted
     nowhere: differentiable with ``out=None``, so the encoder's backward
     recomputes through it."""
@@ -75,6 +76,8 @@ def adaln_linear_math(x, w, b=None, *, ln=None, ln_weight=None, ln_bias=None,
     if b is not None:
         y = y + b.to(cd)
     if epilogue == "gelu":
+        if pre is not None:
+            pre.copy_(y)
         y = gelu_fast(y)
     elif epilogue == "gate_res":
         y = res + (y if gate is None else _rows(gate, M).to(cd) * y)
@@ -120,12 +123,12 @@ def _rowview(t, name, K=None):
 def adaln_linear(x, w, b=None, *, ln=None, ln_weight=None, ln_bias=None,
                  shift=None, scale=None, epilogue="none", res=None, gate=None,
                  dt=None, add1=None, add2=None, add2_map=None, out=None,
-                 out_dtype=None):
+                 out_dtype=None, pre=None):
     """``epilogue(prologue(x) @ w + b)``: the kernel on CUDA tensors, the
     plain version on CPU tensors (see the module docstring)."""
     kw = dict(ln=ln, ln_weight=ln_weight, ln_bias=ln_bias, shift=shift, scale=scale,
               epilogue=epilogue, res=res, gate=gate, dt=dt, add1=add1, add2=add2,
-              add2_map=add2_map, out=out, out_dtype=out_dtype)
+              add2_map=add2_map, out=out, out_dtype=out_dtype, pre=pre)
     if not x.is_cuda:
         return adaln_linear_plain(x, w, b, **kw)
     M, K = x.shape
@@ -159,6 +162,11 @@ def adaln_linear(x, w, b=None, *, ln=None, ln_weight=None, ln_bias=None,
     elif epilogue == "gate_res" and (res is None or res.dtype != torch.bfloat16):
         raise ValueError("adaln_linear: gate_res takes a bf16 residual")
     _rowview(res, "res", N)
+    if pre is not None:
+        _rowview(pre, "pre", N)
+        if epilogue != "gelu" or pre.dtype != torch.float32 or pre.shape[0] != M:
+            raise ValueError("adaln_linear: pre is the f32 (M, N) pre-activation of the gelu "
+                             "epilogue")
     if out is None:
         odt = out_dtype or (torch.float32 if epilogue == "euler" else torch.bfloat16)
         out = torch.empty(M, N, dtype=odt, device=x.device)
@@ -178,7 +186,7 @@ def adaln_linear(x, w, b=None, *, ln=None, ln_weight=None, ln_bias=None,
         M // gate.shape[0] if gate is not None else 1, float(dt or 0.0),
         _cuda.ptr(add1), add1.stride(0) if add1 is not None else 0,
         _cuda.ptr(add2), add2.stride(0) if add2 is not None else 0, div, mul, mod,
-        _cuda.stream_ptr(x))
+        _cuda.ptr(pre), pre.stride(0) if pre is not None else 0, _cuda.stream_ptr(x))
     _cuda.check(code, "adaln_linear")
     adaln_linear.launches += 1
     return out

@@ -1,0 +1,200 @@
+"""fused_attention: masked softmax attention over long key sequences, with
+its backward, for the trunk's training path at long T.
+
+Kernels: ``csrc/fused_attention.cu`` (forward) and
+``csrc/fused_attention_bwd.cu`` (backward). They replace the JAX package's
+``ops/fused_attention.py::_fwd_tpu`` (body ``_fwd_kernel``) and
+``_bwd_tpu`` (body ``_bwd_kernel``), the TPU kernels that keep a whole
+row's K/V (up to 4,096 keys) in VMEM. On the card the keys stream
+through shared memory in 64-key tiles, so M has no cap from shared memory.
+
+Interface (the JAX package's ``fused_attention``): q (B, H, N, D) already
+scaled (and RoPE'd); k, v (B, H, M, D); ``key_valid`` (B, M) f32 with
+1 = attendable (None: every key). Two softmaxes:
+
+- ``base2=True``: q also carries log2(e); the weights are
+  ``exp2(min(l, 100))`` with no max, over their sum + 1e-30
+  (``fused_attention.py:51-56``);
+- ``base2=False``: the max-subtracted natural softmax of the logits (the
+  kernel keeps a running max per key tile and rescales).
+
+A masked key's logit is replaced by -1e9. The forward also returns one f32
+statistic per query row, the log2 of the softmax denominator in base-2
+units, so that the backward recomputes p = exp2(t - stat) without a second
+pass over the keys.
+
+- ``fused_attention`` is the differentiable op (``FusedAttentionFn``);
+  ``fused_attention_plain`` is the port's twin of the JAX package's
+  ``_attention_xla`` (``models/attention.py::attention_core``);
+- ``fused_attention_fwd`` / ``fused_attention_bwd`` launch the kernels on
+  CUDA tensors (or raise) and run their plain versions
+  (``*_plain``, the same arithmetic in f32) on CPU tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..models.attention import LN2, LOG2E, NEG_INF, attention_core
+from . import _cuda
+
+HEAD_DIMS = (16, 24, 32, 64)
+
+_FWD_ARGTYPES = [_cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P,
+                 _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.P]
+_BWD_ARGTYPES = [_cuda.P] * 11 + [_cuda.I32] * 6 + [_cuda.P]
+
+
+def fused_attention_plain(q, k, v, key_valid=None, *, base2: bool = False):
+    """The attention in plain PyTorch (``attention_core``: f32 logits and
+    softmax, weights rounded to q's dtype before the product with v)."""
+    if key_valid is None:
+        key_valid = torch.ones(q.shape[0], k.shape[2], device=q.device)
+    return attention_core(q, k, v, key_valid, base2=base2)
+
+
+def _logits2(q, k, key_valid, base2):
+    """f32 logits in base-2 units, masked keys replaced by -1e9."""
+    t = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    if not base2:
+        t = t * LOG2E
+    return torch.where(key_valid[:, None, None, :] > 0, t, NEG_INF)
+
+
+def _weights(t, stat, base2):
+    return torch.exp2((t.clamp(max=100.0) if base2 else t) - stat[..., None])
+
+
+def _check(name, t, shape, dtype):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(f"fused_attention: {name} must be a contiguous {dtype} {tuple(shape)} "
+                         "tensor")
+
+
+def _dims(q, k, v, key_valid):
+    B, H, N, D = q.shape
+    M = k.shape[2]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"fused_attention: head dim {D} is not supported (one of {HEAD_DIMS})")
+    _check("q", q, (B, H, N, D), torch.bfloat16)
+    _check("k", k, (B, H, M, D), torch.bfloat16)
+    _check("v", v, (B, H, M, D), torch.bfloat16)
+    _check("key_valid", key_valid, (B, M), torch.float32)
+    return B, H, N, M, D
+
+
+def fused_attention_fwd_plain(q, k, v, key_valid, *, base2: bool = False):
+    """Plain PyTorch version of ``fused_attention_fwd`` (same arguments):
+    the output of ``fused_attention_plain`` and the row statistic; counts
+    its calls on CUDA tensors in ``cuda_calls``."""
+    if q.is_cuda:
+        fused_attention_fwd_plain.cuda_calls += 1
+    t = _logits2(q, k, key_valid, base2)
+    if base2:
+        stat = torch.log2(torch.exp2(t.clamp(max=100.0)).sum(-1) + 1e-30)
+    else:
+        m = t.amax(-1)
+        stat = m + torch.log2(torch.exp2(t - m[..., None]).sum(-1))
+    return fused_attention_plain(q, k, v, key_valid, base2=base2), stat
+
+
+fused_attention_fwd_plain.cuda_calls = 0
+
+
+def fused_attention_fwd(q, k, v, key_valid, *, base2: bool = False):
+    """The forward: (o (B, H, N, D), stat (B, H, N) f32). The kernel on
+    CUDA tensors, the plain version on CPU tensors."""
+    if not q.is_cuda:
+        return fused_attention_fwd_plain(q, k, v, key_valid, base2=base2)
+    B, H, N, M, D = _dims(q, k, v, key_valid)
+    o = torch.empty_like(q)
+    stat = torch.empty(B, H, N, dtype=torch.float32, device=q.device)
+    lib = _cuda.library("fused_attention", _FWD_ARGTYPES)
+    code = lib.fused_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
+                               o.data_ptr(), stat.data_ptr(), B * H, N, M, H, D, int(base2),
+                               _cuda.stream_ptr(q))
+    _cuda.check(code, "fused_attention")
+    fused_attention_fwd.launches += 1
+    return o, stat
+
+
+fused_attention_fwd.launches = 0
+
+
+def fused_attention_bwd_plain(q, k, v, key_valid, o, stat, dout, *, base2: bool = False):
+    """Plain PyTorch version of ``fused_attention_bwd`` (same arguments), in
+    f32: P from the saved statistic, delta = rowsum(dout * o),
+    ds = p * (dp - delta) on attendable keys (0 on masked ones), times ln 2
+    in base 2; counts its calls on CUDA tensors in ``cuda_calls``."""
+    if q.is_cuda:
+        fused_attention_bwd_plain.cuda_calls += 1
+    t = _logits2(q, k, key_valid, base2)
+    p = _weights(t, stat.float(), base2)
+    g = dout.float()
+    delta = (g * o.float()).sum(-1, keepdim=True)
+    dp = torch.einsum("bhqd,bhkd->bhqk", g, v.float())
+    ds = torch.where(key_valid[:, None, None, :] > 0, p * (dp - delta), 0.0)
+    if base2:
+        ds = ds * LN2
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, g)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+fused_attention_bwd_plain.cuda_calls = 0
+
+
+def fused_attention_bwd(q, k, v, key_valid, o, stat, dout, *, base2: bool = False):
+    """The backward: (dq, dk, dv) in q's dtype from the forward's inputs,
+    its output ``o``, its ``stat`` and the upstream gradient ``dout``. The
+    kernel on CUDA tensors (deterministic: one pass over key tiles for dk
+    and dv, one over query tiles for dq, no atomics), the plain version on
+    CPU tensors."""
+    if not q.is_cuda:
+        return fused_attention_bwd_plain(q, k, v, key_valid, o, stat, dout, base2=base2)
+    B, H, N, M, D = _dims(q, k, v, key_valid)
+    _check("o", o, (B, H, N, D), torch.bfloat16)
+    _check("dout", dout, (B, H, N, D), torch.bfloat16)
+    _check("stat", stat, (B, H, N), torch.float32)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(B * H * N, dtype=torch.float32, device=q.device)
+    lib = _cuda.library("fused_attention_bwd", _BWD_ARGTYPES)
+    code = lib.fused_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
+                                   o.data_ptr(), dout.data_ptr(), stat.data_ptr(), dq.data_ptr(),
+                                   dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B * H, N, M, H,
+                                   D, int(base2), _cuda.stream_ptr(q))
+    _cuda.check(code, "fused_attention_bwd")
+    fused_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+fused_attention_bwd.launches = 0
+
+
+class FusedAttentionFn(torch.autograd.Function):
+    """The JAX package's ``_attention_pallas`` custom VJP: the forward saves
+    its inputs, its output and the row statistic; the backward recomputes P
+    from them. ``key_valid`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_valid, base2):
+        o, stat = fused_attention_fwd(q, k, v, key_valid, base2=base2)
+        ctx.save_for_backward(q, k, v, key_valid, o, stat)
+        ctx.base2 = base2
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, key_valid, o, stat = ctx.saved_tensors
+        dq, dk, dv = fused_attention_bwd(q, k, v, key_valid, o, stat,
+                                         dout.to(o.dtype).contiguous(), base2=ctx.base2)
+        return dq, dk, dv, None, None
+
+
+def fused_attention(q, k, v, key_valid=None, *, base2: bool = False):
+    """Masked softmax attention (module docstring), differentiable in q, k
+    and v. Returns (B, H, N, D) in q's dtype."""
+    if key_valid is None:
+        key_valid = torch.ones(q.shape[0], k.shape[2], device=q.device)
+    return FusedAttentionFn.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                                  key_valid.float().contiguous(), base2)

@@ -139,15 +139,19 @@ class FusedTrunkFn(torch.autograd.Function):
 
     Forward: the same kernels as ``fused_trunk``, but every stage writes its
     residual update into a new tensor, and each layer's input and its stage
-    inputs X1 and X2 are saved (3 x B*T*L*C elements per layer). Backward:
+    inputs X1 and X2 are saved (3 x B*T*L*C elements per layer). With
+    ``remat`` (the model's ``grad_checkpointing``, the JAX package's
+    ``nn.remat(LatentMDGenLayer)``) only each layer's input is saved, and
+    the backward recomputes X1 and X2 with the same kernels: the loss and
+    every gradient are bit for bit those of the run without it. Backward:
     the head's VJP (autograd through ``_head``), then ``fused_layer_bwd``
     for each layer in reverse. Inputs: x (B, T, L, C), mods (nb, NL*9C),
     modf (nb, 2C), wfin (C, out), bfin (out,), mask (B, T, L) f32,
-    num_heads, then the layers' weights flattened in ``LAYER_KEYS`` order.
-    Returns the velocity (B, T, L, out) f32."""
+    num_heads, remat, then the layers' weights flattened in ``LAYER_KEYS``
+    order. Returns the velocity (B, T, L, out) f32."""
 
     @staticmethod
-    def forward(ctx, x, mods, modf, wfin, bfin, mask, num_heads, *flat_ws):
+    def forward(ctx, x, mods, modf, wfin, bfin, mask, num_heads, remat, *flat_ws):
         B, T, L, C = x.shape
         M = B * T * L
         ws = _unflatten(flat_ws)
@@ -156,13 +160,14 @@ class FusedTrunkFn(torch.autograd.Function):
         for i, w in enumerate(ws):
             x1, x2, y = trunk_layer(h, mods[:, i * 9 * C:(i + 1) * 9 * C], w, mask, B=B, T=T,
                                     L=L, num_heads=num_heads)
-            saved += [h, x1, x2]
+            saved += [h] if remat else [h, x1, x2]
             h = y
         carry = torch.zeros(M, wfin.shape[1], dtype=torch.float32, device=h.device)
         adaln_linear(h, wfin, bfin, ln="plain", shift=modf[:, :C], scale=modf[:, C:],
                      epilogue="euler", res=carry, dt=1.0, out=carry)
         ctx.save_for_backward(mods, modf, wfin, bfin, mask, h, *saved, *flat_ws)
         ctx.num_heads = num_heads
+        ctx.remat = remat
         ctx.dims = (B, T, L, C)
         return carry.view(B, T, L, -1)
 
@@ -170,8 +175,9 @@ class FusedTrunkFn(torch.autograd.Function):
     def backward(ctx, gvel):
         B, T, L, C = ctx.dims
         mods, modf, wfin, bfin, mask, h_last, *rest = ctx.saved_tensors
-        NL = len(rest) // (3 + len(LAYER_KEYS))
-        saved, flat_ws = rest[:3 * NL], rest[3 * NL:]
+        per = 1 if ctx.remat else 3
+        NL = len(rest) // (per + len(LAYER_KEYS))
+        saved, flat_ws = rest[:per * NL], rest[per * NL:]
         ws = _unflatten(flat_ws)
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_() for t in (h_last, modf, wfin, bfin)]
@@ -181,14 +187,20 @@ class FusedTrunkFn(torch.autograd.Function):
         dmods = torch.empty(mods.shape[0], NL * 9 * C, dtype=torch.float32, device=g.device)
         dws = [None] * NL
         for i in reversed(range(NL)):
-            x_in, x1, x2 = saved[3 * i:3 * i + 3]
-            g, _, dws[i] = fused_layer_bwd(x_in, x1, x2, g, mods[:, i * 9 * C:(i + 1) * 9 * C],
-                                           ws[i], mask, ctx.num_heads,
+            mod = mods[:, i * 9 * C:(i + 1) * 9 * C]
+            if ctx.remat:
+                x_in = saved[i]
+                x1, x2, _ = trunk_layer(x_in, mod, ws[i], mask, B=B, T=T, L=L,
+                                        num_heads=ctx.num_heads)
+            else:
+                x_in, x1, x2 = saved[3 * i:3 * i + 3]
+            g, _, dws[i] = fused_layer_bwd(x_in, x1, x2, g, mod, ws[i], mask, ctx.num_heads,
                                            dmod=dmods[:, i * 9 * C:(i + 1) * 9 * C])
+            del x1, x2
         dflat = [dws[i][k].to(w.dtype) for i in range(NL) for k, w in
                  zip(LAYER_KEYS, flat_ws[i * len(LAYER_KEYS):(i + 1) * len(LAYER_KEYS)])]
         return (g.view(B, T, L, C).to(h_last.dtype), dmods.to(mods.dtype), dmodf, dwfin, dbfin,
-                None, None, *dflat)
+                None, None, None, *dflat)
 
 
 def _unflatten(flat_ws):
@@ -196,10 +208,12 @@ def _unflatten(flat_ws):
     return [dict(zip(LAYER_KEYS, flat_ws[i:i + n])) for i in range(0, len(flat_ws), n)]
 
 
-def fused_trunk_train(x, mods, ws, mask, *, num_heads: int, final):
+def fused_trunk_train(x, mods, ws, mask, *, num_heads: int, final, remat: bool = False):
     """The trunk and its head as a differentiable op (``FusedTrunkFn``):
     x (B, T, L, C); mods (nb, NL*9C); ``ws`` the per-layer weight dicts;
-    ``final = (modf, wfin, bfin)``. Returns the velocity (B, T, L, out) f32."""
+    ``final = (modf, wfin, bfin)``; ``remat``: save only each layer's input
+    and recompute the rest in the backward. Returns the velocity
+    (B, T, L, out) f32."""
     flat = [w[k] for w in ws for k in LAYER_KEYS]
     return FusedTrunkFn.apply(x.contiguous(), mods, *final,
-                              mask.to(torch.float32).contiguous(), num_heads, *flat)
+                              mask.to(torch.float32).contiguous(), num_heads, remat, *flat)

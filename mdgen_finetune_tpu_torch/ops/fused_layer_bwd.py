@@ -7,17 +7,20 @@ Counterpart of the JAX package's ``ops/fused_layer_bwd.py::fused_layer_bwd``
 the TPU kernels, a stage RECOMPUTES its forward from its saved input (x_in,
 X1 or X2) and nothing else of the forward is kept:
 
-    MLP stage (input X2, upstream dOUT):
-      a   = adaln_linear(LN+mod, f32)          pre-activation (for gelu')
-      ge  = adaln_linear(LN+mod, GELU)         the hidden, as the forward
+    MLP stage (input X2, upstream dOUT): ``ops/adaln_mlp.py::adaln_mlp_bwd``
+      ge, a = adaln_linear(LN+mod, GELU, pre=a)  one fc1 product: the hidden
+                                                 and its f32 pre-activation
       y   = adaln_linear(ge @ w2 + b2, f32)    the pre-gate output (for dg)
       dW2, db2 = linear_bwd wgrad (ge, dOUT * g8)
       da       = linear_bwd dgrad (dOUT * g8, w2) * gelu'(a)
       dW1, db1 = linear_bwd wgrad (LN+mod(X2), da)
       dh       = linear_bwd dgrad (da, w1)
       dX2, (dsh, dsc, dg) = modln_bwd(X2, dh, dOUT, y)
-    attention stage (frame: input X1, view (B, T, L); residue: input x_in,
-    view (B*T, L, 1)):
+    frame stage at T > 128 (input X1): ``ops/time_attention.py::
+      time_attention_block_bwd``, the same steps as below with the
+      ``fused_attention`` kernels as its attention core
+    attention stage (frame at T <= 128: input X1, view (B, T, L); residue:
+    input x_in, view (B*T, L, 1)):
       qkv, att = adaln_linear + rope_attention (recompute)
       y        = adaln_linear(att @ wout + bout, f32)
       dWout, dbout = linear_bwd wgrad (att, dX * g)
@@ -36,10 +39,12 @@ from __future__ import annotations
 import torch
 
 from .adaln_linear import adaln_linear
+from .adaln_mlp import adaln_mlp_bwd
 from .linear_bwd import linear_bwd
 from .modln_bwd import modln_bwd
 from .rope_attention import rope_attention
-from .rope_attention_bwd import rope_attention_bwd
+from .rope_attention_bwd import MAX_N, rope_attention_bwd
+from .time_attention import time_attention_block_bwd
 
 
 def _attention_stage_bwd(X, dout, mod, j, wqkv, bqkv, wout, bout, bk, bv, mask, view,
@@ -88,20 +93,18 @@ def fused_layer_bwd(x_in, X1, X2, dout, mod, w, mask, num_heads: int, dmod=None)
         return mod[:, i * C:(i + 1) * C]
 
     # ---- stage 3: the MLP ----
-    a = adaln_linear(X2, w["w1"], w["b1"], ln="plain", shift=m(6), scale=m(7),
-                     out_dtype=torch.float32)
-    ge = adaln_linear(X2, w["w1"], w["b1"], ln="plain", shift=m(6), scale=m(7), epilogue="gelu")
-    y = adaln_linear(ge, w["w2"], w["b2"], out_dtype=torch.float32)
-    dw2, db2 = linear_bwd("wgrad", dout, ge, gate=m(8))
-    da = linear_bwd("dgrad", dout, w["w2"], gate=m(8), act=a, out_dtype=X2.dtype)
-    del a
-    dw1, db1 = linear_bwd("wgrad", da, X2, ln=True, shift=m(6), scale=m(7))
-    dh = linear_bwd("dgrad", da, w["w1"])
-    dx2, _ = modln_bwd(X2, dh, dout, y, m(7), dmod[:, 6 * C:])
+    dx2, _, _, _, dw1, db1, dw2, db2 = adaln_mlp_bwd(
+        X2, m(6), m(7), m(8), w["w1"], w["b1"], w["w2"], w["b2"], dout, dmod=dmod[:, 6 * C:])
     # ---- stage 2: attention over frames ----
-    dx1, (dwqkv_t, dbqkv_t, dwout_t, dbout_t, dbkt, dbvt) = _attention_stage_bwd(
-        X1, dx2, mod, 3, w["wqkv_t"], w["bqkv_t"], w["wout_t"], w["bout_t"], w["bkt"],
-        w["bvt"], mask, (B, T, L), num_heads, dmod)
+    tw = [w[k] for k in ("wqkv_t", "bqkv_t", "wout_t", "bout_t", "bkt", "bvt")]
+    if T <= MAX_N:
+        dx1, (dwqkv_t, dbqkv_t, dwout_t, dbout_t, dbkt, dbvt) = _attention_stage_bwd(
+            X1, dx2, mod, 3, *tw, mask, (B, T, L), num_heads, dmod)
+    else:
+        dx1, _, _, _, dwqkv_t, dbqkv_t, dwout_t, dbout_t, dbkt, dbvt = time_attention_block_bwd(
+            X1, m(3), m(4), m(5), *tw, mask, dx2, B=B, T=T, L=L, num_heads=num_heads,
+            dmod=dmod[:, 3 * C:6 * C])
+    del dx2
     # ---- stage 1: attention over residues ----
     dx, (dwqkv_l, dbqkv_l, dwout_l, dbout_l, dbkl, dbvl) = _attention_stage_bwd(
         x_in, dx1, mod, 0, w["wqkv_l"], w["bqkv_l"], w["wout_l"], w["bout_l"], w["bkl"],

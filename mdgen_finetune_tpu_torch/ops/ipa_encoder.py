@@ -21,7 +21,12 @@ Training: ``ipa_encoder`` is differentiable. Its backward recomputes the
 stack through the ops' plain math (``*_math``, counted nowhere) and
 differentiates that with autograd, as the JAX package's ``_enc_bwd``
 (:560-574) takes ``jax.vjp`` through ``encoder_xla``; no kernel runs in the
-backward. ``ipa_encoder.bwd_recomputes`` counts those recomputes.
+backward. The recompute runs in f32 (the saved inputs and weights upcast,
+the gradients cast back): in bf16 on the card it carried three times the
+CPU's bf16 error into the IPA gradients at T = 1000 while the gradient
+arriving from the trunk was as accurate as the CPU's, and the stack is
+small (B x L tokens). ``ipa_encoder.bwd_recomputes`` counts those
+recomputes.
 """
 from __future__ import annotations
 
@@ -84,12 +89,13 @@ class _EncoderFn(torch.autograd.Function):
         ins = [x, mods] + flat_ws
         flags = [need[0], need[1]] + list(need[6:])
         with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(f) for t, f in zip(ins, flags)]
+            leaves = [t.detach().float().requires_grad_(f) for t, f in zip(ins, flags)]
             out = _stack(leaves[0], leaves[1], leaves[2:], rot, trans, mask, PLAIN_MATH,
                          ctx.dims)
             wanted = [t for t, f in zip(leaves, flags) if f]
-            got = iter(torch.autograd.grad(out, wanted, gout, allow_unused=True))
+            got = iter(torch.autograd.grad(out, wanted, gout.float(), allow_unused=True))
         grads = [next(got) if f else None for f in flags]
+        grads = [g if g is None else g.to(t.dtype) for g, t in zip(grads, ins)]
         return (grads[0], grads[1], None, None, None, None, *grads[2:])
 
 

@@ -29,6 +29,7 @@ from ..models.attention import LN2, NEG_INF
 from ..models.rope import rope_tables, rotate_half
 from . import _cuda
 
+MAX_N = 128  # a head's q, dO, k and v stay in shared memory
 _ARGTYPES = [_cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P,
              _cuda.P, _cuda.P, _cuda.P, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32,
              _cuda.I32, _cuda.P]
@@ -101,9 +102,10 @@ def rope_attention_bwd(qkv, dout, bias_k, bias_v, key_valid, *, num_heads: int):
         raise ValueError("rope_attention_bwd: dout must be a contiguous bf16 (G, N, I, C) tensor")
     if D not in (16, 24, 32, 64) or C % num_heads:
         raise ValueError(f"rope_attention_bwd: head dim {C}/{num_heads} is not supported")
-    if N > 128:
-        raise ValueError(f"rope_attention_bwd: at most 128 keys per sequence, got {N} (longer "
-                         "training shapes wait for ROADMAP.md queue 2 items 5-10)")
+    if N > MAX_N:
+        raise ValueError(f"rope_attention_bwd: at most {MAX_N} keys per sequence, got {N}; the "
+                         "frame stage's backward at longer T is "
+                         "ops/time_attention.py::time_attention_block_bwd")
     if (bias_k.dtype != torch.bfloat16 or bias_v.dtype != torch.bfloat16
             or not bias_k.is_contiguous() or not bias_v.is_contiguous()):
         raise ValueError("rope_attention_bwd: bias_k / bias_v must be contiguous bf16 (C,)")

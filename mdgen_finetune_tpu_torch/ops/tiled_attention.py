@@ -32,8 +32,8 @@ _ARGTYPES = [_cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P,
 
 def _base2_only(base2: bool) -> None:
     if not base2:
-        raise ValueError("tiled_attention: only the base-2 no-max softmax is supported; "
-                         "the natural-exp softmax is ROADMAP.md queue 2 item 10")
+        raise ValueError("tiled_attention: only the base-2 no-max softmax is supported; the "
+                         "natural-exp softmax is ops/fused_attention.py::fused_attention")
 
 
 def tiled_attention_plain(qkv, bias_k, bias_v, key_valid, *, num_heads: int,

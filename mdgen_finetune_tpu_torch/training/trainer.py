@@ -28,7 +28,7 @@ from ..config import MDGenConfig
 from ..data.featurize import featurize_atom14_batch
 from ..geometry.rigid import full_f32
 from ..inference.sampling import resolve_device
-from ..models.denoiser import LatentMDGen
+from ..models.denoiser import LatentMDGen, refuse_unported
 from ..tasks import prep_batch
 from ..transport import create_transport
 
@@ -115,9 +115,7 @@ def global_norm(tensors: dict) -> torch.Tensor:
 
 class Trainer:
     def __init__(self, cfg: MDGenConfig, device="cuda", dtype=None):
-        if cfg.model.grad_checkpointing:
-            raise NotImplementedError(
-                "model.grad_checkpointing is not ported yet (ROADMAP.md queue 1 item 9)")
+        refuse_unported(cfg)
         if cfg.train.dp_size > 1 or cfg.train.sp_size > 1:
             raise NotImplementedError(
                 "train.dp_size / sp_size > 1 is not ported yet (ROADMAP.md queue 1 item 12)")
@@ -193,6 +191,25 @@ class Trainer:
             torch._foreach_add_(ema, list(state.params.values()), alpha=1 - decay)
         state.step += 1
         return state, metrics
+
+    @torch.no_grad()
+    def eval_loss(self, state: TrainState, batch: dict, generator: torch.Generator) -> dict:
+        """The loss of a batch without gradients, with the EMA weights when
+        the config trains them (the JAX CLI's validation step on
+        ``state.ema_params``): {loss, t_mean} as device scalars. The model's
+        weights are put back after."""
+        swap = self.cfg.train.ema
+        if swap:
+            kept = {k: p.detach().clone() for k, p in state.params.items()}
+            for k, p in state.params.items():
+                p.copy_(state.ema_params[k])
+        try:
+            loss, t_mean = self._loss_fn(batch, generator)
+        finally:
+            if swap:
+                for k, p in state.params.items():
+                    p.copy_(kept[k])
+        return {"loss": loss, "t_mean": t_mean}
 
     def check_grad_coverage(self, state: TrainState, batch: dict,
                             generator: torch.Generator) -> list:

@@ -177,3 +177,110 @@ def test_tiled_attention_matches_plain_on_card():
             ref = tiled_attention_plain(qkv.float(), bk.float(), bv.float(), mask, num_heads=Hc)
             torch.cuda.synchronize()
             _close(got, ref)
+
+
+@pytest.mark.cuda
+def test_fused_attention_matches_plain_on_card():
+    """On the card: the fused_attention forward (output and row statistic)
+    and backward kernels against their plain twins in f32 on the same
+    inputs, at every supported head dim, N = 100, 1000 and 4096 queries
+    (N + 1 keys), both softmaxes, with masked keys, a key tile of 64 keys
+    that holds only masked keys, and one row whose only valid key is the
+    last. The statistic (a log2) is held to 1e-2 absolute."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.ops.fused_attention import (
+        fused_attention_bwd, fused_attention_bwd_plain, fused_attention_fwd,
+        fused_attention_fwd_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    Bc, Hc = 2, 2
+    for D in (16, 24, 32, 64):
+        for N in (100, 1000, 4096):
+            M = N + 1
+
+            def r(*s, sc=1.0):
+                return (torch.randn(*s, generator=g, device="cuda") * sc).to(torch.bfloat16)
+
+            q, k, v, do = r(Bc, Hc, N, D, sc=0.5 * D ** -0.5), r(Bc, Hc, M, D), r(Bc, Hc, M, D), \
+                r(Bc, Hc, N, D)
+            kv = torch.ones(Bc, M, device="cuda")
+            kv[0, 64:128] = 0       # a whole key tile
+            kv[0, N // 2:N] = 0     # masked keys
+            kv[1, :-1] = 0          # only the last key is valid
+            for base2 in (True, False):
+                o, stat = fused_attention_fwd(q, k, v, kv, base2=base2)
+                ro, rstat = fused_attention_fwd_plain(q.float(), k.float(), v.float(), kv,
+                                                      base2=base2)
+                torch.cuda.synchronize()
+                _close(o, ro)
+                assert (stat - rstat).abs().max().item() <= 1e-2
+                got = fused_attention_bwd(q, k, v, kv, o, stat, do, base2=base2)
+                ref = fused_attention_bwd_plain(q.float(), k.float(), v.float(), kv, o.float(),
+                                                stat, do.float(), base2=base2)
+                torch.cuda.synchronize()
+                for a, b in zip(got, ref):
+                    _close(a, b)
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-12)).item()
+
+
+@pytest.mark.cuda
+def test_long_t_stage_backwards_match_plain_on_card():
+    """On the card: ``adaln_linear``'s GELU epilogue with its f32
+    pre-activation output, and the two stage backwards of the T > 128
+    training path, ``adaln_mlp_bwd`` and ``time_attention_block_bwd``
+    (B = 1 and 2, T = 300, head dim 24, masked frames and a padded
+    residue), against
+    their plain compositions in f32, under the composition rule: each
+    output's relative L2 error at most twice that of the plain twins run in
+    bf16, plus 0.01."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.ops.adaln_linear import adaln_linear, adaln_linear_plain
+    from mdgen_finetune_tpu_torch.ops.adaln_mlp import adaln_mlp_bwd, adaln_mlp_bwd_plain
+    from mdgen_finetune_tpu_torch.ops.time_attention import (
+        time_attention_block_bwd, time_attention_block_bwd_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    bf = torch.bfloat16
+    Bc, Tc, Lc, Cc, Hc = 2, 300, 3, 96, 4
+    M = Bc * Tc * Lc
+
+    def r(*s, sc=1.0, dtype=bf):
+        return (torch.randn(*s, generator=g, device="cuda") * sc).to(dtype)
+
+    x, w1, b1 = r(M, Cc), r(Cc, 4 * Cc, sc=Cc ** -0.5), r(4 * Cc, sc=0.1)
+    sh, scl = r(Bc, Cc, sc=0.3), r(Bc, Cc, sc=0.3)
+    pre, rpre = (torch.empty(M, 4 * Cc, device="cuda") for _ in range(2))
+    ge = adaln_linear(x, w1, b1, ln="plain", shift=sh, scale=scl, epilogue="gelu", pre=pre)
+    rge = adaln_linear_plain(x.float(), w1.float(), b1.float(), ln="plain", shift=sh.float(),
+                             scale=scl.float(), epilogue="gelu", pre=rpre)
+    _close(ge, rge)
+    _close(pre, rpre)
+
+    def held(name, op, plain, args, kw):
+        got = op(*args, **kw)
+        truth = plain(*[a.float() if a.dtype == bf else a for a in args], **kw)
+        twin = plain(*args, **kw)
+        torch.cuda.synchronize()
+        for i, (a, b, t) in enumerate(zip(got, twin, truth)):
+            assert _rel(a, t) <= 2 * _rel(b, t) + 0.01, (name, i, _rel(a, t), _rel(b, t))
+
+    dout = r(M, Cc, dtype=torch.float32)
+    mlp = [x, sh, scl, r(Bc, Cc, sc=0.5), w1, b1, r(4 * Cc, Cc, sc=(4 * Cc) ** -0.5),
+           r(Cc, sc=0.1), dout]
+    held("adaln_mlp_bwd", adaln_mlp_bwd, adaln_mlp_bwd_plain, mlp, {})
+    mask = torch.ones(Bc, Tc, Lc, device="cuda")
+    mask[0, 200:] = 0
+    mask[1, :, -1] = 0
+    att = [x, sh, scl, r(Bc, Cc, sc=0.5), r(Cc, 3 * Cc, sc=Cc ** -0.5), r(3 * Cc, sc=0.1),
+           r(Cc, Cc, sc=Cc ** -0.5), r(Cc, sc=0.1), r(Cc), r(Cc), mask, dout]
+    held("time_attention_block_bwd", time_attention_block_bwd, time_attention_block_bwd_plain,
+         att, dict(B=Bc, T=Tc, L=Lc, num_heads=Hc))
+    # B = 1: the layout views of the frame rows need no copy there
+    one = [a[:M // Bc] if a.shape[0] == M else a[:1] if a.shape[0] == Bc else a for a in att]
+    held("time_attention_block_bwd[B=1]", time_attention_block_bwd,
+         time_attention_block_bwd_plain, one, dict(B=1, T=Tc, L=Lc, num_heads=Hc))

@@ -7,28 +7,43 @@ package's XLA twins on the CPU:
 - ``adaln_mlp`` against ``adaln_mlp._xla_impl``;
 - ``tiled_attention_plain`` against ``time_attention._xla_impl(base2=True)``;
 - the wrappers' refusals: ``tiled_attention`` takes only the base-2 softmax,
-  and ``rope_attention``'s shared-memory limit on N.
+  and ``rope_attention``'s shared-memory limit on N;
+- the training path's backwards: ``time_attention_block_bwd`` against
+  ``jax.vjp`` of ``_block_xla_tl``, ``adaln_mlp_bwd_plain`` against the TPU
+  kernel ``_pallas_bwd`` in interpret mode (as ``tests/test_adaln_mlp.py``
+  holds it to the XLA VJP: B = 2, N = 37 rows, C = 128, row blocks of 32),
+  and the whole ``fused_layer_bwd`` (frame stage above
+  ``rope_attention_bwd.MAX_N``) against ``jax.vjp`` of ``_layer_xla``.
 
 Sizes: T = 264 (above MAX_T = 256, not a multiple of 8), L = 3, C = 48 with
 2 heads (head dim 24, as the flagship), B = 2; frames 200.. of element 0 and
 the last residue of element 1 are masked. Inputs are seeded numpy, f32 on
 both sides. Tolerance: rtol 1e-4 / atol 5e-5 on outputs of unit scale
 (different summation orders; exp2 in the port's kernels' contract, exp of
-ln2-scaled logits in both twins).
+ln2-scaled logits in both twins). Gradients: each tensor within 1e-4 of its
+max magnitude (at least 1e-6 absolute); ``adaln_mlp_bwd_plain`` within
+1e-5 of it, the rule of ``tests/test_adaln_mlp.py`` (5e-6) with room for
+the other op order.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from mdgen_finetune_tpu.ops import adaln_mlp as jmlp
+from mdgen_finetune_tpu.ops.fused_layer import _layer_xla
 from mdgen_finetune_tpu.ops import residue_block as jrb
 from mdgen_finetune_tpu.ops import time_attention as jta
 from mdgen_finetune_tpu_torch.ops import rope_attention as tra
-from mdgen_finetune_tpu_torch.ops.adaln_mlp import adaln_mlp
+from mdgen_finetune_tpu_torch.ops.adaln_mlp import adaln_mlp, adaln_mlp_bwd_plain
+from mdgen_finetune_tpu_torch.ops.fused_layer import LAYER_KEYS, trunk_layer
+from mdgen_finetune_tpu_torch.ops.fused_layer_bwd import fused_layer_bwd
 from mdgen_finetune_tpu_torch.ops.residue_block import residue_block
 from mdgen_finetune_tpu_torch.ops.tiled_attention import tiled_attention, tiled_attention_plain
-from mdgen_finetune_tpu_torch.ops.time_attention import MAX_T, time_attention_block
+from mdgen_finetune_tpu_torch.ops.rope_attention_bwd import MAX_N
+from mdgen_finetune_tpu_torch.ops.time_attention import (MAX_T, time_attention_block,
+                                                         time_attention_block_bwd)
 
 RTOL, ATOL = 1e-4, 5e-5
 B, T, L, C, H = 2, 264, 3, 48, 2
@@ -118,3 +133,82 @@ def test_rope_attention_shared_memory_limit():
     for D in (16, 24, 32, 64):
         n = tra.max_keys(D)
         assert tra._head_bytes(n, D) <= tra.SMEM_BYTES < tra._head_bytes(n + 1, D)
+
+
+def _close(got, ref, rel=1e-4, floor=1e-6):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    err = np.abs(got - ref).max()
+    assert err <= rel * np.abs(ref).max() + floor, (err, np.abs(ref).max())
+
+
+def test_time_attention_block_bwd_matches_jax_vjp(inputs):
+    i = inputs
+    assert T > MAX_N  # the fused_attention route, not rope_attention_bwd
+    args = _attn_args(i)
+    rng = np.random.default_rng(2)
+    dout = rng.normal(size=(B, T * L, C)).astype(np.float32)
+
+    @jax.jit
+    def grads(args, g):
+        f = lambda *a: jta._block_xla_tl(*a, jnp.asarray(i["mask"].transpose(0, 2, 1)),  # noqa: E731
+                                         H, T, L, None)
+        return jax.vjp(f, *args)[1](g)
+
+    want = grads(tuple(map(jnp.asarray, args)), jnp.asarray(dout))
+    targs = [_t(a) for a in args]
+    targs[0] = targs[0].reshape(B * T * L, C)
+    got = time_attention_block_bwd(*targs, _t(i["mask"]), _t(dout.reshape(-1, C)),
+                                   B=B, T=T, L=L, num_heads=H)
+    for g, w in zip(got, want):
+        _close(g.numpy().reshape(w.shape), np.asarray(w))
+
+
+def test_adaln_mlp_bwd_plain_matches_jax_kernel():
+    rng = np.random.default_rng(3)
+    Bm, Nm, Cm = 2, 37, 128
+    x = rng.normal(size=(Bm, Nm, Cm)).astype(np.float32)
+    sh, sc, g = ((rng.normal(size=(Bm, Cm)) * s).astype(np.float32) for s in (0.3, 0.3, 0.5))
+    w1 = (rng.normal(size=(Cm, 4 * Cm)) * Cm ** -0.5).astype(np.float32)
+    b1 = (rng.normal(size=(4 * Cm,)) * 0.1).astype(np.float32)
+    w2 = (rng.normal(size=(4 * Cm, Cm)) * Cm ** -0.5).astype(np.float32)
+    b2 = (rng.normal(size=(Cm,)) * 0.1).astype(np.float32)
+    grad = rng.normal(size=(Bm, Nm, Cm)).astype(np.float32)
+    args = (x, sh, sc, g, w1, b1, w2, b2)
+    want = jax.jit(lambda *a: jmlp._pallas_bwd(*a, interpret=True, block_rows=32))(
+        *map(jnp.asarray, args), jnp.asarray(grad))
+    targs = [_t(a) for a in args]
+    got = adaln_mlp_bwd_plain(targs[0].reshape(-1, Cm), *targs[1:], _t(grad.reshape(-1, Cm)))
+    for gg, w in zip(got, want):
+        _close(gg.numpy().reshape(w.shape), np.asarray(w), rel=1e-5, floor=0.0)
+
+
+LAYER_NAMES = ["x", "mod", *LAYER_KEYS]
+
+
+def test_fused_layer_bwd_matches_jax_vjp(inputs):
+    rng = np.random.default_rng(4)
+    i = inputs
+    vals = dict(x=i["x"], mod=(rng.normal(size=(B, 9 * C)) * 0.4).astype(np.float32),
+                wqkv_l=i["wqkv"], bqkv_l=i["bqkv"], wout_l=i["wout"], bout_l=i["bout"],
+                wqkv_t=(rng.normal(size=(C, 3 * C)) * C ** -0.5).astype(np.float32),
+                bqkv_t=i["bqkv"][::-1].copy(), wout_t=i["wout"].T.copy(), bout_t=i["bout"],
+                w1=i["w1"], b1=i["b1"], w2=i["w2"], b2=i["b2"], bkl=i["bk"], bvl=i["bv"],
+                bkt=i["bv"], bvt=i["bk"])
+    vs = [vals[k] for k in LAYER_NAMES]  # _layer_xla's argument order
+    dout = rng.normal(size=(B, T * L, C)).astype(np.float32)
+
+    @jax.jit
+    def grads(vs, g):
+        f = lambda *a: _layer_xla(*a, jnp.asarray(i["mask"]), H, T, L)  # noqa: E731
+        return jax.vjp(f, *vs)[1](g)
+
+    want = dict(zip(LAYER_NAMES, grads(tuple(map(jnp.asarray, vs)), jnp.asarray(dout))))
+    x = _t(vals["x"]).reshape(-1, C)
+    mod = _t(vals["mod"])
+    w = {k: _t(vals[k]) for k in LAYER_KEYS}
+    mk = _t(i["mask"])
+    x1, x2, _ = trunk_layer(x, mod, w, mk, B=B, T=T, L=L, num_heads=H)
+    dx, dmod, dw = fused_layer_bwd(x, x1, x2, _t(dout.reshape(-1, C)), mod, w, mk, H)
+    got = dict(x=dx, mod=dmod, **dw)
+    for k in LAYER_NAMES:
+        _close(got[k].numpy().reshape(want[k].shape), np.asarray(want[k]))

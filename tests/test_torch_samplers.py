@@ -8,12 +8,16 @@
 - the whole slice: ``InferenceEngine.sample_with_zs0`` with Heun (the
   generic ODE path through ``LatentMDGen.forward_inference``) against the
   JAX package's ``InferenceEngine._sample`` with the same weights and the
-  same prior latent, at T = 264 (above MAX_T, so the frame stage runs the
-  tiled core's plain twin).
+  same prior latent and the same featurized batch, at T = 264 (above
+  MAX_T, so the frame stage runs the tiled core's plain twin). The
+  trajectory is built, featurized and initialised by the port (the JAX
+  package's eager geometry, featurization and jitted init cost ~13 s on the
+  CPU; ``test_torch_geometry.py`` and ``test_torch_weights.py`` hold those
+  pieces to JAX).
 
 Sizes: the drift acts on a (2, 5, 3) state; the slice uses 2 layers,
 C = 48 with 2 heads (head dim 24), a 2-head IPA encoder, T = 264, L = 4,
-B = 1, 4 Heun steps, f32. Tolerances: states rtol 1e-5 / atol 1e-6 (f32, the
+B = 1, 2 Heun steps, f32. Tolerances: states rtol 1e-5 / atol 1e-6 (f32, the
 same operations in the same order; XLA may fuse into FMAs); atom14 1e-3
 Angstrom as in test_torch_sampling.py.
 """
@@ -25,17 +29,18 @@ import torch
 
 from mdgen_finetune_tpu.config import (DataConfig, MDGenConfig, ModelConfig, TaskConfig,
                                        TransportConfig)
-from mdgen_finetune_tpu.data.featurize import featurize_atom14_batch as j_featurize
-from mdgen_finetune_tpu.geometry import frames as JG
-from mdgen_finetune_tpu.geometry.rigid import Rigid as JRigid
 from mdgen_finetune_tpu.inference import InferenceEngine as JEngine
 from mdgen_finetune_tpu.transport import samplers as js
 from mdgen_finetune_tpu.transport.transport import Transport as JTransport
 from mdgen_finetune_tpu_torch import config as tcfg
 from mdgen_finetune_tpu_torch.data.featurize import featurize_atom14_batch as t_featurize
+from mdgen_finetune_tpu_torch.geometry import frames as TG
+from mdgen_finetune_tpu_torch.geometry.rigid import Rigid as TRigid
 from mdgen_finetune_tpu_torch.inference import InferenceEngine as TEngine
+from mdgen_finetune_tpu_torch.models.denoiser import LatentMDGen as TModel
 from mdgen_finetune_tpu_torch.transport import samplers as ts
 from mdgen_finetune_tpu_torch.transport.transport import Transport as TTransport
+from mdgen_finetune_tpu_torch.utils.weights import to_flax
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -121,7 +126,7 @@ def _random_tree(params, seed):
 
 
 def test_heun_slice_at_long_t_matches_jax_engine():
-    B, T, L, STEPS = 1, 264, 4, 4
+    B, T, L, STEPS = 1, 264, 4, 2
     cfg = MDGenConfig(
         model=ModelConfig(num_layers=2, embed_dim=48, mha_heads=2, ipa_heads=2, ipa_head_dim=16,
                           ipa_qk=4, ipa_v=4, prepend_ipa=True, abs_pos_emb=True, use_bf16=False),
@@ -133,27 +138,20 @@ def test_heun_slice_at_long_t_matches_jax_engine():
     t7[..., 4:] *= 4.0
     ang = rng.uniform(-np.pi, np.pi, size=(B, T, L, 7))
     tors = np.stack([np.sin(ang), np.cos(ang)], -1).astype(np.float32)
-    atom14 = np.array(JG.frames_torsions_to_atom14(
-        JRigid.from_tensor_7(jnp.asarray(t7)), jnp.asarray(tors),
-        jnp.asarray(np.broadcast_to(aatype[:, None], (B, T, L)))))
+    atom14 = TG.frames_torsions_to_atom14(
+        TRigid.from_tensor_7(torch.from_numpy(t7)), torch.from_numpy(tors),
+        torch.from_numpy(np.broadcast_to(aatype[:, None], (B, T, L)).copy()).long())
     mask = np.ones((B, L), np.float32)
     mask[0, -1] = 0.0
-    engine = JEngine(cfg, None)
-    fr = JRigid.identity((B, L))
-    params = jax.jit(engine.model.init)(
-        jax.random.key(0), jnp.zeros((B, T, L, cfg.latent_dim)), jnp.ones((B,)),
-        jnp.ones((B, T, L)), start_frames=fr, end_frames=fr,
-        x_cond=jnp.zeros((B, T, L, cfg.latent_dim)),
-        x_cond_mask=jnp.zeros((B, T, L), jnp.int32), aatype=jnp.asarray(aatype))
-    params = _random_tree(params, 2)
+    tc = tcfg.MDGenConfig.from_json(cfg.to_json())
+    params = _random_tree(to_flax(TModel(tc).state_dict(), tc), 2)
     zs0 = rng.normal(size=(B, T, L, cfg.latent_dim)).astype(np.float32)
-    jbatch = j_featurize(jnp.asarray(atom14), jnp.asarray(aatype), jnp.asarray(mask))
-    ref, _ = jax.jit(engine._sample)(params, jbatch, jax.random.key(0), jnp.asarray(zs0))
+    tbatch = t_featurize(atom14, torch.from_numpy(aatype).long(), torch.from_numpy(mask))
+    jbatch = {k: jnp.asarray(v.numpy()) for k, v in tbatch.items()}
+    ref, _ = jax.jit(JEngine(cfg, None)._sample)(params, jbatch, jax.random.key(0),
+                                                 jnp.asarray(zs0))
 
-    tengine = TEngine(tcfg.MDGenConfig.from_json(cfg.to_json()),
-                      jax.tree_util.tree_map(np.asarray, params), device="cpu")
-    tbatch = t_featurize(torch.from_numpy(atom14), torch.from_numpy(aatype).long(),
-                         torch.from_numpy(mask))
+    tengine = TEngine(tc, params, device="cpu")
     out, _ = tengine.sample_with_zs0(tbatch, torch.from_numpy(zs0))
     assert tengine.last_counts == {"accepted": STEPS, "rejected": 0, "evals": 2 * STEPS}
     assert out.shape == (B, T, L, 14, 3) and torch.isfinite(out).all()
