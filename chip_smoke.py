@@ -38,7 +38,21 @@ training backward kernels at B = 32). Then:
   launches per step of all nine kernels (``train_1000``); a trace of one
   step (``train_1000_trace``); the ``train`` CLI with the reference's
   command, whose checkpoint drives one ``sim_inference`` window
-  (``train_cli``).
+  (``train_cli``);
+- the ATLAS crop-256 preset (``preset_atlas``: L = 256, T = 250, B = 1,
+  same width; synthetic ``{name}_R{1,2,3}_i40`` replicas of a 300-residue
+  protein, which the crop cuts, and a 200-residue one, which it pads):
+  ``atlas_kernels`` (``blocked_attention_bwd`` in both views, at N = 129
+  and at its limit; the residue stage's core, ``tiled_attention`` and
+  ``rope_attention``; ``ipa_attention`` at L = 256 and 4;
+  ``residue_rows_block`` and the stage backwards as a whole);
+  ``sim_atlas`` (one velocity evaluation card-vs-CPU, Euler-100 and the
+  preset's dopri5 through ``InferenceEngine.sample``) and its trace;
+  ``train_atlas`` (``Trainer``: 2 warm-up and 10 timed steps, 20 fixed-batch
+  steps, a checkpoint round trip, launches per step) and its trace;
+  ``grad_cuda_vs_cpu_atlas`` (every gradient card-vs-CPU, the trunk cut to
+  1 layer); ``atlas_cli`` (``train`` with the ATLAS flags for 3 steps, then
+  a 250-frame ``sim_inference`` window from its checkpoint, parsed back).
 
 Each phase prints one JSON line; the kernel line (times, bounds, launches)
 comes second to last, and the last line is ``{"ok": true, "device": {...}}``.
@@ -231,6 +245,28 @@ def phase_kernels(dev):
     return out
 
 
+def sdpa_inputs(qkv, bk, bv, mask, Hc):
+    """For a library yardstick of the trunk's attention over (G, N, I, 3C)
+    qkv: the RoPE'd heads with the bias key, and the additive key mask."""
+    from mdgen_finetune_tpu_torch.models.rope import apply_rope
+
+    Bc, N, Lc, C3 = qkv.shape
+    Cc, S = C3 // 3, Bc * Lc
+    D = Cc // Hc
+
+    def heads(t, extra=None):
+        t = t.permute(0, 2, 1, 3).reshape(S, N, Hc, D)
+        if extra is not None:
+            t = torch.cat([t, extra.view(1, 1, Hc, D).expand(S, 1, Hc, D)], 1)
+        return t.transpose(1, 2)
+
+    q, k = apply_rope(heads(qkv[..., :Cc]), heads(qkv[..., Cc:2 * Cc], bk))
+    v = heads(qkv[..., 2 * Cc:], bv)
+    valid = torch.cat([mask.permute(0, 2, 1).reshape(S, N), torch.ones(S, 1, device=qkv.device)], 1)
+    am = ((valid - 1.0) * 1e9).to(qkv.dtype)[:, None, None, :]
+    return q.contiguous(), k.contiguous(), v.contiguous(), am
+
+
 def long_t_kernels(dev):
     """The kernels of the 4AA forward-simulation preset (T = 1000): the
     key-tiled frame-attention core against its plain twin at the path's
@@ -241,7 +277,6 @@ def long_t_kernels(dev):
 
     import torch.nn.functional as F
 
-    from mdgen_finetune_tpu_torch.models.rope import apply_rope
     from mdgen_finetune_tpu_torch.ops import adaln_mlp as AM
     from mdgen_finetune_tpu_torch.ops import residue_block as RB
     from mdgen_finetune_tpu_torch.ops import time_attention as TA
@@ -261,24 +296,6 @@ def long_t_kernels(dev):
         mask[0, N // 2:, -1] = 0   # masked frames
         mask[-1, 64:128] = 0       # a key tile of masked keys only
         return qkv, r(Cc), r(Cc), mask, Hc
-
-    def sdpa_inputs(qkv, bk, bv, mask, Hc):
-        """The RoPE'd heads with the bias key, and the additive key mask."""
-        Bc, N, Lc, C3 = qkv.shape
-        Cc, S = C3 // 3, Bc * Lc
-        D = Cc // Hc
-
-        def heads(t, extra=None):
-            t = t.permute(0, 2, 1, 3).reshape(S, N, Hc, D)
-            if extra is not None:
-                t = torch.cat([t, extra.view(1, 1, Hc, D).expand(S, 1, Hc, D)], 1)
-            return t.transpose(1, 2)
-
-        q, k = apply_rope(heads(qkv[..., :Cc]), heads(qkv[..., Cc:2 * Cc], bk))
-        v = heads(qkv[..., 2 * Cc:], bv)
-        valid = torch.cat([mask.permute(0, 2, 1).reshape(S, N), torch.ones(S, 1, device=dev)], 1)
-        am = ((valid - 1.0) * 1e9).to(bf)[:, None, None, :]
-        return q.contiguous(), k.contiguous(), v.contiguous(), am
 
     res = {}
     for name, shape in (("4aa_T1000", (B_SIM, T_SIM, L, H, C // H)), ("n2048_d64", (4, 2048, 1, 6, 64))):
@@ -479,7 +496,7 @@ def train_config(batch_size):
         workdir=str(SCRATCH), run_name="train")
 
 
-def phase_grad_across_devices(dev, cfg=None, phase="grad_cuda_vs_cpu"):
+def phase_grad_across_devices(dev, cfg=None, phase="grad_cuda_vs_cpu", pad=1, extra=None):
     """The loss and every parameter's gradient at full width (seeded random
     weights, the same t and x0, the batch featurized once on the CPU: the
     first residue's pre-omega torsion is degenerate geometry, which each
@@ -490,21 +507,24 @@ def phase_grad_across_devices(dev, cfg=None, phase="grad_cuda_vs_cpu"):
     norm is taken as at least 1e-3 of the largest gradient norm (IPA's key
     bias has an exactly-zero gradient that every run rounds differently).
     The flagship config at B = 2, T = 100 by default; ``cfg`` another
-    (its batch size and frames)."""
+    (its batch size, frames and crop; ``pad`` residues of the first element
+    are padding; ``extra`` goes into the line)."""
     from mdgen_finetune_tpu_torch.data.featurize import featurize_atom14_batch
     from mdgen_finetune_tpu_torch.training import Trainer
     from mdgen_finetune_tpu_torch.utils.weights import randomize_
 
     cfg = cfg or train_config(2)
-    Bn, Tn = cfg.train.batch_size, cfg.data.num_frames
-    atom14, seqres, mask = make_inputs(Bn, 7, "cpu")
-    batch = {"atom14": atom14[:, None].expand(Bn, Tn, L, 14, 3).contiguous()
-             + 0.3 * torch.randn(Bn, Tn, L, 14, 3, generator=torch.Generator().manual_seed(8)),
-             "seqres": seqres, "mask": mask}
+    Bn, Tn, Ln = cfg.train.batch_size, cfg.data.num_frames, cfg.data.crop
+    atom14, seqres, mask = make_inputs(Bn, 7, "cpu", length=Ln, pad=pad)
+    noise = 0.3 * torch.randn(Bn, Tn, Ln, 14, 3, generator=torch.Generator().manual_seed(8))
+    atom14 = atom14[:, None] + noise
+    if Ln > L:  # a protein shorter than the crop: its padding is zeros, as the dataset pads
+        atom14 = atom14 * mask[:, None, :, None, None]
+    batch = {"atom14": atom14, "seqres": seqres, "mask": mask}
     feats = featurize_atom14_batch(batch["atom14"], batch["seqres"], batch["mask"])
     gen = torch.Generator().manual_seed(9)
     t = torch.rand(Bn, generator=gen) * 0.9 + 0.05
-    x0 = torch.randn(Bn, Tn, L, cfg.latent_dim, generator=gen)
+    x0 = torch.randn(Bn, Tn, Ln, cfg.latent_dim, generator=gen)
     f32_cfg = cfg.replace(model=dataclasses.replace(cfg.model, use_bf16=False))
     res, secs = {}, {}
     for name, d, c in (("cuda", dev, cfg), ("cpu_f32", "cpu", f32_cfg), ("cpu_bf16", "cpu", cfg)):
@@ -528,7 +548,8 @@ def phase_grad_across_devices(dev, cfg=None, phase="grad_cuda_vs_cpu"):
     over = {k: (card[k], ref[k]) for k in card if not card[k] <= 2 * ref[k] + 0.01}
     worst = sorted(card, key=lambda k: card[k] - 2 * ref[k])[-5:]
     loss_rel = abs(res["cuda"][0] - lt) / abs(lt)
-    emit({"phase": phase, "batch": Bn, "T": Tn, "layers": cfg.model.num_layers,
+    emit({"phase": phase, "batch": Bn, "T": Tn, "L": Ln, "layers": cfg.model.num_layers,
+          **(extra or {}),
           "grad_checkpointing": cfg.model.grad_checkpointing, "seconds": secs,
           "loss_cuda": res["cuda"][0], "loss_cpu_f32": lt,
           "loss_cpu_bf16": res["cpu_bf16"][0], "loss_rel": loss_rel, "params": len(card),
@@ -648,7 +669,7 @@ def with_twins(fn):
     def ops(n):
         return importlib.import_module(f"mdgen_finetune_tpu_torch.ops.{n}")
 
-    names = TRAIN_WRAPPERS + ("tiled_attention",)
+    names = TRAIN_WRAPPERS + ("tiled_attention", "blocked_attention_bwd")
     twin_of = {n: getattr(ops(n), n + "_plain") for n in names}
     users = [ops(m) for m in ("fused_layer", "fused_layer_bwd", "residue_block",
                               "time_attention", "adaln_mlp")]
@@ -814,20 +835,26 @@ def random_engine(dev, cfg, seed):
     return InferenceEngine(cfg, model.state_dict(), device=dev), model.state_dict()
 
 
-def make_inputs(n, seed, dev):
-    """A frame-0 atom14 batch built by the port's own reconstruction."""
+def make_inputs(n, seed, dev, length=L, pad=1):
+    """A frame-0 atom14 batch of ``length`` residues built by the port's own
+    reconstruction; the first element's last ``pad`` residues are padding
+    (mask 0, aatype 0, zero coordinates, as the ATLAS dataset pads)."""
     from mdgen_finetune_tpu_torch.geometry import frames as G
     from mdgen_finetune_tpu_torch.geometry.rigid import Rigid
 
     g = torch.Generator().manual_seed(seed)
-    seqres = torch.randint(0, 20, (n, L), generator=g)
-    t7 = torch.randn(n, L, 7, generator=g)
-    t7[..., 4:] = torch.arange(L)[None, :, None] * 3.8 + t7[..., 4:]
-    ang = (torch.rand(n, L, 7, generator=g) * 2 - 1) * torch.pi
+    seqres = torch.randint(0, 20, (n, length), generator=g)
+    t7 = torch.randn(n, length, 7, generator=g)
+    t7[..., 4:] = torch.arange(length)[None, :, None] * 3.8 + t7[..., 4:]
+    ang = (torch.rand(n, length, 7, generator=g) * 2 - 1) * torch.pi
     tors = torch.stack([ang.sin(), ang.cos()], -1)
     atom14 = G.frames_torsions_to_atom14(Rigid.from_tensor_7(t7), tors, seqres)
-    mask = torch.ones(n, L)
-    mask[0, -1] = 0  # one padded residue
+    mask = torch.ones(n, length)
+    if pad:
+        mask[0, -pad:] = 0
+        if length > L:  # a protein shorter than the crop: its padding is zeros
+            seqres[0, -pad:] = 0
+            atom14[0, -pad:] = 0
     return atom14.to(dev), seqres.to(dev), mask.to(dev)
 
 
@@ -1310,28 +1337,28 @@ def phase_long_bwd_kernels(dev):
     return kern, stages
 
 
-def phase_train_1000(dev):
-    """The preset trained through ``Trainer`` at B = 8, T = 1000 from its
-    real init on synthetic "AAGG" / "GHKL" trajectories of 2,000 frames:
-    2 warm-up and 10 timed steps, 20 steps on one fixed batch (fixed t and
-    x0), a checkpoint round trip, and the launches of every kernel."""
+def train_cell(dev, phase, cfg, split, batch_size, pairs, bound_flops, extra):
+    """A config trained through ``Trainer`` from its real init on the
+    synthetic split: 2 warm-up and 10 timed steps, 20 steps on one fixed
+    batch (fixed t and x0), a checkpoint round trip, and the launches of the
+    kernel wrappers ``pairs`` (module, name). Emits the phase line (with
+    ``extra``) and fails on non-finite numbers, a loss that does not fall, a
+    changed checkpoint or a plain twin on the card (the caller checks the
+    launches). Returns (launches, launches per step, (trainer, state, batch,
+    generator))."""
     import numpy as np
 
     from mdgen_finetune_tpu_torch.data.dataset import MDGenDataset, make_batch_iterator
-    from mdgen_finetune_tpu_torch.data.synthetic import make_synthetic_dataset
     from mdgen_finetune_tpu_torch.training import Trainer
 
-    cfg = train_1000_config(B_SIM)
-    split = make_synthetic_dataset(cfg.data.data_dir, ["AAGG", "GHKL"], num_frames=2 * T_SIM,
-                                   suffix=cfg.data.suffix)
-    it = make_batch_iterator(MDGenDataset(cfg, split), B_SIM, seed=0)
+    it = make_batch_iterator(MDGenDataset(cfg, split), batch_size, seed=0)
     batches = [{k: torch.as_tensor(np.asarray(v), device=dev) for k, v in next(it).items()
                 if k != "name"} for _ in range(12)]
     it.close()
     trainer = Trainer(cfg, device=dev)
     state = trainer.init_state(0)
     gen = torch.Generator(device=dev).manual_seed(3)
-    wrappers, twins = _counters(WRAPPERS_1000)
+    wrappers, twins = _counters(pairs)
     for fn in wrappers:
         fn.launches = 0
     for fn in twins:
@@ -1371,32 +1398,55 @@ def phase_train_1000(dev):
     losses = [float(m["loss"]) for m in metrics]
     norms = [float(m["grad_norm"]) for m in metrics]
     first5, last5 = sum(fixed[:5]) / 5, sum(fixed[-5:]) / 5
-    # the least work of a step: the trunk's products three times (forward,
-    # data and weight gradients) and its frame attention 3.5 times (forward
-    # 2 products, backward 5); no recompute, encoder and head left out
-    M = B_SIM * T_SIM * L
-    products = NL * (2.0 * M * C * C * 16 + 4.0 * M * (L + 1) * C)
-    attention = NL * 4.0 * B_SIM * L * H * T_SIM * (T_SIM + 1) * (C // H)
-    flops = 3 * products + 3.5 * attention
-    emit({"phase": "train_1000", "B": B_SIM, "T": T_SIM, "L": L, "C": C, "layers": NL,
-          "dtype": "bf16", "grad_checkpointing": True, "ms_per_step": secs * 1e3,
-          "bound_ms_per_step": flops / PEAK_BF16_FLOPS * 1e3, "flops_per_step": flops,
-          "trajectories_per_s": B_SIM / secs, "frames_per_s": B_SIM * T_SIM / secs,
+    T_, L_ = cfg.data.num_frames, cfg.data.crop
+    emit({"phase": phase, "B": batch_size, "T": T_, "L": L_, "C": C,
+          "layers": cfg.model.num_layers, "dtype": "bf16",
+          "grad_checkpointing": cfg.model.grad_checkpointing, "ms_per_step": secs * 1e3,
+          "bound_ms_per_step": bound_flops / PEAK_BF16_FLOPS * 1e3, "flops_per_step": bound_flops,
+          "trajectories_per_s": batch_size / secs, "frames_per_s": batch_size * T_ / secs,
           "peak_memory_gb": peak_gb, "losses": losses, "grad_norms": norms,
           "fixed_batch_first5": first5, "fixed_batch_last5": last5,
           "checkpoint_round_trip": ckpt_ok, "launches_per_step": per_step,
-          "launches": launches, "plain_calls_on_card": twin_calls})
+          "launches": launches, "plain_calls_on_card": twin_calls, **extra})
     if not all(np.isfinite(losses + norms + fixed)):
-        raise AssertionError("train_1000: non-finite loss or gradient norm")
+        raise AssertionError(f"{phase}: non-finite loss or gradient norm")
     if not last5 < first5:
-        raise AssertionError(f"train_1000: fixed-batch loss did not fall: {first5} -> {last5}")
+        raise AssertionError(f"{phase}: fixed-batch loss did not fall: {first5} -> {last5}")
     if not ckpt_ok:
-        raise AssertionError("train_1000: checkpoint round trip changed the state")
+        raise AssertionError(f"{phase}: checkpoint round trip changed the state")
+    if any(twin_calls.values()):
+        raise AssertionError(f"{phase}: plain twins ran on the card: {twin_calls}")
+    return launches, per_step, (trainer, state, batches[0], gen)
+
+
+def step_flops(Bc, Tc, Lc, layers=NL):
+    """The trunk's products (qkv, out and the MLP of both stages: 16 C^2 per
+    row) and its two attention cores (4 N (N+1) D per sequence and head), for
+    one forward: ``(products, attention)``."""
+    M = Bc * Tc * Lc
+    products = layers * 2.0 * M * C * C * 16
+    attention = layers * 4.0 * H * (C // H) * (Bc * Tc * Lc * (Lc + 1) + Bc * Lc * Tc * (Tc + 1))
+    return products, attention
+
+
+def phase_train_1000(dev):
+    """The preset trained through ``Trainer`` at B = 8, T = 1000 from its
+    real init on synthetic "AAGG" / "GHKL" trajectories of 2,000 frames
+    (``train_cell``). The bound counts the trunk's products three times
+    (forward, data and weight gradients) and its attention 3.5 times
+    (forward 2 products, backward 5): no recompute, encoder and head left
+    out."""
+    from mdgen_finetune_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    cfg = train_1000_config(B_SIM)
+    split = make_synthetic_dataset(cfg.data.data_dir, ["AAGG", "GHKL"], num_frames=2 * T_SIM,
+                                   suffix=cfg.data.suffix)
+    products, attention = step_flops(B_SIM, T_SIM, L)
+    launches, per_step, run = train_cell(dev, "train_1000", cfg, split, B_SIM, WRAPPERS_1000,
+                                         3 * products + 3.5 * attention, {})
     if min(per_step.values()) <= 0:
         raise AssertionError(f"train_1000: a kernel of the path never launched: {per_step}")
-    if any(twin_calls.values()):
-        raise AssertionError(f"train_1000: plain twins ran on the card: {twin_calls}")
-    return launches, per_step, (trainer, state, batches[0], gen)
+    return launches, per_step, run
 
 
 def phase_train_cli(dev):
@@ -1443,15 +1493,442 @@ def phase_train_cli(dev):
         raise AssertionError(f"train_cli: sim_inference wrote {len(models)} models")
 
 
+# ---------------------------------------------------------------------------
+# the ATLAS crop-256 preset (config.preset_atlas)
+# ---------------------------------------------------------------------------
+
+L_ATLAS, T_ATLAS, B_ATLAS = 256, 250, 1  # crop 256, 250 frames, batch 1
+ATLAS_PROTEINS = (("atlas_300", 300), ("atlas_200", 200))  # cropped; zero-padded
+ATLAS_PAD = L_ATLAS - 200  # the 200-residue protein's padding at crop 256
+
+
+def atlas_config(method="dopri5", steps=None, layers=None):
+    """The ATLAS preset (``preset_atlas``: crop 256, 250 frames, batch 1,
+    suffix _i40, sim_condition) at full width: 5 x 384, 16 heads of D = 24,
+    prepend-IPA 4 x 32, abs_pos_emb, bf16; Adam lr 1e-4, clip 1.0, EMA
+    0.999 on the synthetic replicas of ``atlas_data``."""
+    from mdgen_finetune_tpu_torch.config import (ModelConfig, TrainConfig, TransportConfig,
+                                                 preset_atlas)
+
+    cfg = preset_atlas(
+        model=ModelConfig(num_layers=layers or NL, embed_dim=C, mha_heads=H, prepend_ipa=True,
+                          abs_pos_emb=True, use_bf16=True),
+        transport=TransportConfig(sampling_method=method, inference_steps=steps or STEPS),
+        train=TrainConfig(batch_size=B_ATLAS, lr=1e-4, grad_clip=1.0, ema=True, ema_decay=0.999),
+        workdir=str(SCRATCH), run_name="atlas")
+    return cfg.replace(data=dataclasses.replace(cfg.data, data_dir=str(SCRATCH / "atlas_data"),
+                                                num_frames=T_ATLAS, crop=L_ATLAS))
+
+
+def atlas_data():
+    """Synthetic trajectories in the ATLAS layout (``{name}_R{1,2,3}_i40.npy``,
+    300 frames each; no ATLAS dataset is in the repository): a protein of
+    300 residues, which the crop cuts to 256, listed first (``sim_inference``
+    samples the first), and one of 200, which it pads. Written once."""
+    import numpy as np
+
+    from mdgen_finetune_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    d = SCRATCH / "atlas_data"
+    if not (d / "split.csv").exists():
+        rng = np.random.default_rng(61)
+        aa = list("ACDEFGHIKLMNPQRSTVWY")
+        prots = [(name, "".join(rng.choice(aa, n))) for name, n in ATLAS_PROTEINS]
+        make_synthetic_dataset(str(d), prots, num_frames=300, suffix="_i40", replicas=(1, 2, 3))
+    return d, str(d / "split.csv")
+
+
+def phase_atlas_kernels(dev):
+    """The ATLAS path's kernels against their plain twins (f32 on the same
+    inputs) at its shapes: ``blocked_attention_bwd`` (row j) in the residue
+    view (250 sequences of N = 256), the frame view (256 sequences of
+    N = 250), at N = 129 and at its limit; ``tiled_attention`` and
+    ``rope_attention`` as the residue stage's core (the route keeps JAX's
+    gate, tiled above MAX_L = 8; both timed); ``ipa_attention`` (row c) at
+    L = 256 over the 100-point t grid of one Euler-100 sample, and at L = 4;
+    then ``residue_rows_block`` (row 7) and the whole stage backward
+    (``attention_stage_bwd``, row 8) in both views under the composition
+    rule. The residues past 200 are padding (mask 0), as for a 200-residue
+    protein. Library: SDPA on the RoPE'd heads (forward; forward + backward
+    through autograd for the backward core); none for IPA."""
+    import math
+
+    import torch.nn.functional as F
+
+    from mdgen_finetune_tpu_torch.geometry.rigid import Rigid
+    from mdgen_finetune_tpu_torch.ops import blocked_attention_bwd as BA
+    from mdgen_finetune_tpu_torch.ops import fused_layer_bwd as FLB
+    from mdgen_finetune_tpu_torch.ops import time_attention as TA
+    from mdgen_finetune_tpu_torch.ops.ipa_attention import (
+        ipa_attention, ipa_attention_plain, proj_width)
+    from mdgen_finetune_tpu_torch.ops.rope_attention import rope_attention, rope_attention_plain
+    from mdgen_finetune_tpu_torch.ops.tiled_attention import tiled_attention
+
+    g = torch.Generator(device=dev).manual_seed(71)
+    bf, f32 = torch.bfloat16, torch.float32
+    D = C // H
+
+    def r(*s, sc=1.0, dtype=bf):
+        return (torch.randn(*s, generator=g, device=dev) * sc).to(dtype)
+
+    def qkv_case(view):
+        qkv = r(*view, 3 * C)
+        qkv[..., :C] *= 0.5 * D ** -0.5 * math.log2(math.e)  # the trunk's folded q scale
+        return qkv
+
+    Mrows = B_ATLAS * T_ATLAS * L_ATLAS
+    mask = torch.ones(B_ATLAS, T_ATLAS, L_ATLAS, device=dev)
+    mask[:, :, L_ATLAS - ATLAS_PAD:] = 0
+    rows, frames = (B_ATLAS * T_ATLAS, L_ATLAS, 1), (B_ATLAS, T_ATLAS, L_ATLAS)
+    bk, bv = r(C), r(C)
+    out = {}
+
+    # ---- blocked_attention_bwd ----
+    limit = BA.max_keys(D)
+    # dout of order 1 and, as in a real step, ~1e-6 (held to its own scale:
+    # the kernel's gradients must not underflow)
+    cases = {"rows_N256": (rows, 1.0), "frames_N250": (frames, 1.0), "N129": ((1, 129, 64), 1.0),
+             f"N{limit}_limit": ((1, limit, 64), 1.0), "rows_N256_dout1e-6": (rows, 1e-6)}
+    blocked = {}
+    for name, (view, dsc) in cases.items():
+        qkv, do = qkv_case(view), r(*view, C, sc=dsc)
+        mk = mask.view(view) if view in (rows, frames) else torch.ones(view, device=dev)
+        if view not in (rows, frames):
+            mk[0, view[1] // 2:, ::3] = 0  # masked keys
+        got = BA.blocked_attention_bwd(qkv, do, bk, bv, mk, num_heads=H)
+        ref = BA.blocked_attention_bwd_plain(qkv.float(), do.float(), bk.float(), bv.float(), mk,
+                                             num_heads=H)
+        own = [1.0 if dsc == 1.0 else b.abs().max().item() for b in ref]
+        errs = [check(f"blocked_attention_bwd[{name}].{n}", a.float() / s, b / s, 1e-2)
+                for n, a, b, s in zip(("dqkv", "dbk", "dbv"), got, ref, own)]
+        del ref
+        G_, N_, I_ = view
+        S_ = G_ * I_
+        entry = dict(shape=f"{S_} sequences x {H} heads, N = {N_} ({N_ + 1} keys), D = {D}",
+                     max_abs_err=max(e * s for (e, _), s in zip(errs, own)),
+                     tol={n: t * s for n, (_, t), s in zip(("dqkv", "dbk", "dbv"), errs, own)},
+                     smem_bytes=BA.smem_bytes(N_, D))
+        if dsc != 1.0:
+            entry["dout_scale"] = dsc
+        if view in (rows, frames) and dsc == 1.0:
+            q, k, v, am = sdpa_inputs(qkv, bk, bv, mk, H)
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            dsd = do.permute(0, 2, 1, 3).reshape(S_, N_, H, D).transpose(1, 2).contiguous()
+
+            def lib_fwd_bwd():
+                o = F.scaled_dot_product_attention(*leaves, attn_mask=am, scale=math.log(2))
+                return torch.autograd.grad(o, leaves, dsd)
+
+            entry.update(
+                ms=time_ms(lambda: BA.blocked_attention_bwd(qkv, do, bk, bv, mk, num_heads=H)),
+                plain_ms=time_ms(lambda: BA.blocked_attention_bwd_plain(qkv, do, bk, bv, mk,
+                                                                        num_heads=H), reps=5),
+                library_ms=time_ms(lib_fwd_bwd), library="SDPA forward + backward (autograd)",
+                # the least a backward that recomputes P does: q.k, dO.v, p^T.dO, ds^T.q, ds.k
+                bound=bound_ms(nbytes(qkv, do, mk, bk, bv) + qkv.numel() * 2,
+                               10.0 * S_ * H * N_ * (N_ + 1) * D))
+            del q, k, v, am, leaves, dsd
+        blocked[name] = entry
+    out["blocked_attention_bwd"] = dict(blocked["rows_N256"], frames_N250=blocked["frames_N250"],
+                                        N129=blocked["N129"], limit=blocked[f"N{limit}_limit"],
+                                        dout_1e6=blocked["rows_N256_dout1e-6"])
+
+    # ---- the residue stage's forward core at L = 256: tiled (the route) and rope ----
+    qkv = qkv_case(rows)
+    mk = mask.view(rows)
+    ref = rope_attention_plain(qkv.float(), bk.float(), bv.float(), mk, num_heads=H, base2=True)
+    e_t = check("tiled_attention[atlas_rows]", tiled_attention(qkv, bk, bv, mk, num_heads=H), ref,
+                1e-2)
+    e_r = check("rope_attention[atlas_rows]",
+                rope_attention(qkv, bk, bv, mk, num_heads=H, base2=True), ref, 1e-2)
+    del ref
+    q, k, v, am = sdpa_inputs(qkv, bk, bv, mk, H)
+    core = dict(shape=f"{rows[0]} sequences x {H} heads, {L_ATLAS} queries, {L_ATLAS + 1} keys, "
+                      f"D = {D}",
+                max_abs_err=e_t[0], tol=e_t[1], rope_max_abs_err=e_r[0],
+                ms=time_ms(lambda: tiled_attention(qkv, bk, bv, mk, num_heads=H)),
+                rope_attention_ms=time_ms(lambda: rope_attention(qkv, bk, bv, mk, num_heads=H,
+                                                                 base2=True)),
+                plain_ms=time_ms(lambda: rope_attention_plain(qkv, bk, bv, mk, num_heads=H,
+                                                              base2=True), reps=5),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=am, scale=math.log(2))),
+                bound=bound_ms(nbytes(qkv, bk, bv, mk) + qkv.numel() // 3 * 2,
+                               4.0 * rows[0] * H * L_ATLAS * (L_ATLAS + 1) * D))
+    out["residue_core_atlas"] = core
+    del q, k, v, am, qkv
+
+    # ---- ipa_attention: L = 256 over the Euler-100 t grid, and L = 4 ----
+    ipa = {}
+    for name, (Bn, Lc) in (("L256", (STEPS * B_ATLAS, L_ATLAS)), ("L4", (STEPS, 4))):
+        proj = r(Bn, Lc, proj_width(4, 32, 8, 8), dtype=f32)
+        t7 = r(Bn, Lc, 7, dtype=f32)
+        t7[..., 4:] *= 5
+        fr = Rigid.from_tensor_7(t7)
+        rot, trans = fr.rot.contiguous(), fr.trans.contiguous()
+        emask = torch.ones(Bn, Lc, device=dev)
+        emask[:, Lc - Lc * ATLAS_PAD // L_ATLAS:] = 0
+        hw = r(4, dtype=f32)
+        kw = dict(H=4, Ch=32, Pq=8, Pv=8)
+        got = ipa_attention(proj, rot, trans, emask, hw, **kw)
+        err = check(f"ipa_attention[{name}]", got, ipa_attention_plain(proj, rot, trans, emask, hw,
+                                                                       **kw), 1e-2)
+        ipa[name] = dict(
+            shape=f"{Bn} elements x 4 heads, L={Lc}, Ch=32, Pq=Pv=8", max_abs_err=err[0],
+            tol=err[1], ms=time_ms(lambda: ipa_attention(proj, rot, trans, emask, hw, **kw)),
+            plain_ms=time_ms(lambda: ipa_attention_plain(proj, rot, trans, emask, hw, **kw),
+                             reps=5),
+            library_ms=None,
+            bound=bound_ms(nbytes(proj, rot, trans, emask, hw) + got.numel() * 2,
+                           Lc * Lc * 4 * Bn * (2 * 32 + 8 * 3 * 3 + 2 * (32 + 8 * 3)),
+                           PEAK_F32_FLOPS))
+    out["ipa_attention"] = dict(ipa["L256"], L4=ipa["L4"])
+
+    # ---- row 7 (residue_rows_block) and row 8 (the stage backwards) as a whole ----
+    x, dout = r(Mrows, C), r(Mrows, C, dtype=f32)
+    mods = [r(B_ATLAS, C, sc=0.3) for _ in range(3)]
+    ws = [r(C, 3 * C, sc=C ** -0.5), r(3 * C, sc=0.1), r(C, C, sc=C ** -0.5), r(C, sc=0.1),
+          r(C), r(C)]
+    dims = dict(B=B_ATLAS, T=T_ATLAS, L=L_ATLAS, num_heads=H)
+    f_core = 4.0 * rows[0] * H * L_ATLAS * (L_ATLAS + 1) * D
+    stages = {}
+    errs = held_composite("residue_rows_block", lambda *a, **k: (TA.residue_rows_block(*a, **k),),
+                          lambda *a, **k: (TA.residue_rows_block_plain(*a, **k),),
+                          [x, *mods, *ws, mask], dims, ["out"])
+    stages["row7_residue_rows_block"] = dict(
+        rel_l2=errs["out"][0], tol=errs["out"][1],
+        ms=time_ms(lambda: TA.residue_rows_block(x, *mods, *ws, mask, **dims)),
+        plain_ms=time_ms(lambda: TA.residue_rows_block_plain(x, *mods, *ws, mask, **dims), reps=5),
+        library_ms=None,
+        bound=bound_ms(nbytes(x, mask, *mods, *ws) + Mrows * C * 2,
+                       2.0 * Mrows * C * 4 * C + f_core))
+    mod9 = r(B_ATLAS, 9 * C, sc=0.3)
+    names = ["dx", "dmod", "dwqkv", "dbqkv", "dwout", "dbout", "dbk", "dbv"]
+    for name, view, j in (("row8_rows_view", rows, 0), ("row8_frames_view", frames, 3)):
+        def op(X, dX, mod, *w, mask, view=view, j=j):
+            dmod = torch.zeros(mod.shape[0], 9 * C, device=dev)
+            dx, grads = FLB.attention_stage_bwd(X, dX, mod, j, w, mask, view, H, dmod,
+                                                short=False)
+            return (dx, dmod[:, j * C:(j + 3) * C], *grads)
+
+        def plain(*a, **k):
+            return with_twins(lambda: op(*a, **k))
+
+        n0 = BA.blocked_attention_bwd.launches
+        errs = held_composite(name, op, plain, [x, dout, mod9, *ws], dict(mask=mask), names)
+        if BA.blocked_attention_bwd.launches != n0 + 1:
+            raise AssertionError(f"{name}: the stage did not take blocked_attention_bwd")
+        worst = max(errs, key=lambda n: errs[n][0] - errs[n][1])
+        N_ = view[1]
+        stages[name] = dict(
+            rel_l2=errs[worst][0], tol=errs[worst][1], worst=worst, rel_l2_vs_tol=errs,
+            ms=time_ms(lambda: op(x, dout, mod9, *ws, mask=mask)),
+            plain_ms=with_twins(lambda: time_ms(lambda: op(x, dout, mod9, *ws, mask=mask),
+                                                reps=3)),
+            library_ms=None,
+            # qkv, out and their data and weight products (24 M C^2), the
+            # core's forward (2 products) and backward (5)
+            bound=bound_ms(nbytes(x, dout, mask, mod9, *ws) + Mrows * C * 4 + nbytes(*ws) * 2,
+                           24.0 * Mrows * C * C
+                           + 14.0 * (Mrows // N_) * H * N_ * (N_ + 1) * D))
+    emit({"phase": "atlas_kernels", "kernels": out, "stages": stages,
+          "rule": "stages: rel_l2(kernels) <= 2 * rel_l2(plain bf16) + 0.01 per output, "
+                  "truth: plain f32; kernels: max abs err <= 0.01 x max(1, max |plain f32|)"})
+    return out
+
+
+def atlas_launch_checks(name, launches, twin_calls, out, mask, want):
+    """Finite samples, ideal backbone bonds on the real residues, the plain
+    twins idle and the launches ``want`` (wrapper: count) exactly."""
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{name}: non-finite output")
+    n_ca, ca_c = bonds(out.cpu(), mask.cpu())
+    dev_nca, dev_cac = (n_ca - 1.458).abs().max().item(), (ca_c - 1.522).abs().max().item()
+    if dev_nca > 1e-2 or dev_cac > 1e-2:
+        raise AssertionError(f"{name}: backbone bonds off: N-CA {dev_nca}, CA-C {dev_cac}")
+    if any(twin_calls.values()):
+        raise AssertionError(f"{name}: plain twins ran on the card: {twin_calls}")
+    wrong = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+    if wrong:
+        raise AssertionError(f"{name}: launches (got, expected): {wrong}")
+    return dict(n_ca_mean=n_ca.mean().item(), ca_c_mean=ca_c.mean().item(),
+                n_ca_max_dev=dev_nca, ca_c_max_dev=dev_cac)
+
+
+def phase_sim_atlas(dev):
+    """The ATLAS preset sampled on the card (L = 256, T = 250, B = 1, a
+    200-residue protein padded to 256, seeded random weights): one velocity
+    evaluation on the card against the CPU in f32; ``InferenceEngine.sample``
+    with Euler-100 after a warm-up (frames/s); the preset's dopri5 (accepted
+    and rejected steps, evaluations); bonds and launches for both."""
+    from mdgen_finetune_tpu_torch.inference import InferenceEngine
+    from mdgen_finetune_tpu_torch.tasks import prep_batch
+
+    cfg = atlas_config("euler")
+    eng, sd = random_engine(dev, cfg, seed=73)
+    atom14, seqres, mask = make_inputs(B_ATLAS, 74, "cpu", length=L_ATLAS, pad=ATLAS_PAD)
+    wrappers, twins = fwd_counters()
+
+    def reset():
+        for fn in wrappers:
+            fn.launches = 0
+        for fn in twins:
+            fn.cuda_calls = 0
+
+    def read():
+        return ({fn.__name__: fn.launches for fn in wrappers},
+                {fn.__name__: fn.cuda_calls for fn in twins})
+
+    # one velocity evaluation, card against CPU (the batch featurized once)
+    cpu = InferenceEngine(cfg.replace(model=dataclasses.replace(cfg.model, use_bf16=False)), sd,
+                          device="cpu")
+    feats = cpu._expand_frame0(atom14, seqres, mask)
+    zs = torch.randn(B_ATLAS, T_ATLAS, L_ATLAS, cfg.latent_dim,
+                     generator=torch.Generator().manual_seed(75))
+    vel, secs_eval = {}, {}
+    for name, e in (("cuda", eng), ("cpu", cpu)):
+        d = e.device
+        kw = prep_batch(e.cfg, {k: v.to(d) for k, v in feats.items()})["model_kwargs"]
+        reset()
+        t0 = time.perf_counter()
+        v = e.model.forward_inference(zs.to(d), torch.full((1,), 0.4, device=d), kw["mask"],
+                                      start_frames=kw["start_frames"], x_cond=kw["x_cond"],
+                                      x_cond_mask=kw["x_cond_mask"], aatype=kw["aatype"])
+        vel[name] = v.float().cpu()
+        secs_eval[name] = time.perf_counter() - t0
+        if name == "cuda":
+            per_eval, _ = read()
+    del cpu
+    rel = ((vel["cuda"] - vel["cpu"]).norm() / vel["cpu"].norm()).item()
+    if not rel <= 5e-2 or not torch.isfinite(vel["cuda"]).all():
+        raise AssertionError(f"sim_atlas: card vs CPU velocity: relative L2 {rel} > 5e-2")
+    want_eval = {"tiled_attention": 2 * NL, "rope_attention": NL, "ipa_attention": NL}
+    if any(per_eval[k] != v for k, v in want_eval.items()):
+        raise AssertionError(f"sim_atlas: launches per velocity evaluation {per_eval}")
+
+    atom14, seqres, mask = atom14.to(dev), seqres.to(dev), mask.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(76)
+    batch = eng._expand_frame0(atom14, seqres, mask)
+    eng.sample(batch, gen)  # warm-up
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    out, _ = eng.sample(batch, gen)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, twin_calls = read()
+    assert out.shape == (B_ATLAS, T_ATLAS, L_ATLAS, 14, 3)
+    # Euler: the encoder runs once over the t grid, the trunk once per step
+    checks = atlas_launch_checks("sim_atlas", launches, twin_calls, out, mask,
+                                 {"tiled_attention": 2 * NL * STEPS, "rope_attention": NL,
+                                  "ipa_attention": NL})
+    products, attention = step_flops(B_ATLAS, T_ATLAS, L_ATLAS)
+    flops_step = products + attention + 2.0 * B_ATLAS * T_ATLAS * L_ATLAS * cfg.latent_dim * C * 2
+    e5 = InferenceEngine(atlas_config("dopri5"), sd, device=dev)
+    b1 = e5._expand_frame0(atom14, seqres, mask)
+    reset()
+    t0 = time.perf_counter()
+    o5, _ = e5.sample(b1, gen)
+    torch.cuda.synchronize()
+    s5 = time.perf_counter() - t0
+    l5, tc5 = read()
+    n = e5.last_counts["evals"]
+    dopri5 = dict(sample_s=s5, **e5.last_counts, launches=l5, **atlas_launch_checks(
+        "sim_atlas dopri5", l5, tc5, o5, mask,
+        {"tiled_attention": 2 * NL * n, "rope_attention": NL * n, "ipa_attention": NL * n}))
+    del e5
+    emit({"phase": "sim_atlas", "B": B_ATLAS, "T": T_ATLAS, "L": L_ATLAS, "C": C, "layers": NL,
+          "valid_residues": L_ATLAS - ATLAS_PAD, "dtype": "bf16",
+          "step_cuda_vs_cpu": {"rel_l2": rel, "tol": 5e-2,
+                               "velocity_norm_cpu": vel["cpu"].norm().item(),
+                               "seconds": secs_eval, "launches_per_eval": per_eval},
+          "euler_steps": STEPS, "sample_s": secs, "frames_per_s": B_ATLAS * T_ATLAS / secs,
+          "ms_per_step": secs / STEPS * 1e3,
+          "bound_ms_per_step": flops_step / PEAK_BF16_FLOPS * 1e3, "flops_per_step": flops_step,
+          "launches_per_sample": launches, "plain_calls_on_card": twin_calls, **checks,
+          "b1_dopri5": dopri5})
+    return launches, (eng, batch, gen)
+
+
+ATLAS_WRAPPERS = WRAPPERS_1000 + (("blocked_attention_bwd", "blocked_attention_bwd"),)
+
+
+def phase_train_atlas(dev):
+    """The ATLAS preset trained through ``Trainer`` at B = 1 (``train_cell``)
+    on the synthetic replicas; per step 10 launches of
+    ``blocked_attention_bwd`` (5 layers x 2 stages) and none of
+    ``rope_attention_bwd`` or the ``fused_attention`` kernels."""
+    _, split = atlas_data()
+    products, attention = step_flops(B_ATLAS, T_ATLAS, L_ATLAS)
+    launches, per_step, run = train_cell(dev, "train_atlas", atlas_config(), split, B_ATLAS,
+                                         ATLAS_WRAPPERS, 3 * products + 3.5 * attention,
+                                         {"valid_residues": "200 or 256 (the synthetic replicas)"})
+    want = {"blocked_attention_bwd": 2 * NL, "rope_attention_bwd": 0, "fused_attention_fwd": 0,
+            "fused_attention_bwd": 0, "tiled_attention": 4 * NL, "rope_attention": NL,
+            "ipa_attention": NL}
+    wrong = {k: (per_step[k], v) for k, v in want.items() if per_step[k] != v}
+    if wrong or min(per_step[k] for k in ("adaln_linear", "linear_bwd", "modln_bwd")) <= 0:
+        raise AssertionError(f"train_atlas: launches per step (got, expected): {wrong}, {per_step}")
+    return launches, per_step, run
+
+
+def phase_atlas_cli(dev):
+    """The ATLAS path through the CLIs on the card: ``train`` with
+    ``--atlas --crop 256 --num_frames 250 --batch_size 1 --prepend_ipa
+    --abs_pos_emb --sim_condition --suffix _i40`` for 3 steps on the
+    synthetic replicas, then ``sim_inference`` writes one 250-frame window
+    of the 300-residue protein (cropped to 256) from that checkpoint (the
+    CLI's default sampler, dopri5), parsed back."""
+    import numpy as np
+
+    from mdgen_finetune_tpu_torch.cli import sim_inference, train
+    from mdgen_finetune_tpu_torch.geometry.protein import from_pdb_models
+
+    data, split = atlas_data()
+    out = SCRATCH / "atlas_sim"
+    t0 = time.perf_counter()
+    state = train.main(["--atlas", "--crop", str(L_ATLAS), "--num_frames", str(T_ATLAS),
+                        "--batch_size", str(B_ATLAS), "--prepend_ipa", "--abs_pos_emb",
+                        "--sim_condition", "--suffix", "_i40", "--train_split", split,
+                        "--val_split", split, "--data_dir", str(data), "--epochs", "1",
+                        "--steps_per_epoch", "3", "--val_batches", "1", "--workdir",
+                        str(SCRATCH), "--run_name", "atlas_cli", "--device", str(dev)])
+    train_s = time.perf_counter() - t0
+    run = SCRATCH / "atlas_cli"
+    log = [json.loads(x) for x in (run / "log.jsonl").read_text().splitlines()]
+    ckpt = run / f"ckpt_{state.step}"
+    t0 = time.perf_counter()
+    sim_inference.main(["--sim_ckpt", str(ckpt), "--data_dir", str(data), "--split", split,
+                        "--out_dir", str(out), "--num_frames", str(T_ATLAS), "--num_rollouts",
+                        "1", "--suffix", "_i40", "--device", str(dev)])
+    sim_s = time.perf_counter() - t0
+    name = ATLAS_PROTEINS[0][0]
+    meta = json.loads((out / f"{name}_meta.json").read_text())
+    models = from_pdb_models(str(out / f"{name}.pdb"))
+    residues = sorted({len(a) for a, _ in models})
+    emit({"phase": "atlas_cli", "steps": state.step, "log": log, "train_cli_s": train_s,
+          "checkpoint": ckpt.name, "sim_meta": meta, "sim_cli_s": sim_s, "models": len(models),
+          "residues_per_model": residues, "pdb_bytes": (out / f"{name}.pdb").stat().st_size})
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.rmtree(run, ignore_errors=True)
+    vals = [v for m in log for v in m.values()]
+    if state.step != 3 or not any("val_loss" in m for m in log) or not np.isfinite(vals).all():
+        raise AssertionError(f"atlas_cli: {state.step} steps, log {log}")
+    if len(models) != T_ATLAS or residues != [L_ATLAS] or meta["frames"] != T_ATLAS:
+        raise AssertionError(f"atlas_cli: sim_inference wrote {len(models)} models of "
+                             f"{residues} residues")
+
+
 KERNEL_OF = (("tiled_attention", "tiled_attention"),
              ("fused_attention_fwd", "fused_attention_fwd"),
              ("fused_attention_d", "fused_attention_bwd"),
              ("resident_kernel", "adaln_linear"), ("pipelined_kernel", "adaln_linear"),
              ("tiled64_kernel", "adaln_linear"), ("rope_attention_bwd", "rope_attention_bwd"),
+             ("blocked_attention_bwd", "blocked_attention_bwd"),
              ("rope_attention", "rope_attention"), ("ipa_attention", "ipa_attention"),
              ("dgrad_kernel", "linear_bwd"), ("wgrad_kernel", "linear_bwd"),
              ("row_stats_kernel", "linear_bwd"), ("modln_bwd", "modln_bwd"),
-             ("colsum_kernel", "colsum (linear_bwd, modln_bwd, rope_attention_bwd)"))
+             ("colsum_kernel", "colsum (linear_bwd, modln_bwd, the attention backwards)"))
 
 
 def phase_trace(name, run):
@@ -1536,6 +2013,21 @@ def main():
     del trainer, state
     phase_train_cli(dev)
     phase_grad_across_devices(dev, train_1000_config(1), "grad_cuda_vs_cpu_1000")
+    atlas = phase_atlas_kernels(dev)
+    kernels["ipa_attention"]["atlas_L256"] = atlas["ipa_attention"]
+    kernels["ipa_attention"]["shape"] += f"; ATLAS (atlas_L256): {atlas['ipa_attention']['shape']}"
+    kernels["tiled_attention"]["atlas_residue_core"] = atlas["residue_core_atlas"]
+    kernels["blocked_attention_bwd"] = atlas["blocked_attention_bwd"]
+    atlas_sim_launches, (eng, batch, gen) = phase_sim_atlas(dev)
+    phase_trace("sim_atlas_trace", lambda: eng.sample(batch, gen))
+    del eng
+    atlas_launches, atlas_per_step, (trainer, state, tbatch, tgen) = phase_train_atlas(dev)
+    phase_trace("train_atlas_trace", lambda: trainer.train_step(state, tbatch, tgen))
+    del trainer, state
+    phase_grad_across_devices(dev, atlas_config(layers=1), "grad_cuda_vs_cpu_atlas", pad=ATLAS_PAD,
+                              extra={"cut": "trunk cut to 1 layer of 5 (the CPU pays for every "
+                                            "layer); full width, B = 1, T = 250, L = 256"})
+    phase_atlas_cli(dev)
     shutil.rmtree(SCRATCH, ignore_errors=True)
 
     bwd = "mdgen_finetune_tpu/ops/fused_layer_bwd.py:563 (_k3 :157, _k2 :323, _k1 :474)"
@@ -1559,18 +2051,25 @@ def main():
         "fused_attention_bwd": ("mdgen_finetune_tpu_torch/csrc/fused_attention_bwd.cu",
                                 "mdgen_finetune_tpu/ops/fused_attention.py:138 (_bwd_tpu, "
                                 "pallas_call :149, body _bwd_kernel :94)"),
+        "blocked_attention_bwd": ("mdgen_finetune_tpu_torch/csrc/blocked_attention_bwd.cu",
+                                  "mdgen_finetune_tpu/ops/blocked_block_bwd.py:53 (_bwd_kernel, "
+                                  "the body of time_block_bwd :298 / pallas_call :351 and "
+                                  "rows_block_bwd :380 / pallas_call :427)"),
     }
     line = []
     for name, k in kernels.items():
         src, rep = meta[name]
         # launches: the flagship sampler's main-path run for the forward
         # kernels (tiled_attention: the T = 1000 sampler's), the training
-        # path's run for the backward kernels, and per T = 1000 train step
-        # for the fused_attention kernels
+        # path's run for the backward kernels, the T = 1000 training run for
+        # the fused_attention kernels and the ATLAS training run for
+        # blocked_attention_bwd
         if name.startswith("fused_attention"):
             n_launch = launches_1000[name]
         elif name == "tiled_attention":
             n_launch = sim_launches[name]
+        elif name == "blocked_attention_bwd":
+            n_launch = atlas_launches[name]
         else:
             n_launch = launches.get(name, train_launches.get(name))
         line.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -1578,6 +2077,8 @@ def main():
                      "train_launches": train_launches.get(name, 0),
                      "sim_1000_launches": sim_launches.get(name, 0),
                      "train_1000_launches_per_step": per_step_1000.get(name, 0),
+                     "sim_atlas_launches": atlas_sim_launches.get(name, 0),
+                     "train_atlas_launches_per_step": atlas_per_step.get(name, 0),
                      "max_abs_err": k["max_abs_err"], "tol": k["tol"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
                      "bound_by": k["bound"][1], "library_ms": k["library_ms"],

@@ -20,12 +20,24 @@
 // inverse frame map of the point outputs; norms sqrt(|p|^2 + 1e-8). All the
 // point math is f32. Output features bf16, ordered scalars | x | y | z | norms.
 //
-// What bounds it on the H100: at L = 4 each (b, head) reads ~2 KB and does a
-// few thousand FLOP; the call is memory-bound (proj in, features out, ~3.3 KB
-// per row at the flagship widths). Design: one block of 64 threads per
-// (element, head); the block stages its L residues' scalars, lifted points
-// and frames in shared memory, forms the L x L logits there, and writes the
-// features once. No intermediate goes back to device memory.
+// Two forms, chosen by the wrapper (ops/ipa_attention.py, RESIDENT_MAX_L):
+//   - resident (small L, the 4AA peptides at L = 4): one block of 64 threads
+//     per (element, head) stages its L residues' scalars, lifted points and
+//     frames in shared memory, forms the L x L logits there, and writes the
+//     features once. At L = 4 each (b, head) reads ~2 KB and does a few
+//     thousand FLOP; the call is memory-bound (proj in, features out,
+//     ~3.3 KB per row at the flagship widths). Its shared memory holds the
+//     L x L logits, so it fits only up to L ~ 167 at Ch = 32, Pq = Pv = 8.
+//   - tiled (large L, ATLAS at L = 256): one block of 64 threads per
+//     (element, head, 64-query tile), one query per thread, its scalars and
+//     lifted points in registers (Ch = 32, Pq = Pv = 8, the model's widths,
+//     as template arguments). The keys stream through shared memory in
+//     tiles of 64 (scalars, points lifted as they are staged, mask); each
+//     tile's logits go to a per-thread row of shared memory, and the
+//     natural-exp softmax keeps a running max and rescales its sums once per
+//     tile, as csrc/fused_attention.cu does. No buffer grows with L. At
+//     L = 256 each pair costs ~170 f32 FLOP (0.5 GFLOP per 100 elements):
+//     f32 arithmetic, not bytes, bounds it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -143,19 +155,166 @@ __global__ void __launch_bounds__(THREADS) ipa_attention_kernel(
   }
 }
 
+// ---- the tiled form ----
+constexpr int QT = 64;  // queries per block, one per thread
+constexpr int KT = 64;  // keys per shared-memory tile
+
+template <int CH, int PQ, int PV>
+__global__ void __launch_bounds__(QT) ipa_attention_tiled_kernel(
+    const float* __restrict__ proj, long long ld, const float* __restrict__ rot,
+    const float* __restrict__ trans, const float* __restrict__ mask,
+    const float* __restrict__ head_weights, bf16* __restrict__ feats, long long ldf,
+    int L, int H, int qtiles) {
+  __shared__ float Ks[KT][CH], Vs[KT][CH], KP[KT][PQ * 3], VP[KT][PV * 3], Mk[KT];
+  __shared__ float S[QT][KT + 1];  // this tile's logits, one row per query thread
+  const int tid = threadIdx.x;
+  const int qt = blockIdx.x % qtiles, h = (blockIdx.x / qtiles) % H;
+  const long long b = blockIdx.x / qtiles / H;
+  const long long row0 = b * L;
+  const int HCh = H * CH, HPq = H * PQ, HPv = H * PV;
+  const long long qpts = 3LL * HCh, kpts = qpts + 3LL * HPq, vpts = kpts + 3LL * HPq;
+
+  const int i = qt * QT + tid;  // this thread's query
+  const bool live = i < L;
+  float q[CH], qp[PQ * 3], o[CH], op[PV * 3];
+  float mq = 0.f;
+#pragma unroll
+  for (int c = 0; c < CH; ++c) o[c] = 0.f;
+#pragma unroll
+  for (int e = 0; e < PV * 3; ++e) op[e] = 0.f;
+  if (live) {
+    const float* src = proj + (row0 + i) * ld;
+    const float* r = rot + (row0 + i) * 9;
+    const float* t = trans + (row0 + i) * 3;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) q[c] = src[h * CH + c];
+#pragma unroll
+    for (int p = 0; p < PQ; ++p) {
+      const float x = src[qpts + h * PQ + p], y = src[qpts + HPq + h * PQ + p],
+                  z = src[qpts + 2 * HPq + h * PQ + p];
+      qp[p * 3 + 0] = r[0] * x + r[1] * y + r[2] * z + t[0];
+      qp[p * 3 + 1] = r[3] * x + r[4] * y + r[5] * z + t[1];
+      qp[p * 3 + 2] = r[6] * x + r[7] * y + r[8] * z + t[2];
+    }
+    mq = mask[row0 + i];
+  } else {
+#pragma unroll
+    for (int c = 0; c < CH; ++c) q[c] = 0.f;
+#pragma unroll
+    for (int e = 0; e < PQ * 3; ++e) qp[e] = 0.f;
+  }
+  const float hw_raw = head_weights[h];
+  const float softplus = hw_raw > 20.f ? hw_raw : log1pf(expf(hw_raw));
+  const float hw = softplus * sqrtf(1.0f / (3.0f * (PQ * 9.0f / 2.0f))) * -0.5f;
+  const float c_sc = sqrtf(1.0f / (3.0f * CH));
+  float m = -3.0e38f, l = 0.f;  // running max and sum of this query's weights
+
+  for (int k0 = 0; k0 < L; k0 += KT) {
+    const int nk = min(KT, L - k0);
+    __syncthreads();  // every thread is done with the previous tile
+    for (int e = tid; e < nk * CH; e += QT) {
+      const int j = e / CH, c = e % CH;
+      const float* src = proj + (row0 + k0 + j) * ld + h * CH + c;
+      Ks[j][c] = src[HCh];
+      Vs[j][c] = src[2 * HCh];
+    }
+    for (int e = tid; e < nk * (PQ + PV); e += QT) {
+      const int j = e / (PQ + PV), p = e % (PQ + PV);
+      const long long rj = row0 + k0 + j;
+      const float* src = proj + rj * ld;
+      const bool is_k = p < PQ;
+      const int pp = is_k ? p : p - PQ, HP = is_k ? HPq : HPv, P = is_k ? PQ : PV;
+      const long long base = (is_k ? kpts : vpts) + h * P + pp;
+      const float x = src[base], y = src[base + HP], z = src[base + 2 * HP];
+      const float* r = rot + rj * 9;
+      const float* t = trans + rj * 3;
+      float* dst = is_k ? &KP[j][pp * 3] : &VP[j][pp * 3];
+      dst[0] = r[0] * x + r[1] * y + r[2] * z + t[0];
+      dst[1] = r[3] * x + r[4] * y + r[5] * z + t[1];
+      dst[2] = r[6] * x + r[7] * y + r[8] * z + t[2];
+    }
+    for (int j = tid; j < nk; j += QT) Mk[j] = mask[row0 + k0 + j];
+    __syncthreads();
+    if (!live) continue;
+    float mt = -3.0e38f;
+    for (int j = 0; j < nk; ++j) {
+      float s = 0.f, d2 = 0.f;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) s += q[c] * Ks[j][c];
+#pragma unroll
+      for (int e = 0; e < PQ * 3; ++e) {
+        const float d = qp[e] - KP[j][e];
+        d2 += d * d;
+      }
+      const float a = s * c_sc + d2 * hw + 1e5f * (mq * Mk[j] - 1.0f);
+      S[tid][j] = a;
+      mt = fmaxf(mt, a);
+    }
+    const float mn = fmaxf(m, mt), scale = expf(m - mn);
+    l *= scale;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) o[c] *= scale;
+#pragma unroll
+    for (int e = 0; e < PV * 3; ++e) op[e] *= scale;
+    for (int j = 0; j < nk; ++j) {
+      const float p = expf(S[tid][j] - mn);
+      l += p;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) o[c] += p * Vs[j][c];
+#pragma unroll
+      for (int e = 0; e < PV * 3; ++e) op[e] += p * VP[j][e];
+    }
+    m = mn;
+  }
+  if (!live) return;
+  const float inv = 1.f / l;
+  bf16* f = feats + (row0 + i) * ldf;
+#pragma unroll
+  for (int c = 0; c < CH; ++c) f[h * CH + c] = __float2bfloat16(o[c] * inv);
+  const float* r = rot + (row0 + i) * 9;
+  const float* t = trans + (row0 + i) * 3;
+#pragma unroll
+  for (int p = 0; p < PV; ++p) {
+    const float dx = op[p * 3] * inv - t[0], dy = op[p * 3 + 1] * inv - t[1],
+                dz = op[p * 3 + 2] * inv - t[2];
+    const float lx = r[0] * dx + r[3] * dy + r[6] * dz;
+    const float ly = r[1] * dx + r[4] * dy + r[7] * dz;
+    const float lz = r[2] * dx + r[5] * dy + r[8] * dz;
+    bf16* fp = f + HCh + h * PV + p;
+    fp[0] = __float2bfloat16(lx);
+    fp[HPv] = __float2bfloat16(ly);
+    fp[2 * HPv] = __float2bfloat16(lz);
+    fp[3 * HPv] = __float2bfloat16(sqrtf(lx * lx + ly * ly + lz * lz + 1e-8f));
+  }
+}
+
 }  // namespace
 
+// tiled != 0: the key-tiled form (Ch = 32, Pq = Pv = 8 only); else the
+// resident form, whose L x L logits must fit one block's shared memory
 extern "C" int ipa_attention(const void* proj, long long ld, const void* rot, const void* trans,
                              const void* mask, const void* head_weights, void* feats,
                              long long ldf, int B, int L, int H, int Ch, int Pq, int Pv,
-                             void* stream) {
+                             int tiled, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tiled) {
+    if (Ch != 32 || Pq != 8 || Pv != 8) return (int)cudaErrorInvalidValue;
+    const int qtiles = (L + QT - 1) / QT;
+    const long long blocks = (long long)B * H * qtiles;
+    if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    ipa_attention_tiled_kernel<32, 8, 8><<<(unsigned)blocks, QT, 0, s>>>(
+        static_cast<const float*>(proj), ld, static_cast<const float*>(rot),
+        static_cast<const float*>(trans), static_cast<const float*>(mask),
+        static_cast<const float*>(head_weights), static_cast<bf16*>(feats), ldf, L, H, qtiles);
+    return (int)cudaGetLastError();
+  }
   size_t smem = sizeof(float) * ((size_t)L * 13 + 3 * L * Ch + 3 * L * (2 * Pq + Pv) + L * L);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(ipa_attention_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  ipa_attention_kernel<<<(unsigned)B * H, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  ipa_attention_kernel<<<(unsigned)B * H, THREADS, smem, s>>>(
       static_cast<const float*>(proj), ld, static_cast<const float*>(rot),
       static_cast<const float*>(trans), static_cast<const float*>(mask),
       static_cast<const float*>(head_weights), static_cast<bf16*>(feats), ldf, B, L, H, Ch,

@@ -55,9 +55,11 @@ def synthesize_trajectory(seqres: str, num_frames: int, seed: int = 0,
 
 
 def make_synthetic_dataset(out_dir: str, peptides: list, num_frames: int = 200,
-                           suffix: str = "", seed: int = 0) -> str:
+                           suffix: str = "", seed: int = 0, replicas: tuple = ()) -> str:
     """Writes per-peptide .npy files and a split CSV; returns the CSV path.
-    ``peptides``: sequences, or (name, seqres) pairs."""
+    ``peptides``: sequences, or (name, seqres) pairs. ``replicas``: the
+    ATLAS layout instead, one trajectory per replica r as
+    ``{name}_R{r}{suffix}.npy`` (each from its own seed)."""
     os.makedirs(out_dir, exist_ok=True)
     csv_path = os.path.join(out_dir, "split.csv")
     with open(csv_path, "w") as f:
@@ -65,6 +67,8 @@ def make_synthetic_dataset(out_dir: str, peptides: list, num_frames: int = 200,
         for i, pep in enumerate(peptides):
             name, seq = pep if isinstance(pep, tuple) else (pep, pep)
             f.write(f"{name},{seq}\n")
-            np.save(os.path.join(out_dir, f"{name}{suffix}.npy"),
-                    synthesize_trajectory(seq, num_frames, seed=seed + i))
+            files = [(f"{name}_R{r}", 100 * r) for r in replicas] or [(name, 0)]
+            for full, offset in files:
+                np.save(os.path.join(out_dir, f"{full}{suffix}.npy"),
+                        synthesize_trajectory(seq, num_frames, seed=seed + i + offset))
     return csv_path

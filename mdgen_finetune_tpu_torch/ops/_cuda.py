@@ -27,7 +27,8 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 KERNELS = ("adaln_linear", "rope_attention", "ipa_attention", "linear_bwd", "modln_bwd",
-           "rope_attention_bwd", "tiled_attention", "fused_attention", "fused_attention_bwd")
+           "rope_attention_bwd", "tiled_attention", "fused_attention", "fused_attention_bwd",
+           "blocked_attention_bwd")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -13,6 +13,7 @@ sequence of the hand-written kernels (the JAX package's long-T path,
     residue_block          stage 1: attention over residues
       qkv_l = adaln_linear(LN + modulate); att = rope_attention(B*T, L, 1)
       x    += g_l * (att @ out_l)          (adaln_linear, gate_res, in place)
+      (residue_rows_block at L > MAX_L = 8: the same with tiled_attention)
     time_attention_block   stage 2: attention over frames
       qkv_t = adaln_linear(LN + modulate)
       att   = rope_attention(B, T, L) at T <= 256, tiled_attention above
@@ -20,11 +21,11 @@ sequence of the hand-written kernels (the JAX package's long-T path,
     adaln_mlp              stage 3: MLP
       hid   = adaln_linear(LN + modulate, GELU); x += g_m * (hid @ w2)
 
-So the flagship (T = 100) and the 4AA forward-simulation preset (T = 1000)
-run one code path. On CPU tensors every op runs its plain PyTorch version,
-so the same code is the plain twin of the JAX package's ``_layer_xla`` /
-``_embed_xla`` / ``_trunk_final_xla`` chain. Fusing the layer into fewer
-launches is later work (ROADMAP).
+So the flagship (T = 100), the 4AA forward-simulation preset (T = 1000)
+and ATLAS (L = 256, T = 250) run one code path. On CPU tensors every op
+runs its plain PyTorch version, so the same code is the plain twin of the
+JAX package's ``_layer_xla`` / ``_embed_xla`` / ``_trunk_final_xla`` chain.
+Fusing the layer into fewer launches is later work (ROADMAP).
 
 Layouts: the trunk activation is (B, T, L, C) contiguous (no frame padding);
 ``mods`` holds every layer's 9-way AdaLN rows, (nb, NL*9*C) with nb = B or 1
@@ -39,7 +40,7 @@ from .adaln_linear import adaln_linear, adaln_linear_math
 from .adaln_mlp import adaln_mlp
 from .fused_layer_bwd import fused_layer_bwd
 from .residue_block import residue_block
-from .time_attention import time_attention_block
+from .time_attention import MAX_L, residue_rows_block, time_attention_block
 
 # per-layer weight names (LatentMDGen.make_trunk_pack)
 LAYER_KEYS = ("wqkv_l", "bqkv_l", "wout_l", "bout_l", "wqkv_t", "bqkv_t", "wout_t",
@@ -47,9 +48,10 @@ LAYER_KEYS = ("wqkv_l", "bqkv_l", "wout_l", "bout_l", "wqkv_t", "bqkv_t", "wout_
 
 
 def trunk_layer(x, mod, w, mask, *, B: int, T: int, L: int, num_heads: int, out=None):
-    """One layer on the (B*T*L, C) activation ``x``: ``residue_block`` ->
-    ``time_attention_block`` -> ``adaln_mlp``, as the JAX package's
-    ``_layer_kernels`` (:906-952). ``mod`` (nb, 9C): shift/scale/gate rows
+    """One layer on the (B*T*L, C) activation ``x``: ``residue_block``
+    (``residue_rows_block`` at L > MAX_L) -> ``time_attention_block`` ->
+    ``adaln_mlp``, as the JAX package's ``_layer_kernels`` (:906-952) routes
+    them. ``mod`` (nb, 9C): shift/scale/gate rows
     for the three stages. Each stage's residual update writes into ``out``
     (``out=x``: in place) or, with ``out=None``, into a new tensor, so that
     the stage inputs survive. Returns the inputs of the frame and MLP stages
@@ -60,8 +62,9 @@ def trunk_layer(x, mod, w, mask, *, B: int, T: int, L: int, num_heads: int, out=
         return mod[:, j * C:(j + 1) * C]
 
     dims = dict(B=B, T=T, L=L, num_heads=num_heads, out=out)
-    x1 = residue_block(x, m(0), m(1), m(2), w["wqkv_l"], w["bqkv_l"], w["wout_l"], w["bout_l"],
-                       w["bkl"], w["bvl"], mask, **dims)
+    stage1 = residue_rows_block if L > MAX_L else residue_block
+    x1 = stage1(x, m(0), m(1), m(2), w["wqkv_l"], w["bqkv_l"], w["wout_l"], w["bout_l"],
+                w["bkl"], w["bvl"], mask, **dims)
     x2 = time_attention_block(x1, m(3), m(4), m(5), w["wqkv_t"], w["bqkv_t"], w["wout_t"],
                               w["bout_t"], w["bkt"], w["bvt"], mask, **dims)
     y = adaln_mlp(x2, m(6), m(7), m(8), w["w1"], w["b1"], w["w2"], w["b2"], out=out)

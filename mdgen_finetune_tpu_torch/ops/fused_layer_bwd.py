@@ -16,19 +16,28 @@ X1 or X2) and nothing else of the forward is kept:
       dW1, db1 = linear_bwd wgrad (LN+mod(X2), da)
       dh       = linear_bwd dgrad (da, w1)
       dX2, (dsh, dsc, dg) = modln_bwd(X2, dh, dOUT, y)
-    frame stage at T > 128 (input X1): ``ops/time_attention.py::
-      time_attention_block_bwd``, the same steps as below with the
-      ``fused_attention`` kernels as its attention core
-    attention stage (frame at T <= 128: input X1, view (B, T, L); residue:
-    input x_in, view (B*T, L, 1)):
-      qkv, att = adaln_linear + rope_attention (recompute)
+    attention stage (frame: input X1, view (B, T, L), N = T; residue:
+    input x_in, view (B*T, L, 1), N = L):
+      qkv, att = adaln_linear + the forward's core (recompute: rope_attention,
+                 or tiled_attention where the forward took it, so the y
+                 behind dg is the forward's own)
       y        = adaln_linear(att @ wout + bout, f32)
       dWout, dbout = linear_bwd wgrad (att, dX * g)
       datt         = linear_bwd dgrad (dX * g, wout)
-      dqkv, dbk, dbv = rope_attention_bwd(qkv, datt)
+      dqkv, dbk, dbv = the attention backward core (qkv, datt)
       dWqkv, dbqkv = linear_bwd wgrad (LN+mod(X), dqkv)
       dh           = linear_bwd dgrad (dqkv, wqkv)
       dX_in, (dsh, dsc, dg) = modln_bwd(X, dh, dX, y)
+
+The attention backward core is routed per stage by N, as the JAX package
+routes its stage backwards (``_k1`` / ``_k2`` of ``_layer_kernels``'
+training form, row 8's ``rows_block_bwd`` / ``time_block_bwd`` where
+``_blocked_bwd_fits``, the XLA-twin VJP with ``fused_attention`` above):
+``rope_attention_bwd`` at N <= 128; ``blocked_attention_bwd`` up to its
+``max_keys`` (N <= 319 at D = 24: ATLAS, L = 256 and T = 250); above that
+``ops/time_attention.py::time_attention_block_bwd``, the same steps with the
+``fused_attention`` kernels as its core (the 4AA preset's frame stage at
+T = 1000; the residue stage with its view swapped, B*T sequences of L).
 
 Weight and bias gradients are f32 sums over the whole batch; the AdaLN-row
 gradients are per batch element. On CPU tensors every op runs its plain
@@ -40,30 +49,63 @@ import torch
 
 from .adaln_linear import adaln_linear
 from .adaln_mlp import adaln_mlp_bwd
+from .blocked_attention_bwd import blocked_attention_bwd, max_keys
 from .linear_bwd import linear_bwd
 from .modln_bwd import modln_bwd
 from .rope_attention import rope_attention
 from .rope_attention_bwd import MAX_N, rope_attention_bwd
-from .time_attention import time_attention_block_bwd
+from .tiled_attention import tiled_attention
+from .time_attention import MAX_L, MAX_T, time_attention_block_bwd
 
 
-def _attention_stage_bwd(X, dout, mod, j, wqkv, bqkv, wout, bout, bk, bv, mask, view,
-                         num_heads, dmod):
-    """One attention stage; ``j`` its first AdaLN row (0 residue, 3 frame),
-    ``view`` the (G, N, I) attention layout. Returns dX and the weight grads."""
+def bwd_core(N: int, D: int):
+    """The attention backward core of a stage over N tokens of head dim D
+    (module docstring), or None for the ``fused_attention`` route."""
+    if N <= MAX_N:
+        return rope_attention_bwd
+    if N <= max_keys(D):
+        return blocked_attention_bwd
+    return None
+
+
+def attention_stage_bwd(X, dout, mod, j, ws, mask, view, num_heads: int, dmod, *,
+                        short: bool):
+    """The backward of one attention stage of ``trunk_layer``, routed by its
+    length N (module docstring).
+
+    - ``X`` (M, C) the stage's saved input, ``dout`` (M, C) f32 the gradient
+      of its output; ``mod`` (nb, 9C) the layer's AdaLN rows, of which the
+      stage's are j, j + 1, j + 2 (0 residue, 3 frame); ``ws`` its weights
+      (wqkv, bqkv, wout, bout, bias_k, bias_v); ``mask`` (B, T, L) f32;
+    - ``view`` (G, N, I): the attention layout, over N for every (g, i)
+      (residue (B*T, L, 1), frame (B, T, L));
+    - ``short``: the forward's core was ``rope_attention`` (else
+      ``tiled_attention``); ``dmod`` (nb, 9C) f32, its rows j .. j + 2 get
+      (dsh, dsc, dg).
+
+    Returns dX_in (M, C) f32 and the weight grads (dwqkv, dbqkv, dwout,
+    dbout, dbk, dbv), f32 sums over the batch."""
     C = X.shape[1]
+    G, N, I = view
+    wqkv, bqkv, wout, bout, bk, bv = ws
 
     def m(i):
         return mod[:, i * C:(i + 1) * C]
 
+    core = bwd_core(N, C // num_heads)
+    if core is None:
+        dx_in, _, _, _, *grads = time_attention_block_bwd(
+            X, m(j), m(j + 1), m(j + 2), *ws, mask.reshape(view), dout, B=G, T=N, L=I,
+            num_heads=num_heads, dmod=dmod[:, j * C:(j + 3) * C])
+        return dx_in, tuple(grads)
+    attn = rope_attention if short else tiled_attention
     qkv = adaln_linear(X, wqkv, bqkv, ln="plain", shift=m(j), scale=m(j + 1)).view(*view, 3 * C)
     mk = mask.reshape(view)
-    att = rope_attention(qkv, bk, bv, mk, num_heads=num_heads, base2=True).view(-1, C)
+    att = attn(qkv, bk, bv, mk, num_heads=num_heads, base2=True).view(-1, C)
     y = adaln_linear(att, wout, bout, out_dtype=torch.float32)
     dwout, dbout = linear_bwd("wgrad", dout, att, gate=m(j + 2))
     datt = linear_bwd("dgrad", dout, wout, gate=m(j + 2), out_dtype=X.dtype)
-    dqkv, dbk, dbv = rope_attention_bwd(qkv, datt.view(*view, C), bk, bv, mk,
-                                        num_heads=num_heads)
+    dqkv, dbk, dbv = core(qkv, datt.view(*view, C), bk, bv, mk, num_heads=num_heads)
     dqkv = dqkv.view(-1, 3 * C)
     dwqkv, dbqkv = linear_bwd("wgrad", dqkv, X, ln=True, shift=m(j), scale=m(j + 1))
     dh = linear_bwd("dgrad", dqkv, wqkv)
@@ -97,18 +139,13 @@ def fused_layer_bwd(x_in, X1, X2, dout, mod, w, mask, num_heads: int, dmod=None)
         X2, m(6), m(7), m(8), w["w1"], w["b1"], w["w2"], w["b2"], dout, dmod=dmod[:, 6 * C:])
     # ---- stage 2: attention over frames ----
     tw = [w[k] for k in ("wqkv_t", "bqkv_t", "wout_t", "bout_t", "bkt", "bvt")]
-    if T <= MAX_N:
-        dx1, (dwqkv_t, dbqkv_t, dwout_t, dbout_t, dbkt, dbvt) = _attention_stage_bwd(
-            X1, dx2, mod, 3, *tw, mask, (B, T, L), num_heads, dmod)
-    else:
-        dx1, _, _, _, dwqkv_t, dbqkv_t, dwout_t, dbout_t, dbkt, dbvt = time_attention_block_bwd(
-            X1, m(3), m(4), m(5), *tw, mask, dx2, B=B, T=T, L=L, num_heads=num_heads,
-            dmod=dmod[:, 3 * C:6 * C])
+    dx1, (dwqkv_t, dbqkv_t, dwout_t, dbout_t, dbkt, dbvt) = attention_stage_bwd(
+        X1, dx2, mod, 3, tw, mask, (B, T, L), num_heads, dmod, short=L <= MAX_L and T <= MAX_T)
     del dx2
     # ---- stage 1: attention over residues ----
-    dx, (dwqkv_l, dbqkv_l, dwout_l, dbout_l, dbkl, dbvl) = _attention_stage_bwd(
-        x_in, dx1, mod, 0, w["wqkv_l"], w["bqkv_l"], w["wout_l"], w["bout_l"], w["bkl"],
-        w["bvl"], mask, (B * T, L, 1), num_heads, dmod)
+    lw = [w[k] for k in ("wqkv_l", "bqkv_l", "wout_l", "bout_l", "bkl", "bvl")]
+    dx, (dwqkv_l, dbqkv_l, dwout_l, dbout_l, dbkl, dbvl) = attention_stage_bwd(
+        x_in, dx1, mod, 0, lw, mask, (B * T, L, 1), num_heads, dmod, short=L <= MAX_L)
     dw = dict(wqkv_l=dwqkv_l, bqkv_l=dbqkv_l, wout_l=dwout_l, bout_l=dbout_l,
               wqkv_t=dwqkv_t, bqkv_t=dbqkv_t, wout_t=dwout_t, bout_t=dbout_t,
               w1=dw1, b1=db1, w2=dw2, b2=db2, bkl=dbkl, bvl=dbvl, bkt=dbkt, bvt=dbvt)

@@ -1,9 +1,15 @@
 """ipa_attention: the Invariant Point Attention core (c_z = 0) from the
 scalar/point projections to the output features.
 
-Kernel: ``csrc/ipa_attention.cu`` (one block per (element, head); it
-replaces the IPA part of the JAX package's
-``ops/ipa_encoder.py::_encoder_call`` kernel). ``ipa_attention_plain`` is
+Kernel: ``csrc/ipa_attention.cu``; it replaces the IPA part of the JAX
+package's ``ops/ipa_encoder.py::_encoder_call`` kernel. Two forms: at
+L <= ``RESIDENT_MAX_L`` one block per (element, head) holds the L x L
+logits in shared memory (the 4AA peptides); above it one block per
+(element, head, 64-query tile) streams the keys through shared memory with
+a running-max softmax, so no buffer grows with L (ATLAS, L = 256). The
+tiled form takes the model's widths only (Ch = 32, Pq = Pv = 8); the
+wrapper raises ``ValueError`` for other widths above the limit, and for a
+resident form that would not fit shared memory. ``ipa_attention_plain`` is
 the same function in plain PyTorch, in the op order of the JAX package's
 ``models/ipa.py::ipa_forward``; it runs for CPU tensors. For CUDA tensors the
 wrapper launches the kernel or raises.
@@ -21,10 +27,20 @@ import math
 import torch
 
 from . import _cuda
+from .rope_attention import SMEM_BYTES
 
 _INF = 1e5
 _ARGTYPES = [_cuda.P, _cuda.I64, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.I64,
-             _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.P]
+             _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32,
+             _cuda.P]
+RESIDENT_MAX_L = 64  # the resident form up to here, the key-tiled form above
+TILED_WIDTHS = (32, 8, 8)  # (Ch, Pq, Pv) the tiled form is built for
+
+
+def resident_bytes(L: int, Ch: int, Pq: int, Pv: int) -> int:
+    """Shared memory of the resident form: frames, mask, scalars, lifted
+    points and the L x L logits of one (element, head), f32."""
+    return 4 * (13 * L + 3 * L * Ch + 3 * L * (2 * Pq + Pv) + L * L)
 
 
 def proj_width(H: int, Ch: int, Pq: int, Pv: int) -> int:
@@ -103,12 +119,20 @@ def ipa_attention(proj, rot, trans, mask, head_weights, *, H: int, Ch: int, Pq: 
             raise ValueError(f"ipa_attention: {name} must be a contiguous f32 {shape} tensor")
     if out_dtype not in (None, torch.bfloat16):
         raise ValueError("ipa_attention: the kernel writes bf16 features")
+    tiled = L > RESIDENT_MAX_L
+    if tiled and (Ch, Pq, Pv) != TILED_WIDTHS:
+        raise ValueError(f"ipa_attention: above L = {RESIDENT_MAX_L} the key-tiled kernel takes "
+                         f"(Ch, Pq, Pv) = {TILED_WIDTHS}, got {(Ch, Pq, Pv)} at L = {L}")
+    if not tiled and resident_bytes(L, Ch, Pq, Pv) > SMEM_BYTES:
+        raise ValueError(f"ipa_attention: the resident kernel needs "
+                         f"{resident_bytes(L, Ch, Pq, Pv):,} bytes of shared memory at L = {L}, "
+                         f"more than the {SMEM_BYTES:,} a block may use")
     F = feat_width(H, Ch, Pv)
     out = torch.empty(B, L, F, dtype=torch.bfloat16, device=proj.device)
     lib = _cuda.library("ipa_attention", _ARGTYPES)
     code = lib.ipa_attention(proj.data_ptr(), W, rot.data_ptr(), trans.data_ptr(),
                              mask.data_ptr(), head_weights.data_ptr(), out.data_ptr(), F,
-                             B, L, H, Ch, Pq, Pv, _cuda.stream_ptr(proj))
+                             B, L, H, Ch, Pq, Pv, int(tiled), _cuda.stream_ptr(proj))
     _cuda.check(code, "ipa_attention")
     ipa_attention.launches += 1
     return out

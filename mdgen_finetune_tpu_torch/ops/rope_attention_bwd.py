@@ -41,11 +41,10 @@ def _rotate_half_t(g: torch.Tensor) -> torch.Tensor:
     return torch.cat([g2, -g1], dim=-1)
 
 
-def rope_attention_bwd_plain(qkv, dout, bias_k, bias_v, key_valid, *, num_heads: int):
-    """Plain PyTorch version of ``rope_attention_bwd`` (same arguments),
-    computed in f32; counts its calls on CUDA tensors in ``cuda_calls``."""
-    if qkv.is_cuda:
-        rope_attention_bwd_plain.cuda_calls += 1
+def rope_attention_bwd_math(qkv, dout, bias_k, bias_v, key_valid, *, num_heads: int):
+    """The plain PyTorch math of ``rope_attention_bwd`` (same arguments),
+    computed in f32 and counted nowhere; ``blocked_attention_bwd_plain``
+    runs it too."""
     G, N, I, C3 = qkv.shape
     C, H = C3 // 3, num_heads
     D = C // H
@@ -84,6 +83,14 @@ def rope_attention_bwd_plain(qkv, dout, bias_k, bias_v, key_valid, *, num_heads:
     return dqkv.to(qkv.dtype).contiguous(), dbk, dbv
 
 
+def rope_attention_bwd_plain(qkv, dout, bias_k, bias_v, key_valid, *, num_heads: int):
+    """Plain PyTorch version of ``rope_attention_bwd`` (same arguments),
+    computed in f32; counts its calls on CUDA tensors in ``cuda_calls``."""
+    if qkv.is_cuda:
+        rope_attention_bwd_plain.cuda_calls += 1
+    return rope_attention_bwd_math(qkv, dout, bias_k, bias_v, key_valid, num_heads=num_heads)
+
+
 rope_attention_bwd_plain.cuda_calls = 0
 
 
@@ -103,9 +110,9 @@ def rope_attention_bwd(qkv, dout, bias_k, bias_v, key_valid, *, num_heads: int):
     if D not in (16, 24, 32, 64) or C % num_heads:
         raise ValueError(f"rope_attention_bwd: head dim {C}/{num_heads} is not supported")
     if N > MAX_N:
-        raise ValueError(f"rope_attention_bwd: at most {MAX_N} keys per sequence, got {N}; the "
-                         "frame stage's backward at longer T is "
-                         "ops/time_attention.py::time_attention_block_bwd")
+        raise ValueError(f"rope_attention_bwd: at most {MAX_N} keys per sequence, got {N}; "
+                         "longer sequences take ops/blocked_attention_bwd.py (up to its "
+                         "max_keys) or ops/time_attention.py::time_attention_block_bwd")
     if (bias_k.dtype != torch.bfloat16 or bias_v.dtype != torch.bfloat16
             or not bias_k.is_contiguous() or not bias_v.is_contiguous()):
         raise ValueError("rope_attention_bwd: bias_k / bias_v must be contiguous bf16 (C,)")

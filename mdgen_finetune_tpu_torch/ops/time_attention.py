@@ -18,6 +18,17 @@ L <= 8 and T <= 256; ``tiled_attention``, which streams key tiles, above.
 twins: the counterpart of the JAX package's ``_block_xla_tl`` (:612). The
 port has no frame padding, so JAX's ``t_logical`` is always None here.
 
+``residue_rows_block`` is the residue stage at large L (L > ``MAX_L``, the
+ATLAS crop-256 preset): the counterpart of the JAX package's
+``residue_rows_block`` (:879), whose TPU kernel
+``_block_pallas_fwd_blocked_rows`` (:695) runs the same body as row 6
+(``_block_kernel_blocked``) over each frame's contiguous residue rows. Here
+it is ``residue_block``'s composition with ``tiled_attention`` as its core,
+over the (B*T, L, 1, 3C) view of qkv (no transpose: each frame's L rows are
+contiguous, the bias key sits at position L); ``residue_rows_block_plain``,
+the same through the plain twins, is the counterpart of ``_res_rows_xla``
+(:798).
+
 ``time_attention_block_bwd`` is the stage's backward where
 ``rope_attention_bwd`` cannot hold a head's keys (T > 128): the
 counterpart of the JAX package's ``_tbb_bwd`` (:659) on its XLA-twin route,
@@ -58,6 +69,7 @@ from .fused_attention import (fused_attention_bwd, fused_attention_bwd_plain,
                               fused_attention_fwd, fused_attention_fwd_plain)
 from .linear_bwd import linear_bwd, linear_bwd_plain
 from .modln_bwd import modln_bwd, modln_bwd_plain
+from .residue_block import _block as _residue_stage
 from .rope_attention import rope_attention, rope_attention_plain
 from .rope_attention_bwd import _rotate_half_t
 from .tiled_attention import tiled_attention, tiled_attention_plain
@@ -94,6 +106,22 @@ def time_attention_block_plain(x, sh, sc, g, wqkv, bqkv, wout, bout, bias_k, bia
     attn = rope_attention_plain if _short(T, L) else tiled_attention_plain
     return _block(adaln_linear_plain, attn, x, sh, sc, g, wqkv, bqkv, wout, bout, bias_k,
                   bias_v, mask, B=B, T=T, L=L, num_heads=num_heads, out=out)
+
+
+def residue_rows_block(x, sh, sc, g, wqkv, bqkv, wout, bout, bias_k, bias_v, mask, *,
+                       B: int, T: int, L: int, num_heads: int, out=None):
+    """The residue stage at large L (module docstring): arguments as
+    ``residue_block``, mask (B, T, L) f32."""
+    return _residue_stage(adaln_linear, tiled_attention, x, sh, sc, g, wqkv, bqkv, wout, bout,
+                          bias_k, bias_v, mask, B=B, T=T, L=L, num_heads=num_heads, out=out)
+
+
+def residue_rows_block_plain(x, sh, sc, g, wqkv, bqkv, wout, bout, bias_k, bias_v, mask, *,
+                             B: int, T: int, L: int, num_heads: int, out=None):
+    """``residue_rows_block`` through the plain twins (same arguments)."""
+    return _residue_stage(adaln_linear_plain, tiled_attention_plain, x, sh, sc, g, wqkv, bqkv,
+                          wout, bout, bias_k, bias_v, mask, B=B, T=T, L=L, num_heads=num_heads,
+                          out=out)
 
 
 # ---------------------------------------------------------------------------

@@ -284,3 +284,99 @@ def test_long_t_stage_backwards_match_plain_on_card():
     one = [a[:M // Bc] if a.shape[0] == M else a[:1] if a.shape[0] == Bc else a for a in att]
     held("time_attention_block_bwd[B=1]", time_attention_block_bwd,
          time_attention_block_bwd_plain, one, dict(B=1, T=Tc, L=Lc, num_heads=Hc))
+
+
+@pytest.mark.cuda
+def test_blocked_attention_bwd_matches_plain_on_card():
+    """On the card: the one-block-per-(sequence, head) attention backward
+    against its plain twin in f32 on the same inputs, at head dims 16, 24
+    and 32, at N = 129, 250, 256 and each head dim's limit (``max_keys``),
+    in the frame view (G = 1, I = 3) and the residue view (G = 3, I = 1),
+    with masked keys, a 64-key tile of masked keys only, and one sequence
+    whose only valid key is the bias key; the kernel's shared-memory size
+    equals the wrapper's formula, and one token past the limit raises.
+    q is drawn at the trunk's logit scale (0.5 x head_dim^-0.5 x log2 e, the
+    fold the q columns carry; the fused_attention test's 0.5 x
+    head_dim^-0.5). And the residue view at N = 256 with dO ~ 1e-6, the size
+    of a real step's attention gradient, held within 1e-2 of its own scale:
+    the kernel's gradients must not underflow."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    import ctypes
+
+    from mdgen_finetune_tpu_torch.ops import _cuda
+    from mdgen_finetune_tpu_torch.ops import blocked_attention_bwd as BA
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    lib = _cuda.library("blocked_attention_bwd", BA._ARGTYPES)
+    smem = lib.blocked_attention_bwd_smem
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_longlong
+    Hc = 2
+    for D in (16, 24, 32):
+        C = Hc * D
+        for N in sorted({n for n in (129, 250, 256, BA.max_keys(D)) if n <= BA.max_keys(D)}):
+            assert smem(N, D) == BA.smem_bytes(N, D)
+            for view in ((1, N, 3), (3, N, 1)):
+                qkv = torch.randn(*view, 3 * C, generator=g, device="cuda").to(torch.bfloat16)
+                qkv[..., :C] *= 0.5 * D ** -0.5 * 1.4426950408889634
+                do = torch.randn(*view, C, generator=g, device="cuda").to(torch.bfloat16)
+                bk = torch.randn(C, generator=g, device="cuda").to(torch.bfloat16)
+                bv = torch.randn(C, generator=g, device="cuda").to(torch.bfloat16)
+                seq = torch.ones(3, N, device="cuda")  # sequence s = g * I + i
+                seq[0, 64:128] = 0  # a whole key tile
+                seq[2, N // 2:] = 0  # masked keys
+                seq[1] = 0  # only the bias key is valid
+                mask = seq.view(view[0], view[2], N).permute(0, 2, 1).contiguous()
+                got = BA.blocked_attention_bwd(qkv, do, bk, bv, mask, num_heads=Hc)
+                ref = BA.blocked_attention_bwd_plain(qkv.float(), do.float(), bk.float(),
+                                                     bv.float(), mask, num_heads=Hc)
+                torch.cuda.synchronize()
+                for a, b in zip(got, ref):
+                    _close(a, b)
+        if D == 24:
+            view = (3, 256, 1)
+            qkv = torch.randn(*view, 3 * C, generator=g, device="cuda").to(torch.bfloat16)
+            qkv[..., :C] *= 0.5 * D ** -0.5 * 1.4426950408889634
+            do = (torch.randn(*view, C, generator=g, device="cuda") * 1e-6).to(torch.bfloat16)
+            mask = torch.ones(*view, device="cuda")
+            got = BA.blocked_attention_bwd(qkv, do, bk, bv, mask, num_heads=Hc)
+            ref = BA.blocked_attention_bwd_plain(qkv.float(), do.float(), bk.float(), bv.float(),
+                                                 mask, num_heads=Hc)
+            torch.cuda.synchronize()
+            for a, b in zip(got, ref):
+                scale = b.float().abs().max().item()
+                assert 0 < scale and (a.float() - b.float()).abs().max().item() <= 1e-2 * scale
+        n = BA.max_keys(D) + 1
+        with pytest.raises(ValueError, match="shared memory"):
+            BA.blocked_attention_bwd(torch.zeros(1, n, 1, 3 * C, device="cuda", dtype=torch.bfloat16),
+                                     torch.zeros(1, n, 1, C, device="cuda", dtype=torch.bfloat16),
+                                     bk, bv, torch.ones(1, n, 1, device="cuda"), num_heads=Hc)
+
+
+@pytest.mark.cuda
+def test_ipa_attention_tiled_matches_plain_on_card():
+    """On the card: the IPA core above ``RESIDENT_MAX_L`` (the key-tiled
+    kernel) against its plain twin at L = 65, 200 and 256 (ATLAS), with
+    padded residues and one element whose frames are all masked but one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.ops.ipa_attention import (
+        RESIDENT_MAX_L, ipa_attention, ipa_attention_plain, proj_width)
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    Bc = 3
+    for Lc in (65, 200, 256):
+        assert Lc > RESIDENT_MAX_L
+        proj = torch.randn(Bc, Lc, proj_width(4, 32, 8, 8), generator=g, device="cuda")
+        t7 = torch.randn(Bc, Lc, 7, generator=g, device="cuda")
+        t7[..., 4:] *= 5
+        fr = TRigid.from_tensor_7(t7)
+        mask = torch.ones(Bc, Lc, device="cuda")
+        mask[0, Lc // 2:] = 0
+        mask[2, 1:] = 0
+        hw = torch.randn(4, generator=g, device="cuda")
+        a = ipa_attention(proj, fr.rot.contiguous(), fr.trans.contiguous(), mask, hw,
+                          H=4, Ch=32, Pq=8, Pv=8)
+        p = ipa_attention_plain(proj, fr.rot, fr.trans, mask, hw, H=4, Ch=32, Pq=8, Pv=8)
+        torch.cuda.synchronize()
+        _close(a, p)

@@ -13,7 +13,10 @@
   (2 layers, C = 48, 2 heads, T = 264, L = 4, B = 2: the frame stage's
   backward runs ``time_attention_block_bwd`` with the ``fused_attention``
   twins, the JAX model its ``nn.remat`` layers); all prepend-IPA with one
-  padded residue in the batch where B = 2.
+  padded residue in the batch where B = 2. And ATLAS in small
+  (``atlas_tiny``: 2 layers, C = 48, 2 heads, T = 5, L = 12, B = 1, a
+  9-residue protein zero-padded to 12 with mask 0): the residue stage at
+  L > MAX_L (``residue_rows_block``, frame core ``tiled_attention``).
 - One optimizer step (clip, Adam or AdamW, MultiSteps, EMA) against optax.
 - A checkpoint round trip, ``fit`` on a synthetic dataset, the device rule,
   the options this slice refuses, and ``grad_checkpointing`` leaving the
@@ -73,19 +76,24 @@ def _random_tree(params, seed):
     return jax.tree_util.tree_map_with_path(leaf, params)
 
 
-def _setup(NL, C, H, T, L, B, seed, remat=False):
+def _setup(NL, C, H, T, L, B, seed, remat=False, seqs=None):
+    """``seqs``: the sequences (default the first B of "AAGG", "GHKL"); one
+    shorter than L is zero-padded with mask 0, as the ATLAS dataset pads."""
     cfg = MDGenConfig(
         model=ModelConfig(num_layers=NL, embed_dim=C, mha_heads=H, prepend_ipa=True,
                           abs_pos_emb=True, use_bf16=False, grad_checkpointing=remat),
         data=DataConfig(num_frames=T, crop=L), task=TaskConfig(sim_condition=True),
         train=TrainConfig(batch_size=B))
     rng = np.random.default_rng(seed)
-    seqs = ["AAGG", "GHKL"][:B]
-    atom14 = np.stack([synthesize_trajectory(s, T, seed=seed + i).astype(np.float32)
-                       for i, s in enumerate(seqs)])
+    seqs = seqs or ["AAGG", "GHKL"][:B]
     from mdgen_finetune_tpu_torch.geometry.tables import str_sequence_to_aatype
-    seqres = np.stack([str_sequence_to_aatype(s) for s in seqs]).astype(np.int32)
-    mask = np.ones((B, L), np.float32)
+    atom14 = np.zeros((B, T, L, 14, 3), np.float32)
+    seqres = np.zeros((B, L), np.int32)
+    mask = np.zeros((B, L), np.float32)
+    for i, s in enumerate(seqs):
+        atom14[i, :, :len(s)] = synthesize_trajectory(s, T, seed=seed + i)
+        seqres[i, :len(s)] = str_sequence_to_aatype(s)
+        mask[i, :len(s)] = 1.0
     if B > 1:
         mask[1, -1] = 0.0
     jm = JModel(cfg, cfg.latent_dim)
@@ -130,12 +138,14 @@ def _jax_loss_and_grads(s):
     return jax.jit(jax.value_and_grad(loss))(s["params"])
 
 
-@pytest.fixture(scope="module", params=["tiny", "flagship_width", "t264_remat"])
+@pytest.fixture(scope="module", params=["tiny", "flagship_width", "t264_remat", "atlas_tiny"])
 def setup(request):
     if request.param == "tiny":
         return _setup(NL=2, C=96, H=4, T=6, L=4, B=2, seed=10)
     if request.param == "t264_remat":
         return _setup(NL=2, C=48, H=2, T=264, L=4, B=2, seed=30, remat=True)
+    if request.param == "atlas_tiny":  # L > MAX_L: the residue stage's rows route
+        return _setup(NL=2, C=48, H=2, T=5, L=12, B=1, seed=50, seqs=["MKTAYIAKQ"])
     return _setup(NL=1, C=384, H=16, T=4, L=4, B=1, seed=20)
 
 
