@@ -932,6 +932,19 @@ def fwd_counters():
             [getattr(m, n + "_plain") for m, n in zip(mods, FWD_WRAPPERS)])
 
 
+def flagship_config(method="euler", steps=None):
+    """The flagship sampler's config (``bench.py:29-34``): 5 x 384, 16
+    heads, prepend-IPA, abs_pos_emb, sim_condition, L = 4, T = 100, bf16."""
+    from mdgen_finetune_tpu_torch.config import (DataConfig, MDGenConfig, ModelConfig,
+                                                 TaskConfig, TransportConfig)
+
+    return MDGenConfig(
+        model=ModelConfig(num_layers=NL, embed_dim=C, mha_heads=H, prepend_ipa=True,
+                          abs_pos_emb=True, use_bf16=True),
+        data=DataConfig(num_frames=T, crop=L), task=TaskConfig(sim_condition=True),
+        transport=TransportConfig(sampling_method=method, inference_steps=steps or STEPS))
+
+
 def sim_config(method, steps=None):
     """The 4AA forward-simulation preset at full width (5 x 384, 16 heads,
     prepend-IPA, T = 1000, L = 4, bf16) with the given ODE sampler."""
@@ -1919,6 +1932,365 @@ def phase_atlas_cli(dev):
                              f"{residues} residues")
 
 
+# ---------------------------------------------------------------------------
+# the modular layer (interleave_ipa, hyena, no_rope): sampling
+# ---------------------------------------------------------------------------
+MODULAR_FLAGS = ("interleave_ipa", "hyena", "no_rope")
+# the modular path's kernel wrappers, as (module, wrapper)
+MODULAR_WRAPPERS = (("adaln_linear", "adaln_linear"), ("rope_attention", "rope_attention"),
+                    ("ipa_attention", "ipa_attention"), ("tiled_attention", "tiled_attention"),
+                    ("fused_attention", "fused_attention_fwd"))
+
+
+def modular_config(flag, frames=T, method="euler", steps=None, layers=NL):
+    """The flagship width (5 x 384, 16 heads, prepend-IPA 4 x 32,
+    abs_pos_emb, sim_condition, bf16) with one modular flag: at T = 100 (the
+    flagship's data config) or at T = 1000 (``preset_4aa_sim``)."""
+    base = sim_config(method, steps) if frames == T_SIM else flagship_config(method, steps)
+    return base.replace(model=dataclasses.replace(base.model, num_layers=layers, **{flag: True}))
+
+
+def modular_launches_per_eval(cfg):
+    """The kernel launches of one velocity evaluation of a modular config,
+    derived from the code (``LatentMDGen.forward_inference``): the embed and
+    the head (1 ``adaln_linear`` each); per layer the IPA with
+    ``interleave_ipa`` (2 ``adaln_linear`` + 1 ``ipa_attention``), each
+    attention stage (2 ``adaln_linear`` + its core: ``rope_attention`` at
+    L <= 8 and T <= 256, ``tiled_attention`` above, ``fused_attention_fwd``
+    without RoPE), Hyena's in- and out-projections (2 ``adaln_linear``, its
+    convolutions are ``torch.fft``) and ``adaln_mlp`` (2 ``adaln_linear``);
+    the prepend encoder per layer 6 ``adaln_linear``, 1 ``ipa_attention``
+    and its residue core (``fused_attention_fwd`` under ``no_rope``).
+    ``adaln_mlp`` counts its calls (each is 2 of the ``adaln_linear``)."""
+    m = cfg.model
+    n = {k: 0 for _, k in MODULAR_WRAPPERS}
+    NLc, Tc = m.num_layers, cfg.data.num_frames
+    dense = "fused_attention_fwd"
+    n["adaln_linear"] = 2 + NLc * (6 + 2 * m.interleave_ipa) + 6 * NLc
+    n["ipa_attention"] = NLc * (1 + m.interleave_ipa)
+    n[dense if m.no_rope else "rope_attention"] += 2 * NLc  # the residue stage and the encoder
+    if m.no_rope:
+        n[dense] += NLc
+    elif not m.hyena:
+        n["rope_attention" if Tc <= 256 else "tiled_attention"] += NLc
+    return n, {"adaln_mlp": NLc}
+
+
+def modular_sample(dev, name, cfg, batch_size, seed, pad=1):
+    """``InferenceEngine.sample`` of a modular config after a warm-up: frames
+    per second, seconds per sample, ideal bonds, the launches per sample
+    exactly as derived and no plain twin on the card."""
+    eng, _ = random_engine(dev, cfg, seed=seed)
+    atom14, seqres, mask = make_inputs(batch_size, seed + 1, dev, pad=pad)
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    batch = eng._expand_frame0(atom14, seqres, mask)
+    eng.sample(batch, gen)  # warm-up
+    torch.cuda.synchronize()
+    wrappers, twins = _counters(MODULAR_WRAPPERS)
+    for fn in wrappers:
+        fn.launches = 0
+    for fn in twins:
+        fn.cuda_calls = 0
+    t0 = time.perf_counter()
+    out, _ = eng.sample(batch, gen)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    twin_calls = {fn.__name__: fn.cuda_calls for fn in twins}
+    evals = eng.last_counts["evals"]
+    per_eval, calls = modular_launches_per_eval(cfg)
+    want = {k: v * evals for k, v in per_eval.items()}
+    checks = atlas_launch_checks(name, launches, twin_calls, out, mask, want)
+    Tc = cfg.data.num_frames
+    emit({"phase": name, "B": batch_size, "T": Tc, "L": L, "C": C, "layers": cfg.model.num_layers,
+          "flag": next(f for f in MODULAR_FLAGS if getattr(cfg.model, f)),
+          "sampler": f"{cfg.transport.sampling_method}-{cfg.transport.inference_steps}",
+          "dtype": "bf16", "sample_s": secs, "frames_per_s": batch_size * Tc / secs,
+          "s_per_sample": secs / batch_size, "ms_per_eval": secs / evals * 1e3, **eng.last_counts,
+          "launches_per_sample": launches, "launches_per_eval_derived": per_eval,
+          "calls_per_eval_derived": calls, "plain_calls_on_card": twin_calls, **checks})
+    return launches, (eng, batch, gen)
+
+
+def max_logit(qkv, bk, mask, Hc):
+    """The largest attendable logit of a natural-softmax attention over
+    (G, N, I, 3C) qkv (RoPE'd q.k with the bias key)."""
+    q, k, _, am = sdpa_inputs(qkv.float(), bk.float(), bk.float(), mask, Hc)
+    return (q @ k.transpose(-1, -2) + am).amax().item()
+
+
+def phase_modular_kernels(dev):
+    """The modular layer's cores against their plain twins in f32 on the
+    same inputs, at its shapes, with q carrying head_dim**-0.5 only (the
+    natural softmax): ``rope_attention(base2=False)`` at row 12's shape
+    (6,400 frames of L = 4) and row 11a's (B = 64, T = 100, L = 4);
+    ``tiled_attention(base2=False)`` (row 11b) at B = 8, T = 1000, L = 4, at
+    the ATLAS residue view (250 frames of L = 256) and with q scaled 400x,
+    where the logits reach ~1e3 and exp without the max overflows f32 (there
+    a logit moves by ~2 when the kernel rounds the RoPE'd q and k to bf16,
+    as the JAX kernel does, so the reference is the plain math with that
+    rounding, ``rope_attention_math(stage=bf16)``; q and k are nonzero in the
+    first half of each head's lanes only, where RoPE is one product per
+    lane, so that both round the same f32 values; the error against the
+    plain f32 twin is reported beside it);
+    ``fused_attention_fwd(base2=False)`` at the ``no_rope`` frame and residue
+    views; the repaired ``blocked_attention_bwd`` at both ATLAS views with
+    RoPE'd q ~ 2e5 and k ~ 1e-5 (beyond fp16's range, logits O(1)); and TPU
+    row 11c, the fused trunk's short-route frame block, as a whole at the
+    flagship shape under the composition rule. Times: kernel, plain twin,
+    SDPA on the RoPE'd heads; bounds from these inputs."""
+    import math
+
+    import torch.nn.functional as F
+
+    from mdgen_finetune_tpu_torch.ops import blocked_attention_bwd as BA
+    from mdgen_finetune_tpu_torch.ops.fused_attention import (fused_attention_fwd,
+                                                              fused_attention_fwd_plain)
+    from mdgen_finetune_tpu_torch.ops.rope_attention import (rope_attention, rope_attention_math,
+                                                             rope_attention_plain)
+    from mdgen_finetune_tpu_torch.ops.tiled_attention import tiled_attention, tiled_attention_plain
+
+    g = torch.Generator(device=dev).manual_seed(81)
+    bf = torch.bfloat16
+    D = C // H
+
+    def qkv_case(view, q_scale=1.0, k_scale=1.0):
+        qkv = torch.randn(*view, 3 * C, generator=g, device=dev)
+        qkv[..., :C] *= D ** -0.5 * q_scale
+        qkv[..., C:2 * C] *= k_scale
+        if q_scale == 400.0:  # q and k in the first half of each head's lanes only
+            qkv.view(*view, 3, H, 2, D // 2)[..., :2, :, 1, :] = 0
+        return qkv.to(bf)
+
+    bk, bv = (torch.randn(C, generator=g, device=dev).to(bf) for _ in range(2))
+    rows, frames = (B * T, L, 1), (B, T, L)
+    out = {}
+    cases = {"row12_residue": (rope_attention, rope_attention_plain, rows, 1.0),
+             "row11a_frames": (rope_attention, rope_attention_plain, frames, 1.0),
+             "row11b_frames_T1000": (tiled_attention, tiled_attention_plain, (B_SIM, T_SIM, L), 1.0),
+             "row11b_atlas_residue": (tiled_attention, tiled_attention_plain,
+                                      (B_ATLAS * T_ATLAS, L_ATLAS, 1), 1.0),
+             "row11b_large_logits": (tiled_attention, tiled_attention_plain, (2, T_SIM, L), 400.0)}
+    bk_half = bk.clone()
+    bk_half.view(H, 2, D // 2)[:, 1] = 0
+    for name, (kern, plain, view, qs) in cases.items():
+        qkv = qkv_case(view, qs)
+        bk_c = bk if qs == 1.0 else bk_half
+        mask = torch.ones(view, device=dev)
+        if view == rows:
+            mask[:T, -1] = 0  # element 0's last residue, in every frame
+        elif view[2] == 1:
+            mask[:, L_ATLAS - ATLAS_PAD:] = 0  # the 200-residue protein's padding
+        else:
+            mask[0, :, -1] = 0
+        kw = dict(num_heads=H, base2=False)
+        got = kern(qkv, bk_c, bv, mask, **kw)
+        ref = plain(qkv.float(), bk_c.float(), bv.float(), mask, **kw)
+        extra = {}
+        if qs != 1.0:
+            extra["max_abs_err_vs_f32_twin"] = (got.float() - ref).abs().max().item()
+            extra["max_logit"] = max_logit(qkv, bk_c, mask, H)
+            ref = rope_attention_math(qkv.float(), bk_c.float(), bv.float(), mask, **kw,
+                                      stage=bf)
+        err = check(f"{kern.__name__}[{name}]", got, ref, 1e-2)
+        del ref
+        q, k, v, am = sdpa_inputs(qkv, bk_c, bv, mask, H)
+        S_, N_ = view[0] * view[2], view[1]
+        out[name] = dict(
+            shape=f"{S_} sequences x {H} heads, {N_} queries, {N_ + 1} keys, D = {D}, natural",
+            kernel=kern.__name__, max_abs_err=err[0], tol=err[1], q_scale=qs, **extra,
+            ms=time_ms(lambda: kern(qkv, bk_c, bv, mask, **kw)),
+            plain_ms=time_ms(lambda: plain(qkv, bk_c, bv, mask, **kw), reps=5),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am,
+                                                                       scale=1.0)),
+            bound=bound_ms(nbytes(qkv, bk_c, bv, mask) + qkv.numel() // 3 * 2,
+                           4.0 * S_ * H * N_ * (N_ + 1) * D))
+        del q, k, v, am, qkv
+    # fused_attention_fwd, natural, at the no_rope views (bias key appended, no RoPE)
+    for name, (S_, N_) in (("no_rope_frames", (B * L, T)), ("no_rope_residue", (B * T, L))):
+        q = (torch.randn(S_, H, N_, D, generator=g, device=dev) * D ** -0.5).to(bf)
+        k, v = (torch.randn(S_, H, N_ + 1, D, generator=g, device=dev).to(bf) for _ in range(2))
+        kv = torch.ones(S_, N_ + 1, device=dev)
+        kv[0, :N_ // 2] = 0
+        got, _ = fused_attention_fwd(q, k, v, kv, base2=False)
+        ref, _ = fused_attention_fwd_plain(q.float(), k.float(), v.float(), kv, base2=False)
+        err = check(f"fused_attention_fwd[{name}]", got, ref, 1e-2)
+        am = ((kv - 1.0) * 1e9).to(bf)[:, None, None, :]
+        out[name] = dict(
+            shape=f"{S_} sequences x {H} heads, {N_} queries, {N_ + 1} keys, D = {D}, natural",
+            kernel="fused_attention_fwd", max_abs_err=err[0], tol=err[1],
+            ms=time_ms(lambda: fused_attention_fwd(q, k, v, kv, base2=False)),
+            plain_ms=time_ms(lambda: fused_attention_fwd_plain(q, k, v, kv, base2=False), reps=5),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am,
+                                                                       scale=1.0)),
+            bound=bound_ms(nbytes(q, k, v, kv) + q.numel() * 2,
+                           4.0 * S_ * H * N_ * (N_ + 1) * D))
+    # blocked_attention_bwd beyond fp16's range (RoPE'd q ~ 2e5, k ~ 1e-5)
+    arows, aframes = (B_ATLAS * T_ATLAS, L_ATLAS, 1), (B_ATLAS, T_ATLAS, L_ATLAS)
+    amask = torch.ones(aframes, device=dev)
+    amask[:, :, L_ATLAS - ATLAS_PAD:] = 0
+    bkf = (torch.randn(C, generator=g, device=dev) * 1e-5).to(bf)
+    for name, view in (("blocked_fp16_range_rows_N256", arows),
+                       ("blocked_fp16_range_frames_N250", aframes)):
+        qkv = qkv_case(view, 2e5 * D ** 0.5, 1e-5 * D ** -0.5)
+        do = torch.randn(*view, C, generator=g, device=dev).to(bf)
+        mk = amask.view(view)
+        got = BA.blocked_attention_bwd(qkv, do, bkf, bv, mk, num_heads=H)
+        ref = BA.blocked_attention_bwd_plain(qkv.float(), do.float(), bkf.float(), bv.float(), mk,
+                                             num_heads=H)
+        errs = [check(f"blocked_attention_bwd[{name}].{n}", a, b, 1e-2)
+                for n, a, b in zip(("dqkv", "dbk", "dbv"), got, ref)]
+        own = {}
+        for j, part in enumerate(("dq", "dk", "dv")):
+            a, b = got[0][..., j * C:(j + 1) * C].float(), ref[0][..., j * C:(j + 1) * C]
+            scale = b.abs().max().item()
+            own[part] = [(a - b).abs().max().item() / scale, 1e-2]
+            if not own[part][0] <= 1e-2:
+                raise AssertionError(f"blocked_attention_bwd[{name}].{part}: {own[part]} of its "
+                                     f"own scale {scale}")
+        del ref
+        S_, N_ = view[0] * view[2], view[1]
+        out[name] = dict(
+            shape=f"{S_} sequences x {H} heads, N = {N_}, D = {D}, max |q| "
+                  f"{qkv[..., :C].float().abs().max().item():.3g}, max |k| "
+                  f"{qkv[..., C:2 * C].float().abs().max().item():.3g}",
+            kernel="blocked_attention_bwd", max_abs_err=max(e for e, _ in errs),
+            tol={n: t for n, (_, t) in zip(("dqkv", "dbk", "dbv"), errs)},
+            err_of_own_scale=own,
+            ms=time_ms(lambda: BA.blocked_attention_bwd(qkv, do, bkf, bv, mk, num_heads=H)),
+            plain_ms=None, library_ms=None,
+            bound=bound_ms(nbytes(qkv, do, mk, bkf, bv) + qkv.numel() * 2,
+                           10.0 * S_ * H * N_ * (N_ + 1) * D))
+        del qkv, do
+    # row 11c (the short-route frame block, a + b + a at base 2) as a whole at
+    # the flagship shape, under the composition rule
+    from mdgen_finetune_tpu_torch.ops import time_attention as TA
+
+    M = B * T * L
+    x = torch.randn(M, C, generator=g, device=dev).to(bf)
+    mods = [(torch.randn(B, C, generator=g, device=dev) * 0.3).to(bf) for _ in range(3)]
+    ws = [(torch.randn(*s_, generator=g, device=dev) * sc_).to(bf) for s_, sc_ in
+          (((C, 3 * C), C ** -0.5), ((3 * C,), 0.1), ((C, C), C ** -0.5), ((C,), 0.1), ((C,), 1.0),
+           ((C,), 1.0))]
+    mask = torch.ones(B, T, L, device=dev)
+    mask[0, :, -1] = 0
+    dims = dict(B=B, T=T, L=L, num_heads=H)
+    errs = held_composite("time_attention_block[row11c]",
+                          lambda *a, **k: (TA.time_attention_block(*a, **k),),
+                          lambda *a, **k: (TA.time_attention_block_plain(*a, **k),),
+                          [x, *mods, *ws, mask], dims, ["out"])
+    out["row11c_block"] = dict(
+        shape=f"time_attention_block, short route: B = {B}, T = {T}, L = {L}, {M} rows",
+        kernel="time_attention_block (adaln_linear + rope_attention + adaln_linear)",
+        rel_l2=errs["out"][0], tol=errs["out"][1],
+        ms=time_ms(lambda: TA.time_attention_block(x, *mods, *ws, mask, **dims)),
+        plain_ms=time_ms(lambda: TA.time_attention_block_plain(x, *mods, *ws, mask, **dims),
+                         reps=5),
+        library_ms=None,
+        bound=bound_ms(nbytes(x, mask, *mods, *ws) + M * C * 2,
+                       2.0 * M * C * 4 * C + 4.0 * B * L * H * T * (T + 1) * D))
+    emit({"phase": "modular_kernels", "kernels": out,
+          "rule": "max abs err <= 0.01 x max(1, max |plain f32|); blocked_attention_bwd's dq, "
+                  "dk, dv also within 0.01 of their own scale"})
+    return out
+
+
+def phase_modular_cuda_vs_cpu(dev):
+    """One velocity evaluation (``forward_inference``) card against CPU for
+    each modular config at full width with the trunk cut to 1 layer of 5
+    (the CPU pays for every layer): B = 2, T = 100, and ``interleave_ipa`` at
+    T = 1000 with B = 1; the card's launches of that evaluation as derived."""
+    from mdgen_finetune_tpu_torch.inference import InferenceEngine
+    from mdgen_finetune_tpu_torch.tasks import prep_batch
+
+    res = {}
+    cells = [(f, T, 2) for f in MODULAR_FLAGS] + [("interleave_ipa", T_SIM, 1)]
+    for i, (flag, Tc, Bc) in enumerate(cells):
+        cfg = modular_config(flag, frames=Tc, layers=1)
+        eng, sd = random_engine(dev, cfg, seed=91 + i)
+        cpu = InferenceEngine(cfg.replace(model=dataclasses.replace(cfg.model, use_bf16=False)),
+                              sd, device="cpu")
+        atom14, seqres, mask = make_inputs(Bc, 95 + i, "cpu", pad=0 if flag == "hyena" else 1)
+        feats = cpu._expand_frame0(atom14, seqres, mask)
+        zs = torch.randn(Bc, Tc, L, cfg.latent_dim, generator=torch.Generator().manual_seed(99))
+        wrappers, _ = _counters(MODULAR_WRAPPERS)
+        vel = {}
+        for name, e in (("cuda", eng), ("cpu", cpu)):
+            d = e.device
+            kw = prep_batch(e.cfg, {k: v.to(d) for k, v in feats.items()})["model_kwargs"]
+            before = {fn.__name__: fn.launches for fn in wrappers}
+            v = e.model.forward_inference(zs.to(d), torch.full((Bc,), 0.4, device=d), kw["mask"],
+                                          start_frames=kw["start_frames"], x_cond=kw["x_cond"],
+                                          x_cond_mask=kw["x_cond_mask"], aatype=kw["aatype"])
+            if name == "cuda":
+                torch.cuda.synchronize()
+                per_eval = {fn.__name__: fn.launches - before[fn.__name__] for fn in wrappers}
+            vel[name] = v.float().cpu()
+        rel = ((vel["cuda"] - vel["cpu"]).norm() / vel["cpu"].norm()).item()
+        want, _ = modular_launches_per_eval(cfg)
+        key = f"{flag}_T{Tc}_B{Bc}"
+        res[key] = dict(rel_l2=rel, velocity_norm_cpu=vel["cpu"].norm().item(),
+                        launches_per_eval=per_eval)
+        if not rel <= 5e-2 or not torch.isfinite(vel["cuda"]).all():
+            raise AssertionError(f"modular_cuda_vs_cpu[{key}]: relative L2 {rel} > 5e-2")
+        if per_eval != want:
+            raise AssertionError(f"modular_cuda_vs_cpu[{key}]: launches {per_eval}, "
+                                 f"expected {want}")
+        del eng, cpu
+    emit({"phase": "modular_cuda_vs_cpu", "tol": 5e-2, "cells": res,
+          "cut": "trunk cut to 1 layer of 5 (the CPU pays for every layer); full width"})
+
+
+def phase_modular_cli(dev):
+    """The forward-simulation CLI with an ``interleave_ipa`` checkpoint on
+    the card: ``cli.synth_data`` writes one 1,100-frame peptide; a checkpoint
+    directory in the layout ``Trainer.save_checkpoint`` writes (the Trainer
+    refuses the modular layer: it does not train yet) holds the preset's
+    config with ``interleave_ipa`` and seeded random weights; then
+    ``cli.sim_inference`` rolls out one 1,000-frame window with the preset's
+    dopri5, and the PDB parses back to 1,000 models of 4 residues with
+    ideal backbone bonds."""
+    import numpy as np
+
+    from mdgen_finetune_tpu_torch.cli import sim_inference, synth_data
+    from mdgen_finetune_tpu_torch.geometry.protein import from_pdb_models, from_pdb_string
+    from mdgen_finetune_tpu_torch.models.denoiser import LatentMDGen
+    from mdgen_finetune_tpu_torch.utils.weights import randomize_
+
+    data, out, ckpt = SCRATCH / "modular_data", SCRATCH / "modular_out", SCRATCH / "modular_ckpt"
+    synth_data.main(["--outdir", str(data), "--peptides", "AAGG", "--num_frames", "1100",
+                     "--suffix", "_i100"])
+    cfg = modular_config("interleave_ipa", frames=T_SIM, method="dopri5")
+    sd = randomize_(LatentMDGen(cfg), torch.Generator().manual_seed(45), scale=0.05).state_dict()
+    ckpt.mkdir(parents=True, exist_ok=True)
+    torch.save({"step": 0, "params": sd, "opt_state": {}, "ema_params": sd}, ckpt / "state.pt")
+    (ckpt / "config.json").write_text(cfg.to_json())
+    t0 = time.perf_counter()
+    sim_inference.main(["--sim_ckpt", str(ckpt), "--data_dir", str(data),
+                        "--split", str(data / "split.csv"), "--out_dir", str(out),
+                        "--num_frames", str(T_SIM), "--num_rollouts", "1", "--suffix", "_i100",
+                        "--device", str(dev)])
+    secs = time.perf_counter() - t0
+    meta = json.loads((out / "AAGG_meta.json").read_text())
+    path = out / "AAGG.pdb"
+    models = from_pdb_models(str(path))
+    pos = np.stack([from_pdb_string(c).atom_positions
+                    for c in path.read_text().split("ENDMDL") if "ATOM" in c])
+    n_ca = np.linalg.norm(pos[:, :, 0] - pos[:, :, 1], axis=-1)
+    ca_c = np.linalg.norm(pos[:, :, 1] - pos[:, :, 2], axis=-1)
+    dev_nca, dev_cac = float(np.abs(n_ca - 1.458).max()), float(np.abs(ca_c - 1.522).max())
+    residues = sorted({len(a) for a, _ in models})
+    emit({"phase": "modular_cli", "flag": "interleave_ipa", "meta": meta, "cli_s": secs,
+          "models": len(models), "residues_per_model": residues,
+          "pdb_bytes": path.stat().st_size, "n_ca_max_dev": dev_nca, "ca_c_max_dev": dev_cac})
+    for d in (data, out, ckpt):
+        shutil.rmtree(d, ignore_errors=True)
+    if len(models) != T_SIM or residues != [L] or meta["frames"] != T_SIM:
+        raise AssertionError(f"modular_cli: {len(models)} models of {residues} residues")
+    if not np.isfinite(pos).all() or dev_nca > 1e-2 or dev_cac > 1e-2:
+        raise AssertionError(f"modular_cli: backbone bonds off: N-CA {dev_nca}, CA-C {dev_cac}")
+
+
 KERNEL_OF = (("tiled_attention", "tiled_attention"),
              ("fused_attention_fwd", "fused_attention_fwd"),
              ("fused_attention_d", "fused_attention_bwd"),
@@ -1971,8 +2343,6 @@ def main():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
         sys.exit(2)
     t_start = time.perf_counter()
-    from mdgen_finetune_tpu_torch.config import (DataConfig, MDGenConfig, ModelConfig,
-                                                 TaskConfig, TransportConfig)
     from mdgen_finetune_tpu_torch.ops import _cuda
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1984,11 +2354,7 @@ def main():
           "cuda": torch.version.cuda, "build_s": build_s,
           "ptxas": {n: ptxas_report(_cuda.BUILD / f"{n}.log") for n in _cuda.KERNELS}})
 
-    cfg = MDGenConfig(
-        model=ModelConfig(num_layers=NL, embed_dim=C, mha_heads=H, prepend_ipa=True,
-                          abs_pos_emb=True, use_bf16=True),
-        data=DataConfig(num_frames=T, crop=L), task=TaskConfig(sim_condition=True),
-        transport=TransportConfig(sampling_method="euler", inference_steps=STEPS))
+    cfg = flagship_config()
     kernels = phase_kernels(dev)
     kernels.update(phase_bwd_kernels(dev))
     phase_step_across_devices(dev, cfg)
@@ -2028,6 +2394,19 @@ def main():
                               extra={"cut": "trunk cut to 1 layer of 5 (the CPU pays for every "
                                             "layer); full width, B = 1, T = 250, L = 256"})
     phase_atlas_cli(dev)
+    # the modular layer: its cores, its three configs sampled, the CLI
+    modular = phase_modular_kernels(dev)
+    phase_modular_cuda_vs_cpu(dev)
+    interleave_launches, (eng, batch, gen) = modular_sample(
+        dev, "interleave_main", modular_config("interleave_ipa"), B, seed=101)
+    phase_trace("interleave_trace", lambda: eng.sample(batch, gen))
+    del eng
+    interleave_1000, _ = modular_sample(
+        dev, "interleave_1000", modular_config("interleave_ipa", frames=T_SIM), B_SIM, seed=111)
+    modular_sample(dev, "hyena_main", modular_config("hyena"), B, seed=121, pad=0)
+    no_rope_launches, _ = modular_sample(dev, "no_rope_main", modular_config("no_rope"), B,
+                                         seed=131)
+    phase_modular_cli(dev)
     shutil.rmtree(SCRATCH, ignore_errors=True)
 
     bwd = "mdgen_finetune_tpu/ops/fused_layer_bwd.py:563 (_k3 :157, _k2 :323, _k1 :474)"
@@ -2083,6 +2462,38 @@ def main():
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
                      "bound_by": k["bound"][1], "library_ms": k["library_ms"],
                      "shape": k["shape"]})
+    for entry in line:  # row j beyond fp16's range (the repaired q and k scales)
+        if entry["name"] == "blocked_attention_bwd":
+            entry["fp16_range"] = {c: modular[c] for c in modular if c.startswith("blocked_")}
+    # the modular layer's natural-softmax cores (TPU rows 12, 11a, 11b and the
+    # no_rope route of row 10): launches over interleave_main (rope_attention:
+    # the residue stage, the frame stage and the encoder, 5 each per
+    # evaluation), interleave_1000 (tiled_attention) and no_rope_main
+    ta = "mdgen_finetune_tpu/ops/time_attention.py"
+    natural = (
+        ("rope_attention[natural, row 12]", "row12_residue", "rope_attention",
+         "mdgen_finetune_tpu/ops/residue_attention.py:141 (_pallas_fwd, pallas_call :183, "
+         "body _kernel :65)", interleave_launches["rope_attention"]),
+        ("rope_attention[natural, row 11a]", "row11a_frames", "rope_attention",
+         f"{ta}:244 (_pallas_fwd, pallas_call :279, body _kernel :190)",
+         interleave_launches["rope_attention"]),
+        ("tiled_attention[natural, row 11b]", "row11b_frames_T1000", "tiled_attention",
+         f"{ta}:343 (_pallas_fwd_blocked, pallas_call :385, body _kernel_blocked :303)",
+         interleave_1000["tiled_attention"]),
+        ("fused_attention_fwd[natural, no_rope]", "no_rope_frames", "fused_attention_fwd",
+         "mdgen_finetune_tpu/ops/fused_attention.py:66 (_fwd_tpu, pallas_call :75)",
+         no_rope_launches["fused_attention_fwd"]),
+    )
+    for name, case, src, rep_, n_launch in natural:
+        k = modular[case]
+        line.append({"name": name, "route": "cuda", "source": meta[src][0], "replaces": rep_,
+                     "launches": n_launch, "max_abs_err": k["max_abs_err"], "tol": k["tol"],
+                     "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
+                     "bound_by": k["bound"][1], "library_ms": k["library_ms"],
+                     "shape": k["shape"],
+                     "more_shapes": {c: {f: v for f, v in modular[c].items() if f != "shape"}
+                                     for c in modular if modular[c]["kernel"] == src.split("[")[0]
+                                     and c != case}})
     emit({"kernels": line, "card": smi, "total_s": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -5,7 +5,9 @@ checkpoint that ``Trainer.save_checkpoint`` wrote (a directory with
 ``state.pt`` and ``config.json``), rolls out ``num_rollouts`` windows from
 the first frame of each test peptide with the config's ODE sampler, and
 writes one multi-MODEL PDB trajectory and one meta JSON line per peptide.
-Runs on the card unless ``--device cpu`` is given:
+The checkpoint's config chooses the model, the modular configurations
+(``interleave_ipa``, ``hyena``, ``no_rope``) included. Runs on the card
+unless ``--device cpu`` is given:
 
     python -m mdgen_finetune_tpu_torch.cli.sim_inference --sim_ckpt CKPT \\
         --data_dir DIR --split DIR/split.csv --out_dir OUT --num_frames 1000 \\

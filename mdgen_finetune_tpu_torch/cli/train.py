@@ -17,9 +17,10 @@ command (``scripts/train_4aa_forward_sim.sh``):
 ``--profile_dir`` writes a ``torch.profiler`` trace of the first epoch.
 Flags of branches that are not ported yet raise ``NotImplementedError``
 naming their ROADMAP item before anything is written: the design task and
-its designability probe (``--design``, ``--inference_batches``), Hyena,
-``--no_rope``, ``--interleave_ipa``, dropout, the other tasks, and
-``--dp_size`` / ``--sp_size`` above 1.
+its designability probe (``--design``, ``--inference_batches``), the
+modular layer (``--hyena``, ``--no_rope``, ``--interleave_ipa``; their
+checkpoints sample, but training them is not ported) and ``--dropout``,
+the other tasks, and ``--dp_size`` / ``--sp_size`` above 1.
 """
 from __future__ import annotations
 

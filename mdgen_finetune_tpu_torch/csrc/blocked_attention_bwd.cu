@@ -32,10 +32,19 @@
 // 0.32% in fp16). But ds is a gradient, ~1e-6 in a real
 // step, below fp16's normal range (6.1e-5): each query tile therefore
 // scales its ds by 1 / max|dO| of the tile before rounding it to fp16, and
-// its dq and dk partials by max|dO| after the products, in f32. The trunk's
-// RoPE'd q and k are O(1-10) (q carries head_dim^-0.5 * log2 e), far inside
-// fp16's range (65,504; a larger value would overflow, which nothing
-// checks). dO, v, pn and the stored unnormalised p (up to 2^100) stay bf16.
+// its dq and dk partials by max|dO| after the products, in f32. q and k are
+// scaled too where they need it, so that any finite bf16 input fits fp16's
+// range (65,504 at most; full precision from 6.1e-5): the staging loops
+// take max|RoPE'd q| of each query tile and max|RoPE'd k| of the head as
+// they go, and a tile or head whose maximum lies outside [2^-6, 2^15) is
+// staged again times 2^s, a power of two that puts the maximum in
+// [2^14, 2^15) (1 / max up to a power of two and a constant; a power of
+// two adds no rounding of its own). The f32 logits q.k come back times
+// 2^-(sq + sk) after the product, dq = ds.k times 2^-sk and dk = ds^T.q
+// times 2^-sq, each folded into the tile's one factor with max|dO|. Inside
+// the window nothing is staged twice and s = 0: the results are bit for
+// bit those of the kernel without the scales, at nearly its cost. dO, v,
+// pn and the stored unnormalised p (up to 2^100) stay bf16.
 
 // Design (mma.sync m16n8k16 helpers of attention_tile.cuh; D padded to a
 // multiple of 16, 24 -> 32): one block of 4 warps per (sequence, head).
@@ -58,7 +67,7 @@
 //
 // Shared memory grows with the padded key count NKP = 64 * ceil((N+1)/64)
 // (every staged element takes 2 bytes, bf16 or fp16):
-// ~544 bytes per key at D = 24 plus ~38 KB, 213,776 bytes at N = 256; the
+// ~544 bytes per key at D = 24 plus ~38 KB, 213,824 bytes at N = 256; the
 // wrapper names the limit (N <= 319 at D = 24) and raises beyond it.
 //
 // What bounds it on the H100: at the ATLAS residue stage (250 frames x 16
@@ -135,10 +144,28 @@ struct Layout {
     dka = o; o += (size_t)NKP * D * 4;
     dva = o; o += (size_t)NKP * D * 4;
     kc = o; o += (size_t)NKP * 4;
-    red = o; o += 4 * 4;                    // the warps' max|dO| of a query tile
+    red = o; o += 16 * 4;                   // the warps' max|dO|, max|q| and max|k|
     total = o;
   }
 };
+
+// the scale exponent s of values whose largest magnitude is m: 0 inside
+// [2^-6, 2^15) (and for m = 0), else the s with m * 2^s in [2^14, 2^15)
+__device__ __forceinline__ int scale_exponent(float m) {
+  int e = 0;
+  if (m > 0.f) frexpf(m, &e);  // m in [2^(e-1), 2^e)
+  return (m > 0.f && (e > 15 || e < -5)) ? 15 - e : 0;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float max4(const float* r) {
+  return fmaxf(fmaxf(r[0], r[1]), fmaxf(r[2], r[3]));
+}
 
 // RoPE of one (token, pair of lanes d, d + D/2) at position n
 __device__ __forceinline__ void rope_pair(float& o0, float& o1, float v0, float v1,
@@ -260,30 +287,45 @@ __global__ void __launch_bounds__(THREADS) blocked_attention_bwd_kernel(
   const f16 hzero = __float2half_rn(0.f);
 
   // ---- the head's keys (RoPE'd; the bias key at N) and values, once ----
+  // (times 2^sk: staged again in the first query tile if max|k| needs it)
+  auto stage_key = [&](int n, int d, int sk) {
+    float o0 = 0.f, o1 = 0.f;
+    if (n <= N) {
+      const bf16* src = n < N ? qkv + (row0 + (long long)n * I) * 3LL * C + C + h * D
+                              : bias_k + h * D;
+      rope_pair(o0, o1, __bfloat162float(src[d]), __bfloat162float(src[d + HALF]),
+                cos_t + (long long)n * D, sin_t + (long long)n * D, d, HALF);
+    }
+    const float m = fmaxf(fabsf(o0), fabsf(o1));
+    if (sk != 0) {
+      o0 = ldexpf(o0, sk);
+      o1 = ldexpf(o1, sk);
+    }
+    const f16 h0 = __float2half_rn(o0), h1 = __float2half_rn(o1);
+    Ks[n * RS + d] = h0;
+    Ks[n * RS + d + HALF] = h1;
+    Kt[d * KTS + n] = h0;
+    Kt[(d + HALF) * KTS + n] = h1;
+    return m;
+  };
+  float kmax = 0.f;
   for (int e = tid; e < NKP * HALF; e += THREADS) {
     const int n = e / HALF, d = e % HALF;
-    float k0 = 0.f, k1 = 0.f, v0 = 0.f, v1 = 0.f;
+    float v0 = 0.f, v1 = 0.f;
     if (n < N) {
       const bf16* src = qkv + (row0 + (long long)n * I) * 3LL * C + h * D;
-      k0 = __bfloat162float(src[C + d]);
-      k1 = __bfloat162float(src[C + d + HALF]);
       v0 = __bfloat162float(src[2 * C + d]);
       v1 = __bfloat162float(src[2 * C + d + HALF]);
     } else if (n == N) {
-      k0 = __bfloat162float(bias_k[h * D + d]);
-      k1 = __bfloat162float(bias_k[h * D + d + HALF]);
       v0 = __bfloat162float(bias_v[h * D + d]);
       v1 = __bfloat162float(bias_v[h * D + d + HALF]);
     }
-    float o0 = 0.f, o1 = 0.f;
-    if (n <= N) rope_pair(o0, o1, k0, k1, cos_t + (long long)n * D, sin_t + (long long)n * D, d, HALF);
-    Ks[n * RS + d] = __float2half_rn(o0);
-    Ks[n * RS + d + HALF] = __float2half_rn(o1);
-    Kt[d * KTS + n] = __float2half_rn(o0);
-    Kt[(d + HALF) * KTS + n] = __float2half_rn(o1);
+    kmax = fmaxf(kmax, stage_key(n, d, 0));
     Vs[n * RS + d] = __float2bfloat16(v0);
     Vs[n * RS + d + HALF] = __float2bfloat16(v1);
   }
+  kmax = warp_max(kmax);
+  if (lane == 0) Red[8 + warp] = kmax;  // read after the first query tile's barrier
   if constexpr (DP > D) {  // pad lanes meet only zeros in the products
     constexpr int P = DP - D;
     for (int e = tid; e < NKP * P; e += THREADS) {
@@ -305,41 +347,70 @@ __global__ void __launch_bounds__(THREADS) blocked_attention_bwd_kernel(
   for (int e = tid; e < NKP * D; e += THREADS) dKa[e] = dVa[e] = 0.f;
 
   const int qtiles = (N + ROWS - 1) / ROWS;
+  int sk = 0;  // the keys' scale exponent (set in the first query tile)
   for (int qtile = 0; qtile < qtiles; ++qtile) {
     const int q0 = qtile * ROWS;
     // ---- the query tile: RoPE'd q and dO, row-major and transposed ----
-    float gmax = 0.f;
-    for (int e = tid; e < ROWS * HALF; e += THREADS) {
-      const int r = e / HALF, d = e % HALF, n = q0 + r;
-      float o0 = 0.f, o1 = 0.f, g0 = 0.f, g1 = 0.f;
+    // (q times 2^sq: staged again if max|q| of the tile needs it)
+    auto stage_query = [&](int r, int d, int sq) {
+      const int n = q0 + r;
+      float o0 = 0.f, o1 = 0.f;
       if (n < N) {
-        const long long row = row0 + (long long)n * I;
-        const bf16* src = qkv + row * 3LL * C + h * D;
+        const bf16* src = qkv + (row0 + (long long)n * I) * 3LL * C + h * D;
         rope_pair(o0, o1, __bfloat162float(src[d]), __bfloat162float(src[d + HALF]),
                   cos_t + (long long)n * D, sin_t + (long long)n * D, d, HALF);
-        const bf16* go = dout + row * C + h * D;
+      }
+      const float m = fmaxf(fabsf(o0), fabsf(o1));
+      if (sq != 0) {
+        o0 = ldexpf(o0, sq);
+        o1 = ldexpf(o1, sq);
+      }
+      const f16 h0 = __float2half_rn(o0), h1 = __float2half_rn(o1);
+      Qs[r * RS + d] = h0;
+      Qs[r * RS + d + HALF] = h1;
+      Qt[d * QTS + r] = h0;
+      Qt[(d + HALF) * QTS + r] = h1;
+      return m;
+    };
+    float gmax = 0.f, qmax = 0.f;
+    for (int e = tid; e < ROWS * HALF; e += THREADS) {
+      const int r = e / HALF, d = e % HALF, n = q0 + r;
+      float g0 = 0.f, g1 = 0.f;
+      if (n < N) {
+        const bf16* go = dout + (row0 + (long long)n * I) * C + h * D;
         g0 = __bfloat162float(go[d]);
         g1 = __bfloat162float(go[d + HALF]);
         gmax = fmaxf(gmax, fmaxf(fabsf(g0), fabsf(g1)));
       }
+      qmax = fmaxf(qmax, stage_query(r, d, 0));
       const bf16 c0 = __float2bfloat16(g0), c1 = __float2bfloat16(g1);
-      Qs[r * RS + d] = __float2half_rn(o0);
-      Qs[r * RS + d + HALF] = __float2half_rn(o1);
-      Qt[d * QTS + r] = __float2half_rn(o0);
-      Qt[(d + HALF) * QTS + r] = __float2half_rn(o1);
       Gs[r * RS + d] = c0;
       Gs[r * RS + d + HALF] = c1;
       Gt[d * QTS + r] = c0;
       Gt[(d + HALF) * QTS + r] = c1;
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) gmax = fmaxf(gmax, __shfl_xor_sync(0xffffffffu, gmax, off));
-    if (lane == 0) Red[warp] = gmax;
+    gmax = warp_max(gmax);
+    qmax = warp_max(qmax);
+    if (lane == 0) {
+      Red[warp] = gmax;
+      Red[4 + warp] = qmax;
+    }
     __syncthreads();
     // ds of this tile goes to fp16 as ds / max|dO|, its dq and dk partials
     // come back times max|dO|
-    const float gm = fmaxf(fmaxf(Red[0], Red[1]), fmaxf(Red[2], Red[3]));
+    const float gm = max4(Red);
     const float to_f16 = gm > 0.f ? 1.f / gm : 1.f, from_f16 = gm > 0.f ? gm : 1.f;
+    // q and k outside fp16's comfortable range: staged again, scaled (the
+    // maxima are the block's, so the branches are uniform)
+    const int sq = scale_exponent(max4(Red + 4));
+    if (qtile == 0) sk = scale_exponent(max4(Red + 8));
+    if (sq != 0)
+      for (int e = tid; e < ROWS * HALF; e += THREADS) stage_query(e / HALF, e % HALF, sq);
+    if (qtile == 0 && sk != 0)
+      for (int e = tid; e < (N + 1) * HALF; e += THREADS) stage_key(e / HALF, e % HALF, sk);
+    if (sq != 0 || (qtile == 0 && sk != 0)) __syncthreads();
+    const float lscale = ldexpf(1.f, -(sq + sk));  // the logits' scale
+    const float dk_back = ldexpf(from_f16, -sq), dq_back = ldexpf(from_f16, -sk);
 
     uint32_t qa[Dims<D>::KC][4], ga[Dims<D>::KC][4];
     load_rows<D, F16>(qa, Qs, warp * 16);
@@ -358,7 +429,7 @@ __global__ void __launch_bounds__(THREADS) blocked_attention_bwd_kernel(
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float cls = Kc[kt * ROWS + nb * 8 + tig * 2 + (e & 1)];
-          p[e] = exp2f(fminf(logit2(s[nb][e], cls, 1.f), 100.f));
+          p[e] = exp2f(fminf(logit2(s[nb][e], cls, lscale), 100.f));
           den[e >> 1] += p[e];
           sdp[e >> 1] += p[e] * dp[nb][e];
         }
@@ -420,7 +491,7 @@ __global__ void __launch_bounds__(THREADS) blocked_attention_bwd_kernel(
             const int d = db * 8 + tig * 2 + j;
             if (d < D) {
               dVa[key * D + d] += dv[db][2 * i + j];
-              dKa[key * D + d] += dk[db][2 * i + j] * from_f16;
+              dKa[key * D + d] += dk[db][2 * i + j] * dk_back;
             }
           }
       }
@@ -434,7 +505,7 @@ __global__ void __launch_bounds__(THREADS) blocked_attention_bwd_kernel(
       for (int db = 0; db < DB; ++db)
 #pragma unroll
         for (int j = 0; j < 2; ++j)
-          dQf[(warp * 16 + gid + 8 * i) * DP + db * 8 + tig * 2 + j] = dq[db][2 * i + j] * from_f16;
+          dQf[(warp * 16 + gid + 8 * i) * DP + db * 8 + tig * 2 + j] = dq[db][2 * i + j] * dq_back;
     __syncthreads();
     for (int e = tid; e < ROWS * HALF; e += THREADS) {
       const int r = e / HALF, d = e % HALF, n = q0 + r;

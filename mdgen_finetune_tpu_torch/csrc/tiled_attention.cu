@@ -6,7 +6,11 @@
 //   (body _block_kernel_blocked: RoPE, the bias key, `_grouped_attend` with
 //   base2=True), the TPU kernel that the JAX package's trunk runs for the
 //   frame stage at T > MAX_T = 256 (the 4AA forward-simulation preset,
-//   T = 1000).
+//   T = 1000), and, in its natural-softmax mode (base2 = 0), the whole of
+//   mdgen_finetune_tpu/ops/time_attention.py::_pallas_fwd_blocked (:343,
+//   body _kernel_blocked :303, `_grouped_attend` with base2=False): the
+//   modular layer's frame attention above L = 8 or T = 256, and its residue
+//   attention above L = 8 with the axes swapped.
 //
 // Layout (that of rope_attention, so the trunk swaps one call for the other
 // with no transpose): qkv is (G, N, I, 3C) bf16 (q | k | v column blocks);
@@ -27,6 +31,21 @@
 // p.V into the f32 accumulators and its p into the row sums, and the one
 // division happens after the last tile. A masked key gets exp2(-1e9) = 0
 // exactly, so a tile that holds only masked (or padding) keys adds nothing.
+//
+// The natural mode (the modular layer: q carries head_dim^-0.5 only) is
+// JAX's max-subtracted softmax, p = exp(l - max l), computed online: each
+// row keeps a running max across the key tiles, and when a tile raises it
+// the f32 accumulators and the row sums are rescaled by exp(old - new)
+// before the tile's p = exp(l - new) is added. So no exp overflows however
+// large the logits (exp without the max would overflow f32 above l = 88).
+// It runs in base-2 units, t = l * log2(e) and p = exp2(t - max t), the
+// same function: exp2f is the short hardware sequence that the base-2 mode
+// also uses, where expf is a longer accurate one (PERF.md times both). A
+// tile of masked keys only (l = -1e9) may set the first max; the first
+// attendable key (the bias key, at the latest) rescales its terms by
+// exp2(-1e9 - t) = 0. The two modes are one kernel with a template flag;
+// the base-2 instructions are those of the base-2 kernel before the mode
+// existed.
 //
 // Design: one block of 4 warps per (sequence, head, 64-query tile). The
 // query tile is RoPE'd into shared memory once; each warp keeps its 16 rows
@@ -95,7 +114,7 @@ __device__ __forceinline__ void stage_roped(bf16* dst, const bf16* qkv, const bf
   }
 }
 
-template <int D>
+template <int D, bool NATURAL>
 __global__ void __launch_bounds__(THREADS) tiled_attention_kernel(
     const bf16* __restrict__ qkv, const bf16* __restrict__ bias_k,
     const bf16* __restrict__ bias_v, const float* __restrict__ key_valid,
@@ -146,6 +165,7 @@ __global__ void __launch_bounds__(THREADS) tiled_attention_kernel(
 #pragma unroll
   for (int db = 0; db < DB; ++db) o[db][0] = o[db][1] = o[db][2] = o[db][3] = 0.f;
   float l0 = 0.f, l1 = 0.f;  // row sums of rows gid and gid + 8 (this thread's columns)
+  float m0 = -INFINITY, m1 = -INFINITY;  // natural mode: the rows' running maxima
 
   const int ntiles = (N + 1 + KT - 1) / KT;
   for (int kt = 0; kt < ntiles; ++kt) {
@@ -177,17 +197,60 @@ __global__ void __launch_bounds__(THREADS) tiled_attention_kernel(
     }
     // p = exp2(min(l + bias, 100)): f32 row sums, bf16 A fragments for p.V
     uint32_t pa[KT / 16][4];
+    if constexpr (NATURAL) {
+      // the logits in base-2 units, the tile's row maxima (the four threads
+      // of a row group hold disjoint columns), then rescale what earlier
+      // tiles summed
+      float t0 = -INFINITY, t1 = -INFINITY;
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-      const int c = nb * 8 + tig * 2;
-      const float p0 = exp2f(fminf(sf[nb][0] + Kb[c], 100.f));
-      const float p1 = exp2f(fminf(sf[nb][1] + Kb[c + 1], 100.f));
-      const float p2 = exp2f(fminf(sf[nb][2] + Kb[c], 100.f));
-      const float p3 = exp2f(fminf(sf[nb][3] + Kb[c + 1], 100.f));
-      l0 += p0 + p1;
-      l1 += p2 + p3;
-      pa[nb / 2][(nb % 2) * 2] = pack2(p0, p1);
-      pa[nb / 2][(nb % 2) * 2 + 1] = pack2(p2, p3);
+      for (int nb = 0; nb < NB; ++nb) {
+        const int c = nb * 8 + tig * 2;
+        sf[nb][0] = fmaf(sf[nb][0], attn_tile::LOG2E, Kb[c]);
+        sf[nb][1] = fmaf(sf[nb][1], attn_tile::LOG2E, Kb[c + 1]);
+        sf[nb][2] = fmaf(sf[nb][2], attn_tile::LOG2E, Kb[c]);
+        sf[nb][3] = fmaf(sf[nb][3], attn_tile::LOG2E, Kb[c + 1]);
+        t0 = fmaxf(t0, fmaxf(sf[nb][0], sf[nb][1]));
+        t1 = fmaxf(t1, fmaxf(sf[nb][2], sf[nb][3]));
+      }
+      t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, 1));
+      t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, 2));
+      t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, 1));
+      t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, 2));
+      const float n0 = fmaxf(m0, t0), n1 = fmaxf(m1, t1);
+      const float a0 = exp2f(m0 - n0), a1 = exp2f(m1 - n1);  // 0 at the first tile
+      m0 = n0;
+      m1 = n1;
+      l0 *= a0;
+      l1 *= a1;
+#pragma unroll
+      for (int db = 0; db < DB; ++db) {
+        o[db][0] *= a0;
+        o[db][1] *= a0;
+        o[db][2] *= a1;
+        o[db][3] *= a1;
+      }
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const float p0 = exp2f(sf[nb][0] - n0), p1 = exp2f(sf[nb][1] - n0);
+        const float p2 = exp2f(sf[nb][2] - n1), p3 = exp2f(sf[nb][3] - n1);
+        l0 += p0 + p1;
+        l1 += p2 + p3;
+        pa[nb / 2][(nb % 2) * 2] = pack2(p0, p1);
+        pa[nb / 2][(nb % 2) * 2 + 1] = pack2(p2, p3);
+      }
+    } else {
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const int c = nb * 8 + tig * 2;
+        const float p0 = exp2f(fminf(sf[nb][0] + Kb[c], 100.f));
+        const float p1 = exp2f(fminf(sf[nb][1] + Kb[c + 1], 100.f));
+        const float p2 = exp2f(fminf(sf[nb][2] + Kb[c], 100.f));
+        const float p3 = exp2f(fminf(sf[nb][3] + Kb[c + 1], 100.f));
+        l0 += p0 + p1;
+        l1 += p2 + p3;
+        pa[nb / 2][(nb % 2) * 2] = pack2(p0, p1);
+        pa[nb / 2][(nb % 2) * 2 + 1] = pack2(p2, p3);
+      }
     }
 #pragma unroll
     for (int j = 0; j < KT / 16; ++j) {
@@ -204,7 +267,9 @@ __global__ void __launch_bounds__(THREADS) tiled_attention_kernel(
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.f / (l0 + 1e-30f), inv1 = 1.f / (l1 + 1e-30f);
+  // the natural row sums hold exp(0) = 1 at least (the row's max key)
+  const float inv0 = NATURAL ? 1.f / l0 : 1.f / (l0 + 1e-30f);
+  const float inv1 = NATURAL ? 1.f / l1 : 1.f / (l1 + 1e-30f);
   const int n_lo = q0 + warp * 16 + gid, n_hi = n_lo + 8;
 #pragma unroll
   for (int db = 0; db < DB; ++db) {
@@ -219,14 +284,14 @@ __global__ void __launch_bounds__(THREADS) tiled_attention_kernel(
   }
 }
 
-template <int D>
+template <int D, bool NATURAL>
 int launch(const void* qkv, const void* bias_k, const void* bias_v, const void* key_valid,
            const void* cos_t, const void* sin_t, void* out, int G, int N, int I, int H, int C,
            cudaStream_t stream) {
   const int qtiles = (N + QT - 1) / QT;
   const long long blocks = (long long)G * I * H * qtiles;
   if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  tiled_attention_kernel<D><<<(unsigned)blocks, THREADS, 0, stream>>>(
+  tiled_attention_kernel<D, NATURAL><<<(unsigned)blocks, THREADS, 0, stream>>>(
       static_cast<const bf16*>(qkv), static_cast<const bf16*>(bias_k),
       static_cast<const bf16*>(bias_v), static_cast<const float*>(key_valid),
       static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
@@ -234,17 +299,30 @@ int launch(const void* qkv, const void* bias_k, const void* bias_v, const void* 
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_mode(const void* qkv, const void* bias_k, const void* bias_v, const void* key_valid,
+                const void* cos_t, const void* sin_t, void* out, int G, int N, int I, int H,
+                int C, int base2, cudaStream_t stream) {
+  return base2 ? launch<D, false>(qkv, bias_k, bias_v, key_valid, cos_t, sin_t, out, G, N, I, H,
+                                  C, stream)
+               : launch<D, true>(qkv, bias_k, bias_v, key_valid, cos_t, sin_t, out, G, N, I, H,
+                                 C, stream);
+}
+
 }  // namespace
 
+// base2 = 1: the base-2 no-max softmax (the fused trunk); 0: the natural
+// max-subtracted softmax (the modular layer)
 extern "C" int tiled_attention(const void* qkv, const void* bias_k, const void* bias_v,
                                const void* key_valid, const void* cos_t, const void* sin_t,
-                               void* out, int G, int N, int I, int H, int C, void* stream) {
+                               void* out, int G, int N, int I, int H, int C, int base2,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C / H) {
-    case 16: return launch<16>(qkv, bias_k, bias_v, key_valid, cos_t, sin_t, out, G, N, I, H, C, s);
-    case 24: return launch<24>(qkv, bias_k, bias_v, key_valid, cos_t, sin_t, out, G, N, I, H, C, s);
-    case 32: return launch<32>(qkv, bias_k, bias_v, key_valid, cos_t, sin_t, out, G, N, I, H, C, s);
-    case 64: return launch<64>(qkv, bias_k, bias_v, key_valid, cos_t, sin_t, out, G, N, I, H, C, s);
+    case 16: return launch_mode<16>(qkv, bias_k, bias_v, key_valid, cos_t, sin_t, out, G, N, I, H, C, base2, s);
+    case 24: return launch_mode<24>(qkv, bias_k, bias_v, key_valid, cos_t, sin_t, out, G, N, I, H, C, base2, s);
+    case 32: return launch_mode<32>(qkv, bias_k, bias_v, key_valid, cos_t, sin_t, out, G, N, I, H, C, base2, s);
+    case 64: return launch_mode<64>(qkv, bias_k, bias_v, key_valid, cos_t, sin_t, out, G, N, I, H, C, base2, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -7,7 +7,10 @@ velocity field runs the flagship path: the weights folded once, and the
 whole t grid's t-embeddings, AdaLN rows and encoder outputs computed before
 the chain; each step is then one ``flat_call``. Heun and dopri5 (the
 forward-simulation presets' default) integrate the probability-flow drift
-of ``LatentMDGen.forward_inference`` with ``transport.sample_ode``. The
+of ``LatentMDGen.forward_inference`` with ``transport.sample_ode``, and so
+does every sampler of the modular configurations (``interleave_ipa``,
+``hyena``, ``no_rope``), Euler included, as the JAX package's
+``LatentMDGen.flat_scan_ok`` sends them to its generic route. The
 reverse-SDE sampler, design and mpnn are not ported yet (ROADMAP.md queue 1
 item 8).
 
@@ -93,9 +96,10 @@ class InferenceEngine:
     def sample_with_zs0(self, batch: dict, zs0: torch.Tensor):
         """Featurized batch + prior latent (B, T, L, lat) -> (atom14, aatype)
         (src/mdgen/wrapper.py:436): the Euler chain on the flat latent for
-        Euler with the velocity objective, else the generic ODE solve of
-        ``sample_ode`` over ``transport.drift_fn(forward_inference)`` (the
-        JAX package's ``_sample``, :231-249)."""
+        Euler with the velocity objective on the fused branch, else the
+        generic ODE solve of ``sample_ode`` over
+        ``transport.drift_fn(forward_inference)`` (the JAX package's
+        ``_sample``, :144-151 and :231-249)."""
         cfg, model = self.cfg, self.model
         batch = {k: self._tensor(v) for k, v in batch.items()
                  if isinstance(v, (np.ndarray, torch.Tensor))}
@@ -109,7 +113,7 @@ class InferenceEngine:
         n = cfg.transport.inference_steps
         xc = zs0.to(self.device, torch.float32).clone().contiguous()
         method = cfg.transport.sampling_method
-        if method == "euler" and self.transport.prediction == "velocity":
+        if method == "euler" and self.transport.prediction == "velocity" and not model.modular:
             dt = (t1 - t0) / n
             ts = t0 + dt * torch.arange(n, dtype=torch.float32, device=self.device)
             encs = model.encode_steps(ts, mask, consts, pack, kw["start_frames"])

@@ -1,24 +1,37 @@
 """SiT-style latent denoiser with factorized frame x residue attention.
 
 Counterpart of the JAX package's ``models/denoiser.py::LatentMDGen``
-(reference src/mdgen/model/latent_model.py:43-326) for the configurations
-of this slice: plain continuous latents (``sim_condition`` and friends),
-with or without the prepend-IPA encoder, absolute position/time tables, the
-parent-orchestrated fused trunk. Parameters are named after the flax tree
-(``layers_3/mha_t/q_proj/kernel`` -> ``layers.3.mha_t.q_proj.weight``);
-``utils.weights.from_flax`` converts a JAX checkpoint.
+(reference src/mdgen/model/latent_model.py:43-326) for plain continuous
+latents (``sim_condition`` and friends), with or without the prepend-IPA
+encoder and the absolute position/time tables. Parameters are named after
+the flax tree (``layers_3/mha_t/q_proj/kernel`` ->
+``layers.3.mha_t.q_proj.weight``); ``utils.weights.from_flax`` converts a
+JAX checkpoint.
+
+The trunk takes one of JAX's two branches of ``LatentMDGenLayer``
+(:246-330):
+- the fused branch (the default configs, and ``dropout > 0`` at inference,
+  where JAX's ``train`` is False): ``ops/fused_layer.py``, every attention
+  with the base-2 softmax fold;
+- the modular branch (``interleave_ipa``, ``hyena``, ``no_rope``):
+  ``LatentMDGenLayer.forward``, a per-layer IPA with ``interleave_ipa``,
+  then ``MultiheadAttention`` over residues and over frames (or Hyena, or
+  dense attention without RoPE) with the natural softmax, then
+  ``adaln_mlp``. Sampling only: the Trainer refuses it (ROADMAP.md, queue 1
+  item 9, training the modular layer).
 
 Three ways to run it, as in the JAX package:
 - ``forward(x, t, mask, ...)``: the plain call (``__call__``, :608-740),
-  differentiable (the training path);
+  differentiable on the fused branch (the training path);
 - ``forward_inference(x, t, mask, ...)``: the same velocity without
-  gradients, for the generic ODE samplers (heun, dopri5);
-- the flat sampling path: ``make_trunk_pack`` (weights folded and stacked
-  once per sample), ``make_scan_consts`` (per-step-constant embed terms),
-  ``embed_times`` / ``embed_mods`` / ``encode_steps`` (the whole t grid's
-  t-embeddings, AdaLN rows and encoder outputs at once), then one
-  ``flat_call`` per Euler step, which updates the f32 latent carry
-  (B, T, L, lat) in place.
+  gradients, for the generic ODE samplers (heun, dopri5; every sampler of
+  the modular branch);
+- the flat sampling path of the fused branch: ``make_trunk_pack`` (weights
+  folded and stacked once per sample), ``make_scan_consts``
+  (per-step-constant embed terms), ``embed_times`` / ``embed_mods`` /
+  ``encode_steps`` (the whole t grid's t-embeddings, AdaLN rows and
+  encoder outputs at once), then one ``flat_call`` per Euler step, which
+  updates the f32 latent carry (B, T, L, lat) in place.
 
 ``self.dtype`` is the compute dtype (bf16 on the card, f32 in the CPU
 tests); parameters stay f32 and packs are cast once.
@@ -33,9 +46,14 @@ import torch.nn.functional as F
 
 from ..config import MDGenConfig
 from ..geometry.rigid import Rigid
+from ..ops.adaln_linear import adaln_linear
+from ..ops.adaln_mlp import adaln_mlp
 from ..ops.fused_layer import fused_trunk, fused_trunk_train
+from ..ops.ipa_attention import ipa_attention
 from ..ops.ipa_encoder import ipa_encoder
-from .attention import LOG2E, MHAParams
+from .attention import MHAParams, MultiheadAttention
+from .attention_core import LOG2E
+from .hyena import HyenaOperator
 from .ipa import IPAParams
 from .layers import TimestepEmbedder, sincos_pos_embed
 
@@ -56,18 +74,125 @@ class IPALayer(nn.Module):
         self.fc2 = nn.Linear(4 * C, C)
 
 
-class TrunkLayer(nn.Module):
-    """LatentMDGenLayer parameters: 9-way AdaLN, residue and frame attention,
-    MLP (src/mdgen/model/latent_model.py:397-493)."""
+def modular(cfg: MDGenConfig) -> bool:
+    """True when the trunk takes the modular branch of LatentMDGenLayer (the
+    JAX package's ``not fused_trunk`` at inference, :270, :360)."""
+    m = cfg.model
+    return bool(m.interleave_ipa or m.hyena or m.no_rope)
+
+
+def _ipa_weights(ln: nn.LayerNorm, ipa: IPAParams, dt) -> dict:
+    """An IPA block's weights for ops/adaln_linear and ops/ipa_attention: the
+    affine LayerNorm (f32), the six projections as one (C, proj) weight, the
+    head weights (f32) and linear_out (the JAX package's
+    ``fold_encoder_ws`` split)."""
+    wproj, bproj = ipa.projections()
+    return dict(ln_w=ln.weight.float().contiguous(), ln_b=ln.bias.float().contiguous(),
+                wproj=wproj.to(dt).contiguous(), bproj=bproj.to(dt),
+                head_weights=ipa.head_weights.float().contiguous(),
+                wo_i=_t(ipa.linear_out, dt), bo_i=ipa.linear_out.bias.to(dt))
+
+
+class LatentMDGenLayer(nn.Module):
+    """One trunk layer (src/mdgen/model/latent_model.py:397-493): 9-way
+    AdaLN, residue and frame attention, MLP; with ``interleave_ipa`` an
+    affine LayerNorm and IPA first, with ``hyena`` a Hyena operator as the
+    frame stage (``mha_t``).
+
+    The fused branch reads only the parameters (``make_trunk_pack``).
+    ``forward`` is the JAX package's modular branch (:246-330), in its order:
+
+        h += IPA(affine LN(h))                 interleave_ipa: frame 0's rigids
+                                                 for every frame, frame_mask = mask
+        h += g_l * mha_l(modulate(LN(h)))      over residues
+        h += g_t * mha_t(modulate(LN(h)))      over frames: attention, Hyena,
+                                                 or dense attention (no_rope)
+        h  = adaln_mlp(h)
+
+    The LayerNorm + modulate of each stage runs inside its first product and
+    the gate and residual inside its last (``ops/adaln_linear``'s prologue
+    and ``gate_res`` epilogue, as ``ops/time_attention.time_attention_block``
+    does), and the IPA's affine LayerNorm inside its projection (as the
+    encoder's): on the card every product is the hand-written kernel, with
+    no separate pass over the activation for LN, modulate, gate or
+    residual; JAX computes the same in XLA. The cores are
+    ``ops/ipa_attention``, ``ops/residue_attention`` /
+    ``ops/time_attention`` (natural softmax), ``ops/fused_attention``
+    (``no_rope``) and Hyena's FFT convolution."""
 
     def __init__(self, cfg: MDGenConfig):
         super().__init__()
-        C = cfg.model.embed_dim
+        m = cfg.model
+        C, H = m.embed_dim, m.mha_heads
         self.adaLN = nn.Linear(C, 9 * C)
-        self.mha_l = MHAParams(C)
-        self.mha_t = MHAParams(C)
+        if m.interleave_ipa:
+            self.ipa_norm = nn.LayerNorm(C, eps=1e-5)
+            self.ipa = IPAParams(C, m.ipa_heads, m.ipa_head_dim, m.ipa_qk, m.ipa_v)
+        self.mha_l = MultiheadAttention(C, H, use_rope=not m.no_rope)
+        self.mha_t = (HyenaOperator(C, l_max=cfg.data.num_frames, order=2,
+                                    filter_order=m.hyena_filter_order) if m.hyena
+                      else MultiheadAttention(C, H, use_rope=not m.no_rope))
         self.fc1 = nn.Linear(C, 4 * C)
         self.fc2 = nn.Linear(4 * C, C)
+
+    def fold(self, dt) -> dict:
+        """The modular branch's weights in the products' layout and dtype
+        ``dt``, made once per sample (``make_trunk_pack``)."""
+        w = dict(l=self.mha_l.fold(dt), w1=_t(self.fc1, dt), b1=self.fc1.bias.to(dt),
+                 w2=_t(self.fc2, dt), b2=self.fc2.bias.to(dt))
+        if isinstance(self.mha_t, HyenaOperator):
+            w["t"] = dict(w_in=_t(self.mha_t.in_proj, dt), b_in=self.mha_t.in_proj.bias.to(dt),
+                          wout=_t(self.mha_t.out_proj, dt), bout=self.mha_t.out_proj.bias.to(dt))
+        else:
+            w["t"] = self.mha_t.fold(dt)
+        if hasattr(self, "ipa"):
+            w["ipa"] = _ipa_weights(self.ipa_norm, self.ipa, dt)
+        return w
+
+    def forward(self, h, mod, mask, w, frames=None):
+        """h (M, C) with M = B*T*L rows (b, t, l); mod (nb, 9C) this layer's
+        AdaLN rows; mask (B, T, L) f32; ``w`` from ``fold``; ``frames`` =
+        (rot (B*T, L, 3, 3), trans (B*T, L, 3)) f32, frame 0's rigids for
+        every frame (``interleave_ipa``). Returns the new h (M, C)."""
+        B, T, L = mask.shape
+        M, C = h.shape
+
+        def m(j):
+            return mod[:, j * C:(j + 1) * C]
+
+        if "ipa" in w:
+            wi, ipa = w["ipa"], self.ipa
+            proj = adaln_linear(h, wi["wproj"], wi["bproj"], ln="affine", ln_weight=wi["ln_w"],
+                                ln_bias=wi["ln_b"], out_dtype=torch.float32)
+            feats = ipa_attention(proj.view(B * T, L, -1), frames[0], frames[1],
+                                  mask.view(B * T, L), wi["head_weights"], H=ipa.H, Ch=ipa.Ch,
+                                  Pq=ipa.Pq, Pv=ipa.Pv, out_dtype=h.dtype)
+            h = adaln_linear(feats.view(M, -1), wi["wo_i"], wi["bo_i"], epilogue="gate_res", res=h)
+
+        ada_l = dict(shift=m(0), scale=m(1), gate=m(2))
+        if self.mha_l.use_rope:
+            h = self.mha_l(h.view(B, T * L, C), mask, axis="residue", tl=(T, L), w=w["l"],
+                           **ada_l)
+        else:
+            h = self.mha_l(h.view(B * T, L, C), mask.view(B * T, L), w=w["l"], **ada_l)
+        h = h.reshape(M, C)
+
+        ada_t = dict(shift=m(3), scale=m(4), gate=m(5))
+        if isinstance(self.mha_t, HyenaOperator):
+            wt = w["t"]
+            u = adaln_linear(h, wt["w_in"], wt["b_in"], ln="plain", shift=m(3), scale=m(4))
+            y = self.mha_t.mix(u.view(B, T, L, 3 * C).permute(0, 2, 3, 1).reshape(B * L, 3 * C, T))
+            y = y.view(B, L, C, T).permute(0, 3, 1, 2).reshape(M, C)
+            h = adaln_linear(y, wt["wout"], wt["bout"], epilogue="gate_res", res=h, gate=m(5))
+        elif self.mha_t.use_rope:
+            h = self.mha_t(h.view(B, T * L, C), mask, axis="time", tl=(T, L), w=w["t"],
+                           **ada_t).reshape(M, C)
+        else:
+            xt = h.view(B, T, L, C).transpose(1, 2).reshape(B * L, T, C)
+            mt = mask.transpose(1, 2).reshape(B * L, T)
+            y = self.mha_t(xt, mt, w=w["t"], **ada_t)
+            h = y.view(B, L, T, C).transpose(1, 2).reshape(M, C)
+        return adaln_mlp(h, m(6), m(7), m(8), w["w1"], w["b1"], w["w2"], w["b2"])
 
 
 class FinalLayer(nn.Module):
@@ -79,23 +204,25 @@ class FinalLayer(nn.Module):
         self.linear = nn.Linear(C, out_channels)
 
 
-def _unsupported(cfg: MDGenConfig):
+def _unsupported(cfg: MDGenConfig, train: bool):
     m, t = cfg.model, cfg.task
-    for name in ("hyena", "interleave_ipa", "no_rope"):
-        if getattr(m, name):
-            return f"model.{name}", "9"
-    if m.dropout > 0.0:
-        return "model.dropout", "9"
+    if train:
+        for name in ("hyena", "interleave_ipa", "no_rope"):
+            if getattr(m, name):
+                return f"training with model.{name}", "9 (training the modular layer)"
+        if m.dropout > 0.0:
+            return "training with model.dropout", "9 (training the modular layer)"
     for name in ("design", "mpnn", "dynamic_mpnn", "tps_condition", "inpainting", "no_frames"):
         if getattr(t, name):
             return f"task.{name}", "8"
     return None
 
 
-def refuse_unported(cfg: MDGenConfig) -> None:
+def refuse_unported(cfg: MDGenConfig, train: bool = False) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item of a model or
-    task branch that is not ported yet."""
-    bad = _unsupported(cfg)
+    task branch that is not ported yet; with ``train``, also the branches
+    that sample but do not train yet (the modular layer, dropout)."""
+    bad = _unsupported(cfg, train)
     if bad is not None:
         raise NotImplementedError(
             f"{bad[0]} is not ported yet (ROADMAP.md queue 1 item {bad[1]})")
@@ -122,7 +249,7 @@ class LatentMDGen(nn.Module):
     def __init__(self, cfg: MDGenConfig, latent_dim: Optional[int] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        refuse_unported(cfg)
+        refuse_unported(cfg)  # the task branches; the Trainer refuses more
         self.cfg = cfg
         m = cfg.model
         C = m.embed_dim
@@ -135,7 +262,8 @@ class LatentMDGen(nn.Module):
             if not m.no_aa_emb:
                 self.aatype_to_emb = nn.Embedding(21, C)
             self.ipa_layers = nn.ModuleList([IPALayer(cfg) for _ in range(m.num_layers)])
-        self.layers = nn.ModuleList([TrunkLayer(cfg) for _ in range(m.num_layers)])
+        self.modular = modular(cfg)
+        self.layers = nn.ModuleList([LatentMDGenLayer(cfg) for _ in range(m.num_layers)])
         self.emb_to_latent = FinalLayer(C, self.latent_dim)
         self.t_embedder = TimestepEmbedder(C)
         if m.abs_pos_emb:
@@ -153,23 +281,30 @@ class LatentMDGen(nn.Module):
         with the fan of their fused flax kernels) and zero biases; the AdaLN
         projections, the FinalLayer's linear and IPA's linear_out zero; the
         t-embedder N(0, 0.02); embeddings N(0, 1); the bias-KV tokens
-        N(0, 2 / (1 + C)). Draws from torch's global generator."""
+        N(0, 2 / (1 + C)); Hyena's other parameters as
+        ``HyenaOperator.reset_parameters``. Draws from torch's global
+        generator."""
         C = self.cfg.model.embed_dim
         for mod in self.modules():
             if isinstance(mod, nn.Linear):
                 nn.init.xavier_uniform_(mod.weight)
-                nn.init.zeros_(mod.bias)
+                if mod.bias is not None:
+                    nn.init.zeros_(mod.bias)
             elif isinstance(mod, nn.Embedding):
                 nn.init.normal_(mod.weight)
             elif isinstance(mod, MHAParams):
                 nn.init.normal_(mod.bias_k, std=(2.0 / (1 + C)) ** 0.5)
                 nn.init.normal_(mod.bias_v, std=(2.0 / (1 + C)) ** 0.5)
+            elif isinstance(mod, HyenaOperator):
+                mod.reset_parameters()
         for lin in (self.t_embedder.mlp0, self.t_embedder.mlp2):
             nn.init.normal_(lin.weight, std=0.02)
         zero = [lay.adaLN for lay in self.layers] + [self.emb_to_latent.adaLN,
                                                      self.emb_to_latent.linear]
-        for lay in getattr(self, "ipa_layers", ()):
-            zero += [lay.adaLN, lay.ipa.linear_out]
+        zero += [lay.adaLN for lay in getattr(self, "ipa_layers", ())]
+        for lay in list(getattr(self, "ipa_layers", ())) + [
+                lay for lay in self.layers if hasattr(lay, "ipa")]:
+            zero.append(lay.ipa.linear_out)
             for a, b in ((lay.ipa.linear_k, lay.ipa.linear_v),
                          (lay.ipa.linear_k_points, lay.ipa.linear_v_points)):
                 bound = (6.0 / (C + a.out_features + b.out_features)) ** 0.5
@@ -194,14 +329,9 @@ class LatentMDGen(nn.Module):
         scale = (C // Hm) ** -0.5
         layers = []
         for lay in self.ipa_layers:
-            wproj, bproj = lay.ipa.projections()
             mha = lay.mha_l
             layers.append(dict(
-                ln_w=lay.ipa_norm.weight.float().contiguous(),
-                ln_b=lay.ipa_norm.bias.float().contiguous(),
-                wproj=wproj.to(dt).contiguous(), bproj=bproj.to(dt),
-                head_weights=lay.ipa.head_weights.float().contiguous(),
-                wo_i=_t(lay.ipa.linear_out, dt), bo_i=lay.ipa.linear_out.bias.to(dt),
+                **_ipa_weights(lay.ipa_norm, lay.ipa, dt),
                 wqkv_m=torch.cat([mha.q_proj.weight.t() * scale, mha.k_proj.weight.t(),
                                   mha.v_proj.weight.t()], dim=1).to(dt).contiguous(),
                 bqkv_m=torch.cat([mha.q_proj.bias * scale, mha.k_proj.bias,
@@ -216,9 +346,11 @@ class LatentMDGen(nn.Module):
 
     def make_trunk_pack(self, dt=None):
         """The trunk weights folded once per sample (the JAX package's
-        ``make_trunk_pack`` with ``_fold_fused_args``): both attention q
-        columns carry head_dim**-0.5 * log2(e) (the base-2 softmax fold),
-        qkv concatenated, (in, out) layout in the compute dtype; every
+        ``make_trunk_pack`` with ``_fold_fused_args``): on the fused branch
+        both attention q columns carry head_dim**-0.5 * log2(e) (the base-2
+        softmax fold), qkv concatenated, (in, out) layout in the compute
+        dtype; on the modular branch each layer's ``LatentMDGenLayer.fold``
+        (q scaled by head_dim**-0.5 only: the natural softmax); every
         layer's AdaLN projection and the FinalLayer's in one (C, NL*9C+2C)
         weight; the encoder pack. With grad mode on, the fold, the
         concatenation and the cast run inside autograd, so that gradients of
@@ -237,11 +369,10 @@ class LatentMDGen(nn.Module):
                     torch.cat([mha.q_proj.bias * scale_t, mha.k_proj.bias,
                                mha.v_proj.bias]).to(dt))
 
-        layers = []
-        for lay in self.layers:
+        def fused(lay):
             wl, bl = qkv(lay.mha_l)
             wt, bt = qkv(lay.mha_t)
-            layers.append(dict(
+            return dict(
                 wqkv_l=wl, bqkv_l=bl, wout_l=_t(lay.mha_l.out_proj, dt),
                 bout_l=lay.mha_l.out_proj.bias.to(dt),
                 wqkv_t=wt, bqkv_t=bt, wout_t=_t(lay.mha_t.out_proj, dt),
@@ -249,7 +380,9 @@ class LatentMDGen(nn.Module):
                 w1=_t(lay.fc1, dt), b1=lay.fc1.bias.to(dt),
                 w2=_t(lay.fc2, dt), b2=lay.fc2.bias.to(dt),
                 bkl=lay.mha_l.bias_k.to(dt).contiguous(), bvl=lay.mha_l.bias_v.to(dt).contiguous(),
-                bkt=lay.mha_t.bias_k.to(dt).contiguous(), bvt=lay.mha_t.bias_v.to(dt).contiguous()))
+                bkt=lay.mha_t.bias_k.to(dt).contiguous(), bvt=lay.mha_t.bias_v.to(dt).contiguous())
+
+        layers = [lay.fold(dt) if self.modular else fused(lay) for lay in self.layers]
         fin = self.emb_to_latent
         wmods = torch.cat([lay.adaLN.weight.t() for lay in self.layers]
                           + [fin.adaLN.weight.t()], 1).to(dt)
@@ -280,7 +413,7 @@ class LatentMDGen(nn.Module):
         mods = F.silu(t_emb).to(self.dtype) @ enc["wmods"] + enc["bmods"]
         return ipa_encoder(tokens, mods, enc["layers"], frames, mask_l,
                            num_heads_mha=m.mha_heads, Hi=m.ipa_heads, Ch=m.ipa_head_dim,
-                           Pq=m.ipa_qk, Pv=m.ipa_v)
+                           Pq=m.ipa_qk, Pv=m.ipa_v, use_rope=not m.no_rope)
 
     def _check_len(self, L: int):
         if self.cfg.model.abs_pos_emb and L > self.pos_embed.shape[0]:
@@ -306,9 +439,15 @@ class LatentMDGen(nn.Module):
                 end_frames: Optional[Rigid] = None, x_cond=None, x_cond_mask=None,
                 aatype=None, trunk_pack=None):
         """x (B, T, L, lat), t (B,), mask (B, T, L) -> velocity (B, T, L, lat)
-        f32; differentiable in the parameters when grad mode is on (the
-        trunk through ``FusedTrunkFn``, which with ``grad_checkpointing``
-        saves only each layer's input; the encoder through its recompute)."""
+        f32; on the fused branch differentiable in the parameters when grad
+        mode is on (the trunk through ``FusedTrunkFn``, which with
+        ``grad_checkpointing`` saves only each layer's input; the encoder
+        through its recompute). The modular branch does not train yet: its
+        call is ``forward_inference``."""
+        if self.modular:
+            return self.forward_inference(x, t, mask, start_frames=start_frames,
+                                          x_cond=x_cond, x_cond_mask=x_cond_mask, aatype=aatype,
+                                          trunk_pack=trunk_pack)
         cfg = self.cfg
         B, T, L = mask.shape
         NL, C = len(self.layers), cfg.model.embed_dim
@@ -383,7 +522,9 @@ class LatentMDGen(nn.Module):
         branch), computed as its ``__call__`` with ``trunk_pack``
         (:608-740): per call the t-embeddings (``embed_times``), the AdaLN
         rows (``embed_mods``) and the encoder (one row per element), then
-        ``fused_trunk`` with the embed and the output head folded in.
+        ``fused_trunk`` with the embed and the output head folded in, its
+        layers on the model's branch (the modular one: ``LatentMDGenLayer``
+        with frame 0's rigids for every frame, JAX :724-733).
         ``scan_consts`` (``make_scan_consts``) and ``trunk_pack`` are made
         once per sample by the caller, or here when absent."""
         NL, C = len(self.layers), self.cfg.model.embed_dim
@@ -396,10 +537,21 @@ class LatentMDGen(nn.Module):
         enc = None
         if self.cfg.model.prepend_ipa:
             enc = self.run_ipa(t_emb, mask[:, 0], start_frames, consts["tokens"], pack)
+        layer = None
+        if self.modular:
+            B, T, L = mask.shape
+            frames = None
+            if self.cfg.model.interleave_ipa:
+                frames = tuple(a.float()[:, None].expand(B, T, *a.shape[1:])
+                               .reshape(B * T, *a.shape[1:]).contiguous()
+                               for a in (start_frames.rot, start_frames.trans))
+
+            def layer(i, h, mod, w):
+                return self.layers[i](h, mod, mask, w, frames)
         return fused_trunk(x.float().contiguous(), mods[:, :NL * 9 * C], pack["layers"], mask,
                            num_heads=self.cfg.model.mha_heads,
                            final=(mods[:, NL * 9 * C:], *pack["fin"]),
-                           embed=(consts["wlat"], consts["cadd"], enc))
+                           embed=(consts["wlat"], consts["cadd"], enc), layer=layer)
 
     @torch.no_grad()
     def flat_call(self, xc, mask, consts, pack, step_dt: float, enc=None, mods=None):

@@ -11,7 +11,10 @@ the RoPE'd keys and values stay in shared memory, P is formed once per
 ATLAS crop-256 preset (residue stage N = L = 256, frame stage N = T = 250).
 ``blocked_attention_bwd_plain`` is the same function in plain PyTorch
 (``rope_attention_bwd``'s math); it runs for CPU tensors. For CUDA tensors
-the wrapper launches the kernel or raises.
+the wrapper launches the kernel or raises. The kernel takes any finite bf16
+q and k: a query tile or head whose RoPE'd maximum lies outside fp16's
+comfortable range is scaled into it by a power of two, and the logits and
+gradients scaled back in f32.
 
 Arguments and results as ``rope_attention_bwd``: ``qkv`` (G, N, I, 3C) bf16,
 attention over N for every (g, i); ``dout`` (G, N, I, C) bf16; ``bias_k`` /
@@ -42,12 +45,12 @@ def smem_bytes(N: int, D: int) -> int:
     elements, padded to NKP = 64 * ceil((N+1)/64) rows and DP = D rounded up
     to 16 lanes), the query and dO tiles both ways, the pn^T / ds^T tiles,
     the tile's p (bf16, 128 bytes per key), dK and dV in f32, the key
-    classes and the 4 warps' max|dO|."""
+    classes and the 4 warps' max|dO|, max|q| and max|k| (16 floats)."""
     DP = -(-D // 16) * 16
     RS, QTS = DP + 8, ROWS + 8
     NKP = -(-(N + 1) // ROWS) * ROWS
     return (2 * NKP * RS * 2 + DP * (NKP + 8) * 2 + 2 * ROWS * RS * 2 + 2 * DP * QTS * 2
-            + 2 * ROWS * QTS * 2 + NKP * 128 + 2 * NKP * D * 4 + NKP * 4 + 16)
+            + 2 * ROWS * QTS * 2 + NKP * 128 + 2 * NKP * D * 4 + NKP * 4 + 64)
 
 
 def max_keys(D: int) -> int:

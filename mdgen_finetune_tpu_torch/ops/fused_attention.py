@@ -25,16 +25,23 @@ pass over the keys.
 
 - ``fused_attention`` is the differentiable op (``FusedAttentionFn``);
   ``fused_attention_plain`` is the port's twin of the JAX package's
-  ``_attention_xla`` (``models/attention.py::attention_core``);
+  ``_attention_xla`` (``models/attention_core.py::attention_core``);
 - ``fused_attention_fwd`` / ``fused_attention_bwd`` launch the kernels on
   CUDA tensors (or raise) and run their plain versions
-  (``*_plain``, the same arithmetic in f32) on CPU tensors.
+  (``*_plain``, the same arithmetic in f32) on CPU tensors;
+- ``dense_attn`` is the dense attention of the JAX package's
+  ``models/attention.py::dense_attn`` on (S, N, C) projections (bias key,
+  optional RoPE, then ``fused_attention``: its TPU route without dropout,
+  :153), and ``dense_qkv_attention`` the same over ``rope_attention``'s
+  (G, N, I, 3C) interface (the encoder's residue attention under
+  ``no_rope``).
 """
 from __future__ import annotations
 
 import torch
 
-from ..models.attention import LN2, LOG2E, NEG_INF, attention_core
+from ..models.attention_core import LN2, LOG2E, NEG_INF, attention_core
+from ..models.rope import apply_rope
 from . import _cuda
 
 HEAD_DIMS = (16, 24, 32, 64)
@@ -198,3 +205,39 @@ def fused_attention(q, k, v, key_valid=None, *, base2: bool = False):
         key_valid = torch.ones(q.shape[0], k.shape[2], device=q.device)
     return FusedAttentionFn.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                                   key_valid.float().contiguous(), base2)
+
+
+def dense_attn(q, k, v, mask, bias_k, bias_v, H: int, use_rope: bool = True,
+               base2: bool = False):
+    """Bias-KV + (RoPE) + masked softmax attention on (S, N, C) projections;
+    ``mask`` (S, N) with 1 = valid (the bias key is always valid). The layout
+    changes and RoPE are plain tensor ops (XLA's in JAX); the core is
+    ``fused_attention`` (the kernel on the card)."""
+    S, N, C = q.shape
+    D = C // H
+    k = torch.cat([k, bias_k.reshape(1, 1, C).to(k.dtype).expand(S, 1, C)], dim=1)
+    v = torch.cat([v, bias_v.reshape(1, 1, C).to(v.dtype).expand(S, 1, C)], dim=1)
+
+    def split_heads(t):
+        return t.reshape(t.shape[0], t.shape[1], H, D).transpose(1, 2)
+
+    q, k, v = split_heads(q), split_heads(k), split_heads(v)
+    if use_rope:
+        q, k = apply_rope(q, k)
+    key_valid = torch.cat([mask.float(), torch.ones(S, 1, device=q.device)], dim=1)
+    out = fused_attention(q, k, v, key_valid, base2=base2)
+    return out.transpose(1, 2).reshape(S, N, C)
+
+
+def dense_qkv_attention(qkv, bias_k, bias_v, key_valid, *, num_heads: int, base2: bool = False,
+                        use_rope: bool = True):
+    """``dense_attn`` with ``rope_attention``'s arguments: qkv (G, N, I, 3C),
+    attention over N for every (g, i), key_valid (G, N, I). Returns
+    (G, N, I, C)."""
+    G, N, I, C3 = qkv.shape
+    C = C3 // 3
+    x = qkv.permute(0, 2, 1, 3).reshape(G * I, N, C3)
+    mask = key_valid.permute(0, 2, 1).reshape(G * I, N)
+    o = dense_attn(x[..., :C], x[..., C:2 * C], x[..., 2 * C:], mask, bias_k, bias_v, num_heads,
+                   use_rope=use_rope, base2=base2)
+    return o.reshape(G, I, N, C).permute(0, 2, 1, 3)

@@ -72,7 +72,7 @@ def trunk_layer(x, mod, w, mask, *, B: int, T: int, L: int, num_heads: int, out=
 
 
 def fused_trunk(x, mods, ws, mask, *, num_heads: int, final=None, embed=None,
-                step_dt=None):
+                step_dt=None, layer=None):
     """All layers of the trunk.
 
     - ``x`` (B, T, L, C) activation, or with ``embed`` the f32 latent carry
@@ -86,7 +86,11 @@ def fused_trunk(x, mods, ws, mask, *, num_heads: int, final=None, embed=None,
       FinalLayer head (LN + modulate + linear) emits the latent in f32;
     - ``step_dt``: with ``final``, the head's output is applied as the Euler
       update ``carry + dt * v`` — written IN PLACE into the carry ``x``,
-      which is returned.
+      which is returned;
+    - ``layer``: another layer body, ``layer(i, h, mod, w) -> new h`` for
+      layer i on the (M, C) activation with its (nb, 9C) AdaLN rows and its
+      entry of ``ws`` (the modular branch, ``models/denoiser.LatentMDGenLayer``);
+      by default ``trunk_layer``, in place.
 
     Without ``embed``, ``x`` itself is updated in place as the trunk runs.
     Returns the trunk activation, the velocity (B, T, L, out) f32, or the
@@ -105,8 +109,11 @@ def fused_trunk(x, mods, ws, mask, *, num_heads: int, final=None, embed=None,
         h = x.reshape(M, C)
     mask = mask.to(torch.float32).contiguous()
     for i, w in enumerate(ws):
-        trunk_layer(h, mods[:, i * 9 * C:(i + 1) * 9 * C], w, mask, B=B, T=T, L=L,
-                    num_heads=num_heads, out=h)
+        mod = mods[:, i * 9 * C:(i + 1) * 9 * C]
+        if layer is None:
+            trunk_layer(h, mod, w, mask, B=B, T=T, L=L, num_heads=num_heads, out=h)
+        else:
+            h = layer(i, h, mod, w)
     if final is None:
         return h.view(B, T, L, C)
     modf, wfin, bfin = final

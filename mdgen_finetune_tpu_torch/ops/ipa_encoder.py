@@ -10,6 +10,7 @@ the hand-written kernels:
     x    += feats @ linear_out                   (adaln_linear, gate_res)
     qkv   = adaln_linear(LN + modulate)          residue MHA
     att   = rope_attention(B, L, 1), natural-exp softmax
+            (no_rope: dense_qkv_attention, the fused_attention kernel)
     x    += g_l * (att @ out_m)
     hid   = adaln_linear(LN + modulate, GELU)    MLP
     x    += g_m * (hid @ w2)
@@ -30,10 +31,13 @@ recomputes.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..geometry.rigid import Rigid
 from .adaln_linear import adaln_linear, adaln_linear_math
+from .fused_attention import dense_qkv_attention
 from .ipa_attention import ipa_attention, ipa_attention_math
 from .rope_attention import rope_attention, rope_attention_math
 
@@ -45,11 +49,19 @@ KERNELS = (adaln_linear, rope_attention, ipa_attention)
 PLAIN_MATH = (adaln_linear_math, rope_attention_math, ipa_attention_math)
 
 
+def _ops(ops, use_rope: bool):
+    """``ops`` with the residue attention without RoPE under ``no_rope``
+    (the JAX IPALayer's ``MultiheadAttention(use_rope=not no_rope)``)."""
+    if use_rope:
+        return ops
+    return (ops[0], functools.partial(dense_qkv_attention, use_rope=False), ops[2])
+
+
 def _stack(x, mods, flat_ws, rot, trans, mask, ops, dims):
     """The encoder's layers through ``ops`` = (linear, attention, ipa);
     every residual update writes a new tensor."""
-    lin, attn, ipa = ops
-    num_heads_mha, Hi, Ch, Pq, Pv = dims
+    num_heads_mha, Hi, Ch, Pq, Pv, use_rope = dims
+    lin, attn, ipa = _ops(ops, use_rope)
     Bn, L, C = x.shape
     h = x.reshape(Bn * L, C)
     n = len(ENC_KEYS)
@@ -100,16 +112,17 @@ class _EncoderFn(torch.autograd.Function):
 
 
 def ipa_encoder(x, mods, ws, frames: Rigid, mask, *, num_heads_mha: int, Hi: int,
-                Ch: int, Pq: int, Pv: int):
+                Ch: int, Pq: int, Pv: int, use_rope: bool = True):
     """x (Bn, L, C) tokens; mods (nb, NL*6*C) AdaLN rows, nb dividing Bn
     (consecutive elements share a row); ``ws`` a list of per-layer dicts
-    (``ENC_KEYS``); frames Rigid (Bn, L); mask (Bn, L). Returns (Bn, L, C),
-    differentiable in x, mods and the weights."""
+    (``ENC_KEYS``); frames Rigid (Bn, L); mask (Bn, L); ``use_rope``: the
+    residue attention's RoPE (off under the model's ``no_rope``). Returns
+    (Bn, L, C), differentiable in x, mods and the weights."""
     flat = [w[k] for w in ws for k in ENC_KEYS]
     return _EncoderFn.apply(x, mods, frames.rot.to(torch.float32).contiguous(),
                             frames.trans.to(torch.float32).contiguous(),
                             mask.to(torch.float32).contiguous(),
-                            (num_heads_mha, Hi, Ch, Pq, Pv), *flat)
+                            (num_heads_mha, Hi, Ch, Pq, Pv, use_rope), *flat)
 
 
 ipa_encoder.bwd_recomputes = 0

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from ..models.attention import attention_core
+from ..models.attention_core import attention_core
 from ..models.rope import apply_rope, rope_tables
 from . import _cuda
 
@@ -49,9 +49,12 @@ def max_keys(D: int) -> int:
 
 
 def rope_attention_math(qkv, bias_k, bias_v, key_valid, *, num_heads: int,
-                        base2: bool, out=None):
+                        base2: bool, out=None, stage=None):
     """The plain PyTorch math of ``rope_attention`` (same arguments), counted
-    nowhere and differentiable with ``out=None``."""
+    nowhere and differentiable with ``out=None``. ``stage``: a dtype to
+    round the RoPE'd q and k to, as the kernels stage them (bf16): a
+    reference for logits so large that that rounding, not the kernel, sets
+    the error."""
     G, N, I, C3 = qkv.shape
     C, H = C3 // 3, num_heads
     D = C // H
@@ -66,6 +69,8 @@ def rope_attention_math(qkv, bias_k, bias_v, key_valid, *, num_heads: int,
 
     q, k, v = heads(q), heads(k), heads(v)
     q, k = apply_rope(q, k)
+    if stage is not None:
+        q, k = q.to(stage).to(q.dtype), k.to(stage).to(k.dtype)
     valid = torch.cat([key_valid.permute(0, 2, 1).reshape(S, N).to(q.dtype),
                        torch.ones(S, 1, dtype=q.dtype, device=q.device)], dim=1)
     o = attention_core(q, k, v, valid, base2=base2)  # (S, H, N, D)

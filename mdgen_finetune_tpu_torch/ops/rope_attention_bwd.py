@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from ..models.attention import LN2, NEG_INF
+from ..models.attention_core import LN2, NEG_INF
 from ..models.rope import rope_tables, rotate_half
 from . import _cuda
 

@@ -6,17 +6,19 @@ tile); K and V stream through shared memory in 64-key tiles; mma.sync
 products with f32 accumulators). It replaces the attention core of the JAX
 package's ``ops/time_attention.py::_block_pallas_fwd_blocked`` (body
 ``_block_kernel_blocked``), the TPU kernel of the frame stage at
-T > MAX_T. ``tiled_attention_plain`` is the same function in plain PyTorch
-(the op order of the JAX package's ``time_attention._xla_impl`` with
-``base2=True``); it runs for CPU tensors. For CUDA tensors the wrapper
-launches the kernel or raises.
+T > MAX_T, and in its natural mode ``time_attention.py::_pallas_fwd_blocked``
+(:343), the modular layer's attention core above L = 8 or T = 256.
+``tiled_attention_plain`` is the same function in plain PyTorch (the op
+order of the JAX package's ``time_attention._xla_impl``); it runs for CPU
+tensors. For CUDA tensors the wrapper launches the kernel or raises.
 
 Arguments as ``rope_attention``: qkv (G, N, I, 3C) bf16, attention over N for
 every (g, i); bias_k / bias_v (C,), the bias key RoPE'd at position N and
-always attendable; key_valid (G, N, I) f32, 1 = attendable. Only the base-2
-softmax (q carries head_dim**-0.5 * log2(e), exp2 without a max) is
-supported: the natural-exp softmax raises ``ValueError``. Returns
-(G, N, I, C).
+always attendable; key_valid (G, N, I) f32, 1 = attendable. ``base2``: q
+carries head_dim**-0.5 * log2(e) and the softmax is exp2 without a max (the
+fused trunk); otherwise q carries head_dim**-0.5 and the softmax is the
+natural one with its max subtracted, kept as a running max across the key
+tiles (the modular layer). Returns (G, N, I, C).
 """
 from __future__ import annotations
 
@@ -27,24 +29,17 @@ from . import _cuda
 from .rope_attention import rope_attention_math
 
 _ARGTYPES = [_cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P,
-             _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.P]
-
-
-def _base2_only(base2: bool) -> None:
-    if not base2:
-        raise ValueError("tiled_attention: only the base-2 no-max softmax is supported; the "
-                         "natural-exp softmax is ops/fused_attention.py::fused_attention")
+             _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.P]
 
 
 def tiled_attention_plain(qkv, bias_k, bias_v, key_valid, *, num_heads: int,
                           base2: bool = True, out=None):
     """Plain PyTorch version of ``tiled_attention`` (same arguments); counts
     its calls on CUDA tensors in ``cuda_calls``."""
-    _base2_only(base2)
     if qkv.is_cuda:
         tiled_attention_plain.cuda_calls += 1
     return rope_attention_math(qkv, bias_k, bias_v, key_valid, num_heads=num_heads,
-                               base2=True, out=out)
+                               base2=base2, out=out)
 
 
 tiled_attention_plain.cuda_calls = 0
@@ -54,10 +49,9 @@ def tiled_attention(qkv, bias_k, bias_v, key_valid, *, num_heads: int, base2: bo
                     out=None):
     """The attention core: the kernel on CUDA tensors, the plain version on
     CPU tensors (see the module docstring)."""
-    _base2_only(base2)
     if not qkv.is_cuda:
         return tiled_attention_plain(qkv, bias_k, bias_v, key_valid, num_heads=num_heads,
-                                     out=out)
+                                     base2=base2, out=out)
     G, N, I, C3 = qkv.shape
     C = C3 // 3
     D = C // num_heads
@@ -79,7 +73,8 @@ def tiled_attention(qkv, bias_k, bias_v, key_valid, *, num_heads: int, base2: bo
     lib = _cuda.library("tiled_attention", _ARGTYPES)
     code = lib.tiled_attention(qkv.data_ptr(), bias_k.data_ptr(), bias_v.data_ptr(),
                                key_valid.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-                               out.data_ptr(), G, N, I, num_heads, C, _cuda.stream_ptr(qkv))
+                               out.data_ptr(), G, N, I, num_heads, C, int(base2),
+                               _cuda.stream_ptr(qkv))
     _cuda.check(code, "tiled_attention")
     tiled_attention.launches += 1
     return out

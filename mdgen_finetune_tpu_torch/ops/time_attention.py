@@ -53,6 +53,16 @@ product and the attention core are the hand-written kernels.
 ``time_attention_block_bwd_plain`` is the same composition through the
 plain twins.
 
+``time_attention`` is the modular layer's frame-attention core alone, with
+the natural softmax: the counterpart of the JAX package's
+``time_attention`` (:1052) on qkv projected outside. Its TPU kernels are
+``_pallas_fwd`` (:244) at L <= 8 and T <= 256 (gates :1089, :1096) and
+``_pallas_fwd_blocked`` (:343) above; here ``rope_attention(base2=False)``
+over (B, T, L, 3C), whose N + 1 keys of a head fit shared memory at
+T <= 256, and ``tiled_attention(base2=False)`` above.
+``time_attention_plain`` is the same through the plain twins, in the op
+order of the JAX package's ``_xla_impl`` (:965).
+
 Layouts: x (M, C) rows with M = B*T*L (row (b*T + t)*L + l); sh / sc / g
 (nb, C) AdaLN rows with nb = B or 1; mask (B, T, L) f32, 1 = valid (the
 JAX op takes its transpose (B, L, T)); wqkv (C, 3C) with the q columns
@@ -106,6 +116,22 @@ def time_attention_block_plain(x, sh, sc, g, wqkv, bqkv, wout, bout, bias_k, bia
     attn = rope_attention_plain if _short(T, L) else tiled_attention_plain
     return _block(adaln_linear_plain, attn, x, sh, sc, g, wqkv, bqkv, wout, bout, bias_k,
                   bias_v, mask, B=B, T=T, L=L, num_heads=num_heads, out=out)
+
+
+def time_attention(qkv, bias_k, bias_v, mask, *, num_heads: int):
+    """Attention over frames, batch (B, L), natural softmax: qkv (B, T, L, 3C)
+    bf16 with q scaled by head_dim**-0.5; bias_k / bias_v (C,); mask
+    (B, T, L) f32 (the JAX op takes its transpose). Returns (B, T, L, C)."""
+    B, T, L, _ = qkv.shape
+    attn = rope_attention if _short(T, L) else tiled_attention
+    return attn(qkv, bias_k, bias_v, mask, num_heads=num_heads, base2=False)
+
+
+def time_attention_plain(qkv, bias_k, bias_v, mask, *, num_heads: int):
+    """``time_attention`` through the plain twins (same arguments)."""
+    B, T, L, _ = qkv.shape
+    attn = rope_attention_plain if _short(T, L) else tiled_attention_plain
+    return attn(qkv, bias_k, bias_v, mask, num_heads=num_heads, base2=False)
 
 
 def residue_rows_block(x, sh, sc, g, wqkv, bqkv, wout, bout, bias_k, bias_v, mask, *,

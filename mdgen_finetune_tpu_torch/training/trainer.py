@@ -115,7 +115,7 @@ def global_norm(tensors: dict) -> torch.Tensor:
 
 class Trainer:
     def __init__(self, cfg: MDGenConfig, device="cuda", dtype=None):
-        refuse_unported(cfg)
+        refuse_unported(cfg, train=True)
         if cfg.train.dp_size > 1 or cfg.train.sp_size > 1:
             raise NotImplementedError(
                 "train.dp_size / sp_size > 1 is not ported yet (ROADMAP.md queue 1 item 12)")

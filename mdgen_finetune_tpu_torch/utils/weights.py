@@ -63,15 +63,17 @@ def from_flax(tree: dict, cfg: MDGenConfig) -> dict:
                 else:
                     sd[f"{base}.{name}.bias"] = a.reshape(-1)
             continue
-        prefix = ".".join(mods)
+        def key(name):
+            return ".".join(mods + [name])
+
         if leaf == "kernel":
-            sd[f"{prefix}.weight"] = v.T
+            sd[key("weight")] = v.T
         elif leaf in ("scale", "embedding"):
-            sd[f"{prefix}.weight"] = v
+            sd[key("weight")] = v
         elif leaf in ("bias_k", "bias_v"):
-            sd[f"{prefix}.{leaf}"] = v.reshape(-1)
+            sd[key(leaf)] = v.reshape(-1)
         else:
-            sd[f"{prefix}.{leaf}" if prefix else leaf] = v
+            sd[key(leaf)] = v
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
 
 

@@ -8,7 +8,7 @@ runs where only PyTorch is installed:
 
 (``--noconftest``: the suite's conftest configures JAX). ``chip_smoke.py``
 makes the same comparisons at the full shapes of each path (sampling at
-T = 100 and T = 1000, training).
+T = 100 and T = 1000, training, the modular layer's natural-softmax cores).
 """
 import pytest
 import torch
@@ -177,6 +177,85 @@ def test_tiled_attention_matches_plain_on_card():
             ref = tiled_attention_plain(qkv.float(), bk.float(), bv.float(), mask, num_heads=Hc)
             torch.cuda.synchronize()
             _close(got, ref)
+
+
+@pytest.mark.cuda
+def test_tiled_attention_natural_matches_plain_on_card():
+    """On the card: the key-tiled core's natural mode (``base2=False``, a
+    running max per query row across key tiles) against its plain twin at
+    every supported head dim, over frames at N = 300 and 1000 and over
+    residues at L = 9 and 256 (the view (B*T, L, 1)), with the masks of the
+    base-2 test; and with q scaled so that the logits reach ~1e3, where exp
+    without the max overflows f32: the max must be subtracted. There a
+    logit moves by ~2 when the kernel rounds the RoPE'd q and k to bf16 (as
+    the JAX kernel does), so the reference is the plain math with that
+    rounding (``rope_attention_math(stage=bf16)``), with q and k nonzero in
+    the first half of each head's lanes only: RoPE is one product per lane
+    there, so that kernel and reference round the same f32 values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.ops.rope_attention import rope_attention_math
+    from mdgen_finetune_tpu_torch.ops.tiled_attention import tiled_attention, tiled_attention_plain
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    Hc = 2
+    for D in (16, 24, 32, 64):
+        C = Hc * D
+        for (Gc, N, Ic), qs in (((2, 300, 2), 1.0), ((2, 1000, 2), 1.0), ((6, 9, 1), 1.0),
+                                ((3, 256, 1), 1.0), ((2, 300, 2), 400.0)):
+            qkv = torch.randn(Gc, N, Ic, 3 * C, generator=g, device="cuda")
+            qkv[..., :C] *= 0.5 * D ** -0.5 * qs
+            bk = torch.randn(C, generator=g, device="cuda")
+            if qs != 1.0:
+                qkv.view(Gc, N, Ic, 3, Hc, 2, D // 2)[..., :2, :, 1, :] = 0
+                bk.view(Hc, 2, D // 2)[:, 1] = 0
+            qkv, bk = qkv.to(torch.bfloat16), bk.to(torch.bfloat16)
+            bv = torch.randn(C, generator=g, device="cuda").to(torch.bfloat16)
+            mask = torch.ones(Gc, N, Ic, device="cuda")
+            mask[0, 64:128] = 0      # a whole key tile (past N: nothing)
+            mask[0, N // 2:, -1] = 0  # masked keys
+            mask[1] = 0              # only the bias key is valid
+            got = tiled_attention(qkv, bk, bv, mask, num_heads=Hc, base2=False)
+            if qs == 1.0:
+                ref = tiled_attention_plain(qkv.float(), bk.float(), bv.float(), mask,
+                                            num_heads=Hc, base2=False)
+            else:
+                ref = rope_attention_math(qkv.float(), bk.float(), bv.float(), mask,
+                                          num_heads=Hc, base2=False, stage=torch.bfloat16)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got.float()).all(), (D, Gc, N, Ic, qs)
+            scale = max(1.0, ref.abs().max().item())
+            err = (got.float() - ref).abs().max().item()
+            assert err <= 1e-2 * scale, (D, Gc, N, Ic, qs, err, scale)
+
+
+@pytest.mark.cuda
+def test_rope_attention_natural_at_the_modular_shapes_on_card():
+    """On the card: ``rope_attention(base2=False)`` (the modular layer's
+    residue core, row 12, and its frame core at T <= 256, row 11a) against
+    its plain twin at head dim 24: the (B*T, L, 1) view at L = 4 and 8, and
+    the (B, T, L) view at T = 100 and 256, with masked residues and frames."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.ops.rope_attention import rope_attention, rope_attention_plain
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    Hc, D = 4, 24
+    C = Hc * D
+    for view in ((200, 4, 1), (200, 8, 1), (4, 100, 4), (2, 256, 3)):
+        qkv = torch.randn(*view, 3 * C, generator=g, device="cuda")
+        qkv[..., :C] *= D ** -0.5
+        qkv = qkv.to(torch.bfloat16)
+        bk = torch.randn(C, generator=g, device="cuda").to(torch.bfloat16)
+        bv = torch.randn(C, generator=g, device="cuda").to(torch.bfloat16)
+        mask = torch.ones(*view, device="cuda")
+        mask[0, -1] = 0
+        mask[1] = 0
+        got = rope_attention(qkv, bk, bv, mask, num_heads=Hc, base2=False)
+        ref = rope_attention_plain(qkv.float(), bk.float(), bv.float(), mask, num_heads=Hc,
+                                   base2=False)
+        torch.cuda.synchronize()
+        _close(got, ref)
 
 
 @pytest.mark.cuda
@@ -351,6 +430,46 @@ def test_blocked_attention_bwd_matches_plain_on_card():
             BA.blocked_attention_bwd(torch.zeros(1, n, 1, 3 * C, device="cuda", dtype=torch.bfloat16),
                                      torch.zeros(1, n, 1, C, device="cuda", dtype=torch.bfloat16),
                                      bk, bv, torch.ones(1, n, 1, device="cuda"), num_heads=Hc)
+
+
+@pytest.mark.cuda
+def test_blocked_attention_bwd_beyond_the_fp16_range_on_card():
+    """On the card: the attention backward with RoPE'd q of ~2e5 (beyond
+    fp16's 65,504) and k of ~1e-5 (below fp16's normal range), so that the
+    logits stay O(1): the kernel scales q per query tile and k per head by
+    powers of two into fp16's range, and must be finite and within
+    0.01 x max(1, max |twin|) of its f32 twin (PERF.md's kernel rule), in
+    the residue view at N = 256 and the frame view at N = 250. dq (~1e-5)
+    and dk (~1e5) differ by ten orders of magnitude, so each of dq, dk and
+    dv is also held within 0.01 of its own largest value."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.ops import blocked_attention_bwd as BA
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+    Hc, D = 2, 24
+    C = Hc * D
+    for view in ((3, 256, 1), (1, 250, 3)):
+        qkv = torch.randn(*view, 3 * C, generator=g, device="cuda")
+        qkv[..., :C] *= 2e5
+        qkv[..., C:2 * C] *= 1e-5 * D ** -0.5
+        qkv = qkv.to(torch.bfloat16)
+        do = torch.randn(*view, C, generator=g, device="cuda").to(torch.bfloat16)
+        bk = (torch.randn(C, generator=g, device="cuda") * 1e-5).to(torch.bfloat16)
+        bv = torch.randn(C, generator=g, device="cuda").to(torch.bfloat16)
+        mask = torch.ones(*view, device="cuda")
+        mask[0, view[1] // 2:] = 0
+        got = BA.blocked_attention_bwd(qkv, do, bk, bv, mask, num_heads=Hc)
+        ref = BA.blocked_attention_bwd_plain(qkv.float(), do.float(), bk.float(), bv.float(),
+                                             mask, num_heads=Hc)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            assert torch.isfinite(a.float()).all()
+            _close(a, b)
+        for j in range(3):
+            a, b = got[0][..., j * C:(j + 1) * C].float(), ref[0][..., j * C:(j + 1) * C]
+            scale = b.abs().max().item()
+            assert 0 < scale and (a - b).abs().max().item() <= 1e-2 * scale, (j, scale)
 
 
 @pytest.mark.cuda

@@ -6,8 +6,9 @@ package's XLA twins on the CPU:
 - ``residue_block`` against ``residue_block._s1_xla``;
 - ``adaln_mlp`` against ``adaln_mlp._xla_impl``;
 - ``tiled_attention_plain`` against ``time_attention._xla_impl(base2=True)``;
-- the wrappers' refusals: ``tiled_attention`` takes only the base-2 softmax,
-  and ``rope_attention``'s shared-memory limit on N;
+- ``tiled_attention``'s natural softmax (it took only the base-2 one before
+  the modular layer) against ``_xla_impl(base2=False)``, and
+  ``rope_attention``'s shared-memory limit on N;
 - the training path's backwards: ``time_attention_block_bwd`` against
   ``jax.vjp`` of ``_block_xla_tl``, ``adaln_mlp_bwd_plain`` against the TPU
   kernel ``_pallas_bwd`` in interpret mode (as ``tests/test_adaln_mlp.py``
@@ -120,9 +121,20 @@ def test_tiled_attention_plain_matches_jax_core(inputs):
 
 @pytest.mark.parametrize("fn", [tiled_attention, tiled_attention_plain])
 def test_tiled_attention_refuses_the_natural_exp_softmax(inputs, fn):
-    qkv = torch.zeros(1, 4, 1, 3 * C)
-    with pytest.raises(ValueError, match="base-2"):
-        fn(qkv, torch.zeros(C), torch.zeros(C), torch.ones(1, 4, 1), num_heads=H, base2=False)
+    """``tiled_attention`` took only the base-2 softmax until the modular
+    layer needed its natural mode (TPU row 11b); it no longer refuses it. On
+    CPU tensors the wrapper and its plain version give the natural softmax of
+    the JAX package's ``time_attention._xla_impl(base2=False)`` at T = 264,
+    with q carrying head_dim**-0.5 only."""
+    i = inputs
+    rng = np.random.default_rng(9)
+    q, k, v = (rng.normal(size=(B, T, L, C)).astype(np.float32) * 0.5 for _ in range(3))
+    ref = jta._xla_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(i["bk"]),
+                        jnp.asarray(i["bv"]), jnp.asarray(i["mask"].transpose(0, 2, 1)), H,
+                        base2=False)
+    out = fn(_t(np.concatenate([q, k, v], -1)), _t(i["bk"]), _t(i["bv"]), _t(i["mask"]),
+             num_heads=H, base2=False)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
 
 
 def test_rope_attention_shared_memory_limit():
