@@ -39,12 +39,22 @@ training backward kernels at B = 32). Then:
   step (``train_1000_trace``); the ``train`` CLI with the reference's
   command, whose checkpoint drives one ``sim_inference`` window
   (``train_cli``);
+- right after ``train_path`` and its trace, the merged layer backward
+  (``MDGEN_FUSED_BWD=merged``, one cooperative launch per layer,
+  ``csrc/fused_layer_bwd.cu``): ``merged_bwd_kernels``
+  (B = 32, T = 100 and B = 4, T = 200: against the split route on the same
+  inputs, bit for bit expected, and the f32 plain version under the
+  composition rule; ms of the merged launch, of the split route's launches
+  for one layer and of the plain version; the bound), then ``train_merged``
+  (``train_path``'s run through it: the same losses and gradient norms bit
+  for bit, 5 merged launches and no split backward kernel per step) and its trace ``train_merged_trace``;
 - the ATLAS crop-256 preset (``preset_atlas``: L = 256, T = 250, B = 1,
   same width; synthetic ``{name}_R{1,2,3}_i40`` replicas of a 300-residue
   protein, which the crop cuts, and a 200-residue one, which it pads):
   ``atlas_kernels`` (``blocked_attention_bwd`` in both views, at N = 129
   and at its limit; the residue stage's core, ``tiled_attention`` and
-  ``rope_attention``; ``ipa_attention`` at L = 256 and 4;
+  ``rope_attention``; ``ipa_attention`` at L = 256 and 4, and the
+  key-tiled form at other widths, (Ch, Pq, Pv) = (16, 4, 6), at L = 256;
   ``residue_rows_block`` and the stage backwards as a whole);
   ``sim_atlas`` (one velocity evaluation card-vs-CPU, Euler-100 and the
   preset's dopri5 through ``InferenceEngine.sample``) and its trace;
@@ -54,14 +64,20 @@ training backward kernels at B = 32). Then:
   1 layer); ``atlas_cli`` (``train`` with the ATLAS flags for 3 steps, then
   a 250-frame ``sim_inference`` window from its checkpoint, parsed back).
 
+Last, ``micro_ops``: the micro-op probe (``tools/micro_ops`` of the
+package) checks every op's plain and position-weighted sums against its
+plain version and prints its marginal-cost table.
+
 Each phase prints one JSON line; the kernel line (times, bounds, launches)
 comes second to last, and the last line is ``{"ok": true, "device": {...}}``.
 Any failed check raises and the script exits non-zero; without CUDA it exits
 non-zero before printing any result. Scratch files go to
 ``workdir/chip_smoke/`` (listed in .gitignore) and are removed at the end.
 """
+import contextlib
 import dataclasses
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -579,8 +595,31 @@ def _counters(pairs=tuple((n, n) for n in TRAIN_WRAPPERS)):
             [getattr(m, n + "_plain") for m, (_, n) in zip(mods, pairs)])
 
 
-def phase_train_path(dev):
-    """The flagship config trained through ``Trainer`` from its real init."""
+@contextlib.contextmanager
+def fused_bwd_route(route):
+    """``MDGEN_FUSED_BWD`` set to ``route`` inside, restored after."""
+    kept = os.environ.get("MDGEN_FUSED_BWD")
+    os.environ["MDGEN_FUSED_BWD"] = route
+    try:
+        yield
+    finally:
+        if kept is None:
+            del os.environ["MDGEN_FUSED_BWD"]
+        else:
+            os.environ["MDGEN_FUSED_BWD"] = kept
+
+
+MERGED_PAIR = (("fused_layer_bwd_merged", "fused_layer_bwd_merged"),)
+
+
+def phase_train_path(dev, route="", ref=None):
+    """The flagship config trained through ``Trainer`` from its real init.
+    ``route``: the layer backward's route (``MDGEN_FUSED_BWD``); with
+    ``merged`` (phase ``train_merged``) the same batches and seeds as
+    ``train_path`` (``ref``: its losses and gradient norms), which it must
+    repeat bit for bit, and per step 5 merged launches and no split backward
+    kernel. Returns the launches, (losses, gradient norms) and (trainer,
+    state, batch, generator)."""
     import numpy as np
 
     from mdgen_finetune_tpu_torch.data.dataset import MDGenDataset, make_batch_iterator
@@ -588,6 +627,7 @@ def phase_train_path(dev):
     from mdgen_finetune_tpu_torch.ops.ipa_encoder import ipa_encoder
     from mdgen_finetune_tpu_torch.training import Trainer
 
+    phase = "train_merged" if route else "train_path"
     cfg = train_config(B_TRAIN)
     split = make_synthetic_dataset(cfg.data.data_dir, ["AAGG", "GHKL"], num_frames=2 * T)
     it = make_batch_iterator(MDGenDataset(cfg, split), B_TRAIN, seed=0)
@@ -598,40 +638,43 @@ def phase_train_path(dev):
     state = trainer.init_state(0)
     gen = torch.Generator(device=dev).manual_seed(3)
     torch.cuda.reset_peak_memory_stats()
-    wrappers, twins = _counters()
+    pairs = tuple((n, n) for n in TRAIN_WRAPPERS) + (MERGED_PAIR if route else ())
+    wrappers, twins = _counters(pairs)
     for fn in wrappers:
         fn.launches = 0
     for fn in twins:
         fn.cuda_calls = 0
     ipa_encoder.bwd_recomputes = 0
     metrics = []
-    for b in batches[:2]:  # warm-up
-        state, m = trainer.train_step(state, b, gen)
-        metrics.append(m)
-    torch.cuda.synchronize()
-    before = {fn.__name__: fn.launches for fn in wrappers}
-    t0 = time.perf_counter()
-    for b in batches[2:]:
-        state, m = trainer.train_step(state, b, gen)
-        metrics.append(m)
-    torch.cuda.synchronize()
-    secs = (time.perf_counter() - t0) / 20
-    per_step = {fn.__name__: (fn.launches - before[fn.__name__]) / 20 for fn in wrappers}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with fused_bwd_route(route):
+        for b in batches[:2]:  # warm-up
+            state, m = trainer.train_step(state, b, gen)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        before = {fn.__name__: fn.launches for fn in wrappers}
+        t0 = time.perf_counter()
+        for b in batches[2:]:
+            state, m = trainer.train_step(state, b, gen)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        secs = (time.perf_counter() - t0) / 20
+        per_step = {fn.__name__: (fn.launches - before[fn.__name__]) / 20 for fn in wrappers}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    # 30 steps on one fixed batch with fixed t and x0: the objective is fixed
-    fixed = []
-    for _ in range(30):
-        state, m = trainer.train_step(state, batches[0], torch.Generator(device=dev).manual_seed(5))
-        fixed.append(m["loss"])
-    fixed = [float(v) for v in fixed]
+        # 30 steps on one fixed batch with fixed t and x0: the objective is fixed
+        fixed = []
+        for _ in range(30):
+            state, m = trainer.train_step(state, batches[0],
+                                          torch.Generator(device=dev).manual_seed(5))
+            fixed.append(m["loss"])
+        fixed = [float(v) for v in fixed]
 
-    # checkpoint round trip
-    saved = {k: v.detach().clone() for k, v in state.params.items()}
-    saved_ema = {k: v.clone() for k, v in state.ema_params.items()}
-    path = trainer.save_checkpoint(state)
-    state, _ = trainer.train_step(state, batches[1], gen)
-    state = trainer.restore_checkpoint(path, state)
+        # checkpoint round trip
+        saved = {k: v.detach().clone() for k, v in state.params.items()}
+        saved_ema = {k: v.clone() for k, v in state.ema_params.items()}
+        path = trainer.save_checkpoint(state)
+        state, _ = trainer.train_step(state, batches[1], gen)
+        state = trainer.restore_checkpoint(path, state)
     ckpt_ok = all(torch.equal(state.params[k], v) for k, v in saved.items()) and \
         all(torch.equal(state.ema_params[k], v) for k, v in saved_ema.items())
     torch.cuda.synchronize()
@@ -640,24 +683,146 @@ def phase_train_path(dev):
     losses = [float(m["loss"]) for m in metrics]
     norms = [float(m["grad_norm"]) for m in metrics]
     first5, last5 = sum(fixed[:5]) / 5, sum(fixed[-5:]) / 5
-    emit({"phase": "train_path", "B": B_TRAIN, "T": T, "L": L, "C": C, "layers": NL,
+    extra = {}
+    if route:
+        from mdgen_finetune_tpu_torch.ops.fused_layer_bwd_merged import fused_layer_bwd_merged
+
+        extra = {"route": route, "losses_bit_identical_to_train_path": losses == ref[0],
+                 "grad_norms_bit_identical_to_train_path": norms == ref[1],
+                 "merged_launch": fused_layer_bwd_merged.last_launch}
+    emit({"phase": phase, "B": B_TRAIN, "T": T, "L": L, "C": C, "layers": NL,
           "dtype": "bf16", "ms_per_step": secs * 1e3, "trajectories_per_s": B_TRAIN / secs,
           "peak_memory_gb": peak_gb, "losses": losses, "grad_norms": norms,
           "fixed_batch_first5": first5, "fixed_batch_last5": last5,
           "checkpoint_round_trip": ckpt_ok, "launches_per_step": per_step,
           "launches": launches, "plain_calls_on_card": twin_calls,
-          "encoder_bwd_recomputes": ipa_encoder.bwd_recomputes})
+          "encoder_bwd_recomputes": ipa_encoder.bwd_recomputes, **extra})
     if not all(np.isfinite(losses + norms + fixed)):
-        raise AssertionError("non-finite loss or gradient norm in training")
+        raise AssertionError(f"{phase}: non-finite loss or gradient norm in training")
     if not last5 < first5:
-        raise AssertionError(f"fixed-batch loss did not fall: {first5} -> {last5}")
+        raise AssertionError(f"{phase}: fixed-batch loss did not fall: {first5} -> {last5}")
     if not ckpt_ok:
-        raise AssertionError("checkpoint round trip changed the state")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the training path never launched: {launches}")
+        raise AssertionError(f"{phase}: checkpoint round trip changed the state")
     if any(twin_calls.values()):
-        raise AssertionError(f"plain twins ran on the card: {twin_calls}")
-    return launches, (trainer, state, batches[0], gen)
+        raise AssertionError(f"{phase}: plain twins ran on the card: {twin_calls}")
+    if route:
+        want = {"fused_layer_bwd_merged": NL, "linear_bwd": 0, "modln_bwd": 0,
+                "rope_attention_bwd": 0}
+        if any(per_step[k] != v for k, v in want.items()):
+            raise AssertionError(f"{phase}: launches per step {per_step}, want {want}")
+        if losses != ref[0] or norms != ref[1]:
+            raise AssertionError(f"{phase}: losses or gradient norms differ from train_path's: "
+                                 f"{losses}, {norms} vs {ref}")
+    elif min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the training path never launched: {launches}")
+    return launches, (losses, norms), (trainer, state, batches[0], gen)
+
+
+def layer_case(dev, Bc, Tc, seed):
+    """Seeded f32 inputs of one trunk layer at the flagship's width (L = 4,
+    C = 384): x, mod, the 16 weights, a mask with a padded residue and a
+    frame whose only valid residue key is the bias token, dout."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*s, sc=1.0):
+        return torch.randn(*s, generator=g, device=dev) * sc
+
+    shapes = dict(wqkv_l=(C, 3 * C), bqkv_l=(3 * C,), wout_l=(C, C), bout_l=(C,),
+                  wqkv_t=(C, 3 * C), bqkv_t=(3 * C,), wout_t=(C, C), bout_t=(C,),
+                  w1=(C, 4 * C), b1=(4 * C,), w2=(4 * C, C), b2=(C,), bkl=(C,), bvl=(C,),
+                  bkt=(C,), bvt=(C,))
+    w = {k: r(*sh, sc=(sh[0] ** -0.5 if k[0] == "w" else 0.4)) for k, sh in shapes.items()}
+    M = Bc * Tc * L
+    mask = torch.ones(Bc, Tc, L, device=dev)
+    mask[0, :, -1] = 0  # a padded residue
+    mask[-1, 2, :] = 0  # a frame whose only valid residue key is the bias token
+    return r(M, C), r(Bc, 9 * C, sc=0.3), w, mask, r(M, C)
+
+
+def phase_merged_bwd_kernels(dev):
+    """Row 4' (the merged layer backward: one cooperative launch per layer)
+    at the training path's shape (B = 32, T = 100, L = 4, C = 384, 16 heads,
+    a padded residue, seeded random weights), and at T = 200 (B = 4), where
+    the frame stage takes the blocked core: against the split route on the
+    same bf16 inputs (bit for bit expected), and against the plain version
+    in f32 under the composition rule (relative L2 at most 2 x that of the
+    plain version in bf16, + 0.01, per output). Times (CUDA events, median):
+    the merged launch, the split route's launches for one layer, the plain
+    version (bf16 twins on the card). Bound: the split route's work less the
+    dx round trips: the products of the recompute and of both backward
+    products (96 M C^2 FLOP) and the attention cores (14 N (N + 1) D per
+    sequence and head and stage) against the layer's inputs and outputs read
+    and written once."""
+    from mdgen_finetune_tpu_torch.ops import fused_layer_bwd_merged as FM
+    from mdgen_finetune_tpu_torch.ops.fused_layer import trunk_layer
+    from mdgen_finetune_tpu_torch.ops.fused_layer_bwd import layer_bwd_split
+    from mdgen_finetune_tpu_torch.ops.residue_block import residue_block_plain
+    from mdgen_finetune_tpu_torch.ops.time_attention import time_attention_block_plain
+
+    wrappers, _ = _counters(tuple((n, n) for n in TRAIN_WRAPPERS + ("blocked_attention_bwd",)))
+    out = {}
+    for name, (Bc, Tc) in (("T100", (B_TRAIN, T)), ("T200", (4, 200))):
+        x, mod, w, mask, dout = layer_case(dev, Bc, Tc, seed=41 + Tc)
+        bf = torch.bfloat16
+        xb, modb, wb = x.to(bf), mod.to(bf), {k: v.to(bf) for k, v in w.items()}
+        x1, x2, _ = trunk_layer(xb, modb, wb, mask, B=Bc, T=Tc, L=L, num_heads=H)
+        args = (xb, x1, x2, dout, modb, wb, mask, H)
+
+        def flat(res):
+            dx, dmod, dw = res
+            return [("dx", dx), ("dmod", dmod)] + [(k, dw[k]) for k in sorted(dw)]
+
+        before = {fn.__name__: fn.launches for fn in wrappers}
+        split = flat(layer_bwd_split(*args))
+        split_launches = {k: fn.launches - before[k] for k, fn in
+                          ((fn.__name__, fn) for fn in wrappers) if fn.launches > before[k]}
+        n0 = FM.fused_layer_bwd_merged.launches
+        merged = flat(FM.fused_layer_bwd_merged(*args))
+        torch.cuda.synchronize()
+        if FM.fused_layer_bwd_merged.launches != n0 + 1:
+            raise AssertionError("merged_bwd_kernels: the merged kernel did not launch once")
+        launch = FM.fused_layer_bwd_merged.last_launch
+        differ = [k for (k, a), (_, b) in zip(merged, split) if not torch.equal(a, b)]
+        plain_bf = flat(FM.fused_layer_bwd_merged_plain(*args))
+
+        def m(j):
+            return mod[:, j * C:(j + 1) * C]
+
+        dims = dict(B=Bc, T=Tc, L=L, num_heads=H)
+        p1 = residue_block_plain(x, m(0), m(1), m(2), w["wqkv_l"], w["bqkv_l"], w["wout_l"],
+                                 w["bout_l"], w["bkl"], w["bvl"], mask, **dims)
+        p2 = time_attention_block_plain(p1, m(3), m(4), m(5), w["wqkv_t"], w["bqkv_t"],
+                                        w["wout_t"], w["bout_t"], w["bkt"], w["bvt"], mask, **dims)
+        truth = flat(FM.fused_layer_bwd_merged_plain(x, p1, p2, dout, mod, w, mask, H))
+
+        def rel(a, b):
+            return ((a.float() - b.float()).norm() / max(b.float().norm().item(), 1e-12)).item()
+
+        rule = {k: [rel(a, t), 2 * rel(p, t) + 0.01] for (k, a), (_, p), (_, t) in
+                zip(merged, plain_bf, truth)}
+        over = {k: v for k, v in rule.items() if not v[0] <= v[1]}
+        finite = all(bool(torch.isfinite(a).all()) for _, a in merged)
+        err = max((a.float() - t.float()).abs().max().item() for (_, a), (_, t) in zip(merged, truth))
+        M = Bc * Tc * L
+        flops = 96.0 * M * C * C + 14.0 * C * M * (Tc + 1 + L + 1)
+        io = nbytes(xb, x1, x2, dout, modb, mask, *wb.values()) + M * C * 4 + \
+            Bc * 9 * C * 4 + sum(v.numel() for v in wb.values()) * 4
+        bound = bound_ms(io, flops)
+        out[name] = dict(
+            shape=f"B={Bc}, T={Tc}, L={L}, C={C}, {H} heads (M = {M} rows), one layer",
+            bit_identical_to_split=not differ, differ_from_split=differ,
+            rule_worst={k: rule[k] for k in sorted(rule, key=lambda k: rule[k][0] - rule[k][1])[-3:]},
+            max_abs_err=err, tol="composition rule, per output", launch=launch,
+            ms=time_ms(lambda: FM.fused_layer_bwd_merged(*args), reps=10),
+            split_ms=time_ms(lambda: layer_bwd_split(*args), reps=10),
+            split_launches=split_launches,
+            plain_ms=time_ms(lambda: FM.fused_layer_bwd_merged_plain(*args), reps=3, warmup=1),
+            library_ms=None, bound=bound,
+            split_bound_ms=bound_ms(io + 4 * M * C * 4, flops)[0])
+        if over or not finite:
+            raise AssertionError(f"merged_bwd_kernels[{name}]: over the rule: {over}")
+    emit({"phase": "merged_bwd_kernels", "kernels": out})
+    return out
 
 
 def with_twins(fn):
@@ -1558,7 +1723,9 @@ def phase_atlas_kernels(dev):
     N = 250), at N = 129 and at its limit; ``tiled_attention`` and
     ``rope_attention`` as the residue stage's core (the route keeps JAX's
     gate, tiled above MAX_L = 8; both timed); ``ipa_attention`` (row c) at
-    L = 256 over the 100-point t grid of one Euler-100 sample, and at L = 4;
+    L = 256 over the 100-point t grid of one Euler-100 sample, and at L = 4,
+    and at L = 256 with (Ch, Pq, Pv) = (16, 4, 6) (the key-tiled form's
+    shared-memory state);
     then ``residue_rows_block`` (row 7) and the whole stage backward
     (``attention_stage_bwd``, row 8) in both views under the composition
     rule. The residues past 200 are padding (mask 0), as for a 200-residue
@@ -1671,10 +1838,13 @@ def phase_atlas_kernels(dev):
     out["residue_core_atlas"] = core
     del q, k, v, am, qkv
 
-    # ---- ipa_attention: L = 256 over the Euler-100 t grid, and L = 4 ----
+    # ---- ipa_attention: L = 256 over the Euler-100 t grid, and L = 4; the
+    # key-tiled form at other widths (Ch, Pq, Pv) = (16, 4, 6) at L = 256 ----
     ipa = {}
-    for name, (Bn, Lc) in (("L256", (STEPS * B_ATLAS, L_ATLAS)), ("L4", (STEPS, 4))):
-        proj = r(Bn, Lc, proj_width(4, 32, 8, 8), dtype=f32)
+    for name, (Bn, Lc, (Ch, Pq, Pv)) in (("L256", (STEPS * B_ATLAS, L_ATLAS, (32, 8, 8))),
+                                         ("L4", (STEPS, 4, (32, 8, 8))),
+                                         ("L256_w16_4_6", (STEPS * B_ATLAS, L_ATLAS, (16, 4, 6)))):
+        proj = r(Bn, Lc, proj_width(4, Ch, Pq, Pv), dtype=f32)
         t7 = r(Bn, Lc, 7, dtype=f32)
         t7[..., 4:] *= 5
         fr = Rigid.from_tensor_7(t7)
@@ -1682,20 +1852,21 @@ def phase_atlas_kernels(dev):
         emask = torch.ones(Bn, Lc, device=dev)
         emask[:, Lc - Lc * ATLAS_PAD // L_ATLAS:] = 0
         hw = r(4, dtype=f32)
-        kw = dict(H=4, Ch=32, Pq=8, Pv=8)
+        kw = dict(H=4, Ch=Ch, Pq=Pq, Pv=Pv)
         got = ipa_attention(proj, rot, trans, emask, hw, **kw)
         err = check(f"ipa_attention[{name}]", got, ipa_attention_plain(proj, rot, trans, emask, hw,
                                                                        **kw), 1e-2)
         ipa[name] = dict(
-            shape=f"{Bn} elements x 4 heads, L={Lc}, Ch=32, Pq=Pv=8", max_abs_err=err[0],
+            shape=f"{Bn} elements x 4 heads, L={Lc}, Ch={Ch}, Pq={Pq}, Pv={Pv}",
+            max_abs_err=err[0],
             tol=err[1], ms=time_ms(lambda: ipa_attention(proj, rot, trans, emask, hw, **kw)),
             plain_ms=time_ms(lambda: ipa_attention_plain(proj, rot, trans, emask, hw, **kw),
                              reps=5),
             library_ms=None,
             bound=bound_ms(nbytes(proj, rot, trans, emask, hw) + got.numel() * 2,
-                           Lc * Lc * 4 * Bn * (2 * 32 + 8 * 3 * 3 + 2 * (32 + 8 * 3)),
+                           Lc * Lc * 4 * Bn * (2 * Ch + Pq * 3 * 3 + 2 * (Ch + Pv * 3)),
                            PEAK_F32_FLOPS))
-    out["ipa_attention"] = dict(ipa["L256"], L4=ipa["L4"])
+    out["ipa_attention"] = dict(ipa["L256"], L4=ipa["L4"], L256_w16_4_6=ipa["L256_w16_4_6"])
 
     # ---- row 7 (residue_rows_block) and row 8 (the stage backwards) as a whole ----
     x, dout = r(Mrows, C), r(Mrows, C, dtype=f32)
@@ -2291,6 +2462,46 @@ def phase_modular_cli(dev):
         raise AssertionError(f"modular_cli: backbone bonds off: N-CA {dev_nca}, CA-C {dev_cac}")
 
 
+def phase_micro_ops(dev):
+    """Row 13: the micro-op probe (``mdgen_finetune_tpu_torch.tools.micro_ops``,
+    ``csrc/micro_ops.cu``): every op of the JAX probe's list held against its
+    plain version (K = 2, 32 programs; the plain and the position-weighted
+    sums, each within ``REL`` of its terms' magnitudes), then timed at K = 2
+    and 10 (CUDA events, median of 5; the launch count is these timed
+    launches); prints the marginal-cost table. The kernel line's times are
+    those of ``dot_416x384x384`` at K = 2 (its bound: the bytes of x, the
+    only input it reads, and the products' operations, the larger; plain:
+    the same K-sums in torch)."""
+    from mdgen_finetune_tpu_torch.tools import micro_ops as P
+
+    x, y = P.inputs(dev)
+    held = {n: P.check(x, y, n) for n in P.NAMES}
+    P.micro_ops.launches = 0  # the probe's own run: its timed launches
+    res = {}
+    for n in P.NAMES:
+        t2, t10, us = P.measure(x, y, n)
+        res[n] = dict(t2_ms=t2, t10_ms=t10, marginal_us=us, max_abs_err=held[n][0],
+                      max_rel_err=held[n][1])
+    launches = P.micro_ops.launches
+    print("micro_ops marginal cost, us per op per program (card above):", flush=True)
+    for n, r in sorted(res.items(), key=lambda kv: -kv[1]["marginal_us"]):
+        print(f"  {r['marginal_us']:10.3f}  {n}", flush=True)
+    rep = "dot_416x384x384"
+    out = dict(shape=f"{rep}: 32 programs x K = 2 (x (32, 416, 384), y (32, 416, 1536) bf16)",
+               max_abs_err=max(r["max_abs_err"] for r in res.values()),
+               tol=f"{P.REL} x the sum of the terms' magnitudes, per program, for the plain "
+                   f"and the position-weighted sum", ms=res[rep]["t2_ms"],
+               plain_ms=time_ms(lambda: P.micro_ops_plain(x, y, rep, 2), reps=3, warmup=1),
+               library_ms=None,
+               bound=bound_ms(nbytes(x) + 32 * 2 * 4, 2.0 * 416 * 384 * 384 * 2 * 32),
+               launches=launches, ops=res)
+    emit({"phase": "micro_ops", "ops": len(res), "launches": launches,
+          "marginal_us": {n: r["marginal_us"] for n, r in res.items()},
+          "max_rel_err": {n: r["max_rel_err"] for n, r in res.items()}, "kernel": {
+              k: v for k, v in out.items() if k != "ops"}})
+    return out
+
+
 KERNEL_OF = (("tiled_attention", "tiled_attention"),
              ("fused_attention_fwd", "fused_attention_fwd"),
              ("fused_attention_d", "fused_attention_bwd"),
@@ -2300,7 +2511,8 @@ KERNEL_OF = (("tiled_attention", "tiled_attention"),
              ("rope_attention", "rope_attention"), ("ipa_attention", "ipa_attention"),
              ("dgrad_kernel", "linear_bwd"), ("wgrad_kernel", "linear_bwd"),
              ("row_stats_kernel", "linear_bwd"), ("modln_bwd", "modln_bwd"),
-             ("colsum_kernel", "colsum (linear_bwd, modln_bwd, the attention backwards)"))
+             ("colsum_kernel", "colsum (linear_bwd, modln_bwd, the attention backwards)"),
+             ("fused_layer_bwd_kernel", "fused_layer_bwd_merged"))
 
 
 def phase_trace(name, run):
@@ -2368,8 +2580,16 @@ def main():
     del eng
     phase_sim_cli(dev)
     phase_grad_across_devices(dev)
-    train_launches, (trainer, state, tbatch, tgen) = phase_train_path(dev)
+    train_launches, train_ref, (trainer, state, tbatch, tgen) = phase_train_path(dev)
     phase_trace("train_trace", lambda: trainer.train_step(state, tbatch, tgen))
+    del trainer, state
+    # the merged layer backward (MDGEN_FUSED_BWD=merged): row 4', then the
+    # same training run through it
+    merged = phase_merged_bwd_kernels(dev)
+    merged_launches, _, (trainer, state, tbatch, tgen) = phase_train_path(dev, "merged",
+                                                                          train_ref)
+    with fused_bwd_route("merged"):
+        phase_trace("train_merged_trace", lambda: trainer.train_step(state, tbatch, tgen))
     del trainer, state
     phase_trunk_rows(dev)
     long_bwd, _ = phase_long_bwd_kernels(dev)
@@ -2407,6 +2627,7 @@ def main():
     no_rope_launches, _ = modular_sample(dev, "no_rope_main", modular_config("no_rope"), B,
                                          seed=131)
     phase_modular_cli(dev)
+    probe = phase_micro_ops(dev)
     shutil.rmtree(SCRATCH, ignore_errors=True)
 
     bwd = "mdgen_finetune_tpu/ops/fused_layer_bwd.py:563 (_k3 :157, _k2 :323, _k1 :474)"
@@ -2494,6 +2715,25 @@ def main():
                      "more_shapes": {c: {f: v for f, v in modular[c].items() if f != "shape"}
                                      for c in modular if modular[c]["kernel"] == src.split("[")[0]
                                      and c != case}})
+    # row 4' (launches: the train_merged run) and row 13 (the probe's run)
+    k = merged["T100"]
+    line.append({"name": "fused_layer_bwd_merged", "route": "cuda",
+                 "source": "mdgen_finetune_tpu_torch/csrc/fused_layer_bwd.cu",
+                 "replaces": "mdgen_finetune_tpu/ops/fused_layer_bwd.py:501 (_kmerged, "
+                             "pallas_call :646)",
+                 "launches": merged_launches["fused_layer_bwd_merged"],
+                 "max_abs_err": k["max_abs_err"], "tol": k["tol"], "ms": k["ms"],
+                 "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0], "bound_by": k["bound"][1],
+                 "library_ms": None, "shape": k["shape"], "split_ms": k["split_ms"],
+                 "bit_identical_to_split": k["bit_identical_to_split"],
+                 "T200": {f: v for f, v in merged["T200"].items() if f != "shape"}})
+    line.append({"name": "micro_ops", "route": "cuda",
+                 "source": "mdgen_finetune_tpu_torch/csrc/micro_ops.cu",
+                 "replaces": "tools/micro_ops.py:300 (main: the probe's pallas_call, body kernel)",
+                 "launches": probe["launches"], "max_abs_err": probe["max_abs_err"],
+                 "tol": probe["tol"], "ms": probe["ms"], "plain_ms": probe["plain_ms"],
+                 "bound_ms": probe["bound"][0], "bound_by": probe["bound"][1], "library_ms": None,
+                 "shape": probe["shape"]})
     emit({"kernels": line, "card": smi, "total_s": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -5,9 +5,11 @@
 //
 //   out[(w / row_w) * ld_out + w % row_w] = sum over r of in[r * W + w]
 //
-// for R rows of W f32 columns: a block of 32 columns x 8 row lanes; lane ty
-// sums rows ty, ty + 8, ... in order, then the 8 lane sums are added in
-// order, so the result does not depend on scheduling.
+// for R rows of W f32 columns. Lane ty of a column sums rows ty, ty + 8, ...
+// in order (lane_sum), then the 8 lane sums are added in order (total), so
+// the result does not depend on scheduling. colsum_kernel runs a block of
+// 32 columns x 8 row lanes; the merged layer backward (fused_layer_bwd.cu)
+// gives one thread a whole column (column), the same sums in the same order.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -16,23 +18,44 @@ namespace colsum {
 
 constexpr int COLS = 32, LANES = 8;
 
+__device__ __forceinline__ float lane_sum(const float* __restrict__ in, long long R, long long W,
+                                          long long w, int ty) {
+  float s = 0.f;
+  for (long long r = ty; r < R; r += LANES) s += in[r * W + w];
+  return s;
+}
+
+__device__ __forceinline__ float total(const float* lanes, int stride) {
+  float t = 0.f;
+#pragma unroll
+  for (int i = 0; i < LANES; ++i) t += lanes[i * stride];
+  return t;
+}
+
+__device__ __forceinline__ void store(float* __restrict__ out, long long w, long long row_w,
+                                      long long ld_out, float t) {
+  out[(w / row_w) * ld_out + w % row_w] = t;
+}
+
+// column w in one thread: the sums of colsum_kernel, bit for bit
+__device__ __forceinline__ void column(const float* __restrict__ in, float* __restrict__ out,
+                                       long long R, long long W, long long row_w,
+                                       long long ld_out, long long w) {
+  float lanes[LANES];
+#pragma unroll
+  for (int i = 0; i < LANES; ++i) lanes[i] = lane_sum(in, R, W, w, i);
+  store(out, w, row_w, ld_out, total(lanes, 1));
+}
+
 __global__ void __launch_bounds__(COLS * LANES) colsum_kernel(
     const float* __restrict__ in, float* __restrict__ out, long long R, long long W,
     long long row_w, long long ld_out) {
   __shared__ float part[LANES][COLS + 1];
   const int tx = threadIdx.x % COLS, ty = threadIdx.x / COLS;
   const long long w = (long long)blockIdx.x * COLS + tx;
-  float s = 0.f;
-  if (w < W)
-    for (long long r = ty; r < R; r += LANES) s += in[r * W + w];
-  part[ty][tx] = s;
+  part[ty][tx] = w < W ? lane_sum(in, R, W, w, ty) : 0.f;
   __syncthreads();
-  if (ty == 0 && w < W) {
-    float t = 0.f;
-#pragma unroll
-    for (int i = 0; i < LANES; ++i) t += part[i][tx];
-    out[(w / row_w) * ld_out + w % row_w] = t;
-  }
+  if (ty == 0 && w < W) store(out, w, row_w, ld_out, total(&part[0][tx], COLS + 1));
 }
 
 inline int launch(const float* in, float* out, long long R, long long W, long long row_w,

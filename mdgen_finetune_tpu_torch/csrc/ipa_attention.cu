@@ -29,13 +29,16 @@
 //     ~3.3 KB per row at the flagship widths). Its shared memory holds the
 //     L x L logits, so it fits only up to L ~ 167 at Ch = 32, Pq = Pv = 8.
 //   - tiled (large L, ATLAS at L = 256): one block of 64 threads per
-//     (element, head, 64-query tile), one query per thread, its scalars and
-//     lifted points in registers (Ch = 32, Pq = Pv = 8, the model's widths,
-//     as template arguments). The keys stream through shared memory in
-//     tiles of 64 (scalars, points lifted as they are staged, mask); each
-//     tile's logits go to a per-thread row of shared memory, and the
-//     natural-exp softmax keeps a running max and rescales its sums once per
-//     tile, as csrc/fused_attention.cu does. No buffer grows with L. At
+//     (element, head, 64-query tile), one query per thread. The keys stream
+//     through shared memory in tiles of 64 (scalars, points lifted as they
+//     are staged, mask); each tile's logits go to a per-thread row of shared
+//     memory, and the natural-exp softmax keeps a running max and rescales
+//     its sums once per tile, as csrc/fused_attention.cu does. No buffer
+//     grows with L. At the model's widths (Ch = 32, Pq = Pv = 8, template
+//     arguments) a query's scalars, lifted points and sums stay in
+//     registers; at any other widths (runtime loops) they live in shared
+//     memory, one column per thread, so every width runs at every L, as the
+//     JAX encoder's XLA form does (ops/ipa_encoder.py::encoder_xla). At
 //     L = 256 each pair costs ~170 f32 FLOP (0.5 GFLOP per 100 elements):
 //     f32 arithmetic, not bytes, bounds it.
 
@@ -288,24 +291,169 @@ __global__ void __launch_bounds__(QT) ipa_attention_tiled_kernel(
   }
 }
 
+// the tiled form at any widths: the same steps and sums as the template,
+// with the query's state in shared memory ([value][thread], conflict-free)
+__host__ __device__ inline size_t tiled_any_floats(int Ch, int Pq, int Pv) {
+  const size_t keys = (size_t)KT * (2 * Ch + 3 * Pq + 3 * Pv + 1);
+  const size_t logits = (size_t)QT * (KT + 1);
+  const size_t state = (size_t)QT * (2 * Ch + 3 * Pq + 3 * Pv);
+  return keys + logits + state;
+}
+
+__global__ void __launch_bounds__(QT) ipa_attention_tiled_any_kernel(
+    const float* __restrict__ proj, long long ld, const float* __restrict__ rot,
+    const float* __restrict__ trans, const float* __restrict__ mask,
+    const float* __restrict__ head_weights, bf16* __restrict__ feats, long long ldf,
+    int L, int H, int CH, int PQ, int PV, int qtiles) {
+  extern __shared__ float smt[];
+  const int P3Q = 3 * PQ, P3V = 3 * PV;
+  float* Ks = smt;                  // [KT][CH]
+  float* Vs = Ks + KT * CH;         // [KT][CH]
+  float* KP = Vs + KT * CH;         // [KT][3 PQ]
+  float* VP = KP + KT * P3Q;        // [KT][3 PV]
+  float* Mk = VP + KT * P3V;        // [KT]
+  float* S = Mk + KT;               // [QT][KT + 1]
+  float* q = S + QT * (KT + 1);     // [CH][QT]
+  float* qp = q + CH * QT;          // [3 PQ][QT]
+  float* o = qp + P3Q * QT;         // [CH][QT]
+  float* op = o + CH * QT;          // [3 PV][QT]
+  const int tid = threadIdx.x;
+  const int qt = blockIdx.x % qtiles, h = (blockIdx.x / qtiles) % H;
+  const long long b = blockIdx.x / qtiles / H;
+  const long long row0 = b * L;
+  const int HCh = H * CH, HPq = H * PQ, HPv = H * PV;
+  const long long qpts = 3LL * HCh, kpts = qpts + 3LL * HPq, vpts = kpts + 3LL * HPq;
+
+  const int i = qt * QT + tid;  // this thread's query
+  const bool live = i < L;
+  float mq = 0.f;
+  for (int c = 0; c < CH; ++c) o[c * QT + tid] = 0.f;
+  for (int e = 0; e < P3V; ++e) op[e * QT + tid] = 0.f;
+  if (live) {
+    const float* src = proj + (row0 + i) * ld;
+    const float* r = rot + (row0 + i) * 9;
+    const float* t = trans + (row0 + i) * 3;
+    for (int c = 0; c < CH; ++c) q[c * QT + tid] = src[h * CH + c];
+    for (int p = 0; p < PQ; ++p) {
+      const float x = src[qpts + h * PQ + p], y = src[qpts + HPq + h * PQ + p],
+                  z = src[qpts + 2 * HPq + h * PQ + p];
+      qp[(p * 3 + 0) * QT + tid] = r[0] * x + r[1] * y + r[2] * z + t[0];
+      qp[(p * 3 + 1) * QT + tid] = r[3] * x + r[4] * y + r[5] * z + t[1];
+      qp[(p * 3 + 2) * QT + tid] = r[6] * x + r[7] * y + r[8] * z + t[2];
+    }
+    mq = mask[row0 + i];
+  } else {
+    for (int c = 0; c < CH; ++c) q[c * QT + tid] = 0.f;
+    for (int e = 0; e < P3Q; ++e) qp[e * QT + tid] = 0.f;
+  }
+  const float hw_raw = head_weights[h];
+  const float softplus = hw_raw > 20.f ? hw_raw : log1pf(expf(hw_raw));
+  const float hw = softplus * sqrtf(1.0f / (3.0f * (PQ * 9.0f / 2.0f))) * -0.5f;
+  const float c_sc = sqrtf(1.0f / (3.0f * CH));
+  float m = -3.0e38f, l = 0.f;  // running max and sum of this query's weights
+
+  for (int k0 = 0; k0 < L; k0 += KT) {
+    const int nk = min(KT, L - k0);
+    __syncthreads();  // every thread is done with the previous tile
+    for (int e = tid; e < nk * CH; e += QT) {
+      const int j = e / CH, c = e % CH;
+      const float* src = proj + (row0 + k0 + j) * ld + h * CH + c;
+      Ks[j * CH + c] = src[HCh];
+      Vs[j * CH + c] = src[2 * HCh];
+    }
+    for (int e = tid; e < nk * (PQ + PV); e += QT) {
+      const int j = e / (PQ + PV), p = e % (PQ + PV);
+      const long long rj = row0 + k0 + j;
+      const float* src = proj + rj * ld;
+      const bool is_k = p < PQ;
+      const int pp = is_k ? p : p - PQ, HP = is_k ? HPq : HPv, P = is_k ? PQ : PV;
+      const long long base = (is_k ? kpts : vpts) + h * P + pp;
+      const float x = src[base], y = src[base + HP], z = src[base + 2 * HP];
+      const float* r = rot + rj * 9;
+      const float* t = trans + rj * 3;
+      float* dst = is_k ? &KP[j * P3Q + pp * 3] : &VP[j * P3V + pp * 3];
+      dst[0] = r[0] * x + r[1] * y + r[2] * z + t[0];
+      dst[1] = r[3] * x + r[4] * y + r[5] * z + t[1];
+      dst[2] = r[6] * x + r[7] * y + r[8] * z + t[2];
+    }
+    for (int j = tid; j < nk; j += QT) Mk[j] = mask[row0 + k0 + j];
+    __syncthreads();
+    if (!live) continue;
+    float mt = -3.0e38f;
+    for (int j = 0; j < nk; ++j) {
+      float s = 0.f, d2 = 0.f;
+      for (int c = 0; c < CH; ++c) s += q[c * QT + tid] * Ks[j * CH + c];
+      for (int e = 0; e < P3Q; ++e) {
+        const float d = qp[e * QT + tid] - KP[j * P3Q + e];
+        d2 += d * d;
+      }
+      const float a = s * c_sc + d2 * hw + 1e5f * (mq * Mk[j] - 1.0f);
+      S[tid * (KT + 1) + j] = a;
+      mt = fmaxf(mt, a);
+    }
+    const float mn = fmaxf(m, mt), scale = expf(m - mn);
+    l *= scale;
+    for (int c = 0; c < CH; ++c) o[c * QT + tid] *= scale;
+    for (int e = 0; e < P3V; ++e) op[e * QT + tid] *= scale;
+    for (int j = 0; j < nk; ++j) {
+      const float p = expf(S[tid * (KT + 1) + j] - mn);
+      l += p;
+      for (int c = 0; c < CH; ++c) o[c * QT + tid] += p * Vs[j * CH + c];
+      for (int e = 0; e < P3V; ++e) op[e * QT + tid] += p * VP[j * P3V + e];
+    }
+    m = mn;
+  }
+  if (!live) return;
+  const float inv = 1.f / l;
+  bf16* f = feats + (row0 + i) * ldf;
+  for (int c = 0; c < CH; ++c) f[h * CH + c] = __float2bfloat16(o[c * QT + tid] * inv);
+  const float* r = rot + (row0 + i) * 9;
+  const float* t = trans + (row0 + i) * 3;
+  for (int p = 0; p < PV; ++p) {
+    const float dx = op[(p * 3) * QT + tid] * inv - t[0],
+                dy = op[(p * 3 + 1) * QT + tid] * inv - t[1],
+                dz = op[(p * 3 + 2) * QT + tid] * inv - t[2];
+    const float lx = r[0] * dx + r[3] * dy + r[6] * dz;
+    const float ly = r[1] * dx + r[4] * dy + r[7] * dz;
+    const float lz = r[2] * dx + r[5] * dy + r[8] * dz;
+    bf16* fp = f + HCh + h * PV + p;
+    fp[0] = __float2bfloat16(lx);
+    fp[HPv] = __float2bfloat16(ly);
+    fp[2 * HPv] = __float2bfloat16(lz);
+    fp[3 * HPv] = __float2bfloat16(sqrtf(lx * lx + ly * ly + lz * lz + 1e-8f));
+  }
+}
+
 }  // namespace
 
-// tiled != 0: the key-tiled form (Ch = 32, Pq = Pv = 8 only); else the
-// resident form, whose L x L logits must fit one block's shared memory
+// tiled != 0: the key-tiled form (registers at Ch = 32, Pq = Pv = 8, shared
+// memory at other widths); else the resident form, whose L x L logits must
+// fit one block's shared memory
 extern "C" int ipa_attention(const void* proj, long long ld, const void* rot, const void* trans,
                              const void* mask, const void* head_weights, void* feats,
                              long long ldf, int B, int L, int H, int Ch, int Pq, int Pv,
                              int tiled, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tiled) {
-    if (Ch != 32 || Pq != 8 || Pv != 8) return (int)cudaErrorInvalidValue;
     const int qtiles = (L + QT - 1) / QT;
     const long long blocks = (long long)B * H * qtiles;
     if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    ipa_attention_tiled_kernel<32, 8, 8><<<(unsigned)blocks, QT, 0, s>>>(
+    if (Ch == 32 && Pq == 8 && Pv == 8) {
+      ipa_attention_tiled_kernel<32, 8, 8><<<(unsigned)blocks, QT, 0, s>>>(
+          static_cast<const float*>(proj), ld, static_cast<const float*>(rot),
+          static_cast<const float*>(trans), static_cast<const float*>(mask),
+          static_cast<const float*>(head_weights), static_cast<bf16*>(feats), ldf, L, H, qtiles);
+      return (int)cudaGetLastError();
+    }
+    const size_t bytes = tiled_any_floats(Ch, Pq, Pv) * sizeof(float);
+    cudaError_t e = cudaFuncSetAttribute(ipa_attention_tiled_any_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+    ipa_attention_tiled_any_kernel<<<(unsigned)blocks, QT, bytes, s>>>(
         static_cast<const float*>(proj), ld, static_cast<const float*>(rot),
         static_cast<const float*>(trans), static_cast<const float*>(mask),
-        static_cast<const float*>(head_weights), static_cast<bf16*>(feats), ldf, L, H, qtiles);
+        static_cast<const float*>(head_weights), static_cast<bf16*>(feats), ldf, L, H, Ch, Pq,
+        Pv, qtiles);
     return (int)cudaGetLastError();
   }
   size_t smem = sizeof(float) * ((size_t)L * 13 + 3 * L * Ch + 3 * L * (2 * Pq + Pv) + L * L);

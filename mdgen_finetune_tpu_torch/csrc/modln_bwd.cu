@@ -26,26 +26,22 @@
 // (split, element), and colsum.cuh adds the splits in a fixed order: the
 // per-element sums are deterministic. A grid of (elements x splits) blocks
 // keeps the 132 SMs busy although there are only B = 32 elements.
+//
+// The block body lives in modln_bwd.cuh, which the merged layer backward
+// (fused_layer_bwd.cu) includes too.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "colsum.cuh"
+#include "modln_bwd.cuh"
 
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int WARPS = 8;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using modln::WARPS;
 
 template <typename XT>
 __global__ void __launch_bounds__(WARPS * 32) modln_bwd_kernel(
@@ -54,56 +50,8 @@ __global__ void __launch_bounds__(WARPS * 32) modln_bwd_kernel(
     const bf16* __restrict__ scale, long long ld_mod, float* __restrict__ dx,
     float* __restrict__ part, int C, int nb, int rows, int rows_per_split) {
   extern __shared__ float acc[];  // [WARPS][3][C]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.x, s = blockIdx.y;
-  float* mine = acc + (size_t)warp * 3 * C;
-  for (int i = threadIdx.x; i < WARPS * 3 * C; i += WARPS * 32) acc[i] = 0.f;
-  __syncthreads();
-
-  const bf16* sc = scale + (long long)b * ld_mod;
-  const int r_lo = s * rows_per_split, r_hi = min(rows, r_lo + rows_per_split);
-  const float inv_c = 1.0f / C;
-  for (int rr = r_lo + warp; rr < r_hi; rr += WARPS) {
-    const long long r = (long long)b * rows + rr;
-    const XT* xr = x + r * ldx;
-    const float* dhr = dh + r * C;
-    float sum = 0.f;
-    for (int c = lane; c < C; c += 32) sum += to_f(xr[c]);
-    const float mean = warp_sum(sum) * inv_c;
-    float var = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      float d = to_f(xr[c]) - mean;
-      var += d * d;
-    }
-    const float rstd = rsqrtf(warp_sum(var) * inv_c + 1e-6f);
-    float m1 = 0.f, m2 = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      float hh = (to_f(xr[c]) - mean) * rstd;
-      float dhh = dhr[c] * (1.0f + __bfloat162float(sc[c]));
-      m1 += dhh;
-      m2 += dhh * hh;
-    }
-    m1 = warp_sum(m1) * inv_c;
-    m2 = warp_sum(m2) * inv_c;
-    for (int c = lane; c < C; c += 32) {
-      const float hh = (to_f(xr[c]) - mean) * rstd;
-      const float g = dhr[c];
-      const float dhh = g * (1.0f + __bfloat162float(sc[c]));
-      const float go = dout[r * C + c];
-      dx[r * C + c] = go + rstd * (dhh - m1 - hh * m2);
-      mine[c] += g;
-      mine[C + c] += g * hh;
-      mine[2 * C + c] += go * y[r * C + c];
-    }
-  }
-  __syncthreads();
-  float* out = part + ((long long)s * nb + b) * 3 * C;
-  for (int i = threadIdx.x; i < 3 * C; i += WARPS * 32) {
-    float t = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) t += acc[w * 3 * C + i];
-    out[i] = t;
-  }
+  modln::block<XT, WARPS * 32>(x, ldx, dh, dout, y, scale, ld_mod, dx, part, C, nb, rows,
+                               rows_per_split, blockIdx.x, blockIdx.y, acc);
 }
 
 }  // namespace

@@ -28,7 +28,7 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 KERNELS = ("adaln_linear", "rope_attention", "ipa_attention", "linear_bwd", "modln_bwd",
            "rope_attention_bwd", "tiled_attention", "fused_attention", "fused_attention_bwd",
-           "blocked_attention_bwd")
+           "blocked_attention_bwd", "fused_layer_bwd", "micro_ops")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -7,9 +7,10 @@ L <= ``RESIDENT_MAX_L`` one block per (element, head) holds the L x L
 logits in shared memory (the 4AA peptides); above it one block per
 (element, head, 64-query tile) streams the keys through shared memory with
 a running-max softmax, so no buffer grows with L (ATLAS, L = 256). The
-tiled form takes the model's widths only (Ch = 32, Pq = Pv = 8); the
-wrapper raises ``ValueError`` for other widths above the limit, and for a
-resident form that would not fit shared memory. ``ipa_attention_plain`` is
+tiled form keeps a query's state in registers at the model's widths
+(Ch = 32, Pq = Pv = 8) and in shared memory at any other widths
+(``tiled_bytes``); the wrapper raises ``ValueError`` for widths whose state
+or resident logits would not fit one block's shared memory. ``ipa_attention_plain`` is
 the same function in plain PyTorch, in the op order of the JAX package's
 ``models/ipa.py::ipa_forward``; it runs for CPU tensors. For CUDA tensors the
 wrapper launches the kernel or raises.
@@ -34,13 +35,21 @@ _ARGTYPES = [_cuda.P, _cuda.I64, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _c
              _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32,
              _cuda.P]
 RESIDENT_MAX_L = 64  # the resident form up to here, the key-tiled form above
-TILED_WIDTHS = (32, 8, 8)  # (Ch, Pq, Pv) the tiled form is built for
+REGISTER_WIDTHS = (32, 8, 8)  # (Ch, Pq, Pv) the tiled form keeps in registers
 
 
 def resident_bytes(L: int, Ch: int, Pq: int, Pv: int) -> int:
     """Shared memory of the resident form: frames, mask, scalars, lifted
     points and the L x L logits of one (element, head), f32."""
     return 4 * (13 * L + 3 * L * Ch + 3 * L * (2 * Pq + Pv) + L * L)
+
+
+def tiled_bytes(Ch: int, Pq: int, Pv: int) -> int:
+    """Shared memory of the tiled form at widths other than
+    ``REGISTER_WIDTHS`` (csrc/ipa_attention.cu ``tiled_any_floats``): a
+    64-key tile, the 64 x 65 logits and 64 queries' state, f32."""
+    keys = 64 * (2 * Ch + 3 * Pq + 3 * Pv + 1)
+    return 4 * (keys + 64 * 65 + 64 * (2 * Ch + 3 * Pq + 3 * Pv))
 
 
 def proj_width(H: int, Ch: int, Pq: int, Pv: int) -> int:
@@ -120,9 +129,10 @@ def ipa_attention(proj, rot, trans, mask, head_weights, *, H: int, Ch: int, Pq: 
     if out_dtype not in (None, torch.bfloat16):
         raise ValueError("ipa_attention: the kernel writes bf16 features")
     tiled = L > RESIDENT_MAX_L
-    if tiled and (Ch, Pq, Pv) != TILED_WIDTHS:
-        raise ValueError(f"ipa_attention: above L = {RESIDENT_MAX_L} the key-tiled kernel takes "
-                         f"(Ch, Pq, Pv) = {TILED_WIDTHS}, got {(Ch, Pq, Pv)} at L = {L}")
+    if tiled and (Ch, Pq, Pv) != REGISTER_WIDTHS and tiled_bytes(Ch, Pq, Pv) > SMEM_BYTES:
+        raise ValueError(f"ipa_attention: the key-tiled kernel needs "
+                         f"{tiled_bytes(Ch, Pq, Pv):,} bytes of shared memory at (Ch, Pq, Pv) = "
+                         f"{(Ch, Pq, Pv)}, more than the {SMEM_BYTES:,} a block may use")
     if not tiled and resident_bytes(L, Ch, Pq, Pv) > SMEM_BYTES:
         raise ValueError(f"ipa_attention: the resident kernel needs "
                          f"{resident_bytes(L, Ch, Pq, Pv):,} bytes of shared memory at L = {L}, "

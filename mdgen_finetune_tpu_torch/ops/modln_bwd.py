@@ -63,6 +63,12 @@ def modln_bwd_plain(x, dh, dout, y, scale, dmod=None):
 modln_bwd_plain.cuda_calls = 0
 
 
+def _splits(rows: int, nb: int) -> int:
+    """Row splits of each element's sums: about two blocks per SM of an
+    H100, each split at least 8 rows."""
+    return max(1, min(rows // 8, -(-264 // nb)))
+
+
 def modln_bwd(x, dh, dout, y, scale, dmod=None):
     """The LN-modulate adjoint: the kernel on CUDA tensors, the plain
     version on CPU tensors (see the module docstring). Returns (dx, dmod)."""
@@ -82,7 +88,7 @@ def modln_bwd(x, dh, dout, y, scale, dmod=None):
     elif dmod.dtype != torch.float32 or tuple(dmod.shape) != (nb, 3 * C) or dmod.stride(1) != 1:
         raise ValueError(f"modln_bwd: dmod must be an f32 ({nb}, {3 * C}) row view")
     rows = M // nb
-    splits = max(1, min(rows // 8, -(-264 // nb)))
+    splits = _splits(rows, nb)
     dx = torch.empty(M, C, dtype=torch.float32, device=x.device)
     scratch = torch.empty(splits * nb * 3 * C, dtype=torch.float32, device=x.device)
     lib = _cuda.library("modln_bwd", _ARGTYPES)

@@ -499,3 +499,201 @@ def test_ipa_attention_tiled_matches_plain_on_card():
         p = ipa_attention_plain(proj, fr.rot, fr.trans, mask, hw, H=4, Ch=32, Pq=8, Pv=8)
         torch.cuda.synchronize()
         _close(a, p)
+
+
+# ---------------------------------------------------------------------------
+# the merged layer backward (MDGEN_FUSED_BWD=merged), the probe, IPA widths
+# ---------------------------------------------------------------------------
+
+
+
+def _layer_case(Bc, Tc, Lc, Cc, seed):
+    """Seeded f32 inputs of one trunk layer on the card (a padded residue and
+    a frame whose residue attention sees only the bias key)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*s, sc=1.0):
+        return torch.randn(*s, generator=g, device="cuda") * sc
+
+    shapes = dict(wqkv_l=(Cc, 3 * Cc), bqkv_l=(3 * Cc,), wout_l=(Cc, Cc), bout_l=(Cc,),
+                  wqkv_t=(Cc, 3 * Cc), bqkv_t=(3 * Cc,), wout_t=(Cc, Cc), bout_t=(Cc,),
+                  w1=(Cc, 4 * Cc), b1=(4 * Cc,), w2=(4 * Cc, Cc), b2=(Cc,), bkl=(Cc,),
+                  bvl=(Cc,), bkt=(Cc,), bvt=(Cc,))
+    w = {k: r(*s, sc=(s[0] ** -0.5 if k[0] == "w" else 0.4)) for k, s in shapes.items()}
+    M = Bc * Tc * Lc
+    mask = torch.ones(Bc, Tc, Lc, device="cuda")
+    mask[0, :, -1] = 0  # a padded residue
+    mask[-1, 2, :] = 0  # a frame whose only valid residue key is the bias token
+    return r(M, Cc), r(Bc, 9 * Cc, sc=0.3), w, mask, r(M, Cc)
+
+
+def _layer_plain(x, mod, w, mask, Bc, Tc, Lc, Hc):
+    """The forward's X1, X2 through the plain twins (any dtype)."""
+    from mdgen_finetune_tpu_torch.ops.residue_block import residue_block_plain
+    from mdgen_finetune_tpu_torch.ops.time_attention import time_attention_block_plain
+
+    Cc = x.shape[1]
+
+    def m(j):
+        return mod[:, j * Cc:(j + 1) * Cc]
+
+    dims = dict(B=Bc, T=Tc, L=Lc, num_heads=Hc)
+    x1 = residue_block_plain(x, m(0), m(1), m(2), w["wqkv_l"], w["bqkv_l"], w["wout_l"],
+                             w["bout_l"], w["bkl"], w["bvl"], mask, **dims)
+    x2 = time_attention_block_plain(x1, m(3), m(4), m(5), w["wqkv_t"], w["bqkv_t"], w["wout_t"],
+                                    w["bout_t"], w["bkt"], w["bvt"], mask, **dims)
+    return x1, x2
+
+
+def _flat(out):
+    dx, dmod, dw = out
+    return [("dx", dx), ("dmod", dmod)] + [(k, dw[k]) for k in sorted(dw)]
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / max(b.float().norm().item(), 1e-12)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bc,Tc", [(2, 100), (32, 100), (4, 200)])
+def test_merged_layer_bwd_matches_split_and_plain_on_card(Bc, Tc):
+    """On the card: the merged layer backward (one cooperative launch)
+    against the split route on the same bf16 inputs, bit for bit, and
+    against the f32 plain version under the composition rule (relative L2
+    at most 2 x that of the plain version in bf16, + 0.01) at the
+    flagship's width (L = 4, C = 384, 16 heads), with a padded residue and
+    a frame whose only valid residue key is the bias token; T = 200 takes
+    the blocked frame core."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.ops import fused_layer_bwd_merged as FM
+    from mdgen_finetune_tpu_torch.ops.fused_layer import trunk_layer
+    from mdgen_finetune_tpu_torch.ops.fused_layer_bwd import layer_bwd_split
+    from mdgen_finetune_tpu_torch.ops.linear_bwd import linear_bwd
+
+    Lc, Cc, Hc = 4, 384, 16
+    x, mod, w, mask, dout = _layer_case(Bc, Tc, Lc, Cc, seed=Tc + Bc)
+    bf = torch.bfloat16
+    xb, modb, wb = x.to(bf), mod.to(bf), {k: v.to(bf) for k, v in w.items()}
+    x1, x2, _ = trunk_layer(xb, modb, wb, mask, B=Bc, T=Tc, L=Lc, num_heads=Hc)
+    split = _flat(layer_bwd_split(xb, x1, x2, dout, modb, wb, mask, Hc))
+    n0, s0 = FM.fused_layer_bwd_merged.launches, linear_bwd.launches
+    merged = _flat(FM.fused_layer_bwd_merged(xb, x1, x2, dout, modb, wb, mask, Hc))
+    torch.cuda.synchronize()
+    assert FM.fused_layer_bwd_merged.launches == n0 + 1 and linear_bwd.launches == s0
+    differ = [k for (k, a), (_, b) in zip(merged, split) if not torch.equal(a, b)]
+    assert not differ, differ
+    plain_bf = _flat(FM.fused_layer_bwd_merged_plain(xb, x1, x2, dout, modb, wb, mask, Hc))
+    p1, p2 = _layer_plain(x, mod, w, mask, Bc, Tc, Lc, Hc)
+    truth = _flat(FM.fused_layer_bwd_merged_plain(x, p1, p2, dout, mod, w, mask, Hc))
+    for (k, a), (_, p), (_, t) in zip(merged, plain_bf, truth):
+        assert torch.isfinite(a).all(), k
+        assert _rel(a, t) <= 2 * _rel(p, t) + 0.01, (k, _rel(a, t), _rel(p, t))
+
+
+@pytest.mark.cuda
+def test_moved_split_kernels_match_the_parent_sources_on_card(tmp_path):
+    """On the card: the split kernels whose bodies live in the shared
+    headers (adaln_linear's resident and pipelined tilings, linear_bwd,
+    modln_bwd, rope_attention, rope_attention_bwd, blocked_attention_bwd)
+    give the outputs of another checkout's sources of the same kernels bit
+    for bit, at the merged path's shapes (T = 100 and 200): a change to a
+    shared header must not move the split route's numbers. The other
+    sources come from MDGEN_PARENT_CSRC (a csrc directory, for example
+    ``git archive`` of an earlier commit); without it the test skips."""
+    import ctypes
+    import os
+    import subprocess
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    parent = os.environ.get("MDGEN_PARENT_CSRC")
+    if not parent:
+        pytest.skip("needs MDGEN_PARENT_CSRC, the csrc directory of the sources before the move")
+    from mdgen_finetune_tpu_torch.ops import _cuda
+    from mdgen_finetune_tpu_torch.ops import fused_layer_bwd as FB
+    from mdgen_finetune_tpu_torch.ops.fused_layer import trunk_layer
+
+    names = ("adaln_linear", "linear_bwd", "modln_bwd", "rope_attention", "rope_attention_bwd",
+             "blocked_attention_bwd")
+    procs = [(n, subprocess.Popen([_cuda.nvcc(), *_cuda.FLAGS, "-o", str(tmp_path / f"{n}.so"),
+                                   os.path.join(parent, f"{n}.cu")], stdout=subprocess.DEVNULL,
+                                  stderr=subprocess.STDOUT)) for n in names]
+    assert all(p.wait() == 0 for _, p in procs), "the parent's sources did not build"
+    Bc, Lc, Cc, Hc = 2, 4, 384, 16
+    outs = {}
+    for Tc in (100, 200):
+        x, mod, w, mask, dout = _layer_case(Bc, Tc, Lc, Cc, seed=5)
+        bf = torch.bfloat16
+        xb, modb, wb = x.to(bf), mod.to(bf), {k: v.to(bf) for k, v in w.items()}
+
+        def run():
+            x1, x2, y = trunk_layer(xb, modb, wb, mask, B=Bc, T=Tc, L=Lc, num_heads=Hc)
+            return [x1, x2, y] + [t for _, t in _flat(FB.layer_bwd_split(xb, x1, x2, dout, modb,
+                                                                          wb, mask, Hc))]
+
+        outs[Tc] = run()
+        kept = {}
+        for n in names:
+            lib = _cuda._LIBS.get(n)
+            if lib is None:  # not on this shape's path
+                continue
+            old = ctypes.CDLL(str(tmp_path / f"{n}.so"))
+            for fn in ("blocked_attention_bwd_smem", n):
+                if hasattr(lib, fn) and hasattr(old, fn):
+                    getattr(old, fn).argtypes = getattr(lib, fn).argtypes
+                    getattr(old, fn).restype = getattr(lib, fn).restype
+            kept[n] = lib
+            _cuda._LIBS[n] = old
+        try:
+            before = run()
+        finally:
+            _cuda._LIBS.update(kept)
+        torch.cuda.synchronize()
+        differ = [i for i, (a, b) in enumerate(zip(outs[Tc], before)) if not torch.equal(a, b)]
+        assert not differ, (Tc, differ)
+
+
+@pytest.mark.cuda
+def test_micro_ops_probe_matches_plain_on_card():
+    """On the card: every op of the micro-op probe (csrc/micro_ops.cu)
+    against its plain version, the K = 2 plain and position-weighted sums
+    of 4 programs, each within ``REL`` of its terms' magnitudes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.tools import micro_ops as P
+
+    x, y = P.inputs("cuda", seed=1, programs=4)
+    for name in P.NAMES:
+        P.check(x, y, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", [(16, 4, 6), (8, 6, 2)])
+def test_ipa_attention_tiled_other_widths_on_card(widths):
+    """On the card: the key-tiled IPA core at (Ch, Pq, Pv) other than the
+    model's, at L = 72 and 200, against its plain twin, with padded residues
+    and one element whose frames are all masked but one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.ops.ipa_attention import (
+        RESIDENT_MAX_L, ipa_attention, ipa_attention_plain, proj_width)
+
+    Ch, Pq, Pv = widths
+    g = torch.Generator(device="cuda").manual_seed(7)
+    Bc, Hi = 3, 4
+    for Lc in (72, 200):
+        assert Lc > RESIDENT_MAX_L
+        proj = torch.randn(Bc, Lc, proj_width(Hi, Ch, Pq, Pv), generator=g, device="cuda")
+        t7 = torch.randn(Bc, Lc, 7, generator=g, device="cuda")
+        t7[..., 4:] *= 5
+        fr = TRigid.from_tensor_7(t7)
+        mask = torch.ones(Bc, Lc, device="cuda")
+        mask[0, Lc // 2:] = 0
+        mask[2, 1:] = 0
+        hw = torch.randn(Hi, generator=g, device="cuda")
+        a = ipa_attention(proj, fr.rot.contiguous(), fr.trans.contiguous(), mask, hw,
+                          H=Hi, Ch=Ch, Pq=Pq, Pv=Pv)
+        p = ipa_attention_plain(proj, fr.rot, fr.trans, mask, hw, H=Hi, Ch=Ch, Pq=Pq, Pv=Pv)
+        torch.cuda.synchronize()
+        _close(a, p)
