@@ -115,6 +115,22 @@ def time_ms(fn, reps=20, warmup=3):
     return times[len(times) // 2]
 
 
+def back_to_back_ms(fn, n=50):
+    """Mean time per call of ``n`` back-to-back calls between two CUDA
+    events: the device's time per call wherever the host enqueues a call
+    faster than its kernels run (the launch overhead that ``time_ms``
+    includes is hidden)."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
 def bound_ms(nbytes, flops, peak_flops=PEAK_BF16_FLOPS):
     """The least time for the work: bytes over the memory rate or operations
     over the peak rate for the inputs' type, whichever is larger."""
@@ -143,7 +159,9 @@ def phase_kernels(dev):
     from mdgen_finetune_tpu_torch.ops.adaln_linear import adaln_linear, adaln_linear_plain
     from mdgen_finetune_tpu_torch.ops.ipa_attention import (
         feat_width, ipa_attention, ipa_attention_plain, proj_width)
-    from mdgen_finetune_tpu_torch.ops.rope_attention import rope_attention, rope_attention_plain
+    from mdgen_finetune_tpu_torch.ops import rope_attention as RA
+    from mdgen_finetune_tpu_torch.ops.rope_attention import (rope_attention, rope_attention_math,
+                                                             rope_attention_plain)
 
     g = torch.Generator(device=dev).manual_seed(0)
     bf, f32 = torch.bfloat16, torch.float32
@@ -211,6 +229,14 @@ def phase_kernels(dev):
         ref = rope_attention_plain(q.float(), bk.float(), bv.float(), mask.view(mk),
                                    num_heads=H, base2=base2)
         errs[name] = check(f"rope_attention[{name}]", got, ref, 1e-2)
+    # what rounding the RoPE'd q and k to bf16 (the JAX kernel's staging)
+    # would cost at stage 2's inputs, against the f32 twin: the reason the
+    # long body stages them in fp16
+    ref = rope_attention_plain(qkv.float(), bk.float(), bv.float(), mask, num_heads=H, base2=True)
+    emu = rope_attention_math(qkv.float(), bk.float(), bv.float(), mask, num_heads=H, base2=True,
+                              stage=torch.bfloat16)
+    bf16_stage = (emu - ref).abs().max().item() / (1e-2 * max(1.0, ref.abs().max().item()))
+    del ref, emu
     run = lambda: rope_attention(qkv, bk, bv, mask, num_heads=H, base2=True)  # noqa: E731
     plain = lambda: rope_attention_plain(qkv, bk, bv, mask, num_heads=H, base2=True)  # noqa: E731
     # library yardstick: SDPA on the same (pre-roped, bias-appended) heads
@@ -229,9 +255,11 @@ def phase_kernels(dev):
         shape=f"stage 2: {n_seq} sequences x {H} heads, {T} queries, {T + 1} keys, D={D}",
         max_abs_err=max(e for e, _ in errs.values()), tol={k: t for k, (_, t) in errs.items()},
         ms=time_ms(run), plain_ms=time_ms(plain), library_ms=time_ms(lib),
+        back_to_back_ms=back_to_back_ms(run), library_back_to_back_ms=back_to_back_ms(lib),
         stage1_ms=time_ms(lambda: rope_attention(qkv.view(B * T, L, 1, 3 * C), bk, bv,
                                                  mask.view(B * T, L, 1), num_heads=H, base2=True)),
-        bound=bound_ms(nbytes(qkv, bk, bv, mask) + B * T * L * C * 2, flops))
+        bound=bound_ms(nbytes(qkv, bk, bv, mask) + B * T * L * C * 2, flops),
+        resources=RA.resources(T, H, C), bf16_staging_err_of_tol=bf16_stage)
 
     # ---- ipa_attention: the encoder over the whole t grid (S*B elements) ----
     Bn = STEPS * B
@@ -386,6 +414,7 @@ def phase_bwd_kernels(dev):
 
     from mdgen_finetune_tpu_torch.ops.linear_bwd import linear_bwd, linear_bwd_plain
     from mdgen_finetune_tpu_torch.ops.modln_bwd import modln_bwd, modln_bwd_plain
+    from mdgen_finetune_tpu_torch.ops import rope_attention_bwd as RBM
     from mdgen_finetune_tpu_torch.ops.rope_attention_bwd import (
         rope_attention_bwd, rope_attention_bwd_plain)
 
@@ -468,6 +497,15 @@ def phase_bwd_kernels(dev):
         es = [check(f"rope_attention_bwd[{name}][{i}]", a, b, 1e-2) for i, (a, b) in
               enumerate(zip(got, ref))]
         errs[name] = (max(e for e, _ in es), es[0][1])
+    # the bf16 staging of the RoPE'd q and k (JAX's rounding point), alone,
+    # against the f32 twin at stage 2's inputs: the worst of dqkv, dbk, dbv
+    ref = rope_attention_bwd_plain(qkv.float(), do.float(), bk.float(), bv.float(), mask,
+                                   num_heads=H)
+    emu = RBM.rope_attention_bwd_math(qkv.float(), do.float(), bk.float(), bv.float(), mask,
+                                      num_heads=H, stage=torch.bfloat16)
+    bf16_stage = max((a.float() - b).abs().max().item() / (1e-2 * max(1.0, b.abs().max().item()))
+                     for a, b in zip(emu, ref))
+    del ref, emu
     run = lambda: rope_attention_bwd(qkv, do, bk, bv, mask, num_heads=H)  # noqa: E731
     plain = lambda: rope_attention_bwd_plain(qkv, do, bk, bv, mask, num_heads=H)  # noqa: E731
     # library yardstick: SDPA's backward on the same (pre-roped, bias-appended) heads
@@ -489,11 +527,13 @@ def phase_bwd_kernels(dev):
         shape=f"stage 2: {n_seq} sequences x {H} heads, {T} queries, {T + 1} keys, D={D}",
         max_abs_err=max(e for e, _ in errs.values()), tol={k: t for k, (_, t) in errs.items()},
         ms=time_ms(run), plain_ms=time_ms(plain), library_ms=time_ms(lib),
+        back_to_back_ms=back_to_back_ms(run), library_back_to_back_ms=back_to_back_ms(lib),
         stage1_ms=time_ms(lambda: rope_attention_bwd(qkv.view(Bt * T, L, 1, 3 * C),
                                                      do.view(Bt * T, L, 1, C), bk, bv,
                                                      mask.view(Bt * T, L, 1), num_heads=H)),
         bound=bound_ms(nbytes(qkv, do, bk, bv, mask) + qkv.numel() * 2 + 2 * C * 4,
-                       10.0 * n_seq * H * T * (T + 1) * D))
+                       10.0 * n_seq * H * T * (T + 1) * D),
+        resources=RBM.resources(T, H, C), bf16_staging_err_of_tol=bf16_stage)
     emit({"phase": "bwd_kernels", "kernels": out})
     return out
 
@@ -716,6 +756,95 @@ def phase_train_path(dev, route="", ref=None):
     elif min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the training path never launched: {launches}")
     return launches, (losses, norms), (trainer, state, batches[0], gen)
+
+
+def phase_rope_long_bodies(dev):
+    """The long-sequence bodies of ``rope_attention`` (N > 16) and
+    ``rope_attention_bwd`` (16 < N <= 128), tensor-core products with the
+    RoPE'd q and k in fp16, at their edge cases against the f32 plain twins
+    (max abs err <= 0.01 x max(1, max |twin|)): N = 17, 64, 100, 128, 200,
+    256 forward (both softmax modes) and 17, 100, 128 backward, at head dims
+    16, 24, 32, 64 (2 heads, (G, N, I) = (3, N, 2)), with masked keys, a
+    sequence whose only valid key is the bias token (g = 1) and keys masked
+    at random (g = 2); the natural mode with q x 400 (logits ~1e3, q and k
+    nonzero in the first half of each head's lanes) against the plain math
+    with the kernel's fp16 rounding (``rope_attention_math(stage=float16)``);
+    the backward at dO ~ 1e-6 and with RoPE'd q ~ 2e5, k ~ 1e-5 (beyond
+    fp16's range), where each of dq, dk, dv is also held within 0.01 of its
+    own largest value. Reported per group: the worst error as a share of
+    its tolerance. Also both bodies' resources at each N (registers, local
+    bytes, shared memory, blocks per SM; 16 heads of D = 24)."""
+    from mdgen_finetune_tpu_torch.ops import rope_attention as RA
+    from mdgen_finetune_tpu_torch.ops import rope_attention_bwd as RBM
+
+    g = torch.Generator(device=dev).manual_seed(61)
+    Hc = 2
+
+    def case(N, D, qs=1.0, ks=1.0, half=False):
+        Cc = Hc * D
+        qkv = torch.randn(3, N, 2, 3 * Cc, generator=g, device=dev)
+        qkv[..., :Cc] *= qs
+        qkv[..., Cc:2 * Cc] *= ks
+        bk = torch.randn(Cc, generator=g, device=dev) * ks
+        if half:
+            qkv.view(3, N, 2, 3, Hc, 2, D // 2)[..., :2, :, 1, :] = 0
+            bk.view(Hc, 2, D // 2)[:, 1] = 0
+        mask = torch.ones(3, N, 2, device=dev)
+        mask[0, N // 2:, -1] = 0
+        mask[1] = 0
+        mask[2] = (torch.rand(N, 2, generator=g, device=dev) > 0.3).float()
+        bv = torch.randn(Cc, generator=g, device=dev)
+        return qkv.to(torch.bfloat16), bk.to(torch.bfloat16), bv.to(torch.bfloat16), mask
+
+    worst = {}
+
+    def hold(group, name, got, ref, own=False):
+        scale = max(1.0, ref.float().abs().max().item())
+        share = (got.float() - ref.float()).abs().max().item() / (1e-2 * scale)
+        if own:
+            share = max(share, (got.float() - ref.float()).abs().max().item()
+                        / (1e-2 * ref.float().abs().max().item()))
+        if not share <= 1.0 or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"rope_long_bodies[{name}]: {share} of the tolerance")
+        worst[group] = max(worst.get(group, 0.0), share)
+
+    for D in (16, 24, 32, 64):
+        for N in (17, 64, 100, 128, 200, 256):
+            qkv, bk, bv, mask = case(N, D)
+            for base2 in (True, False):
+                got = RA.rope_attention(qkv, bk, bv, mask, num_heads=Hc, base2=base2)
+                ref = RA.rope_attention_plain(qkv.float(), bk.float(), bv.float(), mask,
+                                              num_heads=Hc, base2=base2)
+                hold(f"fwd_{'base2' if base2 else 'natural'}", f"fwd D={D} N={N} base2={base2}",
+                     got, ref)
+        for N in (100, 256):
+            qkv, bk, bv, mask = case(N, D, qs=400.0 * D ** -0.5, half=True)
+            got = RA.rope_attention(qkv, bk, bv, mask, num_heads=Hc, base2=False)
+            ref = RA.rope_attention_math(qkv.float(), bk.float(), bv.float(), mask, num_heads=Hc,
+                                         base2=False, stage=torch.float16)
+            hold("fwd_natural_q400_vs_fp16_staged", f"fwd D={D} N={N} q x 400", got, ref)
+        for N, qs, ks, gs in [(17, 1.0, 1.0, 1.0), (100, 1.0, 1.0, 1.0), (128, 1.0, 1.0, 1.0),
+                              (100, 1.0, 1.0, 1e-6), (100, 2e5, 1e-5 * D ** -0.5, 1.0)]:
+            qkv, bk, bv, mask = case(N, D, qs=qs, ks=ks)
+            do = (torch.randn(3, N, 2, Hc * D, generator=g, device=dev) * gs).to(torch.bfloat16)
+            got = RBM.rope_attention_bwd(qkv, do, bk, bv, mask, num_heads=Hc)
+            ref = RBM.rope_attention_bwd_plain(qkv.float(), do.float(), bk.float(), bv.float(),
+                                               mask, num_heads=Hc)
+            group = "bwd" if (qs, ks, gs) == (1.0, 1.0, 1.0) else (
+                "bwd_dO_1e-6" if gs != 1.0 else "bwd_beyond_fp16_range")
+            special = group != "bwd"
+            Cc = Hc * D
+            for j, part in enumerate(("dq", "dk", "dv")):
+                hold(group, f"bwd D={D} N={N} {part}", got[0][..., j * Cc:(j + 1) * Cc],
+                     ref[0][..., j * Cc:(j + 1) * Cc], own=special)
+            hold(group, f"bwd D={D} N={N} dbk", got[1], ref[1])
+            hold(group, f"bwd D={D} N={N} dbv", got[2], ref[2])
+    torch.cuda.synchronize()
+    res = {"fwd": {N: RA.resources(N, H, C) for N in (17, 64, 100, 128, 200, 256)},
+           "bwd": {N: RBM.resources(N, H, C) for N in (17, 100, 128)}}
+    out = {"worst_share_of_tol": worst, "resources_D24_16_heads": res}
+    emit({"phase": "rope_long_bodies", **out})
+    return out
 
 
 def layer_case(dev, Bc, Tc, seed):
@@ -1024,16 +1153,30 @@ def make_inputs(n, seed, dev, length=L, pad=1):
 
 
 def ptxas_report(log):
-    """Registers / shared memory / spills per compiled kernel, from nvcc -Xptxas -v."""
+    """Registers / shared memory / spills per compiled kernel, from nvcc
+    -Xptxas -v; kernels named by their template arguments (c++filt where
+    the machine has it)."""
     if not log.exists():
         return []
     out, name = [], "?"
     for ln in log.read_text().splitlines():
         if "Compiling entry function" in ln:
-            name = ln.split("'")[1][:48]
+            name = kernel_name(ln.split("'")[1])
         elif "registers" in ln or ("spill" in ln and " 0 bytes spill stores" not in ln):
             out.append(f"{name}: {ln.split(':', 1)[-1].strip()}")
     return out
+
+
+def kernel_name(mangled):
+    """`ns::kernel<args>` of a mangled kernel symbol (the mangled name, cut,
+    without c++filt)."""
+    try:
+        full = subprocess.run(["c++filt", mangled], capture_output=True, text=True,
+                              check=True).stdout.strip()
+    except (OSError, subprocess.CalledProcessError):
+        return mangled[:48]
+    head = full.replace("(anonymous namespace)::", "").split("(")[0]
+    return head.split(" ")[-1] if head.startswith("void ") else head
 
 
 def bonds(atom14, mask):
@@ -2274,6 +2417,9 @@ def phase_modular_kernels(dev):
             plain_ms=time_ms(lambda: plain(qkv, bk_c, bv, mask, **kw), reps=5),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am,
                                                                        scale=1.0)),
+            back_to_back_ms=back_to_back_ms(lambda: kern(qkv, bk_c, bv, mask, **kw)),
+            library_back_to_back_ms=back_to_back_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=am, scale=1.0)),
             bound=bound_ms(nbytes(qkv, bk_c, bv, mask) + qkv.numel() // 3 * 2,
                            4.0 * S_ * H * N_ * (N_ + 1) * D))
         del q, k, v, am, qkv
@@ -2569,6 +2715,7 @@ def main():
     cfg = flagship_config()
     kernels = phase_kernels(dev)
     kernels.update(phase_bwd_kernels(dev))
+    rope_long = phase_rope_long_bodies(dev)
     phase_step_across_devices(dev, cfg)
     launches, (eng, batch, gen) = phase_main_path(dev, cfg)
     phase_trace("trace", lambda: eng.sample(batch, gen))
@@ -2682,10 +2829,16 @@ def main():
                      "max_abs_err": k["max_abs_err"], "tol": k["tol"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
                      "bound_by": k["bound"][1], "library_ms": k["library_ms"],
-                     "shape": k["shape"]})
+                     "shape": k["shape"],
+                     **{f: k[f] for f in ("back_to_back_ms", "library_back_to_back_ms", "resources",
+                                          "bf16_staging_err_of_tol") if f in k}})
     for entry in line:  # row j beyond fp16's range (the repaired q and k scales)
         if entry["name"] == "blocked_attention_bwd":
             entry["fp16_range"] = {c: modular[c] for c in modular if c.startswith("blocked_")}
+        if entry["name"] in ("rope_attention", "rope_attention_bwd"):  # the long bodies' edge cases
+            part = "fwd" if entry["name"] == "rope_attention" else "bwd"
+            entry["edge_cases_worst_share_of_tol"] = {
+                c: v for c, v in rope_long["worst_share_of_tol"].items() if c.startswith(part)}
     # the modular layer's natural-softmax cores (TPU rows 12, 11a, 11b and the
     # no_rope route of row 10): launches over interleave_main (rope_attention:
     # the residue stage, the frame stage and the encoder, 5 each per
@@ -2711,6 +2864,8 @@ def main():
                      "launches": n_launch, "max_abs_err": k["max_abs_err"], "tol": k["tol"],
                      "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
                      "bound_by": k["bound"][1], "library_ms": k["library_ms"],
+                     "back_to_back_ms": k.get("back_to_back_ms"),
+                     "library_back_to_back_ms": k.get("library_back_to_back_ms"),
                      "shape": k["shape"],
                      "more_shapes": {c: {f: v for f, v in modular[c].items() if f != "shape"}
                                      for c in modular if modular[c]["kernel"] == src.split("[")[0]

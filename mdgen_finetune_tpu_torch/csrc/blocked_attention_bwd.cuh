@@ -9,10 +9,14 @@
 #include <cuda_runtime.h>
 
 #include "attention_tile.cuh"
+#include "rope_tile.cuh"
 
 namespace blockedbwd {
 
 using namespace attn_tile;
+using rope_tile::max4;
+using rope_tile::scale_exponent;  // the fp16 range rule, shared with rope_attention_bwd
+using rope_tile::warp_max;
 
 
 typedef __half f16;
@@ -29,16 +33,11 @@ struct BF16 {
 struct F16 {
   typedef f16 T;
   static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
+    return rope_tile::pack_h2(lo, hi);
   }
   static __device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
                                              uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+    rope_tile::mma16816_f16(c, a, b0, b1);
   }
 };
 
@@ -76,24 +75,6 @@ struct Layout {
     total = o;
   }
 };
-
-// the scale exponent s of values whose largest magnitude is m: 0 inside
-// [2^-6, 2^15) (and for m = 0), else the s with m * 2^s in [2^14, 2^15)
-__device__ __forceinline__ int scale_exponent(float m) {
-  int e = 0;
-  if (m > 0.f) frexpf(m, &e);  // m in [2^(e-1), 2^e)
-  return (m > 0.f && (e > 15 || e < -5)) ? 15 - e : 0;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float max4(const float* r) {
-  return fmaxf(fmaxf(r[0], r[1]), fmaxf(r[2], r[3]));
-}
 
 // RoPE of one (token, pair of lanes d, d + D/2) at position n
 __device__ __forceinline__ void rope_pair(float& o0, float& o1, float v0, float v1,

@@ -20,19 +20,53 @@
 //     denominator + 1e-30) or natural exp with max subtraction;
 //   - multiplies by V and writes (G, N, I, C) bf16.
 //
-// What bounds it on the H100: at most 101 keys of D = 24, so per (sequence,
-// head) it reads and writes a few KB and does ~2*N*(N+1)*D*2 FLOP; the whole
-// call moves ~4*M*C*2 bytes (M = B*T*L) and is memory-bound (stage 2:
-// 0.5 MFLOP per head against 15 KB). Design: a warp stages roped K and V
-// (N+1 rows) in shared memory as f32; each lane owns one query row at a
-// time and streams the keys from shared memory in 16-byte reads (every
-// thread reads the same key: a broadcast, no bank conflicts), accumulating the
-// output in registers. Long sequences (stage 2) give a block of 128
-// threads one (sequence, head), one thread per query, so the staged keys
-// serve 128 queries and ~11 blocks fit an SM; short ones (N <= 16: stage 1
-// and the encoder, N = 4) give a warp 32/N heads of one sequence, one lane
-// per (head, query), so the lanes are not idle. Nothing but q/k/v in and the output out touches device memory;
-// the f32 logits and probabilities never leave registers.
+// What bounds it on the H100: per (sequence, head) at most N + 1 keys of
+// D lanes; the whole call moves ~4*M*C*2 bytes (M = B*T*L: q, k, v in, the
+// output out) against 4*N*(N+1)*D FLOP per (sequence, head). At stage 2 of
+// the flagship (B = 64, T = 100, L = 4, 16 heads of D = 24) that is 79 MB
+// (0.0235 ms at 3.35 TB/s) against 4.0e9 FLOP (0.004 ms at 989 TFLOP/s):
+// the bytes bound it, by ~6x.
+//
+// Short sequences (N <= 16: stage 1 and the encoder, N = 4): a warp takes
+// 32/N heads of one sequence, one lane per (head, query), K and V staged
+// in f32 shared memory; every lane streams the keys in 16-byte broadcast
+// reads and keeps the logits and the output in registers.
+//
+// Long sequences (N > 16: stage 2, the modular layer's frame and residue
+// attention up to max_keys) replace a first version that gave one thread a
+// query row and did every product on the CUDA cores in f32 (every query
+// re-read every f32 key from shared memory, staged in 2-byte reads at an
+// 8-way bank conflict; the natural mode formed each logit twice for its
+// max). Design:
+//   - one block of 4 warps per (sequence, head) stages the head's N + 1
+//     keys and N queries once, every thread a row at a time so that their
+//     loads are in flight together: 16-byte reads of the 48-byte head
+//     slices of (G, N, I, 3C), RoPE in f32, q and k to fp16, v to bf16, the
+//     key bias in f32 (-1e9 masked, 0 for the bias key at N), rows padded
+//     to a multiple of 16 (pad rows zero, bias -1e9) and the head dim to DP
+//     (24 -> 32, zero lanes), at a row stride of DP + 8 lanes so that
+//     ldmatrix reads no bank twice;
+//   - the warps take 16-query tiles in turn, the tile's q held as mma.sync
+//     A fragments; per chunk of 64 keys S = Q K^T with mma.sync m16n8k16
+//     (fp16 in, f32 out; K's B fragments by ldmatrix), p in registers,
+//     O += P V (p to bf16 A fragments through the accumulator layout, V's B
+//     fragments by ldmatrix.trans), f32 row sums from the f32 p; the output
+//     goes out through the tile's q rows as 16-byte vectors;
+//   - base 2: p = exp2(min(l, 100)) with no max (q carries scale*log2(e));
+//     natural: an online max in base-2 units (t = l*log2(e), p = exp2(t - m),
+//     the sums rescaled when a chunk raises the max), as tiled_attention.cu
+//     does, so every logit is formed once in either mode.
+// Precision: the JAX kernel rounds the RoPE'd q and k to bf16. At logits of
+// several units (q unscaled, as the port's kernel checks hold it) that
+// rounding alone takes about all of the checks' 1e-2 tolerance before the
+// kernel rounds p and its output (chip_smoke.py's bf16_staging_err_of_tol);
+// with fp16 (11 bits) the whole kernel stays near half of it.
+// fp16's range is the price: when the head's largest RoPE'd k or q leaves
+// [2^-6, 2^15), those rows are staged again times a power of two
+// (blocked_attention_bwd.cuh's rule) and the logits scaled back in f32.
+// Shared memory: 164 bytes per key and 80 per query at D = 24 (27.4 KB at
+// N = 100), so N <= 943 at D = 24 and 527 at D = 64
+// (ops/rope_attention.py max_keys).
 //
 // The kernel bodies live in rope_attention.cuh, which the merged layer
 // backward (fused_layer_bwd.cu) includes too.
@@ -60,8 +94,12 @@ __global__ void __launch_bounds__(WARPS * 32) rope_attention_short_kernel(
                  blockIdx.x, smem_s);
 }
 
+// resident blocks per SM that the register allocation must allow: up to
+// D = 32, 5 (at most 102 registers) measured faster than the 3 that the
+// compiler's own ~130 registers give (PERF.md); D = 64 needs ~235, so 2
 template <int D>
-__global__ void __launch_bounds__(LONG_THREADS) rope_attention_kernel(
+__global__ void __launch_bounds__(LONG_THREADS, D <= 32 ? 5 : 2)
+    rope_attention_kernel(
     const bf16* __restrict__ qkv, const bf16* __restrict__ bias_k,
     const bf16* __restrict__ bias_v, const float* __restrict__ key_valid,
     const float* __restrict__ cos_t, const float* __restrict__ sin_t,
@@ -87,7 +125,39 @@ int launch(const void* qkv, const void* bias_k, const void* bias_v, const void* 
   return (int)cudaGetLastError();
 }
 
+// the resources of the kernel that a call of this shape runs (one kernel
+// serves both softmax modes): info[0] registers per thread, [1] local
+// (spill) bytes per thread, [2] dynamic shared memory per block, [3]
+// resident blocks per SM
+template <int D>
+int resources(int N, int H, long long* info) {
+  const Shape sh = shape(1, N, 1, H, D);
+  auto kern = sh.short_seq ? rope_attention_short_kernel<D> : rope_attention_kernel<D>;
+  cudaFuncAttributes fa;
+  int per_sm = 0;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sh.smem);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kern);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, sh.threads, sh.smem);
+  if (e != cudaSuccess) return (int)e;
+  info[0] = fa.numRegs;
+  info[1] = (long long)fa.localSizeBytes;
+  info[2] = (long long)sh.smem;
+  info[3] = per_sm;
+  return 0;
+}
+
 }  // namespace
+
+extern "C" int rope_attention_resources(int N, int H, int C, long long* info) {
+  switch (C / H) {
+    case 16: return resources<16>(N, H, info);
+    case 24: return resources<24>(N, H, info);
+    case 32: return resources<32>(N, H, info);
+    case 64: return resources<64>(N, H, info);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 extern "C" int rope_attention(const void* qkv, const void* bias_k, const void* bias_v,
                               const void* key_valid, const void* cos_t, const void* sin_t,

@@ -8,6 +8,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rope_tile.cuh"
+
 namespace ropebwd {
 
 typedef __nv_bfloat16 bf16;
@@ -15,6 +17,8 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int THREADS = 128;
 constexpr float LN2F = 0.6931471805599453f;
+constexpr int MAX_N = 128;  // ops/rope_attention_bwd.MAX_N: the long body holds a row of p in registers
+constexpr int MAX_KB = (MAX_N + 1 + 15) / 16;  // its 16-key blocks
 
 // per head: q[N][D], dO[N][D], k[NK][D], v[NK][D], kbias[NK], inv[N], rsum[N]
 __host__ __device__ constexpr int head_floats(int N, int D) {
@@ -48,8 +52,11 @@ __device__ __forceinline__ float dot(const float* a, const float* b) {
   return s;
 }
 
+// short sequences (N <= 16): a block takes HPB heads of one sequence, one
+// thread per (head, query) row in phase A and per (head, key) column in
+// phase B, in f32
 template <int D>
-__device__ __forceinline__ void block(
+__device__ __forceinline__ void short_block(
     const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
     const bf16* __restrict__ bias_k, const bf16* __restrict__ bias_v,
     const float* __restrict__ key_valid, const float* __restrict__ cos_t,
@@ -180,13 +187,361 @@ __device__ __forceinline__ void block(
   }
 }
 
+// ---- long sequences (16 < N <= MAX_N): a block of 4 warps takes one
+// (sequence, head); the design note is in rope_attention_bwd.cu ----
+
+// shared memory of the long body (bytes): q (fp16, RoPE'd, times 2^sq) and
+// dO (bf16) of the NQP queries (N rounded up to 16), k (fp16, RoPE'd, times
+// 2^sk) and v (bf16) of the NKP keys (N + 1 rounded up to 16), pad rows
+// zero; the key biases; 1 / sum p and rowsum(p dP) per query; the warps'
+// maxima; one f32 16-row tile per warp for the gradients' RoPE transpose
+struct LongLayout {
+  int NQP, NKP, RS, SS;
+  size_t qs, gs, ks, vs, kb, inv, rs, red, sc, total;
+  __host__ __device__ LongLayout(int N, int D) {
+    RS = (D + 15) / 16 * 16 + 8;  // attention_tile.cuh Dims<D>::RS
+    SS = D + 1;                   // f32 stride of the gradient tiles
+    NQP = (N + 15) / 16 * 16;
+    NKP = (N + 1 + 15) / 16 * 16;
+    size_t o = 0;
+    qs = o; o += (size_t)NQP * RS * 2;
+    gs = o; o += (size_t)NQP * RS * 2;
+    ks = o; o += (size_t)NKP * RS * 2;
+    vs = o; o += (size_t)NKP * RS * 2;
+    kb = o; o += (size_t)NKP * 4;
+    inv = o; o += (size_t)NQP * 4;
+    rs = o; o += (size_t)NQP * 4;
+    red = o; o += 16 * 4;
+    sc = o; o += (size_t)(THREADS / 32) * 16 * SS * 4;
+    total = (o + 15) / 16 * 16;
+  }
+};
+
+template <int D>
+__device__ __forceinline__ void long_block(
+    const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+    const bf16* __restrict__ bias_k, const bf16* __restrict__ bias_v,
+    const float* __restrict__ key_valid, const float* __restrict__ cos_t,
+    const float* __restrict__ sin_t, bf16* __restrict__ dqkv, float* __restrict__ part,
+    int N, int I, int H, int C, int bx, float* smem) {
+  using namespace rope_tile;
+  constexpr int RS = Dims<D>::RS, KC = Dims<D>::KC, OB = D / 8, SS = D + 1;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  const LongLayout lay(N, D);
+  unsigned char* sm = reinterpret_cast<unsigned char*>(smem);
+  f16* Qs = reinterpret_cast<f16*>(sm + lay.qs);
+  bf16* Gs = reinterpret_cast<bf16*>(sm + lay.gs);
+  f16* Ks = reinterpret_cast<f16*>(sm + lay.ks);
+  bf16* Vs = reinterpret_cast<bf16*>(sm + lay.vs);
+  float* Kb = reinterpret_cast<float*>(sm + lay.kb);
+  float* Inv = reinterpret_cast<float*>(sm + lay.inv);
+  float* Rs = reinterpret_cast<float*>(sm + lay.rs);
+  float* Red = reinterpret_cast<float*>(sm + lay.red);
+  float* Sc = reinterpret_cast<float*>(sm + lay.sc) + warp * 16 * SS;
+  const int NQP = lay.NQP, NKP = lay.NKP;
+  const int h = bx % H;
+  const long long seq = bx / H;
+  const long long row0 = (seq / I) * (long long)N * I + seq % I;  // token n: row0 + n * I
+  auto tok = [&](int n) { return row0 + (long long)n * I; };
+
+  // ---- stage: query rows (q RoPE'd, dO) and key rows (k RoPE'd, the bias
+  // key at N, v, the mask bias); pad rows zero ----
+  auto q_row = [&](int n, float* q) {
+    if (n < N) {
+      load_row<D>(q, qkv + tok(n) * 3LL * C + h * D);
+      rope<D>(q, cos_t + (long long)n * D, sin_t + (long long)n * D);
+    } else {
+#pragma unroll
+      for (int d = 0; d < D; ++d) q[d] = 0.f;
+    }
+  };
+  auto k_row = [&](int n, float* k, float* v) {
+    float b = -1e9f;
+    if (n <= N) {
+      if (n < N) {
+        const bf16* src = qkv + tok(n) * 3LL * C + h * D;
+        load_row<D>(k, src + C);
+        load_row<D>(v, src + 2 * C);
+        b = key_valid[tok(n)] > 0.f ? 0.f : -1e9f;
+      } else {
+        load_row_scalar<D>(k, bias_k + h * D);
+        load_row_scalar<D>(v, bias_v + h * D);
+        b = 0.f;
+      }
+      rope<D>(k, cos_t + (long long)n * D, sin_t + (long long)n * D);
+    } else {
+#pragma unroll
+      for (int d = 0; d < D; ++d) k[d] = v[d] = 0.f;
+    }
+    return b;
+  };
+  float qmax = 0.f, kmax = 0.f, gmax = 0.f;
+  for (int t = tid; t < NQP + NKP; t += THREADS) {
+    float x[D], y[D];
+    if (t < NQP) {
+      q_row(t, x);
+      if (t < N) {
+        load_row<D>(y, dout + tok(t) * C + h * D);
+      } else {
+#pragma unroll
+        for (int d = 0; d < D; ++d) y[d] = 0.f;
+      }
+      qmax = fmaxf(qmax, row_max<D>(x));
+      gmax = fmaxf(gmax, row_max<D>(y));
+      store_row<D, true>(Qs + t * RS, x);
+      store_row<D, false>(Gs + t * RS, y);
+    } else {
+      const int n = t - NQP;
+      Kb[n] = k_row(n, x, y);
+      kmax = fmaxf(kmax, row_max<D>(x));
+      store_row<D, true>(Ks + n * RS, x);
+      store_row<D, false>(Vs + n * RS, y);
+    }
+  }
+  qmax = warp_max(qmax);
+  kmax = warp_max(kmax);
+  gmax = warp_max(gmax);
+  if (lane == 0) {
+    Red[warp] = qmax;
+    Red[4 + warp] = kmax;
+    Red[8 + warp] = gmax;
+  }
+  __syncthreads();
+  // q and k outside fp16's comfortable range: staged again, scaled by
+  // powers of two (the maxima are the block's, so the branches are uniform)
+  const int sq = scale_exponent(max4(Red)), sk = scale_exponent(max4(Red + 4));
+  if (sq != 0) {
+    const float mul = ldexpf(1.f, sq);
+    for (int n = tid; n < N; n += THREADS) {
+      float x[D];
+      q_row(n, x);
+      store_row<D, true>(Qs + n * RS, x, mul);
+    }
+  }
+  if (sk != 0) {
+    const float mul = ldexpf(1.f, sk);
+    for (int n = tid; n <= N; n += THREADS) {
+      float x[D], y[D];
+      k_row(n, x, y);
+      store_row<D, true>(Ks + n * RS, x, mul);
+    }
+  }
+  if (sq != 0 || sk != 0) __syncthreads();
+  // ds goes to fp16 as ds / max|dO|; the dq and dk products come back times
+  // max|dO| and the other operand's 2^-s
+  const float gm = max4(Red + 8);
+  const float to_f16 = gm > 0.f ? LN2F / gm : LN2F, from_f16 = gm > 0.f ? gm : 1.f;
+  const float lscale = ldexpf(1.f, -(sq + sk));  // the logits' scale
+  const float dq_back = ldexpf(from_f16, -sk), dk_back = ldexpf(from_f16, -sq);
+  const int nkb = NKP / 16;
+
+  // write a warp's 16 x D f32 tile (the Sc buffer), RoPE-transposed at
+  // positions r0 + r if `roped`, as rows of dqkv at column `col`; the
+  // row r0 + r == N (the bias key) as f32 to the sequence's partial
+  auto write_tile = [&](int r0, int col, bool roped, float* bias_part) {
+    __syncwarp();
+    if (lane < 16) {
+      const int n = r0 + lane;
+      if (n <= N) {
+        float g[D];
+#pragma unroll
+        for (int d = 0; d < D; ++d) g[d] = Sc[lane * SS + d];
+        if (roped) rope_t<D>(g, cos_t + (long long)n * D, sin_t + (long long)n * D);
+        if (n < N) {
+          store_global<D>(dqkv + tok(n) * 3LL * C + col + h * D, g);
+        } else if (bias_part != nullptr) {
+#pragma unroll
+          for (int d = 0; d < D; ++d) bias_part[d] = g[d];
+        }
+      }
+    }
+    __syncwarp();
+  };
+  auto to_tile = [&](float (*acc)[4], float mul) {
+#pragma unroll
+    for (int db = 0; db < OB; ++db) {
+      const int d = db * 8 + tig * 2;
+      Sc[gid * SS + d] = acc[db][0] * mul;
+      Sc[gid * SS + d + 1] = acc[db][1] * mul;
+      Sc[(gid + 8) * SS + d] = acc[db][2] * mul;
+      Sc[(gid + 8) * SS + d + 1] = acc[db][3] * mul;
+    }
+  };
+
+  // ---- phase A: 16-query tiles; p of the whole row stays in registers ----
+  for (int qt = warp; qt < NQP / 16; qt += THREADS / 32) {
+    const int q0 = qt * 16;
+    uint32_t qa[KC][4], ga[KC][4];
+    load_a<D>(qa, Qs, q0);
+    load_a<D>(ga, Gs, q0);
+    // S = Q K^T, p = exp2(min(S + bias, 100)) (no max, as the forward)
+    float p[2 * MAX_KB][4];
+    float den0 = 0.f, den1 = 0.f;
+#pragma unroll
+    for (int nb = 0; nb < 2 * MAX_KB; ++nb) {
+      p[nb][0] = p[nb][1] = p[nb][2] = p[nb][3] = 0.f;
+      if (nb < 2 * nkb) {
+        uint32_t b[KC][2];
+        load_b_d<D>(b, Ks, nb * 8);
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc) mma16816_f16(p[nb], qa[kc], b[kc][0], b[kc][1]);
+        const float2 kb = *reinterpret_cast<const float2*>(Kb + nb * 8 + tig * 2);
+        p[nb][0] = exp2f(fminf(fmaf(p[nb][0], lscale, kb.x), 100.f));
+        p[nb][1] = exp2f(fminf(fmaf(p[nb][1], lscale, kb.y), 100.f));
+        p[nb][2] = exp2f(fminf(fmaf(p[nb][2], lscale, kb.x), 100.f));
+        p[nb][3] = exp2f(fminf(fmaf(p[nb][3], lscale, kb.y), 100.f));
+        den0 += p[nb][0] + p[nb][1];
+        den1 += p[nb][2] + p[nb][3];
+      }
+    }
+    den0 += __shfl_xor_sync(0xffffffffu, den0, 1);
+    den0 += __shfl_xor_sync(0xffffffffu, den0, 2);
+    den1 += __shfl_xor_sync(0xffffffffu, den1, 1);
+    den1 += __shfl_xor_sync(0xffffffffu, den1, 2);
+    const bool live0 = q0 + gid < N, live1 = q0 + gid + 8 < N;
+    const float inv0 = live0 ? 1.f / (den0 + 1e-30f) : 0.f;
+    const float inv1 = live1 ? 1.f / (den1 + 1e-30f) : 0.f;
+    // pn = p / sum p in bf16 (the A fragments of the dV product's layout)
+    uint32_t pn[2 * MAX_KB][2];
+#pragma unroll
+    for (int nb = 0; nb < 2 * MAX_KB; ++nb) {
+      pn[nb][0] = attn_tile::pack2(p[nb][0] * inv0, p[nb][1] * inv0);
+      pn[nb][1] = attn_tile::pack2(p[nb][2] * inv1, p[nb][3] * inv1);
+    }
+    // dP = dO V^T, rowsum = sum pn dP
+    auto dp_block = [&](float* c, int nb) {
+      c[0] = c[1] = c[2] = c[3] = 0.f;
+      uint32_t b[KC][2];
+      load_b_d<D>(b, Vs, nb * 8);
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) attn_tile::mma16816(c, ga[kc], b[kc][0], b[kc][1]);
+    };
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int nb = 0; nb < 2 * MAX_KB; ++nb) {
+      if (nb < 2 * nkb) {
+        float c[4];
+        dp_block(c, nb);
+        const float2 a = unpack_bf2(pn[nb][0]), b = unpack_bf2(pn[nb][1]);
+        rs0 += a.x * c[0] + a.y * c[1];
+        rs1 += b.x * c[2] + b.y * c[3];
+      }
+    }
+    rs0 += __shfl_xor_sync(0xffffffffu, rs0, 1);
+    rs0 += __shfl_xor_sync(0xffffffffu, rs0, 2);
+    rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);
+    rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);
+    if (tig == 0) {
+      Inv[q0 + gid] = inv0;
+      Inv[q0 + gid + 8] = inv1;
+      Rs[q0 + gid] = rs0;
+      Rs[q0 + gid + 8] = rs1;
+    }
+    // dS = ln2 pn (dP - rowsum) (as ds / max|dO| in fp16), dQ = dS K
+    float dq[OB][4];
+#pragma unroll
+    for (int db = 0; db < OB; ++db) dq[db][0] = dq[db][1] = dq[db][2] = dq[db][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < MAX_KB; ++j) {
+      if (j < nkb) {
+        uint32_t da[4];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int nb = 2 * j + half;
+          float c[4];
+          dp_block(c, nb);
+          const float2 a = unpack_bf2(pn[nb][0]), b = unpack_bf2(pn[nb][1]);
+          da[2 * half] = pack_h2(a.x * (c[0] - rs0) * to_f16, a.y * (c[1] - rs0) * to_f16);
+          da[2 * half + 1] = pack_h2(b.x * (c[2] - rs1) * to_f16, b.y * (c[3] - rs1) * to_f16);
+        }
+        uint32_t b[OB][2];
+        load_b_rows<D>(b, Ks, 16 * j);
+#pragma unroll
+        for (int db = 0; db < OB; ++db) mma16816_f16(dq[db], da, b[db][0], b[db][1]);
+      }
+    }
+    to_tile(dq, dq_back);
+    write_tile(q0, 0, true, nullptr);
+  }
+  __syncthreads();
+
+  // ---- phase B: 16-key tiles: S^T = K Q^T and dP^T = V dO^T again, then
+  // dV = P^T dO and dK = dS^T Q ----
+  for (int kt = warp; kt < nkb; kt += THREADS / 32) {
+    const int k0 = kt * 16;
+    uint32_t ka[KC][4], va[KC][4];
+    load_a<D>(ka, Ks, k0);
+    load_a<D>(va, Vs, k0);
+    const float kb0 = Kb[k0 + gid], kb1 = Kb[k0 + gid + 8];
+    float dk[OB][4], dv[OB][4];
+#pragma unroll
+    for (int db = 0; db < OB; ++db)
+      dk[db][0] = dk[db][1] = dk[db][2] = dk[db][3] = dv[db][0] = dv[db][1] = dv[db][2] = dv[db][3] = 0.f;
+    for (int q0 = 0; q0 < NQP; q0 += 16) {
+      uint32_t pa[4], da[4];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int c0 = q0 + half * 8;  // this 8-query block
+        float st[4] = {0.f, 0.f, 0.f, 0.f}, dpt[4] = {0.f, 0.f, 0.f, 0.f};
+        uint32_t b[KC][2];
+        load_b_d<D>(b, Qs, c0);
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc) mma16816_f16(st, ka[kc], b[kc][0], b[kc][1]);
+        load_b_d<D>(b, Gs, c0);
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc) attn_tile::mma16816(dpt, va[kc], b[kc][0], b[kc][1]);
+        const float2 iv = *reinterpret_cast<const float2*>(Inv + c0 + tig * 2);
+        const float2 rs = *reinterpret_cast<const float2*>(Rs + c0 + tig * 2);
+        // pn^T in bf16, as phase A rounds it
+        const uint32_t lo = attn_tile::pack2(exp2f(fminf(fmaf(st[0], lscale, kb0), 100.f)) * iv.x,
+                                             exp2f(fminf(fmaf(st[1], lscale, kb0), 100.f)) * iv.y);
+        const uint32_t hi = attn_tile::pack2(exp2f(fminf(fmaf(st[2], lscale, kb1), 100.f)) * iv.x,
+                                             exp2f(fminf(fmaf(st[3], lscale, kb1), 100.f)) * iv.y);
+        pa[2 * half] = lo;
+        pa[2 * half + 1] = hi;
+        const float2 a = unpack_bf2(lo), bb = unpack_bf2(hi);
+        da[2 * half] = pack_h2(a.x * (dpt[0] - rs.x) * to_f16, a.y * (dpt[1] - rs.y) * to_f16);
+        da[2 * half + 1] = pack_h2(bb.x * (dpt[2] - rs.x) * to_f16, bb.y * (dpt[3] - rs.y) * to_f16);
+      }
+      uint32_t b[OB][2];
+      load_b_rows<D>(b, Gs, q0);
+#pragma unroll
+      for (int db = 0; db < OB; ++db) attn_tile::mma16816(dv[db], pa, b[db][0], b[db][1]);
+      load_b_rows<D>(b, Qs, q0);
+#pragma unroll
+      for (int db = 0; db < OB; ++db) mma16816_f16(dk[db], da, b[db][0], b[db][1]);
+    }
+    float* pb = part + seq * 2LL * C + h * D;
+    to_tile(dk, dk_back);
+    write_tile(k0, C, true, pb);
+    to_tile(dv, 1.f);
+    write_tile(k0, 2 * C, false, pb + C);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void block(
+    const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+    const bf16* __restrict__ bias_k, const bf16* __restrict__ bias_v,
+    const float* __restrict__ key_valid, const float* __restrict__ cos_t,
+    const float* __restrict__ sin_t, bf16* __restrict__ dqkv, float* __restrict__ part,
+    int N, int I, int H, int C, int HPB, int bx, float* smem) {
+  if (N <= 16)
+    short_block<D>(qkv, dout, bias_k, bias_v, key_valid, cos_t, sin_t, dqkv, part, N, I, H, C, HPB,
+                   bx, smem);
+  else
+    long_block<D>(qkv, dout, bias_k, bias_v, key_valid, cos_t, sin_t, dqkv, part, N, I, H, C, bx,
+                  smem);
+}
+
 // heads per block (N <= 16: up to 128 / (N + 1), so the threads are not
 // idle), blocks and dynamic shared memory of a call over S = G * I sequences
 __host__ __device__ inline int heads_per_block(int N, int H) {
   return N <= 16 ? max(1, min(H, THREADS / (N + 1))) : 1;
 }
 __host__ __device__ inline size_t smem_bytes(int N, int H, int D) {
-  return (size_t)heads_per_block(N, H) * head_floats(N, D) * sizeof(float);
+  return N <= 16 ? (size_t)heads_per_block(N, H) * head_floats(N, D) * sizeof(float)
+                 : LongLayout(N, D).total;
 }
 __host__ __device__ inline unsigned blocks(long long S, int N, int H) {
   const int HPB = heads_per_block(N, H);

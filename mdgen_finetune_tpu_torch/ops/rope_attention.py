@@ -1,24 +1,34 @@
 """rope_attention: RoPE + bias-KV + masked softmax attention over one axis
 of a (G, N, I, 3C) qkv tensor — the attention core of trunk stage 1, trunk
-stage 2 and the encoder's residue MHA.
+stage 2 and the encoder's residue MHA, and (``base2=False``) of the modular
+layer's residue and frame attention.
 
-Kernel: ``csrc/rope_attention.cu`` (one warp per (sequence, head), K/V in
-shared memory; it replaces the attention cores inside the JAX package's
-``ops/fused_layer.py::_trunk_call`` and ``ops/ipa_encoder.py::_encoder_call``).
-``rope_attention_plain`` is the same function in plain PyTorch (the op order
-of the JAX package's ``time_attention._xla_impl`` / ``dense_attn``); it runs
-for CPU tensors. For CUDA tensors the wrapper launches the kernel or raises.
+Kernel: ``csrc/rope_attention.cu`` (it replaces the attention cores inside
+the JAX package's ``ops/fused_layer.py::_trunk_call``,
+``ops/ipa_encoder.py::_encoder_call``, ``ops/time_attention.py::_pallas_fwd``
+and ``ops/residue_attention.py::_pallas_fwd``). Short sequences (N <= 16)
+give a warp 32 / N heads of one sequence, one lane per (head, query), in
+f32. Long ones give a block of 4 warps one (sequence, head): the head's
+N + 1 keys are staged once in shared memory (RoPE'd k in fp16, v in bf16)
+and the warps take 16-query tiles through ``mma.sync`` tensor-core
+products. ``rope_attention_plain`` is the same function in plain PyTorch
+(the op order of the JAX package's ``time_attention._xla_impl`` /
+``dense_attn``); it runs for CPU tensors. For CUDA tensors the wrapper
+launches the kernel or raises.
 
 Attention runs over N for every (g, i): stage 1 views the trunk as
 (B*T, L, 1, 3C), stage 2 as (B, T, L, 3C), the encoder as (B, L, 1, 3C).
 ``key_valid`` (G, N, I), 1 = attendable; the bias key (RoPE'd at position N)
 is always attendable. ``base2``: q carries scale*log2(e) and the softmax is
-exp2 with no max subtraction (the trunk); otherwise natural exp (encoder).
-Returns (G, N, I, C). The kernel stages all N+1 keys of a head in shared
-memory, so N is capped (``max_keys``: 1184 at D = 24, 449 at D = 64); the
-wrapper raises ``ValueError`` beyond it, and ``tiled_attention`` takes any N.
+exp2 with no max subtraction (the trunk); otherwise natural exp (encoder,
+modular layer). Returns (G, N, I, C). The long kernel stages the N+1 keys and
+N queries of a head in shared memory, so N is capped (``max_keys``: 943 at
+D = 24, 527 at D = 64); the wrapper raises ``ValueError`` beyond it, and
+``tiled_attention`` takes any N.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -32,17 +42,22 @@ SMEM_BYTES = 232_448  # the shared memory one block may use on an H100
 
 
 def _head_bytes(N: int, D: int) -> int:
-    """Shared memory of one staged head (csrc/rope_attention.cu
-    ``head_floats``): N+1 roped keys and values of D f32 lanes and N+1 key
-    biases, 16-byte aligned."""
-    NK = N + 1
-    return 4 * (2 * NK * D + ((NK + 3) & ~3))
+    """Shared memory of the long-sequence kernel's block
+    (csrc/rope_attention.cuh ``LongLayout``): K (fp16) and V (bf16) of the
+    N + 1 keys and Q (fp16) of the N queries, each rounded up to 16 rows of
+    D lanes padded to DP = 16 * ceil(D / 16), at a stride of DP + 8 lanes;
+    a f32 bias per key; 16 f32 of warp maxima."""
+    rs = (D + 15) // 16 * 16 + 8
+    nkp, nqp = (N + 1 + 15) // 16 * 16, (N + 15) // 16 * 16
+    return nkp * (2 * rs * 2 + 4) + nqp * rs * 2 + 16 * 4
 
 
+@functools.lru_cache(maxsize=None)
 def max_keys(D: int) -> int:
-    """The largest N whose N+1 keys of head dim D fit one block's shared
-    memory in the long-sequence kernel (N > 16): 1184 at D = 24, 449 at 64."""
-    N = SMEM_BYTES // (8 * D + 4)
+    """The largest N whose N+1 keys and N queries of head dim D fit one
+    block's shared memory in the long-sequence kernel (N > 16): 943 at
+    D = 24, 527 at 64."""
+    N = SMEM_BYTES // (6 * ((D + 15) // 16 * 16 + 8) + 4)  # a token's bytes: no token more
     while _head_bytes(N, D) > SMEM_BYTES:
         N -= 1
     return N
@@ -52,7 +67,8 @@ def rope_attention_math(qkv, bias_k, bias_v, key_valid, *, num_heads: int,
                         base2: bool, out=None, stage=None):
     """The plain PyTorch math of ``rope_attention`` (same arguments), counted
     nowhere and differentiable with ``out=None``. ``stage``: a dtype to
-    round the RoPE'd q and k to, as the kernels stage them (bf16): a
+    round the RoPE'd q and k to, as the kernels stage them (bf16 in the JAX
+    kernel and ``tiled_attention``, fp16 in the long-sequence body here): a
     reference for logits so large that that rounding, not the kernel, sets
     the error."""
     G, N, I, C3 = qkv.shape
@@ -121,6 +137,9 @@ def rope_attention(qkv, bias_k, bias_v, key_valid, *, num_heads: int, base2: boo
         out = torch.empty(G, N, I, C, dtype=torch.bfloat16, device=qkv.device)
     elif out.dtype != torch.bfloat16 or not out.is_contiguous() or tuple(out.shape) != (G, N, I, C):
         raise ValueError("rope_attention: out must be a contiguous bf16 (G, N, I, C) tensor")
+    if N > 16 and (qkv.data_ptr() % 16 or out.data_ptr() % 16):
+        raise ValueError("rope_attention: qkv and out must start on a 16-byte boundary "
+                         "(the long kernel reads and writes head rows as 16-byte vectors)")
     cos, sin = rope_tables(N + 1, D, device=qkv.device)
     lib = _cuda.library("rope_attention", _ARGTYPES)
     code = lib.rope_attention(qkv.data_ptr(), bias_k.data_ptr(), bias_v.data_ptr(),
@@ -133,3 +152,15 @@ def rope_attention(qkv, bias_k, bias_v, key_valid, *, num_heads: int, base2: boo
 
 
 rope_attention.launches = 0
+
+
+def resources(N: int, num_heads: int, C: int) -> dict:
+    """The launch resources of the kernel that a call at sequence length N
+    runs (on the card): registers and local (spill) bytes per thread,
+    dynamic shared memory per block, resident blocks per SM."""
+    lib = _cuda.library("rope_attention", _ARGTYPES)
+    fn = lib.rope_attention_resources
+    fn.argtypes = [_cuda.I32, _cuda.I32, _cuda.I32, _cuda.P]
+    info = (_cuda.I64 * 4)()
+    _cuda.check(fn(N, num_heads, C, info), "rope_attention_resources")
+    return dict(registers=info[0], local_bytes=info[1], smem_bytes=info[2], blocks_per_sm=info[3])

@@ -4,8 +4,13 @@
 Kernel: ``csrc/rope_attention_bwd.cu`` (it replaces the attention adjoints
 inside the JAX package's ``ops/fused_layer_bwd.py`` stage kernels ``_k2``
 (frame attention, :258-309) and ``_k1`` (residue attention, :420-458)).
-``rope_attention_bwd_plain`` is the same function in plain PyTorch; it runs
-for CPU tensors. For CUDA tensors the wrapper launches the kernel or raises.
+Short sequences (N <= 16) give a thread one (head, row) in f32; longer ones
+(up to ``MAX_N``) give a block of 4 warps one (sequence, head) and run all
+six products on the tensor cores (``mma.sync``): RoPE'd q and k in fp16
+(scaled by powers of two into its range), p, v and dO in bf16, ds in fp16
+scaled by 1 / max|dO|. ``rope_attention_bwd_plain`` is the same function
+in plain PyTorch; it runs for CPU tensors. For CUDA tensors the wrapper
+launches the kernel or raises.
 
 Same layout as the forward: ``qkv`` (G, N, I, 3C), attention over N for
 every (g, i); ``dout`` (G, N, I, C) the gradient of the attention output;
@@ -29,7 +34,7 @@ from ..models.attention_core import LN2, NEG_INF
 from ..models.rope import rope_tables, rotate_half
 from . import _cuda
 
-MAX_N = 128  # a head's q, dO, k and v stay in shared memory
+MAX_N = 128  # a head's q, dO, k and v stay in shared memory, a row of p in registers
 _ARGTYPES = [_cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P,
              _cuda.P, _cuda.P, _cuda.P, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32,
              _cuda.I32, _cuda.P]
@@ -41,10 +46,12 @@ def _rotate_half_t(g: torch.Tensor) -> torch.Tensor:
     return torch.cat([g2, -g1], dim=-1)
 
 
-def rope_attention_bwd_math(qkv, dout, bias_k, bias_v, key_valid, *, num_heads: int):
+def rope_attention_bwd_math(qkv, dout, bias_k, bias_v, key_valid, *, num_heads: int,
+                            stage=None):
     """The plain PyTorch math of ``rope_attention_bwd`` (same arguments),
     computed in f32 and counted nowhere; ``blocked_attention_bwd_plain``
-    runs it too."""
+    runs it too. ``stage``: a dtype to round the RoPE'd q and k to (as
+    ``rope_attention_math`` does): what that rounding alone costs."""
     G, N, I, C3 = qkv.shape
     C, H = C3 // 3, num_heads
     D = C // H
@@ -60,6 +67,8 @@ def rope_attention_bwd_math(qkv, dout, bias_k, bias_v, key_valid, *, num_heads: 
     cos, sin = rope_tables(N + 1, D, device=qkv.device)
     qr = q * cos[:N] + rotate_half(q) * sin[:N]
     kr = k * cos + rotate_half(k) * sin
+    if stage is not None:
+        qr, kr = qr.to(stage).float(), kr.to(stage).float()
     valid = torch.cat([key_valid.permute(0, 2, 1).reshape(S, N).float(),
                        torch.ones(S, 1, device=qkv.device)], dim=1)
     logits = torch.einsum("shqd,shkd->shqk", qr, kr) * LN2
@@ -119,6 +128,9 @@ def rope_attention_bwd(qkv, dout, bias_k, bias_v, key_valid, *, num_heads: int):
     if key_valid.dtype != torch.float32 or tuple(key_valid.shape) != (G, N, I) \
             or not key_valid.is_contiguous():
         raise ValueError("rope_attention_bwd: key_valid must be a contiguous f32 (G, N, I) tensor")
+    if N > 16 and (qkv.data_ptr() % 16 or dout.data_ptr() % 16):
+        raise ValueError("rope_attention_bwd: qkv and dout must start on a 16-byte boundary "
+                         "(the long kernel reads head rows as 16-byte vectors)")
     cos, sin = rope_tables(N + 1, D, device=qkv.device)
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty(2, C, dtype=torch.float32, device=qkv.device)
@@ -135,3 +147,15 @@ def rope_attention_bwd(qkv, dout, bias_k, bias_v, key_valid, *, num_heads: int):
 
 
 rope_attention_bwd.launches = 0
+
+
+def resources(N: int, num_heads: int, C: int) -> dict:
+    """The launch resources of the kernel that a call at sequence length N
+    runs (on the card): registers and local (spill) bytes per thread,
+    dynamic shared memory per block, resident blocks per SM."""
+    lib = _cuda.library("rope_attention_bwd", _ARGTYPES)
+    fn = lib.rope_attention_bwd_resources
+    fn.argtypes = [_cuda.I32, _cuda.I32, _cuda.I32, _cuda.P]
+    info = (_cuda.I64 * 4)()
+    _cuda.check(fn(N, num_heads, C, info), "rope_attention_bwd_resources")
+    return dict(registers=info[0], local_bytes=info[1], smem_bytes=info[2], blocks_per_sm=info[3])

@@ -258,6 +258,105 @@ def test_rope_attention_natural_at_the_modular_shapes_on_card():
         _close(got, ref)
 
 
+def _rope_case(g, Gc, N, Ic, Hc, D, q_scale=1.0, k_scale=1.0, half_lanes=False):
+    """Seeded bf16 qkv (G, N, I, 3C), bias key / value and a mask with
+    masked keys, a sequence whose only valid key is the bias token (g = 1)
+    and, at g = 2, keys masked at random. ``half_lanes``: q and k nonzero
+    in the first half of each head's lanes only, where RoPE is one product
+    per lane, so that kernel and reference round the same f32 values."""
+    C = Hc * D
+    qkv = torch.randn(Gc, N, Ic, 3 * C, generator=g, device="cuda")
+    qkv[..., :C] *= q_scale
+    qkv[..., C:2 * C] *= k_scale
+    bk = torch.randn(C, generator=g, device="cuda") * k_scale
+    if half_lanes:
+        qkv.view(Gc, N, Ic, 3, Hc, 2, D // 2)[..., :2, :, 1, :] = 0
+        bk.view(Hc, 2, D // 2)[:, 1] = 0
+    bv = torch.randn(C, generator=g, device="cuda")
+    mask = torch.ones(Gc, N, Ic, device="cuda")
+    mask[0, N // 2:, -1] = 0
+    mask[1] = 0
+    mask[2] = (torch.rand(N, Ic, generator=g, device="cuda") > 0.3).float()
+    return qkv.to(torch.bfloat16), bk.to(torch.bfloat16), bv.to(torch.bfloat16), mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 24, 32, 64])
+def test_rope_attention_long_body_on_card(D):
+    """On the card: the long-sequence body of rope_attention (tensor-core
+    products, RoPE'd q and k staged in fp16) in both softmax modes against
+    its f32 plain twin at N = 17, 64, 100, 128, 200 and 256 (q unscaled:
+    logits of several units, where the staging precision shows), with
+    masked keys, a sequence whose only valid key is the bias token and keys
+    masked at random; and the natural mode with q scaled 400x (logits
+    ~1e3, where exp without the max overflows f32 and a logit moves by
+    ~0.5 with the fp16 rounding of q and k), against the plain math with
+    that rounding (``rope_attention_math(stage=float16)``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.ops.rope_attention import (rope_attention, rope_attention_math,
+                                                             rope_attention_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(20 + D)
+    Hc = 2
+    for N in (17, 64, 100, 128, 200, 256):
+        qkv, bk, bv, mask = _rope_case(g, 3, N, 2, Hc, D)
+        for base2 in (True, False):
+            got = rope_attention(qkv, bk, bv, mask, num_heads=Hc, base2=base2)
+            ref = rope_attention_plain(qkv.float(), bk.float(), bv.float(), mask, num_heads=Hc,
+                                       base2=base2)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got.float()).all(), (N, base2)
+            _close(got, ref)
+    for N in (100, 256):
+        qkv, bk, bv, mask = _rope_case(g, 3, N, 2, Hc, D, q_scale=400.0 * D ** -0.5,
+                                       half_lanes=True)
+        got = rope_attention(qkv, bk, bv, mask, num_heads=Hc, base2=False)
+        ref = rope_attention_math(qkv.float(), bk.float(), bv.float(), mask, num_heads=Hc,
+                                  base2=False, stage=torch.float16)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all(), N
+        _close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 24, 32, 64])
+def test_rope_attention_bwd_long_body_on_card(D):
+    """On the card: the long-sequence body of rope_attention_bwd (all six
+    products on the tensor cores; q and k in fp16 scaled by powers of two,
+    ds in fp16 scaled by 1 / max|dO|) against its f32 plain twin at N = 17,
+    100 and 128 with the masks of the forward test (a sequence whose only
+    valid key is the bias token among them); at N = 100 also with dO ~ 1e-6
+    (ds would underflow fp16 unscaled) and with RoPE'd q ~ 2e5 and k ~ 1e-5
+    (beyond fp16's range both ways, logits O(1)), where each of dq, dk and
+    dv is also held within 0.01 of its own largest value."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.ops.rope_attention_bwd import (rope_attention_bwd,
+                                                                 rope_attention_bwd_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(40 + D)
+    Hc = 2
+    C = Hc * D
+    cases = [(N, 1.0, 1.0, 1.0) for N in (17, 100, 128)]
+    cases += [(100, 1.0, 1.0, 1e-6), (100, 2e5, 1e-5 * D ** -0.5, 1.0)]
+    for N, qs, ks, gs in cases:
+        qkv, bk, bv, mask = _rope_case(g, 3, N, 2, Hc, D, q_scale=qs, k_scale=ks)
+        do = (torch.randn(3, N, 2, C, generator=g, device="cuda") * gs).to(torch.bfloat16)
+        got = rope_attention_bwd(qkv, do, bk, bv, mask, num_heads=Hc)
+        ref = rope_attention_bwd_plain(qkv.float(), do.float(), bk.float(), bv.float(), mask,
+                                       num_heads=Hc)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            assert torch.isfinite(a.float()).all(), (N, qs, ks, gs)
+            _close(a, b)
+        if (qs, ks, gs) != (1.0, 1.0, 1.0):
+            for j in range(3):
+                a, b = got[0][..., j * C:(j + 1) * C].float(), ref[0][..., j * C:(j + 1) * C]
+                scale = b.abs().max().item()
+                assert 0 < scale and (a - b).abs().max().item() <= 1e-2 * scale, (N, qs, gs, j)
+
+
 @pytest.mark.cuda
 def test_fused_attention_matches_plain_on_card():
     """On the card: the fused_attention forward (output and row statistic)
@@ -595,12 +694,16 @@ def test_merged_layer_bwd_matches_split_and_plain_on_card(Bc, Tc):
 def test_moved_split_kernels_match_the_parent_sources_on_card(tmp_path):
     """On the card: the split kernels whose bodies live in the shared
     headers (adaln_linear's resident and pipelined tilings, linear_bwd,
-    modln_bwd, rope_attention, rope_attention_bwd, blocked_attention_bwd)
-    give the outputs of another checkout's sources of the same kernels bit
-    for bit, at the merged path's shapes (T = 100 and 200): a change to a
-    shared header must not move the split route's numbers. The other
-    sources come from MDGEN_PARENT_CSRC (a csrc directory, for example
-    ``git archive`` of an earlier commit); without it the test skips."""
+    modln_bwd, blocked_attention_bwd) give the outputs of another
+    checkout's sources of the same kernels bit for bit, at the merged
+    path's shapes (T = 100 and 200): a change to a shared header must not
+    move the split route's numbers. rope_attention and rope_attention_bwd
+    are held to the other sources only at N = 4 (stage 1, the encoder and
+    the modular residue attention), where their short bodies run: their
+    long-sequence bodies were redesigned for the tensor cores, which moves
+    those bits. The other sources come from MDGEN_PARENT_CSRC (a csrc
+    directory, for example ``git archive`` of an earlier commit); without
+    it the test skips."""
     import ctypes
     import os
     import subprocess
@@ -614,12 +717,32 @@ def test_moved_split_kernels_match_the_parent_sources_on_card(tmp_path):
     from mdgen_finetune_tpu_torch.ops import fused_layer_bwd as FB
     from mdgen_finetune_tpu_torch.ops.fused_layer import trunk_layer
 
-    names = ("adaln_linear", "linear_bwd", "modln_bwd", "rope_attention", "rope_attention_bwd",
-             "blocked_attention_bwd")
+    names = ("adaln_linear", "linear_bwd", "modln_bwd", "blocked_attention_bwd")
+    short = ("rope_attention", "rope_attention_bwd")
     procs = [(n, subprocess.Popen([_cuda.nvcc(), *_cuda.FLAGS, "-o", str(tmp_path / f"{n}.so"),
                                    os.path.join(parent, f"{n}.cu")], stdout=subprocess.DEVNULL,
-                                  stderr=subprocess.STDOUT)) for n in names]
+                                  stderr=subprocess.STDOUT)) for n in names + short]
     assert all(p.wait() == 0 for _, p in procs), "the parent's sources did not build"
+
+    def swapped(ns, run):
+        """run() with the other sources' libraries of kernels ``ns``."""
+        kept = {}
+        for n in ns:
+            lib = _cuda._LIBS.get(n)
+            if lib is None:  # not on this shape's path
+                continue
+            old = ctypes.CDLL(str(tmp_path / f"{n}.so"))
+            for fn in ("blocked_attention_bwd_smem", n):
+                if hasattr(lib, fn) and hasattr(old, fn):
+                    getattr(old, fn).argtypes = getattr(lib, fn).argtypes
+                    getattr(old, fn).restype = getattr(lib, fn).restype
+            kept[n] = lib
+            _cuda._LIBS[n] = old
+        try:
+            return run()
+        finally:
+            _cuda._LIBS.update(kept)
+
     Bc, Lc, Cc, Hc = 2, 4, 384, 16
     outs = {}
     for Tc in (100, 200):
@@ -633,25 +756,33 @@ def test_moved_split_kernels_match_the_parent_sources_on_card(tmp_path):
                                                                           wb, mask, Hc))]
 
         outs[Tc] = run()
-        kept = {}
-        for n in names:
-            lib = _cuda._LIBS.get(n)
-            if lib is None:  # not on this shape's path
-                continue
-            old = ctypes.CDLL(str(tmp_path / f"{n}.so"))
-            for fn in ("blocked_attention_bwd_smem", n):
-                if hasattr(lib, fn) and hasattr(old, fn):
-                    getattr(old, fn).argtypes = getattr(lib, fn).argtypes
-                    getattr(old, fn).restype = getattr(lib, fn).restype
-            kept[n] = lib
-            _cuda._LIBS[n] = old
-        try:
-            before = run()
-        finally:
-            _cuda._LIBS.update(kept)
+        before = swapped(names, run)
         torch.cuda.synchronize()
         differ = [i for i, (a, b) in enumerate(zip(outs[Tc], before)) if not torch.equal(a, b)]
         assert not differ, (Tc, differ)
+
+    from mdgen_finetune_tpu_torch.ops.rope_attention import rope_attention
+    from mdgen_finetune_tpu_torch.ops.rope_attention_bwd import rope_attention_bwd
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    G4, C4, H4 = 200, 384, 16  # stage 1 of the T = 100 layer at B = 2: (B * T, L, 1, 3C)
+    qkv, dout = (torch.randn(G4, 4, 1, w * C4, generator=g, device="cuda").bfloat16()
+                 for w in (3, 1))
+    bk, bv = (0.4 * torch.randn(C4, generator=g, device="cuda")).bfloat16(), \
+        (0.4 * torch.randn(C4, generator=g, device="cuda")).bfloat16()
+    valid = torch.ones(G4, 4, 1, device="cuda")
+    valid[0, -1] = 0  # a padded residue
+    valid[1] = 0  # a frame whose only valid key is the bias token
+
+    def run_short():
+        return [rope_attention(qkv, bk, bv, valid, num_heads=H4, base2=b) for b in (True, False)] \
+            + list(rope_attention_bwd(qkv, dout, bk, bv, valid, num_heads=H4))
+
+    now = run_short()
+    before = swapped(short, run_short)
+    torch.cuda.synchronize()
+    differ = [i for i, (a, b) in enumerate(zip(now, before)) if not torch.equal(a, b)]
+    assert not differ, ("N = 4", differ)
 
 
 @pytest.mark.cuda

@@ -138,10 +138,11 @@ def test_tiled_attention_refuses_the_natural_exp_softmax(inputs, fn):
 
 
 def test_rope_attention_shared_memory_limit():
-    """The long rope_attention kernel stages N+1 keys of a head in shared
-    memory: N <= 1184 at D = 24 and N <= 449 at D = 64; the wrapper raises
-    a ValueError naming the limit instead of failing at launch."""
-    assert tra.max_keys(24) == 1184 and tra.max_keys(64) == 449
+    """The long rope_attention kernel stages the N+1 keys and N queries of
+    a head in shared memory (K and Q in fp16, V in bf16, rows padded to
+    16): N <= 943 at D = 24 and N <= 527 at D = 64; the wrapper raises a
+    ValueError naming the limit instead of failing at launch."""
+    assert tra.max_keys(24) == 943 and tra.max_keys(64) == 527
     for D in (16, 24, 32, 64):
         n = tra.max_keys(D)
         assert tra._head_bytes(n, D) <= tra.SMEM_BYTES < tra._head_bytes(n + 1, D)
