@@ -150,6 +150,74 @@ def check(name, got, ref, rel_tol):
     return err, rel_tol * scale
 
 
+_PARENT_LIBS: dict = {}
+
+
+def parent_lib(name):
+    """The library of kernel ``name`` built from MDGEN_PARENT_CSRC (the csrc
+    directory of another checkout, e.g. a ``git archive`` of the parent
+    commit), or None without it: the kernel phases time those sources on the
+    same inputs beside this checkout's. Both of this slice's kernels are
+    built at the first call, in parallel."""
+    import ctypes
+
+    from mdgen_finetune_tpu_torch.ops import _cuda
+
+    parent = os.environ.get("MDGEN_PARENT_CSRC")
+    if not parent:
+        return None
+    if not _PARENT_LIBS:
+        out = SCRATCH / "parent_build"
+        out.mkdir(parents=True, exist_ok=True)
+        names = ("linear_bwd", "blocked_attention_bwd")
+        procs = [(n, subprocess.Popen([_cuda.nvcc(), *_cuda.FLAGS, "-o", str(out / f"{n}.so"),
+                                       os.path.join(parent, f"{n}.cu")],
+                                      stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT))
+                 for n in names]
+        for n, p in procs:
+            if p.wait() != 0:
+                raise RuntimeError(f"the parent's {n}.cu did not build")
+            _PARENT_LIBS[n] = ctypes.CDLL(str(out / f"{n}.so"))
+    return _PARENT_LIBS[name]
+
+
+def parent_wgrad_splits(M, K, N):
+    """ops/linear_bwd._splits of the parent's kernel (64 x 64 tiles, about
+    four blocks per SM), which takes its split count from the caller."""
+    tiles = -(-K // 64) * -(-N // 64)
+    return max(1, min(M // 64, -(-528 // tiles)))
+
+
+@contextlib.contextmanager
+def with_parent(name):
+    """This checkout's wrapper of kernel ``name`` running the parent's
+    library (``parent_lib``), and for linear_bwd the parent's split rule."""
+    from mdgen_finetune_tpu_torch.ops import _cuda
+    from mdgen_finetune_tpu_torch.ops import linear_bwd as LB
+
+    old, cur = parent_lib(name), _cuda._LIBS[name]
+    fn, ref = getattr(old, name), getattr(cur, name)
+    fn.argtypes, fn.restype = ref.argtypes, ref.restype
+    splits = LB._splits
+    _cuda._LIBS[name] = old
+    if name == "linear_bwd":
+        LB._splits = parent_wgrad_splits
+    try:
+        yield
+    finally:
+        _cuda._LIBS[name] = cur
+        LB._splits = splits
+
+
+def parent_times(name, run):
+    """ms by events and back to back of ``run`` on the parent's library of
+    kernel ``name``, or None without MDGEN_PARENT_CSRC."""
+    if parent_lib(name) is None:
+        return None
+    with with_parent(name):
+        return dict(ms=time_ms(run), back_to_back_ms=back_to_back_ms(run))
+
+
 def phase_kernels(dev):
     """Each kernel against its plain twin (run in f32 on the same inputs) at
     the main path's shapes; times of kernel, twin and a library yardstick."""
@@ -431,6 +499,9 @@ def phase_bwd_kernels(dev):
 
     out = {}
     # ---- linear_bwd: dgrad and wgrad at the fc1/fc2 and qkv shapes ----
+    from mdgen_finetune_tpu_torch.models.layers import gelu_fast_with_grad
+    from mdgen_finetune_tpu_torch.ops import linear_bwd as LB
+
     x, dout = r(M, C), r(M, C, dtype=f32)
     sh, scl, gate = r(Bt, C, sc=0.3), r(Bt, C, sc=0.3), r(Bt, C, sc=0.3)
     da, dqkv = r(M, 4 * C, sc=0.1), r(M, 3 * C, sc=0.1)
@@ -443,7 +514,28 @@ def phase_bwd_kernels(dev):
         "qkv_wgrad": ("wgrad", dqkv, x, dict(ln=True, shift=sh, scale=scl)),
         "qkv_dgrad": ("dgrad", dqkv, r(C, 3 * C, sc=C ** -0.5), {}),
     }
-    errs, use_ms = {}, {}
+    rows = lambda v: v.float().repeat_interleave(T * L, 0)  # noqa: E731
+
+    def prologued(mode, dy, xx, kw):
+        """The bf16 operands of the product itself: P(dY), and P(A) or W."""
+        g = (dy.float() * rows(kw["gate"]) if "gate" in kw else dy).to(bf)
+        if mode == "wgrad" and kw.get("ln"):
+            xx = (F.layer_norm(xx.float(), (xx.shape[1],), eps=1e-6) * (1 + rows(kw["scale"]))
+                  + rows(kw["shift"])).to(bf)
+        return g, xx
+
+    def library(mode, dy, xx, kw):
+        """The same function in PyTorch calls: the prologue, torch.mm on the
+        bf16 operands, the GELU' epilogue / the column sum."""
+        g, a = prologued(mode, dy, xx, kw)
+        if mode == "dgrad":
+            o = torch.mm(g, a.t())
+            if "act" in kw:
+                o = o.float() * gelu_fast_with_grad(kw["act"])[1]
+            return o
+        return torch.mm(a.t(), g), g.float().sum(0)
+
+    errs, use = {}, {}
     for name, (mode, dy, xx, kw) in uses.items():
         got = linear_bwd(mode, dy, xx, **kw)
         ref = linear_bwd_plain(mode, dy.float(), xx.float(), **f(kw))
@@ -453,18 +545,42 @@ def phase_bwd_kernels(dev):
             errs[name] = (max(e1, e2), t1)
         else:
             errs[name] = check(f"linear_bwd[{name}]", got, ref, 1e-2)
-        use_ms[name] = time_ms(lambda: linear_bwd(mode, dy, xx, **kw))
+        again = linear_bwd(mode, dy, xx, **kw)  # two calls, the same bits
+        if not all(torch.equal(a, b) for a, b in zip(got if mode == "wgrad" else (got,),
+                                                     again if mode == "wgrad" else (again,))):
+            raise AssertionError(f"linear_bwd[{name}]: two calls differ")
+        del ref, got, again
+        run = lambda: linear_bwd(mode, dy, xx, **kw)  # noqa: E731
+        pg, pa = prologued(mode, dy, xx, kw)
+        bare = (lambda: torch.mm(pg, pa.t())) if mode == "dgrad" else (lambda: torch.mm(pa.t(), pg))
+        Mi, Ni = dy.shape
+        Ki = xx.shape[0] if mode == "dgrad" else xx.shape[1]
+        outb = Mi * Ki * (4 if kw.get("out_dtype") is None else 2) if mode == "dgrad" \
+            else (Ki * Ni + Ni) * 4
+        use[name] = dict(
+            shape=f"{mode}: M={Mi}, N={Ni}, K={Ki}" + "".join(f", {k}" for k in kw
+                                                              if k != "out_dtype"),
+            ms=time_ms(run), back_to_back_ms=back_to_back_ms(run),
+            library_ms=time_ms(lambda: library(mode, dy, xx, kw)),
+            bare_mm_ms=time_ms(bare), bare_mm_back_to_back_ms=back_to_back_ms(bare),
+            parent=parent_times("linear_bwd", run),
+            bound=bound_ms(nbytes(dy, xx, *(v for v in kw.values() if torch.is_tensor(v)))
+                           + outb, 2.0 * Mi * Ni * Ki))
+        del pg, pa
     mode, dy, xx, kw = uses["fc1_wgrad"]
     K_, N_ = C, 4 * C
-    rows = lambda v: v.float().repeat_interleave(T * L, 0)  # noqa: E731
-    lib = lambda: torch.mm(  # noqa: E731
-        (F.layer_norm(xx.float(), (K_,), eps=1e-6) * (1 + rows(scl)) + rows(sh)).to(bf).t(), dy)
     out["linear_bwd"] = dict(
         shape=f"fc1 wgrad: LN+modulate({M},{K_})^T @ ({M},{N_}), f32 sum over {M} rows",
-        uses_ms=use_ms, max_abs_err=max(e for e, _ in errs.values()),
-        tol={k: t for k, (_, t) in errs.items()}, ms=use_ms["fc1_wgrad"],
-        plain_ms=time_ms(lambda: linear_bwd_plain(mode, dy, xx, **kw)), library_ms=time_ms(lib),
-        bound=bound_ms(nbytes(xx, dy, sh, scl) + (K_ * N_ + N_) * 4, 2.0 * M * K_ * N_))
+        uses=use, max_abs_err=max(e for e, _ in errs.values()),
+        tol={k: t for k, (_, t) in errs.items()}, ms=use["fc1_wgrad"]["ms"],
+        back_to_back_ms=use["fc1_wgrad"]["back_to_back_ms"],
+        plain_ms=time_ms(lambda: linear_bwd_plain(mode, dy, xx, **kw)),
+        library_ms=use["fc1_wgrad"]["library_ms"], bare_mm_ms=use["fc1_wgrad"]["bare_mm_ms"],
+        bound=use["fc1_wgrad"]["bound"],
+        resources={m: LB.resources(m) for m in ("dgrad", "wgrad")},
+        splits={k: LB._splits(v[1].shape[0], *((v[2].shape[0], v[1].shape[1]) if v[0] == "dgrad"
+                                                else (v[2].shape[1], v[1].shape[1])))
+                for k, v in uses.items() if v[0] == "wgrad"})
 
     # ---- modln_bwd at the trunk's (M, C) with B per-element rows ----
     dh, y = r(M, C, dtype=f32), r(M, C, dtype=f32)
@@ -1919,6 +2035,10 @@ def phase_atlas_kernels(dev):
         if view not in (rows, frames):
             mk[0, view[1] // 2:, ::3] = 0  # masked keys
         got = BA.blocked_attention_bwd(qkv, do, bk, bv, mk, num_heads=H)
+        again = BA.blocked_attention_bwd(qkv, do, bk, bv, mk, num_heads=H)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"blocked_attention_bwd[{name}]: two calls differ")
+        del again
         ref = BA.blocked_attention_bwd_plain(qkv.float(), do.float(), bk.float(), bv.float(), mk,
                                              num_heads=H)
         own = [1.0 if dsc == 1.0 else b.abs().max().item() for b in ref]
@@ -1942,11 +2062,15 @@ def phase_atlas_kernels(dev):
                 o = F.scaled_dot_product_attention(*leaves, attn_mask=am, scale=math.log(2))
                 return torch.autograd.grad(o, leaves, dsd)
 
+            run = lambda: BA.blocked_attention_bwd(qkv, do, bk, bv, mk, num_heads=H)  # noqa: E731
             entry.update(
-                ms=time_ms(lambda: BA.blocked_attention_bwd(qkv, do, bk, bv, mk, num_heads=H)),
+                ms=time_ms(run), back_to_back_ms=back_to_back_ms(run),
+                parent=parent_times("blocked_attention_bwd", run),
+                resources=BA.resources(N_, D),
                 plain_ms=time_ms(lambda: BA.blocked_attention_bwd_plain(qkv, do, bk, bv, mk,
                                                                         num_heads=H), reps=5),
                 library_ms=time_ms(lib_fwd_bwd), library="SDPA forward + backward (autograd)",
+                library_back_to_back_ms=back_to_back_ms(lib_fwd_bwd),
                 # the least a backward that recomputes P does: q.k, dO.v, p^T.dO, ds^T.q, ds.k
                 bound=bound_ms(nbytes(qkv, do, mk, bk, bv) + qkv.numel() * 2,
                                10.0 * S_ * H * N_ * (N_ + 1) * D))
@@ -2831,7 +2955,8 @@ def main():
                      "bound_by": k["bound"][1], "library_ms": k["library_ms"],
                      "shape": k["shape"],
                      **{f: k[f] for f in ("back_to_back_ms", "library_back_to_back_ms", "resources",
-                                          "bf16_staging_err_of_tol") if f in k}})
+                                          "bf16_staging_err_of_tol", "parent", "bare_mm_ms",
+                                          "uses", "splits", "frames_N250") if f in k}})
     for entry in line:  # row j beyond fp16's range (the repaired q and k scales)
         if entry["name"] == "blocked_attention_bwd":
             entry["fp16_range"] = {c: modular[c] for c in modular if c.startswith("blocked_")}

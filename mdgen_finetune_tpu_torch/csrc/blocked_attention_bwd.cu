@@ -30,52 +30,61 @@
 // output's scale in the ATLAS frame view on an H100; the output's own bf16
 // rounding is 0.2%); ds in bf16 was the next (0.94% at N = 129 against
 // 0.32% in fp16). But ds is a gradient, ~1e-6 in a real
-// step, below fp16's normal range (6.1e-5): each query tile therefore
-// scales its ds by 1 / max|dO| of the tile before rounding it to fp16, and
-// its dq and dk partials by max|dO| after the products, in f32. q and k are
+// step, below fp16's normal range (6.1e-5): each 16-query tile therefore
+// scales its ds by ln2 / max|dO| of the tile before rounding it to fp16, and
+// its dq and dk products by max|dO| after them, in f32. q and k are
 // scaled too where they need it, so that any finite bf16 input fits fp16's
-// range (65,504 at most; full precision from 6.1e-5): the staging loops
-// take max|RoPE'd q| of each query tile and max|RoPE'd k| of the head as
-// they go, and a tile or head whose maximum lies outside [2^-6, 2^15) is
-// staged again times 2^s, a power of two that puts the maximum in
-// [2^14, 2^15) (1 / max up to a power of two and a constant; a power of
-// two adds no rounding of its own). The f32 logits q.k come back times
-// 2^-(sq + sk) after the product, dq = ds.k times 2^-sk and dk = ds^T.q
-// times 2^-sq, each folded into the tile's one factor with max|dO|. Inside
-// the window nothing is staged twice and s = 0: the results are bit for
-// bit those of the kernel without the scales, at nearly its cost. dO, v,
-// pn and the stored unnormalised p (up to 2^100) stay bf16.
+// range (65,504 at most; full precision from 6.1e-5): the staging loop
+// takes max|RoPE'd q| and max|RoPE'd k| of the head as it goes, and q or k
+// whose maximum lies outside [2^-6, 2^15) is staged again times 2^s, a
+// power of two that puts the maximum in [2^14, 2^15) (rope_tile.cuh's
+// scale_exponent; a power of two adds no rounding of its own). The f32
+// logits q.k come back times 2^-(sq + sk) after the product, dq = ds.k
+// times 2^-sk and dk = ds^T.q times 2^-sq. dO, v and pn stay bf16. The
+// softmax is the forward's, without a running maximum: p = exp2(min(l,
+// 100)), den = sum p + 1e-30, masked keys at -1e9 and the bias key at
+// position N.
 
-// Design (mma.sync m16n8k16 helpers of attention_tile.cuh; D padded to a
-// multiple of 16, 24 -> 32): one block of 4 warps per (sequence, head).
-//   - Once per block: the head's N+1 RoPE'd keys (row-major for q.k^T and
-//     transposed for ds.k) and values (row-major for dO.v^T) are staged in
-//     shared memory, the key tiles padded to 64 with zero rows.
-//   - Per 64-query tile (each warp keeps 16 rows of q and dO as A
-//     fragments): pass 1 walks the key tiles, forms S = q.k^T and
-//     p = exp2(min(S, 100)) once, keeps p in shared memory (bf16, in the
-//     accumulator layout of the thread that made it) and sums den and
-//     sum(p * dp) in f32 with dp = dO.v^T; pass 2 walks the key tiles again,
-//     reads p back, recomputes dp, forms pn and ds, accumulates dq = ds.k in
-//     registers, and hands pn^T and ds^T through shared memory to the
-//     products over the tile's queries, dv += pn^T.dO and dk += ds^T.q, in
-//     which each warp owns 16 keys of the tile. dk and dv accumulate in f32
-//     in shared memory across the query tiles; every sum runs in a fixed
-//     order, so the result is deterministic and needs no atomics.
-//   - P is formed once per (query, key) pair; the six products are q.k^T,
-//     dO.v^T twice, ds.k, pn^T.dO and ds^T.q.
+// Design (mma.sync m16n8k16, and m16n8k8 for the last 8 lanes at D = 24;
+// fragments through ldmatrix, .trans for the products over rows, so no
+// tile is transposed in memory): one block of 4 warps per (sequence,
+// head), the head's q, dO, k and v staged once in shared memory in rows of
+// D lanes (48 bytes at D = 24: no pad to 32).
+//   - Pass 1, 16-query tiles over the warps: S = q.k^T and dP = dO.v^T over
+//     all keys, p = exp2(min(S, 100)), and the row statistics 1 / sum p and
+//     delta = sum p dP / sum p, kept per query in shared memory (the kernel
+//     is not given the forward's output or normaliser, so they are made
+//     here: the FlashAttention-2 backward's pre-pass).
+//   - Pass 2, rounds of 4 key tiles of 16, one per warp: the warp keeps its
+//     keys and values as A fragments and its dK and dV in f32 registers
+//     across the round, and walks all query tiles: S^T = K Q^T and
+//     dP^T = V dO^T, pn^T (bf16) and ds^T (fp16) from the statistics, then
+//     dV += pn^T dO, dK += ds^T Q and the query tile's dq partial ds K, with
+//     ds^T transposed in registers (movmatrix). The dq partials are added
+//     into an f32 dq in shared memory (over the keys' region, free after
+//     pass 1): in step t warp w takes query tile (t + w) mod nq, so the
+//     warps of a step touch distinct rows, and the block meets after each
+//     step; every sum runs in one fixed order: deterministic, no atomics.
+//     A last round of fewer than 4 key tiles (17 at N = 256: the bias key
+//     makes the 17th) gives each tile's query tiles to 4 / R warps, whose
+//     dK and dV partials one of them adds in a fixed order.
+//   - Seven products per (query, key) pair: q.k^T and dO.v^T in each pass,
+//     then pn^T.dO, ds^T.q and ds.k; p is formed twice. The five-product
+//     form needs a surface of p or dP of a query tile held across the key
+//     walk (41 KB of bf16 p for 64 queries at N = 256), which would cost
+//     the occupancy below.
 //
-// Shared memory grows with the padded key count NKP = 64 * ceil((N+1)/64)
-// (every staged element takes 2 bytes, bf16 or fp16):
-// ~544 bytes per key at D = 24 plus ~38 KB, 213,824 bytes at N = 256; the
-// wrapper names the limit (N <= 319 at D = 24) and raises beyond it.
+// Shared memory grows with N: 2 bytes per staged element (q, dO at NQP =
+// 16 * ceil(N / 16) rows, k, v at NKP = 16 * ceil((N + 1) / 16)), the key
+// biases and the row statistics, and each warp's 16-row area: 60,352 bytes
+// at N = 256, D = 24, 3 blocks (12 warps) per SM.
 //
 // What bounds it on the H100: at the ATLAS residue stage (250 frames x 16
 // heads, N = 256, D = 24) the least work is the five products of a backward
-// that recomputes P, 10 * S * H * N * (N+1) * D = 1.3e11 FLOP (0.13 ms at
-// 989 TFLOP/s), against ~20 MB of operands (0.006 ms): the tensor cores
-// bound it. This first version uses mma.sync with 4 warps per SM (one
-// ~210 KB block each), no wgmma or TMA: making it fast is later work.
+// that recomputes P, 10 * S * H * N * (N+1) * D = 6.3e10 FLOP (0.064 ms at
+// 989 TFLOP/s), against 344 MB of qkv, dO and dqkv (0.103 ms at 3.35
+// TB/s): the bytes bound it. This design takes seven products on mma.sync,
+// exp2 twice per pair, and a barrier per query tile of pass 2.
 //
 // The block body lives in blocked_attention_bwd.cuh, which the merged layer
 // backward (fused_layer_bwd.cu) includes too.
@@ -91,7 +100,7 @@ namespace {
 using namespace blockedbwd;
 
 template <int D>
-__global__ void __launch_bounds__(THREADS) blocked_attention_bwd_kernel(
+__global__ void __launch_bounds__(THREADS, 3) blocked_attention_bwd_kernel(
     const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
     const bf16* __restrict__ bias_k, const bf16* __restrict__ bias_v,
     const float* __restrict__ key_valid, const float* __restrict__ cos_t,
@@ -127,7 +136,39 @@ int launch(const void* qkv, const void* dout, const void* bias_k, const void* bi
                         2LL * C, 2LL * C, 0, stream);
 }
 
+// the resources of the kernel at sequence length N: info[0] registers per
+// thread, [1] local (spill) bytes per thread, [2] dynamic shared memory per
+// block, [3] resident blocks per SM
+template <int D>
+int resources(int N, long long* info) {
+  const size_t smem = Layout<D>(N).total;
+  cudaFuncAttributes fa;
+  int per_sm = 0;
+  cudaError_t e = cudaFuncSetAttribute(blocked_attention_bwd_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, blocked_attention_bwd_kernel<D>);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, blocked_attention_bwd_kernel<D>,
+                                                      THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  info[0] = fa.numRegs;
+  info[1] = (long long)fa.localSizeBytes;
+  info[2] = (long long)smem;
+  info[3] = per_sm;
+  return 0;
+}
+
 }  // namespace
+
+extern "C" int blocked_attention_bwd_resources(int N, int D, long long* info) {
+  switch (D) {
+    case 16: return resources<16>(N, info);
+    case 24: return resources<24>(N, info);
+    case 32: return resources<32>(N, info);
+    case 64: return resources<64>(N, info);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 // The shared memory one block takes at N tokens and head dim D (0 for an
 // unsupported D): the wrapper's limit on N comes from this.

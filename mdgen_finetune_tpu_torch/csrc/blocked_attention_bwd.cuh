@@ -13,152 +13,181 @@
 
 namespace blockedbwd {
 
-using namespace attn_tile;
+typedef __nv_bfloat16 bf16;
+typedef __half f16;
+using attn_tile::mma16816;
+using attn_tile::pack2;
+using rope_tile::ldsm_x2;
+using rope_tile::ldsm_x2_t;
+using rope_tile::ldsm_x4;
+using rope_tile::ldsm_x4_t;
+using rope_tile::load_row;
+using rope_tile::load_row_scalar;
 using rope_tile::max4;
+using rope_tile::mma16816_f16;
+using rope_tile::pack_h2;
+using rope_tile::rope;
+using rope_tile::rope_t;
+using rope_tile::row_max;
 using rope_tile::scale_exponent;  // the fp16 range rule, shared with rope_attention_bwd
+using rope_tile::store_global;
+using rope_tile::unpack_bf2;
 using rope_tile::warp_max;
 
+constexpr int THREADS = 128;
+constexpr float LN2F = 0.6931471805599453f;
 
-typedef __half f16;
-
-// the two element types of the products: fp16 (q, k, scaled ds) and bf16
-struct BF16 {
-  typedef bf16 T;
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
-                                             uint32_t b1) {
-    mma16816(c, a, b0, b1);
-  }
+// the head dim's staging geometry: rows of RS 2-byte elements, an odd
+// number of 16-byte units (conflict-free ldmatrix) and no pad to 16 lanes:
+// a product over d takes D / 16 chunks of 16 and, at D = 24, one of 8
+template <int D>
+struct Geo {
+  static constexpr int RS = (D / 8) % 2 ? D : D + 8;
+  static constexpr int K16 = D / 16, TAIL = D % 16, OB = D / 8;
+  static constexpr int SS = D + 1;  // f32 stride of a warp's output tile
+  // a warp's own area: its 16 keys and values in phase B, then its f32 output tile
+  static constexpr int WA = (16 * RS * 2 * 2 > 16 * SS * 4 ? 16 * RS * 2 * 2 : 16 * SS * 4);
 };
 
-struct F16 {
-  typedef f16 T;
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    return rope_tile::pack_h2(lo, hi);
-  }
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
-                                             uint32_t b1) {
-    rope_tile::mma16816_f16(c, a, b0, b1);
-  }
-};
-
-__device__ __forceinline__ uint32_t ld32h(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// stride (elements) of the transposed query / dO tiles and of the pn^T /
-// ds^T tiles: 64 columns + 8
-constexpr int QTS = ROWS + 8;
-
+// byte offsets of the block's shared memory at N tokens: q (fp16, RoPE'd,
+// times 2^sq) and dO (bf16) of the NQP queries (N rounded up to 16); k
+// (fp16, RoPE'd, times 2^sk) and v (bf16) of the NKP keys (N + 1 rounded up
+// to 16), whose region holds dq (f32, NQP x RS) once the statistics pass is
+// done; the key biases; 1 / sum p and delta per query; max|dO| per 16-query
+// tile; the warps' maxima; the warps' own areas
 template <int D>
 struct Layout {
-  static constexpr int DP = Dims<D>::DP, RS = Dims<D>::RS;
-  int NKP, KTS;                          // padded keys, stride of the transposed keys
-  size_t ks, vs, kt, qs, gs, qt, gt, pt, st, pst, dka, dva, kc, red, total;  // byte offsets
+  int NQP, NKP;
+  size_t qs, gs, kv, kb, inv, rs, gm, red, wa, total;
   __host__ __device__ explicit Layout(int N) {
-    NKP = (N + 1 + ROWS - 1) / ROWS * ROWS;
-    KTS = NKP + 8;
+    constexpr int RS = Geo<D>::RS;
+    NQP = (N + 15) / 16 * 16;
+    NKP = (N + 1 + 15) / 16 * 16;
     size_t o = 0;
-    ks = o; o += (size_t)NKP * RS * 2;
-    vs = o; o += (size_t)NKP * RS * 2;
-    kt = o; o += (size_t)DP * KTS * 2;
-    qs = o; o += (size_t)ROWS * RS * 2;
-    gs = o; o += (size_t)ROWS * RS * 2;
-    qt = o; o += (size_t)DP * QTS * 2;
-    gt = o; o += (size_t)DP * QTS * 2;
-    pt = o; o += (size_t)ROWS * QTS * 2;   // also the f32 dq tile (64 x DP) at a tile's end
-    st = o; o += (size_t)ROWS * QTS * 2;
-    pst = o; o += (size_t)NKP * 128;        // p of one query tile: 2 words per 8 keys per thread
-    dka = o; o += (size_t)NKP * D * 4;
-    dva = o; o += (size_t)NKP * D * 4;
-    kc = o; o += (size_t)NKP * 4;
-    red = o; o += 16 * 4;                   // the warps' max|dO|, max|q| and max|k|
+    qs = o; o += (size_t)NQP * RS * 2;
+    gs = o; o += (size_t)NQP * RS * 2;
+    kv = o; o += (size_t)NKP * RS * 2 * 2;
+    kb = o; o += (size_t)NKP * 4;
+    inv = o; o += (size_t)NQP * 4;
+    rs = o; o += (size_t)NQP * 4;
+    gm = o; o += ((size_t)NQP / 16 * 4 + 15) / 16 * 16;
+    red = o; o += 16 * 4;
+    wa = o; o += (size_t)(THREADS / 32) * Geo<D>::WA;
     total = o;
   }
 };
 
-// RoPE of one (token, pair of lanes d, d + D/2) at position n
-__device__ __forceinline__ void rope_pair(float& o0, float& o1, float v0, float v1,
-                                          const float* cs, const float* sn, int d, int half) {
-  o0 = v0 * cs[d] - v1 * sn[d];
-  o1 = v1 * cs[d + half] + v0 * sn[d + half];
+// c += a (16x8, row) * b (8x8, col): the 8-deep tail of a product over d
+__device__ __forceinline__ void mma1688_f16(float* c, const uint32_t* a, uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+__device__ __forceinline__ void mma1688_bf16(float* c, const uint32_t* a, uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
 }
 
-// its transpose: g * cos + rot^T(g * sin), rot^T(a, b) = (b, -a)
-__device__ __forceinline__ void rope_pair_t(float& o0, float& o1, float g0, float g1,
-                                            const float* cs, const float* sn, int d, int half) {
-  o0 = g0 * cs[d] + g1 * sn[d + half];
-  o1 = g1 * cs[d + half] - g0 * sn[d];
+// the transpose of an 8x8 b16 fragment across the warp
+__device__ __forceinline__ uint32_t movt(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
 }
 
-// the A fragments (16 rows) of a row-major tile of element type E
-template <int D, class E>
-__device__ __forceinline__ void load_rows(uint32_t (*a)[4], const typename E::T* tile, int row0) {
-  constexpr int RS = Dims<D>::RS;
-  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
-  const typename E::T* lo = tile + (row0 + gid) * RS + tig * 2;
-  const typename E::T* hi = lo + 8 * RS;
+// the A fragments of 16 staged rows from row0 over d: K16 chunks of 16
+// (x4) and the tail of 8 (x2)
+template <int D>
+struct AFrag {
+  uint32_t a[Geo<D>::K16 > 0 ? Geo<D>::K16 : 1][4];
+  uint32_t t[2];
+  __device__ __forceinline__ void load(const void* tile, int row0) {
+    constexpr int RS = Geo<D>::RS;
+    const int lane = threadIdx.x & 31;
+    const uint16_t* p = static_cast<const uint16_t*>(tile) + (row0 + (lane & 15)) * RS;
 #pragma unroll
-  for (int kc = 0; kc < Dims<D>::KC; ++kc) {
-    a[kc][0] = ld32h(lo + kc * 16);
-    a[kc][1] = ld32h(hi + kc * 16);
-    a[kc][2] = ld32h(lo + kc * 16 + 8);
-    a[kc][3] = ld32h(hi + kc * 16 + 8);
+    for (int kc = 0; kc < Geo<D>::K16; ++kc) ldsm_x4(a[kc], p + kc * 16 + (lane >> 4) * 8);
+    if constexpr (Geo<D>::TAIL) ldsm_x2(t, p + Geo<D>::K16 * 16);
+  }
+};
+
+// c (16 x 8) = A (16 x D) . rows r0 .. r0 + 7 of a staged tile (their d
+// lanes the reduction): fp16 or bf16
+template <int D, bool F16>
+__device__ __forceinline__ void product_d(float* c, const AFrag<D>& a, const void* tile, int r0) {
+  constexpr int RS = Geo<D>::RS, OB = Geo<D>::OB;
+  const int lane = threadIdx.x & 31;
+  uint32_t b[OB];
+#pragma unroll
+  for (int m0 = 0; m0 < OB; m0 += 4) {
+    const int m = m0 + min(lane >> 3, OB - 1 - m0);  // lanes past the end repeat the last
+    uint32_t r[4];
+    ldsm_x4(r, static_cast<const uint16_t*>(tile) + (r0 + (lane & 7)) * RS + m * 8);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (m0 + i < OB) b[m0 + i] = r[i];
+  }
+  c[0] = c[1] = c[2] = c[3] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < Geo<D>::K16; ++kc) {
+    if (F16) mma16816_f16(c, a.a[kc], b[2 * kc], b[2 * kc + 1]);
+    else mma16816(c, a.a[kc], b[2 * kc], b[2 * kc + 1]);
+  }
+  if constexpr (Geo<D>::TAIL) {
+    if (F16) mma1688_f16(c, a.t, b[OB - 1]);
+    else mma1688_bf16(c, a.t, b[OB - 1]);
   }
 }
 
-// s (16 x 64) = A (16 x D) . tile^T (product_d of attention_tile.cuh, type E)
-template <int D, class E>
-__device__ __forceinline__ void product_over_d(float (*s)[4], uint32_t (*a)[4],
-                                               const typename E::T* tile) {
-  constexpr int RS = Dims<D>::RS;
-  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+// the B fragments of a product over rows: rows r0 .. r0 + 15 of a staged
+// tile are the 16-deep chunk, its D lanes the OB 8-lane output blocks
+template <int D>
+__device__ __forceinline__ void load_b_rows(uint32_t (*b)[2], const void* tile, int r0) {
+  constexpr int RS = Geo<D>::RS, OB = Geo<D>::OB;
+  const int lane = threadIdx.x & 31;
+  const uint16_t* p = static_cast<const uint16_t*>(tile) + (r0 + (lane & 15)) * RS + (lane >> 4) * 8;
 #pragma unroll
-  for (int nb = 0; nb < NB; ++nb) {
-    s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-    const typename E::T* br = tile + (nb * 8 + gid) * RS + tig * 2;
-#pragma unroll
-    for (int kc = 0; kc < Dims<D>::KC; ++kc)
-      E::mma(s[nb], a[kc], ld32h(br + kc * 16), ld32h(br + kc * 16 + 8));
+  for (int db = 0; db + 1 < OB; db += 2) {
+    uint32_t r[4];
+    ldsm_x4_t(r, p + db * 8);
+    b[db][0] = r[0];
+    b[db][1] = r[1];
+    b[db + 1][0] = r[2];
+    b[db + 1][1] = r[3];
+  }
+  if constexpr (OB % 2) {
+    uint32_t r[2];
+    ldsm_x2_t(r, static_cast<const uint16_t*>(tile) + (r0 + (lane & 15)) * RS + (OB - 1) * 8);
+    b[OB - 1][0] = r[0];
+    b[OB - 1][1] = r[1];
   }
 }
 
-// acc (16 x DP) += A (16 x 64, rows of a row-major tile, stride sa) .
-// X (64 x DP), X given transposed ([d][row], stride sb); type E
-template <int D, class E>
-__device__ __forceinline__ void tile_product(float (*acc)[4], const typename E::T* a_tile, int sa,
-                                             const typename E::T* x_t, int sb) {
-  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
-  const typename E::T* lo = a_tile + gid * sa + tig * 2;
-  const typename E::T* hi = lo + 8 * sa;
+// one staged row of D lanes (16-byte aligned): x times `mul` (a power of
+// two) in fp16 (F16) or x in bf16
+template <int D, bool F16>
+__device__ __forceinline__ void store_row(void* dst, const float* x, float mul = 1.f) {
 #pragma unroll
-  for (int kc = 0; kc < ROWS / 16; ++kc) {
-    const uint32_t a[4] = {ld32h(lo + kc * 16), ld32h(hi + kc * 16), ld32h(lo + kc * 16 + 8),
-                           ld32h(hi + kc * 16 + 8)};
+  for (int v = 0; v < D / 8; ++v) {
+    uint32_t w[4];
 #pragma unroll
-    for (int db = 0; db < Dims<D>::DB; ++db) {
-      const typename E::T* br = x_t + (db * 8 + gid) * sb + kc * 16 + tig * 2;
-      E::mma(acc[db], a, ld32h(br), ld32h(br + 8));
+    for (int e = 0; e < 4; ++e) {
+      const float lo = x[8 * v + 2 * e], hi = x[8 * v + 2 * e + 1];
+      w[e] = F16 ? pack_h2(lo * mul, hi * mul) : pack2(lo, hi);
     }
+    static_cast<uint4*>(dst)[v] = make_uint4(w[0], w[1], w[2], w[3]);
   }
 }
 
-// acc (16 x DP) += p (16 x 64, accumulator layout, rounded to E) . X (64 x DP),
-// X transposed with stride sb (product_rows of attention_tile.cuh, any stride)
-template <int D, class E>
-__device__ __forceinline__ void rows_product(float (*acc)[4], float (*p)[4],
-                                             const typename E::T* x_t, int sb) {
-  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+template <int D>
+__device__ __forceinline__ void zero_acc(float (*acc)[4]) {
 #pragma unroll
-  for (int j = 0; j < ROWS / 16; ++j) {
-    const uint32_t pa[4] = {E::pack(p[2 * j][0], p[2 * j][1]), E::pack(p[2 * j][2], p[2 * j][3]),
-                            E::pack(p[2 * j + 1][0], p[2 * j + 1][1]),
-                            E::pack(p[2 * j + 1][2], p[2 * j + 1][3])};
-#pragma unroll
-    for (int db = 0; db < Dims<D>::DB; ++db) {
-      const typename E::T* br = x_t + (db * 8 + gid) * sb + j * 16 + tig * 2;
-      E::mma(acc[db], pa, ld32h(br), ld32h(br + 8));
-    }
-  }
+  for (int db = 0; db < Geo<D>::OB; ++db) acc[db][0] = acc[db][1] = acc[db][2] = acc[db][3] = 0.f;
 }
 
 template <int D>
@@ -168,285 +197,325 @@ __device__ __forceinline__ void block(
     const float* __restrict__ key_valid, const float* __restrict__ cos_t,
     const float* __restrict__ sin_t, bf16* __restrict__ dqkv, float* __restrict__ part,
     int N, int I, int H, int C, int bx, unsigned char* smem) {
-  constexpr int DP = Dims<D>::DP, RS = Dims<D>::RS, DB = Dims<D>::DB, HALF = D / 2;
-  const Layout<D> lay(N);
-  const int NKP = lay.NKP, KTS = lay.KTS, ktiles = NKP / ROWS;
-  f16* Ks = reinterpret_cast<f16*>(smem + lay.ks);    // RoPE'd keys [key][d], for S
-  bf16* Vs = reinterpret_cast<bf16*>(smem + lay.vs);  // values [key][d]
-  f16* Kt = reinterpret_cast<f16*>(smem + lay.kt);    // RoPE'd keys [d][key], for dq
-  f16* Qs = reinterpret_cast<f16*>(smem + lay.qs);    // the tile's RoPE'd q [query][d], for S
-  bf16* Gs = reinterpret_cast<bf16*>(smem + lay.gs);  // its dO [query][d]
-  f16* Qt = reinterpret_cast<f16*>(smem + lay.qt);    // q [d][query], for dk
-  bf16* Gt = reinterpret_cast<bf16*>(smem + lay.gt);  // dO [d][query]
-  bf16* Pt = reinterpret_cast<bf16*>(smem + lay.pt);  // pn^T [key][query]
-  f16* St = reinterpret_cast<f16*>(smem + lay.st);    // scaled ds^T [key][query]
-  float* dQf = reinterpret_cast<float*>(smem + lay.pt);
-  uint32_t* Pst = reinterpret_cast<uint32_t*>(smem + lay.pst);
-  float* dKa = reinterpret_cast<float*>(smem + lay.dka);
-  float* dVa = reinterpret_cast<float*>(smem + lay.dva);
-  float* Kc = reinterpret_cast<float*>(smem + lay.kc);
-  float* Red = reinterpret_cast<float*>(smem + lay.red);
-
+  constexpr int RS = Geo<D>::RS, OB = Geo<D>::OB, SS = Geo<D>::SS, NW = THREADS / 32;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  const Layout<D> lay(N);
+  f16* Qs = reinterpret_cast<f16*>(smem + lay.qs);
+  bf16* Gs = reinterpret_cast<bf16*>(smem + lay.gs);
+  f16* Ks = reinterpret_cast<f16*>(smem + lay.kv);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + lay.kv + (size_t)lay.NKP * RS * 2);
+  float* dQ = reinterpret_cast<float*>(smem + lay.kv);  // after the statistics pass
+  float* Kb = reinterpret_cast<float*>(smem + lay.kb);
+  float* Inv = reinterpret_cast<float*>(smem + lay.inv);
+  float* Rs = reinterpret_cast<float*>(smem + lay.rs);
+  float* Gm = reinterpret_cast<float*>(smem + lay.gm);
+  float* Red = reinterpret_cast<float*>(smem + lay.red);
+  unsigned char* Wa = smem + lay.wa + (size_t)warp * Geo<D>::WA;
+  f16* Kw = reinterpret_cast<f16*>(Wa);                 // phase B: the warp's 16 keys
+  bf16* Vw = reinterpret_cast<bf16*>(Wa + 16 * RS * 2);  // and values
+  float* Sc = reinterpret_cast<float*>(Wa);             // then its output tile
+  const int NQP = lay.NQP, NKP = lay.NKP, nqt = NQP / 16, nkb = NKP / 16;
+  const int h = bx % H;
   const long long seq = bx / H;
-  const int h = (int)(bx % H);
   const long long row0 = (seq / I) * (long long)N * I + seq % I;  // token n: row0 + n * I
-  const bf16 zero = __float2bfloat16(0.f);
-  const f16 hzero = __float2half_rn(0.f);
+  auto tok = [&](int n) { return row0 + (long long)n * I; };
 
-  // ---- the head's keys (RoPE'd; the bias key at N) and values, once ----
-  // (times 2^sk: staged again in the first query tile if max|k| needs it)
-  auto stage_key = [&](int n, int d, int sk) {
-    float o0 = 0.f, o1 = 0.f;
-    if (n <= N) {
-      const bf16* src = n < N ? qkv + (row0 + (long long)n * I) * 3LL * C + C + h * D
-                              : bias_k + h * D;
-      rope_pair(o0, o1, __bfloat162float(src[d]), __bfloat162float(src[d + HALF]),
-                cos_t + (long long)n * D, sin_t + (long long)n * D, d, HALF);
-    }
-    const float m = fmaxf(fabsf(o0), fabsf(o1));
-    if (sk != 0) {
-      o0 = ldexpf(o0, sk);
-      o1 = ldexpf(o1, sk);
-    }
-    const f16 h0 = __float2half_rn(o0), h1 = __float2half_rn(o1);
-    Ks[n * RS + d] = h0;
-    Ks[n * RS + d + HALF] = h1;
-    Kt[d * KTS + n] = h0;
-    Kt[(d + HALF) * KTS + n] = h1;
-    return m;
-  };
-  float kmax = 0.f;
-  for (int e = tid; e < NKP * HALF; e += THREADS) {
-    const int n = e / HALF, d = e % HALF;
-    float v0 = 0.f, v1 = 0.f;
+  // ---- stage: query rows (q RoPE'd, dO; max|dO| per 16-row tile) and key
+  // rows (k RoPE'd, the bias key at N, v, the mask bias); pad rows zero ----
+  auto q_row = [&](int n, float* q) {
     if (n < N) {
-      const bf16* src = qkv + (row0 + (long long)n * I) * 3LL * C + h * D;
-      v0 = __bfloat162float(src[2 * C + d]);
-      v1 = __bfloat162float(src[2 * C + d + HALF]);
-    } else if (n == N) {
-      v0 = __bfloat162float(bias_v[h * D + d]);
-      v1 = __bfloat162float(bias_v[h * D + d + HALF]);
+      load_row<D>(q, qkv + tok(n) * 3LL * C + h * D);
+      rope<D>(q, cos_t + (long long)n * D, sin_t + (long long)n * D);
+    } else {
+#pragma unroll
+      for (int d = 0; d < D; ++d) q[d] = 0.f;
     }
-    kmax = fmaxf(kmax, stage_key(n, d, 0));
-    Vs[n * RS + d] = __float2bfloat16(v0);
-    Vs[n * RS + d + HALF] = __float2bfloat16(v1);
+  };
+  auto k_row = [&](int n, float* k, float* v) {
+    float b = -1e9f;
+    if (n <= N) {
+      if (n < N) {
+        const bf16* src = qkv + tok(n) * 3LL * C + h * D;
+        load_row<D>(k, src + C);
+        load_row<D>(v, src + 2 * C);
+        b = key_valid[tok(n)] > 0.f ? 0.f : -1e9f;
+      } else {
+        load_row_scalar<D>(k, bias_k + h * D);
+        load_row_scalar<D>(v, bias_v + h * D);
+        b = 0.f;
+      }
+      rope<D>(k, cos_t + (long long)n * D, sin_t + (long long)n * D);
+    } else {
+#pragma unroll
+      for (int d = 0; d < D; ++d) k[d] = v[d] = 0.f;
+    }
+    return b;
+  };
+  float qmax = 0.f, kmax = 0.f;
+  for (int base = 0; base < NQP; base += THREADS) {  // lanes 16j .. 16j + 15: one query tile
+    const int t = base + tid;
+    float tm = 0.f;
+    if (t < NQP) {
+      float x[D], y[D];
+      q_row(t, x);
+      if (t < N) {
+        load_row<D>(y, dout + tok(t) * C + h * D);
+      } else {
+#pragma unroll
+        for (int d = 0; d < D; ++d) y[d] = 0.f;
+      }
+      qmax = fmaxf(qmax, row_max<D>(x));
+      tm = row_max<D>(y);
+      store_row<D, true>(Qs + t * RS, x);
+      store_row<D, false>(Gs + t * RS, y);
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, off));
+    if (t < NQP && (lane & 15) == 0) Gm[t / 16] = tm;
   }
+  for (int n = tid; n < NKP; n += THREADS) {
+    float x[D], y[D];
+    Kb[n] = k_row(n, x, y);
+    kmax = fmaxf(kmax, row_max<D>(x));
+    store_row<D, true>(Ks + n * RS, x);
+    store_row<D, false>(Vs + n * RS, y);
+  }
+  qmax = warp_max(qmax);
   kmax = warp_max(kmax);
-  if (lane == 0) Red[8 + warp] = kmax;  // read after the first query tile's barrier
-  if constexpr (DP > D) {  // pad lanes meet only zeros in the products
-    constexpr int P = DP - D;
-    for (int e = tid; e < NKP * P; e += THREADS) {
-      const int n = e / P, d = D + e % P;
-      Ks[n * RS + d] = hzero;
-      Vs[n * RS + d] = zero;
-      Kt[d * KTS + n] = hzero;
-    }
-    for (int e = tid; e < ROWS * P; e += THREADS) {
-      const int r = e / P, d = D + e % P;
-      Qs[r * RS + d] = hzero;
-      Gs[r * RS + d] = zero;
-      Qt[d * QTS + r] = hzero;
-      Gt[d * QTS + r] = zero;
+  if (lane == 0) {
+    Red[warp] = qmax;
+    Red[4 + warp] = kmax;
+  }
+  __syncthreads();
+  // q and k outside fp16's comfortable range: staged again, scaled by
+  // powers of two (the maxima are the block's, so the branches are uniform)
+  const int sq = scale_exponent(max4(Red)), sk = scale_exponent(max4(Red + 4));
+  const float kmul = ldexpf(1.f, sk);
+  if (sq != 0) {
+    const float mul = ldexpf(1.f, sq);
+    for (int n = tid; n < N; n += THREADS) {
+      float x[D];
+      q_row(n, x);
+      store_row<D, true>(Qs + n * RS, x, mul);
     }
   }
-  for (int n = tid; n < NKP; n += THREADS)
-    Kc[n] = n < N ? (key_valid[row0 + (long long)n * I] > 0.f ? 1.f : 0.f) : (n == N ? 1.f : -1.f);
-  for (int e = tid; e < NKP * D; e += THREADS) dKa[e] = dVa[e] = 0.f;
-
-  const int qtiles = (N + ROWS - 1) / ROWS;
-  int sk = 0;  // the keys' scale exponent (set in the first query tile)
-  for (int qtile = 0; qtile < qtiles; ++qtile) {
-    const int q0 = qtile * ROWS;
-    // ---- the query tile: RoPE'd q and dO, row-major and transposed ----
-    // (q times 2^sq: staged again if max|q| of the tile needs it)
-    auto stage_query = [&](int r, int d, int sq) {
-      const int n = q0 + r;
-      float o0 = 0.f, o1 = 0.f;
-      if (n < N) {
-        const bf16* src = qkv + (row0 + (long long)n * I) * 3LL * C + h * D;
-        rope_pair(o0, o1, __bfloat162float(src[d]), __bfloat162float(src[d + HALF]),
-                  cos_t + (long long)n * D, sin_t + (long long)n * D, d, HALF);
-      }
-      const float m = fmaxf(fabsf(o0), fabsf(o1));
-      if (sq != 0) {
-        o0 = ldexpf(o0, sq);
-        o1 = ldexpf(o1, sq);
-      }
-      const f16 h0 = __float2half_rn(o0), h1 = __float2half_rn(o1);
-      Qs[r * RS + d] = h0;
-      Qs[r * RS + d + HALF] = h1;
-      Qt[d * QTS + r] = h0;
-      Qt[(d + HALF) * QTS + r] = h1;
-      return m;
-    };
-    float gmax = 0.f, qmax = 0.f;
-    for (int e = tid; e < ROWS * HALF; e += THREADS) {
-      const int r = e / HALF, d = e % HALF, n = q0 + r;
-      float g0 = 0.f, g1 = 0.f;
-      if (n < N) {
-        const bf16* go = dout + (row0 + (long long)n * I) * C + h * D;
-        g0 = __bfloat162float(go[d]);
-        g1 = __bfloat162float(go[d + HALF]);
-        gmax = fmaxf(gmax, fmaxf(fabsf(g0), fabsf(g1)));
-      }
-      qmax = fmaxf(qmax, stage_query(r, d, 0));
-      const bf16 c0 = __float2bfloat16(g0), c1 = __float2bfloat16(g1);
-      Gs[r * RS + d] = c0;
-      Gs[r * RS + d + HALF] = c1;
-      Gt[d * QTS + r] = c0;
-      Gt[(d + HALF) * QTS + r] = c1;
+  if (sk != 0) {
+    for (int n = tid; n <= N; n += THREADS) {
+      float x[D], y[D];
+      k_row(n, x, y);
+      store_row<D, true>(Ks + n * RS, x, kmul);
     }
-    gmax = warp_max(gmax);
-    qmax = warp_max(qmax);
-    if (lane == 0) {
-      Red[warp] = gmax;
-      Red[4 + warp] = qmax;
+  }
+  if (sq != 0 || sk != 0) __syncthreads();
+  const float lscale = ldexpf(1.f, -(sq + sk));  // the logits' scale
+
+  // ---- pass 1 (16-query tiles over the warps): the row statistics
+  // 1 / sum p and delta = sum p dP / sum p over all keys ----
+  for (int qt = warp; qt < nqt; qt += NW) {
+    const int q0 = qt * 16;
+    AFrag<D> qa, ga;
+    qa.load(Qs, q0);
+    ga.load(Gs, q0);
+    float den0 = 0.f, den1 = 0.f, sdp0 = 0.f, sdp1 = 0.f;
+    for (int nb = 0; nb < NKP / 8; ++nb) {
+      float s[4], dp[4];
+      product_d<D, true>(s, qa, Ks, nb * 8);
+      product_d<D, false>(dp, ga, Vs, nb * 8);
+      const float2 kb = *reinterpret_cast<const float2*>(Kb + nb * 8 + tig * 2);
+      const float p0 = exp2f(fminf(fmaf(s[0], lscale, kb.x), 100.f));
+      const float p1 = exp2f(fminf(fmaf(s[1], lscale, kb.y), 100.f));
+      const float p2 = exp2f(fminf(fmaf(s[2], lscale, kb.x), 100.f));
+      const float p3 = exp2f(fminf(fmaf(s[3], lscale, kb.y), 100.f));
+      den0 += p0 + p1;
+      den1 += p2 + p3;
+      sdp0 += p0 * dp[0] + p1 * dp[1];
+      sdp1 += p2 * dp[2] + p3 * dp[3];
     }
-    __syncthreads();
-    // ds of this tile goes to fp16 as ds / max|dO|, its dq and dk partials
-    // come back times max|dO|
-    const float gm = max4(Red);
-    const float to_f16 = gm > 0.f ? 1.f / gm : 1.f, from_f16 = gm > 0.f ? gm : 1.f;
-    // q and k outside fp16's comfortable range: staged again, scaled (the
-    // maxima are the block's, so the branches are uniform)
-    const int sq = scale_exponent(max4(Red + 4));
-    if (qtile == 0) sk = scale_exponent(max4(Red + 8));
-    if (sq != 0)
-      for (int e = tid; e < ROWS * HALF; e += THREADS) stage_query(e / HALF, e % HALF, sq);
-    if (qtile == 0 && sk != 0)
-      for (int e = tid; e < (N + 1) * HALF; e += THREADS) stage_key(e / HALF, e % HALF, sk);
-    if (sq != 0 || (qtile == 0 && sk != 0)) __syncthreads();
-    const float lscale = ldexpf(1.f, -(sq + sk));  // the logits' scale
-    const float dk_back = ldexpf(from_f16, -sq), dq_back = ldexpf(from_f16, -sk);
-
-    uint32_t qa[Dims<D>::KC][4], ga[Dims<D>::KC][4];
-    load_rows<D, F16>(qa, Qs, warp * 16);
-    load_rows<D, BF16>(ga, Gs, warp * 16);
-    const bool live[2] = {q0 + warp * 16 + gid < N, q0 + warp * 16 + gid + 8 < N};
-
-    // ---- pass 1: p once, den and sum(p * dp) over all keys ----
-    float den[2] = {0.f, 0.f}, sdp[2] = {0.f, 0.f};
-    for (int kt = 0; kt < ktiles; ++kt) {
-      float s[NB][4], dp[NB][4];
-      product_over_d<D, F16>(s, qa, Ks + kt * ROWS * RS);
-      product_over_d<D, BF16>(dp, ga, Vs + kt * ROWS * RS);
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        float p[4];
+    for (int off = 1; off <= 2; off <<= 1) {  // the four threads of a row hold disjoint keys
+      den0 += __shfl_xor_sync(0xffffffffu, den0, off);
+      den1 += __shfl_xor_sync(0xffffffffu, den1, off);
+      sdp0 += __shfl_xor_sync(0xffffffffu, sdp0, off);
+      sdp1 += __shfl_xor_sync(0xffffffffu, sdp1, off);
+    }
+    if (tig == 0) {
+      const float i0 = q0 + gid < N ? 1.f / (den0 + 1e-30f) : 0.f;  // rows past N take no part
+      const float i1 = q0 + gid + 8 < N ? 1.f / (den1 + 1e-30f) : 0.f;
+      Inv[q0 + gid] = i0;
+      Inv[q0 + gid + 8] = i1;
+      Rs[q0 + gid] = sdp0 * i0;
+      Rs[q0 + gid + 8] = sdp1 * i1;
+    }
+  }
+  __syncthreads();  // the keys' region now takes dq
+  for (int e = tid; e < NQP * RS; e += THREADS) dQ[e] = 0.f;
+  __syncthreads();
+
+  // ---- pass 2: rounds of 4 key tiles, one per warp (dk, dv in registers;
+  // a last round of fewer tiles splits each tile's query tiles among the
+  // warps and adds their dk, dv in a fixed order); per query tile: S^T =
+  // K Q^T and dP^T = V dO^T, pn^T in bf16 and ds^T in fp16 (times
+  // ln2 / max|dO| of the query tile), then dv += pn^T dO, dk += ds^T Q and
+  // the tile's dq += ds K (ds^T transposed in registers), added into dQ.
+  // The warps of a step touch distinct query tiles and meet after it, so
+  // every dq sum runs in one fixed order ----
+  const float dq_unscale = ldexpf(1.f, -sk), dk_unscale = ldexpf(1.f, -sq);
+  // a 16 x D accumulator tile into a warp's area (rows of SS floats)
+  auto to_sc = [&](float* sc, float (*acc)[4]) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float cls = Kc[kt * ROWS + nb * 8 + tig * 2 + (e & 1)];
-          p[e] = exp2f(fminf(logit2(s[nb][e], cls, lscale), 100.f));
-          den[e >> 1] += p[e];
-          sdp[e >> 1] += p[e] * dp[nb][e];
+    for (int db = 0; db < OB; ++db) {
+      const int d = db * 8 + tig * 2;
+      sc[gid * SS + d] = acc[db][0];
+      sc[gid * SS + d + 1] = acc[db][1];
+      sc[(gid + 8) * SS + d] = acc[db][2];
+      sc[(gid + 8) * SS + d + 1] = acc[db][3];
+    }
+  };
+  for (int r0 = 0; r0 < nkb; r0 += NW) {
+    // R key tiles this round; G warps on each (the last round of a head
+    // whose key tiles are not a multiple of 4), warp w = g G + sub taking
+    // the query tiles j = sub mod G: in step t, j = ((t + g) G + sub) mod
+    // nq, distinct over the warps of a step and covering every tile
+    const int R = min(NW, nkb - r0), G = NW / R, g = warp / G, sub = warp % G;
+    const int nq = G == 1 ? max(nqt, NW) : (nqt + NW - 1) / NW * NW;
+    const int kt = r0 + g, k0 = kt * 16;
+    const bool mine = g < R;
+    AFrag<D> ka, va;
+    uint32_t kbq[OB][2];
+    float kb0 = 0.f, kb1 = 0.f, dk[OB][4], dv[OB][4];
+    zero_acc<D>(dk);
+    zero_acc<D>(dv);
+    if (mine) {
+      if (lane < 16) {  // the warp's keys, staged as pass 1 staged them
+        float x[D], y[D];
+        k_row(k0 + lane, x, y);
+        store_row<D, true>(Kw + lane * RS, x, kmul);
+        store_row<D, false>(Vw + lane * RS, y);
+      }
+      __syncwarp();
+      ka.load(Kw, 0);
+      va.load(Vw, 0);
+      load_b_rows<D>(kbq, Kw, 0);
+      kb0 = Kb[k0 + gid];
+      kb1 = Kb[k0 + gid + 8];
+    }
+    for (int t = 0; t < nq / G; ++t) {
+      const int j = ((t + g) * G + sub) % nq;
+      if (mine && j < nqt) {
+        const int q0 = j * 16;
+        const float gmj = Gm[j];
+        const float to_f16 = gmj > 0.f ? LN2F / gmj : LN2F, from_f16 = gmj > 0.f ? gmj : 1.f;
+        uint32_t pa[4], da[4];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int c0 = q0 + half * 8;  // this 8-query block
+          float st[4], dpt[4];
+          product_d<D, true>(st, ka, Qs, c0);
+          product_d<D, false>(dpt, va, Gs, c0);
+          const float2 iv = *reinterpret_cast<const float2*>(Inv + c0 + tig * 2);
+          const float2 rs = *reinterpret_cast<const float2*>(Rs + c0 + tig * 2);
+          const uint32_t lo = pack2(exp2f(fminf(fmaf(st[0], lscale, kb0), 100.f)) * iv.x,
+                                    exp2f(fminf(fmaf(st[1], lscale, kb0), 100.f)) * iv.y);
+          const uint32_t hi = pack2(exp2f(fminf(fmaf(st[2], lscale, kb1), 100.f)) * iv.x,
+                                    exp2f(fminf(fmaf(st[3], lscale, kb1), 100.f)) * iv.y);
+          pa[2 * half] = lo;
+          pa[2 * half + 1] = hi;
+          const float2 a = unpack_bf2(lo), b = unpack_bf2(hi);
+          da[2 * half] = pack_h2(a.x * (dpt[0] - rs.x) * to_f16, a.y * (dpt[1] - rs.y) * to_f16);
+          da[2 * half + 1] = pack_h2(b.x * (dpt[2] - rs.x) * to_f16, b.y * (dpt[3] - rs.y) * to_f16);
         }
-        uint32_t* dst = Pst + ((kt * NB + nb) * 2) * THREADS + tid;
-        dst[0] = pack2(p[0], p[1]);
-        dst[THREADS] = pack2(p[2], p[3]);
-      }
-    }
-    float inv[2], delta[2];
+        uint32_t b[OB][2];
+        load_b_rows<D>(b, Gs, q0);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {  // the four threads of a row group hold disjoint keys
-      den[i] += __shfl_xor_sync(0xffffffffu, den[i], 1);
-      den[i] += __shfl_xor_sync(0xffffffffu, den[i], 2);
-      sdp[i] += __shfl_xor_sync(0xffffffffu, sdp[i], 1);
-      sdp[i] += __shfl_xor_sync(0xffffffffu, sdp[i], 2);
-      inv[i] = live[i] ? 1.f / (den[i] + 1e-30f) : 0.f;  // rows past N take no part
-      delta[i] = sdp[i] * inv[i];
-    }
-
-    // ---- pass 2: pn, ds; dq in registers, dk and dv through the key warps ----
-    float dq[DB][4];
+        for (int db = 0; db < OB; ++db) mma16816(dv[db], pa, b[db][0], b[db][1]);
+        float dks[OB][4];
+        zero_acc<D>(dks);
+        load_b_rows<D>(b, Qs, q0);
 #pragma unroll
-    for (int db = 0; db < DB; ++db) dq[db][0] = dq[db][1] = dq[db][2] = dq[db][3] = 0.f;
-    for (int kt = 0; kt < ktiles; ++kt) {
-      float pn[NB][4], ds[NB][4];
-      product_over_d<D, BF16>(ds, ga, Vs + kt * ROWS * RS);  // dp
+        for (int db = 0; db < OB; ++db) mma16816_f16(dks[db], da, b[db][0], b[db][1]);
+        const float kback = from_f16 * dk_unscale;
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        const uint32_t* src = Pst + ((kt * NB + nb) * 2) * THREADS + tid;
-        const uint32_t w[2] = {src[0], src[THREADS]};
+        for (int db = 0; db < OB; ++db)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const __nv_bfloat162 pair = *reinterpret_cast<const __nv_bfloat162*>(&w[e >> 1]);
-          const float p = __bfloat162float((e & 1) ? pair.y : pair.x);
-          pn[nb][e] = p * inv[e >> 1];
-          ds[nb][e] = LN2 * pn[nb][e] * (ds[nb][e] - delta[e >> 1]) * to_f16;
-          const int c = nb * 8 + tig * 2 + (e & 1), r = warp * 16 + gid + 8 * (e >> 1);
-          Pt[c * QTS + r] = __float2bfloat16(pn[nb][e]);
-          St[c * QTS + r] = __float2half_rn(ds[nb][e]);
-        }
-      }
-      rows_product<D, F16>(dq, ds, Kt + kt * ROWS, KTS);  // dq += ds . k (scaled)
-      __syncthreads();
-      // this warp's 16 keys of the tile: dv += pn^T . dO, dk += ds^T . q
-      float dv[DB][4], dk[DB][4];
+          for (int e = 0; e < 4; ++e) dk[db][e] = fmaf(dks[db][e], kback, dk[db][e]);
+        // dq of the query tile from these 16 keys: ds (queries x keys) . K
+        const uint32_t dsa[4] = {movt(da[0]), movt(da[2]), movt(da[1]), movt(da[3])};
+        float dqs[OB][4];
+        zero_acc<D>(dqs);
 #pragma unroll
-      for (int db = 0; db < DB; ++db)
+        for (int db = 0; db < OB; ++db) mma16816_f16(dqs[db], dsa, kbq[db][0], kbq[db][1]);
+        const float qback = from_f16 * dq_unscale;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dv[db][e] = dk[db][e] = 0.f;
-      tile_product<D, BF16>(dv, Pt + warp * 16 * QTS, QTS, Gt, QTS);
-      tile_product<D, F16>(dk, St + warp * 16 * QTS, QTS, Qt, QTS);
+        for (int db = 0; db < OB; ++db)
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int key = kt * ROWS + warp * 16 + gid + 8 * i;
-#pragma unroll
-        for (int db = 0; db < DB; ++db)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int d = db * 8 + tig * 2 + j;
-            if (d < D) {
-              dVa[key * D + d] += dv[db][2 * i + j];
-              dKa[key * D + d] += dk[db][2 * i + j] * dk_back;
-            }
+          for (int i = 0; i < 2; ++i) {
+            float2* p = reinterpret_cast<float2*>(dQ + (q0 + gid + 8 * i) * RS + db * 8 + tig * 2);
+            float2 v = *p;
+            v.x = fmaf(dqs[db][2 * i], qback, v.x);
+            v.y = fmaf(dqs[db][2 * i + 1], qback, v.y);
+            *p = v;
           }
       }
       __syncthreads();
     }
-
-    // ---- dq of the tile: RoPE transpose, bf16 into dqkv ----
+    // the group's dk and dv: warp sub 0 adds the others' in order
+    auto gather = [&](float (*acc)[4]) {
+      if (mine && sub > 0) to_sc(Sc, acc);
+      __syncthreads();
+      if (mine && sub == 0)
+        for (int o = 1; o < G; ++o) {
+          const float* sc = reinterpret_cast<const float*>(
+              smem + lay.wa + (size_t)(warp + o) * Geo<D>::WA);
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int db = 0; db < DB; ++db)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          dQf[(warp * 16 + gid + 8 * i) * DP + db * 8 + tig * 2 + j] = dq[db][2 * i + j] * dq_back;
-    __syncthreads();
-    for (int e = tid; e < ROWS * HALF; e += THREADS) {
-      const int r = e / HALF, d = e % HALF, n = q0 + r;
-      if (n >= N) continue;
-      float o0, o1;
-      rope_pair_t(o0, o1, dQf[r * DP + d], dQf[r * DP + d + HALF], cos_t + (long long)n * D,
-                  sin_t + (long long)n * D, d, HALF);
-      bf16* dst = dqkv + (row0 + (long long)n * I) * 3LL * C + h * D;
-      dst[d] = __float2bfloat16(o0);
-      dst[d + HALF] = __float2bfloat16(o1);
+          for (int db = 0; db < OB; ++db) {
+            const int d = db * 8 + tig * 2;
+            acc[db][0] += sc[gid * SS + d];
+            acc[db][1] += sc[gid * SS + d + 1];
+            acc[db][2] += sc[(gid + 8) * SS + d];
+            acc[db][3] += sc[(gid + 8) * SS + d + 1];
+          }
+        }
+      __syncthreads();
+    };
+    if (G > 1) {
+      gather(dk);
+      gather(dv);
     }
-    __syncthreads();
+    if (mine && sub == 0) {  // dk (RoPE transpose) and dv of the keys; the bias key's into part
+      float* pb = part + seq * 2LL * C + h * D;
+      auto write_tile = [&](float (*acc)[4], int col, bool roped, float* bias_part) {
+        __syncwarp();
+        to_sc(Sc, acc);
+        __syncwarp();
+        if (lane < 16) {
+          const int n = k0 + lane;
+          if (n <= N) {
+            float g[D];
+#pragma unroll
+            for (int d = 0; d < D; ++d) g[d] = Sc[lane * SS + d];
+            if (roped) rope_t<D>(g, cos_t + (long long)n * D, sin_t + (long long)n * D);
+            if (n < N) {
+              store_global<D>(dqkv + tok(n) * 3LL * C + col + h * D, g);
+            } else {
+#pragma unroll
+              for (int d = 0; d < D; ++d) bias_part[d] = g[d];
+            }
+          }
+        }
+      };
+      write_tile(dk, C, true, pb);
+      write_tile(dv, 2 * C, false, pb + C);
+      __syncwarp();
+    }
   }
 
-  // ---- dk (RoPE transpose) and dv into dqkv; the bias key's into part ----
-  for (int e = tid; e < (N + 1) * HALF; e += THREADS) {
-    const int n = e / HALF, d = e % HALF;
-    float o0, o1;
-    rope_pair_t(o0, o1, dKa[n * D + d], dKa[n * D + d + HALF], cos_t + (long long)n * D,
-                sin_t + (long long)n * D, d, HALF);
-    if (n < N) {
-      bf16* dst = dqkv + (row0 + (long long)n * I) * 3LL * C + h * D;
-      dst[C + d] = __float2bfloat16(o0);
-      dst[C + d + HALF] = __float2bfloat16(o1);
-      dst[2 * C + d] = __float2bfloat16(dVa[n * D + d]);
-      dst[2 * C + d + HALF] = __float2bfloat16(dVa[n * D + d + HALF]);
-    } else {
-      float* pb = part + seq * 2LL * C + h * D;
-      pb[d] = o0;
-      pb[d + HALF] = o1;
-      pb[C + d] = dVa[n * D + d];
-      pb[C + d + HALF] = dVa[n * D + d + HALF];
-    }
+  // ---- dq: RoPE transpose, bf16 into dqkv ----
+  for (int n = tid; n < N; n += THREADS) {
+    float g[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) g[d] = dQ[n * RS + d];
+    rope_t<D>(g, cos_t + (long long)n * D, sin_t + (long long)n * D);
+    store_global<D>(dqkv + tok(n) * 3LL * C + h * D, g);
   }
 }
 

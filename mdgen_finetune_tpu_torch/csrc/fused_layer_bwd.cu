@@ -13,18 +13,21 @@
 // over the same block indices, with the same arguments, in phases:
 //
 //   P0  recompute: fc1 + GELU (ge, a) of X2; qkv of X1 and of x_in; the
-//       LayerNorm statistics of X2, X1, x_in for the wgrad prologues
+//       LayerNorm statistics of X2, X1, x_in for the wgrad prologues;
+//       bf16(dOUT * g8) (linear_bwd's prologue)
 //   P1  y = ge @ w2 + b2; dW2 partials; da = dgrad(dOUT * g8, w2) * gelu'(a);
-//       att of the frame and of the residue stage (rope_attention)
+//       att of the frame and of the residue stage (rope_attention); the
+//       LN + modulate prologues of X2, X1, x_in in bf16
 //   P2  dW1 partials; dh = da @ w1^T; y of both attention stages (att @ wout)
 //   P3  modln_bwd of the MLP stage: dx2
-//   P4  dWout_t partials; datt = dgrad(dx2 * g5, wout_t)
-//   P5  the frame attention backward (rope_attention_bwd, or
+//   P4  bf16(dx2 * g5)
+//   P5  dWout_t partials; datt = dgrad(dx2 * g5, wout_t)
+//   P6  the frame attention backward (rope_attention_bwd, or
 //       blocked_attention_bwd at 128 < T)
-//   P6  dWqkv_t partials; dh = dqkv @ wqkv_t^T
-//   P7  modln_bwd of the frame stage: dx1
-//   P8-11  the same four steps for the residue stage: dx
-//   P12 the last AdaLN-row sums
+//   P7  dWqkv_t partials; dh = dqkv @ wqkv_t^T
+//   P8  modln_bwd of the frame stage: dx1
+//   P9-13  the same five steps for the residue stage: dx
+//   P14 the last AdaLN-row sums
 // with every cross-block sum (colsum) in the phase after its partials; the
 // phases are separated by cooperative_groups' grid.sync(). Each phase walks
 // its blocks over the grid (block t of a phase takes virtual blocks t,
@@ -72,12 +75,12 @@ typedef __nv_bfloat16 bf16;
 namespace {
 
 constexpr int THREADS = 128;
-constexpr int PHASES = 13, MAX_JOBS = 6;
+constexpr int PHASES = 15, MAX_JOBS = 8;
 constexpr int ROPE_BWD_MAX_N = 128;  // ops/rope_attention_bwd.MAX_N: blocked_attention_bwd above
 
 enum Kind {
   RES_BF16 = 0, RES_F32, PIPE_F32,  // adaln_linear (resident: bf16 or f32 out; pipelined)
-  STATS, DGRAD, WGRAD,              // linear_bwd
+  STATS, PROLOGUE, DGRAD, WGRAD,    // linear_bwd
   MODLN, ROPE_FWD, ROPE_BWD, BLOCKED, COLSUM
 };
 
@@ -117,7 +120,8 @@ struct Colsum {
 
 struct Params {
   adaln::Args ad[6];
-  lbwd::Args lb[12];
+  lbwd::Args lb[12];  // with the prologue's buffers (STATS, PROLOGUE)
+  lbwd::Args lg[12];  // the GEMMs' plain bf16 operands: gemm_args(lb[i])
   Modln ml[3];
   Attn at[4];  // forward frame, forward residue, backward frame, backward residue
   Colsum cs[19];
@@ -141,11 +145,14 @@ __device__ __forceinline__ void run(const Params& P, const Job& j, int t, unsign
     case STATS:
       lbwd::row_stats_block(P.lb[j.arg], t);
       break;
+    case PROLOGUE:
+      lbwd::prologue_block(P.lb[j.arg], t);
+      break;
     case DGRAD:
-      lbwd::dgrad_block(P.lb[j.arg], t % j.gx, t / j.gx, smem);
+      lbwd::dgrad_block(P.lg[j.arg], t % j.gx, t / j.gx, smem);
       break;
     case WGRAD:
-      lbwd::wgrad_block(P.lb[j.arg], t % j.gx, (t / j.gx) % j.gy, t / (j.gx * j.gy), smem);
+      lbwd::wgrad_block(P.lg[j.arg], t % j.gx, (t / j.gx) % j.gy, t / (j.gx * j.gy), smem);
       break;
     case MODLN: {
       const Modln& m = P.ml[j.arg];
@@ -215,6 +222,7 @@ enum Ptr {
   GE, ACT, Y3, YT, YL, DA, DH, DX2, DX1, QKV_T, QKV_L, ATT_T, ATT_L, DATT, DQKV,
   S_W2, S_W1, S_WOUT_T, S_WQKV_T, S_WOUT_L, S_WQKV_L,
   PM3, PM2, PM1, PB_T, PB_L,
+  P_DOUT, P_X2, P_X1, P_XIN, P_DX2, P_DX1,  // linear_bwd's prologue outputs, bf16 (M, C)
   NPTR
 };
 // integer slots
@@ -255,6 +263,7 @@ struct Builder {
       ok = false;
     }
   }
+  void prologue(int i) { add(PROLOGUE, i, lbwd::prologue_blocks(P.lb[i])); }
   void dgrad(int i) {
     const dim3 g = lbwd::dgrad_grid(P.lb[i]);
     add(DGRAD, i, (long long)g.x * g.y, g.x, g.y);
@@ -340,6 +349,18 @@ int launch(const void* const* p, const long long* n, long long* info, cudaStream
                                   0, 0, nullptr, nullptr, 0, 1, vp(DH), 1, C, nullptr, 1, M, 3 * C,
                                   C);
   }
+  // linear_bwd's prologues, each made once in a phase of its own: bf16(dOUT
+  // * g8) for fc2's wgrad and dgrad, the stages' LN + modulate inputs for
+  // the fc1 and qkv wgrads, bf16(dx2 * g5) and bf16(dx1 * g2) for the
+  // out-projections' wgrad and dgrad; the GEMMs take the bf16 results
+  const int pre_a[3] = {2, 6, 10}, pa_buf[3] = {P_X2, P_X1, P_XIN};
+  for (int i = 0; i < 2; ++i) {
+    P.lb[i] = lbwd::with_prologue(P.lb[i], vp(P_DOUT), nullptr);
+    P.lb[4 + i] = lbwd::with_prologue(P.lb[4 + i], vp(P_DX2), nullptr);
+    P.lb[8 + i] = lbwd::with_prologue(P.lb[8 + i], vp(P_DX1), nullptr);
+  }
+  for (int i = 0; i < 3; ++i) P.lb[pre_a[i]] = lbwd::with_prologue(P.lb[pre_a[i]], nullptr, vp(pa_buf[i]));
+  for (int i = 0; i < 12; ++i) P.lg[i] = lbwd::gemm_args(P.lb[i]);
   // ---- modln_bwd: 0 MLP (X2, dOUT)  1 frame (X1, dx2)  2 residue (x_in, dx1) ----
   const int splm = (int)n[SPL_MODLN], rows = M / nb;
   const int mx[3] = {X2, X1, X_IN}, mg[3] = {DOUT, DX2, DX1}, my[3] = {Y3, YT, YL};
@@ -397,6 +418,7 @@ int launch(const void* const* p, const long long* n, long long* info, cudaStream
   };
   // P0
   b.adaln(0, 0); b.stats(2); b.adaln(2, 0); b.adaln(4, 0); b.stats(6); b.stats(10);
+  b.prologue(0);  // dOUT * g8, which lb[1] shares
   // P1
   b.phase = 1;
   b.adaln(1, 1); b.wgrad(0); b.dgrad(1);
@@ -404,28 +426,31 @@ int launch(const void* const* p, const long long* n, long long* info, cudaStream
     b.add(ROPE_FWD, s, P.at[s].sh.blocks);
     b.need(P.at[s].sh.smem);
   }
+  for (int i = 0; i < 3; ++i) b.prologue(pre_a[i]);
   // P2
   b.phase = 2;
   b.wgrad(2); b.dgrad(3); b.adaln(3, 1); b.adaln(5, 1); colsum_w(0, 0, DW2, DB2);
   // P3
   b.phase = 3;
   b.add(MODLN, 0, (long long)nb * splm); b.need(modln::smem_bytes(C)); colsum_w(2, 2, DW1, DB1);
-  // P4-P7 frame, P8-P11 residue
+  // P4-P8 frame, P9-P13 residue
   const int dbo[2] = {DBOUT_T, DBOUT_L}, dbq[2] = {DBQKV_T, DBQKV_L};
   for (int s = 0; s < 2; ++s) {
-    const int ph = 4 + 4 * s, k = 4 + 4 * s, cs = 4 + 7 * s;
+    const int ph = 4 + 5 * s, k = 4 + 4 * s, cs = 4 + 7 * s;
     b.phase = ph;
     colsum_m(cs, s);  // the previous stage's (MLP, then frame)
-    b.wgrad(k); b.dgrad(k + 1);
+    b.prologue(k);    // the stage's gated cotangent, which lb[k + 1] shares
     b.phase = ph + 1;
-    attn_bwd(s); colsum_w(cs + 1, k, dwo[s], dbo[s]);
+    b.wgrad(k); b.dgrad(k + 1);
     b.phase = ph + 2;
-    b.wgrad(k + 2); b.dgrad(k + 3); attn_bias(cs + 3, s);
+    attn_bwd(s); colsum_w(cs + 1, k, dwo[s], dbo[s]);
     b.phase = ph + 3;
+    b.wgrad(k + 2); b.dgrad(k + 3); attn_bias(cs + 3, s);
+    b.phase = ph + 4;
     b.add(MODLN, s + 1, (long long)nb * splm); colsum_w(cs + 4, k + 2, dwq[s], dbq[s]);
   }
-  // P12: the residue stage's AdaLN-row sums
-  b.phase = 12;
+  // P14: the residue stage's AdaLN-row sums
+  b.phase = 14;
   colsum_m(18, 2);
   if (!b.ok || b.smem > (size_t)n[SMEM_LIMIT]) return (int)cudaErrorInvalidValue;
 

@@ -3,10 +3,11 @@ for sequences longer than ``rope_attention_bwd.MAX_N`` (128) that a head's
 whole surfaces still fit one block's shared memory.
 
 Kernel: ``csrc/blocked_attention_bwd.cu`` (one block per (sequence, head):
-the RoPE'd keys and values stay in shared memory, P is formed once per
-(query, key) pair, dK and dV accumulate in f32 in shared memory across the
-64-query tiles). It replaces the attention adjoint inside the JAX package's
-``ops/blocked_block_bwd.py::_bwd_kernel`` (:53), the body of
+the head's RoPE'd q and k (fp16), dO and v (bf16) stay in shared memory; a
+first pass makes each query's softmax statistics, a second walks the query
+tiles with each warp's 16 keys' dK and dV in registers and adds each dq
+partial into shared memory in a fixed order). It replaces the attention
+adjoint inside the JAX package's ``ops/blocked_block_bwd.py::_bwd_kernel`` (:53), the body of
 ``time_block_bwd`` (:298) and ``rows_block_bwd`` (:380) that train the
 ATLAS crop-256 preset (residue stage N = L = 256, frame stage N = T = 250).
 ``blocked_attention_bwd_plain`` is the same function in plain PyTorch
@@ -21,8 +22,10 @@ attention over N for every (g, i); ``dout`` (G, N, I, C) bf16; ``bias_k`` /
 ``bias_v`` (C,) bf16; ``key_valid`` (G, N, I) f32. Returns ``dqkv``
 (G, N, I, 3C) in qkv's dtype and the bias key's and value's gradients summed
 over every sequence, (C,) f32 each. The shared memory grows with N
-(``smem_bytes``), so N is capped: ``max_keys(D)``, 319 at D = 24 (511 at 16,
-255 at 32); the wrapper raises ``ValueError`` naming the limit beyond it.
+(``smem_bytes``); N is capped at ``max_keys(D)``, 319 at D = 24 (511 at 16,
+255 at 32, 127 at 64): the limits that the first design's shared memory set,
+kept so that the attention backward's routing by N does not move. The
+wrapper raises ``ValueError`` naming the limit beyond it.
 """
 from __future__ import annotations
 
@@ -36,29 +39,50 @@ from .rope_attention_bwd import rope_attention_bwd_math
 _ARGTYPES = [_cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P,
              _cuda.P, _cuda.P, _cuda.P, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32,
              _cuda.I32, _cuda.I32, _cuda.P]
-ROWS = 64  # the kernel's query and key tiles
+
+
+def _rs(D: int) -> int:
+    """The row stride (2-byte elements) of a staged q, dO, k or v row: D
+    lanes, an odd number of 16-byte units (24 at D = 16 and 24, 40 at 32,
+    72 at 64)."""
+    return D if (D // 8) % 2 else D + 8
 
 
 def smem_bytes(N: int, D: int) -> int:
     """Shared memory of one block at N tokens and head dim D (the kernel's
-    ``Layout``): keys and values row-major and the keys transposed (2-byte
-    elements, padded to NKP = 64 * ceil((N+1)/64) rows and DP = D rounded up
-    to 16 lanes), the query and dO tiles both ways, the pn^T / ds^T tiles,
-    the tile's p (bf16, 128 bytes per key), dK and dV in f32, the key
-    classes and the 4 warps' max|dO|, max|q| and max|k| (16 floats)."""
-    DP = -(-D // 16) * 16
-    RS, QTS = DP + 8, ROWS + 8
-    NKP = -(-(N + 1) // ROWS) * ROWS
-    return (2 * NKP * RS * 2 + DP * (NKP + 8) * 2 + 2 * ROWS * RS * 2 + 2 * DP * QTS * 2
-            + 2 * ROWS * QTS * 2 + NKP * 128 + 2 * NKP * D * 4 + NKP * 4 + 64)
+    ``Layout``): q and dO of NQP = 16 * ceil(N / 16) queries and k and v of
+    NKP = 16 * ceil((N + 1) / 16) keys in rows of ``_rs(D)`` 2-byte
+    elements, the NKP key biases, 1 / sum p and delta per query, max|dO| of
+    each 16-query tile (16-byte aligned), the 4 warps' maxima (16 floats)
+    and each warp's area: 16 keys and values, or a 16 x (D + 1) f32 tile."""
+    rs = _rs(D)
+    nqp, nkp = -(-N // 16) * 16, -(-(N + 1) // 16) * 16
+    wa = max(16 * rs * 4, 16 * (D + 1) * 4)
+    return (2 * nqp * rs * 2 + 2 * nkp * rs * 2 + nkp * 4 + 2 * nqp * 4
+            + -(-(nqp // 16 * 4) // 16) * 16 + 64 + 4 * wa)
+
+
+# The longest sequence per head dim: the limits that the first design's
+# shared memory (213,824 bytes at N = 256, D = 24) set, kept so that the
+# routing of the attention backward by N does not move.
+MAX_KEYS = {16: 511, 24: 319, 32: 255, 64: 127}
 
 
 def max_keys(D: int) -> int:
-    """The largest N whose block fits the shared memory one block may use."""
-    N = 1
-    while smem_bytes(N + 1, D) <= SMEM_BYTES:
-        N += 1
-    return N
+    """The largest N that the kernel takes at head dim D."""
+    return MAX_KEYS[D]
+
+
+def resources(N: int, D: int) -> dict:
+    """The launch resources of the kernel at N tokens and head dim D (on the
+    card): registers and local (spill) bytes per thread, dynamic shared
+    memory per block, resident blocks per SM."""
+    lib = _cuda.library("blocked_attention_bwd", _ARGTYPES)
+    fn = lib.blocked_attention_bwd_resources
+    fn.argtypes = [_cuda.I32, _cuda.I32, _cuda.P]
+    info = (_cuda.I64 * 4)()
+    _cuda.check(fn(N, D, info), "blocked_attention_bwd_resources")
+    return dict(registers=info[0], local_bytes=info[1], smem_bytes=info[2], blocks_per_sm=info[3])
 
 
 def blocked_attention_bwd_plain(qkv, dout, bias_k, bias_v, key_valid, *, num_heads: int):
@@ -89,10 +113,9 @@ def blocked_attention_bwd(qkv, dout, bias_k, bias_v, key_valid, *, num_heads: in
         raise ValueError(f"blocked_attention_bwd: head dim {C}/{num_heads} is not supported")
     if N > max_keys(D):
         raise ValueError(
-            f"blocked_attention_bwd: {N} tokens of head dim {D} need {smem_bytes(N, D):,} bytes "
-            f"of shared memory, more than the {SMEM_BYTES:,} a block may use (N <= "
-            f"{max_keys(D)} at D = {D}); longer sequences take "
-            "ops/time_attention.py::time_attention_block_bwd")
+            f"blocked_attention_bwd: {N} tokens of head dim {D} are beyond the kernel's limit "
+            f"(N <= {max_keys(D)} at D = {D}, the limit its first design's shared memory set); "
+            "longer sequences take ops/time_attention.py::time_attention_block_bwd")
     if (bias_k.dtype != torch.bfloat16 or bias_v.dtype != torch.bfloat16
             or not bias_k.is_contiguous() or not bias_v.is_contiguous()):
         raise ValueError("blocked_attention_bwd: bias_k / bias_v must be contiguous bf16 (C,)")

@@ -5,7 +5,7 @@ Kernel: ``csrc/fused_layer_bwd.cu``; it replaces the JAX package's merged
 whole-layer backward ``ops/fused_layer_bwd.py::_kmerged`` (:501, launched at
 :644-699 when ``MDGEN_FUSED_BWD=merged``). The kernel runs the split route of
 ``ops/fused_layer_bwd.py`` (MLP -> frame attention -> residue attention) in
-13 phases separated by grid-wide barriers, each step the block body of the
+15 phases separated by grid-wide barriers, each step the block body of the
 split kernel it replaces over the same blocks, so its outputs are the split
 route's (the kernel's note says where the order of a sum could differ).
 
@@ -34,13 +34,14 @@ from ..models.rope import rope_tables
 from . import _cuda
 from .blocked_attention_bwd import max_keys
 from .linear_bwd import _splits as wgrad_splits
+from .linear_bwd import scratch_floats as wgrad_scratch
 from .modln_bwd import _splits as modln_splits
 from .rope_attention import SMEM_BYTES
 from .rope_attention_bwd import MAX_N
 from .time_attention import MAX_L, MAX_T
 
 _ARGTYPES = [_cuda.P, _cuda.P, _cuda.P, _cuda.P]
-N_PTR, N_INT = 68, 16  # csrc/fused_layer_bwd.cu: enum Ptr, enum Int
+N_PTR, N_INT = 74, 16  # csrc/fused_layer_bwd.cu: enum Ptr, enum Int
 _KEYS = ("wqkv_l", "bqkv_l", "wout_l", "bout_l", "wqkv_t", "bqkv_t", "wout_t", "bout_t",
          "w1", "b1", "w2", "b2", "bkl", "bvl", "bkt", "bvt")
 
@@ -153,10 +154,12 @@ def fused_layer_bwd_merged(x_in, X1, X2, dout, mod, w, mask, num_heads: int, dmo
     scratch += [cv.add((M, 3 * C), bf) for _ in range(2)]             # qkv_t, qkv_l
     scratch += [cv.add((M, C), bf) for _ in range(3)]                 # att_t, att_l, datt
     scratch += [cv.add((M, 3 * C), bf)]                               # dqkv
-    for s, (K, N) in zip(spl, ((F, C), (C, F), (C, C), (C, 3 * C), (C, C), (C, 3 * C))):
-        scratch.append(cv.add((s * (K * N + N) + 2 * M,), f32))       # wgrad partials, stats
+    for K, N in ((F, C), (C, F), (C, C), (C, 3 * C), (C, C), (C, 3 * C)):
+        scratch.append(cv.add((wgrad_scratch(M, K, N),), f32))         # wgrad partials, stats
     scratch += [cv.add((splm * nb * 3 * C,), f32) for _ in range(3)]  # modln partials
     scratch += [cv.add((B * L * 2 * C,), f32), cv.add((B * T * 2 * C,), f32)]  # bias partials
+    # linear_bwd's prologues in bf16: dOUT g8, LN + modulate of X2, X1, x_in, dx2 g5, dx1 g2
+    scratch += [cv.add((M, C), bf) for _ in range(6)]
     t = cv.build()
     dx = t[outs[0]]
     if dmod is None:

@@ -1,8 +1,10 @@
 """linear_bwd: the two products of a projection's backward, bf16 operands
 with f32 accumulation.
 
-Kernel: ``csrc/linear_bwd.cu`` (hand-written bf16 tensor-core GEMMs; they
-replace the weight- and data-gradient products inside the JAX package's
+Kernel: ``csrc/linear_bwd.cu`` (hand-written bf16 tensor-core GEMMs:
+128 x 128 output tiles, a 4-stage ring of asynchronous copies; a gate or
+LN prologue runs first as a bf16 pass of its own; they replace the weight-
+and data-gradient products inside the JAX package's
 ``ops/fused_layer_bwd.py`` stage kernels ``_k3`` / ``_k2`` / ``_k1``, its
 ``_mm`` at :92 and the f32 sums of ``_acc`` at :97). ``linear_bwd_plain`` is
 the same function in plain PyTorch; it runs for CPU tensors. For CUDA
@@ -67,11 +69,39 @@ def _check_rows(t, name, width, M):
                          f"stride, nb dividing {M}")
 
 
+TILE = 128  # the kernel's output tile (csrc/linear_bwd.cuh)
+SLOTS = 264  # resident wgrad blocks on an H100: 2 per SM x 132 SMs
+
+
 def _splits(M: int, K: int, N: int) -> int:
-    """Row splits of the wgrad sum: about four blocks per SM of an H100,
-    each split at least 64 rows."""
-    tiles = -(-K // 64) * -(-N // 64)
-    return max(1, min(M // 64, -(-528 // tiles)))
+    """Row splits of the wgrad sum: as many blocks as an H100 holds at once
+    and no more (a block past them would take a second wave), each split
+    at least 256 rows (8 chunks of the ring)."""
+    tiles = -(-K // TILE) * -(-N // TILE)
+    return max(1, min(M // 256, SLOTS // tiles))
+
+
+def scratch_floats(M: int, K: int, N: int, mode: str = "wgrad", pre_dy: bool = False,
+                   pre_a: bool = False) -> int:
+    """The f32 scratch of a call: for wgrad the splits' partial dW and db
+    and the mean and rstd of each row (rounded up to 4 floats); then the
+    bf16 P(dY) (M, N) where its prologue is not the identity (pre_dy) and
+    the bf16 P(A) (M, K) with the LN prologue (pre_a), which the kernel
+    makes in a pass of its own."""
+    n = _splits(M, K, N) * (K * N + N) + -(-2 * M // 4) * 4 if mode == "wgrad" else 0
+    return n + (M * N // 2 if pre_dy else 0) + (M * K // 2 if pre_a else 0)
+
+
+def resources(mode: str) -> dict:
+    """The launch resources of the dgrad or wgrad kernel (on the card):
+    registers and local (spill) bytes per thread, dynamic shared memory per
+    block, resident blocks per SM."""
+    lib = _cuda.library("linear_bwd", _ARGTYPES)
+    fn = lib.linear_bwd_resources
+    fn.argtypes = [_cuda.I32, _cuda.P]
+    info = (_cuda.I64 * 4)()
+    _cuda.check(fn(int(mode == "wgrad"), info), "linear_bwd_resources")
+    return dict(registers=info[0], local_bytes=info[1], smem_bytes=info[2], blocks_per_sm=info[3])
 
 
 def linear_bwd(mode, dy, x, *, gate=None, act=None, ln=False, shift=None, scale=None,
@@ -100,7 +130,7 @@ def linear_bwd(mode, dy, x, *, gate=None, act=None, ln=False, shift=None, scale=
         if odt not in (torch.float32, torch.bfloat16):
             raise ValueError("linear_bwd: dgrad writes f32 or bf16")
         out = torch.empty(M, K, dtype=odt, device=dy.device)
-        db = scratch = None
+        db = None
         splits = 1
     else:
         K = x.shape[1]
@@ -114,7 +144,9 @@ def linear_bwd(mode, dy, x, *, gate=None, act=None, ln=False, shift=None, scale=
         out = torch.empty(K, N, dtype=torch.float32, device=dy.device)
         db = torch.empty(N, dtype=torch.float32, device=dy.device)
         splits = _splits(M, K, N)
-        scratch = torch.empty(splits * (K * N + N) + 2 * M, dtype=torch.float32, device=dy.device)
+    pre_dy = dy.dtype == torch.float32 or gate is not None
+    n = scratch_floats(M, K, N, mode, pre_dy, mode == "wgrad" and bool(ln))
+    scratch = torch.empty(n, dtype=torch.float32, device=dy.device) if n else None
     if K % 8 or N % 8:
         raise ValueError(f"linear_bwd: K = {K} and N = {N} must be multiples of 8")
     lib = _cuda.library("linear_bwd", _ARGTYPES)

@@ -150,6 +150,49 @@ def test_backward_kernels_match_plain_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,nb", [(1203, 200, 72, 3), (40, 8, 136, 2), (2400, 384, 1152, 4)])
+def test_linear_bwd_tiling_edges_on_card(M, K, N, nb):
+    """On the card: linear_bwd against its plain twin (f32 on the same
+    inputs, 1e-2 x max(1, max |twin|)) at the edges of its 128 x 128
+    tiles and 32-row chunks: M not a multiple of either (one split at
+    M = 40), K and N multiples of 8 but not of 64, per-element rows that
+    end inside a tile; every mode of the training path: dgrad with f32 or
+    bf16 dY, with and without the gate, the GELU' epilogue and a bf16
+    output; wgrad with the gate (f32 and bf16 dY) or the LN prologue.
+    Two calls give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.ops.linear_bwd import linear_bwd, linear_bwd_plain
+
+    g = torch.Generator(device="cuda").manual_seed(M + K + N)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def r(*s, sc=1.0, dtype=bf):
+        return (torch.randn(*s, generator=g, device="cuda") * sc).to(dtype)
+
+    gate, sh, scl = r(nb, N, sc=0.3), r(nb, K, sc=0.3), r(nb, K, sc=0.3)
+    w, act = r(K, N, sc=N ** -0.5), r(M, K, sc=2.0, dtype=f32)
+    cases = [
+        ("dgrad", r(M, N, dtype=f32), w, dict(gate=gate, act=act, out_dtype=bf)),
+        ("dgrad", r(M, N, dtype=f32), w, dict()),
+        ("dgrad", r(M, N), w, dict(gate=gate)),
+        ("dgrad", r(M, N), w, dict(act=act)),
+        ("wgrad", r(M, N), r(M, K), dict(ln=True, shift=sh, scale=scl)),
+        ("wgrad", r(M, N, dtype=f32), r(M, K), dict(gate=gate)),
+        ("wgrad", r(M, N), r(M, K), dict(gate=gate)),
+        ("wgrad", r(M, N, dtype=f32), r(M, K), dict(ln=True, shift=sh, scale=scl)),
+    ]
+    for mode, dy, xx, kw in cases:
+        got = linear_bwd(mode, dy, xx, **kw)
+        again = linear_bwd(mode, dy, xx, **kw)
+        ref = linear_bwd_plain(mode, dy.float(), xx.float(), **_f32(kw))
+        got, again, ref = ((t,) if mode == "dgrad" else t for t in (got, again, ref))
+        for a, b, c in zip(got, again, ref):
+            assert torch.equal(a, b), (mode, sorted(kw))
+            _close(a, c)
+
+
+@pytest.mark.cuda
 def test_tiled_attention_matches_plain_on_card():
     """On the card: the key-tiled frame-attention core against its plain
     twin at every supported head dim and at N = 100, 1000 and 4096 (the JAX
@@ -471,8 +514,9 @@ def test_blocked_attention_bwd_matches_plain_on_card():
     and 32, at N = 129, 250, 256 and each head dim's limit (``max_keys``),
     in the frame view (G = 1, I = 3) and the residue view (G = 3, I = 1),
     with masked keys, a 64-key tile of masked keys only, and one sequence
-    whose only valid key is the bias key; the kernel's shared-memory size
-    equals the wrapper's formula, and one token past the limit raises.
+    whose only valid key is the bias key; two calls give the same bits;
+    the kernel's shared-memory size equals the wrapper's formula, and one
+    token past the limit raises.
     q is drawn at the trunk's logit scale (0.5 x head_dim^-0.5 x log2 e, the
     fold the q columns carry; the fused_attention test's 0.5 x
     head_dim^-0.5). And the residue view at N = 256 with dO ~ 1e-6, the size
@@ -506,11 +550,13 @@ def test_blocked_attention_bwd_matches_plain_on_card():
                 seq[1] = 0  # only the bias key is valid
                 mask = seq.view(view[0], view[2], N).permute(0, 2, 1).contiguous()
                 got = BA.blocked_attention_bwd(qkv, do, bk, bv, mask, num_heads=Hc)
+                again = BA.blocked_attention_bwd(qkv, do, bk, bv, mask, num_heads=Hc)
                 ref = BA.blocked_attention_bwd_plain(qkv.float(), do.float(), bk.float(),
                                                      bv.float(), mask, num_heads=Hc)
                 torch.cuda.synchronize()
-                for a, b in zip(got, ref):
+                for a, b, c in zip(got, ref, again):
                     _close(a, b)
+                    assert torch.equal(a, c)  # two calls, the same bits
         if D == 24:
             view = (3, 256, 1)
             qkv = torch.randn(*view, 3 * C, generator=g, device="cuda").to(torch.bfloat16)
@@ -693,17 +739,20 @@ def test_merged_layer_bwd_matches_split_and_plain_on_card(Bc, Tc):
 @pytest.mark.cuda
 def test_moved_split_kernels_match_the_parent_sources_on_card(tmp_path):
     """On the card: the split kernels whose bodies live in the shared
-    headers (adaln_linear's resident and pipelined tilings, linear_bwd,
-    modln_bwd, blocked_attention_bwd) give the outputs of another
-    checkout's sources of the same kernels bit for bit, at the merged
-    path's shapes (T = 100 and 200): a change to a shared header must not
-    move the split route's numbers. rope_attention and rope_attention_bwd
-    are held to the other sources only at N = 4 (stage 1, the encoder and
-    the modular residue attention), where their short bodies run: their
-    long-sequence bodies were redesigned for the tensor cores, which moves
-    those bits. The other sources come from MDGEN_PARENT_CSRC (a csrc
-    directory, for example ``git archive`` of an earlier commit); without
-    it the test skips."""
+    headers (adaln_linear's resident and pipelined tilings, modln_bwd) give
+    the outputs of another checkout's sources of the same kernels bit for
+    bit, at the merged path's shapes (T = 100 and 200): a change to a
+    shared header must not move the split route's numbers. rope_attention
+    and rope_attention_bwd are held to the other sources only at N = 4
+    (stage 1, the encoder and the modular residue attention), where their
+    short bodies run: their long-sequence bodies were redesigned for the
+    tensor cores, which moves those bits. linear_bwd and
+    blocked_attention_bwd are not swapped: they were redesigned too (new
+    tilings and reduction orders), and are held to their plain versions by
+    the kernel tests and, through the layer, the split route to the merged
+    route bit for bit. The other sources come from MDGEN_PARENT_CSRC (a
+    csrc directory, for example ``git archive`` of an earlier commit);
+    without it the test skips."""
     import ctypes
     import os
     import subprocess
@@ -717,7 +766,7 @@ def test_moved_split_kernels_match_the_parent_sources_on_card(tmp_path):
     from mdgen_finetune_tpu_torch.ops import fused_layer_bwd as FB
     from mdgen_finetune_tpu_torch.ops.fused_layer import trunk_layer
 
-    names = ("adaln_linear", "linear_bwd", "modln_bwd", "blocked_attention_bwd")
+    names = ("adaln_linear", "modln_bwd")
     short = ("rope_attention", "rope_attention_bwd")
     procs = [(n, subprocess.Popen([_cuda.nvcc(), *_cuda.FLAGS, "-o", str(tmp_path / f"{n}.so"),
                                    os.path.join(parent, f"{n}.cu")], stdout=subprocess.DEVNULL,
@@ -732,10 +781,8 @@ def test_moved_split_kernels_match_the_parent_sources_on_card(tmp_path):
             if lib is None:  # not on this shape's path
                 continue
             old = ctypes.CDLL(str(tmp_path / f"{n}.so"))
-            for fn in ("blocked_attention_bwd_smem", n):
-                if hasattr(lib, fn) and hasattr(old, fn):
-                    getattr(old, fn).argtypes = getattr(lib, fn).argtypes
-                    getattr(old, fn).restype = getattr(lib, fn).restype
+            getattr(old, n).argtypes = getattr(lib, n).argtypes
+            getattr(old, n).restype = getattr(lib, n).restype
             kept[n] = lib
             _cuda._LIBS[n] = old
         try:
