@@ -68,6 +68,15 @@ Last, ``micro_ops``: the micro-op probe (``tools/micro_ops`` of the
 package) checks every op's plain and position-weighted sums against its
 plain version and prints its marginal-cost table.
 
+With ``MDGEN_PARENT_CSRC`` set to the csrc directory of another checkout
+(a ``git archive`` of the parent commit), the entries of the long-key
+attention kernels (``tiled_attention``, ``fused_attention_bwd``, and
+``fused_attention``'s forward beside them) and of the compositions around
+them (``time_attention_block`` at T = 1000, ``residue_rows_block`` and the
+stage backwards at ATLAS, ``time_attention_block_bwd``) also time that
+checkout's kernels on the same inputs (``parent``); the kernels' entries
+carry the exp2 floor and their launch resources either way.
+
 Each phase prints one JSON line; the kernel line (times, bounds, launches)
 comes second to last, and the last line is ``{"ok": true, "device": {...}}``.
 Any failed check raises and the script exits non-zero; without CUDA it exits
@@ -138,6 +147,32 @@ def bound_ms(nbytes, flops, peak_flops=PEAK_BF16_FLOPS):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+SFU_EX2_PER_CLOCK = 16  # exp2 per clock per SM on Hopper's special-function units
+
+
+def max_sm_clock_hz():
+    """The card's highest SM clock (nvidia-smi ``clocks.max.sm``)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout.split()[0]
+    return float(out) * 1e6
+
+
+def ex2_floor_ms(n):
+    """The least time for ``n`` exp2 on the SFUs of every SM at the highest
+    SM clock: the floor of any attention kernel that forms one exp2 per
+    (query, key), beside the bound (which counts bytes and products)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return n / (SFU_EX2_PER_CLOCK * sms * max_sm_clock_hz()) * 1e3
+
+
+def long_key_times(name, run, n_ex2, resources):
+    """What the long-key attention kernels report beside ms: back to
+    back, the parent's sources on the same inputs, the exp2 floor, the
+    launch resources."""
+    return dict(back_to_back_ms=back_to_back_ms(run), parent=parent_times(name, run),
+                ex2_floor_ms=ex2_floor_ms(n_ex2), resources=resources)
+
+
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -151,29 +186,30 @@ def check(name, got, ref, rel_tol):
 
 
 _PARENT_LIBS: dict = {}
+# the long-key attention kernels, and row h, which shares their training path
+PARENT_KERNELS = ("tiled_attention", "fused_attention", "fused_attention_bwd")
 
 
 def parent_lib(name):
     """The library of kernel ``name`` built from MDGEN_PARENT_CSRC (the csrc
     directory of another checkout, e.g. a ``git archive`` of the parent
     commit), or None without it: the kernel phases time those sources on the
-    same inputs beside this checkout's. Both of this slice's kernels are
-    built at the first call, in parallel."""
+    same inputs beside this checkout's. Those kernels are built at
+    the first call, in parallel."""
     import ctypes
 
     from mdgen_finetune_tpu_torch.ops import _cuda
 
     parent = os.environ.get("MDGEN_PARENT_CSRC")
-    if not parent:
+    if not parent or name not in PARENT_KERNELS:
         return None
     if not _PARENT_LIBS:
         out = SCRATCH / "parent_build"
         out.mkdir(parents=True, exist_ok=True)
-        names = ("linear_bwd", "blocked_attention_bwd")
         procs = [(n, subprocess.Popen([_cuda.nvcc(), *_cuda.FLAGS, "-o", str(out / f"{n}.so"),
                                        os.path.join(parent, f"{n}.cu")],
                                       stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT))
-                 for n in names]
+                 for n in PARENT_KERNELS]
         for n, p in procs:
             if p.wait() != 0:
                 raise RuntimeError(f"the parent's {n}.cu did not build")
@@ -181,40 +217,34 @@ def parent_lib(name):
     return _PARENT_LIBS[name]
 
 
-def parent_wgrad_splits(M, K, N):
-    """ops/linear_bwd._splits of the parent's kernel (64 x 64 tiles, about
-    four blocks per SM), which takes its split count from the caller."""
-    tiles = -(-K // 64) * -(-N // 64)
-    return max(1, min(M // 64, -(-528 // tiles)))
-
-
 @contextlib.contextmanager
-def with_parent(name):
-    """This checkout's wrapper of kernel ``name`` running the parent's
-    library (``parent_lib``), and for linear_bwd the parent's split rule."""
+def with_parent(names):
+    """This checkout's wrappers of kernels ``names`` running the parent's
+    libraries (``parent_lib``). The parent's entry points take the same
+    arguments but the schedule that this checkout's wrappers append after
+    the stream, which they do not read (a C call's trailing arguments)."""
     from mdgen_finetune_tpu_torch.ops import _cuda
-    from mdgen_finetune_tpu_torch.ops import linear_bwd as LB
 
-    old, cur = parent_lib(name), _cuda._LIBS[name]
-    fn, ref = getattr(old, name), getattr(cur, name)
-    fn.argtypes, fn.restype = ref.argtypes, ref.restype
-    splits = LB._splits
-    _cuda._LIBS[name] = old
-    if name == "linear_bwd":
-        LB._splits = parent_wgrad_splits
+    cur = {n: _cuda._LIBS[n] for n in names}
+    for n in names:
+        old = parent_lib(n)
+        fn, ref = getattr(old, n), getattr(cur[n], n)
+        fn.argtypes, fn.restype = ref.argtypes, ref.restype
+        _cuda._LIBS[n] = old
     try:
         yield
     finally:
-        _cuda._LIBS[name] = cur
-        LB._splits = splits
+        _cuda._LIBS.update(cur)
 
 
-def parent_times(name, run):
-    """ms by events and back to back of ``run`` on the parent's library of
-    kernel ``name``, or None without MDGEN_PARENT_CSRC."""
-    if parent_lib(name) is None:
+def parent_times(names, run):
+    """ms by events and back to back of ``run`` on the parent's libraries
+    of kernels ``names`` (one name or several), or None without
+    MDGEN_PARENT_CSRC."""
+    names = (names,) if isinstance(names, str) else names
+    if parent_lib(names[0]) is None:
         return None
-    with with_parent(name):
+    with with_parent(names):
         return dict(ms=time_ms(run), back_to_back_ms=back_to_back_ms(run))
 
 
@@ -392,6 +422,7 @@ def long_t_kernels(dev):
     from mdgen_finetune_tpu_torch.ops import adaln_mlp as AM
     from mdgen_finetune_tpu_torch.ops import residue_block as RB
     from mdgen_finetune_tpu_torch.ops import time_attention as TA
+    from mdgen_finetune_tpu_torch.ops import tiled_attention as TLA
     from mdgen_finetune_tpu_torch.ops.tiled_attention import tiled_attention, tiled_attention_plain
 
     g = torch.Generator(device=dev).manual_seed(7)
@@ -421,14 +452,16 @@ def long_t_kernels(dev):
         D = C3 // 3 // Hc
         # SDPA's natural-exp softmax at scale ln 2 is the base-2 softmax of q.k
         lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am, scale=math.log(2))  # noqa: E731
+        run = lambda: tiled_attention(qkv, bk, bv, mask, num_heads=Hc)  # noqa: E731
         res[name] = dict(
             shape=f"{Bc * Lc} sequences x {Hc} heads, {N} queries, {N + 1} keys, D={D}",
-            max_abs_err=err[0], tol=err[1],
-            ms=time_ms(lambda: tiled_attention(qkv, bk, bv, mask, num_heads=Hc)),
+            max_abs_err=err[0], tol=err[1], ms=time_ms(run),
             plain_ms=time_ms(lambda: tiled_attention_plain(qkv, bk, bv, mask, num_heads=Hc), reps=5),
-            library_ms=time_ms(lib),
+            library_ms=time_ms(lib), library_back_to_back_ms=back_to_back_ms(lib),
             bound=bound_ms(nbytes(qkv, bk, bv, mask) + qkv.numel() // 3 * 2,
-                           4.0 * Bc * Lc * Hc * N * (N + 1) * D))
+                           4.0 * Bc * Lc * Hc * N * (N + 1) * D),
+            **long_key_times("tiled_attention", run, Bc * Lc * Hc * N * (N + 1),
+                             TLA.resources(Bc, N, Lc, Hc, D)))
         del q, k, v, am, qkv
     tiled = dict(res["4aa_T1000"], n2048_d64=res["n2048_d64"])
 
@@ -447,14 +480,16 @@ def long_t_kernels(dev):
                   r(C, sc=0.1)]
         dims = dict(B=Bc, T=T_SIM, L=L, num_heads=H)
         f_att = 4.0 * Bc * L * H * T_SIM * (T_SIM + 1) * (C // H)
-        ops = {
+        ops = {  # name: (op, plain, weights, dims, FLOP, the long-key kernel inside)
             "row9_residue_block": (RB.residue_block, RB.residue_block_plain, attn_ws + [mask], dims,
-                                   2.0 * M * C * 4 * C + 4.0 * M * (L + 1) * C),
+                                   2.0 * M * C * 4 * C + 4.0 * M * (L + 1) * C, None),
             "row6_time_attention_block": (TA.time_attention_block, TA.time_attention_block_plain,
-                                          attn_ws + [mask], dims, 2.0 * M * C * 4 * C + f_att),
-            "row5_adaln_mlp": (AM.adaln_mlp, AM.adaln_mlp_plain, mlp_ws, {}, 16.0 * M * C * C),
+                                          attn_ws + [mask], dims, 2.0 * M * C * 4 * C + f_att,
+                                          "tiled_attention"),
+            "row5_adaln_mlp": (AM.adaln_mlp, AM.adaln_mlp_plain, mlp_ws, {}, 16.0 * M * C * C,
+                               None),
         }
-        for name, (op, plain, ws, kw, flops) in ops.items():
+        for name, (op, plain, ws, kw, flops, core) in ops.items():
             # a composition of kernels, held as the trunk rows are: its error
             # against the plain twins in f32 at most twice that of the plain
             # twins in bf16, plus 0.01 (relative L2)
@@ -469,6 +504,7 @@ def long_t_kernels(dev):
             stages[f"{name}_B{Bc}"] = dict(
                 rel_l2=rel, tol=2 * rel_plain + 0.01, max_abs_err=err,
                 ms=time_ms(lambda: op(x, *mods, *ws, **kw)),
+                parent=parent_times(core, lambda: op(x, *mods, *ws, **kw)) if core else None,
                 plain_ms=time_ms(lambda: plain(x, *mods, *ws, **kw), reps=5),
                 bound=bound_ms(nbytes(x, *mods, *ws) + M * C * 2, flops))
     return tiled, stages
@@ -563,7 +599,6 @@ def phase_bwd_kernels(dev):
             ms=time_ms(run), back_to_back_ms=back_to_back_ms(run),
             library_ms=time_ms(lambda: library(mode, dy, xx, kw)),
             bare_mm_ms=time_ms(bare), bare_mm_back_to_back_ms=back_to_back_ms(bare),
-            parent=parent_times("linear_bwd", run),
             bound=bound_ms(nbytes(dy, xx, *(v for v in kw.values() if torch.is_tensor(v)))
                            + outb, 2.0 * Mi * Ni * Ki))
         del pg, pa
@@ -1693,7 +1728,7 @@ def phase_long_bwd_kernels(dev):
                                             do.float(), base2=base2)
         es = [check(f"fused_attention_bwd[{name}].d{n}", a, b, 1e-2)
               for n, a, b in zip("qkv", grads, refs)]
-        del refs, grads
+        del refs
         # SDPA's natural softmax at scale ln 2 is the base-2 softmax of q.k
         am = ((kv - 1.0) * 1e9).to(bf)[:, None, None, :]
         scale = math.log(2) if base2 else 1.0
@@ -1703,13 +1738,20 @@ def phase_long_bwd_kernels(dev):
             out = F.scaled_dot_product_attention(*leaves, attn_mask=am, scale=scale)
             return torch.autograd.grad(out, leaves, do)
 
+        again = FA.fused_attention_bwd(q, k, v, kv, o, stat, do, base2=base2)
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError(f"fused_attention_bwd[{name}]: two calls differ")
+        del again
         R = S * Hc
+        run = lambda: FA.fused_attention_bwd(q, k, v, kv, o, stat, do, base2=base2)  # noqa: E731
         fwd_ms = time_ms(lambda: FA.fused_attention_fwd(q, k, v, kv, base2=base2))
-        bwd_ms = time_ms(lambda: FA.fused_attention_bwd(q, k, v, kv, o, stat, do, base2=base2))
+        bwd_ms = time_ms(run)
         shape = (f"{R} rows ({S} x {Hc} heads), {N} queries, {M} keys, D={D}, "
                  f"{'base 2' if base2 else 'natural exp'}")
         fwd = dict(shape=shape, max_abs_err=max(e_o[0], e_s[0]), tol={"o": e_o[1], "stat": e_s[1]},
                    ms=fwd_ms,
+                   parent=parent_times("fused_attention",
+                                       lambda: FA.fused_attention_fwd(q, k, v, kv, base2=base2)),
                    plain_ms=time_ms(lambda: FA.fused_attention_fwd_plain(q, k, v, kv, base2=base2),
                                     reps=5),
                    library_ms=time_ms(lambda: F.scaled_dot_product_attention(
@@ -1722,9 +1764,15 @@ def phase_long_bwd_kernels(dev):
                    plain_ms=time_ms(lambda: FA.fused_attention_bwd_plain(
                        q, k, v, kv, o, stat, do, base2=base2), reps=5),
                    library_ms=time_ms(lib_fwd_bwd), library="SDPA forward + backward (autograd)",
+                   library_back_to_back_ms=back_to_back_ms(lib_fwd_bwd),
                    bound=bound_ms(nbytes(q, k, v, kv, o, stat, do) + nbytes(q, k, v),
-                                  10.0 * R * N * M * D))
-        del q, k, v, do, o, stat, leaves, am
+                                  10.0 * R * N * M * D),
+                   # two passes form p twice: the floor of this design is twice the
+                   # one-exp2 floor of any backward that recomputes p
+                   **long_key_times("fused_attention_bwd", run, R * N * M,
+                                    FA.bwd_resources(R, N, M, D, base2)),
+                   ex2_per_pair=2)
+        del q, k, v, do, o, stat, leaves, am, grads
         if name == "4aa_T1000":
             kern["fused_attention_fwd"], kern["fused_attention_bwd"] = fwd, bwd
         else:
@@ -1766,6 +1814,9 @@ def phase_long_bwd_kernels(dev):
         worst = max(errs, key=lambda n: errs[n][0] - errs[n][1])
         stages[name] = dict(rel_l2=errs[worst][0], tol=errs[worst][1], worst=worst,
                             rel_l2_vs_tol=errs, ms=time_ms(lambda: op(*args, **kw)),
+                            parent=parent_times(("fused_attention", "fused_attention_bwd"),
+                                                lambda: op(*args, **kw))
+                            if name == "time_attention_block_bwd" else None,
                             plain_ms=time_ms(lambda: plain(*args, **kw), reps=5),
                             library_ms=None, bound=bound_ms(io, flops))
     emit({"phase": "long_bwd_kernels", "kernels": kern, "stages": stages,
@@ -2001,6 +2052,7 @@ def phase_atlas_kernels(dev):
     from mdgen_finetune_tpu_torch.ops.ipa_attention import (
         ipa_attention, ipa_attention_plain, proj_width)
     from mdgen_finetune_tpu_torch.ops.rope_attention import rope_attention, rope_attention_plain
+    from mdgen_finetune_tpu_torch.ops import tiled_attention as TLA
     from mdgen_finetune_tpu_torch.ops.tiled_attention import tiled_attention
 
     g = torch.Generator(device=dev).manual_seed(71)
@@ -2065,7 +2117,6 @@ def phase_atlas_kernels(dev):
             run = lambda: BA.blocked_attention_bwd(qkv, do, bk, bv, mk, num_heads=H)  # noqa: E731
             entry.update(
                 ms=time_ms(run), back_to_back_ms=back_to_back_ms(run),
-                parent=parent_times("blocked_attention_bwd", run),
                 resources=BA.resources(N_, D),
                 plain_ms=time_ms(lambda: BA.blocked_attention_bwd_plain(qkv, do, bk, bv, mk,
                                                                         num_heads=H), reps=5),
@@ -2090,10 +2141,12 @@ def phase_atlas_kernels(dev):
                 rope_attention(qkv, bk, bv, mk, num_heads=H, base2=True), ref, 1e-2)
     del ref
     q, k, v, am = sdpa_inputs(qkv, bk, bv, mk, H)
+    run = lambda: tiled_attention(qkv, bk, bv, mk, num_heads=H)  # noqa: E731
     core = dict(shape=f"{rows[0]} sequences x {H} heads, {L_ATLAS} queries, {L_ATLAS + 1} keys, "
                       f"D = {D}",
-                max_abs_err=e_t[0], tol=e_t[1], rope_max_abs_err=e_r[0],
-                ms=time_ms(lambda: tiled_attention(qkv, bk, bv, mk, num_heads=H)),
+                max_abs_err=e_t[0], tol=e_t[1], rope_max_abs_err=e_r[0], ms=time_ms(run),
+                **long_key_times("tiled_attention", run, rows[0] * H * L_ATLAS * (L_ATLAS + 1),
+                                 TLA.resources(rows[0], L_ATLAS, 1, H, D)),
                 rope_attention_ms=time_ms(lambda: rope_attention(qkv, bk, bv, mk, num_heads=H,
                                                                  base2=True)),
                 plain_ms=time_ms(lambda: rope_attention_plain(qkv, bk, bv, mk, num_heads=H,
@@ -2149,6 +2202,8 @@ def phase_atlas_kernels(dev):
     stages["row7_residue_rows_block"] = dict(
         rel_l2=errs["out"][0], tol=errs["out"][1],
         ms=time_ms(lambda: TA.residue_rows_block(x, *mods, *ws, mask, **dims)),
+        parent=parent_times("tiled_attention",
+                            lambda: TA.residue_rows_block(x, *mods, *ws, mask, **dims)),
         plain_ms=time_ms(lambda: TA.residue_rows_block_plain(x, *mods, *ws, mask, **dims), reps=5),
         library_ms=None,
         bound=bound_ms(nbytes(x, mask, *mods, *ws) + Mrows * C * 2,
@@ -2174,6 +2229,7 @@ def phase_atlas_kernels(dev):
         stages[name] = dict(
             rel_l2=errs[worst][0], tol=errs[worst][1], worst=worst, rel_l2_vs_tol=errs,
             ms=time_ms(lambda: op(x, dout, mod9, *ws, mask=mask)),
+            parent=parent_times("tiled_attention", lambda: op(x, dout, mod9, *ws, mask=mask)),
             plain_ms=with_twins(lambda: time_ms(lambda: op(x, dout, mod9, *ws, mask=mask),
                                                 reps=3)),
             library_ms=None,
@@ -2486,6 +2542,7 @@ def phase_modular_kernels(dev):
                                                               fused_attention_fwd_plain)
     from mdgen_finetune_tpu_torch.ops.rope_attention import (rope_attention, rope_attention_math,
                                                              rope_attention_plain)
+    from mdgen_finetune_tpu_torch.ops import tiled_attention as TLA
     from mdgen_finetune_tpu_torch.ops.tiled_attention import tiled_attention, tiled_attention_plain
 
     g = torch.Generator(device=dev).manual_seed(81)
@@ -2534,14 +2591,19 @@ def phase_modular_kernels(dev):
         del ref
         q, k, v, am = sdpa_inputs(qkv, bk_c, bv, mask, H)
         S_, N_ = view[0] * view[2], view[1]
+        run = lambda: kern(qkv, bk_c, bv, mask, **kw)  # noqa: E731
+        if kern is tiled_attention:
+            extra.update(long_key_times("tiled_attention", run, S_ * H * N_ * (N_ + 1),
+                                        TLA.resources(view[0], N_, view[2], H, D, base2=False)))
+        else:
+            extra["back_to_back_ms"] = back_to_back_ms(run)
         out[name] = dict(
             shape=f"{S_} sequences x {H} heads, {N_} queries, {N_ + 1} keys, D = {D}, natural",
             kernel=kern.__name__, max_abs_err=err[0], tol=err[1], q_scale=qs, **extra,
-            ms=time_ms(lambda: kern(qkv, bk_c, bv, mask, **kw)),
+            ms=time_ms(run),
             plain_ms=time_ms(lambda: plain(qkv, bk_c, bv, mask, **kw), reps=5),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am,
                                                                        scale=1.0)),
-            back_to_back_ms=back_to_back_ms(lambda: kern(qkv, bk_c, bv, mask, **kw)),
             library_back_to_back_ms=back_to_back_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=am, scale=1.0)),
             bound=bound_ms(nbytes(qkv, bk_c, bv, mask) + qkv.numel() // 3 * 2,
@@ -2892,8 +2954,10 @@ def main():
         dev, "interleave_main", modular_config("interleave_ipa"), B, seed=101)
     phase_trace("interleave_trace", lambda: eng.sample(batch, gen))
     del eng
-    interleave_1000, _ = modular_sample(
+    interleave_1000, (eng, batch, gen) = modular_sample(
         dev, "interleave_1000", modular_config("interleave_ipa", frames=T_SIM), B_SIM, seed=111)
+    phase_trace("interleave_1000_trace", lambda: eng.sample(batch, gen))
+    del eng
     modular_sample(dev, "hyena_main", modular_config("hyena"), B, seed=121, pad=0)
     no_rope_launches, _ = modular_sample(dev, "no_rope_main", modular_config("no_rope"), B,
                                          seed=131)
@@ -2956,6 +3020,7 @@ def main():
                      "shape": k["shape"],
                      **{f: k[f] for f in ("back_to_back_ms", "library_back_to_back_ms", "resources",
                                           "bf16_staging_err_of_tol", "parent", "bare_mm_ms",
+                                          "ex2_floor_ms", "ex2_per_pair",
                                           "uses", "splits", "frames_N250") if f in k}})
     for entry in line:  # row j beyond fp16's range (the repaired q and k scales)
         if entry["name"] == "blocked_attention_bwd":
@@ -2992,6 +3057,7 @@ def main():
                      "back_to_back_ms": k.get("back_to_back_ms"),
                      "library_back_to_back_ms": k.get("library_back_to_back_ms"),
                      "shape": k["shape"],
+                     **{f: k[f] for f in ("parent", "ex2_floor_ms", "resources") if f in k},
                      "more_shapes": {c: {f: v for f, v in modular[c].items() if f != "shape"}
                                      for c in modular if modular[c]["kernel"] == src.split("[")[0]
                                      and c != case}})

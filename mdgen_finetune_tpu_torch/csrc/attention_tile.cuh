@@ -1,10 +1,9 @@
-// attention_tile.cuh: the tile pieces shared by fused_attention.cu (forward)
-// and fused_attention_bwd.cu (backward); tiled_attention.cu takes its
-// mma.sync and packing helpers.
+// attention_tile.cuh: the tile pieces of fused_attention.cu (the long-key
+// forward); the other kernels take its mma.sync and packing helpers and
+// constants.
 //
-// A block of 4 warps owns a tile of 64 rows (queries, or keys in the dK/dV
-// pass); each warp keeps its 16 rows as mma.sync m16n8k16 A fragments in
-// registers. The other operand streams through shared memory in tiles of 64
+// A block of 4 warps owns a tile of 64 query rows; each warp keeps its 16
+// rows as mma.sync m16n8k16 A fragments in registers. The other operand streams through shared memory in tiles of 64
 // rows, row-major [row][d] for products over the head dim and transposed
 // [d][row] for products over the rows. The head dim D is padded with zero
 // lanes to DP, a multiple of the mma depth 16 (24 -> 32). Products take bf16

@@ -1,12 +1,14 @@
-// tiled_attention: the frame-attention core at long T, with its keys tiled
-// through shared memory, so that no shared-memory buffer grows with N.
+// tiled_attention: the frame-attention core at long T (and the residue
+// attention at large L), for any number of keys.
 //
 // Replaces the attention core of
 //   mdgen_finetune_tpu/ops/time_attention.py::_block_pallas_fwd_blocked
 //   (body _block_kernel_blocked: RoPE, the bias key, `_grouped_attend` with
 //   base2=True), the TPU kernel that the JAX package's trunk runs for the
 //   frame stage at T > MAX_T = 256 (the 4AA forward-simulation preset,
-//   T = 1000), and, in its natural-softmax mode (base2 = 0), the whole of
+//   T = 1000) and, through its rows form (_block_pallas_fwd_blocked_rows),
+//   for the residue stage at L > 8 (ATLAS); and, in its natural-softmax
+//   mode (base2 = 0), the whole of
 //   mdgen_finetune_tpu/ops/time_attention.py::_pallas_fwd_blocked (:343,
 //   body _kernel_blocked :303, `_grouped_attend` with base2=False): the
 //   modular layer's frame attention above L = 8 or T = 256, and its residue
@@ -20,309 +22,380 @@
 //   - RoPE on q and k (rotate-half), rounded to bf16 as the JAX kernel does;
 //   - the learned bias key/value appended at position N, the key RoPE'd there;
 //   - the key mask as an additive -1e9 (the bias key is always valid);
-//   - the base-2 no-max softmax: q carries head_dim^-0.5 * log2(e), the
-//     weights are p = exp2(min(l, 100)), the denominator is the sum of the
-//     f32 p plus 1e-30, and p goes to the PV product in bf16 (as JAX casts
-//     the unnormalised p before its PV dot);
+//   - base 2 (the trunk): q carries head_dim^-0.5 * log2(e), the weights
+//     are p = exp2(min(l, 100)) with no max, over the sum of the f32 p plus
+//     1e-30; natural (the modular layer): q carries head_dim^-0.5 and the
+//     weights are p = exp2(t - max t) with t = l log2(e), JAX's
+//     max-subtracted softmax, so no exp overflows at any logit;
+//   - p goes to the PV product in bf16 (as JAX casts p before its PV dot);
 //   - the output (G, N, I, C) bf16.
 //
-// The no-max contract is what makes the key loop simple: with no running
-// max there is nothing to rescale, so each key tile adds its unnormalised
-// p.V into the f32 accumulators and its p into the row sums, and the one
-// division happens after the last tile. A masked key gets exp2(-1e9) = 0
-// exactly, so a tile that holds only masked (or padding) keys adds nothing.
-//
-// The natural mode (the modular layer: q carries head_dim^-0.5 only) is
-// JAX's max-subtracted softmax, p = exp(l - max l), computed online: each
-// row keeps a running max across the key tiles, and when a tile raises it
-// the f32 accumulators and the row sums are rescaled by exp(old - new)
-// before the tile's p = exp(l - new) is added. So no exp overflows however
-// large the logits (exp without the max would overflow f32 above l = 88).
-// It runs in base-2 units, t = l * log2(e) and p = exp2(t - max t), the
-// same function: exp2f is the short hardware sequence that the base-2 mode
-// also uses, where expf is a longer accurate one (PERF.md times both). A
-// tile of masked keys only (l = -1e9) may set the first max; the first
-// attendable key (the bias key, at the latest) rescales its terms by
-// exp2(-1e9 - t) = 0. The two modes are one kernel with a template flag;
-// the base-2 instructions are those of the base-2 kernel before the mode
-// existed.
-//
-// Design: one block of 4 warps per (sequence, head, 64-query tile). The
-// query tile is RoPE'd into shared memory once; each warp keeps its 16 rows
-// as mma.sync A fragments in registers. K and V stream through shared memory
-// in tiles of 64 keys (bf16, RoPE'd as they are staged; V transposed so that
-// its B fragments are 32-bit reads). Per key tile a warp computes its
-// 16 x 64 logits with mma.sync m16n8k16 (bf16 in, f32 out; D padded with
-// zero lanes to a multiple of 16: 24 -> 32), forms p in registers, reuses the
-// f32 accumulator layout of the logits as the A fragments of the PV product,
-// and accumulates O (16 x D) in f32 registers. Only q/k/v in and the output
-// out touch device memory; shared memory is a fixed ~15 KB (D = 24) to
-// ~28 KB (D = 64) at any N.
-//
 // What bounds it on the H100: at the 4AA preset (B = 8, T = 1000, L = 4,
-// 16 heads of D = 24) it does 4*B*L*H*T*(T+1)*D = 4.9e10 FLOP against
-// ~98 MB of q/k/v and output, so the tensor cores bound it (0.050 ms at
-// 989 TFLOP/s, against 0.029 ms for the bytes). This first version restages
-// each key tile for every query tile (through L2), pads D = 24 to 32 and
-// uses mma.sync, not wgmma/TMA: making it fast is later work.
+// 16 heads of D = 24) it does 4*B*L*H*T*(T+1)*D = 4.9e10 FLOP on the tensor
+// cores (0.050 ms at 989 TFLOP/s) against ~98 MB of q/k/v and output
+// (0.029 ms). But every design forms one exp2 per (query, key), 5.1e8
+// there, and the SFU issues 16 of them per clock per SM: 0.122 ms at the
+// H100's 1,980 MHz, above both, and each logit also costs the FP32 pipe
+// 3-4 instructions (mask, clamp or max, row sum, bf16 pack).
+//
+// Design (long_attention.cuh): one block of 8 warps per (sequence, head)
+// (or per chunk of its query tiles where the heads alone do not fill the
+// SMs; ops/long_attention.py). The block stages its head's keys once: k and
+// v by cp.async (every copy in flight at once), then k RoPE'd in place in
+// f32 and rounded to bf16, and each key's additive mask, in rows of D lanes
+// (no pad of D = 24 to 32; 100 bytes a key at D = 24, so the 1,001 keys of
+// T = 1000 take 101 KB and two blocks share an SM). Each warp then takes
+// two 16-query tiles at a time: it stages their queries RoPE'd into its own
+// rows, keeps them as A fragments, and walks every resident key in steps
+// of 32 (16 at the tail) with no barrier: each B fragment of k (ldmatrix,
+// an m16n8k8 tail at D = 24) and of v (ldmatrix.trans of the row-major
+// tile) serves both tiles; logits and p stay in registers, the accumulator
+// layout of the logits reused as the A fragments of P.V. The natural mode
+// keeps a running max per query row over the steps and rescales the f32
+// output and row sums only when the max of some row of the warp rose in the
+// step (multiplying by exp2(0) = 1 changes no bit), which after the first
+// steps it rarely does. Heads whose keys do not fit (larger N or D) stream
+// them in windows, one pair of query tiles per warp, every window staged
+// once per block.
 
 #include <cuda_runtime.h>
 
-#include "attention_tile.cuh"
+#include "long_attention.cuh"
 
-using attn_tile::bf16;
-using attn_tile::ld32;
-using attn_tile::mma16816;
-using attn_tile::pack2;
+using namespace longattn;
+using rope_tile::load_row;
+using rope_tile::load_row_scalar;
+using rope_tile::rope;
 
 namespace {
 
-constexpr int QT = 64;        // queries per block: 4 warps x 16 rows
-constexpr int KT = 64;        // keys per shared-memory tile
-constexpr int THREADS = 128;
-constexpr int VS = KT + 8;    // row stride (bf16) of the transposed V tile
+constexpr int TQ = 2;  // 16-query tiles that a warp walks the keys with at once
 
-// Stage `rows` tokens n0.. of q (col = 0) or k (col = C) of head h into
-// dst (row stride S), RoPE'd at their positions. With `bias`, token N is the
-// bias key; other tokens past the sequence are zero rows.
-template <int D, int S>
-__device__ __forceinline__ void stage_roped(bf16* dst, const bf16* qkv, const bf16* bias,
-                                            const float* cos_t, const float* sin_t,
-                                            long long row0, int n0, int rows, int N, int I,
-                                            int h, int C, int col) {
-  constexpr int HALF = D / 2;
-  for (int e = threadIdx.x; e < rows * HALF; e += THREADS) {
-    const int r = e / HALF, d = e % HALF, n = n0 + r;
-    float v0 = 0.f, v1 = 0.f;
-    if (n < N) {
-      const bf16* src = qkv + (row0 + (long long)n * I) * 3LL * C + col + h * D;
-      v0 = __bfloat162float(src[d]);
-      v1 = __bfloat162float(src[d + HALF]);
-    } else if (n == N && bias != nullptr) {
-      v0 = __bfloat162float(bias[h * D + d]);
-      v1 = __bfloat162float(bias[h * D + d + HALF]);
+// the block's shared memory at a window of `win` keys: k and v rows, the
+// keys' additive masks, and each warp's TQ x 16 query rows
+template <int D>
+struct FwdLayout {
+  size_t ks, vs, kb, qw, total;
+  __host__ __device__ explicit FwdLayout(int win) {
+    constexpr int RS = Geo<D>::RS;
+    size_t o = 0;
+    ks = o; o += (size_t)win * RS * 2;
+    vs = o; o += (size_t)win * RS * 2;
+    kb = o; o += (size_t)win * 4;
+    qw = o; o += (size_t)WARPS * TQ * 16 * RS * 2;
+    total = o;
+  }
+};
+
+// keys k0 .. k0 + 8 NBK - 1 of the resident window against this warp's TQ
+// query tiles (each B fragment loaded once for all of them): o (f32,
+// 16 x D per tile) += p . v, l += the rows' p sums (this thread's
+// columns), m the natural mode's running row maxima (base-2 units)
+template <int D, bool NATURAL, int NBK>
+__device__ __forceinline__ void step(float (*o)[Geo<D>::OB][4], float (*l)[2], float (*m)[2],
+                                     const AFrag<D>* qa, const bf16* Ks, const bf16* Vs,
+                                     const float* Kb, int k0) {
+  constexpr int OB = Geo<D>::OB;
+  const int tig = threadIdx.x & 3;
+  float s[TQ][NBK][4];
+#pragma unroll
+  for (int nb = 0; nb < NBK; ++nb) {
+    uint32_t b[OB];
+    load_b_d<D>(b, Ks, k0 + nb * 8);
+    const float2 kb = *reinterpret_cast<const float2*>(Kb + k0 + nb * 8 + tig * 2);
+#pragma unroll
+    for (int t = 0; t < TQ; ++t) {
+      float* c = s[t][nb];
+      mma_d<D>(c, qa[t], b);
+      if constexpr (NATURAL) {
+        c[0] = fmaf(c[0], LOG2E, kb.x);
+        c[1] = fmaf(c[1], LOG2E, kb.y);
+        c[2] = fmaf(c[2], LOG2E, kb.x);
+        c[3] = fmaf(c[3], LOG2E, kb.y);
+      } else {
+        c[0] = fminf(c[0] + kb.x, 100.f);
+        c[1] = fminf(c[1] + kb.y, 100.f);
+        c[2] = fminf(c[2] + kb.x, 100.f);
+        c[3] = fminf(c[3] + kb.y, 100.f);
+      }
     }
-    float o0 = 0.f, o1 = 0.f;
-    if (n < N || (n == N && bias != nullptr)) {
-      const float* cs = cos_t + (long long)n * D;
-      const float* sn = sin_t + (long long)n * D;
-      o0 = v0 * cs[d] - v1 * sn[d];
-      o1 = v1 * cs[d + HALF] + v0 * sn[d + HALF];
+  }
+  if constexpr (NATURAL) {
+    // the step's row maxima (the four threads of a row hold disjoint keys)
+    float mx[TQ][2];
+    bool rose = false;
+#pragma unroll
+    for (int t = 0; t < TQ; ++t) {
+      mx[t][0] = mx[t][1] = -INFINITY;
+#pragma unroll
+      for (int nb = 0; nb < NBK; ++nb) {
+        mx[t][0] = fmaxf(mx[t][0], fmaxf(s[t][nb][0], s[t][nb][1]));
+        mx[t][1] = fmaxf(mx[t][1], fmaxf(s[t][nb][2], s[t][nb][3]));
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[t][i] = fmaxf(mx[t][i], __shfl_xor_sync(0xffffffffu, mx[t][i], 1));
+        mx[t][i] = fmaxf(m[t][i], fmaxf(mx[t][i], __shfl_xor_sync(0xffffffffu, mx[t][i], 2)));
+        rose |= mx[t][i] > m[t][i];
+      }
     }
-    dst[r * S + d] = __float2bfloat16(o0);
-    dst[r * S + d + HALF] = __float2bfloat16(o1);
+    if (__any_sync(0xffffffffu, rose)) {
+#pragma unroll
+      for (int t = 0; t < TQ; ++t) {
+        // 0 at the first step (m = -inf); 1 for a row whose max held
+        const float a[2] = {ex2(m[t][0] - mx[t][0]), ex2(m[t][1] - mx[t][1])};
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          m[t][i] = mx[t][i];
+          l[t][i] *= a[i];
+        }
+#pragma unroll
+        for (int db = 0; db < OB; ++db) {
+          o[t][db][0] *= a[0];
+          o[t][db][1] *= a[0];
+          o[t][db][2] *= a[1];
+          o[t][db][3] *= a[1];
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < TQ; ++t)
+#pragma unroll
+      for (int nb = 0; nb < NBK; ++nb) {
+        s[t][nb][0] -= m[t][0];
+        s[t][nb][1] -= m[t][0];
+        s[t][nb][2] -= m[t][1];
+        s[t][nb][3] -= m[t][1];
+      }
+  }
+  uint32_t pa[TQ][NBK / 2][4];
+#pragma unroll
+  for (int t = 0; t < TQ; ++t)
+#pragma unroll
+    for (int nb = 0; nb < NBK; ++nb) {
+      const float p0 = ex2(s[t][nb][0]), p1 = ex2(s[t][nb][1]);
+      const float p2 = ex2(s[t][nb][2]), p3 = ex2(s[t][nb][3]);
+      l[t][0] += p0 + p1;
+      l[t][1] += p2 + p3;
+      pa[t][nb / 2][(nb % 2) * 2] = pack2(p0, p1);
+      pa[t][nb / 2][(nb % 2) * 2 + 1] = pack2(p2, p3);
+    }
+#pragma unroll
+  for (int j = 0; j < NBK / 2; ++j) {
+    uint32_t b[OB][2];
+    load_b_rows<D>(b, Vs, k0 + j * 16);
+#pragma unroll
+    for (int t = 0; t < TQ; ++t)
+#pragma unroll
+      for (int db = 0; db < OB; ++db) mma16816(o[t][db], pa[t][j], b[db][0], b[db][1]);
   }
 }
 
 template <int D, bool NATURAL>
-__global__ void __launch_bounds__(THREADS) tiled_attention_kernel(
+__global__ void __launch_bounds__(THREADS, Occ<D>::MIN_BLOCKS) tiled_attention_kernel(
     const bf16* __restrict__ qkv, const bf16* __restrict__ bias_k,
     const bf16* __restrict__ bias_v, const float* __restrict__ key_valid,
     const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-    bf16* __restrict__ out, int N, int I, int H, int C, int qtiles) {
-  constexpr int DP = (D + 15) / 16 * 16;  // head dim padded to the mma depth
-  constexpr int KS = DP + 8;              // row stride (bf16) of the Q and K tiles
-  constexpr int NB = KT / 8;              // 8-key blocks of the logits
-  constexpr int KC = DP / 16;             // 16-deep chunks of q.k
-  constexpr int DB = DP / 8;              // 8-lane blocks of the output
-  __shared__ __align__(16) bf16 Qs[QT * KS];
-  __shared__ __align__(16) bf16 Ks[KT * KS];
-  __shared__ __align__(16) bf16 Vt[DP * VS];
-  __shared__ float Kb[KT];
+    bf16* __restrict__ out, int N, int I, int H, int C, int chunks, int chunk, int win) {
+  constexpr int RS = Geo<D>::RS, OB = Geo<D>::OB;
+  constexpr int NBK = D <= 32 ? 4 : 2;  // 8-key blocks of a full step
+  extern __shared__ __align__(16) unsigned char smem[];
+  const FwdLayout<D> lay(win);
+  bf16* Ks = reinterpret_cast<bf16*>(smem + lay.ks);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + lay.vs);
+  float* Kb = reinterpret_cast<float*>(smem + lay.kb);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  bf16* Qw = reinterpret_cast<bf16*>(smem + lay.qw) + warp * TQ * 16 * RS;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  long long task = blockIdx.x;
-  const int qt = (int)(task % qtiles);
-  task /= qtiles;
-  const int h = (int)(task % H);
-  const long long s = task / H;
-  const long long row0 = (s / I) * (long long)N * I + s % I;  // token n: row0 + n * I
-  const int q0 = qt * QT;
+  const long long sh = blockIdx.x / chunks;
+  const int h = (int)(sh % H);
+  const long long seq = sh / H;
+  const long long row0 = (seq / I) * (long long)N * I + seq % I;  // token n: row0 + n * I
+  auto tok = [&](int n) { return row0 + (long long)n * I; };
+  const int NKP = (N + 1 + 15) / 16 * 16;  // the keys (N and the bias key) in 16-key tiles
+  const Sched sc(blockIdx.x % chunks, chunk, (N + 15) / 16, NKP, win, TQ);
 
-  if constexpr (DP > D) {  // zero pad lanes: they meet only zeros in the products
-    constexpr int P = DP - D;
-    for (int e = tid; e < QT * P; e += THREADS) Qs[(e / P) * KS + D + e % P] = __float2bfloat16(0.f);
-    for (int e = tid; e < KT * P; e += THREADS) Ks[(e / P) * KS + D + e % P] = __float2bfloat16(0.f);
-    for (int e = tid; e < P * VS; e += THREADS) Vt[D * VS + e] = __float2bfloat16(0.f);
-  }
-  stage_roped<D, KS>(Qs, qkv, nullptr, cos_t, sin_t, row0, q0, QT, N, I, h, C, 0);
-  __syncthreads();
-
-  uint32_t qa[KC][4];
-  {
-    const bf16* q_lo = Qs + (warp * 16 + gid) * KS + tig * 2;
-    const bf16* q_hi = q_lo + 8 * KS;
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      qa[kc][0] = ld32(q_lo + kc * 16);
-      qa[kc][1] = ld32(q_hi + kc * 16);
-      qa[kc][2] = ld32(q_lo + kc * 16 + 8);
-      qa[kc][3] = ld32(q_hi + kc * 16 + 8);
+  // keys w0 .. of the window: k and v copied in by cp.async (every 16-byte
+  // unit of the window in flight at once) and the masks (issue); then k
+  // RoPE'd in place in f32 and rounded to bf16, and the bias key and value
+  // at N (finish); zero rows at -1e9 past it
+  auto issue = [&](int w0) {
+    constexpr int U = D / 8;  // 16-byte units of a row
+    const int rows = min(win, NKP - w0);
+    for (int e = tid; e < rows * U; e += THREADS) {
+      const int r = e / U, u = e % U, n = w0 + r;
+      const bf16* src = qkv + tok(n < N ? n : 0) * 3LL * C + h * D + u * 8;
+      cp_async16(Ks + r * RS + u * 8, src + C, n < N);
+      cp_async16(Vs + r * RS + u * 8, src + 2 * C, n < N);
     }
-  }
-  float o[DB][4];
-#pragma unroll
-  for (int db = 0; db < DB; ++db) o[db][0] = o[db][1] = o[db][2] = o[db][3] = 0.f;
-  float l0 = 0.f, l1 = 0.f;  // row sums of rows gid and gid + 8 (this thread's columns)
-  float m0 = -INFINITY, m1 = -INFINITY;  // natural mode: the rows' running maxima
-
-  const int ntiles = (N + 1 + KT - 1) / KT;
-  for (int kt = 0; kt < ntiles; ++kt) {
-    const int k0 = kt * KT;
-    __syncthreads();  // every warp is done with the previous tile
-    stage_roped<D, KS>(Ks, qkv, bias_k, cos_t, sin_t, row0, k0, KT, N, I, h, C, C);
-    for (int e = tid; e < KT * D; e += THREADS) {
-      const int r = e / D, d = e % D, n = k0 + r;
-      bf16 v = __float2bfloat16(0.f);
-      if (n < N) v = qkv[(row0 + (long long)n * I) * 3LL * C + 2 * C + h * D + d];
-      else if (n == N) v = bias_v[h * D + d];
-      Vt[d * VS + r] = v;
+    for (int r = tid; r < rows; r += THREADS) {
+      const int n = w0 + r;
+      Kb[r] = n < N ? (key_valid[tok(n)] > 0.f ? 0.f : MASKED) : (n == N ? 0.f : MASKED);
     }
-    if (tid < KT) {
-      const int n = k0 + tid;
-      Kb[tid] = n < N ? (key_valid[row0 + (long long)n * I] > 0.f ? 0.f : -1e9f)
-                      : (n == N ? 0.f : -1e9f);
+  };
+  auto finish = [&](int w0) {
+    const int rows = min(win, NKP - w0);
+    cp_async_wait_all();
+    __syncthreads();
+    for (int r = tid; r < rows; r += THREADS) {
+      const int n = w0 + r;
+      if (n > N) continue;
+      float k[D];
+      if (n < N) {
+        load_row<D>(k, Ks + r * RS);
+      } else {
+        float v[D];
+        load_row_scalar<D>(k, bias_k + h * D);
+        load_row_scalar<D>(v, bias_v + h * D);
+        blockedbwd::store_row<D, false>(Vs + r * RS, v);
+      }
+      rope<D>(k, cos_t + (long long)n * D, sin_t + (long long)n * D);
+      blockedbwd::store_row<D, false>(Ks + r * RS, k);
     }
     __syncthreads();
+  };
 
-    // logits: this warp's 16 queries x 64 keys
-    float sf[NB][4];
+  for (int round = 0; round < sc.rounds; ++round) {
+    const int tile0 = sc.t0 + (round * WARPS + warp) * TQ;
+    const bool active = tile0 < sc.t1;  // uniform over the warp
+    if (round == 0) issue(0);  // the first window's copies fly while the queries load
+    AFrag<D> qa[TQ];
+    if (active) {
+      {  // the tiles' queries, RoPE'd and rounded to bf16: lane i, row i
+        const int n = tile0 * 16 + lane;
+        float x[D];
+        if (lane < TQ * 16 && n < N) {
+          load_row<D>(x, qkv + tok(n) * 3LL * C + h * D);
+          rope<D>(x, cos_t + (long long)n * D, sin_t + (long long)n * D);
+        } else {
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-      sf[nb][0] = sf[nb][1] = sf[nb][2] = sf[nb][3] = 0.f;
-      const bf16* kr = Ks + (nb * 8 + gid) * KS + tig * 2;
+          for (int d = 0; d < D; ++d) x[d] = 0.f;
+        }
+        if (lane < TQ * 16) blockedbwd::store_row<D, false>(Qw + lane * RS, x);
+      }
+      __syncwarp();
 #pragma unroll
-      for (int kc = 0; kc < KC; ++kc) mma16816(sf[nb], qa[kc], ld32(kr + kc * 16), ld32(kr + kc * 16 + 8));
+      for (int t = 0; t < TQ; ++t) qa[t].load(Qw, t * 16);
+      __syncwarp();
     }
-    // p = exp2(min(l + bias, 100)): f32 row sums, bf16 A fragments for p.V
-    uint32_t pa[KT / 16][4];
-    if constexpr (NATURAL) {
-      // the logits in base-2 units, the tile's row maxima (the four threads
-      // of a row group hold disjoint columns), then rescale what earlier
-      // tiles summed
-      float t0 = -INFINITY, t1 = -INFINITY;
+    float o[TQ][OB][4], l[TQ][2], m[TQ][2];
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        const int c = nb * 8 + tig * 2;
-        sf[nb][0] = fmaf(sf[nb][0], attn_tile::LOG2E, Kb[c]);
-        sf[nb][1] = fmaf(sf[nb][1], attn_tile::LOG2E, Kb[c + 1]);
-        sf[nb][2] = fmaf(sf[nb][2], attn_tile::LOG2E, Kb[c]);
-        sf[nb][3] = fmaf(sf[nb][3], attn_tile::LOG2E, Kb[c + 1]);
-        t0 = fmaxf(t0, fmaxf(sf[nb][0], sf[nb][1]));
-        t1 = fmaxf(t1, fmaxf(sf[nb][2], sf[nb][3]));
+    for (int t = 0; t < TQ; ++t) {
+      l[t][0] = l[t][1] = 0.f;
+      m[t][0] = m[t][1] = -INFINITY;
+#pragma unroll
+      for (int db = 0; db < OB; ++db) o[t][db][0] = o[t][db][1] = o[t][db][2] = o[t][db][3] = 0.f;
+    }
+    for (int w = 0; w < sc.nwin; ++w) {
+      if (sc.nwin > 1 || round == 0) {  // one window: staged once for every round
+        if (round > 0 || w > 0) {
+          __syncthreads();  // every warp is done with the last window
+          issue(w * win);
+        }
+        finish(w * win);
       }
-      t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, 1));
-      t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, 2));
-      t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, 1));
-      t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, 2));
-      const float n0 = fmaxf(m0, t0), n1 = fmaxf(m1, t1);
-      const float a0 = exp2f(m0 - n0), a1 = exp2f(m1 - n1);  // 0 at the first tile
-      m0 = n0;
-      m1 = n1;
-      l0 *= a0;
-      l1 *= a1;
-#pragma unroll
-      for (int db = 0; db < DB; ++db) {
-        o[db][0] *= a0;
-        o[db][1] *= a0;
-        o[db][2] *= a1;
-        o[db][3] *= a1;
-      }
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        const float p0 = exp2f(sf[nb][0] - n0), p1 = exp2f(sf[nb][1] - n0);
-        const float p2 = exp2f(sf[nb][2] - n1), p3 = exp2f(sf[nb][3] - n1);
-        l0 += p0 + p1;
-        l1 += p2 + p3;
-        pa[nb / 2][(nb % 2) * 2] = pack2(p0, p1);
-        pa[nb / 2][(nb % 2) * 2 + 1] = pack2(p2, p3);
-      }
-    } else {
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        const int c = nb * 8 + tig * 2;
-        const float p0 = exp2f(fminf(sf[nb][0] + Kb[c], 100.f));
-        const float p1 = exp2f(fminf(sf[nb][1] + Kb[c + 1], 100.f));
-        const float p2 = exp2f(fminf(sf[nb][2] + Kb[c], 100.f));
-        const float p3 = exp2f(fminf(sf[nb][3] + Kb[c + 1], 100.f));
-        l0 += p0 + p1;
-        l1 += p2 + p3;
-        pa[nb / 2][(nb % 2) * 2] = pack2(p0, p1);
-        pa[nb / 2][(nb % 2) * 2 + 1] = pack2(p2, p3);
+      if (active) {
+        const int nk = min(win, NKP - w * win);
+        int k0 = 0;
+        for (; k0 + NBK * 8 <= nk; k0 += NBK * 8) step<D, NATURAL, NBK>(o, l, m, qa, Ks, Vs, Kb, k0);
+        for (; k0 < nk; k0 += 16) step<D, NATURAL, 2>(o, l, m, qa, Ks, Vs, Kb, k0);
       }
     }
+    if (!active) continue;
+    // the normalised rows in bf16 into the warp's own rows, then one row
+    // per lane to device memory in 16-byte stores
 #pragma unroll
-    for (int j = 0; j < KT / 16; ++j) {
+    for (int t = 0; t < TQ; ++t)
 #pragma unroll
-      for (int db = 0; db < DB; ++db) {
-        const bf16* vr = Vt + (db * 8 + gid) * VS + j * 16 + tig * 2;
-        mma16816(o[db], pa[j], ld32(vr), ld32(vr + 8));
+      for (int i = 0; i < 2; ++i) {
+        float li = l[t][i];
+        li += __shfl_xor_sync(0xffffffffu, li, 1);
+        li += __shfl_xor_sync(0xffffffffu, li, 2);
+        // the natural row sums hold exp2(0) = 1 at least (the row's max key)
+        const float inv = NATURAL ? 1.f / li : 1.f / (li + 1e-30f);
+        bf16* row = Qw + (t * 16 + gid + 8 * i) * RS + tig * 2;
+#pragma unroll
+        for (int db = 0; db < OB; ++db)
+          *reinterpret_cast<uint32_t*>(row + db * 8) = pack2(o[t][db][2 * i] * inv, o[t][db][2 * i + 1] * inv);
       }
-    }
-  }
-
-  // the four threads of a row group hold disjoint columns of each row
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  // the natural row sums hold exp(0) = 1 at least (the row's max key)
-  const float inv0 = NATURAL ? 1.f / l0 : 1.f / (l0 + 1e-30f);
-  const float inv1 = NATURAL ? 1.f / l1 : 1.f / (l1 + 1e-30f);
-  const int n_lo = q0 + warp * 16 + gid, n_hi = n_lo + 8;
+    __syncwarp();
+    const int n = tile0 * 16 + lane;
+    if (lane < TQ * 16 && tile0 + lane / 16 < sc.t1 && n < N) {
+      const uint4* src = reinterpret_cast<const uint4*>(Qw + lane * RS);
+      uint4* dst = reinterpret_cast<uint4*>(out + tok(n) * C + h * D);
 #pragma unroll
-  for (int db = 0; db < DB; ++db) {
-    const int d = db * 8 + tig * 2;
-    if (d >= D) continue;
-    if (n_lo < N)
-      *reinterpret_cast<uint32_t*>(out + (row0 + (long long)n_lo * I) * C + h * D + d) =
-          pack2(o[db][0] * inv0, o[db][1] * inv0);
-    if (n_hi < N)
-      *reinterpret_cast<uint32_t*>(out + (row0 + (long long)n_hi * I) * C + h * D + d) =
-          pack2(o[db][2] * inv1, o[db][3] * inv1);
+      for (int u = 0; u < D / 8; ++u) dst[u] = src[u];
+    }
+    __syncwarp();
   }
 }
 
 template <int D, bool NATURAL>
 int launch(const void* qkv, const void* bias_k, const void* bias_v, const void* key_valid,
            const void* cos_t, const void* sin_t, void* out, int G, int N, int I, int H, int C,
-           cudaStream_t stream) {
-  const int qtiles = (N + QT - 1) / QT;
-  const long long blocks = (long long)G * I * H * qtiles;
-  if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  tiled_attention_kernel<D, NATURAL><<<(unsigned)blocks, THREADS, 0, stream>>>(
+           int chunk, int win, cudaStream_t stream) {
+  const long long S = (long long)G * I * H;
+  const int tiles = (N + 15) / 16;
+  if (N <= 0 || S <= 0 || chunk <= 0 || win < 16 || win % 16) return (int)cudaErrorInvalidValue;
+  const int chunks = (tiles + chunk - 1) / chunk;
+  if (S * chunks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t smem = FwdLayout<D>(win).total;
+  cudaError_t e = cudaFuncSetAttribute(tiled_attention_kernel<D, NATURAL>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  tiled_attention_kernel<D, NATURAL><<<(unsigned)(S * chunks), THREADS, smem, stream>>>(
       static_cast<const bf16*>(qkv), static_cast<const bf16*>(bias_k),
       static_cast<const bf16*>(bias_v), static_cast<const float*>(key_valid),
       static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-      static_cast<bf16*>(out), N, I, H, C, qtiles);
+      static_cast<bf16*>(out), N, I, H, C, chunks, chunk, win);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_mode(const void* qkv, const void* bias_k, const void* bias_v, const void* key_valid,
                 const void* cos_t, const void* sin_t, void* out, int G, int N, int I, int H,
-                int C, int base2, cudaStream_t stream) {
+                int C, int base2, int chunk, int win, cudaStream_t stream) {
   return base2 ? launch<D, false>(qkv, bias_k, bias_v, key_valid, cos_t, sin_t, out, G, N, I, H,
-                                  C, stream)
+                                  C, chunk, win, stream)
                : launch<D, true>(qkv, bias_k, bias_v, key_valid, cos_t, sin_t, out, G, N, I, H,
-                                 C, stream);
+                                 C, chunk, win, stream);
+}
+
+template <int D>
+int resources_mode(int win, int base2, long long* info) {
+  const size_t smem = FwdLayout<D>(win).total;
+  return base2 ? resources(tiled_attention_kernel<D, false>, smem, info)
+               : resources(tiled_attention_kernel<D, true>, smem, info);
 }
 
 }  // namespace
 
 // base2 = 1: the base-2 no-max softmax (the fused trunk); 0: the natural
-// max-subtracted softmax (the modular layer)
+// max-subtracted softmax (the modular layer). The schedule (ops/
+// long_attention.py) follows the stream: `chunk` 16-query tiles per block,
+// `win` resident keys (a multiple of 16)
 extern "C" int tiled_attention(const void* qkv, const void* bias_k, const void* bias_v,
                                const void* key_valid, const void* cos_t, const void* sin_t,
                                void* out, int G, int N, int I, int H, int C, int base2,
-                               void* stream) {
+                               void* stream, int chunk, int win) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C / H) {
-    case 16: return launch_mode<16>(qkv, bias_k, bias_v, key_valid, cos_t, sin_t, out, G, N, I, H, C, base2, s);
-    case 24: return launch_mode<24>(qkv, bias_k, bias_v, key_valid, cos_t, sin_t, out, G, N, I, H, C, base2, s);
-    case 32: return launch_mode<32>(qkv, bias_k, bias_v, key_valid, cos_t, sin_t, out, G, N, I, H, C, base2, s);
-    case 64: return launch_mode<64>(qkv, bias_k, bias_v, key_valid, cos_t, sin_t, out, G, N, I, H, C, base2, s);
+    case 16: return launch_mode<16>(qkv, bias_k, bias_v, key_valid, cos_t, sin_t, out, G, N, I, H, C, base2, chunk, win, s);
+    case 24: return launch_mode<24>(qkv, bias_k, bias_v, key_valid, cos_t, sin_t, out, G, N, I, H, C, base2, chunk, win, s);
+    case 32: return launch_mode<32>(qkv, bias_k, bias_v, key_valid, cos_t, sin_t, out, G, N, I, H, C, base2, chunk, win, s);
+    case 64: return launch_mode<64>(qkv, bias_k, bias_v, key_valid, cos_t, sin_t, out, G, N, I, H, C, base2, chunk, win, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// the kernel's resources at a window of `win` keys (long_attention.cuh's
+// resources: registers, spill bytes, shared memory, blocks per SM)
+extern "C" int tiled_attention_resources(int win, int D, int base2, long long* info) {
+  switch (D) {
+    case 16: return resources_mode<16>(win, base2, info);
+    case 24: return resources_mode<24>(win, base2, info);
+    case 32: return resources_mode<32>(win, base2, info);
+    case 64: return resources_mode<64>(win, base2, info);
     default: return (int)cudaErrorInvalidValue;
   }
 }

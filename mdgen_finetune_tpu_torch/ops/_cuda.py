@@ -102,6 +102,12 @@ def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its data does not start on a 16-byte
+    boundary (the kernels read rows with 16-byte loads)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 

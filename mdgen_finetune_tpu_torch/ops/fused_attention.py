@@ -5,8 +5,12 @@ Kernels: ``csrc/fused_attention.cu`` (forward) and
 ``csrc/fused_attention_bwd.cu`` (backward). They replace the JAX package's
 ``ops/fused_attention.py::_fwd_tpu`` (body ``_fwd_kernel``) and
 ``_bwd_tpu`` (body ``_bwd_kernel``), the TPU kernels that keep a whole
-row's K/V (up to 4,096 keys) in VMEM. On the card the keys stream
-through shared memory in 64-key tiles, so M has no cap from shared memory.
+row's K/V (up to 4,096 keys) in VMEM. On the card the forward streams the
+keys through shared memory in 64-key tiles; the backward is two passes,
+dq (a row's keys and values resident in shared memory) then dK / dV (its
+queries and dout resident), each in windows where a row does not fit (the
+schedule is ``long_attention.dq_plan`` / ``dkdv_plan``), so M has no cap
+from shared memory.
 
 Interface (the JAX package's ``fused_attention``): q (B, H, N, D) already
 scaled (and RoPE'd); k, v (B, H, M, D); ``key_valid`` (B, M) f32 with
@@ -43,12 +47,15 @@ import torch
 from ..models.attention_core import LN2, LOG2E, NEG_INF, attention_core
 from ..models.rope import apply_rope
 from . import _cuda
+from .long_attention import dkdv_plan, dq_plan
 
 HEAD_DIMS = (16, 24, 32, 64)
 
 _FWD_ARGTYPES = [_cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P,
                  _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.P]
-_BWD_ARGTYPES = [_cuda.P] * 11 + [_cuda.I32] * 6 + [_cuda.P]
+# pointers, (R, N, M, H, D, base2), the stream, then the schedule: the dq
+# pass's (chunk, window) and the dK / dV pass's
+_BWD_ARGTYPES = [_cuda.P] * 11 + [_cuda.I32] * 6 + [_cuda.P] + [_cuda.I32] * 4
 
 
 def fused_attention_plain(q, k, v, key_valid=None, *, base2: bool = False):
@@ -154,8 +161,8 @@ fused_attention_bwd_plain.cuda_calls = 0
 def fused_attention_bwd(q, k, v, key_valid, o, stat, dout, *, base2: bool = False):
     """The backward: (dq, dk, dv) in q's dtype from the forward's inputs,
     its output ``o``, its ``stat`` and the upstream gradient ``dout``. The
-    kernel on CUDA tensors (deterministic: one pass over key tiles for dk
-    and dv, one over query tiles for dq, no atomics), the plain version on
+    kernel on CUDA tensors (deterministic: a dq pass over each row's keys,
+    then a dK / dV pass over its queries, no atomics), the plain version on
     CPU tensors."""
     if not q.is_cuda:
         return fused_attention_bwd_plain(q, k, v, key_valid, o, stat, dout, base2=base2)
@@ -163,19 +170,40 @@ def fused_attention_bwd(q, k, v, key_valid, o, stat, dout, *, base2: bool = Fals
     _check("o", o, (B, H, N, D), torch.bfloat16)
     _check("dout", dout, (B, H, N, D), torch.bfloat16)
     _check("stat", stat, (B, H, N), torch.float32)
+    q, k, v, o, dout = map(_cuda.aligned, (q, k, v, o, dout))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(B * H * N, dtype=torch.float32, device=q.device)
+    pq, pk = dq_plan(B * H, N, M, D), dkdv_plan(B * H, N, M, D)
     lib = _cuda.library("fused_attention_bwd", _BWD_ARGTYPES)
     code = lib.fused_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
                                    o.data_ptr(), dout.data_ptr(), stat.data_ptr(), dq.data_ptr(),
                                    dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B * H, N, M, H,
-                                   D, int(base2), _cuda.stream_ptr(q))
+                                   D, int(base2), _cuda.stream_ptr(q), pq.chunk, pq.win, pk.chunk,
+                                   pk.win)
     _cuda.check(code, "fused_attention_bwd")
     fused_attention_bwd.launches += 1
     return dq, dk, dv
 
 
 fused_attention_bwd.launches = 0
+
+
+def bwd_resources(R: int, N: int, M: int, D: int, base2: bool = True) -> dict:
+    """The backward's launch resources at that shape (on the card), per
+    pass: its schedule, registers and local (spill) bytes per thread,
+    dynamic shared memory per block, resident blocks per SM."""
+    lib = _cuda.library("fused_attention_bwd", _BWD_ARGTYPES)
+    fn = lib.fused_attention_bwd_resources
+    fn.argtypes = [_cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.P]
+    out = {}
+    for i, (name, sched) in enumerate((("dq", dq_plan(R, N, M, D)),
+                                       ("dkdv", dkdv_plan(R, N, M, D)))):
+        info = (_cuda.I64 * 4)()
+        _cuda.check(fn(i, sched.win, D, int(base2), info), "fused_attention_bwd_resources")
+        out[name] = dict(registers=info[0], local_bytes=info[1], smem_bytes=info[2],
+                         blocks_per_sm=info[3], blocks=sched.blocks, tiles_per_block=sched.chunk,
+                         windows=sched.windows)
+    return out
 
 
 class FusedAttentionFn(torch.autograd.Function):

@@ -1,10 +1,13 @@
 """tiled_attention: the frame-attention core at long T, with the same
 interface as ``rope_attention`` but no limit on N from shared memory.
 
-Kernel: ``csrc/tiled_attention.cu`` (a block per (sequence, head, 64-query
-tile); K and V stream through shared memory in 64-key tiles; mma.sync
-products with f32 accumulators). It replaces the attention core of the JAX
-package's ``ops/time_attention.py::_block_pallas_fwd_blocked`` (body
+Kernel: ``csrc/tiled_attention.cu`` (a block of 8 warps per (sequence,
+head, chunk of 16-query tiles) stages the head's RoPE'd keys and values
+once in shared memory; every warp walks them for each of its query tiles
+with mma.sync products and f32 accumulators; keys that do not fit come in
+windows; the schedule is ``long_attention.forward_plan``). It replaces the
+attention core of the JAX package's
+``ops/time_attention.py::_block_pallas_fwd_blocked`` (body
 ``_block_kernel_blocked``), the TPU kernel of the frame stage at
 T > MAX_T, and in its natural mode ``time_attention.py::_pallas_fwd_blocked``
 (:343), the modular layer's attention core above L = 8 or T = 256.
@@ -18,7 +21,7 @@ always attendable; key_valid (G, N, I) f32, 1 = attendable. ``base2``: q
 carries head_dim**-0.5 * log2(e) and the softmax is exp2 without a max (the
 fused trunk); otherwise q carries head_dim**-0.5 and the softmax is the
 natural one with its max subtracted, kept as a running max across the key
-tiles (the modular layer). Returns (G, N, I, C).
+steps (the modular layer). Returns (G, N, I, C).
 """
 from __future__ import annotations
 
@@ -26,10 +29,13 @@ import torch
 
 from ..models.rope import rope_tables
 from . import _cuda
+from .long_attention import forward_plan
 from .rope_attention import rope_attention_math
 
+# pointers, (G, N, I, H, C, base2), the stream, then the schedule (chunk, win)
 _ARGTYPES = [_cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P,
-             _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.P]
+             _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.P,
+             _cuda.I32, _cuda.I32]
 
 
 def tiled_attention_plain(qkv, bias_k, bias_v, key_valid, *, num_heads: int,
@@ -67,17 +73,35 @@ def tiled_attention(qkv, bias_k, bias_v, key_valid, *, num_heads: int, base2: bo
         raise ValueError("tiled_attention: key_valid must be a contiguous f32 (G, N, I) tensor")
     if out is None:
         out = torch.empty(G, N, I, C, dtype=torch.bfloat16, device=qkv.device)
-    elif out.dtype != torch.bfloat16 or not out.is_contiguous() or tuple(out.shape) != (G, N, I, C):
-        raise ValueError("tiled_attention: out must be a contiguous bf16 (G, N, I, C) tensor")
+    elif (out.dtype != torch.bfloat16 or not out.is_contiguous() or tuple(out.shape) != (G, N, I, C)
+          or out.data_ptr() % 16):
+        raise ValueError("tiled_attention: out must be a contiguous, 16-byte aligned bf16 "
+                         "(G, N, I, C) tensor")
     cos, sin = rope_tables(N + 1, D, device=qkv.device)
+    sched = forward_plan(G * I * num_heads, N, D)
+    qkv = _cuda.aligned(qkv)
     lib = _cuda.library("tiled_attention", _ARGTYPES)
     code = lib.tiled_attention(qkv.data_ptr(), bias_k.data_ptr(), bias_v.data_ptr(),
                                key_valid.data_ptr(), cos.data_ptr(), sin.data_ptr(),
                                out.data_ptr(), G, N, I, num_heads, C, int(base2),
-                               _cuda.stream_ptr(qkv))
+                               _cuda.stream_ptr(qkv), sched.chunk, sched.win)
     _cuda.check(code, "tiled_attention")
     tiled_attention.launches += 1
     return out
 
 
 tiled_attention.launches = 0
+
+
+def resources(G: int, N: int, I: int, num_heads: int, D: int, base2: bool = True) -> dict:
+    """The kernel's launch resources at that shape (on the card): its
+    schedule, registers and local (spill) bytes per thread, dynamic shared
+    memory per block, resident blocks per SM."""
+    sched = forward_plan(G * I * num_heads, N, D)
+    lib = _cuda.library("tiled_attention", _ARGTYPES)
+    fn = lib.tiled_attention_resources
+    fn.argtypes = [_cuda.I32, _cuda.I32, _cuda.I32, _cuda.P]
+    info = (_cuda.I64 * 4)()
+    _cuda.check(fn(sched.win, D, int(base2), info), "tiled_attention_resources")
+    return dict(registers=info[0], local_bytes=info[1], smem_bytes=info[2], blocks_per_sm=info[3],
+                blocks=sched.blocks, query_tiles_per_block=sched.chunk, windows=sched.windows)

@@ -192,30 +192,48 @@ def test_linear_bwd_tiling_edges_on_card(M, K, N, nb):
             _close(a, c)
 
 
+# sequence lengths at and around the long-key kernels' tile (16), step (64)
+# and window boundaries, the ATLAS lengths and T = 1000
+LONG_N = (63, 64, 65, 255, 256, 257, 1000, 1001, 4096)
+
+
+def _long_mask(G, N, I, win):
+    """The key mask of the long-key kernel tests over (G, N, I): a 64-key
+    step of masked keys, a whole window of them where N spans more than
+    one window, masked frames, and sequence (1, 0) whose only valid key is
+    the bias key."""
+    mask = torch.ones(G, N, I, device="cuda")
+    mask[0, 64:128] = 0
+    if N > win:
+        mask[0, win:2 * win, 0] = 0
+    mask[0, N // 2:, -1] = 0
+    mask[1, :, 0] = 0
+    return mask
+
+
 @pytest.mark.cuda
 def test_tiled_attention_matches_plain_on_card():
-    """On the card: the key-tiled frame-attention core against its plain
-    twin at every supported head dim and at N = 100, 1000 and 4096 (the JAX
-    package's fused_attention ceiling), with masked frames, a key tile of
-    64 keys that holds only masked keys, and one sequence whose only valid
-    key is the bias key."""
+    """On the card: the long-key frame-attention core (base 2) against its
+    plain twin at every supported head dim, at N around every tile, step
+    and window boundary (``LONG_N``, to 4,096, the JAX package's
+    fused_attention ceiling) and in both ATLAS views ((1, 250, 256) frames,
+    (250, 256, 1) residues), with the masks of ``_long_mask``."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.ops.long_attention import forward_plan
     from mdgen_finetune_tpu_torch.ops.tiled_attention import tiled_attention, tiled_attention_plain
 
     g = torch.Generator(device="cuda").manual_seed(2)
-    Gc, Ic, Hc = 2, 2, 2
+    Hc = 2
     for D in (16, 24, 32, 64):
         C = Hc * D
-        for N in (100, 1000, 4096):
+        views = [(2, N, 2) for N in LONG_N] + [(2, 250, 256), (250, 256, 1)]
+        for Gc, N, Ic in views:
             qkv = torch.randn(Gc, N, Ic, 3 * C, generator=g, device="cuda").to(torch.bfloat16)
             qkv[..., :C] *= 0.5 * D ** -0.5
             bk = torch.randn(C, generator=g, device="cuda").to(torch.bfloat16)
             bv = torch.randn(C, generator=g, device="cuda").to(torch.bfloat16)
-            mask = torch.ones(Gc, N, Ic, device="cuda")
-            mask[0, 64:128] = 0      # the whole second key tile
-            mask[0, N // 2:, 1] = 0  # masked frames
-            mask[1, :, 0] = 0        # only the bias key is valid
+            mask = _long_mask(Gc, N, Ic, forward_plan(Gc * Ic * Hc, N, D).win)
             got = tiled_attention(qkv, bk, bv, mask, num_heads=Hc)
             ref = tiled_attention_plain(qkv.float(), bk.float(), bv.float(), mask, num_heads=Hc)
             torch.cuda.synchronize()
@@ -224,19 +242,21 @@ def test_tiled_attention_matches_plain_on_card():
 
 @pytest.mark.cuda
 def test_tiled_attention_natural_matches_plain_on_card():
-    """On the card: the key-tiled core's natural mode (``base2=False``, a
-    running max per query row across key tiles) against its plain twin at
-    every supported head dim, over frames at N = 300 and 1000 and over
-    residues at L = 9 and 256 (the view (B*T, L, 1)), with the masks of the
-    base-2 test; and with q scaled so that the logits reach ~1e3, where exp
-    without the max overflows f32: the max must be subtracted. There a
-    logit moves by ~2 when the kernel rounds the RoPE'd q and k to bf16 (as
-    the JAX kernel does), so the reference is the plain math with that
-    rounding (``rope_attention_math(stage=bf16)``), with q and k nonzero in
-    the first half of each head's lanes only: RoPE is one product per lane
+    """On the card: the long-key core's natural mode (``base2=False``, a
+    running max per query row across the key steps, the rescale skipped
+    where no row's max rose) against its plain twin at every supported
+    head dim, at ``LONG_N`` and in both ATLAS views with the masks of
+    ``_long_mask``, over residues at L = 9 (the view (B*T, L, 1)); and with
+    q scaled so that the logits reach ~1e3, where exp without the max
+    overflows f32: the max must be subtracted. There a logit moves by ~2
+    when the kernel rounds the RoPE'd q and k to bf16 (as the JAX kernel
+    does), so the reference is the plain math with that rounding
+    (``rope_attention_math(stage=bf16)``), with q and k nonzero in the
+    first half of each head's lanes only: RoPE is one product per lane
     there, so that kernel and reference round the same f32 values."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.ops.long_attention import forward_plan
     from mdgen_finetune_tpu_torch.ops.rope_attention import rope_attention_math
     from mdgen_finetune_tpu_torch.ops.tiled_attention import tiled_attention, tiled_attention_plain
 
@@ -244,8 +264,10 @@ def test_tiled_attention_natural_matches_plain_on_card():
     Hc = 2
     for D in (16, 24, 32, 64):
         C = Hc * D
-        for (Gc, N, Ic), qs in (((2, 300, 2), 1.0), ((2, 1000, 2), 1.0), ((6, 9, 1), 1.0),
-                                ((3, 256, 1), 1.0), ((2, 300, 2), 400.0)):
+        views = ([((2, N, 2), 1.0) for N in LONG_N]
+                 + [((2, 250, 256), 1.0), ((250, 256, 1), 1.0), ((6, 9, 1), 1.0),
+                    ((2, 300, 2), 400.0), ((2, 1001, 2), 400.0)])
+        for (Gc, N, Ic), qs in views:
             qkv = torch.randn(Gc, N, Ic, 3 * C, generator=g, device="cuda")
             qkv[..., :C] *= 0.5 * D ** -0.5 * qs
             bk = torch.randn(C, generator=g, device="cuda")
@@ -254,10 +276,7 @@ def test_tiled_attention_natural_matches_plain_on_card():
                 bk.view(Hc, 2, D // 2)[:, 1] = 0
             qkv, bk = qkv.to(torch.bfloat16), bk.to(torch.bfloat16)
             bv = torch.randn(C, generator=g, device="cuda").to(torch.bfloat16)
-            mask = torch.ones(Gc, N, Ic, device="cuda")
-            mask[0, 64:128] = 0      # a whole key tile (past N: nothing)
-            mask[0, N // 2:, -1] = 0  # masked keys
-            mask[1] = 0              # only the bias key is valid
+            mask = _long_mask(Gc, N, Ic, forward_plan(Gc * Ic * Hc, N, D).win)
             got = tiled_attention(qkv, bk, bv, mask, num_heads=Hc, base2=False)
             if qs == 1.0:
                 ref = tiled_attention_plain(qkv.float(), bk.float(), bv.float(), mask,
@@ -400,35 +419,46 @@ def test_rope_attention_bwd_long_body_on_card(D):
                 assert 0 < scale and (a - b).abs().max().item() <= 1e-2 * scale, (N, qs, gs, j)
 
 
+def _fused_case(g, Bc, Hc, N, D, win):
+    """q, k, v, dout and the key mask (Bc, N + 1) of the fused_attention
+    tests: a 64-key step of masked keys, a whole dq-pass window of them
+    where the keys span more than one window, masked keys, and row 1 whose
+    only valid key is the last."""
+    M = N + 1
+
+    def r(*s, sc=1.0):
+        return (torch.randn(*s, generator=g, device="cuda") * sc).to(torch.bfloat16)
+
+    q, k, v, do = r(Bc, Hc, N, D, sc=0.5 * D ** -0.5), r(Bc, Hc, M, D), r(Bc, Hc, M, D), \
+        r(Bc, Hc, N, D)
+    kv = torch.ones(Bc, M, device="cuda")
+    kv[0, 64:128] = 0
+    if M > win:
+        kv[0, win:2 * win] = 0
+    kv[0, N // 2:N] = 0
+    kv[1, :-1] = 0
+    return q, k, v, do, kv
+
+
 @pytest.mark.cuda
 def test_fused_attention_matches_plain_on_card():
     """On the card: the fused_attention forward (output and row statistic)
     and backward kernels against their plain twins in f32 on the same
-    inputs, at every supported head dim, N = 100, 1000 and 4096 queries
-    (N + 1 keys), both softmaxes, with masked keys, a key tile of 64 keys
-    that holds only masked keys, and one row whose only valid key is the
-    last. The statistic (a log2) is held to 1e-2 absolute."""
+    inputs, at every supported head dim, N in ``LONG_N`` queries (N + 1
+    keys), both softmaxes, with the masks of ``_fused_case``. The
+    statistic (a log2) is held to 1e-2 absolute."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
     from mdgen_finetune_tpu_torch.ops.fused_attention import (
         fused_attention_bwd, fused_attention_bwd_plain, fused_attention_fwd,
         fused_attention_fwd_plain)
+    from mdgen_finetune_tpu_torch.ops.long_attention import dq_plan
 
     g = torch.Generator(device="cuda").manual_seed(3)
     Bc, Hc = 2, 2
     for D in (16, 24, 32, 64):
-        for N in (100, 1000, 4096):
-            M = N + 1
-
-            def r(*s, sc=1.0):
-                return (torch.randn(*s, generator=g, device="cuda") * sc).to(torch.bfloat16)
-
-            q, k, v, do = r(Bc, Hc, N, D, sc=0.5 * D ** -0.5), r(Bc, Hc, M, D), r(Bc, Hc, M, D), \
-                r(Bc, Hc, N, D)
-            kv = torch.ones(Bc, M, device="cuda")
-            kv[0, 64:128] = 0       # a whole key tile
-            kv[0, N // 2:N] = 0     # masked keys
-            kv[1, :-1] = 0          # only the last key is valid
+        for N in LONG_N:
+            q, k, v, do, kv = _fused_case(g, Bc, Hc, N, D, dq_plan(Bc * Hc, N, N + 1, D).win)
             for base2 in (True, False):
                 o, stat = fused_attention_fwd(q, k, v, kv, base2=base2)
                 ro, rstat = fused_attention_fwd_plain(q.float(), k.float(), v.float(), kv,
@@ -442,6 +472,28 @@ def test_fused_attention_matches_plain_on_card():
                 torch.cuda.synchronize()
                 for a, b in zip(got, ref):
                     _close(a, b)
+
+
+@pytest.mark.cuda
+def test_fused_attention_bwd_is_deterministic_on_card():
+    """On the card: two fused_attention_bwd calls on the same inputs give
+    the same bits (dq sums over the keys in one warp's registers in key
+    order; no atomics), at the T = 1000 path's head dim and at N = 4096,
+    where the keys come in windows, in both softmaxes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.ops.fused_attention import fused_attention_bwd, fused_attention_fwd
+    from mdgen_finetune_tpu_torch.ops.long_attention import dq_plan
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    for Bc, Hc, N, D in ((4, 16, 1000, 24), (2, 2, 4096, 24), (2, 2, 1001, 64)):
+        q, k, v, do, kv = _fused_case(g, Bc, Hc, N, D, dq_plan(Bc * Hc, N, N + 1, D).win)
+        for base2 in (True, False):
+            o, stat = fused_attention_fwd(q, k, v, kv, base2=base2)
+            one = fused_attention_bwd(q, k, v, kv, o, stat, do, base2=base2)
+            two = fused_attention_bwd(q, k, v, kv, o, stat, do, base2=base2)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(one, two)), (N, D, base2)
 
 
 def _rel(a, b):

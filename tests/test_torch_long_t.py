@@ -120,10 +120,9 @@ def test_tiled_attention_plain_matches_jax_core(inputs):
 
 
 @pytest.mark.parametrize("fn", [tiled_attention, tiled_attention_plain])
-def test_tiled_attention_refuses_the_natural_exp_softmax(inputs, fn):
-    """``tiled_attention`` took only the base-2 softmax until the modular
-    layer needed its natural mode (TPU row 11b); it no longer refuses it. On
-    CPU tensors the wrapper and its plain version give the natural softmax of
+def test_tiled_attention_natural_matches_jax_core(inputs, fn):
+    """The natural softmax of ``tiled_attention`` (TPU row 11b): on CPU
+    tensors the wrapper and its plain version give the natural softmax of
     the JAX package's ``time_attention._xla_impl(base2=False)`` at T = 264,
     with q carrying head_dim**-0.5 only."""
     i = inputs
