@@ -69,13 +69,20 @@ package) checks every op's plain and position-weighted sums against its
 plain version and prints its marginal-cost table.
 
 With ``MDGEN_PARENT_CSRC`` set to the csrc directory of another checkout
-(a ``git archive`` of the parent commit), the entries of the long-key
-attention kernels (``tiled_attention``, ``fused_attention_bwd``, and
-``fused_attention``'s forward beside them) and of the compositions around
-them (``time_attention_block`` at T = 1000, ``residue_rows_block`` and the
+(a ``git archive`` of the parent commit), built beside this checkout's
+kernels from the start, the entries of ``adaln_linear`` (every use), of
+``fused_attention``'s forward (its three shapes: T = 1000 in both
+softmaxes, the ``no_rope`` frame and residue views), of the merged layer
+backward (its launch, and the split route on the parent's
+``adaln_linear``), of the long-key attention kernels (``tiled_attention``,
+``fused_attention_bwd``) and of the compositions around them
+(``time_attention_block`` at T = 1000, ``residue_rows_block`` and the
 stage backwards at ATLAS, ``time_attention_block_bwd``) also time that
 checkout's kernels on the same inputs (``parent``); the kernels' entries
-carry the exp2 floor and their launch resources either way.
+carry their launch resources (and the long-key ones the exp2 floor) either
+way. ``main_path`` asserts ``adaln_linear``'s launches by route as derived
+from the code, and the kernel line splits ``fused_attention``'s ``no_rope``
+launches by form: the residue view (short form) and the frame view (long).
 
 Each phase prints one JSON line; the kernel line (times, bounds, launches)
 comes second to last, and the last line is ``{"ok": true, "device": {...}}``.
@@ -186,34 +193,44 @@ def check(name, got, ref, rel_tol):
 
 
 _PARENT_LIBS: dict = {}
-# the long-key attention kernels, and row h, which shares their training path
-PARENT_KERNELS = ("tiled_attention", "fused_attention", "fused_attention_bwd")
+_PARENT_BUILDS: list = []
+# the kernels this slice redesigned (rows a and h; row 4', the merged layer
+# backward, runs row a's body) and the long-key kernels of the slice before
+PARENT_KERNELS = ("adaln_linear", "fused_attention", "fused_layer_bwd", "tiled_attention",
+                  "fused_attention_bwd")
 
 
-def parent_lib(name):
-    """The library of kernel ``name`` built from MDGEN_PARENT_CSRC (the csrc
-    directory of another checkout, e.g. a ``git archive`` of the parent
-    commit), or None without it: the kernel phases time those sources on the
-    same inputs beside this checkout's. Those kernels are built at
-    the first call, in parallel."""
-    import ctypes
-
+def start_parent_builds():
+    """Start building the kernels of MDGEN_PARENT_CSRC (the csrc directory of
+    another checkout, e.g. a ``git archive`` of the parent commit), one nvcc
+    per source, beside this checkout's build; no-op without it."""
     from mdgen_finetune_tpu_torch.ops import _cuda
 
     parent = os.environ.get("MDGEN_PARENT_CSRC")
-    if not parent or name not in PARENT_KERNELS:
+    if not parent or _PARENT_BUILDS:
+        return
+    out = SCRATCH / "parent_build"
+    out.mkdir(parents=True, exist_ok=True)
+    for n in PARENT_KERNELS:
+        _PARENT_BUILDS.append((n, out / f"{n}.so", subprocess.Popen(
+            [_cuda.nvcc(), *_cuda.FLAGS, "-o", str(out / f"{n}.so"), os.path.join(parent, f"{n}.cu")],
+            stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)))
+
+
+def parent_lib(name):
+    """The library of kernel ``name`` built from MDGEN_PARENT_CSRC, or None
+    without it: the kernel phases time those sources on the same inputs
+    beside this checkout's (the builds started by ``start_parent_builds``)."""
+    import ctypes
+
+    if not os.environ.get("MDGEN_PARENT_CSRC") or name not in PARENT_KERNELS:
         return None
     if not _PARENT_LIBS:
-        out = SCRATCH / "parent_build"
-        out.mkdir(parents=True, exist_ok=True)
-        procs = [(n, subprocess.Popen([_cuda.nvcc(), *_cuda.FLAGS, "-o", str(out / f"{n}.so"),
-                                       os.path.join(parent, f"{n}.cu")],
-                                      stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT))
-                 for n in PARENT_KERNELS]
-        for n, p in procs:
+        start_parent_builds()
+        for n, so, p in _PARENT_BUILDS:
             if p.wait() != 0:
                 raise RuntimeError(f"the parent's {n}.cu did not build")
-            _PARENT_LIBS[n] = ctypes.CDLL(str(out / f"{n}.so"))
+            _PARENT_LIBS[n] = ctypes.CDLL(str(so))
     return _PARENT_LIBS[name]
 
 
@@ -254,6 +271,7 @@ def phase_kernels(dev):
     import torch.nn.functional as F
 
     from mdgen_finetune_tpu_torch.geometry.rigid import Rigid
+    from mdgen_finetune_tpu_torch.ops import adaln_linear as AL
     from mdgen_finetune_tpu_torch.ops.adaln_linear import adaln_linear, adaln_linear_plain
     from mdgen_finetune_tpu_torch.ops.ipa_attention import (
         feat_width, ipa_attention, ipa_attention_plain, proj_width)
@@ -272,46 +290,94 @@ def phase_kernels(dev):
         return None if t is None else t.float()
 
     out = {}
-    # ---- adaln_linear: every use on the main path ----
+    # ---- adaln_linear: every use on the main path, each on the route its plan takes ----
     x, res = r(M, C), r(M, C)
     sh, scl, gate = r(B, C, sc=0.3), r(B, C, sc=0.3), r(B, C, sc=0.3)
     carry = r(M, 21, dtype=f32)
-    uses = {
-        "qkv": (x, r(C, 3 * C, sc=C ** -0.5), r(3 * C, sc=0.1), dict(ln="plain", shift=sh, scale=scl)),
-        "out_gate": (x, r(C, C, sc=C ** -0.5), r(C, sc=0.1), dict(epilogue="gate_res", res=res, gate=gate)),
+    pw, fw = proj_width(4, 32, 8, 8), feat_width(4, 32, 8)
+    uses = {  # name: (x, w, b, kwargs, route: 0 resident, 1 pipelined, 2 tiled64)
+        "qkv": (x, r(C, 3 * C, sc=C ** -0.5), r(3 * C, sc=0.1), dict(ln="plain", shift=sh, scale=scl), 0),
+        "out_gate": (x, r(C, C, sc=C ** -0.5), r(C, sc=0.1), dict(epilogue="gate_res", res=res, gate=gate), 0),
         "fc1_gelu": (x, r(C, 4 * C, sc=C ** -0.5), r(4 * C, sc=0.1),
-                     dict(ln="plain", shift=sh, scale=scl, epilogue="gelu")),
+                     dict(ln="plain", shift=sh, scale=scl, epilogue="gelu"), 0),
         "fc2_gate": (r(M, 4 * C), r(4 * C, C, sc=(4 * C) ** -0.5), r(C, sc=0.1),
-                     dict(epilogue="gate_res", res=res, gate=gate)),
+                     dict(epilogue="gate_res", res=res, gate=gate), 1),
         "head_euler": (x, r(C, 21, sc=C ** -0.5), r(21, sc=0.1),
-                       dict(ln="plain", shift=sh[:1], scale=scl[:1], epilogue="euler", res=carry, dt=0.01)),
+                       dict(ln="plain", shift=sh[:1], scale=scl[:1], epilogue="euler", res=carry, dt=0.01), 2),
         "embed_add": (r(M, 21, dtype=f32), r(21, C, sc=0.2), None,
-                      dict(epilogue="add", add1=r(M, C), add2=r(B * L, C), add2_map=(T * L, L, L))),
-        "ipa_proj_affine": (x, r(C, proj_width(4, 32, 8, 8), sc=C ** -0.5), r(proj_width(4, 32, 8, 8), sc=0.1),
+                      dict(epilogue="add", add1=r(M, C), add2=r(B * L, C), add2_map=(T * L, L, L)), 2),
+        "ipa_proj_affine": (x, r(C, pw, sc=C ** -0.5), r(pw, sc=0.1),
                             dict(ln="affine", ln_weight=1 + r(C, sc=0.1, dtype=f32),
-                                 ln_bias=r(C, sc=0.1, dtype=f32), out_dtype=f32)),
-        "ipa_out": (r(M, feat_width(4, 32, 8)), r(feat_width(4, 32, 8), C, sc=0.06), r(C, sc=0.1),
-                    dict(epilogue="gate_res", res=res)),
+                                 ln_bias=r(C, sc=0.1, dtype=f32), out_dtype=f32), 0),
+        "ipa_out": (r(M, fw), r(fw, C, sc=0.06), r(C, sc=0.1), dict(epilogue="gate_res", res=res), 0),
     }
-    errs, use_ms = {}, {}
-    for name, (a, w, b, kw) in uses.items():
+
+    def library(a, w, b, kw):
+        """The same function as one chain of PyTorch calls: LayerNorm and
+        modulate in f32, addmm in bf16, the epilogue."""
+        Kd = w.shape[0]
+        h = a.float()
+        if kw.get("ln") == "plain":
+            h = F.layer_norm(h, (Kd,), eps=1e-6)
+        elif kw.get("ln") == "affine":
+            h = F.layer_norm(h, (Kd,), kw["ln_weight"], kw["ln_bias"], eps=1e-5)
+        if kw.get("shift") is not None:
+            rows = M // kw["shift"].shape[0]
+            h = h * (1 + kw["scale"].float().repeat_interleave(rows, 0)) \
+                + kw["shift"].float().repeat_interleave(rows, 0)
+        h = h.to(bf)
+        y = torch.mm(h, w) if b is None else torch.addmm(b, h, w)
+        epi = kw.get("epilogue", "none")
+        if epi == "gelu":
+            return F.gelu(y)
+        if epi == "gate_res":
+            g_ = kw.get("gate")
+            return kw["res"] + (y if g_ is None else g_.repeat_interleave(M // g_.shape[0], 0) * y)
+        if epi == "euler":
+            return kw["res"] + kw["dt"] * y.float()
+        if epi == "add":
+            div, mul, mod = kw["add2_map"]
+            idx = torch.arange(M, device=dev)
+            return y + kw["add1"] + kw["add2"][(idx // div) * mul + idx % mod]
+        return y.float() if kw.get("out_dtype") == f32 else y
+
+    errs, use_out = {}, {}
+    for name, (a, w, b, kw, route) in uses.items():
+        p = AL.plan(a, w, b, **kw)
+        if p.route != route:
+            raise AssertionError(f"adaln_linear[{name}]: route {p.name}, expected "
+                                 f"{AL.ROUTES[route]} (plan {p})")
         got = adaln_linear(a, w, b, **kw)
         kwf = {k: (f(v) if torch.is_tensor(v) and v.dtype == bf else v) for k, v in kw.items()}
         ref = adaln_linear_plain(a.float(), w.float(), f(b), **kwf)
         errs[name] = check(f"adaln_linear[{name}]", got, ref, 1e-2)
-        use_ms[name] = time_ms(lambda: adaln_linear(a, w, b, **kw))
-    a, w, b, kw = uses["fc1_gelu"]
-    Kd, Nd = w.shape
-    lib = lambda: F.gelu(torch.addmm(  # noqa: E731
-        b, (F.layer_norm(a.float(), (Kd,), eps=1e-6) * (1 + scl.float().repeat_interleave(T * L, 0))
-            + sh.float().repeat_interleave(T * L, 0)).to(bf), w))
+        run = lambda: adaln_linear(a, w, b, **kw)  # noqa: E731
+        Kd, Nd = w.shape
+        obytes = M * Nd * (4 if got.dtype == f32 else 2)
+        ins = [t for t in (a, w, b, kw.get("shift"), kw.get("scale"), kw.get("gate"), kw.get("res"),
+                           kw.get("add1"), kw.get("add2"), kw.get("ln_weight"), kw.get("ln_bias"))
+               if t is not None]
+        use_out[name] = dict(
+            route=p.name, shape=f"({M},{Kd}) @ ({Kd},{Nd})", plan=dataclasses.asdict(p),
+            max_abs_err=errs[name][0], tol=errs[name][1],
+            ms=time_ms(run), back_to_back_ms=back_to_back_ms(run),
+            parent=parent_times("adaln_linear", run),
+            library_ms=time_ms(lambda: library(a, w, b, kw)),
+            bare_mm_ms=time_ms(lambda: torch.mm(a.to(bf), w)),
+            bound=bound_ms(nbytes(*ins) + obytes, 2.0 * M * Kd * Nd),
+            resources=AL.resources(p, got.dtype == f32, kw.get("epilogue", "none"))
+            if p.route < 2 else None)
+        del got, ref
+    a, w, b, kw, _ = uses["fc1_gelu"]
+    fc1 = use_out["fc1_gelu"]
     out["adaln_linear"] = dict(
-        shape=f"fc1: LN+modulate, ({M},{Kd}) @ ({Kd},{Nd}), GELU", uses_ms=use_ms,
-        max_abs_err=max(e for e, _ in errs.values()),
+        shape=f"fc1: LN+modulate, {fc1['shape']}, GELU; every main-path use in uses",
+        uses=use_out, max_abs_err=max(e for e, _ in errs.values()),
         tol={k: t for k, (_, t) in errs.items()},
-        ms=use_ms["fc1_gelu"], plain_ms=time_ms(lambda: adaln_linear_plain(a, w, b, **kw)),
-        library_ms=time_ms(lib),
-        bound=bound_ms(nbytes(a, w, b, sh, scl) + M * Nd * 2, 2.0 * M * Kd * Nd))
+        ms=fc1["ms"], back_to_back_ms=fc1["back_to_back_ms"], parent=fc1["parent"],
+        plain_ms=time_ms(lambda: adaln_linear_plain(a, w, b, **kw)),
+        library_ms=fc1["library_ms"], bare_mm_ms=fc1["bare_mm_ms"], bound=fc1["bound"],
+        resources=fc1["resources"])
 
     # ---- rope_attention: stage 1, stage 2 (base 2) and the encoder MHA ----
     mask = torch.ones(B, T, L, device=dev)
@@ -1019,6 +1085,34 @@ def layer_case(dev, Bc, Tc, seed):
     return r(M, C), r(Bc, 9 * C, sc=0.3), w, mask, r(M, C)
 
 
+def merged_parent_times(FM, args, split):
+    """With MDGEN_PARENT_CSRC: the parent's merged layer backward on the same
+    launch slots (its entry point reads the first of this checkout's integer
+    slots, the layout it had), and the split route on the parent's
+    adaln_linear; else None."""
+    import ctypes
+
+    plib = parent_lib("fused_layer_bwd")
+    if plib is None:
+        return None
+    ptrs, ints, _ = FM.launch_slots(*args)
+    fn = plib.fused_layer_bwd
+    fn.argtypes, fn.restype = [ctypes.c_void_p] * 4, ctypes.c_int
+    p_arr = (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
+    i_arr = (ctypes.c_longlong * len(ints))(*ints)
+    info = (ctypes.c_longlong * 3)()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        code = fn(ctypes.addressof(p_arr), ctypes.addressof(i_arr), ctypes.addressof(info), stream)
+        if code:
+            raise RuntimeError(f"the parent's fused_layer_bwd failed to launch: cudaError {code}")
+
+    return dict(ms=time_ms(run, reps=10), back_to_back_ms=back_to_back_ms(run, n=20),
+                smem_bytes=info[2], blocks_per_sm=info[1],
+                split=parent_times("adaln_linear", split))
+
+
 def phase_merged_bwd_kernels(dev):
     """Row 4' (the merged layer backward: one cooperative launch per layer)
     at the training path's shape (B = 32, T = 100, L = 4, C = 384, 16 heads,
@@ -1089,6 +1183,7 @@ def phase_merged_bwd_kernels(dev):
             Bc * 9 * C * 4 + sum(v.numel() for v in wb.values()) * 4
         bound = bound_ms(io, flops)
         out[name] = dict(
+            parent=merged_parent_times(FM, args, lambda: layer_bwd_split(*args)),
             shape=f"B={Bc}, T={Tc}, L={L}, C={C}, {H} heads (M = {M} rows), one layer",
             bit_identical_to_split=not differ, differ_from_split=differ,
             rule_worst={k: rule[k] for k in sorted(rule, key=lambda k: rule[k][0] - rule[k][1])[-3:]},
@@ -1489,11 +1584,20 @@ def phase_main_path(dev, cfg):
         fn.launches = 0
     for fn in twins:
         fn.cuda_calls = 0
+    al.adaln_linear.routes = [0, 0, 0]
     t0 = time.perf_counter()
     out, _ = eng.sample(batch, gen)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     per_sample = {fn.__name__: fn.launches for fn in wrappers}
+    # adaln_linear's routes per sample, as derived from the code: per Euler
+    # step 5 resident products (qkv and out of both attention stages, fc1)
+    # and fc2 pipelined in each layer, the embed and the head on tiled64;
+    # the encoder's 6 products a layer (5 resident, fc2 pipelined) once
+    routes = dict(zip(al.ROUTES, al.adaln_linear.routes))
+    want_routes = dict(resident=5 * NL * (STEPS + 1), pipelined=NL * (STEPS + 1), tiled64=2 * STEPS)
+    if routes != want_routes:
+        raise AssertionError(f"main_path: adaln_linear's routes {routes}, expected {want_routes}")
     traj = eng.rollout(atom14, seqres, mask, 2, gen)
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in wrappers}
@@ -1508,6 +1612,7 @@ def phase_main_path(dev, cfg):
     emit({"phase": "main_path", "B": B, "T": T, "L": L, "C": C, "layers": NL, "steps": STEPS,
           "dtype": "bf16", "sample_s": secs, "steps_per_s": B * STEPS / secs,
           "launches_per_sample": per_sample, "launches": launches,
+          "adaln_linear_routes_per_sample": routes,
           "plain_calls_on_card": twin_calls, "rollout_windows": 2,
           "n_ca_mean": n_ca.mean().item(), "ca_c_mean": ca_c.mean().item(),
           "n_ca_max_dev": dev_nca, "ca_c_max_dev": dev_cac,
@@ -1750,6 +1855,9 @@ def phase_long_bwd_kernels(dev):
                  f"{'base 2' if base2 else 'natural exp'}")
         fwd = dict(shape=shape, max_abs_err=max(e_o[0], e_s[0]), tol={"o": e_o[1], "stat": e_s[1]},
                    ms=fwd_ms,
+                   back_to_back_ms=back_to_back_ms(lambda: FA.fused_attention_fwd(q, k, v, kv,
+                                                                                  base2=base2)),
+                   resources=FA.fwd_resources(R, N, M, D, base2), ex2_floor_ms=ex2_floor_ms(R * N * M),
                    parent=parent_times("fused_attention",
                                        lambda: FA.fused_attention_fwd(q, k, v, kv, base2=base2)),
                    plain_ms=time_ms(lambda: FA.fused_attention_fwd_plain(q, k, v, kv, base2=base2),
@@ -1777,6 +1885,30 @@ def phase_long_bwd_kernels(dev):
             kern["fused_attention_fwd"], kern["fused_attention_bwd"] = fwd, bwd
         else:
             kern["fused_attention_fwd"][name], kern["fused_attention_bwd"][name] = fwd, bwd
+    # row h's long form in the natural softmax at the T = 1000 shape
+    S, Hc, N, D = B_SIM * L, H, T_SIM, C // H
+    M = N + 1
+    q = r(S, Hc, N, D, sc=D ** -0.5)
+    k, v = r(S, Hc, M, D), r(S, Hc, M, D)
+    kv = torch.ones(S, M, device=dev)
+    kv[0, N // 2:N] = 0
+    o, stat = FA.fused_attention_fwd(q, k, v, kv, base2=False)
+    ro, rstat = FA.fused_attention_fwd_plain(q.float(), k.float(), v.float(), kv, base2=False)
+    e_o = check("fused_attention_fwd[4aa_T1000_natural]", o, ro, 1e-2)
+    e_s = check("fused_attention_fwd[4aa_T1000_natural].stat", stat, rstat, 1e-3)
+    del ro, rstat
+    am = ((kv - 1.0) * 1e9).to(bf)[:, None, None, :]
+    run = lambda: FA.fused_attention_fwd(q, k, v, kv, base2=False)  # noqa: E731
+    R = S * Hc
+    kern["fused_attention_fwd"]["4aa_T1000_natural"] = dict(
+        shape=f"{R} rows ({S} x {Hc} heads), {N} queries, {M} keys, D={D}, natural exp",
+        max_abs_err=max(e_o[0], e_s[0]), tol={"o": e_o[1], "stat": e_s[1]}, ms=time_ms(run),
+        back_to_back_ms=back_to_back_ms(run), resources=FA.fwd_resources(R, N, M, D, False),
+        parent=parent_times("fused_attention", run),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am, scale=1.0)),
+        bound=bound_ms(nbytes(q, k, v, kv, o, stat), 4.0 * R * N * M * D),
+        ex2_floor_ms=ex2_floor_ms(R * N * M))
+    del q, k, v, o, stat, am
 
     # the two stage backwards of the T = 1000 train step, as a whole
     M = B_SIM * T_SIM * L
@@ -2483,6 +2615,9 @@ def modular_sample(dev, name, cfg, batch_size, seed, pad=1):
     wrappers, twins = _counters(MODULAR_WRAPPERS)
     for fn in wrappers:
         fn.launches = 0
+        for part in ("routes", "forms"):  # adaln_linear's routes, fused_attention_fwd's forms
+            if hasattr(fn, part):
+                setattr(fn, part, [0] * len(getattr(fn, part)))
     for fn in twins:
         fn.cuda_calls = 0
     t0 = time.perf_counter()
@@ -2490,6 +2625,8 @@ def modular_sample(dev, name, cfg, batch_size, seed, pad=1):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in wrappers}
+    by_part = {f"{fn.__name__}.{part}": list(getattr(fn, part)) for fn in wrappers
+               for part in ("routes", "forms") if hasattr(fn, part)}
     twin_calls = {fn.__name__: fn.cuda_calls for fn in twins}
     evals = eng.last_counts["evals"]
     per_eval, calls = modular_launches_per_eval(cfg)
@@ -2502,8 +2639,9 @@ def modular_sample(dev, name, cfg, batch_size, seed, pad=1):
           "dtype": "bf16", "sample_s": secs, "frames_per_s": batch_size * Tc / secs,
           "s_per_sample": secs / batch_size, "ms_per_eval": secs / evals * 1e3, **eng.last_counts,
           "launches_per_sample": launches, "launches_per_eval_derived": per_eval,
+          "launches_by_route_or_form": by_part,
           "calls_per_eval_derived": calls, "plain_calls_on_card": twin_calls, **checks})
-    return launches, (eng, batch, gen)
+    return {**launches, **by_part}, (eng, batch, gen)
 
 
 def max_logit(qkv, bk, mask, Hc):
@@ -2538,6 +2676,7 @@ def phase_modular_kernels(dev):
     import torch.nn.functional as F
 
     from mdgen_finetune_tpu_torch.ops import blocked_attention_bwd as BA
+    from mdgen_finetune_tpu_torch.ops import fused_attention as FA
     from mdgen_finetune_tpu_torch.ops.fused_attention import (fused_attention_fwd,
                                                               fused_attention_fwd_plain)
     from mdgen_finetune_tpu_torch.ops.rope_attention import (rope_attention, rope_attention_math,
@@ -2619,14 +2758,21 @@ def phase_modular_kernels(dev):
         ref, _ = fused_attention_fwd_plain(q.float(), k.float(), v.float(), kv, base2=False)
         err = check(f"fused_attention_fwd[{name}]", got, ref, 1e-2)
         am = ((kv - 1.0) * 1e9).to(bf)[:, None, None, :]
+        run = lambda: fused_attention_fwd(q, k, v, kv, base2=False)  # noqa: E731
+        res_ = FA.fwd_resources(S_ * H, N_, N_ + 1, D, False)
         out[name] = dict(
-            shape=f"{S_} sequences x {H} heads, {N_} queries, {N_ + 1} keys, D = {D}, natural",
+            shape=f"{S_} sequences x {H} heads, {N_} queries, {N_ + 1} keys, D = {D}, natural, "
+                  f"{res_['form']} form",
             kernel="fused_attention_fwd", max_abs_err=err[0], tol=err[1],
-            ms=time_ms(lambda: fused_attention_fwd(q, k, v, kv, base2=False)),
+            ms=time_ms(run), back_to_back_ms=back_to_back_ms(run),
+            parent=parent_times("fused_attention", run), resources=res_,
             plain_ms=time_ms(lambda: fused_attention_fwd_plain(q, k, v, kv, base2=False), reps=5),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am,
                                                                        scale=1.0)),
-            bound=bound_ms(nbytes(q, k, v, kv) + q.numel() * 2,
+            library_back_to_back_ms=back_to_back_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=am, scale=1.0)),
+            # q, k, v, the mask, o and the statistic, each once
+            bound=bound_ms(nbytes(q, k, v, kv) + q.numel() * 2 + S_ * H * N_ * 4,
                            4.0 * S_ * H * N_ * (N_ + 1) * D))
     # blocked_attention_bwd beyond fp16's range (RoPE'd q ~ 2e5, k ~ 1e-5)
     arows, aframes = (B_ATLAS * T_ATLAS, L_ATLAS, 1), (B_ATLAS, T_ATLAS, L_ATLAS)
@@ -2835,10 +2981,11 @@ def phase_micro_ops(dev):
 
 
 KERNEL_OF = (("tiled_attention", "tiled_attention"),
-             ("fused_attention_fwd", "fused_attention_fwd"),
+             ("fused_attention_long", "fused_attention_fwd"),
+             ("fused_attention_short", "fused_attention_fwd"),
              ("fused_attention_d", "fused_attention_bwd"),
-             ("resident_kernel", "adaln_linear"), ("pipelined_kernel", "adaln_linear"),
-             ("tiled64_kernel", "adaln_linear"), ("rope_attention_bwd", "rope_attention_bwd"),
+             ("gemm_kernel", "adaln_linear"), ("tiled64_kernel", "adaln_linear"),
+             ("rope_attention_bwd", "rope_attention_bwd"),
              ("blocked_attention_bwd", "blocked_attention_bwd"),
              ("rope_attention", "rope_attention"), ("ipa_attention", "ipa_attention"),
              ("dgrad_kernel", "linear_bwd"), ("wgrad_kernel", "linear_bwd"),
@@ -2892,6 +3039,7 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    start_parent_builds()
     build_s = _cuda.build_all()
     dev = torch.device("cuda")
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
@@ -3044,9 +3192,15 @@ def main():
         ("tiled_attention[natural, row 11b]", "row11b_frames_T1000", "tiled_attention",
          f"{ta}:343 (_pallas_fwd_blocked, pallas_call :385, body _kernel_blocked :303)",
          interleave_1000["tiled_attention"]),
-        ("fused_attention_fwd[natural, no_rope]", "no_rope_frames", "fused_attention_fwd",
-         "mdgen_finetune_tpu/ops/fused_attention.py:66 (_fwd_tpu, pallas_call :75)",
-         no_rope_launches["fused_attention_fwd"]),
+        # the no_rope route by view: the residue view (the trunk's residue
+        # stage and the encoder's, 2 per layer and evaluation) runs the short
+        # form, the frame view (1 per layer) the long one; launches counted by form
+        ("fused_attention_fwd[natural, no_rope residue view]", "no_rope_residue",
+         "fused_attention_fwd", "mdgen_finetune_tpu/ops/fused_attention.py:66 (_fwd_tpu, "
+         "pallas_call :75)", no_rope_launches["fused_attention_fwd.forms"][1]),
+        ("fused_attention_fwd[natural, no_rope frame view]", "no_rope_frames",
+         "fused_attention_fwd", "mdgen_finetune_tpu/ops/fused_attention.py:66 (_fwd_tpu, "
+         "pallas_call :75)", no_rope_launches["fused_attention_fwd.forms"][0]),
     )
     for name, case, src, rep_, n_launch in natural:
         k = modular[case]
@@ -3071,7 +3225,7 @@ def main():
                  "max_abs_err": k["max_abs_err"], "tol": k["tol"], "ms": k["ms"],
                  "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0], "bound_by": k["bound"][1],
                  "library_ms": None, "shape": k["shape"], "split_ms": k["split_ms"],
-                 "bit_identical_to_split": k["bit_identical_to_split"],
+                 "bit_identical_to_split": k["bit_identical_to_split"], "parent": k["parent"],
                  "T200": {f: v for f, v in merged["T200"].items() if f != "shape"}})
     line.append({"name": "micro_ops", "route": "cuda",
                  "source": "mdgen_finetune_tpu_torch/csrc/micro_ops.cu",

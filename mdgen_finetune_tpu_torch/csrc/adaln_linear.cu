@@ -26,24 +26,46 @@
 //
 // What bounds it on the H100: at the trunk's shapes (M = 25,600 rows,
 // K = 384 or 1,536, N up to 1,536) the products do 2*M*N*K ~ 1e10-3e10 FLOP
-// against 20-80 MB of traffic, about 400 FLOP/byte, so it sits above the
-// 295 FLOP/byte ridge: the tensor cores bound it. Three tilings, all bf16
-// WMMA (mma.sync) at f32 accumulation with the LayerNorm/modulate prologue
-// and every epilogue fused, so no normalised activation or pre-activation
-// ever goes to device memory:
-//   - resident (16-byte-aligned bf16 X and W, K <= 512 and a multiple of 32:
-//     qkv, out, fc1, the IPA projections): a block normalises its 64 rows
-//     once into shared memory, then walks its share of the 128-column
-//     chunks with W streamed through a 4-stage cp.async ring, so the
-//     prologue is not repeated for every column tile;
-//   - pipelined (aligned, no prologue, any K: fc2): 128x128 tiles with a
-//     3-stage cp.async ring for both operands;
-//   - tiled64 (everything else: the f32 carry of the embed, N = 21 of the
-//     output head): 64x64 tiles, scalar loads, one stage.
-// None uses wgmma or TMA yet; that is later work.
+// against 20-80 MB of traffic, about 400 FLOP/byte, above the 295 FLOP/byte
+// ridge: the tensor cores bound fc1 (0.030 ms at 989 TFLOP/s); qkv, out
+// and fc2 sit near the ridge and are bound by their bytes (0.018-0.035 ms).
+// Only wgmma reaches the tensor cores' full rate, and a block of 64 rows
+// that streams all of W reads N x K x 2 bytes of it through L2 for every 64
+// rows, so W has to arrive without the threads' help. Three routes, the
+// plan made in ops/adaln_linear.py::plan and passed in as trailing
+// arguments:
+//   - resident (16-byte-aligned bf16 X and W and epilogue operands, K <= 512
+//     and a multiple of 32: qkv, out, fc1, the IPA projections): a block of
+//     one warpgroup (128 threads) owns 64 rows. It normalises and modulates
+//     them once, in f32, rounds them to bf16 and writes them into shared
+//     memory in the wgmma operand layout (the 128-byte swizzle applied by
+//     the writing threads, then fence.proxy.async and a barrier, without
+//     which the tensor cores' async proxy may read stale bytes), then walks
+//     its share of the 128-column chunks: W arrives by TMA in 32 x 128
+//     slabs (two 64-column boxes, 128-byte swizzle) into a ring of mbarrier
+//     slots, and wgmma.mma_async m64n128k16 (bf16 in, f32 accumulators in
+//     registers) reads both operands from shared memory, W N-major through
+//     the transpose bit, so W is never copied transposed;
+//   - pipelined (the same alignment, no prologue, any K: fc2): X tiles of
+//     64 x 64 and W slabs of 64 x 128 both by TMA into the ring, the same
+//     products;
+//   - tiled64 (everything else: the output head, N = 21, whose 42-byte rows
+//     TMA cannot take, with its Euler update; the embed, whose f32 x has
+//     84-byte rows, with its adds): 64x64 tiles, wmma, scalar loads, one
+//     stage.
+// On both wgmma routes one thread issues the copies; wgmma.commit_group /
+// wait_group keep one product group in flight, so the copies of the next
+// stages overlap the products, and the slot of a finished stage is refilled
+// at once. The epilogue works from the accumulator registers (no f32 tile
+// in shared memory): each thread applies bias, GELU (and writes the f32
+// pre-activation) or gate_res to its pairs of columns, and each
+// warp stages its 16 x 32 results to write them as 16-byte units. The
+// tensor maps are built on the host for every call (cuTensorMapEncodeTiled,
+// reached through cudaGetDriverEntryPoint, so nothing links libcuda) and
+// passed in the __grid_constant__ argument struct.
 //
-// The resident and pipelined tilings live in adaln_linear.cuh, which the
-// merged layer backward (fused_layer_bwd.cu) includes too.
+// The wgmma core lives in adaln_linear.cuh, which the merged layer backward
+// (fused_layer_bwd.cu) includes too: both run the same body.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,6 +77,9 @@
 namespace {
 
 using namespace adaln;
+using namespace nvcuda;
+
+constexpr int SMEM_MAX = 232448;  // the shared memory one block may use on an H100
 
 template <typename AT, typename OT>
 __global__ void __launch_bounds__(THREADS) tiled64_kernel(Args a) {
@@ -174,25 +199,36 @@ __global__ void __launch_bounds__(THREADS) tiled64_kernel(Args a) {
   }
 }
 
-template <typename OT>
-__global__ void __launch_bounds__(rs::THREADS) resident_kernel(Args a, int chunks_per_block) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  resident_block<OT>(a, blockIdx.x, blockIdx.y, chunks_per_block, smem_raw);
+template <typename OT, int WGS, int EC>
+__global__ void __launch_bounds__(wg::WG_THREADS * WGS) gemm_kernel(const __grid_constant__ Args a) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  wg::gemm_block<OT, WGS, EC>(a, blockIdx.x, smem_raw);
 }
 
-template <typename OT>
-__global__ void __launch_bounds__(pp::THREADS) pipelined_kernel(Args a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  pipelined_block<pp::THREADS, OT>(a, blockIdx.x, blockIdx.y, smem_raw);
+template <typename OT, int WGS>
+const void* gemm_kernel_ec(int ec) {
+  switch (ec) {
+    case wg::EC_GELU: return reinterpret_cast<const void*>(gemm_kernel<OT, WGS, wg::EC_GELU>);
+    case wg::EC_GATE: return reinterpret_cast<const void*>(gemm_kernel<OT, WGS, wg::EC_GATE>);
+    default: return reinterpret_cast<const void*>(gemm_kernel<OT, WGS, wg::EC_NONE>);
+  }
 }
 
-template <typename K>
-void allow_smem(K kernel, size_t bytes) {
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+// the wgmma kernel of an output type, a block of 1 or 2 warpgroups and an
+// epilogue
+inline const void* gemm_kernel_of(int out_f32, int wgs, int epi) {
+  const int ec = wg::epi_class(epi);
+  if (wgs == 2) return out_f32 ? gemm_kernel_ec<float, 2>(ec) : gemm_kernel_ec<bf16, 2>(ec);
+  return out_f32 ? gemm_kernel_ec<float, 1>(ec) : gemm_kernel_ec<bf16, 1>(ec);
 }
 
 }  // namespace
 
+// The trailing arguments are the plan (ops/adaln_linear.py::plan): the
+// route (0 resident, 1 pipelined, 2 tiled64), the block's tile (rows,
+// columns), column chunks per block, blocks across the columns, ring
+// stages and the dynamic shared memory; a plan that does not fit the call is
+// refused (cudaErrorInvalidValue).
 extern "C" int adaln_linear(
     const void* x, int x_f32, long long lda, const void* w, const void* bias,
     void* out, int out_f32, long long ldo, int M, int N, int K,
@@ -202,40 +238,64 @@ extern "C" int adaln_linear(
     const void* gate, long long ld_gate, int rows_per_gate, float dt,
     const void* add1, long long ld_add1,
     const void* add2, long long ld_add2, int a2_div, int a2_mul, int a2_mod,
-    void* pre, long long ldp, void* stream) {
-  const Args a = make_args(x, lda, w, bias, out, ldo, M, N, K, ln_mode, ln_w, ln_b, shift, scale,
-                           ld_mod, rows_per_mod, epi, res, ldr, gate, ld_gate, rows_per_gate, dt,
-                           add1, ld_add1, add2, ld_add2, a2_div, a2_mul, a2_mod, pre, ldp);
+    void* pre, long long ldp, void* stream,
+    int route, int tile_m, int tile_n, int per, int splits, int stages, long long smem_bytes) {
+  Args a = make_args(x, lda, w, bias, out, ldo, M, N, K, ln_mode, ln_w, ln_b, shift, scale,
+                     ld_mod, rows_per_mod, epi, res, ldr, gate, ld_gate, rows_per_gate, dt,
+                     add1, ld_add1, add2, ld_add2, a2_div, a2_mul, a2_mod, pre, ldp);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int r = route(a, x_f32);
-  if (r == 0) {
-    dim3 grid;
-    const int per = resident_grid(a, &grid);
-    const size_t bytes = rs::smem(K);
-    if (out_f32) {
-      allow_smem(resident_kernel<float>, rs::smem(rs::KMAX));
-      resident_kernel<float><<<grid, rs::THREADS, bytes, s>>>(a, per);
-    } else {
-      allow_smem(resident_kernel<bf16>, rs::smem(rs::KMAX));
-      resident_kernel<bf16><<<grid, rs::THREADS, bytes, s>>>(a, per);
-    }
+  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  if (route == ROUTE_TILED64) {
+    if (tile_m != BM || tile_n != BN || smem_bytes != 0) return (int)cudaErrorInvalidValue;
+    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+    if (x_f32 && out_f32) tiled64_kernel<float, float><<<grid, THREADS, 0, s>>>(a);
+    else if (x_f32) tiled64_kernel<float, bf16><<<grid, THREADS, 0, s>>>(a);
+    else if (out_f32) tiled64_kernel<bf16, float><<<grid, THREADS, 0, s>>>(a);
+    else tiled64_kernel<bf16, bf16><<<grid, THREADS, 0, s>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
-  if (r == 1) {
-    const dim3 grid = pipelined_grid(a);
-    if (out_f32) {
-      allow_smem(pipelined_kernel<float>, pp::SMEM);
-      pipelined_kernel<float><<<grid, pp::THREADS, pp::SMEM, s>>>(a);
-    } else {
-      allow_smem(pipelined_kernel<bf16>, pp::SMEM);
-      pipelined_kernel<bf16><<<grid, pp::THREADS, pp::SMEM, s>>>(a);
-    }
-    return static_cast<int>(cudaGetLastError());
+  const int wgs = tile_m / 64;
+  if ((tile_m != 64 && tile_m != 128) || tile_n != wg::BN ||
+      smem_bytes != (long long)wg::smem(route, K, stages, wgs) ||
+      !with_plan(&a, route, wgs, per, splits, stages, x_f32, out_f32))
+    return (int)cudaErrorInvalidValue;
+  const long long nblocks = blocks(a, wgs);
+  if (nblocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const void* k = gemm_kernel_of(out_f32, wgs, epi);
+  // each kernel may take a block's whole shared memory; set once (the
+  // launch's own size still decides the blocks per SM)
+  static bool allowed[2][2][3];
+  bool& ok = allowed[out_f32 != 0][wgs - 1][wg::epi_class(epi)];
+  if (!ok) {
+    const cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (e != cudaSuccess) return (int)e;
+    ok = true;
   }
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  if (x_f32 && out_f32) tiled64_kernel<float, float><<<grid, THREADS, 0, s>>>(a);
-  else if (x_f32) tiled64_kernel<float, bf16><<<grid, THREADS, 0, s>>>(a);
-  else if (out_f32) tiled64_kernel<bf16, float><<<grid, THREADS, 0, s>>>(a);
-  else tiled64_kernel<bf16, bf16><<<grid, THREADS, 0, s>>>(a);
+  void* args[] = {&a};
+  const cudaError_t e =
+      cudaLaunchKernel(k, dim3((unsigned)nblocks), dim3(wg::WG_THREADS * wgs), args, (size_t)smem_bytes, s);
+  if (e != cudaSuccess) return (int)e;
   return static_cast<int>(cudaGetLastError());
+}
+
+// the wgmma kernel's resources at `wgs` warpgroups per block, epilogue
+// `epi`, with `smem` bytes of dynamic shared memory: info[0] registers per
+// thread, [1] local (spill) bytes per thread, [2] the shared memory, [3]
+// resident blocks per SM
+extern "C" int adaln_linear_resources(int out_f32, int wgs, int epi, long long smem,
+                                      long long* info) {
+  cudaFuncAttributes fa;
+  int per_sm = 0;
+  if (wgs != 1 && wgs != 2) return (int)cudaErrorInvalidValue;
+  const void* k = gemm_kernel_of(out_f32, wgs, epi);
+  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, k);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, wg::WG_THREADS * wgs, smem);
+  if (e != cudaSuccess) return (int)e;
+  info[0] = fa.numRegs;
+  info[1] = (long long)fa.localSizeBytes;
+  info[2] = smem;
+  info[3] = per_sm;
+  return 0;
 }

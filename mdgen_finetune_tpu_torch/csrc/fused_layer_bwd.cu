@@ -33,10 +33,13 @@
 // its blocks over the grid (block t of a phase takes virtual blocks t,
 // t + grid, ...), and a virtual block computes what the split kernel's block
 // of that index computes, so the outputs are the split route's bit for bit
-// where the instruction sequence of each output is the same (the bodies
-// that the split route runs with 256 threads, modln_bwd and the pipelined
-// GEMM of fc2, run here with 128 threads as virtual warps: same products,
-// same order). The weight-gradient sums keep the split kernels' fixed-order
+// where the instruction sequence of each output is the same (modln_bwd,
+// which the split route runs with 256 threads, runs here with 128 threads
+// as virtual warps: same products, same order; adaln_linear's wgmma core is
+// one warpgroup of 128 threads here, a block of 64 rows, where the split
+// route's blocks hold two warpgroups and 128 rows, with a shallower TMA
+// ring: the products of each 64 rows run the same wgmma sequence either
+// way). The weight-gradient sums keep the split kernels' fixed-order
 // partial sums: no atomics.
 //
 // What bounds it on the H100: the layer backward recomputes the forward's
@@ -51,8 +54,8 @@
 // side: 1 launch per layer instead of ~25, and no gaps between them. The
 // design is the split route's tiling, not a new one: one persistent block
 // of 128 threads per resident slot (SM count x blocks per SM at the largest
-// phase's shared memory), mma.sync through wmma and the split kernels'
-// inline PTX, no wgmma or TMA: making it fast is later work.
+// phase's shared memory); the forward products on adaln_linear's wgmma +
+// TMA core, the rest mma.sync through the split kernels' inline PTX.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -79,7 +82,7 @@ constexpr int PHASES = 15, MAX_JOBS = 8;
 constexpr int ROPE_BWD_MAX_N = 128;  // ops/rope_attention_bwd.MAX_N: blocked_attention_bwd above
 
 enum Kind {
-  RES_BF16 = 0, RES_F32, PIPE_F32,  // adaln_linear (resident: bf16 or f32 out; pipelined)
+  GEMM_BF16 = 0, GEMM_F32,          // adaln_linear's wgmma core (resident or pipelined)
   STATS, PROLOGUE, DGRAD, WGRAD,    // linear_bwd
   MODLN, ROPE_FWD, ROPE_BWD, BLOCKED, COLSUM
 };
@@ -130,17 +133,25 @@ struct Params {
 };
 static_assert(sizeof(Params) <= 32764, "the kernel's parameters must fit 32,764 bytes");
 
+// adaln_linear's body as a call of its own: inlined into the kernel's one
+// register allocation it made the kernel spill kilobytes a thread, called
+// it spills a few hundred bytes (same code, same bits)
+template <typename OT, int EC>
+__device__ __noinline__ void gemm_phase(const adaln::Args& a, int t, unsigned char* smem) {
+  adaln::wg::gemm_block<OT, 1, EC>(a, t, smem);
+}
+
 template <int D>
 __device__ __forceinline__ void run(const Params& P, const Job& j, int t, unsigned char* smem) {
   switch (j.kind) {
-    case RES_BF16:
-      adaln::resident_block<bf16>(P.ad[j.arg], t % j.gx, t / j.gx, j.per, smem);
+    case GEMM_BF16:  // the resident route: fc1 (GELU, with its pre-activation), qkv
+      if (P.ad[j.arg].epi == adaln::EPI_GELU)
+        gemm_phase<bf16, adaln::wg::EC_GELU>(P.ad[j.arg], t, smem);
+      else
+        gemm_phase<bf16, adaln::wg::EC_NONE>(P.ad[j.arg], t, smem);
       break;
-    case RES_F32:
-      adaln::resident_block<float>(P.ad[j.arg], t % j.gx, t / j.gx, j.per, smem);
-      break;
-    case PIPE_F32:
-      adaln::pipelined_block<THREADS, float>(P.ad[j.arg], t % j.gx, t / j.gx, smem);
+    case GEMM_F32:  // no epilogue: fc2 (pipelined), the out-projections (resident)
+      gemm_phase<float, adaln::wg::EC_NONE>(P.ad[j.arg], t, smem);
       break;
     case STATS:
       lbwd::row_stats_block(P.lb[j.arg], t);
@@ -226,8 +237,11 @@ enum Ptr {
   NPTR
 };
 // integer slots
+// (AD_PLAN: the plans of the six adaln_linear calls, ops/adaln_linear.py::plan,
+// four each: route, column chunks per block, blocks across the columns, ring
+// stages)
 enum Int { NB_, NT_, NL_, NC_, NH_, NNB, LD_MOD, LD_DMOD, SPL_W2, SPL_W1, SPL_WOUT_T, SPL_WQKV_T,
-           SPL_WOUT_L, SPL_WQKV_L, SPL_MODLN, SMEM_LIMIT, NINT };
+           SPL_WOUT_L, SPL_WQKV_L, SPL_MODLN, SMEM_LIMIT, AD_PLAN, NINT = AD_PLAN + 24 };
 
 struct Builder {
   Params P;
@@ -245,23 +259,20 @@ struct Builder {
   }
   void need(size_t bytes) { smem = bytes > smem ? bytes : smem; }
 
-  // an adaln_linear call: the tiling its split route takes (resident or
-  // pipelined; tiled64 is not taken here)
-  void adaln(int i, int out_f32) {
-    const adaln::Args& a = P.ad[i];
-    const int r = adaln::route(a, 0);
-    if (r == 0) {
-      dim3 g;
-      const int per = adaln::resident_grid(a, &g);
-      add(out_f32 ? RES_F32 : RES_BF16, i, (long long)g.x * g.y, g.x, g.y, per);
-      need(adaln::rs::smem(a.K));
-    } else if (r == 1 && out_f32) {
-      const dim3 g = adaln::pipelined_grid(a);
-      add(PIPE_F32, i, (long long)g.x * g.y, g.x, g.y);
-      need(adaln::pp::SMEM);
-    } else {
+  // an adaln_linear call on the route of its plan (resident or pipelined;
+  // tiled64 is not taken here), its tensor maps built
+  void adaln(int i, int out_f32, const long long* plan) {
+    adaln::Args& a = P.ad[i];
+    if (!adaln::with_plan(&a, (int)plan[0], 1, (int)plan[1], (int)plan[2], (int)plan[3], 0,
+                          out_f32) ||
+        a.route == adaln::ROUTE_TILED64 ||
+        (!out_f32 && (a.route != adaln::ROUTE_RESIDENT || (a.epi != adaln::EPI_GELU && a.epi != adaln::EPI_NONE))) ||
+        (out_f32 && a.epi != adaln::EPI_NONE)) {
       ok = false;
+      return;
     }
+    add(out_f32 ? GEMM_F32 : GEMM_BF16, i, adaln::blocks(a, 1));
+    need(adaln::wg::smem(a.route, a.K, a.stages, 1));
   }
   void prologue(int i) { add(PROLOGUE, i, lbwd::prologue_blocks(P.lb[i])); }
   void dgrad(int i) {
@@ -417,11 +428,13 @@ int launch(const void* const* p, const long long* n, long long* info, cudaStream
              2LL * C, 0);
   };
   // P0
-  b.adaln(0, 0); b.stats(2); b.adaln(2, 0); b.adaln(4, 0); b.stats(6); b.stats(10);
+  const long long* ap = n + AD_PLAN;
+  b.adaln(0, 0, ap); b.stats(2); b.adaln(2, 0, ap + 8); b.adaln(4, 0, ap + 16); b.stats(6);
+  b.stats(10);
   b.prologue(0);  // dOUT * g8, which lb[1] shares
   // P1
   b.phase = 1;
-  b.adaln(1, 1); b.wgrad(0); b.dgrad(1);
+  b.adaln(1, 1, ap + 4); b.wgrad(0); b.dgrad(1);
   for (int s = 0; s < 2; ++s) {
     b.add(ROPE_FWD, s, P.at[s].sh.blocks);
     b.need(P.at[s].sh.smem);
@@ -429,7 +442,7 @@ int launch(const void* const* p, const long long* n, long long* info, cudaStream
   for (int i = 0; i < 3; ++i) b.prologue(pre_a[i]);
   // P2
   b.phase = 2;
-  b.wgrad(2); b.dgrad(3); b.adaln(3, 1); b.adaln(5, 1); colsum_w(0, 0, DW2, DB2);
+  b.wgrad(2); b.dgrad(3); b.adaln(3, 1, ap + 12); b.adaln(5, 1, ap + 20); colsum_w(0, 0, DW2, DB2);
   // P3
   b.phase = 3;
   b.add(MODLN, 0, (long long)nb * splm); b.need(modln::smem_bytes(C)); colsum_w(2, 2, DW1, DB1);

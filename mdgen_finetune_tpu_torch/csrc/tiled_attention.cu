@@ -69,128 +69,6 @@ using rope_tile::rope;
 
 namespace {
 
-constexpr int TQ = 2;  // 16-query tiles that a warp walks the keys with at once
-
-// the block's shared memory at a window of `win` keys: k and v rows, the
-// keys' additive masks, and each warp's TQ x 16 query rows
-template <int D>
-struct FwdLayout {
-  size_t ks, vs, kb, qw, total;
-  __host__ __device__ explicit FwdLayout(int win) {
-    constexpr int RS = Geo<D>::RS;
-    size_t o = 0;
-    ks = o; o += (size_t)win * RS * 2;
-    vs = o; o += (size_t)win * RS * 2;
-    kb = o; o += (size_t)win * 4;
-    qw = o; o += (size_t)WARPS * TQ * 16 * RS * 2;
-    total = o;
-  }
-};
-
-// keys k0 .. k0 + 8 NBK - 1 of the resident window against this warp's TQ
-// query tiles (each B fragment loaded once for all of them): o (f32,
-// 16 x D per tile) += p . v, l += the rows' p sums (this thread's
-// columns), m the natural mode's running row maxima (base-2 units)
-template <int D, bool NATURAL, int NBK>
-__device__ __forceinline__ void step(float (*o)[Geo<D>::OB][4], float (*l)[2], float (*m)[2],
-                                     const AFrag<D>* qa, const bf16* Ks, const bf16* Vs,
-                                     const float* Kb, int k0) {
-  constexpr int OB = Geo<D>::OB;
-  const int tig = threadIdx.x & 3;
-  float s[TQ][NBK][4];
-#pragma unroll
-  for (int nb = 0; nb < NBK; ++nb) {
-    uint32_t b[OB];
-    load_b_d<D>(b, Ks, k0 + nb * 8);
-    const float2 kb = *reinterpret_cast<const float2*>(Kb + k0 + nb * 8 + tig * 2);
-#pragma unroll
-    for (int t = 0; t < TQ; ++t) {
-      float* c = s[t][nb];
-      mma_d<D>(c, qa[t], b);
-      if constexpr (NATURAL) {
-        c[0] = fmaf(c[0], LOG2E, kb.x);
-        c[1] = fmaf(c[1], LOG2E, kb.y);
-        c[2] = fmaf(c[2], LOG2E, kb.x);
-        c[3] = fmaf(c[3], LOG2E, kb.y);
-      } else {
-        c[0] = fminf(c[0] + kb.x, 100.f);
-        c[1] = fminf(c[1] + kb.y, 100.f);
-        c[2] = fminf(c[2] + kb.x, 100.f);
-        c[3] = fminf(c[3] + kb.y, 100.f);
-      }
-    }
-  }
-  if constexpr (NATURAL) {
-    // the step's row maxima (the four threads of a row hold disjoint keys)
-    float mx[TQ][2];
-    bool rose = false;
-#pragma unroll
-    for (int t = 0; t < TQ; ++t) {
-      mx[t][0] = mx[t][1] = -INFINITY;
-#pragma unroll
-      for (int nb = 0; nb < NBK; ++nb) {
-        mx[t][0] = fmaxf(mx[t][0], fmaxf(s[t][nb][0], s[t][nb][1]));
-        mx[t][1] = fmaxf(mx[t][1], fmaxf(s[t][nb][2], s[t][nb][3]));
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[t][i] = fmaxf(mx[t][i], __shfl_xor_sync(0xffffffffu, mx[t][i], 1));
-        mx[t][i] = fmaxf(m[t][i], fmaxf(mx[t][i], __shfl_xor_sync(0xffffffffu, mx[t][i], 2)));
-        rose |= mx[t][i] > m[t][i];
-      }
-    }
-    if (__any_sync(0xffffffffu, rose)) {
-#pragma unroll
-      for (int t = 0; t < TQ; ++t) {
-        // 0 at the first step (m = -inf); 1 for a row whose max held
-        const float a[2] = {ex2(m[t][0] - mx[t][0]), ex2(m[t][1] - mx[t][1])};
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          m[t][i] = mx[t][i];
-          l[t][i] *= a[i];
-        }
-#pragma unroll
-        for (int db = 0; db < OB; ++db) {
-          o[t][db][0] *= a[0];
-          o[t][db][1] *= a[0];
-          o[t][db][2] *= a[1];
-          o[t][db][3] *= a[1];
-        }
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < TQ; ++t)
-#pragma unroll
-      for (int nb = 0; nb < NBK; ++nb) {
-        s[t][nb][0] -= m[t][0];
-        s[t][nb][1] -= m[t][0];
-        s[t][nb][2] -= m[t][1];
-        s[t][nb][3] -= m[t][1];
-      }
-  }
-  uint32_t pa[TQ][NBK / 2][4];
-#pragma unroll
-  for (int t = 0; t < TQ; ++t)
-#pragma unroll
-    for (int nb = 0; nb < NBK; ++nb) {
-      const float p0 = ex2(s[t][nb][0]), p1 = ex2(s[t][nb][1]);
-      const float p2 = ex2(s[t][nb][2]), p3 = ex2(s[t][nb][3]);
-      l[t][0] += p0 + p1;
-      l[t][1] += p2 + p3;
-      pa[t][nb / 2][(nb % 2) * 2] = pack2(p0, p1);
-      pa[t][nb / 2][(nb % 2) * 2 + 1] = pack2(p2, p3);
-    }
-#pragma unroll
-  for (int j = 0; j < NBK / 2; ++j) {
-    uint32_t b[OB][2];
-    load_b_rows<D>(b, Vs, k0 + j * 16);
-#pragma unroll
-    for (int t = 0; t < TQ; ++t)
-#pragma unroll
-      for (int db = 0; db < OB; ++db) mma16816(o[t][db], pa[t][j], b[db][0], b[db][1]);
-  }
-}
-
 template <int D, bool NATURAL>
 __global__ void __launch_bounds__(THREADS, Occ<D>::MIN_BLOCKS) tiled_attention_kernel(
     const bf16* __restrict__ qkv, const bf16* __restrict__ bias_k,
@@ -199,6 +77,7 @@ __global__ void __launch_bounds__(THREADS, Occ<D>::MIN_BLOCKS) tiled_attention_k
     bf16* __restrict__ out, int N, int I, int H, int C, int chunks, int chunk, int win) {
   constexpr int RS = Geo<D>::RS, OB = Geo<D>::OB;
   constexpr int NBK = D <= 32 ? 4 : 2;  // 8-key blocks of a full step
+  const float km = NATURAL ? LOG2E : 1.f;  // the logits' scale to base-2 units
   extern __shared__ __align__(16) unsigned char smem[];
   const FwdLayout<D> lay(win);
   bf16* Ks = reinterpret_cast<bf16*>(smem + lay.ks);
@@ -297,8 +176,8 @@ __global__ void __launch_bounds__(THREADS, Occ<D>::MIN_BLOCKS) tiled_attention_k
       if (active) {
         const int nk = min(win, NKP - w * win);
         int k0 = 0;
-        for (; k0 + NBK * 8 <= nk; k0 += NBK * 8) step<D, NATURAL, NBK>(o, l, m, qa, Ks, Vs, Kb, k0);
-        for (; k0 < nk; k0 += 16) step<D, NATURAL, 2>(o, l, m, qa, Ks, Vs, Kb, k0);
+        for (; k0 + NBK * 8 <= nk; k0 += NBK * 8) step<D, NATURAL, NBK>(o, l, m, qa, Ks, Vs, Kb, km, k0);
+        for (; k0 < nk; k0 += 16) step<D, NATURAL, 2>(o, l, m, qa, Ks, Vs, Kb, km, k0);
       }
     }
     if (!active) continue;

@@ -5,7 +5,12 @@ Kernel: ``csrc/adaln_linear.cu`` (hand-written bf16 tensor-core GEMM with
 the LayerNorm/AdaLN prologue and the gate/GELU/Euler/embed epilogues fused;
 it replaces the products inside the JAX package's
 ``ops/fused_layer.py::_trunk_call`` and ``ops/ipa_encoder.py::_encoder_call``
-kernels). ``adaln_linear_plain`` is the same function in plain PyTorch, in
+kernels). ``plan`` chooses its route on the host: the wgmma + TMA core
+(resident: the block's rows normalised once in shared memory; pipelined:
+X and W both streamed) where the operands pass TMA's 16-byte rule, else
+the scalar 64 x 64 tiling (``tiled64``), and sizes the grid, the ring and
+the shared memory; the launcher takes the plan as trailing arguments.
+``adaln_linear_plain`` is the same function in plain PyTorch, in
 the op order of the JAX package's XLA twins (its math, uncounted, is ``adaln_linear_math``);
 it runs for CPU tensors. For
 CUDA tensors the wrapper launches the kernel or raises.
@@ -25,6 +30,8 @@ Arguments (all 2D row views, unit column stride):
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..models.layers import gelu_fast
@@ -40,7 +47,125 @@ _ARGTYPES = [_cuda.P, _cuda.I32, _cuda.I64, _cuda.P, _cuda.P,
              _cuda.P, _cuda.I64, _cuda.I32, _cuda.F32,
              _cuda.P, _cuda.I64,
              _cuda.P, _cuda.I64, _cuda.I32, _cuda.I32, _cuda.I32,
-             _cuda.P, _cuda.I64, _cuda.P]
+             _cuda.P, _cuda.I64, _cuda.P,
+             _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I64]
+
+ROUTES = ("resident", "pipelined", "tiled64")
+SMS = 132                          # H100 SXM
+SMEM_PER_SM = 233_472              # 228 KB, of which each resident block reserves 1 KB
+SMEM_PER_BLOCK = 232_448           # 227 KB
+MERGED_STAGES = 3                  # the merged layer backward's ring: two blocks per SM
+MIN_STAGES, MAX_STAGES = 3, 8
+WAVES = 4                          # resident: column chunks split until ~4 waves of blocks exist
+# csrc/adaln_linear.cuh, namespace wg: the columns of a chunk (wgmma N),
+# a warpgroup's staging tiles, the alignment slack of the dynamic shared
+# memory, the W rows of a ring stage (KB); a block is one or two
+# warpgroups of 64 rows each
+TILE_N, STAGING, ALIGN, SLAB = 128, 4 * 16 * 40 * 4, 1024, 64
+KMAX = 512                         # resident: the block's rows at K <= 512
+
+
+def stage_bytes(route: int, wgs: int) -> int:
+    """A ring stage: the W slab of ``SLAB`` rows (two 64-column boxes), after
+    the (64 wgs) x 64 X tile on the pipelined route."""
+    return SLAB * 256 + (64 * wgs * 128 if route == 1 else 0)
+
+
+def smem_bytes(route: int, K: int, stages: int, wgs: int) -> int:
+    """Dynamic shared memory of a wgmma block (``wg::smem``): alignment
+    slack, the resident rows (K in blocks of 64), the ring, the staging
+    tiles, the barriers."""
+    rows = -(-K // 64) * 64 * wgs * 128 if route == 0 else 0
+    return ALIGN + rows + stages * stage_bytes(route, wgs) + STAGING * wgs + 8 * (stages + 1)
+
+
+def blocks_per_sm(smem: int) -> int:
+    return min(2, SMEM_PER_SM // (smem + 1024))
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    route: int        # 0 resident, 1 pipelined (wgmma + TMA), 2 tiled64
+    tile_m: int       # a block's rows (64 a warpgroup)
+    tile_n: int       # a block's columns per chunk (the wgmma N)
+    per: int          # column chunks per block
+    splits: int       # blocks across the columns
+    row_blocks: int
+    stages: int       # TMA ring stages
+    smem: int         # dynamic shared memory per block, bytes
+    tma: bool         # the operands pass TMA's base and stride rule
+
+    @property
+    def blocks(self) -> int:
+        return self.row_blocks * self.splits
+
+    @property
+    def name(self) -> str:
+        return ROUTES[self.route]
+
+    @property
+    def warpgroups(self) -> int:
+        return self.tile_m // 64 if self.route < 2 else 0
+
+
+def _rows16(t) -> bool:
+    """A row view whose rows start on 16-byte boundaries (bf16 or f32)."""
+    return t is None or (t.data_ptr() % 16 == 0 and (t.stride(0) * t.element_size()) % 16 == 0)
+
+
+def plan(x, w, b=None, *, ln=None, shift=None, epilogue="none", res=None, gate=None,
+         out=None, pre=None, merged=False, **_) -> Plan:
+    """The route, grid, ring depth and shared memory of ``adaln_linear`` on
+    these operands (the wrapper's arguments; ``out`` None is a new, aligned
+    tensor): a wgmma route where the operands pass TMA's 16-byte rule and
+    the epilogue is none, GELU or gate_res, else tiled64. ``merged``: inside
+    the merged layer backward, whose blocks are one warpgroup, two to an SM
+    (a ring of ``MERGED_STAGES``)."""
+    M, K = x.shape
+    N = w.shape[1]
+    tma = (x.dtype == torch.bfloat16 and N % 8 == 0 and K % 8 == 0 and N >= 64
+           and _rows16(x) and w.data_ptr() % 16 == 0
+           and (b is None or b.data_ptr() % 16 == 0)
+           and all(_rows16(t) for t in (out, res, gate, pre)))
+    prologue = ln is not None or shift is not None
+    wgmma = tma and epilogue not in ("euler", "add")  # the head's and the embed's: tiled64
+    if wgmma and K % 32 == 0 and K <= KMAX:
+        route = 0
+    elif wgmma and not prologue and K >= 64:
+        route = 1
+    else:
+        return Plan(2, 64, 64, 1, -(-N // 64), -(-M // 64), 1, 0, tma)
+    wgs = 1 if merged or M <= 64 else 2
+    rb = -(-M // (64 * wgs))
+    if merged:
+        stages = MERGED_STAGES
+    else:
+        stages = MIN_STAGES
+        cap = SMEM_PER_BLOCK if wgs == 2 else SMEM_PER_SM // 2 - 1024
+        while stages < MAX_STAGES and smem_bytes(route, K, stages + 1, wgs) <= cap:
+            stages += 1
+    smem = smem_bytes(route, K, stages, wgs)
+    chunks = -(-N // TILE_N)
+    if route == 0:
+        split = min(chunks, max(1, -(-WAVES * SMS * blocks_per_sm(smem) // rb)))
+        per = -(-chunks // split)
+        split = -(-chunks // per)
+    else:
+        per, split = 1, chunks
+    return Plan(route, 64 * wgs, TILE_N, per, split, rb, stages, smem, tma)
+
+
+def resources(p: Plan, out_f32: bool = False, epilogue: str = "none") -> dict:
+    """The wgmma kernel's launch resources under plan ``p`` for an output
+    type and an epilogue (on the card): registers and local (spill) bytes
+    per thread, dynamic shared memory, resident blocks per SM."""
+    lib = _cuda.library("adaln_linear", _ARGTYPES)
+    fn = lib.adaln_linear_resources
+    fn.argtypes = [_cuda.I32, _cuda.I32, _cuda.I32, _cuda.I64, _cuda.P]
+    info = (_cuda.I64 * 4)()
+    _cuda.check(fn(int(out_f32), p.warpgroups, _EPI[epilogue], p.smem, info),
+                "adaln_linear_resources")
+    return dict(registers=info[0], local_bytes=info[1], smem_bytes=info[2], blocks_per_sm=info[3])
 
 
 def _rows(v: torch.Tensor, M: int) -> torch.Tensor:
@@ -174,6 +299,7 @@ def adaln_linear(x, w, b=None, *, ln=None, ln_weight=None, ln_bias=None,
     if out.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError("adaln_linear: out must be bf16 or f32")
     div, mul, mod = add2_map if add2 is not None else (1, 0, 1)
+    p = plan(x, w, b, **{**kw, "out": out})
     lib = _cuda.library("adaln_linear", _ARGTYPES)
     code = lib.adaln_linear(
         x.data_ptr(), int(x.dtype == torch.float32), x.stride(0), w.data_ptr(), _cuda.ptr(b),
@@ -186,10 +312,13 @@ def adaln_linear(x, w, b=None, *, ln=None, ln_weight=None, ln_bias=None,
         M // gate.shape[0] if gate is not None else 1, float(dt or 0.0),
         _cuda.ptr(add1), add1.stride(0) if add1 is not None else 0,
         _cuda.ptr(add2), add2.stride(0) if add2 is not None else 0, div, mul, mod,
-        _cuda.ptr(pre), pre.stride(0) if pre is not None else 0, _cuda.stream_ptr(x))
+        _cuda.ptr(pre), pre.stride(0) if pre is not None else 0, _cuda.stream_ptr(x),
+        p.route, p.tile_m, p.tile_n, p.per, p.splits, p.stages, p.smem)
     _cuda.check(code, "adaln_linear")
     adaln_linear.launches += 1
+    adaln_linear.routes[p.route] += 1
     return out
 
 
 adaln_linear.launches = 0
+adaln_linear.routes = [0, 0, 0]  # launches by route (resident, pipelined, tiled64)

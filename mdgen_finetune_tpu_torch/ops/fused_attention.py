@@ -5,8 +5,12 @@ Kernels: ``csrc/fused_attention.cu`` (forward) and
 ``csrc/fused_attention_bwd.cu`` (backward). They replace the JAX package's
 ``ops/fused_attention.py::_fwd_tpu`` (body ``_fwd_kernel``) and
 ``_bwd_tpu`` (body ``_bwd_kernel``), the TPU kernels that keep a whole
-row's K/V (up to 4,096 keys) in VMEM. On the card the forward streams the
-keys through shared memory in 64-key tiles; the backward is two passes,
+row's K/V (up to 4,096 keys) in VMEM. On the card the forward has two forms
+(``long_attention.fused_plan``): the long one stages a row's keys and
+values once in shared memory for a block of 8 warps that walk them with
+tensor-core tiles of 16 queries (row g's design), the short one (at most 16
+queries and 32 keys a row: the ``no_rope`` residue view) gives each query a
+thread that works in f32 on the CUDA cores; the backward is two passes,
 dq (a row's keys and values resident in shared memory) then dK / dV (its
 queries and dout resident), each in windows where a row does not fit (the
 schedule is ``long_attention.dq_plan`` / ``dkdv_plan``), so M has no cap
@@ -47,12 +51,15 @@ import torch
 from ..models.attention_core import LN2, LOG2E, NEG_INF, attention_core
 from ..models.rope import apply_rope
 from . import _cuda
-from .long_attention import dkdv_plan, dq_plan
+from .long_attention import dkdv_plan, dq_plan, fused_plan
 
 HEAD_DIMS = (16, 24, 32, 64)
 
+# pointers, (R, N, M, H, D, base2), the stream, then the plan: form, chunk,
+# window, rows per block, shared-memory bytes
 _FWD_ARGTYPES = [_cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P,
-                 _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.P]
+                 _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.P,
+                 _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I64]
 # pointers, (R, N, M, H, D, base2), the stream, then the schedule: the dq
 # pass's (chunk, window) and the dK / dV pass's
 _BWD_ARGTYPES = [_cuda.P] * 11 + [_cuda.I32] * 6 + [_cuda.P] + [_cuda.I32] * 4
@@ -120,18 +127,22 @@ def fused_attention_fwd(q, k, v, key_valid, *, base2: bool = False):
     if not q.is_cuda:
         return fused_attention_fwd_plain(q, k, v, key_valid, base2=base2)
     B, H, N, M, D = _dims(q, k, v, key_valid)
+    q, k, v = map(_cuda.aligned, (q, k, v))
     o = torch.empty_like(q)
     stat = torch.empty(B, H, N, dtype=torch.float32, device=q.device)
+    p = fused_plan(B * H, N, M, D)
     lib = _cuda.library("fused_attention", _FWD_ARGTYPES)
     code = lib.fused_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
                                o.data_ptr(), stat.data_ptr(), B * H, N, M, H, D, int(base2),
-                               _cuda.stream_ptr(q))
+                               _cuda.stream_ptr(q), p.form, p.chunk, p.win, p.rows, p.smem)
     _cuda.check(code, "fused_attention")
     fused_attention_fwd.launches += 1
+    fused_attention_fwd.forms[p.form] += 1
     return o, stat
 
 
 fused_attention_fwd.launches = 0
+fused_attention_fwd.forms = [0, 0]  # launches by form (long, short)
 
 
 def fused_attention_bwd_plain(q, k, v, key_valid, o, stat, dout, *, base2: bool = False):
@@ -186,6 +197,21 @@ def fused_attention_bwd(q, k, v, key_valid, o, stat, dout, *, base2: bool = Fals
 
 
 fused_attention_bwd.launches = 0
+
+
+def fwd_resources(R: int, N: int, M: int, D: int, base2: bool = True) -> dict:
+    """The forward's launch resources at that shape (on the card): its
+    plan, registers and local (spill) bytes per thread, dynamic shared
+    memory per block, resident blocks per SM."""
+    p = fused_plan(R, N, M, D)
+    lib = _cuda.library("fused_attention", _FWD_ARGTYPES)
+    fn = lib.fused_attention_resources
+    fn.argtypes = [_cuda.I32, _cuda.I32, _cuda.I32, _cuda.I64, _cuda.P]
+    info = (_cuda.I64 * 4)()
+    _cuda.check(fn(p.form, D, int(base2), p.smem, info), "fused_attention_resources")
+    return dict(form=("long", "short")[p.form], registers=info[0], local_bytes=info[1],
+                smem_bytes=info[2], blocks_per_sm=info[3], blocks=p.blocks,
+                query_tiles_per_block=p.chunk, rows_per_block=p.rows, windows=p.windows)
 
 
 def bwd_resources(R: int, N: int, M: int, D: int, base2: bool = True) -> dict:

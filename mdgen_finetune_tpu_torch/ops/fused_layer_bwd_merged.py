@@ -20,8 +20,8 @@ split kernels.
 Shapes it takes (the short route of the JAX package's ``fused_layer_bwd``):
 L <= ``MAX_L`` = 8 and T <= ``MAX_T`` = 256; the frame stage's attention core
 is ``rope_attention_bwd``'s body at T <= 128 and ``blocked_attention_bwd``'s
-above, up to its ``max_keys``; C a multiple of 32 up to 512 (the resident
-tiling of ``adaln_linear``) and head dim 16, 24, 32 or 64. Arguments and
+above, up to its ``max_keys``; C a multiple of 32 from 64 to 512 (the
+resident route of ``adaln_linear``) and head dim 16, 24, 32 or 64. Arguments and
 results as ``ops/fused_layer_bwd.fused_layer_bwd``.
 """
 from __future__ import annotations
@@ -32,6 +32,7 @@ import torch
 
 from ..models.rope import rope_tables
 from . import _cuda
+from .adaln_linear import plan as adaln_plan
 from .blocked_attention_bwd import max_keys
 from .linear_bwd import _splits as wgrad_splits
 from .linear_bwd import scratch_floats as wgrad_scratch
@@ -41,7 +42,7 @@ from .rope_attention_bwd import MAX_N
 from .time_attention import MAX_L, MAX_T
 
 _ARGTYPES = [_cuda.P, _cuda.P, _cuda.P, _cuda.P]
-N_PTR, N_INT = 74, 16  # csrc/fused_layer_bwd.cu: enum Ptr, enum Int
+N_PTR, N_INT = 74, 40  # csrc/fused_layer_bwd.cu: enum Ptr, enum Int
 _KEYS = ("wqkv_l", "bqkv_l", "wout_l", "bout_l", "wqkv_t", "bqkv_t", "wout_t", "bout_t",
          "w1", "b1", "w2", "b2", "bkl", "bvl", "bkt", "bvt")
 
@@ -70,9 +71,9 @@ def _check(x_in, X1, X2, dout, mod, w, mask, num_heads, dmod):
     if L > MAX_L or T > MAX_T:
         raise ValueError(f"fused_layer_bwd_merged: the merged route takes L <= {MAX_L} and "
                          f"T <= {MAX_T} (the short route), got L = {L}, T = {T}")
-    if C % 32 or C > 512 or C != num_heads * D or D not in (16, 24, 32, 64):
+    if C % 32 or not 64 <= C <= 512 or C != num_heads * D or D not in (16, 24, 32, 64):
         raise ValueError(f"fused_layer_bwd_merged: C = {C} with {num_heads} heads is not taken "
-                         "(C a multiple of 32 up to 512, head dim 16, 24, 32 or 64)")
+                         "(C a multiple of 32 from 64 to 512, head dim 16, 24, 32 or 64)")
     if T > MAX_N and T > max_keys(D):
         raise ValueError(f"fused_layer_bwd_merged: T = {T} is beyond blocked_attention_bwd's "
                          f"{max_keys(D)} keys at head dim {D}")
@@ -128,12 +129,11 @@ class _Carve:
                 for off, shape, dt, n in self.parts]
 
 
-def fused_layer_bwd_merged(x_in, X1, X2, dout, mod, w, mask, num_heads: int, dmod=None):
-    """The layer backward in one launch: the kernel on CUDA tensors, the
-    plain version on CPU tensors (see the module docstring). Returns
-    ``(dx, dmod, dw)`` as ``fused_layer_bwd``."""
-    if not x_in.is_cuda:
-        return fused_layer_bwd_merged_plain(x_in, X1, X2, dout, mod, w, mask, num_heads, dmod)
+def launch_slots(x_in, X1, X2, dout, mod, w, mask, num_heads: int, dmod=None):
+    """The launch's arguments on CUDA tensors: the ``N_PTR`` tensors whose
+    pointers fill ``enum Ptr``, the ``N_INT`` integers of ``enum Int`` (the
+    outputs and the scratch carved from one allocation), and the results
+    ``(dx, dmod, dw)`` that the launch fills."""
     B, T, L, C, D = _check(x_in, X1, X2, dout, mod, w, mask, num_heads, dmod)
     M, F, nb = B * T * L, 4 * C, mod.shape[0]
     f32, bf = torch.float32, torch.bfloat16
@@ -170,6 +170,31 @@ def fused_layer_bwd_merged(x_in, X1, X2, dout, mod, w, mask, num_heads: int, dmo
     ptrs += [dx, dmod] + [t[grads[k]] for k in _KEYS[:12]] + [t[dbias[0]], t[dbias[1]]]
     ptrs += [t[i] for i in scratch]
     ints = [B, T, L, C, num_heads, nb, mod.stride(0), dmod.stride(0), *spl, splm, SMEM_BYTES]
+    # the six recomputed products' plans (the split route's, on a shallower
+    # ring): fc1, fc2, qkv_t, out_t, qkv_l, out_l
+    ge, act, y3, yt, yl = (t[i] for i in scratch[:5])
+    qkv_t, qkv_l, att_t, att_l = (t[i] for i in scratch[9:13])
+    sh = dict(ln="plain", shift=mod[:, :C], scale=mod[:, C:2 * C])
+    for x, wk, bk, kw in ((X2, "w1", "b1", dict(sh, epilogue="gelu", out=ge, pre=act)),
+                          (ge, "w2", "b2", dict(out=y3)), (X1, "wqkv_t", "bqkv_t", dict(sh, out=qkv_t)),
+                          (att_t, "wout_t", "bout_t", dict(out=yt)),
+                          (x_in, "wqkv_l", "bqkv_l", dict(sh, out=qkv_l)),
+                          (att_l, "wout_l", "bout_l", dict(out=yl))):
+        p = adaln_plan(x, w[wk], w[bk], merged=True, **kw)
+        ints += [p.route, p.per, p.splits, p.stages]
+    dw = {k: t[grads[k]] for k in _KEYS[:12]}
+    dl, dtt = t[dbias[0]], t[dbias[1]]
+    dw.update(bkl=dl[0], bvl=dl[1], bkt=dtt[0], bvt=dtt[1])
+    return ptrs, ints, (dx, dmod, dw)
+
+
+def fused_layer_bwd_merged(x_in, X1, X2, dout, mod, w, mask, num_heads: int, dmod=None):
+    """The layer backward in one launch: the kernel on CUDA tensors, the
+    plain version on CPU tensors (see the module docstring). Returns
+    ``(dx, dmod, dw)`` as ``fused_layer_bwd``."""
+    if not x_in.is_cuda:
+        return fused_layer_bwd_merged_plain(x_in, X1, X2, dout, mod, w, mask, num_heads, dmod)
+    ptrs, ints, out = launch_slots(x_in, X1, X2, dout, mod, w, mask, num_heads, dmod)
     lib = _cuda.library("fused_layer_bwd", _ARGTYPES)
     lib.fused_layer_bwd_slots.argtypes = [_cuda.I32]
     lib.fused_layer_bwd_slots.restype = _cuda.I32
@@ -185,10 +210,7 @@ def fused_layer_bwd_merged(x_in, X1, X2, dout, mod, w, mask, num_heads: int, dmo
     fused_layer_bwd_merged.launches += 1
     fused_layer_bwd_merged.last_launch = dict(grid=info[0], blocks_per_sm=info[1],
                                               smem_bytes=info[2])
-    dw = {k: t[grads[k]] for k in _KEYS[:12]}
-    dl, dtt = t[dbias[0]], t[dbias[1]]
-    dw.update(bkl=dl[0], bvl=dl[1], bkt=dtt[0], bvt=dtt[1])
-    return dx, dmod, dw
+    return out
 
 
 fused_layer_bwd_merged.launches = 0

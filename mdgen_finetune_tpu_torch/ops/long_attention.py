@@ -1,6 +1,8 @@
 """The block schedule of the long-key attention kernels
 (``csrc/long_attention.cuh``): ``tiled_attention`` (the frame core's
-forward) and the two passes of ``fused_attention_bwd``.
+forward), ``fused_attention``'s forward (``fused_plan``: its long form, or
+its short form for rows of at most 16 queries) and the two passes of
+``fused_attention_bwd``.
 
 A block of 8 warps owns a chunk of 16-row tiles of one attention row (query
 tiles in the forward and the dq pass, key tiles in the dK / dV pass) and
@@ -46,6 +48,8 @@ class Plan:
     blocks: int   # the grid
     smem: int     # dynamic shared memory per block, bytes
     windows: int  # windows per block
+    form: int = 0  # fused_attention's forward: 0 the long form, 1 the short one
+    rows: int = 0  # the short form's attention rows per block
 
 
 def plan(rows: int, n_own: int, n_res: int, row_bytes: int, fixed_bytes: int = 0,
@@ -80,6 +84,25 @@ def forward_plan(seq_heads: int, N: int, D: int) -> Plan:
     rs = row_stride(D)
     return plan(seq_heads, N, N + 1, 4 * rs + 4, WARPS * FWD_TILES_PER_WARP * 16 * rs * 2,
                 FWD_TILES_PER_WARP)
+
+
+SHORT_MAX_N, SHORT_MAX_KEYS, SHORT_THREADS = 16, 32, 256  # csrc/fused_attention.cu
+
+
+def fused_plan(R: int, N: int, M: int, D: int) -> Plan:
+    """``fused_attention``'s forward over R rows of N queries and M keys.
+    The short form where N <= 16 and M <= 32 and a block of 256 threads
+    (one a query) gets at least two warps' worth of rows whose keys and
+    values (4D bytes a key) fit its share of an SM; else the long form: row
+    g's schedule without the appended key (``forward_plan``), the key's
+    additive mask beside its k and v rows."""
+    if N <= SHORT_MAX_N and M <= SHORT_MAX_KEYS:
+        rows = min(SHORT_THREADS // N, BUDGET // (M * D * 4), R)
+        if rows * N >= min(64, R * N):
+            return Plan(chunk=0, win=M, chunks=1, blocks=-(-R // rows), smem=rows * M * D * 4,
+                        windows=1, form=1, rows=rows)
+    rs = row_stride(D)
+    return plan(R, N, M, 4 * rs + 4, WARPS * FWD_TILES_PER_WARP * 16 * rs * 2, FWD_TILES_PER_WARP)
 
 
 def dq_plan(R: int, N: int, M: int, D: int) -> Plan:

@@ -49,13 +49,16 @@ def _no_walk(n, np_):
     return ("      if (active) {" + tail, "      if (active && N < 0) {" + tail)
 
 
-# source edits (old, new) per ablation, per kernel source
+# source edits (old, new) per ablation, per kernel source ((file, old, new)
+# for an edit of another file of csrc/)
 ABLATIONS = {
     "tiled_attention": {
         "no_walk": [_no_walk("nk", "NKP")],
         "no_q_stage": [_no_walk("nk", "NKP"),
                        ("if (lane < TQ * 16 && n < N) {", "if (lane < TQ * 16 && n < 0) {")],
-        "no_exp2": [("const float p0 = ex2(s[t][nb][0]), p1 = ex2(s[t][nb][1]);\n"
+        # the key walk's step lives in the shared header
+        "no_exp2": [("long_attention.cuh",
+                     "const float p0 = ex2(s[t][nb][0]), p1 = ex2(s[t][nb][1]);\n"
                      "      const float p2 = ex2(s[t][nb][2]), p3 = ex2(s[t][nb][3]);",
                      "const float p0 = fmaf(s[t][nb][0], 1e-3f, 1.f), p1 = fmaf(s[t][nb][1], 1e-3f, 1.f);\n"
                      "      const float p2 = fmaf(s[t][nb][2], 1e-3f, 1.f), p3 = fmaf(s[t][nb][3], 1e-3f, 1.f);")],
@@ -79,12 +82,13 @@ def build_ablations(out: Path) -> dict:
             d = out / f"{kern}-{case}"
             shutil.copytree(_cuda.CSRC, d)
             src = d / f"{kern}.cu"
-            text = src.read_text()
-            for old, new in edits:
+            for edit in edits:
+                path = d / edit[0] if len(edit) == 3 else src
+                old, new = edit[-2:]
+                text = path.read_text()
                 if old not in text:
-                    raise RuntimeError(f"ablation {kern}/{case}: the source no longer holds {old!r}")
-                text = text.replace(old, new)
-            src.write_text(text)
+                    raise RuntimeError(f"ablation {kern}/{case}: {path.name} no longer holds {old!r}")
+                path.write_text(text.replace(old, new))
             procs[(kern, case)] = (d / f"{kern}.so", subprocess.Popen(
                 [_cuda.nvcc(), *_cuda.FLAGS, "-o", str(d / f"{kern}.so"), str(src)],
                 stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT))

@@ -699,6 +699,194 @@ def test_ipa_attention_tiled_matches_plain_on_card():
 
 
 # ---------------------------------------------------------------------------
+# adaln_linear's wgmma core and fused_attention's two forms (slice 11)
+# ---------------------------------------------------------------------------
+
+def _adaln_uses(g, M, nb):
+    """Every product of the trunk and the encoder at the flagship's widths
+    (C = 384): (name, x, w, b, kwargs, route) with the route its plan must
+    take (0 resident, 1 pipelined, 2 tiled64)."""
+    from mdgen_finetune_tpu_torch.ops.ipa_attention import feat_width, proj_width
+
+    C, F = 384, 1536
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def r(*s, sc=1.0, dtype=bf):
+        return (torch.randn(*s, generator=g, device="cuda") * sc).to(dtype)
+
+    mod = r(nb, 9 * C, sc=0.3)
+
+    def m(j):
+        return mod[:, j * C:(j + 1) * C]
+
+    x, res = r(M, C), r(M, C)
+    pw, fw = proj_width(4, 32, 8, 8), feat_width(4, 32, 8)
+    return [
+        ("qkv", x, r(C, 3 * C, sc=C ** -0.5), r(3 * C, sc=0.1), dict(ln="plain", shift=m(0), scale=m(1)), 0),
+        ("out_gate", x, r(C, C, sc=C ** -0.5), r(C, sc=0.1), dict(epilogue="gate_res", res=res, gate=m(2)), 0),
+        ("fc1_gelu", x, r(C, F, sc=C ** -0.5), r(F, sc=0.1),
+         dict(ln="plain", shift=m(6), scale=m(7), epilogue="gelu"), 0),
+        ("fc1_pre", x, r(C, F, sc=C ** -0.5), r(F, sc=0.1),
+         dict(ln="plain", shift=m(6), scale=m(7), epilogue="gelu", pre=torch.empty(M, F, device="cuda")), 0),
+        ("fc2_gate", r(M, F), r(F, C, sc=F ** -0.5), r(C, sc=0.1), dict(epilogue="gate_res", res=res, gate=m(8)), 1),
+        ("fc2_f32", r(M, F), r(F, C, sc=F ** -0.5), r(C, sc=0.1), dict(out_dtype=f32), 1),
+        ("ipa_proj", x, r(C, pw, sc=C ** -0.5), r(pw, sc=0.1),
+         dict(ln="affine", ln_weight=1 + r(C, sc=0.1, dtype=f32), ln_bias=r(C, sc=0.1, dtype=f32),
+              out_dtype=f32), 0),
+        ("ipa_out", r(M, fw), r(fw, C, sc=0.06), r(C, sc=0.1), dict(epilogue="gate_res", res=res), 0),
+        ("head_euler", x, r(C, 21, sc=C ** -0.5), r(21, sc=0.1),
+         dict(ln="plain", shift=m(0), scale=m(1), epilogue="euler", res=r(M, 21, dtype=f32), dt=0.01), 2),
+        ("embed_add", r(M, 21, dtype=f32), r(21, C, sc=0.2), None,
+         dict(epilogue="add", add1=r(M, C), add2=r(nb, C), add2_map=(M // nb, 1, 1)), 2),
+    ]
+
+
+def _adaln_ref(a, w, b, kw):
+    from mdgen_finetune_tpu_torch.ops.adaln_linear import adaln_linear_plain
+
+    kwf = _f32(kw)
+    if kw.get("pre") is not None:
+        kwf["pre"] = torch.empty_like(kw["pre"])
+    return adaln_linear_plain(a.float(), w.float(), None if b is None else b.float(), **kwf), kwf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 63, 65, 12801])
+def test_adaln_linear_every_use_on_card(M):
+    """On the card: every product of the trunk and the encoder (each N and K
+    of the main path, every prologue and epilogue, the f32 outputs and the
+    GELU's f32 pre-activation) against the plain version in f32 on the same
+    inputs, each on the route its plan takes, at row counts around a tile
+    (1, 63, 65) and over many blocks (12,801: the LayerNorm prologue's
+    shared-memory writes must be fenced for the tensor cores in every
+    block). Tolerance: 1e-2 x max(1, max |twin|) (bf16 outputs keep 8
+    bits); the pre-activation likewise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.ops.adaln_linear import adaln_linear, plan
+
+    g = torch.Generator(device="cuda").manual_seed(M)
+    nb = next(n for n in (7, 5, 3, 1) if M % n == 0)  # AdaLN rows dividing the rows
+    for name, a, w, b, kw, route in _adaln_uses(g, M, nb):
+        assert plan(a, w, b, **kw).route == route, name
+        n0 = adaln_linear.routes[route]
+        got = adaln_linear(a, w, b, **kw)
+        ref, kwf = _adaln_ref(a, w, b, kw)
+        torch.cuda.synchronize()
+        assert adaln_linear.routes[route] == n0 + 1, name
+        _close(got, ref)
+        if kw.get("pre") is not None:
+            _close(kw["pre"], kwf["pre"])
+
+
+@pytest.mark.cuda
+def test_adaln_linear_views_aliasing_and_determinism_on_card():
+    """On the card: row views with lda != K (the k columns of a qkv, with
+    and without the LayerNorm prologue), out aliasing res (the trunk's
+    in-place gated residual, on both wgmma routes), and two calls on the
+    same inputs giving the same bits (every sum in a fixed order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.ops.adaln_linear import adaln_linear, plan
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    M, C = 5000, 384
+    qkv = torch.randn(M, 3 * C, generator=g, device="cuda").bfloat16()
+    w = (torch.randn(C, C, generator=g, device="cuda") * C ** -0.5).bfloat16()
+    sh, sc = (0.3 * torch.randn(2, 2, C, generator=g, device="cuda")).bfloat16()
+    xv = qkv[:, C:2 * C]
+    for kw in ({}, dict(ln="plain", shift=sh, scale=sc)):
+        assert plan(xv, w, None, **kw).route == 0
+        ref, _ = _adaln_ref(xv, w, None, kw)
+        _close(adaln_linear(xv, w, None, **kw), ref)
+    for K, route in ((C, 0), (4 * C, 1)):
+        x = torch.randn(M, K, generator=g, device="cuda").bfloat16()
+        wk = (torch.randn(K, C, generator=g, device="cuda") * K ** -0.5).bfloat16()
+        res = torch.randn(M, C, generator=g, device="cuda").bfloat16()
+        gate = (0.3 * torch.randn(2, C, generator=g, device="cuda")).bfloat16()
+        kw = dict(epilogue="gate_res", res=res, gate=gate)
+        ref, _ = _adaln_ref(x, wk, None, kw)
+        assert plan(x, wk, None, out=res, **kw).route == route
+        out = adaln_linear(x, wk, None, out=res, **kw)
+        torch.cuda.synchronize()
+        assert out.data_ptr() == res.data_ptr()
+        _close(res, ref)
+    x = torch.randn(M, C, generator=g, device="cuda").bfloat16()
+    w1 = (torch.randn(C, 4 * C, generator=g, device="cuda") * C ** -0.5).bfloat16()
+    kw = dict(ln="plain", shift=sh, scale=sc, epilogue="gelu")
+    one, two = adaln_linear(x, w1, None, **kw), adaln_linear(x, w1, None, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 24, 32, 64])
+def test_fused_attention_forms_on_card(D):
+    """On the card: fused_attention's forward, output and statistic, against
+    its plain version in f32 at N = 1 .. 17 queries (the short form to 16,
+    the long one at 17) and N = 64 .. 2,048 (the long form; windows at
+    D = 64 from N = 1,000), N + 1 keys, both softmaxes, with masked keys.
+    Tolerance: the output 1e-2 x max(1, max |twin|) (bf16), the statistic
+    (a log2 of f32 sums in another order) 1e-3 x max(1, max |twin|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.ops.fused_attention import fused_attention_fwd, fused_attention_fwd_plain
+    from mdgen_finetune_tpu_torch.ops.long_attention import fused_plan
+
+    g = torch.Generator(device="cuda").manual_seed(D)
+    Bc, Hc = 3, 2
+    for N in list(range(1, 18)) + [64, 100, 257, 1000, 2048]:
+        M = N + 1
+        q = (torch.randn(Bc, Hc, N, D, generator=g, device="cuda") * D ** -0.5).bfloat16()
+        k, v = (torch.randn(Bc, Hc, M, D, generator=g, device="cuda").bfloat16() for _ in range(2))
+        kv = (torch.rand(Bc, M, generator=g, device="cuda") > 0.25).float()
+        kv[:, -1] = 1
+        assert fused_plan(Bc * Hc, N, M, D).form == (1 if N <= 16 else 0)
+        for base2 in (True, False):
+            o, stat = fused_attention_fwd(q, k, v, kv, base2=base2)
+            ro, rstat = fused_attention_fwd_plain(q.float(), k.float(), v.float(), kv, base2=base2)
+            torch.cuda.synchronize()
+            _close(o, ro)
+            _close(stat, rstat, rel=1e-3)
+
+
+@pytest.mark.cuda
+def test_fused_attention_edge_rows_on_card():
+    """On the card, both forms: natural logits ~1e3 (exp without the max
+    would overflow f32), and a batch element whose every key is masked:
+    uniform over its keys in the natural softmax (the plain version's), all
+    zero in base 2, as the TPU kernel gives it (p = exp2(min(-1e9, 100)) = 0
+    over a sum of 1e-30), with the statistic log2(1e-30) there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    import math
+
+    from mdgen_finetune_tpu_torch.ops.fused_attention import fused_attention_fwd, fused_attention_fwd_plain
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    Bc, Hc, D = 3, 2, 24
+    for N in (4, 300):
+        M = N + 1
+        k, v = (torch.randn(Bc, Hc, M, D, generator=g, device="cuda").bfloat16() for _ in range(2))
+        kv = torch.ones(Bc, M, device="cuda")
+        kv[0, : M // 2] = 0
+        kv[1] = 0
+        for qs, base2 in ((300.0, False), (1.0, False), (1.0, True)):
+            q = (torch.randn(Bc, Hc, N, D, generator=g, device="cuda") * qs * D ** -0.5).bfloat16()
+            o, stat = fused_attention_fwd(q, k, v, kv, base2=base2)
+            ro, rstat = fused_attention_fwd_plain(q.float(), k.float(), v.float(), kv, base2=base2)
+            torch.cuda.synchronize()
+            assert torch.isfinite(o).all() and torch.isfinite(stat).all()
+            if base2:
+                assert o[1].abs().max().item() == 0.0
+                assert (stat[1] - math.log2(1e-30)).abs().max().item() <= 1e-3 * 100
+                _close(o[::2], ro[::2])
+            else:
+                _close(o, ro)
+            _close(stat, rstat, rel=1e-3)
+
+
+# ---------------------------------------------------------------------------
 # the merged layer backward (MDGEN_FUSED_BWD=merged), the probe, IPA widths
 # ---------------------------------------------------------------------------
 
@@ -791,10 +979,13 @@ def test_merged_layer_bwd_matches_split_and_plain_on_card(Bc, Tc):
 @pytest.mark.cuda
 def test_moved_split_kernels_match_the_parent_sources_on_card(tmp_path):
     """On the card: the split kernels whose bodies live in the shared
-    headers (adaln_linear's resident and pipelined tilings, modln_bwd) give
-    the outputs of another checkout's sources of the same kernels bit for
-    bit, at the merged path's shapes (T = 100 and 200): a change to a
-    shared header must not move the split route's numbers. rope_attention
+    headers (modln_bwd) give the outputs of another checkout's sources of
+    the same kernels bit for bit, at the merged path's shapes (T = 100 and
+    200): a change to a shared header must not move the split route's
+    numbers. adaln_linear is not swapped: its products moved to wgmma (a
+    new order of the sums), and it is held to its plain version by the
+    kernel tests and, through the layer, the split route to the merged
+    route bit for bit. rope_attention
     and rope_attention_bwd are held to the other sources only at N = 4
     (stage 1, the encoder and the modular residue attention), where their
     short bodies run: their long-sequence bodies were redesigned for the
@@ -818,7 +1009,7 @@ def test_moved_split_kernels_match_the_parent_sources_on_card(tmp_path):
     from mdgen_finetune_tpu_torch.ops import fused_layer_bwd as FB
     from mdgen_finetune_tpu_torch.ops.fused_layer import trunk_layer
 
-    names = ("adaln_linear", "modln_bwd")
+    names = ("modln_bwd",)
     short = ("rope_attention", "rope_attention_bwd")
     procs = [(n, subprocess.Popen([_cuda.nvcc(), *_cuda.FLAGS, "-o", str(tmp_path / f"{n}.so"),
                                    os.path.join(parent, f"{n}.cu")], stdout=subprocess.DEVNULL,

@@ -18,8 +18,19 @@ package on the CPU.
   dK / dV pass walks the queries in steps of 16, p and ds rounded to bf16,
   dk of a masked key zero. Held against ``jax.vjp`` of the JAX package's
   ``fused_attention._attention_xla``.
+- ``fused_attention``'s forward (csrc/fused_attention.cu), both forms: f32
+  logits; a masked key's logit q.k * km - 1e9 with km the row's scale where
+  any key is attendable and 0 where none is (then every logit is -1e9, JAX's
+  replacement); p rounded to bf16 before p.v, f32 row sums. The long form
+  walks the keys in steps of 32 (16 at the tail) with the natural mode's
+  running max (rescaled only where it rose); the short form (at most 16
+  queries and 32 keys) takes the exact row max. The row statistic is
+  log2(sum + 1e-30) in base 2 and max + log2(sum) in the natural mode.
+  Held against the JAX package's ``_fwd_tpu`` in interpret mode, and the
+  statistic against log2 of the denominator recomputed from JAX's logits.
 - The host-side schedule (``ops/long_attention.py``): windows, chunks,
-  blocks and shared-memory bytes at the paths' shapes.
+  blocks and shared-memory bytes at the paths' shapes, and the forward's
+  form.
 
 Inputs are seeded numpy; C = 48 with 2 heads (head dim 24, as the
 flagship). Tolerance: 1e-2 x max(1, max |reference|), the card's kernel
@@ -34,7 +45,7 @@ import pytest
 import torch
 
 from mdgen_finetune_tpu.ops import time_attention as jta
-from mdgen_finetune_tpu.ops.fused_attention import _attention_xla
+from mdgen_finetune_tpu.ops.fused_attention import _attention_xla, _fwd_tpu
 from mdgen_finetune_tpu_torch.models.rope import rope_tables, rotate_half
 from mdgen_finetune_tpu_torch.ops import long_attention as LA
 from mdgen_finetune_tpu_torch.ops.fused_attention import fused_attention_fwd_plain
@@ -239,6 +250,86 @@ def test_fused_attention_bwd_emulation_matches_jax_vjp(base2):
         _close(a.numpy(), np.asarray(b))
 
 
+def fused_fwd_emulated(q, k, v, kv, base2):
+    """fused_attention's forward over (B, H, N, D) / (B, H, M, D) inputs (f32
+    holding bf16 values), in the form its plan picks: (o, stat)."""
+    Bc, Hc, N, Dd = q.shape
+    M = k.shape[2]
+    short = LA.fused_plan(Bc * Hc, N, M, Dd).form == 1
+    o, stat = torch.zeros(Bc, Hc, N, Dd), torch.zeros(Bc, Hc, N)
+    for b in range(Bc):
+        valid = kv[b] > 0
+        km = (1.0 if base2 else LOG2E) if bool(valid.any()) else 0.0
+        kb = torch.where(valid, 0.0, -1e9)
+        for h in range(Hc):
+            t = q[b, h] @ k[b, h].T * km + kb
+            if base2:
+                t = torch.clamp(t, max=100.0)
+            if short:  # the exact row max, the keys in order
+                m = t.max(1).values if not base2 else torch.zeros(N)
+                p = torch.exp2(t - m[:, None])
+                acc, l = _bf(p) @ v[b, h], p.sum(1)
+            else:  # the long form's key steps, the running max rescaled where it rose
+                acc, l = torch.zeros(N, Dd), torch.zeros(N)
+                m = torch.full((N,), -math.inf) if not base2 else torch.zeros(N)
+                for k0, k1 in _steps(M):
+                    k1 = min(k1, M)
+                    ts = t[:, k0:k1]
+                    if not base2:
+                        new = torch.maximum(m, ts.max(1).values)
+                        a = torch.where(new > m, torch.exp2(m - new), torch.ones(()))
+                        acc, l, m = acc * a[:, None], l * a, new
+                    p = torch.exp2(ts - m[:, None])
+                    l = l + p.sum(1)
+                    acc = acc + _bf(p) @ v[b, h, k0:k1]
+            sum_ = l + 1e-30 if base2 else l
+            o[b, h] = acc / sum_[:, None]
+            stat[b, h] = torch.log2(sum_) + (0.0 if base2 else m)
+    return _bf(o), stat
+
+
+@pytest.mark.parametrize("N", [4, 40])
+@pytest.mark.parametrize("base2", [True, False])
+def test_fused_attention_fwd_emulation_matches_jax(base2, N):
+    """Both softmaxes in both forms (N = 4 queries over 5 keys: the short
+    form; N = 40 over 41: the long one, a key step of 32 and a tail of 9),
+    with masked keys and a batch element whose every key is masked (uniform
+    over them in the natural mode, zero in base 2: the TPU kernel's p =
+    exp2(min(-1e9, 100)) = 0 over a sum of 1e-30), against the JAX package's
+    ``_fwd_tpu`` in interpret mode on the same bf16 inputs. The statistic is
+    held to log2 of the softmax denominator recomputed from JAX's logits in
+    base-2 units with a masked logit at -1e9, to 1e-3 of its scale (f32
+    sums in another order)."""
+    rng = np.random.default_rng(7 + N)
+    Bc, M = 3, N + 1
+    qs = D ** -0.5 * (LOG2E if base2 else 1.0)
+    q = _bf(_t(rng.normal(size=(Bc, H, N, D)) * qs))
+    k, v = (_bf(_t(rng.normal(size=(Bc, H, M, D)))) for _ in range(2))
+    kv = torch.ones(Bc, M)
+    kv[0, 1:3] = 0
+    kv[1] = 0  # every key masked
+    kv[2, -1] = 0
+    o, stat = fused_fwd_emulated(q, k, v, kv, base2)
+    bf = jnp.bfloat16
+    R = Bc * H
+    jq, jk, jv = (jnp.asarray(t.reshape(R, -1, D).numpy(), bf) for t in (q, k, v))
+    jkv = jnp.asarray(kv.repeat_interleave(H, 0).numpy())
+    ref = _fwd_tpu(jq, jk, jv, jkv, interpret=True, base2=base2)
+    _close(o.reshape(R, N, D).numpy(), np.asarray(ref.astype(jnp.float32)))
+    assert float(o[1].abs().max()) == 0.0 if base2 else float(o[1].abs().max()) > 0.0
+    lg = np.asarray(jax.lax.dot_general(jq, jk, (((2,), (2,)), ((0,), (0,))),
+                                        preferred_element_type=jnp.float32), np.float64)
+    t = lg * (1.0 if base2 else LOG2E)
+    t = np.where(np.asarray(jkv)[:, None, :] > 0, t, -1e9)
+    if base2:
+        want = np.log2(np.exp2(np.minimum(t, 100.0)).sum(-1) + 1e-30)
+    else:
+        mx = t.max(-1)
+        want = mx + np.log2(np.exp2(t - mx[..., None]).sum(-1))
+    got = stat.reshape(R, N).numpy()
+    assert np.abs(got - want).max() <= 1e-3 * max(1.0, np.abs(want).max())
+
+
 def test_long_attention_schedule():
     """The host-side schedule at the paths' shapes: every resident row in
     one window where it fits two blocks per SM; one block per row at
@@ -263,9 +354,23 @@ def test_long_attention_schedule():
     long = LA.forward_plan(8, 4096, 24)
     assert long.win % 64 == 0 and long.windows == -(-4112 // long.win) > 1
     assert long.chunk == 16 and long.chunks == 256 // 16
+    # fused_attention's forward: the long form at T = 1000 (row g's schedule
+    # without the appended key) and the no_rope frame view, the short form
+    # at the residue view (64 rows of 4 queries a block of 256 threads)
+    fa = LA.fused_plan(512, 1000, 1001, 24)
+    assert (fa.form, fa.chunk, fa.win, fa.blocks, fa.smem) == (0, 63, 1008, 512, 113_088)
+    frame = LA.fused_plan(256 * 16, 100, 101, 24)
+    assert (frame.form, frame.chunks, frame.chunk, frame.windows) == (0, 1, 7, 1)
+    res = LA.fused_plan(6400 * 16, 4, 5, 24)
+    assert (res.form, res.rows, res.blocks, res.smem) == (1, 64, 1600, 64 * 5 * 24 * 4)
+    assert LA.fused_plan(16, 17, 18, 24).form == 0 and LA.fused_plan(16, 16, 33, 24).form == 0
+    assert LA.fused_plan(16, 16, 17, 64).form == 1
     for d in (16, 24, 32, 64):
+        for n in (1, 4, 16, 17):
+            p = LA.fused_plan(8, n, n + 1, d)
+            assert p.smem <= LA.BUDGET and (p.form == 0 or p.rows * n <= LA.SHORT_THREADS)
         for n in (63, 64, 65, 255, 256, 257, 1000, 1001, 4096):
             for p in (LA.forward_plan(8, n, d), LA.dq_plan(8, n, n + 1, d),
-                      LA.dkdv_plan(8, n, n + 1, d)):
+                      LA.dkdv_plan(8, n, n + 1, d), LA.fused_plan(8, n, n + 1, d)):
                 assert p.smem <= LA.BUDGET and 2 * (p.smem + 1024) <= LA.SMEM_PER_SM
                 assert p.win % 16 == 0 and p.chunks * p.chunk >= -(-n // 16)
