@@ -6,7 +6,10 @@ Builds the hand-written CUDA kernels of ``mdgen_finetune_tpu_torch/csrc``
 from this checkout and holds each kernel against its plain PyTorch twin at
 the shapes of its path (the sampler's forward kernels at B = 64, the
 key-tiled frame attention and the trunk's three stage ops at T = 1000, the
-training backward kernels at B = 32). Then:
+training backward kernels at B = 32); ``rope_short``: the short body of
+``rope_attention`` (N <= 16) at its three uses (trunk stage 1, base 2;
+the modular layer's residue attention, TPU row 12, natural; the encoder's
+residue MHA) and the short backward at stage 1. Then:
 
 - the sampler: one denoiser step on the card against the same step on the
   CPU (and its launches: 32 ``adaln_linear``, 10 ``rope_attention``); the
@@ -45,7 +48,10 @@ training backward kernels at B = 32). Then:
   (B = 32, T = 100 and B = 4, T = 200: against the split route on the same
   inputs, bit for bit expected, and the f32 plain version under the
   composition rule; ms of the merged launch, of the split route's launches
-  for one layer and of the plain version; the bound), then ``train_merged``
+  for one layer and of the plain version; the bound; ``phase_clock``: the
+  kernel's time by phase from its ``-DMDGEN_PHASE_CLOCK`` build beside the
+  split route's kernels for the same work, ``tools/merged_phase_clock``),
+  then ``train_merged``
   (``train_path``'s run through it: the same losses and gradient norms bit
   for bit, 5 merged launches and no split backward kernel per step) and its trace ``train_merged_trace``;
 - the ATLAS crop-256 preset (``preset_atlas``: L = 256, T = 250, B = 1,
@@ -70,7 +76,8 @@ plain version and prints its marginal-cost table.
 
 With ``MDGEN_PARENT_CSRC`` set to the csrc directory of another checkout
 (a ``git archive`` of the parent commit), built beside this checkout's
-kernels from the start, the entries of ``adaln_linear`` (every use), of
+kernels from the start, the entries of ``rope_attention``'s short body,
+of ``adaln_linear`` (every use), of
 ``fused_attention``'s forward (its three shapes: T = 1000 in both
 softmaxes, the ``no_rope`` frame and residue views), of the merged layer
 backward (its launch, and the split route on the parent's
@@ -194,10 +201,10 @@ def check(name, got, ref, rel_tol):
 
 _PARENT_LIBS: dict = {}
 _PARENT_BUILDS: list = []
-# the kernels this slice redesigned (rows a and h; row 4', the merged layer
-# backward, runs row a's body) and the long-key kernels of the slice before
-PARENT_KERNELS = ("adaln_linear", "fused_attention", "fused_layer_bwd", "tiled_attention",
-                  "fused_attention_bwd")
+# the kernels of the last two slices: rope_attention's short body and row
+# 4' (this one), rows a and h (the one before), the long-key kernels
+PARENT_KERNELS = ("rope_attention", "adaln_linear", "fused_attention", "fused_layer_bwd",
+                  "tiled_attention", "fused_attention_bwd")
 
 
 def start_parent_builds():
@@ -235,23 +242,28 @@ def parent_lib(name):
 
 
 @contextlib.contextmanager
+def with_libs(libs):
+    """This checkout's wrappers of the kernels named in ``libs`` running the
+    libraries given there ({name: ctypes library})."""
+    from mdgen_finetune_tpu_torch.ops import _cuda
+
+    cur = {n: _cuda._LIBS[n] for n in libs}
+    for n, lib in libs.items():
+        fn, ref = getattr(lib, n), getattr(cur[n], n)
+        fn.argtypes, fn.restype = ref.argtypes, ref.restype
+        _cuda._LIBS[n] = lib
+    try:
+        yield
+    finally:
+        _cuda._LIBS.update(cur)
+
+
 def with_parent(names):
     """This checkout's wrappers of kernels ``names`` running the parent's
     libraries (``parent_lib``). The parent's entry points take the same
     arguments but the schedule that this checkout's wrappers append after
     the stream, which they do not read (a C call's trailing arguments)."""
-    from mdgen_finetune_tpu_torch.ops import _cuda
-
-    cur = {n: _cuda._LIBS[n] for n in names}
-    for n in names:
-        old = parent_lib(n)
-        fn, ref = getattr(old, n), getattr(cur[n], n)
-        fn.argtypes, fn.restype = ref.argtypes, ref.restype
-        _cuda._LIBS[n] = old
-    try:
-        yield
-    finally:
-        _cuda._LIBS.update(cur)
+    return with_libs({n: parent_lib(n) for n in names})
 
 
 def parent_times(names, run):
@@ -473,6 +485,106 @@ def sdpa_inputs(qkv, bk, bv, mask, Hc):
     valid = torch.cat([mask.permute(0, 2, 1).reshape(S, N), torch.ones(S, 1, device=qkv.device)], 1)
     am = ((valid - 1.0) * 1e9).to(qkv.dtype)[:, None, None, :]
     return q.contiguous(), k.contiguous(), v.contiguous(), am
+
+
+GENERAL = "MDGEN_SHORT_GENERAL"  # rope_attention's short body without its contiguous path
+
+
+def phase_rope_short(dev):
+    """The streaming short body of ``rope_attention`` (N <= 16) at its three
+    uses on the main paths, (G, N, I) = (B*T, L, 1) = (6400, 4, 1): trunk
+    stage 1 (base 2), the modular layer's residue attention (TPU row 12,
+    natural) and the encoder's residue MHA (natural, G = B = 64), with a
+    padded residue and a frame whose only valid key is the bias token; each
+    against its f32 plain twin (1e-2 x max(1, max |twin|)), by events and
+    back to back, the parent's sources on the same inputs (with
+    MDGEN_PARENT_CSRC; ``bits_equal_parent``), SDPA on the same pre-RoPE'd
+    inputs (``sdpa_inputs``), the bound and the resources with the plan;
+    at stage 1 also the build without the contiguous copy path
+    (``-DMDGEN_SHORT_GENERAL``: every unit through the general row
+    arithmetic), its bits and times. Also the short body of
+    ``rope_attention_bwd`` at stage 1 (measured for ranking): ms, back to
+    back, the bound, its plain twin, and SDPA's backward on the same
+    pre-RoPE'd heads."""
+    import torch.nn.functional as F
+
+    from mdgen_finetune_tpu_torch.ops import _cuda
+    from mdgen_finetune_tpu_torch.ops import rope_attention as RA
+    from mdgen_finetune_tpu_torch.ops import rope_attention_bwd as RB
+
+    g = torch.Generator(device=dev).manual_seed(71)
+    D = C // H
+    out = {}
+    for name, Gc, base2 in (("stage1_base2", B * T, True), ("row12_natural", B * T, False),
+                            ("encoder_mha", B, False)):
+        qkv = torch.randn(Gc, L, 1, 3 * C, generator=g, device=dev)
+        qkv[..., :C] *= D ** -0.5 * (1.4427 if base2 else 1.0)  # q carries its scale
+        qkv = qkv.bfloat16()
+        bk, bv = (torch.randn(C, generator=g, device=dev) * 0.4).bfloat16(), \
+            (torch.randn(C, generator=g, device=dev) * 0.4).bfloat16()
+        mask = torch.ones(Gc, L, 1, device=dev)
+        mask[:Gc // 2, -1] = 0  # a padded residue in half of the frames
+        mask[1] = 0  # a frame whose only valid key is the bias token
+        kw = dict(num_heads=H, base2=base2)
+        got = RA.rope_attention(qkv, bk, bv, mask, **kw)
+        ref = RA.rope_attention_plain(qkv.float(), bk.float(), bv.float(), mask, **kw)
+        err = check(f"rope_short[{name}]", got, ref, 1e-2)
+        if not torch.equal(got[1], bv.view(1, 1, C).expand_as(got[1])):
+            raise AssertionError(f"rope_short[{name}]: a frame with only the bias key valid "
+                                 "did not give the bias value")
+        bits = None
+        if parent_lib("rope_attention") is not None:
+            with with_parent(("rope_attention",)):
+                bits = torch.equal(RA.rope_attention(qkv, bk, bv, mask, **kw), got)
+        run = lambda: RA.rope_attention(qkv, bk, bv, mask, **kw)  # noqa: E731
+        general = None
+        if name == "stage1_base2":
+            with with_libs({"rope_attention": _cuda.variant_library("rope_attention", GENERAL)}):
+                general = dict(bits_equal=torch.equal(run(), got), ms=time_ms(run),
+                               back_to_back_ms=back_to_back_ms(run))
+            if not general["bits_equal"]:
+                raise AssertionError("rope_short: the general copy path moved the bits")
+        q, k, v, am = sdpa_inputs(qkv, bk, bv, mask, H)
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am)  # noqa: E731
+        out[name] = dict(
+            shape=f"(G, N, I) = ({Gc}, {L}, 1), {H} heads of D = {D}, "
+                  f"{'base 2' if base2 else 'natural'}",
+            max_abs_err=err[0], tol=err[1], ms=time_ms(run), back_to_back_ms=back_to_back_ms(run),
+            parent=parent_times("rope_attention", run), bits_equal_parent=bits,
+            plain_ms=time_ms(lambda: RA.rope_attention_plain(qkv, bk, bv, mask, **kw)),
+            library_ms=time_ms(lib), library_back_to_back_ms=back_to_back_ms(lib),
+            bound=bound_ms(nbytes(qkv, bk, bv, mask, got), 4.0 * Gc * H * L * (L + 1) * D),
+            resources=RA.resources(L, H, C, G=Gc), general_path=general)
+        del qkv, got, ref, q, k, v, am
+    # the short backward at stage 1 (rope_attention_bwd, N = 4)
+    qkv = (torch.randn(B_TRAIN * T, L, 1, 3 * C, generator=g, device=dev) * 0.5).bfloat16()
+    do = (torch.randn(B_TRAIN * T, L, 1, C, generator=g, device=dev) * 0.1).bfloat16()
+    bk, bv = (torch.randn(C, generator=g, device=dev) * 0.4).bfloat16(), \
+        (torch.randn(C, generator=g, device=dev) * 0.4).bfloat16()
+    mask = torch.ones(B_TRAIN * T, L, 1, device=dev)
+    mask[:T, -1] = 0
+    got = RB.rope_attention_bwd(qkv, do, bk, bv, mask, num_heads=H)
+    ref = RB.rope_attention_bwd_plain(qkv.float(), do.float(), bk.float(), bv.float(), mask,
+                                      num_heads=H)
+    errs = [check(f"rope_short[bwd {i}]", a, b, 1e-2) for i, (a, b) in enumerate(zip(got, ref))]
+    run = lambda: RB.rope_attention_bwd(qkv, do, bk, bv, mask, num_heads=H)  # noqa: E731
+    Gb = B_TRAIN * T
+    # library yardstick: SDPA's backward on the same RoPE'd, bias-appended heads
+    q, k, v, am = sdpa_inputs(qkv, bk, bv, mask, H)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=am)
+    go = do.permute(0, 2, 1, 3).reshape(Gb, L, H, D).transpose(1, 2).contiguous()
+    lib = lambda: torch.autograd.grad(o, (q, k, v), go, retain_graph=True)  # noqa: E731
+    out["bwd_stage1"] = dict(
+        shape=f"(G, N, I) = ({Gb}, {L}, 1), {H} heads of D = {D} (the training path's stage 1)",
+        max_abs_err=max(e for e, _ in errs), tol=max(t for _, t in errs), ms=time_ms(run),
+        back_to_back_ms=back_to_back_ms(run),
+        plain_ms=time_ms(lambda: RB.rope_attention_bwd_plain(qkv, do, bk, bv, mask, num_heads=H)),
+        library_ms=time_ms(lib), library_back_to_back_ms=back_to_back_ms(lib),
+        bound=bound_ms(nbytes(qkv, do, bk, bv, mask, *got), 10.0 * Gb * H * L * (L + 1) * D),
+        resources=RB.resources(L, H, C))
+    emit({"phase": "rope_short", "kernels": out})
+    return out
 
 
 def long_t_kernels(dev):
@@ -899,6 +1011,8 @@ def phase_train_path(dev, route="", ref=None):
     wrappers, twins = _counters(pairs)
     for fn in wrappers:
         fn.launches = 0
+        if hasattr(fn, "bodies"):  # rope_attention's and rope_attention_bwd's launches by body
+            fn.bodies = [0] * len(fn.bodies)
     for fn in twins:
         fn.cuda_calls = 0
     ipa_encoder.bwd_recomputes = 0
@@ -936,6 +1050,7 @@ def phase_train_path(dev, route="", ref=None):
         all(torch.equal(state.ema_params[k], v) for k, v in saved_ema.items())
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in wrappers}
+    bodies = {f"{fn.__name__}.bodies": list(fn.bodies) for fn in wrappers if hasattr(fn, "bodies")}
     twin_calls = {fn.__name__: fn.cuda_calls for fn in twins}
     losses = [float(m["loss"]) for m in metrics]
     norms = [float(m["grad_norm"]) for m in metrics]
@@ -952,7 +1067,7 @@ def phase_train_path(dev, route="", ref=None):
           "peak_memory_gb": peak_gb, "losses": losses, "grad_norms": norms,
           "fixed_batch_first5": first5, "fixed_batch_last5": last5,
           "checkpoint_round_trip": ckpt_ok, "launches_per_step": per_step,
-          "launches": launches, "plain_calls_on_card": twin_calls,
+          "launches": launches, "launches_by_body": bodies, "plain_calls_on_card": twin_calls,
           "encoder_bwd_recomputes": ipa_encoder.bwd_recomputes, **extra})
     if not all(np.isfinite(losses + norms + fixed)):
         raise AssertionError(f"{phase}: non-finite loss or gradient norm in training")
@@ -972,7 +1087,7 @@ def phase_train_path(dev, route="", ref=None):
                                  f"{losses}, {norms} vs {ref}")
     elif min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the training path never launched: {launches}")
-    return launches, (losses, norms), (trainer, state, batches[0], gen)
+    return {**launches, **bodies}, (losses, norms), (trainer, state, batches[0], gen)
 
 
 def phase_rope_long_bodies(dev):
@@ -1098,7 +1213,7 @@ def merged_parent_times(FM, args, split):
     ptrs, ints, _ = FM.launch_slots(*args)
     fn = plib.fused_layer_bwd
     fn.argtypes, fn.restype = [ctypes.c_void_p] * 4, ctypes.c_int
-    p_arr = (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
+    p_arr = (ctypes.c_void_p * len(ptrs))(*[None if t is None else t.data_ptr() for t in ptrs])
     i_arr = (ctypes.c_longlong * len(ints))(*ints)
     info = (ctypes.c_longlong * 3)()
     stream = torch.cuda.current_stream().cuda_stream
@@ -1131,6 +1246,7 @@ def phase_merged_bwd_kernels(dev):
     from mdgen_finetune_tpu_torch.ops.fused_layer import trunk_layer
     from mdgen_finetune_tpu_torch.ops.fused_layer_bwd import layer_bwd_split
     from mdgen_finetune_tpu_torch.ops.residue_block import residue_block_plain
+    from mdgen_finetune_tpu_torch.tools import merged_phase_clock as MPC
     from mdgen_finetune_tpu_torch.ops.time_attention import time_attention_block_plain
 
     wrappers, _ = _counters(tuple((n, n) for n in TRAIN_WRAPPERS + ("blocked_attention_bwd",)))
@@ -1193,7 +1309,8 @@ def phase_merged_bwd_kernels(dev):
             split_launches=split_launches,
             plain_ms=time_ms(lambda: FM.fused_layer_bwd_merged_plain(*args), reps=3, warmup=1),
             library_ms=None, bound=bound,
-            split_bound_ms=bound_ms(io + 4 * M * C * 4, flops)[0])
+            split_bound_ms=bound_ms(io + 4 * M * C * 4, flops)[0],
+            phase_clock=MPC.measure(name, Bc, Tc, 5, MPC.clock_library()))
         if over or not finite:
             raise AssertionError(f"merged_bwd_kernels[{name}]: over the rule: {over}")
     emit({"phase": "merged_bwd_kernels", "kernels": out})
@@ -1585,6 +1702,7 @@ def phase_main_path(dev, cfg):
     for fn in twins:
         fn.cuda_calls = 0
     al.adaln_linear.routes = [0, 0, 0]
+    ra.rope_attention.bodies = [0, 0, 0]
     t0 = time.perf_counter()
     out, _ = eng.sample(batch, gen)
     torch.cuda.synchronize()
@@ -1601,6 +1719,7 @@ def phase_main_path(dev, cfg):
     traj = eng.rollout(atom14, seqres, mask, 2, gen)
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in wrappers}
+    bodies = list(ra.rope_attention.bodies)  # short base 2 (stage 1), short natural (encoder), long
     twin_calls = {fn.__name__: fn.cuda_calls for fn in twins}
 
     enc_bound = encoder_bound(STEPS * B)
@@ -1612,7 +1731,7 @@ def phase_main_path(dev, cfg):
     emit({"phase": "main_path", "B": B, "T": T, "L": L, "C": C, "layers": NL, "steps": STEPS,
           "dtype": "bf16", "sample_s": secs, "steps_per_s": B * STEPS / secs,
           "launches_per_sample": per_sample, "launches": launches,
-          "adaln_linear_routes_per_sample": routes,
+          "adaln_linear_routes_per_sample": routes, "rope_attention_bodies": bodies,
           "plain_calls_on_card": twin_calls, "rollout_windows": 2,
           "n_ca_mean": n_ca.mean().item(), "ca_c_mean": ca_c.mean().item(),
           "n_ca_max_dev": dev_nca, "ca_c_max_dev": dev_cac,
@@ -1623,7 +1742,7 @@ def phase_main_path(dev, cfg):
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     if any(twin_calls.values()):
         raise AssertionError(f"plain twins ran on the card: {twin_calls}")
-    return launches, (eng, batch, gen)
+    return {**launches, "rope_attention.bodies": bodies}, (eng, batch, gen)
 
 
 def sample_checks(name, out, mask, launches, twin_calls, evals):
@@ -2615,7 +2734,8 @@ def modular_sample(dev, name, cfg, batch_size, seed, pad=1):
     wrappers, twins = _counters(MODULAR_WRAPPERS)
     for fn in wrappers:
         fn.launches = 0
-        for part in ("routes", "forms"):  # adaln_linear's routes, fused_attention_fwd's forms
+        # adaln_linear's routes, fused_attention_fwd's forms, rope_attention's bodies
+        for part in ("routes", "forms", "bodies"):
             if hasattr(fn, part):
                 setattr(fn, part, [0] * len(getattr(fn, part)))
     for fn in twins:
@@ -2626,7 +2746,7 @@ def modular_sample(dev, name, cfg, batch_size, seed, pad=1):
     secs = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in wrappers}
     by_part = {f"{fn.__name__}.{part}": list(getattr(fn, part)) for fn in wrappers
-               for part in ("routes", "forms") if hasattr(fn, part)}
+               for part in ("routes", "forms", "bodies") if hasattr(fn, part)}
     twin_calls = {fn.__name__: fn.cuda_calls for fn in twins}
     evals = eng.last_counts["evals"]
     per_eval, calls = modular_launches_per_eval(cfg)
@@ -3035,11 +3155,14 @@ def main():
         sys.exit(2)
     t_start = time.perf_counter()
     from mdgen_finetune_tpu_torch.ops import _cuda
+    from mdgen_finetune_tpu_torch.tools import merged_phase_clock as MPC
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     start_parent_builds()
+    MPC.start_clock_build()
+    _cuda.start_variant("rope_attention", GENERAL)
     build_s = _cuda.build_all()
     dev = torch.device("cuda")
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
@@ -3048,6 +3171,7 @@ def main():
 
     cfg = flagship_config()
     kernels = phase_kernels(dev)
+    short = phase_rope_short(dev)
     kernels.update(phase_bwd_kernels(dev))
     rope_long = phase_rope_long_bodies(dev)
     phase_step_across_devices(dev, cfg)
@@ -3178,17 +3302,18 @@ def main():
             entry["edge_cases_worst_share_of_tol"] = {
                 c: v for c, v in rope_long["worst_share_of_tol"].items() if c.startswith(part)}
     # the modular layer's natural-softmax cores (TPU rows 12, 11a, 11b and the
-    # no_rope route of row 10): launches over interleave_main (rope_attention:
-    # the residue stage, the frame stage and the encoder, 5 each per
-    # evaluation), interleave_1000 (tiled_attention) and no_rope_main
+    # no_rope route of row 10): launches over interleave_main (rope_attention
+    # by body: row 12 the short body, the residue stage and the encoder, 10
+    # per evaluation; row 11a the long body, the frame stage, 5),
+    # interleave_1000 (tiled_attention) and no_rope_main
     ta = "mdgen_finetune_tpu/ops/time_attention.py"
     natural = (
         ("rope_attention[natural, row 12]", "row12_residue", "rope_attention",
          "mdgen_finetune_tpu/ops/residue_attention.py:141 (_pallas_fwd, pallas_call :183, "
-         "body _kernel :65)", interleave_launches["rope_attention"]),
+         "body _kernel :65)", interleave_launches["rope_attention.bodies"][1]),
         ("rope_attention[natural, row 11a]", "row11a_frames", "rope_attention",
          f"{ta}:244 (_pallas_fwd, pallas_call :279, body _kernel :190)",
-         interleave_launches["rope_attention"]),
+         interleave_launches["rope_attention.bodies"][2]),
         ("tiled_attention[natural, row 11b]", "row11b_frames_T1000", "tiled_attention",
          f"{ta}:343 (_pallas_fwd_blocked, pallas_call :385, body _kernel_blocked :303)",
          interleave_1000["tiled_attention"]),
@@ -3202,6 +3327,35 @@ def main():
          "fused_attention_fwd", "mdgen_finetune_tpu/ops/fused_attention.py:66 (_fwd_tpu, "
          "pallas_call :75)", no_rope_launches["fused_attention_fwd.forms"][0]),
     )
+    # rope_attention's short body at its three uses and rope_attention_bwd's
+    # at stage 1; launches by body: the main path's short base 2 (stage 1)
+    # and short natural (the encoder), interleave_main's short natural (the
+    # residue attention of row 12 and the encoder), train_path's short
+    # backward (stage 1)
+    fl = "mdgen_finetune_tpu/ops/fused_layer.py"
+    uses = (
+        ("rope_attention[short, stage 1 base 2]", "stage1_base2", "rope_attention",
+         f"{fl}:579 (_trunk_call, pallas_call :777, body _kernel :38, softmax :223-233)",
+         launches["rope_attention.bodies"][0]),
+        ("rope_attention[short, row 12 natural]", "row12_natural", "rope_attention",
+         "mdgen_finetune_tpu/ops/residue_attention.py:141 (_pallas_fwd, pallas_call :183)",
+         interleave_launches["rope_attention.bodies"][1]),
+        ("rope_attention[short, encoder MHA]", "encoder_mha", "rope_attention",
+         "mdgen_finetune_tpu/ops/ipa_encoder.py:441 (_encoder_call, pallas_call :484, "
+         "body _kernel :234)", launches["rope_attention.bodies"][1]),
+        ("rope_attention_bwd[short, stage 1]", "bwd_stage1", "rope_attention_bwd",
+         "mdgen_finetune_tpu/ops/fused_layer_bwd.py:474 (_k1)",
+         train_launches["rope_attention_bwd.bodies"][0]),
+    )
+    for name, case, src, rep_, n_launch in uses:
+        k = short[case]
+        line.append({"name": name, "route": "cuda", "source": meta[src][0], "replaces": rep_,
+                     "launches": n_launch, "max_abs_err": k["max_abs_err"], "tol": k["tol"],
+                     "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
+                     "bound_by": k["bound"][1], "library_ms": k["library_ms"], "shape": k["shape"],
+                     **{f: k[f] for f in ("back_to_back_ms", "library_back_to_back_ms", "parent",
+                                          "bits_equal_parent", "resources", "general_path")
+                        if f in k}})
     for name, case, src, rep_, n_launch in natural:
         k = modular[case]
         line.append({"name": name, "route": "cuda", "source": meta[src][0], "replaces": rep_,
@@ -3226,7 +3380,8 @@ def main():
                  "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0], "bound_by": k["bound"][1],
                  "library_ms": None, "shape": k["shape"], "split_ms": k["split_ms"],
                  "bit_identical_to_split": k["bit_identical_to_split"], "parent": k["parent"],
-                 "T200": {f: v for f, v in merged["T200"].items() if f != "shape"}})
+                 "T200": {f: v for f, v in merged["T200"].items()
+                          if f not in ("shape", "phase_clock")}})
     line.append({"name": "micro_ops", "route": "cuda",
                  "source": "mdgen_finetune_tpu_torch/csrc/micro_ops.cu",
                  "replaces": "tools/micro_ops.py:300 (main: the probe's pallas_call, body kernel)",

@@ -7,9 +7,11 @@
 //
 // for R rows of W f32 columns. Lane ty of a column sums rows ty, ty + 8, ...
 // in order (lane_sum), then the 8 lane sums are added in order (total), so
-// the result does not depend on scheduling. colsum_kernel runs a block of
-// 32 columns x 8 row lanes; the merged layer backward (fused_layer_bwd.cu)
-// gives one thread a whole column (column), the same sums in the same order.
+// the result does not depend on scheduling. A block takes NC columns x 8
+// row lanes (block): colsum_kernel 32 columns, the merged layer backward
+// (fused_layer_bwd.cu, 128-thread blocks) 16 where the rows are many; where
+// they are few the merged kernel gives one thread a whole column (column).
+// Every form adds the same sums in the same order.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -37,7 +39,7 @@ __device__ __forceinline__ void store(float* __restrict__ out, long long w, long
   out[(w / row_w) * ld_out + w % row_w] = t;
 }
 
-// column w in one thread: the sums of colsum_kernel, bit for bit
+// column w in one thread
 __device__ __forceinline__ void column(const float* __restrict__ in, float* __restrict__ out,
                                        long long R, long long W, long long row_w,
                                        long long ld_out, long long w) {
@@ -47,15 +49,24 @@ __device__ __forceinline__ void column(const float* __restrict__ in, float* __re
   store(out, w, row_w, ld_out, total(lanes, 1));
 }
 
+// block bx of NC x LANES threads: columns bx * NC + tx, row lane ty; `part`
+// holds LANES x (NC + 1) floats of shared memory
+template <int NC>
+__device__ __forceinline__ void block(const float* __restrict__ in, float* __restrict__ out,
+                                      long long R, long long W, long long row_w, long long ld_out,
+                                      long long bx, float* part) {
+  const int tx = threadIdx.x % NC, ty = threadIdx.x / NC;
+  const long long w = bx * NC + tx;
+  part[ty * (NC + 1) + tx] = w < W ? lane_sum(in, R, W, w, ty) : 0.f;
+  __syncthreads();
+  if (ty == 0 && w < W) store(out, w, row_w, ld_out, total(part + tx, NC + 1));
+}
+
 __global__ void __launch_bounds__(COLS * LANES) colsum_kernel(
     const float* __restrict__ in, float* __restrict__ out, long long R, long long W,
     long long row_w, long long ld_out) {
-  __shared__ float part[LANES][COLS + 1];
-  const int tx = threadIdx.x % COLS, ty = threadIdx.x / COLS;
-  const long long w = (long long)blockIdx.x * COLS + tx;
-  part[ty][tx] = w < W ? lane_sum(in, R, W, w, ty) : 0.f;
-  __syncthreads();
-  if (ty == 0 && w < W) store(out, w, row_w, ld_out, total(&part[0][tx], COLS + 1));
+  __shared__ float part[LANES * (COLS + 1)];
+  block<COLS>(in, out, R, W, row_w, ld_out, blockIdx.x, part);
 }
 
 inline int launch(const float* in, float* out, long long R, long long W, long long row_w,

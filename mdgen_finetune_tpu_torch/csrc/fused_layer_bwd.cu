@@ -55,7 +55,20 @@
 // design is the split route's tiling, not a new one: one persistent block
 // of 128 threads per resident slot (SM count x blocks per SM at the largest
 // phase's shared memory); the forward products on adaln_linear's wgmma +
-// TMA core, the rest mma.sync through the split kernels' inline PTX.
+// TMA core, the rest mma.sync through the split kernels' inline PTX. A
+// column sum over many rows (the residue stage's bias-key sums: 3,200 rows
+// at B = 32) runs colsum_kernel's lanes on blocks of 16 columns (the split
+// kernel's hold 32); one over few rows (the weight gradients' partials), a
+// thread per column.
+//
+// Where the time goes (tools/merged_phase_clock.py; PERF.md): every phase
+// runs 1.5-6 x its split kernels' time. The products: adaln_linear's wgmma
+// pipeline is serialized by ptxas when the body is a call of its own (C7510:
+// "wgmma pipeline crossing function boundary"), and inlined it spills with
+// the other bodies in one 255-register allocation. Blocks of 256 threads
+// (the split route's two-warpgroup GEMM, the 128-thread bodies in pairs),
+// the bodies as calls of their own, and their arguments read through opaque
+// pointers were each measured slower than this shape (PR 12).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -79,6 +92,11 @@ namespace {
 
 constexpr int THREADS = 128;
 constexpr int PHASES = 15, MAX_JOBS = 8;
+constexpr int SUM_COLS = THREADS / colsum::LANES;  // the column sums' columns per block
+// column sums over at least this many rows spread each column's rows over
+// lanes (the bias-key sums: a row per sequence); fewer (the weight
+// gradients' split partials), a thread per column
+constexpr long long LANE_ROWS = 64;
 constexpr int ROPE_BWD_MAX_N = 128;  // ops/rope_attention_bwd.MAX_N: blocked_attention_bwd above
 
 enum Kind {
@@ -130,6 +148,7 @@ struct Params {
   Colsum cs[19];
   Phase ph[PHASES];
   int H, C;
+  unsigned long long* clock;  // the phase clock's stamps (MDGEN_PHASE_CLOCK builds only)
 };
 static_assert(sizeof(Params) <= 32764, "the kernel's parameters must fit 32,764 bytes");
 
@@ -175,7 +194,7 @@ __device__ __forceinline__ void run(const Params& P, const Job& j, int t, unsign
     case ROPE_FWD: {
       const Attn& a = P.at[j.arg];
       ropefwd::block<D>(a.sh, a.qkv, a.bk, a.bv, a.kv, a.cos, a.sin, a.out, a.G, a.N, a.I, P.H,
-                        P.C, 1, t, reinterpret_cast<float*>(smem));
+                        P.C, 1, t, smem);
       break;
     }
     case ROPE_BWD: {
@@ -190,13 +209,34 @@ __device__ __forceinline__ void run(const Params& P, const Job& j, int t, unsign
                            a.I, P.H, P.C, t, smem);
       break;
     }
-    case COLSUM: {
+    case COLSUM: {  // a thread per column where the rows are few, else lanes per column
       const Colsum& c = P.cs[j.arg];
-      const long long w = (long long)t * THREADS + threadIdx.x;
-      if (w < c.W) colsum::column(c.in, c.out, c.R, c.W, c.row_w, c.ld_out, w);
+      if (c.R < LANE_ROWS) {
+        const long long w = (long long)t * THREADS + threadIdx.x;
+        if (w < c.W) colsum::column(c.in, c.out, c.R, c.W, c.row_w, c.ld_out, w);
+      } else {
+        colsum::block<SUM_COLS>(c.in, c.out, c.R, c.W, c.row_w, c.ld_out, t,
+                                reinterpret_cast<float*>(smem));
+      }
       break;
     }
   }
+}
+
+// The phase clock: built with -DMDGEN_PHASE_CLOCK (tools/merged_phase_clock.py
+// does, into a library of its own), thread 0 of every block writes
+// %globaltimer (ns) at the start (w = 0) and the end (w = 1) of its work in
+// each phase to clock[(phase * gridDim.x + block) * 2 + w]; the time from a
+// block's end of phase p to its start of phase p + 1 is its wait at the grid
+// barrier. The normal build compiles the stamp to nothing.
+__device__ __forceinline__ void stamp(const Params& P, int p, int w) {
+#ifdef MDGEN_PHASE_CLOCK
+  if (threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    P.clock[((size_t)p * gridDim.x + blockIdx.x) * 2 + w] = t;
+  }
+#endif
 }
 
 template <int D>
@@ -205,6 +245,7 @@ __global__ void __launch_bounds__(THREADS) fused_layer_bwd_kernel(const __grid_c
   cg::grid_group grid = cg::this_grid();
   for (int p = 0; p < PHASES; ++p) {
     const Phase& ph = P.ph[p];
+    stamp(P, p, 0);
     int total = 0;
     for (int j = 0; j < ph.njobs; ++j) total += ph.job[j].tiles;
     for (int t = blockIdx.x; t < total; t += gridDim.x) {
@@ -213,6 +254,7 @@ __global__ void __launch_bounds__(THREADS) fused_layer_bwd_kernel(const __grid_c
       run<D>(P, ph.job[j], local, smem);
       __syncthreads();  // the next virtual block reuses the shared memory
     }
+    stamp(P, p, 1);
     if (p + 1 < PHASES) grid.sync();
   }
 }
@@ -234,14 +276,18 @@ enum Ptr {
   S_W2, S_W1, S_WOUT_T, S_WQKV_T, S_WOUT_L, S_WQKV_L,
   PM3, PM2, PM1, PB_T, PB_L,
   P_DOUT, P_X2, P_X1, P_XIN, P_DX2, P_DX1,  // linear_bwd's prologue outputs, bf16 (M, C)
+  CLOCK,  // u64 [PHASES][grid][2], read by MDGEN_PHASE_CLOCK builds only (may be null)
   NPTR
 };
 // integer slots
 // (AD_PLAN: the plans of the six adaln_linear calls, ops/adaln_linear.py::plan,
 // four each: route, column chunks per block, blocks across the columns, ring
-// stages)
+// stages; ROPE_PLAN: the short rope_attention plans of the frame and the
+// residue stage, ops/rope_attention.py::short_plan(merged=True): sequences
+// and heads per unit, two each, read where the stage is short)
 enum Int { NB_, NT_, NL_, NC_, NH_, NNB, LD_MOD, LD_DMOD, SPL_W2, SPL_W1, SPL_WOUT_T, SPL_WQKV_T,
-           SPL_WOUT_L, SPL_WQKV_L, SPL_MODLN, SMEM_LIMIT, AD_PLAN, NINT = AD_PLAN + 24 };
+           SPL_WOUT_L, SPL_WQKV_L, SPL_MODLN, SMEM_LIMIT, AD_PLAN, ROPE_PLAN = AD_PLAN + 24,
+           NINT = ROPE_PLAN + 4 };
 
 struct Builder {
   Params P;
@@ -289,7 +335,9 @@ struct Builder {
   void sum_cols(int i, const float* in, float* out, long long R, long long W, long long row_w,
               long long ld_out) {
     P.cs[i] = Colsum{in, out, R, W, row_w, ld_out};
-    add(COLSUM, i, (W + THREADS - 1) / THREADS);
+    const int cols = R < LANE_ROWS ? THREADS : SUM_COLS;
+    add(COLSUM, i, (W + cols - 1) / cols);
+    need(colsum::LANES * (SUM_COLS + 1) * sizeof(float));
   }
 };
 
@@ -310,6 +358,7 @@ int launch(const void* const* p, const long long* n, long long* info, cudaStream
   Params& P = b.P;
   P.H = H;
   P.C = C;
+  P.clock = static_cast<unsigned long long*>(const_cast<void*>(p[CLOCK]));
   // ---- adaln_linear: the recomputed forward products ----
   //   0 fc1 (GELU, pre = a)  1 fc2 (f32)  2 qkv_t  3 out_t (f32)  4 qkv_l  5 out_l (f32)
   P.ad[0] = adaln::make_args(p[X2], C, p[W1], p[B1], vp(GE), F, M, F, C, adaln::LN_PLAIN, nullptr,
@@ -386,7 +435,9 @@ int launch(const void* const* p, const long long* n, long long* info, cudaStream
   const bool blocked = T > ROPE_BWD_MAX_N;
   for (int s = 0; s < 2; ++s) {
     Attn f{};
-    f.sh = ropefwd::shape(vG[s], vN[s], vI[s], H, D);
+    f.sh = ropefwd::shape(vG[s], vN[s], vI[s], H, D, (int)n[ROPE_PLAN + 2 * s],
+                          (int)n[ROPE_PLAN + 2 * s + 1], 1);
+    if (f.sh.blocks == 0) return (int)cudaErrorInvalidValue;
     f.qkv = bp(qk[s]); f.bk = bp(bk[s]); f.bv = bp(bv[s]);
     f.kv = fp(MASK); f.cos = fp(ct[s]); f.sin = fp(st[s]);
     f.out = const_cast<bf16*>(bp(at[s]));

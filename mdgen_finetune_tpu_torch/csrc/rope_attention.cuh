@@ -1,8 +1,8 @@
 // rope_attention.cuh: the bodies of rope_attention.cu's two kernels (the
-// design note is there) as device functions over a block index and a
-// shared-memory buffer, so that rope_attention.cu and the merged layer
+// design note is there) as device functions over a block (or unit) index
+// and a shared-memory buffer, so that rope_attention.cu and the merged layer
 // backward (fused_layer_bwd.cu, which recomputes the trunk's attention
-// outputs) run the same code.
+// outputs) run the same code. Both bodies are written for 128 threads.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -16,8 +16,9 @@ namespace ropefwd {
 typedef __nv_bfloat16 bf16;
 
 
-constexpr int WARPS = 4;          // short kernel: warps per block
-constexpr int LONG_THREADS = 128;  // long kernel: threads per (sequence, head)
+constexpr int SHORT_THREADS = 128;                // short body: threads per block
+constexpr int LONG_THREADS = 128;                 // long kernel: threads per (sequence, head)
+constexpr int SHORT_KEYS = 17;                    // the short body's most keys: N <= 16, + the bias key
 
 template <int D>
 __device__ __forceinline__ void rope_row(float* v, const float* cs, const float* sn) {
@@ -28,41 +29,216 @@ __device__ __forceinline__ void rope_row(float* v, const float* cs, const float*
   for (int d = 0; d < D; ++d) v[d] = v[d] * cs[d] + r[d] * sn[d];
 }
 
-// one query row against the NK keys/values staged at Ks/Vs/Kb: softmax
-// (base 2 without max, or natural with max) and the weighted sum of values
+// ---- short sequences (N <= 16): the streaming body; the design note is
+// in rope_attention.cu ----
+
+// one unit's shared memory (bytes): nbuf buffers of the raw bf16 q|k|v span
+// of SPB sequences x HG heads (token-major: [sequence][token][q|k|v][HG*D];
+// V is read from there, and each thread's output replaces its q slice),
+// each followed by the span's key_valid, [sequence][KBS] f32; K
+// RoPE'd in f32, [sequence][head][key][D] at a head stride of N * D + 4
+// floats (a float4 read by the 8 heads of a warp hits 8 distinct bank
+// quads); the key biases, [sequence][KBS]; the bias key of every head,
+// RoPE'd at N, and the bias value, f32 [2][H][D].
+// ops/rope_attention.py::short_bytes mirrors it.
+struct ShortLayout {
+  int hs, kbs;
+  size_t span, raw, ks, kb, bias, total;  // span: the q|k|v bytes of a raw buffer
+  __host__ __device__ ShortLayout(int spb, int hg, int N, int D, int nbuf, int H) {
+    hs = N * D + 4;
+    kbs = (N + 3) & ~3;
+    span = (size_t)spb * N * 3 * hg * D * 2;
+    raw = span + (size_t)spb * kbs * 4;
+    size_t o = (size_t)nbuf * raw;
+    ks = o; o += (size_t)spb * hg * hs * 4;
+    kb = o; o += (size_t)spb * kbs * 4;
+    bias = o; o += (size_t)2 * H * D * 4;
+    total = o;
+  }
+};
+
+struct ShortArgs {
+  const bf16 *qkv, *bias_k, *bias_v;
+  const float *key_valid, *cos_t, *sin_t;
+  bf16* out;
+  long long S, units;  // sequences (G * I); units (sequence blocks x head groups)
+  int N, I, H, C, base2, spb, hg, groups;
+};
+
+__host__ __device__ inline ShortArgs short_args(const bf16* qkv, const bf16* bias_k,
+                                                const bf16* bias_v, const float* key_valid,
+                                                const float* cos_t, const float* sin_t, bf16* out,
+                                                int G, int N, int I, int H, int C, int base2,
+                                                int spb, int hg) {
+  ShortArgs a;
+  a.qkv = qkv; a.bias_k = bias_k; a.bias_v = bias_v;
+  a.key_valid = key_valid; a.cos_t = cos_t; a.sin_t = sin_t; a.out = out;
+  a.N = N; a.I = I; a.H = H; a.C = C; a.base2 = base2; a.spb = spb; a.hg = hg;
+  a.S = (long long)G * I;
+  a.groups = hg > 0 ? (H + hg - 1) / hg : 0;
+  a.units = spb > 0 ? (a.S + spb - 1) / spb * a.groups : 0;
+  return a;
+}
+
+struct Unit {
+  long long s0;  // first sequence
+  int ns, h0, nh;  // sequences, first head, heads
+};
+
+__device__ __forceinline__ Unit unit_of(const ShortArgs& a, long long u) {
+  Unit U;
+  const long long sb = u / a.groups;
+  U.s0 = sb * a.spb;
+  U.ns = (int)min((long long)a.spb, a.S - U.s0);
+  U.h0 = (int)(u % a.groups) * a.hg;
+  U.nh = min(a.hg, a.H - U.h0);
+  return U;
+}
+
+// token n of sequence s = (g, i) is row (g * N + n) * I + i of (G, N, I, .)
+__device__ __forceinline__ long long token_row(const ShortArgs& a, long long s, int n) {
+  return (s / a.I * a.N + n) * a.I + s % a.I;
+}
+
+// a unit whose rows are one contiguous span of (G, N, I, .): I = 1, all
+// heads (copied in and out without per-chunk row arithmetic); a build with
+// -DMDGEN_SHORT_GENERAL takes every unit through the general path, to time
+// what this one saves (chip_smoke.py, phase rope_short)
+__device__ __forceinline__ bool contiguous(const ShortArgs& a, const Unit& U) {
+#ifdef MDGEN_SHORT_GENERAL
+  return false;
+#else
+  return a.I == 1 && U.nh == a.H;
+#endif
+}
+
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 template <int D>
-__device__ __forceinline__ void attend_row(const float* q, const float* Ks, const float* Vs,
-                                           const float* Kb, int NK, int base2, float* acc) {
-  auto logit = [&](int j) {
-    const float4* k4 = reinterpret_cast<const float4*>(Ks + j * D);
-    float l = Kb[j];
+__device__ __forceinline__ void unpack_row(const bf16* src, float* f) {
 #pragma unroll
-    for (int d = 0; d < D / 4; ++d) {
-      float4 k = k4[d];
-      l += q[4 * d] * k.x + q[4 * d + 1] * k.y + q[4 * d + 2] * k.z + q[4 * d + 3] * k.w;
+  for (int c = 0; c < D / 8; ++c) {
+    const uint4 v = reinterpret_cast<const uint4*>(src)[c];
+    const bf16* b = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) f[8 * c + e] = __bfloat162float(b[e]);
+  }
+}
+
+// rope_row with the tables' row read as float4s (the same products)
+template <int D>
+__device__ __forceinline__ void rope_row4(float* v, const float* cos_row, const float* sin_row) {
+  float cs[D], sn[D];
+#pragma unroll
+  for (int d = 0; d < D / 4; ++d) {
+    const float4 c = __ldg(reinterpret_cast<const float4*>(cos_row) + d);
+    const float4 s = __ldg(reinterpret_cast<const float4*>(sin_row) + d);
+    cs[4 * d] = c.x; cs[4 * d + 1] = c.y; cs[4 * d + 2] = c.z; cs[4 * d + 3] = c.w;
+    sn[4 * d] = s.x; sn[4 * d + 1] = s.y; sn[4 * d + 2] = s.z; sn[4 * d + 3] = s.w;
+  }
+  rope_row<D>(v, cs, sn);
+}
+
+// the unit's q|k|v span into a raw buffer: 16-byte cp.async chunks, the
+// threads on consecutive chunks (one span at I = 1 with every head, else
+// each token's head-group slices); and its tokens' key_valid after it
+template <int D>
+__device__ __forceinline__ void load_unit(const ShortArgs& a, const Unit& U, bf16* raw,
+                                          const ShortLayout& lay) {
+  float* kv = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(raw) + lay.span);
+  for (int e = threadIdx.x; e < U.ns * a.N; e += SHORT_THREADS)
+    cp4(kv + e / a.N * lay.kbs + e % a.N, a.key_valid + token_row(a, U.s0 + e / a.N, e % a.N));
+  if (contiguous(a, U)) {
+    const bf16* src = a.qkv + U.s0 * a.N * 3LL * a.C;
+    const int total = U.ns * a.N * 3 * a.C / 8;
+    for (int e = threadIdx.x; e < total; e += SHORT_THREADS) cp16(raw + e * 8, src + e * 8);
+    return;
+  }
+  const int segc = U.nh * D / 8, total = U.ns * a.N * 3 * segc;
+  for (int e = threadIdx.x; e < total; e += SHORT_THREADS) {
+    const int c = e % segc, r = e / segc, part = r % 3, tok = r / 3;
+    const long long row = token_row(a, U.s0 + tok / a.N, tok % a.N);
+    cp16(raw + (size_t)(tok * 3 + part) * a.hg * D + c * 8,
+         a.qkv + row * 3LL * a.C + part * a.C + U.h0 * D + c * 8);
+  }
+}
+
+// the bias key of every head, RoPE'd at position N, and the bias value, in
+// f32: the same for every sequence of the call
+template <int D>
+__device__ __forceinline__ void stage_bias(const ShortArgs& a, const ShortLayout& lay,
+                                           unsigned char* sm) {
+  float* Kq = reinterpret_cast<float*>(sm + lay.bias);
+  for (int h = threadIdx.x; h < a.H; h += SHORT_THREADS) {
+    float k[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      k[d] = __bfloat162float(a.bias_k[h * D + d]);
+      Kq[(a.H + h) * D + d] = __bfloat162float(a.bias_v[h * D + d]);
     }
-    return l;
-  };
-  float m = 0.f;
-  if (!base2) {
-    m = -3.0e38f;
-    for (int j = 0; j < NK; ++j) m = fmaxf(m, logit(j));
+    rope_row4<D>(k, a.cos_t + a.N * D, a.sin_t + a.N * D);
+#pragma unroll
+    for (int d = 0; d < D; ++d) Kq[h * D + d] = k[d];
+  }
+}
+
+// one query row against the N keys at Ks / Kb (their values bf16 in the raw
+// span, a token's apart) and the bias key: softmax (base 2 without max, or
+// natural with max) and the weighted sum of values; the logits stay in
+// registers (at most 17), so each is formed once
+template <int D>
+__device__ __forceinline__ void attend_short(const float* q, const float* Ks, const float* Kb,
+                                             const bf16* V, int vstride, const float* kbias,
+                                             const float* vbias, int N, int base2, float* acc) {
+  float lg[SHORT_KEYS];
+  float m = -3.0e38f;
+#pragma unroll
+  for (int j = 0; j < SHORT_KEYS; ++j) {
+    if (j <= N) {
+      const float4* k4 = reinterpret_cast<const float4*>(j < N ? Ks + j * D : kbias);
+      float l = j < N ? Kb[j] : 0.f;
+#pragma unroll
+      for (int d = 0; d < D / 4; ++d) {
+        float4 k = k4[d];
+        l += q[4 * d] * k.x + q[4 * d + 1] * k.y + q[4 * d + 2] * k.z + q[4 * d + 3] * k.w;
+      }
+      lg[j] = l;
+      m = fmaxf(m, l);
+    }
   }
 #pragma unroll
   for (int d = 0; d < D; ++d) acc[d] = 0.f;
   float denom = 0.f;
-  for (int j = 0; j < NK; ++j) {
-    float l = logit(j);
-    float p = base2 ? exp2f(fminf(l, 100.f)) : expf(l - m);
-    denom += p;
-    const float4* v4 = reinterpret_cast<const float4*>(Vs + j * D);
 #pragma unroll
-    for (int d = 0; d < D / 4; ++d) {
-      float4 v = v4[d];
-      acc[4 * d] += p * v.x;
-      acc[4 * d + 1] += p * v.y;
-      acc[4 * d + 2] += p * v.z;
-      acc[4 * d + 3] += p * v.w;
+  for (int j = 0; j < SHORT_KEYS; ++j) {
+    if (j <= N) {
+      const float p = base2 ? exp2f(fminf(lg[j], 100.f)) : expf(lg[j] - m);
+      denom += p;
+      float v[D];
+      if (j < N) {
+        unpack_row<D>(V + j * vstride, v);
+      } else {
+#pragma unroll
+        for (int d = 0; d < D; ++d) v[d] = vbias[d];
+      }
+#pragma unroll
+      for (int d = 0; d < D; ++d) acc[d] += p * v[d];
     }
   }
   float inv = 1.f / (base2 ? denom + 1e-30f : denom);
@@ -70,79 +246,109 @@ __device__ __forceinline__ void attend_row(const float* q, const float* Ks, cons
   for (int d = 0; d < D; ++d) acc[d] *= inv;
 }
 
-// per-head staging: NK roped keys, NK values, NK key biases (16-byte aligned)
-__host__ __device__ constexpr int head_floats(int NK, int D) { return 2 * NK * D + ((NK + 3) & ~3); }
-
-// stage key/value row n (n == N: the bias token) of head h, RoPE'd at n
+// a unit whose raw span has landed (and is visible to every thread):
+// stage K, attend (each output over its q slice), write the output
 template <int D>
-__device__ __forceinline__ void stage_key(const bf16* qkv, const bf16* bias_k, const bf16* bias_v,
-                                          const float* key_valid, const float* cos_t,
-                                          const float* sin_t, long long row, int n, int N, int h,
-                                          int C, float* Ks, float* Vs, float* Kb) {
-  float kv[D], vv[D];
-  if (n < N) {
-    const bf16* src = qkv + row * 3LL * C + h * D;
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      kv[d] = __bfloat162float(src[C + d]);
-      vv[d] = __bfloat162float(src[2 * C + d]);
+__device__ __forceinline__ void unit_body(const ShortArgs& a, const Unit& U, bf16* raw,
+                                          const ShortLayout& lay, unsigned char* sm) {
+  float* Ks = reinterpret_cast<float*>(sm + lay.ks);
+  float* Kb = reinterpret_cast<float*>(sm + lay.kb);
+  const float* Kq = reinterpret_cast<const float*>(sm + lay.bias);
+  const int N = a.N, hgd = a.hg * D;
+  // a thread per (sequence, head, key): K RoPE'd at its position, the key
+  // biases; the queries of a head on neighbouring lanes here and below
+  for (int e = threadIdx.x; e < U.ns * U.nh * N; e += SHORT_THREADS) {
+    const int j = e % N, r = e / N, hl = r % U.nh, sl = r / U.nh;
+    float k[D];
+    unpack_row<D>(raw + (size_t)((sl * N + j) * 3 + 1) * hgd + hl * D, k);
+    if (hl == 0) {
+      const float* kv = reinterpret_cast<const float*>(reinterpret_cast<const unsigned char*>(raw) + lay.span);
+      Kb[sl * lay.kbs + j] = kv[sl * lay.kbs + j] > 0.f ? 0.f : -1e9f;
     }
-    Kb[n] = key_valid[row] > 0.f ? 0.f : -1e9f;
+    rope_row4<D>(k, a.cos_t + j * D, a.sin_t + j * D);
+    float4* kd = reinterpret_cast<float4*>(Ks + (size_t)(sl * a.hg + hl) * lay.hs + j * D);
+#pragma unroll
+    for (int d = 0; d < D / 4; ++d)
+      kd[d] = make_float4(k[4 * d], k[4 * d + 1], k[4 * d + 2], k[4 * d + 3]);
+  }
+  __syncthreads();
+  // a thread per (sequence, head, query)
+  for (int e = threadIdx.x; e < U.ns * U.nh * N; e += SHORT_THREADS) {
+    const int n = e % N, r = e / N, hl = r % U.nh, sl = r / U.nh, h = U.h0 + hl;
+    float q[D], acc[D];
+    bf16* qs = raw + (size_t)(sl * N + n) * 3 * hgd + hl * D;
+    unpack_row<D>(qs, q);
+    rope_row4<D>(q, a.cos_t + n * D, a.sin_t + n * D);
+    attend_short<D>(q, Ks + (size_t)(sl * a.hg + hl) * lay.hs, Kb + sl * lay.kbs,
+                    raw + (size_t)(sl * N * 3 + 2) * hgd + hl * D, 3 * hgd, Kq + h * D,
+                    Kq + (a.H + h) * D, N, a.base2, acc);
+    uint4* dst = reinterpret_cast<uint4*>(qs);  // this thread's q slice, read above
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      uint4 w;
+      uint32_t* wp = reinterpret_cast<uint32_t*>(&w);
+#pragma unroll
+      for (int e2 = 0; e2 < 4; ++e2) {
+        const __nv_bfloat162 p = __floats2bfloat162_rn(acc[8 * c + 2 * e2], acc[8 * c + 2 * e2 + 1]);
+        wp[e2] = *reinterpret_cast<const uint32_t*>(&p);
+      }
+      dst[c] = w;
+    }
+  }
+  __syncthreads();
+  // out: 16-byte stores, the threads on consecutive chunks of each token's slice
+  const int segc = U.nh * D / 8;
+  if (contiguous(a, U)) {
+    bf16* dst = a.out + U.s0 * N * (long long)a.C;
+    for (int e = threadIdx.x; e < U.ns * N * segc; e += SHORT_THREADS) {
+      const int c = e % segc, tok = e / segc;
+      reinterpret_cast<uint4*>(dst)[e] = *reinterpret_cast<const uint4*>(raw + (size_t)tok * 3 * hgd + c * 8);
+    }
   } else {
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      kv[d] = __bfloat162float(bias_k[h * D + d]);
-      vv[d] = __bfloat162float(bias_v[h * D + d]);
+    for (int e = threadIdx.x; e < U.ns * N * segc; e += SHORT_THREADS) {
+      const int c = e % segc, tok = e / segc;
+      const long long row = token_row(a, U.s0 + tok / N, tok % N);
+      *reinterpret_cast<uint4*>(a.out + row * a.C + U.h0 * D + c * 8) =
+          *reinterpret_cast<const uint4*>(raw + (size_t)tok * 3 * hgd + c * 8);
     }
-    Kb[n] = 0.f;
   }
-  rope_row<D>(kv, cos_t + n * D, sin_t + n * D);
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    Ks[n * D + d] = kv[d];
-    Vs[n * D + d] = vv[d];
-  }
+  __syncthreads();  // the raw buffer (now the output) is read: it may be refilled
 }
 
-// short sequences: a warp takes HPW = 32 / N heads of one sequence
+// the standalone kernel's walk: units u0, u0 + stride, ... with the next
+// unit's span in flight (the second raw buffer) while this one is computed
 template <int D>
-__device__ __forceinline__ void short_block(
-    const bf16* __restrict__ qkv, const bf16* __restrict__ bias_k,
-    const bf16* __restrict__ bias_v, const float* __restrict__ key_valid,
-    const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-    bf16* __restrict__ out, int G, int N, int I, int H, int C, int base2, int bx,
-    float* smem_s) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int HPW = 32 / N, groups = (H + HPW - 1) / HPW, NK = N + 1;
-  const long long task = (long long)bx * WARPS + warp;
-  if (task >= (long long)G * I * groups) return;
-  const int hg = (int)(task % groups);
-  const long long s = task / groups, g = s / I, i = s % I;
-  const long long row0 = g * N * I + i;
-  const int hf = head_floats(NK, D);
-  float* base = smem_s + (size_t)warp * HPW * hf;
-
-  for (int e = lane; e < HPW * NK; e += 32) {
-    int hl = e / NK, n = e % NK, h = hg * HPW + hl;
-    if (h >= H) continue;
-    float* Ks = base + hl * hf;
-    stage_key<D>(qkv, bias_k, bias_v, key_valid, cos_t, sin_t, row0 + (long long)(n < N ? n : 0) * I,
-                 n, N, h, C, Ks, Ks + NK * D, Ks + 2 * NK * D);
+__device__ __forceinline__ void short_stream(const ShortArgs& a, long long u, long long stride,
+                                             unsigned char* sm) {
+  const ShortLayout lay(a.spb, a.hg, a.N, D, 2, a.H);
+  bf16* raw0 = reinterpret_cast<bf16*>(sm);
+  const size_t rb = lay.raw / 2;  // a raw buffer's bf16 elements
+  if (u >= a.units) return;
+  load_unit<D>(a, unit_of(a, u), raw0, lay);
+  cp_commit();
+  stage_bias<D>(a, lay, sm);
+  for (int k = 0; u < a.units; u += stride, k ^= 1) {
+    if (u + stride < a.units) load_unit<D>(a, unit_of(a, u + stride), raw0 + (k ^ 1) * rb, lay);
+    cp_commit();
+    cp_wait<1>();  // this unit's span has landed (the next one's may not have)
+    __syncthreads();
+    unit_body<D>(a, unit_of(a, u), raw0 + k * rb, lay, sm);
   }
-  __syncwarp();
-  const int hl = lane / N, n = lane % N, h = hg * HPW + hl;
-  if (hl >= HPW || h >= H) return;
-  const float* Ks = base + hl * hf;
-  float q[D], acc[D];
-  const long long row = row0 + (long long)n * I;
-  const bf16* src = qkv + row * 3LL * C + h * D;
-#pragma unroll
-  for (int d = 0; d < D; ++d) q[d] = __bfloat162float(src[d]);
-  rope_row<D>(q, cos_t + n * D, sin_t + n * D);
-  attend_row<D>(q, Ks, Ks + NK * D, Ks + 2 * NK * D, NK, base2, acc);
-  bf16* dst = out + row * C + h * D;
-#pragma unroll
-  for (int d = 0; d < D; ++d) dst[d] = __float2bfloat16(acc[d]);
+  cp_wait<0>();
+}
+
+// one unit, one raw buffer: a virtual block of the merged layer backward
+template <int D>
+__device__ __forceinline__ void short_unit(const ShortArgs& a, long long u, unsigned char* sm) {
+  const ShortLayout lay(a.spb, a.hg, a.N, D, 1, a.H);
+  const Unit U = unit_of(a, u);
+  bf16* raw = reinterpret_cast<bf16*>(sm);
+  load_unit<D>(a, U, raw, lay);
+  cp_commit();
+  stage_bias<D>(a, lay, sm);
+  cp_wait<0>();
+  __syncthreads();
+  unit_body<D>(a, U, raw, lay, sm);
 }
 
 // ---- long sequences (N > 16): a block of 4 warps takes one (sequence,
@@ -406,38 +612,54 @@ __device__ __forceinline__ void long_block(
     long_tiles<D, true>(qkv, bias_k, bias_v, key_valid, cos_t, sin_t, out, N, I, H, C, bx, lay, sm);
 }
 
-// the launch shape of a call: short (N <= 16: a warp takes 32 / N heads of
-// one sequence) or long (a block per (sequence, head)); blocks and the
-// dynamic shared memory of a block
+
+// the launch shape of a call: short (N <= 16: units of spb sequences x hg
+// heads, nbuf raw buffers: 2 streaming, 1 in the merged layer backward;
+// ops/rope_attention.py::short_plan) or long (a
+// block per (sequence, head)); blocks (short: units), threads, dynamic shared
+// memory of a block; blocks 0 for a plan the short body does not take
 struct Shape {
   bool short_seq;
   unsigned blocks, threads;
   size_t smem;
+  int spb, hg;
 };
 
-__host__ __device__ inline Shape shape(int G, int N, int I, int H, int D) {
+__host__ __device__ inline Shape shape(int G, int N, int I, int H, int D, int spb, int hg,
+                                       int nbuf) {
   Shape s;
-  const int NK = N + 1;
   s.short_seq = N <= 16;
-  const int HPW = s.short_seq ? 32 / N : 1;
-  s.smem = s.short_seq ? (size_t)WARPS * HPW * head_floats(NK, D) * sizeof(float)
-                       : LongLayout(N, D).total;
-  const long long tasks = (long long)G * I * ((H + HPW - 1) / HPW);
-  s.blocks = (unsigned)(s.short_seq ? (tasks + WARPS - 1) / WARPS : tasks);
-  s.threads = s.short_seq ? WARPS * 32 : LONG_THREADS;
+  s.spb = spb;
+  s.hg = hg;
+  if (s.short_seq) {
+    const bool ok = N >= 1 && spb >= 1 && hg >= 1 && hg <= H && (nbuf == 1 || nbuf == 2);
+    s.smem = ok ? ShortLayout(spb, hg, N, D, nbuf, H).total : 0;
+    const long long units = ok ? ((long long)G * I + spb - 1) / spb * ((H + hg - 1) / hg) : 0;
+    s.blocks = units > 0x7fffffffLL ? 0u : (unsigned)units;
+    s.threads = SHORT_THREADS;
+  } else {
+    s.smem = LongLayout(N, D).total;
+    s.blocks = (unsigned)((long long)G * I * H);
+    s.threads = LONG_THREADS;
+  }
   return s;
 }
 
+// virtual block bx of a call (the merged layer backward's walk): a short
+// unit (one raw buffer) or a long (sequence, head)
 template <int D>
 __device__ __forceinline__ void block(const Shape& sh, const bf16* qkv, const bf16* bias_k,
                                       const bf16* bias_v, const float* key_valid,
                                       const float* cos_t, const float* sin_t, bf16* out, int G,
                                       int N, int I, int H, int C, int base2, int bx,
-                                      float* smem) {
+                                      unsigned char* smem) {
   if (sh.short_seq)
-    short_block<D>(qkv, bias_k, bias_v, key_valid, cos_t, sin_t, out, G, N, I, H, C, base2, bx, smem);
+    short_unit<D>(short_args(qkv, bias_k, bias_v, key_valid, cos_t, sin_t, out, G, N, I, H, C,
+                             base2, sh.spb, sh.hg),
+                  bx, smem);
   else
-    long_block<D>(qkv, bias_k, bias_v, key_valid, cos_t, sin_t, out, G, N, I, H, C, base2, bx, smem);
+    long_block<D>(qkv, bias_k, bias_v, key_valid, cos_t, sin_t, out, G, N, I, H, C, base2, bx,
+                  reinterpret_cast<float*>(smem));
 }
 
 }  // namespace ropefwd

@@ -9,7 +9,10 @@ starts one ``nvcc`` per source at once and waits for all of them.
 
 Every C entry point takes device pointers and the CUDA stream as
 ``c_void_p`` and returns ``cudaGetLastError()`` after its launch; ``check``
-raises on a non-zero code.
+raises on a non-zero code. ``variant_library`` loads a second build of a
+source with one macro defined (a measuring build: the merged layer
+backward's phase clock, the short attention body without its contiguous
+path).
 """
 from __future__ import annotations
 
@@ -29,10 +32,12 @@ BUILD = PKG / "_build"
 KERNELS = ("adaln_linear", "rope_attention", "ipa_attention", "linear_bwd", "modln_bwd",
            "rope_attention_bwd", "tiled_attention", "fused_attention", "fused_attention_bwd",
            "blocked_attention_bwd", "fused_layer_bwd", "micro_ops")
+SMS = 132  # an H100 SXM's SMs: the plans that size a grid in Python (the same on the CPU)
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: dict = {}
+_VARIANTS: dict = {}  # (name, macro): (library path, temporary path, log, nvcc process)
 
 
 def nvcc() -> str:
@@ -91,6 +96,41 @@ def library(name: str, argtypes) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return _LIBS[name]
+
+
+def _variant_target(name: str, macro: str) -> Path:
+    return _target(name).with_name(_target(name).name.replace(f"lib{name}-",
+                                                              f"lib{name}_{macro.lower()}-"))
+
+
+def start_variant(name: str, macro: str) -> None:
+    """Start building ``csrc/<name>.cu`` with ``-D<macro>`` (one nvcc in the
+    background; a no-op when that library exists or is being built)."""
+    so = _variant_target(name, macro)
+    if (name, macro) in _VARIANTS or so.exists():
+        return
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".tmp{os.getpid()}")
+    log = open(BUILD / f"{name}_{macro.lower()}.log", "w")
+    _VARIANTS[name, macro] = (so, tmp, log, subprocess.Popen(
+        [nvcc(), *FLAGS, f"-D{macro}", "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=log, stderr=subprocess.STDOUT))
+
+
+def variant_library(name: str, macro: str) -> ctypes.CDLL:
+    """The build of ``csrc/<name>.cu`` with ``-D<macro>`` (built once per
+    source; its entry points get their argument types from the caller)."""
+    so = _variant_target(name, macro)
+    if not so.exists():
+        start_variant(name, macro)
+        _, tmp, log, proc = _VARIANTS[name, macro]
+        proc.wait()
+        log.close()
+        if proc.returncode != 0:
+            raise RuntimeError(f"the -D{macro} build of {name}.cu failed:\n"
+                               + (BUILD / f"{name}_{macro.lower()}.log").read_text()[-4000:])
+        os.replace(tmp, so)
+    return ctypes.CDLL(str(so))
 
 
 def check(code: int, name: str) -> None:

@@ -36,6 +36,7 @@ import torch
 
 from ..models.layers import gelu_fast
 from . import _cuda
+from ._cuda import SMS
 
 _EPI = {"none": 0, "gelu": 1, "gate_res": 2, "euler": 3, "add": 4}
 _LN = {None: 0, "plain": 1, "affine": 2}
@@ -51,7 +52,6 @@ _ARGTYPES = [_cuda.P, _cuda.I32, _cuda.I64, _cuda.P, _cuda.P,
              _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I64]
 
 ROUTES = ("resident", "pipelined", "tiled64")
-SMS = 132                          # H100 SXM
 SMEM_PER_SM = 233_472              # 228 KB, of which each resident block reserves 1 KB
 SMEM_PER_BLOCK = 232_448           # 227 KB
 MERGED_STAGES = 3                  # the merged layer backward's ring: two blocks per SM

@@ -37,12 +37,12 @@ from .blocked_attention_bwd import max_keys
 from .linear_bwd import _splits as wgrad_splits
 from .linear_bwd import scratch_floats as wgrad_scratch
 from .modln_bwd import _splits as modln_splits
-from .rope_attention import SMEM_BYTES
+from .rope_attention import SHORT_N, SMEM_BYTES, short_plan
 from .rope_attention_bwd import MAX_N
 from .time_attention import MAX_L, MAX_T
 
 _ARGTYPES = [_cuda.P, _cuda.P, _cuda.P, _cuda.P]
-N_PTR, N_INT = 74, 40  # csrc/fused_layer_bwd.cu: enum Ptr, enum Int
+N_PTR, N_INT = 75, 44  # csrc/fused_layer_bwd.cu: enum Ptr, enum Int
 _KEYS = ("wqkv_l", "bqkv_l", "wout_l", "bout_l", "wqkv_t", "bqkv_t", "wout_t", "bout_t",
          "w1", "b1", "w2", "b2", "bkl", "bvl", "bkt", "bvt")
 
@@ -129,11 +129,40 @@ class _Carve:
                 for off, shape, dt, n in self.parts]
 
 
-def launch_slots(x_in, X1, X2, dout, mod, w, mask, num_heads: int, dmod=None):
+_PLANS: dict = {}  # plan integers by shapes and operand alignment
+
+
+def _plans(x_in, X1, X2, mod, w, scratch, B, T, L, C, num_heads):
+    """The integer slots after ``SMEM_LIMIT``: the six recomputed products'
+    plans (ops/adaln_linear.py::plan with ``merged``: the split route's
+    tiling on one warpgroup), four each: fc1, fc2, qkv_t, out_t, qkv_l,
+    out_l; then the short rope_attention plans (sequences and heads per
+    unit) of the frame (B, T, L) and the residue (B * T, L, 1) stage, where
+    the stage is short."""
+    ints = []
+    ge, act, y3, yt, yl = scratch[:5]
+    qkv_t, qkv_l, att_t, att_l = scratch[9:13]
+    sh = dict(ln="plain", shift=mod[:, :C], scale=mod[:, C:2 * C])
+    for x, wk, bk, kw in ((X2, "w1", "b1", dict(sh, epilogue="gelu", out=ge, pre=act)),
+                          (ge, "w2", "b2", dict(out=y3)), (X1, "wqkv_t", "bqkv_t", dict(sh, out=qkv_t)),
+                          (att_t, "wout_t", "bout_t", dict(out=yt)),
+                          (x_in, "wqkv_l", "bqkv_l", dict(sh, out=qkv_l)),
+                          (att_l, "wout_l", "bout_l", dict(out=yl))):
+        p = adaln_plan(x, w[wk], w[bk], merged=True, **kw)
+        ints += [p.route, p.per, p.splits, p.stages]
+    for G, N, I in ((B, T, L), (B * T, L, 1)):
+        sp = short_plan(G, N, I, num_heads, C // num_heads, merged=True) if N <= SHORT_N else None
+        ints += [sp.spb, sp.hg] if sp else [0, 0]
+    return ints
+
+
+def launch_slots(x_in, X1, X2, dout, mod, w, mask, num_heads: int, dmod=None, clock=None):
     """The launch's arguments on CUDA tensors: the ``N_PTR`` tensors whose
-    pointers fill ``enum Ptr``, the ``N_INT`` integers of ``enum Int`` (the
-    outputs and the scratch carved from one allocation), and the results
-    ``(dx, dmod, dw)`` that the launch fills."""
+    pointers fill ``enum Ptr`` (``clock``, the last, may be None: a u64
+    buffer that only the phase-clock build writes), the ``N_INT`` integers
+    of ``enum Int`` (the outputs and the scratch carved from one
+    allocation), and the results ``(dx, dmod, dw)`` that the launch
+    fills."""
     B, T, L, C, D = _check(x_in, X1, X2, dout, mod, w, mask, num_heads, dmod)
     M, F, nb = B * T * L, 4 * C, mod.shape[0]
     f32, bf = torch.float32, torch.bfloat16
@@ -164,24 +193,23 @@ def launch_slots(x_in, X1, X2, dout, mod, w, mask, num_heads: int, dmod=None):
     dx = t[outs[0]]
     if dmod is None:
         dmod = t[outs[1]]
+    scratch = [t[i] for i in scratch]
     cos_t, sin_t = rope_tables(T + 1, D, device=x_in.device)
     cos_l, sin_l = rope_tables(L + 1, D, device=x_in.device)
     ptrs = [x_in, X1, X2, dout, mod, mask] + [w[k] for k in _KEYS] + [cos_t, sin_t, cos_l, sin_l]
     ptrs += [dx, dmod] + [t[grads[k]] for k in _KEYS[:12]] + [t[dbias[0]], t[dbias[1]]]
-    ptrs += [t[i] for i in scratch]
+    ptrs += scratch + [clock]
     ints = [B, T, L, C, num_heads, nb, mod.stride(0), dmod.stride(0), *spl, splm, SMEM_BYTES]
-    # the six recomputed products' plans (the split route's, on a shallower
-    # ring): fc1, fc2, qkv_t, out_t, qkv_l, out_l
-    ge, act, y3, yt, yl = (t[i] for i in scratch[:5])
-    qkv_t, qkv_l, att_t, att_l = (t[i] for i in scratch[9:13])
-    sh = dict(ln="plain", shift=mod[:, :C], scale=mod[:, C:2 * C])
-    for x, wk, bk, kw in ((X2, "w1", "b1", dict(sh, epilogue="gelu", out=ge, pre=act)),
-                          (ge, "w2", "b2", dict(out=y3)), (X1, "wqkv_t", "bqkv_t", dict(sh, out=qkv_t)),
-                          (att_t, "wout_t", "bout_t", dict(out=yt)),
-                          (x_in, "wqkv_l", "bqkv_l", dict(sh, out=qkv_l)),
-                          (att_l, "wout_l", "bout_l", dict(out=yl))):
-        p = adaln_plan(x, w[wk], w[bk], merged=True, **kw)
-        ints += [p.route, p.per, p.splits, p.stages]
+    # the six recomputed products' plans and the short rope_attention
+    # plans: they follow from the shapes and from which operands start on
+    # 16 bytes, so they are kept by those
+    key = (str(x_in.device), B, T, L, C, num_heads, nb, mod.stride(0),
+           tuple(v.data_ptr() % 16 == 0 for v in (x_in, X1, X2, mod, *w.values())))
+    if key not in _PLANS:
+        if len(_PLANS) >= 64:
+            _PLANS.clear()
+        _PLANS[key] = _plans(x_in, X1, X2, mod, w, scratch, B, T, L, C, num_heads)
+    ints += _PLANS[key]
     dw = {k: t[grads[k]] for k in _KEYS[:12]}
     dl, dtt = t[dbias[0]], t[dbias[1]]
     dw.update(bkl=dl[0], bvl=dl[1], bkt=dtt[0], bvt=dtt[1])
@@ -201,7 +229,7 @@ def fused_layer_bwd_merged(x_in, X1, X2, dout, mod, w, mask, num_heads: int, dmo
     if (lib.fused_layer_bwd_slots(0), lib.fused_layer_bwd_slots(1)) != (N_PTR, N_INT) \
             or len(ptrs) != N_PTR or len(ints) != N_INT:
         raise RuntimeError("fused_layer_bwd_merged: the argument slots disagree with the kernel's")
-    p_arr = (ctypes.c_void_p * N_PTR)(*[p.data_ptr() for p in ptrs])
+    p_arr = (ctypes.c_void_p * N_PTR)(*[_cuda.ptr(p) for p in ptrs])
     i_arr = (ctypes.c_longlong * N_INT)(*ints)
     info = (ctypes.c_longlong * 3)()
     code = lib.fused_layer_bwd(ctypes.addressof(p_arr), ctypes.addressof(i_arr),

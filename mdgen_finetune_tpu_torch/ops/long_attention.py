@@ -27,8 +27,9 @@ from __future__ import annotations
 
 import dataclasses
 
+from ._cuda import SMS
+
 WARPS = 8
-SMS = 132                  # H100 SXM
 SMEM_PER_SM = 233_472      # 228 KB, of which each resident block reserves 1 KB
 BUDGET = SMEM_PER_SM // 2 - 1024
 SLOTS = 2 * SMS            # blocks in flight at two per SM

@@ -143,10 +143,12 @@ def rope_attention_bwd(qkv, dout, bias_k, bias_v, key_valid, *, num_heads: int):
                                   _cuda.stream_ptr(qkv))
     _cuda.check(code, "rope_attention_bwd")
     rope_attention_bwd.launches += 1
+    rope_attention_bwd.bodies[int(N > 16)] += 1
     return dqkv, dbias[0], dbias[1]
 
 
 rope_attention_bwd.launches = 0
+rope_attention_bwd.bodies = [0, 0]  # launches by body: short (N <= 16), long
 
 
 def resources(N: int, num_heads: int, C: int) -> dict:

@@ -15,8 +15,10 @@ temperature) falls on both. Cells and the metric read from each phase's
 JSON line:
 
 - ``main_path``: the flagship sampler, ``steps_per_s``;
-- ``sim_1000``, ``sim_atlas``, ``no_rope_main``: ``frames_per_s``;
-- ``train_path``, ``train_merged``, ``train_1000``: ``ms_per_step``.
+- ``sim_1000``, ``sim_atlas``, ``interleave_main``, ``no_rope_main``:
+  ``frames_per_s``;
+- ``train_path``, ``train_merged``, ``train_1000``: ``ms_per_step``, and
+  beside it ``<cell>.peak_memory_gb`` (the card's peak allocation).
 
 Prints the card's name and power limit, one JSON line per run, then one
 with each cell's runs and medians for both trees and the change in percent.
@@ -31,7 +33,8 @@ import sys
 from pathlib import Path
 
 CELLS = {"main_path": "steps_per_s", "sim_1000": "frames_per_s", "sim_atlas": "frames_per_s",
-         "no_rope_main": "frames_per_s", "train_path": "ms_per_step",
+         "interleave_main": "frames_per_s", "no_rope_main": "frames_per_s",
+         "train_path": "ms_per_step",
          "train_merged": "ms_per_step", "train_1000": "ms_per_step"}
 
 # what each fresh process runs, in the checkout's root
@@ -47,6 +50,8 @@ if "sim_1000" in cells:
     cs.phase_sim_1000(dev)
 if "sim_atlas" in cells:
     cs.phase_sim_atlas(dev)
+if "interleave_main" in cells:
+    cs.modular_sample(dev, "interleave_main", cs.modular_config("interleave_ipa"), cs.B, seed=101)
 if "no_rope_main" in cells:
     cs.modular_sample(dev, "no_rope_main", cs.modular_config("no_rope"), cs.B, seed=131)
 if "train_path" in cells or "train_merged" in cells:
@@ -70,6 +75,8 @@ def run(root: Path, cells: list) -> dict:
             obj = json.loads(line)
             if obj.get("phase") in CELLS:
                 got[obj["phase"]] = obj[CELLS[obj["phase"]]]
+                if "peak_memory_gb" in obj:
+                    got[obj["phase"] + ".peak_memory_gb"] = obj["peak_memory_gb"]
     missing = [c for c in cells if c not in got]
     if missing:
         raise RuntimeError(f"{root}: no line for {missing}")
@@ -101,11 +108,12 @@ def main(argv=None) -> None:
         runs[tree].append(got)
         print(json.dumps({"run": i, "tree": tree, **got}), flush=True)
     summary = {}
-    for c in cells:
+    for c in runs["C"][0]:
         p, ch = [r[c] for r in runs["P"]], [r[c] for r in runs["C"]]
         mp, mc = statistics.median(p), statistics.median(ch)
-        summary[c] = {"metric": CELLS[c], "parent": p, "parent_median": mp, "change": ch,
-                      "change_median": mc, "change_pct": (mc / mp - 1.0) * 100.0}
+        summary[c] = {"metric": CELLS.get(c, "peak_memory_gb"), "parent": p,
+                      "parent_median": mp, "change": ch, "change_median": mc,
+                      "change_pct": (mc / mp - 1.0) * 100.0}
     print(json.dumps({"card": smi, "order": args.order, "cells": summary}), flush=True)
 
 

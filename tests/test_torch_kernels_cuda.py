@@ -383,6 +383,43 @@ def test_rope_attention_long_body_on_card(D):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [16, 24, 32, 64])
+def test_rope_attention_short_body_on_card(D):
+    """On the card: the streaming short body of ``rope_attention`` (N <= 16)
+    against its f32 plain twin (1e-2 x max(1, max |twin|)) at N = 1, 4, 5,
+    9, 16, I = 1 and 3, both softmax modes: G = 1201 sequences per I (not a
+    multiple of the plan's sequences per unit), masked keys, a sequence
+    whose only valid key is the bias token (g = 1; its output is the bias
+    value) and keys masked at random (g = 2); at D = 64 with 8 heads the
+    plan splits a sequence's heads into groups (the last one short). Also
+    the flagship's stage-1 view (6400, 4, 1) at D = 24, 16 heads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.ops import rope_attention as RA
+
+    g = torch.Generator(device="cuda").manual_seed(19 + D)
+    Hc = 8 if D == 64 else 16
+    cases = [(1201, N, Ic) for N in (1, 4, 5, 9, 16) for Ic in (1, 3)]
+    if D == 24:
+        cases.append((6400, 4, 1))
+    uneven = split = 0
+    for Gc, N, Ic in cases:
+        p = RA.short_plan(Gc, N, Ic, Hc, D)
+        uneven += (Gc * Ic) % p.spb != 0
+        split += p.hg < Hc and Hc % p.hg != 0
+        qkv, bk, bv, mask = _rope_case(g, Gc, N, Ic, Hc, D, q_scale=D ** -0.5)
+        for base2 in (True, False):
+            got = RA.rope_attention(qkv, bk, bv, mask, num_heads=Hc, base2=base2)
+            ref = RA.rope_attention_plain(qkv.float(), bk.float(), bv.float(), mask,
+                                          num_heads=Hc, base2=base2)
+            torch.cuda.synchronize()
+            _close(got, ref)
+            # g = 1 sees only the bias key: every output row is bias_v
+            assert torch.equal(got[1], bv.view(1, 1, -1).expand_as(got[1])), (N, Ic, base2)
+    assert uneven and (D != 64 or split), (uneven, split)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 24, 32, 64])
 def test_rope_attention_bwd_long_body_on_card(D):
     """On the card: the long-sequence body of rope_attention_bwd (all six
     products on the tensor cores; q and k in fp16 scaled by powers of two,
@@ -977,6 +1014,33 @@ def test_merged_layer_bwd_matches_split_and_plain_on_card(Bc, Tc):
 
 
 @pytest.mark.cuda
+def test_merged_layer_bwd_at_the_route_limits_on_card():
+    """On the card: the merged layer backward at the short route's limits
+    (L = 8, T = 256, B = 1: the blocked frame core at its longest, the
+    residue stage on the short body at N = 8) against the split route on
+    the same bf16 inputs, bit for bit, in one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.ops import fused_layer_bwd_merged as FM
+    from mdgen_finetune_tpu_torch.ops.fused_layer import trunk_layer
+    from mdgen_finetune_tpu_torch.ops.fused_layer_bwd import layer_bwd_split
+
+    Bc, Tc, Lc, Cc, Hc = 1, 256, 8, 384, 16
+    x, mod, w, mask, dout = _layer_case(Bc, Tc, Lc, Cc, seed=7)
+    bf = torch.bfloat16
+    xb, modb, wb = x.to(bf), mod.to(bf), {k: v.to(bf) for k, v in w.items()}
+    x1, x2, _ = trunk_layer(xb, modb, wb, mask, B=Bc, T=Tc, L=Lc, num_heads=Hc)
+    split = _flat(layer_bwd_split(xb, x1, x2, dout, modb, wb, mask, Hc))
+    n0 = FM.fused_layer_bwd_merged.launches
+    merged = _flat(FM.fused_layer_bwd_merged(xb, x1, x2, dout, modb, wb, mask, Hc))
+    torch.cuda.synchronize()
+    assert FM.fused_layer_bwd_merged.launches == n0 + 1
+    differ = [k for (k, a), (_, b) in zip(merged, split) if not torch.equal(a, b)]
+    assert not differ, differ
+    assert all(torch.isfinite(a).all() for _, a in merged)
+
+
+@pytest.mark.cuda
 def test_moved_split_kernels_match_the_parent_sources_on_card(tmp_path):
     """On the card: the split kernels whose bodies live in the shared
     headers (modln_bwd) give the outputs of another checkout's sources of
@@ -989,7 +1053,9 @@ def test_moved_split_kernels_match_the_parent_sources_on_card(tmp_path):
     and rope_attention_bwd are held to the other sources only at N = 4
     (stage 1, the encoder and the modular residue attention), where their
     short bodies run: their long-sequence bodies were redesigned for the
-    tensor cores, which moves those bits. linear_bwd and
+    tensor cores, which moves those bits (the short forward was redesigned
+    too, as a streaming kernel, with each output's arithmetic unchanged, so
+    it keeps its bits). linear_bwd and
     blocked_attention_bwd are not swapped: they were redesigned too (new
     tilings and reduction orders), and are held to their plain versions by
     the kernel tests and, through the layer, the split route to the merged
