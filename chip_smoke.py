@@ -6,10 +6,16 @@ Builds the hand-written CUDA kernels of ``mdgen_finetune_tpu_torch/csrc``
 from this checkout and holds each kernel against its plain PyTorch twin at
 the shapes of its path (the sampler's forward kernels at B = 64, the
 key-tiled frame attention and the trunk's three stage ops at T = 1000, the
-training backward kernels at B = 32); ``rope_short``: the short body of
-``rope_attention`` (N <= 16) at its three uses (trunk stage 1, base 2;
-the modular layer's residue attention, TPU row 12, natural; the encoder's
-residue MHA) and the short backward at stage 1. Then:
+training backward kernels at B = 32); ``ipa_attention`` (row c) in its
+streaming form at the encoder's (6400, 4) and, in ``atlas_kernels``, at
+L = 4 and 256 (``ipa_entry``: back to back, the host's time, the parent's
+bits, the 4-byte copy build, SDPA on augmented heads, the resources);
+``rope_short``: the short body of ``rope_attention`` (N <= 16) at its
+three uses (trunk stage 1, base 2; the modular layer's residue attention,
+TPU row 12, natural; the encoder's residue MHA) and the streaming short
+backward (row f') at its three uses: the training path's stage 1, the
+T = 1000 training's and the merged route's residue stage at T = 200.
+Then:
 
 - the sampler: one denoiser step on the card against the same step on the
   CPU (and its launches: 32 ``adaln_linear``, 10 ``rope_attention``); the
@@ -76,8 +82,11 @@ plain version and prints its marginal-cost table.
 
 With ``MDGEN_PARENT_CSRC`` set to the csrc directory of another checkout
 (a ``git archive`` of the parent commit), built beside this checkout's
-kernels from the start, the entries of ``rope_attention``'s short body,
-of ``adaln_linear`` (every use), of
+kernels from the start, the entries of ``ipa_attention`` and
+``rope_attention_bwd``'s short body (their bits asserted equal), of
+``rope_attention``'s short body, of the kernels that end in ``colsum.cuh``'s
+second pass (``linear_bwd`` at every use, ``modln_bwd``,
+``rope_attention_bwd``'s long body, ``blocked_attention_bwd``), of ``adaln_linear`` (every use), of
 ``fused_attention``'s forward (its three shapes: T = 1000 in both
 softmaxes, the ``no_rope`` frame and residue views), of the merged layer
 backward (its launch, and the split route on the parent's
@@ -154,6 +163,23 @@ def back_to_back_ms(fn, n=50):
     return a.elapsed_time(b) / n
 
 
+def host_ms(fn, n=100):
+    """The host's time per call of ``fn`` (the wrapper's Python and its
+    launches): ``n`` calls on a host clock while the card sleeps through a
+    kernel queued first, so that no call waits on the card; with
+    ``time_ms`` and ``back_to_back_ms`` it says what a call's time by events
+    spends on the host."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of the card's clock: longer than the n calls
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    return dt
+
+
 def bound_ms(nbytes, flops, peak_flops=PEAK_BF16_FLOPS):
     """The least time for the work: bytes over the memory rate or operations
     over the peak rate for the inputs' type, whichever is larger."""
@@ -201,10 +227,13 @@ def check(name, got, ref, rel_tol):
 
 _PARENT_LIBS: dict = {}
 _PARENT_BUILDS: list = []
-# the kernels of the last two slices: rope_attention's short body and row
-# 4' (this one), rows a and h (the one before), the long-key kernels
-PARENT_KERNELS = ("rope_attention", "adaln_linear", "fused_attention", "fused_layer_bwd",
-                  "tiled_attention", "fused_attention_bwd")
+# the kernels of the last slices: ipa_attention's streaming form and
+# rope_attention_bwd's short body (this one), rope_attention's short body
+# and row 4', rows a and h, the long-key kernels; and the other callers of
+# colsum.cuh's second pass (rows d, e, j)
+PARENT_KERNELS = ("ipa_attention", "rope_attention_bwd", "rope_attention", "adaln_linear",
+                  "fused_attention", "fused_layer_bwd", "tiled_attention", "fused_attention_bwd",
+                  "linear_bwd", "modln_bwd", "blocked_attention_bwd")
 
 
 def start_parent_builds():
@@ -274,7 +303,108 @@ def parent_times(names, run):
     if parent_lib(names[0]) is None:
         return None
     with with_parent(names):
-        return dict(ms=time_ms(run), back_to_back_ms=back_to_back_ms(run))
+        return dict(ms=time_ms(run), back_to_back_ms=back_to_back_ms(run), host_ms=host_ms(run))
+
+
+IPA_GENERAL = "MDGEN_IPA_GENERAL"  # ipa_attention's streaming form with 4-byte copies only
+
+
+def ipa_sdpa(proj, rot, trans, mask, hw, H, Ch, Pq, Pv):
+    """Row c's library yardstick on the inputs of ``ipa_attention``: the
+    IPA logits as one product of augmented heads, q_aug = [q, q_pts],
+    k_aug = [c k, w k_pts] (c = sqrt(1 / (3 Ch)), w = softplus(hw)
+    sqrt(1 / (3 Pq 9 / 2))), plus the float mask -w/2 |k_pts|^2 +
+    1e5 (m_q m_k - 1) at scale 1 (the per-query term -w/2 |q_pts|^2 does
+    not change the softmax), values [v, v_pts]. The points are lifted here,
+    outside the timed call; the inverse map and the norms are not timed
+    either. Returns (q, k, v, mask) for SDPA, (B, H, L, .)."""
+    import torch.nn.functional as F
+
+    Bn, Lc, _ = proj.shape
+    HCh, HPq, HPv = H * Ch, H * Pq, H * Pv
+
+    def heads(t, P):
+        return t.reshape(Bn, Lc, H, P).transpose(1, 2)
+
+    def pts(lo, HP, P):
+        t = proj[..., lo:lo + 3 * HP].reshape(Bn, Lc, 3, HP).transpose(-1, -2)
+        g = (rot[:, :, None] * t[..., None, :]).sum(-1) + trans[:, :, None]
+        return heads(g.reshape(Bn, Lc, H, P * 3), P * 3)
+
+    q, k, v = (heads(proj[..., i * HCh:(i + 1) * HCh], Ch) for i in range(3))
+    qp, kp, vp = pts(3 * HCh, HPq, Pq), pts(3 * HCh + 3 * HPq, HPq, Pq), pts(3 * HCh + 6 * HPq, HPv, Pv)
+    w = (F.softplus(hw) * (1.0 / (3 * (Pq * 9.0 / 2))) ** 0.5)[None, :, None, None]
+    am = -0.5 * w * (kp ** 2).sum(-1)[:, :, None, :] \
+        + (1e5 * (mask[:, :, None] * mask[:, None, :] - 1))[:, None]
+    return (torch.cat([q, qp], -1).contiguous(),
+            torch.cat([(1.0 / (3 * Ch)) ** 0.5 * k, w * kp], -1).contiguous(),
+            torch.cat([v, vp], -1).contiguous(), am.contiguous())
+
+
+def ipa_entry(dev, name, Bn, Lc, widths, mask_fn, seed, plain_reps=20):
+    """Row c at (Bn, Lc) and (Ch, Pq, Pv) = ``widths`` (4 heads): against its
+    f32 plain twin; by events, back to back and the wrapper's host time;
+    the parent's sources on the same inputs, bit for bit (asserted, with
+    MDGEN_PARENT_CSRC); in the streaming form the build with 4-byte copies
+    only (``-DMDGEN_IPA_GENERAL``, its bits asserted); SDPA on the augmented
+    heads (``ipa_sdpa``, its scalar features held to the twin's); the
+    bound; the launch resources (at the model's widths)."""
+    import torch.nn.functional as F
+
+    from mdgen_finetune_tpu_torch.geometry.rigid import Rigid
+    from mdgen_finetune_tpu_torch.ops import _cuda
+    from mdgen_finetune_tpu_torch.ops import ipa_attention as IA
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Ch, Pq, Pv = widths
+    Hi = 4
+    proj = torch.randn(Bn, Lc, IA.proj_width(Hi, Ch, Pq, Pv), generator=g, device=dev)
+    t7 = torch.randn(Bn, Lc, 7, generator=g, device=dev)
+    t7[..., 4:] *= 5
+    fr = Rigid.from_tensor_7(t7)
+    emask = torch.ones(Bn, Lc, device=dev)
+    mask_fn(emask)
+    hw = torch.randn(Hi, generator=g, device=dev)
+    args = (proj, fr.rot.contiguous(), fr.trans.contiguous(), emask, hw)
+    kw = dict(H=Hi, Ch=Ch, Pq=Pq, Pv=Pv)
+    got = IA.ipa_attention(*args, **kw)
+    ref = IA.ipa_attention_plain(*args, **kw)
+    err = check(f"ipa_attention[{name}]", got, ref, 1e-2)
+    run = lambda: IA.ipa_attention(*args, **kw)  # noqa: E731
+    bits = None
+    if parent_lib("ipa_attention") is not None:
+        with with_parent(("ipa_attention",)):
+            bits = torch.equal(IA.ipa_attention(*args, **kw), got)
+        if not bits:
+            raise AssertionError(f"ipa_attention[{name}]: the features moved from the parent's bits")
+    form = IA._form(Bn, Lc, Hi, Ch, Pq, Pv)
+    general = None
+    if form == 0:
+        with with_libs({"ipa_attention": _cuda.variant_library("ipa_attention", IPA_GENERAL)}):
+            general = dict(bits_equal=torch.equal(run(), got), ms=time_ms(run),
+                           back_to_back_ms=back_to_back_ms(run))
+        if not general["bits_equal"]:
+            raise AssertionError(f"ipa_attention[{name}]: the 4-byte copy path moved the bits")
+    qa, ka, va, am = ipa_sdpa(*args, **kw)
+    lib = lambda: F.scaled_dot_product_attention(qa, ka, va, attn_mask=am, scale=1.0)  # noqa: E731
+    lib_err = check(f"ipa_attention[{name}] SDPA yardstick",
+                    lib()[..., :Ch].transpose(1, 2).reshape(Bn, Lc, Hi * Ch), ref[..., :Hi * Ch],
+                    1e-2)
+    return dict(
+        shape=f"{Bn} elements x {Hi} heads, L={Lc}, Ch={Ch}, Pq={Pq}, Pv={Pv}",
+        form=("streaming", "resident", "key-tiled")[form], max_abs_err=err[0], tol=err[1],
+        ms=time_ms(run), back_to_back_ms=back_to_back_ms(run), host_ms=host_ms(run),
+        parent=parent_times("ipa_attention", run), bits_equal_parent=bits, general_path=general,
+        plain_ms=time_ms(lambda: IA.ipa_attention_plain(*args, **kw), reps=plain_reps),
+        library_ms=time_ms(lib), library_back_to_back_ms=back_to_back_ms(lib),
+        library_max_abs_err=lib_err[0],
+        library_note="SDPA on augmented heads [q, q_pts] . [c k, w k_pts] with a float mask, "
+                     "scale 1, values [v, v_pts]; the lift, the inverse map and the norms are "
+                     "outside the timed call",
+        bound=bound_ms(nbytes(*args) + got.numel() * 2,
+                       Lc * Lc * Hi * Bn * (2 * Ch + Pq * 3 * 3 + 2 * (Ch + Pv * 3)),
+                       PEAK_F32_FLOPS),
+        resources=IA.resources(Bn, Lc) if widths == IA.REGISTER_WIDTHS and form != 1 else None)
 
 
 def phase_kernels(dev):
@@ -282,11 +412,9 @@ def phase_kernels(dev):
     the main path's shapes; times of kernel, twin and a library yardstick."""
     import torch.nn.functional as F
 
-    from mdgen_finetune_tpu_torch.geometry.rigid import Rigid
     from mdgen_finetune_tpu_torch.ops import adaln_linear as AL
     from mdgen_finetune_tpu_torch.ops.adaln_linear import adaln_linear, adaln_linear_plain
-    from mdgen_finetune_tpu_torch.ops.ipa_attention import (
-        feat_width, ipa_attention, ipa_attention_plain, proj_width)
+    from mdgen_finetune_tpu_torch.ops.ipa_attention import feat_width, proj_width
     from mdgen_finetune_tpu_torch.ops import rope_attention as RA
     from mdgen_finetune_tpu_torch.ops.rope_attention import (rope_attention, rope_attention_math,
                                                              rope_attention_plain)
@@ -438,28 +566,11 @@ def phase_kernels(dev):
         resources=RA.resources(T, H, C), bf16_staging_err_of_tol=bf16_stage)
 
     # ---- ipa_attention: the encoder over the whole t grid (S*B elements) ----
-    Bn = STEPS * B
-    proj = r(Bn, L, proj_width(4, 32, 8, 8), dtype=f32)
-    t7 = r(Bn, L, 7, dtype=f32)
-    t7[..., 4:] *= 5
-    fr = Rigid.from_tensor_7(t7)
-    rot, trans = fr.rot.contiguous(), fr.trans.contiguous()
-    emask = torch.ones(Bn, L, device=dev)
-    emask[::7, -1] = 0
-    hw = r(4, dtype=f32)
-    kw = dict(H=4, Ch=32, Pq=8, Pv=8)
-    got = ipa_attention(proj, rot, trans, emask, hw, **kw)
-    ref = ipa_attention_plain(proj, rot, trans, emask, hw, **kw)
-    err = check("ipa_attention", got, ref, 1e-2)
-    Lq = L * L * 4 * Bn
-    out["ipa_attention"] = dict(
-        shape=f"{Bn} elements x 4 heads, L={L}, Ch=32, Pq=Pv=8",
-        max_abs_err=err[0], tol=err[1],
-        ms=time_ms(lambda: ipa_attention(proj, rot, trans, emask, hw, **kw)),
-        plain_ms=time_ms(lambda: ipa_attention_plain(proj, rot, trans, emask, hw, **kw)),
-        library_ms=None,
-        bound=bound_ms(nbytes(proj, rot, trans, emask, hw) + got.numel() * 2,
-                       Lq * (2 * 32 + 8 * 3 * 3 + 2 * (32 + 8 * 3)), PEAK_F32_FLOPS))
+    def pad_every_7th(m):
+        m[::7, -1] = 0
+
+    out["ipa_attention"] = ipa_entry(dev, "encoder", STEPS * B, L, (32, 8, 8), pad_every_7th,
+                                     seed=0)
     out["tiled_attention"], stages = long_t_kernels(dev)
     emit({"phase": "kernels", "kernels": out, "stages_1000": stages})
     return out
@@ -502,9 +613,14 @@ def phase_rope_short(dev):
     inputs (``sdpa_inputs``), the bound and the resources with the plan;
     at stage 1 also the build without the contiguous copy path
     (``-DMDGEN_SHORT_GENERAL``: every unit through the general row
-    arithmetic), its bits and times. Also the short body of
-    ``rope_attention_bwd`` at stage 1 (measured for ranking): ms, back to
-    back, the bound, its plain twin, and SDPA's backward on the same
+    arithmetic), its bits and times. Also the streaming short body of
+    ``rope_attention_bwd`` at its three uses (the training path's stage 1,
+    (3200, 4, 1); the T = 1000 training's, (8000, 4, 1); the merged route's
+    residue stage at B = 4, T = 200, (800, 4, 1)), with a padded residue and
+    a frame whose only valid key is the bias token: against its f32 plain
+    twin, by events, back to back, the host's time, the parent's sources
+    (dqkv and both bias gradients bit for bit, asserted), the bound, the
+    resources with the plan, and at stage 1 SDPA's backward on the same
     pre-RoPE'd heads."""
     import torch.nn.functional as F
 
@@ -556,33 +672,55 @@ def phase_rope_short(dev):
             bound=bound_ms(nbytes(qkv, bk, bv, mask, got), 4.0 * Gc * H * L * (L + 1) * D),
             resources=RA.resources(L, H, C, G=Gc), general_path=general)
         del qkv, got, ref, q, k, v, am
-    # the short backward at stage 1 (rope_attention_bwd, N = 4)
-    qkv = (torch.randn(B_TRAIN * T, L, 1, 3 * C, generator=g, device=dev) * 0.5).bfloat16()
-    do = (torch.randn(B_TRAIN * T, L, 1, C, generator=g, device=dev) * 0.1).bfloat16()
-    bk, bv = (torch.randn(C, generator=g, device=dev) * 0.4).bfloat16(), \
-        (torch.randn(C, generator=g, device=dev) * 0.4).bfloat16()
-    mask = torch.ones(B_TRAIN * T, L, 1, device=dev)
-    mask[:T, -1] = 0
-    got = RB.rope_attention_bwd(qkv, do, bk, bv, mask, num_heads=H)
-    ref = RB.rope_attention_bwd_plain(qkv.float(), do.float(), bk.float(), bv.float(), mask,
-                                      num_heads=H)
-    errs = [check(f"rope_short[bwd {i}]", a, b, 1e-2) for i, (a, b) in enumerate(zip(got, ref))]
-    run = lambda: RB.rope_attention_bwd(qkv, do, bk, bv, mask, num_heads=H)  # noqa: E731
-    Gb = B_TRAIN * T
-    # library yardstick: SDPA's backward on the same RoPE'd, bias-appended heads
-    q, k, v, am = sdpa_inputs(qkv, bk, bv, mask, H)
-    q, k, v = (t.requires_grad_() for t in (q, k, v))
-    o = F.scaled_dot_product_attention(q, k, v, attn_mask=am)
-    go = do.permute(0, 2, 1, 3).reshape(Gb, L, H, D).transpose(1, 2).contiguous()
-    lib = lambda: torch.autograd.grad(o, (q, k, v), go, retain_graph=True)  # noqa: E731
-    out["bwd_stage1"] = dict(
-        shape=f"(G, N, I) = ({Gb}, {L}, 1), {H} heads of D = {D} (the training path's stage 1)",
-        max_abs_err=max(e for e, _ in errs), tol=max(t for _, t in errs), ms=time_ms(run),
-        back_to_back_ms=back_to_back_ms(run),
-        plain_ms=time_ms(lambda: RB.rope_attention_bwd_plain(qkv, do, bk, bv, mask, num_heads=H)),
-        library_ms=time_ms(lib), library_back_to_back_ms=back_to_back_ms(lib),
-        bound=bound_ms(nbytes(qkv, do, bk, bv, mask, *got), 10.0 * Gb * H * L * (L + 1) * D),
-        resources=RB.resources(L, H, C))
+    # the short backward (rope_attention_bwd, N = 4) at its three uses: the
+    # training path's stage 1, the T = 1000 training's, the merged route's
+    # residue stage at B = 4, T = 200 (on the split route here: the same body)
+    for name, Gb in (("bwd_stage1", B_TRAIN * T), ("bwd_t1000", B_SIM * T_SIM),
+                     ("bwd_merged_p11", 4 * 200)):
+        qkv = (torch.randn(Gb, L, 1, 3 * C, generator=g, device=dev) * 0.5).bfloat16()
+        do = (torch.randn(Gb, L, 1, C, generator=g, device=dev) * 0.1).bfloat16()
+        bk, bv = (torch.randn(C, generator=g, device=dev) * 0.4).bfloat16(), \
+            (torch.randn(C, generator=g, device=dev) * 0.4).bfloat16()
+        mask = torch.ones(Gb, L, 1, device=dev)
+        mask[:Gb // 32, -1] = 0
+        mask[1] = 0  # a frame whose only valid key is the bias token
+        got = RB.rope_attention_bwd(qkv, do, bk, bv, mask, num_heads=H)
+        ref = RB.rope_attention_bwd_plain(qkv.float(), do.float(), bk.float(), bv.float(), mask,
+                                          num_heads=H)
+        errs = [check(f"rope_short[{name} {i}]", a, b, 1e-2) for i, (a, b) in enumerate(zip(got, ref))]
+        if got[0][1, :, :, C:].any():
+            raise AssertionError(f"rope_short[{name}]: masked keys have a gradient")
+        bits = None
+        if parent_lib("rope_attention_bwd") is not None:
+            with with_parent(("rope_attention_bwd",)):
+                bits = [torch.equal(a, b) for a, b in
+                        zip(RB.rope_attention_bwd(qkv, do, bk, bv, mask, num_heads=H), got)]
+            if not all(bits):
+                raise AssertionError(f"rope_short[{name}]: dqkv, dbk, dbv moved from the parent's "
+                                     f"bits: {bits}")
+        run = lambda: RB.rope_attention_bwd(qkv, do, bk, bv, mask, num_heads=H)  # noqa: E731
+        entry = dict(
+            shape=f"(G, N, I) = ({Gb}, {L}, 1), {H} heads of D = {D}",
+            max_abs_err=max(e for e, _ in errs), tol=max(t for _, t in errs), ms=time_ms(run),
+            back_to_back_ms=back_to_back_ms(run), host_ms=host_ms(run),
+            parent=parent_times("rope_attention_bwd", run), bits_equal_parent=bits,
+            plain_ms=time_ms(lambda: RB.rope_attention_bwd_plain(qkv, do, bk, bv, mask,
+                                                                 num_heads=H), reps=5),
+            library_ms=None,
+            bound=bound_ms(nbytes(qkv, do, bk, bv, mask, *got), 10.0 * Gb * H * L * (L + 1) * D),
+            resources=RB.resources(L, H, C, G=Gb))
+        if name == "bwd_stage1":
+            # library yardstick: SDPA's backward on the same RoPE'd, bias-appended heads
+            q, k, v, am = sdpa_inputs(qkv, bk, bv, mask, H)
+            q, k, v = (t.requires_grad_() for t in (q, k, v))
+            o = F.scaled_dot_product_attention(q, k, v, attn_mask=am)
+            go = do.permute(0, 2, 1, 3).reshape(Gb, L, H, D).transpose(1, 2).contiguous()
+            lib = lambda: torch.autograd.grad(o, (q, k, v), go, retain_graph=True)  # noqa: E731
+            entry.update(shape=entry["shape"] + " (the training path's stage 1)",
+                         library_ms=time_ms(lib), library_back_to_back_ms=back_to_back_ms(lib))
+            del q, k, v, o, go
+        out[name] = entry
+        del qkv, do, got, ref
     emit({"phase": "rope_short", "kernels": out})
     return out
 
@@ -775,6 +913,7 @@ def phase_bwd_kernels(dev):
             shape=f"{mode}: M={Mi}, N={Ni}, K={Ki}" + "".join(f", {k}" for k in kw
                                                               if k != "out_dtype"),
             ms=time_ms(run), back_to_back_ms=back_to_back_ms(run),
+            parent=parent_times("linear_bwd", run),
             library_ms=time_ms(lambda: library(mode, dy, xx, kw)),
             bare_mm_ms=time_ms(bare), bare_mm_back_to_back_ms=back_to_back_ms(bare),
             bound=bound_ms(nbytes(dy, xx, *(v for v in kw.values() if torch.is_tensor(v)))
@@ -786,7 +925,7 @@ def phase_bwd_kernels(dev):
         shape=f"fc1 wgrad: LN+modulate({M},{K_})^T @ ({M},{N_}), f32 sum over {M} rows",
         uses=use, max_abs_err=max(e for e, _ in errs.values()),
         tol={k: t for k, (_, t) in errs.items()}, ms=use["fc1_wgrad"]["ms"],
-        back_to_back_ms=use["fc1_wgrad"]["back_to_back_ms"],
+        back_to_back_ms=use["fc1_wgrad"]["back_to_back_ms"], parent=use["fc1_wgrad"]["parent"],
         plain_ms=time_ms(lambda: linear_bwd_plain(mode, dy, xx, **kw)),
         library_ms=use["fc1_wgrad"]["library_ms"], bare_mm_ms=use["fc1_wgrad"]["bare_mm_ms"],
         bound=use["fc1_wgrad"]["bound"],
@@ -807,6 +946,8 @@ def phase_bwd_kernels(dev):
         shape=f"({M},{C}) rows, {Bt} elements", max_abs_err=max(e1[0], e2[0]),
         tol={"dx": e1[1], "dmod": e2[1]},
         ms=time_ms(lambda: modln_bwd(x, dh, dout, y, scl)),
+        back_to_back_ms=back_to_back_ms(lambda: modln_bwd(x, dh, dout, y, scl)),
+        parent=parent_times("modln_bwd", lambda: modln_bwd(x, dh, dout, y, scl)),
         plain_ms=time_ms(lambda: modln_bwd_plain(x, dh, dout, y, scl)),
         library_ms=time_ms(lambda: torch.autograd.grad(hl, xl, dh, retain_graph=True)),
         bound=bound_ms(nbytes(x, dh, dout, y, scl) + M * C * 4 + Bt * 3 * C * 4, 20.0 * M * C))
@@ -857,6 +998,7 @@ def phase_bwd_kernels(dev):
         max_abs_err=max(e for e, _ in errs.values()), tol={k: t for k, (_, t) in errs.items()},
         ms=time_ms(run), plain_ms=time_ms(plain), library_ms=time_ms(lib),
         back_to_back_ms=back_to_back_ms(run), library_back_to_back_ms=back_to_back_ms(lib),
+        parent=parent_times("rope_attention_bwd", run),
         stage1_ms=time_ms(lambda: rope_attention_bwd(qkv.view(Bt * T, L, 1, 3 * C),
                                                      do.view(Bt * T, L, 1, C), bk, bv,
                                                      mask.view(Bt * T, L, 1), num_heads=H)),
@@ -1200,29 +1342,37 @@ def layer_case(dev, Bc, Tc, seed):
     return r(M, C), r(Bc, 9 * C, sc=0.3), w, mask, r(M, C)
 
 
-def merged_parent_times(FM, args, split):
-    """With MDGEN_PARENT_CSRC: the parent's merged layer backward on the same
-    launch slots (its entry point reads the first of this checkout's integer
-    slots, the layout it had), and the split route on the parent's
-    adaln_linear; else None."""
+def merged_raw(lib, FM, args, who):
+    """``lib``'s merged layer backward called on ``args``' launch slots
+    straight from ctypes, without the wrapper's Python (the raw launch):
+    (run, info)."""
     import ctypes
 
-    plib = parent_lib("fused_layer_bwd")
-    if plib is None:
-        return None
     ptrs, ints, _ = FM.launch_slots(*args)
-    fn = plib.fused_layer_bwd
+    fn = lib.fused_layer_bwd
     fn.argtypes, fn.restype = [ctypes.c_void_p] * 4, ctypes.c_int
     p_arr = (ctypes.c_void_p * len(ptrs))(*[None if t is None else t.data_ptr() for t in ptrs])
     i_arr = (ctypes.c_longlong * len(ints))(*ints)
     info = (ctypes.c_longlong * 3)()
     stream = torch.cuda.current_stream().cuda_stream
 
-    def run():
+    def run(_slots=ptrs):  # the slots' tensors live as long as run
         code = fn(ctypes.addressof(p_arr), ctypes.addressof(i_arr), ctypes.addressof(info), stream)
         if code:
-            raise RuntimeError(f"the parent's fused_layer_bwd failed to launch: cudaError {code}")
+            raise RuntimeError(f"{who} fused_layer_bwd failed to launch: cudaError {code}")
 
+    return run, info
+
+
+def merged_parent_times(FM, args, split):
+    """With MDGEN_PARENT_CSRC: the parent's merged layer backward's raw
+    launch on the same launch slots (its entry point reads the first of this
+    checkout's integer slots, the layout it had), and the split route on the
+    parent's adaln_linear; else None."""
+    plib = parent_lib("fused_layer_bwd")
+    if plib is None:
+        return None
+    run, info = merged_raw(plib, FM, args, "the parent's")
     return dict(ms=time_ms(run, reps=10), back_to_back_ms=back_to_back_ms(run, n=20),
                 smem_bytes=info[2], blocks_per_sm=info[1],
                 split=parent_times("adaln_linear", split))
@@ -1236,12 +1386,14 @@ def phase_merged_bwd_kernels(dev):
     same bf16 inputs (bit for bit expected), and against the plain version
     in f32 under the composition rule (relative L2 at most 2 x that of the
     plain version in bf16, + 0.01, per output). Times (CUDA events, median):
-    the merged launch, the split route's launches for one layer, the plain
+    the merged launch (through its wrapper, and raw: ``merged_raw``), the
+    split route's launches for one layer, the plain
     version (bf16 twins on the card). Bound: the split route's work less the
     dx round trips: the products of the recompute and of both backward
     products (96 M C^2 FLOP) and the attention cores (14 N (N + 1) D per
     sequence and head and stage) against the layer's inputs and outputs read
     and written once."""
+    from mdgen_finetune_tpu_torch.ops import _cuda
     from mdgen_finetune_tpu_torch.ops import fused_layer_bwd_merged as FM
     from mdgen_finetune_tpu_torch.ops.fused_layer import trunk_layer
     from mdgen_finetune_tpu_torch.ops.fused_layer_bwd import layer_bwd_split
@@ -1305,6 +1457,8 @@ def phase_merged_bwd_kernels(dev):
             rule_worst={k: rule[k] for k in sorted(rule, key=lambda k: rule[k][0] - rule[k][1])[-3:]},
             max_abs_err=err, tol="composition rule, per output", launch=launch,
             ms=time_ms(lambda: FM.fused_layer_bwd_merged(*args), reps=10),
+            raw_ms=time_ms(merged_raw(_cuda.built("fused_layer_bwd"), FM, args, "this")[0],
+                           reps=10),
             split_ms=time_ms(lambda: layer_bwd_split(*args), reps=10),
             split_launches=split_launches,
             plain_ms=time_ms(lambda: FM.fused_layer_bwd_merged_plain(*args), reps=3, warmup=1),
@@ -1313,6 +1467,8 @@ def phase_merged_bwd_kernels(dev):
             phase_clock=MPC.measure(name, Bc, Tc, 5, MPC.clock_library()))
         if over or not finite:
             raise AssertionError(f"merged_bwd_kernels[{name}]: over the rule: {over}")
+        if differ:
+            raise AssertionError(f"merged_bwd_kernels[{name}]: not the split route's bits: {differ}")
     emit({"phase": "merged_bwd_kernels", "kernels": out})
     return out
 
@@ -1703,11 +1859,16 @@ def phase_main_path(dev, cfg):
         fn.cuda_calls = 0
     al.adaln_linear.routes = [0, 0, 0]
     ra.rope_attention.bodies = [0, 0, 0]
+    ia.ipa_attention.forms = [0, 0, 0]
     t0 = time.perf_counter()
     out, _ = eng.sample(batch, gen)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     per_sample = {fn.__name__: fn.launches for fn in wrappers}
+    # ipa_attention's forms: the encoder (L = 4) takes the streaming form only
+    ipa_forms = list(ia.ipa_attention.forms)
+    if ipa_forms != [per_sample["ipa_attention"], 0, 0]:
+        raise AssertionError(f"main_path: ipa_attention's forms {ipa_forms}, expected all streaming")
     # adaln_linear's routes per sample, as derived from the code: per Euler
     # step 5 resident products (qkv and out of both attention stages, fc1)
     # and fc2 pipelined in each layer, the embed and the head on tiled64;
@@ -1732,6 +1893,7 @@ def phase_main_path(dev, cfg):
           "dtype": "bf16", "sample_s": secs, "steps_per_s": B * STEPS / secs,
           "launches_per_sample": per_sample, "launches": launches,
           "adaln_linear_routes_per_sample": routes, "rope_attention_bodies": bodies,
+          "ipa_attention_forms_per_sample": ipa_forms,
           "plain_calls_on_card": twin_calls, "rollout_windows": 2,
           "n_ca_mean": n_ca.mean().item(), "ca_c_mean": ca_c.mean().item(),
           "n_ca_max_dev": dev_nca, "ca_c_max_dev": dev_cac,
@@ -2283,7 +2445,8 @@ def phase_atlas_kernels(dev):
     view (250 sequences of N = 256), the frame view (256 sequences of
     N = 250), at N = 129 and at its limit; ``tiled_attention`` and
     ``rope_attention`` as the residue stage's core (the route keeps JAX's
-    gate, tiled above MAX_L = 8; both timed); ``ipa_attention`` (row c) at
+    gate, tiled above MAX_L = 8; both timed); ``ipa_attention`` (row c,
+    ``ipa_entry``: the parent's bits asserted, SDPA on augmented heads) at
     L = 256 over the 100-point t grid of one Euler-100 sample, and at L = 4,
     and at L = 256 with (Ch, Pq, Pv) = (16, 4, 6) (the key-tiled form's
     shared-memory state);
@@ -2291,17 +2454,14 @@ def phase_atlas_kernels(dev):
     (``attention_stage_bwd``, row 8) in both views under the composition
     rule. The residues past 200 are padding (mask 0), as for a 200-residue
     protein. Library: SDPA on the RoPE'd heads (forward; forward + backward
-    through autograd for the backward core); none for IPA."""
+    through autograd for the backward core)."""
     import math
 
     import torch.nn.functional as F
 
-    from mdgen_finetune_tpu_torch.geometry.rigid import Rigid
     from mdgen_finetune_tpu_torch.ops import blocked_attention_bwd as BA
     from mdgen_finetune_tpu_torch.ops import fused_layer_bwd as FLB
     from mdgen_finetune_tpu_torch.ops import time_attention as TA
-    from mdgen_finetune_tpu_torch.ops.ipa_attention import (
-        ipa_attention, ipa_attention_plain, proj_width)
     from mdgen_finetune_tpu_torch.ops.rope_attention import rope_attention, rope_attention_plain
     from mdgen_finetune_tpu_torch.ops import tiled_attention as TLA
     from mdgen_finetune_tpu_torch.ops.tiled_attention import tiled_attention
@@ -2368,6 +2528,7 @@ def phase_atlas_kernels(dev):
             run = lambda: BA.blocked_attention_bwd(qkv, do, bk, bv, mk, num_heads=H)  # noqa: E731
             entry.update(
                 ms=time_ms(run), back_to_back_ms=back_to_back_ms(run),
+                parent=parent_times("blocked_attention_bwd", run),
                 resources=BA.resources(N_, D),
                 plain_ms=time_ms(lambda: BA.blocked_attention_bwd_plain(qkv, do, bk, bv, mk,
                                                                         num_heads=H), reps=5),
@@ -2412,31 +2573,14 @@ def phase_atlas_kernels(dev):
     # ---- ipa_attention: L = 256 over the Euler-100 t grid, and L = 4; the
     # key-tiled form at other widths (Ch, Pq, Pv) = (16, 4, 6) at L = 256 ----
     ipa = {}
-    for name, (Bn, Lc, (Ch, Pq, Pv)) in (("L256", (STEPS * B_ATLAS, L_ATLAS, (32, 8, 8))),
-                                         ("L4", (STEPS, 4, (32, 8, 8))),
-                                         ("L256_w16_4_6", (STEPS * B_ATLAS, L_ATLAS, (16, 4, 6)))):
-        proj = r(Bn, Lc, proj_width(4, Ch, Pq, Pv), dtype=f32)
-        t7 = r(Bn, Lc, 7, dtype=f32)
-        t7[..., 4:] *= 5
-        fr = Rigid.from_tensor_7(t7)
-        rot, trans = fr.rot.contiguous(), fr.trans.contiguous()
-        emask = torch.ones(Bn, Lc, device=dev)
-        emask[:, Lc - Lc * ATLAS_PAD // L_ATLAS:] = 0
-        hw = r(4, dtype=f32)
-        kw = dict(H=4, Ch=Ch, Pq=Pq, Pv=Pv)
-        got = ipa_attention(proj, rot, trans, emask, hw, **kw)
-        err = check(f"ipa_attention[{name}]", got, ipa_attention_plain(proj, rot, trans, emask, hw,
-                                                                       **kw), 1e-2)
-        ipa[name] = dict(
-            shape=f"{Bn} elements x 4 heads, L={Lc}, Ch={Ch}, Pq={Pq}, Pv={Pv}",
-            max_abs_err=err[0],
-            tol=err[1], ms=time_ms(lambda: ipa_attention(proj, rot, trans, emask, hw, **kw)),
-            plain_ms=time_ms(lambda: ipa_attention_plain(proj, rot, trans, emask, hw, **kw),
-                             reps=5),
-            library_ms=None,
-            bound=bound_ms(nbytes(proj, rot, trans, emask, hw) + got.numel() * 2,
-                           Lc * Lc * 4 * Bn * (2 * Ch + Pq * 3 * 3 + 2 * (Ch + Pv * 3)),
-                           PEAK_F32_FLOPS))
+    for name, (Bn, Lc, widths) in (("L256", (STEPS * B_ATLAS, L_ATLAS, (32, 8, 8))),
+                                   ("L4", (STEPS, 4, (32, 8, 8))),
+                                   ("L256_w16_4_6", (STEPS * B_ATLAS, L_ATLAS, (16, 4, 6)))):
+        def pad_tail(m, Lc=Lc):
+            m[:, Lc - Lc * ATLAS_PAD // L_ATLAS:] = 0
+
+        ipa[name] = ipa_entry(dev, f"atlas {name}", Bn, Lc, widths, pad_tail, seed=Lc + Bn,
+                              plain_reps=5)
     out["ipa_attention"] = dict(ipa["L256"], L4=ipa["L4"], L256_w16_4_6=ipa["L256_w16_4_6"])
 
     # ---- row 7 (residue_rows_block) and row 8 (the stage backwards) as a whole ----
@@ -3085,12 +3229,18 @@ def phase_micro_ops(dev):
     for n, r in sorted(res.items(), key=lambda kv: -kv[1]["marginal_us"]):
         print(f"  {r['marginal_us']:10.3f}  {n}", flush=True)
     rep = "dot_416x384x384"
+    # library yardstick: the same 64 products (32 programs x K = 2) of the
+    # rotated x (416 x 384) and x[:384, :384], bf16, as one torch.bmm (the
+    # operands stacked outside the timed call; the probe's sums not taken)
+    a = torch.stack([P._rot(x[b], k) for b in range(x.shape[0]) for k in range(2)])
+    wb = x[:, :384, :384].repeat_interleave(2, 0).contiguous()
     out = dict(shape=f"{rep}: 32 programs x K = 2 (x (32, 416, 384), y (32, 416, 1536) bf16)",
                max_abs_err=max(r["max_abs_err"] for r in res.values()),
                tol=f"{P.REL} x the sum of the terms' magnitudes, per program, for the plain "
                    f"and the position-weighted sum", ms=res[rep]["t2_ms"],
                plain_ms=time_ms(lambda: P.micro_ops_plain(x, y, rep, 2), reps=3, warmup=1),
-               library_ms=None,
+               library_ms=time_ms(lambda: torch.bmm(a, wb)),
+               library_note="torch.bmm of the 64 (416 x 384) @ (384 x 384) bf16 products",
                bound=bound_ms(nbytes(x) + 32 * 2 * 4, 2.0 * 416 * 384 * 384 * 2 * 32),
                launches=launches, ops=res)
     emit({"phase": "micro_ops", "ops": len(res), "launches": launches,
@@ -3163,6 +3313,7 @@ def main():
     start_parent_builds()
     MPC.start_clock_build()
     _cuda.start_variant("rope_attention", GENERAL)
+    _cuda.start_variant("ipa_attention", IPA_GENERAL)
     build_s = _cuda.build_all()
     dev = torch.device("cuda")
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
@@ -3292,8 +3443,11 @@ def main():
                      "shape": k["shape"],
                      **{f: k[f] for f in ("back_to_back_ms", "library_back_to_back_ms", "resources",
                                           "bf16_staging_err_of_tol", "parent", "bare_mm_ms",
-                                          "ex2_floor_ms", "ex2_per_pair",
-                                          "uses", "splits", "frames_N250") if f in k}})
+                                          "ex2_floor_ms", "ex2_per_pair", "host_ms", "form",
+                                          "bits_equal_parent", "general_path", "library_note",
+                                          "library_max_abs_err", "L4", "L256_w16_4_6",
+                                          "atlas_L256", "uses", "splits", "frames_N250")
+                                if f in k}})
     for entry in line:  # row j beyond fp16's range (the repaired q and k scales)
         if entry["name"] == "blocked_attention_bwd":
             entry["fp16_range"] = {c: modular[c] for c in modular if c.startswith("blocked_")}
@@ -3354,8 +3508,10 @@ def main():
                      "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
                      "bound_by": k["bound"][1], "library_ms": k["library_ms"], "shape": k["shape"],
                      **{f: k[f] for f in ("back_to_back_ms", "library_back_to_back_ms", "parent",
-                                          "bits_equal_parent", "resources", "general_path")
-                        if f in k}})
+                                          "bits_equal_parent", "resources", "general_path",
+                                          "host_ms") if f in k}})
+        if case == "bwd_stage1":  # the short backward's other uses (launched inside row 4' at P11)
+            line[-1]["uses"] = {c: short[c] for c in ("bwd_t1000", "bwd_merged_p11")}
     for name, case, src, rep_, n_launch in natural:
         k = modular[case]
         line.append({"name": name, "route": "cuda", "source": meta[src][0], "replaces": rep_,
@@ -3387,7 +3543,8 @@ def main():
                  "replaces": "tools/micro_ops.py:300 (main: the probe's pallas_call, body kernel)",
                  "launches": probe["launches"], "max_abs_err": probe["max_abs_err"],
                  "tol": probe["tol"], "ms": probe["ms"], "plain_ms": probe["plain_ms"],
-                 "bound_ms": probe["bound"][0], "bound_by": probe["bound"][1], "library_ms": None,
+                 "bound_ms": probe["bound"][0], "bound_by": probe["bound"][1],
+                 "library_ms": probe["library_ms"], "library_note": probe["library_note"],
                  "shape": probe["shape"]})
     emit({"kernels": line, "card": smi, "total_s": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -125,12 +125,13 @@ struct Modln {
 };
 
 struct Attn {  // rope_attention, rope_attention_bwd, blocked_attention_bwd
-  ropefwd::Shape sh;
+  ropefwd::Shape sh;   // the forward's launch shape (its short plan)
+  ropebwd::Shape bsh;  // rope_attention_bwd's (its short plan)
   const bf16 *qkv, *grad, *bk, *bv;
   const float *kv, *cos, *sin;
   bf16* out;
   float* part;
-  int G, N, I, HPB;
+  int G, N, I;
 };
 
 struct Colsum {
@@ -158,6 +159,20 @@ static_assert(sizeof(Params) <= 32764, "the kernel's parameters must fit 32,764 
 template <typename OT, int EC>
 __device__ __noinline__ void gemm_phase(const adaln::Args& a, int t, unsigned char* smem) {
   adaln::wg::gemm_block<OT, 1, EC>(a, t, smem);
+}
+
+// rope_attention_bwd's short body as a call of its own: inlined, its
+// registers (a row's exp2 and dp kept for up to 17 keys) made the whole
+// kernel spill kilobytes a thread (ptxas; same code, same bits). The
+// generic instance at every N: the split kernel's N = 4 instance measured
+// no faster here (PERF.md)
+template <int D>
+__device__ __noinline__ void rope_bwd_short_phase(const Attn& a, int H, int C, int t,
+                                                  unsigned char* smem) {
+  ropebwd::short_unit<D, 0>(ropebwd::short_args(a.qkv, a.grad, a.bk, a.bv, a.kv, a.cos, a.sin,
+                                                  a.out, a.part, a.G, a.N, a.I, H, C, a.bsh.spb,
+                                                  a.bsh.hg),
+                              t, smem);
 }
 
 template <int D>
@@ -199,8 +214,11 @@ __device__ __forceinline__ void run(const Params& P, const Job& j, int t, unsign
     }
     case ROPE_BWD: {
       const Attn& a = P.at[j.arg];
-      ropebwd::block<D>(a.qkv, a.grad, a.bk, a.bv, a.kv, a.cos, a.sin, a.out, a.part, a.N, a.I,
-                        P.H, P.C, a.HPB, t, reinterpret_cast<float*>(smem));
+      if (a.bsh.short_seq)
+        rope_bwd_short_phase<D>(a, P.H, P.C, t, smem);
+      else
+        ropebwd::long_block<D>(a.qkv, a.grad, a.bk, a.bv, a.kv, a.cos, a.sin, a.out, a.part, a.N,
+                               a.I, P.H, P.C, t, reinterpret_cast<float*>(smem));
       break;
     }
     case BLOCKED: {
@@ -284,10 +302,11 @@ enum Ptr {
 // four each: route, column chunks per block, blocks across the columns, ring
 // stages; ROPE_PLAN: the short rope_attention plans of the frame and the
 // residue stage, ops/rope_attention.py::short_plan(merged=True): sequences
-// and heads per unit, two each, read where the stage is short)
+// and heads per unit, two each, read where the stage is short; ROPE_BWD_PLAN:
+// the same for rope_attention_bwd, ops/rope_attention_bwd.py::short_plan)
 enum Int { NB_, NT_, NL_, NC_, NH_, NNB, LD_MOD, LD_DMOD, SPL_W2, SPL_W1, SPL_WOUT_T, SPL_WQKV_T,
            SPL_WOUT_L, SPL_WQKV_L, SPL_MODLN, SMEM_LIMIT, AD_PLAN, ROPE_PLAN = AD_PLAN + 24,
-           NINT = ROPE_PLAN + 4 };
+           ROPE_BWD_PLAN = ROPE_PLAN + 4, NINT = ROPE_BWD_PLAN + 4 };
 
 struct Builder {
   Params P;
@@ -447,7 +466,9 @@ int launch(const void* const* p, const long long* n, long long* info, cudaStream
     g.grad = bp(DATT);
     g.out = const_cast<bf16*>(bp(DQKV));
     g.part = fp(pb[s]);
-    g.HPB = ropebwd::heads_per_block(vN[s], H);
+    g.bsh = ropebwd::shape((long long)vG[s] * vI[s], vN[s], H, D, (int)n[ROPE_BWD_PLAN + 2 * s],
+                           (int)n[ROPE_BWD_PLAN + 2 * s + 1], 1);
+    if (g.bsh.blocks == 0 && !(s == 0 && blocked)) return (int)cudaErrorInvalidValue;
     P.at[2 + s] = g;
   }
 
@@ -470,8 +491,8 @@ int launch(const void* const* p, const long long* n, long long* info, cudaStream
       b.add(BLOCKED, 2, S * H);
       b.need(lay.total);
     } else {
-      b.add(ROPE_BWD, 2 + s, ropebwd::blocks(S, vN[s], H));
-      b.need(ropebwd::smem_bytes(vN[s], H, D));
+      b.add(ROPE_BWD, 2 + s, P.at[2 + s].bsh.blocks);
+      b.need(P.at[2 + s].bsh.smem);
     }
   };
   auto attn_bias = [&](int cs, int s) {

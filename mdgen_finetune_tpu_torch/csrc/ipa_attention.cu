@@ -20,9 +20,48 @@
 // inverse frame map of the point outputs; norms sqrt(|p|^2 + 1e-8). All the
 // point math is f32. Output features bf16, ordered scalars | x | y | z | norms.
 //
-// Two forms, chosen by the wrapper (ops/ipa_attention.py, RESIDENT_MAX_L):
-//   - resident (small L, the 4AA peptides at L = 4): one block of 64 threads
-//     per (element, head) stages its L residues' scalars, lifted points and
+// Three forms, chosen by the wrapper (ops/ipa_attention.py::_form):
+//   - streaming (L <= 16 at the model's widths, Ch = 32, Pq = Pv = 8, H a
+//     multiple of 4: the 4AA peptides at L = 4, the encoder and the
+//     modular layer's interleave_ipa over the t grid). It replaces
+//     the resident form there, which gave a block of 64 threads one
+//     (element, head): at L = 4 that is
+//     25,600 blocks of 16 logits each (48 of the 64 threads idle), the point
+//     coordinates read one float at a time at a stride of H*P, each head
+//     re-reading the element's frames and lifting its points, the softmax on
+//     4 threads behind 5 barriers, the features written one bf16 at a time.
+//     The call moves ~82 MB (68.8 MB of f32 proj in, 13 MB of bf16 features
+//     out at B = 6,400, L = 4) against ~0.1 GFLOP: only bytes bound it. So:
+//       * a unit is SPB whole elements x all H heads (ops/ipa_attention.py::
+//         ipa_plan: four threads per query); an element's proj rows are
+//         one contiguous span (4 x 2,688 B at L = 4), its frames and mask
+//         three more;
+//       * a persistent grid (resident blocks x SMs) walks the units, the
+//         next unit's spans in flight by 16-byte cp.async while this one is
+//         computed (two raw buffers); the copy puts 16 pad bytes after every
+//         128, so a head's 32 scalars (and 8 points of a coordinate) start
+//         on their own banks and the heads of a warp read without conflict;
+//       * each point is lifted once per (element, point) in place (not once
+//         per head), reading the frames staged once per element;
+//       * four threads per (element, query, head), its q and lifted q points
+//         in each one's registers: thread k forms the logits of keys k,
+//         k + 4, ..., the four exchange them by shuffles (the L logits in
+//         registers, no L x L buffer), each forms the softmax, and thread k
+//         sums a quarter of the values (8 scalars, 2 points); 256 threads
+//         and two blocks per SM, so that enough warps hide the latency of
+//         the shared-memory reads (one thread per query, 64 a block, left
+//         each SM four warps and latency-bound);
+//       * the features staged in shared memory and written as 16-byte
+//         vectors (an element's are 4 x 512 B, contiguous).
+//     Every output's operations and order are the resident form's (the dot
+//     over c, then the squared distance over (p, x), expf(a - m), the
+//     division by the sum, the value sums in key order, the same lift and
+//     inverse map), so the features are its bits. A unit whose proj span
+//     does not start on 16 bytes is copied 4 bytes at a time (the general
+//     path; -DMDGEN_IPA_GENERAL takes every unit there, to time it).
+//   - resident (16 < L <= 64, and L <= 16 at other widths or over few
+//     elements): one block of 64 threads per (element, head) stages its L
+//     residues' scalars, lifted points and
 //     frames in shared memory, forms the L x L logits there, and writes the
 //     features once. At L = 4 each (b, head) reads ~2 KB and does a few
 //     thousand FLOP; the call is memory-bound (proj in, features out,
@@ -45,6 +84,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 typedef __nv_bfloat16 bf16;
 
@@ -155,6 +195,317 @@ __global__ void __launch_bounds__(THREADS) ipa_attention_kernel(
     f[HPv] = __float2bfloat16(ly);
     f[2 * HPv] = __float2bfloat16(lz);
     f[3 * HPv] = __float2bfloat16(nrm);
+  }
+}
+
+// ---- the streaming form (L <= SHORT_L at Ch = 32, Pq = Pv = 8, H % 4 == 0);
+// the design note is at the top ----
+constexpr int SHORT_L = 16;         // ops/ipa_attention.py SHORT_L
+constexpr int SHORT_THREADS = 256;  // ops/ipa_attention.py SHORT_THREADS
+constexpr int KS = 4;               // threads per (element, query, head): QUERY_THREADS
+constexpr int SCH = 32, SPQ = 8, SPV = 8;  // the widths it takes (REGISTER_WIDTHS)
+// whether the L = H = 4 instance runs at L = H = 4: a -DMDGEN_GENERIC_SHORT
+// build runs the generic instance there, to time it
+#ifdef MDGEN_GENERIC_SHORT
+constexpr bool SHORT_L4H4 = false;
+#else
+constexpr bool SHORT_L4H4 = true;
+#endif
+static_assert(SCH / KS == 8 && SPV / KS == 2, "a thread's share: 8 scalars, 2 points");
+
+// a proj float's place in a raw buffer: 4 pad floats after every 32, so that
+// 16-byte rows 128 bytes apart fall on distinct banks
+__host__ __device__ __forceinline__ long long padf(long long f) { return f + (f >> 5) * 4; }
+
+__host__ __device__ inline size_t align16(size_t b) { return (b + 15) & ~(size_t)15; }
+
+// one unit's shared memory (bytes; ops/ipa_attention.py::ipa_bytes mirrors
+// it): two raw buffers, each the unit's proj rows (SPB x L rows of RW =
+// W + W / 8 floats, placed by padf) and its rot (9), trans (3) and mask (1)
+// floats per row; then the unit's features, SPB x L rows of F bf16
+struct ShortLayout {
+  int rw;
+  size_t rot, trans, mask, raw, feats, total;
+  __host__ __device__ ShortLayout(int spb, int L, int W, int F) {
+    rw = W + W / 8;
+    const size_t rows = (size_t)spb * L;
+    size_t o = rows * rw * 4;
+    rot = o; o += align16(rows * 9 * 4);
+    trans = o; o += align16(rows * 3 * 4);
+    mask = o; o += align16(rows * 4);
+    raw = o;
+    feats = 2 * raw;
+    total = feats + rows * F * 2;
+  }
+};
+
+struct ShortArgs {
+  const float *proj, *rot, *trans, *mask, *hw;
+  bf16* feats;
+  long long B, units;  // elements; units of SPB elements
+  int L, H, W, F, spb;
+};
+
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// the proj rows go in as 16-byte chunks where proj starts on 16 bytes (a
+// row is 168 H floats, so every row does), else 4 bytes at a time (the
+// general path; a -DMDGEN_IPA_GENERAL build takes it for every unit)
+__device__ __forceinline__ bool vector_rows(const ShortArgs& a) {
+#ifdef MDGEN_IPA_GENERAL
+  return false;
+#else
+  return (reinterpret_cast<unsigned long long>(a.proj) & 15) == 0;
+#endif
+}
+
+// unit u's spans into a raw buffer, the threads on consecutive chunks
+__device__ __forceinline__ void load_unit(const ShortArgs& a, long long u, unsigned char* buf,
+                                          const ShortLayout& lay) {
+  const long long e0 = u * a.spb, r0 = e0 * a.L;
+  const int rows = (int)min((long long)a.spb, a.B - e0) * a.L;
+  float* P = reinterpret_cast<float*>(buf);
+  const float* src = a.proj + r0 * a.W;
+  const int nf = rows * a.W;
+  if (vector_rows(a)) {
+    for (int c = threadIdx.x; c < nf / 4; c += SHORT_THREADS) cp16(P + padf(4LL * c), src + 4 * c);
+  } else {
+    for (int f = threadIdx.x; f < nf; f += SHORT_THREADS) cp4(P + padf(f), src + f);
+  }
+  float* R = reinterpret_cast<float*>(buf + lay.rot);
+  float* Tr = reinterpret_cast<float*>(buf + lay.trans);
+  float* Mk = reinterpret_cast<float*>(buf + lay.mask);
+  for (int f = threadIdx.x; f < rows * 9; f += SHORT_THREADS) cp4(R + f, a.rot + r0 * 9 + f);
+  for (int f = threadIdx.x; f < rows * 3; f += SHORT_THREADS) cp4(Tr + f, a.trans + r0 * 3 + f);
+  for (int f = threadIdx.x; f < rows; f += SHORT_THREADS) cp4(Mk + f, a.mask + r0 + f);
+}
+
+// 8 consecutive floats at p (16-byte aligned) into v
+__device__ __forceinline__ void load8(const float* p, float* v) {
+  const float4 x = reinterpret_cast<const float4*>(p)[0], y = reinterpret_cast<const float4*>(p)[1];
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  v[4] = y.x; v[5] = y.y; v[6] = y.z; v[7] = y.w;
+}
+
+// 8 floats as bf16 into one 16-byte store
+__device__ __forceinline__ void store8(bf16* dst, const float* v) {
+  uint4 w;
+  uint32_t* wp = reinterpret_cast<uint32_t*>(&w);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+    wp[e] = *reinterpret_cast<const uint32_t*>(&p);
+  }
+  *reinterpret_cast<uint4*>(dst) = w;
+}
+
+// a landed unit: lift its points in place, attend, stage its features,
+// write them out
+// LC, HC: L and H known at compile time (the 4AA peptides' L = H = 4: the
+// loops over keys unroll, the divisions by L and H are shifts), 0: read
+// from the arguments; the same arithmetic either way
+template <int LC, int HC>
+__device__ __forceinline__ void short_unit_body(const ShortArgs& a, long long u, unsigned char* buf,
+                                                bf16* Fs, const ShortLayout& lay) {
+  const long long e0 = u * a.spb;
+  const int L = LC > 0 ? LC : a.L, H = HC > 0 ? HC : a.H;
+  const int rows = (int)min((long long)a.spb, a.B - e0) * L;
+  const int HCh = H * SCH, HPq = H * SPQ, HPv = H * SPV;
+  const int qpts = 3 * HCh, kpts = qpts + 3 * HPq, vpts = kpts + 3 * HPq;
+  float* P = reinterpret_cast<float*>(buf);
+  const float* R = reinterpret_cast<const float*>(buf + lay.rot);
+  const float* Tr = reinterpret_cast<const float*>(buf + lay.trans);
+  const float* Mk = reinterpret_cast<const float*>(buf + lay.mask);
+
+  // every point of the unit lifted once, in place: a thread per (row, head,
+  // point), the points of a head on neighbouring lanes
+  constexpr int NP = 2 * SPQ + SPV;
+  for (int t = threadIdx.x; t < rows * H * NP; t += SHORT_THREADS) {
+    const int pi = t % NP, r = t / NP, h = r % H, row = r / H;
+    const int blk = pi < SPQ ? 0 : pi < 2 * SPQ ? 1 : 2;
+    const int p = pi - blk * SPQ, HP = blk < 2 ? HPq : HPv, Pn = blk < 2 ? SPQ : SPV;
+    const int base = (blk == 0 ? qpts : blk == 1 ? kpts : vpts) + h * Pn + p;
+    float* rowp = P + (size_t)row * lay.rw;
+    float* px = rowp + padf(base);
+    float* py = rowp + padf(base + HP);
+    float* pz = rowp + padf(base + 2 * HP);
+    const float x = *px, y = *py, z = *pz;
+    const float* rr = R + row * 9;
+    const float* t3 = Tr + row * 3;
+    *px = rr[0] * x + rr[1] * y + rr[2] * z + t3[0];
+    *py = rr[3] * x + rr[4] * y + rr[5] * z + t3[1];
+    *pz = rr[6] * x + rr[7] * y + rr[8] * z + t3[2];
+  }
+  __syncthreads();
+
+  // KS = 4 threads per (element, query, head), neighbouring lanes (then
+  // the heads of a query, then the queries of an element): thread k forms
+  // the logits of keys k, k + 4, ... (the keys' reads broadcast to the
+  // queries), the four exchange them by shuffles, each forms the softmax,
+  // and thread k sums scalars 8k .. 8k + 7 and points 2k, 2k + 1
+  const int lane = threadIdx.x & 31;
+  const unsigned gmask = 0xfu << (lane & ~(KS - 1));
+  for (int t = threadIdx.x; t < rows * H * KS; t += SHORT_THREADS) {
+    const int k = t % KS, h = (t / KS) % H, row = t / (KS * H), e = row / L;
+    const int src0 = lane & ~(KS - 1);
+    const float* qrow = P + (size_t)row * lay.rw;
+    float q[SCH], qp[SPQ * 3];
+#pragma unroll
+    for (int c = 0; c < SCH; c += 8) load8(qrow + padf(h * SCH + c), q + c);
+#pragma unroll
+    for (int x = 0; x < 3; ++x) {
+      float v[SPQ];
+      load8(qrow + padf(qpts + x * HPq + h * SPQ), v);
+#pragma unroll
+      for (int p = 0; p < SPQ; ++p) qp[p * 3 + x] = v[p];
+    }
+    const float mq = Mk[row];
+    const float hw_raw = __ldg(a.hw + h);
+    const float softplus = hw_raw > 20.f ? hw_raw : log1pf(expf(hw_raw));
+    const float hw = softplus * sqrtf(1.0f / (3.0f * (SPQ * 9.0f / 2.0f))) * -0.5f;
+    const float c_sc = sqrtf(1.0f / (3.0f * SCH));
+
+    // this thread's logits (keys k, k + KS, ...), each in the resident
+    // form's order: the dot over c, the squared distance over (p, x)
+    float mine[SHORT_L / KS];
+#pragma unroll
+    for (int jj = 0; jj < SHORT_L / KS; ++jj) {
+      const int j = jj * KS + k;
+      mine[jj] = 0.f;
+      if (j < L) {
+        const float* krow = P + (size_t)(e * L + j) * lay.rw;
+        float s = 0.f;
+#pragma unroll
+        for (int c = 0; c < SCH; c += 8) {
+          float kk[8];
+          load8(krow + padf(HCh + h * SCH + c), kk);
+#pragma unroll
+          for (int cc = 0; cc < 8; ++cc) s += q[c + cc] * kk[cc];
+        }
+        float kp[SPQ * 3];
+#pragma unroll
+        for (int x = 0; x < 3; ++x) {
+          float v[SPQ];
+          load8(krow + padf(kpts + x * HPq + h * SPQ), v);
+#pragma unroll
+          for (int p = 0; p < SPQ; ++p) kp[p * 3 + x] = v[p];
+        }
+        float d2 = 0.f;
+#pragma unroll
+        for (int e2 = 0; e2 < SPQ * 3; ++e2) {
+          const float d = qp[e2] - kp[e2];
+          d2 += d * d;
+        }
+        mine[jj] = s * c_sc + d2 * hw + 1e5f * (mq * Mk[e * L + j] - 1.0f);
+      }
+    }
+    // every logit of the row in every thread of the group; the softmax
+    float lg[SHORT_L];
+    float m = -3.0e38f;
+#pragma unroll
+    for (int j = 0; j < SHORT_L; ++j) {
+      if (j < L) {
+        lg[j] = __shfl_sync(gmask, mine[j / KS], src0 + j % KS);
+        m = fmaxf(m, lg[j]);
+      }
+    }
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < SHORT_L; ++j) {
+      if (j < L) {
+        const float pj = expf(lg[j] - m);
+        lg[j] = pj;
+        sum += pj;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < SHORT_L; ++j)
+      if (j < L) lg[j] /= sum;
+
+    // this thread's value sums, in key order: scalars 8k .. 8k + 7, points
+    // 2k and 2k + 1
+    constexpr int OC = SCH / KS, OP = SPV / KS;
+    float o[OC], g[OP * 3];
+#pragma unroll
+    for (int c = 0; c < OC; ++c) o[c] = 0.f;
+#pragma unroll
+    for (int e2 = 0; e2 < OP * 3; ++e2) g[e2] = 0.f;
+#pragma unroll
+    for (int j = 0; j < SHORT_L; ++j) {
+      if (j < L) {
+        const float aj = lg[j];
+        const float* vrow = P + (size_t)(e * L + j) * lay.rw;
+        float v[OC];
+        load8(vrow + padf(2 * HCh + h * SCH + k * OC), v);
+#pragma unroll
+        for (int c = 0; c < OC; ++c) o[c] += aj * v[c];
+#pragma unroll
+        for (int x = 0; x < 3; ++x) {
+          const float2 w = *reinterpret_cast<const float2*>(vrow + padf(vpts + x * HPv + h * SPV + k * OP));
+          g[x] += aj * w.x;
+          g[3 + x] += aj * w.y;
+        }
+      }
+    }
+
+    // features: scalars, then the inverse frame map of the points and
+    // their norms, staged in shared memory
+    bf16* frow = Fs + (size_t)row * a.F;
+    store8(frow + h * SCH + k * OC, o);
+    const float* rr = R + row * 9;
+    const float* t3 = Tr + row * 3;
+    float lx[OP], ly[OP], lz[OP], nrm[OP];
+#pragma unroll
+    for (int p = 0; p < OP; ++p) {
+      float dx = g[p * 3] - t3[0], dy = g[p * 3 + 1] - t3[1], dz = g[p * 3 + 2] - t3[2];
+      lx[p] = rr[0] * dx + rr[3] * dy + rr[6] * dz;
+      ly[p] = rr[1] * dx + rr[4] * dy + rr[7] * dz;
+      lz[p] = rr[2] * dx + rr[5] * dy + rr[8] * dz;
+      nrm[p] = sqrtf(lx[p] * lx[p] + ly[p] * ly[p] + lz[p] * lz[p] + 1e-8f);
+    }
+    const int po = h * SPV + k * OP;
+    *reinterpret_cast<__nv_bfloat162*>(frow + HCh + po) = __floats2bfloat162_rn(lx[0], lx[1]);
+    *reinterpret_cast<__nv_bfloat162*>(frow + HCh + HPv + po) = __floats2bfloat162_rn(ly[0], ly[1]);
+    *reinterpret_cast<__nv_bfloat162*>(frow + HCh + 2 * HPv + po) = __floats2bfloat162_rn(lz[0], lz[1]);
+    *reinterpret_cast<__nv_bfloat162*>(frow + HCh + 3 * HPv + po) = __floats2bfloat162_rn(nrm[0], nrm[1]);
+  }
+  __syncthreads();
+
+  // the unit's features are one contiguous span of the output
+  uint4* dst = reinterpret_cast<uint4*>(a.feats + e0 * L * a.F);
+  const uint4* fs = reinterpret_cast<const uint4*>(Fs);
+  for (int c = threadIdx.x; c < rows * a.F / 8; c += SHORT_THREADS) dst[c] = fs[c];
+}
+
+// the persistent walk: units u0, u0 + grid, ..., the next unit's spans in
+// flight (the other raw buffer) while this one is computed
+template <int LC, int HC>
+__global__ void __launch_bounds__(SHORT_THREADS) ipa_attention_short_kernel(const ShortArgs a) {
+  extern __shared__ __align__(16) unsigned char sms[];
+  const ShortLayout lay(a.spb, a.L, a.W, a.F);
+  long long u = blockIdx.x;
+  if (u >= a.units) return;
+  load_unit(a, u, sms, lay);
+  cp_commit();
+  for (int k = 0; u < a.units; u += gridDim.x, k ^= 1) {
+    cp_wait_all();
+    __syncthreads();  // unit u has landed; every thread is done with the last one
+    if (u + gridDim.x < a.units) load_unit(a, u + gridDim.x, sms + (k ^ 1) * lay.raw, lay);
+    cp_commit();
+    short_unit_body<LC, HC>(a, u, sms + k * lay.raw, reinterpret_cast<bf16*>(sms + lay.feats), lay);
   }
 }
 
@@ -426,14 +777,84 @@ __global__ void __launch_bounds__(QT) ipa_attention_tiled_any_kernel(
 
 }  // namespace
 
+namespace {
+
+// the launch resources of kernel `kern` at `threads` threads and `smem`
+// bytes: info[0] registers per thread, [1] local (spill) bytes per thread,
+// [2] dynamic shared memory per block, [3] resident blocks per SM
+template <typename K>
+int kernel_resources(K kern, int threads, size_t smem, long long* info) {
+  cudaFuncAttributes fa;
+  int per_sm = 0;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kern);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
+  if (e != cudaSuccess) return (int)e;
+  info[0] = fa.numRegs;
+  info[1] = (long long)fa.localSizeBytes;
+  info[2] = (long long)smem;
+  info[3] = per_sm;
+  return 0;
+}
+
+bool short_shape(int L, int H, int Ch, int Pq, int Pv, int spb) {
+  return L >= 1 && L <= SHORT_L && Ch == SCH && Pq == SPQ && Pv == SPV && H >= 4 && H % 4 == 0 &&
+         spb >= 1;
+}
+
+}  // namespace
+
+// the resources of the kernel that a call at (L, H) with the model's
+// widths runs: the streaming form at plan spb > 0, else the key-tiled form
+// (the resident form's are not asked for)
+extern "C" int ipa_attention_resources(int L, int H, int spb, long long* info) {
+  const int W = H * (3 * SCH + 6 * SPQ + 3 * SPV), F = H * (SCH + 4 * SPV);
+  if (spb > 0) {
+    if (!short_shape(L, H, SCH, SPQ, SPV, spb)) return (int)cudaErrorInvalidValue;
+    return kernel_resources(L == 4 && H == 4 && SHORT_L4H4 ? ipa_attention_short_kernel<4, 4>
+                                                          : ipa_attention_short_kernel<0, 0>,
+                            SHORT_THREADS,
+                            ShortLayout(spb, L, W, F).total, info);
+  }
+  if (L <= 64) return (int)cudaErrorInvalidValue;
+  return kernel_resources(ipa_attention_tiled_kernel<32, 8, 8>, QT, 0, info);
+}
+
 // tiled != 0: the key-tiled form (registers at Ch = 32, Pq = Pv = 8, shared
-// memory at other widths); else the resident form, whose L x L logits must
+// memory at other widths); spb > 0 (tiled 0): the streaming form, units of
+// spb elements over a persistent grid of `grid` blocks
+// (ops/ipa_attention.py::ipa_plan; trailing, so an older entry point is
+// called the same way); else the resident form, whose L x L logits must
 // fit one block's shared memory
 extern "C" int ipa_attention(const void* proj, long long ld, const void* rot, const void* trans,
                              const void* mask, const void* head_weights, void* feats,
                              long long ldf, int B, int L, int H, int Ch, int Pq, int Pv,
-                             int tiled, void* stream) {
+                             int tiled, void* stream, int spb, int grid) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (spb > 0) {
+    ShortArgs a;
+    a.proj = static_cast<const float*>(proj);
+    a.rot = static_cast<const float*>(rot);
+    a.trans = static_cast<const float*>(trans);
+    a.mask = static_cast<const float*>(mask);
+    a.hw = static_cast<const float*>(head_weights);
+    a.feats = static_cast<bf16*>(feats);
+    a.B = B; a.L = L; a.H = H; a.spb = spb;
+    a.W = H * (3 * SCH + 6 * SPQ + 3 * SPV);
+    a.F = H * (SCH + 4 * SPV);
+    a.units = ((long long)B + spb - 1) / spb;
+    if (tiled || !short_shape(L, H, Ch, Pq, Pv, spb) || ld != a.W || ldf != a.F || B <= 0 ||
+        grid <= 0 || (reinterpret_cast<unsigned long long>(feats) & 15))
+      return (int)cudaErrorInvalidValue;
+    const size_t smem = ShortLayout(spb, L, a.W, a.F).total;
+    auto kern = L == 4 && H == 4 && SHORT_L4H4 ? ipa_attention_short_kernel<4, 4>
+                                               : ipa_attention_short_kernel<0, 0>;
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    const long long blocks = grid < a.units ? grid : a.units;
+    kern<<<(unsigned)blocks, SHORT_THREADS, smem, s>>>(a);
+    return (int)cudaGetLastError();
+  }
   if (tiled) {
     const int qtiles = (L + QT - 1) / QT;
     const long long blocks = (long long)B * H * qtiles;

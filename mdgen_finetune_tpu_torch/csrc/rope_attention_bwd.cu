@@ -33,11 +33,48 @@
 // (0.0206 ms at 3.35 TB/s) against ~5.0e9 FLOP (0.005 ms at 989 TFLOP/s),
 // so the bytes bound it; stage 1 (N = 4) even more so.
 //
-// Short sequences (N <= 16): one block of 128 threads per (sequence,
-// group of up to 128 / (N + 1) heads) stages q, k (RoPE'd), v and dO in f32
-// shared memory; phase A gives a thread one (head, query) row (two passes
-// over the keys: softmax statistics, then dq), phase B one (head, key)
-// column (dk, dv).
+// Short sequences (N <= 16: trunk stage 1 at N = L = 4, stage 2 at
+// T <= 16) replace a first version that gave a block of 128 threads one
+// sequence (up to 128 / (N + 1) heads), staged q, k, v and dO through 2-byte
+// loads into f32 shared memory, ran 64 threads in phase A and 80 in phase B,
+// formed every exp2 three times (twice for the row's statistics and dq,
+// once more per key for dk and dv), and wrote each sequence's bias partial
+// for a second launch. At the training path's stage 1 ((G, N, I) = (3200,
+// 4, 1), 16 heads of D = 24) the call moves 69 MB (0.0206 ms at 3.35 TB/s)
+// against ~0.25 GFLOP: only bytes bound it. Design (a streaming kernel on
+// the CUDA cores, the shape of rope_attention's short body):
+//   - a unit is SPB whole sequences x HG heads (ops/rope_attention_bwd.py::
+//     short_plan: about a key per thread, so that the key side is one pass:
+//     at stage 1 one sequence, 16 x 5 keys, four blocks per SM); at I = 1
+//     and HG = H a unit's q|k|v is one contiguous span (9,216 bytes at
+//     stage 1), its dO another, and its gradients a third;
+//   - a persistent grid (resident blocks x SMs) walks the units, the next
+//     unit's spans in flight by 16-byte cp.async (two raw buffers);
+//   - q and k RoPE'd once into f32 shared memory; the bias key and value of
+//     every head staged once per block;
+//   - the query side, a thread per (sequence, head, query): each key's
+//     exp2(min(l, 100)) and dp = dO . v formed once and kept in registers
+//     (at most 17 keys), 1 / (sum + 1e-30) and rowsum, then p and
+//     dl = ln2 p (dp - rowsum) for dq = sum_j dl k_j; p and dl go to a
+//     shared tile, dq (RoPE-transposed) over the row's q slice;
+//   - N = 4 (stage 1) has a build of its own, its loops unrolled without
+//     guards, so that the keys' dot-product chains interleave;
+//   - the key side, a thread per (sequence, head, key): dk = sum_n dl q_n
+//     and dv = sum_n p dO_n from the tile, not by forming the logits again;
+//     dk (RoPE-transposed) and dv over the key's k and v slices, the bias
+//     key's into the sequence's f32 partial;
+//   - the gradients go out as 16-byte stores; colsum.cuh sums the partials
+//     (colsum_tall_kernel: the 2C columns' rows staged in shared memory).
+// Every output's arithmetic and order are the first version's (dq summed
+// over the keys in order, dk and dv over the queries in order, the same
+// logits, exp2, sums and RoPE; the RoPE transpose's products written out as
+// fma(g, cos, +-g' sin), the first version's contraction, and rowsum
+// rounded once with __fmul_rn, as the first version's loop left it, so
+// that no context, N = 4's straight-line code included, fuses them
+// otherwise), so dqkv and the bias gradients are its bits. The partials
+// stay per sequence (19.6 MB written and read at stage 1):
+// with a sequence per unit there is nothing to sum inside a unit, and a sum
+// over a plan's units would tie the bias gradients' bits to the plan.
 //
 // Long sequences (16 < N <= MAX_N = 128: stage 2 at T <= 128) replace a
 // first version that ran the short design with one head per block: f32
@@ -85,16 +122,25 @@ namespace {
 
 using namespace ropebwd;
 
+// NKC = 5: the body specialised for N = 4 (trunk stage 1 of the 4AA
+// peptides); 0: any N <= 16 (the same arithmetic). A -DMDGEN_GENERIC_SHORT
+// build runs the generic instance at N = 4 too, to time it
+#ifdef MDGEN_GENERIC_SHORT
+constexpr bool SHORT_N4 = false;
+#else
+constexpr bool SHORT_N4 = true;
+#endif
+
+template <int D, int NKC>
+__global__ void __launch_bounds__(SHORT_THREADS) rope_attention_bwd_short_kernel(const ShortArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_s[];
+  short_stream<D, NKC>(a, blockIdx.x, gridDim.x, smem_s);
+}
+
 template <int D>
-__global__ void __launch_bounds__(THREADS) rope_attention_bwd_short_kernel(
-    const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-    const bf16* __restrict__ bias_k, const bf16* __restrict__ bias_v,
-    const float* __restrict__ key_valid, const float* __restrict__ cos_t,
-    const float* __restrict__ sin_t, bf16* __restrict__ dqkv, float* __restrict__ part,
-    int N, int I, int H, int C, int HPB) {
-  extern __shared__ __align__(16) float smem[];
-  short_block<D>(qkv, dout, bias_k, bias_v, key_valid, cos_t, sin_t, dqkv, part, N, I, H, C, HPB,
-                 blockIdx.x, smem);
+auto short_kernel(int N) {
+  return N == 4 && SHORT_N4 ? rope_attention_bwd_short_kernel<D, 5>
+                             : rope_attention_bwd_short_kernel<D, 0>;
 }
 
 // resident blocks per SM that the register allocation must allow: up to
@@ -108,7 +154,7 @@ __global__ void __launch_bounds__(THREADS, D <= 32 ? 4 : 2)
     const bf16* __restrict__ bias_k, const bf16* __restrict__ bias_v,
     const float* __restrict__ key_valid, const float* __restrict__ cos_t,
     const float* __restrict__ sin_t, bf16* __restrict__ dqkv, float* __restrict__ part,
-    int N, int I, int H, int C, int HPB) {
+    int N, int I, int H, int C) {
   extern __shared__ __align__(16) float smem[];
   long_block<D>(qkv, dout, bias_k, bias_v, key_valid, cos_t, sin_t, dqkv, part, N, I, H, C,
                 blockIdx.x, smem);
@@ -117,39 +163,51 @@ __global__ void __launch_bounds__(THREADS, D <= 32 ? 4 : 2)
 template <int D>
 int launch(const void* qkv, const void* dout, const void* bias_k, const void* bias_v,
            const void* key_valid, const void* cos_t, const void* sin_t, void* dqkv,
-           void* dbias, void* scratch, int G, int N, int I, int H, int C, cudaStream_t stream) {
-  if (N > MAX_N) return (int)cudaErrorInvalidValue;
-  const int HPB = heads_per_block(N, H);
-  const size_t smem = smem_bytes(N, H, D);
-  auto kern = N <= 16 ? rope_attention_bwd_short_kernel<D> : rope_attention_bwd_kernel<D>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
+           void* dbias, void* scratch, int G, int N, int I, int H, int C, cudaStream_t stream,
+           int spb, int hg, int grid) {
   const long long S = (long long)G * I;
-  kern<<<blocks(S, N, H), THREADS, smem, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout),
-      static_cast<const bf16*>(bias_k), static_cast<const bf16*>(bias_v),
-      static_cast<const float*>(key_valid), static_cast<const float*>(cos_t),
-      static_cast<const float*>(sin_t), static_cast<bf16*>(dqkv), static_cast<float*>(scratch),
-      N, I, H, C, HPB);
+  const Shape sh = shape(S, N, H, D, spb, hg, 2);
+  if (sh.blocks == 0) return (int)cudaErrorInvalidValue;
+  const bf16* q = static_cast<const bf16*>(qkv);
+  const bf16* go = static_cast<const bf16*>(dout);
+  const bf16* bk = static_cast<const bf16*>(bias_k);
+  const bf16* bv = static_cast<const bf16*>(bias_v);
+  const float* kv = static_cast<const float*>(key_valid);
+  const float* cs = static_cast<const float*>(cos_t);
+  const float* sn = static_cast<const float*>(sin_t);
+  bf16* dq = static_cast<bf16*>(dqkv);
+  float* part = static_cast<float*>(scratch);
+  if (sh.short_seq) {
+    if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
+    auto kern = short_kernel<D>(N);
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sh.smem);
+    if (e != cudaSuccess) return (int)e;
+    const unsigned blocks = (unsigned)grid < sh.blocks ? (unsigned)grid : sh.blocks;
+    kern<<<blocks, SHORT_THREADS, sh.smem, stream>>>(
+        short_args(q, go, bk, bv, kv, cs, sn, dq, part, G, N, I, H, C, spb, hg));
+  } else {
+    cudaError_t e = cudaFuncSetAttribute(rope_attention_bwd_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sh.smem);
+    if (e != cudaSuccess) return (int)e;
+    rope_attention_bwd_kernel<D><<<sh.blocks, THREADS, sh.smem, stream>>>(
+        q, go, bk, bv, kv, cs, sn, dq, part, N, I, H, C);
+  }
   int err = (int)cudaGetLastError();
   if (err) return err;
-  return colsum::launch(static_cast<const float*>(scratch), static_cast<float*>(dbias), S,
-                        2LL * C, 2LL * C, 0, stream);
+  return colsum::launch(part, static_cast<float*>(dbias), S, 2LL * C, 2LL * C, 0, stream);
 }
 
-// the resources of the kernel at sequence length N: info[0] registers per
-// thread, [1] local (spill) bytes per thread, [2] dynamic shared memory per
-// block, [3] resident blocks per SM
-template <int D>
-int resources(int N, int H, long long* info) {
-  const size_t smem = smem_bytes(N, H, D);
-  auto kern = N <= 16 ? rope_attention_bwd_short_kernel<D> : rope_attention_bwd_kernel<D>;
+// the resources of the kernel that a call at sequence length N runs (the
+// short one at plan (spb, hg)): info[0] registers per thread, [1] local
+// (spill) bytes per thread, [2] dynamic shared memory per block, [3]
+// resident blocks per SM
+template <typename K>
+int kernel_resources(K kern, int threads, size_t smem, long long* info) {
   cudaFuncAttributes fa;
   int per_sm = 0;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kern);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, smem);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
   if (e != cudaSuccess) return (int)e;
   info[0] = fa.numRegs;
   info[1] = (long long)fa.localSizeBytes;
@@ -158,28 +216,41 @@ int resources(int N, int H, long long* info) {
   return 0;
 }
 
+template <int D>
+int resources(int N, int H, long long* info, int spb, int hg) {
+  const Shape sh = shape(1, N, H, D, spb, hg, 2);
+  if (sh.blocks == 0) return (int)cudaErrorInvalidValue;
+  return sh.short_seq ? kernel_resources(short_kernel<D>(N), SHORT_THREADS, sh.smem, info)
+                      : kernel_resources(rope_attention_bwd_kernel<D>, THREADS, sh.smem, info);
+}
+
 }  // namespace
 
-extern "C" int rope_attention_bwd_resources(int N, int H, int C, long long* info) {
+// spb, hg: the short kernel's plan (trailing: an older entry point without
+// them is called the same way)
+extern "C" int rope_attention_bwd_resources(int N, int H, int C, long long* info, int spb, int hg) {
   switch (C / H) {
-    case 16: return resources<16>(N, H, info);
-    case 24: return resources<24>(N, H, info);
-    case 32: return resources<32>(N, H, info);
-    case 64: return resources<64>(N, H, info);
+    case 16: return resources<16>(N, H, info, spb, hg);
+    case 24: return resources<24>(N, H, info, spb, hg);
+    case 32: return resources<32>(N, H, info, spb, hg);
+    case 64: return resources<64>(N, H, info, spb, hg);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+// spb, hg, grid: the short kernel's plan and its persistent grid (its
+// resident blocks, at most one per unit; ops/rope_attention_bwd.py::_slots)
 extern "C" int rope_attention_bwd(const void* qkv, const void* dout, const void* bias_k,
                                   const void* bias_v, const void* key_valid, const void* cos_t,
                                   const void* sin_t, void* dqkv, void* dbias, void* scratch,
-                                  int G, int N, int I, int H, int C, void* stream) {
+                                  int G, int N, int I, int H, int C, void* stream, int spb,
+                                  int hg, int grid) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C / H) {
-    case 16: return launch<16>(qkv, dout, bias_k, bias_v, key_valid, cos_t, sin_t, dqkv, dbias, scratch, G, N, I, H, C, s);
-    case 24: return launch<24>(qkv, dout, bias_k, bias_v, key_valid, cos_t, sin_t, dqkv, dbias, scratch, G, N, I, H, C, s);
-    case 32: return launch<32>(qkv, dout, bias_k, bias_v, key_valid, cos_t, sin_t, dqkv, dbias, scratch, G, N, I, H, C, s);
-    case 64: return launch<64>(qkv, dout, bias_k, bias_v, key_valid, cos_t, sin_t, dqkv, dbias, scratch, G, N, I, H, C, s);
+    case 16: return launch<16>(qkv, dout, bias_k, bias_v, key_valid, cos_t, sin_t, dqkv, dbias, scratch, G, N, I, H, C, s, spb, hg, grid);
+    case 24: return launch<24>(qkv, dout, bias_k, bias_v, key_valid, cos_t, sin_t, dqkv, dbias, scratch, G, N, I, H, C, s, spb, hg, grid);
+    case 32: return launch<32>(qkv, dout, bias_k, bias_v, key_valid, cos_t, sin_t, dqkv, dbias, scratch, G, N, I, H, C, s, spb, hg, grid);
+    case 64: return launch<64>(qkv, dout, bias_k, bias_v, key_valid, cos_t, sin_t, dqkv, dbias, scratch, G, N, I, H, C, s, spb, hg, grid);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -8,6 +8,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rope_attention.cuh"
 #include "rope_tile.cuh"
 
 namespace ropebwd {
@@ -20,28 +21,26 @@ constexpr float LN2F = 0.6931471805599453f;
 constexpr int MAX_N = 128;  // ops/rope_attention_bwd.MAX_N: the long body holds a row of p in registers
 constexpr int MAX_KB = (MAX_N + 1 + 15) / 16;  // its 16-key blocks
 
-// per head: q[N][D], dO[N][D], k[NK][D], v[NK][D], kbias[NK], inv[N], rsum[N]
-__host__ __device__ constexpr int head_floats(int N, int D) {
-  return 2 * N * D + 2 * (N + 1) * D + (N + 1) + 2 * N;
-}
-
+// the transpose of ropefwd::rope_row: g * cos + rot^T(g * sin), rot^T(a, b) = (b, -a),
+// each lane as fma(g, cos, +-g' sin) written out, so that no context of
+// the body contracts it another way (the first version's arithmetic)
 template <int D>
-__device__ __forceinline__ void rope_row(float* v, const float* cs, const float* sn) {
-  float r[D];
+__device__ __forceinline__ void rope_row_t(float* g, const float* cos_row, const float* sin_row) {
+  float cs[D], sn[D], t[D];
 #pragma unroll
-  for (int d = 0; d < D; ++d) r[d] = d < D / 2 ? -v[d + D / 2] : v[d - D / 2];
+  for (int d = 0; d < D / 4; ++d) {  // the tables' row as float4s
+    const float4 c = __ldg(reinterpret_cast<const float4*>(cos_row) + d);
+    const float4 s = __ldg(reinterpret_cast<const float4*>(sin_row) + d);
+    cs[4 * d] = c.x; cs[4 * d + 1] = c.y; cs[4 * d + 2] = c.z; cs[4 * d + 3] = c.w;
+    sn[4 * d] = s.x; sn[4 * d + 1] = s.y; sn[4 * d + 2] = s.z; sn[4 * d + 3] = s.w;
+  }
 #pragma unroll
-  for (int d = 0; d < D; ++d) v[d] = v[d] * cs[d] + r[d] * sn[d];
-}
-
-// the transpose of rope_row: g * cos + rot^T(g * sin), rot^T(a, b) = (b, -a)
-template <int D>
-__device__ __forceinline__ void rope_row_t(float* g, const float* cs, const float* sn) {
-  float t[D];
+  for (int d = 0; d < D; ++d) {
+    const int e = d < D / 2 ? d + D / 2 : d - D / 2;
+    t[d] = __fmaf_rn(g[d], cs[d], __fmul_rn(d < D / 2 ? g[e] : -g[e], sn[e]));
+  }
 #pragma unroll
-  for (int d = 0; d < D; ++d) t[d] = d < D / 2 ? g[d + D / 2] * sn[d + D / 2] : -g[d - D / 2] * sn[d - D / 2];
-#pragma unroll
-  for (int d = 0; d < D; ++d) g[d] = g[d] * cs[d] + t[d];
+  for (int d = 0; d < D; ++d) g[d] = t[d];
 }
 
 template <int D>
@@ -52,139 +51,355 @@ __device__ __forceinline__ float dot(const float* a, const float* b) {
   return s;
 }
 
-// short sequences (N <= 16): a block takes HPB heads of one sequence, one
-// thread per (head, query) row in phase A and per (head, key) column in
-// phase B, in f32
+// ---- short sequences (N <= 16): the streaming body; the design note is
+// in rope_attention_bwd.cu ----
+
+constexpr int SHORT_THREADS = 128;  // ops/rope_attention_bwd.py SHORT_THREADS
+constexpr int SHORT_KEYS = 17;      // the most keys: N <= 16, + the bias key
+
+__host__ __device__ inline size_t align16(size_t b) { return (b + 15) & ~(size_t)15; }
+
+// one unit's shared memory (bytes; ops/rope_attention_bwd.py::short_bytes
+// mirrors it): nbuf raw buffers, each the bf16 q|k|v span of SPB sequences
+// x HG heads ([sequence][token][q|k|v][HG*D]; the gradients dq|dk|dv
+// replace it), their dO span ([sequence][token][HG*D]) and their tokens'
+// key_valid ([sequence][KBS] f32); q and k RoPE'd in f32, each
+// [sequence][head][token][D] at a head stride of N * D + 4 floats; the key
+// biases [sequence][KBS]; p and dl, each [sequence][head][query][N + 1]
+// f32; the bias key of every head, RoPE'd at N, and the bias value, f32
+// [2][H][D]
+struct ShortLayout {
+  int hs, kbs, nk;
+  size_t span, dspan, raw, qs, ks, kb, pt, dt, bias, total;
+  __host__ __device__ ShortLayout(int spb, int hg, int N, int D, int nbuf, int H) {
+    hs = N * D + 4;
+    kbs = (N + 3) & ~3;
+    nk = N + 1;
+    span = (size_t)spb * N * 3 * hg * D * 2;
+    dspan = (size_t)spb * N * hg * D * 2;
+    raw = span + dspan + (size_t)spb * kbs * 4;
+    size_t o = (size_t)nbuf * raw;
+    qs = o; o += (size_t)spb * hg * hs * 4;
+    ks = o; o += (size_t)spb * hg * hs * 4;
+    kb = o; o += (size_t)spb * kbs * 4;
+    pt = o; o += align16((size_t)spb * hg * N * nk * 4);
+    dt = o; o += align16((size_t)spb * hg * N * nk * 4);
+    bias = o; o += (size_t)2 * H * D * 4;
+    total = o;
+  }
+};
+
+struct ShortArgs {
+  const bf16 *qkv, *dout, *bias_k, *bias_v;
+  const float *key_valid, *cos_t, *sin_t;
+  bf16* dqkv;
+  float* part;         // (G * I, 2C) f32: each sequence's bias-key and bias-value gradients
+  long long S, units;  // sequences (G * I); units (sequence blocks x head groups)
+  int N, I, H, C, spb, hg, groups;
+};
+
+__host__ __device__ inline ShortArgs short_args(const bf16* qkv, const bf16* dout,
+                                                const bf16* bias_k, const bf16* bias_v,
+                                                const float* key_valid, const float* cos_t,
+                                                const float* sin_t, bf16* dqkv, float* part,
+                                                int G, int N, int I, int H, int C, int spb,
+                                                int hg) {
+  ShortArgs a;
+  a.qkv = qkv; a.dout = dout; a.bias_k = bias_k; a.bias_v = bias_v;
+  a.key_valid = key_valid; a.cos_t = cos_t; a.sin_t = sin_t; a.dqkv = dqkv; a.part = part;
+  a.N = N; a.I = I; a.H = H; a.C = C; a.spb = spb; a.hg = hg;
+  a.S = (long long)G * I;
+  a.groups = hg > 0 ? (H + hg - 1) / hg : 0;
+  a.units = spb > 0 ? (a.S + spb - 1) / spb * a.groups : 0;
+  return a;
+}
+
+struct Unit {
+  long long s0;    // first sequence
+  int ns, h0, nh;  // sequences, first head, heads
+};
+
+__device__ __forceinline__ Unit unit_of(const ShortArgs& a, long long u) {
+  Unit U;
+  const long long sb = u / a.groups;
+  U.s0 = sb * a.spb;
+  U.ns = (int)min((long long)a.spb, a.S - U.s0);
+  U.h0 = (int)(u % a.groups) * a.hg;
+  U.nh = min(a.hg, a.H - U.h0);
+  return U;
+}
+
+// token n of sequence s = (g, i) is row (g * N + n) * I + i of (G, N, I, .)
+__device__ __forceinline__ long long token_row(const ShortArgs& a, long long s, int n) {
+  return (s / a.I * a.N + n) * a.I + s % a.I;
+}
+
+// a unit whose rows are one contiguous span (I = 1, all heads): copied in
+// and out without per-chunk row arithmetic
+__device__ __forceinline__ bool contiguous(const ShortArgs& a, const Unit& U) {
+  return a.I == 1 && U.nh == a.H;
+}
+
+// D floats from 16-byte aligned shared memory
 template <int D>
-__device__ __forceinline__ void short_block(
-    const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-    const bf16* __restrict__ bias_k, const bf16* __restrict__ bias_v,
-    const float* __restrict__ key_valid, const float* __restrict__ cos_t,
-    const float* __restrict__ sin_t, bf16* __restrict__ dqkv, float* __restrict__ part,
-    int N, int I, int H, int C, int HPB, int bx, float* smem) {
-  const int NK = N + 1, hf = head_floats(N, D);
-  const int groups = (H + HPB - 1) / HPB;
-  const long long seq = bx / groups;
-  const int h0 = (int)(bx % groups) * HPB;
-  const long long g = seq / I, i = seq % I;
-  const long long row0 = g * N * I + i;  // row of token n: row0 + n * I
-  const int nh = min(HPB, H - h0);
+__device__ __forceinline__ void load_f4(const float* src, float* v) {
+#pragma unroll
+  for (int d = 0; d < D / 4; ++d) {
+    const float4 x = reinterpret_cast<const float4*>(src)[d];
+    v[4 * d] = x.x; v[4 * d + 1] = x.y; v[4 * d + 2] = x.z; v[4 * d + 3] = x.w;
+  }
+}
 
-  auto Qs = [&](int hl) { return smem + (size_t)hl * hf; };
-  auto dOs = [&](int hl) { return Qs(hl) + N * D; };
-  auto Ks = [&](int hl) { return dOs(hl) + N * D; };
-  auto Vs = [&](int hl) { return Ks(hl) + NK * D; };
-  auto Kb = [&](int hl) { return Vs(hl) + NK * D; };
-  auto Inv = [&](int hl) { return Kb(hl) + NK; };
-  auto Rs = [&](int hl) { return Inv(hl) + N; };
+template <int D>
+__device__ __forceinline__ void store_f4(float* dst, const float* v) {
+#pragma unroll
+  for (int d = 0; d < D / 4; ++d)
+    reinterpret_cast<float4*>(dst)[d] = make_float4(v[4 * d], v[4 * d + 1], v[4 * d + 2], v[4 * d + 3]);
+}
 
-  // ---- stage q, dO (query rows) and k, v (key rows, the bias token at N) ----
-  for (int t = threadIdx.x; t < nh * NK; t += THREADS) {
-    const int hl = t / NK, n = t % NK, h = h0 + hl;
-    float kv[D], vv[D];
-    if (n < N) {
-      const long long row = row0 + (long long)n * I;
-      const bf16* src = qkv + row * 3LL * C + h * D;
-      const bf16* go = dout + row * C + h * D;
-      float qv[D];
+// D floats as bf16 (round to nearest even) into 16-byte stores
+template <int D>
+__device__ __forceinline__ void pack_row(const float* v, bf16* dst) {
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        qv[d] = __bfloat162float(src[d]);
-        kv[d] = __bfloat162float(src[C + d]);
-        vv[d] = __bfloat162float(src[2 * C + d]);
-        dOs(hl)[n * D + d] = __bfloat162float(go[d]);
-      }
-      rope_row<D>(qv, cos_t + n * D, sin_t + n * D);
+  for (int c = 0; c < D / 8; ++c) {
+    uint4 w;
+    uint32_t* wp = reinterpret_cast<uint32_t*>(&w);
 #pragma unroll
-      for (int d = 0; d < D; ++d) Qs(hl)[n * D + d] = qv[d];
-      Kb(hl)[n] = key_valid[row] > 0.f ? 0.f : -1e9f;
-    } else {
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        kv[d] = __bfloat162float(bias_k[h * D + d]);
-        vv[d] = __bfloat162float(bias_v[h * D + d]);
-      }
-      Kb(hl)[n] = 0.f;
+    for (int e = 0; e < 4; ++e) {
+      const __nv_bfloat162 p = __floats2bfloat162_rn(v[8 * c + 2 * e], v[8 * c + 2 * e + 1]);
+      wp[e] = *reinterpret_cast<const uint32_t*>(&p);
     }
-    rope_row<D>(kv, cos_t + n * D, sin_t + n * D);
+    reinterpret_cast<uint4*>(dst)[c] = w;
+  }
+}
+
+// the unit's q|k|v and dO spans and key_valid into a raw buffer: 16-byte
+// cp.async chunks, the threads on consecutive chunks
+template <int D>
+__device__ __forceinline__ void load_unit(const ShortArgs& a, const Unit& U, unsigned char* raw,
+                                          const ShortLayout& lay) {
+  using ropefwd::cp16;
+  bf16* qb = reinterpret_cast<bf16*>(raw);
+  bf16* db = reinterpret_cast<bf16*>(raw + lay.span);
+  float* kv = reinterpret_cast<float*>(raw + lay.span + lay.dspan);
+  for (int e = threadIdx.x; e < U.ns * a.N; e += SHORT_THREADS)
+    ropefwd::cp4(kv + e / a.N * lay.kbs + e % a.N, a.key_valid + token_row(a, U.s0 + e / a.N, e % a.N));
+  if (contiguous(a, U)) {
+    const bf16* src = a.qkv + U.s0 * a.N * 3LL * a.C;
+    const int total = U.ns * a.N * 3 * a.C / 8;
+    for (int e = threadIdx.x; e < total; e += SHORT_THREADS) cp16(qb + e * 8, src + e * 8);
+    const bf16* dsrc = a.dout + U.s0 * a.N * (long long)a.C;
+    for (int e = threadIdx.x; e < total / 3; e += SHORT_THREADS) cp16(db + e * 8, dsrc + e * 8);
+    return;
+  }
+  const int hgd = a.hg * D, segc = U.nh * D / 8, total = U.ns * a.N * 3 * segc;
+  for (int e = threadIdx.x; e < total; e += SHORT_THREADS) {
+    const int c = e % segc, r = e / segc, part = r % 3, tok = r / 3;
+    const long long row = token_row(a, U.s0 + tok / a.N, tok % a.N);
+    cp16(qb + (size_t)(tok * 3 + part) * hgd + c * 8,
+         a.qkv + row * 3LL * a.C + part * a.C + U.h0 * D + c * 8);
+  }
+  for (int e = threadIdx.x; e < total / 3; e += SHORT_THREADS) {
+    const int c = e % segc, tok = e / segc;
+    const long long row = token_row(a, U.s0 + tok / a.N, tok % a.N);
+    cp16(db + (size_t)tok * hgd + c * 8, a.dout + row * a.C + U.h0 * D + c * 8);
+  }
+}
+
+// the bias key of every head, RoPE'd at position N, and the bias value, in
+// f32: the same for every sequence of the call
+template <int D>
+__device__ __forceinline__ void stage_bias(const ShortArgs& a, const ShortLayout& lay,
+                                           unsigned char* sm) {
+  float* Bq = reinterpret_cast<float*>(sm + lay.bias);
+  for (int h = threadIdx.x; h < a.H; h += SHORT_THREADS) {
+    float k[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      Ks(hl)[n * D + d] = kv[d];
-      Vs(hl)[n * D + d] = vv[d];
+      k[d] = __bfloat162float(a.bias_k[h * D + d]);
+      Bq[(a.H + h) * D + d] = __bfloat162float(a.bias_v[h * D + d]);
     }
+    ropefwd::rope_row4<D>(k, a.cos_t + a.N * D, a.sin_t + a.N * D);
+    store_f4<D>(Bq + h * D, k);
+  }
+}
+
+// a unit whose raw buffer has landed (and is visible to every thread):
+// RoPE q and k once; the query side (dq, p and dl of a row); the key side
+// (dk, dv of a key from the p and dl of its column); the gradients out.
+// NKC: N + 1 known at compile time (trunk stage 1 at L = 4: the loops over
+// keys and queries unroll without guards, so the compiler interleaves the
+// keys' dot products), 0: N read from the arguments; the same arithmetic
+template <int D, int NKC>
+__device__ __forceinline__ void unit_body(const ShortArgs& a, const Unit& U, unsigned char* raw,
+                                          const ShortLayout& lay, unsigned char* sm) {
+  const int N = NKC > 0 ? NKC - 1 : a.N, NK = N + 1, hgd = a.hg * D;
+  bf16* qb = reinterpret_cast<bf16*>(raw);
+  const bf16* db = reinterpret_cast<const bf16*>(raw + lay.span);
+  const float* kv = reinterpret_cast<const float*>(raw + lay.span + lay.dspan);
+  float* Qs = reinterpret_cast<float*>(sm + lay.qs);
+  float* Ks = reinterpret_cast<float*>(sm + lay.ks);
+  float* Kb = reinterpret_cast<float*>(sm + lay.kb);
+  float* Pt = reinterpret_cast<float*>(sm + lay.pt);
+  float* Dt = reinterpret_cast<float*>(sm + lay.dt);
+  const float* Bq = reinterpret_cast<const float*>(sm + lay.bias);
+  const int items = U.ns * U.nh * N;
+
+  // a thread per (sequence, head, token): q and k RoPE'd at the token's
+  // position, in f32; the key biases (the tokens of a head on neighbouring
+  // lanes here and below)
+  for (int e = threadIdx.x; e < items; e += SHORT_THREADS) {
+    const int n = e % N, r = e / N, hl = r % U.nh, sl = r / U.nh;
+    const bf16* src = qb + (size_t)(sl * N + n) * 3 * hgd + hl * D;
+    float q[D], k[D];
+    ropefwd::unpack_row<D>(src, q);
+    ropefwd::unpack_row<D>(src + hgd, k);
+    ropefwd::rope_row4<D>(q, a.cos_t + n * D, a.sin_t + n * D);
+    ropefwd::rope_row4<D>(k, a.cos_t + n * D, a.sin_t + n * D);
+    const size_t o = (size_t)(sl * a.hg + hl) * lay.hs + n * D;
+    store_f4<D>(Qs + o, q);
+    store_f4<D>(Ks + o, k);
+    if (hl == 0) Kb[sl * lay.kbs + n] = kv[sl * lay.kbs + n] > 0.f ? 0.f : -1e9f;
   }
   __syncthreads();
 
-  // ---- phase A: one (head, query) row per thread: statistics, then dq ----
-  for (int t = threadIdx.x; t < nh * N; t += THREADS) {
-    const int hl = t / N, n = t % N, h = h0 + hl;
-    const float* q = Qs(hl) + n * D;
-    const float* go = dOs(hl) + n * D;
-    const float *K = Ks(hl), *V = Vs(hl), *kb = Kb(hl);
+  // the query side, a thread per (sequence, head, query n): each key's exp2
+  // and dp formed once and kept in registers (at most 17 keys); dq; the
+  // row's p and dl to shared memory for the key side; dq over its q slice.
+  // rowsum is rounded once (__fmul_rn), as the first version's loop over a
+  // runtime N left it: with N known, dp - rowsum would fuse with its product
+  for (int e = threadIdx.x; e < items; e += SHORT_THREADS) {
+    const int n = e % N, r = e / N, hl = r % U.nh, sl = r / U.nh, h = U.h0 + hl;
+    const size_t ho = (size_t)(sl * a.hg + hl) * lay.hs;
+    const float* K = Ks + ho;
+    const float* kb = Kb + sl * lay.kbs;
+    const bf16* V = qb + (size_t)(sl * N * 3 + 2) * hgd + hl * D;  // token j at V + j * 3 * hgd
+    float q[D], go[D];
+    load_f4<D>(Qs + ho + n * D, q);
+    ropefwd::unpack_row<D>(db + (size_t)(sl * N + n) * hgd + hl * D, go);
+    float ex[SHORT_KEYS], dp[SHORT_KEYS];
     float den = 0.f, sdp = 0.f;
-    for (int j = 0; j < NK; ++j) {
-      const float e = exp2f(fminf(dot<D>(q, K + j * D) + kb[j], 100.f));
-      den += e;
-      sdp += e * dot<D>(go, V + j * D);
+#pragma unroll
+    for (int j = 0; j < SHORT_KEYS; ++j) {
+      if (j <= N) {
+        float kj[D], vj[D];
+        load_f4<D>(j < N ? K + j * D : Bq + h * D, kj);
+        ex[j] = exp2f(fminf(dot<D>(q, kj) + (j < N ? kb[j] : 0.f), 100.f));
+        den += ex[j];
+        if (j < N)
+          ropefwd::unpack_row<D>(V + (size_t)j * 3 * hgd, vj);
+        else
+          load_f4<D>(Bq + (a.H + h) * D, vj);
+        dp[j] = dot<D>(go, vj);
+        sdp += ex[j] * dp[j];
+      }
     }
-    const float inv = 1.f / (den + 1e-30f), rsum = sdp * inv;
-    Inv(hl)[n] = inv;
-    Rs(hl)[n] = rsum;
+    const float inv = 1.f / (den + 1e-30f), rsum = __fmul_rn(sdp, inv);
     float dq[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) dq[d] = 0.f;
-    for (int j = 0; j < NK; ++j) {
-      const float p = exp2f(fminf(dot<D>(q, K + j * D) + kb[j], 100.f)) * inv;
-      const float dl = LN2F * p * (dot<D>(go, V + j * D) - rsum);
+    float* pr = Pt + ((size_t)(sl * a.hg + hl) * N + n) * NK;
+    float* dr = Dt + ((size_t)(sl * a.hg + hl) * N + n) * NK;
 #pragma unroll
-      for (int d = 0; d < D; ++d) dq[d] += dl * K[j * D + d];
+    for (int j = 0; j < SHORT_KEYS; ++j) {
+      if (j <= N) {
+        const float p = ex[j] * inv;
+        const float dl = LN2F * p * (dp[j] - rsum);
+        float kj[D];
+        load_f4<D>(j < N ? K + j * D : Bq + h * D, kj);
+#pragma unroll
+        for (int d = 0; d < D; ++d) dq[d] += dl * kj[d];
+        pr[j] = p;
+        dr[j] = dl;
+      }
     }
-    rope_row_t<D>(dq, cos_t + n * D, sin_t + n * D);
-    bf16* dst = dqkv + (row0 + (long long)n * I) * 3LL * C + h * D;
-#pragma unroll
-    for (int d = 0; d < D; ++d) dst[d] = __float2bfloat16(dq[d]);
+    rope_row_t<D>(dq, a.cos_t + n * D, a.sin_t + n * D);
+    pack_row<D>(dq, qb + (size_t)(sl * N + n) * 3 * hgd + hl * D);
   }
   __syncthreads();
 
-  // ---- phase B: one (head, key) column per thread: dk, dv ----
-  for (int t = threadIdx.x; t < nh * NK; t += THREADS) {
-    const int hl = t / NK, j = t % NK, h = h0 + hl;
-    const float *Q = Qs(hl), *dO = dOs(hl);
-    float k[D], v[D], dk[D], dv[D];
+  // the key side, a thread per (sequence, head, key j <= N): dk and dv over
+  // the queries in order from p and dl; dk, dv over the key's k and v
+  // slices, the bias key's (j = N) to the sequence's f32 partial
+  for (int e = threadIdx.x; e < U.ns * U.nh * NK; e += SHORT_THREADS) {
+    const int j = e % NK, r = e / NK, hl = r % U.nh, sl = r / U.nh, h = U.h0 + hl;
+    const float* Q = Qs + (size_t)(sl * a.hg + hl) * lay.hs;
+    const bf16* dO = db + (size_t)sl * N * hgd + hl * D;
+    const float* pc = Pt + (size_t)(sl * a.hg + hl) * N * NK + j;
+    const float* dc = Dt + (size_t)(sl * a.hg + hl) * N * NK + j;
+    float dk[D], dv[D];
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      k[d] = Ks(hl)[j * D + d];
-      v[d] = Vs(hl)[j * D + d];
-      dk[d] = 0.f;
-      dv[d] = 0.f;
-    }
-    const float kbj = Kb(hl)[j];
+    for (int d = 0; d < D; ++d) dk[d] = dv[d] = 0.f;
     for (int n = 0; n < N; ++n) {
-      const float p = exp2f(fminf(dot<D>(Q + n * D, k) + kbj, 100.f)) * Inv(hl)[n];
-      const float dl = LN2F * p * (dot<D>(dO + n * D, v) - Rs(hl)[n]);
+      const float p = pc[n * NK], dl = dc[n * NK];
+      float qn[D], go[D];
+      load_f4<D>(Q + n * D, qn);
+      ropefwd::unpack_row<D>(dO + (size_t)n * hgd, go);
 #pragma unroll
       for (int d = 0; d < D; ++d) {
-        dk[d] += dl * Q[n * D + d];
-        dv[d] += p * dO[n * D + d];
+        dk[d] += dl * qn[d];
+        dv[d] += p * go[d];
       }
     }
-    rope_row_t<D>(dk, cos_t + j * D, sin_t + j * D);
+    rope_row_t<D>(dk, a.cos_t + j * D, a.sin_t + j * D);
     if (j < N) {
-      bf16* dst = dqkv + (row0 + (long long)j * I) * 3LL * C + h * D;
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        dst[C + d] = __float2bfloat16(dk[d]);
-        dst[2 * C + d] = __float2bfloat16(dv[d]);
-      }
-    } else {
-      float* pb = part + seq * 2LL * C + h * D;
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        pb[d] = dk[d];
-        pb[C + d] = dv[d];
-      }
+      bf16* dst = qb + (size_t)(sl * N + j) * 3 * hgd + hl * D;
+      pack_row<D>(dk, dst + hgd);
+      pack_row<D>(dv, dst + 2 * hgd);
+    } else {  // 16-byte stores: scalar ones held the bias key's warps 2D stores long
+      float* pb = a.part + (U.s0 + sl) * 2LL * a.C + h * D;
+      store_f4<D>(pb, dk);
+      store_f4<D>(pb + a.C, dv);
     }
   }
+  __syncthreads();
+
+  // dqkv: 16-byte stores, the threads on consecutive chunks
+  if (contiguous(a, U)) {
+    uint4* dst = reinterpret_cast<uint4*>(a.dqkv + U.s0 * N * 3LL * a.C);
+    const uint4* src = reinterpret_cast<const uint4*>(qb);
+    for (int e = threadIdx.x; e < U.ns * N * 3 * a.C / 8; e += SHORT_THREADS) dst[e] = src[e];
+  } else {
+    const int segc = U.nh * D / 8;
+    for (int e = threadIdx.x; e < U.ns * N * 3 * segc; e += SHORT_THREADS) {
+      const int c = e % segc, r = e / segc, part = r % 3, tok = r / 3;
+      const long long row = token_row(a, U.s0 + tok / N, tok % N);
+      *reinterpret_cast<uint4*>(a.dqkv + row * 3LL * a.C + part * a.C + U.h0 * D + c * 8) =
+          *reinterpret_cast<const uint4*>(qb + (size_t)(tok * 3 + part) * hgd + c * 8);
+    }
+  }
+}
+
+// the standalone kernel's walk: units u0, u0 + stride, ... with the next
+// unit's spans in flight (the other raw buffer) while this one is computed
+template <int D, int NKC>
+__device__ __forceinline__ void short_stream(const ShortArgs& a, long long u, long long stride,
+                                             unsigned char* sm) {
+  const ShortLayout lay(a.spb, a.hg, a.N, D, 2, a.H);
+  if (u >= a.units) return;
+  stage_bias<D>(a, lay, sm);
+  load_unit<D>(a, unit_of(a, u), sm, lay);
+  ropefwd::cp_commit();
+  for (int k = 0; u < a.units; u += stride, k ^= 1) {
+    ropefwd::cp_wait<0>();
+    __syncthreads();  // unit u has landed; every thread is done with the last one
+    if (u + stride < a.units) load_unit<D>(a, unit_of(a, u + stride), sm + (k ^ 1) * lay.raw, lay);
+    ropefwd::cp_commit();
+    unit_body<D, NKC>(a, unit_of(a, u), sm + k * lay.raw, lay, sm);
+  }
+}
+
+// one unit, one raw buffer: a virtual block of the merged layer backward
+template <int D, int NKC>
+__device__ __forceinline__ void short_unit(const ShortArgs& a, long long u, unsigned char* sm) {
+  const ShortLayout lay(a.spb, a.hg, a.N, D, 1, a.H);
+  const Unit U = unit_of(a, u);
+  load_unit<D>(a, U, sm, lay);
+  ropefwd::cp_commit();
+  stage_bias<D>(a, lay, sm);
+  ropefwd::cp_wait<0>();
+  __syncthreads();
+  unit_body<D, NKC>(a, U, sm, lay, sm);
 }
 
 // ---- long sequences (16 < N <= MAX_N): a block of 4 warps takes one
@@ -519,33 +734,33 @@ __device__ __forceinline__ void long_block(
   }
 }
 
-template <int D>
-__device__ __forceinline__ void block(
-    const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-    const bf16* __restrict__ bias_k, const bf16* __restrict__ bias_v,
-    const float* __restrict__ key_valid, const float* __restrict__ cos_t,
-    const float* __restrict__ sin_t, bf16* __restrict__ dqkv, float* __restrict__ part,
-    int N, int I, int H, int C, int HPB, int bx, float* smem) {
-  if (N <= 16)
-    short_block<D>(qkv, dout, bias_k, bias_v, key_valid, cos_t, sin_t, dqkv, part, N, I, H, C, HPB,
-                   bx, smem);
-  else
-    long_block<D>(qkv, dout, bias_k, bias_v, key_valid, cos_t, sin_t, dqkv, part, N, I, H, C, bx,
-                  smem);
-}
+// the launch shape of a call: short (N <= 16: units of spb sequences x hg
+// heads, nbuf raw buffers: 2 streaming, 1 in the merged layer backward;
+// ops/rope_attention_bwd.py::short_plan) or long (a block per (sequence,
+// head)); blocks (short: units) and dynamic shared memory of a block;
+// blocks 0 for a plan the short body does not take
+struct Shape {
+  bool short_seq;
+  unsigned blocks;
+  size_t smem;
+  int spb, hg;
+};
 
-// heads per block (N <= 16: up to 128 / (N + 1), so the threads are not
-// idle), blocks and dynamic shared memory of a call over S = G * I sequences
-__host__ __device__ inline int heads_per_block(int N, int H) {
-  return N <= 16 ? max(1, min(H, THREADS / (N + 1))) : 1;
-}
-__host__ __device__ inline size_t smem_bytes(int N, int H, int D) {
-  return N <= 16 ? (size_t)heads_per_block(N, H) * head_floats(N, D) * sizeof(float)
-                 : LongLayout(N, D).total;
-}
-__host__ __device__ inline unsigned blocks(long long S, int N, int H) {
-  const int HPB = heads_per_block(N, H);
-  return (unsigned)(S * ((H + HPB - 1) / HPB));
+__host__ __device__ inline Shape shape(long long S, int N, int H, int D, int spb, int hg, int nbuf) {
+  Shape s;
+  s.short_seq = N <= 16;
+  s.spb = spb;
+  s.hg = hg;
+  if (s.short_seq) {
+    const bool ok = N >= 1 && spb >= 1 && hg >= 1 && hg <= H && (nbuf == 1 || nbuf == 2);
+    s.smem = ok ? ShortLayout(spb, hg, N, D, nbuf, H).total : 0;
+    const long long units = ok ? (S + spb - 1) / spb * ((H + hg - 1) / hg) : 0;
+    s.blocks = units > 0x7fffffffLL ? 0u : (unsigned)units;
+  } else {
+    s.smem = LongLayout(N, D).total;
+    s.blocks = N <= MAX_N && S * H <= 0x7fffffffLL ? (unsigned)(S * H) : 0u;
+  }
+  return s;
 }
 
 }  // namespace ropebwd

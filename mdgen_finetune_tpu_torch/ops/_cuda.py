@@ -98,6 +98,15 @@ def library(name: str, argtypes) -> ctypes.CDLL:
     return _LIBS[name]
 
 
+def built(name: str) -> ctypes.CDLL:
+    """The library built from this checkout's ``csrc/<name>.cu``, whatever
+    library a caller has put in its place in ``library``'s cache (a
+    measurement that runs an earlier build through the same wrapper): the
+    wrappers query their kernels' resources here."""
+    build_all((name,))
+    return ctypes.CDLL(str(_target(name)))
+
+
 def _variant_target(name: str, macro: str) -> Path:
     return _target(name).with_name(_target(name).name.replace(f"lib{name}-",
                                                               f"lib{name}_{macro.lower()}-"))
@@ -139,7 +148,10 @@ def check(code: int, name: str) -> None:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream of ``t``'s card, as the pointer the entry
+    points take (read without making a Stream object: a few microseconds
+    less of every launch's host time)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def aligned(t: torch.Tensor) -> torch.Tensor:

@@ -39,10 +39,11 @@ from .linear_bwd import scratch_floats as wgrad_scratch
 from .modln_bwd import _splits as modln_splits
 from .rope_attention import SHORT_N, SMEM_BYTES, short_plan
 from .rope_attention_bwd import MAX_N
+from .rope_attention_bwd import short_plan as short_bwd_plan
 from .time_attention import MAX_L, MAX_T
 
 _ARGTYPES = [_cuda.P, _cuda.P, _cuda.P, _cuda.P]
-N_PTR, N_INT = 75, 44  # csrc/fused_layer_bwd.cu: enum Ptr, enum Int
+N_PTR, N_INT = 75, 48  # csrc/fused_layer_bwd.cu: enum Ptr, enum Int
 _KEYS = ("wqkv_l", "bqkv_l", "wout_l", "bout_l", "wqkv_t", "bqkv_t", "wout_t", "bout_t",
          "w1", "b1", "w2", "b2", "bkl", "bvl", "bkt", "bvt")
 
@@ -138,7 +139,7 @@ def _plans(x_in, X1, X2, mod, w, scratch, B, T, L, C, num_heads):
     tiling on one warpgroup), four each: fc1, fc2, qkv_t, out_t, qkv_l,
     out_l; then the short rope_attention plans (sequences and heads per
     unit) of the frame (B, T, L) and the residue (B * T, L, 1) stage, where
-    the stage is short."""
+    the stage is short; then rope_attention_bwd's the same way."""
     ints = []
     ge, act, y3, yt, yl = scratch[:5]
     qkv_t, qkv_l, att_t, att_l = scratch[9:13]
@@ -150,9 +151,10 @@ def _plans(x_in, X1, X2, mod, w, scratch, B, T, L, C, num_heads):
                           (att_l, "wout_l", "bout_l", dict(out=yl))):
         p = adaln_plan(x, w[wk], w[bk], merged=True, **kw)
         ints += [p.route, p.per, p.splits, p.stages]
-    for G, N, I in ((B, T, L), (B * T, L, 1)):
-        sp = short_plan(G, N, I, num_heads, C // num_heads, merged=True) if N <= SHORT_N else None
-        ints += [sp.spb, sp.hg] if sp else [0, 0]
+    for plan in (short_plan, short_bwd_plan):
+        for G, N, I in ((B, T, L), (B * T, L, 1)):
+            sp = plan(G, N, I, num_heads, C // num_heads, merged=True) if N <= SHORT_N else None
+            ints += [sp.spb, sp.hg] if sp else [0, 0]
     return ints
 
 
@@ -200,9 +202,9 @@ def launch_slots(x_in, X1, X2, dout, mod, w, mask, num_heads: int, dmod=None, cl
     ptrs += [dx, dmod] + [t[grads[k]] for k in _KEYS[:12]] + [t[dbias[0]], t[dbias[1]]]
     ptrs += scratch + [clock]
     ints = [B, T, L, C, num_heads, nb, mod.stride(0), dmod.stride(0), *spl, splm, SMEM_BYTES]
-    # the six recomputed products' plans and the short rope_attention
-    # plans: they follow from the shapes and from which operands start on
-    # 16 bytes, so they are kept by those
+    # the six recomputed products' plans and the short rope_attention and
+    # rope_attention_bwd plans: they follow from the shapes and from which
+    # operands start on 16 bytes, so they are kept by those
     key = (str(x_in.device), B, T, L, C, num_heads, nb, mod.stride(0),
            tuple(v.data_ptr() % 16 == 0 for v in (x_in, X1, X2, mod, *w.values())))
     if key not in _PLANS:

@@ -2,9 +2,13 @@
 scalar/point projections to the output features.
 
 Kernel: ``csrc/ipa_attention.cu``; it replaces the IPA part of the JAX
-package's ``ops/ipa_encoder.py::_encoder_call`` kernel. Two forms: at
-L <= ``RESIDENT_MAX_L`` one block per (element, head) holds the L x L
-logits in shared memory (the 4AA peptides); above it one block per
+package's ``ops/ipa_encoder.py::_encoder_call`` kernel. Three forms: at
+L <= ``SHORT_L`` and the model's widths (``short_route``: the 4AA peptides)
+a persistent grid streams units of whole elements (``ipa_plan``: SPB
+elements x all H heads), the next unit's rows in flight while a thread per
+(element, query, head) attends in f32; at other widths and up to
+``RESIDENT_MAX_L`` one block per (element, head) holds the L x L
+logits in shared memory; above it one block per
 (element, head, 64-query tile) streams the keys through shared memory with
 a running-max softmax, so no buffer grows with L (ATLAS, L = 256). The
 tiled form keeps a query's state in registers at the model's widths
@@ -23,19 +27,26 @@ scalars | x | y | z | norms (reference src/mdgen/model/ipa.py:250-253).
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 
 import torch
 
 from . import _cuda
+from ._cuda import SMS
 from .rope_attention import SMEM_BYTES
 
 _INF = 1e5
 _ARGTYPES = [_cuda.P, _cuda.I64, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.I64,
              _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32,
-             _cuda.P]
+             _cuda.P, _cuda.I32, _cuda.I32]
+SHORT_L = 16  # the streaming form takes L <= 16 ...
 RESIDENT_MAX_L = 64  # the resident form up to here, the key-tiled form above
-REGISTER_WIDTHS = (32, 8, 8)  # (Ch, Pq, Pv) the tiled form keeps in registers
+REGISTER_WIDTHS = (32, 8, 8)  # (Ch, Pq, Pv) the tiled and streaming forms keep in registers
+SHORT_THREADS = 256  # csrc/ipa_attention.cu: the streaming form's block
+QUERY_THREADS = 4    # ... of which four threads per (element, query, head)
+SHORT_BUDGET = 115_712  # bytes of a streaming block: two resident per SM (233,472 / 2 less 1 KB)
 
 
 def resident_bytes(L: int, Ch: int, Pq: int, Pv: int) -> int:
@@ -50,6 +61,56 @@ def tiled_bytes(Ch: int, Pq: int, Pv: int) -> int:
     64-key tile, the 64 x 65 logits and 64 queries' state, f32."""
     keys = 64 * (2 * Ch + 3 * Pq + 3 * Pv + 1)
     return 4 * (keys + 64 * 65 + 64 * (2 * Ch + 3 * Pq + 3 * Pv))
+
+
+def short_route(L: int, H: int, Ch: int, Pq: int, Pv: int) -> bool:
+    """Whether a call at (L, H, Ch, Pq, Pv) takes the streaming form: L <=
+    ``SHORT_L`` at ``REGISTER_WIDTHS`` with H a multiple of 4 (a proj row is
+    then a whole number of 128-byte chunks), one element's unit fitting a
+    block's shared memory."""
+    return (1 <= L <= SHORT_L and (Ch, Pq, Pv) == REGISTER_WIDTHS and H > 0 and H % 4 == 0
+            and ipa_bytes(1, L, H) <= SMEM_BYTES)
+
+
+def ipa_bytes(spb: int, L: int, H: int) -> int:
+    """Shared memory of a streaming unit of ``spb`` elements at the model's
+    widths (csrc/ipa_attention.cu ``ShortLayout``): two raw buffers, each
+    the unit's proj rows with 4 pad floats after every 32 and its rot,
+    trans and mask floats (each span rounded up to 16 bytes); the unit's
+    bf16 features."""
+    rows, W, F = spb * L, proj_width(H, *REGISTER_WIDTHS), feat_width(H, 32, 8)
+
+    def a16(b):
+        return -(-b // 16) * 16
+
+    raw = rows * (W + W // 8) * 4 + a16(rows * 36) + a16(rows * 12) + a16(rows * 4)
+    return 2 * raw + rows * F * 2
+
+
+@dataclasses.dataclass(frozen=True)
+class IpaPlan:
+    spb: int    # elements per unit
+    smem: int   # bytes of shared memory per block
+    units: int  # units of the call
+
+
+@functools.lru_cache(maxsize=256)
+def ipa_plan(B: int, L: int, H: int, Ch: int, Pq: int, Pv: int) -> IpaPlan:
+    """The streaming form's unit for a call over B elements of L residues:
+    about ``QUERY_THREADS`` threads per query (SPB = ``SHORT_THREADS`` //
+    (4 L H)), no more
+    elements than leave 3 units per SM (of ``SMS``), within
+    ``SHORT_BUDGET``. Raises ``ValueError`` where ``short_route`` is
+    false."""
+    if not short_route(L, H, Ch, Pq, Pv):
+        raise ValueError(f"ipa_plan: (L, H, Ch, Pq, Pv) = {(L, H, Ch, Pq, Pv)} is not taken by "
+                         f"the streaming form (1 <= L <= {SHORT_L}, widths {REGISTER_WIDTHS}, "
+                         "H a multiple of 4)")
+    spb = max(1, SHORT_THREADS // (QUERY_THREADS * L * H))
+    spb = min(spb, max(1, B // (3 * SMS)))
+    while spb > 1 and ipa_bytes(spb, L, H) > SHORT_BUDGET:
+        spb -= 1
+    return IpaPlan(spb, ipa_bytes(spb, L, H), -(-B // spb))
 
 
 def proj_width(H: int, Ch: int, Pq: int, Pv: int) -> int:
@@ -120,32 +181,100 @@ def ipa_attention(proj, rot, trans, mask, head_weights, *, H: int, Ch: int, Pq: 
         return ipa_attention_plain(proj, rot, trans, mask, head_weights, H=H, Ch=Ch,
                                    Pq=Pq, Pv=Pv, out_dtype=out_dtype)
     B, L, W = proj.shape
-    if W != proj_width(H, Ch, Pq, Pv) or proj.dtype != torch.float32 or not proj.is_contiguous():
+    f32 = torch.float32
+    if W != proj_width(H, Ch, Pq, Pv) or proj.dtype != f32 or not proj.is_contiguous():
         raise ValueError("ipa_attention: proj must be a contiguous f32 (B, L, proj_width) tensor")
-    for name, t, shape in (("rot", rot, (B, L, 3, 3)), ("trans", trans, (B, L, 3)),
-                           ("mask", mask, (B, L)), ("head_weights", head_weights, (H,))):
-        if t.dtype != torch.float32 or not t.is_contiguous() or tuple(t.shape) != shape:
-            raise ValueError(f"ipa_attention: {name} must be a contiguous f32 {shape} tensor")
+    if not (rot.dtype == trans.dtype == mask.dtype == head_weights.dtype == f32
+            and rot.shape == (B, L, 3, 3) and trans.shape == (B, L, 3) and mask.shape == (B, L)
+            and head_weights.shape == (H,) and rot.is_contiguous() and trans.is_contiguous()
+            and mask.is_contiguous() and head_weights.is_contiguous()):
+        for name, t, shape in (("rot", rot, (B, L, 3, 3)), ("trans", trans, (B, L, 3)),
+                               ("mask", mask, (B, L)), ("head_weights", head_weights, (H,))):
+            if t.dtype != f32 or not t.is_contiguous() or tuple(t.shape) != shape:
+                raise ValueError(f"ipa_attention: {name} must be a contiguous f32 {shape} tensor")
     if out_dtype not in (None, torch.bfloat16):
         raise ValueError("ipa_attention: the kernel writes bf16 features")
-    tiled = L > RESIDENT_MAX_L
-    if tiled and (Ch, Pq, Pv) != REGISTER_WIDTHS and tiled_bytes(Ch, Pq, Pv) > SMEM_BYTES:
-        raise ValueError(f"ipa_attention: the key-tiled kernel needs "
-                         f"{tiled_bytes(Ch, Pq, Pv):,} bytes of shared memory at (Ch, Pq, Pv) = "
-                         f"{(Ch, Pq, Pv)}, more than the {SMEM_BYTES:,} a block may use")
-    if not tiled and resident_bytes(L, Ch, Pq, Pv) > SMEM_BYTES:
-        raise ValueError(f"ipa_attention: the resident kernel needs "
-                         f"{resident_bytes(L, Ch, Pq, Pv):,} bytes of shared memory at L = {L}, "
-                         f"more than the {SMEM_BYTES:,} a block may use")
+    form = _form(B, L, H, Ch, Pq, Pv)
     F = feat_width(H, Ch, Pv)
     out = torch.empty(B, L, F, dtype=torch.bfloat16, device=proj.device)
     lib = _cuda.library("ipa_attention", _ARGTYPES)
+    spb = grid = 0
+    if form == 0:
+        p = ipa_plan(B, L, H, Ch, Pq, Pv)
+        spb = p.spb
+        # the persistent grid: the resident blocks, at most a unit each
+        grid = min(p.units, _slots(proj.device.index, L, H, spb))
     code = lib.ipa_attention(proj.data_ptr(), W, rot.data_ptr(), trans.data_ptr(),
                              mask.data_ptr(), head_weights.data_ptr(), out.data_ptr(), F,
-                             B, L, H, Ch, Pq, Pv, int(tiled), _cuda.stream_ptr(proj))
+                             B, L, H, Ch, Pq, Pv, int(form == 2), _cuda.stream_ptr(proj), spb, grid)
     _cuda.check(code, "ipa_attention")
     ipa_attention.launches += 1
+    ipa_attention.forms[form] += 1
     return out
 
 
 ipa_attention.launches = 0
+ipa_attention.forms = [0, 0, 0]  # launches by form: streaming, resident, key-tiled
+
+
+@functools.lru_cache(maxsize=256)
+def _form(B: int, L: int, H: int, Ch: int, Pq: int, Pv: int) -> int:
+    """The form a call over B elements at these sizes takes: 0 streaming
+    (``short_route``; it measured faster than the resident form at every B
+    from 100 elements up, PERF.md), 1 resident, 2 key-tiled; raises ``ValueError`` where the one it would take does not
+    fit a block's shared memory."""
+    if short_route(L, H, Ch, Pq, Pv):
+        return 0
+    if L > RESIDENT_MAX_L:
+        if (Ch, Pq, Pv) != REGISTER_WIDTHS and tiled_bytes(Ch, Pq, Pv) > SMEM_BYTES:
+            raise ValueError(f"ipa_attention: the key-tiled kernel needs "
+                             f"{tiled_bytes(Ch, Pq, Pv):,} bytes of shared memory at (Ch, Pq, Pv) "
+                             f"= {(Ch, Pq, Pv)}, more than the {SMEM_BYTES:,} a block may use")
+        return 2
+    if resident_bytes(L, Ch, Pq, Pv) > SMEM_BYTES:
+        raise ValueError(f"ipa_attention: the resident kernel needs "
+                         f"{resident_bytes(L, Ch, Pq, Pv):,} bytes of shared memory at L = {L}, "
+                         f"more than the {SMEM_BYTES:,} a block may use")
+    return 1
+
+
+def _info(L: int, H: int, spb: int):
+    """The C query behind ``resources`` (at the model's widths; the
+    streaming form at plan spb > 0)."""
+    fn = _cuda.built("ipa_attention").ipa_attention_resources
+    fn.argtypes = [_cuda.I32, _cuda.I32, _cuda.I32, _cuda.P]
+    info = (_cuda.I64 * 4)()
+    _cuda.check(fn(L, H, spb, info), "ipa_attention_resources")
+    return list(info)
+
+
+@functools.lru_cache(maxsize=64)
+def _slots(device: int, L: int, H: int, spb: int) -> int:
+    """Resident streaming blocks at plan spb on card ``device``: its SMs x
+    blocks per SM of this checkout's build (queried once per plan)."""
+    with torch.cuda.device(device):
+        per_sm = _info(L, H, spb)[3]
+        if per_sm <= 0:
+            raise RuntimeError(f"ipa_attention: the streaming plan spb = {spb} fits no block "
+                               "on an SM")
+        return torch.cuda.get_device_properties(device).multi_processor_count * per_sm
+
+
+def resources(B: int, L: int, H: int = 4) -> dict:
+    """The launch resources of the kernel that a call over B elements of L
+    residues runs at the model's widths, the streaming or the key-tiled
+    form (on the card): registers and local (spill) bytes per thread,
+    dynamic shared memory per block, resident blocks per SM, the form; the
+    streaming form's plan and grid."""
+    form = _form(B, L, H, *REGISTER_WIDTHS)
+    if form == 1:
+        raise ValueError("ipa_attention.resources: the resident form's are not queried")
+    p = ipa_plan(B, L, H, *REGISTER_WIDTHS) if form == 0 else None
+    info = _info(L, H, p.spb if p else 0)
+    out = dict(form=("streaming", "resident", "key-tiled")[form], registers=info[0],
+               local_bytes=info[1], smem_bytes=info[2], blocks_per_sm=info[3])
+    if p is not None:
+        out["plan"] = dataclasses.asdict(p)
+        out["grid"] = min(p.units, torch.cuda.get_device_properties(0).multi_processor_count
+                          * info[3])
+    return out

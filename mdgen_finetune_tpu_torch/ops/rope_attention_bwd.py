@@ -4,7 +4,11 @@
 Kernel: ``csrc/rope_attention_bwd.cu`` (it replaces the attention adjoints
 inside the JAX package's ``ops/fused_layer_bwd.py`` stage kernels ``_k2``
 (frame attention, :258-309) and ``_k1`` (residue attention, :420-458)).
-Short sequences (N <= 16) give a thread one (head, row) in f32; longer ones
+Short sequences (N <= 16) stream units of whole sequences (``short_plan``:
+SPB sequences x HG heads) through a persistent grid, the next unit's q|k|v
+and dO in flight while a thread per (sequence, head, query) forms each
+exp2 once for dq and a thread per (sequence, head, key) takes dk and dv
+from the row's p and dl, in f32; longer ones
 (up to ``MAX_N``) give a block of 4 warps one (sequence, head) and run all
 six products on the tensor cores (``mma.sync``): RoPE'd q and k in fp16
 (scaled by powers of two into its range), p, v and dO in bf16, ds in fp16
@@ -28,16 +32,64 @@ f32 each.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
 from ..models.attention_core import LN2, NEG_INF
 from ..models.rope import rope_tables, rotate_half
 from . import _cuda
+from ._cuda import SMS
+from .rope_attention import SHORT_N, ShortPlan
 
 MAX_N = 128  # a head's q, dO, k and v stay in shared memory, a row of p in registers
 _ARGTYPES = [_cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P,
              _cuda.P, _cuda.P, _cuda.P, _cuda.I32, _cuda.I32, _cuda.I32, _cuda.I32,
-             _cuda.I32, _cuda.P]
+             _cuda.I32, _cuda.P, _cuda.I32, _cuda.I32, _cuda.I32]
+SHORT_THREADS = 128    # csrc/rope_attention_bwd.cuh: a thread per (sequence, head, query)
+SHORT_BUDGET = 115_712  # bytes of a short block: two resident per SM (233,472 / 2 less 1 KB)
+
+
+def short_bytes(spb: int, hg: int, N: int, D: int, nbuf: int, H: int) -> int:
+    """Shared memory of a short backward unit (csrc/rope_attention_bwd.cuh
+    ``ShortLayout``): ``nbuf`` raw buffers, each the bf16 q|k|v and dO of SPB
+    sequences x HG heads and their tokens' key_valid (N rounded up to 4
+    floats per sequence); q and k RoPE'd in f32 at a head stride of N * D + 4
+    floats; the key biases; p and dl of every (query, key), f32, each
+    rounded up to 16 bytes; the bias key and value of all H heads in f32."""
+    kbs = (N + 3) // 4 * 4
+    raw = spb * N * 4 * hg * D * 2 + spb * kbs * 4
+    tile = -(-spb * hg * N * (N + 1) * 4 // 16) * 16
+    return (nbuf * raw + 2 * spb * hg * (N * D + 4) * 4 + spb * kbs * 4 + 2 * tile
+            + 2 * H * D * 4)
+
+
+@functools.lru_cache(maxsize=256)
+def short_plan(G: int, N: int, I: int, H: int, D: int, merged: bool = False) -> ShortPlan:
+    """The short backward's unit (N <= 16) for a call over (G, N, I) with H
+    heads of D: all H heads of a sequence unless its unit would pass
+    ``SHORT_BUDGET`` (then the fewest even head groups that fit); about
+    ``SHORT_THREADS`` keys per unit (SPB = 128 // (HG (N + 1)): the key
+    side, a thread per key with the bias key, in one pass), no more
+    sequences than leave 3 units per SM (of ``SMS``), and within the
+    budget. ``merged``: one raw buffer (the merged layer backward's virtual
+    blocks). The bits do not depend on the plan: each output's sums run in
+    the same order whatever the unit."""
+    if not 1 <= N <= SHORT_N:
+        raise ValueError(f"short_plan: N = {N} is not a short sequence (1 <= N <= {SHORT_N})")
+    nbuf = 1 if merged else 2
+    S = G * I
+    groups = 1
+    while groups < H and short_bytes(1, -(-H // groups), N, D, nbuf, H) > SHORT_BUDGET:
+        groups += 1
+    hg = -(-H // groups)
+    groups = -(-H // hg)
+    spb = max(1, SHORT_THREADS // (hg * (N + 1)))
+    spb = min(spb, max(1, S * groups // (3 * SMS)))
+    while spb > 1 and short_bytes(spb, hg, N, D, nbuf, H) > SHORT_BUDGET:
+        spb -= 1
+    return ShortPlan(spb, hg, nbuf, short_bytes(spb, hg, N, D, nbuf, H), -(-S // spb) * groups)
 
 
 def _rotate_half_t(g: torch.Tensor) -> torch.Tensor:
@@ -114,7 +166,7 @@ def rope_attention_bwd(qkv, dout, bias_k, bias_v, key_valid, *, num_heads: int):
     D = C // num_heads
     if qkv.dtype != torch.bfloat16 or not qkv.is_contiguous():
         raise ValueError("rope_attention_bwd: qkv must be a contiguous bf16 (G, N, I, 3C) tensor")
-    if dout.dtype != torch.bfloat16 or tuple(dout.shape) != (G, N, I, C) or not dout.is_contiguous():
+    if dout.dtype != torch.bfloat16 or dout.shape != (G, N, I, C) or not dout.is_contiguous():
         raise ValueError("rope_attention_bwd: dout must be a contiguous bf16 (G, N, I, C) tensor")
     if D not in (16, 24, 32, 64) or C % num_heads:
         raise ValueError(f"rope_attention_bwd: head dim {C}/{num_heads} is not supported")
@@ -125,25 +177,28 @@ def rope_attention_bwd(qkv, dout, bias_k, bias_v, key_valid, *, num_heads: int):
     if (bias_k.dtype != torch.bfloat16 or bias_v.dtype != torch.bfloat16
             or not bias_k.is_contiguous() or not bias_v.is_contiguous()):
         raise ValueError("rope_attention_bwd: bias_k / bias_v must be contiguous bf16 (C,)")
-    if key_valid.dtype != torch.float32 or tuple(key_valid.shape) != (G, N, I) \
+    if key_valid.dtype != torch.float32 or key_valid.shape != (G, N, I) \
             or not key_valid.is_contiguous():
         raise ValueError("rope_attention_bwd: key_valid must be a contiguous f32 (G, N, I) tensor")
-    if N > 16 and (qkv.data_ptr() % 16 or dout.data_ptr() % 16):
+    if qkv.data_ptr() % 16 or dout.data_ptr() % 16:
         raise ValueError("rope_attention_bwd: qkv and dout must start on a 16-byte boundary "
-                         "(the long kernel reads head rows as 16-byte vectors)")
+                         "(the kernels read head rows as 16-byte vectors)")
     cos, sin = rope_tables(N + 1, D, device=qkv.device)
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty(2, C, dtype=torch.float32, device=qkv.device)
     scratch = torch.empty(G * I * 2 * C, dtype=torch.float32, device=qkv.device)
     lib = _cuda.library("rope_attention_bwd", _ARGTYPES)
+    p = short_plan(G, N, I, num_heads, D) if N <= SHORT_N else None
+    # the short kernel's persistent grid: its resident blocks, at most a unit each
+    grid = min(p.units, _slots(qkv.device.index, N, num_heads, C, p.spb, p.hg)) if p else 0
     code = lib.rope_attention_bwd(qkv.data_ptr(), dout.data_ptr(), bias_k.data_ptr(),
                                   bias_v.data_ptr(), key_valid.data_ptr(), cos.data_ptr(),
                                   sin.data_ptr(), dqkv.data_ptr(), dbias.data_ptr(),
                                   scratch.data_ptr(), G, N, I, num_heads, C,
-                                  _cuda.stream_ptr(qkv))
+                                  _cuda.stream_ptr(qkv), p.spb if p else 0, p.hg if p else 0, grid)
     _cuda.check(code, "rope_attention_bwd")
     rope_attention_bwd.launches += 1
-    rope_attention_bwd.bodies[int(N > 16)] += 1
+    rope_attention_bwd.bodies[int(N > SHORT_N)] += 1
     return dqkv, dbias[0], dbias[1]
 
 
@@ -151,13 +206,35 @@ rope_attention_bwd.launches = 0
 rope_attention_bwd.bodies = [0, 0]  # launches by body: short (N <= 16), long
 
 
-def resources(N: int, num_heads: int, C: int) -> dict:
-    """The launch resources of the kernel that a call at sequence length N
-    runs (on the card): registers and local (spill) bytes per thread,
-    dynamic shared memory per block, resident blocks per SM."""
-    lib = _cuda.library("rope_attention_bwd", _ARGTYPES)
-    fn = lib.rope_attention_bwd_resources
-    fn.argtypes = [_cuda.I32, _cuda.I32, _cuda.I32, _cuda.P]
+def _info(N: int, H: int, C: int, spb: int, hg: int):
+    """The C query behind ``resources`` (the short kernel at plan (spb, hg))."""
+    fn = _cuda.built("rope_attention_bwd").rope_attention_bwd_resources
+    fn.argtypes = [_cuda.I32, _cuda.I32, _cuda.I32, _cuda.P, _cuda.I32, _cuda.I32]
     info = (_cuda.I64 * 4)()
-    _cuda.check(fn(N, num_heads, C, info), "rope_attention_bwd_resources")
-    return dict(registers=info[0], local_bytes=info[1], smem_bytes=info[2], blocks_per_sm=info[3])
+    _cuda.check(fn(N, H, C, info, spb, hg), "rope_attention_bwd_resources")
+    return list(info)
+
+
+@functools.lru_cache(maxsize=64)
+def _slots(device: int, N: int, H: int, C: int, spb: int, hg: int) -> int:
+    """Resident short blocks at plan (spb, hg) on card ``device``: its SMs x
+    blocks per SM of this checkout's build (queried once per plan)."""
+    with torch.cuda.device(device):
+        per_sm = _info(N, H, C, spb, hg)[3]
+        if per_sm <= 0:
+            raise RuntimeError(f"rope_attention_bwd: the short plan {(spb, hg)} fits no block "
+                               "on an SM")
+        return torch.cuda.get_device_properties(device).multi_processor_count * per_sm
+
+
+def resources(N: int, num_heads: int, C: int, G: int = 1, I: int = 1) -> dict:
+    """The launch resources of the kernel that a call over (G, N, I) runs
+    (on the card): registers and local (spill) bytes per thread, dynamic
+    shared memory per block, resident blocks per SM; at N <= 16 also the
+    short body's plan (G and I matter only there)."""
+    p = short_plan(G, N, I, num_heads, C // num_heads) if N <= SHORT_N else None
+    info = _info(N, num_heads, C, p.spb if p else 0, p.hg if p else 0)
+    out = dict(registers=info[0], local_bytes=info[1], smem_bytes=info[2], blocks_per_sm=info[3])
+    if p is not None:
+        out["plan"] = dataclasses.asdict(p)
+    return out

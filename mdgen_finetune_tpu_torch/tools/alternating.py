@@ -21,7 +21,8 @@ JSON line:
   beside it ``<cell>.peak_memory_gb`` (the card's peak allocation).
 
 Prints the card's name and power limit, one JSON line per run, then one
-with each cell's runs and medians for both trees and the change in percent.
+with each cell's runs and medians for both trees, the change in percent
+and the two-sided Mann-Whitney p of the two sets of runs.
 """
 from __future__ import annotations
 
@@ -90,6 +91,8 @@ def main(argv=None) -> None:
     ap.add_argument("--cells", default=",".join(CELLS))
     ap.add_argument("--order", default="PCCPPCCP")
     args = ap.parse_args(argv)
+    from scipy.stats import mannwhitneyu
+
     cells = args.cells.split(",")
     unknown = [c for c in cells if c not in CELLS]
     if unknown:
@@ -113,7 +116,9 @@ def main(argv=None) -> None:
         mp, mc = statistics.median(p), statistics.median(ch)
         summary[c] = {"metric": CELLS.get(c, "peak_memory_gb"), "parent": p,
                       "parent_median": mp, "change": ch, "change_median": mc,
-                      "change_pct": (mc / mp - 1.0) * 100.0}
+                      "change_pct": (mc / mp - 1.0) * 100.0,
+                      "mann_whitney_p": mannwhitneyu(p, ch, alternative="two-sided").pvalue
+                      if len(set(p + ch)) > 1 else 1.0}
     print(json.dumps({"card": smi, "order": args.order, "cells": summary}), flush=True)
 
 

@@ -1,0 +1,339 @@
+"""The choices that the short kernels and the column sum make by size, timed on the card.
+
+    python -m mdgen_finetune_tpu_torch.tools.form_clock [--parent CSRC] [--rounds 7]
+        [--only colsum,ipa_forms,special_builds] [--out FILE]
+
+Three measurements, in one process on seeded inputs. In every round each
+variant of a shape runs once (the order rotated from round to round): its
+device time per call (``device_ms``: calls queued behind a sleep kernel, so
+that no call waits on the host, between two CUDA events); reported are the
+median and the range of the rounds (the range is the noise a difference is
+read against), and the median by events of single calls (``ms``: with the
+host's time):
+
+- ``colsum``: the second pass of the split backwards' sums
+  (``csrc/colsum.cuh``) at each caller's (rows, columns) on the training
+  paths (rows d, e, f, j and f' of PERF.md's kernel table): this checkout's
+  ``colsum::launch``, its ``colsum_kernel`` and ``colsum_tall_kernel`` (where
+  the header has one) each forced, and with ``--parent`` (the csrc
+  directory of another checkout) that checkout's ``colsum::launch``. Each is built from a small
+  source that includes the header. Every variant's sums are asserted to be
+  the same bits.
+- ``ipa_forms``: ``ipa_attention`` at L = 4, 4 heads, the model's widths,
+  over B elements from 100 to 6,400: the resident form and the streaming
+  form (each forced), their features asserted equal: where the streaming
+  form takes over.
+- ``special_builds``: the L = H = 4 instance of ``ipa_attention``'s
+  streaming kernel and the N = 4 instance of ``rope_attention_bwd``'s short
+  body against the generic instance (a ``-DMDGEN_GENERIC_SHORT`` build of each source), at the
+  paths' shapes, bits asserted equal.
+
+Prints the card's name and power limit, then one JSON line per measurement.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from ..ops import _cuda
+
+GENERIC = "MDGEN_GENERIC_SHORT"
+C, H, L = 384, 16, 4
+COLSUM_SRC = r"""
+#include "colsum.cuh"
+extern "C" int cs_launch(const float* in, float* out, long long R, long long W, void* s) {
+  return colsum::launch(in, out, R, W, W, 0, (cudaStream_t)s);
+}
+extern "C" int cs_cols(const float* in, float* out, long long R, long long W, void* s) {
+  colsum::colsum_kernel<<<(unsigned)((W + colsum::COLS - 1) / colsum::COLS),
+                          colsum::COLS * colsum::LANES, 0, (cudaStream_t)s>>>(in, out, R, W, W, 0);
+  return (int)cudaGetLastError();
+}
+#ifdef CS_TALL
+extern "C" int cs_tall(const float* in, float* out, long long R, long long W, void* s) {
+  cudaError_t e = cudaFuncSetAttribute(colsum::colsum_tall_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)colsum::TALL_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  colsum::colsum_tall_kernel<<<(unsigned)((W + colsum::TALL_NC - 1) / colsum::TALL_NC),
+                               colsum::TALL_WARPS * 32, colsum::TALL_SMEM, (cudaStream_t)s>>>(
+      in, out, R, W, W, 0);
+  return (int)cudaGetLastError();
+}
+#endif
+"""
+
+
+def events_ms(fn, reps=20):
+    """Median of CUDA-event-timed calls, after a warm-up call."""
+    fn()
+    out = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return statistics.median(out)
+
+
+def device_ms(fn, n):
+    """The device's time per call of ``n`` calls of ``fn`` queued behind a
+    sleep kernel (longer than the host takes to queue them), between two
+    CUDA events."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(n * 400_000)  # ~0.2 ms of the card's clock a call
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def rounds(variants: dict, n_rounds: int, calls: int, ctx=None) -> dict:
+    """{variant: {device_ms (median of the rounds), min, max, ms}}: every
+    round times each variant once (``device_ms``), in a rotated order, each
+    inside its context ``ctx[variant]()`` where given."""
+    names = list(variants)
+    ctx = ctx or {}
+
+    def within(n):
+        return ctx[n]() if n in ctx else contextlib.nullcontext()
+
+    got = {n: [] for n in names}
+    for n in names:
+        with within(n):
+            variants[n]()
+    torch.cuda.synchronize()
+    for r in range(n_rounds):
+        for n in names[r % len(names):] + names[:r % len(names)]:
+            with within(n):
+                got[n].append(device_ms(variants[n], calls))
+    out = {}
+    for n, v in got.items():
+        with within(n):
+            out[n] = dict(device_ms=statistics.median(v), min=min(v), max=max(v),
+                          ms=events_ms(variants[n]))
+    return out
+
+
+@contextlib.contextmanager
+def swapped(name: str, lib):
+    """The wrappers of kernel ``name`` running library ``lib``."""
+    cur = _cuda._LIBS[name]
+    fn, ref = getattr(lib, name), getattr(cur, name)
+    fn.argtypes, fn.restype = ref.argtypes, ref.restype
+    _cuda._LIBS[name] = lib
+    try:
+        yield
+    finally:
+        _cuda._LIBS[name] = cur
+
+
+def build_colsum(csrc: Path, tag: str) -> tuple:
+    """The small library over ``csrc/colsum.cuh`` and the entry points it has."""
+    text = (csrc / "colsum.cuh").read_text()
+    defs = ["CS_TALL"] if "colsum_tall_kernel" in text else []
+    out = _cuda.BUILD / "form_clock"
+    out.mkdir(parents=True, exist_ok=True)
+    src, so = out / f"colsum_{tag}.cu", out / f"colsum_{tag}.so"
+    src.write_text(COLSUM_SRC)
+    subprocess.run([_cuda.nvcc(), *_cuda.FLAGS, f"-I{csrc}", *(f"-D{d}" for d in defs),
+                    "-o", str(so), str(src)], check=True, stdout=subprocess.DEVNULL)
+    lib = ctypes.CDLL(str(so))
+    names = ["cs_launch", "cs_cols"] + (["cs_tall"] if defs else [])
+    for n in names:
+        getattr(lib, n).argtypes = [_cuda.P, _cuda.P, _cuda.I64, _cuda.I64, _cuda.P]
+        getattr(lib, n).restype = ctypes.c_int
+    return lib, names
+
+
+def colsum_shapes() -> list:
+    """(use, rows, columns) of every colsum::launch on the training paths
+    (B = 32, T = 100: 12,800 rows; ATLAS; T = 1000; the residue stage at
+    B = 4, T = 200)."""
+    from ..ops import linear_bwd as LB
+    from ..ops import modln_bwd as MB
+
+    M = 32 * 100 * L
+    out = []
+    for name, K, N in (("fc1", C, 4 * C), ("fc2", 4 * C, C), ("qkv", C, 3 * C), ("out", C, C)):
+        s = LB._splits(M, K, N)
+        out.append((f"d {name} wgrad dW", s, K * N))
+    out.append(("d fc1 wgrad db", LB._splits(M, C, 4 * C), 4 * C))
+    out.append(("e modln_bwd (12800, 384), 32 elements", MB._splits(M // 32, 32), 32 * 3 * C))
+    out.append(("f long body, stage 2: 128 sequences", 128, 2 * C))
+    out.append(("j blocked_attention_bwd, ATLAS: 250 sequences", 250, 2 * C))
+    for G in (800, 3200, 8000):
+        out.append((f"f' short body: {G} sequences", G, 2 * C))
+    return out
+
+
+def measure_colsum(parent, n_rounds) -> list:
+    mine, names = build_colsum(_cuda.CSRC, "this")
+    libs = [(f"this {n[3:]}", mine, n) for n in names]
+    if parent:
+        plib, _ = build_colsum(Path(parent), "parent")
+        libs.append(("parent launch", plib, "cs_launch"))
+    g = torch.Generator(device="cuda").manual_seed(7)
+    stream = torch.cuda.current_stream().cuda_stream
+    res = []
+    for use, R, W in colsum_shapes():
+        x = torch.randn(R, W, generator=g, device="cuda")
+        outs = {k: torch.empty(W, device="cuda") for k, _, _ in libs}
+
+        def call(k, lib, n):
+            def run():
+                code = getattr(lib, n)(x.data_ptr(), outs[k].data_ptr(), R, W, stream)
+                if code:
+                    raise RuntimeError(f"colsum {k} failed to launch: cudaError {code}")
+            return run
+
+        variants = {k: call(k, lib, n) for k, lib, n in libs}
+        times = rounds(variants, n_rounds, 200)
+        ref = outs["this launch"]
+        differ = [k for k in outs if not torch.equal(outs[k], ref)]
+        if differ:
+            raise AssertionError(f"colsum[{use}]: {differ} differ from this launch's sums")
+        res.append(dict(use=use, rows=R, columns=W, bound_ms=(R + 1) * W * 4 / 3.35e9,
+                        times=times))
+        del x, outs
+    return res
+
+
+def ipa_inputs(Bn, seed=3):
+    from ..geometry.rigid import Rigid
+    from ..ops import ipa_attention as IA
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    proj = torch.randn(Bn, L, IA.proj_width(4, 32, 8, 8), generator=g, device="cuda")
+    t7 = torch.randn(Bn, L, 7, generator=g, device="cuda")
+    t7[..., 4:] *= 5
+    fr = Rigid.from_tensor_7(t7)
+    mask = torch.ones(Bn, L, device="cuda")
+    mask[::7, -1] = 0
+    hw = torch.randn(4, generator=g, device="cuda")
+    return (proj, fr.rot.contiguous(), fr.trans.contiguous(), mask, hw), dict(H=4, Ch=32, Pq=8, Pv=8)
+
+
+@contextlib.contextmanager
+def ipa_form(form):
+    """ipa_attention with every call in ``form`` (0 streaming, 1 resident)."""
+    from ..ops import ipa_attention as IA
+
+    kept = IA._form
+    IA._form = lambda *shape: form
+    try:
+        yield
+    finally:
+        IA._form = kept
+
+
+def measure_ipa_forms(n_rounds) -> list:
+    from ..ops import ipa_attention as IA
+
+    res = []
+    for Bn in (100, 132, 200, 264, 396, 528, 800, 1600, 6400):
+        args, kw = ipa_inputs(Bn)
+        feats = {}
+        forms = {"resident": lambda: ipa_form(1), "streaming": lambda: ipa_form(0)}
+        for form, slot in (("resident", 1), ("streaming", 0)):
+            with forms[form]():
+                n0 = IA.ipa_attention.forms[slot]
+                feats[form] = IA.ipa_attention(*args, **kw)
+                if IA.ipa_attention.forms[slot] != n0 + 1:
+                    raise AssertionError(f"ipa_forms[{Bn}]: the {form} form did not run")
+        if not torch.equal(feats["resident"], feats["streaming"]):
+            raise AssertionError(f"ipa_forms[{Bn}]: the forms' features differ")
+        run = lambda: IA.ipa_attention(*args, **kw)  # noqa: E731
+        times = rounds({"resident": run, "streaming": run}, n_rounds, 50, ctx=forms)
+        res.append(dict(elements=Bn, L=L, heads=4, plan=IA.ipa_plan(Bn, L, 4, 32, 8, 8).__dict__,
+                        times=times))
+    return res
+
+
+def measure_special(n_rounds) -> list:
+    from ..ops import ipa_attention as IA
+    from ..ops import rope_attention_bwd as RB
+
+    res = []
+    # ipa_attention at the encoder's (6400, 4): the L = H = 4 instance
+    args, kw = ipa_inputs(6400)
+    IA.ipa_attention(*args, **kw)
+    generic = _cuda.variant_library("ipa_attention", GENERIC)
+
+    def tensors(x):
+        return [x] if torch.is_tensor(x) else list(x)
+
+    def pair(name, lib, run, calls=50):
+        out = {}
+        special = tensors(run())
+        with swapped(name, lib):
+            gen = tensors(run())
+        if len(special) != len(gen) or not all(torch.equal(a, b) for a, b in zip(special, gen)):
+            raise AssertionError(f"special_builds[{name}]: the generic instance's bits differ")
+
+        out.update(rounds({"special": run, "generic": run}, n_rounds, calls,
+                          ctx={"generic": lambda: swapped(name, lib)}))
+        return out
+
+    res.append(dict(kernel="ipa_attention", shape="(6400, 4), 4 heads",
+                    times=pair("ipa_attention", generic, lambda: IA.ipa_attention(*args, **kw))))
+    # rope_attention_bwd's short body at its three uses: the N = 4 instance
+    generic = _cuda.variant_library("rope_attention_bwd", GENERIC)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for Gb in (800, 3200, 8000):
+        qkv = (torch.randn(Gb, L, 1, 3 * C, generator=g, device="cuda") * 0.5).bfloat16()
+        do = (torch.randn(Gb, L, 1, C, generator=g, device="cuda") * 0.1).bfloat16()
+        bk = (torch.randn(C, generator=g, device="cuda") * 0.4).bfloat16()
+        bv = (torch.randn(C, generator=g, device="cuda") * 0.4).bfloat16()
+        mask = torch.ones(Gb, L, 1, device="cuda")
+        mask[:Gb // 32, -1] = 0
+        res.append(dict(kernel="rope_attention_bwd", shape=f"({Gb}, 4, 1), 16 heads of D = 24",
+                        times=pair("rope_attention_bwd", generic, lambda: RB.rope_attention_bwd(
+                            qkv, do, bk, bv, mask, num_heads=H))))
+    return res
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", default=None, help="the csrc directory of another checkout")
+    ap.add_argument("--rounds", type=int, default=7)
+    ap.add_argument("--only", default="colsum,ipa_forms,special_builds",
+                    help="the measurements to make, comma-separated")
+    ap.add_argument("--out", default=None, help="also write the JSON lines to this file")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("form_clock: needs an NVIDIA GPU")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    only = args.only.split(",")
+    if "special_builds" in only:
+        for n in ("ipa_attention", "rope_attention_bwd"):
+            _cuda.start_variant(n, GENERIC)
+    _cuda.build_all()
+    lines = []
+    for name, fn in (("colsum", lambda: measure_colsum(args.parent, args.rounds)),
+                     ("ipa_forms", lambda: measure_ipa_forms(args.rounds)),
+                     ("special_builds", lambda: measure_special(args.rounds))):
+        if name not in only:
+            continue
+        lines.append(json.dumps(dict(measurement=name, card=smi, rows=fn())))
+        print(lines[-1], flush=True)
+    if args.out:
+        Path(args.out).write_text("\n".join(lines) + "\n")
+
+
+if __name__ == "__main__":
+    main()

@@ -50,16 +50,19 @@ def _t(a, dtype=torch.float32):
     return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dtype)
 
 
-@pytest.mark.parametrize("stage", ["residues", "frames"])
+@pytest.mark.parametrize("stage", ["residues", "frames", "residues_n1"])
 def test_rope_attention_bwd_matches_jax_vjp(stage):
+    """residues: N = L = 4 with a padded residue and a frame whose only
+    valid key is the bias key; frames: N = T = 6, I = 4; residues_n1: N = 1
+    (one residue: the padded frames see only the bias key)."""
     rng = np.random.default_rng(1)
-    B, T, L, C, H = 2, 6, 4, 96, 4
+    B, T, L, C, H = 2, 6, (1 if stage == "residues_n1" else 4), 96, 4
     qkv = rng.normal(size=(B, T, L, 3 * C)).astype(np.float32) * 0.7
     bk, bv = (rng.normal(size=(C,)).astype(np.float32) for _ in range(2))
     mask = np.ones((B, T, L), np.float32)
     mask[1, :, -1] = 0.0   # a padded residue
     mask[0, 2, :] = 0.0    # residue attention: a frame whose only valid key is the bias
-    view = (B * T, L, 1) if stage == "residues" else (B, T, L)
+    view = (B, T, L) if stage == "frames" else (B * T, L, 1)
     G, N, I = view
     dout = rng.normal(size=(G, N, I, C)).astype(np.float32)
     q4 = qkv.reshape(*view, 3 * C)

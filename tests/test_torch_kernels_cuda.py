@@ -420,6 +420,96 @@ def test_rope_attention_short_body_on_card(D):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [16, 24, 32, 64])
+def test_rope_attention_bwd_short_body_on_card(D):
+    """On the card: the streaming short body of ``rope_attention_bwd``
+    (N <= 16) against its f32 plain twin (1e-2 x max(1, max |twin|), each of
+    dqkv, dbk, dbv) at N = 1, 4, 5, 9, 16, I = 1 and 3: G = 1201 sequences
+    per I (not a multiple of the plan's sequences per unit), masked keys, a
+    sequence whose only valid key is the bias token (g = 1: its keys' dk and
+    dv exactly zero) and keys masked at random (g = 2); at D = 64 with 8
+    heads the plan splits a sequence's heads into groups. Also the training
+    path's stage 1, (3200, 4, 1) at D = 24 with 16 heads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.ops import rope_attention_bwd as RB
+
+    g = torch.Generator(device="cuda").manual_seed(29 + D)
+    Hc = 8 if D == 64 else 16
+    cases = [(1201, N, Ic) for N in (1, 4, 5, 9, 16) for Ic in (1, 3)]
+    if D == 24:
+        cases.append((3200, 4, 1))
+    uneven = split = 0
+    for Gc, N, Ic in cases:
+        p = RB.short_plan(Gc, N, Ic, Hc, D)
+        uneven += (Gc * Ic) % p.spb != 0
+        split += p.hg < Hc
+        qkv, bk, bv, mask = _rope_case(g, Gc, N, Ic, Hc, D, q_scale=D ** -0.5)
+        do = (0.1 * torch.randn(Gc, N, Ic, Hc * D, generator=g, device="cuda")).bfloat16()
+        got = RB.rope_attention_bwd(qkv, do, bk, bv, mask, num_heads=Hc)
+        ref = RB.rope_attention_bwd_plain(qkv.float(), do.float(), bk.float(), bv.float(), mask,
+                                          num_heads=Hc)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            assert torch.isfinite(a.float()).all(), (N, Ic)
+            _close(a, b)
+        assert not got[0][1, ..., Hc * D:].any(), (N, Ic)  # g = 1: masked keys, zero dk and dv
+    assert uneven and (D != 64 or split), (uneven, split)
+
+
+@pytest.mark.cuda
+def test_ipa_attention_streaming_form_on_card():
+    """On the card: the streaming form of the IPA core (L <= 16 at the
+    model's widths) against its plain twin at every L from 1 to 16 over
+    B = 1201 elements (not a multiple of the plan's elements per unit), and
+    at the encoder's (6401, 4), with a padded residue in every 7th element
+    and an element whose residues are all masked but one; the same bits from
+    a proj that starts 4 bytes past a 16-byte boundary (the 4-byte copy
+    path) and from the build that copies 4 bytes at a time everywhere
+    (``-DMDGEN_IPA_GENERAL``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.ops import _cuda
+    from mdgen_finetune_tpu_torch.ops import ipa_attention as IA
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    kw = dict(H=4, Ch=32, Pq=8, Pv=8)
+    general = _cuda.variant_library("ipa_attention", "MDGEN_IPA_GENERAL")
+    own = _cuda.library("ipa_attention", IA._ARGTYPES)
+    general.ipa_attention.argtypes = own.ipa_attention.argtypes
+    general.ipa_attention.restype = own.ipa_attention.restype
+    uneven = 0
+    for Bc, Lc in [(1201, L) for L in range(1, 17)] + [(6401, 4)]:
+        assert IA._form(Bc, Lc, 4, 32, 8, 8) == 0
+        uneven += Bc % IA.ipa_plan(Bc, Lc, 4, 32, 8, 8).spb != 0
+        W = IA.proj_width(4, 32, 8, 8)
+        proj = torch.randn(Bc, Lc, W, generator=g, device="cuda")
+        t7 = torch.randn(Bc, Lc, 7, generator=g, device="cuda")
+        t7[..., 4:] *= 5
+        fr = TRigid.from_tensor_7(t7)
+        rot, trans = fr.rot.contiguous(), fr.trans.contiguous()
+        mask = torch.ones(Bc, Lc, device="cuda")
+        mask[::7, -1] = 0
+        mask[1, 1:] = 0
+        hw = torch.randn(4, generator=g, device="cuda")
+        got = IA.ipa_attention(proj, rot, trans, mask, hw, **kw)
+        ref = IA.ipa_attention_plain(proj, rot, trans, mask, hw, **kw)
+        torch.cuda.synchronize()
+        _close(got, ref)
+        shifted = torch.empty(Bc * Lc * W + 1, device="cuda")[1:].view(Bc, Lc, W)
+        shifted.copy_(proj)
+        assert shifted.data_ptr() % 16 == 4
+        assert torch.equal(IA.ipa_attention(shifted, rot, trans, mask, hw, **kw), got), Lc
+        kept = _cuda._LIBS["ipa_attention"]
+        _cuda._LIBS["ipa_attention"] = general
+        try:
+            assert torch.equal(IA.ipa_attention(proj, rot, trans, mask, hw, **kw), got), Lc
+        finally:
+            _cuda._LIBS["ipa_attention"] = kept
+    assert uneven
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 24, 32, 64])
 def test_rope_attention_bwd_long_body_on_card(D):
     """On the card: the long-sequence body of rope_attention_bwd (all six
     products on the tensor cores; q and k in fp16 scaled by powers of two,
@@ -1053,9 +1143,11 @@ def test_moved_split_kernels_match_the_parent_sources_on_card(tmp_path):
     and rope_attention_bwd are held to the other sources only at N = 4
     (stage 1, the encoder and the modular residue attention), where their
     short bodies run: their long-sequence bodies were redesigned for the
-    tensor cores, which moves those bits (the short forward was redesigned
-    too, as a streaming kernel, with each output's arithmetic unchanged, so
-    it keeps its bits). linear_bwd and
+    tensor cores, which moves those bits (the short bodies were redesigned
+    too, as streaming kernels, with each output's arithmetic unchanged, so
+    they keep their bits); so is ipa_attention, at L = 4 (its streaming
+    form, redesigned the same way) and L = 256 (the key-tiled form).
+    linear_bwd and
     blocked_attention_bwd are not swapped: they were redesigned too (new
     tilings and reduction orders), and are held to their plain versions by
     the kernel tests and, through the layer, the split route to the merged
@@ -1076,7 +1168,7 @@ def test_moved_split_kernels_match_the_parent_sources_on_card(tmp_path):
     from mdgen_finetune_tpu_torch.ops.fused_layer import trunk_layer
 
     names = ("modln_bwd",)
-    short = ("rope_attention", "rope_attention_bwd")
+    short = ("rope_attention", "rope_attention_bwd", "ipa_attention")
     procs = [(n, subprocess.Popen([_cuda.nvcc(), *_cuda.FLAGS, "-o", str(tmp_path / f"{n}.so"),
                                    os.path.join(parent, f"{n}.cu")], stdout=subprocess.DEVNULL,
                                   stderr=subprocess.STDOUT)) for n in names + short]
@@ -1130,9 +1222,22 @@ def test_moved_split_kernels_match_the_parent_sources_on_card(tmp_path):
     valid[0, -1] = 0  # a padded residue
     valid[1] = 0  # a frame whose only valid key is the bias token
 
+    from mdgen_finetune_tpu_torch.ops.ipa_attention import ipa_attention, proj_width
+
+    ipa_in = []
+    for Bi, Li in ((400, 4), (3, 256)):  # the streaming form, the key-tiled form
+        t7 = torch.randn(Bi, Li, 7, generator=g, device="cuda")
+        fr = TRigid.from_tensor_7(t7)
+        m = torch.ones(Bi, Li, device="cuda")
+        m[0, -1] = 0
+        ipa_in.append((torch.randn(Bi, Li, proj_width(4, 32, 8, 8), generator=g, device="cuda"),
+                       fr.rot.contiguous(), fr.trans.contiguous(), m,
+                       torch.randn(4, generator=g, device="cuda")))
+
     def run_short():
         return [rope_attention(qkv, bk, bv, valid, num_heads=H4, base2=b) for b in (True, False)] \
-            + list(rope_attention_bwd(qkv, dout, bk, bv, valid, num_heads=H4))
+            + list(rope_attention_bwd(qkv, dout, bk, bv, valid, num_heads=H4)) \
+            + [ipa_attention(*a, H=4, Ch=32, Pq=8, Pv=8) for a in ipa_in]
 
     now = run_short()
     before = swapped(short, run_short)

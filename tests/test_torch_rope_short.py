@@ -7,6 +7,11 @@
   attention, stage 2 at T <= 16 (the I > 1 form), every N from 1 to 16 at
   head dims 16-64; its shared memory against the layout written out by
   hand; the merged launch's integer slots carrying the two stages' plans.
+- ``rope_attention_bwd.short_plan``, the short backward's unit, at its
+  three uses (the training path's stage 1, the T = 1000 training's, the
+  merged route's residue stage at B = 4, T = 200) and at every N from 1 to
+  16; its shared memory against the layout by hand; the merged launch's
+  integer slots carrying the backward's plans beside the forward's.
 - The plain math that the short body is held to on the card
   (``rope_attention_plain``) against the JAX package's XLA twins
   (``residue_attention._xla_impl`` over the residue view and
@@ -24,6 +29,7 @@ import torch
 from mdgen_finetune_tpu.ops import residue_attention as jra
 from mdgen_finetune_tpu.ops import time_attention as jta
 from mdgen_finetune_tpu_torch.ops import rope_attention as RA
+from mdgen_finetune_tpu_torch.ops import rope_attention_bwd as RB
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -36,15 +42,24 @@ USES = {  # (G, N, I, H, D)
 }
 
 
-def _check_plan(p, G, N, I, H, D, merged):
+BWD_USES = {  # (G, N, I, H, D)
+    "stage1_training": (3200, 4, 1, 16, 24),
+    "stage1_t1000": (8000, 4, 1, 16, 24),
+    "merged_residue_b4_t200": (800, 4, 1, 16, 24),
+}
+
+
+def _check_plan(p, G, N, I, H, D, merged, M=RA):
     S = G * I
     groups = -(-H // p.hg)
     assert 1 <= p.hg <= H and 1 <= p.spb <= max(1, S)
     assert p.hg == -(-H // groups), "head groups as even as they go"
     assert p.nbuf == (1 if merged else 2)
-    assert p.smem == RA.short_bytes(p.spb, p.hg, N, D, p.nbuf, H) <= RA.SHORT_BUDGET
+    assert p.smem == M.short_bytes(p.spb, p.hg, N, D, p.nbuf, H) <= M.SHORT_BUDGET
     assert p.units == -(-S // p.spb) * groups, "every sequence and head in exactly one unit"
-    assert p.spb * p.hg * N <= max(RA.SHORT_THREADS, p.hg * N), "about a query per thread"
+    # a thread per query (the forward) or per key, the bias key with them (the backward)
+    per = N + 1 if M is RB else N
+    assert p.spb * p.hg * per <= max(M.SHORT_THREADS, p.hg * per), "about a thread per query or key"
 
 
 @pytest.mark.parametrize("use", sorted(USES))
@@ -82,11 +97,45 @@ def test_short_plan_every_n_and_head_dim():
             RA.short_plan(10, N, 1, 16, 24)
 
 
+@pytest.mark.parametrize("use", sorted(BWD_USES))
+def test_short_bwd_plan_at_every_use(use):
+    G, N, I, H, D = BWD_USES[use]
+    for merged in (False, True):
+        p = RB.short_plan(G, N, I, H, D, merged=merged)
+        _check_plan(p, G, N, I, H, D, merged, M=RB)
+        # one whole sequence (4 rows of 1,152 bf16 and 4 of 384) per unit:
+        # its 80 keys (16 heads x 4 + the bias key) in one pass of the 128
+        # threads; four blocks per SM in the streaming kernel
+        assert (p.spb, p.hg, p.units) == (1, 16, G)
+        if not merged:
+            assert 4 * (p.smem + 1024) <= 233_472
+
+
+def test_short_bwd_plan_every_n_and_head_dim():
+    """N = 1..16 at D = 16, 24, 32, 64 (8 or 16 heads), G not a multiple of
+    any SPB; the layout by hand at stage 1; N outside 1..16 refused."""
+    for D, H in ((16, 16), (24, 16), (32, 16), (64, 8)):
+        for N in range(1, 17):
+            for I in (1, 3):
+                for merged in (False, True):
+                    _check_plan(RB.short_plan(397, N, I, H, D, merged=merged), 397, N, I, H, D,
+                                merged, M=RB)
+    # 2 raw buffers of 2 x 4 x (1,152 + 384) bf16 and 2 x 4 key_valid
+    # floats; q and k of 2 x 16 heads at 4 x 24 + 4 floats; 2 x 4 key
+    # biases; p and dl of 2 x 16 x 4 x 5; the bias key and value
+    assert RB.short_bytes(2, 16, 4, 24, 2, 16) == \
+        2 * (24_576 + 32) + 2 * 2 * 16 * 100 * 4 + 32 + 2 * 2_560 + 3_072
+    for N in (0, 17):
+        with pytest.raises(ValueError):
+            RB.short_plan(10, N, 1, 16, 24)
+
+
 def test_merged_slots_carry_the_short_plans():
     """The merged layer backward's launch slots (CPU tensors; the slots are
     built the same way): the short plans of the frame stage (B, T, L) where
     T <= 16 and of the residue stage (B * T, L, 1), each with one raw
-    buffer; a long frame stage gets none."""
+    buffer, rope_attention's and then rope_attention_bwd's; a long frame
+    stage gets none."""
     from mdgen_finetune_tpu_torch.ops import fused_layer_bwd_merged as FM
 
     C, H, L = 96, 4, 4
@@ -102,9 +151,10 @@ def test_merged_slots_carry_the_short_plans():
         mod = torch.randn(B, 9 * C, generator=g).bfloat16()
         _, ints, _ = FM.launch_slots(x, x, x, x.float(), mod, w, torch.ones(B, T, L), H)
         assert len(ints) == FM.N_INT
-        frame = RA.short_plan(B, T, L, H, C // H, merged=True) if T <= 16 else None
-        resid = RA.short_plan(B * T, L, 1, H, C // H, merged=True)
-        assert ints[-4:] == ([frame.spb, frame.hg] if frame else [0, 0]) + [resid.spb, resid.hg]
+        for got, M in ((ints[-8:-4], RA), (ints[-4:], RB)):
+            frame = M.short_plan(B, T, L, H, C // H, merged=True) if T <= 16 else None
+            resid = M.short_plan(B * T, L, 1, H, C // H, merged=True)
+            assert got == ([frame.spb, frame.hg] if frame else [0, 0]) + [resid.spb, resid.hg]
 
 
 def _qkv(rng, G, N, I, H, D, base2):
