@@ -7,9 +7,13 @@ from this checkout and holds each kernel against its plain PyTorch twin at
 the shapes of its path (the sampler's forward kernels at B = 64, the
 key-tiled frame attention and the trunk's three stage ops at T = 1000, the
 training backward kernels at B = 32); ``ipa_attention`` (row c) in its
-streaming form at the encoder's (6400, 4) and, in ``atlas_kernels``, at
-L = 4 and 256 (``ipa_entry``: back to back, the host's time, the parent's
-bits, the 4-byte copy build, SDPA on augmented heads, the resources);
+streaming form at the encoder's (6400, 4) and, in ``atlas_kernels``, in its
+tensor-core form at L = 256 over 100 elements and over 1 and at
+(Ch, Pq, Pv) = (16, 4, 6) (translations across +-40 A, the 56 padded
+residues masked), and in its streaming form at L = 4 (``ipa_entry``: back
+to back, the host's time, the parent's bits in the streaming form and the
+parent's error in the tensor-core form, the 4-byte copy build, SDPA on
+augmented heads, the bytes, f32 and TF32 bounds, the plan, the resources);
 ``rope_short``: the short body of ``rope_attention`` (N <= 16) at its
 three uses (trunk stage 1, base 2; the modular layer's residue attention,
 TPU row 12, natural; the encoder's residue MHA) and the streaming short
@@ -78,12 +82,15 @@ Then:
 
 Last, ``micro_ops``: the micro-op probe (``tools/micro_ops`` of the
 package) checks every op's plain and position-weighted sums against its
-plain version and prints its marginal-cost table.
+plain version and prints its marginal-cost table; its kernel line carries
+the bound over the whole card and over the probe's 32 SMs.
 
 With ``MDGEN_PARENT_CSRC`` set to the csrc directory of another checkout
 (a ``git archive`` of the parent commit), built beside this checkout's
-kernels from the start, the entries of ``ipa_attention`` and
-``rope_attention_bwd``'s short body (their bits asserted equal), of
+kernels from the start, the entries of ``ipa_attention`` (the streaming
+form's bits asserted equal, the tensor-core form's error recorded beside
+the parent's) and ``rope_attention_bwd``'s short body (its bits asserted
+equal), of the probe (the parent's marginal-cost table beside this one), of
 ``rope_attention``'s short body, of the kernels that end in ``colsum.cuh``'s
 second pass (``linear_bwd`` at every use, ``modln_bwd``,
 ``rope_attention_bwd``'s long body, ``blocked_attention_bwd``), of ``adaln_linear`` (every use), of
@@ -120,6 +127,7 @@ import torch
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
 PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 tensor-core peak
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
 B, T, L, C, H, NL, STEPS = 64, 100, 4, 384, 16, 5, 100
 B_TRAIN = 32  # the training shape of tools/train_step_bench.py
@@ -227,13 +235,14 @@ def check(name, got, ref, rel_tol):
 
 _PARENT_LIBS: dict = {}
 _PARENT_BUILDS: list = []
-# the kernels of the last slices: ipa_attention's streaming form and
-# rope_attention_bwd's short body (this one), rope_attention's short body
-# and row 4', rows a and h, the long-key kernels; and the other callers of
-# colsum.cuh's second pass (rows d, e, j)
-PARENT_KERNELS = ("ipa_attention", "rope_attention_bwd", "rope_attention", "adaln_linear",
-                  "fused_attention", "fused_layer_bwd", "tiled_attention", "fused_attention_bwd",
-                  "linear_bwd", "modln_bwd", "blocked_attention_bwd")
+# the kernels of the last slices: ipa_attention's tensor-core form and the
+# probe's wgmma dots (this one), ipa_attention's streaming form and
+# rope_attention_bwd's short body, rope_attention's short body and row 4',
+# rows a and h, the long-key kernels; and the other callers of colsum.cuh's
+# second pass (rows d, e, j)
+PARENT_KERNELS = ("ipa_attention", "micro_ops", "rope_attention_bwd", "rope_attention",
+                  "adaln_linear", "fused_attention", "fused_layer_bwd", "tiled_attention",
+                  "fused_attention_bwd", "linear_bwd", "modln_bwd", "blocked_attention_bwd")
 
 
 def start_parent_builds():
@@ -341,14 +350,32 @@ def ipa_sdpa(proj, rot, trans, mask, hw, H, Ch, Pq, Pv):
             torch.cat([v, vp], -1).contiguous(), am.contiguous())
 
 
-def ipa_entry(dev, name, Bn, Lc, widths, mask_fn, seed, plain_reps=20):
-    """Row c at (Bn, Lc) and (Ch, Pq, Pv) = ``widths`` (4 heads): against its
-    f32 plain twin; by events, back to back and the wrapper's host time;
-    the parent's sources on the same inputs, bit for bit (asserted, with
-    MDGEN_PARENT_CSRC); in the streaming form the build with 4-byte copies
-    only (``-DMDGEN_IPA_GENERAL``, its bits asserted); SDPA on the augmented
-    heads (``ipa_sdpa``, its scalar features held to the twin's); the
-    bound; the launch resources (at the model's widths)."""
+def ipa_flops(Bn, Lc, widths, Hi=4):
+    """Row c's operations at (Bn, Lc): per (query, key, head) the f32 form's
+    (a dot over Ch, a squared distance over 3 Pq, the value sums over Ch and
+    3 Pv), and the tensor-core form's products in TF32 (the scalar columns
+    once, the point columns three times: 3xTF32)."""
+    Ch, Pq, Pv = widths
+    pairs = Lc * Lc * Hi * Bn
+    f32 = pairs * (2 * Ch + Pq * 3 * 3 + 2 * (Ch + Pv * 3))
+    tf32 = pairs * 2 * (Ch + 3 * (3 * Pq) + Ch + 3 * (3 * Pv))
+    return f32, tf32
+
+
+def ipa_entry(dev, name, Bn, Lc, widths, mask_fn, seed, plain_reps=20, spread=None):
+    """Row c at (Bn, Lc) and (Ch, Pq, Pv) = ``widths`` (4 heads), the
+    translations ``randn x 5`` or uniform in +-``spread``: against its f32
+    plain twin; by events, back to back and the wrapper's host time; the
+    parent's sources on the same inputs (with MDGEN_PARENT_CSRC): in the
+    streaming form bit for bit (asserted), in the tensor-core form (whose
+    products cannot keep the parent's f32 bits) the parent's and this
+    form's max error against the twin, recorded; in the streaming form the
+    build with 4-byte copies only (``-DMDGEN_IPA_GENERAL``, its bits
+    asserted); SDPA on the augmented heads (``ipa_sdpa``, its scalar
+    features held to the twin's); the bound (bytes, and the operations: f32
+    for the streaming form, TF32 products on the tensor cores for the
+    tensor-core form, all three in ``bounds``); the launch resources (at the
+    model's widths) and the plan."""
     import torch.nn.functional as F
 
     from mdgen_finetune_tpu_torch.geometry.rigid import Rigid
@@ -362,22 +389,31 @@ def ipa_entry(dev, name, Bn, Lc, widths, mask_fn, seed, plain_reps=20):
     t7 = torch.randn(Bn, Lc, 7, generator=g, device=dev)
     t7[..., 4:] *= 5
     fr = Rigid.from_tensor_7(t7)
+    trans = fr.trans.contiguous() if spread is None else \
+        (torch.rand(Bn, Lc, 3, generator=g, device=dev) * 2 - 1) * spread
     emask = torch.ones(Bn, Lc, device=dev)
     mask_fn(emask)
     hw = torch.randn(Hi, generator=g, device=dev)
-    args = (proj, fr.rot.contiguous(), fr.trans.contiguous(), emask, hw)
+    args = (proj, fr.rot.contiguous(), trans, emask, hw)
     kw = dict(H=Hi, Ch=Ch, Pq=Pq, Pv=Pv)
+    form = IA._form(Bn, Lc, Hi, Ch, Pq, Pv)
+    n0 = IA.ipa_attention.forms[form]
     got = IA.ipa_attention(*args, **kw)
+    if IA.ipa_attention.forms[form] != n0 + 1:
+        raise AssertionError(f"ipa_attention[{name}]: the {IA.FORMS[form]} form did not run")
     ref = IA.ipa_attention_plain(*args, **kw)
     err = check(f"ipa_attention[{name}]", got, ref, 1e-2)
     run = lambda: IA.ipa_attention(*args, **kw)  # noqa: E731
-    bits = None
+    bits = parent_err = None
     if parent_lib("ipa_attention") is not None:
         with with_parent(("ipa_attention",)):
-            bits = torch.equal(IA.ipa_attention(*args, **kw), got)
-        if not bits:
-            raise AssertionError(f"ipa_attention[{name}]: the features moved from the parent's bits")
-    form = IA._form(Bn, Lc, Hi, Ch, Pq, Pv)
+            before = IA.ipa_attention(*args, **kw)
+        if form == 3:
+            parent_err = (before.float() - ref.float()).abs().max().item()
+        else:
+            bits = torch.equal(before, got)
+            if not bits:
+                raise AssertionError(f"ipa_attention[{name}]: the features moved from the parent's bits")
     general = None
     if form == 0:
         with with_libs({"ipa_attention": _cuda.variant_library("ipa_attention", IPA_GENERAL)}):
@@ -390,21 +426,30 @@ def ipa_entry(dev, name, Bn, Lc, widths, mask_fn, seed, plain_reps=20):
     lib_err = check(f"ipa_attention[{name}] SDPA yardstick",
                     lib()[..., :Ch].transpose(1, 2).reshape(Bn, Lc, Hi * Ch), ref[..., :Hi * Ch],
                     1e-2)
+    f32_ops, tf32_ops = ipa_flops(Bn, Lc, widths, Hi)
+    moved = nbytes(*args) + got.numel() * 2
+    bounds = dict(bytes_ms=bound_ms(moved, 0)[0], f32_ops_ms=f32_ops / PEAK_F32_FLOPS * 1e3,
+                  tf32_3x_points_ops_ms=tf32_ops / PEAK_TF32_FLOPS * 1e3)
+    plan = IA.tc_plan(Bn, Lc, Hi, Ch, Pq, Pv) if form == 3 else \
+        (IA.ipa_plan(Bn, Lc, Hi, Ch, Pq, Pv) if form == 0 else None)
     return dict(
-        shape=f"{Bn} elements x {Hi} heads, L={Lc}, Ch={Ch}, Pq={Pq}, Pv={Pv}",
-        form=("streaming", "resident", "key-tiled")[form], max_abs_err=err[0], tol=err[1],
+        shape=f"{Bn} elements x {Hi} heads, L={Lc}, Ch={Ch}, Pq={Pq}, Pv={Pv}"
+              + ("" if spread is None else f", translations in +-{spread} A")
+              + f", {int((emask == 0).sum().item())} masked residues",
+        form=IA.FORMS[form], max_abs_err=err[0], tol=err[1],
         ms=time_ms(run), back_to_back_ms=back_to_back_ms(run), host_ms=host_ms(run),
-        parent=parent_times("ipa_attention", run), bits_equal_parent=bits, general_path=general,
+        parent=parent_times("ipa_attention", run), bits_equal_parent=bits,
+        parent_max_abs_err=parent_err, general_path=general,
         plain_ms=time_ms(lambda: IA.ipa_attention_plain(*args, **kw), reps=plain_reps),
         library_ms=time_ms(lib), library_back_to_back_ms=back_to_back_ms(lib),
         library_max_abs_err=lib_err[0],
         library_note="SDPA on augmented heads [q, q_pts] . [c k, w k_pts] with a float mask, "
                      "scale 1, values [v, v_pts]; the lift, the inverse map and the norms are "
                      "outside the timed call",
-        bound=bound_ms(nbytes(*args) + got.numel() * 2,
-                       Lc * Lc * Hi * Bn * (2 * Ch + Pq * 3 * 3 + 2 * (Ch + Pv * 3)),
-                       PEAK_F32_FLOPS),
-        resources=IA.resources(Bn, Lc) if widths == IA.REGISTER_WIDTHS and form != 1 else None)
+        bound=bound_ms(moved, tf32_ops, PEAK_TF32_FLOPS) if form == 3
+        else bound_ms(moved, f32_ops, PEAK_F32_FLOPS), bounds=bounds,
+        plan=dataclasses.asdict(plan) if plan is not None else None,
+        resources=IA.resources(Bn, Lc) if widths == IA.REGISTER_WIDTHS and form in (0, 3) else None)
 
 
 def phase_kernels(dev):
@@ -1859,7 +1904,7 @@ def phase_main_path(dev, cfg):
         fn.cuda_calls = 0
     al.adaln_linear.routes = [0, 0, 0]
     ra.rope_attention.bodies = [0, 0, 0]
-    ia.ipa_attention.forms = [0, 0, 0]
+    ia.ipa_attention.forms = [0, 0, 0, 0]
     t0 = time.perf_counter()
     out, _ = eng.sample(batch, gen)
     torch.cuda.synchronize()
@@ -1867,7 +1912,7 @@ def phase_main_path(dev, cfg):
     per_sample = {fn.__name__: fn.launches for fn in wrappers}
     # ipa_attention's forms: the encoder (L = 4) takes the streaming form only
     ipa_forms = list(ia.ipa_attention.forms)
-    if ipa_forms != [per_sample["ipa_attention"], 0, 0]:
+    if ipa_forms != [per_sample["ipa_attention"], 0, 0, 0]:
         raise AssertionError(f"main_path: ipa_attention's forms {ipa_forms}, expected all streaming")
     # adaln_linear's routes per sample, as derived from the code: per Euler
     # step 5 resident products (qkv and out of both attention stages, fc1)
@@ -2446,10 +2491,12 @@ def phase_atlas_kernels(dev):
     N = 250), at N = 129 and at its limit; ``tiled_attention`` and
     ``rope_attention`` as the residue stage's core (the route keeps JAX's
     gate, tiled above MAX_L = 8; both timed); ``ipa_attention`` (row c,
-    ``ipa_entry``: the parent's bits asserted, SDPA on augmented heads) at
-    L = 256 over the 100-point t grid of one Euler-100 sample, and at L = 4,
-    and at L = 256 with (Ch, Pq, Pv) = (16, 4, 6) (the key-tiled form's
-    shared-memory state);
+    ``ipa_entry``: SDPA on augmented heads; the parent's bits asserted in
+    the streaming form, the parent's error recorded in the tensor-core
+    form) in its tensor-core form at L = 256 over the 100-point t grid of
+    one Euler-100 sample and at B = 1 (dopri5, training), and at
+    (Ch, Pq, Pv) = (16, 4, 6), each with translations across +-40 A and the
+    56 padded residues masked; in its streaming form at L = 4;
     then ``residue_rows_block`` (row 7) and the whole stage backward
     (``attention_stage_bwd``, row 8) in both views under the composition
     rule. The residues past 200 are padding (mask 0), as for a 200-residue
@@ -2570,18 +2617,23 @@ def phase_atlas_kernels(dev):
     out["residue_core_atlas"] = core
     del q, k, v, am, qkv
 
-    # ---- ipa_attention: L = 256 over the Euler-100 t grid, and L = 4; the
-    # key-tiled form at other widths (Ch, Pq, Pv) = (16, 4, 6) at L = 256 ----
+    # ---- ipa_attention: the tensor-core form at L = 256 over the Euler-100 t
+    # grid (100 elements) and at B = 1 (dopri5, training), translations
+    # across +-40 A, the 56 padded residues masked; at (Ch, Pq, Pv) =
+    # (16, 4, 6); the streaming form at L = 4 ----
     ipa = {}
-    for name, (Bn, Lc, widths) in (("L256", (STEPS * B_ATLAS, L_ATLAS, (32, 8, 8))),
-                                   ("L4", (STEPS, 4, (32, 8, 8))),
-                                   ("L256_w16_4_6", (STEPS * B_ATLAS, L_ATLAS, (16, 4, 6)))):
+    for name, (Bn, Lc, widths, spread) in (("L256", (STEPS * B_ATLAS, L_ATLAS, (32, 8, 8), 40.0)),
+                                           ("L256_B1", (B_ATLAS, L_ATLAS, (32, 8, 8), 40.0)),
+                                           ("L4", (STEPS, 4, (32, 8, 8), None)),
+                                           ("L256_w16_4_6", (STEPS * B_ATLAS, L_ATLAS, (16, 4, 6),
+                                                             40.0))):
         def pad_tail(m, Lc=Lc):
             m[:, Lc - Lc * ATLAS_PAD // L_ATLAS:] = 0
 
         ipa[name] = ipa_entry(dev, f"atlas {name}", Bn, Lc, widths, pad_tail, seed=Lc + Bn,
-                              plain_reps=5)
-    out["ipa_attention"] = dict(ipa["L256"], L4=ipa["L4"], L256_w16_4_6=ipa["L256_w16_4_6"])
+                              plain_reps=5, spread=spread)
+    out["ipa_attention"] = dict(ipa["L256"], L256_B1=ipa["L256_B1"], L4=ipa["L4"],
+                                L256_w16_4_6=ipa["L256_w16_4_6"])
 
     # ---- row 7 (residue_rows_block) and row 8 (the stage backwards) as a whole ----
     x, dout = r(Mrows, C), r(Mrows, C, dtype=f32)
@@ -2664,6 +2716,7 @@ def phase_sim_atlas(dev):
     with Euler-100 after a warm-up (frames/s); the preset's dopri5 (accepted
     and rejected steps, evaluations); bonds and launches for both."""
     from mdgen_finetune_tpu_torch.inference import InferenceEngine
+    from mdgen_finetune_tpu_torch.ops import ipa_attention as IA
     from mdgen_finetune_tpu_torch.tasks import prep_batch
 
     cfg = atlas_config("euler")
@@ -2676,6 +2729,7 @@ def phase_sim_atlas(dev):
             fn.launches = 0
         for fn in twins:
             fn.cuda_calls = 0
+        IA.ipa_attention.forms = [0, 0, 0, 0]
 
     def read():
         return ({fn.__name__: fn.launches for fn in wrappers},
@@ -2719,6 +2773,10 @@ def phase_sim_atlas(dev):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches, twin_calls = read()
+    # row c's forms: the encoder over the t grid (100 x 256) on the tensor cores
+    launches["ipa_attention.forms"] = list(IA.ipa_attention.forms)
+    if launches["ipa_attention.forms"] != [0, 0, 0, NL]:
+        raise AssertionError(f"sim_atlas: ipa_attention's forms {launches['ipa_attention.forms']}")
     assert out.shape == (B_ATLAS, T_ATLAS, L_ATLAS, 14, 3)
     # Euler: the encoder runs once over the t grid, the trunk once per step
     checks = atlas_launch_checks("sim_atlas", launches, twin_calls, out, mask,
@@ -2735,6 +2793,9 @@ def phase_sim_atlas(dev):
     s5 = time.perf_counter() - t0
     l5, tc5 = read()
     n = e5.last_counts["evals"]
+    l5["ipa_attention.forms"] = list(IA.ipa_attention.forms)
+    if l5["ipa_attention.forms"] != [0, 0, 0, NL * n]:  # (1, 256) each evaluation
+        raise AssertionError(f"sim_atlas dopri5: ipa_attention's forms {l5['ipa_attention.forms']}")
     dopri5 = dict(sample_s=s5, **e5.last_counts, launches=l5, **atlas_launch_checks(
         "sim_atlas dopri5", l5, tc5, o5, mask,
         {"tiled_attention": 2 * NL * n, "rope_attention": NL * n, "ipa_attention": NL * n}))
@@ -3210,10 +3271,12 @@ def phase_micro_ops(dev):
     plain version (K = 2, 32 programs; the plain and the position-weighted
     sums, each within ``REL`` of its terms' magnitudes), then timed at K = 2
     and 10 (CUDA events, median of 5; the launch count is these timed
-    launches); prints the marginal-cost table. The kernel line's times are
-    those of ``dot_416x384x384`` at K = 2 (its bound: the bytes of x, the
-    only input it reads, and the products' operations, the larger; plain:
-    the same K-sums in torch)."""
+    launches); prints the marginal-cost table. With MDGEN_PARENT_CSRC the
+    parent's probe is timed the same way on the same inputs (``parent``: its
+    table beside this one). The kernel line's times are those of
+    ``dot_416x384x384`` at K = 2 (its bound: the bytes of x, the only input
+    it reads, and the products' operations, the larger, over the whole card
+    and over the probe's 32 SMs; plain: the same K-sums in torch)."""
     from mdgen_finetune_tpu_torch.tools import micro_ops as P
 
     x, y = P.inputs(dev)
@@ -3225,28 +3288,46 @@ def phase_micro_ops(dev):
         res[n] = dict(t2_ms=t2, t10_ms=t10, marginal_us=us, max_abs_err=held[n][0],
                       max_rel_err=held[n][1])
     launches = P.micro_ops.launches
-    print("micro_ops marginal cost, us per op per program (card above):", flush=True)
+    parent = None
+    if parent_lib("micro_ops") is not None:
+        parent = {}
+        with with_parent(("micro_ops",)):
+            for n in P.NAMES:
+                t2, t10, us = P.measure(x, y, n)
+                parent[n] = dict(t2_ms=t2, t10_ms=t10, marginal_us=us)
+    print("micro_ops marginal cost, us per op per program (card above)"
+          + (", parent beside it:" if parent else ":"), flush=True)
     for n, r in sorted(res.items(), key=lambda kv: -kv[1]["marginal_us"]):
-        print(f"  {r['marginal_us']:10.3f}  {n}", flush=True)
+        print(f"  {r['marginal_us']:10.3f}" + (f"  {parent[n]['marginal_us']:10.3f}" if parent else "")
+              + f"  {n}", flush=True)
     rep = "dot_416x384x384"
     # library yardstick: the same 64 products (32 programs x K = 2) of the
     # rotated x (416 x 384) and x[:384, :384], bf16, as one torch.bmm (the
     # operands stacked outside the timed call; the probe's sums not taken)
     a = torch.stack([P._rot(x[b], k) for b in range(x.shape[0]) for k in range(2)])
     wb = x[:, :384, :384].repeat_interleave(2, 0).contiguous()
+    flops = 2.0 * 416 * 384 * 384 * 2 * 32
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = dict(shape=f"{rep}: 32 programs x K = 2 (x (32, 416, 384), y (32, 416, 1536) bf16)",
                max_abs_err=max(r["max_abs_err"] for r in res.values()),
                tol=f"{P.REL} x the sum of the terms' magnitudes, per program, for the plain "
                    f"and the position-weighted sum", ms=res[rep]["t2_ms"],
+               back_to_back_ms=back_to_back_ms(lambda: P.micro_ops(x, y, rep, 2)),
                plain_ms=time_ms(lambda: P.micro_ops_plain(x, y, rep, 2), reps=3, warmup=1),
                library_ms=time_ms(lambda: torch.bmm(a, wb)),
                library_note="torch.bmm of the 64 (416 x 384) @ (384 x 384) bf16 products",
-               bound=bound_ms(nbytes(x) + 32 * 2 * 4, 2.0 * 416 * 384 * 384 * 2 * 32),
+               bound=bound_ms(nbytes(x) + 32 * 2 * 4, flops),
+               bound_32_sms_ms=flops / (PEAK_BF16_FLOPS * x.shape[0] / sms) * 1e3,
+               parent=None if parent is None else dict(
+                   ms=parent[rep]["t2_ms"], marginal_us={n: r["marginal_us"] for n, r in parent.items()}),
                launches=launches, ops=res)
     emit({"phase": "micro_ops", "ops": len(res), "launches": launches,
           "marginal_us": {n: r["marginal_us"] for n, r in res.items()},
+          "parent_marginal_us": None if parent is None else {n: r["marginal_us"] for n, r in parent.items()},
+          "t2_ms": {n: r["t2_ms"] for n, r in res.items()},
+          "parent_t2_ms": None if parent is None else {n: r["t2_ms"] for n, r in parent.items()},
           "max_rel_err": {n: r["max_rel_err"] for n, r in res.items()}, "kernel": {
-              k: v for k, v in out.items() if k != "ops"}})
+              k: v for k, v in out.items() if k not in ("ops", "parent")}})
     return out
 
 
@@ -3356,8 +3437,6 @@ def main():
     phase_train_cli(dev)
     phase_grad_across_devices(dev, train_1000_config(1), "grad_cuda_vs_cpu_1000")
     atlas = phase_atlas_kernels(dev)
-    kernels["ipa_attention"]["atlas_L256"] = atlas["ipa_attention"]
-    kernels["ipa_attention"]["shape"] += f"; ATLAS (atlas_L256): {atlas['ipa_attention']['shape']}"
     kernels["tiled_attention"]["atlas_residue_core"] = atlas["residue_core_atlas"]
     kernels["blocked_attention_bwd"] = atlas["blocked_attention_bwd"]
     atlas_sim_launches, (eng, batch, gen) = phase_sim_atlas(dev)
@@ -3446,7 +3525,7 @@ def main():
                                           "ex2_floor_ms", "ex2_per_pair", "host_ms", "form",
                                           "bits_equal_parent", "general_path", "library_note",
                                           "library_max_abs_err", "L4", "L256_w16_4_6",
-                                          "atlas_L256", "uses", "splits", "frames_N250")
+                                          "uses", "splits", "frames_N250", "bounds", "plan")
                                 if f in k}})
     for entry in line:  # row j beyond fp16's range (the repaired q and k scales)
         if entry["name"] == "blocked_attention_bwd":
@@ -3538,6 +3617,20 @@ def main():
                  "bit_identical_to_split": k["bit_identical_to_split"], "parent": k["parent"],
                  "T200": {f: v for f, v in merged["T200"].items()
                           if f not in ("shape", "phase_clock")}})
+    # row c's tensor-core form (ATLAS): launches over the Euler-100 sample
+    # (the encoder over the t grid); B = 1 is dopri5's and training's shape
+    k = atlas["ipa_attention"]
+    line.append({"name": "ipa_attention[tensor-core, ATLAS L = 256]", "route": "cuda",
+                 "source": meta["ipa_attention"][0], "replaces": meta["ipa_attention"][1],
+                 "launches": atlas_sim_launches["ipa_attention.forms"][3],
+                 "train_atlas_launches_per_step": atlas_per_step.get("ipa_attention", 0),
+                 "max_abs_err": k["max_abs_err"], "tol": k["tol"], "ms": k["ms"],
+                 "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0], "bound_by": k["bound"][1],
+                 "library_ms": k["library_ms"], "shape": k["shape"],
+                 **{f: k[f] for f in ("back_to_back_ms", "library_back_to_back_ms", "host_ms",
+                                      "parent", "parent_max_abs_err", "library_note",
+                                      "library_max_abs_err", "bounds", "plan", "resources", "form",
+                                      "L256_B1", "L256_w16_4_6", "L4")}})
     line.append({"name": "micro_ops", "route": "cuda",
                  "source": "mdgen_finetune_tpu_torch/csrc/micro_ops.cu",
                  "replaces": "tools/micro_ops.py:300 (main: the probe's pallas_call, body kernel)",
@@ -3545,7 +3638,9 @@ def main():
                  "tol": probe["tol"], "ms": probe["ms"], "plain_ms": probe["plain_ms"],
                  "bound_ms": probe["bound"][0], "bound_by": probe["bound"][1],
                  "library_ms": probe["library_ms"], "library_note": probe["library_note"],
-                 "shape": probe["shape"]})
+                 "shape": probe["shape"], "back_to_back_ms": probe["back_to_back_ms"],
+                 "bound_32_sms_ms": probe["bound_32_sms_ms"],
+                 "parent_ms": probe["parent"]["ms"] if probe["parent"] else None})
     emit({"kernels": line, "card": smi, "total_s": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

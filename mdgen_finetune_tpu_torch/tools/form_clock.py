@@ -1,9 +1,9 @@
 """The choices that the short kernels and the column sum make by size, timed on the card.
 
     python -m mdgen_finetune_tpu_torch.tools.form_clock [--parent CSRC] [--rounds 7]
-        [--only colsum,ipa_forms,special_builds] [--out FILE]
+        [--only colsum,ipa_forms,ipa_long_forms,ipa_tc_parts,special_builds] [--out FILE]
 
-Three measurements, in one process on seeded inputs. In every round each
+Five measurements, in one process on seeded inputs. In every round each
 variant of a shape runs once (the order rotated from round to round): its
 device time per call (``device_ms``: calls queued behind a sleep kernel, so
 that no call waits on the host, between two CUDA events); reported are the
@@ -23,6 +23,20 @@ host's time):
   over B elements from 100 to 6,400: the resident form and the streaming
   form (each forced), their features asserted equal: where the streaming
   form takes over.
+- ``ipa_long_forms``: ``ipa_attention`` at L = 17, 32, 48, 64 and 65, 4
+  heads, the model's widths, over 100 elements (the t grid) and 1: the
+  resident form and the tensor-core form (each forced, each held to the
+  plain version within 1e-2 of its scale: the tensor-core form's products
+  change the bits): where the tensor-core form takes over
+  (``TC_MIN_L``).
+- ``ipa_tc_parts``: the tensor-core form at (100, 256), (1, 256) and
+  (100, 300), the model's widths, translations across +-40 A: this build; a
+  ``-DMDGEN_TC_STAGING_ONLY`` build (the key ring, the lift and the splits,
+  no products: what the staging costs); a ``-DMDGEN_TC_WARPS16`` build
+  with an (element, head)'s queries in one block of up to 16 warps (its
+  keys staged and lifted once, not once per block of 8); and at B = 1
+  blocks of one warp (the plan patched): what sharing the staging across a
+  block's warps saves.
 - ``special_builds``: the L = H = 4 instance of ``ipa_attention``'s
   streaming kernel and the N = 4 instance of ``rope_attention_bwd``'s short
   body against the generic instance (a ``-DMDGEN_GENERIC_SHORT`` build of each source), at the
@@ -46,6 +60,8 @@ import torch
 from ..ops import _cuda
 
 GENERIC = "MDGEN_GENERIC_SHORT"
+TC_STAGING = "MDGEN_TC_STAGING_ONLY"  # ipa_attention's tensor-core form without its products
+TC_WARPS16 = "MDGEN_TC_WARPS16"  # ... with blocks of up to 16 warps
 C, H, L = 384, 16, 4
 COLSUM_SRC = r"""
 #include "colsum.cuh"
@@ -211,16 +227,16 @@ def measure_colsum(parent, n_rounds) -> list:
     return res
 
 
-def ipa_inputs(Bn, seed=3):
+def ipa_inputs(Bn, seed=3, length=L):
     from ..geometry.rigid import Rigid
     from ..ops import ipa_attention as IA
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    proj = torch.randn(Bn, L, IA.proj_width(4, 32, 8, 8), generator=g, device="cuda")
-    t7 = torch.randn(Bn, L, 7, generator=g, device="cuda")
+    proj = torch.randn(Bn, length, IA.proj_width(4, 32, 8, 8), generator=g, device="cuda")
+    t7 = torch.randn(Bn, length, 7, generator=g, device="cuda")
     t7[..., 4:] *= 5
     fr = Rigid.from_tensor_7(t7)
-    mask = torch.ones(Bn, L, device="cuda")
+    mask = torch.ones(Bn, length, device="cuda")
     mask[::7, -1] = 0
     hw = torch.randn(4, generator=g, device="cuda")
     return (proj, fr.rot.contiguous(), fr.trans.contiguous(), mask, hw), dict(H=4, Ch=32, Pq=8, Pv=8)
@@ -228,7 +244,7 @@ def ipa_inputs(Bn, seed=3):
 
 @contextlib.contextmanager
 def ipa_form(form):
-    """ipa_attention with every call in ``form`` (0 streaming, 1 resident)."""
+    """ipa_attention with every call in ``form`` (an index of its FORMS)."""
     from ..ops import ipa_attention as IA
 
     kept = IA._form
@@ -259,6 +275,95 @@ def measure_ipa_forms(n_rounds) -> list:
         times = rounds({"resident": run, "streaming": run}, n_rounds, 50, ctx=forms)
         res.append(dict(elements=Bn, L=L, heads=4, plan=IA.ipa_plan(Bn, L, 4, 32, 8, 8).__dict__,
                         times=times))
+    return res
+
+
+def measure_ipa_long_forms(n_rounds) -> list:
+    from ..ops import ipa_attention as IA
+
+    res = []
+    for Bn in (100, 1):
+        for Lc in (17, 32, 48, 64, 65):
+            args, kw = ipa_inputs(Bn, seed=Lc, length=Lc)
+            ref = IA.ipa_attention_plain(*args, **kw)
+            scale = max(1.0, ref.abs().max().item())
+            forms = {"resident": lambda: ipa_form(1), "tensor-core": lambda: ipa_form(3)}
+            errs = {}
+            for form, slot in (("resident", 1), ("tensor-core", 3)):
+                with forms[form]():
+                    n0 = IA.ipa_attention.forms[slot]
+                    got = IA.ipa_attention(*args, **kw)
+                    if IA.ipa_attention.forms[slot] != n0 + 1:
+                        raise AssertionError(f"ipa_long_forms[{Bn}, {Lc}]: the {form} form did not run")
+                errs[form] = (got.float() - ref).abs().max().item()
+                if not errs[form] <= 1e-2 * scale:
+                    raise AssertionError(f"ipa_long_forms[{Bn}, {Lc}]: the {form} form's error "
+                                         f"{errs[form]} > 1e-2 x {scale}")
+            run = lambda: IA.ipa_attention(*args, **kw)  # noqa: E731
+            times = rounds({"resident": run, "tensor-core": run}, n_rounds, 50, ctx=forms)
+            res.append(dict(elements=Bn, L=Lc, heads=4, max_abs_err=errs, scale=scale,
+                            plan=IA.tc_plan(Bn, Lc, 4, 32, 8, 8).__dict__, times=times))
+    return res
+
+
+@contextlib.contextmanager
+def tc_warps(warps):
+    """ipa_attention's tensor-core form in blocks of ``warps`` warps."""
+    from ..ops import ipa_attention as IA
+
+    kept = IA.tc_plan
+
+    def plan(B, L_, H_, Ch, Pq, Pv):
+        tiles = -(-L_ // 16)
+        qgroups = -(-tiles // warps)
+        return IA.TcPlan(warps, qgroups, B * H_ * qgroups, IA.tc_bytes(Ch, Pq, Pv))
+
+    IA.tc_plan = plan
+    try:
+        yield
+    finally:
+        IA.tc_plan = kept
+
+
+def measure_ipa_tc_parts(n_rounds) -> list:
+    from ..geometry.rigid import Rigid
+    from ..ops import ipa_attention as IA
+
+    staging = _cuda.variant_library("ipa_attention", TC_STAGING)
+    whole = _cuda.variant_library("ipa_attention", TC_WARPS16)
+
+    @contextlib.contextmanager
+    def one_block():
+        with swapped("ipa_attention", whole), tc_warps(16):
+            yield
+
+    res = []
+    for Bn, Lc in ((100, 256), (1, 256), (100, 300)):
+        g = torch.Generator(device="cuda").manual_seed(Bn + Lc)
+        proj = torch.randn(Bn, Lc, IA.proj_width(4, 32, 8, 8), generator=g, device="cuda")
+        fr = Rigid.from_tensor_7(torch.randn(Bn, Lc, 7, generator=g, device="cuda"))
+        trans = (torch.rand(Bn, Lc, 3, generator=g, device="cuda") * 2 - 1) * 40
+        mask = torch.ones(Bn, Lc, device="cuda")
+        mask[:, Lc - 56:] = 0
+        hw = torch.randn(4, generator=g, device="cuda")
+        args, kw = (proj, fr.rot.contiguous(), trans, mask, hw), dict(H=4, Ch=32, Pq=8, Pv=8)
+        ref = IA.ipa_attention_plain(*args, **kw)
+        run = lambda: IA.ipa_attention(*args, **kw)  # noqa: E731
+        variants = {"this build": run, "staging only": run, "one block per (element, head)": run}
+        ctx = {"staging only": lambda: swapped("ipa_attention", staging),
+               "one block per (element, head)": one_block}
+        if Bn == 1:
+            variants["one warp a block"] = run
+            ctx["one warp a block"] = lambda: tc_warps(1)
+        errs = {}
+        for n in variants:
+            if n == "staging only":
+                continue
+            with ctx[n]() if n in ctx else contextlib.nullcontext():
+                errs[n] = (run().float() - ref).abs().max().item()
+        times = rounds(variants, n_rounds, 50, ctx=ctx)
+        res.append(dict(elements=Bn, L=Lc, heads=4, plan=IA.tc_plan(Bn, Lc, 4, 32, 8, 8).__dict__,
+                        max_abs_err=errs, tol=1e-2 * max(1.0, ref.abs().max().item()), times=times))
     return res
 
 
@@ -309,7 +414,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", default=None, help="the csrc directory of another checkout")
     ap.add_argument("--rounds", type=int, default=7)
-    ap.add_argument("--only", default="colsum,ipa_forms,special_builds",
+    ap.add_argument("--only", default="colsum,ipa_forms,ipa_long_forms,ipa_tc_parts,special_builds",
                     help="the measurements to make, comma-separated")
     ap.add_argument("--out", default=None, help="also write the JSON lines to this file")
     args = ap.parse_args(argv)
@@ -322,10 +427,15 @@ def main(argv=None) -> None:
     if "special_builds" in only:
         for n in ("ipa_attention", "rope_attention_bwd"):
             _cuda.start_variant(n, GENERIC)
+    if "ipa_tc_parts" in only:
+        for macro in (TC_STAGING, TC_WARPS16):
+            _cuda.start_variant("ipa_attention", macro)
     _cuda.build_all()
     lines = []
     for name, fn in (("colsum", lambda: measure_colsum(args.parent, args.rounds)),
                      ("ipa_forms", lambda: measure_ipa_forms(args.rounds)),
+                     ("ipa_long_forms", lambda: measure_ipa_long_forms(args.rounds)),
+                     ("ipa_tc_parts", lambda: measure_ipa_tc_parts(args.rounds)),
                      ("special_builds", lambda: measure_special(args.rounds))):
         if name not in only:
             continue

@@ -24,7 +24,12 @@ one program's (416, 384), y its (416, 1536), rot(t, k) rolls t's rows by
   ``ln_f32``, ``softmax_tail``: f32 arithmetic in registers, a warp per
   row for the row reductions (shuffles for max and sum);
 - ``dot_*``, ``pair_dot_*``, ``stack_dot_*``: bf16 products on the tensor
-  cores, mma.sync m16n8k16 with f32 accumulators in the kernel's own body;
+  cores in the kernel's own body: the block is one warpgroup issuing
+  wgmma.mma_async with f32 accumulators on 64-row tiles (64 columns for
+  N = 16, whose other columns are zeros; else 128): B's K x 128 panel
+  brought once per column tile (N-major, through wgmma's transpose bit),
+  A's 64 x 64 slabs streamed through a ring of six by 16-byte cp.async
+  (its rows rolled row by row);
   ``pair`` is two 416-row products, ``stack`` one 832-row product of the
   same rows; ``dot_bf16out`` rounds each output to bf16;
   ``dot_416x16x384`` and ``dot_416x80x1920`` take f32 operands in the JAX

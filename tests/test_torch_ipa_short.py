@@ -71,8 +71,8 @@ def test_ipa_plan_every_l(H):
 
 def test_ipa_plan_refuses_and_the_forms():
     """L outside 1..16, widths other than the model's and H not a multiple
-    of 4 are not the streaming form's; they take the resident form up to
-    ``RESIDENT_MAX_L`` and the key-tiled one above."""
+    of 4 are not the streaming form's; they take the resident form at L = 4
+    and, at the model's widths, the tensor-core form from ``TC_MIN_L``."""
     for L in (0, 17, 64, 256):
         with pytest.raises(ValueError):
             IA.ipa_plan(6400, L, 4, *WIDTHS)
@@ -80,7 +80,7 @@ def test_ipa_plan_refuses_and_the_forms():
         with pytest.raises(ValueError):
             IA.ipa_plan(6400, 4, H, *widths)
         assert IA._form(6400, 4, H, *widths) == 1
-    assert [IA._form(6400, L, 4, *WIDTHS) for L in (16, 17, 64, 65, 256)] == [0, 1, 1, 2, 2]
+    assert [IA._form(6400, L, 4, *WIDTHS) for L in (16, 17, 64, 65, 256)] == [0, 3, 3, 3, 3]
 
 
 def _case(rng, B, L, H):

@@ -798,7 +798,7 @@ def test_blocked_attention_bwd_beyond_the_fp16_range_on_card():
 
 @pytest.mark.cuda
 def test_ipa_attention_tiled_matches_plain_on_card():
-    """On the card: the IPA core above ``RESIDENT_MAX_L`` (the key-tiled
+    """On the card: the IPA core above ``RESIDENT_MAX_L`` (the tensor-core
     kernel) against its plain twin at L = 65, 200 and 256 (ATLAS), with
     padded residues and one element whose frames are all masked but one."""
     if not torch.cuda.is_available():
@@ -823,6 +823,47 @@ def test_ipa_attention_tiled_matches_plain_on_card():
         p = ipa_attention_plain(proj, fr.rot, fr.trans, mask, hw, H=4, Ch=32, Pq=8, Pv=8)
         torch.cuda.synchronize()
         _close(a, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", [(32, 8, 8), (16, 4, 6)])
+def test_ipa_attention_tensor_core_form_on_card(widths):
+    """On the card: the tensor-core form of the IPA core (L > RESIDENT_MAX_L
+    at both of its widths) against its plain twin in f32 at L = 65, 100, 256
+    and 300 over B = 1 and 100 elements, with translations across +-40 A (a
+    256-residue crop's extent) and a masked tail of 56 residues in every
+    element (queries with m_q = 0 attend over every key), within
+    1e-2 x max(1, max |twin|); the same bits again, and from a proj that
+    starts 4 bytes past a 16-byte boundary (the 4-byte copies)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.ops import ipa_attention as IA
+
+    Ch, Pq, Pv = widths
+    kw = dict(H=4, Ch=Ch, Pq=Pq, Pv=Pv)
+    W = IA.proj_width(4, Ch, Pq, Pv)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    for Bc in (1, 100):
+        for Lc in (65, 100, 256, 300):
+            assert IA._form(Bc, Lc, 4, Ch, Pq, Pv) == 3
+            proj = torch.randn(Bc, Lc, W, generator=g, device="cuda")
+            fr = TRigid.from_tensor_7(torch.randn(Bc, Lc, 7, generator=g, device="cuda"))
+            rot = fr.rot.contiguous()
+            trans = (torch.rand(Bc, Lc, 3, generator=g, device="cuda") * 2 - 1) * 40
+            mask = torch.ones(Bc, Lc, device="cuda")
+            mask[:, Lc - 56:] = 0
+            hw = torch.randn(4, generator=g, device="cuda")
+            n0 = IA.ipa_attention.forms[3]
+            got = IA.ipa_attention(proj, rot, trans, mask, hw, **kw)
+            assert IA.ipa_attention.forms[3] == n0 + 1
+            ref = IA.ipa_attention_plain(proj, rot, trans, mask, hw, **kw)
+            torch.cuda.synchronize()
+            _close(got, ref)
+            assert torch.equal(IA.ipa_attention(proj, rot, trans, mask, hw, **kw), got), Lc
+            shifted = torch.empty(Bc * Lc * W + 1, device="cuda")[1:].view(Bc, Lc, W)
+            shifted.copy_(proj)
+            assert shifted.data_ptr() % 16 == 4
+            assert torch.equal(IA.ipa_attention(shifted, rot, trans, mask, hw, **kw), got), Lc
 
 
 # ---------------------------------------------------------------------------
@@ -1146,8 +1187,9 @@ def test_moved_split_kernels_match_the_parent_sources_on_card(tmp_path):
     tensor cores, which moves those bits (the short bodies were redesigned
     too, as streaming kernels, with each output's arithmetic unchanged, so
     they keep their bits); so is ipa_attention, at L = 4 (its streaming
-    form, redesigned the same way) and L = 256 (the key-tiled form).
-    linear_bwd and
+    form, redesigned the same way; at L = 256 its tensor-core form moved
+    the bits by design and is held to its plain version by the kernel
+    tests). linear_bwd and
     blocked_attention_bwd are not swapped: they were redesigned too (new
     tilings and reduction orders), and are held to their plain versions by
     the kernel tests and, through the layer, the split route to the merged
@@ -1225,7 +1267,7 @@ def test_moved_split_kernels_match_the_parent_sources_on_card(tmp_path):
     from mdgen_finetune_tpu_torch.ops.ipa_attention import ipa_attention, proj_width
 
     ipa_in = []
-    for Bi, Li in ((400, 4), (3, 256)):  # the streaming form, the key-tiled form
+    for Bi, Li in ((400, 4),):  # the streaming form
         t7 = torch.randn(Bi, Li, 7, generator=g, device="cuda")
         fr = TRigid.from_tensor_7(t7)
         m = torch.ones(Bi, Li, device="cuda")
