@@ -18,7 +18,14 @@ augmented heads, the bytes, f32 and TF32 bounds, the plan, the resources);
 three uses (trunk stage 1, base 2; the modular layer's residue attention,
 TPU row 12, natural; the encoder's residue MHA) and the streaming short
 backward (row f') at its three uses: the training path's stage 1, the
-T = 1000 training's and the merged route's residue stage at T = 200.
+T = 1000 training's and the merged route's residue stage at T = 200;
+``bwd_kernels`` holds ``modln_bwd`` (row e) at the three training shapes
+(flagship, T = 1000, ATLAS: ``shapes``, each with back to back, the host's
+time, the parent's times and bits, the bound, the plain version, the
+library yardstick, the device time of the kernel and of its split sum
+apart by the profiler, "not measured" where no trace comes back whole;
+the launches a call, one of each, asserted from a CUDA graph of one call)
+and ``train_path`` asserts its 15 calls a step.
 Then:
 
 - the sampler: one denoiser step on the card against the same step on the
@@ -92,7 +99,7 @@ form's bits asserted equal, the tensor-core form's error recorded beside
 the parent's) and ``rope_attention_bwd``'s short body (its bits asserted
 equal), of the probe (the parent's marginal-cost table beside this one), of
 ``rope_attention``'s short body, of the kernels that end in ``colsum.cuh``'s
-second pass (``linear_bwd`` at every use, ``modln_bwd``,
+second pass (``linear_bwd`` at every use, ``modln_bwd`` at three shapes,
 ``rope_attention_bwd``'s long body, ``blocked_attention_bwd``), of ``adaln_linear`` (every use), of
 ``fused_attention``'s forward (its three shapes: T = 1000 in both
 softmaxes, the ``no_rope`` frame and residue views), of the merged layer
@@ -979,23 +986,63 @@ def phase_bwd_kernels(dev):
                                                 else (v[2].shape[1], v[1].shape[1])))
                 for k, v in uses.items() if v[0] == "wgrad"})
 
-    # ---- modln_bwd at the trunk's (M, C) with B per-element rows ----
-    dh, y = r(M, C, dtype=f32), r(M, C, dtype=f32)
-    got = modln_bwd(x, dh, dout, y, scl)
-    ref = modln_bwd_plain(x.float(), dh, dout, y, scl.float())
-    e1 = check("modln_bwd.dx", got[0], ref[0], 1e-3)
-    e2 = check("modln_bwd.dmod", got[1], ref[1], 1e-3)
-    xl = x.float().requires_grad_()
-    hl = F.layer_norm(xl, (C,), eps=1e-6) * (1 + rows(scl)) + rows(sh)
-    out["modln_bwd"] = dict(
-        shape=f"({M},{C}) rows, {Bt} elements", max_abs_err=max(e1[0], e2[0]),
-        tol={"dx": e1[1], "dmod": e2[1]},
-        ms=time_ms(lambda: modln_bwd(x, dh, dout, y, scl)),
-        back_to_back_ms=back_to_back_ms(lambda: modln_bwd(x, dh, dout, y, scl)),
-        parent=parent_times("modln_bwd", lambda: modln_bwd(x, dh, dout, y, scl)),
-        plain_ms=time_ms(lambda: modln_bwd_plain(x, dh, dout, y, scl)),
-        library_ms=time_ms(lambda: torch.autograd.grad(hl, xl, dh, retain_graph=True)),
-        bound=bound_ms(nbytes(x, dh, dout, y, scl) + M * C * 4 + Bt * 3 * C * 4, 20.0 * M * C))
+    # ---- modln_bwd (row e) at the three training shapes: the flagship's
+    # (M, C) over B elements, T = 1000's and ATLAS's ----
+    from mdgen_finetune_tpu_torch.ops import modln_bwd as MBM
+    from mdgen_finetune_tpu_torch.tools import form_clock as FC
+
+    shapes = {}
+    for name, Ms, nbs in FC.MODLN_SHAPES:
+        xm, dh, dm, y, sm = FC.modln_inputs(Ms, nbs)
+        run = lambda: modln_bwd(xm, dh, dm, y, sm)  # noqa: E731
+        n0 = modln_bwd.launches
+        got = run()
+        if modln_bwd.launches != n0 + 1:
+            raise AssertionError("modln_bwd: the wrapper did not count its launch")
+        ref = modln_bwd_plain(xm.float(), dh, dm, y, sm.float())
+        e1 = check(f"modln_bwd[{name}].dx", got[0], ref[0], 1e-3)
+        e2 = check(f"modln_bwd[{name}].dmod", got[1], ref[1], 1e-3)
+        del ref
+        again = run()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"modln_bwd[{name}]: two calls differ")
+        bits_parent = None
+        if parent_lib("modln_bwd") is not None:
+            with with_parent(("modln_bwd",)):
+                before = run()
+            torch.cuda.synchronize()
+            bits_parent = all(torch.equal(a, b) for a, b in zip(got, before))
+            if not bits_parent:
+                raise AssertionError(f"modln_bwd[{name}]: the parent's bits differ")
+            del before
+        # the launches a call from a CUDA graph of one call; the profiler's
+        # count, where a trace comes back whole, must agree
+        launches = FC.kernel_nodes(run)
+        if launches != {"modln_bwd": 1, "colsum": 1}:
+            raise AssertionError(f"modln_bwd[{name}]: want the kernel and the split sum, "
+                                 f"one launch each a call; the graph holds {launches}")
+        try:
+            by_kernel, traced = FC.kernel_ms(run)
+        except FC.TraceGap as gap:
+            by_kernel, traced = f"not measured: {gap}", launches
+        if traced != launches:
+            raise AssertionError(f"modln_bwd[{name}]: the trace holds {traced} a call, "
+                                 f"the graph {launches}")
+        xl = xm.float().requires_grad_()
+        hl = F.layer_norm(xl, (C,), eps=1e-6) * (1 + sm.float().repeat_interleave(Ms // nbs, 0))
+        shapes[name] = dict(
+            shape=f"({Ms},{C}) rows, {nbs} elements", splits=MBM.plan(Ms, nbs)[0],
+            max_abs_err=max(e1[0], e2[0]), tol={"dx": e1[1], "dmod": e2[1]},
+            ms=time_ms(run), back_to_back_ms=back_to_back_ms(run), host_ms=host_ms(run),
+            parent=parent_times("modln_bwd", run), bits_equal_parent=bits_parent,
+            plain_ms=time_ms(lambda: modln_bwd_plain(xm, dh, dm, y, sm)),
+            library_ms=time_ms(lambda: torch.autograd.grad(hl, xl, dh, retain_graph=True)),
+            bound=bound_ms(nbytes(xm, dh, dm, y, sm) + Ms * C * 4 + nbs * 3 * C * 4,
+                           20.0 * Ms * C),
+            kernel_ms=by_kernel, launches_per_call=sum(launches.values()))
+        del xm, dh, dm, y, sm, got, again, xl, hl
+    out["modln_bwd"] = dict(shapes["flagship (train_path)"], shapes=shapes,
+                            resources=MBM.resources(C))
 
     # ---- rope_attention_bwd: stage 1 and stage 2 ----
     mask = torch.ones(Bt, T, L, device=dev)
@@ -1274,6 +1321,9 @@ def phase_train_path(dev, route="", ref=None):
                                  f"{losses}, {norms} vs {ref}")
     elif min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the training path never launched: {launches}")
+    elif per_step["modln_bwd"] != 3 * NL:  # row e: one call per stage and layer
+        raise AssertionError(f"{phase}: {per_step['modln_bwd']} modln_bwd calls a step, "
+                             f"want {3 * NL}")
     return {**launches, **bodies}, (losses, norms), (trainer, state, batches[0], gen)
 
 
@@ -3525,7 +3575,8 @@ def main():
                                           "ex2_floor_ms", "ex2_per_pair", "host_ms", "form",
                                           "bits_equal_parent", "general_path", "library_note",
                                           "library_max_abs_err", "L4", "L256_w16_4_6",
-                                          "uses", "splits", "frames_N250", "bounds", "plan")
+                                          "uses", "splits", "frames_N250", "bounds", "plan",
+                                          "shapes", "kernel_ms", "launches_per_call")
                                 if f in k}})
     for entry in line:  # row j beyond fp16's range (the repaired q and k scales)
         if entry["name"] == "blocked_attention_bwd":

@@ -122,6 +122,7 @@ struct Modln {
   const bf16* scale; long long ld_mod;
   float *dx, *part;
   int C, nb, rows, rows_per_split;
+  int vec;  // every row 16-byte aligned: modln::block's cp.async staging
 };
 
 struct Attn {  // rope_attention, rope_attention_bwd, blocked_attention_bwd
@@ -175,6 +176,15 @@ __device__ __noinline__ void rope_bwd_short_phase(const Attn& a, int H, int C, i
                               t, smem);
 }
 
+// modln_bwd's body as a call of its own (its row sums are J x 3 registers a
+// lane; the split kernel runs the same body at 8 warps a block)
+template <int J>
+__device__ __noinline__ void modln_phase(const Modln& m, int t, unsigned char* smem) {
+  modln::block<bf16, J, THREADS>(m.x, m.ldx, m.dh, m.dout, m.y, m.scale, m.ld_mod, m.dx, m.part,
+                                 m.C, m.nb, m.rows, m.rows_per_split, t % m.nb, t / m.nb, m.vec,
+                                 smem);
+}
+
 template <int D>
 __device__ __forceinline__ void run(const Params& P, const Job& j, int t, unsigned char* smem) {
   switch (j.kind) {
@@ -199,11 +209,16 @@ __device__ __forceinline__ void run(const Params& P, const Job& j, int t, unsign
     case WGRAD:
       lbwd::wgrad_block(P.lg[j.arg], t % j.gx, (t / j.gx) % j.gy, t / (j.gx * j.gy), smem);
       break;
-    case MODLN: {
+    case MODLN: {  // C <= 512 (ops/fused_layer_bwd_merged.py)
       const Modln& m = P.ml[j.arg];
-      modln::block<bf16, THREADS>(m.x, m.ldx, m.dh, m.dout, m.y, m.scale, m.ld_mod, m.dx, m.part,
-                                  m.C, m.nb, m.rows, m.rows_per_split, t % m.nb, t / m.nb,
-                                  reinterpret_cast<float*>(smem));
+      if (m.C <= 128)
+        modln_phase<4>(m, t, smem);
+      else if (m.C <= 256)
+        modln_phase<8>(m, t, smem);
+      else if (m.C <= 384)
+        modln_phase<12>(m, t, smem);
+      else
+        modln_phase<16>(m, t, smem);
       break;
     }
     case ROPE_FWD: {
@@ -444,9 +459,12 @@ int launch(const void* const* p, const long long* n, long long* info, cudaStream
   const int splm = (int)n[SPL_MODLN], rows = M / nb;
   const int mx[3] = {X2, X1, X_IN}, mg[3] = {DOUT, DX2, DX1}, my[3] = {Y3, YT, YL};
   const int mo[3] = {DX2, DX1, DX}, mp[3] = {PM3, PM2, PM1}, mj[3] = {6, 3, 0};
+  auto a16 = [](const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15) == 0; };
   for (int s = 0; s < 3; ++s)
     P.ml[s] = Modln{bp(mx[s]), C, fp(DH), fp(mg[s]), fp(my[s]), m(mj[s] + 1), ld_mod, fp(mo[s]),
-                    fp(mp[s]), C, nb, rows, (rows + splm - 1) / splm};
+                    fp(mp[s]), C, nb, rows, (rows + splm - 1) / splm,
+                    a16(bp(mx[s])) && a16(fp(DH)) && a16(fp(mg[s])) && a16(fp(my[s])) &&
+                        C % 8 == 0};
   // ---- attention: views (G, N, I): frame (B, T, L), residue (B*T, L, 1) ----
   const int vG[2] = {B, B * T}, vN[2] = {T, L}, vI[2] = {L, 1};
   const int ct[2] = {COS_T, COS_L}, st[2] = {SIN_T, SIN_L}, bk[2] = {BKT, BKL}, bv[2] = {BVT, BVL};
@@ -517,7 +535,7 @@ int launch(const void* const* p, const long long* n, long long* info, cudaStream
   b.wgrad(2); b.dgrad(3); b.adaln(3, 1, ap + 12); b.adaln(5, 1, ap + 20); colsum_w(0, 0, DW2, DB2);
   // P3
   b.phase = 3;
-  b.add(MODLN, 0, (long long)nb * splm); b.need(modln::smem_bytes(C)); colsum_w(2, 2, DW1, DB1);
+  b.add(MODLN, 0, (long long)nb * splm); b.need(modln::smem_bytes<bf16, THREADS>(C)); colsum_w(2, 2, DW1, DB1);
   // P4-P8 frame, P9-P13 residue
   const int dbo[2] = {DBOUT_T, DBOUT_L}, dbq[2] = {DBQKV_T, DBQKV_L};
   for (int s = 0; s < 2; ++s) {

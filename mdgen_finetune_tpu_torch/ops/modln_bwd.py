@@ -19,6 +19,11 @@ per batch element (the rows r of element b = r // (M // nb)), in f32:
 into ``dmod`` (nb, 3C) as [dsh | dsc | dg] (a row view may be given). The
 LayerNorm is non-affine with eps 1e-6; mean, rstd and h_hat are recomputed
 per row in f32.
+
+The kernel's sums follow a fixed tree (``csrc/modln_bwd.cu``): ``plan``
+cuts each element's rows into runs, one block each, whose eight warps sum
+every eighth row; a second launch adds the runs' partials. Two launches a
+call. Rows of up to ``MAX_C`` columns.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from . import _cuda
 _ARGTYPES = [_cuda.P, _cuda.I64, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.I64,
              _cuda.P, _cuda.P, _cuda.I64, _cuda.P, _cuda.I32, _cuda.I32, _cuda.I32,
              _cuda.I32, _cuda.I32, _cuda.P]
+MAX_C = 512  # the widest row the kernel takes (csrc/modln_bwd.cu)
 
 
 def modln_bwd_plain(x, dh, dout, y, scale, dmod=None):
@@ -69,6 +75,25 @@ def _splits(rows: int, nb: int) -> int:
     return max(1, min(rows // 8, -(-264 // nb)))
 
 
+def plan(M: int, nb: int) -> tuple:
+    """(splits, rows_per_split) of a call over M rows of nb elements: the
+    grid is (nb, splits) blocks."""
+    rows = M // nb
+    splits = _splits(rows, nb)
+    return splits, -(-rows // splits)
+
+
+def resources(C: int, x_f32: bool = False) -> dict:
+    """The launch resources of the kernel at width ``C`` (on the card):
+    registers and local (spill) bytes per thread, dynamic shared memory per
+    block, resident blocks per SM."""
+    fn = _cuda.built("modln_bwd").modln_bwd_resources
+    fn.argtypes = [_cuda.I32, _cuda.I32, _cuda.P]
+    info = (_cuda.I64 * 4)()
+    _cuda.check(fn(int(x_f32), C, info), "modln_bwd_resources")
+    return dict(registers=info[0], local_bytes=info[1], smem_bytes=info[2], blocks_per_sm=info[3])
+
+
 def modln_bwd(x, dh, dout, y, scale, dmod=None):
     """The LN-modulate adjoint: the kernel on CUDA tensors, the plain
     version on CPU tensors (see the module docstring). Returns (dx, dmod)."""
@@ -81,20 +106,21 @@ def modln_bwd(x, dh, dout, y, scale, dmod=None):
     for name, t in (("dh", dh), ("dout", dout), ("y", y)):
         if t.dtype != torch.float32 or tuple(t.shape) != (M, C) or not t.is_contiguous():
             raise ValueError(f"modln_bwd: {name} must be a contiguous f32 ({M}, {C}) tensor")
+    if C > MAX_C:
+        raise ValueError(f"modln_bwd: rows of {C} > {MAX_C} columns are not taken")
     if scale.dtype != torch.bfloat16 or scale.stride(1) != 1 or scale.shape[1] != C or M % nb:
         raise ValueError("modln_bwd: scale must be bf16 (nb, C) rows, nb dividing M")
     if dmod is None:
         dmod = torch.empty(nb, 3 * C, dtype=torch.float32, device=x.device)
     elif dmod.dtype != torch.float32 or tuple(dmod.shape) != (nb, 3 * C) or dmod.stride(1) != 1:
         raise ValueError(f"modln_bwd: dmod must be an f32 ({nb}, {3 * C}) row view")
-    rows = M // nb
-    splits = _splits(rows, nb)
+    splits, _ = plan(M, nb)
     dx = torch.empty(M, C, dtype=torch.float32, device=x.device)
-    scratch = torch.empty(splits * nb * 3 * C, dtype=torch.float32, device=x.device)
+    part = torch.empty(splits * nb * 3 * C, dtype=torch.float32, device=x.device)
     lib = _cuda.library("modln_bwd", _ARGTYPES)
     code = lib.modln_bwd(x.data_ptr(), x.stride(0), dh.data_ptr(), dout.data_ptr(), y.data_ptr(),
                          scale.data_ptr(), scale.stride(0), dx.data_ptr(), dmod.data_ptr(),
-                         dmod.stride(0), scratch.data_ptr(), int(x.dtype == torch.float32),
+                         dmod.stride(0), part.data_ptr(), int(x.dtype == torch.float32),
                          M, C, nb, splits, _cuda.stream_ptr(x))
     _cuda.check(code, "modln_bwd")
     modln_bwd.launches += 1

@@ -1,9 +1,9 @@
 """The choices that the short kernels and the column sum make by size, timed on the card.
 
     python -m mdgen_finetune_tpu_torch.tools.form_clock [--parent CSRC] [--rounds 7]
-        [--only colsum,ipa_forms,ipa_long_forms,ipa_tc_parts,special_builds] [--out FILE]
+        [--only colsum,ipa_forms,ipa_long_forms,ipa_tc_parts,special_builds,modln] [--out FILE]
 
-Five measurements, in one process on seeded inputs. In every round each
+Six measurements, in one process on seeded inputs. In every round each
 variant of a shape runs once (the order rotated from round to round): its
 device time per call (``device_ms``: calls queued behind a sleep kernel, so
 that no call waits on the host, between two CUDA events); reported are the
@@ -41,6 +41,16 @@ host's time):
   streaming kernel and the N = 4 instance of ``rope_attention_bwd``'s short
   body against the generic instance (a ``-DMDGEN_GENERIC_SHORT`` build of each source), at the
   paths' shapes, bits asserted equal.
+- ``modln``: ``modln_bwd`` (row e) at the three training shapes (12,800,
+  32,000 and 64,000 rows of 384 over 32, 8 and 1 elements): this build
+  (the staged kernel, then ``colsum::launch``) and, with ``--parent``, that
+  checkout's ``modln_bwd`` through this wrapper, its dx and dmod checked
+  against this build's bits (``bits_equal``; a difference fails the run
+  after the line is printed). Also the device time and the launches per
+  call of each kernel of both (``kernel_ms``, ``launches``: torch.profiler,
+  the main kernel and the split sum apart), the host's time per call of
+  this wrapper and of the parent's through it (``host_ms``), the bound and
+  this build's resources.
 
 Prints the card's name and power limit, then one JSON line per measurement.
 """
@@ -53,6 +63,7 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -63,6 +74,10 @@ GENERIC = "MDGEN_GENERIC_SHORT"
 TC_STAGING = "MDGEN_TC_STAGING_ONLY"  # ipa_attention's tensor-core form without its products
 TC_WARPS16 = "MDGEN_TC_WARPS16"  # ... with blocks of up to 16 warps
 C, H, L = 384, 16, 4
+# row e's shapes on the training paths: (name, rows, elements) at C = 384
+MODLN_SHAPES = (("flagship (train_path)", 32 * 100 * L, 32),
+                ("T = 1000 (train_1000)", 8 * 1000 * L, 8),
+                ("ATLAS (train_atlas)", 250 * 256, 1))
 COLSUM_SRC = r"""
 #include "colsum.cuh"
 extern "C" int cs_launch(const float* in, float* out, long long R, long long W, void* s) {
@@ -410,11 +425,180 @@ def measure_special(n_rounds) -> list:
     return res
 
 
+def host_ms(fn, n=100):
+    """The host's time per call of ``fn`` while the card sleeps through a
+    kernel queued first (no call waits on the card)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    return dt
+
+
+class TraceGap(RuntimeError):
+    """No profiler trace held whole launches a call (the card's profiler can
+    drop a trace's device events); ``seen`` holds each trace's counts."""
+
+    def __init__(self, seen):
+        super().__init__(f"{len(seen)} profiler traces, none holds whole launches a call; "
+                         f"launches seen by kernel: {seen}")
+        self.seen = seen
+
+
+def _kernel_key(name: str) -> str:
+    return next((m for m in ("modln_bwd", "colsum") if m in name), name[:48])
+
+
+def kernel_ms(run, calls=20, traces=5) -> tuple:
+    """Device ms and launches per call of ``run()`` by kernel (``modln_bwd``,
+    ``colsum``, or the name): a torch.profiler trace of ``calls`` calls,
+    after a step that warms the profiler up. A trace that holds no device
+    event, or a count of some kernel's launches that is not a whole number
+    a call, is taken again; after ``traces`` such traces it raises
+    ``TraceGap``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    seen = []
+    for _ in range(traces):
+        got = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: got.append(p.events())) as prof:
+            for _ in range(2):
+                for _ in range(calls):
+                    run()
+                torch.cuda.synchronize()
+                prof.step()
+        ms, n = {}, {}
+        for e in got[0] if got else ():
+            if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep"):
+                k = _kernel_key(e.name)
+                ms[k] = ms.get(k, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+                n[k] = n.get(k, 0) + 1
+        if n and all(v % calls == 0 for v in n.values()):
+            return ms, {k: v // calls for k, v in n.items()}
+        seen.append(n)
+    raise TraceGap(seen)
+
+
+def _cu(code: int, what: str) -> None:
+    if code:
+        raise RuntimeError(f"{what}: CUresult {code}")
+
+
+def kernel_nodes(run) -> dict:
+    """Launches of one ``run()`` by kernel (named as in ``kernel_ms``),
+    counted without the profiler: the call is captured into a CUDA graph,
+    which is never replayed, and the graph's nodes are read through the
+    driver API. A node that is not a kernel counts under its type."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    P, byref = ctypes.c_void_p, ctypes.byref
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        run()
+    g = P(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    _cu(cu.cuGraphGetNodes(g, None, byref(n)), "cuGraphGetNodes")
+    nodes = (P * n.value)()
+    _cu(cu.cuGraphGetNodes(g, nodes, byref(n)), "cuGraphGetNodes")
+    out = {}
+    for node in nodes:
+        kind = ctypes.c_int()
+        _cu(cu.cuGraphNodeGetType(P(node), byref(kind)), "cuGraphNodeGetType")
+        key = f"node type {kind.value}"
+        if kind.value == 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            # CUDA_KERNEL_NODE_PARAMS_v2: func first, kern at byte 64
+            params = (P * 16)()
+            _cu(cu.cuGraphKernelNodeGetParams_v2(P(node), params), "cuGraphKernelNodeGetParams")
+            name = ctypes.c_char_p()
+            if params[0]:
+                _cu(cu.cuFuncGetName(byref(name), P(params[0])), "cuFuncGetName")
+            else:
+                _cu(cu.cuKernelGetName(byref(name), P(params[8])), "cuKernelGetName")
+            key = _kernel_key(name.value.decode())
+        out[key] = out.get(key, 0) + 1
+    del graph
+    return out
+
+
+def modln_inputs(M, nb, seed=9):
+    """Seeded inputs of ``modln_bwd`` at (M, C) over nb elements: x in bf16,
+    dh, dout, y in f32, the scale rows in bf16."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(M, C, generator=g, device="cuda").bfloat16()
+    dh, dout, y = (torch.randn(M, C, generator=g, device="cuda") for _ in range(3))
+    scale = (0.3 * torch.randn(nb, C, generator=g, device="cuda")).bfloat16()
+    return x, dh, dout, y, scale
+
+
+def modln_bound_ms(M, nb):
+    """Bytes over 3.35 TB/s: x (bf16), dh, dout, y read and dx written (f32),
+    the scale rows read and dmod written."""
+    return (M * C * (2 + 3 * 4 + 4) + nb * C * 2 + nb * 3 * C * 4) / 3.35e9
+
+
+def parent_modln(parent):
+    """``modln_bwd`` built from another checkout's csrc directory."""
+    out = _cuda.BUILD / "form_clock"
+    out.mkdir(parents=True, exist_ok=True)
+    so = out / "modln_bwd_parent.so"
+    subprocess.run([_cuda.nvcc(), *_cuda.FLAGS, "-o", str(so), str(Path(parent) / "modln_bwd.cu")],
+                   check=True, stdout=subprocess.DEVNULL)
+    return ctypes.CDLL(str(so))
+
+
+def measure_modln(parent, n_rounds) -> list:
+    from ..ops import modln_bwd as MB
+
+    builds = {}
+    plib = parent_modln(parent) if parent else None
+    if plib is not None:
+        builds["parent"] = plib
+    res = []
+    for name, M, nb in MODLN_SHAPES:
+        args = modln_inputs(M, nb)
+
+        def run():
+            return MB.modln_bwd(*args)
+
+        splits, per = MB.plan(M, nb)
+        ctx = {k: (lambda lib=lib: swapped("modln_bwd", lib)) for k, lib in builds.items()}
+        ref = run()
+        bits = {}
+        for k, c in ctx.items():
+            with c():
+                got = run()
+            torch.cuda.synchronize()
+            bits[k] = all(torch.equal(a, b) for a, b in zip(got, ref))
+        times = rounds({"this": run, **{k: run for k in ctx}}, n_rounds, 50, ctx=ctx)
+        by_kernel, launches = {}, {}
+        for k in ("this", *ctx):
+            with ctx[k]() if k in ctx else contextlib.nullcontext():
+                by_kernel[k], launches[k] = kernel_ms(run)
+        host = {"this": host_ms(run)}
+        if plib is not None:
+            with ctx["parent"]():
+                host["parent"] = host_ms(run)
+        res.append(dict(shape=name, rows=M, elements=nb, C=C, splits=splits,
+                        rows_per_split=per, blocks=nb * splits,
+                        bound_ms=modln_bound_ms(M, nb), bits_equal=bits, times=times,
+                        kernel_ms=by_kernel, launches=launches, host_ms=host,
+                        resources=MB.resources(C)))
+        del args, ref
+    return res
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", default=None, help="the csrc directory of another checkout")
     ap.add_argument("--rounds", type=int, default=7)
-    ap.add_argument("--only", default="colsum,ipa_forms,ipa_long_forms,ipa_tc_parts,special_builds",
+    ap.add_argument("--only",
+                    default="colsum,ipa_forms,ipa_long_forms,ipa_tc_parts,special_builds,modln",
                     help="the measurements to make, comma-separated")
     ap.add_argument("--out", default=None, help="also write the JSON lines to this file")
     args = ap.parse_args(argv)
@@ -436,13 +620,18 @@ def main(argv=None) -> None:
                      ("ipa_forms", lambda: measure_ipa_forms(args.rounds)),
                      ("ipa_long_forms", lambda: measure_ipa_long_forms(args.rounds)),
                      ("ipa_tc_parts", lambda: measure_ipa_tc_parts(args.rounds)),
-                     ("special_builds", lambda: measure_special(args.rounds))):
+                     ("special_builds", lambda: measure_special(args.rounds)),
+                     ("modln", lambda: measure_modln(args.parent, args.rounds))):
         if name not in only:
             continue
         lines.append(json.dumps(dict(measurement=name, card=smi, rows=fn())))
         print(lines[-1], flush=True)
     if args.out:
         Path(args.out).write_text("\n".join(lines) + "\n")
+    differ = [(r["shape"], k) for ln in lines for r in json.loads(ln)["rows"]
+              for k, same in r.get("bits_equal", {}).items() if not same]
+    if differ:
+        sys.exit(f"form_clock: modln_bwd's bits differ from this build's: {differ}")
 
 
 if __name__ == "__main__":

@@ -21,8 +21,9 @@ runs, ms):
   phase's main work (``SPLIT_CALLS``; a torch.profiler trace of
   ``layer_bwd_split`` on the same inputs after a warm-up step of the
   profiler, its launches told apart by a marker kernel before each wrapper
-  call; a trace without 25 markers is taken again, three without fail the
-  run). A split call's
+  call; a trace without 25 markers is taken again, ``split_traces`` says
+  how many were taken; after ``TRACES`` such traces the split side is
+  reported as not measured, with the markers each trace held). A split call's
   prologues and column sums, which the merged kernel runs in neighbouring
   phases, stay with its main product.
 
@@ -44,6 +45,8 @@ import torch
 from ..ops import _cuda
 from ..ops import fused_layer_bwd as FB
 from ..ops import fused_layer_bwd_merged as FM
+
+TRACES = 5  # profiler traces taken for the split side before it goes unmeasured
 
 PHASES = (
     "P0 recompute fc1 + GELU, qkv_t, qkv_l; LN statistics; dOUT g8",
@@ -134,7 +137,8 @@ def events_ms(fn, reps):
 
 def split_by_phase(args):
     """Device ms of the split route's wrapper calls (SPLIT_CALLS), summed by
-    the merged phase that runs each call's main work."""
+    the merged phase that runs each call's main work: (by phase, by call,
+    traces taken); (None, why, traces taken) where no trace held every call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -153,8 +157,8 @@ def split_by_phase(args):
         return call
 
     def trace():
-        """The marked calls' device ms from one trace, or None where the
-        trace does not hold every call."""
+        """The marked calls' device ms from one trace (a list with one
+        entry per marker seen)."""
         # the first step only warms the profiler up (a trace's first kernels
         # can go unrecorded); the second is read
         traces = []
@@ -166,7 +170,7 @@ def split_by_phase(args):
                 torch.cuda.synchronize()
                 prof.step()
         if len(traces) != 1:
-            return None
+            return []
         dev = sorted((e for e in traces[0] if e.device_type == DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
         calls = []
@@ -175,27 +179,29 @@ def split_by_phase(args):
                 calls.append(0.0)
             elif calls:
                 calls[-1] += e.time_range.elapsed_us() / 1e3
-        return calls if len(calls) == len(SPLIT_CALLS) else None
+        return calls
 
     for (m, n), fn in kept.items():
         setattr(m, n, marked(fn))
+    seen = []
     try:
         # a trace can come back without the card's kernels (a CUPTI
-        # hiccup on the card's machine): up to three traces are taken
-        for _ in range(3):
+        # hiccup on the card's machine): up to TRACES traces are taken
+        for taken in range(1, TRACES + 1):
             calls = trace()
-            if calls is not None:
+            if len(calls) == len(SPLIT_CALLS):
                 break
+            seen.append(len(calls))
     finally:
         for (m, n), fn in kept.items():
             setattr(m, n, fn)
-    if calls is None:
-        raise RuntimeError(f"split_by_phase: three profiler traces, none holds the "
-                           f"{len(SPLIT_CALLS)} marked wrapper calls")
+    if len(seen) == TRACES:
+        return None, (f"not measured: {TRACES} profiler traces held {seen} of the "
+                      f"{len(SPLIT_CALLS)} marked wrapper calls"), TRACES
     per = [0.0] * len(PHASES)
     for (_, p), ms in zip(SPLIT_CALLS, calls):
         per[p] += ms
-    return per, {name: ms for (name, _), ms in zip(SPLIT_CALLS, calls)}
+    return per, {name: ms for (name, _), ms in zip(SPLIT_CALLS, calls)}, taken
 
 
 def phase_table(stamps, grid):
@@ -241,9 +247,9 @@ def measure(name, Bc, Tc, reps, lib):
         torch.cuda.synchronize()
         runs.append(phase_table(clock, grid))
     med = [[statistics.median(r[p][k] for r in runs) for k in range(4)] for p in range(len(PHASES))]
-    split, calls = split_by_phase(args)
+    split, calls, taken = split_by_phase(args)
     rows = [dict(phase=PHASES[p], phase_ms=m[0], busy_mean_ms=m[1], busy_max_ms=m[2],
-                 wait_mean_ms=m[3], split_ms=split[p])
+                 wait_mean_ms=m[3], split_ms=None if split is None else split[p])
             for p, m in enumerate(med)]
     return dict(
         shape=name, B=Bc, T=Tc, L=L, C=C, heads=H, grid=grid, blocks_per_sm=int(info[1]),
@@ -253,7 +259,8 @@ def measure(name, Bc, Tc, reps, lib):
         split_ms=events_ms(lambda: FB.layer_bwd_split(*args), reps),
         phase_sum_ms=sum(r["phase_ms"] for r in rows),
         wait_sum_ms=sum(r["wait_mean_ms"] for r in rows),
-        split_device_ms=sum(split), split_calls=calls)
+        split_device_ms=None if split is None else sum(split), split_calls=calls,
+        split_traces=taken)
 
 
 def main(argv=None) -> None:
@@ -280,7 +287,7 @@ def main(argv=None) -> None:
         for r in res["phases"]:
             print(f"  {r['phase'][:4]:5s} span {r['phase_ms']:.3f}  busy {r['busy_mean_ms']:.3f}"
                   f" / {r['busy_max_ms']:.3f}  wait {r['wait_mean_ms']:.3f}  split "
-                  f"{r['split_ms']:.3f}",
+                  f"{r['split_ms']}",
                   flush=True)
     if args.out:
         with open(args.out, "w") as f:

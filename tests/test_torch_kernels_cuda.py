@@ -149,6 +149,79 @@ def test_backward_kernels_match_plain_on_card():
             _close(a, b)
 
 
+MODLN_SHAPES = {"flagship": (32 * 100 * 4, 32), "train_1000": (8 * 1000 * 4, 8),
+                "train_atlas": (250 * 256, 1)}  # (rows, elements) at C = 384
+
+
+def _modln_inputs(M, nb, C=384, seed=3, pad=0, x_dtype=torch.bfloat16):
+    """Seeded modln_bwd inputs on the card; ``pad`` > 0 gives x as a row
+    view of a (M, C + pad) buffer (pad 1: rows off 16-byte boundaries)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xb = (torch.randn(M, C + pad, generator=g, device="cuda") * 1.5 + 0.3).to(x_dtype)
+    dh, dout, y = (torch.randn(M, C, generator=g, device="cuda") for _ in range(3))
+    scale = (0.3 * torch.randn(nb, C, generator=g, device="cuda")).bfloat16()
+    return xb[:, :C], dh, dout, y, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(MODLN_SHAPES))
+def test_modln_bwd_at_the_training_shapes_on_card(shape):
+    """On the card: modln_bwd (row e) against its plain version (f32, the
+    same inputs) within 1e-3 of each output's scale at the flagship, T = 1000
+    and ATLAS training shapes (32, 8 and 1 elements): x in bf16 and in f32,
+    x as a row view whose rows start on 16-byte boundaries and one whose rows
+    do not (the kernel's plain-copy path), dmod as a row view of a wider
+    buffer; two calls give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.ops.modln_bwd import modln_bwd, modln_bwd_plain
+
+    M, nb = MODLN_SHAPES[shape]
+    C = 384
+    for kw in (dict(), dict(x_dtype=torch.float32), dict(pad=8), dict(pad=1)):
+        x, dh, dout, y, scale = _modln_inputs(M, nb, **kw)
+        n0 = modln_bwd.launches
+        view = torch.full((nb, 4 * C), 7.0, device="cuda")[:, C:]
+        dx, dmod = modln_bwd(x, dh, dout, y, scale, dmod=view)
+        assert dmod.data_ptr() == view.data_ptr() and modln_bwd.launches == n0 + 1
+        rdx, rdmod = modln_bwd_plain(x.float(), dh, dout, y, scale.float())
+        _close(dx, rdx, 1e-3)
+        _close(dmod, rdmod, 1e-3)
+        again = modln_bwd(x, dh, dout, y, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(again[0], dx) and torch.equal(again[1], dmod), kw
+
+
+MODLN_WIDTHS = {200: (2400, 3), 448: (3200, 4)}  # C: (rows, elements)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", sorted(MODLN_WIDTHS))
+def test_modln_bwd_at_other_widths_on_card(C):
+    """On the card: modln_bwd at widths off the training path's 384 (C =
+    200, J = 8; 448, J = 16: both routes run the staged body up to 512)
+    against its plain version within 1e-3 of each output's scale, x in bf16
+    and in f32, rows on and off 16-byte boundaries; each instance builds
+    without spills; rows wider than the kernel's MAX_C raise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.ops import modln_bwd as MB
+
+    M, nb = MODLN_WIDTHS[C]
+    for kw in (dict(), dict(x_dtype=torch.float32), dict(pad=1)):
+        x, dh, dout, y, scale = _modln_inputs(M, nb, C=C, **kw)
+        dx, dmod = MB.modln_bwd(x, dh, dout, y, scale)
+        rdx, rdmod = MB.modln_bwd_plain(x.float(), dh, dout, y, scale.float())
+        _close(dx, rdx, 1e-3)
+        _close(dmod, rdmod, 1e-3)
+    for x_f32 in (False, True):
+        res = MB.resources(C, x_f32)
+        assert res["local_bytes"] == 0 and res["blocks_per_sm"] >= 1, (C, x_f32, res)
+    wide = MB.MAX_C + 8
+    with pytest.raises(ValueError, match="not taken"):
+        MB.modln_bwd(*_modln_inputs(16, 2, C=wide))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,K,N,nb", [(1203, 200, 72, 3), (40, 8, 136, 2), (2400, 384, 1152, 4)])
 def test_linear_bwd_tiling_edges_on_card(M, K, N, nb):
@@ -1177,8 +1250,13 @@ def test_moved_split_kernels_match_the_parent_sources_on_card(tmp_path):
     headers (modln_bwd) give the outputs of another checkout's sources of
     the same kernels bit for bit, at the merged path's shapes (T = 100 and
     200): a change to a shared header must not move the split route's
-    numbers. adaln_linear is not swapped: its products moved to wgmma (a
-    new order of the sums), and it is held to its plain version by the
+    numbers. modln_bwd (redesigned as a staged kernel, each output's
+    arithmetic pinned to the first version's rounding) is also held alone
+    at the three training shapes (flagship, T = 1000, ATLAS) and at C =
+    200 and 448 (where the other sources may run a body of their own for
+    rows wider than 384), bf16 and f32 x. adaln_linear is not
+    swapped: its products moved to wgmma (a new order of the sums), and it
+    is held to its plain version by the
     kernel tests and, through the layer, the split route to the merged
     route bit for bit. rope_attention
     and rope_attention_bwd are held to the other sources only at N = 4
@@ -1250,6 +1328,20 @@ def test_moved_split_kernels_match_the_parent_sources_on_card(tmp_path):
         torch.cuda.synchronize()
         differ = [i for i, (a, b) in enumerate(zip(outs[Tc], before)) if not torch.equal(a, b)]
         assert not differ, (Tc, differ)
+
+    from mdgen_finetune_tpu_torch.ops.modln_bwd import modln_bwd
+
+    cases = [(shape, M, nb, 384) for shape, (M, nb) in sorted(MODLN_SHAPES.items())]
+    cases += [(f"C = {C}", M, nb, C) for C, (M, nb) in sorted(MODLN_WIDTHS.items())]
+    for shape, M, nb, C in cases:
+        for dt in (torch.bfloat16, torch.float32):
+            args = _modln_inputs(M, nb, C=C, x_dtype=dt)
+            now = modln_bwd(*args)
+            before = swapped(names, lambda: modln_bwd(*args))
+            torch.cuda.synchronize()
+            differ = [i for i, (a, b) in enumerate(zip(now, before)) if not torch.equal(a, b)]
+            assert not differ, (shape, dt, differ)
+            del args, now, before
 
     from mdgen_finetune_tpu_torch.ops.rope_attention import rope_attention
     from mdgen_finetune_tpu_torch.ops.rope_attention_bwd import rope_attention_bwd
