@@ -40,6 +40,17 @@ Then:
   preset's dopri5 at B = 1 (accepted / rejected steps, evaluations); a
   trace of one B = 8 sample; the ``sim_inference`` CLI writing a
   2,000-frame PDB (dopri5) from a ``Trainer`` checkpoint, parsed back;
+- the transition-path preset (``preset_4aa_tps``: T = 100, same width,
+  the doubled offsets, the encoder's token pair over the start and end
+  frames) over synthetic endpoints: ``tps_main`` (B = 64 Euler-100 on the
+  flat chain, no ``forward_inference`` call; B = 1 dopri5; launches as
+  derived, the encoder's equal to ``main_path``'s over twice the elements;
+  the paired encoder against its two passes; one velocity card-vs-CPU),
+  ``tps_trace``, ``tps_cli`` (a released-format ``.ckpt`` of the random
+  weights, ``tps_inference --torch_ckpt`` on a 300-frame synthetic "AGHK"
+  trajectory: 2 paths, the end structure conditioned) and
+  ``upsampling_cli`` (``preset_4aa_upsampling`` from a ``Trainer``
+  checkpoint, Euler-100, 2 windows of 1,000 frames);
 - training: the loss and every parameter's gradient on the card (bf16
   kernels) against the CPU (f32 twins) at full width, B = 2; the flagship
   config trained through ``Trainer`` at B = 32, T = 100, L = 4 (2 warm-up
@@ -1999,14 +2010,12 @@ def phase_main_path(dev, cfg):
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     if any(twin_calls.values()):
         raise AssertionError(f"plain twins ran on the card: {twin_calls}")
-    return {**launches, "rope_attention.bodies": bodies}, (eng, batch, gen)
+    return ({**launches, "rope_attention.bodies": bodies, "per_sample": per_sample},
+            (eng, batch, gen))
 
 
-def sample_checks(name, out, mask, launches, twin_calls, evals):
-    """Finite output, ideal backbone bonds, the plain twins idle and, at
-    T = 1000, the frame stage on ``tiled_attention`` (once per layer per
-    velocity evaluation) with ``rope_attention`` serving only stage 1 and
-    the encoder."""
+def output_checks(name, out, mask, twin_calls):
+    """Finite output, ideal backbone bonds and the plain twins idle."""
     if not torch.isfinite(out).all():
         raise AssertionError(f"{name}: non-finite output")
     n_ca, ca_c = bonds(out.cpu(), mask.cpu())
@@ -2015,10 +2024,18 @@ def sample_checks(name, out, mask, launches, twin_calls, evals):
         raise AssertionError(f"{name}: backbone bonds off: N-CA {dev_nca}, CA-C {dev_cac}")
     if any(twin_calls.values()):
         raise AssertionError(f"{name}: plain twins ran on the card: {twin_calls}")
-    if launches["tiled_attention"] != NL * evals:
-        raise AssertionError(f"{name}: tiled_attention launched {launches}, not {NL} per evaluation")
     return dict(n_ca_mean=n_ca.mean().item(), ca_c_mean=ca_c.mean().item(),
                 n_ca_max_dev=dev_nca, ca_c_max_dev=dev_cac)
+
+
+def sample_checks(name, out, mask, launches, twin_calls, evals):
+    """``output_checks``, and at T = 1000 the frame stage on
+    ``tiled_attention`` (once per layer per velocity evaluation) with
+    ``rope_attention`` serving only stage 1 and the encoder."""
+    checks = output_checks(name, out, mask, twin_calls)
+    if launches["tiled_attention"] != NL * evals:
+        raise AssertionError(f"{name}: tiled_attention launched {launches}, not {NL} per evaluation")
+    return checks
 
 
 def phase_sim_1000(dev):
@@ -2130,6 +2147,308 @@ def phase_sim_cli(dev):
         raise AssertionError(f"sim_cli: {len(models)} models of {residues} residues")
     if not np.isfinite(pos).all() or dev_nca > 1e-2 or dev_cac > 1e-2:
         raise AssertionError(f"sim_cli: backbone bonds off: N-CA {dev_nca}, CA-C {dev_cac}")
+
+
+def tps_config(method="euler", steps=None):
+    """``preset_4aa_tps`` at full width (5 x 384, 16 heads, prepend-IPA
+    4 x 32, abs_pos_emb, L = 4, T = 100, bf16) with the given ODE sampler
+    (the preset's own is dopri5)."""
+    from mdgen_finetune_tpu_torch.config import ModelConfig, TransportConfig, preset_4aa_tps
+
+    return preset_4aa_tps(
+        model=ModelConfig(num_layers=NL, embed_dim=C, mha_heads=H, prepend_ipa=True,
+                          abs_pos_emb=True, use_bf16=True),
+        transport=TransportConfig(sampling_method=method, inference_steps=steps or STEPS),
+        workdir=str(SCRATCH))
+
+
+def make_endpoints(eng, n, seed, dev):
+    """Synthetic endpoint windows of the transition-path task, featurized:
+    frames 0..T-2 hold a start structure and frame T-1 an end structure of
+    the same sequence (backbone frames moved by ~1 rad and ~3 A, new
+    torsions), built by the port's own reconstruction; the first element's
+    last residue is padding. Returns (batch, mask)."""
+    from mdgen_finetune_tpu_torch.data.featurize import featurize_atom14_batch
+    from mdgen_finetune_tpu_torch.geometry import frames as G
+    from mdgen_finetune_tpu_torch.geometry.rigid import Rigid
+
+    g = torch.Generator().manual_seed(seed)
+    seqres = torch.randint(0, 20, (n, L), generator=g)
+    t7 = torch.randn(2, n, L, 7, generator=g)
+    t7[..., 4:] = torch.arange(L)[:, None] * 3.8 + t7[..., 4:]
+    t7[1] = t7[0] + torch.randn(n, L, 7, generator=g) * torch.tensor([0.5] * 4 + [3.0] * 3)
+    ang = (torch.rand(2, n, L, 7, generator=g) * 2 - 1) * torch.pi
+    ends = G.frames_torsions_to_atom14(Rigid.from_tensor_7(t7),
+                                       torch.stack([ang.sin(), ang.cos()], -1),
+                                       seqres.expand(2, n, L))
+    frames = eng.cfg.data.num_frames
+    atom14 = ends[0][:, None].repeat(1, frames, 1, 1, 1)
+    atom14[:, -1] = ends[1]
+    mask = torch.ones(n, L)
+    mask[0, -1] = 0
+    return featurize_atom14_batch(atom14.to(dev), seqres.to(dev), mask.to(dev)), mask.to(dev)
+
+
+# launches of one velocity evaluation at T = 100 (L = 4): the trunk's embed,
+# 6 products a layer and the head; stage 1 and stage 2 of each layer;
+# and of one encoder pass (6 products, the residue MHA and the IPA a layer)
+TRUNK_PER_EVAL = {"adaln_linear": 6 * NL + 2, "rope_attention": 2 * NL, "ipa_attention": 0,
+                  "tiled_attention": 0}
+ENCODER_PER_PASS = {"adaln_linear": 6 * NL, "rope_attention": NL, "ipa_attention": NL,
+                    "tiled_attention": 0}
+
+
+def phase_tps_main(dev, sim_launches):
+    """The transition-path preset on the card (``preset_4aa_tps``: T = 100,
+    L = 4, 5 x 384, bf16, seeded random weights) over synthetic endpoints:
+    ``InferenceEngine.sample`` at B = 64 with Euler-100 on the flat chain
+    (no ``forward_inference`` call: every step one ``flat_call``; the
+    encoder's token pair over the whole t grid as one pass of 2 x 100 x 64
+    elements), then the preset's dopri5 at B = 1 through ``forward_inference``
+    / ``sample_ode`` (one encoder pass of 2 elements per evaluation); the
+    launches exactly as derived, the encoder's beside ``main_path``'s; the
+    paired encoder against its two-pass form on the card; one velocity
+    evaluation (B = 2) on the card against the CPU."""
+    from mdgen_finetune_tpu_torch.inference import InferenceEngine
+    from mdgen_finetune_tpu_torch.tasks import prep_batch
+
+    eng, sd = random_engine(dev, tps_config("euler"), seed=141)
+    batch, mask = make_endpoints(eng, B, 142, dev)
+    gen = torch.Generator(device=dev).manual_seed(143)
+    calls = {"forward_inference": 0, "flat_call": 0}
+
+    def counted(name):
+        fn = getattr(eng.model, name)
+
+        def run(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return run
+
+    for name in calls:
+        setattr(eng.model, name, counted(name))
+    eng.sample(batch, gen)  # warm-up
+    torch.cuda.synchronize()
+    wrappers, twins = fwd_counters()
+
+    def reset():
+        for fn in wrappers:
+            fn.launches = 0
+        for fn in twins:
+            fn.cuda_calls = 0
+        for k in calls:
+            calls[k] = 0
+
+    def read():
+        return ({fn.__name__: fn.launches for fn in wrappers},
+                {fn.__name__: fn.cuda_calls for fn in twins})
+
+    reset()
+    t0 = time.perf_counter()
+    out, _ = eng.sample(batch, gen)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, twin_calls = read()
+    flat_calls = dict(calls)
+    assert out.shape == (B, T, L, 14, 3)
+    checks = output_checks("tps_main", out, mask, twin_calls)
+    want = {k: STEPS * TRUNK_PER_EVAL[k] + ENCODER_PER_PASS[k] for k in TRUNK_PER_EVAL}
+    if launches != want or flat_calls != {"forward_inference": 0, "flat_call": STEPS}:
+        raise AssertionError(f"tps_main: launches {launches}, calls {flat_calls}; expected "
+                             f"{want}, {STEPS} flat calls and no forward_inference")
+    encoder = {k: launches[k] - STEPS * TRUNK_PER_EVAL[k] for k in launches}
+    sim_encoder = {k: sim_launches[k] - STEPS * TRUNK_PER_EVAL[k] for k in sim_launches}
+
+    # the paired encoder as one call against its two passes, on the card
+    m = eng.model
+    kw = prep_batch(eng.cfg, batch)["model_kwargs"]
+    with torch.no_grad():
+        pack = m.make_trunk_pack()
+        mk = kw["mask"][:, 0].float().contiguous()
+        toks = m.make_encoder_tokens(mk, kw["aatype"], kw["start_frames"], kw["end_frames"])
+        t_emb = m.embed_times(torch.full((B,), 0.4, device=dev))
+        both = m.run_ipa(t_emb, mk, kw["start_frames"], kw["end_frames"], toks, pack)
+        two = (m.run_ipa(t_emb, mk, kw["start_frames"], None, toks[1:], pack)
+               + m.run_ipa(t_emb, mk, kw["end_frames"], None, toks[:1], pack))
+    pair_err = (both.float() - two.float()).abs().max().item()
+    pair_tol = 1e-2 * max(1.0, two.float().abs().max().item())
+    if not pair_err <= pair_tol:
+        raise AssertionError(f"tps_main: the paired encoder off its two passes by {pair_err}")
+
+    # the preset's dopri5 at B = 1 on the generic route
+    e1 = InferenceEngine(tps_config("dopri5"), sd, device=dev)
+    b1 = {k: v[1:2] for k, v in batch.items()}
+    reset()
+    t0 = time.perf_counter()
+    o1, _ = e1.sample(b1, gen)
+    torch.cuda.synchronize()
+    s1 = time.perf_counter() - t0
+    lz, tc = read()
+    evals = e1.last_counts["evals"]
+    want1 = {k: evals * (TRUNK_PER_EVAL[k] + ENCODER_PER_PASS[k]) for k in TRUNK_PER_EVAL}
+    dopri = dict(sample_s=s1, **e1.last_counts, launches=lz,
+                 **output_checks("tps_dopri5", o1, mask[1:2], tc))
+    if lz != want1:
+        raise AssertionError(f"tps dopri5: launches {lz}, expected {want1}")
+    del e1
+
+    # one velocity evaluation (B = 2, t = 0.4): card (bf16 kernels) vs CPU (f32 twins)
+    cpu = InferenceEngine(eng.cfg.replace(model=dataclasses.replace(eng.cfg.model, use_bf16=False)),
+                          sd, device="cpu")
+    zs = torch.randn(2, T, L, eng.cfg.latent_dim, generator=torch.Generator().manual_seed(144))
+    vel = {}
+    for name, e in (("cuda", eng), ("cpu", cpu)):
+        d = e.device
+        k2 = prep_batch(e.cfg, {k: v[:2].to(d) for k, v in batch.items()})["model_kwargs"]
+        with torch.no_grad():
+            vel[name] = e.model.forward_inference(
+                zs.to(d), torch.full((2,), 0.4, device=d), k2["mask"],
+                start_frames=k2["start_frames"], end_frames=k2["end_frames"],
+                x_cond=k2["x_cond"], x_cond_mask=k2["x_cond_mask"],
+                aatype=k2["aatype"]).float().cpu()
+    del cpu
+    rel = ((vel["cuda"] - vel["cpu"]).norm() / vel["cpu"].norm()).item()
+    tol = 5e-2
+    emit({"phase": "tps_main", "B": B, "T": T, "L": L, "C": C, "layers": NL, "steps": STEPS,
+          "dtype": "bf16", "latent_dim": eng.cfg.latent_dim, "sample_s": secs,
+          "sample_ms": secs * 1e3, "frames_per_s": B * T / secs,
+          "steps_per_s": B * STEPS / secs, "launches_per_sample": launches,
+          "launches_derived": want, "model_calls": flat_calls,
+          "encoder_launches_per_sample": encoder, "main_path_encoder_launches": sim_encoder,
+          "encoder_elements": 2 * STEPS * B, "main_path_encoder_elements": STEPS * B,
+          "plain_calls_on_card": twin_calls, **checks,
+          "paired_encoder_vs_two_passes": dict(max_abs_err=pair_err, tol=pair_tol),
+          "b1_dopri5": dopri, "launches_per_eval_dopri5_derived": {
+              k: TRUNK_PER_EVAL[k] + ENCODER_PER_PASS[k] for k in TRUNK_PER_EVAL},
+          "velocity_cuda_vs_cpu": dict(batch=2, rel_l2=rel, tol=tol,
+                                       velocity_norm_cpu=vel["cpu"].norm().item())})
+    if not rel <= tol or not torch.isfinite(vel["cuda"]).all():
+        raise AssertionError(f"tps velocity card vs CPU: relative L2 {rel} > {tol}")
+    if any(encoder[k] != v for k, v in sim_encoder.items()):
+        raise AssertionError(f"tps_main: the encoder's launches {encoder} differ from "
+                             f"main_path's {sim_encoder}")
+    return eng, batch, gen
+
+
+def pdb_frames(path):
+    """A multi-MODEL PDB's atom37 positions (models, L, 37, 3) and its
+    backbone bonds' largest deviations from 1.458 / 1.522 A."""
+    import numpy as np
+
+    from mdgen_finetune_tpu_torch.geometry.protein import from_pdb_string
+
+    pos = np.stack([from_pdb_string(c).atom_positions
+                    for c in Path(path).read_text().split("ENDMDL") if "ATOM" in c])
+    n_ca = np.linalg.norm(pos[:, :, 0] - pos[:, :, 1], axis=-1)
+    ca_c = np.linalg.norm(pos[:, :, 1] - pos[:, :, 2], axis=-1)
+    return pos, float(np.abs(n_ca - 1.458).max()), float(np.abs(ca_c - 1.522).max())
+
+
+def phase_tps_cli(dev):
+    """The transition-path CLI on the card: the full-width random weights of
+    ``preset_4aa_tps`` written as a released-format ``.ckpt`` with its
+    ``config.json`` (``utils.torch_compat.write_reference_checkpoint``, the
+    writer of the CPU tests), a 300-frame synthetic "AGHK" trajectory
+    (``cli.synth_data``), then ``tps_inference --torch_ckpt ... --num_batches
+    1 --batch_size 2`` with the preset's dopri5: 2 metadata rows, 2 PDBs of
+    T models with ideal bonds, and each window's end structure conditioned
+    (frame T-1's ``x_cond_mask`` 1)."""
+    import numpy as np
+
+    from mdgen_finetune_tpu_torch.cli import synth_data, tps_inference
+    from mdgen_finetune_tpu_torch.geometry.tables import str_sequence_to_aatype
+    from mdgen_finetune_tpu_torch.models.denoiser import LatentMDGen
+    from mdgen_finetune_tpu_torch.tasks import prep_batch
+    from mdgen_finetune_tpu_torch.utils.torch_compat import write_reference_checkpoint
+    from mdgen_finetune_tpu_torch.utils.weights import randomize_
+
+    data, out, ckpt = SCRATCH / "tps_data", SCRATCH / "tps_out", SCRATCH / "tps_ckpt"
+    cfg = tps_config("dopri5")
+    synth_data.main(["--outdir", str(data), "--peptides", "AGHK", "--num_frames", "300",
+                     "--suffix", "_i100"])
+    ckpt.mkdir(parents=True, exist_ok=True)
+    model = randomize_(LatentMDGen(cfg), torch.Generator().manual_seed(151), scale=0.05)
+    write_reference_checkpoint(str(ckpt / "model.ckpt"), model.state_dict(), cfg)
+    (ckpt / "config.json").write_text(cfg.to_json())
+    del model
+    t0 = time.perf_counter()
+    tps_inference.main(["--torch_ckpt", str(ckpt / "model.ckpt"), "--data_dir", str(data),
+                        "--split", str(data / "split.csv"), "--suffix", "_i100",
+                        "--out_dir", str(out), "--num_batches", "1", "--batch_size", "2"])
+    secs = time.perf_counter() - t0
+    meta_path = out / "AGHK_metadata.json"
+    if not meta_path.exists():
+        raise AssertionError("tps_cli: no metadata written (the peptide was skipped)")
+    meta = json.loads(meta_path.read_text())
+    arr = np.load(data / "AGHK_i100.npy")
+    aatype = str_sequence_to_aatype("AGHK")
+    rows = []
+    for m in meta:
+        pos, dev_nca, dev_cac = pdb_frames(m["path"])
+        b = tps_inference.make_endpoint_batch(arr, aatype, np.ones(L, np.float32), m["start_idx"],
+                                              m["end_idx"], T)
+        cond = prep_batch(cfg, b)["model_kwargs"]["x_cond_mask"][0]
+        rows.append(dict(start_idx=m["start_idx"], end_idx=m["end_idx"], models=len(pos),
+                         finite=bool(np.isfinite(pos).all()), n_ca_max_dev=dev_nca,
+                         ca_c_max_dev=dev_cac, end_frame_conditioned=bool(cond[-1].all()),
+                         middle_conditioned=int(cond[1:-1].sum())))
+    emit({"phase": "tps_cli", "cli_s": secs, "paths": len(meta), "rows": rows,
+          "start_state": meta[0]["start_state"] if meta else None,
+          "end_state": meta[0]["end_state"] if meta else None})
+    for d in (data, out, ckpt):
+        shutil.rmtree(d, ignore_errors=True)
+    if len(meta) != 2:
+        raise AssertionError(f"tps_cli: {len(meta)} paths, expected 2")
+    for r in rows:
+        if (r["models"] != T or not r["finite"] or r["n_ca_max_dev"] > 1e-2
+                or r["ca_c_max_dev"] > 1e-2 or not r["end_frame_conditioned"]
+                or r["middle_conditioned"]):
+            raise AssertionError(f"tps_cli: a path is off: {r}")
+
+
+def phase_upsampling_cli(dev):
+    """The upsampling CLI on the card: a ``Trainer.save_checkpoint`` of
+    seeded random weights of ``preset_4aa_upsampling`` at full width
+    (T = 1000, ``cond_interval`` 100; Euler-100, to hold the phase's time:
+    dopri5 at T = 1000 is ``sim_1000``'s and ``sim_cli``'s), a 20-frame
+    coarse "AAGG" trajectory (2 windows of 10 conditioning frames), then
+    ``upsampling_inference --ckpt``: 2,000 models, finite, ideal bonds."""
+    from mdgen_finetune_tpu_torch.cli import synth_data, upsampling_inference
+    from mdgen_finetune_tpu_torch.config import ModelConfig, TransportConfig, preset_4aa_upsampling
+    from mdgen_finetune_tpu_torch.training import Trainer
+    from mdgen_finetune_tpu_torch.utils.weights import randomize_
+
+    import numpy as np
+
+    data, out, ckpt = SCRATCH / "ups_data", SCRATCH / "ups_out", SCRATCH / "ups_ckpt"
+    cfg = preset_4aa_upsampling(
+        model=ModelConfig(num_layers=NL, embed_dim=C, mha_heads=H, prepend_ipa=True,
+                          abs_pos_emb=True, use_bf16=True),
+        transport=TransportConfig(sampling_method="euler", inference_steps=STEPS),
+        workdir=str(SCRATCH))
+    synth_data.main(["--outdir", str(data), "--peptides", "AAGG", "--num_frames", "20",
+                     "--suffix", "_i100"])
+    trainer = Trainer(cfg, device=dev)
+    state = trainer.init_state(0)
+    randomize_(trainer.model, torch.Generator().manual_seed(161), scale=0.05)
+    trainer.save_checkpoint(state, str(ckpt))
+    del trainer, state
+    t0 = time.perf_counter()
+    upsampling_inference.main(["--ckpt", str(ckpt), "--data_dir", str(data),
+                               "--split", str(data / "split.csv"), "--out_dir", str(out)])
+    secs = time.perf_counter() - t0
+    pos, dev_nca, dev_cac = pdb_frames(out / "AAGG.pdb")
+    want = 20 // (cfg.data.num_frames // cfg.task.cond_interval) * cfg.data.num_frames
+    emit({"phase": "upsampling_cli", "cli_s": secs, "T": cfg.data.num_frames,
+          "cond_interval": cfg.task.cond_interval, "coarse_frames": 20, "models": len(pos),
+          "expected_models": want, "frames_per_s": len(pos) / secs,
+          "n_ca_max_dev": dev_nca, "ca_c_max_dev": dev_cac})
+    for d in (data, out, ckpt):
+        shutil.rmtree(d, ignore_errors=True)
+    if len(pos) != want or want != 2000:
+        raise AssertionError(f"upsampling_cli: {len(pos)} models, expected {want} (2,000)")
+    if not np.isfinite(pos).all() or dev_nca > 1e-2 or dev_cac > 1e-2:
+        raise AssertionError(f"upsampling_cli: bonds off: N-CA {dev_nca}, CA-C {dev_cac}")
 
 
 def train_1000_config(batch_size):
@@ -3466,6 +3785,14 @@ def main():
     phase_trace("trace_1000", lambda: eng.sample(batch, gen))
     del eng
     phase_sim_cli(dev)
+    # the transition-path and upsampling tasks
+    t_tasks = time.perf_counter()
+    eng, batch, gen = phase_tps_main(dev, launches["per_sample"])
+    phase_trace("tps_trace", lambda: eng.sample(batch, gen))
+    del eng
+    phase_tps_cli(dev)
+    phase_upsampling_cli(dev)
+    emit({"phase": "tasks_s", "tps_and_upsampling_s": time.perf_counter() - t_tasks})
     phase_grad_across_devices(dev)
     train_launches, train_ref, (trainer, state, tbatch, tgen) = phase_train_path(dev)
     phase_trace("train_trace", lambda: trainer.train_step(state, tbatch, tgen))

@@ -2,9 +2,12 @@
 
 Counterpart of the JAX package's ``cli/sim_inference.py`` (:24-102): loads a
 checkpoint that ``Trainer.save_checkpoint`` wrote (a directory with
-``state.pt`` and ``config.json``), rolls out ``num_rollouts`` windows from
-the first frame of each test peptide with the config's ODE sampler, and
-writes one multi-MODEL PDB trajectory and one meta JSON line per peptide.
+``state.pt`` and ``config.json``) or, with ``--torch_ckpt``, a released
+MDGen ``.ckpt`` (PyTorch Lightning; its config from ``--config`` or the
+``config.json`` beside it; the EMA weights when the file has them), rolls
+out ``num_rollouts`` windows from the first frame of each test peptide with
+the config's ODE sampler, and writes one multi-MODEL PDB trajectory and one
+meta JSON line per peptide.
 The checkpoint's config chooses the model, the modular configurations
 (``interleave_ipa``, ``hyena``, ``no_rope``) included. Runs on the card
 unless ``--device cpu`` is given:
@@ -13,9 +16,8 @@ unless ``--device cpu`` is given:
         --data_dir DIR --split DIR/split.csv --out_dir OUT --num_frames 1000 \\
         --num_rollouts 10 [--device cpu]
 
-Not ported yet: ``--sde`` (the reverse-SDE sampler, ROADMAP.md queue 1
-item 8) and ``--torch_ckpt`` (released MDGen checkpoints, ROADMAP.md queue 1
-item 1: it waits for such a checkpoint in the repository).
+``load_params`` serves the other task CLIs too. Not ported yet: ``--sde``
+(the reverse-SDE sampler, ROADMAP.md queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -31,14 +33,22 @@ import torch
 from ..data.dataset import MDGenDataset
 from ..geometry.protein import atom14_to_pdb
 from ..inference import InferenceEngine
+from ..config import MDGenConfig
 from ..training import read_checkpoint
+from ..utils.torch_compat import load_reference_checkpoint
 
 
 def load_params(args) -> tuple:
+    """(config, state_dict to sample with) of ``--torch_ckpt`` (a released
+    ``.ckpt`` and ``--config`` or the ``config.json`` beside it; its EMA
+    when present, JAX :24-31) or of ``--sim_ckpt`` (a ``Trainer``
+    checkpoint)."""
     if args.torch_ckpt:
-        raise NotImplementedError(
-            "--torch_ckpt (a released MDGen .ckpt) is not ported yet: it waits for such a "
-            "checkpoint in the repository (ROADMAP.md queue 1 item 1)")
+        cfg_path = args.config or os.path.join(os.path.dirname(args.torch_ckpt), "config.json")
+        with open(cfg_path) as f:
+            cfg = MDGenConfig.from_json(f.read())
+        params, ema, _ = load_reference_checkpoint(args.torch_ckpt, cfg)
+        return cfg, ema or params
     return read_checkpoint(args.sim_ckpt)
 
 

@@ -10,9 +10,11 @@ forward-simulation presets' default) integrate the probability-flow drift
 of ``LatentMDGen.forward_inference`` with ``transport.sample_ode``, and so
 does every sampler of the modular configurations (``interleave_ipa``,
 ``hyena``, ``no_rope``), Euler included, as the JAX package's
-``LatentMDGen.flat_scan_ok`` sends them to its generic route. The
-reverse-SDE sampler, design and mpnn are not ported yet (ROADMAP.md queue 1
-item 8).
+``LatentMDGen.flat_scan_ok`` sends them to its generic route. The tasks are
+forward simulation, upsampling (``cond_interval``) and transition paths
+(``tps_condition``: the doubled offsets, the encoder's token pair over the
+start and end frames). The reverse-SDE sampler, design and mpnn are not
+ported yet (ROADMAP.md queue 1 item 8).
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; without CUDA they raise. Randomness comes from an explicit
@@ -83,11 +85,14 @@ class InferenceEngine:
 
     # ------------------------------------------------------------------
     def _decode(self, samples, rigids: Rigid, seqres):
-        """Latents -> (atom14, aatype) (src/mdgen/wrapper.py:487-514)."""
+        """Latents -> (atom14, aatype) (src/mdgen/wrapper.py:487-514): the
+        forward offsets from frame 0, then the torsions, which follow the
+        reverse offsets under the doubled offsets (JAX :95-98)."""
         B, T, L, _ = samples.shape
         rel = Rigid.from_tensor_7(samples[..., :7], normalize_quats=True)
         frames = rigids[:, 0:1].compose(rel)
-        torsions = samples[..., 7:21].reshape(B, T, L, 7, 2)
+        k = 14 if self.cfg.doubled_offsets else 7
+        torsions = samples[..., k:k + 14].reshape(B, T, L, 7, 2)
         torsions = torsions / torch.linalg.vector_norm(torsions, dim=-1, keepdim=True)
         aat = seqres[:, None].expand(B, T, L)
         return G.frames_torsions_to_atom14(frames, torsions, aat), aat
@@ -107,8 +112,9 @@ class InferenceEngine:
         kw = prep["model_kwargs"]
         mask = kw["mask"].float().contiguous()
         pack = model.make_trunk_pack()
+        frames = dict(start_frames=kw["start_frames"], end_frames=kw["end_frames"])
         consts = model.make_scan_consts(kw["x_cond"], kw["x_cond_mask"], mask,
-                                        aatype=kw["aatype"])
+                                        aatype=kw["aatype"], **frames)
         t0, t1 = check_interval(cfg, eval=True)
         n = cfg.transport.inference_steps
         xc = zs0.to(self.device, torch.float32).clone().contiguous()
@@ -116,7 +122,7 @@ class InferenceEngine:
         if method == "euler" and self.transport.prediction == "velocity" and not model.modular:
             dt = (t1 - t0) / n
             ts = t0 + dt * torch.arange(n, dtype=torch.float32, device=self.device)
-            encs = model.encode_steps(ts, mask, consts, pack, kw["start_frames"])
+            encs = model.encode_steps(ts, mask, consts, pack, **frames)
             modss = model.embed_mods(model.embed_times(ts), pack)
             for i in range(n):
                 model.flat_call(xc, mask, consts, pack, dt,
@@ -124,8 +130,8 @@ class InferenceEngine:
             self.last_counts = {"accepted": n, "rejected": 0, "evals": n}
         else:
             def model_fn(x, t):
-                return model.forward_inference(x, t, mask, start_frames=kw["start_frames"],
-                                               trunk_pack=pack, scan_consts=consts)
+                return model.forward_inference(x, t, mask, trunk_pack=pack, scan_consts=consts,
+                                               **frames)
 
             xc, self.last_counts = sample_ode(self.transport.drift_fn(model_fn), xc, t0=t0,
                                               t1=t1, method=method, num_steps=n)

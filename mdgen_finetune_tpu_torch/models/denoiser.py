@@ -2,8 +2,11 @@
 
 Counterpart of the JAX package's ``models/denoiser.py::LatentMDGen``
 (reference src/mdgen/model/latent_model.py:43-326) for plain continuous
-latents (``sim_condition`` and friends), with or without the prepend-IPA
-encoder and the absolute position/time tables. Parameters are named after
+latents (``sim_condition``, ``cond_interval`` and ``tps_condition``), with or
+without the prepend-IPA encoder and the absolute position/time tables. With
+``tps_condition`` (the doubled offsets) the encoder runs on two token sets,
+the end frames seen from the start frames and the reverse, and sums the
+two passes (``run_ipa``). Parameters are named after
 the flax tree (``layers_3/mha_t/q_proj/kernel`` ->
 ``layers.3.mha_t.q_proj.weight``); ``utils.weights.from_flax`` converts a
 JAX checkpoint.
@@ -212,7 +215,9 @@ def _unsupported(cfg: MDGenConfig, train: bool):
                 return f"training with model.{name}", "9 (training the modular layer)"
         if m.dropout > 0.0:
             return "training with model.dropout", "9 (training the modular layer)"
-    for name in ("design", "mpnn", "dynamic_mpnn", "tps_condition", "inpainting", "no_frames"):
+        if t.tps_condition:
+            return "training with task.tps_condition", "13 (training the TPS task)"
+    for name in ("design", "mpnn", "dynamic_mpnn", "inpainting", "no_frames"):
         if getattr(t, name):
             return f"task.{name}", "8"
     return None
@@ -221,7 +226,8 @@ def _unsupported(cfg: MDGenConfig, train: bool):
 def refuse_unported(cfg: MDGenConfig, train: bool = False) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item of a model or
     task branch that is not ported yet; with ``train``, also the branches
-    that sample but do not train yet (the modular layer, dropout)."""
+    that sample but do not train yet (the modular layer, dropout, the TPS
+    task)."""
     bad = _unsupported(cfg, train)
     if bad is not None:
         raise NotImplementedError(
@@ -256,6 +262,9 @@ class LatentMDGen(nn.Module):
         self.latent_dim = latent_dim or cfg.latent_dim
         self.dtype = dtype
         self.latent_to_emb = nn.Linear(self.latent_dim, C)
+        if cfg.doubled_offsets:  # the encoder's two token sets (tps_condition)
+            self.latent_to_emb_f = nn.Linear(7, C)
+            self.latent_to_emb_r = nn.Linear(7, C)
         self.cond_to_emb = nn.Linear(self.latent_dim, C)
         self.mask_to_emb = nn.Embedding(2, C)
         if m.prepend_ipa:
@@ -396,24 +405,61 @@ class LatentMDGen(nn.Module):
         dt = self.dtype
         return F.linear(x.to(dt), lin.weight.to(dt), lin.bias.to(dt))
 
-    def make_encoder_tokens(self, mask_l, aatype):
-        """The encoder's input tokens (B, L, C): zeros plus the aatype
-        embedding (sim_condition; reference latent_model.py:179-190)."""
-        B, L = mask_l.shape
-        x = torch.zeros(B, L, self.cfg.model.embed_dim, dtype=self.dtype, device=mask_l.device)
+    def make_encoder_tokens(self, mask_l, aatype, start_frames: Optional[Rigid] = None,
+                            end_frames: Optional[Rigid] = None) -> tuple:
+        """The encoder's input tokens, a 1-tuple or a 2-tuple of (B, L, C) as
+        the JAX package's (:457-479; reference latent_model.py:179-214):
+        zeros plus the aatype embedding; with the doubled offsets and none
+        of the one-token tasks (``tps_condition``), the pair ``x_f =
+        latent_to_emb_f((start^-1 o end) as 7-tensors)`` and ``x_r =
+        latent_to_emb_r((end^-1 o start))``, each plus the aatype
+        embedding."""
+        t = self.cfg.task
+        aa = None
         if aatype is not None and not self.cfg.model.no_aa_emb:
-            x = x + F.embedding(aatype.long(), self.aatype_to_emb.weight.to(self.dtype))
-        return x
+            aa = F.embedding(aatype.long(), self.aatype_to_emb.weight.to(self.dtype))
+        if not self.cfg.doubled_offsets or t.sim_condition or t.mpnn or t.cond_interval:
+            B, L = mask_l.shape
+            x = torch.zeros(B, L, self.cfg.model.embed_dim, dtype=self.dtype,
+                            device=mask_l.device)
+            return (x if aa is None else x + aa,)
+        fwd = start_frames.invert().compose(end_frames).to_tensor_7()
+        rev = end_frames.invert().compose(start_frames).to_tensor_7()
+        x_f, x_r = self._lin(self.latent_to_emb_f, fwd), self._lin(self.latent_to_emb_r, rev)
+        return (x_f, x_r) if aa is None else (x_f + aa, x_r + aa)
 
-    def run_ipa(self, t_emb, mask_l, frames: Rigid, tokens, pack):
+    def run_ipa(self, t_emb, mask_l, start_frames: Rigid, end_frames: Optional[Rigid], tokens,
+                pack):
         """The conditioning encoder (reference latent_model.py:179-214):
-        tokens (Bn, L, C); t_emb (nb, C) with nb dividing Bn."""
+        ``tokens`` from ``make_encoder_tokens``, each (Bn, L, C); t_emb
+        (nb, C) with nb dividing Bn. One token set is encoded over the start
+        frames. A pair (x_f, x_r) keeps the JAX package's pairing
+        (:490-494): x_r over the start frames, x_f over the end frames, the
+        result x_r + x_f; both passes run as one ``ipa_encoder`` call over
+        2 Bn elements, interleaved (element 2i is x_r's i, 2i + 1 x_f's), so
+        that consecutive elements still share their AdaLN row."""
         m = self.cfg.model
         enc = pack["enc"]
         mods = F.silu(t_emb).to(self.dtype) @ enc["wmods"] + enc["bmods"]
-        return ipa_encoder(tokens, mods, enc["layers"], frames, mask_l,
-                           num_heads_mha=m.mha_heads, Hi=m.ipa_heads, Ch=m.ipa_head_dim,
-                           Pq=m.ipa_qk, Pv=m.ipa_v, use_rope=not m.no_rope)
+        frames, x = start_frames, tokens[0]
+        if len(tokens) == 2:
+            x_f, x_r = tokens
+            Bn, L, C = x_r.shape
+
+            def pair(a, b):
+                return torch.stack([a, b], 1).reshape(2 * Bn, *a.shape[1:])
+
+            x = pair(x_r, x_f)
+            frames = Rigid(pair(start_frames.rot, end_frames.rot),
+                           pair(start_frames.trans, end_frames.trans))
+            mask_l = pair(mask_l, mask_l)
+        out = ipa_encoder(x, mods, enc["layers"], frames, mask_l,
+                          num_heads_mha=m.mha_heads, Hi=m.ipa_heads, Ch=m.ipa_head_dim,
+                          Pq=m.ipa_qk, Pv=m.ipa_v, use_rope=not m.no_rope)
+        if len(tokens) == 2:
+            out = out.view(Bn, 2, L, C)
+            out = out[:, 0] + out[:, 1]
+        return out
 
     def _check_len(self, L: int):
         if self.cfg.model.abs_pos_emb and L > self.pos_embed.shape[0]:
@@ -446,7 +492,8 @@ class LatentMDGen(nn.Module):
         call is ``forward_inference``."""
         if self.modular:
             return self.forward_inference(x, t, mask, start_frames=start_frames,
-                                          x_cond=x_cond, x_cond_mask=x_cond_mask, aatype=aatype,
+                                          end_frames=end_frames, x_cond=x_cond,
+                                          x_cond_mask=x_cond_mask, aatype=aatype,
                                           trunk_pack=trunk_pack)
         cfg = self.cfg
         B, T, L = mask.shape
@@ -456,8 +503,8 @@ class LatentMDGen(nn.Module):
         h = self._const_terms(h, x_cond, x_cond_mask)
         t_emb = self.t_embedder(t * cfg.model.time_multiplier, self.dtype)
         if cfg.model.prepend_ipa:
-            enc = self.run_ipa(t_emb, mask[:, 0], start_frames,
-                               self.make_encoder_tokens(mask[:, 0], aatype), pack)
+            tokens = self.make_encoder_tokens(mask[:, 0], aatype, start_frames, end_frames)
+            enc = self.run_ipa(t_emb, mask[:, 0], start_frames, end_frames, tokens, pack)
             h = h + enc[:, None]
         mods_all = F.silu(t_emb).to(self.dtype) @ pack["wmods"] + pack["bmods"]
         return fused_trunk_train(h, mods_all[:, :NL * 9 * C], pack["layers"], mask,
@@ -468,16 +515,19 @@ class LatentMDGen(nn.Module):
     # ------------------------------------------------------------------
     # flat sampling path
     @torch.no_grad()
-    def make_scan_consts(self, x_cond, x_cond_mask, mask, aatype=None):
+    def make_scan_consts(self, x_cond, x_cond_mask, mask, aatype=None,
+                         start_frames: Optional[Rigid] = None,
+                         end_frames: Optional[Rigid] = None):
         """Per-step-constant terms of the Euler chain, once per sample:
         ``wlat`` (lat, C) the latent projection; ``cadd`` (B, T, L, C) its
         bias + position/time tables + conditioning embeddings; ``tokens``
-        the encoder's input tokens."""
+        the encoder's input tokens (``make_encoder_tokens``: the token pair
+        needs the start and end frames)."""
         B, T, L = mask.shape
         C = self.cfg.model.embed_dim
         add = self.latent_to_emb.bias.to(self.dtype).expand(B, T, L, C)
         add = self._const_terms(add, x_cond, x_cond_mask).contiguous()
-        tokens = (self.make_encoder_tokens(mask[:, 0], aatype)
+        tokens = (self.make_encoder_tokens(mask[:, 0], aatype, start_frames, end_frames)
                   if self.cfg.model.prepend_ipa else None)
         return _detached({"wlat": _t(self.latent_to_emb, self.dtype), "cadd": add,
                           "tokens": tokens})
@@ -495,10 +545,12 @@ class LatentMDGen(nn.Module):
         return F.silu(t_embs).to(self.dtype) @ pack["wmods"] + pack["bmods"]
 
     @torch.no_grad()
-    def encode_steps(self, ts, mask, consts, pack, start_frames: Rigid):
+    def encode_steps(self, ts, mask, consts, pack, start_frames: Rigid,
+                     end_frames: Optional[Rigid] = None):
         """The prepend-IPA encoder for the whole t grid in one pass:
         ts (S,) -> enc (S, B, L, C). The conditioning is step-invariant;
-        only the AdaLN rows vary with t (one row per step, shared by B)."""
+        only the AdaLN rows vary with t (one row per step, shared by B,
+        and with the token pair by both passes of each element)."""
         if not self.cfg.model.prepend_ipa:
             return None
         B, T, L = mask.shape
@@ -507,9 +559,12 @@ class LatentMDGen(nn.Module):
         def tile(a):
             return a.unsqueeze(0).expand(S, *a.shape).reshape(S * a.shape[0], *a.shape[1:])
 
-        frames = Rigid(tile(start_frames.rot), tile(start_frames.trans))
-        enc = self.run_ipa(self.embed_times(ts), tile(mask[:, 0]), frames,
-                           tile(consts["tokens"]), pack)
+        def tile_frames(f):
+            return None if f is None else Rigid(tile(f.rot), tile(f.trans))
+
+        enc = self.run_ipa(self.embed_times(ts), tile(mask[:, 0]), tile_frames(start_frames),
+                           tile_frames(end_frames), tuple(tile(x) for x in consts["tokens"]),
+                           pack)
         return enc.view(S, B, L, -1)
 
     @torch.no_grad()
@@ -518,7 +573,7 @@ class LatentMDGen(nn.Module):
                           aatype=None, trunk_pack=None, scan_consts=None):
         """The velocity at any (x, t), for the ODE samplers: x (B, T, L, lat),
         t (B,), mask (B, T, L) -> (B, T, L, lat) f32. The JAX package's
-        ``forward_inference`` (:952) for the tasks of this slice (no design
+        ``forward_inference`` (:952) for the ported tasks (no design
         branch), computed as its ``__call__`` with ``trunk_pack``
         (:608-740): per call the t-embeddings (``embed_times``), the AdaLN
         rows (``embed_mods``) and the encoder (one row per element), then
@@ -531,12 +586,14 @@ class LatentMDGen(nn.Module):
         mask = mask.float().contiguous()
         pack = trunk_pack if trunk_pack is not None else self.make_trunk_pack()
         consts = scan_consts if scan_consts is not None else self.make_scan_consts(
-            x_cond, x_cond_mask, mask, aatype=aatype)
+            x_cond, x_cond_mask, mask, aatype=aatype, start_frames=start_frames,
+            end_frames=end_frames)
         t_emb = self.embed_times(t)
         mods = self.embed_mods(t_emb, pack)
         enc = None
         if self.cfg.model.prepend_ipa:
-            enc = self.run_ipa(t_emb, mask[:, 0], start_frames, consts["tokens"], pack)
+            enc = self.run_ipa(t_emb, mask[:, 0], start_frames, end_frames, consts["tokens"],
+                               pack)
         layer = None
         if self.modular:
             B, T, L = mask.shape

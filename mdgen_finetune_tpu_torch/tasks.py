@@ -2,7 +2,9 @@
 
 Counterpart of the frames path of the JAX package's ``tasks.py``
 (reference src/mdgen/wrapper.py:283-365). Latent token: 7-dim rigid offset
-(quat ‖ trans) then 14 torsion channels (7 x sin/cos) = 21.
+(quat ‖ trans) then 14 torsion channels (7 x sin/cos) = 21; with
+``tps_condition`` the offsets are doubled, the forward offsets in frame 0
+then the reverse ones in the last frame, 7 + 7 + 14 = 28.
 """
 from __future__ import annotations
 
@@ -48,9 +50,7 @@ def _unsupported(cfg: MDGenConfig):
     t = cfg.task
     if t.no_frames:
         return "no_frames"
-    if cfg.doubled_offsets:
-        return "tps / inpainting / dynamic_mpnn"
-    for name in ("design", "mpnn", "design_key_frames", "no_torsion",
+    for name in ("inpainting", "dynamic_mpnn", "design", "mpnn", "design_key_frames", "no_torsion",
                  "no_design_torsion", "no_offsets"):
         if getattr(t, name):
             return name
@@ -59,7 +59,8 @@ def _unsupported(cfg: MDGenConfig):
 
 def prep_batch(cfg: MDGenConfig, batch: Dict[str, torch.Tensor]) -> Dict:
     """Batch dict -> {rigids, latents, loss_mask, model_kwargs} for the
-    frames tasks of this slice (src/mdgen/wrapper.py:283-365)."""
+    frames tasks of the port: forward simulation, upsampling and transition
+    paths (src/mdgen/wrapper.py:283-365)."""
     bad = _unsupported(cfg)
     if bad is not None:
         raise NotImplementedError(
@@ -71,6 +72,10 @@ def prep_batch(cfg: MDGenConfig, batch: Dict[str, torch.Tensor]) -> Dict:
 
     frame_loss_mask = batch["mask"][..., None].expand(B, L, 7)
     torsion_loss_mask = batch["torsion_mask"][..., None].expand(B, L, 7, 2).reshape(B, L, 14)
+    if cfg.doubled_offsets:  # tps_condition: the offsets in the last frame too
+        offsets_r = _fix_quat_sign(get_offsets(rigids[:, -1:], rigids))
+        offsets = torch.cat([offsets, offsets_r], dim=-1)
+        frame_loss_mask = torch.cat([frame_loss_mask, frame_loss_mask], dim=-1)
     torsions = batch["torsions"].reshape(B, T, L, 14)
     latents = torch.cat([offsets, torsions], dim=-1)
     if task.supervise_all_torsions:

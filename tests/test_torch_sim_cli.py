@@ -72,10 +72,11 @@ def test_sim_inference_cli_writes_a_trajectory(run, capsys):
 
 
 @pytest.mark.parametrize("extra, error", [([], RuntimeError), (["--sde"], NotImplementedError),
-                                          (["--torch_ckpt", "x.ckpt"], NotImplementedError)])
+                                          (["--sde", "--sde_method", "Heun"], NotImplementedError)])
 def test_sim_inference_cli_refusals(run, monkeypatch, extra, error):
-    """Without CUDA the default device raises; the SDE sampler and released
-    checkpoints name their ROADMAP items."""
+    """Without CUDA the default device raises; the SDE sampler, with either
+    of its methods, names its ROADMAP item (released checkpoints load:
+    ``tests/test_torch_reference_ckpt.py``)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, args = run
     with pytest.raises(error, match="CUDA is not available" if error is RuntimeError else "ROADMAP"):

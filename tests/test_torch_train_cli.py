@@ -79,7 +79,7 @@ def test_train_cli_trains_validates_and_checkpoints(data, capsys):
 
 
 @pytest.mark.parametrize("flags", [["--hyena"], ["--dropout", "0.1"], ["--dp_size", "2"],
-                                   ["--design", "--inference_batches", "1"]])
+                                   ["--design", "--inference_batches", "1"], ["--tps_condition"]])
 def test_train_cli_refuses_unported_flags(data, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.main(_argv(data, *flags, "--run_name", "refused", "--device", "cpu"))

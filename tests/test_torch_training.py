@@ -313,6 +313,7 @@ def test_grad_checkpointing_is_bit_identical():
     dict(model=tcfg.ModelConfig(dropout=0.1)),
     dict(train=tcfg.TrainConfig(dp_size=2)),
     dict(task=tcfg.TaskConfig(design=True)),
+    dict(task=tcfg.TaskConfig(tps_condition=True)),
 ])
 def test_unported_training_options_raise(change):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
