@@ -51,6 +51,18 @@ Then:
   trajectory: 2 paths, the end structure conditioned) and
   ``upsampling_cli`` (``preset_4aa_upsampling`` from a ``Trainer``
   checkpoint, Euler-100, 2 windows of 1,000 frames);
+- the design preset (``preset_4aa_design``: inpainting + design +
+  ``no_torsion``, T = 100, same width, latent 48 with 20 simplex channels)
+  over synthetic trajectories: ``design_main`` (B = 64 Euler-100 on the
+  generic chain, every step one ``forward_inference``: the trunk without
+  the folded head, the FinalLayer and the design head, the encoder's pair
+  plus ``x_d_to_emb`` over 128 elements; launches and rope bodies as
+  derived; the designed sequence, the simplex sums, the c-factor card vs
+  CPU on the warm-up's inputs, one evaluation card-vs-CPU),
+  ``design_trace``, ``mpnn`` (``mpnn`` / ``dynamic_mpnn``: one evaluation,
+  the trunk at T = 1 / 2 against its plain twins, the logits card-vs-CPU)
+  and ``design_cli`` (``design_inference --torch_ckpt`` on a 300-frame
+  "AGHK" trajectory, 2 samples, then ``analyze_design``);
 - training: the loss and every parameter's gradient on the card (bf16
   kernels) against the CPU (f32 twins) at full width, B = 2; the flagship
   config trained through ``Trainer`` at B = 32, T = 100, L = 4 (2 warm-up
@@ -497,6 +509,7 @@ def phase_kernels(dev):
     x, res = r(M, C), r(M, C)
     sh, scl, gate = r(B, C, sc=0.3), r(B, C, sc=0.3), r(B, C, sc=0.3)
     carry = r(M, 21, dtype=f32)
+    fin_mods = r(B, NL * 9 * C + 2 * C, sc=0.3)[:, NL * 9 * C:]
     pw, fw = proj_width(4, 32, 8, 8), feat_width(4, 32, 8)
     uses = {  # name: (x, w, b, kwargs, route: 0 resident, 1 pipelined, 2 tiled64)
         "qkv": (x, r(C, 3 * C, sc=C ** -0.5), r(3 * C, sc=0.1), dict(ln="plain", shift=sh, scale=scl), 0),
@@ -507,6 +520,10 @@ def phase_kernels(dev):
                      dict(epilogue="gate_res", res=res, gate=gate), 1),
         "head_euler": (x, r(C, 21, sc=C ** -0.5), r(21, sc=0.1),
                        dict(ln="plain", shift=sh[:1], scale=scl[:1], epilogue="euler", res=carry, dt=0.01), 2),
+        # the design preset's FinalLayer, unfolded from the trunk (C -> 48,
+        # each element's shift / scale: views into its AdaLN rows)
+        "final_no_epilogue": (x, r(C, 48, sc=C ** -0.5), r(48, sc=0.1),
+                              dict(ln="plain", shift=fin_mods[:, :C], scale=fin_mods[:, C:]), 2),
         "embed_add": (r(M, 21, dtype=f32), r(21, C, sc=0.2), None,
                       dict(epilogue="add", add1=r(M, C), add2=r(B * L, C), add2_map=(T * L, L, L)), 2),
         "ipa_proj_affine": (x, r(C, pw, sc=C ** -0.5), r(pw, sc=0.1),
@@ -1581,7 +1598,8 @@ def phase_merged_bwd_kernels(dev):
 
 def with_twins(fn):
     """``fn()`` with every kernel wrapper that the trunk, its stage ops, its
-    backward and the encoder call swapped for its plain twin (run on the same
+    backward, the encoder and the denoiser itself (the design FinalLayer,
+    the modular layers) call swapped for its plain twin (run on the same
     card tensors); the wrappers are put back after."""
     import importlib
 
@@ -1592,6 +1610,7 @@ def with_twins(fn):
     twin_of = {n: getattr(ops(n), n + "_plain") for n in names}
     users = [ops(m) for m in ("fused_layer", "fused_layer_bwd", "residue_block",
                               "time_attention", "adaln_mlp")]
+    users.append(importlib.import_module("mdgen_finetune_tpu_torch.models.denoiser"))
     uses = [(m, n) for m in users for n in names if hasattr(m, n)]
     kept = [getattr(m, n) for m, n in uses]
     IE = ops("ipa_encoder")
@@ -2149,6 +2168,20 @@ def phase_sim_cli(dev):
         raise AssertionError(f"sim_cli: backbone bonds off: N-CA {dev_nca}, CA-C {dev_cac}")
 
 
+def count_calls(model, names):
+    """Count the calls of ``model``'s methods ``names`` (instance attributes
+    over the class's methods; ``del`` puts them back)."""
+    calls = {n: 0 for n in names}
+    for n in names:
+        fn = getattr(model, n)
+
+        def run(*a, _n=n, _fn=fn, **k):
+            calls[_n] += 1
+            return _fn(*a, **k)
+        setattr(model, n, run)
+    return calls
+
+
 def tps_config(method="euler", steps=None):
     """``preset_4aa_tps`` at full width (5 x 384, 16 heads, prepend-IPA
     4 x 32, abs_pos_emb, L = 4, T = 100, bf16) with the given ODE sampler
@@ -2215,18 +2248,7 @@ def phase_tps_main(dev, sim_launches):
     eng, sd = random_engine(dev, tps_config("euler"), seed=141)
     batch, mask = make_endpoints(eng, B, 142, dev)
     gen = torch.Generator(device=dev).manual_seed(143)
-    calls = {"forward_inference": 0, "flat_call": 0}
-
-    def counted(name):
-        fn = getattr(eng.model, name)
-
-        def run(*a, **k):
-            calls[name] += 1
-            return fn(*a, **k)
-        return run
-
-    for name in calls:
-        setattr(eng.model, name, counted(name))
+    calls = count_calls(eng.model, ("forward_inference", "flat_call"))
     eng.sample(batch, gen)  # warm-up
     torch.cuda.synchronize()
     wrappers, twins = fwd_counters()
@@ -2449,6 +2471,395 @@ def phase_upsampling_cli(dev):
         raise AssertionError(f"upsampling_cli: {len(pos)} models, expected {want} (2,000)")
     if not np.isfinite(pos).all() or dev_nca > 1e-2 or dev_cac > 1e-2:
         raise AssertionError(f"upsampling_cli: bonds off: N-CA {dev_nca}, CA-C {dev_cac}")
+
+
+def design_config(task=None, frame_interval=10):
+    """``preset_4aa_design`` at full width (5 x 384, 16 heads of D = 24,
+    prepend-IPA 4 x 32, abs_pos_emb, no_aa_emb, L = 4, T = 100, bf16;
+    inpainting + design + no_torsion, the preset's Euler at 100 steps,
+    ``alpha_max`` 8); ``task`` replaces the preset's task flags (mpnn /
+    dynamic_mpnn + design)."""
+    from mdgen_finetune_tpu_torch.config import (ModelConfig, TaskConfig, TransportConfig,
+                                                 preset_4aa_design)
+
+    cfg = preset_4aa_design(
+        model=ModelConfig(num_layers=NL, embed_dim=C, mha_heads=H, prepend_ipa=True,
+                          abs_pos_emb=True, no_aa_emb=True, use_bf16=True),
+        transport=TransportConfig(sampling_method="euler", inference_steps=STEPS),
+        workdir=str(SCRATCH))
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, frame_interval=frame_interval))
+    return cfg if task is None else cfg.replace(task=TaskConfig(**task))
+
+
+def make_trajectories(n, seed, dev):
+    """Synthetic T-frame trajectories of one sequence each, featurized: the
+    backbone frames on a random walk (about 0.05 in the quaternion and
+    0.3 A a frame), new torsions every frame, built by the port's own
+    reconstruction; the first element's last residue is padding. Returns
+    (batch, mask)."""
+    from mdgen_finetune_tpu_torch.data.featurize import featurize_atom14_batch
+    from mdgen_finetune_tpu_torch.geometry import frames as G
+    from mdgen_finetune_tpu_torch.geometry.rigid import Rigid
+
+    g = torch.Generator().manual_seed(seed)
+    seqres = torch.randint(0, 20, (n, L), generator=g)
+    t7 = torch.randn(n, 1, L, 7, generator=g)
+    t7[..., 4:] = torch.arange(L)[:, None] * 3.8 + t7[..., 4:]
+    walk = torch.randn(n, T, L, 7, generator=g) * torch.tensor([0.05] * 4 + [0.3] * 3)
+    ang = (torch.rand(n, T, L, 7, generator=g) * 2 - 1) * torch.pi
+    atom14 = G.frames_torsions_to_atom14(Rigid.from_tensor_7(t7 + walk.cumsum(1)),
+                                         torch.stack([ang.sin(), ang.cos()], -1),
+                                         seqres[:, None].expand(n, T, L))
+    mask = torch.ones(n, L)
+    mask[0, -1] = 0
+    return featurize_atom14_batch(atom14.to(dev), seqres.to(dev), mask.to(dev)), mask.to(dev)
+
+
+def rel_l2(a, b):
+    return ((a - b).norm() / b.norm()).item()
+
+
+# launches of one evaluation of the design chain (T = 100, L = 4): the
+# trunk's embed, 6 products a layer and the FinalLayer as its own product,
+# stages 1 and 2 of each layer (TRUNK_PER_EVAL), and one encoder pass over
+# the token pair (ENCODER_PER_PASS over 2 B elements); mpnn and
+# dynamic_mpnn have no FinalLayer
+def design_launches_per_eval(head=True):
+    per = {k: TRUNK_PER_EVAL[k] + ENCODER_PER_PASS[k] for k in TRUNK_PER_EVAL}
+    if not head:
+        per["adaln_linear"] -= 1
+    return per
+
+
+def phase_design_main(dev):
+    """The design preset on the card (``preset_4aa_design``: inpainting +
+    design, T = 100, L = 4, 5 x 384, bf16, seeded random weights) over
+    synthetic trajectories: ``InferenceEngine.sample`` at B = 64 with
+    Euler-100 on the generic chain (``forward_inference`` each step: the
+    trunk without the folded head, the FinalLayer and the design head, the
+    encoder's token pair with ``x_d_to_emb`` over 2 B elements a step); the
+    launches exactly as derived; bonds, the designed sequence in 0..19, the
+    simplex channels of the final carry summing to 1; the warm-up sample's
+    c-factor inputs (x_d, alpha of each evaluation) recomputed on the CPU,
+    no NaN on the card where the CPU has none; the timed sample's middle
+    evaluation (B = 64) with the kernels vs with their plain twins on the
+    same card tensors; one evaluation (B = 2) card vs CPU: the continuous
+    part, the flow and the logits."""
+    from mdgen_finetune_tpu_torch.inference import InferenceEngine
+    from mdgen_finetune_tpu_torch.inference.sampling import sample_prior_latent
+    from mdgen_finetune_tpu_torch.ops import ipa_attention as ia
+    from mdgen_finetune_tpu_torch.ops import rope_attention as ra
+    from mdgen_finetune_tpu_torch.tasks import prep_batch
+    from mdgen_finetune_tpu_torch.transport.dirichlet import DirichletConditionalFlow
+
+    cfg = design_config()
+    eng, sd = random_engine(dev, cfg, seed=171)
+    batch, mask = make_trajectories(B, 172, dev)
+    gen = torch.Generator(device=dev).manual_seed(173)
+    calls = count_calls(eng.model, ("forward_inference", "flat_call"))
+    flow = eng.model.condflow
+    seen, carries = [], []
+
+    def recording(bs, alpha):
+        out = DirichletConditionalFlow.c_factor(flow, bs, alpha)
+        seen.append((bs.clone(), torch.as_tensor(alpha).clone(), torch.isnan(out)))
+        return out
+
+    decode = eng._decode
+    flow.c_factor = recording
+    eng._decode = lambda s, r, q: (carries.append(s), decode(s, r, q))[1]
+    eng.sample(batch, gen)  # warm-up, its c-factor inputs recorded
+    torch.cuda.synchronize()
+    del flow.c_factor
+    cpu_flow = DirichletConditionalFlow(K=20, alpha_spacing=0.001, alpha_max=cfg.transport.alpha_max)
+    nan_card = nan_cpu = nan_card_only = 0
+    cf_err, n_seen = 0.0, len(seen)
+    for bs, alpha, nan in seen:
+        ref = cpu_flow.c_factor(bs.cpu(), alpha.cpu())
+        nan_cpu += int(torch.isnan(ref).sum())
+        nan_card += int(nan.sum())
+        nan_card_only += int((nan.cpu() & ~torch.isnan(ref)).sum())
+        got = DirichletConditionalFlow.c_factor(flow, bs, alpha).cpu()
+        fin = torch.isfinite(ref) & torch.isfinite(got)
+        scale = max(1.0, ref[fin].abs().max().item())
+        cf_err = max(cf_err, (got[fin] - ref[fin]).abs().max().item() / scale)
+    del seen
+    wrappers, twins = fwd_counters()
+
+    def reset():
+        for fn in wrappers:
+            fn.launches = 0
+        for fn in twins:
+            fn.cuda_calls = 0
+        for k in calls:
+            calls[k] = 0
+        ia.ipa_attention.forms = [0, 0, 0, 0]
+        ra.rope_attention.bodies = [0, 0, 0]
+
+    # the timed sample's evaluation STEPS // 2, kept for the twin check below
+    counted, kept, n_eval = eng.model.forward_inference, {}, [0]
+
+    def keeping(x, t, mask, **kw):
+        n_eval[0] += 1
+        if n_eval[0] == STEPS // 2:
+            kept.update(args=(x.clone(), t.clone(), mask), kw=kw)
+        return counted(x, t, mask, **kw)
+
+    eng.model.forward_inference = keeping
+    reset()
+    carries.clear()
+    t0 = time.perf_counter()
+    out, aa = eng.sample(batch, gen)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    eng.model.forward_inference = counted
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    twin_calls = {fn.__name__: fn.cuda_calls for fn in twins}
+    model_calls, evals, forms = dict(calls), eng.last_counts["evals"], list(ia.ipa_attention.forms)
+    # rope_attention by body: short base 2 (stage 1, b′), short natural (the
+    # encoder's MHA, b′), long (stage 2, b); NL of each an evaluation
+    bodies = list(ra.rope_attention.bodies)
+    checks = output_checks("design_main", out, mask, twin_calls)
+    per_eval = design_launches_per_eval()
+    want = {k: evals * v for k, v in per_eval.items()}
+    carry = carries[-1]
+    simplex_dev = (carry[..., -20:].sum(-1) - 1).abs().max().item()
+
+    # that evaluation (B = 64) with the kernels and with every wrapper
+    # swapped for its plain twin on the same card tensors: the unfolded
+    # FinalLayer (row a, tiled64 at M = B T L) and the encoder over 2 B
+    # elements at the sampled shapes
+    m = eng.model
+
+    def one_eval():
+        return (m.forward_inference(*kept["args"], **kept["kw"]),
+                m.denoise(*kept["args"], **kept["kw"]))
+
+    kern = one_eval()
+    twin = with_twins(one_eval)
+    vs_twins = dict(continuous=rel_l2(kern[1][..., :-20].float(), twin[1][..., :-20].float()),
+                    logits_plus_head=rel_l2(kern[1][..., -20:].float(), twin[1][..., -20:].float()),
+                    flow=rel_l2(kern[0][..., -20:].float(), twin[0][..., -20:].float()))
+    twins_finite = all(bool(torch.isfinite(v).all()) for v in (*kern, *twin))
+    del kern, twin
+
+    # one evaluation (B = 2, t = 0.4): card (bf16 kernels) vs CPU (f32 twins)
+    cpu = InferenceEngine(cfg.replace(model=dataclasses.replace(cfg.model, use_bf16=False)), sd,
+                          device="cpu")
+    zs = sample_prior_latent(torch.Generator().manual_seed(174), 2, T, L, cfg.latent_dim,
+                             design=True)
+    got = {}
+    for name, e in (("cuda", eng), ("cpu", cpu)):
+        d = e.device
+        k2 = prep_batch(e.cfg, {k: v[:2].to(d) for k, v in batch.items()})["model_kwargs"]
+        kw = dict(start_frames=k2["start_frames"], end_frames=k2["end_frames"],
+                  x_cond=k2["x_cond"], x_cond_mask=k2["x_cond_mask"], aatype=k2["aatype"])
+        t2 = torch.full((2,), 0.4, device=d)
+        got[name] = (e.model.forward_inference(zs.to(d), t2, k2["mask"], **kw).float().cpu(),
+                     e.model.denoise(zs.to(d), t2, k2["mask"], **kw).float().cpu())
+    del cpu
+    parts = dict(continuous=rel_l2(got["cuda"][0][..., :-20], got["cpu"][0][..., :-20]),
+                 flow=rel_l2(got["cuda"][0][..., -20:], got["cpu"][0][..., -20:]),
+                 logits_plus_head=rel_l2(got["cuda"][1][..., -20:], got["cpu"][1][..., -20:]))
+    tol = 5e-2
+    emit({"phase": "design_main", "B": B, "T": T, "L": L, "C": C, "layers": NL, "steps": STEPS,
+          "dtype": "bf16", "latent_dim": cfg.latent_dim, "task": "inpainting + design + no_torsion",
+          "sample_s": secs, "sample_ms": secs * 1e3, "frames_per_s": B * T / secs,
+          "ms_per_eval": secs / evals * 1e3, **eng.last_counts, "model_calls": model_calls,
+          "launches_per_sample": launches, "launches_per_eval_derived": per_eval,
+          "ipa_attention_forms_per_sample": forms, "rope_attention_bodies_per_sample": bodies,
+          "encoder_elements_per_eval": 2 * B,
+          "plain_calls_on_card": twin_calls, **checks,
+          "aa_out": dict(shape=list(aa.shape), min=int(aa.min()), max=int(aa.max()),
+                         distinct=int(aa.unique().numel())),
+          "simplex_sum_max_dev": simplex_dev, "carry_finite": bool(torch.isfinite(carry).all()),
+          "c_factor_warmup": dict(evals=n_seen, nan_card=nan_card, nan_cpu=nan_cpu,
+                                  nan_card_only=nan_card_only, max_err_of_scale=cf_err),
+          "kernels_vs_twins": dict(batch=B, eval=STEPS // 2, t=float(kept["args"][1][0]),
+                                   rel_l2=vs_twins, tol=tol, finite=twins_finite),
+          "cuda_vs_cpu": dict(batch=2, t=0.4, rel_l2=parts, tol=tol)})
+    if launches != want or model_calls != {"forward_inference": STEPS, "flat_call": 0}:
+        raise AssertionError(f"design_main: launches {launches}, calls {model_calls}; expected "
+                             f"{want} and {STEPS} forward_inference calls")
+    if forms != [launches["ipa_attention"], 0, 0, 0] or bodies != [NL * evals] * 3:
+        raise AssertionError(f"design_main: ipa_attention's forms {forms}, rope_attention's "
+                             f"bodies {bodies}; expected all streaming, {NL * evals} of each body")
+    if aa.shape != (B, T, L) or aa.min() < 0 or aa.max() >= 20:
+        raise AssertionError(f"design_main: aa_out {aa.shape}, in {int(aa.min())}..{int(aa.max())}")
+    if not simplex_dev <= 1e-3 or not torch.isfinite(carry).all():
+        raise AssertionError(f"design_main: the simplex channels sum to 1 +- {simplex_dev}")
+    if nan_card_only:
+        raise AssertionError(f"design_main: {nan_card_only} NaN c-factors on the card only")
+    if not cf_err <= 1e-4:
+        raise AssertionError(f"design_main: c_factor card vs CPU {cf_err} of the scale")
+    if not max(vs_twins.values()) <= tol or not twins_finite:
+        raise AssertionError(f"design_main: kernels vs plain twins at B = {B}: {vs_twins} > {tol}")
+    if not max(parts.values()) <= tol or not all(torch.isfinite(g).all() for g in got["cuda"]):
+        raise AssertionError(f"design_main: card vs CPU {parts} > {tol}")
+    return launches, (eng, batch, gen)
+
+
+def phase_mpnn(dev):
+    """``mpnn`` and ``dynamic_mpnn`` (+ design) at the design preset's width
+    on the card: ``InferenceEngine.sample`` at B = 64 is one
+    ``forward_inference`` at t = 1 with the trunk at T = 1 (frame 0) or
+    T = 2 (frames 0 and T-1), no FinalLayer, the design head's logits; the
+    launches as derived; the sequence in 0..19 and the conditioning's own
+    structures; the logits card vs CPU at B = 2; the trunk at that T (B =
+    64) against its plain twins on the same card tensors, and both timed."""
+    from mdgen_finetune_tpu_torch.inference import InferenceEngine
+    from mdgen_finetune_tpu_torch.ops.fused_layer import fused_trunk
+    from mdgen_finetune_tpu_torch.tasks import prep_batch
+
+    rows = {}
+    for i, task in enumerate(("mpnn", "dynamic_mpnn")):
+        cfg = design_config({task: True, "design": True})
+        Tn = 1 if task == "mpnn" else 2
+        eng, sd = random_engine(dev, cfg, seed=181 + i)
+        batch, mask = make_trajectories(B, 183 + i, dev)
+        gen = torch.Generator(device=dev).manual_seed(185)
+        calls = count_calls(eng.model, ("forward_inference",))
+        eng.sample(batch, gen)  # warm-up
+        torch.cuda.synchronize()
+        wrappers, twins = fwd_counters()
+        for fn in wrappers:
+            fn.launches = 0
+        for fn in twins:
+            fn.cuda_calls = 0
+        calls["forward_inference"] = 0
+        t0 = time.perf_counter()
+        out, aa = eng.sample(batch, gen)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in wrappers}
+        twin_calls = {fn.__name__: fn.cuda_calls for fn in twins}
+        model_calls = dict(calls)
+        checks = output_checks(task, out, mask, twin_calls)
+        want = design_launches_per_eval(head=False)
+        prep = prep_batch(eng.cfg, batch)
+        frames_err = (out[..., 1, :] - batch["trans"]).abs().max().item()  # CA = the frames'
+
+        # the logits card vs CPU (B = 2)
+        cpu = InferenceEngine(cfg.replace(model=dataclasses.replace(cfg.model, use_bf16=False)),
+                              sd, device="cpu")
+        b2 = {k: v[:2] for k, v in batch.items()}
+        _, aa_cuda = eng.sample(b2, gen)
+        logits = {}
+        for name, e in (("cuda", eng), ("cpu", cpu)):
+            d = e.device
+            p2 = prep_batch(e.cfg, {k: v.to(d) for k, v in b2.items()})
+            k2 = p2["model_kwargs"]
+            x1 = p2["latents"]
+            xt = torch.cat([x1, x1.new_zeros(*x1.shape[:-1], 20)], -1)
+            logits[name] = e.model.forward_inference(
+                xt, torch.ones(2, device=d), k2["mask"], start_frames=k2["start_frames"],
+                end_frames=k2["end_frames"], x_cond=k2["x_cond"], x_cond_mask=k2["x_cond_mask"],
+                aatype=k2["aatype"]).float().cpu()
+        del cpu
+        rel = rel_l2(logits["cuda"], logits["cpu"])
+
+        # the trunk at T = Tn against its plain twins on the card
+        m = eng.model
+        pack = m.make_trunk_pack()
+        mods = m.embed_mods(m.embed_times(torch.full((B,), 0.5, device=dev)), pack)
+        g = torch.Generator(device=dev).manual_seed(186 + i)
+        h0 = torch.randn(B, Tn, L, C, generator=g, device=dev).to(torch.bfloat16)
+        mk = prep["model_kwargs"]["mask"][:, :Tn].float().contiguous()
+
+        def trunk():
+            return fused_trunk(h0.clone(), mods, pack["layers"], mk, num_heads=H)
+
+        with torch.no_grad():
+            hk = trunk().float()
+            hp = with_twins(trunk).float()
+        trunk_rel = rel_l2(hk, hp)
+        row = dict(B=B, T_trunk=Tn, sample_s=secs, sample_ms=secs * 1e3,
+                   sequences_per_s=B / secs, model_calls=model_calls, **eng.last_counts,
+                   launches_per_sample=launches, launches_derived=want,
+                   plain_calls_on_card=twin_calls, **checks,
+                   aa_out=dict(shape=list(aa.shape), min=int(aa.min()), max=int(aa.max())),
+                   ca_vs_frames_max_err=frames_err,
+                   logits_cuda_vs_cpu=dict(batch=2, rel_l2=rel, tol=5e-2),
+                   trunk_vs_plain=dict(rel_l2=trunk_rel, tol=5e-2,
+                                       finite=bool(torch.isfinite(hk).all()),
+                                       ms=time_ms(trunk, reps=10),
+                                       plain_ms=with_twins(lambda: time_ms(trunk, reps=5))))
+        rows[task] = row
+        del eng
+        if launches != want or model_calls != {"forward_inference": 1}:
+            raise AssertionError(f"{task}: launches {launches}, calls {model_calls}; expected "
+                                 f"{want} and one forward_inference")
+        if aa.shape != (B, 1, L) or aa.min() < 0 or aa.max() >= 20 or aa_cuda.shape != (2, 1, L):
+            raise AssertionError(f"{task}: aa_out {aa.shape} in {int(aa.min())}..{int(aa.max())}")
+        if not frames_err <= 1e-3:
+            raise AssertionError(f"{task}: the structures are not the conditioning's: {frames_err}")
+        if not rel <= 5e-2 or not trunk_rel <= 5e-2 or not torch.isfinite(hk).all():
+            raise AssertionError(f"{task}: logits card vs CPU {rel}, trunk vs plain {trunk_rel}")
+    emit({"phase": "mpnn", "L": L, "C": C, "layers": NL, "dtype": "bf16", **rows})
+
+
+def phase_design_cli(dev):
+    """The design CLIs on the card: the full-width random weights of
+    ``preset_4aa_design`` written as a released-format ``.ckpt`` with its
+    ``config.json`` (``frame_interval`` 1: the 300-frame synthetic "AGHK"
+    trajectory then holds 100-frame windows between the two states), then
+    ``design_inference --torch_ckpt ... --num_batches 1 --batch_size 2``
+    (Euler-100, windows from the largest-flux pair of states): 2 metadata
+    rows, 2 PDBs of T models with ideal bonds, ``aa_out`` (T, L) in 0..19;
+    then ``analyze_design`` on the output: its ``MEAN`` line."""
+    import io
+
+    import numpy as np
+
+    from mdgen_finetune_tpu_torch.cli import analyze_design, design_inference, synth_data
+    from mdgen_finetune_tpu_torch.models.denoiser import LatentMDGen
+    from mdgen_finetune_tpu_torch.utils.torch_compat import write_reference_checkpoint
+    from mdgen_finetune_tpu_torch.utils.weights import randomize_
+
+    data, out, ckpt = SCRATCH / "design_data", SCRATCH / "design_out", SCRATCH / "design_ckpt"
+    cfg = design_config(frame_interval=None)
+    synth_data.main(["--outdir", str(data), "--peptides", "AGHK", "--num_frames", "300",
+                     "--suffix", "_i100"])
+    ckpt.mkdir(parents=True, exist_ok=True)
+    model = randomize_(LatentMDGen(cfg), torch.Generator().manual_seed(191), scale=0.05)
+    write_reference_checkpoint(str(ckpt / "model.ckpt"), model.state_dict(), cfg)
+    (ckpt / "config.json").write_text(cfg.to_json())
+    del model
+    t0 = time.perf_counter()
+    design_inference.main(["--torch_ckpt", str(ckpt / "model.ckpt"), "--data_dir", str(data),
+                           "--split", str(data / "split.csv"), "--suffix", "_i100",
+                           "--out_dir", str(out), "--num_frames", str(T), "--num_batches", "1",
+                           "--batch_size", "2"])
+    secs = time.perf_counter() - t0
+    meta_path = out / "AGHK_metadata.json"
+    if not meta_path.exists():
+        raise AssertionError("design_cli: no metadata written (the peptide was skipped)")
+    meta = json.loads(meta_path.read_text())
+    rows = []
+    for m in meta:
+        pos, dev_nca, dev_cac = pdb_frames(m["path"])
+        aa = np.asarray(m["aa_out"])
+        rows.append(dict(start_idx=m["start_idx"], end_idx=m["end_idx"], models=len(pos),
+                         finite=bool(np.isfinite(pos).all()), n_ca_max_dev=dev_nca,
+                         ca_c_max_dev=dev_cac, aa_out_shape=list(aa.shape),
+                         aa_out_range=[int(aa.min()), int(aa.max())]))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        analyze_design.main(["--pdbdir", str(out)])
+    mean = [ln for ln in buf.getvalue().splitlines() if ln.startswith("MEAN ")]
+    emit({"phase": "design_cli", "cli_s": secs, "samples": len(meta), "rows": rows,
+          "start_state": meta[0]["start_state"] if meta else None,
+          "end_state": meta[0]["end_state"] if meta else None,
+          "analyze_design": mean[0] if mean else None})
+    for d in (data, out, ckpt):
+        shutil.rmtree(d, ignore_errors=True)
+    if len(meta) != 2 or not mean or "design_recovery" not in mean[0]:
+        raise AssertionError(f"design_cli: {len(meta)} samples, analyze_design said {mean}")
+    for r in rows:
+        if (r["models"] != T or not r["finite"] or r["n_ca_max_dev"] > 1e-2
+                or r["ca_c_max_dev"] > 1e-2 or r["aa_out_shape"] != [T, L]
+                or not 0 <= r["aa_out_range"][0] <= r["aa_out_range"][1] < 20):
+            raise AssertionError(f"design_cli: a sample is off: {r}")
 
 
 def train_1000_config(batch_size):
@@ -3792,7 +4203,15 @@ def main():
     del eng
     phase_tps_cli(dev)
     phase_upsampling_cli(dev)
-    emit({"phase": "tasks_s", "tps_and_upsampling_s": time.perf_counter() - t_tasks})
+    t_design = time.perf_counter()
+    design_launches, (eng, batch, gen) = phase_design_main(dev)
+    phase_trace("design_trace", lambda: eng.sample(batch, gen))
+    del eng
+    phase_mpnn(dev)
+    phase_design_cli(dev)
+    emit({"phase": "tasks_s", "tps_and_upsampling_s": t_design - t_tasks,
+          "design_s": time.perf_counter() - t_design,
+          "tasks_s": time.perf_counter() - t_tasks})
     phase_grad_across_devices(dev)
     train_launches, train_ref, (trainer, state, tbatch, tgen) = phase_train_path(dev)
     phase_trace("train_trace", lambda: trainer.train_step(state, tbatch, tgen))
@@ -3892,6 +4311,7 @@ def main():
                      "sim_1000_launches": sim_launches.get(name, 0),
                      "train_1000_launches_per_step": per_step_1000.get(name, 0),
                      "sim_atlas_launches": atlas_sim_launches.get(name, 0),
+                     "design_main_launches": design_launches.get(name, 0),
                      "train_atlas_launches_per_step": atlas_per_step.get(name, 0),
                      "max_abs_err": k["max_abs_err"], "tol": k["tol"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],

@@ -68,7 +68,7 @@ def main(argv=None):
     if a.inference_batches and cfg.task.design:
         raise NotImplementedError(
             "the designability probe (--design --inference_batches) is not ported yet "
-            "(ROADMAP.md queue 1 item 8)")
+            "(ROADMAP.md queue 1 item 14, training the design tasks)")
     trainer = Trainer(cfg, device=a.device)  # refuses what is not ported
 
     workdir = os.path.join(cfg.workdir, cfg.run_name)

@@ -10,11 +10,16 @@ forward-simulation presets' default) integrate the probability-flow drift
 of ``LatentMDGen.forward_inference`` with ``transport.sample_ode``, and so
 does every sampler of the modular configurations (``interleave_ipa``,
 ``hyena``, ``no_rope``), Euler included, as the JAX package's
-``LatentMDGen.flat_scan_ok`` sends them to its generic route. The tasks are
-forward simulation, upsampling (``cond_interval``) and transition paths
-(``tps_condition``: the doubled offsets, the encoder's token pair over the
-start and end frames). The reverse-SDE sampler, design and mpnn are not
-ported yet (ROADMAP.md queue 1 item 8).
+``LatentMDGen.flat_scan_ok`` sends them to its generic route, and so do the
+design tasks. The tasks are forward simulation, upsampling
+(``cond_interval``), transition paths (``tps_condition``: the doubled
+offsets, the encoder's token pair over the start and end frames),
+inpainting (the flat chain, residues 0 and 3 conditioned), inpainting with
+sequence design (``design``: 20 simplex channels drawn from Dirichlet(1),
+moved by the Dirichlet conditional flow; the designed sequence is their
+argmax) and ``mpnn`` / ``dynamic_mpnn`` (one evaluation at t = 1: the
+sequence of the given structures). The reverse-SDE sampler is not ported
+yet (ROADMAP.md queue 1 item 8).
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; without CUDA they raise. Randomness comes from an explicit
@@ -48,9 +53,17 @@ def resolve_device(device) -> torch.device:
 
 
 def sample_prior_latent(generator: torch.Generator, B: int, T: int, L: int,
-                        latent_dim: int, device=None) -> torch.Tensor:
-    """Gaussian prior draw (src/mdgen/wrapper.py:416-434), f32."""
-    z = torch.randn(B, T, L, latent_dim, generator=generator, device=generator.device)
+                        latent_dim: int, device=None, design: bool = False) -> torch.Tensor:
+    """Prior draw (src/mdgen/wrapper.py:416-434), f32: Gaussian; with
+    ``design`` the last 20 channels are a Dirichlet(1) draw per (B, L), the
+    same in every frame (normalized standard exponentials, drawn after the
+    Gaussian part from the same generator)."""
+    cont = latent_dim - (20 if design else 0)
+    z = torch.randn(B, T, L, cont, generator=generator, device=generator.device)
+    if design:
+        e = torch.empty(B, L, 20, device=generator.device).exponential_(generator=generator)
+        zd = e / e.sum(-1, keepdim=True)
+        z = torch.cat([z, zd[:, None].expand(B, T, L, 20)], dim=-1)
     return z.to(device) if device is not None else z
 
 
@@ -85,9 +98,11 @@ class InferenceEngine:
 
     # ------------------------------------------------------------------
     def _decode(self, samples, rigids: Rigid, seqres):
-        """Latents -> (atom14, aatype) (src/mdgen/wrapper.py:487-514): the
+        """Latents -> (atom14, aa_out) (src/mdgen/wrapper.py:487-514): the
         forward offsets from frame 0, then the torsions, which follow the
-        reverse offsets under the doubled offsets (JAX :95-98)."""
+        reverse offsets under the doubled offsets (JAX :95-98); ``aa_out``
+        the given sequence, or under ``design`` the argmax of the simplex
+        channels (B, T, L)."""
         B, T, L, _ = samples.shape
         rel = Rigid.from_tensor_7(samples[..., :7], normalize_quats=True)
         frames = rigids[:, 0:1].compose(rel)
@@ -95,22 +110,58 @@ class InferenceEngine:
         torsions = samples[..., k:k + 14].reshape(B, T, L, 7, 2)
         torsions = torsions / torch.linalg.vector_norm(torsions, dim=-1, keepdim=True)
         aat = seqres[:, None].expand(B, T, L)
-        return G.frames_torsions_to_atom14(frames, torsions, aat), aat
+        aa_out = samples[..., -20:].argmax(-1) if self.cfg.task.design else aat
+        return G.frames_torsions_to_atom14(frames, torsions, aat), aa_out
+
+    def _sequence_only(self, batch, prep):
+        """``mpnn`` / ``dynamic_mpnn`` (src/mdgen/wrapper.py:456-465; JAX
+        :112-124): one ``forward_inference`` at t = 1 on the task's latents
+        with zero simplex channels; the structures are the conditioning's
+        own. Returns (atom14 (B, T, L, 14, 3), aa_out (B, 1, L))."""
+        kw = prep["model_kwargs"]
+        x1 = prep["latents"]
+        B, T, L = kw["mask"].shape
+        xt = torch.cat([x1, x1.new_zeros(*x1.shape[:-1], 20)], dim=-1)
+        logits = self.model.forward_inference(xt, torch.ones(B, device=self.device), kw["mask"],
+                                              start_frames=kw["start_frames"],
+                                              end_frames=kw["end_frames"], x_cond=kw["x_cond"],
+                                              x_cond_mask=kw["x_cond_mask"], aatype=kw["aatype"])
+        self.last_counts = {"accepted": 0, "rejected": 0, "evals": 1}
+        aat = batch["seqres"][:, None].expand(B, T, L)
+        atom14 = G.frames_torsions_to_atom14(prep["rigids"], batch["torsions"].float(), aat)
+        return atom14, logits.argmax(-1)
+
+    def sample_with_zs0(self, batch: dict, zs0: torch.Tensor):
+        """Featurized batch + prior latent (B, T, L, lat) -> (atom14, aa_out)
+        (src/mdgen/wrapper.py:436). ``mpnn`` / ``dynamic_mpnn`` take one
+        evaluation and no prior: ``zs0`` is not read."""
+        return self._sample(batch, zs0=zs0)
+
+    def sample(self, batch: dict, generator: torch.Generator):
+        """Featurized batch -> generated (atom14 (B, T, L, 14, 3), aa_out:
+        the batch's sequence (B, T, L), or the designed one)."""
+        return self._sample(batch, generator=generator)
 
     @torch.no_grad()
-    def sample_with_zs0(self, batch: dict, zs0: torch.Tensor):
-        """Featurized batch + prior latent (B, T, L, lat) -> (atom14, aatype)
-        (src/mdgen/wrapper.py:436): the Euler chain on the flat latent for
-        Euler with the velocity objective on the fused branch, else the
-        generic ODE solve of ``sample_ode`` over
-        ``transport.drift_fn(forward_inference)`` (the JAX package's
-        ``_sample``, :144-151 and :231-249)."""
+    def _sample(self, batch: dict, zs0=None, generator=None):
+        """The JAX package's ``_sample`` (:112-151 and :231-249): ``mpnn`` /
+        ``dynamic_mpnn`` are one evaluation (``_sequence_only``); else the
+        prior ``zs0``, or one drawn from ``generator``, goes through the
+        Euler chain on the flat latent for Euler with the velocity objective
+        on the fused branch without the design tasks (the JAX package's
+        ``flat_scan_ok``), or the generic ODE solve of ``sample_ode`` over
+        ``transport.drift_fn(forward_inference)``."""
         cfg, model = self.cfg, self.model
         batch = {k: self._tensor(v) for k, v in batch.items()
                  if isinstance(v, (np.ndarray, torch.Tensor))}
         prep = prep_batch(cfg, batch)
+        if cfg.task.mpnn or cfg.task.dynamic_mpnn:
+            return self._sequence_only(batch, prep)
         kw = prep["model_kwargs"]
         mask = kw["mask"].float().contiguous()
+        if zs0 is None:
+            zs0 = sample_prior_latent(generator, *mask.shape, cfg.latent_dim, self.device,
+                                      design=cfg.task.design)
         pack = model.make_trunk_pack()
         frames = dict(start_frames=kw["start_frames"], end_frames=kw["end_frames"])
         consts = model.make_scan_consts(kw["x_cond"], kw["x_cond_mask"], mask,
@@ -119,7 +170,8 @@ class InferenceEngine:
         n = cfg.transport.inference_steps
         xc = zs0.to(self.device, torch.float32).clone().contiguous()
         method = cfg.transport.sampling_method
-        if method == "euler" and self.transport.prediction == "velocity" and not model.modular:
+        flat = not (model.modular or cfg.task.design)
+        if method == "euler" and self.transport.prediction == "velocity" and flat:
             dt = (t1 - t0) / n
             ts = t0 + dt * torch.arange(n, dtype=torch.float32, device=self.device)
             encs = model.encode_steps(ts, mask, consts, pack, **frames)
@@ -136,12 +188,6 @@ class InferenceEngine:
             xc, self.last_counts = sample_ode(self.transport.drift_fn(model_fn), xc, t0=t0,
                                               t1=t1, method=method, num_steps=n)
         return self._decode(xc, prep["rigids"], batch["seqres"])
-
-    def sample(self, batch: dict, generator: torch.Generator):
-        """Featurized batch -> generated (atom14 (B, T, L, 14, 3), aatype)."""
-        B, T, L = batch["torsions"].shape[:3]
-        zs = sample_prior_latent(generator, B, T, L, self.cfg.latent_dim, self.device)
-        return self.sample_with_zs0(batch, zs)
 
     # ------------------------------------------------------------------
     def _expand_frame0(self, atom14_frame0, seqres, mask):

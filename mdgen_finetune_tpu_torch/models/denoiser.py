@@ -1,12 +1,19 @@
 """SiT-style latent denoiser with factorized frame x residue attention.
 
 Counterpart of the JAX package's ``models/denoiser.py::LatentMDGen``
-(reference src/mdgen/model/latent_model.py:43-326) for plain continuous
-latents (``sim_condition``, ``cond_interval`` and ``tps_condition``), with or
-without the prepend-IPA encoder and the absolute position/time tables. With
-``tps_condition`` (the doubled offsets) the encoder runs on two token sets,
-the end frames seen from the start frames and the reverse, and sums the
-two passes (``run_ipa``). Parameters are named after
+(reference src/mdgen/model/latent_model.py:43-326) for every frames task:
+forward simulation, upsampling, transition paths, inpainting / design and
+(dynamic) mpnn, with or without the prepend-IPA encoder and the absolute
+position/time tables. With the doubled offsets (``tps_condition``,
+``inpainting``, ``dynamic_mpnn``) the encoder runs on two token sets, the end
+frames seen from the start frames and the reverse, and sums the two passes
+(``run_ipa``). With ``design`` the latent carries 20 simplex channels: the
+encoder's tokens gain ``x_d_to_emb`` of their mean over frames at every
+evaluation, the trunk runs without the folded head, and the design head
+(``fc1``, ``fc2``, a mean over frames, ``fc3``, ``emb_to_logits``) adds
+sequence logits to the head's last 20 channels; ``forward_inference`` turns
+them into the Dirichlet conditional flow. ``mpnn`` / ``dynamic_mpnn`` keep
+frame 0 (and T-1) and return the logits alone. Parameters are named after
 the flax tree (``layers_3/mha_t/q_proj/kernel`` ->
 ``layers.3.mha_t.q_proj.weight``); ``utils.weights.from_flax`` converts a
 JAX checkpoint.
@@ -21,7 +28,8 @@ The trunk takes one of JAX's two branches of ``LatentMDGenLayer``
   then ``MultiheadAttention`` over residues and over frames (or Hyena, or
   dense attention without RoPE) with the natural softmax, then
   ``adaln_mlp``. Sampling only: the Trainer refuses it (ROADMAP.md, queue 1
-  item 9, training the modular layer).
+  item 9, training the modular layer), as it refuses the design tasks
+  (item 14).
 
 Three ways to run it, as in the JAX package:
 - ``forward(x, t, mask, ...)``: the plain call (``__call__``, :608-740),
@@ -54,11 +62,13 @@ from ..ops.adaln_mlp import adaln_mlp
 from ..ops.fused_layer import fused_trunk, fused_trunk_train
 from ..ops.ipa_attention import ipa_attention
 from ..ops.ipa_encoder import ipa_encoder
+from ..transport.dirichlet import DirichletConditionalFlow, simplex_proj
+from ..transport.transport import t_to_alpha
 from .attention import MHAParams, MultiheadAttention
 from .attention_core import LOG2E
 from .hyena import HyenaOperator
 from .ipa import IPAParams
-from .layers import TimestepEmbedder, sincos_pos_embed
+from .layers import TimestepEmbedder, gelu_erf, sincos_pos_embed
 
 
 class IPALayer(nn.Module):
@@ -217,9 +227,11 @@ def _unsupported(cfg: MDGenConfig, train: bool):
             return "training with model.dropout", "9 (training the modular layer)"
         if t.tps_condition:
             return "training with task.tps_condition", "13 (training the TPS task)"
-    for name in ("design", "mpnn", "dynamic_mpnn", "inpainting", "no_frames"):
-        if getattr(t, name):
-            return f"task.{name}", "8"
+        for name in ("design", "mpnn", "dynamic_mpnn", "inpainting"):
+            if getattr(t, name):
+                return f"training with task.{name}", "14 (training the design tasks)"
+    if t.no_frames:
+        return "task.no_frames", "8"
     return None
 
 
@@ -227,7 +239,7 @@ def refuse_unported(cfg: MDGenConfig, train: bool = False) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item of a model or
     task branch that is not ported yet; with ``train``, also the branches
     that sample but do not train yet (the modular layer, dropout, the TPS
-    task)."""
+    and design tasks)."""
     bad = _unsupported(cfg, train)
     if bad is not None:
         raise NotImplementedError(
@@ -256,6 +268,9 @@ class LatentMDGen(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         refuse_unported(cfg)  # the task branches; the Trainer refuses more
+        task = cfg.task
+        if (task.mpnn or task.dynamic_mpnn) and not task.design:
+            raise ValueError("task.mpnn / dynamic_mpnn predict the sequence: they need task.design")
         self.cfg = cfg
         m = cfg.model
         C = m.embed_dim
@@ -265,15 +280,26 @@ class LatentMDGen(nn.Module):
         if cfg.doubled_offsets:  # the encoder's two token sets (tps_condition)
             self.latent_to_emb_f = nn.Linear(7, C)
             self.latent_to_emb_r = nn.Linear(7, C)
-        self.cond_to_emb = nn.Linear(self.latent_dim, C)
+        # x_cond holds the task's latents without the simplex channels
+        self.cond_to_emb = nn.Linear(self.latent_dim - (20 if task.design else 0), C)
         self.mask_to_emb = nn.Embedding(2, C)
+        if task.design:
+            self.x_d_to_emb = nn.Linear(20, C)
         if m.prepend_ipa:
             if not m.no_aa_emb:
                 self.aatype_to_emb = nn.Embedding(21, C)
             self.ipa_layers = nn.ModuleList([IPALayer(cfg) for _ in range(m.num_layers)])
         self.modular = modular(cfg)
         self.layers = nn.ModuleList([LatentMDGenLayer(cfg) for _ in range(m.num_layers)])
-        self.emb_to_latent = FinalLayer(C, self.latent_dim)
+        if not (task.mpnn or task.dynamic_mpnn):
+            self.emb_to_latent = FinalLayer(C, self.latent_dim)
+        if task.design:  # the design head (reference latent_model.py:120-125)
+            self.fc1 = nn.Linear(C, C)
+            self.fc2 = nn.Linear(C, C)
+            self.fc3 = nn.Linear(C, C)
+            self.emb_to_logits = nn.Linear(C, 20)
+            self.condflow = DirichletConditionalFlow(K=20, alpha_spacing=0.001,
+                                                     alpha_max=cfg.transport.alpha_max)
         self.t_embedder = TimestepEmbedder(C)
         if m.abs_pos_emb:
             self.register_buffer("pos_embed", torch.from_numpy(
@@ -287,7 +313,8 @@ class LatentMDGen(nn.Module):
     def reset_parameters(self):
         """The JAX package's init (reference latent_model.py:134-142):
         xavier-uniform Linear weights (IPA's k/v and k/v-point projections
-        with the fan of their fused flax kernels) and zero biases; the AdaLN
+        with the fan of their fused flax kernels) and zero biases (the design
+        head's and ``x_d_to_emb`` among them); the AdaLN
         projections, the FinalLayer's linear and IPA's linear_out zero; the
         t-embedder N(0, 0.02); embeddings N(0, 1); the bias-KV tokens
         N(0, 2 / (1 + C)); Hyena's other parameters as
@@ -308,8 +335,9 @@ class LatentMDGen(nn.Module):
                 mod.reset_parameters()
         for lin in (self.t_embedder.mlp0, self.t_embedder.mlp2):
             nn.init.normal_(lin.weight, std=0.02)
-        zero = [lay.adaLN for lay in self.layers] + [self.emb_to_latent.adaLN,
-                                                     self.emb_to_latent.linear]
+        zero = [lay.adaLN for lay in self.layers]
+        if hasattr(self, "emb_to_latent"):
+            zero += [self.emb_to_latent.adaLN, self.emb_to_latent.linear]
         zero += [lay.adaLN for lay in getattr(self, "ipa_layers", ())]
         for lay in list(getattr(self, "ipa_layers", ())) + [
                 lay for lay in self.layers if hasattr(lay, "ipa")]:
@@ -361,7 +389,8 @@ class LatentMDGen(nn.Module):
         dtype; on the modular branch each layer's ``LatentMDGenLayer.fold``
         (q scaled by head_dim**-0.5 only: the natural softmax); every
         layer's AdaLN projection and the FinalLayer's in one (C, NL*9C+2C)
-        weight; the encoder pack. With grad mode on, the fold, the
+        weight (``mpnn`` / ``dynamic_mpnn`` have no FinalLayer: (C, NL*9C),
+        ``fin`` None); the encoder pack. With grad mode on, the fold, the
         concatenation and the cast run inside autograd, so that gradients of
         the pack reach the f32 parameters (JAX traces ``make_trunk_pack``
         inside ``__call__``); under ``torch.no_grad`` the pack is detached."""
@@ -392,13 +421,15 @@ class LatentMDGen(nn.Module):
                 bkt=lay.mha_t.bias_k.to(dt).contiguous(), bvt=lay.mha_t.bias_v.to(dt).contiguous())
 
         layers = [lay.fold(dt) if self.modular else fused(lay) for lay in self.layers]
-        fin = self.emb_to_latent
+        fin = getattr(self, "emb_to_latent", None)
+        heads = [] if fin is None else [fin.adaLN]
         wmods = torch.cat([lay.adaLN.weight.t() for lay in self.layers]
-                          + [fin.adaLN.weight.t()], 1).to(dt)
-        bmods = torch.cat([lay.adaLN.bias for lay in self.layers] + [fin.adaLN.bias]).to(dt)
+                          + [a.weight.t() for a in heads], 1).to(dt)
+        bmods = torch.cat([lay.adaLN.bias for lay in self.layers] + [a.bias for a in heads]).to(dt)
         enc = self._encoder_pack(dt) if self.cfg.model.prepend_ipa else None
         return {"wmods": wmods, "bmods": bmods, "layers": layers,
-                "fin": (_t(fin.linear, dt), fin.linear.bias.to(dt)), "enc": enc}
+                "fin": None if fin is None else (_t(fin.linear, dt), fin.linear.bias.to(dt)),
+                "enc": enc}
 
     # ------------------------------------------------------------------
     def _lin(self, lin: nn.Linear, x):
@@ -410,10 +441,12 @@ class LatentMDGen(nn.Module):
         """The encoder's input tokens, a 1-tuple or a 2-tuple of (B, L, C) as
         the JAX package's (:457-479; reference latent_model.py:179-214):
         zeros plus the aatype embedding; with the doubled offsets and none
-        of the one-token tasks (``tps_condition``), the pair ``x_f =
-        latent_to_emb_f((start^-1 o end) as 7-tensors)`` and ``x_r =
-        latent_to_emb_r((end^-1 o start))``, each plus the aatype
-        embedding."""
+        of the one-token tasks (``tps_condition``, ``inpainting``,
+        ``dynamic_mpnn``), the pair ``x_f = latent_to_emb_f((start^-1 o end)
+        as 7-tensors)`` and ``x_r = latent_to_emb_r((end^-1 o start))``, each
+        plus the aatype embedding. With ``design`` the JAX package adds
+        ``x_d_to_emb(x_d)`` last; it depends on the carry, so
+        ``denoise`` adds it at each evaluation."""
         t = self.cfg.task
         aa = None
         if aatype is not None and not self.cfg.model.no_aa_emb:
@@ -489,7 +522,11 @@ class LatentMDGen(nn.Module):
         mode is on (the trunk through ``FusedTrunkFn``, which with
         ``grad_checkpointing`` saves only each layer's input; the encoder
         through its recompute). The modular branch does not train yet: its
-        call is ``forward_inference``."""
+        call is ``forward_inference``; the design tasks neither (their
+        call is ``forward_inference`` too)."""
+        task = self.cfg.task
+        if task.design or task.mpnn or task.dynamic_mpnn:
+            refuse_unported(self.cfg, train=True)
         if self.modular:
             return self.forward_inference(x, t, mask, start_frames=start_frames,
                                           end_frames=end_frames, x_cond=x_cond,
@@ -573,15 +610,64 @@ class LatentMDGen(nn.Module):
                           aatype=None, trunk_pack=None, scan_consts=None):
         """The velocity at any (x, t), for the ODE samplers: x (B, T, L, lat),
         t (B,), mask (B, T, L) -> (B, T, L, lat) f32. The JAX package's
-        ``forward_inference`` (:952) for the ported tasks (no design
-        branch), computed as its ``__call__`` with ``trunk_pack``
-        (:608-740): per call the t-embeddings (``embed_times``), the AdaLN
-        rows (``embed_mods``) and the encoder (one row per element), then
-        ``fused_trunk`` with the embed and the output head folded in, its
+        ``forward_inference`` (:952-978), computed as its ``__call__`` with
+        ``trunk_pack`` (:608-740; here ``denoise``): per call the
+        t-embeddings (``embed_times``), the AdaLN rows (``embed_mods``) and
+        the encoder (one row per element), then ``fused_trunk`` with the
+        embed folded in and, but under ``design``, the output head too; its
         layers on the model's branch (the modular one: ``LatentMDGenLayer``
-        with frame 0's rigids for every frame, JAX :724-733).
-        ``scan_consts`` (``make_scan_consts``) and ``trunk_pack`` are made
-        once per sample by the caller, or here when absent."""
+        with frame 0's rigids for every frame, JAX :724-733). ``scan_consts``
+        (``make_scan_consts``) and ``trunk_pack`` are made once per sample
+        by the caller, or here when absent.
+
+        With ``design`` the last 20 channels of the result are the Dirichlet
+        conditional flow of the simplex channels x_d: softmax(logits /
+        ``dirichlet_flow_temp``) projected onto the simplex, then
+        sum_j p_j (delta_ij - x_i) c_j(x) * dalpha/dt at alpha = ``t_to_alpha``
+        of t[0] (clipped), c from ``condflow.c_factor`` (``nan_to_num`` under
+        ``allow_nan_cfactor``). ``mpnn`` / ``dynamic_mpnn`` keep frame 0
+        (and T-1) of x, x_cond, x_cond_mask and mask (``scan_consts`` must
+        be made from the kept frames) and return the logits,
+        (B, 1, L, 20) f32."""
+        task, tr = self.cfg.task, self.cfg.transport
+        if task.mpnn or task.dynamic_mpnn:
+            sel = [0] if task.mpnn else [0, x.shape[1] - 1]
+            x, x_cond, x_cond_mask, mask = (a[:, sel] for a in (x, x_cond, x_cond_mask, mask))
+        kw = dict(start_frames=start_frames, end_frames=end_frames, x_cond=x_cond,
+                  x_cond_mask=x_cond_mask, aatype=aatype, trunk_pack=trunk_pack,
+                  scan_consts=scan_consts)
+        if not task.design or task.mpnn or task.dynamic_mpnn:
+            return self.denoise(x, t, mask, **kw)
+        x_d = x[..., -20:].float()
+        latent = self.denoise(x, t, mask, **kw)
+        probs = simplex_proj(torch.softmax(latent[..., -20:] / tr.dirichlet_flow_temp, dim=-1))
+        alpha, dalpha_dt = t_to_alpha(t[0].float(), tr.alpha_max)
+        alpha = alpha.clamp(1.0, tr.alpha_max - self.condflow.alpha_spacing)
+        c = self.condflow.c_factor(x_d, alpha)
+        if tr.allow_nan_cfactor:
+            c = torch.nan_to_num(c)
+        eye = torch.eye(20, dtype=x_d.dtype, device=x_d.device)
+        cond_flows = (eye - x_d[..., None]) * c[..., None, :]
+        flow = (probs[..., None, :] * cond_flows).sum(-1) * dalpha_dt
+        return torch.cat([latent[..., :-20], flow], dim=-1)
+
+    @torch.no_grad()
+    def denoise(self, x, t, mask, start_frames: Optional[Rigid] = None,
+                    end_frames: Optional[Rigid] = None, x_cond=None, x_cond_mask=None,
+                    aatype=None, trunk_pack=None, scan_consts=None):
+        """The denoiser's output at (x, t) without the design flow: the JAX
+        package's ``__call__`` with ``trunk_pack`` (:608-740) on the frames
+        it is given. Without ``design`` the velocity, the head folded into
+        ``fused_trunk``. With ``design``: the encoder's tokens plus
+        ``x_d_to_emb`` of x's simplex channels averaged over frames (JAX
+        :468-478); the trunk's output h; the FinalLayer as its own row-a
+        product (``_final_xla``, :185-191) in the compute dtype; the design
+        head ``emb_to_logits(gelu_erf(fc3(mean over frames of
+        fc2(gelu_erf(fc1(h))))))`` (plain dense layers, as JAX computes them
+        outside its kernels) added to the head's last 20 channels in the
+        compute dtype (JAX :734-740), then f32. ``mpnn`` / ``dynamic_mpnn``:
+        the logits (B, 1, L, 20) f32."""
+        task = self.cfg.task
         NL, C = len(self.layers), self.cfg.model.embed_dim
         mask = mask.float().contiguous()
         pack = trunk_pack if trunk_pack is not None else self.make_trunk_pack()
@@ -592,8 +678,11 @@ class LatentMDGen(nn.Module):
         mods = self.embed_mods(t_emb, pack)
         enc = None
         if self.cfg.model.prepend_ipa:
-            enc = self.run_ipa(t_emb, mask[:, 0], start_frames, end_frames, consts["tokens"],
-                               pack)
+            tokens = consts["tokens"]
+            if task.design:
+                xd = self._lin(self.x_d_to_emb, x[..., -20:].float().mean(dim=1))
+                tokens = tuple(tk + xd for tk in tokens)
+            enc = self.run_ipa(t_emb, mask[:, 0], start_frames, end_frames, tokens, pack)
         layer = None
         if self.modular:
             B, T, L = mask.shape
@@ -605,10 +694,25 @@ class LatentMDGen(nn.Module):
 
             def layer(i, h, mod, w):
                 return self.layers[i](h, mod, mask, w, frames)
-        return fused_trunk(x.float().contiguous(), mods[:, :NL * 9 * C], pack["layers"], mask,
-                           num_heads=self.cfg.model.mha_heads,
-                           final=(mods[:, NL * 9 * C:], *pack["fin"]),
-                           embed=(consts["wlat"], consts["cadd"], enc), layer=layer)
+        trunk = dict(num_heads=self.cfg.model.mha_heads, layer=layer,
+                     embed=(consts["wlat"], consts["cadd"], enc))
+        x = x.float().contiguous()
+        if not task.design:
+            return fused_trunk(x, mods[:, :NL * 9 * C], pack["layers"], mask,
+                               final=(mods[:, NL * 9 * C:], *pack["fin"]), **trunk)
+        h = fused_trunk(x, mods[:, :NL * 9 * C], pack["layers"], mask, **trunk)
+        B, T, L, _ = h.shape
+        h = h.reshape(B * T * L, C)
+        x_l = self._lin(self.fc2, gelu_erf(self._lin(self.fc1, h))).view(B, T, L, C).mean(dim=1)
+        logits = self._lin(self.emb_to_logits, gelu_erf(self._lin(self.fc3, x_l)))
+        if task.mpnn or task.dynamic_mpnn:
+            return logits[:, None].float()
+        modf = mods[:, NL * 9 * C:]
+        wfin, bfin = pack["fin"]
+        latent = adaln_linear(h, wfin, bfin, ln="plain", shift=modf[:, :C],
+                              scale=modf[:, C:]).view(B, T, L, -1)
+        latent = torch.cat([latent[..., :-20], latent[..., -20:] + logits[:, None]], dim=-1)
+        return latent.float()
 
     @torch.no_grad()
     def flat_call(self, xc, mask, consts, pack, step_dt: float, enc=None, mods=None):

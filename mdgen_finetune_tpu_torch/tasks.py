@@ -3,8 +3,14 @@
 Counterpart of the frames path of the JAX package's ``tasks.py``
 (reference src/mdgen/wrapper.py:283-365). Latent token: 7-dim rigid offset
 (quat ‖ trans) then 14 torsion channels (7 x sin/cos) = 21; with
-``tps_condition`` the offsets are doubled, the forward offsets in frame 0
-then the reverse ones in the last frame, 7 + 7 + 14 = 28.
+``tps_condition``, ``inpainting`` or ``dynamic_mpnn`` the offsets are
+doubled, the forward offsets in frame 0 then the reverse ones in the last
+frame, 7 + 7 + 14 = 28 (the design task's 20 simplex channels are appended
+by the sampler, not here). The inpainting / design tasks condition on
+residues 0 and 3 in every frame, and ``design`` masks the aatype of
+residues 1 and 2 (20); ``design_key_frames``, ``no_torsion`` and
+``no_design_torsion`` are the reference's ablations. ``no_frames`` and
+``no_offsets`` are not ported yet (ROADMAP.md queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -15,8 +21,10 @@ import torch
 from .config import MDGenConfig
 from .geometry.rigid import Rigid
 
-# conditioning residues of inpainting/design (src/mdgen/wrapper.py:41-43)
+# residue index conventions of inpainting/design (src/mdgen/wrapper.py:41-43)
+DESIGN_IDX = (1, 2)
 COND_IDX = (0, 3)
+DESIGN_MAP_TO_COND = (0, 0, 3, 3)
 
 
 def get_offsets(ref_frame: Rigid, rigids: Rigid) -> torch.Tensor:
@@ -48,10 +56,7 @@ def make_cond_mask(cfg: MDGenConfig, B: int, T: int, L: int, device=None) -> tor
 
 def _unsupported(cfg: MDGenConfig):
     t = cfg.task
-    if t.no_frames:
-        return "no_frames"
-    for name in ("inpainting", "dynamic_mpnn", "design", "mpnn", "design_key_frames", "no_torsion",
-                 "no_design_torsion", "no_offsets"):
+    for name in ("no_frames", "no_offsets"):
         if getattr(t, name):
             return name
     return None
@@ -59,8 +64,9 @@ def _unsupported(cfg: MDGenConfig):
 
 def prep_batch(cfg: MDGenConfig, batch: Dict[str, torch.Tensor]) -> Dict:
     """Batch dict -> {rigids, latents, loss_mask, model_kwargs} for the
-    frames tasks of the port: forward simulation, upsampling and transition
-    paths (src/mdgen/wrapper.py:283-365)."""
+    frames tasks of the port: forward simulation, upsampling, transition
+    paths, inpainting / design and (dynamic) mpnn
+    (src/mdgen/wrapper.py:283-365)."""
     bad = _unsupported(cfg)
     if bad is not None:
         raise NotImplementedError(
@@ -68,6 +74,12 @@ def prep_batch(cfg: MDGenConfig, batch: Dict[str, torch.Tensor]) -> Dict:
     task = cfg.task
     rigids = Rigid(batch["rots"], batch["trans"])  # (B, T, L)
     B, T, L = rigids.shape
+    if task.design_key_frames:
+        # the key residues' rigids in the first and last frames
+        key = list(DESIGN_MAP_TO_COND)
+        first = Rigid(rigids.rot[:, :1, key], rigids.trans[:, :1, key])
+        last = Rigid(rigids.rot[:, -1:, key], rigids.trans[:, -1:, key])
+        rigids = Rigid.cat([first, rigids[:, 1:-1], last], dim=1)
     offsets = _fix_quat_sign(get_offsets(rigids[:, 0:1], rigids))
 
     frame_loss_mask = batch["mask"][..., None].expand(B, L, 7)
@@ -77,6 +89,11 @@ def prep_batch(cfg: MDGenConfig, batch: Dict[str, torch.Tensor]) -> Dict:
         offsets = torch.cat([offsets, offsets_r], dim=-1)
         frame_loss_mask = torch.cat([frame_loss_mask, frame_loss_mask], dim=-1)
     torsions = batch["torsions"].reshape(B, T, L, 14)
+    if task.no_torsion:
+        torsions = torch.zeros_like(torsions)
+    elif task.no_design_torsion:
+        torsions = torsions.clone()
+        torsions[:, :, list(DESIGN_IDX)] = 0.0
     latents = torch.cat([offsets, torsions], dim=-1)
     if task.supervise_all_torsions:
         torsion_loss_mask = torch.ones_like(torsion_loss_mask)
@@ -86,6 +103,10 @@ def prep_batch(cfg: MDGenConfig, batch: Dict[str, torch.Tensor]) -> Dict:
     loss_mask = loss_mask[:, None].expand(B, T, L, loss_mask.shape[-1])
 
     cond_mask = make_cond_mask(cfg, B, T, L, device=latents.device)
+    aatype = batch["seqres"]
+    if task.design:
+        aatype = aatype.clone()
+        aatype[:, list(DESIGN_IDX)] = 20
     return {
         "rigids": rigids,
         "latents": latents,
@@ -94,7 +115,7 @@ def prep_batch(cfg: MDGenConfig, batch: Dict[str, torch.Tensor]) -> Dict:
             "start_frames": rigids[:, 0],
             "end_frames": rigids[:, -1],
             "mask": batch["mask"][:, None].expand(B, T, L),
-            "aatype": batch["seqres"],
+            "aatype": aatype,
             "x_cond": torch.where(cond_mask[..., None].bool(), latents, 0.0),
             "x_cond_mask": cond_mask,
         },

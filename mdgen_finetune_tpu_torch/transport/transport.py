@@ -4,8 +4,10 @@ Counterpart of the JAX package's ``transport/transport.py::Transport``
 (:35-180; reference src/mdgen/transport/transport.py:137-257) for the
 continuous objectives: velocity matching, and the noise / score objectives
 with their loss weightings; ``drift_fn`` for the ODE samplers
-(``samplers.py``). The Dirichlet flow matching of the design task and the
-SDE sampler are not ported yet (ROADMAP.md queue 1 item 8).
+(``samplers.py``); ``t_to_alpha``, the Dirichlet concentration schedule that
+design sampling reads (``models/denoiser.py::forward_inference``). The
+Dirichlet flow-matching terms of the design task's loss are not ported yet
+(ROADMAP.md queue 1 item 14), nor is the SDE sampler (item 8).
 
 Randomness: ``training_losses`` draws t and x0 from a ``torch.Generator``,
 or takes them as given (the tests hand both packages the same draws).
@@ -18,6 +20,12 @@ import torch
 
 from ..config import MDGenConfig
 from .paths import expand_t, get_path
+
+
+def t_to_alpha(t, alpha_max: float):
+    """Linear schedule 1 -> alpha_max for the Dirichlet concentration and
+    its derivative in t (src/mdgen/transport/transport.py:52-57)."""
+    return 1 * (1 - t) + t * alpha_max, (alpha_max - 1)
 
 
 def mean_flat(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -54,10 +62,6 @@ class Transport:
     """The path and the prediction type of a config."""
 
     def __init__(self, cfg: MDGenConfig):
-        if cfg.task.design:
-            raise NotImplementedError(
-                "the design task's Dirichlet flow matching is not ported yet "
-                "(ROADMAP.md queue 1 item 8)")
         self.cfg = cfg
         self.path = get_path(cfg.transport.path_type)
         self.prediction = cfg.transport.prediction
@@ -74,6 +78,10 @@ class Transport:
         """The per-element loss (B,) of ``model_fn(x_t, t, **model_kwargs)``
         against the path's target. t (B,) and x0 (like x1) are drawn from
         ``generator`` unless given. Returns {"t", "pred", "loss"}."""
+        if self.cfg.task.design:
+            raise NotImplementedError(
+                "the design task's Dirichlet flow-matching loss is not ported yet "
+                "(ROADMAP.md queue 1 item 14, training the design tasks)")
         B = x1.shape[0]
         if x0 is None:
             x0 = torch.randn(x1.shape, generator=generator, device=generator.device,

@@ -138,4 +138,4 @@ def test_prep_batch_refuses_unported_tasks(structures):
     tb = t_featurize(torch.from_numpy(atom14), torch.from_numpy(aatype).long(),
                      torch.ones(aatype.shape))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_prep_batch(tcfg.MDGenConfig(task=tcfg.TaskConfig(inpainting=True)), tb)
+        t_prep_batch(tcfg.MDGenConfig(task=tcfg.TaskConfig(no_offsets=True)), tb)

@@ -127,10 +127,10 @@ def test_entry_points_refuse_a_missing_card(setup, monkeypatch):
         TEngine(setup["tc"], setup["tree"])  # device defaults to "cuda"
 
 
-@pytest.mark.parametrize("change", [dict(sampler="sde"), dict(design=True)])
+@pytest.mark.parametrize("change", [dict(sampler="sde"), dict(no_frames=True)])
 def test_unported_samplers_raise(setup, change):
     """The ODE samplers (euler, heun, dopri5) are ported; the reverse-SDE
-    sampler and the design task's Dirichlet flow are not."""
+    sampler and the raw-coordinate task (``no_frames``) are not."""
     tc, kw = setup["tc"], {}
     if "sampler" in change:
         kw = change
