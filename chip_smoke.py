@@ -63,6 +63,23 @@ Then:
   the trunk at T = 1 / 2 against its plain twins, the logits card-vs-CPU)
   and ``design_cli`` (``design_inference --torch_ckpt`` on a 300-frame
   "AGHK" trajectory, 2 samples, then ``analyze_design``);
+- the reverse SDE, the likelihood and the ablations at the flagship's
+  width: ``sde_main`` (``InferenceEngine(sampler="sde")``, B = 64
+  Euler-Maruyama 100 steps + ``Mean``, 101 ``forward_inference``
+  evaluations with launches as derived; the middle evaluation with the
+  kernels against the plain twins in bf16 and f32 on the card; Heun +
+  ``Tweedie`` at B = 8, 20 steps; card vs CPU at B = 2 with the same prior
+  and noise) and ``sde_trace``; ``likelihood_main``
+  (``InferenceEngine.log_likelihood`` at B = 16, 100 steps, each a
+  ``FusedTrunkFn`` forward and its backward in x: launches as derived
+  (``LIKELIHOOD_PER_STEP``), peak memory, ``prior_logp``, x0 and
+  delta_logp against the twins and against the CPU with the same probes)
+  and ``likelihood_trace`` (10 steps); ``sde_cli`` (``sim_inference --sde
+  --sde_steps 50``, one 100-frame window); ``ablations`` (``no_offsets``
+  B = 64 Euler-100 on the flat chain; ``no_frames``, latent 111 without
+  the encoder: ``Trainer`` steps at B = 32, the fixed-batch loss falling,
+  the N = 111 head on tiled64 against its f32 twin, and
+  ``grad_cuda_vs_cpu_no_frames``);
 - training: the loss and every parameter's gradient on the card (bf16
   kernels) against the CPU (f32 twins) at full width, B = 2; the flagship
   config trained through ``Trainer`` at B = 32, T = 100, L = 4 (2 warm-up
@@ -1154,10 +1171,11 @@ def phase_grad_across_devices(dev, cfg=None, phase="grad_cuda_vs_cpu", pad=1, ex
     norm is taken as at least 1e-3 of the largest gradient norm (IPA's key
     bias has an exactly-zero gradient that every run rounds differently).
     The flagship config at B = 2, T = 100 by default; ``cfg`` another
-    (its batch size, frames and crop; ``pad`` residues of the first element
-    are padding; ``extra`` goes into the line)."""
-    from mdgen_finetune_tpu_torch.data.featurize import featurize_atom14_batch
+    (its batch size, frames and crop, its featurizer: ``no_frames`` reads
+    atom37; ``pad`` residues of the first element are padding; ``extra``
+    goes into the line)."""
     from mdgen_finetune_tpu_torch.training import Trainer
+    from mdgen_finetune_tpu_torch.training.trainer import featurize
     from mdgen_finetune_tpu_torch.utils.weights import randomize_
 
     cfg = cfg or train_config(2)
@@ -1168,7 +1186,7 @@ def phase_grad_across_devices(dev, cfg=None, phase="grad_cuda_vs_cpu", pad=1, ex
     if Ln > L:  # a protein shorter than the crop: its padding is zeros, as the dataset pads
         atom14 = atom14 * mask[:, None, :, None, None]
     batch = {"atom14": atom14, "seqres": seqres, "mask": mask}
-    feats = featurize_atom14_batch(batch["atom14"], batch["seqres"], batch["mask"])
+    feats = featurize(cfg, batch["atom14"], batch["seqres"], batch["mask"])
     gen = torch.Generator().manual_seed(9)
     t = torch.rand(Bn, generator=gen) * 0.9 + 0.05
     x0 = torch.randn(Bn, Tn, Ln, cfg.latent_dim, generator=gen)
@@ -1764,13 +1782,13 @@ def phase_trunk_rows(dev):
     return rows
 
 
-def random_engine(dev, cfg, seed):
+def random_engine(dev, cfg, seed, **engine_kw):
     from mdgen_finetune_tpu_torch.inference import InferenceEngine
     from mdgen_finetune_tpu_torch.models.denoiser import LatentMDGen
     from mdgen_finetune_tpu_torch.utils.weights import randomize_
 
     model = randomize_(LatentMDGen(cfg), torch.Generator().manual_seed(seed), scale=0.05)
-    return InferenceEngine(cfg, model.state_dict(), device=dev), model.state_dict()
+    return InferenceEngine(cfg, model.state_dict(), device=dev, **engine_kw), model.state_dict()
 
 
 def make_inputs(n, seed, dev, length=L, pad=1):
@@ -2860,6 +2878,459 @@ def phase_design_cli(dev):
                 or r["ca_c_max_dev"] > 1e-2 or r["aa_out_shape"] != [T, L]
                 or not 0 <= r["aa_out_range"][0] <= r["aa_out_range"][1] < 20):
             raise AssertionError(f"design_cli: a sample is off: {r}")
+
+
+# ---------------------------------------------------------------------------
+# the reverse-SDE sampler, the probability-flow log-likelihood and the
+# no_offsets / no_frames ablations
+# ---------------------------------------------------------------------------
+def sde_engine(dev, sd, cfg=None, method="Euler", last_step="Mean", steps=STEPS):
+    from mdgen_finetune_tpu_torch.inference import InferenceEngine
+
+    return InferenceEngine(cfg or flagship_config(), sd, device=dev, sampler="sde",
+                           sde_opts=dict(num_steps=steps, method=method, last_step=last_step))
+
+
+def forward_kwargs(eng, batch):
+    """The model's keyword inputs of a featurized batch (``prep_batch``)."""
+    from mdgen_finetune_tpu_torch.tasks import prep_batch
+
+    kw = prep_batch(eng.cfg, {k: v.to(eng.device) for k, v in batch.items()
+                              if torch.is_tensor(v)})["model_kwargs"]
+    return kw["mask"].float(), dict(start_frames=kw["start_frames"], x_cond=kw["x_cond"],
+                                    x_cond_mask=kw["x_cond_mask"], aatype=kw["aatype"])
+
+
+def composition(card, plain, truth):
+    """The relative L2 of the card's result and of the plain bf16 twins'
+    against the f32 truth, and whether the card is within the repo's rule
+    rel(card) <= 2 rel(plain bf16) + 0.01."""
+    rc, rp = rel_l2(card.float().cpu(), truth.float().cpu()), rel_l2(plain.float().cpu(),
+                                                                     truth.float().cpu())
+    return dict(card=rc, plain_bf16=rp, limit=2 * rp + 0.01), rc <= 2 * rp + 0.01
+
+
+def phase_sde_main(dev):
+    """The flagship config (5 x 384, 16 heads, prepend-IPA 4 x 32,
+    abs_pos_emb, sim_condition, L = 4, T = 100, bf16, seeded random weights)
+    sampled with the reverse SDE through ``InferenceEngine(sampler="sde")``:
+    B = 64, Euler-Maruyama, 100 steps and the ``Mean`` last step, 101
+    evaluations of ``forward_inference`` (never ``flat_call``), each the
+    trunk's 32 ``adaln_linear`` and 10 ``rope_attention`` launches and one
+    encoder pass (30 + 5 + 5 ``ipa_attention``), asserted; bonds; two
+    generators give two samples. The timed sample's middle evaluation is
+    rerun with the kernels, with every wrapper swapped for its plain twin
+    (bf16) and with the plain twins in f32 on the same card (the truth),
+    held to rel(card) <= 2 rel(plain bf16) + 0.01. Then Heun with the
+    ``Tweedie`` last step at B = 8, 20 steps (41 evaluations), with the same
+    checks; and card vs CPU at B = 2, Euler-Maruyama 4 steps, with the same
+    prior and noise handed to both (the carry before decoding and the atoms)."""
+    from mdgen_finetune_tpu_torch.inference import InferenceEngine
+    from mdgen_finetune_tpu_torch.ops import rope_attention as ra
+
+    cfg = flagship_config()
+    eng, sd = random_engine(dev, cfg, seed=181, sampler="sde",
+                            sde_opts=dict(num_steps=STEPS, method="Euler", last_step="Mean"))
+    atom14, seqres, mask = make_inputs(B, 182, dev)
+    batch = eng._expand_frame0(atom14, seqres, mask)
+    gen = torch.Generator(device=dev).manual_seed(183)
+    calls = count_calls(eng.model, ("forward_inference", "flat_call"))
+    eng.sample(batch, gen)  # warm-up
+    torch.cuda.synchronize()
+    wrappers, twins = fwd_counters()
+    per_eval = design_launches_per_eval()  # the trunk with its head, one encoder pass over B
+
+    def reset():
+        for fn in wrappers:
+            fn.launches = 0
+        for fn in twins:
+            fn.cuda_calls = 0
+        for k in calls:
+            calls[k] = 0
+        ra.rope_attention.bodies = [0, 0, 0]
+
+    counted, kept, n_eval = eng.model.forward_inference, {}, [0]
+
+    def keeping(x, t, mask_, **kw):
+        n_eval[0] += 1
+        if n_eval[0] == STEPS // 2:
+            kept.update(x=x.clone(), t=t.clone())
+        return counted(x, t, mask_, **kw)
+
+    eng.model.forward_inference = keeping
+    reset()
+    t0 = time.perf_counter()
+    out, _ = eng.sample(batch, gen)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    eng.model.forward_inference = counted
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    twin_calls = {fn.__name__: fn.cuda_calls for fn in twins}
+    model_calls, counts = dict(calls), dict(eng.last_counts)
+    bodies = list(ra.rope_attention.bodies)
+    evals = counts["evals"]
+    checks = output_checks("sde_main", out, mask, twin_calls)
+    other, _ = eng.sample(batch, torch.Generator(device=dev).manual_seed(184))
+    gens_differ = not torch.allclose(out, other)
+    del other
+
+    # the middle evaluation: kernels, plain twins in bf16, plain twins in f32
+    m_mask, kw = forward_kwargs(eng, batch)
+    f32 = InferenceEngine(cfg.replace(model=dataclasses.replace(cfg.model, use_bf16=False)), sd,
+                          device=dev)
+
+    def one_eval(e):
+        return lambda: e.model.forward_inference(kept["x"], kept["t"], m_mask, **kw)
+
+    card = one_eval(eng)()
+    plain = with_twins(one_eval(eng))
+    truth = with_twins(one_eval(f32))
+    vs_twins, vs_ok = composition(card, plain, truth)
+    del f32, card, plain, truth
+
+    # Heun with the Tweedie last step, B = 8, 20 steps
+    heun = sde_engine(dev, sd, method="Heun", last_step="Tweedie", steps=20)
+    hb = {k: v[:8] for k, v in batch.items()}
+    hgen = torch.Generator(device=dev).manual_seed(185)
+    heun.sample(hb, hgen)  # warm-up
+    reset()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    hout, _ = heun.sample(hb, hgen)
+    torch.cuda.synchronize()
+    heun_secs = time.perf_counter() - t1
+    heun_launches = {fn.__name__: fn.launches for fn in wrappers}
+    heun_counts = dict(heun.last_counts)
+    heun_checks = output_checks("sde_main heun", hout, mask[:8],
+                                {fn.__name__: fn.cuda_calls for fn in twins})
+    hother, _ = heun.sample(hb, torch.Generator(device=dev).manual_seed(186))
+    heun_differ = not torch.allclose(hout, hother)
+    del heun, hother
+
+    # card vs CPU, B = 2, 4 steps, the same prior and noise
+    cfg32 = cfg.replace(model=dataclasses.replace(cfg.model, use_bf16=False))
+    cpu = InferenceEngine(cfg32, sd, device="cpu", sampler="sde",
+                          sde_opts=dict(num_steps=4, method="Euler", last_step="Mean"))
+    card4 = sde_engine(dev, sd, steps=4)
+    feats = cpu._expand_frame0(atom14[:2].cpu(), seqres[:2].cpu(), mask[:2].cpu())
+    g = torch.Generator().manual_seed(187)
+    zs0 = torch.randn(2, T, L, cfg.latent_dim, generator=g)
+    noise = torch.randn(4, 2, T, L, cfg.latent_dim, generator=g)
+    got = {}
+    for name, e in (("cuda", card4), ("cpu", cpu)):
+        carry = []
+        decode = e._decode
+        e._decode = lambda s, r, q, _d=decode, _c=carry: (_c.append(s), _d(s, r, q))[1]
+        atoms, _ = e.sample_with_zs0({k: v.to(e.device) for k, v in feats.items()},
+                                     zs0.to(e.device), noise=noise.to(e.device))
+        got[name] = (carry[0].float().cpu(), atoms.float().cpu())
+    del cpu, card4
+    carry_rel = rel_l2(got["cuda"][0], got["cpu"][0])
+    atoms_dev = (got["cuda"][1] - got["cpu"][1]).abs().max().item()
+    tol = 5e-2
+    want = {k: evals * v for k, v in per_eval.items()}
+    want_heun = {k: heun_counts["evals"] * v for k, v in per_eval.items()}
+    emit({"phase": "sde_main", "B": B, "T": T, "L": L, "C": C, "layers": NL, "dtype": "bf16",
+          "method": "Euler-Maruyama", "steps": STEPS, "last_step": "Mean",
+          "diffusion": "SBDM, norm 1", "sample_s": secs, "frames_per_s": B * T / secs,
+          "ms_per_eval": secs / evals * 1e3, **counts, "model_calls": model_calls,
+          "launches_per_sample": launches, "launches_per_eval_derived": per_eval,
+          "rope_attention_bodies_per_sample": bodies, "plain_calls_on_card": twin_calls,
+          **checks, "two_generators_differ": gens_differ,
+          "kernels_vs_twins": dict(batch=B, eval=STEPS // 2, t=float(kept["t"][0]),
+                                   rel_l2=vs_twins, within_rule=vs_ok,
+                                   rule="rel(card) <= 2 rel(plain bf16) + 0.01, truth: "
+                                        "plain f32 on the card"),
+          "heun_tweedie": dict(batch=8, steps=20, sample_s=heun_secs, **heun_counts,
+                               launches_per_sample=heun_launches, **heun_checks,
+                               two_generators_differ=heun_differ),
+          "cuda_vs_cpu": dict(batch=2, steps=4, carry_rel_l2=carry_rel,
+                              atom14_max_abs_dev=atoms_dev, tol=tol)})
+    if launches != want or model_calls != {"forward_inference": evals, "flat_call": 0} \
+            or evals != STEPS + 1:
+        raise AssertionError(f"sde_main: launches {launches}, calls {model_calls}, evals {evals};"
+                             f" expected {want} over {STEPS + 1} forward_inference calls")
+    if heun_launches != want_heun or heun_counts["evals"] != 2 * 20 + 1:
+        raise AssertionError(f"sde_main: Heun launches {heun_launches}, expected {want_heun}")
+    if not (gens_differ and heun_differ):
+        raise AssertionError("sde_main: two generators gave the same sample")
+    if not vs_ok:
+        raise AssertionError(f"sde_main: kernels vs plain twins over the rule: {vs_twins}")
+    if not carry_rel <= tol or not torch.isfinite(got["cuda"][1]).all():
+        raise AssertionError(f"sde_main: card vs CPU carry {carry_rel} > {tol}")
+    return launches, (eng, batch, gen)
+
+
+# launches of one likelihood step (T = 100, L = 4), as derived from the
+# code: the forward (``FusedTrunkFn.forward``: 6 products and stages 1 and 2
+# a layer, the head; the embed is a plain product) and one encoder pass
+# (``ENCODER_PER_PASS``); the backward (``layer_bwd_split`` a layer: the MLP
+# stage's 2 products, 4 linear_bwd and a modln_bwd; each attention stage's
+# 2 products, its forward core again, 4 linear_bwd, its backward core and a
+# modln_bwd; the head's VJP is plain autograd)
+LIKELIHOOD_PER_STEP = {"adaln_linear": 6 * NL + 1 + 6 * NL + 6 * NL,
+                       "rope_attention": 2 * NL + NL + 2 * NL, "ipa_attention": NL,
+                       "linear_bwd": 12 * NL, "modln_bwd": 3 * NL, "rope_attention_bwd": 2 * NL}
+
+
+def phase_likelihood_main(dev):
+    """``InferenceEngine.log_likelihood`` of the flagship config (seeded
+    random weights, bf16) on synthetic 100-frame trajectories at B = 16,
+    100 steps: each step one ``LatentMDGen.forward`` (the trunk through
+    ``FusedTrunkFn``) and its VJP in x (``torch.autograd.grad``) with one
+    Rademacher probe. ms per step, launches per step against
+    ``LIKELIHOOD_PER_STEP``, the peak memory; ll finite of shape (B,);
+    ``prior_logp`` against its closed form in f64; x0 and delta_logp with
+    the kernels against the plain twins in bf16 and in f32 on the card (4
+    steps, the same probes, the repo's rule); card vs CPU at B = 2, 2 steps,
+    the same probes, against the CPU in f32 under the same rule (the CPU's
+    bf16 twins give the yardstick)."""
+    import math
+
+    from mdgen_finetune_tpu_torch.inference import InferenceEngine
+    from mdgen_finetune_tpu_torch.inference import sampling as S
+
+    cfg = flagship_config()
+    cfg32 = cfg.replace(model=dataclasses.replace(cfg.model, use_bf16=False))
+    eng, sd = random_engine(dev, cfg, seed=191)
+    Bl = 16
+    batch, _ = make_trajectories(Bl, 192, dev)
+    gen = torch.Generator(device=dev).manual_seed(193)
+    recorded = []
+    integrate = S.ode_likelihood
+
+    def recording(*a, **k):
+        out = integrate(*a, **k)
+        recorded.append(out)
+        return out
+
+    S.ode_likelihood = recording
+    try:
+        eng.log_likelihood(batch, gen, num_steps=2)  # warm-up
+        torch.cuda.synchronize()
+        wrappers, twins = _counters()
+        for fn in wrappers:
+            fn.launches = 0
+        for fn in twins:
+            fn.cuda_calls = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ll = eng.log_likelihood(batch, gen, num_steps=STEPS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        per_step = {fn.__name__: fn.launches / STEPS for fn in wrappers}
+        twin_calls = {fn.__name__: fn.cuda_calls for fn in twins}
+        x0, delta = recorded[-1]
+        lat = x0.shape[-1]
+        n = x0[0].numel()
+        closed = (-n / 2 * math.log(2 * math.pi)
+                  - (x0.double().cpu() ** 2).reshape(Bl, -1).sum(-1) / 2)
+        prior_err = (eng.transport.prior_logp(x0).double().cpu() - closed).abs().max().item()
+
+        # 4 steps, the same probes: kernels, plain twins in bf16, plain twins in f32
+        probes = torch.randint(0, 2, (4, Bl, T, L, lat), generator=torch.Generator(
+            device=dev).manual_seed(194), device=dev).float() * 2 - 1
+        f32 = InferenceEngine(cfg32, sd, device=dev)
+
+        def run(e):
+            def go():
+                e.log_likelihood(batch, num_steps=4, probes=probes)
+                return recorded[-1]
+            return go
+
+        card = run(eng)()
+        plain = with_twins(run(eng))
+        truth = with_twins(run(f32))
+        del f32
+        twins_x0, ok_x0 = composition(card[0], plain[0], truth[0])
+        twins_dl, ok_dl = composition(card[1], plain[1], truth[1])
+
+        # card vs CPU, B = 2, 2 steps, the same probes
+        small = {k: v[:2].cpu() for k, v in batch.items()}
+        p2 = probes[:2, :2].cpu()
+        res = {}
+        for name, e in (("cuda", eng), ("cpu_f32", InferenceEngine(cfg32, sd, device="cpu")),
+                        ("cpu_bf16", InferenceEngine(cfg, sd, device="cpu"))):
+            e.log_likelihood({k: v.to(e.device) for k, v in small.items()}, num_steps=2,
+                             probes=p2.to(e.device))
+            res[name] = recorded[-1]
+        cpu_x0, ok_cpu_x0 = composition(res["cuda"][0], res["cpu_bf16"][0], res["cpu_f32"][0])
+        cpu_dl, ok_cpu_dl = composition(res["cuda"][1], res["cpu_bf16"][1], res["cpu_f32"][1])
+    finally:
+        S.ode_likelihood = integrate
+    emit({"phase": "likelihood_main", "B": Bl, "T": T, "L": L, "C": C, "layers": NL,
+          "dtype": "bf16", "steps": STEPS, "sample_s": secs, "ms_per_step": secs / STEPS * 1e3,
+          "peak_memory_gb": peak_gb, "launches_per_step": per_step,
+          "launches_per_step_derived": LIKELIHOOD_PER_STEP, "plain_calls_on_card": twin_calls,
+          "ll_mean": ll.mean().item(), "ll_min": ll.min().item(), "ll_max": ll.max().item(),
+          "delta_logp_mean": delta.mean().item(), "prior_logp_max_abs_err_vs_f64": prior_err,
+          "kernels_vs_twins": dict(batch=Bl, steps=4, x0=twins_x0, delta_logp=twins_dl),
+          "cuda_vs_cpu": dict(batch=2, steps=2, x0=cpu_x0, delta_logp=cpu_dl),
+          "rule": "rel(card) <= 2 rel(plain bf16) + 0.01, truth: plain f32"})
+    if per_step != {k: float(v) for k, v in LIKELIHOOD_PER_STEP.items()}:
+        raise AssertionError(f"likelihood_main: launches per step {per_step}, expected "
+                             f"{LIKELIHOOD_PER_STEP}")
+    if any(twin_calls.values()):
+        raise AssertionError(f"likelihood_main: plain twins ran on the card: {twin_calls}")
+    if ll.shape != (Bl,) or not torch.isfinite(ll).all():
+        raise AssertionError(f"likelihood_main: ll {ll}")
+    if not prior_err <= 1e-6 * closed.abs().max().item():
+        raise AssertionError(f"likelihood_main: prior_logp off its closed form by {prior_err}")
+    if not (ok_x0 and ok_dl and ok_cpu_x0 and ok_cpu_dl):
+        raise AssertionError(f"likelihood_main: over the rule: twins {twins_x0} {twins_dl}, "
+                             f"CPU {cpu_x0} {cpu_dl}")
+    return per_step, (eng, batch, gen)
+
+
+def phase_sde_cli(dev):
+    """``sim_inference --sde --sde_steps 50`` on the card: ``cli.synth_data``
+    writes a 200-frame "AAGG" trajectory, a ``Trainer`` checkpoint of the
+    flagship config with seeded random weights is saved, one 100-frame
+    window is sampled; the PDB must parse back to 100 models of 4 residues
+    with ideal backbone bonds."""
+    from mdgen_finetune_tpu_torch.cli import sim_inference, synth_data
+    from mdgen_finetune_tpu_torch.training import Trainer
+    from mdgen_finetune_tpu_torch.utils.weights import randomize_
+
+    data, out, ckpt = SCRATCH / "sde_data", SCRATCH / "sde_out", SCRATCH / "sde_ckpt"
+    synth_data.main(["--outdir", str(data), "--peptides", "AAGG", "--num_frames", str(2 * T),
+                     "--suffix", "_i100"])
+    trainer = Trainer(flagship_config(), device=dev)
+    state = trainer.init_state(0)
+    randomize_(trainer.model, torch.Generator().manual_seed(195), scale=0.05)
+    trainer.save_checkpoint(state, str(ckpt))
+    del trainer, state
+    t0 = time.perf_counter()
+    sim_inference.main(["--sim_ckpt", str(ckpt), "--data_dir", str(data),
+                        "--split", str(data / "split.csv"), "--out_dir", str(out),
+                        "--num_frames", str(T), "--num_rollouts", "1", "--suffix", "_i100",
+                        "--sde", "--sde_steps", "50"])
+    secs = time.perf_counter() - t0
+    meta = json.loads((out / "AAGG_meta.json").read_text())
+    pos, dev_nca, dev_cac = pdb_frames(out / "AAGG.pdb")
+    emit({"phase": "sde_cli", "meta": meta, "cli_s": secs, "models": int(pos.shape[0]),
+          "residues": int(pos.shape[1]), "n_ca_max_dev": dev_nca, "ca_c_max_dev": dev_cac})
+    for d in (data, out, ckpt):
+        shutil.rmtree(d, ignore_errors=True)
+    if pos.shape[:2] != (T, L) or meta["frames"] != T:
+        raise AssertionError(f"sde_cli: {pos.shape[:2]} models x residues")
+    if dev_nca > 1e-2 or dev_cac > 1e-2:
+        raise AssertionError(f"sde_cli: backbone bonds off: N-CA {dev_nca}, CA-C {dev_cac}")
+
+
+def no_frames_config(batch_size):
+    """The flagship width trained under ``no_frames`` (latent 111: the raw
+    atom37 coordinates) without the encoder, which has no rigids to read."""
+    cfg = train_config(batch_size)
+    return cfg.replace(model=dataclasses.replace(cfg.model, prepend_ipa=False),
+                       task=dataclasses.replace(cfg.task, no_frames=True))
+
+
+def phase_ablations(dev):
+    """The reference's ablations at the flagship width on the card:
+    ``no_offsets`` (the offsets are the frames themselves) sampled at
+    B = 64 with Euler-100 on the flat chain (100 ``flat_call``s and the
+    main path's launches), bonds checked; ``no_frames`` (latent 111, no
+    encoder) trained through ``Trainer`` at B = 32, T = 100: 2 warm-up and
+    5 timed steps, then 10 steps on one fixed batch with fixed t and x0
+    (the loss finite and falling); the head's ``adaln_linear`` (N = 111,
+    the ``euler`` epilogue into the (M, 111) f32 carry) against its plain
+    twin on the card and its route; every gradient card vs CPU
+    (``grad_cuda_vs_cpu_no_frames``, B = 2)."""
+    import numpy as np
+
+    from mdgen_finetune_tpu_torch.data.dataset import MDGenDataset, make_batch_iterator
+    from mdgen_finetune_tpu_torch.data.synthetic import make_synthetic_dataset
+    from mdgen_finetune_tpu_torch.ops import adaln_linear as al
+    from mdgen_finetune_tpu_torch.training import Trainer
+
+    # no_offsets: the flat chain
+    cfg = flagship_config()
+    cfg = cfg.replace(task=dataclasses.replace(cfg.task, no_offsets=True))
+    eng, _ = random_engine(dev, cfg, seed=201)
+    atom14, seqres, mask = make_inputs(B, 202, dev)
+    batch = eng._expand_frame0(atom14, seqres, mask)
+    gen = torch.Generator(device=dev).manual_seed(203)
+    calls = count_calls(eng.model, ("forward_inference", "flat_call"))
+    eng.sample(batch, gen)  # warm-up
+    wrappers, twins = fwd_counters()
+    for fn in wrappers:
+        fn.launches = 0
+    for fn in twins:
+        fn.cuda_calls = 0
+    for k in calls:
+        calls[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, _ = eng.sample(batch, gen)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    checks = output_checks("ablations no_offsets", out, mask,
+                           {fn.__name__: fn.cuda_calls for fn in twins})
+    no_offsets = dict(B=B, steps=STEPS, sample_s=secs, frames_per_s=B * T / secs,
+                      model_calls=dict(calls), launches_per_sample=launches, **checks)
+    del eng
+
+    # no_frames: Trainer at B = 32
+    cfg = no_frames_config(B_TRAIN)
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, data_dir=str(SCRATCH / "nf_data")))
+    split = make_synthetic_dataset(cfg.data.data_dir, ["AAGG", "GHKL"], num_frames=2 * T)
+    it = make_batch_iterator(MDGenDataset(cfg, split), B_TRAIN, seed=0)
+    batches = [{k: torch.as_tensor(np.asarray(v), device=dev) for k, v in next(it).items()
+                if k != "name"} for _ in range(7)]
+    it.close()
+    trainer = Trainer(cfg, device=dev)
+    state = trainer.init_state(0)
+    tgen = torch.Generator(device=dev).manual_seed(204)
+    for b in batches[:2]:
+        trainer.train_step(state, b, tgen)
+    torch.cuda.synchronize()
+    al.adaln_linear.routes = [0, 0, 0]
+    t0 = time.perf_counter()
+    for b in batches[2:]:
+        state, m = trainer.train_step(state, b, tgen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    routes = {r: n / 5 for r, n in zip(al.ROUTES, al.adaln_linear.routes)}
+    fixed = []
+    for _ in range(10):
+        state, m = trainer.train_step(state, batches[0], torch.Generator(device=dev).manual_seed(5))
+        fixed.append(float(m["loss"]))
+    # the head at N = 111 as FusedTrunkFn runs it (tiled64, the euler
+    # epilogue into a zero (M, 111) f32 carry, dt 1) vs its plain twin in f32
+    g = torch.Generator(device=dev).manual_seed(205)
+    M = B_TRAIN * T * L
+    h = torch.randn(M, C, generator=g, device=dev).to(torch.bfloat16)
+    w = (0.05 * torch.randn(C, 111, generator=g, device=dev)).to(torch.bfloat16)
+    bias = (0.05 * torch.randn(111, generator=g, device=dev)).to(torch.bfloat16)
+    mod = (0.3 * torch.randn(B_TRAIN, 2 * C, generator=g, device=dev)).to(torch.bfloat16)
+    carry = torch.zeros(M, 111, device=dev)
+    plan = al.plan(h, w, bias, ln="plain", shift=mod[:, :C], epilogue="euler", res=carry,
+                   out=carry).name
+    got = al.adaln_linear(h, w, bias, ln="plain", shift=mod[:, :C], scale=mod[:, C:],
+                          epilogue="euler", res=carry, dt=1.0, out=carry)
+    modf = mod.float()
+    ref = al.adaln_linear_plain(h.float(), w.float(), bias.float(), ln="plain",
+                                shift=modf[:, :C], scale=modf[:, C:], out_dtype=torch.float32)
+    head_err = (got - ref).abs().max().item()
+    head_tol = 1e-2 * max(1.0, ref.abs().max().item())  # the kernels' rule
+    del trainer, state
+    emit({"phase": "ablations", "no_offsets": no_offsets,
+          "no_frames": dict(B=B_TRAIN, T=T, L=L, latent=cfg.latent_dim, ms_per_step=ms,
+                            trajectories_per_s=B_TRAIN / ms * 1e3,
+                            adaln_linear_routes_per_step=routes, fixed_batch_losses=fixed,
+                            head=dict(shape=[M, C, 111], plan=plan, max_abs_err=head_err,
+                                      tol=head_tol))})
+    if calls != {"forward_inference": 0, "flat_call": STEPS}:
+        raise AssertionError(f"ablations: no_offsets left the flat chain: {calls}")
+    if not all(np.isfinite(fixed)) or not fixed[-1] < fixed[0]:
+        raise AssertionError(f"ablations: no_frames fixed-batch loss {fixed}")
+    if plan != "tiled64" or not head_err <= head_tol:
+        raise AssertionError(f"ablations: the N = 111 head ({plan}) off its twin by {head_err}")
+    phase_grad_across_devices(dev, no_frames_config(2), "grad_cuda_vs_cpu_no_frames",
+                              extra={"task": "no_frames, latent 111, no encoder"})
 
 
 def train_1000_config(batch_size):
@@ -4209,8 +4680,18 @@ def main():
     del eng
     phase_mpnn(dev)
     phase_design_cli(dev)
+    # the reverse SDE, the likelihood, the no_offsets / no_frames ablations
+    t_sde = time.perf_counter()
+    sde_launches, (eng, batch, gen) = phase_sde_main(dev)
+    phase_trace("sde_trace", lambda: eng.sample(batch, gen))
+    del eng
+    ll_per_step, (eng, batch, gen) = phase_likelihood_main(dev)
+    phase_trace("likelihood_trace", lambda: eng.log_likelihood(batch, gen, num_steps=10))
+    del eng
+    phase_sde_cli(dev)
+    phase_ablations(dev)
     emit({"phase": "tasks_s", "tps_and_upsampling_s": t_design - t_tasks,
-          "design_s": time.perf_counter() - t_design,
+          "design_s": t_sde - t_design, "sde_likelihood_ablations_s": time.perf_counter() - t_sde,
           "tasks_s": time.perf_counter() - t_tasks})
     phase_grad_across_devices(dev)
     train_launches, train_ref, (trainer, state, tbatch, tgen) = phase_train_path(dev)
@@ -4312,6 +4793,8 @@ def main():
                      "train_1000_launches_per_step": per_step_1000.get(name, 0),
                      "sim_atlas_launches": atlas_sim_launches.get(name, 0),
                      "design_main_launches": design_launches.get(name, 0),
+                     "sde_main_launches": sde_launches.get(name, 0),
+                     "likelihood_launches_per_step": ll_per_step.get(name, 0),
                      "train_atlas_launches_per_step": atlas_per_step.get(name, 0),
                      "max_abs_err": k["max_abs_err"], "tol": k["tol"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],

@@ -6,18 +6,19 @@ checkpoint that ``Trainer.save_checkpoint`` wrote (a directory with
 MDGen ``.ckpt`` (PyTorch Lightning; its config from ``--config`` or the
 ``config.json`` beside it; the EMA weights when the file has them), rolls
 out ``num_rollouts`` windows from the first frame of each test peptide with
-the config's ODE sampler, and writes one multi-MODEL PDB trajectory and one
-meta JSON line per peptide.
+the config's ODE sampler (or, with ``--sde``, the reverse SDE: ``--sde_steps``,
+``--sde_method`` Euler or Heun, ``--diffusion_form``, ``--diffusion_norm``,
+``--last_step`` Mean, Tweedie or Euler, ``--last_step_size``), and writes one
+multi-MODEL PDB trajectory and one meta JSON line per peptide.
 The checkpoint's config chooses the model, the modular configurations
 (``interleave_ipa``, ``hyena``, ``no_rope``) included. Runs on the card
 unless ``--device cpu`` is given:
 
     python -m mdgen_finetune_tpu_torch.cli.sim_inference --sim_ckpt CKPT \\
         --data_dir DIR --split DIR/split.csv --out_dir OUT --num_frames 1000 \\
-        --num_rollouts 10 [--device cpu]
+        --num_rollouts 10 [--sde --sde_steps 250] [--device cpu]
 
-``load_params`` serves the other task CLIs too. Not ported yet: ``--sde``
-(the reverse-SDE sampler, ROADMAP.md queue 1 item 8).
+``load_params`` serves the other task CLIs too.
 """
 from __future__ import annotations
 
@@ -82,7 +83,11 @@ def main(argv=None):
     if a.num_frames:
         cfg = cfg.replace(data=dataclasses.replace(cfg.data, num_frames=a.num_frames,
                                                    data_dir=a.data_dir, suffix=a.suffix))
-    engine = InferenceEngine(cfg, params, device=a.device, sampler="sde" if a.sde else "ode")
+    sde_opts = dict(num_steps=a.sde_steps, method=a.sde_method, diffusion_form=a.diffusion_form,
+                    diffusion_norm=a.diffusion_norm, last_step=a.last_step,
+                    last_step_size=a.last_step_size)
+    engine = InferenceEngine(cfg, params, device=a.device, sampler="sde" if a.sde else "ode",
+                             sde_opts=sde_opts if a.sde else None)
     ds = MDGenDataset(cfg, a.split, data_dir=a.data_dir)
     os.makedirs(a.out_dir, exist_ok=True)
 

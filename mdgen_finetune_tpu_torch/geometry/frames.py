@@ -86,13 +86,27 @@ def atom14_to_atom37(atom14: torch.Tensor, aatype: torch.Tensor) -> torch.Tensor
     return _gather_atoms(atom14, idx) * mask[..., None]
 
 
+def atom37_to_atom14(atom37: torch.Tensor, aatype: torch.Tensor) -> torch.Tensor:
+    """(..., L, 37, 3) + (..., L) int -> (..., L, 14, 3); absent atoms zero
+    (JAX :67-73)."""
+    lead = atom37.shape[:-2]
+    idx = _expand_rows(_table("RESTYPE_ATOM14_TO_ATOM37", aatype).long(), lead)
+    mask = _expand_rows(_table("RESTYPE_ATOM14_MASK", aatype, atom37.dtype), lead)
+    return _gather_atoms(atom37, idx) * mask[..., None]
+
+
 def atom14_to_frames(atom14: torch.Tensor) -> Rigid:
     """Backbone frames from N/CA/C; atom14 (..., L, 14, 3) -> Rigid (..., L)."""
     n = atom14[..., rc.atom_order["N"], :]
     ca = atom14[..., rc.atom_order["CA"], :]
     c = atom14[..., rc.atom_order["C"], :]
+    return _flipped_frames(c, ca, n)
+
+
+def _flipped_frames(c, ca, n) -> Rigid:
+    """``Rigid.from_3_points(C, CA, N)`` composed with diag(-1, 1, -1)."""
     frames = Rigid.from_3_points(c, ca, n)
-    flip = rigid_vecs_flip(atom14.device).to(frames.rot.dtype).expand_as(frames.rot)
+    flip = rigid_vecs_flip(ca.device).to(frames.rot.dtype).expand_as(frames.rot)
     return frames.compose(Rigid(flip, torch.zeros_like(frames.trans)))
 
 
@@ -181,3 +195,18 @@ def frames_torsions_to_atom14(frames: Rigid, torsions: torch.Tensor,
     trans = torch.gather(group_frames.trans, -2, group[..., None].expand(*group.shape, 3))
     pos = Rigid(rot, trans).apply(lit)
     return pos * mask[..., None]
+
+
+def frames_torsions_to_atom37(frames: Rigid, torsions: torch.Tensor,
+                              aatype: torch.Tensor) -> torch.Tensor:
+    """Backbone frames (..., L) + torsions (..., L, 7, 2) -> atom37
+    (..., L, 37, 3) (JAX :203-204)."""
+    return atom14_to_atom37(frames_torsions_to_atom14(frames, torsions, aatype), aatype)
+
+
+def prot_to_frames(ca_coords, c_coords, n_coords) -> Rigid:
+    """Backbone coordinates (..., 3) of CA, C and N (arrays or tensors) ->
+    the flipped backbone frames, f32 (src/mdgen/geometry.py:205-215; JAX
+    :207-211)."""
+    ca, c, n = (torch.as_tensor(v, dtype=torch.float32) for v in (ca_coords, c_coords, n_coords))
+    return _flipped_frames(c, ca, n)

@@ -18,12 +18,20 @@ inpainting (the flat chain, residues 0 and 3 conditioned), inpainting with
 sequence design (``design``: 20 simplex channels drawn from Dirichlet(1),
 moved by the Dirichlet conditional flow; the designed sequence is their
 argmax) and ``mpnn`` / ``dynamic_mpnn`` (one evaluation at t = 1: the
-sequence of the given structures). The reverse-SDE sampler is not ported
-yet (ROADMAP.md queue 1 item 8).
+sequence of the given structures), with the ablations ``no_offsets`` (the
+offsets are the frames themselves) and ``no_torsion``. With
+``sampler="sde"`` every task but ``mpnn`` / ``dynamic_mpnn`` integrates the
+reverse SDE instead (``transport.make_sde_sampler`` over
+``forward_inference``, never the flat chain). ``log_likelihood`` is the
+exact log-likelihood of a batch's latents under the probability-flow ODE,
+its divergence a VJP in x through ``LatentMDGen.forward`` (the trunk's
+backward kernels). ``no_frames`` samples in neither package: the JAX
+package's ``_sample`` has no atom37 batch and no rigids to decode.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; without CUDA they raise. Randomness comes from an explicit
-``torch.Generator``.
+``torch.Generator``, or the draws are passed in (the prior ``zs0``, the
+SDE's ``noise``, the likelihood's ``probes``).
 """
 from __future__ import annotations
 
@@ -34,13 +42,13 @@ from ..config import MDGenConfig
 from ..data.featurize import featurize_atom14_batch
 from ..geometry import frames as G
 from ..geometry.rigid import Rigid, full_f32
-from ..models.denoiser import LatentMDGen
+from ..models.denoiser import LatentMDGen, refuse_input_grad
 from ..tasks import prep_batch
-from ..transport import check_interval, create_transport, sample_ode
+from ..transport import check_interval, create_transport, ode_likelihood, sample_ode
 from ..utils.weights import from_flax
 
-_TODO = "ROADMAP.md queue 1 item 8"
 ODE_METHODS = ("euler", "heun", "dopri5")
+SAMPLERS = ("ode", "sde")
 
 
 def resolve_device(device) -> torch.device:
@@ -70,16 +78,21 @@ def sample_prior_latent(generator: torch.Generator, B: int, T: int, L: int,
 class InferenceEngine:
     """``params``: the port's state_dict, or the JAX package's flax tree as
     nested dicts of numpy arrays (converted by ``from_flax``).
-    ``last_counts``: the ODE counts of the last sample (``transport.
-    samplers``: accepted and rejected steps, drift evaluations)."""
+    ``sampler``: "ode" (the config's ODE method) or "sde" (the reverse SDE,
+    reference Sampler.sample_sde, src/mdgen/transport/transport.py:346-450);
+    ``sde_opts`` go to ``Transport.make_sde_sampler`` (num_steps, method,
+    diffusion_form, diffusion_norm, last_step, last_step_size).
+    ``last_counts``: the counts of the last sample (``transport.samplers``:
+    accepted and rejected steps, drift evaluations)."""
 
     def __init__(self, cfg: MDGenConfig, params, *, device="cuda", dtype=None,
-                 sampler: str = "ode"):
-        if sampler != "ode":
-            raise NotImplementedError(
-                f"the {sampler!r} sampler (reverse SDE) is not ported yet ({_TODO})")
+                 sampler: str = "ode", sde_opts: dict | None = None):
+        if sampler not in SAMPLERS:
+            raise ValueError(f"unknown sampler {sampler!r}: one of {SAMPLERS}")
         if cfg.transport.sampling_method not in ODE_METHODS:
             raise NotImplementedError(cfg.transport.sampling_method)
+        self.sampler = sampler
+        self.sde_opts = dict(sde_opts or {})
         self.cfg = cfg
         self.transport = create_transport(cfg)
         self.last_counts = None
@@ -99,13 +112,14 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     def _decode(self, samples, rigids: Rigid, seqres):
         """Latents -> (atom14, aa_out) (src/mdgen/wrapper.py:487-514): the
-        forward offsets from frame 0, then the torsions, which follow the
+        forward offsets from frame 0 (under ``no_offsets`` the frames
+        themselves, JAX :102-103), then the torsions, which follow the
         reverse offsets under the doubled offsets (JAX :95-98); ``aa_out``
         the given sequence, or under ``design`` the argmax of the simplex
         channels (B, T, L)."""
         B, T, L, _ = samples.shape
         rel = Rigid.from_tensor_7(samples[..., :7], normalize_quats=True)
-        frames = rigids[:, 0:1].compose(rel)
+        frames = rel if self.cfg.task.no_offsets else rigids[:, 0:1].compose(rel)
         k = 14 if self.cfg.doubled_offsets else 7
         torsions = samples[..., k:k + 14].reshape(B, T, L, 7, 2)
         torsions = torsions / torch.linalg.vector_norm(torsions, dim=-1, keepdim=True)
@@ -131,29 +145,42 @@ class InferenceEngine:
         atom14 = G.frames_torsions_to_atom14(prep["rigids"], batch["torsions"].float(), aat)
         return atom14, logits.argmax(-1)
 
-    def sample_with_zs0(self, batch: dict, zs0: torch.Tensor):
+    def sample_with_zs0(self, batch: dict, zs0: torch.Tensor, noise=None,
+                        generator: torch.Generator | None = None):
         """Featurized batch + prior latent (B, T, L, lat) -> (atom14, aa_out)
-        (src/mdgen/wrapper.py:436). ``mpnn`` / ``dynamic_mpnn`` take one
-        evaluation and no prior: ``zs0`` is not read."""
-        return self._sample(batch, zs0=zs0)
+        (src/mdgen/wrapper.py:436). The SDE sampler takes its noise
+        (steps, B, T, L, lat) from ``noise``, else from ``generator``.
+        ``mpnn`` / ``dynamic_mpnn`` take one evaluation and no prior:
+        ``zs0`` is not read."""
+        return self._sample(batch, zs0=zs0, noise=noise, generator=generator)
 
     def sample(self, batch: dict, generator: torch.Generator):
         """Featurized batch -> generated (atom14 (B, T, L, 14, 3), aa_out:
         the batch's sequence (B, T, L), or the designed one)."""
         return self._sample(batch, generator=generator)
 
+    def _batch(self, batch: dict) -> dict:
+        """A featurized batch's arrays as tensors on the engine's device."""
+        return {k: self._tensor(v) for k, v in batch.items()
+                if isinstance(v, (np.ndarray, torch.Tensor))}
+
     @torch.no_grad()
-    def _sample(self, batch: dict, zs0=None, generator=None):
+    def _sample(self, batch: dict, zs0=None, generator=None, noise=None):
         """The JAX package's ``_sample`` (:112-151 and :231-249): ``mpnn`` /
         ``dynamic_mpnn`` are one evaluation (``_sequence_only``); else the
         prior ``zs0``, or one drawn from ``generator``, goes through the
-        Euler chain on the flat latent for Euler with the velocity objective
-        on the fused branch without the design tasks (the JAX package's
-        ``flat_scan_ok``), or the generic ODE solve of ``sample_ode`` over
-        ``transport.drift_fn(forward_inference)``."""
+        Euler chain on the flat latent for the ODE sampler's Euler with the
+        velocity objective on the fused branch without the design tasks
+        (the JAX package's ``flat_scan_ok``), or through ``forward_inference``:
+        the reverse SDE of ``transport.make_sde_sampler`` (``noise``, or
+        drawn from ``generator`` after the prior), or the generic ODE solve
+        of ``sample_ode`` over ``transport.drift_fn``."""
         cfg, model = self.cfg, self.model
-        batch = {k: self._tensor(v) for k, v in batch.items()
-                 if isinstance(v, (np.ndarray, torch.Tensor))}
+        if cfg.task.no_frames:
+            raise NotImplementedError(
+                "sampling task.no_frames is not supported: the JAX package does not sample it "
+                "either (its _sample has no atom37 batch and no rigids to decode)")
+        batch = self._batch(batch)
         prep = prep_batch(cfg, batch)
         if cfg.task.mpnn or cfg.task.dynamic_mpnn:
             return self._sequence_only(batch, prep)
@@ -170,7 +197,7 @@ class InferenceEngine:
         n = cfg.transport.inference_steps
         xc = zs0.to(self.device, torch.float32).clone().contiguous()
         method = cfg.transport.sampling_method
-        flat = not (model.modular or cfg.task.design)
+        flat = not (model.modular or cfg.task.design) and self.sampler == "ode"
         if method == "euler" and self.transport.prediction == "velocity" and flat:
             dt = (t1 - t0) / n
             ts = t0 + dt * torch.arange(n, dtype=torch.float32, device=self.device)
@@ -185,9 +212,52 @@ class InferenceEngine:
                 return model.forward_inference(x, t, mask, trunk_pack=pack, scan_consts=consts,
                                                **frames)
 
-            xc, self.last_counts = sample_ode(self.transport.drift_fn(model_fn), xc, t0=t0,
-                                              t1=t1, method=method, num_steps=n)
+            if self.sampler == "sde":
+                sde = self.transport.make_sde_sampler(model_fn, **self.sde_opts)
+                xc, self.last_counts = sde(xc, generator=generator, noise=noise)
+            else:
+                xc, self.last_counts = sample_ode(self.transport.drift_fn(model_fn), xc, t0=t0,
+                                                  t1=t1, method=method, num_steps=n)
         return self._decode(xc, prep["rigids"], batch["seqres"])
+
+    # ------------------------------------------------------------------
+    def log_likelihood(self, batch: dict, generator: torch.Generator | None = None,
+                       num_steps: int = 100, probes=None) -> torch.Tensor:
+        """Per-sample log p of the batch's latents in nats, (B,) f32 (JAX
+        :263-294; reference Sampler.sample_ode_likelihood,
+        src/mdgen/transport/transport.py:452-510): ``ode_likelihood`` runs
+        the reversed probability-flow ODE from the latents over
+        ``num_steps`` with Rademacher probes (``probes`` (num_steps, B, T,
+        L, lat), else drawn from ``generator``) back to x0, and log p =
+        ``prior_logp(x0) - delta_logp``. Each step is one
+        ``LatentMDGen.forward`` (the trunk's ``FusedTrunkFn``) and its
+        backward in x. Design configs append the one-hot sequence to the
+        latents, as JAX does, and are refused with the modular branch
+        (``refuse_input_grad``)."""
+        cfg, model = self.cfg, self.model
+        batch = self._batch(batch)
+        prep = prep_batch(cfg, batch)
+        kw = prep["model_kwargs"]
+        x1 = prep["latents"].float()
+        if x1.shape[-1] != cfg.latent_dim:
+            aa = torch.nn.functional.one_hot(batch["seqres"].long(), 20).to(x1.dtype)
+            x1 = torch.cat([x1, aa[:, None].expand(*x1.shape[:-1], 20)], dim=-1)
+        refuse_input_grad(cfg)
+        mask = kw["mask"].float().contiguous()
+        with torch.no_grad():
+            pack = model.make_trunk_pack()
+        model_kw = dict(start_frames=kw.get("start_frames"), end_frames=kw.get("end_frames"),
+                        x_cond=kw["x_cond"], x_cond_mask=kw["x_cond_mask"],
+                        aatype=kw["aatype"], trunk_pack=pack)
+
+        def model_fn(x, t):
+            return model(x, t, mask, **model_kw)
+
+        t0, t1 = check_interval(cfg, eval=True)
+        x0, delta_logp = ode_likelihood(self.transport.drift_fn(model_fn), x1.contiguous(),
+                                        t0=t0, t1=t1, num_steps=num_steps, generator=generator,
+                                        probes=probes)
+        return self.transport.prior_logp(x0) - delta_logp
 
     # ------------------------------------------------------------------
     def _expand_frame0(self, atom14_frame0, seqres, mask):

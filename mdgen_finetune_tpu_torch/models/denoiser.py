@@ -33,7 +33,8 @@ The trunk takes one of JAX's two branches of ``LatentMDGenLayer``
 
 Three ways to run it, as in the JAX package:
 - ``forward(x, t, mask, ...)``: the plain call (``__call__``, :608-740),
-  differentiable on the fused branch (the training path);
+  differentiable on the fused branch, in the parameters (the training
+  path) and in x (the log-likelihood's VJP, ``refuse_input_grad``);
 - ``forward_inference(x, t, mask, ...)``: the same velocity without
   gradients, for the generic ODE samplers (heun, dopri5; every sampler of
   the modular branch);
@@ -217,33 +218,46 @@ class FinalLayer(nn.Module):
         self.linear = nn.Linear(C, out_channels)
 
 
-def _unsupported(cfg: MDGenConfig, train: bool):
+def _unsupported(cfg: MDGenConfig):
     m, t = cfg.model, cfg.task
-    if train:
-        for name in ("hyena", "interleave_ipa", "no_rope"):
-            if getattr(m, name):
-                return f"training with model.{name}", "9 (training the modular layer)"
-        if m.dropout > 0.0:
-            return "training with model.dropout", "9 (training the modular layer)"
-        if t.tps_condition:
-            return "training with task.tps_condition", "13 (training the TPS task)"
-        for name in ("design", "mpnn", "dynamic_mpnn", "inpainting"):
-            if getattr(t, name):
-                return f"training with task.{name}", "14 (training the design tasks)"
-    if t.no_frames:
-        return "task.no_frames", "8"
+    for name in ("hyena", "interleave_ipa", "no_rope"):
+        if getattr(m, name):
+            return f"training with model.{name}", "9 (training the modular layer)"
+    if m.dropout > 0.0:
+        return "training with model.dropout", "9 (training the modular layer)"
+    if t.tps_condition:
+        return "training with task.tps_condition", "13 (training the TPS task)"
+    for name in ("design", "mpnn", "dynamic_mpnn", "inpainting"):
+        if getattr(t, name):
+            return f"training with task.{name}", "14 (training the design tasks)"
     return None
 
 
 def refuse_unported(cfg: MDGenConfig, train: bool = False) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item of a model or
-    task branch that is not ported yet; with ``train``, also the branches
-    that sample but do not train yet (the modular layer, dropout, the TPS
-    and design tasks)."""
-    bad = _unsupported(cfg, train)
+    """Every model and task branch samples. With ``train``, raise
+    ``NotImplementedError`` naming the ROADMAP item of a branch that does
+    not train yet (the modular layer, dropout, the TPS and design tasks)."""
+    bad = _unsupported(cfg) if train else None
     if bad is not None:
         raise NotImplementedError(
             f"{bad[0]} is not ported yet (ROADMAP.md queue 1 item {bad[1]})")
+
+
+def refuse_input_grad(cfg: MDGenConfig) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item where
+    ``LatentMDGen.forward`` has no backward in x (the log-likelihood's
+    VJP): the modular branch (item 9) and the design tasks (item 14)."""
+    m, t = cfg.model, cfg.task
+    for name in ("interleave_ipa", "hyena", "no_rope"):
+        if getattr(m, name):
+            raise NotImplementedError(
+                f"the log-likelihood with model.{name} needs the modular layer's backward, "
+                "not ported yet (ROADMAP.md queue 1 item 9, training the modular layer)")
+    for name in ("design", "mpnn", "dynamic_mpnn"):
+        if getattr(t, name):
+            raise NotImplementedError(
+                f"the log-likelihood of task.{name} needs the design head's backward, not "
+                "ported yet (ROADMAP.md queue 1 item 14, training the design tasks)")
 
 
 def _detached(tree):
@@ -267,10 +281,12 @@ class LatentMDGen(nn.Module):
     def __init__(self, cfg: MDGenConfig, latent_dim: Optional[int] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        refuse_unported(cfg)  # the task branches; the Trainer refuses more
         task = cfg.task
         if (task.mpnn or task.dynamic_mpnn) and not task.design:
             raise ValueError("task.mpnn / dynamic_mpnn predict the sequence: they need task.design")
+        if task.no_frames and cfg.model.prepend_ipa:
+            raise ValueError("task.no_frames has no rigids for the prepend-IPA encoder "
+                             "(model.prepend_ipa): the JAX package cannot run it either")
         self.cfg = cfg
         m = cfg.model
         C = m.embed_dim
@@ -518,12 +534,14 @@ class LatentMDGen(nn.Module):
                 end_frames: Optional[Rigid] = None, x_cond=None, x_cond_mask=None,
                 aatype=None, trunk_pack=None):
         """x (B, T, L, lat), t (B,), mask (B, T, L) -> velocity (B, T, L, lat)
-        f32; on the fused branch differentiable in the parameters when grad
-        mode is on (the trunk through ``FusedTrunkFn``, which with
-        ``grad_checkpointing`` saves only each layer's input; the encoder
-        through its recompute). The modular branch does not train yet: its
-        call is ``forward_inference``; the design tasks neither (their
-        call is ``forward_inference`` too)."""
+        f32; on the fused branch differentiable in the parameters and in x
+        when grad mode is on (the trunk through ``FusedTrunkFn``, which with
+        ``grad_checkpointing`` saves only each layer's input; the encoder,
+        which does not depend on x, through its recompute). The same
+        function as ``forward_inference``. The modular branch does not train
+        yet: its call is ``forward_inference``, without gradients; the
+        design tasks are refused (the likelihood refuses both first,
+        ``refuse_input_grad``)."""
         task = self.cfg.task
         if task.design or task.mpnn or task.dynamic_mpnn:
             refuse_unported(self.cfg, train=True)

@@ -26,6 +26,7 @@ import torch
 
 from ..config import MDGenConfig
 from ..data.featurize import featurize_atom14_batch
+from ..geometry import frames as G
 from ..geometry.rigid import full_f32
 from ..inference.sampling import resolve_device
 from ..models.denoiser import LatentMDGen, refuse_unported
@@ -113,6 +114,19 @@ def global_norm(tensors: dict) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors.values()))))
 
 
+def featurize(cfg: MDGenConfig, atom14: torch.Tensor, seqres: torch.Tensor,
+              mask: torch.Tensor) -> dict:
+    """A raw batch's features on its device (JAX ``_featurize``, :95-108):
+    ``featurize_atom14_batch``, or under ``no_frames`` the atom37
+    coordinates and the per-atom37 mask of each residue type
+    (``RESTYPE_ATOM37_MASK[seqres]``: the residue mask is not read, as in
+    JAX; reference src/mdgen/dataset.py:81-88)."""
+    if not cfg.task.no_frames:
+        return featurize_atom14_batch(atom14, seqres, mask)
+    return {"atom37": G.atom14_to_atom37(atom14, seqres), "seqres": seqres,
+            "mask": G._table("RESTYPE_ATOM37_MASK", seqres, atom14.dtype)}
+
+
 class Trainer:
     def __init__(self, cfg: MDGenConfig, device="cuda", dtype=None):
         refuse_unported(cfg, train=True)
@@ -151,12 +165,11 @@ class Trainer:
         """Mean flow-matching loss of a raw batch (atom14, seqres, mask) and
         the mean t: featurize -> prep_batch -> training_losses."""
         b = self._device_batch(batch)
-        feats = featurize_atom14_batch(b["atom14"].float(), b["seqres"].long(),
-                                       b["mask"].float())
+        feats = featurize(self.cfg, b["atom14"].float(), b["seqres"].long(), b["mask"].float())
         return self._feature_loss(feats, generator, t, x0)
 
     def _feature_loss(self, feats: dict, generator=None, t=None, x0=None):
-        """``_loss_fn`` from a featurized batch (``featurize_atom14_batch``)."""
+        """``_loss_fn`` from a featurized batch (``featurize``)."""
         prep = prep_batch(self.cfg, feats)
         kw = prep["model_kwargs"]
 

@@ -50,6 +50,27 @@ class LinearPath:
             return norm * torch.sin(math.pi * t) ** 2
         raise NotImplementedError(form)
 
+    def score_from_velocity(self, velocity, x, t):
+        """The score of x_t from the velocity (JAX ``paths.py:56-61``)."""
+        alpha_t, d_alpha_t = self.alpha(t)
+        sigma_t, d_sigma_t = self.sigma(t)
+        r = alpha_t / d_alpha_t
+        var = sigma_t ** 2 - r * d_sigma_t * sigma_t
+        return (r * velocity - x) / var
+
+    def noise_from_velocity(self, velocity, x, t):
+        """The noise x0 of x_t from the velocity (JAX ``paths.py:63-68``)."""
+        alpha_t, d_alpha_t = self.alpha(t)
+        sigma_t, d_sigma_t = self.sigma(t)
+        r = alpha_t / d_alpha_t
+        var = r * d_sigma_t - sigma_t
+        return (r * velocity - x) / var
+
+    def velocity_from_score(self, score, x, t):
+        """The probability-flow velocity from the score (JAX ``paths.py:70-72``)."""
+        drift, var = self.drift(x, t)
+        return var * score - drift
+
     def interpolate(self, t, x0, x1):
         """Returns (x_t, u_t): the noisy sample and the target vector field."""
         alpha_t, d_alpha_t = self.alpha(t)

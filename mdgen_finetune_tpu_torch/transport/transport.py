@@ -1,25 +1,30 @@
-"""Flow-matching training losses and the probability-flow drift.
+"""Flow-matching training losses, the probability-flow drift, the score and
+the reverse-SDE sampler.
 
 Counterpart of the JAX package's ``transport/transport.py::Transport``
-(:35-180; reference src/mdgen/transport/transport.py:137-257) for the
+(:35-234; reference src/mdgen/transport/transport.py:84-405) for the
 continuous objectives: velocity matching, and the noise / score objectives
-with their loss weightings; ``drift_fn`` for the ODE samplers
-(``samplers.py``); ``t_to_alpha``, the Dirichlet concentration schedule that
-design sampling reads (``models/denoiser.py::forward_inference``). The
-Dirichlet flow-matching terms of the design task's loss are not ported yet
-(ROADMAP.md queue 1 item 14), nor is the SDE sampler (item 8).
+with their loss weightings; ``drift_fn`` for the ODE samplers and the
+likelihood (``samplers.py``); ``score_fn`` and ``make_sde_sampler`` (the
+SDE sampler with its Mean / Euler / Tweedie last steps); ``prior_logp``;
+``t_to_alpha``, the Dirichlet concentration schedule that design sampling
+reads (``models/denoiser.py::forward_inference``). The Dirichlet
+flow-matching terms of the design task's loss are not ported yet
+(ROADMAP.md queue 1 item 14).
 
 Randomness: ``training_losses`` draws t and x0 from a ``torch.Generator``,
 or takes them as given (the tests hand both packages the same draws).
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
 
 from ..config import MDGenConfig
 from .paths import expand_t, get_path
+from .samplers import sample_sde
 
 
 def t_to_alpha(t, alpha_max: float):
@@ -139,6 +144,77 @@ class Transport:
             return -drift_mean + drift_var * score
 
         return noise_ode
+
+    def score_fn(self, model_fn: Callable) -> Callable:
+        """The score ``score(x, t)`` of ``model_fn(x, t)`` for the config's
+        prediction type (reference transport.py:259-275; JAX :182-188)."""
+        if self.prediction == "noise":
+            return lambda x, t: model_fn(x, t) / -self.path.sigma(expand_t(t, x))[0]
+        if self.prediction == "score":
+            return model_fn
+        return lambda x, t: self.path.score_from_velocity(model_fn(x, t), x, expand_t(t, x))
+
+    def make_sde_sampler(self, model_fn: Callable, *, num_steps: int = 250,
+                         method: str = "Euler", diffusion_form: str = "SBDM",
+                         diffusion_norm: float = 1.0, last_step: str = "Mean",
+                         last_step_size: float = 0.04) -> Callable:
+        """The reverse-SDE sampler of ``model_fn`` (JAX :190-228; reference
+        transport.py:294-405): ``sample(x, generator=None, noise=None)`` ->
+        (x, counts) through ``samplers.sample_sde`` on [max(t0, 1e-3), t1]
+        of ``check_interval(sde=True, eval=True, last_step_size=...)``
+        (the score and the diffusion are singular at t = 0). The drift and
+        the score of one (x, t) share one call of ``model_fn``. ``Tweedie``
+        ends with x / alpha + sigma^2 / alpha * score(x, t1) at t1 (one
+        more call)."""
+        if last_step not in ("Mean", "Euler", "Tweedie"):
+            raise NotImplementedError(last_step)
+        model_fn = _last_call(model_fn)
+        drift, score = self.drift_fn(model_fn), self.score_fn(model_fn)
+
+        def diffusion(x, te):
+            return self.path.diffusion(x, te, form=diffusion_form, norm=diffusion_norm)
+
+        t0, t1 = self.check_interval(sde=True, eval=True, last_step_size=last_step_size)
+        t0 = max(t0, 1e-3)
+
+        def sample(x, generator: Optional[torch.Generator] = None,
+                   noise: Optional[torch.Tensor] = None):
+            out, counts = sample_sde(drift, diffusion, score, x, t0=t0, t1=t1,
+                                     num_steps=num_steps, method=method,
+                                     last_step=None if last_step == "Tweedie" else last_step,
+                                     last_step_size=last_step_size, generator=generator,
+                                     noise=noise)
+            if last_step == "Tweedie":
+                tv = torch.full((x.shape[0],), t1, dtype=x.dtype, device=x.device)
+                te = expand_t(tv, out)
+                alpha, _ = self.path.alpha(te)
+                sigma, _ = self.path.sigma(te)
+                out = out / alpha + (sigma ** 2 / alpha) * score(out, tv)
+                counts["evals"] += 1
+            return out, counts
+
+        return sample
+
+    @staticmethod
+    def prior_logp(z: torch.Tensor) -> torch.Tensor:
+        """Standard-normal log density of each element of the batch (B,)
+        (reference transport.py:84-92; JAX :230-234)."""
+        n = z[0].numel()
+        return -n / 2.0 * math.log(2 * math.pi) - (z.reshape(z.shape[0], -1) ** 2).sum(-1) / 2.0
+
+
+def _last_call(model_fn: Callable) -> Callable:
+    """``model_fn`` that returns its last result again when called with the
+    same x and t objects (the SDE drift asks for the drift and the score of
+    one (x, t): one model evaluation)."""
+    last = [None, None, None]
+
+    def call(x, t):
+        if last[0] is not x or last[1] is not t:
+            last[:] = [x, t, model_fn(x, t)]
+        return last[2]
+
+    return call
 
 
 def create_transport(cfg: MDGenConfig) -> Transport:

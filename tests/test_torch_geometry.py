@@ -134,8 +134,16 @@ def test_make_cond_mask(task):
 
 
 def test_prep_batch_refuses_unported_tasks(structures):
+    """``no_offsets``, once refused, now prepares as JAX does: the offsets
+    are the frames themselves as sign-fixed 7-tensors."""
     atom14, aatype, _, _ = structures
     tb = t_featurize(torch.from_numpy(atom14), torch.from_numpy(aatype).long(),
                      torch.ones(aatype.shape))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_prep_batch(tcfg.MDGenConfig(task=tcfg.TaskConfig(no_offsets=True)), tb)
+    jb = {k: jnp.asarray(v.numpy()) for k, v in tb.items()}
+    tp = t_prep_batch(tcfg.MDGenConfig(task=tcfg.TaskConfig(sim_condition=True, no_offsets=True)),
+                      tb)
+    jp = j_prep_batch(MDGenConfig(task=TaskConfig(sim_condition=True, no_offsets=True)), jb)
+    assert tp["latents"].shape == (2, 3, 4, 21)
+    _close(tp["latents"], jp["latents"], atol=ATOL_ANGSTROM)
+    _close(tp["model_kwargs"]["x_cond"], jp["model_kwargs"]["x_cond"], atol=ATOL_ANGSTROM)
+    assert (tp["latents"][..., 0] >= 0).all()

@@ -129,12 +129,22 @@ def test_entry_points_refuse_a_missing_card(setup, monkeypatch):
 
 @pytest.mark.parametrize("change", [dict(sampler="sde"), dict(no_frames=True)])
 def test_unported_samplers_raise(setup, change):
-    """The ODE samplers (euler, heun, dopri5) are ported; the reverse-SDE
-    sampler and the raw-coordinate task (``no_frames``) are not."""
-    tc, kw = setup["tc"], {}
+    """The reverse-SDE sampler is accepted and an unknown sampler raises
+    ``ValueError`` (as in JAX); the raw-coordinate task (``no_frames``,
+    without the encoder, which it cannot feed) builds an engine but does not
+    sample, as the JAX package does not (``tests/test_torch_sde.py`` holds
+    the SDE sampler to JAX)."""
+    tc = setup["tc"]
     if "sampler" in change:
-        kw = change
-    else:
-        tc = tc.replace(task=tcfg.TaskConfig(**{**tc.task.__dict__, **change}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEngine(tc, setup["tree"], device="cpu", **kw)
+        eng = TEngine(tc, setup["tree"], device="cpu", **change)
+        assert eng.sampler == "sde"
+        with pytest.raises(ValueError, match="unknown sampler"):
+            TEngine(tc, setup["tree"], device="cpu", sampler="bogus")
+        return
+    tc = tc.replace(task=tcfg.TaskConfig(**{**tc.task.__dict__, **change}),
+                    model=tcfg.ModelConfig(**{**tc.model.__dict__, "prepend_ipa": False}))
+    from mdgen_finetune_tpu_torch.models.denoiser import LatentMDGen
+
+    eng = TEngine(tc, LatentMDGen(tc).state_dict(), device="cpu")
+    with pytest.raises(NotImplementedError, match="JAX package does not sample it"):
+        eng.sample(_tbatch(setup), torch.Generator().manual_seed(0))

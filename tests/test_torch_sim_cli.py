@@ -5,8 +5,9 @@
   it with ``--device cpu`` and writes a multi-MODEL PDB that parses back
   (``from_pdb_models``) to 2 * num_frames models with ideal backbone bonds,
   and its meta JSON line;
-- the CLI's refusals: the card by default without CUDA, ``--sde`` and
-  ``--torch_ckpt`` (not ported, named in the message);
+- the CLI's refusal of the card by default without CUDA, and ``--sde``
+  with Euler-Maruyama and with Heun on the CPU (a trajectory with ideal
+  bonds);
 - ``atom14_to_pdb``: the same text as the JAX package's writer for the
   same arrays.
 
@@ -71,16 +72,31 @@ def test_sim_inference_cli_writes_a_trajectory(run, capsys):
     assert np.abs(n_ca - 1.458).max() < 1e-2 and np.abs(ca_c - 1.522).max() < 1e-2
 
 
-@pytest.mark.parametrize("extra, error", [([], RuntimeError), (["--sde"], NotImplementedError),
-                                          (["--sde", "--sde_method", "Heun"], NotImplementedError)])
-def test_sim_inference_cli_refusals(run, monkeypatch, extra, error):
-    """Without CUDA the default device raises; the SDE sampler, with either
-    of its methods, names its ROADMAP item (released checkpoints load:
+@pytest.mark.parametrize("extra, error", [([], RuntimeError), (["--sde"], None),
+                                          (["--sde", "--sde_method", "Heun"], None)])
+def test_sim_inference_cli_refusals(run, monkeypatch, capsys, extra, error):
+    """Without CUDA the default device raises; with ``--device cpu`` the
+    SDE sampler runs with either of its methods (3 steps) and writes a
+    trajectory with ideal backbone bonds (released checkpoints load:
     ``tests/test_torch_reference_ckpt.py``)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    _, args = run
-    with pytest.raises(error, match="CUDA is not available" if error is RuntimeError else "ROADMAP"):
-        sim_inference.main(args + extra + (["--device", "cpu"] if extra else []))
+    root, args = run
+    if error is not None:
+        with pytest.raises(error, match="CUDA is not available"):
+            sim_inference.main(args + extra)
+        return
+    out = root / ("sde_" + extra[-1])
+    sim_inference.main(args[:args.index("--out_dir")] + ["--out_dir", str(out)]
+                       + args[args.index("--out_dir") + 2:] + extra
+                       + ["--sde_steps", "3", "--device", "cpu"])
+    meta = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert meta["name"] == "AAGG" and meta["frames"] == 2 * T
+    chunks = [c for c in open(out / "AAGG.pdb").read().split("ENDMDL") if "ATOM" in c]
+    pos = np.stack([tprotein.from_pdb_string(c).atom_positions for c in chunks])
+    assert pos.shape[:2] == (2 * T, L) and np.isfinite(pos).all()
+    n_ca = np.linalg.norm(pos[:, :, 0] - pos[:, :, 1], axis=-1)
+    ca_c = np.linalg.norm(pos[:, :, 1] - pos[:, :, 2], axis=-1)
+    assert np.abs(n_ca - 1.458).max() < 1e-2 and np.abs(ca_c - 1.522).max() < 1e-2
 
 
 def test_atom14_to_pdb_text_matches_jax_writer(tmp_path):

@@ -195,5 +195,4 @@ def test_training_the_tps_task_is_refused():
     refuse_unported(tc)  # sampling is ported
     with pytest.raises(NotImplementedError, match="item 13 \\(training the TPS task\\)"):
         refuse_unported(tc, train=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        refuse_unported(dataclasses.replace(tc, task=tcfg.TaskConfig(no_frames=True)))
+    refuse_unported(dataclasses.replace(tc, task=tcfg.TaskConfig(no_frames=True)))  # ported
