@@ -80,6 +80,17 @@ Then:
   the encoder: ``Trainer`` steps at B = 32, the fixed-batch loss falling,
   the N = 111 head on tiled64 against its f32 twin, and
   ``grad_cuda_vs_cpu_no_frames``);
+- training the tasks the port samples, at full width and B = 32 on
+  synthetic 1,000-frame trajectories (``train_cell`` each): ``train_design``
+  (``preset_4aa_design``: the trunk without its head, the FinalLayer, the
+  design head, the Dirichlet draw on the card) with ``train_design_trace``,
+  ``train_mpnn`` and ``train_dynamic_mpnn`` (the trunk at T = 1 / 2),
+  ``train_tps`` (``preset_4aa_tps``); rows b′ and f′ at the frame stage's
+  T = 1 and 2 against their twins (``frame_rows_short_t``); the ``train``
+  CLI with ``--design --inference_batches 1`` and its designability probe
+  (``train_design_cli``); every gradient card vs CPU for design, mpnn and
+  TPS (``grad_cuda_vs_cpu_design`` / ``_tps`` at B = 2, ``_mpnn`` at
+  B = 32; the same simplex point);
 - training: the loss and every parameter's gradient on the card (bf16
   kernels) against the CPU (f32 twins) at full width, B = 2; the flagship
   config trained through ``Trainer`` at B = 32, T = 100, L = 4 (2 warm-up
@@ -1172,8 +1183,12 @@ def phase_grad_across_devices(dev, cfg=None, phase="grad_cuda_vs_cpu", pad=1, ex
     bias has an exactly-zero gradient that every run rounds differently).
     The flagship config at B = 2, T = 100 by default; ``cfg`` another
     (its batch size, frames and crop, its featurizer: ``no_frames`` reads
-    atom37; ``pad`` residues of the first element are padding; ``extra``
+    atom37; its task: under ``design`` the simplex point is drawn here once
+    from Dir(1 + onehot(seqres) (alpha(t) - 1)) and handed to all three
+    runs; ``pad`` residues of the first element are padding; ``extra``
     goes into the line)."""
+    import torch.nn.functional as F
+
     from mdgen_finetune_tpu_torch.training import Trainer
     from mdgen_finetune_tpu_torch.training.trainer import featurize
     from mdgen_finetune_tpu_torch.utils.weights import randomize_
@@ -1189,7 +1204,13 @@ def phase_grad_across_devices(dev, cfg=None, phase="grad_cuda_vs_cpu", pad=1, ex
     feats = featurize(cfg, batch["atom14"], batch["seqres"], batch["mask"])
     gen = torch.Generator().manual_seed(9)
     t = torch.rand(Bn, generator=gen) * 0.9 + 0.05
-    x0 = torch.randn(Bn, Tn, Ln, cfg.latent_dim, generator=gen)
+    task = cfg.task
+    x0 = torch.randn(Bn, Tn, Ln, cfg.latent_dim - (20 if task.design else 0), generator=gen)
+    x_d = None  # the design task's simplex point (mpnn: zeros, made by the loss)
+    if task.design and not (task.mpnn or task.dynamic_mpnn):
+        alpha = 1 + t * (cfg.transport.alpha_max - 1)
+        conc = 1 + F.one_hot(seqres, 20).float() * (alpha[:, None, None] - 1)
+        x_d = torch._sample_dirichlet(conc, gen)
     f32_cfg = cfg.replace(model=dataclasses.replace(cfg.model, use_bf16=False))
     res, secs = {}, {}
     for name, d, c in (("cuda", dev, cfg), ("cpu_f32", "cpu", f32_cfg), ("cpu_bf16", "cpu", cfg)):
@@ -1198,7 +1219,7 @@ def phase_grad_across_devices(dev, cfg=None, phase="grad_cuda_vs_cpu", pad=1, ex
         tr.init_state(0)
         randomize_(tr.model, torch.Generator().manual_seed(12), scale=0.05)
         loss, _ = tr._feature_loss({k: v.to(d) for k, v in feats.items()}, t=t.to(d),
-                                   x0=x0.to(d))
+                                   x0=x0.to(d), x_d=None if x_d is None else x_d.to(d))
         loss.backward()
         res[name] = (loss.item(), {k: p.grad.float().cpu() for k, p in tr.model.named_parameters()})
         secs[name] = time.perf_counter() - t0
@@ -3333,6 +3354,153 @@ def phase_ablations(dev):
                               extra={"task": "no_frames, latent 111, no encoder"})
 
 
+# ---------------------------------------------------------------------------
+# training the design, inpainting, mpnn / dynamic_mpnn and TPS tasks
+# ---------------------------------------------------------------------------
+
+TASK_PEPTIDES = ["AAGG", "GHKL", "MKTW", "DERS"]
+
+
+def task_train_config(cfg, batch_size):
+    """``cfg`` trained as ``train_config``: Adam lr 1e-4, clip 1.0, EMA
+    0.999, on the synthetic ``task_data`` (1,000-frame trajectories, suffix
+    _i100: the design preset's ``frame_interval`` 10 keeps 100 frames)."""
+    from mdgen_finetune_tpu_torch.config import TrainConfig
+
+    return cfg.replace(
+        data=dataclasses.replace(cfg.data, data_dir=str(SCRATCH / "task_data"), suffix="_i100"),
+        train=TrainConfig(batch_size=batch_size, lr=1e-4, grad_clip=1.0, ema=True,
+                          ema_decay=0.999),
+        workdir=str(SCRATCH), run_name="train_task")
+
+
+def phase_train_tasks(dev):
+    """The tasks the port samples, trained through ``Trainer`` at full width
+    (5 x 384, 16 heads, prepend-IPA 4 x 32, bf16) and B = 32 from the
+    port's init on synthetic 1,000-frame trajectories of four peptides
+    (``train_cell``: 2 warm-up and 10 timed steps, 20 steps on one fixed
+    batch with a fixed t, x0 and simplex point, the loss finite and
+    falling, a checkpoint round trip, the training path's six kernels each
+    launched, 15 ``modln_bwd`` calls a step, no plain twin on the card):
+    ``train_design`` (``preset_4aa_design``: the trunk without its head
+    under ``FusedTrunkFn``, the FinalLayer and the design head, the
+    Dirichlet draw on the card) and its trace ``train_design_trace``;
+    ``train_mpnn`` / ``train_dynamic_mpnn`` (the trunk at T = 1 / 2, the
+    logits' cross-entropy); ``train_tps`` (``preset_4aa_tps``, the doubled
+    offsets and the encoder's token pair). Returns the per-step launches of
+    ``train_design`` and ``train_mpnn``."""
+    from mdgen_finetune_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    split = make_synthetic_dataset(str(SCRATCH / "task_data"), TASK_PEPTIDES, num_frames=1000,
+                                   suffix="_i100")
+    pairs = tuple((n, n) for n in TRAIN_WRAPPERS)
+    cells = (("train_design", design_config(), "inpainting + design + no_torsion"),
+             ("train_mpnn", design_config({"mpnn": True, "design": True}), "mpnn + design"),
+             ("train_dynamic_mpnn", design_config({"dynamic_mpnn": True, "design": True}),
+              "dynamic_mpnn + design"),
+             ("train_tps", tps_config(), "tps_condition (preset_4aa_tps)"))
+    per_steps = {}
+    for phase, cfg, task in cells:
+        cfg = task_train_config(cfg, B_TRAIN)
+        Tn = {"train_mpnn": 1, "train_dynamic_mpnn": 2}.get(phase, T)
+        products, attention = step_flops(B_TRAIN, Tn, L)
+        _, per_step, (trainer, state, tbatch, tgen) = train_cell(
+            dev, phase, cfg, split, B_TRAIN, pairs, 3 * products + 3.5 * attention,
+            {"task": task, "T_trunk": Tn, "latent": cfg.latent_dim})
+        if min(per_step.values()) <= 0 or per_step["modln_bwd"] != 3 * NL:
+            raise AssertionError(f"{phase}: launches per step {per_step}")
+        per_steps[phase] = per_step
+        if phase == "train_design":
+            phase_trace("train_design_trace", lambda: trainer.train_step(state, tbatch, tgen))
+        del trainer, state
+    return per_steps
+
+
+def phase_frame_rows_short_t(dev):
+    """Rows b′ and f′ (``rope_attention`` / ``rope_attention_bwd``, the
+    short bodies) at the frame stage of ``mpnn`` / ``dynamic_mpnn``
+    training: (G, N, I) = (32, T, 4) with T = 1 and 2, base 2, one frame's
+    residue padded and an element whose only valid key is the bias token;
+    each against its f32 plain twin (1e-2 x max(1, max |twin|)), timed
+    beside it."""
+    from mdgen_finetune_tpu_torch.ops import rope_attention as RA
+    from mdgen_finetune_tpu_torch.ops import rope_attention_bwd as RB
+
+    g = torch.Generator(device=dev).manual_seed(211)
+    D = C // H
+    out = {}
+    for Tn in (1, 2):
+        qkv = torch.randn(B_TRAIN, Tn, L, 3 * C, generator=g, device=dev) * 0.5
+        qkv[..., :C] *= D ** -0.5 * 1.4427
+        qkv = qkv.bfloat16()
+        do = (torch.randn(B_TRAIN, Tn, L, C, generator=g, device=dev) * 0.1).bfloat16()
+        bk, bv = ((torch.randn(C, generator=g, device=dev) * 0.4).bfloat16() for _ in range(2))
+        mask = torch.ones(B_TRAIN, Tn, L, device=dev)
+        mask[0, :, -1] = 0
+        mask[1] = 0  # only the bias key is valid
+        kw = dict(num_heads=H)
+        fwd = RA.rope_attention(qkv, bk, bv, mask, base2=True, **kw)
+        fwd_ref = RA.rope_attention_plain(qkv.float(), bk.float(), bv.float(), mask, base2=True,
+                                          **kw)
+        fwd_err = check(f"frame_rows_short_t[b' T = {Tn}]", fwd, fwd_ref, 1e-2)
+        bwd = RB.rope_attention_bwd(qkv, do, bk, bv, mask, **kw)
+        bwd_ref = RB.rope_attention_bwd_plain(qkv.float(), do.float(), bk.float(), bv.float(),
+                                              mask, **kw)
+        bwd_errs = [check(f"frame_rows_short_t[f' T = {Tn} {i}]", a, b, 1e-2)
+                    for i, (a, b) in enumerate(zip(bwd, bwd_ref))]
+        out[f"T{Tn}"] = dict(
+            shape=f"(G, N, I) = ({B_TRAIN}, {Tn}, {L}), {H} heads of D = {D}, base 2",
+            b_prime=dict(max_abs_err=fwd_err[0], tol=fwd_err[1],
+                         ms=time_ms(lambda: RA.rope_attention(qkv, bk, bv, mask, base2=True,
+                                                              **kw)),
+                         plain_ms=time_ms(lambda: RA.rope_attention_plain(
+                             qkv, bk, bv, mask, base2=True, **kw), reps=5)),
+            f_prime=dict(max_abs_err=max(e for e, _ in bwd_errs),
+                         tol=max(t for _, t in bwd_errs),
+                         ms=time_ms(lambda: RB.rope_attention_bwd(qkv, do, bk, bv, mask, **kw)),
+                         plain_ms=time_ms(lambda: RB.rope_attention_bwd_plain(
+                             qkv, do, bk, bv, mask, **kw), reps=5)))
+    emit({"phase": "frame_rows_short_t", **out})
+
+
+def phase_train_design_cli(dev):
+    """The training CLI on the design task at full width: ``train
+    --inpainting --design --no_torsion --no_aa_emb`` with the design
+    preset's frames (``--num_frames 100 --frame_interval 10``), B = 8,
+    3 steps, one validation batch and ``--inference_batches 1``: the
+    designability probe samples 2 validation elements with the EMA weights
+    (Euler-100) and logs ``designability_*``; every value finite, each
+    recovery in [0, 1]."""
+    import numpy as np
+
+    from mdgen_finetune_tpu_torch.cli import train
+
+    data = SCRATCH / "task_data"
+    split = str(data / "split.csv")
+    argv = ["--inpainting", "--design", "--no_torsion", "--prepend_ipa", "--abs_pos_emb",
+            "--no_aa_emb", "--crop", "4", "--num_frames", "100", "--frame_interval", "10",
+            "--suffix", "_i100", "--train_split", split, "--val_split", split,
+            "--data_dir", str(data), "--batch_size", "8", "--epochs", "1",
+            "--steps_per_epoch", "3", "--val_batches", "1", "--inference_batches", "1",
+            "--sampling_method", "euler", "--inference_steps", str(STEPS), "--ema",
+            "--print_freq", "1", "--workdir", str(SCRATCH), "--run_name", "design_train"]
+    t0 = time.perf_counter()
+    state = train.main(argv)
+    secs = time.perf_counter() - t0
+    run = SCRATCH / "design_train"
+    log = [json.loads(x) for x in (run / "log.jsonl").read_text().splitlines()]
+    shutil.rmtree(run, ignore_errors=True)
+    probe = [m for m in log if any(k.startswith("designability_") for k in m)]
+    emit({"phase": "train_design_cli", "steps": state.step, "train_cli_s": secs, "log": log})
+    vals = [v for m in log for v in m.values()]
+    if state.step != 3 or len(probe) != 1 or not np.isfinite(vals).all():
+        raise AssertionError(f"train_design_cli: {state.step} steps, log {log}")
+    if not all(0.0 <= v <= 1.0 for k, v in probe[0].items() if k.startswith("designability_")):
+        raise AssertionError(f"train_design_cli: a recovery out of [0, 1]: {probe[0]}")
+    if not any("val_loss_discrete" in m for m in log):
+        raise AssertionError(f"train_design_cli: no design metrics in validation: {log}")
+
+
 def train_1000_config(batch_size):
     """The 4AA forward-simulation preset's training at full width (5 x 384,
     16 heads, prepend-IPA, T = 1000, L = 4, bf16) with the reference
@@ -3604,7 +3772,8 @@ def train_cell(dev, phase, cfg, split, batch_size, pairs, bound_flops, extra):
           "peak_memory_gb": peak_gb, "losses": losses, "grad_norms": norms,
           "fixed_batch_first5": first5, "fixed_batch_last5": last5,
           "checkpoint_round_trip": ckpt_ok, "launches_per_step": per_step,
-          "launches": launches, "plain_calls_on_card": twin_calls, **extra})
+          "launches": launches, "plain_calls_on_card": twin_calls,
+          "last_metrics": {k: float(v) for k, v in metrics[-1].items()}, **extra})
     if not all(np.isfinite(losses + norms + fixed)):
         raise AssertionError(f"{phase}: non-finite loss or gradient norm")
     if not last5 < first5:
@@ -4690,8 +4859,23 @@ def main():
     del eng
     phase_sde_cli(dev)
     phase_ablations(dev)
+    # training the design, mpnn / dynamic_mpnn and TPS tasks
+    t_train_tasks = time.perf_counter()
+    task_launches = phase_train_tasks(dev)
+    phase_frame_rows_short_t(dev)
+    phase_train_design_cli(dev)
+    # mpnn at the training batch: at T = 1 a weight gradient sums B x 4 rows,
+    # and over B = 2's 8 rows one bf16 run's error is itself too noisy a
+    # yardstick (tools/grad_attribution.py, PERF.md §6)
+    for name, cfg_, Bg in (("design", design_config(), 2),
+                           ("mpnn", design_config({"mpnn": True, "design": True}), B_TRAIN),
+                           ("tps", tps_config(), 2)):
+        phase_grad_across_devices(dev, task_train_config(cfg_, Bg), f"grad_cuda_vs_cpu_{name}",
+                                  extra={"task": name})
+    shutil.rmtree(SCRATCH / "task_data", ignore_errors=True)
     emit({"phase": "tasks_s", "tps_and_upsampling_s": t_design - t_tasks,
-          "design_s": t_sde - t_design, "sde_likelihood_ablations_s": time.perf_counter() - t_sde,
+          "design_s": t_sde - t_design, "sde_likelihood_ablations_s": t_train_tasks - t_sde,
+          "train_tasks_s": time.perf_counter() - t_train_tasks,
           "tasks_s": time.perf_counter() - t_tasks})
     phase_grad_across_devices(dev)
     train_launches, train_ref, (trainer, state, tbatch, tgen) = phase_train_path(dev)
@@ -4795,6 +4979,9 @@ def main():
                      "design_main_launches": design_launches.get(name, 0),
                      "sde_main_launches": sde_launches.get(name, 0),
                      "likelihood_launches_per_step": ll_per_step.get(name, 0),
+                     "train_design_launches_per_step":
+                         task_launches["train_design"].get(name, 0),
+                     "train_mpnn_launches_per_step": task_launches["train_mpnn"].get(name, 0),
                      "train_atlas_launches_per_step": atlas_per_step.get(name, 0),
                      "max_abs_err": k["max_abs_err"], "tol": k["tol"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],

@@ -14,13 +14,20 @@ command (``scripts/train_4aa_forward_sim.sh``):
         --crop 4 --ckpt_freq 40 --val_repeat 25 --suffix _i100 --epochs 10000 \\
         --grad_checkpointing --run_name forward_sim
 
+Every task trains (``--sim_condition``, ``--tps_condition``,
+``--inpainting``, ``--design``, ``--mpnn``, ``--dynamic_mpnn``,
+``--cond_interval``). With ``--design --inference_batches N``, every
+``designability_freq`` epochs the designability probe (JAX :65-83;
+reference src/mdgen/wrapper.py:516-537) samples a validation batch of
+``min(batch_size, 2)`` with the EMA weights (when the config trains them)
+and logs ``designability_*``: each element's designed sequence scored
+against its own with ``analysis.task_metrics.sequence_recovery``, averaged.
 ``--profile_dir`` writes a ``torch.profiler`` trace of the first epoch.
 Flags of branches that are not ported yet raise ``NotImplementedError``
-naming their ROADMAP item before anything is written: the design task and
-its designability probe (``--design``, ``--inference_batches``), the
-modular layer (``--hyena``, ``--no_rope``, ``--interleave_ipa``; their
-checkpoints sample, but training them is not ported) and ``--dropout``,
-the other tasks, and ``--dp_size`` / ``--sp_size`` above 1.
+naming their ROADMAP item before anything is written: the modular layer
+(``--hyena``, ``--no_rope``, ``--interleave_ipa``; their checkpoints
+sample, but training them is not ported), ``--dropout``, and
+``--dp_size`` / ``--sp_size`` above 1.
 """
 from __future__ import annotations
 
@@ -55,6 +62,28 @@ def profile_trace(log_dir, device: torch.device):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
+def designability(trainer, state, val_ds, rng, generator) -> dict:
+    """The designability probe: sample a validation batch of ``min(B, 2)``
+    on the EMA weights when the config trains them, and average over its
+    elements the recovery of each one's own sequence (the batch mixes
+    peptides)."""
+    from ..analysis.task_metrics import sequence_recovery
+    from ..data.featurize import featurize_atom14_batch
+    from ..inference import InferenceEngine
+
+    cfg, dev = trainer.cfg, trainer.device
+    engine = InferenceEngine(cfg, state.ema_params if cfg.train.ema else state.params, device=dev)
+    vb = val_ds.batch(rng, min(cfg.train.batch_size, 2))
+    feats = featurize_atom14_batch(torch.as_tensor(vb["atom14"], device=dev).float(),
+                                   torch.as_tensor(vb["seqres"], device=dev).long(),
+                                   torch.as_tensor(vb["mask"], device=dev).float())
+    _, aa_out = engine.sample(feats, generator)
+    aa = aa_out[:, 0].cpu().numpy()
+    seqs = np.asarray(vb["seqres"])
+    recs = [sequence_recovery(aa[i:i + 1], seqs[i]) for i in range(aa.shape[0])]
+    return {k: float(np.mean([r[k] for r in recs])) for k in recs[0]}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     add_train_args(parser)
@@ -65,10 +94,6 @@ def main(argv=None):
                         help="cuda (default; raises without a card) or cpu")
     a = parser.parse_args(argv)
     cfg = args_to_config(a)
-    if a.inference_batches and cfg.task.design:
-        raise NotImplementedError(
-            "the designability probe (--design --inference_batches) is not ported yet "
-            "(ROADMAP.md queue 1 item 14, training the design tasks)")
     trainer = Trainer(cfg, device=a.device)  # refuses what is not ported
 
     workdir = os.path.join(cfg.workdir, cfg.run_name)
@@ -101,6 +126,11 @@ def main(argv=None):
             with profile_trace(a.profile_dir if epoch == 0 else None, trainer.device):
                 state = trainer.fit(state, it, steps_per_epoch, gen,
                                     log_every=cfg.train.print_freq, log_fn=log_fn)
+
+            if (cfg.task.design and a.inference_batches
+                    and (epoch + 1) % a.designability_freq == 0):
+                rec = designability(trainer, state, val_ds, np.random.default_rng(epoch), gen)
+                log_fn({f"designability_{k}": v for k, v in rec.items()} | {"epoch": epoch})
 
             if not a.no_validate and (epoch + 1) % a.val_epoch_freq == 0:
                 vrng = np.random.default_rng(0)

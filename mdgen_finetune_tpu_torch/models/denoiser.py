@@ -28,8 +28,7 @@ The trunk takes one of JAX's two branches of ``LatentMDGenLayer``
   then ``MultiheadAttention`` over residues and over frames (or Hyena, or
   dense attention without RoPE) with the natural softmax, then
   ``adaln_mlp``. Sampling only: the Trainer refuses it (ROADMAP.md, queue 1
-  item 9, training the modular layer), as it refuses the design tasks
-  (item 14).
+  item 9, training the modular layer).
 
 Three ways to run it, as in the JAX package:
 - ``forward(x, t, mask, ...)``: the plain call (``__call__``, :608-740),
@@ -60,7 +59,7 @@ from ..config import MDGenConfig
 from ..geometry.rigid import Rigid
 from ..ops.adaln_linear import adaln_linear
 from ..ops.adaln_mlp import adaln_mlp
-from ..ops.fused_layer import fused_trunk, fused_trunk_train
+from ..ops.fused_layer import FinalLayerFn, fused_trunk, fused_trunk_train
 from ..ops.ipa_attention import ipa_attention
 from ..ops.ipa_encoder import ipa_encoder
 from ..transport.dirichlet import DirichletConditionalFlow, simplex_proj
@@ -219,24 +218,19 @@ class FinalLayer(nn.Module):
 
 
 def _unsupported(cfg: MDGenConfig):
-    m, t = cfg.model, cfg.task
+    m = cfg.model
     for name in ("hyena", "interleave_ipa", "no_rope"):
         if getattr(m, name):
             return f"training with model.{name}", "9 (training the modular layer)"
     if m.dropout > 0.0:
         return "training with model.dropout", "9 (training the modular layer)"
-    if t.tps_condition:
-        return "training with task.tps_condition", "13 (training the TPS task)"
-    for name in ("design", "mpnn", "dynamic_mpnn", "inpainting"):
-        if getattr(t, name):
-            return f"training with task.{name}", "14 (training the design tasks)"
     return None
 
 
 def refuse_unported(cfg: MDGenConfig, train: bool = False) -> None:
-    """Every model and task branch samples. With ``train``, raise
-    ``NotImplementedError`` naming the ROADMAP item of a branch that does
-    not train yet (the modular layer, dropout, the TPS and design tasks)."""
+    """Every model and task branch samples, and every task trains. With
+    ``train``, raise ``NotImplementedError`` naming the ROADMAP item of a
+    branch that does not train yet (the modular layer, dropout)."""
     bad = _unsupported(cfg) if train else None
     if bad is not None:
         raise NotImplementedError(
@@ -244,9 +238,10 @@ def refuse_unported(cfg: MDGenConfig, train: bool = False) -> None:
 
 
 def refuse_input_grad(cfg: MDGenConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item where
-    ``LatentMDGen.forward`` has no backward in x (the log-likelihood's
-    VJP): the modular branch (item 9) and the design tasks (item 14)."""
+    """Raise ``NotImplementedError`` where the log-likelihood is not ported:
+    the modular branch, which has no backward in x (ROADMAP item 9), and
+    the design tasks, whose likelihood the JAX package gives as NaN (ROADMAP
+    queue 3): a port would port the NaN."""
     m, t = cfg.model, cfg.task
     for name in ("interleave_ipa", "hyena", "no_rope"):
         if getattr(m, name):
@@ -256,8 +251,8 @@ def refuse_input_grad(cfg: MDGenConfig) -> None:
     for name in ("design", "mpnn", "dynamic_mpnn"):
         if getattr(t, name):
             raise NotImplementedError(
-                f"the log-likelihood of task.{name} needs the design head's backward, not "
-                "ported yet (ROADMAP.md queue 1 item 14, training the design tasks)")
+                f"the log-likelihood of task.{name} is not ported: the JAX package's is NaN "
+                "at its data endpoint (ROADMAP.md queue 3, the design log-likelihood)")
 
 
 def _detached(tree):
@@ -536,21 +531,27 @@ class LatentMDGen(nn.Module):
         """x (B, T, L, lat), t (B,), mask (B, T, L) -> velocity (B, T, L, lat)
         f32; on the fused branch differentiable in the parameters and in x
         when grad mode is on (the trunk through ``FusedTrunkFn``, which with
-        ``grad_checkpointing`` saves only each layer's input; the encoder,
-        which does not depend on x, through its recompute). The same
-        function as ``forward_inference``. The modular branch does not train
-        yet: its call is ``forward_inference``, without gradients; the
-        design tasks are refused (the likelihood refuses both first,
-        ``refuse_input_grad``)."""
-        task = self.cfg.task
-        if task.design or task.mpnn or task.dynamic_mpnn:
-            refuse_unported(self.cfg, train=True)
+        ``grad_checkpointing`` saves only each layer's input; the encoder
+        through its recompute, which also returns its tokens' gradient).
+        The same function as ``forward_inference`` without its design flow:
+        the JAX package's ``__call__`` (:608-740). With ``design`` the
+        result is ``denoise``'s, built with gradients: the encoder's tokens
+        plus ``x_d_to_emb`` of x's simplex channels averaged over frames,
+        the trunk without its head, the FinalLayer (``FinalLayerFn``) and the
+        design head's logits added to its last 20 channels in the compute
+        dtype; ``mpnn`` / ``dynamic_mpnn`` keep frame 0 (and T-1) and return
+        the logits (B, 1, L, 20) f32. The modular branch does not train
+        yet: its call is ``forward_inference``, without gradients (the
+        likelihood refuses it first, ``refuse_input_grad``)."""
         if self.modular:
             return self.forward_inference(x, t, mask, start_frames=start_frames,
                                           end_frames=end_frames, x_cond=x_cond,
                                           x_cond_mask=x_cond_mask, aatype=aatype,
                                           trunk_pack=trunk_pack)
-        cfg = self.cfg
+        cfg, task = self.cfg, self.cfg.task
+        if task.mpnn or task.dynamic_mpnn:
+            sel = [0] if task.mpnn else [0, x.shape[1] - 1]
+            x, x_cond, x_cond_mask, mask = (a[:, sel] for a in (x, x_cond, x_cond_mask, mask))
         B, T, L = mask.shape
         NL, C = len(self.layers), cfg.model.embed_dim
         pack = trunk_pack if trunk_pack is not None else self.make_trunk_pack()
@@ -559,13 +560,32 @@ class LatentMDGen(nn.Module):
         t_emb = self.t_embedder(t * cfg.model.time_multiplier, self.dtype)
         if cfg.model.prepend_ipa:
             tokens = self.make_encoder_tokens(mask[:, 0], aatype, start_frames, end_frames)
+            if task.design:
+                xd = self._lin(self.x_d_to_emb, x[..., -20:].float().mean(dim=1))
+                tokens = tuple(tk + xd for tk in tokens)
             enc = self.run_ipa(t_emb, mask[:, 0], start_frames, end_frames, tokens, pack)
             h = h + enc[:, None]
         mods_all = F.silu(t_emb).to(self.dtype) @ pack["wmods"] + pack["bmods"]
-        return fused_trunk_train(h, mods_all[:, :NL * 9 * C], pack["layers"], mask,
-                                 num_heads=cfg.model.mha_heads,
-                                 final=(mods_all[:, NL * 9 * C:], *pack["fin"]),
-                                 remat=cfg.model.grad_checkpointing)
+        mods, modf = mods_all[:, :NL * 9 * C], mods_all[:, NL * 9 * C:]
+        trunk = dict(num_heads=cfg.model.mha_heads, remat=cfg.model.grad_checkpointing)
+        if not task.design:
+            return fused_trunk_train(h, mods, pack["layers"], mask,
+                                     final=(modf, *pack["fin"]), **trunk)
+        h = fused_trunk_train(h, mods, pack["layers"], mask, **trunk).reshape(B * T * L, C)
+        logits = self.design_logits(h, B, T, L)
+        if task.mpnn or task.dynamic_mpnn:
+            return logits[:, None].float()
+        latent = FinalLayerFn.apply(h, modf, *pack["fin"]).view(B, T, L, -1)
+        return torch.cat([latent[..., :-20], latent[..., -20:] + logits[:, None]], -1).float()
+
+    def design_logits(self, h, B: int, T: int, L: int):
+        """The design head on the trunk's output h (B*T*L, C) in the compute
+        dtype: ``emb_to_logits(gelu_erf(fc3(mean over frames of
+        fc2(gelu_erf(fc1(h))))))`` -> (B, L, 20), plain dense layers (JAX
+        :734-736 computes them outside its kernels)."""
+        C = h.shape[1]
+        x_l = self._lin(self.fc2, gelu_erf(self._lin(self.fc1, h))).view(B, T, L, C).mean(dim=1)
+        return self._lin(self.emb_to_logits, gelu_erf(self._lin(self.fc3, x_l)))
 
     # ------------------------------------------------------------------
     # flat sampling path
@@ -721,8 +741,7 @@ class LatentMDGen(nn.Module):
         h = fused_trunk(x, mods[:, :NL * 9 * C], pack["layers"], mask, **trunk)
         B, T, L, _ = h.shape
         h = h.reshape(B * T * L, C)
-        x_l = self._lin(self.fc2, gelu_erf(self._lin(self.fc1, h))).view(B, T, L, C).mean(dim=1)
-        logits = self._lin(self.emb_to_logits, gelu_erf(self._lin(self.fc3, x_l)))
+        logits = self.design_logits(h, B, T, L)
         if task.mpnn or task.dynamic_mpnn:
             return logits[:, None].float()
         modf = mods[:, NL * 9 * C:]

@@ -134,17 +134,46 @@ def fused_trunk(x, mods, ws, mask, *, num_heads: int, final=None, embed=None,
 # ---------------------------------------------------------------------------
 
 def _head(h, modf, wfin, bfin):
-    """The FinalLayer head (LN + modulate + linear) in plain PyTorch, f32
-    out: its backward is autograd through this, as the JAX package takes the
-    head's VJP through ``_trunk_final_xla``."""
+    """The FinalLayer head (LN + modulate + linear) in plain PyTorch, in the
+    compute dtype: its backward is autograd through this, as the JAX
+    package takes the head's VJP through ``_trunk_final_xla`` /
+    ``_final_xla``."""
     C = h.shape[1]
-    return adaln_linear_math(h, wfin, bfin, ln="plain", shift=modf[:, :C],
-                             scale=modf[:, C:]).float()
+    return adaln_linear_math(h, wfin, bfin, ln="plain", shift=modf[:, :C], scale=modf[:, C:])
+
+
+def _head_vjp(g, *inputs):
+    """Gradients of ``_head`` at ``inputs`` = (h, modf, wfin, bfin) for the
+    output gradient ``g``."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        out = _head(*leaves)
+        return torch.autograd.grad(out, leaves, g.reshape(out.shape).to(out.dtype))
+
+
+class FinalLayerFn(torch.autograd.Function):
+    """The FinalLayer on the trunk's output as its own product, the JAX
+    package's ``_final_xla`` (``models/denoiser.py:185-191``) under the
+    design head: the forward on ``adaln_linear`` (LN + modulate in its
+    prologue, out in the compute dtype, as ``LatentMDGen.denoise`` runs
+    it), the backward by autograd through the plain head math (``_head``),
+    as ``FusedTrunkFn`` takes its folded head's. h (M, C), modf (nb, 2C),
+    wfin (C, out), bfin (out,) -> (M, out)."""
+
+    @staticmethod
+    def forward(ctx, h, modf, wfin, bfin):
+        C = h.shape[1]
+        ctx.save_for_backward(h, modf, wfin, bfin)
+        return adaln_linear(h, wfin, bfin, ln="plain", shift=modf[:, :C], scale=modf[:, C:])
+
+    @staticmethod
+    def backward(ctx, g):
+        return _head_vjp(g, *ctx.saved_tensors)
 
 
 class FusedTrunkFn(torch.autograd.Function):
-    """The trunk with its output head, differentiable: the counterpart of
-    the JAX package's ``_fused_trunk_pallas`` custom VJP
+    """The trunk with or without its output head, differentiable: the
+    counterpart of the JAX package's ``_fused_trunk_pallas`` custom VJP
     (``ops/fused_layer.py:1162-1229``).
 
     Forward: the same kernels as ``fused_trunk``, but every stage writes its
@@ -158,7 +187,11 @@ class FusedTrunkFn(torch.autograd.Function):
     for each layer in reverse. Inputs: x (B, T, L, C), mods (nb, NL*9C),
     modf (nb, 2C), wfin (C, out), bfin (out,), mask (B, T, L) f32,
     num_heads, remat, then the layers' weights flattened in ``LAYER_KEYS``
-    order. Returns the velocity (B, T, L, out) f32."""
+    order. Returns the velocity (B, T, L, out) f32. Without a head (modf,
+    wfin and bfin None: the design tasks, whose FinalLayer and design head
+    read the trunk's output) it returns the trunk's output (B, T, L, C) in
+    the compute dtype, and the backward hands its incoming gradient, in
+    f32, straight to the layers' sweep (JAX :1196-1198)."""
 
     @staticmethod
     def forward(ctx, x, mods, modf, wfin, bfin, mask, num_heads, remat, *flat_ws):
@@ -172,27 +205,31 @@ class FusedTrunkFn(torch.autograd.Function):
                                     L=L, num_heads=num_heads)
             saved += [h] if remat else [h, x1, x2]
             h = y
+        ctx.num_heads = num_heads
+        ctx.remat = remat
+        ctx.dims = (B, T, L, C)
+        ctx.dtype = x.dtype
+        if wfin is None:
+            ctx.save_for_backward(mods, None, None, None, mask, None, *saved, *flat_ws)
+            return h.view(B, T, L, C)
         carry = torch.zeros(M, wfin.shape[1], dtype=torch.float32, device=h.device)
         adaln_linear(h, wfin, bfin, ln="plain", shift=modf[:, :C], scale=modf[:, C:],
                      epilogue="euler", res=carry, dt=1.0, out=carry)
         ctx.save_for_backward(mods, modf, wfin, bfin, mask, h, *saved, *flat_ws)
-        ctx.num_heads = num_heads
-        ctx.remat = remat
-        ctx.dims = (B, T, L, C)
         return carry.view(B, T, L, -1)
 
     @staticmethod
-    def backward(ctx, gvel):
+    def backward(ctx, gout):
         B, T, L, C = ctx.dims
         mods, modf, wfin, bfin, mask, h_last, *rest = ctx.saved_tensors
         per = 1 if ctx.remat else 3
         NL = len(rest) // (per + len(LAYER_KEYS))
         saved, flat_ws = rest[:per * NL], rest[per * NL:]
         ws = _unflatten(flat_ws)
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_() for t in (h_last, modf, wfin, bfin)]
-            vel = _head(*leaves)
-            g, dmodf, dwfin, dbfin = torch.autograd.grad(vel, leaves, gvel.reshape(vel.shape))
+        if wfin is None:
+            g, dmodf, dwfin, dbfin = gout.reshape(B * T * L, C), None, None, None
+        else:
+            g, dmodf, dwfin, dbfin = _head_vjp(gout.float(), h_last, modf, wfin, bfin)
         g = g.float()
         dmods = torch.empty(mods.shape[0], NL * 9 * C, dtype=torch.float32, device=g.device)
         dws = [None] * NL
@@ -209,8 +246,8 @@ class FusedTrunkFn(torch.autograd.Function):
             del x1, x2
         dflat = [dws[i][k].to(w.dtype) for i in range(NL) for k, w in
                  zip(LAYER_KEYS, flat_ws[i * len(LAYER_KEYS):(i + 1) * len(LAYER_KEYS)])]
-        return (g.view(B, T, L, C).to(h_last.dtype), dmods.to(mods.dtype), dmodf, dwfin, dbfin,
-                None, None, None, *dflat)
+        return (g.view(B, T, L, C).to(ctx.dtype), dmods.to(mods.dtype), dmodf, dwfin,
+                dbfin, None, None, None, *dflat)
 
 
 def _unflatten(flat_ws):
@@ -218,12 +255,13 @@ def _unflatten(flat_ws):
     return [dict(zip(LAYER_KEYS, flat_ws[i:i + n])) for i in range(0, len(flat_ws), n)]
 
 
-def fused_trunk_train(x, mods, ws, mask, *, num_heads: int, final, remat: bool = False):
-    """The trunk and its head as a differentiable op (``FusedTrunkFn``):
-    x (B, T, L, C); mods (nb, NL*9C); ``ws`` the per-layer weight dicts;
-    ``final = (modf, wfin, bfin)``; ``remat``: save only each layer's input
-    and recompute the rest in the backward. Returns the velocity
-    (B, T, L, out) f32."""
+def fused_trunk_train(x, mods, ws, mask, *, num_heads: int, final=None, remat: bool = False):
+    """The trunk, and its head with ``final = (modf, wfin, bfin)``, as a
+    differentiable op (``FusedTrunkFn``): x (B, T, L, C); mods (nb, NL*9C);
+    ``ws`` the per-layer weight dicts; ``remat``: save only each layer's
+    input and recompute the rest in the backward. Returns the velocity
+    (B, T, L, out) f32, or without ``final`` the trunk's output
+    (B, T, L, C) in the compute dtype."""
     flat = [w[k] for w in ws for k in LAYER_KEYS]
-    return FusedTrunkFn.apply(x.contiguous(), mods, *final,
+    return FusedTrunkFn.apply(x.contiguous(), mods, *(final or (None, None, None)),
                               mask.to(torch.float32).contiguous(), num_heads, remat, *flat)

@@ -9,9 +9,12 @@ featurization, task prep and the loss on the device, the backward
 then the optimizer with optax's semantics (``make_optimizer``) and the EMA.
 The state is updated in place and returned (the JAX step donates it).
 
-Entry points run on the card (``device="cuda"``) unless the caller asks for
-the CPU; without CUDA they raise. Randomness (t and the prior draw x0)
-comes from an explicit ``torch.Generator``.
+Every task trains: forward simulation, upsampling, transition paths,
+inpainting, and the design tasks (``design``, ``mpnn``, ``dynamic_mpnn``)
+with their Dirichlet flow-matching loss. Entry points run on the card
+(``device="cuda"``) unless the caller asks for the CPU; without CUDA they
+raise. Randomness (t, the prior draw x0 and the design task's simplex
+point) comes from an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -161,41 +164,55 @@ class Trainer:
                 for k, v in batch.items() if k in ("atom14", "seqres", "mask")}
 
     def _loss_fn(self, batch: dict, generator: Optional[torch.Generator] = None, t=None,
-                 x0=None):
+                 x0=None, x_d=None):
         """Mean flow-matching loss of a raw batch (atom14, seqres, mask) and
-        the mean t: featurize -> prep_batch -> training_losses."""
+        its metrics: featurize -> prep_batch -> training_losses."""
         b = self._device_batch(batch)
         feats = featurize(self.cfg, b["atom14"].float(), b["seqres"].long(), b["mask"].float())
-        return self._feature_loss(feats, generator, t, x0)
+        return self._feature_loss(feats, generator, t, x0, x_d)
 
-    def _feature_loss(self, feats: dict, generator=None, t=None, x0=None):
-        """``_loss_fn`` from a featurized batch (``featurize``)."""
+    def _feature_loss(self, feats: dict, generator=None, t=None, x0=None, x_d=None):
+        """``_loss_fn`` from a featurized batch (``featurize``): the mean
+        loss and the metrics {loss, t_mean}, under ``design`` also
+        {loss_discrete, loss_continuous} (JAX ``_loss_fn``, :111-137; the
+        continuous part is NaN under ``mpnn`` / ``dynamic_mpnn``, as in JAX).
+        t, x0 and the design task's simplex point ``x_d`` (B, L, 20) are
+        drawn from ``generator`` unless given."""
         prep = prep_batch(self.cfg, feats)
         kw = prep["model_kwargs"]
+        design = self.cfg.task.design
 
         def model_fn(x, tt, mask, **kwargs):
             return self.model(x, tt, mask.float(), **kwargs)
 
-        terms = self.transport.training_losses(model_fn, prep["latents"], mask=prep["loss_mask"],
-                                               model_kwargs=kw, generator=generator, t=t, x0=x0)
-        return terms["loss"].mean(), terms["t"].mean()
+        terms = self.transport.training_losses(
+            model_fn, prep["latents"], mask=prep["loss_mask"], model_kwargs=kw,
+            generator=generator, t=t, x0=x0, aatype1=feats["seqres"] if design else None,
+            x_d=x_d)
+        loss = terms["loss"].mean()
+        metrics = {"loss": loss, "t_mean": terms["t"].mean()}
+        if design:
+            metrics.update(loss_discrete=terms["loss_discrete"].mean(),
+                           loss_continuous=terms["loss_continuous"].mean())
+        return loss, metrics
 
     def _grads(self, state: TrainState, batch: dict, generator):
         for p in state.params.values():
             p.grad = None
-        loss, t_mean = self._loss_fn(batch, generator)
+        loss, metrics = self._loss_fn(batch, generator)
         loss.backward()
         grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for k, p in state.params.items()}
         for p in state.params.values():
             p.grad = None
-        return loss.detach(), t_mean.detach(), grads
+        return {k: v.detach() for k, v in metrics.items()}, grads
 
     def train_step(self, state: TrainState, batch: dict, generator: torch.Generator):
         """One step; ``state`` is updated in place and returned with the
-        metrics {loss, t_mean, grad_norm} as device scalars."""
-        loss, t_mean, grads = self._grads(state, batch, generator)
-        metrics = {"loss": loss, "t_mean": t_mean, "grad_norm": global_norm(grads)}
+        metrics {loss, t_mean, grad_norm} (under ``design`` also
+        loss_discrete, loss_continuous) as device scalars."""
+        metrics, grads = self._grads(state, batch, generator)
+        metrics["grad_norm"] = global_norm(grads)
         self.opt.step(state.params, grads, state.opt_state)
         decay = self.cfg.train.ema_decay if self.cfg.train.ema else 0.0
         with torch.no_grad():
@@ -209,33 +226,34 @@ class Trainer:
     def eval_loss(self, state: TrainState, batch: dict, generator: torch.Generator) -> dict:
         """The loss of a batch without gradients, with the EMA weights when
         the config trains them (the JAX CLI's validation step on
-        ``state.ema_params``): {loss, t_mean} as device scalars. The model's
-        weights are put back after."""
+        ``state.ema_params``): the metrics of ``_feature_loss`` as device
+        scalars. The model's weights are put back after."""
         swap = self.cfg.train.ema
         if swap:
             kept = {k: p.detach().clone() for k, p in state.params.items()}
             for k, p in state.params.items():
                 p.copy_(state.ema_params[k])
         try:
-            loss, t_mean = self._loss_fn(batch, generator)
+            return self._loss_fn(batch, generator)[1]
         finally:
             if swap:
                 for k, p in state.params.items():
                     p.copy_(kept[k])
-        return {"loss": loss, "t_mean": t_mean}
 
     def check_grad_coverage(self, state: TrainState, batch: dict,
                             generator: torch.Generator) -> list:
         """Parameter names receiving all-zero gradients (reference
         --check_grad, src/mdgen/wrapper.py:115-118)."""
-        _, _, grads = self._grads(state, batch, generator)
+        _, grads = self._grads(state, batch, generator)
         return [k for k, g in grads.items() if not bool(g.abs().max() > 0)]
 
     # ------------------------------------------------------------------
     def fit(self, state: TrainState, batches: Iterator[dict], num_steps: int,
             generator: torch.Generator, log_every: int = 50, log_fn=None) -> TrainState:
         """``num_steps`` steps over ``batches``; every ``log_every`` steps
-        (and at the last) one JSON line {loss, t_mean, grad_norm, step, dur}."""
+        (and at the last) one JSON line of the step's metrics (``train_step``)
+        and {step, dur}. The mpnn tasks' ``loss_continuous`` is NaN there, as
+        in JAX (JSON's ``NaN``)."""
         t_last = time.time()
         for i in range(num_steps):
             state, metrics = self.train_step(state, next(batches), generator)

@@ -8,12 +8,13 @@ with their loss weightings; ``drift_fn`` for the ODE samplers and the
 likelihood (``samplers.py``); ``score_fn`` and ``make_sde_sampler`` (the
 SDE sampler with its Mean / Euler / Tweedie last steps); ``prior_logp``;
 ``t_to_alpha``, the Dirichlet concentration schedule that design sampling
-reads (``models/denoiser.py::forward_inference``). The Dirichlet
-flow-matching terms of the design task's loss are not ported yet
-(ROADMAP.md queue 1 item 14).
+reads (``models/denoiser.py::forward_inference``) and the design tasks'
+Dirichlet flow-matching loss draws from (JAX :93-152; reference
+src/mdgen/transport/transport.py:160-171, 208-219).
 
-Randomness: ``training_losses`` draws t and x0 from a ``torch.Generator``,
-or takes them as given (the tests hand both packages the same draws).
+Randomness: ``training_losses`` draws t, x0 and the design task's simplex
+point from a ``torch.Generator``, or takes them as given (the tests hand
+both packages the same draws).
 """
 from __future__ import annotations
 
@@ -79,14 +80,29 @@ class Transport:
                         model_kwargs: Optional[dict] = None,
                         generator: Optional[torch.Generator] = None,
                         t: Optional[torch.Tensor] = None,
-                        x0: Optional[torch.Tensor] = None) -> dict:
+                        x0: Optional[torch.Tensor] = None,
+                        aatype1: Optional[torch.Tensor] = None,
+                        x_d: Optional[torch.Tensor] = None) -> dict:
         """The per-element loss (B,) of ``model_fn(x_t, t, **model_kwargs)``
         against the path's target. t (B,) and x0 (like x1) are drawn from
-        ``generator`` unless given. Returns {"t", "pred", "loss"}."""
-        if self.cfg.task.design:
-            raise NotImplementedError(
-                "the design task's Dirichlet flow-matching loss is not ported yet "
-                "(ROADMAP.md queue 1 item 14, training the design tasks)")
+        ``generator`` unless given. Returns {"t", "pred", "loss"}.
+
+        With ``design`` (JAX :93-152) x_t gains 20 simplex channels: under
+        ``mpnn`` / ``dynamic_mpnn`` zeros, and the model, called at t = 1,
+        returns the sequence logits, whose cross-entropy against ``aatype1``
+        (B, L) is the loss (``loss_continuous`` a (B,) NaN); otherwise a
+        point of Dir(1 + onehot(aatype1) (alpha(t) - 1)) per residue (``x_d``
+        (B, L, 20) when given, else drawn from ``generator``), the same for
+        every frame, and the loss is ``w * CE(out[..., -20:]) + (1 - w) *
+        loss_continuous`` of ``out[..., :-20]`` (``discrete_loss_weight``).
+        x_t is interpolated at the drawn t before t is set to 1 (JAX
+        :96-99). The result then also holds ``loss_discrete``,
+        ``loss_continuous`` and ``logits``."""
+        task = self.cfg.task
+        design = task.design
+        mpnn = task.mpnn or task.dynamic_mpnn
+        if design and self.prediction != "velocity":
+            raise ValueError("the design tasks train the velocity objective only")
         B = x1.shape[0]
         if x0 is None:
             x0 = torch.randn(x1.shape, generator=generator, device=generator.device,
@@ -97,28 +113,53 @@ class Transport:
             t = u.to(x1.device) * (t1 - t0) + t0
         te = expand_t(t, x1)
         xt, ut = self.path.interpolate(te, x0, x1)
+        if design:
+            _, T, L, _ = x1.shape
+            if mpnn:
+                t = torch.ones_like(t)
+                x_d = x1.new_zeros(B, L, 20)
+            elif x_d is None:
+                alphas = 1 + _one_hot20(aatype1, x1.dtype) * (
+                    t_to_alpha(t, self.cfg.transport.alpha_max)[0][:, None, None] - 1)
+                x_d = torch._sample_dirichlet(alphas.to(generator.device), generator)
+            x_d = x_d.to(xt.device, xt.dtype)[:, None].expand(B, T, L, 20)
+            xt = torch.cat([xt, x_d], dim=-1)
         out = model_fn(xt, t, **(model_kwargs or {}))
+        terms = {"t": t}
+        if design:
+            logits = out if mpnn else out[..., -20:]
+            loss_d = _cross_entropy(logits, aatype1)
+            terms.update(loss_discrete=loss_d, logits=logits)
+            if mpnn:
+                terms.update(pred=out, loss=loss_d,
+                             loss_continuous=x1.new_full((B,), float("nan")))
+                return terms
+            out = out[..., :-20]
         mask = torch.ones_like(x1) if mask is None else mask
-        terms = {"t": t, "pred": out}
+        terms["pred"] = out
         if self.prediction == "velocity":
             terms["loss"] = mean_flat((out - ut) ** 2, mask)
-            return terms
-        sigma_t, _ = self.path.sigma(te)
-        # loss weighting of the noise / score objectives
-        # (src/mdgen/transport/transport.py:190-201)
-        lw = self.cfg.transport.loss_weight
-        if lw == "velocity":
-            weight = (self.path.drift(xt, te)[1] / sigma_t) ** 2
-        elif lw == "likelihood":
-            weight = self.path.drift(xt, te)[1] / sigma_t ** 2
-        elif lw == "none":
-            weight = 1.0
         else:
-            raise NotImplementedError(f"loss_weight={lw}")
-        if self.prediction == "noise":
-            terms["loss"] = mean_flat(weight * (out - x0) ** 2, mask)
-        else:  # score
-            terms["loss"] = mean_flat(weight * (out * sigma_t + x0) ** 2, mask)
+            sigma_t, _ = self.path.sigma(te)
+            # loss weighting of the noise / score objectives
+            # (src/mdgen/transport/transport.py:190-201)
+            lw = self.cfg.transport.loss_weight
+            if lw == "velocity":
+                weight = (self.path.drift(xt, te)[1] / sigma_t) ** 2
+            elif lw == "likelihood":
+                weight = self.path.drift(xt, te)[1] / sigma_t ** 2
+            elif lw == "none":
+                weight = 1.0
+            else:
+                raise NotImplementedError(f"loss_weight={lw}")
+            if self.prediction == "noise":
+                terms["loss"] = mean_flat(weight * (out - x0) ** 2, mask)
+            else:  # score
+                terms["loss"] = mean_flat(weight * (out * sigma_t + x0) ** 2, mask)
+        if design:
+            w = self.cfg.transport.discrete_loss_weight
+            terms["loss_continuous"] = terms["loss"]
+            terms["loss"] = terms["loss_discrete"] * w + (1 - w) * terms["loss"]
         return terms
 
     def drift_fn(self, model_fn: Callable) -> Callable:
@@ -201,6 +242,22 @@ class Transport:
         (reference transport.py:84-92; JAX :230-234)."""
         n = z[0].numel()
         return -n / 2.0 * math.log(2 * math.pi) - (z.reshape(z.shape[0], -1) ** 2).sum(-1) / 2.0
+
+
+def _one_hot20(aatype, dtype) -> torch.Tensor:
+    """(..., 20) one-hot of residue types; type 20 (unknown) is all zeros,
+    as ``jax.nn.one_hot`` gives it."""
+    return (aatype.long()[..., None] == torch.arange(20, device=aatype.device)).to(dtype)
+
+
+def _cross_entropy(logits: torch.Tensor, aatype1: torch.Tensor) -> torch.Tensor:
+    """Mean over every (element, frame, residue) of -log softmax(logits) at
+    the residue's type: logits (B, T', L, 20), aatype1 (B, L). A type out of
+    range (20) reads NaN, as ``jnp.take_along_axis`` fills it."""
+    log_p = torch.log_softmax(logits, dim=-1)
+    tgt = aatype1.long()[:, None].expand(logits.shape[:-1])
+    picked = log_p.gather(-1, tgt.clamp(max=19)[..., None])[..., 0]
+    return -torch.where(tgt < 20, picked, float("nan")).mean()
 
 
 def _last_call(model_fn: Callable) -> Callable:

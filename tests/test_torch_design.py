@@ -13,7 +13,7 @@ numpy inputs:
   the flat chain for ``inpainting``, on the generic chain for ``inpainting +
   design``, and the one evaluation of ``mpnn`` / ``dynamic_mpnn``;
 - the Dirichlet prior, a design checkpoint's round trip through the
-  released format, and the refusal to train the design tasks.
+  released format, and one training step of each design task.
 
 Sizes: 1 layer, C = 32, 4 heads, a 2-head IPA of widths (8, 4, 4), L = 4
 with one padded residue, T = 8, B = 2, 2 Euler steps, f32. The Dirichlet
@@ -306,10 +306,23 @@ def test_design_checkpoint_round_trip(tmp_path):
 
 
 @pytest.mark.parametrize("name", list(TASKS))
-def test_training_the_design_tasks_is_refused(name):
+def test_training_the_design_tasks_is_refused(data, name):
+    """Training the design tasks is no longer refused: ``Trainer`` builds
+    and takes one finite step on the CPU (``test_torch_train_tasks.py``
+    holds the loss and every gradient to JAX)."""
     cfg = _tc(_cfg(TASKS[name]))
-    with pytest.raises(NotImplementedError, match="item 14 \\(training the design tasks\\)"):
-        Trainer(cfg, device="cpu")
+    refuse_unported(cfg, train=True)
+    trainer = Trainer(cfg, device="cpu")
+    state = trainer.init_state(0)
+    batch = dict(atom14=data["atom14"], seqres=data["aatype"], mask=data["mask"])
+    state, metrics = trainer.train_step(state, batch, torch.Generator().manual_seed(0))
+    assert state.step == 1
+    want = {"loss", "t_mean", "grad_norm"} | ({"loss_discrete", "loss_continuous"}
+                                             if cfg.task.design else set())
+    assert set(metrics) == want
+    finite = [k for k in want if not (k == "loss_continuous" and (cfg.task.mpnn
+                                                                 or cfg.task.dynamic_mpnn))]
+    assert all(np.isfinite(float(metrics[k])) for k in finite), metrics
     # no_frames is no longer refused as unported: the model refuses the
     # prepend-IPA encoder it cannot feed (no rigids), as JAX cannot run it
     no_frames = dataclasses.replace(cfg, task=dataclasses.replace(cfg.task, no_frames=True))

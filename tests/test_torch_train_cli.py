@@ -9,6 +9,8 @@
   lines, 1 validation line, finite values), a ``torch.profiler`` trace
   (``--profile_dir``) and a checkpoint, from which ``cli.sim_inference``
   rolls out one window;
+- ``--design --inference_batches 1``: 2 steps and the designability probe's
+  ``designability_*`` line;
 - the CLI's refusals before anything is written: flags of branches not
   ported yet (``NotImplementedError`` naming the ROADMAP) and the card by
   default without CUDA.
@@ -79,11 +81,35 @@ def test_train_cli_trains_validates_and_checkpoints(data, capsys):
 
 
 @pytest.mark.parametrize("flags", [["--hyena"], ["--dropout", "0.1"], ["--dp_size", "2"],
-                                   ["--design", "--inference_batches", "1"], ["--tps_condition"]])
+                                   ["--interleave_ipa"], ["--no_rope"]])
 def test_train_cli_refuses_unported_flags(data, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.main(_argv(data, *flags, "--run_name", "refused", "--device", "cpu"))
     assert not (data / "work" / "refused").exists()
+
+
+def test_train_cli_logs_designability(data):
+    """``--design --inference_batches 1`` (the design preset's task flags):
+    2 steps, then the designability probe samples a validation batch of 2
+    and logs ``designability_*`` from the port's ``sequence_recovery``;
+    the train and validation lines carry the design loss's parts."""
+    argv = _argv(data, "--inpainting", "--design", "--no_torsion", "--inference_batches", "1",
+                 "--epochs", "1", "--steps_per_epoch", "2", "--val_batches", "1",
+                 "--print_freq", "1", "--run_name", "design", "--device", "cpu")
+    argv.remove("--sim_condition")
+    state = train.main(argv)
+    assert state.step == 2
+    lines = [json.loads(x) for x in (data / "work" / "design" / "log.jsonl").read_text()
+             .splitlines()]
+    probe = [m for m in lines if any(k.startswith("designability_") for k in m)]
+    assert len(probe) == 1 and probe[0]["epoch"] == 0
+    assert set(probe[0]) == {"epoch"} | {f"designability_{k}" for k in (
+        "design_recovery", "cond_recovery", "max_design_recovery", "max_cond_recovery",
+        "most_frequent_middle_recovery")}
+    assert all(0.0 <= v <= 1.0 for k, v in probe[0].items() if k != "epoch")
+    assert all("loss_discrete" in m and "loss_continuous" in m for m in lines[:2])
+    assert "val_loss_discrete" in lines[-1] and "val_loss_continuous" in lines[-1]
+    assert all(np.isfinite(v) for m in lines for v in m.values())
 
 
 def test_train_cli_refuses_a_missing_card(data, monkeypatch):

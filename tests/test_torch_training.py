@@ -19,7 +19,8 @@
   L > MAX_L (``residue_rows_block``, frame core ``tiled_attention``).
 - One optimizer step (clip, Adam or AdamW, MultiSteps, EMA) against optax.
 - A checkpoint round trip, ``fit`` on a synthetic dataset, the device rule,
-  the options this slice refuses, and ``grad_checkpointing`` leaving the
+  the options the port does not train yet (dropout, ``dp_size`` > 1, the
+  modular layer), and ``grad_checkpointing`` leaving the
   loss and every gradient bit for bit as they are without it.
 
 Weights are seeded random (the init's zero AdaLN and FinalLayer would make
@@ -312,8 +313,8 @@ def test_grad_checkpointing_is_bit_identical():
 @pytest.mark.parametrize("change", [
     dict(model=tcfg.ModelConfig(dropout=0.1)),
     dict(train=tcfg.TrainConfig(dp_size=2)),
-    dict(task=tcfg.TaskConfig(design=True)),
-    dict(task=tcfg.TaskConfig(tps_condition=True)),
+    dict(model=tcfg.ModelConfig(hyena=True)),
+    dict(model=tcfg.ModelConfig(interleave_ipa=True)),
 ])
 def test_unported_training_options_raise(change):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
