@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --grad-seeds TASK BATCH SEED ...   (``grad_seeds``)
 
 Builds the hand-written CUDA kernels of ``mdgen_finetune_tpu_torch/csrc``
 from this checkout and holds each kernel against its plain PyTorch twin at
@@ -90,7 +91,7 @@ Then:
   CLI with ``--design --inference_batches 1`` and its designability probe
   (``train_design_cli``); every gradient card vs CPU for design, mpnn and
   TPS (``grad_cuda_vs_cpu_design`` / ``_tps`` at B = 2, ``_mpnn`` at
-  B = 32; the same simplex point);
+  B = 32; the same simplex point; the all-twin card's run beside each);
 - training: the loss and every parameter's gradient on the card (bf16
   kernels) against the CPU (f32 twins) at full width, B = 2; the flagship
   config trained through ``Trainer`` at B = 32, T = 100, L = 4 (2 warm-up
@@ -1171,7 +1172,8 @@ def train_config(batch_size):
         workdir=str(SCRATCH), run_name="train")
 
 
-def phase_grad_across_devices(dev, cfg=None, phase="grad_cuda_vs_cpu", pad=1, extra=None):
+def phase_grad_across_devices(dev, cfg=None, phase="grad_cuda_vs_cpu", pad=1, extra=None, seed=7,
+                              twins=None, hold=True):
     """The loss and every parameter's gradient at full width (seeded random
     weights, the same t and x0, the batch featurized once on the CPU: the
     first residue's pre-omega torsion is degenerate geometry, which each
@@ -1184,9 +1186,13 @@ def phase_grad_across_devices(dev, cfg=None, phase="grad_cuda_vs_cpu", pad=1, ex
     The flagship config at B = 2, T = 100 by default; ``cfg`` another
     (its batch size, frames and crop, its featurizer: ``no_frames`` reads
     atom37; its task: under ``design`` the simplex point is drawn here once
-    from Dir(1 + onehot(seqres) (alpha(t) - 1)) and handed to all three
-    runs; ``pad`` residues of the first element are padding; ``extra``
-    goes into the line)."""
+    from Dir(1 + onehot(seqres) (alpha(t) - 1)) and handed to every run;
+    ``pad`` residues of the first element are padding; ``extra`` goes into
+    the line). ``seed``: the structure's (its noise seed + 1; t, x0 and the
+    simplex point seed + 2). ``twins``: {label: wrapper names}, further card
+    runs with those wrappers swapped for their plain twins (``with_twins``),
+    each summarised in the line under the same rule. With ``hold`` false the
+    line is returned and nothing is asserted (``--grad-seeds``)."""
     import torch.nn.functional as F
 
     from mdgen_finetune_tpu_torch.training import Trainer
@@ -1195,14 +1201,15 @@ def phase_grad_across_devices(dev, cfg=None, phase="grad_cuda_vs_cpu", pad=1, ex
 
     cfg = cfg or train_config(2)
     Bn, Tn, Ln = cfg.train.batch_size, cfg.data.num_frames, cfg.data.crop
-    atom14, seqres, mask = make_inputs(Bn, 7, "cpu", length=Ln, pad=pad)
-    noise = 0.3 * torch.randn(Bn, Tn, Ln, 14, 3, generator=torch.Generator().manual_seed(8))
+    atom14, seqres, mask = make_inputs(Bn, seed, "cpu", length=Ln, pad=pad)
+    noise = 0.3 * torch.randn(Bn, Tn, Ln, 14, 3,
+                              generator=torch.Generator().manual_seed(seed + 1))
     atom14 = atom14[:, None] + noise
     if Ln > L:  # a protein shorter than the crop: its padding is zeros, as the dataset pads
         atom14 = atom14 * mask[:, None, :, None, None]
     batch = {"atom14": atom14, "seqres": seqres, "mask": mask}
     feats = featurize(cfg, batch["atom14"], batch["seqres"], batch["mask"])
-    gen = torch.Generator().manual_seed(9)
+    gen = torch.Generator().manual_seed(seed + 2)
     t = torch.rand(Bn, generator=gen) * 0.9 + 0.05
     task = cfg.task
     x0 = torch.randn(Bn, Tn, Ln, cfg.latent_dim - (20 if task.design else 0), generator=gen)
@@ -1213,39 +1220,57 @@ def phase_grad_across_devices(dev, cfg=None, phase="grad_cuda_vs_cpu", pad=1, ex
         x_d = torch._sample_dirichlet(conc, gen)
     f32_cfg = cfg.replace(model=dataclasses.replace(cfg.model, use_bf16=False))
     res, secs = {}, {}
-    for name, d, c in (("cuda", dev, cfg), ("cpu_f32", "cpu", f32_cfg), ("cpu_bf16", "cpu", cfg)):
-        t0 = time.perf_counter()
+
+    def run(d, c):
         tr = Trainer(c, device=d)
         tr.init_state(0)
         randomize_(tr.model, torch.Generator().manual_seed(12), scale=0.05)
         loss, _ = tr._feature_loss({k: v.to(d) for k, v in feats.items()}, t=t.to(d),
                                    x0=x0.to(d), x_d=None if x_d is None else x_d.to(d))
         loss.backward()
-        res[name] = (loss.item(), {k: p.grad.float().cpu() for k, p in tr.model.named_parameters()})
+        return loss.item(), {k: p.grad.float().cpu() for k, p in tr.model.named_parameters()}
+
+    runs = [("cuda", dev, cfg, None), ("cpu_f32", "cpu", f32_cfg, None),
+            ("cpu_bf16", "cpu", cfg, None)]
+    runs += [(f"cuda_{k}", dev, cfg, names) for k, names in (twins or {}).items()]
+    for name, d, c, names in runs:
+        t0 = time.perf_counter()
+        res[name] = with_twins(lambda: run(d, c), names) if names else run(d, c)
         secs[name] = time.perf_counter() - t0
-        del tr, loss
     lt, gt = res["cpu_f32"]
     floor = 1e-3 * max(v.norm().item() for v in gt.values())
 
     def rel(g):
         return {k: ((g[k] - v).norm() / max(v.norm().item(), floor)).item() for k, v in gt.items()}
 
-    card, ref = rel(res["cuda"][1]), rel(res["cpu_bf16"][1])
-    over = {k: (card[k], ref[k]) for k in card if not card[k] <= 2 * ref[k] + 0.01}
-    worst = sorted(card, key=lambda k: card[k] - 2 * ref[k])[-5:]
-    loss_rel = abs(res["cuda"][0] - lt) / abs(lt)
-    emit({"phase": phase, "batch": Bn, "T": Tn, "L": Ln, "layers": cfg.model.num_layers,
-          **(extra or {}),
-          "grad_checkpointing": cfg.model.grad_checkpointing, "seconds": secs,
-          "loss_cuda": res["cuda"][0], "loss_cpu_f32": lt,
-          "loss_cpu_bf16": res["cpu_bf16"][0], "loss_rel": loss_rel, "params": len(card),
-          "rule": "rel_l2(card) <= 2 * rel_l2(cpu bf16) + 0.01 per tensor",
-          "worst_rel_l2": max(card.values()), "median_rel_l2": sorted(card.values())[len(card) // 2],
-          "worst_vs_rule": {k: [card[k], 2 * ref[k] + 0.01] for k in worst},
-          "tol": {"loss_rel": 1e-2}})
-    if over or not loss_rel <= 1e-2:
+    ref = rel(res["cpu_bf16"][1])
+    rule = {k: 2 * ref[k] + 0.01 for k in ref}
+
+    def summary(name):
+        err = rel(res[name][1])
+        worst = sorted(err, key=lambda k: err[k] - 2 * ref[k])[-5:]
+        return err, {"loss_rel": abs(res[name][0] - lt) / abs(lt),
+                     "worst_rel_l2": max(err.values()),
+                     "median_rel_l2": sorted(err.values())[len(err) // 2],
+                     "over": sum(1 for k in err if not err[k] <= rule[k]),
+                     "worst_of_rule": max(err[k] / rule[k] for k in err),
+                     "worst_vs_rule": {k: [err[k], rule[k]] for k in worst}}
+
+    card, line = summary("cuda")
+    over = {k: (card[k], ref[k]) for k in card if not card[k] <= rule[k]}
+    line = {"phase": phase, "batch": Bn, "T": Tn, "L": Ln, "layers": cfg.model.num_layers,
+            "seed": seed, **(extra or {}),
+            "grad_checkpointing": cfg.model.grad_checkpointing, "seconds": secs,
+            "loss_cuda": res["cuda"][0], "loss_cpu_f32": lt,
+            "loss_cpu_bf16": res["cpu_bf16"][0], "params": len(card),
+            "rule": "rel_l2(card) <= 2 * rel_l2(cpu bf16) + 0.01 per tensor", **line,
+            "twins": {k[5:]: summary(k)[1] for k in res if k.startswith("cuda_")},
+            "tol": {"loss_rel": 1e-2}}
+    emit(line)
+    if hold and (over or not line["loss_rel"] <= 1e-2):
         raise AssertionError(f"{phase}: card vs CPU gradients over the rule: {over}, "
-                             f"loss {loss_rel}")
+                             f"loss {line['loss_rel']}")
+    return line
 
 
 TRAIN_WRAPPERS = ("adaln_linear", "rope_attention", "ipa_attention", "linear_bwd", "modln_bwd",
@@ -1635,17 +1660,17 @@ def phase_merged_bwd_kernels(dev):
     return out
 
 
-def with_twins(fn):
-    """``fn()`` with every kernel wrapper that the trunk, its stage ops, its
-    backward, the encoder and the denoiser itself (the design FinalLayer,
-    the modular layers) call swapped for its plain twin (run on the same
-    card tensors); the wrappers are put back after."""
+def with_twins(fn, names=TRAIN_WRAPPERS + ("tiled_attention", "blocked_attention_bwd")):
+    """``fn()`` with the kernel wrappers ``names`` (by default every one)
+    swapped for their plain twins (run on the same card tensors) wherever the
+    trunk, its stage ops, its backward, the encoder and the denoiser itself
+    (the design FinalLayer, the modular layers) call them; the wrappers are
+    put back after."""
     import importlib
 
     def ops(n):
         return importlib.import_module(f"mdgen_finetune_tpu_torch.ops.{n}")
 
-    names = TRAIN_WRAPPERS + ("tiled_attention", "blocked_attention_bwd")
     twin_of = {n: getattr(ops(n), n + "_plain") for n in names}
     users = [ops(m) for m in ("fused_layer", "fused_layer_bwd", "residue_block",
                               "time_attention", "adaln_mlp")]
@@ -1656,7 +1681,7 @@ def with_twins(fn):
     kept_enc = IE.KERNELS
     for m, n in uses:
         setattr(m, n, twin_of[n])
-    IE.KERNELS = tuple(twin_of[f.__name__] for f in kept_enc)
+    IE.KERNELS = tuple(twin_of.get(f.__name__, f) for f in kept_enc)
     try:
         return fn()
     finally:
@@ -4800,6 +4825,39 @@ def phase_trace(name, run):
           "top_device_ms_calls": top})
 
 
+GRAD_TASKS = {"design": None, "mpnn": {"mpnn": True, "design": True},
+              "dynamic_mpnn": {"dynamic_mpnn": True, "design": True}, "tps": "tps"}
+
+
+def grad_seeds(argv):
+    """``python3 chip_smoke.py --grad-seeds TASK BATCH SEED ...``: the
+    task's card-vs-CPU gradient phase (``design``, ``mpnn``,
+    ``dynamic_mpnn`` or ``tps``) at batch BATCH for each seed, the card with
+    the kernels beside the card with all six training wrappers swapped for
+    their plain twins (``plain``) and with each alone swapped
+    (``plain_<wrapper>``); one line a seed, then for each run the seeds on which it missed the rule,
+    its tensors over the rule and its worst error as a share of the rule."""
+    task, batch, seeds = argv[0], int(argv[1]), [int(a) for a in argv[2:]]
+    from mdgen_finetune_tpu_torch.ops import _cuda
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    _cuda.build_all(TRAIN_WRAPPERS)
+    base = tps_config() if GRAD_TASKS[task] == "tps" else design_config(GRAD_TASKS[task])
+    twins = {"plain": TRAIN_WRAPPERS, **{f"plain_{n}": (n,) for n in TRAIN_WRAPPERS}}
+    lines = [phase_grad_across_devices(torch.device("cuda"), task_train_config(base, batch),
+                                       f"grad_seeds_{task}", seed=s, twins=twins, hold=False,
+                                       extra={"task": task, "card": smi}) for s in seeds]
+    runs = {"kernels": lines}
+    runs.update({k: [ln["twins"][k] for ln in lines] for k in twins})
+    emit({"phase": "grad_seeds", "task": task, "batch": batch, "seeds": seeds, "card": smi,
+          **{k: {"seeds_missed": [s for s, r in zip(seeds, rs) if r["over"]],
+                 "tensors_over": [r["over"] for r in rs],
+                 "worst_of_rule": [r["worst_of_rule"] for r in rs],
+                 "median_rel_l2": [r["median_rel_l2"] for r in rs]} for k, rs in runs.items()}})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -4864,14 +4922,16 @@ def main():
     task_launches = phase_train_tasks(dev)
     phase_frame_rows_short_t(dev)
     phase_train_design_cli(dev)
-    # mpnn at the training batch: at T = 1 a weight gradient sums B x 4 rows,
-    # and over B = 2's 8 rows one bf16 run's error is itself too noisy a
-    # yardstick (tools/grad_attribution.py, PERF.md §6)
+    # mpnn at the training batch. At T = 1 the rule misses on about one
+    # seed in ten for any bf16 card run, the plain twins' too, at B = 2 as
+    # at 32, always on an encoder weight's gradient; B = 2's seed 7 is one
+    # (``--grad-seeds``, PERF.md §6). The all-twin card's run stands beside
+    # each task's line.
     for name, cfg_, Bg in (("design", design_config(), 2),
                            ("mpnn", design_config({"mpnn": True, "design": True}), B_TRAIN),
                            ("tps", tps_config(), 2)):
         phase_grad_across_devices(dev, task_train_config(cfg_, Bg), f"grad_cuda_vs_cpu_{name}",
-                                  extra={"task": name})
+                                  extra={"task": name}, twins={"plain": TRAIN_WRAPPERS})
     shutil.rmtree(SCRATCH / "task_data", ignore_errors=True)
     emit({"phase": "tasks_s", "tps_and_upsampling_s": t_design - t_tasks,
           "design_s": t_sde - t_design, "sde_likelihood_ablations_s": t_train_tasks - t_sde,
@@ -5115,4 +5175,11 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--grad-seeds"]:
+        if not torch.cuda.is_available():
+            print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
+                  file=sys.stderr)
+            sys.exit(2)
+        grad_seeds(sys.argv[2:])
+    else:
+        main()
