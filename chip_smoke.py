@@ -92,6 +92,21 @@ Then:
   (``train_design_cli``); every gradient card vs CPU for design, mpnn and
   TPS (``grad_cuda_vs_cpu_design`` / ``_tps`` at B = 2, ``_mpnn`` at
   B = 32; the same simplex point; the all-twin card's run beside each);
+- RTB posterior fine-tuning of the flagship prior (``rtb/``, seeded
+  random weights, the surrogate reward, the CLI's defaults: sampling
+  length 10, 1,000 DDPM timesteps, LoRA rank 32, adapters with a seeded
+  nonzero b): ``rtb_main`` (``RTBTrainer.step`` at B = 4: 10 prior and 10
+  posterior evaluations, the 100-step decode, the posterior's backward;
+  ms per iteration, peak memory, launches per iteration as derived,
+  ``rtb_launches_derived``) and ``rtb_trace``; ``rtb_checks`` (one
+  posterior evaluation against its plain twins; at b = 0 the posterior's
+  log-probs equal the prior's bit for bit); ``rtb_main_b32`` (B = 32, the
+  peak memory of ten posterior forwards held for one backward);
+  ``rtb_batched`` (``RTBBatchedTrainer``, B = 32, chunks of 4);
+  ``grad_rtb_cuda_vs_cpu`` (B = 2, 2 layers, every adapter gradient,
+  pf_divergence and the loss card vs CPU under the rule, the all-twin
+  card beside); ``rtb_cli`` (``train_posterior``,
+  ``train_conditional_posterior``, ``train_prior``);
 - training: the loss and every parameter's gradient on the card (bf16
   kernels) against the CPU (f32 twins) at full width, B = 2; the flagship
   config trained through ``Trainer`` at B = 32, T = 100, L = 4 (2 warm-up
@@ -4776,6 +4791,328 @@ def phase_micro_ops(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# RTB posterior fine-tuning (``rtb/``) of the flagship prior at full width
+RTB_PEPTIDES = ["AAGG", "GHKL"]
+RTB_STEPS = 10  # the CLI's --sampling_length
+B_RTB = 4  # the CLI's --batch_size
+B_SCALE = 0.01  # the std of the adapters' seeded nonzero b
+
+
+def rtb_config(steps=None):
+    """The flagship config (``flagship_config``) over the RTB phases'
+    synthetic split; ``steps``: the decode's Euler steps (100)."""
+    cfg = flagship_config(steps=steps)
+    return cfg.replace(data=dataclasses.replace(cfg.data, data_dir=str(SCRATCH / "rtb_data")),
+                       workdir=str(SCRATCH / "rtb_work"))
+
+
+def rtb_split():
+    """Synthetic 200-frame trajectories of two peptides and their split."""
+    from mdgen_finetune_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    split = SCRATCH / "rtb_data" / "split.csv"
+    if not split.exists():
+        make_synthetic_dataset(str(SCRATCH / "rtb_data"), RTB_PEPTIDES, num_frames=2 * T)
+    return split
+
+
+def rtb_trainer(dev, batch_size, seed, cls=None, cfg=None, **kw):
+    """``RTBTrainer`` (or ``cls``) at the CLI's defaults (sampling_length 10,
+    traj_length 1000, rank 32, learning_cutoff 0.1, the surrogate reward)
+    over the flagship prior with seeded random weights; the adapters' b
+    drawn N(0, B_SCALE^2) on the CPU from ``seed`` + 1, so that the
+    gradient is not the init's."""
+    from mdgen_finetune_tpu_torch.models.denoiser import LatentMDGen
+    from mdgen_finetune_tpu_torch.rtb.priors import MDGenSimulator
+    from mdgen_finetune_tpu_torch.rtb.rewards import SurrogateReward
+    from mdgen_finetune_tpu_torch.rtb.trainer import RTBConfig, RTBTrainer
+    from mdgen_finetune_tpu_torch.utils.weights import randomize_
+
+    cfg = cfg or rtb_config()
+    sd = randomize_(LatentMDGen(cfg), torch.Generator().manual_seed(seed), scale=0.05).state_dict()
+    sim = MDGenSimulator(cfg, sd, str(rtb_split()), device=dev)
+    tr = (cls or RTBTrainer)(cfg, RTBConfig(batch_size=batch_size, seed=seed), sim,
+                             SurrogateReward(), workdir=str(SCRATCH / "rtb_work"), **kw)
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for p in sorted(tr.lora):
+            b = tr.lora[p]["b"]
+            b.copy_(torch.randn(b.shape, generator=g) * B_SCALE)
+    return tr
+
+
+def rtb_launches_derived(chunks=0):
+    """Launches of one RTB iteration, as derived from the code: S prior and S
+    posterior evaluations, each ``LatentMDGen.forward`` (the trunk through
+    ``FusedTrunkFn``: 6 products and stages 1 and 2 a layer, the head; the
+    embed a plain product) with one encoder pass (``ENCODER_PER_PASS``); the
+    decode of the terminal latents (the flat Euler chain of ``main_path``:
+    ``STEPS`` x (6 NL + 2) products and 2 NL attention cores, the encoder
+    once over the t grid); the backward of the S posterior evaluations (as
+    a likelihood step's, ``LIKELIHOOD_PER_STEP``: each layer's stages
+    recomputed, 12 linear_bwd, 3 modln_bwd, 2 rope_attention_bwd; the
+    encoder's backward is its plain-math recompute). ``chunks``: the
+    batched trainer's, whose S evaluations run without gradients and whose
+    backward is one posterior evaluation and its backward per chunk."""
+    S, steps = RTB_STEPS, STEPS
+    ev = {"adaln_linear": 12 * NL + 1, "rope_attention": 3 * NL, "ipa_attention": NL}
+    dec = {"adaln_linear": (6 * NL + 2) * steps + 6 * NL, "rope_attention": 2 * NL * steps + NL,
+           "ipa_attention": NL}
+    bwd = {"adaln_linear": 6 * NL, "rope_attention": 2 * NL, "linear_bwd": 12 * NL,
+           "modln_bwd": 3 * NL, "rope_attention_bwd": 2 * NL}
+    return {n: 2 * S * ev.get(n, 0) + dec.get(n, 0) + (chunks or S) * bwd.get(n, 0)
+            + chunks * ev.get(n, 0) for n in TRAIN_WRAPPERS}
+
+
+def phase_rtb_cell(dev, phase, batch_size, seed, iters=3, cls=None, chunks=0, **kw):
+    """``RTBTrainer.step`` (or ``cls``'s) at full width on the surrogate
+    reward: one warm-up and ``iters`` timed iterations; ms per iteration,
+    the peak memory of the timed ones, the launches per iteration by kernel
+    asserted equal to ``rtb_launches_derived``, the plain twins idle, finite
+    losses and moved adapters. Returns (launches per iteration, trainer)."""
+    import math
+
+    tr = rtb_trainer(dev, batch_size, seed, cls=cls, **kw)
+    tr.step(0)  # warm-up
+    torch.cuda.synchronize()
+    wrappers, twins = _counters()
+    for fn in wrappers:
+        fn.launches = 0
+    for fn in twins:
+        fn.cuda_calls = 0
+    before = {p: ab["b"].clone() for p, ab in tr.lora.items()}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist = [tr.step(i) for i in range(1, iters + 1)]
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / iters
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_iter = {fn.__name__: fn.launches / iters for fn in wrappers}
+    twin_calls = {fn.__name__: fn.cuda_calls for fn in twins}
+    want = {k: float(v) for k, v in rtb_launches_derived(chunks).items()}
+    moved = sum(not torch.equal(tr.lora[p]["b"], b) for p, b in before.items())
+    emit({"phase": phase, "trainer": type(tr).__name__, "B": batch_size, "T": T, "L": L, "C": C,
+          "layers": NL, "dtype": "bf16", "sampling_length": RTB_STEPS,
+          "traj_length": tr.rtb.num_train_timesteps, "lora_rank": tr.rtb.lora_rank,
+          "adapters": len(tr.lora), "decode_steps": STEPS, "iterations": iters,
+          "ms_per_iteration": secs * 1e3, "peak_memory_gb": peak_gb,
+          "launches_per_iteration": per_iter, "launches_per_iteration_derived": want,
+          "plain_calls_on_card": twin_calls, "history": hist, "adapters_moved": moved,
+          **({"replay_chunk": tr.replay_chunk} if chunks else {})})
+    if not all(math.isfinite(h[k]) for h in hist for k in ("loss", "logr", "logZ")):
+        raise AssertionError(f"{phase}: non-finite metrics {hist}")
+    if per_iter != want:
+        raise AssertionError(f"{phase}: launches per iteration {per_iter}, expected {want}")
+    if any(twin_calls.values()):
+        raise AssertionError(f"{phase}: plain twins ran on the card: {twin_calls}")
+    if not moved:
+        raise AssertionError(f"{phase}: no adapter moved")
+    return per_iter, tr
+
+
+def phase_rtb_checks(dev, tr):
+    """On ``rtb_main``'s trainer (B = 4, nonzero b): one posterior
+    evaluation with the kernels against the same with every wrapper swapped
+    for its plain twin (rel L2 <= 0.05, as ``design_main``); and with b set
+    to 0 (the init's) the posterior's forward log-probs equal the prior's
+    bit for bit over a whole trajectory on the card, the posterior run as
+    training runs it: under grad, its merged weights and trunk pack built
+    under grad, through ``FusedTrunkFn``."""
+    cond, batch = tr.prior_sim.get_cond_args()
+    Bn = tr.rtb.batch_size
+    cond = tr._replicate(cond, Bn)
+    x = torch.randn(Bn, T, L, 21, generator=torch.Generator().manual_seed(31)).to(dev)
+    with torch.no_grad():
+        ctx = tr.posterior_context()
+        card = tr.posterior_fn(ctx, x, 500, cond)
+        plain = with_twins(lambda: tr.posterior_fn(ctx, x, 500, cond))
+    err = rel_l2(card.float(), plain.float())
+    draws = tr.sampler.draws(torch.Generator(device=dev).manual_seed(32), Bn)
+    kept = {p: ab["b"].clone() for p, ab in tr.lora.items()}
+    with torch.no_grad():
+        for ab in tr.lora.values():
+            ab["b"].zero_()
+    res = tr.sampler.sample_fwd(None, tr.posterior_context(), cond, Bn, **draws)
+    with torch.no_grad():
+        for p, b in kept.items():
+            tr.lora[p]["b"].copy_(b)
+    if not res["logpf_posterior"].requires_grad:
+        raise AssertionError("rtb_checks: the b = 0 posterior ran without gradients")
+    same = torch.equal(res["logpf_posterior"], res["logpf_prior"])
+    emit({"phase": "rtb_checks", "B": Bn, "posterior_eval_kernels_vs_twins_rel_l2": err,
+          "tol": 0.05, "b0_logpf_posterior_equals_prior": same,
+          "b0_logpf": res["logpf_prior"].tolist()})
+    if not err <= 0.05:
+        raise AssertionError(f"rtb_checks: kernels vs twins rel L2 {err}")
+    if not same:
+        raise AssertionError("rtb_checks: at b = 0 logpf_posterior != logpf_prior: "
+                             f"{res['logpf_posterior'].tolist()} {res['logpf_prior'].tolist()}")
+
+
+def phase_grad_rtb(dev, seed=201, Bg=2):
+    """The RTB loss, pf_divergence and every adapter's (and logZ's)
+    gradient of one iteration at full width on the card (bf16 kernels)
+    against the CPU in f32 (the truth), held under the repo's rule
+    (``phase_grad_across_devices``: each tensor's relative L2 at most twice
+    that of the plain twins in bf16 on the CPU, plus 0.01; norms floored at
+    1e-3 of the largest gradient's; the scalars the same with their absolute
+    values). The same featurized batch (made on the CPU), x_start, step
+    noise and detach flags everywhere; nonzero b. The trunk and the
+    encoder are cut to 2 layers of 5 and the decode to 10 Euler steps of
+    100 (the CPU pays for each; full width). The all-twin card's run
+    beside."""
+    cfg = rtb_config(steps=10)
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, num_layers=2))
+    f32 = cfg.replace(model=dataclasses.replace(cfg.model, use_bf16=False))
+    host = rtb_trainer("cpu", Bg, seed, cfg=f32)
+    batch = host.prior_sim.get_batch()
+    draws = host.sampler.draws(torch.Generator().manual_seed(seed + 2), Bg, detach_freq=0.2)
+    del host
+
+    def run(d, c):
+        tr = rtb_trainer(d, Bg, seed, cfg=c)
+        b = {k: (v.to(d) if torch.is_tensor(v) else v) for k, v in batch.items()}
+        cond, _ = tr.prior_sim.get_cond_args(b)
+        cond = tr._replicate(cond, Bg)
+        rep = tr._replicate({k: v for k, v in b.items() if k != "name"}, Bg)
+        dr = {k: (v.to(d) if torch.is_tensor(v) else v) for k, v in draws.items()}
+        res = tr.sampler.sample_fwd(None, tr.posterior_context(), cond, Bg, **dr)
+        logr = tr._decode_reward(rep, res["x"])
+        loss, aux = tr.objective(res, logr)
+        loss.backward()
+        grads = {k: p.grad.float().cpu() for k, p in tr._trainables().items()}
+        return (loss.item(), float(aux["pf_divergence"]), logr.cpu().tolist()), grads
+
+    res, secs = {}, {}
+    for name, d, c, twins in (("cuda", dev, cfg, False), ("cpu_f32", "cpu", f32, False),
+                              ("cpu_bf16", "cpu", cfg, False), ("cuda_plain", dev, cfg, True)):
+        t0 = time.perf_counter()
+        res[name] = with_twins(lambda: run(d, c)) if twins else run(d, c)
+        secs[name] = time.perf_counter() - t0
+    (lt, pt, _), gt = res["cpu_f32"]
+    floor = 1e-3 * max(v.norm().item() for v in gt.values())
+
+    def rel(g):
+        return {k: ((g[k] - v).norm() / max(v.norm().item(), floor)).item() for k, v in gt.items()}
+
+    def srel(a, b):
+        return abs(a - b) / abs(b)
+
+    ref = rel(res["cpu_bf16"][1])
+    rule = {k: 2 * ref[k] + 0.01 for k in ref}
+    (lb, pb, _), _ = res["cpu_bf16"]
+
+    def summary(name):
+        (l_, p_, logr), g = res[name]
+        err = rel(g)
+        worst = sorted(err, key=lambda k: err[k] - 2 * ref[k])[-5:]
+        return {"loss": l_, "loss_rel": srel(l_, lt), "loss_limit": 2 * srel(lb, lt) + 0.01,
+                "pf_divergence": p_, "pf_divergence_rel": srel(p_, pt),
+                "pf_divergence_limit": 2 * srel(pb, pt) + 0.01, "logr": logr,
+                "worst_rel_l2": max(err.values()),
+                "median_rel_l2": sorted(err.values())[len(err) // 2],
+                "over": [k for k in err if not err[k] <= rule[k]],
+                "worst_of_rule": max(err[k] / rule[k] for k in err),
+                "worst_vs_rule": {k: [err[k], rule[k]] for k in worst}}
+
+    card = summary("cuda")
+    emit({"phase": "grad_rtb_cuda_vs_cpu", "batch": Bg, "T": T, "L": L, "layers": 2,
+          "seed": seed, "sampling_length": RTB_STEPS, "decode_steps": 10,
+          "cut": "the trunk and the encoder cut to 2 layers of 5, the decode to 10 Euler "
+                 "steps of 100 (the CPU pays for each); full width",
+          "detach_flags": [bool(f) for f in draws["detach_flags"]], "seconds": secs,
+          "loss_cpu_f32": lt, "pf_divergence_cpu_f32": pt, "loss_cpu_bf16": lb,
+          "pf_divergence_cpu_bf16": pb, "tensors": len(gt),
+          "rule": "rel(card) <= 2 * rel(cpu bf16) + 0.01 per tensor and scalar",
+          **card, "twins": {"plain": summary("cuda_plain")}})
+    if card["over"] or not card["loss_rel"] <= card["loss_limit"] or \
+            not card["pf_divergence_rel"] <= card["pf_divergence_limit"]:
+        raise AssertionError(f"grad_rtb_cuda_vs_cpu: over the rule: {card}")
+
+
+def phase_rtb_cli(dev):
+    """The RTB CLIs on the card over the synthetic split from a ``Trainer``
+    checkpoint of the flagship config (seeded random weights):
+    ``train_posterior --reward surrogate`` for 3 iterations (at the first,
+    b = 0: pf_divergence exactly 0),
+    ``train_conditional_posterior`` over the split's 2 peptides (B = 4, 2
+    per batch, VarGrad) for 2 and ``train_prior`` (``DiffuserTrainer``) for
+    4 steps; their logs finite, the checkpoints written."""
+    import io
+    import math
+
+    from mdgen_finetune_tpu_torch.cli import (train_conditional_posterior, train_posterior,
+                                              train_prior)
+    from mdgen_finetune_tpu_torch.training import Trainer
+    from mdgen_finetune_tpu_torch.utils.weights import randomize_
+
+    split = rtb_split()
+    ckpt, work = SCRATCH / "rtb_ckpt", SCRATCH / "rtb_cli"
+    trainer = Trainer(flagship_config(), device=dev)
+    state = trainer.init_state(0)
+    randomize_(trainer.model, torch.Generator().manual_seed(211), scale=0.05)
+    trainer.save_checkpoint(state, str(ckpt))
+    del trainer, state
+    common = ["--sim_ckpt", str(ckpt), "--data_dir", str(split.parent), "--split", str(split),
+              "--workdir", str(work), "--print_freq", "1"]
+    secs, out = {}, {}
+    for name, fn, args in (
+            ("train_posterior", train_posterior.main,
+             ["--reward", "surrogate", "--n_iterations", "3", "--exp_name", "post"]),
+            ("train_conditional_posterior", train_conditional_posterior.main,
+             ["--reward", "surrogate", "--n_iterations", "2", "--exp_name", "cond"]),
+            ("train_prior", train_prior.main, ["--n_steps", "4", "--print_freq", "2"])):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            fn(common + args)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        out[name] = [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    post = [m for m in out["train_posterior"] if "loss" in m]
+    cond = [m for m in out["train_conditional_posterior"] if "loss" in m]
+    prior = out["train_prior"]
+    files = {n: (work / n / f).exists() for n, f in (("post", "checkpoint.pt"),
+                                                      ("cond", "checkpoint.pt"),
+                                                      ("prior_distill", "prior_params.pt"))}
+    emit({"phase": "rtb_cli", "cli_s": secs, "reward": out["train_posterior"][0],
+          "train_posterior": post, "train_conditional_posterior": cond, "train_prior": prior,
+          "files": files})
+    shutil.rmtree(ckpt, ignore_errors=True)
+    shutil.rmtree(work, ignore_errors=True)
+    finite = all(math.isfinite(m[k]) for m in post + cond for k in ("loss", "logr", "logZ"))
+    if len(post) != 3 or len(cond) != 2 or [m["step"] for m in prior] != [2, 4] or not finite \
+            or not all(math.isfinite(m["loss"]) for m in prior) or not all(files.values()):
+        raise AssertionError(f"rtb_cli: {post} {cond} {prior} {files}")
+    if post[0]["pf_divergence"] != 0.0 or cond[0]["pf_divergence"] != 0.0:
+        raise AssertionError(f"rtb_cli: pf_divergence at b = 0: {post[0]} {cond[0]}")
+    if out["train_posterior"][0]["device"] != "cuda" or \
+            out["train_conditional_posterior"][0]["device"] != "cuda":
+        raise AssertionError(f"rtb_cli: not on the card: {out['train_posterior'][0]}")
+
+
+def phase_rtb(dev):
+    """The RTB phases (module docstring); returns rtb_main's launches per
+    iteration."""
+    from mdgen_finetune_tpu_torch.rtb.trainer import RTBBatchedTrainer
+
+    launches, tr = phase_rtb_cell(dev, "rtb_main", B_RTB, seed=221)
+    phase_trace("rtb_trace", lambda: tr.step(9))
+    phase_rtb_checks(dev, tr)
+    del tr
+    _, tr = phase_rtb_cell(dev, "rtb_main_b32", B_TRAIN, seed=222, iters=2)
+    del tr
+    _, tr = phase_rtb_cell(dev, "rtb_batched", B_TRAIN, seed=223, iters=2,
+                           cls=RTBBatchedTrainer, chunks=-(-RTB_STEPS // 4), replay_chunk=4)
+    del tr
+    phase_grad_rtb(dev)
+    phase_rtb_cli(dev)
+    shutil.rmtree(SCRATCH / "rtb_data", ignore_errors=True)
+    shutil.rmtree(SCRATCH / "rtb_work", ignore_errors=True)
+    return launches
+
+
 KERNEL_OF = (("tiled_attention", "tiled_attention"),
              ("fused_attention_long", "fused_attention_fwd"),
              ("fused_attention_short", "fused_attention_fwd"),
@@ -4933,9 +5270,12 @@ def main():
         phase_grad_across_devices(dev, task_train_config(cfg_, Bg), f"grad_cuda_vs_cpu_{name}",
                                   extra={"task": name}, twins={"plain": TRAIN_WRAPPERS})
     shutil.rmtree(SCRATCH / "task_data", ignore_errors=True)
+    t_rtb = time.perf_counter()
+    # RTB posterior fine-tuning of the flagship prior
+    rtb_launches = phase_rtb(dev)
     emit({"phase": "tasks_s", "tps_and_upsampling_s": t_design - t_tasks,
           "design_s": t_sde - t_design, "sde_likelihood_ablations_s": t_train_tasks - t_sde,
-          "train_tasks_s": time.perf_counter() - t_train_tasks,
+          "train_tasks_s": t_rtb - t_train_tasks, "rtb_s": time.perf_counter() - t_rtb,
           "tasks_s": time.perf_counter() - t_tasks})
     phase_grad_across_devices(dev)
     train_launches, train_ref, (trainer, state, tbatch, tgen) = phase_train_path(dev)
@@ -5042,6 +5382,7 @@ def main():
                      "train_design_launches_per_step":
                          task_launches["train_design"].get(name, 0),
                      "train_mpnn_launches_per_step": task_launches["train_mpnn"].get(name, 0),
+                     "rtb_main_launches_per_iteration": rtb_launches.get(name, 0),
                      "train_atlas_launches_per_step": atlas_per_step.get(name, 0),
                      "max_abs_err": k["max_abs_err"], "tol": k["tol"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],

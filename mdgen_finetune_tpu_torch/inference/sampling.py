@@ -61,13 +61,18 @@ def resolve_device(device) -> torch.device:
 
 
 def sample_prior_latent(generator: torch.Generator, B: int, T: int, L: int,
-                        latent_dim: int, device=None, design: bool = False) -> torch.Tensor:
-    """Prior draw (src/mdgen/wrapper.py:416-434), f32: Gaussian; with
-    ``design`` the last 20 channels are a Dirichlet(1) draw per (B, L), the
-    same in every frame (normalized standard exponentials, drawn after the
-    Gaussian part from the same generator)."""
+                        latent_dim: int, device=None, design: bool = False,
+                        uniform: bool = False) -> torch.Tensor:
+    """Prior draw (src/mdgen/wrapper.py:416-434), f32: Gaussian, or with
+    ``uniform`` U[-3, 3] (the outsourced prior's draw, src/train_prior.py:
+    52-59); with ``design`` the last 20 channels are a Dirichlet(1) draw per
+    (B, L), the same in every frame (normalized standard exponentials,
+    drawn after the continuous part from the same generator)."""
     cont = latent_dim - (20 if design else 0)
-    z = torch.randn(B, T, L, cont, generator=generator, device=generator.device)
+    if uniform:
+        z = torch.rand(B, T, L, cont, generator=generator, device=generator.device) * 6.0 - 3.0
+    else:
+        z = torch.randn(B, T, L, cont, generator=generator, device=generator.device)
     if design:
         e = torch.empty(B, L, 20, device=generator.device).exponential_(generator=generator)
         zd = e / e.sum(-1, keepdim=True)

@@ -52,12 +52,16 @@ class Optimizer:
     ``||g|| >= clip``; Adam b1 0.9, b2 0.999, eps 1e-8 with bias correction;
     AdamW adds ``weight_decay * p`` (optax's default 1e-4) before the
     learning rate; MultiSteps feeds the running mean of ``every_k`` gradients
-    to the inner chain and updates every ``every_k``-th call."""
+    to the inner chain and updates every ``every_k``-th call. ``lrs``
+    {parameter name: learning rate} gives those parameters their own rate
+    after the shared clip (optax's ``multi_transform`` of one Adam per
+    label, as RTB's adapters and logZ)."""
 
     def __init__(self, lr: float, clip: float, adamw: bool = False, every_k: int = 1,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 weight_decay: float = 1e-4):
+                 weight_decay: float = 1e-4, lrs: Optional[dict] = None):
         self.lr, self.clip, self.adamw, self.every_k = lr, clip, adamw, every_k
+        self.lrs = dict(lrs or {})
         self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
 
     def init(self, params: dict) -> dict:
@@ -104,7 +108,9 @@ class Optimizer:
         torch._foreach_div_(upd, denom)
         if self.adamw:
             torch._foreach_add_(upd, ps, alpha=self.weight_decay)
-        torch._foreach_add_(ps, upd, alpha=-self.lr)
+        for lr in {self.lrs.get(k, self.lr) for k in keys}:
+            sel = [i for i, k in enumerate(keys) if self.lrs.get(k, self.lr) == lr]
+            torch._foreach_add_([ps[i] for i in sel], [upd[i] for i in sel], alpha=-lr)
 
 
 def make_optimizer(cfg: MDGenConfig) -> Optimizer:

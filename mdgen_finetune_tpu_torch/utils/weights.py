@@ -13,7 +13,8 @@
   (coordinate, head, [k points | v points]) are split by columns, as the
   JAX package's ``fold_encoder_ws`` splits them.
 
-``to_flax`` is the exact inverse.
+``to_flax`` is the exact inverse. ``lora_from_flax`` / ``lora_to_flax``
+carry the JAX package's RTB adapter dict across (``rtb/lora.py``).
 """
 from __future__ import annotations
 
@@ -139,6 +140,25 @@ def to_flax(state_dict: dict, cfg: MDGenConfig) -> dict:
         else:
             put(mods + [leaf], v)
     return {"params": out}
+
+
+def lora_from_flax(lora: dict, device=None) -> dict:
+    """The JAX package's adapter dict {flax kernel path: {"a": (in, r), "b":
+    (r, out)}} (numpy leaves) -> the port's (``rtb/lora.py``), f32 tensors.
+    The port keys its adapters by the same flax paths and holds a and b in
+    the same layout; b of a fused IPA kernel (``linear_kv``,
+    ``linear_kv_points``) keeps its fused flax columns, which ``lora_merge``
+    splits as ``from_flax`` splits the weight, so that the merged weights
+    are ``from_flax`` of the JAX package's merged tree."""
+    return {path: {k: torch.tensor(np.asarray(ab[k], np.float32), device=device)
+                   for k in ("a", "b")} for path, ab in lora.items()}
+
+
+def lora_to_flax(lora: dict) -> dict:
+    """The port's adapter dict -> the JAX package's (numpy f32 leaves); the
+    inverse of ``lora_from_flax``."""
+    return {path: {k: ab[k].detach().cpu().float().numpy() for k in ("a", "b")}
+            for path, ab in lora.items()}
 
 
 @torch.no_grad()
