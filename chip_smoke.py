@@ -51,7 +51,10 @@ Then:
   weights, ``tps_inference --torch_ckpt`` on a 300-frame synthetic "AGHK"
   trajectory: 2 paths, the end structure conditioned) and
   ``upsampling_cli`` (``preset_4aa_upsampling`` from a ``Trainer``
-  checkpoint, Euler-100, 2 windows of 1,000 frames);
+  checkpoint, Euler-100, 2 windows of 1,000 frames), then ``analysis_cli``
+  (the host-only ``analyze_sim``, ``analyze_tps`` and
+  ``analyze_upsampling`` on what those three CLIs wrote, against their
+  synthetic MD references: host seconds, finite JSDs in [0, 1]);
 - the design preset (``preset_4aa_design``: inpainting + design +
   ``no_torsion``, T = 100, same width, latent 48 with 20 simplex channels)
   over synthetic trajectories: ``design_main`` (B = 64 Euler-100 on the
@@ -106,7 +109,18 @@ Then:
   ``grad_rtb_cuda_vs_cpu`` (B = 2, 2 layers, every adapter gradient,
   pf_divergence and the loss card vs CPU under the rule, the all-twin
   card beside); ``rtb_cli`` (``train_posterior``,
-  ``train_conditional_posterior``, ``train_prior``);
+  ``train_conditional_posterior``, ``train_prior``); then the outsourced
+  UNet policy, in f32 (TF32 off for its convolutions and matmuls, as every
+  entry point of the port sets it, asserted): ``rtb_unet`` (``RTBTrainer(policy=UNet3DSeq(...),
+  lora_targets=...)`` at the UNet's class defaults over the flagship latent,
+  every parameter seeded nonzero, adapters on every Dense kernel, B = 4:
+  one warm-up and 3 timed iterations, the launches per iteration those of
+  the decode alone, ``rtb_unet_launches_derived``) and ``rtb_unet_trace``;
+  ``rtb_unet_checks`` (b = 0 bit for bit; the decode's Euler step and
+  encoder grid against their plain twins); ``rtb_unet_distill``
+  (``DiffuserTrainer(model=)``, 20 steps, the held-out loss falls);
+  ``grad_rtb_unet_cuda_vs_cpu`` (as ``grad_rtb_cuda_vs_cpu``, the UNet the
+  posterior);
 - training: the loss and every parameter's gradient on the card (bf16
   kernels) against the CPU (f32 twins) at full width, B = 2; the flagship
   config trained through ``Trainer`` at B = 32, T = 100, L = 4 (2 warm-up
@@ -2239,8 +2253,7 @@ def phase_sim_cli(dev):
     emit({"phase": "sim_cli", "meta": meta, "cli_s": secs, "models": len(models),
           "residues_per_model": residues, "pdb_bytes": path.stat().st_size,
           "n_ca_max_dev": dev_nca, "ca_c_max_dev": dev_cac})
-    for d in (data, out, ckpt):
-        shutil.rmtree(d, ignore_errors=True)
+    shutil.rmtree(ckpt, ignore_errors=True)  # data and out stay for analysis_cli
     if len(models) != 2 * T_SIM or residues != [L] or meta["frames"] != 2 * T_SIM:
         raise AssertionError(f"sim_cli: {len(models)} models of {residues} residues")
     if not np.isfinite(pos).all() or dev_nca > 1e-2 or dev_cac > 1e-2:
@@ -2496,8 +2509,7 @@ def phase_tps_cli(dev):
     emit({"phase": "tps_cli", "cli_s": secs, "paths": len(meta), "rows": rows,
           "start_state": meta[0]["start_state"] if meta else None,
           "end_state": meta[0]["end_state"] if meta else None})
-    for d in (data, out, ckpt):
-        shutil.rmtree(d, ignore_errors=True)
+    shutil.rmtree(ckpt, ignore_errors=True)  # data and out stay for analysis_cli
     if len(meta) != 2:
         raise AssertionError(f"tps_cli: {len(meta)} paths, expected 2")
     for r in rows:
@@ -2544,12 +2556,89 @@ def phase_upsampling_cli(dev):
           "cond_interval": cfg.task.cond_interval, "coarse_frames": 20, "models": len(pos),
           "expected_models": want, "frames_per_s": len(pos) / secs,
           "n_ca_max_dev": dev_nca, "ca_c_max_dev": dev_cac})
-    for d in (data, out, ckpt):
-        shutil.rmtree(d, ignore_errors=True)
+    shutil.rmtree(ckpt, ignore_errors=True)  # data and out stay for analysis_cli
     if len(pos) != want or want != 2000:
         raise AssertionError(f"upsampling_cli: {len(pos)} models, expected {want} (2,000)")
     if not np.isfinite(pos).all() or dev_nca > 1e-2 or dev_cac > 1e-2:
         raise AssertionError(f"upsampling_cli: bonds off: N-CA {dev_nca}, CA-C {dev_cac}")
+
+
+def phase_analysis_cli():
+    """The host-side analysis CLIs on what ``sim_cli``, ``tps_cli`` and
+    ``upsampling_cli`` wrote, each against its synthetic MD reference:
+    ``analyze_sim`` (the 2,000-model PDB against a 5,000-frame "AAGG"
+    reference that ``cli.synth_data`` writes for this phase, long enough for
+    the CLI's fixed lag-1000 TICA and reference MSM), ``analyze_tps`` (the
+    2 paths against the MSM metadata ``tps_inference`` pickled, the
+    300-frame "AGHK" trajectory as the replica of the budget sweep) and
+    ``analyze_upsampling`` (the 2,000 frames against the 20-frame coarse
+    trajectory, subsampled by 10). Host seconds of each; every JSD finite
+    and in [0, 1], every autocovariance finite, the simulation's MSM fitted
+    (no ``msm_error``) with finite stochastic transition matrices and
+    stationary distributions. Removes the three phases' files."""
+    import io
+    import math
+    import pickle
+
+    import numpy as np
+
+    from mdgen_finetune_tpu_torch.cli import (analyze_sim, analyze_tps, analyze_upsampling,
+                                              synth_data)
+
+    sim_data, sim_out, sim_ref = SCRATCH / "sim_data", SCRATCH / "sim_out", SCRATCH / "sim_ref"
+    tps_data, tps_out = SCRATCH / "tps_data", SCRATCH / "tps_out"
+    ups_data, ups_out = SCRATCH / "ups_data", SCRATCH / "ups_out"
+    rep = SCRATCH / "tps_replica"
+    rep.mkdir(parents=True, exist_ok=True)
+    shutil.copy(tps_data / "AGHK_i100.npy", rep / "AGHK.npy")
+    secs, buf = {}, io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        synth_data.main(["--outdir", str(sim_ref), "--peptides", "AAGG", "--num_frames", "5000",
+                         "--suffix", "_i100"])
+    runs = (("analyze_sim", analyze_sim.main, ["--mddir", str(sim_ref), "--pdbdir", str(sim_out),
+                                               "--suffix", "_i100", "--save"]),
+            ("analyze_tps", analyze_tps.main, ["--pdbdir", str(tps_out), "--outdir",
+                                               str(tps_out / "analysis"), "--repdir", str(rep),
+                                               "--save"]),
+            ("analyze_upsampling", analyze_upsampling.main,
+             ["--mddir", str(ups_data), "--pdbdir", str(ups_out), "--suffix", "_i100",
+              "--subsample", "10"]))
+    for name, fn, args in runs:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            fn(args)
+        secs[name] = time.perf_counter() - t0
+    with open(sim_out / "out.pkl", "rb") as f:
+        sim = pickle.load(f)["AAGG"]
+    with open(tps_out / "analysis" / "out.pkl", "rb") as f:
+        tps = pickle.load(f)["AGHK"]
+    with open(ups_out / "AAGG_autocorr.pkl", "rb") as f:
+        ups = pickle.load(f)
+    jsds = {**{f"sim/{k}": v for k, v in sim["JSD"].items()},
+            **{f"tps/{k}": v for k, v in tps.items() if k.endswith("JSD")}}
+    acs = [np.asarray(v) for part in ups.values() for v in part.values()]
+    msm_keys = ("msm_transition_matrix", "msm_pi", "pcca_pi", "traj_transition_matrix",
+                "traj_pi", "traj_metastable_probs", "ref_metastable_probs")
+    msm = {k: np.asarray(sim[k]) for k in msm_keys if k in sim}
+    emit({"phase": "analysis_cli", "host_s": secs, "sim_jsd": sim["JSD"],
+          "sim_msm_error": sim.get("msm_error"),
+          "sim_msm": {k: v.round(4).tolist() for k, v in msm.items() if v.ndim == 1},
+          "tps": {k: float(v) for k, v in tps.items() if np.ndim(v) == 0},
+          "upsampling_features": len(ups["md_autocorr"]),
+          "printed": buf.getvalue().splitlines()})
+    for d in (sim_data, sim_out, sim_ref, tps_data, tps_out, ups_data, ups_out, rep):
+        shutil.rmtree(d, ignore_errors=True)
+    if "msm_error" in sim or len(msm) != len(msm_keys):
+        raise AssertionError(f"analysis_cli: the simulation's MSM: {sim.get('msm_error')}")
+    if not all(np.isfinite(v).all() for v in msm.values()):
+        raise AssertionError("analysis_cli: a non-finite MSM statistic")
+    for k in ("msm_transition_matrix", "traj_transition_matrix"):
+        if not np.allclose(msm[k].sum(1), 1.0, atol=1e-6):
+            raise AssertionError(f"analysis_cli: {k} rows do not sum to 1")
+    if not jsds or not all(math.isfinite(v) and 0 <= v <= 1 for v in jsds.values()):
+        raise AssertionError(f"analysis_cli: JSDs {jsds}")
+    if not acs or not all(np.isfinite(a).all() for a in acs):
+        raise AssertionError("analysis_cli: a non-finite autocovariance")
 
 
 def design_config(task=None, frame_interval=10):
@@ -4865,12 +4954,13 @@ def rtb_launches_derived(chunks=0):
             + chunks * ev.get(n, 0) for n in TRAIN_WRAPPERS}
 
 
-def phase_rtb_cell(dev, phase, batch_size, seed, iters=3, cls=None, chunks=0, **kw):
+def phase_rtb_cell(dev, phase, batch_size, seed, iters=3, cls=None, chunks=0, want=None, **kw):
     """``RTBTrainer.step`` (or ``cls``'s) at full width on the surrogate
     reward: one warm-up and ``iters`` timed iterations; ms per iteration,
     the peak memory of the timed ones, the launches per iteration by kernel
-    asserted equal to ``rtb_launches_derived``, the plain twins idle, finite
-    losses and moved adapters. Returns (launches per iteration, trainer)."""
+    asserted equal to ``want`` (``rtb_launches_derived`` by default), the
+    plain twins idle, finite losses and moved adapters. Returns (launches
+    per iteration, trainer)."""
     import math
 
     tr = rtb_trainer(dev, batch_size, seed, cls=cls, **kw)
@@ -4890,10 +4980,14 @@ def phase_rtb_cell(dev, phase, batch_size, seed, iters=3, cls=None, chunks=0, **
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     per_iter = {fn.__name__: fn.launches / iters for fn in wrappers}
     twin_calls = {fn.__name__: fn.cuda_calls for fn in twins}
-    want = {k: float(v) for k, v in rtb_launches_derived(chunks).items()}
+    want = {k: float(v) for k, v in (want or rtb_launches_derived(chunks)).items()}
     moved = sum(not torch.equal(tr.lora[p]["b"], b) for p, b in before.items())
-    emit({"phase": phase, "trainer": type(tr).__name__, "B": batch_size, "T": T, "L": L, "C": C,
-          "layers": NL, "dtype": "bf16", "sampling_length": RTB_STEPS,
+    emit({"phase": phase, "trainer": type(tr).__name__, "policy": type(tr.model).__name__,
+          "policy_parameters": sum(p.numel() for p in tr.model.parameters()),
+          "B": batch_size, "T": T, "L": L, "C": C,
+          **({"dtype": str(next(tr.model.parameters()).dtype).removeprefix("torch.")}
+             if tr.outsourced else {"layers": NL, "dtype": "bf16"}),
+          "sampling_length": RTB_STEPS,
           "traj_length": tr.rtb.num_train_timesteps, "lora_rank": tr.rtb.lora_rank,
           "adapters": len(tr.lora), "decode_steps": STEPS, "iterations": iters,
           "ms_per_iteration": secs * 1e3, "peak_memory_gb": peak_gb,
@@ -4950,7 +5044,7 @@ def phase_rtb_checks(dev, tr):
                              f"{res['logpf_posterior'].tolist()} {res['logpf_prior'].tolist()}")
 
 
-def phase_grad_rtb(dev, seed=201, Bg=2):
+def phase_grad_rtb(dev, seed=201, Bg=2, phase="grad_rtb_cuda_vs_cpu", **kw):
     """The RTB loss, pf_divergence and every adapter's (and logZ's)
     gradient of one iteration at full width on the card (bf16 kernels)
     against the CPU in f32 (the truth), held under the repo's rule
@@ -4961,17 +5055,19 @@ def phase_grad_rtb(dev, seed=201, Bg=2):
     noise and detach flags everywhere; nonzero b. The trunk and the
     encoder are cut to 2 layers of 5 and the decode to 10 Euler steps of
     100 (the CPU pays for each; full width). The all-twin card's run
-    beside."""
+    beside. ``kw``: the trainer's other arguments (an outsourced
+    ``policy=`` and its ``lora_targets=``)."""
     cfg = rtb_config(steps=10)
     cfg = cfg.replace(model=dataclasses.replace(cfg.model, num_layers=2))
     f32 = cfg.replace(model=dataclasses.replace(cfg.model, use_bf16=False))
-    host = rtb_trainer("cpu", Bg, seed, cfg=f32)
+    host = rtb_trainer("cpu", Bg, seed, cfg=f32, **kw)
     batch = host.prior_sim.get_batch()
     draws = host.sampler.draws(torch.Generator().manual_seed(seed + 2), Bg, detach_freq=0.2)
+    host_model = host.model
     del host
 
     def run(d, c):
-        tr = rtb_trainer(d, Bg, seed, cfg=c)
+        tr = rtb_trainer(d, Bg, seed, cfg=c, **kw)
         b = {k: (v.to(d) if torch.is_tensor(v) else v) for k, v in batch.items()}
         cond, _ = tr.prior_sim.get_cond_args(b)
         cond = tr._replicate(cond, Bg)
@@ -5017,7 +5113,8 @@ def phase_grad_rtb(dev, seed=201, Bg=2):
                 "worst_vs_rule": {k: [err[k], rule[k]] for k in worst}}
 
     card = summary("cuda")
-    emit({"phase": "grad_rtb_cuda_vs_cpu", "batch": Bg, "T": T, "L": L, "layers": 2,
+    emit({"phase": phase, "policy": type(kw.get("policy") or host_model).__name__,
+          "batch": Bg, "T": T, "L": L, "layers": 2,
           "seed": seed, "sampling_length": RTB_STEPS, "decode_steps": 10,
           "cut": "the trunk and the encoder cut to 2 layers of 5, the decode to 10 Euler "
                  "steps of 100 (the CPU pays for each); full width",
@@ -5028,7 +5125,7 @@ def phase_grad_rtb(dev, seed=201, Bg=2):
           **card, "twins": {"plain": summary("cuda_plain")}})
     if card["over"] or not card["loss_rel"] <= card["loss_limit"] or \
             not card["pf_divergence_rel"] <= card["pf_divergence_limit"]:
-        raise AssertionError(f"grad_rtb_cuda_vs_cpu: over the rule: {card}")
+        raise AssertionError(f"{phase}: over the rule: {card}")
 
 
 def phase_rtb_cli(dev):
@@ -5092,9 +5189,178 @@ def phase_rtb_cli(dev):
         raise AssertionError(f"rtb_cli: not on the card: {out['train_posterior'][0]}")
 
 
+# the outsourced UNet policy of RTB (``rtb/denoisers.py``)
+def unet_targets(path):
+    """Adapters on every Dense kernel of the UNet (never a conv's)."""
+    return path.endswith("kernel")
+
+
+def unet_policy(seed):
+    """``UNet3DSeq`` at its class defaults (32 channels, multipliers (1, 2),
+    2 ResBlocks a level, attention at rate 2, 16 channels a head) over the
+    flagship latent (D = 21); every parameter seeded nonzero: N(0, 0.05^2),
+    the GroupNorm weights 1 + that."""
+    from mdgen_finetune_tpu_torch.rtb.denoisers import UNet3DSeq
+    from mdgen_finetune_tpu_torch.utils.weights import randomize_
+
+    unet = randomize_(UNet3DSeq(out_dim=21), torch.Generator().manual_seed(seed), scale=0.05)
+    with torch.no_grad():
+        for m in unet.modules():
+            if isinstance(m, torch.nn.GroupNorm):
+                m.weight.add_(1.0)
+    return unet
+
+
+def rtb_unet_launches_derived():
+    """Launches of one RTB iteration under the UNet policy: the policy's 2 S
+    evaluations and its backward are plain PyTorch ops, so only the decode
+    launches kernels (``rtb_launches_derived``'s decode: the flat Euler
+    chain and the encoder once over the t grid)."""
+    dec = {"adaln_linear": (6 * NL + 2) * STEPS + 6 * NL,
+           "rope_attention": 2 * NL * STEPS + NL, "ipa_attention": NL}
+    return {n: dec.get(n, 0) for n in TRAIN_WRAPPERS}
+
+
+def rtb_unet_checks(dev, tr):
+    """On ``rtb_unet``'s trainer: at b = 0 the posterior's log-probs equal
+    the prior's bit for bit over a whole trajectory on the card, the
+    posterior under grad; the decode's kernels against their plain twins,
+    as ``rtb_checks`` (rel L2 <= 0.05): one Euler step of the flat chain
+    (``flat_call``) and the encoder over the decode's t grid at the
+    iteration's batch, and, reported beside, one whole decode."""
+    from mdgen_finetune_tpu_torch.tasks import prep_batch
+
+    cond, batch = tr.prior_sim.get_cond_args()
+    Bn = tr.rtb.batch_size
+    cond = tr._replicate(cond, Bn)
+    rep = tr._replicate({k: v for k, v in batch.items() if k != "name"}, Bn)
+    draws = tr.sampler.draws(torch.Generator(device=dev).manual_seed(33), Bn)
+    kept = {p: ab["b"].clone() for p, ab in tr.lora.items()}
+    with torch.no_grad():
+        for ab in tr.lora.values():
+            ab["b"].zero_()
+    res = tr.sampler.sample_fwd(None, tr.posterior_context(), cond, Bn, **draws)
+    with torch.no_grad():
+        for p, b in kept.items():
+            tr.lora[p]["b"].copy_(b)
+    same = torch.equal(res["logpf_posterior"], res["logpf_prior"])
+
+    eng = tr.prior_sim.engine
+    m = eng.model
+    kw = prep_batch(eng.cfg, {k: v for k, v in rep.items() if torch.is_tensor(v)})["model_kwargs"]
+    mask = kw["mask"].float().contiguous()
+    zs0 = res["x"].detach()
+    with torch.no_grad():
+        pack = m.make_trunk_pack()
+        consts = m.make_scan_consts(kw["x_cond"], kw["x_cond_mask"], mask, aatype=kw["aatype"])
+        ts = 0.01 * torch.arange(STEPS, dtype=torch.float32, device=dev)
+
+        def encode():
+            return m.encode_steps(ts, mask, consts, pack, kw["start_frames"])
+
+        encs, mods = encode(), m.embed_mods(m.embed_times(ts), pack)
+
+        def step():
+            return m.flat_call(zs0.clone(), mask, consts, pack, 0.01, enc=encs[0], mods=mods[0:1])
+
+        def decode():
+            return tr.prior_sim.sample(rep, zs0)[0]
+
+        errs = {name: rel_l2(fn().float(), with_twins(fn).float())
+                for name, fn in (("euler_step", step), ("encoder_grid", encode),
+                                 ("whole_decode", decode))}
+    emit({"phase": "rtb_unet_checks", "B": Bn, "b0_logpf_posterior_equals_prior": same,
+          "b0_logpf": res["logpf_prior"].tolist(), "decode_kernels_vs_twins_rel_l2": errs,
+          "tol": 0.05, "held": ["euler_step", "encoder_grid"]})
+    if not res["logpf_posterior"].requires_grad:
+        raise AssertionError("rtb_unet_checks: the b = 0 posterior ran without gradients")
+    if not same:
+        raise AssertionError("rtb_unet_checks: at b = 0 logpf_posterior != logpf_prior: "
+                             f"{res['logpf_posterior'].tolist()} {res['logpf_prior'].tolist()}")
+    if not (errs["euler_step"] <= 0.05 and errs["encoder_grid"] <= 0.05):
+        raise AssertionError(f"rtb_unet_checks: decode kernels vs twins {errs}")
+
+
+def phase_unet_distill(dev, sim, steps=20, batch_size=B_RTB):
+    """``DiffuserTrainer(model=UNet3DSeq(...))`` on the card (the
+    ``train_prior`` objective: the min-SNR v-prediction MSE, AdamW lr 1e-3,
+    1,000 timesteps) for ``steps`` steps on U[-3, 3] latents from a fresh
+    seeded init (zero heads, as the JAX package's); ms per step, and its
+    loss on 8 fixed held-out draws before and after, which must fall."""
+    import math
+
+    from mdgen_finetune_tpu_torch.inference import sample_prior_latent
+    from mdgen_finetune_tpu_torch.rtb.denoisers import UNet3DSeq
+    from mdgen_finetune_tpu_torch.rtb.trainer import DiffuserTrainer
+
+    cond, _ = sim.get_cond_args()
+    cond = {k: v.repeat_interleave(batch_size // v.shape[0], 0) for k, v in cond.items()
+            if torch.is_tensor(v)}
+
+    def source(g):
+        return sample_prior_latent(g, batch_size, T, L, 21, uniform=True)
+
+    def held_out():
+        g = torch.Generator(device=dev).manual_seed(99)
+        with torch.no_grad():
+            return sum(float(dt.loss(g, source(g))) for _ in range(8)) / 8
+
+    torch.manual_seed(252)
+    dt = DiffuserTrainer(sim.cfg, source, cond, lr=1e-3, model=UNet3DSeq(out_dim=21), device=dev)
+    params = dt.init_params()
+    state = dt.opt.init(params)
+    before = held_out()
+    gen = torch.Generator(device=dev).manual_seed(253)
+    dt.train(params, state, 1, gen)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, losses = dt.train(params, state, steps, gen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    after = held_out()
+    emit({"phase": "rtb_unet_distill", "B": batch_size, "T": T, "L": L, "steps": steps,
+          "ms_per_step": ms, "losses": losses, "held_out_before": before,
+          "held_out_after": after})
+    if not all(math.isfinite(v) for v in losses) or not after < before:
+        raise AssertionError(f"rtb_unet_distill: {losses}, held-out {before} -> {after}")
+
+
+def phase_rtb_unet(dev):
+    """The outsourced UNet policy (module docstring); returns its launches
+    per iteration. The UNet runs in f32 with TF32 off for its convolutions
+    and matmuls, as the JAX package's f32 UNet and the CPU it is held to:
+    every entry point of the port (``InferenceEngine``, ``Trainer``,
+    ``DiffuserTrainer``) switches TF32 off process-wide
+    (``geometry.rigid.full_f32``), PyTorch's default for cuDNN being on;
+    the phase asserts both flags off and changes neither."""
+    marks = [("start", time.perf_counter())]
+    launches, tr = phase_rtb_cell(dev, "rtb_unet", B_RTB, seed=231,
+                                  want=rtb_unet_launches_derived(),
+                                  policy=unet_policy(232), lora_targets=unet_targets)
+    tf32 = {"cudnn": torch.backends.cudnn.allow_tf32,
+            "matmul": torch.backends.cuda.matmul.allow_tf32}
+    marks.append(("rtb_unet", time.perf_counter()))
+    phase_trace("rtb_unet_trace", lambda: tr.step(9))
+    marks.append(("rtb_unet_trace", time.perf_counter()))
+    rtb_unet_checks(dev, tr)
+    marks.append(("rtb_unet_checks", time.perf_counter()))
+    phase_unet_distill(dev, tr.prior_sim)
+    marks.append(("rtb_unet_distill", time.perf_counter()))
+    del tr
+    phase_grad_rtb(dev, seed=241, phase="grad_rtb_unet_cuda_vs_cpu",
+                   policy=unet_policy(242), lora_targets=unet_targets)
+    marks.append(("grad_rtb_unet_cuda_vs_cpu", time.perf_counter()))
+    emit({"phase": "rtb_unet_s", "seconds": marks[-1][1] - marks[0][1],
+          "by_phase_s": {n: t - marks[i][1] for i, (n, t) in enumerate(marks[1:])},
+          "policy_precision": "f32, TF32 off (geometry.rigid.full_f32)", "allow_tf32": tf32})
+    if any(tf32.values()):
+        raise AssertionError(f"rtb_unet: TF32 on under the UNet policy: {tf32}")
+    return launches
+
+
 def phase_rtb(dev):
-    """The RTB phases (module docstring); returns rtb_main's launches per
-    iteration."""
+    """The RTB phases (module docstring); returns rtb_main's and rtb_unet's
+    launches per iteration."""
     from mdgen_finetune_tpu_torch.rtb.trainer import RTBBatchedTrainer
 
     launches, tr = phase_rtb_cell(dev, "rtb_main", B_RTB, seed=221)
@@ -5108,9 +5374,10 @@ def phase_rtb(dev):
     del tr
     phase_grad_rtb(dev)
     phase_rtb_cli(dev)
+    unet_launches = phase_rtb_unet(dev)
     shutil.rmtree(SCRATCH / "rtb_data", ignore_errors=True)
     shutil.rmtree(SCRATCH / "rtb_work", ignore_errors=True)
-    return launches
+    return launches, unet_launches
 
 
 KERNEL_OF = (("tiled_attention", "tiled_attention"),
@@ -5238,6 +5505,7 @@ def main():
     del eng
     phase_tps_cli(dev)
     phase_upsampling_cli(dev)
+    phase_analysis_cli()
     t_design = time.perf_counter()
     design_launches, (eng, batch, gen) = phase_design_main(dev)
     phase_trace("design_trace", lambda: eng.sample(batch, gen))
@@ -5272,7 +5540,7 @@ def main():
     shutil.rmtree(SCRATCH / "task_data", ignore_errors=True)
     t_rtb = time.perf_counter()
     # RTB posterior fine-tuning of the flagship prior
-    rtb_launches = phase_rtb(dev)
+    rtb_launches, rtb_unet_launches = phase_rtb(dev)
     emit({"phase": "tasks_s", "tps_and_upsampling_s": t_design - t_tasks,
           "design_s": t_sde - t_design, "sde_likelihood_ablations_s": t_train_tasks - t_sde,
           "train_tasks_s": t_rtb - t_train_tasks, "rtb_s": time.perf_counter() - t_rtb,
@@ -5383,6 +5651,7 @@ def main():
                          task_launches["train_design"].get(name, 0),
                      "train_mpnn_launches_per_step": task_launches["train_mpnn"].get(name, 0),
                      "rtb_main_launches_per_iteration": rtb_launches.get(name, 0),
+                     "rtb_unet_launches_per_iteration": rtb_unet_launches.get(name, 0),
                      "train_atlas_launches_per_step": atlas_per_step.get(name, 0),
                      "max_abs_err": k["max_abs_err"], "tol": k["tol"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],

@@ -1,13 +1,35 @@
-"""What the task CLIs need of the analysis stack: torsion features, TICA,
-k-means and Markov state models for the MSM metadata (``cli/msm_common.py``)
-and the design task's ``sequence_recovery`` (``cli/analyze_design.py``).
-The other metrics and the analysis pipelines are not ported yet (ROADMAP.md
-queue 1 item 10)."""
+"""The analysis stack (the JAX package's ``analysis/``), host numpy / scipy:
+torsion features, TICA, k-means, Markov state models with PCCA+ and
+transition-path sampling; the physics metrics (torsion and TICA JSDs,
+decorrelation), the peptide-simulation pipeline ``analyze_sim``, and the
+task metrics (transition-path ensembles and the replica sweep, upsampling
+autocorrelation, design sequence recovery)."""
 from .cluster import KMeans
 from .featurize import feature_labels, featurize_trajectory
-from .msm import MarkovStateModel, pcca_plus
-from .task_metrics import sequence_recovery
+from .metrics import acovf, decorrelation, tica_jsd, torsion_jsd
+from .msm import MarkovStateModel, get_state_probs, get_tp_likelihood, pcca_plus, sample_tp
+from .pipeline import analyze_sim
+from .task_metrics import (analyze_tps_ensemble, analyze_tps_replica_sweep, analyze_upsampling,
+                           sequence_recovery)
 from .tica import TICA
 
-__all__ = ["featurize_trajectory", "feature_labels", "TICA", "KMeans", "MarkovStateModel",
-           "pcca_plus", "sequence_recovery"]
+__all__ = [
+    "featurize_trajectory",
+    "feature_labels",
+    "TICA",
+    "KMeans",
+    "MarkovStateModel",
+    "pcca_plus",
+    "sample_tp",
+    "get_tp_likelihood",
+    "get_state_probs",
+    "acovf",
+    "torsion_jsd",
+    "decorrelation",
+    "tica_jsd",
+    "analyze_sim",
+    "analyze_tps_ensemble",
+    "analyze_tps_replica_sweep",
+    "analyze_upsampling",
+    "sequence_recovery",
+]

@@ -32,7 +32,6 @@ sample, but training them is not ported), ``--dropout``, and
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 
@@ -41,25 +40,8 @@ import torch
 
 from ..data.dataset import MDGenDataset, make_batch_iterator
 from ..training import Trainer
+from ..utils.logging import profile_trace
 from .args import add_train_args, args_to_config
-
-
-@contextlib.contextmanager
-def profile_trace(log_dir, device: torch.device):
-    """A torch.profiler trace of the enclosed region into
-    ``log_dir/trace.json`` when ``log_dir`` is set."""
-    if not log_dir:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
-    with profile(activities=acts) as prof:
-        yield
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-    os.makedirs(log_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 def designability(trainer, state, val_ds, rng, generator) -> dict:
@@ -123,7 +105,7 @@ def main(argv=None):
 
     try:
         for epoch in range(cfg.train.epochs):
-            with profile_trace(a.profile_dir if epoch == 0 else None, trainer.device):
+            with profile_trace(a.profile_dir if epoch == 0 else None):
                 state = trainer.fit(state, it, steps_per_epoch, gen,
                                     log_every=cfg.train.print_freq, log_fn=log_fn)
 

@@ -8,7 +8,9 @@ the flax (in, out) layout, before the policy runs; the base weights stay
 frozen and only the adapters receive gradients.
 
 An adapter dict is keyed by the flax path of its kernel
-(``layers_0/mha_l/q_proj/kernel``, as the JAX package's), with ``a`` (in, r)
+(``layers_0/mha_l/q_proj/kernel``, as the JAX package's; the outsourced
+UNets' submodules carry their flax names, ``UNet2D_0/ResBlock2D_0/Dense_0/
+kernel``), with ``a`` (in, r)
 and ``b`` (r, out) as JAX holds them, so a JAX adapter dict carries across
 unchanged (``utils.weights.lora_from_flax``). The port's weights are
 (out, in), so the merged weight is ``W + scale * (a @ b).T``. IPA's fused

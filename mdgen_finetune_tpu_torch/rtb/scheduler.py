@@ -60,10 +60,15 @@ class DDPMGFNScheduler:
         else:
             raise NotImplementedError(beta_schedule)
         self.device = torch.device(device or "cpu")
+        self._init_tables(betas)
+
+    def _init_tables(self, betas: np.ndarray):
+        """The f32 beta and alpha-bar tables on ``self.device`` and the
+        default timestep list."""
         self.betas = torch.tensor(betas, dtype=torch.float32, device=self.device)
         self.alphas_cumprod = torch.tensor(np.cumprod(1.0 - betas), dtype=torch.float32,
                                            device=self.device)
-        self.timesteps = self.set_timesteps(num_inference_steps or num_train_timesteps)
+        self.timesteps = self.set_timesteps(self.num_inference_steps or self.num_train_timesteps)
 
     # ------------------------------------------------------------------
     def set_timesteps(self, num_inference_steps: int) -> np.ndarray:

@@ -13,7 +13,8 @@ src/rtb_utils/gfn_diffusion.py):
   then the gradient accumulated over chunks of timesteps by replaying the
   stored transitions with target-forced noise;
 - ``DiffuserTrainer`` (JAX :553-617): distils the prior-latent distribution
-  into a ``LatentMDGen`` DDPM v-predictor with the min-SNR-gamma loss.
+  into a DDPM v-predictor (a ``LatentMDGen`` or an outsourced UNet) with
+  the min-SNR-gamma loss.
 
 The policy is one ``LatentMDGen`` (the prior's engine model unless other
 weights are given), called through ``torch.func.functional_call``: once per
@@ -25,6 +26,10 @@ step; the values are the same). The prior is the same ``forward`` under
 b = 0 the posterior's log-probs equal the prior's bit for bit. On the card
 the calls run the trunk's and the encoder's hand-written kernels; the
 posterior's backward runs the trunk's backward kernels (``FusedTrunkFn``).
+An outsourced policy (``policy=``, say ``rtb.denoisers.UNet3DSeq``) has no
+trunk pack: its prior is the module at its frozen weights and its posterior
+one ``functional_call`` over the merged adapters (on its Linear kernels, by
+``lora_targets``); the decode and the reward stay the prior flow's.
 
 The optimizer is optax's ``chain(clip_by_global_norm(grad_clip),
 multi_transform(adam(lr) for the adapters, adam(logz_lr) for logZ))``: the
@@ -34,6 +39,7 @@ explicit ``torch.Generator`` objects, or the draws are passed in.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -45,17 +51,15 @@ import torch
 from torch import nn
 
 from ..config import MDGenConfig
+from ..geometry.rigid import full_f32
 from ..models.denoiser import LatentMDGen, refuse_unported
 from ..training.trainer import Optimizer
-from .lora import lora_init, lora_kernels, lora_merge
+from .lora import lora_init, lora_kernels, lora_merge, lora_targets_default
 from .priors import MDGenSimulator
 from .replay_buffer import ReplayBuffer
 from .samplers import (PosteriorPriorDGFN, back_and_forth_loss, map_condition, rtb_loss,
                        vargrad_logz)
 from .scheduler import DDPMGFNScheduler
-
-OUTSOURCED = ("the outsourced UNet policies (rtb/denoisers.py, pipelines.py, "
-              "schedulers_extra.py) are not ported yet (ROADMAP.md queue 1, the next slice)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,28 +125,45 @@ class _Policy(nn.Module):
 class RTBTrainer:
     def __init__(self, cfg: MDGenConfig, rtb: RTBConfig, prior_sim: MDGenSimulator,
                  reward_fn: Callable, workdir: str = "workdir/rtb", reward_on_device: bool = True,
-                 lgv_log_reward_fn: Optional[Callable] = None, policy: Optional[object] = None):
+                 lgv_log_reward_fn: Optional[Callable] = None, policy: Optional[nn.Module] = None,
+                 policy_params: Optional[dict] = None,
+                 lora_targets: Optional[Callable[[str], bool]] = None):
         """``reward_fn(atom14, aatype (B, L)) -> (B,)`` log-rewards;
         ``reward_on_device``: the reward is a function of the decoded sample
         on the device (one sampler pass with gradients), else a host oracle
         (sample, decode, score, then the same trajectory re-run with
         gradients). ``lgv_log_reward_fn``: the differentiable latents -> (B,)
         proxy of the Langevin correction (``_latent_manifold_log_reward`` by
-        default). The policy is the prior's engine model; JAX's ``policy``,
-        ``policy_params`` and ``lora_targets`` serve the outsourced UNet
-        policies, which are not ported yet."""
-        if policy is not None:
-            raise NotImplementedError(f"RTBTrainer(policy=...): {OUTSOURCED}")
+        default).
+
+        ``policy``: another policy module (an outsourced ``UNet3DSeq``,
+        src/rtb_utils/denoisers.py:504-561, JAX :91-169) called as ``(x,
+        t / num_train_timesteps, **condition)``, by default the prior's
+        ``LatentMDGen``; ``policy_params``: its base weights by parameter
+        name (a state_dict; the module's own when absent), frozen: the prior
+        is the policy at these weights and the posterior adds the adapters.
+        ``lora_targets(flax path) -> bool`` picks the adapted Linear kernels
+        (``lora_targets_default`` by default: LatentMDGen's names)."""
         refuse_unported(cfg, train=True)
         self.cfg, self.rtb = cfg, rtb
         self.prior_sim = prior_sim
         self.reward_fn = reward_fn
         self.workdir = workdir
         self.device = prior_sim.device
-        self.model = prior_sim.engine.model
-        self._policy = _Policy(self.model)
-        with torch.no_grad():
-            self.prior_pack = self.model.make_trunk_pack()
+        self.outsourced = policy is not None
+        if self.outsourced or policy_params is not None:  # a frozen copy of the policy
+            self.model = copy.deepcopy(policy if self.outsourced else prior_sim.engine.model)
+            self.model.to(self.device).requires_grad_(False)
+            if policy_params is not None:
+                extra = self.model.load_state_dict(policy_params, strict=False).unexpected_keys
+                if extra:
+                    raise KeyError(f"policy_params: not parameters of the policy: {extra}")
+        else:
+            self.model = prior_sim.engine.model
+        if not self.outsourced:
+            self._policy = _Policy(self.model)
+            with torch.no_grad():
+                self.prior_pack = self.model.make_trunk_pack()
         self.scheduler = DDPMGFNScheduler(
             num_train_timesteps=rtb.num_train_timesteps, prediction_type="v_prediction",
             clip_sample=True, clip_sample_range=3.0, variance_type="fixed_large",
@@ -163,9 +184,10 @@ class RTBTrainer:
             self.scheduler, self.prior_fn, self.posterior_fn, dim=prior_sim.latent_shape,
             sampling_length=rtb.sampling_length, xT_type=rtb.xT_type, langevin_fn=langevin_fn)
 
-        self.kernels = lora_kernels(self.model)
+        targets = lora_targets or lora_targets_default
+        self.kernels = lora_kernels(self.model, targets)
         self.lora = lora_init(torch.Generator().manual_seed(rtb.seed), self.model,
-                              rank=rtb.lora_rank, device=self.device)
+                              rank=rtb.lora_rank, targets=targets, device=self.device)
         self.logZ = torch.zeros((), device=self.device)
         for t in self._trainables().values():
             t.requires_grad_(True)
@@ -195,13 +217,18 @@ class RTBTrainer:
     def prior_fn(self, x, t, condition):
         """The frozen prior: ``forward`` with the base weights, no gradients."""
         with torch.no_grad():
+            if self.outsourced:
+                return self.model(x, self._time(x, t), **condition)
             return self.model(x, self._time(x, t), trunk_pack=self.prior_pack, **condition)
 
     def posterior_context(self):
-        """This iteration's merged adapter weights and the trunk pack built
-        from them, in the caller's grad mode (one merge a backward)."""
-        merged = {f"model.{k}": v for k, v in
-                  lora_merge(self.model, self.lora, kernels=self.kernels).items()}
+        """This iteration's merged adapter weights (and, for LatentMDGen, the
+        trunk pack built from them), in the caller's grad mode (one merge a
+        backward)."""
+        merged = lora_merge(self.model, self.lora, kernels=self.kernels)
+        if self.outsourced:
+            return merged, None
+        merged = {f"model.{k}": v for k, v in merged.items()}
         pack = torch.func.functional_call(self._policy, merged, (), {"pack_only": True})
         return merged, pack
 
@@ -209,6 +236,9 @@ class RTBTrainer:
         """The LoRA posterior: ``forward`` under the merged weights of
         ``ctx`` (``posterior_context``)."""
         merged, pack = ctx
+        if self.outsourced:
+            return torch.func.functional_call(self.model, merged, (x, self._time(x, t)),
+                                              condition)
         return torch.func.functional_call(self._policy, merged, (x, self._time(x, t)),
                                           {**condition, "trunk_pack": pack})
 
@@ -455,25 +485,28 @@ class RTBBatchedTrainer(RTBTrainer):
 # ---------------------------------------------------------------------------
 class DiffuserTrainer:
     """Outsourced-prior distillation (JAX :553-617; src/rtb_utils/
-    gfn_diffusion.py:605-805): train a ``LatentMDGen`` DDPM v-predictor to
-    reproduce the prior-latent distribution, with the min-SNR-gamma weighted
+    gfn_diffusion.py:605-805): train a DDPM v-predictor (a ``LatentMDGen``,
+    or the ``model`` given, such as an outsourced ``UNet3DSeq``) to reproduce
+    the prior-latent distribution, with the min-SNR-gamma weighted
     v-prediction MSE and AdamW (optax's ``adamw(lr)``: no clipping, weight
     decay 1e-4)."""
 
     def __init__(self, cfg: MDGenConfig, source_sampler: Callable, condition: dict,
                  lr: float = 1e-4, num_train_timesteps: int = 1000, min_snr_gamma: float = 5.0,
-                 seed: int = 0, model: Optional[object] = None, device="cuda"):
+                 seed: int = 0, model: Optional[nn.Module] = None, device="cuda"):
         """``source_sampler(generator) -> clean latents (B, T, L, D)``;
-        ``condition`` the denoiser's keyword arguments for that batch."""
-        if model is not None:
-            raise NotImplementedError(f"DiffuserTrainer(model=...): {OUTSOURCED}")
-        refuse_unported(cfg, train=True)
+        ``condition`` the denoiser's keyword arguments for that batch;
+        ``model`` called as ``(x, t / num_train_timesteps, **condition)``."""
         from ..inference.sampling import resolve_device
 
+        if model is None:
+            refuse_unported(cfg, train=True)
         self.cfg = cfg
         self.device = resolve_device(device)
+        full_f32()  # as every entry point: an outsourced UNet's convolutions in f32
         dtype = torch.bfloat16 if cfg.model.use_bf16 else torch.float32
-        self.model = LatentMDGen(cfg, cfg.latent_dim, dtype=dtype)
+        self.outsourced = model is not None
+        self.model = model if self.outsourced else LatentMDGen(cfg, cfg.latent_dim, dtype=dtype)
         self.scheduler = DDPMGFNScheduler(num_train_timesteps=num_train_timesteps,
                                           device=self.device)
         self.source_sampler = source_sampler
@@ -483,13 +516,18 @@ class DiffuserTrainer:
         self.opt = Optimizer(lr, float("inf"), adamw=True)
         self.seed = seed
 
-    def init_params(self) -> dict:
-        """The model's init (``LatentMDGen.reset_parameters``) seeded by
-        ``seed``; returns its parameters, which ``train`` updates in place."""
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(self.seed)
-            self.model.reset_parameters()
-        self.model.to(self.device).train()
+    def init_params(self, state_dict: Optional[dict] = None) -> dict:
+        """The model's parameters, which ``train`` updates in place: a
+        ``LatentMDGen``'s init (``reset_parameters``) seeded by ``seed``; a
+        given ``model``'s own weights, or ``state_dict`` loaded into it (say
+        ``utils.weights.unet_from_flax`` of the JAX package's)."""
+        if state_dict is not None:
+            self.model.load_state_dict(state_dict)
+        elif not self.outsourced:
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(self.seed)
+                self.model.reset_parameters()
+        self.model.to(self.device).train().requires_grad_(True)
         return dict(self.model.named_parameters())
 
     def loss(self, generator: torch.Generator, clean):

@@ -18,7 +18,8 @@ JSON line:
 - ``sim_1000``, ``sim_atlas``, ``interleave_main``, ``no_rope_main``:
   ``frames_per_s``;
 - ``train_path``, ``train_merged``, ``train_1000``: ``ms_per_step``, and
-  beside it ``<cell>.peak_memory_gb`` (the card's peak allocation).
+  beside it ``<cell>.peak_memory_gb`` (the card's peak allocation);
+- ``rtb_main``: ``ms_per_iteration`` (and its peak memory).
 
 Prints the card's name and power limit, one JSON line per run, then one
 with each cell's runs and medians for both trees, the change in percent
@@ -36,7 +37,8 @@ from pathlib import Path
 CELLS = {"main_path": "steps_per_s", "sim_1000": "frames_per_s", "sim_atlas": "frames_per_s",
          "interleave_main": "frames_per_s", "no_rope_main": "frames_per_s",
          "train_path": "ms_per_step",
-         "train_merged": "ms_per_step", "train_1000": "ms_per_step"}
+         "train_merged": "ms_per_step", "train_1000": "ms_per_step",
+         "rtb_main": "ms_per_iteration"}
 
 # what each fresh process runs, in the checkout's root
 CHILD = r"""
@@ -61,6 +63,8 @@ if "train_path" in cells or "train_merged" in cells:
         cs.phase_train_path(dev, "merged", ref)
 if "train_1000" in cells:
     cs.phase_train_1000(dev)
+if "rtb_main" in cells:
+    cs.phase_rtb_cell(dev, "rtb_main", cs.B_RTB, seed=221)
 """
 
 

@@ -1,1 +1,1 @@
-"""Utilities: weight conversion."""
+"""Utilities: weight conversion, released-checkpoint reading, run logging."""

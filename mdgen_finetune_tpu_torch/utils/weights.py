@@ -14,7 +14,9 @@
   JAX package's ``fold_encoder_ws`` splits them.
 
 ``to_flax`` is the exact inverse. ``lora_from_flax`` / ``lora_to_flax``
-carry the JAX package's RTB adapter dict across (``rtb/lora.py``).
+carry the JAX package's RTB adapter dict across (``rtb/lora.py``);
+``unet_from_flax`` / ``unet_to_flax`` the weights of the outsourced UNet
+policies (``rtb/denoisers.py``), whose submodules carry the flax names.
 """
 from __future__ import annotations
 
@@ -159,6 +161,69 @@ def lora_to_flax(lora: dict) -> dict:
     inverse of ``lora_from_flax``."""
     return {path: {k: ab[k].detach().cpu().float().numpy() for k in ("a", "b")}
             for path, ab in lora.items()}
+
+
+# flax leaf -> the port's parameter, by the kind of module that holds it
+_UNET_LEAF = {(torch.nn.Conv1d, "kernel"): "weight", (torch.nn.Conv2d, "kernel"): "weight",
+              (torch.nn.Linear, "kernel"): "weight", (torch.nn.GroupNorm, "scale"): "weight",
+              (torch.nn.Embedding, "embedding"): "weight"}
+
+
+def _unet_layout(kind, leaf: str, v: np.ndarray, to_torch: bool) -> np.ndarray:
+    """A kernel between flax's layout and the port's: Conv (kh, [kw,] in,
+    out) <-> (out, in, kh[, kw]), Dense (in, out) <-> (out, in)."""
+    if leaf != "kernel":
+        return v
+    if kind is torch.nn.Linear:
+        return v.T
+    n = v.ndim
+    perm = (n - 1, n - 2, *range(n - 2)) if to_torch else (*range(2, n), 1, 0)
+    return np.transpose(v, perm)
+
+
+def unet_from_flax(tree: dict, module: torch.nn.Module) -> dict:
+    """A flax parameter tree (numpy leaves; the ``"params"`` key optional)
+    of one of the JAX package's ``rtb/denoisers.py`` modules -> the
+    state_dict of the port's counterpart ``module`` (f32). The port's
+    submodules carry the flax names, so a path maps leaf by leaf; every
+    parameter of ``module`` must be given, at its shape."""
+    tree = tree.get("params", tree)
+    kinds = {name: type(m) for name, m in module.named_modules()}
+    want = module.state_dict()
+    sd = {}
+    for path, v in _flatten(tree):
+        mod, leaf = ".".join(path[:-1]), path[-1]
+        kind = kinds.get(mod)
+        name = f"{mod}.{_UNET_LEAF.get((kind, leaf), leaf)}"
+        if name not in want:
+            raise KeyError(f"{'/'.join(path)}: no parameter {name} in {type(module).__name__}")
+        val = _unet_layout(kind, leaf, np.asarray(v, np.float32), True)
+        if tuple(val.shape) != tuple(want[name].shape):
+            raise ValueError(f"{'/'.join(path)}: shape {val.shape}, the port's "
+                             f"{tuple(want[name].shape)}")
+        sd[name] = torch.tensor(val)
+    missing = set(want) - set(sd)
+    if missing:
+        raise KeyError(f"parameters not in the tree: {sorted(missing)}")
+    return sd
+
+
+def unet_to_flax(state_dict: dict, module: torch.nn.Module) -> dict:
+    """The inverse of ``unet_from_flax``: {"params": nested dicts of numpy
+    f32 leaves}."""
+    kinds = {name: type(m) for name, m in module.named_modules()}
+    back = {(k, t): leaf for (k, leaf), t in _UNET_LEAF.items()}
+    out = {}
+    for name, v in state_dict.items():
+        mod, leaf = name.rsplit(".", 1)
+        kind = kinds[mod]
+        leaf = back.get((kind, leaf), leaf)
+        node = out
+        for p in mod.split("."):
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(
+            _unet_layout(kind, leaf, v.detach().cpu().float().numpy(), False))
+    return {"params": out}
 
 
 @torch.no_grad()

@@ -1,6 +1,6 @@
 """PyTorch port, RTB fine-tuning behaviours on the CPU: the port's copies of
 ``tests/test_rtb_e2e.py`` and ``tests/test_amber_reward.py`` that need no
-UNet and no OpenMM, plus what the port adds.
+OpenMM, plus what the port adds.
 
 - the training step: finite values, the adapters move, the checkpoint
   round-trips; at b = 0 the posterior's log-probs equal the prior's exactly;
@@ -11,8 +11,10 @@ UNet and no OpenMM, plus what the port adds.
   (OpenMM-style) reward path;
 - the conditional multi-peptide logZ (one VarGrad estimate per peptide) and
   per-element rewards;
-- ``DiffuserTrainer``'s loss on fixed held-out draws falls; the UNet ``policy=`` / ``model=`` are
-  refused;
+- ``policy_params`` with the default policy (a frozen copy at those weights);
+- ``DiffuserTrainer``'s loss on fixed held-out draws falls, for ``LatentMDGen``
+  and for an outsourced ``UNet3DSeq`` (``model=``), which then serves as the
+  posterior of an RTB step (``policy=``, adapters on its Dense kernels);
 - the PDB export, the Amber14 reward's grouping with a stand-in energy and
   the target-distribution cache; ``get_reward``;
 - ``sample_prior_latent(uniform=True)``;
@@ -38,6 +40,7 @@ from mdgen_finetune_tpu_torch.data.synthetic import make_synthetic_dataset
 from mdgen_finetune_tpu_torch.geometry.protein import from_pdb_models
 from mdgen_finetune_tpu_torch.inference import sample_prior_latent
 from mdgen_finetune_tpu_torch.models.denoiser import LatentMDGen
+from mdgen_finetune_tpu_torch.rtb.denoisers import UNet3DSeq
 from mdgen_finetune_tpu_torch.rtb.priors import MDGenSimulator
 from mdgen_finetune_tpu_torch.rtb.rewards import (Amber14Reward, SurrogateReward, get_reward)
 from mdgen_finetune_tpu_torch.rtb.trainer import (DiffuserTrainer, RTBBatchedTrainer, RTBConfig,
@@ -255,10 +258,49 @@ def test_diffuser_trainer_loss_falls_and_unet_refused(setup):
     before = held_out()
     params, state, losses = dt.train(params, state, 30, torch.Generator().manual_seed(0))
     assert np.isfinite(losses).all() and held_out() < before
-    with pytest.raises(NotImplementedError, match="next slice"):
-        DiffuserTrainer(s["cfg"], source, cond, model=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        RTBTrainer(s["cfg"], RTBConfig(**SMALL), sim, REWARD, policy=object())
+
+    # the outsourced UNet: distilled by DiffuserTrainer(model=),
+    # then the posterior of an RTB step, adapters on its Dense kernels
+    torch.manual_seed(0)
+    unet = UNet3DSeq(out_dim=D, model_channels=8, channel_mult=(1, 2), num_res_blocks=1,
+                     attention_resolutions=(2,), num_head_channels=8)
+    dt = DiffuserTrainer(s["cfg"], source, cond, lr=1e-3, num_train_timesteps=30, model=unet,
+                         device="cpu")
+    params = dt.init_params()
+    state = dt.opt.init(params)
+    before = held_out()
+    params, state, losses = dt.train(params, state, 20, torch.Generator().manual_seed(0))
+    assert np.isfinite(losses).all() and held_out() < before
+    tr = RTBTrainer(s["cfg"], RTBConfig(**SMALL, lr=1e-3, learning_cutoff=0.0), sim, REWARD,
+                    policy=unet, policy_params=params,
+                    lora_targets=lambda p: p.endswith("kernel"))
+    assert tr.lora and all(p.startswith("UNet2D_0/") and "Conv" not in p for p in tr.lora)
+    snap = _snapshot(tr)
+    m = tr.step(0)
+    assert np.isfinite(m["loss"]) and np.isfinite(m["logr"]) and _moved(tr, snap)
+    assert all(torch.equal(v, params[k]) for k, v in tr.model.state_dict().items())
+
+
+def test_policy_params_replace_the_prior_weights(setup, tmp_path):
+    """``policy_params`` with the default policy: a frozen LatentMDGen copy
+    at those weights (the simulator's model untouched), b = 0 exact."""
+    s = setup
+    sim = _sim(s)
+    sd2 = randomize_(LatentMDGen(s["cfg"]), torch.Generator().manual_seed(5), scale=0.1)
+    sd2 = sd2.state_dict()
+    kept = {k: v.clone() for k, v in sim.engine.model.state_dict().items()}
+    tr = RTBTrainer(s["cfg"], RTBConfig(**SMALL), sim, REWARD, workdir=str(tmp_path),
+                    policy_params=sd2)
+    assert tr.model is not sim.engine.model
+    assert all(torch.equal(v, sd2[k]) for k, v in tr.model.state_dict().items() if k in sd2)
+    assert all(torch.equal(v, kept[k]) for k, v in sim.engine.model.state_dict().items())
+    cond, _ = sim.get_cond_args()
+    res = tr.sampler.sample_fwd(torch.Generator().manual_seed(0), tr.posterior_context(),
+                                tr._replicate(cond, 2), 2)
+    assert torch.equal(res["logpf_posterior"], res["logpf_prior"])
+    with pytest.raises(KeyError):
+        RTBTrainer(s["cfg"], RTBConfig(**SMALL), sim, REWARD, policy_params={"nope": sd2[
+            next(iter(sd2))]})
 
 
 def test_prior_latent_uniform():
