@@ -1249,14 +1249,24 @@ def phase_grad_across_devices(dev, cfg=None, phase="grad_cuda_vs_cpu", pad=1, ex
         x_d = torch._sample_dirichlet(conc, gen)
     f32_cfg = cfg.replace(model=dataclasses.replace(cfg.model, use_bf16=False))
     res, secs = {}, {}
+    masks = {}  # with dropout: the card's keep masks, replayed on every other run
 
     def run(d, c):
+        from mdgen_finetune_tpu_torch.models.layers import Dropout
+
         tr = Trainer(c, device=d)
         tr.init_state(0)
         randomize_(tr.model, torch.Generator().manual_seed(12), scale=0.05)
+        drop = None
+        if c.model.dropout > 0:
+            drop = (Dropout(c.model.dropout, masks=masks) if masks else
+                    Dropout(c.model.dropout, torch.Generator(device=d).manual_seed(seed + 3)))
         loss, _ = tr._feature_loss({k: v.to(d) for k, v in feats.items()}, t=t.to(d),
-                                   x0=x0.to(d), x_d=None if x_d is None else x_d.to(d))
+                                   x0=x0.to(d), x_d=None if x_d is None else x_d.to(d),
+                                   dropout=drop)
         loss.backward()
+        if drop is not None and not masks:
+            masks.update({k: v.cpu() for k, v in drop.drawn.items()})
         return loss.item(), {k: p.grad.float().cpu() for k, p in tr.model.named_parameters()}
 
     runs = [("cuda", dev, cfg, None), ("cpu_f32", "cpu", f32_cfg, None),
@@ -1288,7 +1298,7 @@ def phase_grad_across_devices(dev, cfg=None, phase="grad_cuda_vs_cpu", pad=1, ex
     card, line = summary("cuda")
     over = {k: (card[k], ref[k]) for k in card if not card[k] <= rule[k]}
     line = {"phase": phase, "batch": Bn, "T": Tn, "L": Ln, "layers": cfg.model.num_layers,
-            "seed": seed, **(extra or {}),
+            "seed": seed, **(extra or {}), "dropout_masks": len(masks),
             "grad_checkpointing": cfg.model.grad_checkpointing, "seconds": secs,
             "loss_cuda": res["cuda"][0], "loss_cpu_f32": lt,
             "loss_cpu_bf16": res["cpu_bf16"][0], "params": len(card),
@@ -1702,8 +1712,9 @@ def with_twins(fn, names=TRAIN_WRAPPERS + ("tiled_attention", "blocked_attention
 
     twin_of = {n: getattr(ops(n), n + "_plain") for n in names}
     users = [ops(m) for m in ("fused_layer", "fused_layer_bwd", "residue_block",
-                              "time_attention", "adaln_mlp")]
-    users.append(importlib.import_module("mdgen_finetune_tpu_torch.models.denoiser"))
+                              "time_attention", "adaln_mlp", "modular_stage", "residue_attention")]
+    users += [importlib.import_module(f"mdgen_finetune_tpu_torch.models.{m}")
+              for m in ("denoiser", "attention", "ipa")]
     uses = [(m, n) for m in users for n in names if hasattr(m, n)]
     kept = [getattr(m, n) for m, n in uses]
     IE = ops("ipa_encoder")
@@ -4441,6 +4452,13 @@ MODULAR_WRAPPERS = (("adaln_linear", "adaln_linear"), ("rope_attention", "rope_a
                     ("fused_attention", "fused_attention_fwd"))
 
 
+# the counts of natural-softmax frame attention (TPU rows 11a / 11b), as
+# (wrapper attribute): rope_attention's long body, tiled_attention; no
+# modular config launches either (interleave_ipa's frame stage is the fused
+# base-2 layer's, hyena's a convolution, no_rope's fused_attention)
+NATURAL_FRAME_COUNTS = ("long_natural", "natural")
+
+
 def modular_config(flag, frames=T, method="euler", steps=None, layers=NL):
     """The flagship width (5 x 384, 16 heads, prepend-IPA 4 x 32,
     abs_pos_emb, sim_condition, bf16) with one modular flag: at T = 100 (the
@@ -4460,6 +4478,11 @@ def modular_launches_per_eval(cfg):
     convolutions are ``torch.fft``) and ``adaln_mlp`` (2 ``adaln_linear``);
     the prepend encoder per layer 6 ``adaln_linear``, 1 ``ipa_attention``
     and its residue core (``fused_attention_fwd`` under ``no_rope``).
+    ``interleave_ipa`` runs the fused layer after its IPA (``trunk_layer``:
+    the same counts, both cores at base 2: the residue stage in
+    ``rope_attention``'s short base-2 body, the frame stage in its long
+    body at T <= 256 and ``tiled_attention`` above); ``hyena`` runs the
+    residue stage in the natural short body (TPU row 12).
     ``adaln_mlp`` counts its calls (each is 2 of the ``adaln_linear``)."""
     m = cfg.model
     n = {k: 0 for _, k in MODULAR_WRAPPERS}
@@ -4492,6 +4515,10 @@ def modular_sample(dev, name, cfg, batch_size, seed, pad=1):
         for part in ("routes", "forms", "bodies"):
             if hasattr(fn, part):
                 setattr(fn, part, [0] * len(getattr(fn, part)))
+        # the natural frame attention's launches (TPU rows 11a / 11b)
+        for part in NATURAL_FRAME_COUNTS:
+            if hasattr(fn, part):
+                setattr(fn, part, 0)
     for fn in twins:
         fn.cuda_calls = 0
     t0 = time.perf_counter()
@@ -4501,6 +4528,11 @@ def modular_sample(dev, name, cfg, batch_size, seed, pad=1):
     launches = {fn.__name__: fn.launches for fn in wrappers}
     by_part = {f"{fn.__name__}.{part}": list(getattr(fn, part)) for fn in wrappers
                for part in ("routes", "forms", "bodies") if hasattr(fn, part)}
+    natural = {f"{fn.__name__}.{part}": getattr(fn, part) for fn in wrappers
+               for part in NATURAL_FRAME_COUNTS if hasattr(fn, part)}
+    if len(natural) != len(NATURAL_FRAME_COUNTS) or any(natural.values()):
+        raise AssertionError(f"{name}: natural frame attention launched (rows 11a / 11b have "
+                             f"no modular path; expected 0 of each): {natural}")
     twin_calls = {fn.__name__: fn.cuda_calls for fn in twins}
     evals = eng.last_counts["evals"]
     per_eval, calls = modular_launches_per_eval(cfg)
@@ -4513,9 +4545,9 @@ def modular_sample(dev, name, cfg, batch_size, seed, pad=1):
           "dtype": "bf16", "sample_s": secs, "frames_per_s": batch_size * Tc / secs,
           "s_per_sample": secs / batch_size, "ms_per_eval": secs / evals * 1e3, **eng.last_counts,
           "launches_per_sample": launches, "launches_per_eval_derived": per_eval,
-          "launches_by_route_or_form": by_part,
+          "launches_by_route_or_form": by_part, "natural_frame_launches": natural,
           "calls_per_eval_derived": calls, "plain_calls_on_card": twin_calls, **checks})
-    return {**launches, **by_part}, (eng, batch, gen)
+    return {**launches, **by_part, **natural}, (eng, batch, gen)
 
 
 def max_logit(qkv, bk, mask, Hc):
@@ -4767,9 +4799,8 @@ def phase_modular_cuda_vs_cpu(dev):
 def phase_modular_cli(dev):
     """The forward-simulation CLI with an ``interleave_ipa`` checkpoint on
     the card: ``cli.synth_data`` writes one 1,100-frame peptide; a checkpoint
-    directory in the layout ``Trainer.save_checkpoint`` writes (the Trainer
-    refuses the modular layer: it does not train yet) holds the preset's
-    config with ``interleave_ipa`` and seeded random weights; then
+    directory in the layout ``Trainer.save_checkpoint`` writes holds the
+    preset's config with ``interleave_ipa`` and seeded random weights; then
     ``cli.sim_inference`` rolls out one 1,000-frame window with the preset's
     dopri5, and the PDB parses back to 1,000 models of 4 residues with
     ideal backbone bonds."""
@@ -4812,6 +4843,284 @@ def phase_modular_cli(dev):
         raise AssertionError(f"modular_cli: {len(models)} models of {residues} residues")
     if not np.isfinite(pos).all() or dev_nca > 1e-2 or dev_cac > 1e-2:
         raise AssertionError(f"modular_cli: backbone bonds off: N-CA {dev_nca}, CA-C {dev_cac}")
+
+
+# the modular layer's training path: the kernel wrappers, as (module, wrapper)
+MODULAR_TRAIN_PAIRS = tuple((n, n) for n in TRAIN_WRAPPERS) + (
+    ("fused_attention", "fused_attention_fwd"), ("fused_attention", "fused_attention_bwd"))
+MODULAR_TRAIN_FLAGS = {"hyena": {"hyena": True}, "no_rope": {"no_rope": True},
+                       "interleave_ipa": {"interleave_ipa": True}, "dropout": {"dropout": 0.1}}
+
+
+def modular_train_config(flag, batch_size, layers=NL):
+    """``train_config`` (the ``train_path`` config: 5 x 384, 16 heads,
+    prepend-IPA 4 x 32, T = 100, L = 4, bf16) with one of
+    ``MODULAR_TRAIN_FLAGS``, on the synthetic ``modular_data``."""
+    cfg = train_config(batch_size)
+    return cfg.replace(model=dataclasses.replace(cfg.model, num_layers=layers,
+                                                 **MODULAR_TRAIN_FLAGS[flag]),
+                       data=dataclasses.replace(cfg.data, data_dir=str(SCRATCH / "modular_data")))
+
+
+def modular_train_launches_derived(flag, layers=NL):
+    """The kernel launches of one ``Trainer.train_step`` (forward and
+    backward) of ``modular_train_config(flag)``, derived from the code.
+
+    - The prepend encoder's forward (``_EncoderFn``): per layer 6
+      ``adaln_linear``, 1 ``ipa_attention`` and its residue core
+      (``rope_attention``'s natural short body, ``fused_attention_fwd``
+      under ``no_rope``); its backward is the f32 plain recompute (no
+      kernel). Under dropout the encoder takes its plain path: no kernel.
+    - The head (``FinalLayerFn``): 1 ``adaln_linear`` forward, its backward
+      autograd through the plain math.
+    - A modular stage (``adaln_stage``): forward 2 ``adaln_linear`` and its
+      core; backward 1 ``adaln_linear`` (y), 4 ``linear_bwd`` (wgrad and
+      dgrad of both products), 1 ``modln_bwd`` and the core's backward:
+      ``rope_attention_bwd``'s natural short body (hyena's residue
+      stage), ``fused_attention_bwd`` (``no_rope``), none for Hyena's FFT and
+      the dropout path's dense probabilities.
+    - ``adaln_mlp`` (``AdaLNMLPFn``): forward 2 ``adaln_linear``; backward
+      ``adaln_mlp_bwd``, 2 ``adaln_linear``, 4 ``linear_bwd``, 1 ``modln_bwd``.
+    - ``interleave_ipa``: per layer the IPA block (``IPABlockFn``: 2
+      ``adaln_linear`` + 1 ``ipa_attention``, its backward the f32 plain
+      recompute), then ``FusedLayerFn``: forward ``trunk_layer`` (6
+      ``adaln_linear``, 2 ``rope_attention`` at base 2), backward
+      ``fused_layer_bwd``'s split route (6 ``adaln_linear``, 2
+      ``rope_attention`` recomputed, 12 ``linear_bwd``, 3 ``modln_bwd``, 2
+      ``rope_attention_bwd`` at base 2: the short body for the residues,
+      the long one for T = 100 frames).
+
+    Returns (launches, ``rope_attention_bwd.bodies`` per step)."""
+    n = {k: 0 for _, k in MODULAR_TRAIN_PAIRS}
+    enc = flag != "dropout"
+    n["adaln_linear"] = 6 * layers * enc + 1
+    n["ipa_attention"] = layers * enc
+    n["fused_attention_fwd" if flag == "no_rope" else "rope_attention"] += layers * enc
+    bodies = [0, 0, 0]
+    if flag == "interleave_ipa":
+        n["adaln_linear"] += layers * (2 + 6 + 6)
+        n["ipa_attention"] += layers
+        n["rope_attention"] += layers * 4
+        n["linear_bwd"] += 12 * layers
+        n["modln_bwd"] += 3 * layers
+        n["rope_attention_bwd"] += 2 * layers
+        bodies = [layers, layers, 0]
+        return n, bodies
+    # two modular stages and the MLP: 6 adaln_linear forward, 4 backward
+    n["adaln_linear"] += layers * 10
+    n["linear_bwd"] += 12 * layers
+    n["modln_bwd"] += 3 * layers
+    if flag == "hyena":
+        n["rope_attention"] += layers
+        n["rope_attention_bwd"] += layers
+        bodies = [0, 0, layers]
+    elif flag == "no_rope":
+        n["fused_attention_fwd"] += 2 * layers
+        n["fused_attention_bwd"] += 2 * layers
+    return n, bodies
+
+
+def phase_modular_bwd_kernels(dev):
+    """The natural-softmax mode of ``rope_attention_bwd``'s short body (row
+    f' natural: the backward of TPU row 12, the modular layer's residue
+    attention) against its plain twin in f32 on the card, at ``hyena``'s
+    residue shape (B = 32, T = 100: 3,200 frames of L = 4, C = 384, 16
+    heads) at unit logits and with q scaled 400x (logits ~1e3, the max
+    subtraction's case, as ``modular_kernels`` feeds the forward), and the
+    N > 16 natural route through ``fused_attention`` (row i,
+    ``natural_long_bwd``) at an L = 32 residue view. ms by events, back to
+    back, the host's time, the plain twin's ms, the bound (each input read
+    once, each output written once; ~10 N (N + 1) D operations per sequence
+    and head), and as the library time ``torch.autograd`` of SDPA's
+    backward on the RoPE'd heads (its forward taken once outside the
+    timing); the launch resources."""
+    import torch.nn.functional as F
+
+    from mdgen_finetune_tpu_torch.ops import rope_attention_bwd as RB
+
+    g = torch.Generator(device=dev).manual_seed(301)
+    bf = torch.bfloat16
+    D = C // H
+    out = {}
+    for name, (G_, N_), qs in (("natural_residue_B32", (B_TRAIN * T, L), 1.0),
+                               ("natural_residue_B32_q400", (B_TRAIN * T, L), 400.0),
+                               ("natural_long_route_L32", (800, 32), 1.0)):
+        view = (G_, N_, 1)
+        qkv = torch.randn(*view, 3 * C, generator=g, device=dev)
+        qkv[..., :C] *= D ** -0.5 * qs
+        qkv = qkv.to(bf)
+        do = (0.1 * torch.randn(*view, C, generator=g, device=dev)).to(bf)
+        bk, bv = (torch.randn(C, generator=g, device=dev).to(bf) for _ in range(2))
+        mask = torch.ones(view, device=dev)
+        mask[:T, -1] = 0  # element 0's last residue, in every frame
+        kw = dict(num_heads=H, base2=False)
+        before = list(RB.rope_attention_bwd.bodies)
+        got = RB.rope_attention_bwd(qkv, do, bk, bv, mask, **kw)
+        ref = RB.rope_attention_bwd_plain(qkv.float(), do.float(), bk.float(), bv.float(), mask,
+                                          **kw)
+        torch.cuda.synchronize()
+        launched = RB.rope_attention_bwd.bodies[2] - before[2]
+        if launched != int(N_ <= 16):
+            raise AssertionError(f"modular_bwd_kernels[{name}]: natural short launches "
+                                 f"{launched}")
+        errs = [check(f"rope_attention_bwd[{name}].{p}", a, b, 1e-2)
+                for p, a, b in zip(("dqkv", "dbk", "dbv"), got, ref)]
+        del ref
+        q, k, v, am = sdpa_inputs(qkv, bk, bv, mask, H)
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=am, scale=1.0)
+        dob = torch.randn_like(o)
+        lib = lambda: torch.autograd.grad(o, (q, k, v), dob, retain_graph=True)  # noqa: E731
+        run = lambda: RB.rope_attention_bwd(qkv, do, bk, bv, mask, **kw)  # noqa: E731
+        S_ = G_
+        entry = dict(
+            shape=f"{S_} sequences x {H} heads, {N_} queries, {N_ + 1} keys, D = {D}, natural"
+                  + (", q x 400" if qs != 1.0 else ""),
+            route="short body (csrc/rope_attention_bwd.cuh, NAT)" if N_ <= 16 else
+                  "fused_attention_fwd + fused_attention_bwd (row i), RoPE outside",
+            max_abs_err=max(e for e, _ in errs),
+            tol={p: t for p, (_, t) in zip(("dqkv", "dbk", "dbv"), errs)},
+            max_logit=max_logit(qkv, bk, mask, H),
+            ms=time_ms(run), back_to_back_ms=back_to_back_ms(run), host_ms=host_ms(run),
+            plain_ms=time_ms(lambda: RB.rope_attention_bwd_plain(qkv, do, bk, bv, mask, **kw),
+                             reps=5),
+            library_ms=time_ms(lib),
+            library_note="torch.autograd.grad of F.scaled_dot_product_attention on the RoPE'd "
+                         "heads (the backward alone; the forward outside the timing)",
+            bound=bound_ms(nbytes(qkv, do, bk, bv, mask) + qkv.numel() * 2 + 2 * C * 4,
+                           10.0 * S_ * H * N_ * (N_ + 1) * D))
+        if N_ <= 16:
+            entry["resources"] = RB.resources(N_, H, C, G_, 1, base2=False)
+            entry["parent"] = None  # the natural mode is new: no earlier commit has it
+        out[name] = entry
+        del q, k, v, o, qkv, do
+    emit({"phase": "modular_bwd_kernels", "kernels": out,
+          "rule": "max abs err <= 0.01 x max(1, max |plain f32|) per output"})
+    return out
+
+
+def phase_train_modular(dev):
+    """The modular layer trained through ``Trainer`` at full width (the
+    ``train_path`` config: 5 x 384, 16 heads, prepend IPA 4 x 32, T = 100,
+    L = 4, bf16, B = 32) for each of ``hyena``, ``no_rope``,
+    ``interleave_ipa`` and the flagship with ``dropout = 0.1``
+    (``train_cell``: 2 warm-up and 10 timed steps, 20 steps on one fixed
+    batch, a checkpoint round trip; the loss finite and the parameters
+    moving), each with its launches per step as derived
+    (``modular_train_launches_derived``) and asserted, ``rope_attention_bwd``
+    by body, no plain twin on the card, and a trace of one step (idle
+    share). Returns ({flag: launches per step, with the natural short
+    body's as ``rope_attention_bwd.natural``}, {flag: the natural short
+    body's launches over the cell's run})."""
+    from mdgen_finetune_tpu_torch.data.synthetic import make_synthetic_dataset
+    from mdgen_finetune_tpu_torch.ops import rope_attention_bwd as RB
+
+    split = make_synthetic_dataset(str(SCRATCH / "modular_data"), ["AAGG", "GHKL"],
+                                   num_frames=300)
+    res, natural = {}, {}
+    for flag in MODULAR_TRAIN_FLAGS:
+        cfg = modular_train_config(flag, B_TRAIN)
+        want, want_bodies = modular_train_launches_derived(flag)
+        RB.rope_attention_bwd.bodies = [0, 0, 0]
+        products, attention = step_flops(B_TRAIN, T, L)
+        launches, per_step, (trainer, state, tbatch, tgen) = train_cell(
+            dev, f"train_modular_{flag}", cfg, split, B_TRAIN, MODULAR_TRAIN_PAIRS,
+            3 * products + 3.5 * attention,
+            {"flag": flag, "launches_per_step_derived": want,
+             "rope_attention_bwd_bodies_per_step_derived": want_bodies})
+        steps = 33  # train_cell: 2 + 10 + 20 + 1
+        bodies = [b / steps for b in RB.rope_attention_bwd.bodies]
+        natural[flag] = RB.rope_attention_bwd.bodies[2]
+        moved = sum((state.params[k] - state.ema_params[k]).abs().max().item() > 0
+                    for k in state.params)
+        emit({"phase": f"train_modular_{flag}_checks", "rope_attention_bwd_bodies_per_step":
+              bodies, "params_moved_from_ema": moved, "params": len(state.params)})
+        if per_step != {k: float(v) for k, v in want.items()}:
+            raise AssertionError(f"train_modular_{flag}: launches per step {per_step}, "
+                                 f"expected {want}")
+        if bodies != [float(b) for b in want_bodies]:
+            raise AssertionError(f"train_modular_{flag}: rope_attention_bwd bodies {bodies}, "
+                                 f"expected {want_bodies}")
+        if not moved:
+            raise AssertionError(f"train_modular_{flag}: the parameters did not move")
+        phase_trace(f"train_modular_{flag}_trace",
+                    lambda: trainer.train_step(state, tbatch, tgen))
+        res[flag] = {**per_step, "rope_attention_bwd.natural": bodies[2]}
+        del trainer, state
+    shutil.rmtree(SCRATCH / "modular_data", ignore_errors=True)
+    return res, natural
+
+
+def phase_hyena_likelihood(dev):
+    """One log-likelihood step of the ``hyena`` config (seeded random
+    weights, full width, bf16) at B = 16: ``LatentMDGen.forward`` on the
+    modular branch and its VJP in x (the natural short backward of the
+    residue stage, Hyena's FFT through autograd); ll finite of shape (B,);
+    x0 and delta_logp with the kernels against the plain twins on the card
+    in bf16 and in f32, the same probe, the repo's rule; the launches of the
+    step."""
+    from mdgen_finetune_tpu_torch.inference import InferenceEngine
+    from mdgen_finetune_tpu_torch.inference import sampling as S
+    from mdgen_finetune_tpu_torch.ops import rope_attention_bwd as RB
+
+    cfg = modular_config("hyena")
+    cfg32 = cfg.replace(model=dataclasses.replace(cfg.model, use_bf16=False))
+    eng, sd = random_engine(dev, cfg, seed=311)
+    Bl = 16
+    batch, _ = make_trajectories(Bl, 312, dev)
+    probes = torch.randint(0, 2, (1, Bl, T, L, cfg.latent_dim), generator=torch.Generator(
+        device=dev).manual_seed(313), device=dev).float() * 2 - 1
+    recorded = []
+    integrate = S.ode_likelihood
+
+    def recording(*a, **k):
+        out = integrate(*a, **k)
+        recorded.append(out)
+        return out
+
+    def run(e):
+        def go():
+            ll = e.log_likelihood(batch, num_steps=1, probes=probes)
+            return ll, recorded[-1]
+        return go
+
+    S.ode_likelihood = recording
+    try:
+        run(eng)()  # warm-up
+        torch.cuda.synchronize()
+        wrappers, twins = _counters(MODULAR_TRAIN_PAIRS)
+        before = {fn.__name__: fn.launches for fn in wrappers}
+        natural_before = RB.rope_attention_bwd.bodies[2]
+        for fn in twins:
+            fn.cuda_calls = 0
+        t0 = time.perf_counter()
+        ll, (x0, delta) = run(eng)()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches - before[fn.__name__] for fn in wrappers}
+        # the natural short body's launches (row f' natural)
+        launches["rope_attention_bwd.natural"] = RB.rope_attention_bwd.bodies[2] - natural_before
+        twin_calls = {fn.__name__: fn.cuda_calls for fn in twins}
+        _, plain = with_twins(run(eng))
+        f32 = InferenceEngine(cfg32, sd, device=dev)
+        _, truth = with_twins(run(f32))
+        del f32
+    finally:
+        S.ode_likelihood = integrate
+    twins_x0, ok_x0 = composition(x0, plain[0], truth[0])
+    twins_dl, ok_dl = composition(delta, plain[1], truth[1])
+    emit({"phase": "hyena_likelihood", "B": Bl, "T": T, "L": L, "C": C, "layers": NL,
+          "dtype": "bf16", "steps": 1, "ms_per_step": secs * 1e3, "launches_per_step": launches,
+          "plain_calls_on_card": twin_calls, "ll_mean": ll.mean().item(),
+          "kernels_vs_twins": dict(x0=twins_x0, delta_logp=twins_dl),
+          "rule": "rel(card) <= 2 rel(plain bf16) + 0.01, truth: plain f32"})
+    if ll.shape != (Bl,) or not torch.isfinite(ll).all():
+        raise AssertionError(f"hyena_likelihood: ll {ll}")
+    if any(twin_calls.values()) or not launches["rope_attention_bwd.natural"] > 0:
+        raise AssertionError(f"hyena_likelihood: twins {twin_calls}, launches {launches}")
+    if not (ok_x0 and ok_dl):
+        raise AssertionError(f"hyena_likelihood: over the rule: {twins_x0} {twins_dl}")
+    return launches
 
 
 def phase_micro_ops(dev):
@@ -5585,14 +5894,27 @@ def main():
         dev, "interleave_main", modular_config("interleave_ipa"), B, seed=101)
     phase_trace("interleave_trace", lambda: eng.sample(batch, gen))
     del eng
-    interleave_1000, (eng, batch, gen) = modular_sample(
+    interleave_1000_launches, (eng, batch, gen) = modular_sample(
         dev, "interleave_1000", modular_config("interleave_ipa", frames=T_SIM), B_SIM, seed=111)
     phase_trace("interleave_1000_trace", lambda: eng.sample(batch, gen))
     del eng
-    modular_sample(dev, "hyena_main", modular_config("hyena"), B, seed=121, pad=0)
+    hyena_launches, _ = modular_sample(dev, "hyena_main", modular_config("hyena"), B, seed=121,
+                                       pad=0)
     no_rope_launches, _ = modular_sample(dev, "no_rope_main", modular_config("no_rope"), B,
                                          seed=131)
     phase_modular_cli(dev)
+    # training the modular layer: the natural backward, four trained configs,
+    # their gradients card vs CPU, one hyena log-likelihood step
+    t_train_modular = time.perf_counter()
+    modular_bwd = phase_modular_bwd_kernels(dev)
+    train_modular, train_natural = phase_train_modular(dev)
+    for flag in MODULAR_TRAIN_FLAGS:
+        phase_grad_across_devices(dev, modular_train_config(flag, 2, layers=1),
+                                  f"grad_cuda_vs_cpu_{flag}", seed=321,
+                                  extra={"flag": flag, "cut": "trunk and encoder cut to 1 layer "
+                                         "of 5 (the CPU pays for every layer); full width"})
+    hyena_ll = phase_hyena_likelihood(dev)
+    emit({"phase": "train_modular_s", "seconds": time.perf_counter() - t_train_modular})
     probe = phase_micro_ops(dev)
     shutil.rmtree(SCRATCH, ignore_errors=True)
 
@@ -5673,21 +5995,26 @@ def main():
             entry["edge_cases_worst_share_of_tol"] = {
                 c: v for c, v in rope_long["worst_share_of_tol"].items() if c.startswith(part)}
     # the modular layer's natural-softmax cores (TPU rows 12, 11a, 11b and the
-    # no_rope route of row 10): launches over interleave_main (rope_attention
-    # by body: row 12 the short body, the residue stage and the encoder, 10
-    # per evaluation; row 11a the long body, the frame stage, 5),
-    # interleave_1000 (tiled_attention) and no_rope_main
+    # no_rope route of row 10): launches over hyena_main (rope_attention's
+    # natural short body: row 12, the residue stage, and the encoder's MHA,
+    # 10 per evaluation) and no_rope_main. Rows 11a / 11b (natural frame
+    # attention): the long body's and tiled_attention's natural launches
+    # counted over interleave_main and interleave_1000 (modular_sample
+    # asserts 0: interleave_ipa's frame stages are the base-2 trunk's, as
+    # in JAX)
+    frames_natural = {part: interleave_launches[part] + interleave_1000_launches[part]
+                      for part in ("rope_attention.long_natural", "tiled_attention.natural")}
     ta = "mdgen_finetune_tpu/ops/time_attention.py"
     natural = (
         ("rope_attention[natural, row 12]", "row12_residue", "rope_attention",
          "mdgen_finetune_tpu/ops/residue_attention.py:141 (_pallas_fwd, pallas_call :183, "
-         "body _kernel :65)", interleave_launches["rope_attention.bodies"][1]),
+         "body _kernel :65)", hyena_launches["rope_attention.bodies"][1]),
         ("rope_attention[natural, row 11a]", "row11a_frames", "rope_attention",
          f"{ta}:244 (_pallas_fwd, pallas_call :279, body _kernel :190)",
-         interleave_launches["rope_attention.bodies"][2]),
+         frames_natural["rope_attention.long_natural"]),
         ("tiled_attention[natural, row 11b]", "row11b_frames_T1000", "tiled_attention",
          f"{ta}:343 (_pallas_fwd_blocked, pallas_call :385, body _kernel_blocked :303)",
-         interleave_1000["tiled_attention"]),
+         frames_natural["tiled_attention.natural"]),
         # the no_rope route by view: the residue view (the trunk's residue
         # stage and the encoder's, 2 per layer and evaluation) runs the short
         # form, the frame view (1 per layer) the long one; launches counted by form
@@ -5710,7 +6037,7 @@ def main():
          launches["rope_attention.bodies"][0]),
         ("rope_attention[short, row 12 natural]", "row12_natural", "rope_attention",
          "mdgen_finetune_tpu/ops/residue_attention.py:141 (_pallas_fwd, pallas_call :183)",
-         interleave_launches["rope_attention.bodies"][1]),
+         hyena_launches["rope_attention.bodies"][1]),
         ("rope_attention[short, encoder MHA]", "encoder_mha", "rope_attention",
          "mdgen_finetune_tpu/ops/ipa_encoder.py:441 (_encoder_call, pallas_call :484, "
          "body _kernel :234)", launches["rope_attention.bodies"][1]),
@@ -5731,6 +6058,7 @@ def main():
             line[-1]["uses"] = {c: short[c] for c in ("bwd_t1000", "bwd_merged_p11")}
     for name, case, src, rep_, n_launch in natural:
         k = modular[case]
+        off_path = n_launch == 0
         line.append({"name": name, "route": "cuda", "source": meta[src][0], "replaces": rep_,
                      "launches": n_launch, "max_abs_err": k["max_abs_err"], "tol": k["tol"],
                      "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
@@ -5741,7 +6069,35 @@ def main():
                      **{f: k[f] for f in ("parent", "ex2_floor_ms", "resources") if f in k},
                      "more_shapes": {c: {f: v for f, v in modular[c].items() if f != "shape"}
                                      for c in modular if modular[c]["kernel"] == src.split("[")[0]
-                                     and c != case}})
+                                     and c != case},
+                     **({"on_model_path": False,
+                         "note": "natural frame attention has no model path: interleave_ipa's "
+                                 "layers run the fused (base 2) layer after their IPA, as "
+                                 "JAX's gate :270 routes them; launches counted over "
+                                 "interleave_main and interleave_1000"}
+                        if off_path else {})})
+    # row f' in natural mode (the backward of row 12): the natural short
+    # body's launches counted over the four train_modular runs (hyena's
+    # alone launches it, 5 a step) and per step by flag; its N > 16 route
+    # runs row i and is reported beside it
+    k = modular_bwd["natural_residue_B32"]
+    line.append({"name": "rope_attention_bwd[short, natural: row 12's backward]", "route": "cuda",
+                 "source": meta["rope_attention_bwd"][0],
+                 "replaces": "mdgen_finetune_tpu/ops/residue_attention.py:233 (_ra_bwd: jax.vjp "
+                             "of _xla_impl(base2=False); the VJP of row 12, pallas_call :183)",
+                 "launches": sum(train_natural.values()),
+                 "launches_per_step": {f: v["rope_attention_bwd.natural"]
+                                       for f, v in train_modular.items()},
+                 "likelihood_launches_per_step": hyena_ll["rope_attention_bwd.natural"],
+                 "max_abs_err": k["max_abs_err"], "tol": k["tol"], "ms": k["ms"],
+                 "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0], "bound_by": k["bound"][1],
+                 "library_ms": k["library_ms"], "library_note": k["library_note"],
+                 "shape": k["shape"], "back_to_back_ms": k["back_to_back_ms"],
+                 "host_ms": k["host_ms"], "resources": k["resources"],
+                 "q400": {f: v for f, v in modular_bwd["natural_residue_B32_q400"].items()
+                          if f != "shape"},
+                 "long_route_L32": {f: v for f, v in modular_bwd["natural_long_route_L32"].items()
+                                    if f != "shape"}})
     # row 4' (launches: the train_merged run) and row 13 (the probe's run)
     k = merged["T100"]
     line.append({"name": "fused_layer_bwd_merged", "route": "cuda",

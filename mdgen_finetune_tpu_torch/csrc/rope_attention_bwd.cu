@@ -131,16 +131,22 @@ constexpr bool SHORT_N4 = false;
 constexpr bool SHORT_N4 = true;
 #endif
 
-template <int D, int NKC>
+template <int D, int NKC, bool NAT>
 __global__ void __launch_bounds__(SHORT_THREADS) rope_attention_bwd_short_kernel(const ShortArgs a) {
   extern __shared__ __align__(16) unsigned char smem_s[];
-  short_stream<D, NKC>(a, blockIdx.x, gridDim.x, smem_s);
+  short_stream<D, NKC, NAT>(a, blockIdx.x, gridDim.x, smem_s);
 }
 
+// base2 = 0: the natural-softmax instances (the modular layer's residue
+// attention, the backward of rope_attention(base2=False)); N = 4 keeps its
+// unrolled build in both modes
 template <int D>
-auto short_kernel(int N) {
-  return N == 4 && SHORT_N4 ? rope_attention_bwd_short_kernel<D, 5>
-                             : rope_attention_bwd_short_kernel<D, 0>;
+auto short_kernel(int N, int base2 = 1) {
+  if (!base2)
+    return N == 4 && SHORT_N4 ? rope_attention_bwd_short_kernel<D, 5, true>
+                               : rope_attention_bwd_short_kernel<D, 0, true>;
+  return N == 4 && SHORT_N4 ? rope_attention_bwd_short_kernel<D, 5, false>
+                             : rope_attention_bwd_short_kernel<D, 0, false>;
 }
 
 // resident blocks per SM that the register allocation must allow: up to
@@ -164,10 +170,13 @@ template <int D>
 int launch(const void* qkv, const void* dout, const void* bias_k, const void* bias_v,
            const void* key_valid, const void* cos_t, const void* sin_t, void* dqkv,
            void* dbias, void* scratch, int G, int N, int I, int H, int C, cudaStream_t stream,
-           int spb, int hg, int grid) {
+           int spb, int hg, int grid, int base2) {
   const long long S = (long long)G * I;
   const Shape sh = shape(S, N, H, D, spb, hg, 2);
   if (sh.blocks == 0) return (int)cudaErrorInvalidValue;
+  // the natural softmax has the short body only (N > 16 takes
+  // fused_attention_bwd, ops/rope_attention_bwd.py)
+  if (!base2 && !sh.short_seq) return (int)cudaErrorInvalidValue;
   const bf16* q = static_cast<const bf16*>(qkv);
   const bf16* go = static_cast<const bf16*>(dout);
   const bf16* bk = static_cast<const bf16*>(bias_k);
@@ -179,7 +188,7 @@ int launch(const void* qkv, const void* dout, const void* bias_k, const void* bi
   float* part = static_cast<float*>(scratch);
   if (sh.short_seq) {
     if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
-    auto kern = short_kernel<D>(N);
+    auto kern = short_kernel<D>(N, base2);
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sh.smem);
     if (e != cudaSuccess) return (int)e;
     const unsigned blocks = (unsigned)grid < sh.blocks ? (unsigned)grid : sh.blocks;
@@ -217,40 +226,42 @@ int kernel_resources(K kern, int threads, size_t smem, long long* info) {
 }
 
 template <int D>
-int resources(int N, int H, long long* info, int spb, int hg) {
+int resources(int N, int H, long long* info, int spb, int hg, int base2) {
   const Shape sh = shape(1, N, H, D, spb, hg, 2);
-  if (sh.blocks == 0) return (int)cudaErrorInvalidValue;
-  return sh.short_seq ? kernel_resources(short_kernel<D>(N), SHORT_THREADS, sh.smem, info)
+  if (sh.blocks == 0 || (!base2 && !sh.short_seq)) return (int)cudaErrorInvalidValue;
+  return sh.short_seq ? kernel_resources(short_kernel<D>(N, base2), SHORT_THREADS, sh.smem, info)
                       : kernel_resources(rope_attention_bwd_kernel<D>, THREADS, sh.smem, info);
 }
 
 }  // namespace
 
-// spb, hg: the short kernel's plan (trailing: an older entry point without
-// them is called the same way)
-extern "C" int rope_attention_bwd_resources(int N, int H, int C, long long* info, int spb, int hg) {
+// spb, hg: the short kernel's plan; base2: its softmax (0 natural). Trailing
+// arguments: an older entry point without them is called the same way
+extern "C" int rope_attention_bwd_resources(int N, int H, int C, long long* info, int spb, int hg,
+                                            int base2) {
   switch (C / H) {
-    case 16: return resources<16>(N, H, info, spb, hg);
-    case 24: return resources<24>(N, H, info, spb, hg);
-    case 32: return resources<32>(N, H, info, spb, hg);
-    case 64: return resources<64>(N, H, info, spb, hg);
+    case 16: return resources<16>(N, H, info, spb, hg, base2);
+    case 24: return resources<24>(N, H, info, spb, hg, base2);
+    case 32: return resources<32>(N, H, info, spb, hg, base2);
+    case 64: return resources<64>(N, H, info, spb, hg, base2);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // spb, hg, grid: the short kernel's plan and its persistent grid (its
-// resident blocks, at most one per unit; ops/rope_attention_bwd.py::_slots)
+// resident blocks, at most one per unit; ops/rope_attention_bwd.py::_slots);
+// base2: the softmax (1 the trunk's exp2 fold, 0 the natural one, N <= 16)
 extern "C" int rope_attention_bwd(const void* qkv, const void* dout, const void* bias_k,
                                   const void* bias_v, const void* key_valid, const void* cos_t,
                                   const void* sin_t, void* dqkv, void* dbias, void* scratch,
                                   int G, int N, int I, int H, int C, void* stream, int spb,
-                                  int hg, int grid) {
+                                  int hg, int grid, int base2) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C / H) {
-    case 16: return launch<16>(qkv, dout, bias_k, bias_v, key_valid, cos_t, sin_t, dqkv, dbias, scratch, G, N, I, H, C, s, spb, hg, grid);
-    case 24: return launch<24>(qkv, dout, bias_k, bias_v, key_valid, cos_t, sin_t, dqkv, dbias, scratch, G, N, I, H, C, s, spb, hg, grid);
-    case 32: return launch<32>(qkv, dout, bias_k, bias_v, key_valid, cos_t, sin_t, dqkv, dbias, scratch, G, N, I, H, C, s, spb, hg, grid);
-    case 64: return launch<64>(qkv, dout, bias_k, bias_v, key_valid, cos_t, sin_t, dqkv, dbias, scratch, G, N, I, H, C, s, spb, hg, grid);
+    case 16: return launch<16>(qkv, dout, bias_k, bias_v, key_valid, cos_t, sin_t, dqkv, dbias, scratch, G, N, I, H, C, s, spb, hg, grid, base2);
+    case 24: return launch<24>(qkv, dout, bias_k, bias_v, key_valid, cos_t, sin_t, dqkv, dbias, scratch, G, N, I, H, C, s, spb, hg, grid, base2);
+    case 32: return launch<32>(qkv, dout, bias_k, bias_v, key_valid, cos_t, sin_t, dqkv, dbias, scratch, G, N, I, H, C, s, spb, hg, grid, base2);
+    case 64: return launch<64>(qkv, dout, bias_k, bias_v, key_valid, cos_t, sin_t, dqkv, dbias, scratch, G, N, I, H, C, s, spb, hg, grid, base2);
     default: return (int)cudaErrorInvalidValue;
   }
 }

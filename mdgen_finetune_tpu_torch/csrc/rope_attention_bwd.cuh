@@ -229,8 +229,12 @@ __device__ __forceinline__ void stage_bias(const ShortArgs& a, const ShortLayout
 // (dk, dv of a key from the p and dl of its column); the gradients out.
 // NKC: N + 1 known at compile time (trunk stage 1 at L = 4: the loops over
 // keys and queries unroll without guards, so the compiler interleaves the
-// keys' dot products), 0: N read from the arguments; the same arithmetic
-template <int D, int NKC>
+// keys' dot products), 0: N read from the arguments; the same arithmetic.
+// NAT: the natural softmax (the backward of rope_attention(base2=False), the
+// modular layer's residue attention): the row's logits are kept in
+// registers and their maximum taken before the exponent, p = exp(l - max) /
+// sum, and dl = p (dp - rowsum) without the factor ln 2
+template <int D, int NKC, bool NAT = false>
 __device__ __forceinline__ void unit_body(const ShortArgs& a, const Unit& U, unsigned char* raw,
                                           const ShortLayout& lay, unsigned char* sm) {
   const int N = NKC > 0 ? NKC - 1 : a.N, NK = N + 1, hgd = a.hg * D;
@@ -278,23 +282,39 @@ __device__ __forceinline__ void unit_body(const ShortArgs& a, const Unit& U, uns
     load_f4<D>(Qs + ho + n * D, q);
     ropefwd::unpack_row<D>(db + (size_t)(sl * N + n) * hgd + hl * D, go);
     float ex[SHORT_KEYS], dp[SHORT_KEYS];
-    float den = 0.f, sdp = 0.f;
+    float den = 0.f, sdp = 0.f, mx = -3.0e38f;
 #pragma unroll
     for (int j = 0; j < SHORT_KEYS; ++j) {
       if (j <= N) {
         float kj[D], vj[D];
         load_f4<D>(j < N ? K + j * D : Bq + h * D, kj);
-        ex[j] = exp2f(fminf(dot<D>(q, kj) + (j < N ? kb[j] : 0.f), 100.f));
-        den += ex[j];
+        const float l = dot<D>(q, kj) + (j < N ? kb[j] : 0.f);
+        if constexpr (NAT) {
+          ex[j] = l;  // the logit; its exponent once the row's maximum is known
+          mx = fmaxf(mx, l);
+        } else {
+          ex[j] = exp2f(fminf(l, 100.f));
+          den += ex[j];
+        }
         if (j < N)
           ropefwd::unpack_row<D>(V + (size_t)j * 3 * hgd, vj);
         else
           load_f4<D>(Bq + (a.H + h) * D, vj);
         dp[j] = dot<D>(go, vj);
-        sdp += ex[j] * dp[j];
+        if constexpr (!NAT) sdp += ex[j] * dp[j];
       }
     }
-    const float inv = 1.f / (den + 1e-30f), rsum = __fmul_rn(sdp, inv);
+    if constexpr (NAT) {
+#pragma unroll
+      for (int j = 0; j < SHORT_KEYS; ++j) {
+        if (j <= N) {
+          ex[j] = expf(ex[j] - mx);
+          den += ex[j];
+          sdp += ex[j] * dp[j];
+        }
+      }
+    }
+    const float inv = NAT ? 1.f / den : 1.f / (den + 1e-30f), rsum = __fmul_rn(sdp, inv);
     float dq[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) dq[d] = 0.f;
@@ -304,7 +324,7 @@ __device__ __forceinline__ void unit_body(const ShortArgs& a, const Unit& U, uns
     for (int j = 0; j < SHORT_KEYS; ++j) {
       if (j <= N) {
         const float p = ex[j] * inv;
-        const float dl = LN2F * p * (dp[j] - rsum);
+        const float dl = NAT ? p * (dp[j] - rsum) : LN2F * p * (dp[j] - rsum);
         float kj[D];
         load_f4<D>(j < N ? K + j * D : Bq + h * D, kj);
 #pragma unroll
@@ -372,7 +392,7 @@ __device__ __forceinline__ void unit_body(const ShortArgs& a, const Unit& U, uns
 
 // the standalone kernel's walk: units u0, u0 + stride, ... with the next
 // unit's spans in flight (the other raw buffer) while this one is computed
-template <int D, int NKC>
+template <int D, int NKC, bool NAT = false>
 __device__ __forceinline__ void short_stream(const ShortArgs& a, long long u, long long stride,
                                              unsigned char* sm) {
   const ShortLayout lay(a.spb, a.hg, a.N, D, 2, a.H);
@@ -385,7 +405,7 @@ __device__ __forceinline__ void short_stream(const ShortArgs& a, long long u, lo
     __syncthreads();  // unit u has landed; every thread is done with the last one
     if (u + stride < a.units) load_unit<D>(a, unit_of(a, u + stride), sm + (k ^ 1) * lay.raw, lay);
     ropefwd::cp_commit();
-    unit_body<D, NKC>(a, unit_of(a, u), sm + k * lay.raw, lay, sm);
+    unit_body<D, NKC, NAT>(a, unit_of(a, u), sm + k * lay.raw, lay, sm);
   }
 }
 

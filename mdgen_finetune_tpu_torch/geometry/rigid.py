@@ -68,6 +68,18 @@ def rotmat_to_quat(rot: torch.Tensor) -> torch.Tensor:
     return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
 
 
+def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of scalar-first quaternions (..., 4)."""
+    w1, x1, y1, z1 = q1.unbind(-1)
+    w2, x2, y2, z2 = q2.unbind(-1)
+    return torch.stack([
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+    ], dim=-1)
+
+
 class Rigid:
     """A batch of SE(3) transforms: ``rot`` (..., 3, 3) and ``trans`` (..., 3)."""
 
@@ -78,11 +90,23 @@ class Rigid:
         self.trans = trans
 
     @staticmethod
-    def from_tensor_7(t7: torch.Tensor, normalize_quats: bool = True) -> "Rigid":
-        quat = t7[..., :4]
-        if normalize_quats:
+    def identity(shape: Tuple[int, ...], dtype=torch.float32, device=None) -> "Rigid":
+        """Identity transforms of batch ``shape``."""
+        rot = torch.eye(3, dtype=dtype, device=device).expand(*shape, 3, 3)
+        return Rigid(rot, torch.zeros(*shape, 3, dtype=dtype, device=device))
+
+    @staticmethod
+    def from_quat_trans(quat: torch.Tensor, trans: torch.Tensor,
+                        normalize: bool = True) -> "Rigid":
+        """From scalar-first quaternions (..., 4), normalised unless told
+        not to, and translations (..., 3)."""
+        if normalize:
             quat = quat / torch.linalg.vector_norm(quat, dim=-1, keepdim=True)
-        return Rigid(quat_to_rotmat(quat), t7[..., 4:])
+        return Rigid(quat_to_rotmat(quat), trans)
+
+    @staticmethod
+    def from_tensor_7(t7: torch.Tensor, normalize_quats: bool = True) -> "Rigid":
+        return Rigid.from_quat_trans(t7[..., :4], t7[..., 4:], normalize=normalize_quats)
 
     @staticmethod
     def from_tensor_4x4(m: torch.Tensor) -> "Rigid":
@@ -116,6 +140,17 @@ class Rigid:
 
     def to_tensor_7(self) -> torch.Tensor:
         return torch.cat([rotmat_to_quat(self.rot), self.trans], dim=-1)
+
+    def to_tensor_4x4(self) -> torch.Tensor:
+        """Homogeneous matrices (..., 4, 4)."""
+        m = torch.zeros(*self.rot.shape[:-2], 4, 4, dtype=self.rot.dtype, device=self.rot.device)
+        m[..., :3, :3] = self.rot
+        m[..., :3, 3] = self.trans
+        m[..., 3, 3] = 1.0
+        return m
+
+    def scale_translation(self, factor) -> "Rigid":
+        return Rigid(self.rot, self.trans * factor)
 
     @property
     def shape(self) -> Tuple[int, ...]:

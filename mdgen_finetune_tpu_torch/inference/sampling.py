@@ -202,7 +202,8 @@ class InferenceEngine:
         n = cfg.transport.inference_steps
         xc = zs0.to(self.device, torch.float32).clone().contiguous()
         method = cfg.transport.sampling_method
-        flat = not (model.modular or cfg.task.design) and self.sampler == "ode"
+        flat = (not (model.modular or model.layer_ipa or cfg.task.design)
+                and self.sampler == "ode")
         if method == "euler" and self.transport.prediction == "velocity" and flat:
             dt = (t1 - t0) / n
             ts = t0 + dt * torch.arange(n, dtype=torch.float32, device=self.device)
@@ -236,9 +237,10 @@ class InferenceEngine:
         L, lat), else drawn from ``generator``) back to x0, and log p =
         ``prior_logp(x0) - delta_logp``. Each step is one
         ``LatentMDGen.forward`` (the trunk's ``FusedTrunkFn``) and its
-        backward in x. Design configs append the one-hot sequence to the
-        latents, as JAX does, and are refused with the modular branch
-        (``refuse_input_grad``)."""
+        backward in x (the modular branch's and ``interleave_ipa``'s
+        layers one by one, ``LatentMDGenLayer.forward``). Design configs
+        append the one-hot sequence to the latents, as JAX does, and are
+        refused (``refuse_input_grad``: JAX's likelihood is NaN there)."""
         cfg, model = self.cfg, self.model
         batch = self._batch(batch)
         prep = prep_batch(cfg, batch)

@@ -14,13 +14,21 @@ src/mdgen/model/mha.py:60-407):
 ``MultiheadAttention`` is the module of the modular layer (the JAX
 package's ``MultiheadAttention``, :34-121) with the natural softmax: the
 fused (C -> 3C) projection, then the factorized routes of ``tl = (T, L)``
-(``ops/time_attention.time_attention`` over frames,
-``ops/residue_attention.residue_attention`` over residues) or the dense
-route on (S, N, C) (``ops/fused_attention.dense_attn``, whose core is the
-``fused_attention`` kernel), then the out-projection. The products run
-through ``ops/adaln_linear`` (the kernel on the card, its plain version on
-the CPU); the modular layer folds its LayerNorm + modulate into the qkv
-product and its gate and residual into the out-projection there.
+(``ops/residue_attention.ResidueAttentionFn``: ``residue_attention`` over
+residues, ``time_attention`` over frames) or the dense route on (S, N, C)
+(``ops/fused_attention.dense_attn``, whose core is the ``fused_attention``
+kernel), then the out-projection. The products run through
+``ops/adaln_linear`` (the kernel on the card, its plain version on the
+CPU); with the layer's AdaLN rows the stage is ``ops/modular_stage.
+adaln_stage``: its LayerNorm + modulate in the qkv product's prologue, its
+gate and residual in the out-projection's epilogue, and a backward on
+``linear_bwd`` / ``modln_bwd`` with the core's own (the natural short body
+of ``rope_attention_bwd``, ``fused_attention_bwd``).
+
+With ``dropout`` (training with ``model.dropout > 0``) every route runs
+JAX's dense-probabilities path (``dense_attn`` with ``dropout``, :137-172),
+the factorized ones folded to 3-D as JAX folds them (:103-117):
+``ops/fused_attention.dense_attn_dropout``, plain tensor ops (XLA's in JAX) under autograd.
 """
 from __future__ import annotations
 
@@ -28,9 +36,9 @@ import torch
 from torch import nn
 
 from ..ops.adaln_linear import adaln_linear
-from ..ops.fused_attention import dense_attn  # noqa: F401  (re-exported)
-from ..ops.residue_attention import residue_attention
-from ..ops.time_attention import time_attention
+from ..ops.fused_attention import dense_attn, dense_attn_dropout  # noqa: F401  (re-exported)
+from ..ops.modular_stage import adaln_stage
+from ..ops.residue_attention import residue_attention_train
 from .attention_core import LN2  # noqa: F401  (re-exported)
 
 
@@ -73,41 +81,83 @@ class MultiheadAttention(MHAParams):
             wout=self.out_proj.weight.t().to(dt).contiguous(), bout=self.out_proj.bias.to(dt),
             bk=self.bias_k.to(dt).contiguous(), bv=self.bias_v.to(dt).contiguous())
 
+    def core(self, shape, mask, *, axis: str = "time", tl=None, dropout=None):
+        """The attention between the products, ``core(qkv (M, 3C), bias_k,
+        bias_v) -> (M, C)``, for x of ``shape`` (``forward``'s routes)."""
+        C, H = shape[-1], self.num_heads
+        if tl is not None:
+            if not self.use_rope:
+                raise NotImplementedError("the factorized routes assume RoPE (the JAX module's "
+                                          "contract)")
+            T, L = tl
+            B = shape[0]
+            mask = mask.float().contiguous()
+            if dropout is None:
+                def core(u, bk, bv):
+                    return residue_attention_train(u.view(B, T, L, 3 * C), bk, bv, mask,
+                                                   num_heads=H, axis=axis).reshape(-1, C)
+                return core
+            if axis == "residue":
+                def fold(t):
+                    return t.reshape(B * T, L, C)
+
+                def unfold(o):
+                    return o.reshape(-1, C)
+                mask3 = mask.reshape(B * T, L)
+            else:
+                def fold(t):
+                    return t.reshape(B, T, L, C).transpose(1, 2).reshape(B * L, T, C)
+
+                def unfold(o):
+                    return o.reshape(B, L, T, C).transpose(1, 2).reshape(-1, C)
+                mask3 = mask.transpose(1, 2).reshape(B * L, T)
+
+            def core(u, bk, bv):
+                return unfold(dense_attn_dropout(fold(u[:, :C]), fold(u[:, C:2 * C]),
+                                                 fold(u[:, 2 * C:]), mask3, bk, bv, H, True,
+                                                 dropout))
+            return core
+        S, N = shape[:2]
+        if mask is None:
+            mask = torch.ones(S, N)
+
+        def core(u, bk, bv):
+            q3 = u.view(S, N, 3 * C)
+            m = mask.to(u.device)
+            if dropout is None:
+                o = dense_attn(q3[..., :C], q3[..., C:2 * C], q3[..., 2 * C:], m, bk, bv, H,
+                               use_rope=self.use_rope)
+            else:
+                o = dense_attn_dropout(q3[..., :C], q3[..., C:2 * C], q3[..., 2 * C:], m, bk, bv,
+                                       H, self.use_rope, dropout)
+            return o.reshape(-1, C)
+        return core
+
     def forward(self, x, mask=None, *, axis: str = "time", tl=None, w=None, dtype=None,
-                shift=None, scale=None, gate=None):
+                shift=None, scale=None, gate=None, dropout=None):
         """x (B, N, C) with mask (B, N); or, for the factorized routes,
         x (B, T*L, C) with ``tl=(T, L)`` and mask (B, T, L) (the trunk's
         mask for both axes; the JAX module takes its transpose for "time"):
         axis "time" attends over T with batch (B, L), "residue" over L with
         batch (B, T). 1 = valid. ``w``: ``fold``'s weights (made here when
         None); ``dtype``: the compute dtype (default x's). With ``shift`` /
-        ``scale`` (nb, C) the qkv product takes modulate(LN(x)) (the layer's
-        AdaLN); with ``gate`` (nb, C) it returns x + gate * out. Returns x's
-        shape in the compute dtype."""
+        ``scale`` / ``gate`` (nb, C) the layer's AdaLN stage,
+        x + gate * out(modulate(LN(x))) (``adaln_stage``); with ``shift`` /
+        ``scale`` alone the qkv product takes modulate(LN(x)).
+        ``dropout``: a function of the probabilities (S, H, N, N + 1) (the
+        layer's ``Dropout`` at this module's path): the dense-probabilities
+        route. Differentiable when grad mode is on. Returns x's shape in the
+        compute dtype."""
         dt = dtype or x.dtype
         w = w if w is not None else self.fold(dt)
-        C, H = x.shape[-1], self.num_heads
+        C = x.shape[-1]
         rows = x.reshape(-1, C).to(dt)
-        qkv = adaln_linear(rows, w["wqkv"], w["bqkv"], ln=None if shift is None else "plain",
-                           shift=shift, scale=scale)
-        if tl is not None:
-            if not self.use_rope:
-                raise NotImplementedError("the factorized routes assume RoPE (the JAX module's "
-                                          "contract)")
-            T, L = tl
-            core = time_attention if axis == "time" else residue_attention
-            att = core(qkv.view(x.shape[0], T, L, 3 * C), w["bk"], w["bv"],
-                       mask.float().contiguous(), num_heads=H)
+        core = self.core(x.shape, mask, axis=axis, tl=tl, dropout=dropout)
+        if gate is not None:
+            out = adaln_stage(rows, shift, scale, gate, w["wqkv"], w["bqkv"], w["wout"],
+                              w["bout"], core, w["bk"], w["bv"])
         else:
-            S, N = x.shape[:2]
-            if mask is None:
-                mask = torch.ones(S, N, device=x.device)
-            q3 = qkv.view(S, N, 3 * C)
-            att = dense_attn(q3[..., :C], q3[..., C:2 * C], q3[..., 2 * C:], mask, w["bk"],
-                             w["bv"], H, use_rope=self.use_rope)
-        if gate is None:
-            out = adaln_linear(att.reshape(-1, C), w["wout"], w["bout"])
-        else:
-            out = adaln_linear(att.reshape(-1, C), w["wout"], w["bout"], epilogue="gate_res",
-                               res=rows, gate=gate)
+            qkv = adaln_linear(rows, w["wqkv"], w["bqkv"], ln=None if shift is None else "plain",
+                               shift=shift, scale=scale)
+            out = adaln_linear(core(qkv, w["bk"], w["bv"]).contiguous(), w["wout"], w["bout"])
         return out.view(x.shape)

@@ -18,25 +18,31 @@ the flax tree (``layers_3/mha_t/q_proj/kernel`` ->
 ``layers.3.mha_t.q_proj.weight``); ``utils.weights.from_flax`` converts a
 JAX checkpoint.
 
-The trunk takes one of JAX's two branches of ``LatentMDGenLayer``
-(:246-330):
+The trunk takes one of JAX's branches of ``LatentMDGenLayer`` (:246-330):
 - the fused branch (the default configs, and ``dropout > 0`` at inference,
   where JAX's ``train`` is False): ``ops/fused_layer.py``, every attention
-  with the base-2 softmax fold;
-- the modular branch (``interleave_ipa``, ``hyena``, ``no_rope``):
-  ``LatentMDGenLayer.forward``, a per-layer IPA with ``interleave_ipa``,
-  then ``MultiheadAttention`` over residues and over frames (or Hyena, or
-  dense attention without RoPE) with the natural softmax, then
-  ``adaln_mlp``. Sampling only: the Trainer refuses it (ROADMAP.md, queue 1
-  item 9, training the modular layer).
+  with the base-2 softmax fold; with ``interleave_ipa`` each layer runs its
+  IPA first (``models/ipa.ipa_block``), then the fused layer (JAX
+  :259-285: its gate at :270 keeps ``interleave_ipa`` alone on
+  ``fused_layer``), in sampling and in training (``FusedLayerFn``);
+- the modular branch (``hyena``, ``no_rope``, and every configuration in
+  training with ``dropout > 0``): ``LatentMDGenLayer.forward``, a per-layer
+  IPA with ``interleave_ipa``, then ``MultiheadAttention`` over residues
+  and over frames (or Hyena, or dense attention without RoPE) with the
+  natural softmax, each an ``ops/modular_stage.adaln_stage``, then
+  ``adaln_mlp``. With dropout the attention runs on dense probabilities
+  with the keep masks of ``models.layers.Dropout`` (JAX :270, flax's
+  ``rngs={"dropout": ...}``), and the prepend encoder takes the plain
+  ``IPALayer`` path (JAX :361) with its IPA and MHA masks.
 
 Three ways to run it, as in the JAX package:
 - ``forward(x, t, mask, ...)``: the plain call (``__call__``, :608-740),
-  differentiable on the fused branch, in the parameters (the training
-  path) and in x (the log-likelihood's VJP, ``refuse_input_grad``);
+  differentiable on every branch, in the parameters (the training path)
+  and in x (the log-likelihood's VJP; ``refuse_input_grad`` refuses only
+  the design tasks);
 - ``forward_inference(x, t, mask, ...)``: the same velocity without
   gradients, for the generic ODE samplers (heun, dopri5; every sampler of
-  the modular branch);
+  the modular branch and of ``interleave_ipa``);
 - the flat sampling path of the fused branch: ``make_trunk_pack`` (weights
   folded and stacked once per sample), ``make_scan_consts``
   (per-step-constant embed terms), ``embed_times`` / ``embed_mods`` /
@@ -49,6 +55,7 @@ tests); parameters stay f32 and packs are cast once.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -58,16 +65,17 @@ import torch.nn.functional as F
 from ..config import MDGenConfig
 from ..geometry.rigid import Rigid
 from ..ops.adaln_linear import adaln_linear
-from ..ops.adaln_mlp import adaln_mlp
-from ..ops.fused_layer import FinalLayerFn, fused_trunk, fused_trunk_train
-from ..ops.ipa_attention import ipa_attention
+from ..ops.adaln_mlp import adaln_mlp_train
+from ..ops.fused_layer import (FinalLayerFn, fused_layer_train, fused_trunk, fused_trunk_train,
+                               trunk_layer)
 from ..ops.ipa_encoder import ipa_encoder
+from ..ops.modular_stage import adaln_stage
 from ..transport.dirichlet import DirichletConditionalFlow, simplex_proj
 from ..transport.transport import t_to_alpha
 from .attention import MHAParams, MultiheadAttention
 from .attention_core import LOG2E
 from .hyena import HyenaOperator
-from .ipa import IPAParams
+from .ipa import IPAParams, ipa_block
 from .layers import TimestepEmbedder, gelu_erf, sincos_pos_embed
 
 
@@ -88,10 +96,12 @@ class IPALayer(nn.Module):
 
 
 def modular(cfg: MDGenConfig) -> bool:
-    """True when the trunk takes the modular branch of LatentMDGenLayer (the
-    JAX package's ``not fused_trunk`` at inference, :270, :360)."""
+    """True when the trunk's layers take the modular branch of
+    LatentMDGenLayer whatever the call: ``hyena`` or ``no_rope`` (JAX :270;
+    ``interleave_ipa`` alone runs its IPA and then the fused layer, and
+    ``dropout > 0`` takes the modular branch only in training)."""
     m = cfg.model
-    return bool(m.interleave_ipa or m.hyena or m.no_rope)
+    return bool(m.hyena or m.no_rope)
 
 
 def _ipa_weights(ln: nn.LayerNorm, ipa: IPAParams, dt) -> dict:
@@ -112,26 +122,26 @@ class LatentMDGenLayer(nn.Module):
     affine LayerNorm and IPA first, with ``hyena`` a Hyena operator as the
     frame stage (``mha_t``).
 
-    The fused branch reads only the parameters (``make_trunk_pack``).
-    ``forward`` is the JAX package's modular branch (:246-330), in its order:
+    ``forward`` runs one layer on the pack ``make_trunk_pack`` made for
+    the call's branch. With ``interleave_ipa`` it first adds the IPA of an
+    affine LayerNorm (``ipa_block``: frame 0's rigids for every frame,
+    frame_mask = mask). A fused pack (``ops/fused_layer.LAYER_KEYS``) then
+    runs ``trunk_layer`` (``fused_layer_train`` with gradients). A modular
+    pack runs the JAX package's modular branch (:288-330), in its order:
 
-        h += IPA(affine LN(h))                 interleave_ipa: frame 0's rigids
-                                                 for every frame, frame_mask = mask
         h += g_l * mha_l(modulate(LN(h)))      over residues
         h += g_t * mha_t(modulate(LN(h)))      over frames: attention, Hyena,
                                                  or dense attention (no_rope)
         h  = adaln_mlp(h)
 
-    The LayerNorm + modulate of each stage runs inside its first product and
-    the gate and residual inside its last (``ops/adaln_linear``'s prologue
-    and ``gate_res`` epilogue, as ``ops/time_attention.time_attention_block``
-    does), and the IPA's affine LayerNorm inside its projection (as the
-    encoder's): on the card every product is the hand-written kernel, with
-    no separate pass over the activation for LN, modulate, gate or
-    residual; JAX computes the same in XLA. The cores are
-    ``ops/ipa_attention``, ``ops/residue_attention`` /
-    ``ops/time_attention`` (natural softmax), ``ops/fused_attention``
-    (``no_rope``) and Hyena's FFT convolution."""
+    Each attention or Hyena stage is an ``ops/modular_stage.adaln_stage``:
+    the LayerNorm + modulate inside its first product and the gate and
+    residual inside its last (``ops/adaln_linear``'s prologue and
+    ``gate_res`` epilogue), with a backward on ``linear_bwd`` /
+    ``modln_bwd``; the MLP is ``AdaLNMLPFn``. The cores are
+    ``ops/residue_attention`` / ``ops/time_attention`` (natural softmax),
+    ``ops/fused_attention`` (``no_rope``), Hyena's FFT convolution, and
+    with dropout the dense probabilities of ``dense_attn_dropout``."""
 
     def __init__(self, cfg: MDGenConfig):
         super().__init__()
@@ -162,27 +172,50 @@ class LatentMDGenLayer(nn.Module):
             w["ipa"] = _ipa_weights(self.ipa_norm, self.ipa, dt)
         return w
 
-    def forward(self, h, mod, mask, w, frames=None):
+    def hyena_core(self, B: int, T: int, L: int):
+        """Hyena between its two products as ``core(u (M, 3C), *params) ->
+        (M, C)`` for ``adaln_stage``, with the operator's other parameters
+        (``params``: those that are not ``in_proj`` / ``out_proj``)."""
+        hy = self.mha_t
+        C = hy.d_model
+        params = [p for n, p in hy.named_parameters() if not n.startswith(("in_proj", "out_proj"))]
+
+        def core(u, *_params):
+            y = hy.mix(u.view(B, T, L, 3 * C).permute(0, 2, 3, 1).reshape(B * L, 3 * C, T))
+            return y.view(B, L, C, T).permute(0, 3, 1, 2).reshape(B * T * L, C)
+        return core, params
+
+    def forward(self, h, mod, mask, w, frames=None, *, dropout=None, path: str = "",
+                remat: bool = False):
         """h (M, C) with M = B*T*L rows (b, t, l); mod (nb, 9C) this layer's
-        AdaLN rows; mask (B, T, L) f32; ``w`` from ``fold``; ``frames`` =
-        (rot (B*T, L, 3, 3), trans (B*T, L, 3)) f32, frame 0's rigids for
-        every frame (``interleave_ipa``). Returns the new h (M, C)."""
+        AdaLN rows; mask (B, T, L) f32; ``w`` this layer's entry of the
+        pack; ``frames`` = (rot (B*T, L, 3, 3), trans (B*T, L, 3)) f32,
+        frame 0's rigids for every frame (``interleave_ipa``); ``dropout``
+        (``models.layers.Dropout``) with this layer's flax ``path``
+        (``layers_3``); ``remat``: ``grad_checkpointing`` for the fused
+        layer. Differentiable when grad mode is on. Returns the new h
+        (M, C)."""
         B, T, L = mask.shape
         M, C = h.shape
 
         def m(j):
             return mod[:, j * C:(j + 1) * C]
 
-        if "ipa" in w:
-            wi, ipa = w["ipa"], self.ipa
-            proj = adaln_linear(h, wi["wproj"], wi["bproj"], ln="affine", ln_weight=wi["ln_w"],
-                                ln_bias=wi["ln_b"], out_dtype=torch.float32)
-            feats = ipa_attention(proj.view(B * T, L, -1), frames[0], frames[1],
-                                  mask.view(B * T, L), wi["head_weights"], H=ipa.H, Ch=ipa.Ch,
-                                  Pq=ipa.Pq, Pv=ipa.Pv, out_dtype=h.dtype)
-            h = adaln_linear(feats.view(M, -1), wi["wo_i"], wi["bo_i"], epilogue="gate_res", res=h)
+        def drop(name):
+            return None if dropout is None else functools.partial(dropout, f"{path}/{name}")
 
-        ada_l = dict(shift=m(0), scale=m(1), gate=m(2))
+        if "ipa" in w:
+            ipa = self.ipa
+            h = ipa_block(h, w["ipa"], frames[0], frames[1], mask.view(B * T, L), H=ipa.H,
+                          Ch=ipa.Ch, Pq=ipa.Pq, Pv=ipa.Pv, dropout=drop("ipa"))
+        if "wqkv_l" in w:  # the fused layer
+            if torch.is_grad_enabled():
+                return fused_layer_train(h, mod, w, mask, num_heads=self.mha_l.num_heads,
+                                         remat=remat)
+            trunk_layer(h, mod, w, mask, B=B, T=T, L=L, num_heads=self.mha_l.num_heads, out=h)
+            return h
+
+        ada_l = dict(shift=m(0), scale=m(1), gate=m(2), dropout=drop("mha_l"))
         if self.mha_l.use_rope:
             h = self.mha_l(h.view(B, T * L, C), mask, axis="residue", tl=(T, L), w=w["l"],
                            **ada_l)
@@ -190,13 +223,12 @@ class LatentMDGenLayer(nn.Module):
             h = self.mha_l(h.view(B * T, L, C), mask.view(B * T, L), w=w["l"], **ada_l)
         h = h.reshape(M, C)
 
-        ada_t = dict(shift=m(3), scale=m(4), gate=m(5))
+        ada_t = dict(shift=m(3), scale=m(4), gate=m(5), dropout=drop("mha_t"))
         if isinstance(self.mha_t, HyenaOperator):
             wt = w["t"]
-            u = adaln_linear(h, wt["w_in"], wt["b_in"], ln="plain", shift=m(3), scale=m(4))
-            y = self.mha_t.mix(u.view(B, T, L, 3 * C).permute(0, 2, 3, 1).reshape(B * L, 3 * C, T))
-            y = y.view(B, L, C, T).permute(0, 3, 1, 2).reshape(M, C)
-            h = adaln_linear(y, wt["wout"], wt["bout"], epilogue="gate_res", res=h, gate=m(5))
+            core, params = self.hyena_core(B, T, L)
+            h = adaln_stage(h, m(3), m(4), m(5), wt["w_in"], wt["b_in"], wt["wout"], wt["bout"],
+                            core, *params)
         elif self.mha_t.use_rope:
             h = self.mha_t(h.view(B, T * L, C), mask, axis="time", tl=(T, L), w=w["t"],
                            **ada_t).reshape(M, C)
@@ -205,7 +237,7 @@ class LatentMDGenLayer(nn.Module):
             mt = mask.transpose(1, 2).reshape(B * L, T)
             y = self.mha_t(xt, mt, w=w["t"], **ada_t)
             h = y.view(B, L, T, C).transpose(1, 2).reshape(M, C)
-        return adaln_mlp(h, m(6), m(7), m(8), w["w1"], w["b1"], w["w2"], w["b2"])
+        return adaln_mlp_train(h, m(6), m(7), m(8), w["w1"], w["b1"], w["w2"], w["b2"])
 
 
 class FinalLayer(nn.Module):
@@ -217,37 +249,25 @@ class FinalLayer(nn.Module):
         self.linear = nn.Linear(C, out_channels)
 
 
-def _unsupported(cfg: MDGenConfig):
+def refuse_rtb_unported(cfg: MDGenConfig) -> None:
+    """Raise ``NotImplementedError`` for the branches whose RTB posterior
+    fine-tuning is not ported: the modular layer and dropout (ROADMAP.md
+    queue 3). Every model and task branch samples and trains."""
     m = cfg.model
-    for name in ("hyena", "interleave_ipa", "no_rope"):
+    for name in ("hyena", "no_rope", "interleave_ipa"):
         if getattr(m, name):
-            return f"training with model.{name}", "9 (training the modular layer)"
+            raise NotImplementedError(
+                f"RTB fine-tuning with model.{name} is not ported (ROADMAP.md queue 3)")
     if m.dropout > 0.0:
-        return "training with model.dropout", "9 (training the modular layer)"
-    return None
-
-
-def refuse_unported(cfg: MDGenConfig, train: bool = False) -> None:
-    """Every model and task branch samples, and every task trains. With
-    ``train``, raise ``NotImplementedError`` naming the ROADMAP item of a
-    branch that does not train yet (the modular layer, dropout)."""
-    bad = _unsupported(cfg) if train else None
-    if bad is not None:
         raise NotImplementedError(
-            f"{bad[0]} is not ported yet (ROADMAP.md queue 1 item {bad[1]})")
+            "RTB fine-tuning with model.dropout is not ported (ROADMAP.md queue 3)")
 
 
 def refuse_input_grad(cfg: MDGenConfig) -> None:
     """Raise ``NotImplementedError`` where the log-likelihood is not ported:
-    the modular branch, which has no backward in x (ROADMAP item 9), and
     the design tasks, whose likelihood the JAX package gives as NaN (ROADMAP
     queue 3): a port would port the NaN."""
-    m, t = cfg.model, cfg.task
-    for name in ("interleave_ipa", "hyena", "no_rope"):
-        if getattr(m, name):
-            raise NotImplementedError(
-                f"the log-likelihood with model.{name} needs the modular layer's backward, "
-                "not ported yet (ROADMAP.md queue 1 item 9, training the modular layer)")
+    t = cfg.task
     for name in ("design", "mpnn", "dynamic_mpnn"):
         if getattr(t, name):
             raise NotImplementedError(
@@ -301,6 +321,7 @@ class LatentMDGen(nn.Module):
                 self.aatype_to_emb = nn.Embedding(21, C)
             self.ipa_layers = nn.ModuleList([IPALayer(cfg) for _ in range(m.num_layers)])
         self.modular = modular(cfg)
+        self.layer_ipa = bool(m.interleave_ipa)
         self.layers = nn.ModuleList([LatentMDGenLayer(cfg) for _ in range(m.num_layers)])
         if not (task.mpnn or task.dynamic_mpnn):
             self.emb_to_latent = FinalLayer(C, self.latent_dim)
@@ -392,23 +413,27 @@ class LatentMDGen(nn.Module):
         bmods = torch.cat([lay.adaLN.bias for lay in self.ipa_layers]).to(dt)
         return {"wmods": wmods, "bmods": bmods, "layers": layers}
 
-    def make_trunk_pack(self, dt=None):
+    def make_trunk_pack(self, dt=None, modular_branch: Optional[bool] = None):
         """The trunk weights folded once per sample (the JAX package's
         ``make_trunk_pack`` with ``_fold_fused_args``): on the fused branch
         both attention q columns carry head_dim**-0.5 * log2(e) (the base-2
         softmax fold), qkv concatenated, (in, out) layout in the compute
-        dtype; on the modular branch each layer's ``LatentMDGenLayer.fold``
-        (q scaled by head_dim**-0.5 only: the natural softmax); every
+        dtype (with ``interleave_ipa`` each layer's IPA weights under
+        "ipa"); on the modular branch (``modular_branch``, by default the
+        model's: ``modular``; training with dropout asks for it) each
+        layer's ``LatentMDGenLayer.fold`` (q scaled by head_dim**-0.5 only:
+        the natural softmax); every
         layer's AdaLN projection and the FinalLayer's in one (C, NL*9C+2C)
         weight (``mpnn`` / ``dynamic_mpnn`` have no FinalLayer: (C, NL*9C),
         ``fin`` None); the encoder pack. With grad mode on, the fold, the
         concatenation and the cast run inside autograd, so that gradients of
         the pack reach the f32 parameters (JAX traces ``make_trunk_pack``
         inside ``__call__``); under ``torch.no_grad`` the pack is detached."""
-        pack = self._trunk_pack(dt or self.dtype)
+        mb = self.modular if modular_branch is None else modular_branch
+        pack = self._trunk_pack(dt or self.dtype, mb)
         return pack if torch.is_grad_enabled() else _detached(pack)
 
-    def _trunk_pack(self, dt):
+    def _trunk_pack(self, dt, modular_branch: bool):
         C, H = self.cfg.model.embed_dim, self.cfg.model.mha_heads
         scale_t = (C // H) ** -0.5 * LOG2E
 
@@ -421,7 +446,8 @@ class LatentMDGen(nn.Module):
         def fused(lay):
             wl, bl = qkv(lay.mha_l)
             wt, bt = qkv(lay.mha_t)
-            return dict(
+            ipa = {"ipa": _ipa_weights(lay.ipa_norm, lay.ipa, dt)} if hasattr(lay, "ipa") else {}
+            return dict(**ipa,
                 wqkv_l=wl, bqkv_l=bl, wout_l=_t(lay.mha_l.out_proj, dt),
                 bout_l=lay.mha_l.out_proj.bias.to(dt),
                 wqkv_t=wt, bqkv_t=bt, wout_t=_t(lay.mha_t.out_proj, dt),
@@ -431,7 +457,7 @@ class LatentMDGen(nn.Module):
                 bkl=lay.mha_l.bias_k.to(dt).contiguous(), bvl=lay.mha_l.bias_v.to(dt).contiguous(),
                 bkt=lay.mha_t.bias_k.to(dt).contiguous(), bvt=lay.mha_t.bias_v.to(dt).contiguous())
 
-        layers = [lay.fold(dt) if self.modular else fused(lay) for lay in self.layers]
+        layers = [lay.fold(dt) if modular_branch else fused(lay) for lay in self.layers]
         fin = getattr(self, "emb_to_latent", None)
         heads = [] if fin is None else [fin.adaLN]
         wmods = torch.cat([lay.adaLN.weight.t() for lay in self.layers]
@@ -473,7 +499,7 @@ class LatentMDGen(nn.Module):
         return (x_f, x_r) if aa is None else (x_f + aa, x_r + aa)
 
     def run_ipa(self, t_emb, mask_l, start_frames: Rigid, end_frames: Optional[Rigid], tokens,
-                pack):
+                pack, dropout=None):
         """The conditioning encoder (reference latent_model.py:179-214):
         ``tokens`` from ``make_encoder_tokens``, each (Bn, L, C); t_emb
         (nb, C) with nb dividing Bn. One token set is encoded over the start
@@ -481,10 +507,24 @@ class LatentMDGen(nn.Module):
         (:490-494): x_r over the start frames, x_f over the end frames, the
         result x_r + x_f; both passes run as one ``ipa_encoder`` call over
         2 Bn elements, interleaved (element 2i is x_r's i, 2i + 1 x_f's), so
-        that consecutive elements still share their AdaLN row."""
+        that consecutive elements still share their AdaLN row. With
+        ``dropout`` (``models.layers.Dropout``) the encoder takes the plain
+        IPALayer path (``ops/ipa_encoder``) and a pair runs as JAX runs it,
+        x_r's pass first, then x_f's."""
         m = self.cfg.model
         enc = pack["enc"]
         mods = F.silu(t_emb).to(self.dtype) @ enc["wmods"] + enc["bmods"]
+        dims = dict(num_heads_mha=m.mha_heads, Hi=m.ipa_heads, Ch=m.ipa_head_dim, Pq=m.ipa_qk,
+                    Pv=m.ipa_v, use_rope=not m.no_rope)
+        if dropout is not None:
+            if len(tokens) == 1:
+                return ipa_encoder(tokens[0], mods, enc["layers"], start_frames, mask_l,
+                                   dropout=dropout, **dims)
+            x_f, x_r = tokens
+            return (ipa_encoder(x_r, mods, enc["layers"], start_frames, mask_l, dropout=dropout,
+                                **dims)
+                    + ipa_encoder(x_f, mods, enc["layers"], end_frames, mask_l, dropout=dropout,
+                                  **dims))
         frames, x = start_frames, tokens[0]
         if len(tokens) == 2:
             x_f, x_r = tokens
@@ -497,9 +537,7 @@ class LatentMDGen(nn.Module):
             frames = Rigid(pair(start_frames.rot, end_frames.rot),
                            pair(start_frames.trans, end_frames.trans))
             mask_l = pair(mask_l, mask_l)
-        out = ipa_encoder(x, mods, enc["layers"], frames, mask_l,
-                          num_heads_mha=m.mha_heads, Hi=m.ipa_heads, Ch=m.ipa_head_dim,
-                          Pq=m.ipa_qk, Pv=m.ipa_v, use_rope=not m.no_rope)
+        out = ipa_encoder(x, mods, enc["layers"], frames, mask_l, **dims)
         if len(tokens) == 2:
             out = out.view(Bn, 2, L, C)
             out = out[:, 0] + out[:, 1]
@@ -527,34 +565,38 @@ class LatentMDGen(nn.Module):
 
     def forward(self, x, t, mask, start_frames: Optional[Rigid] = None,
                 end_frames: Optional[Rigid] = None, x_cond=None, x_cond_mask=None,
-                aatype=None, trunk_pack=None):
+                aatype=None, trunk_pack=None, dropout=None):
         """x (B, T, L, lat), t (B,), mask (B, T, L) -> velocity (B, T, L, lat)
-        f32; on the fused branch differentiable in the parameters and in x
-        when grad mode is on (the trunk through ``FusedTrunkFn``, which with
-        ``grad_checkpointing`` saves only each layer's input; the encoder
-        through its recompute, which also returns its tokens' gradient).
-        The same function as ``forward_inference`` without its design flow:
-        the JAX package's ``__call__`` (:608-740). With ``design`` the
-        result is ``denoise``'s, built with gradients: the encoder's tokens
-        plus ``x_d_to_emb`` of x's simplex channels averaged over frames,
-        the trunk without its head, the FinalLayer (``FinalLayerFn``) and the
-        design head's logits added to its last 20 channels in the compute
-        dtype; ``mpnn`` / ``dynamic_mpnn`` keep frame 0 (and T-1) and return
-        the logits (B, 1, L, 20) f32. The modular branch does not train
-        yet: its call is ``forward_inference``, without gradients (the
-        likelihood refuses it first, ``refuse_input_grad``)."""
-        if self.modular:
-            return self.forward_inference(x, t, mask, start_frames=start_frames,
-                                          end_frames=end_frames, x_cond=x_cond,
-                                          x_cond_mask=x_cond_mask, aatype=aatype,
-                                          trunk_pack=trunk_pack)
+        f32, differentiable in the parameters and in x when grad mode is on:
+        the JAX package's ``__call__`` (:608-740), the same function as
+        ``forward_inference`` without its design flow. The trunk takes
+        ``FusedTrunkFn`` on the fused branch (``grad_checkpointing`` saves
+        only each layer's input), and otherwise the layers one by one
+        (``LatentMDGenLayer.forward``: ``interleave_ipa``'s IPA and
+        ``FusedLayerFn``, or the modular stages) and the FinalLayer as its
+        own product (``FinalLayerFn``: JAX's ``FinalLayer`` off the parent
+        trunk); the encoder through its recompute, which also returns its
+        tokens' gradient. ``dropout`` (``models.layers.Dropout``, training
+        with ``model.dropout > 0``, JAX's ``train=True``): every layer on the
+        modular branch with its masks, the encoder on its plain path.
+
+        With ``design`` the result is ``denoise``'s, built with gradients:
+        the encoder's tokens plus ``x_d_to_emb`` of x's simplex channels
+        averaged over frames, the trunk without its head, the FinalLayer
+        (``FinalLayerFn``) and the design head's logits added to its last 20
+        channels in the compute dtype; ``mpnn`` / ``dynamic_mpnn`` keep frame
+        0 (and T-1) and return the logits (B, 1, L, 20) f32. ``trunk_pack``
+        must be made for the call's branch (``make_trunk_pack``)."""
         cfg, task = self.cfg, self.cfg.task
         if task.mpnn or task.dynamic_mpnn:
             sel = [0] if task.mpnn else [0, x.shape[1] - 1]
             x, x_cond, x_cond_mask, mask = (a[:, sel] for a in (x, x_cond, x_cond_mask, mask))
         B, T, L = mask.shape
         NL, C = len(self.layers), cfg.model.embed_dim
-        pack = trunk_pack if trunk_pack is not None else self.make_trunk_pack()
+        mask = mask.float().contiguous()
+        modular_branch = self.modular or dropout is not None
+        pack = (trunk_pack if trunk_pack is not None
+                else self.make_trunk_pack(modular_branch=modular_branch))
         h = self._lin(self.latent_to_emb, x)
         h = self._const_terms(h, x_cond, x_cond_mask)
         t_emb = self.t_embedder(t * cfg.model.time_multiplier, self.dtype)
@@ -563,20 +605,38 @@ class LatentMDGen(nn.Module):
             if task.design:
                 xd = self._lin(self.x_d_to_emb, x[..., -20:].float().mean(dim=1))
                 tokens = tuple(tk + xd for tk in tokens)
-            enc = self.run_ipa(t_emb, mask[:, 0], start_frames, end_frames, tokens, pack)
+            enc = self.run_ipa(t_emb, mask[:, 0], start_frames, end_frames, tokens, pack,
+                               dropout=dropout)
             h = h + enc[:, None]
         mods_all = F.silu(t_emb).to(self.dtype) @ pack["wmods"] + pack["bmods"]
         mods, modf = mods_all[:, :NL * 9 * C], mods_all[:, NL * 9 * C:]
-        trunk = dict(num_heads=cfg.model.mha_heads, remat=cfg.model.grad_checkpointing)
-        if not task.design:
-            return fused_trunk_train(h, mods, pack["layers"], mask,
-                                     final=(modf, *pack["fin"]), **trunk)
-        h = fused_trunk_train(h, mods, pack["layers"], mask, **trunk).reshape(B * T * L, C)
+        remat = cfg.model.grad_checkpointing
+        if not (modular_branch or self.layer_ipa):
+            trunk = dict(num_heads=cfg.model.mha_heads, remat=remat)
+            if not task.design:
+                return fused_trunk_train(h, mods, pack["layers"], mask,
+                                         final=(modf, *pack["fin"]), **trunk)
+            h = fused_trunk_train(h, mods, pack["layers"], mask, **trunk).reshape(B * T * L, C)
+        else:
+            frames = self._layer_frames(start_frames, B, T) if self.layer_ipa else None
+            h = h.reshape(B * T * L, C).contiguous()
+            for i, lay in enumerate(self.layers):
+                h = lay(h, mods[:, i * 9 * C:(i + 1) * 9 * C], mask, pack["layers"][i], frames,
+                        dropout=dropout, path=f"layers_{i}", remat=remat)
+            if not task.design:
+                return FinalLayerFn.apply(h, modf, *pack["fin"]).view(B, T, L, -1).float()
         logits = self.design_logits(h, B, T, L)
         if task.mpnn or task.dynamic_mpnn:
             return logits[:, None].float()
         latent = FinalLayerFn.apply(h, modf, *pack["fin"]).view(B, T, L, -1)
         return torch.cat([latent[..., :-20], latent[..., -20:] + logits[:, None]], -1).float()
+
+    @staticmethod
+    def _layer_frames(start_frames: Rigid, B: int, T: int):
+        """Frame 0's rigids for every frame, (rot (B*T, L, 3, 3), trans
+        (B*T, L, 3)) f32: the interleaved IPA's frames (JAX :259-265)."""
+        return tuple(a.float()[:, None].expand(B, T, *a.shape[1:]).reshape(B * T, *a.shape[1:])
+                     .contiguous() for a in (start_frames.rot, start_frames.trans))
 
     def design_logits(self, h, B: int, T: int, L: int):
         """The design head on the trunk's output h (B*T*L, C) in the compute
@@ -722,13 +782,9 @@ class LatentMDGen(nn.Module):
                 tokens = tuple(tk + xd for tk in tokens)
             enc = self.run_ipa(t_emb, mask[:, 0], start_frames, end_frames, tokens, pack)
         layer = None
-        if self.modular:
-            B, T, L = mask.shape
-            frames = None
-            if self.cfg.model.interleave_ipa:
-                frames = tuple(a.float()[:, None].expand(B, T, *a.shape[1:])
-                               .reshape(B * T, *a.shape[1:]).contiguous()
-                               for a in (start_frames.rot, start_frames.trans))
+        if self.modular or self.layer_ipa:
+            B, T = mask.shape[:2]
+            frames = self._layer_frames(start_frames, B, T) if self.layer_ipa else None
 
             def layer(i, h, mod, w):
                 return self.layers[i](h, mod, mask, w, frames)

@@ -118,3 +118,43 @@ def sincos_pos_embed(embed_dim: int, length: int) -> np.ndarray:
     omega = 1.0 / 10000 ** omega
     out = np.einsum("m,d->md", np.arange(length, dtype=np.float64), omega)
     return np.concatenate([np.sin(out), np.cos(out)], axis=1).astype(np.float32)
+
+
+class Dropout:
+    """Dropout of attention probabilities, as ``flax.linen.Dropout`` applies
+    it (reference mha.py:383-386, ipa.py:204): ``where(keep, p / (1 - rate),
+    0)`` with ``keep`` true at probability 1 - rate. One keep mask per call
+    site, named by the site's module path in the flax tree (``layers_0/
+    mha_l``, ``layers_0/ipa``, ``ipa_layers_1/mha_l``, ...) and its call
+    count there (``#0``, ``#1``: the encoder's two passes under the doubled
+    offsets). Masks are drawn from ``generator`` (uniform < 1 - rate, on the
+    generator's device) or taken from ``masks`` {key: bool tensor, its batch
+dims possibly unflattened}; every
+    mask used is kept in ``drawn``, so that a step can be replayed with the
+    same masks on another device."""
+
+    def __init__(self, rate: float, generator: torch.Generator | None = None,
+                 masks: dict | None = None):
+        if not 0.0 < rate < 1.0:
+            raise ValueError(f"dropout rate {rate} is not in (0, 1)")
+        self.rate, self.generator, self.masks = rate, generator, masks
+        self.drawn: dict = {}
+        self._calls: dict = {}
+
+    def __call__(self, path: str, p: torch.Tensor) -> torch.Tensor:
+        n = self._calls.get(path, 0)
+        self._calls[path] = n + 1
+        key = f"{path}#{n}"
+        if self.masks is not None:
+            keep = self.masks[key].to(p.device)
+            if keep.shape[-3:] != p.shape[-3:] or keep.numel() != p.numel():
+                raise ValueError(f"dropout mask {key}: shape {tuple(keep.shape)}, "
+                                 f"probabilities {tuple(p.shape)}")
+            keep = keep.reshape(p.shape)  # JAX's (B, T, ...) batch dims as the port's (B*T, ...)
+        else:
+            dev = self.generator.device if self.generator is not None else p.device
+            keep = (torch.rand(p.shape, generator=self.generator, device=dev)
+                    < 1.0 - self.rate).to(p.device)
+        self.drawn[key] = keep
+        return torch.where(keep, p / (1.0 - self.rate), torch.zeros((), dtype=p.dtype,
+                                                                     device=p.device))

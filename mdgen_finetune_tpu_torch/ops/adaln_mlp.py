@@ -81,3 +81,29 @@ def adaln_mlp_bwd_plain(x, sh, sc, g, w1, b1, w2, b2, dout, *, dmod=None):
     """``adaln_mlp_bwd`` through the plain twins (same arguments)."""
     return _mlp_bwd(adaln_linear_plain, linear_bwd_plain, modln_bwd_plain, x, sh, sc, g, w1, b1,
                     w2, b2, dout, dmod)
+
+
+class AdaLNMLPFn(torch.autograd.Function):
+    """``adaln_mlp`` as a differentiable op (the JAX package's custom VJP,
+    ``_pallas_fwd`` / ``_pallas_bwd``): the forward writes a new tensor and
+    saves its inputs; the backward is ``adaln_mlp_bwd``, which recomputes
+    the hidden layer from them."""
+
+    @staticmethod
+    def forward(ctx, x, sh, sc, g, w1, b1, w2, b2):
+        ctx.save_for_backward(x, sh, sc, g, w1, b1, w2, b2)
+        return adaln_mlp(x, sh, sc, g, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, gout):
+        x, sh, sc, g, w1, b1, w2, b2 = ctx.saved_tensors
+        grads = adaln_mlp_bwd(x, sh, sc, g, w1, b1, w2, b2, gout.float().contiguous())
+        return tuple(d.to(t.dtype) for d, t in zip(grads, (x, sh, sc, g, w1, b1, w2, b2)))
+
+
+def adaln_mlp_train(x, sh, sc, g, w1, b1, w2, b2):
+    """``adaln_mlp`` into a new tensor, differentiable in every argument
+    when grad mode is on (``AdaLNMLPFn``)."""
+    if not torch.is_grad_enabled():
+        return adaln_mlp(x, sh, sc, g, w1, b1, w2, b2)
+    return AdaLNMLPFn.apply(x, sh, sc, g, w1, b1, w2, b2)

@@ -42,7 +42,8 @@ pass over the keys.
   optional RoPE, then ``fused_attention``: its TPU route without dropout,
   :153), and ``dense_qkv_attention`` the same over ``rope_attention``'s
   (G, N, I, 3C) interface (the encoder's residue attention under
-  ``no_rope``).
+  ``no_rope``); ``dense_attn_dropout`` is JAX's ``dense_attn`` with
+  dropout, on dense probabilities (training with ``model.dropout > 0``).
 """
 from __future__ import annotations
 
@@ -262,11 +263,12 @@ def fused_attention(q, k, v, key_valid=None, *, base2: bool = False):
 
 
 def dense_attn(q, k, v, mask, bias_k, bias_v, H: int, use_rope: bool = True,
-               base2: bool = False):
+               base2: bool = False, core=None):
     """Bias-KV + (RoPE) + masked softmax attention on (S, N, C) projections;
     ``mask`` (S, N) with 1 = valid (the bias key is always valid). The layout
     changes and RoPE are plain tensor ops (XLA's in JAX); the core is
-    ``fused_attention`` (the kernel on the card)."""
+    ``fused_attention`` (the kernel on the card), or ``core`` with its
+    arguments (``fused_attention_plain``: the encoder's f32 recompute)."""
     S, N, C = q.shape
     D = C // H
     k = torch.cat([k, bias_k.reshape(1, 1, C).to(k.dtype).expand(S, 1, C)], dim=1)
@@ -279,12 +281,12 @@ def dense_attn(q, k, v, mask, bias_k, bias_v, H: int, use_rope: bool = True,
     if use_rope:
         q, k = apply_rope(q, k)
     key_valid = torch.cat([mask.float(), torch.ones(S, 1, device=q.device)], dim=1)
-    out = fused_attention(q, k, v, key_valid, base2=base2)
+    out = (core or fused_attention)(q, k, v, key_valid, base2=base2)
     return out.transpose(1, 2).reshape(S, N, C)
 
 
 def dense_qkv_attention(qkv, bias_k, bias_v, key_valid, *, num_heads: int, base2: bool = False,
-                        use_rope: bool = True):
+                        use_rope: bool = True, core=None):
     """``dense_attn`` with ``rope_attention``'s arguments: qkv (G, N, I, 3C),
     attention over N for every (g, i), key_valid (G, N, I). Returns
     (G, N, I, C)."""
@@ -293,5 +295,30 @@ def dense_qkv_attention(qkv, bias_k, bias_v, key_valid, *, num_heads: int, base2
     x = qkv.permute(0, 2, 1, 3).reshape(G * I, N, C3)
     mask = key_valid.permute(0, 2, 1).reshape(G * I, N)
     o = dense_attn(x[..., :C], x[..., C:2 * C], x[..., 2 * C:], mask, bias_k, bias_v, num_heads,
-                   use_rope=use_rope, base2=base2)
+                   use_rope=use_rope, base2=base2, core=core)
     return o.reshape(G, I, N, C).permute(0, 2, 1, 3)
+
+
+def dense_attn_dropout(q, k, v, mask, bias_k, bias_v, H: int, use_rope: bool, dropout):
+    """The JAX package's ``dense_attn`` with ``dropout`` (:137-172): q, k, v
+    (S, N, C), mask (S, N) 1 = valid; the bias key and value appended
+    (always attendable), heads split, RoPE (the bias key at position N),
+    logits in the operands' dtype plus (1 - valid) * -1e9, the f32 softmax
+    rounded to v's dtype, ``dropout(probs)`` (S, H, N, N + 1), the product
+    with v. Returns (S, N, C)."""
+    S, N, C = q.shape
+    D = C // H
+    k = torch.cat([k, bias_k.reshape(1, 1, C).to(k.dtype).expand(S, 1, C)], dim=1)
+    v = torch.cat([v, bias_v.reshape(1, 1, C).to(v.dtype).expand(S, 1, C)], dim=1)
+
+    def split_heads(t):
+        return t.reshape(S, t.shape[1], H, D).transpose(1, 2)
+
+    q, k, v = split_heads(q), split_heads(k), split_heads(v)
+    if use_rope:
+        q, k = apply_rope(q, k)
+    valid = torch.cat([mask.to(q.dtype), torch.ones(S, 1, dtype=q.dtype, device=q.device)], 1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k) + (1.0 - valid)[:, None, None, :] * NEG_INF
+    probs = dropout(torch.softmax(logits.float(), dim=-1).to(v.dtype))
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, v)
+    return out.transpose(1, 2).reshape(S, N, C)

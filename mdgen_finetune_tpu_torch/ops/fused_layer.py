@@ -265,3 +265,23 @@ def fused_trunk_train(x, mods, ws, mask, *, num_heads: int, final=None, remat: b
     flat = [w[k] for w in ws for k in LAYER_KEYS]
     return FusedTrunkFn.apply(x.contiguous(), mods, *(final or (None, None, None)),
                               mask.to(torch.float32).contiguous(), num_heads, remat, *flat)
+
+
+def fused_layer_train(h, mod, w, mask, *, num_heads: int, remat: bool = False):
+    """One trunk layer as a differentiable op (``FusedLayerFn``): h (M, C)
+    rows of the (B, T, L) trunk, mod (nb, 9C) its AdaLN rows, ``w`` its
+    weight dict (``LAYER_KEYS``); ``remat`` the model's
+    ``grad_checkpointing``. Returns the layer's output (M, C)."""
+    B, T, L = mask.shape
+    C = h.shape[1]
+    return fused_trunk_train(h.view(B, T, L, C), mod, [w], mask, num_heads=num_heads,
+                             remat=remat).reshape(B * T * L, C)
+
+
+# The per-layer form of ``FusedTrunkFn`` (one layer, no head): the
+# counterpart of the JAX package's per-layer ``fused_layer`` custom VJP
+# (``fused_layer`` :1026, ``_fl_fwd`` / ``_fl_bwd`` :964-1018), which the
+# ``interleave_ipa`` layer runs after its IPA. Forward ``trunk_layer``
+# saving X1 and X2 (or, with ``remat``, only the layer's input), backward
+# ``fused_layer_bwd``.
+FusedLayerFn = FusedTrunkFn

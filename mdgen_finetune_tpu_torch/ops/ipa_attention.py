@@ -171,9 +171,12 @@ def feat_width(H: int, Ch: int, Pv: int) -> int:
 
 
 def ipa_attention_math(proj, rot, trans, mask, head_weights, *, H: int, Ch: int,
-                       Pq: int, Pv: int, out_dtype=None):
+                       Pq: int, Pv: int, out_dtype=None, dropout=None):
     """The plain PyTorch math of ``ipa_attention`` (same arguments), counted
-    nowhere; the scalar path runs in proj's dtype, the point path in f32."""
+    nowhere; the scalar path runs in proj's dtype, the point path in f32.
+    ``dropout``: a function applied to the attention weights (B, H, L, L)
+    after the softmax, as the JAX package's ``ipa_forward`` applies its
+    dropout (``models/ipa.py:124-125``); the kernel has none."""
     B, L, _ = proj.shape
     HCh, HPq, HPv = H * Ch, H * Pq, H * Pv
     q = proj[..., :HCh].reshape(B, L, H, Ch)
@@ -201,6 +204,8 @@ def ipa_attention_math(proj, rot, trans, mask, head_weights, *, H: int, Ch: int,
     square = mask[:, :, None] * mask[:, None, :]
     a = a + (_INF * (square - 1))[:, None]
     a = torch.softmax(a.float(), dim=-1)
+    if dropout is not None:
+        a = dropout(a)
 
     o = torch.einsum("bhqk,bkhc->bqhc", a.to(v.dtype), v).reshape(B, L, HCh)
     o_pt = torch.einsum("bhqk,bkhpx->bqhpx", a, v_pts).reshape(B, L, HPv, 3)

@@ -28,6 +28,13 @@ CPU's bf16 error into the IPA gradients at T = 1000 while the gradient
 arriving from the trunk was as accurate as the CPU's, and the stack is
 small (B x L tokens). ``ipa_encoder.bwd_recomputes`` counts those
 recomputes.
+
+With a ``dropout`` (training with ``model.dropout > 0``) the JAX package
+leaves the fused encoder for its plain ``IPALayer`` modules (:359-386),
+with dropout on the IPA weights and the MHA probabilities (:103, :110):
+here the same stack through the plain math in f32 under autograd, the
+residue MHA on dense probabilities (``dense_attn_dropout``), each mask
+named ``ipa_layers_{i}/ipa`` and ``ipa_layers_{i}/mha_l``.
 """
 from __future__ import annotations
 
@@ -37,7 +44,8 @@ import torch
 
 from ..geometry.rigid import Rigid
 from .adaln_linear import adaln_linear, adaln_linear_math
-from .fused_attention import dense_qkv_attention
+from .fused_attention import (dense_attn_dropout, dense_qkv_attention, fused_attention,
+                              fused_attention_plain)
 from .ipa_attention import ipa_attention, ipa_attention_math
 from .rope_attention import rope_attention, rope_attention_math
 
@@ -51,15 +59,32 @@ PLAIN_MATH = (adaln_linear_math, rope_attention_math, ipa_attention_math)
 
 def _ops(ops, use_rope: bool):
     """``ops`` with the residue attention without RoPE under ``no_rope``
-    (the JAX IPALayer's ``MultiheadAttention(use_rope=not no_rope)``)."""
+    (the JAX IPALayer's ``MultiheadAttention(use_rope=not no_rope)``): the
+    ``fused_attention`` kernel's route, or for the plain math its plain
+    core (``fused_attention_plain``, differentiable)."""
     if use_rope:
         return ops
-    return (ops[0], functools.partial(dense_qkv_attention, use_rope=False), ops[2])
+    core = fused_attention_plain if ops is PLAIN_MATH else fused_attention
+    return (ops[0], functools.partial(dense_qkv_attention, use_rope=False, core=core), ops[2])
 
 
-def _stack(x, mods, flat_ws, rot, trans, mask, ops, dims):
+def _dropout_attn(drop, use_rope: bool):
+    """The residue MHA on dense probabilities with ``drop`` on them, with
+    ``rope_attention``'s arguments (G, N, 1, 3C)."""
+    def attn(qkv, bk, bv, key_valid, *, num_heads: int, base2: bool):
+        G, N, _, C3 = qkv.shape
+        C = C3 // 3
+        x = qkv.view(G, N, C3)
+        o = dense_attn_dropout(x[..., :C], x[..., C:2 * C], x[..., 2 * C:], key_valid.view(G, N),
+                               bk, bv, num_heads, use_rope, drop)
+        return o.view(G, N, 1, C)
+    return attn
+
+
+def _stack(x, mods, flat_ws, rot, trans, mask, ops, dims, dropout=None):
     """The encoder's layers through ``ops`` = (linear, attention, ipa);
-    every residual update writes a new tensor."""
+    every residual update writes a new tensor. ``dropout(path, p)``: the
+    plain IPALayer path's masks (module docstring)."""
     num_heads_mha, Hi, Ch, Pq, Pv, use_rope = dims
     lin, attn, ipa = _ops(ops, use_rope)
     Bn, L, C = x.shape
@@ -74,8 +99,12 @@ def _stack(x, mods, flat_ws, rot, trans, mask, ops, dims):
 
         proj = lin(h, w["wproj"], w["bproj"], ln="affine", ln_weight=w["ln_w"],
                    ln_bias=w["ln_b"], out_dtype=torch.float32)
+        kw = {}
+        if dropout is not None:
+            kw = dict(dropout=functools.partial(dropout, f"ipa_layers_{i}/ipa"))
+            attn = _dropout_attn(functools.partial(dropout, f"ipa_layers_{i}/mha_l"), use_rope)
         feats = ipa(proj.view(Bn, L, -1), rot, trans, mask, w["head_weights"],
-                    H=Hi, Ch=Ch, Pq=Pq, Pv=Pv, out_dtype=h.dtype)
+                    H=Hi, Ch=Ch, Pq=Pq, Pv=Pv, out_dtype=h.dtype, **kw)
         h = lin(feats.view(Bn * L, -1), w["wo_i"], w["bo_i"], epilogue="gate_res", res=h)
         qkv = lin(h, w["wqkv_m"], w["bqkv_m"], ln="plain", shift=m(0), scale=m(1))
         att = attn(qkv.view(Bn, L, 1, 3 * C), w["bkm"], w["bvm"], mask.view(Bn, L, 1),
@@ -112,13 +141,20 @@ class _EncoderFn(torch.autograd.Function):
 
 
 def ipa_encoder(x, mods, ws, frames: Rigid, mask, *, num_heads_mha: int, Hi: int,
-                Ch: int, Pq: int, Pv: int, use_rope: bool = True):
+                Ch: int, Pq: int, Pv: int, use_rope: bool = True, dropout=None):
     """x (Bn, L, C) tokens; mods (nb, NL*6*C) AdaLN rows, nb dividing Bn
     (consecutive elements share a row); ``ws`` a list of per-layer dicts
     (``ENC_KEYS``); frames Rigid (Bn, L); mask (Bn, L); ``use_rope``: the
-    residue attention's RoPE (off under the model's ``no_rope``). Returns
-    (Bn, L, C), differentiable in x, mods and the weights."""
+    residue attention's RoPE (off under the model's ``no_rope``);
+    ``dropout``: ``models.layers.Dropout`` (the plain path, module
+    docstring). Returns (Bn, L, C), differentiable in x, mods and the
+    weights."""
     flat = [w[k] for w in ws for k in ENC_KEYS]
+    if dropout is not None:
+        out = _stack(x.float(), mods.float(), [t.float() for t in flat],
+                     frames.rot.float(), frames.trans.float(), mask.float(), PLAIN_MATH,
+                     (num_heads_mha, Hi, Ch, Pq, Pv, use_rope), dropout)
+        return out.to(x.dtype)
     return _EncoderFn.apply(x, mods, frames.rot.to(torch.float32).contiguous(),
                             frames.trans.to(torch.float32).contiguous(),
                             mask.to(torch.float32).contiguous(),

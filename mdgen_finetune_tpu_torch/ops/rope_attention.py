@@ -206,11 +206,14 @@ def rope_attention(qkv, bias_k, bias_v, key_valid, *, num_heads: int, base2: boo
     _cuda.check(code, "rope_attention")
     rope_attention.launches += 1
     rope_attention.bodies[2 if p is None else 1 - int(base2)] += 1
+    if p is None and not base2:
+        rope_attention.long_natural += 1
     return out
 
 
 rope_attention.launches = 0
 rope_attention.bodies = [0, 0, 0]  # launches by body: short base 2, short natural, long
+rope_attention.long_natural = 0  # launches of the long body with the natural softmax
 
 
 def _info(N: int, H: int, C: int, spb: int, hg: int):

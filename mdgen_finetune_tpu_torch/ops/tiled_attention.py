@@ -87,10 +87,13 @@ def tiled_attention(qkv, bias_k, bias_v, key_valid, *, num_heads: int, base2: bo
                                _cuda.stream_ptr(qkv), sched.chunk, sched.win)
     _cuda.check(code, "tiled_attention")
     tiled_attention.launches += 1
+    if not base2:
+        tiled_attention.natural += 1
     return out
 
 
 tiled_attention.launches = 0
+tiled_attention.natural = 0  # launches with the natural softmax
 
 
 def resources(G: int, N: int, I: int, num_heads: int, D: int, base2: bool = True) -> dict:

@@ -52,7 +52,7 @@ from torch import nn
 
 from ..config import MDGenConfig
 from ..geometry.rigid import full_f32
-from ..models.denoiser import LatentMDGen, refuse_unported
+from ..models.denoiser import LatentMDGen, refuse_rtb_unported
 from ..training.trainer import Optimizer
 from .lora import lora_init, lora_kernels, lora_merge, lora_targets_default
 from .priors import MDGenSimulator
@@ -144,7 +144,7 @@ class RTBTrainer:
         is the policy at these weights and the posterior adds the adapters.
         ``lora_targets(flax path) -> bool`` picks the adapted Linear kernels
         (``lora_targets_default`` by default: LatentMDGen's names)."""
-        refuse_unported(cfg, train=True)
+        refuse_rtb_unported(cfg)
         self.cfg, self.rtb = cfg, rtb
         self.prior_sim = prior_sim
         self.reward_fn = reward_fn
@@ -500,7 +500,7 @@ class DiffuserTrainer:
         from ..inference.sampling import resolve_device
 
         if model is None:
-            refuse_unported(cfg, train=True)
+            refuse_rtb_unported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         full_f32()  # as every entry point: an outsourced UNet's convolutions in f32

@@ -11,10 +11,14 @@ The state is updated in place and returned (the JAX step donates it).
 
 Every task trains: forward simulation, upsampling, transition paths,
 inpainting, and the design tasks (``design``, ``mpnn``, ``dynamic_mpnn``)
-with their Dirichlet flow-matching loss. Entry points run on the card
-(``device="cuda"``) unless the caller asks for the CPU; without CUDA they
-raise. Randomness (t, the prior draw x0 and the design task's simplex
-point) comes from an explicit ``torch.Generator``.
+with their Dirichlet flow-matching loss; so does every model branch, the
+modular layer (``hyena``, ``no_rope``), ``interleave_ipa`` and dropout.
+Entry points run on the card (``device="cuda"``) unless the caller asks for
+the CPU; without CUDA they raise. Randomness (t, the prior draw x0, the
+design task's simplex point, and with ``model.dropout > 0`` the keep masks)
+comes from an explicit ``torch.Generator``: the masks from a generator
+seeded by one draw of the step's (JAX's ``split`` for ``rngs={"dropout":
+...}``, :116-122).
 """
 from __future__ import annotations
 
@@ -32,7 +36,8 @@ from ..data.featurize import featurize_atom14_batch
 from ..geometry import frames as G
 from ..geometry.rigid import full_f32
 from ..inference.sampling import resolve_device
-from ..models.denoiser import LatentMDGen, refuse_unported
+from ..models.denoiser import LatentMDGen
+from ..models.layers import Dropout
 from ..tasks import prep_batch
 from ..transport import create_transport
 
@@ -138,7 +143,6 @@ def featurize(cfg: MDGenConfig, atom14: torch.Tensor, seqres: torch.Tensor,
 
 class Trainer:
     def __init__(self, cfg: MDGenConfig, device="cuda", dtype=None):
-        refuse_unported(cfg, train=True)
         if cfg.train.dp_size > 1 or cfg.train.sp_size > 1:
             raise NotImplementedError(
                 "train.dp_size / sp_size > 1 is not ported yet (ROADMAP.md queue 1 item 12)")
@@ -170,26 +174,44 @@ class Trainer:
                 for k, v in batch.items() if k in ("atom14", "seqres", "mask")}
 
     def _loss_fn(self, batch: dict, generator: Optional[torch.Generator] = None, t=None,
-                 x0=None, x_d=None):
+                 x0=None, x_d=None, dropout=None):
         """Mean flow-matching loss of a raw batch (atom14, seqres, mask) and
         its metrics: featurize -> prep_batch -> training_losses."""
         b = self._device_batch(batch)
         feats = featurize(self.cfg, b["atom14"].float(), b["seqres"].long(), b["mask"].float())
-        return self._feature_loss(feats, generator, t, x0, x_d)
+        return self._feature_loss(feats, generator, t, x0, x_d, dropout)
 
-    def _feature_loss(self, feats: dict, generator=None, t=None, x0=None, x_d=None):
+    def dropout_for(self, generator: Optional[torch.Generator]) -> Optional[Dropout]:
+        """The step's ``Dropout`` (``model.dropout > 0``): its masks drawn
+        from a generator on ``generator``'s device seeded by one draw of
+        ``generator`` (None: the global one)."""
+        rate = self.cfg.model.dropout
+        if rate <= 0.0:
+            return None
+        dev = generator.device if generator is not None else self.device
+        seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator, device=dev))
+        return Dropout(rate, torch.Generator(device=dev).manual_seed(seed))
+
+    def _feature_loss(self, feats: dict, generator=None, t=None, x0=None, x_d=None,
+                      dropout=None):
         """``_loss_fn`` from a featurized batch (``featurize``): the mean
         loss and the metrics {loss, t_mean}, under ``design`` also
         {loss_discrete, loss_continuous} (JAX ``_loss_fn``, :111-137; the
         continuous part is NaN under ``mpnn`` / ``dynamic_mpnn``, as in JAX).
         t, x0 and the design task's simplex point ``x_d`` (B, L, 20) are
-        drawn from ``generator`` unless given."""
+        drawn from ``generator`` unless given; with ``model.dropout > 0`` the
+        keep masks come from ``dropout`` (``models.layers.Dropout``), else
+        from ``dropout_for(generator)``, whose seed is drawn before t and x0
+        (JAX splits the dropout key off first)."""
         prep = prep_batch(self.cfg, feats)
         kw = prep["model_kwargs"]
         design = self.cfg.task.design
+        if dropout is None and self.cfg.model.dropout > 0.0:
+            dropout = self.dropout_for(generator)
+        extra = {} if dropout is None else {"dropout": dropout}
 
         def model_fn(x, tt, mask, **kwargs):
-            return self.model(x, tt, mask.float(), **kwargs)
+            return self.model(x, tt, mask.float(), **kwargs, **extra)
 
         terms = self.transport.training_losses(
             model_fn, prep["latents"], mask=prep["loss_mask"], model_kwargs=kw,

@@ -42,7 +42,7 @@ from mdgen_finetune_tpu.transport.dirichlet import DirichletConditionalFlow as J
 from mdgen_finetune_tpu_torch import config as tcfg
 from mdgen_finetune_tpu_torch.inference import InferenceEngine as TEngine
 from mdgen_finetune_tpu_torch.inference.sampling import sample_prior_latent
-from mdgen_finetune_tpu_torch.models.denoiser import LatentMDGen, refuse_unported
+from mdgen_finetune_tpu_torch.models.denoiser import LatentMDGen
 from mdgen_finetune_tpu_torch.tasks import prep_batch as t_prep_batch
 from mdgen_finetune_tpu_torch.training import Trainer
 from mdgen_finetune_tpu_torch.transport.dirichlet import _dcdf_table
@@ -311,7 +311,6 @@ def test_training_the_design_tasks_is_refused(data, name):
     and takes one finite step on the CPU (``test_torch_train_tasks.py``
     holds the loss and every gradient to JAX)."""
     cfg = _tc(_cfg(TASKS[name]))
-    refuse_unported(cfg, train=True)
     trainer = Trainer(cfg, device="cpu")
     state = trainer.init_state(0)
     batch = dict(atom14=data["atom14"], seqres=data["aatype"], mask=data["mask"])
@@ -326,6 +325,5 @@ def test_training_the_design_tasks_is_refused(data, name):
     # no_frames is no longer refused as unported: the model refuses the
     # prepend-IPA encoder it cannot feed (no rigids), as JAX cannot run it
     no_frames = dataclasses.replace(cfg, task=dataclasses.replace(cfg.task, no_frames=True))
-    refuse_unported(no_frames)
     with pytest.raises(ValueError, match="no rigids"):
         TEngine(no_frames, {}, device="cpu")

@@ -530,6 +530,42 @@ def test_rope_attention_bwd_short_body_on_card(D):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 24, 32, 64])
+def test_rope_attention_bwd_natural_short_body_on_card(D):
+    """On the card: the natural-softmax mode of ``rope_attention_bwd``'s
+    short body (the modular layer's residue attention: the row's maximum
+    before the exponent, no ln 2) against its f32 plain twin at N = 1, 4,
+    5, 9, 16 and I = 1, 3 over 1201 sequences, masked keys as
+    ``_rope_case``, at unit logits and with q scaled 400x (logits ~1e3,
+    where an exponent without the maximum would overflow); the modular
+    layer's residue shape (3200, 4, 1) at D = 24; and at N = 20, 33 the
+    natural route through ``fused_attention`` (``natural_long_bwd``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from mdgen_finetune_tpu_torch.ops import rope_attention_bwd as RB
+
+    g = torch.Generator(device="cuda").manual_seed(41 + D)
+    Hc = 8 if D == 64 else 16
+    cases = [(1201, N, Ic, qs) for N in (1, 4, 5, 9, 16) for Ic in (1, 3) for qs in (1.0, 400.0)]
+    cases += [(301, N, 1, 1.0) for N in (20, 33)]
+    if D == 24:
+        cases += [(3200, 4, 1, 1.0), (3200, 4, 1, 400.0)]
+    before = RB.rope_attention_bwd.bodies[2]
+    for Gc, N, Ic, qs in cases:
+        qkv, bk, bv, mask = _rope_case(g, Gc, N, Ic, Hc, D, q_scale=D ** -0.5 * qs)
+        do = (0.1 * torch.randn(Gc, N, Ic, Hc * D, generator=g, device="cuda")).bfloat16()
+        got = RB.rope_attention_bwd(qkv, do, bk, bv, mask, num_heads=Hc, base2=False)
+        ref = RB.rope_attention_bwd_plain(qkv.float(), do.float(), bk.float(), bv.float(), mask,
+                                          num_heads=Hc, base2=False)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            assert torch.isfinite(a.float()).all(), (N, Ic, qs)
+            _close(a, b)
+        assert not got[0][1, ..., Hc * D:].any(), (N, Ic)  # g = 1: masked keys, zero dk and dv
+    assert RB.rope_attention_bwd.bodies[2] - before == sum(c[1] <= 16 for c in cases)
+
+
+@pytest.mark.cuda
 def test_ipa_attention_streaming_form_on_card():
     """On the card: the streaming form of the IPA core (L <= 16 at the
     model's widths) against its plain twin at every L from 1 to 16 over

@@ -13,9 +13,9 @@ package on the CPU:
 - ``forward`` and ``forward_inference`` on the same inputs, and the
   gradient of a scalar of ``forward`` in x against JAX's;
 - ``Transport.prior_logp`` against the closed form and JAX's;
-- the refusals: the modular branch (ROADMAP item 9) and the design tasks
-  (whose likelihood the JAX package gives as NaN, ROADMAP queue 3) raise
-  ``NotImplementedError``.
+- the refusal of the design tasks (whose likelihood the JAX package gives
+  as NaN, ROADMAP queue 3), and the modular layer's (``hyena``) and
+  ``interleave_ipa``'s log-likelihood against JAX's.
 
 Sizes: 2 layers, C = 96, 4 heads, a prepend-IPA encoder, T = 5, L = 4 with
 one padded residue, B = 2, 3 likelihood steps, f32. Tolerances: the
@@ -198,13 +198,30 @@ def test_forward_matches_forward_inference_and_its_x_gradient_matches_jax(setup)
     (dict(task=dict(inpainting=True, design=True)), "NaN at its data endpoint"),
 ])
 def test_log_likelihood_refuses_what_has_no_backward_in_x(setup, change, item):
+    """The design tasks (JAX's likelihood is NaN at their data endpoint)
+    raise. The modular layer (``hyena``) and ``interleave_ipa``, refused
+    until their backward in x was ported (ROADMAP item 9), give the JAX
+    engine's log-likelihood with the same seeded random weights and JAX's
+    probes (2 steps)."""
     s = setup
     tc = s["tc"]
     if "model" in change:
         tc = dataclasses.replace(tc, model=dataclasses.replace(tc.model, **change["model"]))
     else:
         tc = dataclasses.replace(tc, task=tcfg.TaskConfig(**change["task"]))
-    model = LatentMDGen(tc)
+    model = randomize_(LatentMDGen(tc), torch.Generator().manual_seed(17), scale=0.1)
     eng = TEngine(tc, model.state_dict(), device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        eng.log_likelihood(s["tbatch"], torch.Generator().manual_seed(0), num_steps=2)
+    if "task" in change:
+        with pytest.raises(NotImplementedError, match=item):
+            eng.log_likelihood(s["tbatch"], torch.Generator().manual_seed(0), num_steps=2)
+        return
+    cfg = dataclasses.replace(s["cfg"], model=dataclasses.replace(s["cfg"].model,
+                                                                  **change["model"]))
+    jeng = JEngine(cfg, to_flax(model.state_dict(), tc))
+    key = jax.random.key(19)
+    ref = np.asarray(jeng.log_likelihood(s["jbatch"], key, num_steps=2))
+    got = eng.log_likelihood(s["tbatch"], num_steps=2,
+                             probes=torch.from_numpy(jax_probes(key, 2, (B, T, L, 21))))
+    assert got.shape == (B,) and torch.isfinite(got).all()
+    err = np.abs(got.detach().numpy() - ref)
+    assert (err <= 1e-4 * np.maximum(1.0, np.abs(ref))).all(), (got, ref)

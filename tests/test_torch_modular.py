@@ -13,8 +13,9 @@
   ``HyenaOperator`` against the JAX modules;
 - the whole ``LatentMDGen`` velocity for each configuration after
   ``from_flax``, the Euler sample of ``interleave_ipa`` against
-  ``_sample_with_zs0``, the weights round trip, the refusals, and a
-  ``dropout = 0.1`` model sampling as the same weights at ``dropout = 0``.
+  ``_sample_with_zs0``, the weights round trip, each configuration
+  training in the Trainer, and a ``dropout = 0.1`` model sampling as the
+  same weights at ``dropout = 0`` and training with its masks.
 
 Sizes: the cores as ``tests/test_residue_attention.py`` and
 ``tests/test_time_attention.py`` (B = 2, C = 32, 4 heads); the model 2
@@ -337,7 +338,7 @@ def test_velocity_matches_jax_call(setup):
     ref = jax.jit(s["engine"].model.apply)(s["params"], jnp.asarray(x), jnp.asarray(t), **jkw)
     tkw = t_prep_batch(s["tc"], _tbatch(s))["model_kwargs"]
     model = s["tengine"].model
-    assert model.modular
+    assert model.modular or model.layer_ipa  # interleave_ipa: IPA, then the fused layer
     out = model(torch.from_numpy(x), torch.from_numpy(t), tkw["mask"].float(),
                 start_frames=tkw["start_frames"], x_cond=tkw["x_cond"],
                 x_cond_mask=tkw["x_cond_mask"], aatype=tkw["aatype"])
@@ -348,8 +349,9 @@ def test_velocity_matches_jax_call(setup):
 def test_weights_round_trip_and_training_refused(setup):
     """``from_flax`` loads the modular tree strictly (the layers' IPA and
     ``ipa_norm``, Hyena's ``mha_t`` tree) and ``to_flax`` maps it back bit
-    for bit; the Trainer refuses the configuration (training the modular
-    layer is not ported), the model and the sampler do not."""
+    for bit; the Trainer takes the configuration and trains the loaded
+    weights: a finite loss whose gradient reaches every layer's weights
+    (its values against JAX: ``tests/test_torch_modular_train.py``)."""
     s = setup
     sd = from_flax(s["tree"], s["tc"])
     assert set(sd) == set(TModel(s["tc"]).state_dict())
@@ -360,8 +362,17 @@ def test_weights_round_trip_and_training_refused(setup):
     assert set(flat_a) == set(flat_b)
     for k, v in flat_a.items():
         np.testing.assert_array_equal(flat_b[k], v, err_msg=k)
-    with pytest.raises(NotImplementedError, match="training the modular layer"):
-        Trainer(s["tc"], device="cpu")
+    trainer = Trainer(s["tc"], device="cpu")
+    trainer.init_state(0)
+    trainer.model.load_state_dict(sd)
+    feats = {k: torch.from_numpy(np.array(v)) for k, v in s["jbatch"].items()}
+    feats["seqres"] = feats["seqres"].long()
+    loss, _ = trainer._feature_loss(feats, torch.Generator().manual_seed(1))
+    loss.backward()
+    assert torch.isfinite(loss)
+    for name, p in trainer.model.layers.named_parameters():
+        if name.endswith("weight") and ".ipa_norm" not in name:
+            assert p.grad is not None and torch.isfinite(p.grad).all(), name
 
 
 @pytest.mark.parametrize("setup", ["interleave_ipa"], indirect=True)
@@ -383,7 +394,10 @@ def test_interleave_euler_sample_matches_jax_engine(setup):
 def test_dropout_at_inference_samples_as_without(setup):
     """``dropout > 0`` builds and samples on the fused branch (JAX takes the
     fused trunk when not training, :270); its samples equal those of the
-    same seeded random weights at ``dropout = 0``. The Trainer refuses it."""
+    same seeded random weights at ``dropout = 0``. The Trainer trains it on
+    the modular branch with keep masks drawn from its generator (JAX :270
+    with ``train=True``): a finite loss, and each layer's and encoder
+    layer's masks drawn."""
     s = setup
     base = tcfg.MDGenConfig.from_json(_jcfg("interleave_ipa").to_json())
     base = base.replace(model=dataclasses.replace(base.model, interleave_ipa=False))
@@ -392,5 +406,15 @@ def test_dropout_at_inference_samples_as_without(setup):
     zs0 = torch.from_numpy(s["rng"].normal(size=(B, T, L, base.latent_dim)).astype(np.float32))
     outs = [TEngine(c, sd, device="cpu").sample_with_zs0(_tbatch(s), zs0)[0] for c in (base, drop)]
     assert torch.equal(outs[0], outs[1])
-    with pytest.raises(NotImplementedError, match="training the modular layer"):
-        Trainer(drop, device="cpu")
+    trainer = Trainer(drop, device="cpu")
+    trainer.init_state(0)
+    trainer.model.load_state_dict(sd)
+    gen = torch.Generator().manual_seed(2)
+    dropout = trainer.dropout_for(gen)
+    loss, _ = trainer._loss_fn(dict(atom14=s["atom14"], seqres=s["aatype"], mask=s["mask"]),
+                               gen, dropout=dropout)
+    loss.backward()
+    assert torch.isfinite(loss)
+    assert {k.split("#")[0] for k in dropout.drawn} == {
+        f"{p}_{i}/{m}" for i in range(NL) for p, m in
+        (("layers", "mha_l"), ("layers", "mha_t"), ("ipa_layers", "ipa"), ("ipa_layers", "mha_l"))}

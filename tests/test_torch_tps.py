@@ -10,7 +10,6 @@ with one padded residue, B = 2, 3 steps, f32. Tolerances: latents and
 frames 1e-5; velocity rtol 1e-4 / atol 5e-5 (as ``test_torch_sampling.py``);
 atom14 1e-3 Angstrom.
 """
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -192,17 +191,13 @@ def test_training_the_tps_task_is_refused(setup):
     """Training TPS is no longer refused: ``Trainer`` builds and takes one
     finite step on the CPU (``test_torch_train_tasks.py`` holds the loss and
     every gradient to JAX)."""
-    from mdgen_finetune_tpu_torch.models.denoiser import refuse_unported
     from mdgen_finetune_tpu_torch.training import Trainer
 
     s = setup
     tc = s["tc"]
-    refuse_unported(tc)  # sampling is ported
-    refuse_unported(tc, train=True)  # and training
     trainer = Trainer(tc, device="cpu")
     state = trainer.init_state(0)
     batch = dict(atom14=s["atom14"], seqres=s["aatype"], mask=s["mask"])
     state, metrics = trainer.train_step(state, batch, torch.Generator().manual_seed(0))
     assert state.step == 1 and set(metrics) == {"loss", "t_mean", "grad_norm"}
     assert all(np.isfinite(float(v)) for v in metrics.values()), metrics
-    refuse_unported(dataclasses.replace(tc, task=tcfg.TaskConfig(no_frames=True)))  # ported

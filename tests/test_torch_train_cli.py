@@ -11,9 +11,10 @@
   rolls out one window;
 - ``--design --inference_batches 1``: 2 steps and the designability probe's
   ``designability_*`` line;
-- the CLI's refusals before anything is written: flags of branches not
-  ported yet (``NotImplementedError`` naming the ROADMAP) and the card by
-  default without CUDA.
+- the CLI's refusals before anything is written: ``--dp_size 2``, not
+  ported yet (``NotImplementedError`` naming the ROADMAP), and the card by
+  default without CUDA; the modular layer's flags and ``--dropout``, once
+  refused, train 2 steps.
 """
 import argparse
 import json
@@ -83,9 +84,23 @@ def test_train_cli_trains_validates_and_checkpoints(data, capsys):
 @pytest.mark.parametrize("flags", [["--hyena"], ["--dropout", "0.1"], ["--dp_size", "2"],
                                    ["--interleave_ipa"], ["--no_rope"]])
 def test_train_cli_refuses_unported_flags(data, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(_argv(data, *flags, "--run_name", "refused", "--device", "cpu"))
-    assert not (data / "work" / "refused").exists()
+    """``--dp_size 2`` (ROADMAP item 12) is refused before anything is
+    written; the modular layer's flags and ``--dropout`` train: 2 steps with
+    finite losses and a checkpoint."""
+    name = "run_" + flags[0].strip("-")
+    if flags[0] == "--dp_size":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            train.main(_argv(data, *flags, "--run_name", name, "--device", "cpu"))
+        assert not (data / "work" / name).exists()
+        return
+    state = train.main(_argv(data, *flags, "--epochs", "1", "--steps_per_epoch", "2",
+                             "--no_validate", "--print_freq", "1", "--run_name", name,
+                             "--device", "cpu"))
+    assert state.step == 2
+    lines = [json.loads(x) for x in (data / "work" / name / "log.jsonl").read_text().splitlines()]
+    assert [m["step"] for m in lines] == [1, 2]
+    assert all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in lines)
+    assert (data / "work" / name / "ckpt_2" / "state.pt").exists()
 
 
 def test_train_cli_logs_designability(data):

@@ -317,5 +317,13 @@ def test_grad_checkpointing_is_bit_identical():
     dict(model=tcfg.ModelConfig(interleave_ipa=True)),
 ])
 def test_unported_training_options_raise(change):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(tcfg.MDGenConfig(**change), device="cpu").init_state(0)
+    """``dp_size > 1`` (ROADMAP item 12) raises; dropout and the modular
+    layer's flags, once refused, now build their trainer (their training
+    against JAX: ``tests/test_torch_modular_train.py``)."""
+    cfg = tcfg.MDGenConfig(**change)
+    if cfg.train.dp_size > 1:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Trainer(cfg, device="cpu").init_state(0)
+        return
+    state = Trainer(cfg, device="cpu").init_state(0)
+    assert set(state.params) == set(state.ema_params) and state.step == 0
