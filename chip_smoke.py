@@ -171,7 +171,12 @@ Then:
 Last, ``micro_ops``: the micro-op probe (``tools/micro_ops`` of the
 package) checks every op's plain and position-weighted sums against its
 plain version and prints its marginal-cost table; its kernel line carries
-the bound over the whole card and over the probe's 32 SMs.
+the bound over the whole card and over the probe's 32 SMs. After it,
+``parallel`` (``phase_parallel``): data and sequence parallelism with 2 and
+4 gloo ranks spawned onto this one card (the flagship trained on 2 x 1 and
+2 x 2, ATLAS on 1 x 2: a step, a velocity, an Euler-10 sample; a one-rank
+NCCL group), each held to this process's run; the kernel line gives each
+kernel's launches a rank under the batch fold and the sequence split.
 
 With ``MDGEN_PARENT_CSRC`` set to the csrc directory of another checkout
 (a ``git archive`` of the parent commit), built beside this checkout's
@@ -1712,7 +1717,8 @@ def with_twins(fn, names=TRAIN_WRAPPERS + ("tiled_attention", "blocked_attention
 
     twin_of = {n: getattr(ops(n), n + "_plain") for n in names}
     users = [ops(m) for m in ("fused_layer", "fused_layer_bwd", "residue_block",
-                              "time_attention", "adaln_mlp", "modular_stage", "residue_attention")]
+                              "time_attention", "adaln_mlp", "modular_stage", "residue_attention",
+                              "sharded_trunk")]
     users += [importlib.import_module(f"mdgen_finetune_tpu_torch.models.{m}")
               for m in ("denoiser", "attention", "ipa")]
     uses = [(m, n) for m in users for n in names if hasattr(m, n)]
@@ -5703,6 +5709,249 @@ KERNEL_OF = (("tiled_attention", "tiled_attention"),
              ("fused_layer_bwd_kernel", "fused_layer_bwd_merged"))
 
 
+# ---------------------------------------------------------------------------
+# data and sequence parallelism (parallel/): ranks sharing this one card
+
+PARALLEL_SEED = 31
+ALL_TWINS = TRAIN_WRAPPERS + ("tiled_attention", "blocked_attention_bwd")
+
+
+def mesh_config(cfg, dp, sp):
+    return cfg.replace(train=dataclasses.replace(cfg.train, dp_size=dp, sp_size=sp))
+
+
+def parallel_inputs(cfg, seed, pad):
+    """Seeded random weights of ``cfg``'s model (``randomize_``) and a batch
+    of its shape (``make_inputs`` moved by seeded noise in every frame), on
+    the host."""
+    from mdgen_finetune_tpu_torch.training import Trainer
+    from mdgen_finetune_tpu_torch.utils.weights import randomize_
+
+    Bn, Tn, Ln = cfg.train.batch_size, cfg.data.num_frames, cfg.data.crop
+    tr = Trainer(mesh_config(cfg, 1, 1), device="cpu")
+    tr.init_state(0)
+    randomize_(tr.model, torch.Generator().manual_seed(seed), scale=0.05)
+    weights = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+    atom14, seqres, mask = make_inputs(Bn, seed, "cpu", length=Ln, pad=pad)
+    atom14 = atom14[:, None] + 0.3 * torch.randn(Bn, Tn, Ln, 14, 3,
+                                                 generator=torch.Generator().manual_seed(seed + 1))
+    if Ln > L:  # a protein shorter than the crop: its padding is zeros
+        atom14 = atom14 * mask[:, None, :, None, None]
+    return weights, {"atom14": atom14, "seqres": seqres, "mask": mask}
+
+
+def grad_rule(run, truth, yard):
+    """The composition rule of ``phase_grad_across_devices`` for a step's
+    loss and every gradient: relative L2 against the f32 truth at most
+    2 x the plain bf16 twins' + 0.01 (a tensor's norm taken as at least 1e-3
+    of the largest). Returns (summary, the entries over it)."""
+    gt = truth["grads"]
+    floor = 1e-3 * max(v.norm().item() for v in gt.values())
+
+    def rel(g):
+        return {k: ((g[k] - v).norm() / max(v.norm().item(), floor)).item()
+                for k, v in gt.items()}
+
+    e, y = rel(run["grads"]), rel(yard["grads"])
+    rule = {k: 2 * y[k] + 0.01 for k in y}
+    over = {k: (e[k], rule[k]) for k in e if not e[k] <= rule[k]}
+    lt = truth["metrics"]["loss"]
+    le = abs(run["metrics"]["loss"] - lt) / abs(lt)
+    ly = abs(yard["metrics"]["loss"] - lt) / abs(lt)
+    if not le <= 2 * ly + 0.01:
+        over["loss"] = (le, 2 * ly + 0.01)
+    return ({"loss_rel": le, "loss_rule": 2 * ly + 0.01, "worst_rel_l2": max(e.values()),
+             "worst_of_rule": max(e[k] / rule[k] for k in e), "over": len(over)}, over)
+
+
+def parallel_nccl_check(dev):
+    """A one-rank NCCL group on this card: the collective wrapper's four
+    ops on card tensors, each result checked (a one-rank reduce, gather,
+    broadcast and all-to-all give their input back)."""
+    import torch.distributed as dist
+
+    from mdgen_finetune_tpu_torch.parallel import comm, launch
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{launch.free_port()}",
+                            world_size=1, rank=0)
+    try:
+        comm.reset()
+        g = dist.group.WORLD
+        a = torch.arange(8.0, device=dev)
+        got = {"all_reduce": comm.all_reduce(a.clone(), g),
+               "all_gather": comm.all_gather(a, g),
+               "broadcast": comm.broadcast(a.clone(), 0, g),
+               "all_to_all": comm.all_to_all(a.view(1, 8), g).view(8)}
+        torch.cuda.synchronize()
+        bad = [k for k, v in got.items() if not (v.is_cuda and torch.equal(v, a))]
+        counts = dict(comm.COUNTS)
+    finally:
+        dist.destroy_process_group()
+    if bad or min(counts.values()) != 1:
+        raise AssertionError(f"parallel: the one-rank NCCL group's {bad} wrong ({counts})")
+    return {"backend": "nccl", "world": 1, "calls": counts}
+
+
+def phase_parallel(dev):
+    """Data and sequence parallelism (``parallel/``) on this one card: ranks
+    spawned by ``parallel.launch.run`` share it over gloo (NCCL refuses two
+    ranks on one device), so this checks the sharded paths, not their
+    scaling. Each sharded run is held to this process's run on the card
+    with the same weights, batch and generator:
+
+    - the flagship trained at B = 32 (``train_config``) on meshes 2 x 1 and
+      2 x 2 (the batch fold: 16 and 8 elements a rank): rank 0's loss and
+      every gradient under the composition rule (``grad_rule``: the f32
+      truth and the bf16 yardstick are this process's all-twin runs), the
+      parameters bit-equal across the ranks after 2 steps, each rank's
+      launches those of the one-process step (no count of this path depends
+      on the batch), one all-reduce a step and no other collective;
+    - ATLAS (``atlas_config``: crop 256, B = 1, T = 250) on 1 x 2 (the
+      sequence split: 125 frames, then 128 residues a rank): one velocity
+      evaluation within the kernels' rule (1e-2 x max(1, |ref|)) of the
+      one-process card forward; a 10-step Euler sample (the flat chain, its
+      trunk split), finite, its backbone bonds within 1e-2 A; one training
+      step under the composition rule; rows 7 / g (``tiled_attention``) and
+      8 / j (``blocked_attention_bwd``) launched on each rank as in the
+      one-process step (``phase_train_atlas``'s counts);
+    - a one-rank NCCL group running the collective wrapper's four ops on
+      card tensors (``parallel_nccl_check``).
+
+    Printed: ms a step of each layout (3 timed steps; ATLAS 2), the
+    collectives' ms at the path's sizes (``checks.collective_ms``), peak
+    memory a rank, the backend, the card. Returns each kernel's launches a
+    rank under the fold (2 x 2) and the sequence split (ATLAS)."""
+    from mdgen_finetune_tpu_torch.data.featurize import featurize_atom14_batch
+    from mdgen_finetune_tpu_torch.parallel import checks, launch
+
+    t_phase = time.perf_counter()
+    nccl = parallel_nccl_check(dev)
+    fcfg, acfg = train_config(B_TRAIN), atlas_config("euler", 10)
+    fw, fbatch = parallel_inputs(fcfg, PARALLEL_SEED, pad=1)
+    aw, abatch = parallel_inputs(acfg, PARALLEL_SEED + 10, pad=ATLAS_PAD)
+    afeats = featurize_atom14_batch(abatch["atom14"], abatch["seqres"], abatch["mask"])
+    afeats["seqres"] = afeats["seqres"].long()
+    g = torch.Generator().manual_seed(PARALLEL_SEED + 20)
+    velocity = (torch.randn(1, T_ATLAS, L_ATLAS, acfg.latent_dim, generator=g),
+                torch.full((1,), 0.5))
+    fpairs = tuple((n, n) for n in TRAIN_WRAPPERS)
+
+    def one(cfg, w, b, names=None, f32=False, **kw):
+        c = mesh_config(cfg, 1, 1)
+        if f32:
+            c = c.replace(model=dataclasses.replace(c.model, use_bf16=False))
+
+        def run():
+            return checks.train_steps(c, w, b, PARALLEL_SEED, device=dev, **kw)
+        return with_twins(run, names) if names else run()
+
+    ref = {"flagship": (one(fcfg, fw, fbatch, wrappers=fpairs, timed=3),
+                        one(fcfg, fw, fbatch, ALL_TWINS, f32=True, steps=1),
+                        one(fcfg, fw, fbatch, ALL_TWINS, steps=1)),
+           "atlas": (one(acfg, aw, abatch, wrappers=ATLAS_WRAPPERS, timed=2),
+                     one(acfg, aw, abatch, ALL_TWINS, f32=True, steps=1),
+                     one(acfg, aw, abatch, ALL_TWINS, steps=1))}
+    a_sample = checks.sample(mesh_config(acfg, 1, 1), aw, afeats, PARALLEL_SEED, device=dev,
+                             wrappers=ATLAS_WRAPPERS, velocity=velocity)
+    torch.cuda.empty_cache()
+    n_params = sum(v.numel() for v in fw.values())
+    swap = B_ATLAS * T_ATLAS * L_ATLAS * C // 2  # one rank's half of an ATLAS activation
+    numels = {"all_reduce": n_params, "broadcast": n_params, "all_to_all": swap,
+              "all_gather": swap}
+    kw = dict(seed=PARALLEL_SEED, device=dev.type)
+    t0 = time.perf_counter()
+    r2 = launch.run(checks.run_jobs, 2, [
+        ("train_steps", dict(cfg=mesh_config(fcfg, 2, 1), weights=fw, batch=fbatch,
+                             wrappers=fpairs, timed=3, **kw)),
+        ("train_steps", dict(cfg=mesh_config(acfg, 1, 2), weights=aw, batch=abatch,
+                             wrappers=ATLAS_WRAPPERS, timed=2, **kw)),
+        ("sample", dict(cfg=mesh_config(acfg, 1, 2), weights=aw, batch=afeats,
+                        wrappers=ATLAS_WRAPPERS, velocity=velocity, **kw)),
+        ("collective_ms", dict(device=dev.type, numels=numels))])
+    secs2 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r4 = launch.run(checks.run_jobs, 4, [
+        ("train_steps", dict(cfg=mesh_config(fcfg, 2, 2), weights=fw, batch=fbatch,
+                             wrappers=fpairs, timed=3, **kw)),
+        ("collective_ms", dict(device=dev.type, numels=numels))])
+    secs4 = time.perf_counter() - t0
+
+    failures, layouts = [], {}
+
+    def held(name, ranks, kind, axes):
+        r0 = ranks[0]
+        one_run, truth, yard = ref[kind]
+        summary, over = grad_rule(r0, truth, yard)
+        equal = all(torch.equal(r["params"][k], v) for r in ranks[1:]
+                    for k, v in r0["params"].items())
+        same_launches = all(r["launches"] == one_run["launches"] for r in ranks)
+        if over:
+            failures.append(f"{name}: over the composition rule: {over}")
+        if not equal:
+            failures.append(f"{name}: parameters differ across ranks after 2 steps")
+        if not same_launches:
+            failures.append(f"{name}: launches a rank {[r['launches'] for r in ranks]}, "
+                            f"the one-process step's {one_run['launches']}")
+        if any(tuple(map(tuple, r["axes"])) != axes for r in ranks):
+            failures.append(f"{name}: layout {r0['axes']}, expected {axes}")
+        layouts[name] = {
+            "ranks": len(ranks), "axes": r0["axes"], "rule": summary,
+            "one_process_rule": grad_rule(one_run, truth, yard)[0],
+            "params_bit_equal_across_ranks": equal, "launches_per_rank": r0["launches"],
+            "launches_as_one_process": same_launches, "collectives_per_step": r0["counts"],
+            "collective_mb_per_step": {k: v / 1e6 for k, v in r0["bytes"].items()},
+            "ms_per_step": [r["ms_per_step"] for r in ranks],
+            "one_process_ms_per_step": one_run["ms_per_step"],
+            "peak_memory_gb": [r.get("peak_memory_gb") for r in ranks]}
+        return r0
+
+    fold = {}
+    for name, ranks in (("flagship_2x1", [r[0] for r in r2]), ("flagship_2x2", [r[0] for r in r4])):
+        fold[name] = held(name, ranks, "flagship", (("dp", "sp"), ()))
+        c = fold[name]["counts"]
+        if c["all_reduce"] != 1 or c["all_to_all"] or c["all_gather"] or c["broadcast"]:
+            failures.append(f"{name}: collectives a step {c}, not one all-reduce")
+    seq = held("atlas_1x2", [r[1] for r in r2], "atlas", (("dp",), ("sp",)))
+    c = seq["counts"]
+    if not (c["all_to_all"] > 0 and c["all_gather"] > 0 and c["all_reduce"] > 0):
+        failures.append(f"atlas_1x2: collectives a step {c}")
+    for row in ("tiled_attention", "blocked_attention_bwd"):
+        if not seq["launches"][row] > 0:
+            failures.append(f"atlas_1x2: {row} not launched on a rank")
+    samples = [r[2] for r in r2]
+    v_err, v_tol = check("parallel atlas velocity", samples[0]["velocity"],
+                         a_sample["velocity"], 1e-2)
+    bond = output_checks("parallel atlas sample", samples[0]["atom14"], abatch["mask"], {})
+    for s_ in samples:
+        if s_["launches"] != a_sample["launches"] or s_["counts"]["all_to_all"] <= 0:
+            failures.append(f"atlas sample: launches {s_['launches']} (one process "
+                            f"{a_sample['launches']}), collectives {s_['counts']}")
+        if not torch.equal(s_["atom14"], samples[0]["atom14"]):
+            failures.append("atlas sample: the ranks returned different samples")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    line = {"phase": "parallel", "card": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+            "backend": "gloo: 2 and 4 ranks share this one card (NCCL refuses two ranks on "
+                       "one device); timings are not scaling figures",
+            "nccl_one_rank": nccl, "layouts": layouts,
+            "atlas_velocity": {"max_abs_err": v_err, "tol": v_tol,
+                               "launches_per_rank": samples[0]["velocity_launches"],
+                               "collectives": samples[0]["velocity_counts"]},
+            "atlas_euler10": {"bonds": bond, "seconds": [s_["seconds"] for s_ in samples],
+                              "one_process_seconds": a_sample["seconds"],
+                              "max_abs_diff_one_process":
+                                  (samples[0]["atom14"] - a_sample["atom14"]).abs().max().item(),
+                              "launches_per_rank": samples[0]["launches"],
+                              "collectives": samples[0]["counts"]},
+            "collective_ms": {"ranks_2": r2[0][3], "ranks_4": r4[0][1], "numels": numels},
+            "spawn_and_run_s": {"ranks_2": secs2, "ranks_4": secs4},
+            "seconds": time.perf_counter() - t_phase}
+    emit(line)
+    if failures:
+        raise AssertionError("parallel: " + "; ".join(failures))
+    return {"fold": fold["flagship_2x2"]["launches"], "seq": seq["launches"]}
+
+
 def phase_trace(name, run):
     """Where the device time of ``run()`` goes: torch.profiler over one call;
     device time by kernel and the device's idle share of the window from the
@@ -5916,6 +6165,7 @@ def main():
     hyena_ll = phase_hyena_likelihood(dev)
     emit({"phase": "train_modular_s", "seconds": time.perf_counter() - t_train_modular})
     probe = phase_micro_ops(dev)
+    parallel = phase_parallel(dev)
     shutil.rmtree(SCRATCH, ignore_errors=True)
 
     bwd = "mdgen_finetune_tpu/ops/fused_layer_bwd.py:563 (_k3 :157, _k2 :323, _k1 :474)"
@@ -5987,6 +6237,11 @@ def main():
                                           "uses", "splits", "frames_N250", "bounds", "plan",
                                           "shapes", "kernel_ms", "launches_per_call")
                                 if f in k}})
+    for entry in line:  # launches a rank under the batch fold and the sequence split
+        for layout in ("fold", "seq"):
+            if entry["name"] in parallel[layout]:
+                entry[f"parallel_{layout}_launches_per_rank_step"] = \
+                    parallel[layout][entry["name"]]
     for entry in line:  # row j beyond fp16's range (the repaired q and k scales)
         if entry["name"] == "blocked_attention_bwd":
             entry["fp16_range"] = {c: modular[c] for c in modular if c.startswith("blocked_")}

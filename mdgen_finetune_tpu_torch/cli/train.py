@@ -23,11 +23,21 @@ reference src/mdgen/wrapper.py:516-537) samples a validation batch of
 and logs ``designability_*``: each element's designed sequence scored
 against its own with ``analysis.task_metrics.sequence_recovery``, averaged.
 ``--profile_dir`` writes a ``torch.profiler`` trace of the first epoch.
-Flags of branches that are not ported yet raise ``NotImplementedError``
-naming their ROADMAP item before anything is written: the modular layer
-(``--hyena``, ``--no_rope``, ``--interleave_ipa``; their checkpoints
-sample, but training them is not ported), ``--dropout``, and
-``--dp_size`` / ``--sp_size`` above 1.
+
+Several ranks (``parallel/``): under ``torchrun`` (``WORLD_SIZE`` > 1) the
+default group starts from the environment (``parallel.launch.init_from_env``:
+rank r on ``cuda:(LOCAL_RANK % device_count)``, ``nccl`` when every rank
+has a card of its own, else ``gloo``) and ``Trainer`` builds the (dp, sp)
+mesh of ``--dp_size`` (0: all ranks) and ``--sp_size``. Every rank reads the
+same batches (one seed); a step splits them by the mesh's rules, and so do
+the validation step and the designability probe. Rank 0 alone writes
+``config.json``, the log and the checkpoints:
+
+    torchrun --nproc_per_node 4 -m mdgen_finetune_tpu_torch.cli.train ... \
+        --dp_size 0 --sp_size 1
+
+In one process a mesh of more than one rank raises JAX's ``ValueError``
+before anything is written.
 """
 from __future__ import annotations
 
@@ -39,6 +49,7 @@ import numpy as np
 import torch
 
 from ..data.dataset import MDGenDataset, make_batch_iterator
+from ..parallel.launch import init_from_env
 from ..training import Trainer
 from ..utils.logging import profile_trace
 from .args import add_train_args, args_to_config
@@ -54,7 +65,8 @@ def designability(trainer, state, val_ds, rng, generator) -> dict:
     from ..inference import InferenceEngine
 
     cfg, dev = trainer.cfg, trainer.device
-    engine = InferenceEngine(cfg, state.ema_params if cfg.train.ema else state.params, device=dev)
+    engine = InferenceEngine(cfg, state.ema_params if cfg.train.ema else state.params, device=dev,
+                             mesh=trainer.mesh)
     vb = val_ds.batch(rng, min(cfg.train.batch_size, 2))
     feats = featurize_atom14_batch(torch.as_tensor(vb["atom14"], device=dev).float(),
                                    torch.as_tensor(vb["seqres"], device=dev).long(),
@@ -76,12 +88,14 @@ def main(argv=None):
                         help="cuda (default; raises without a card) or cpu")
     a = parser.parse_args(argv)
     cfg = args_to_config(a)
-    trainer = Trainer(cfg, device=a.device)  # refuses what is not ported
+    trainer = Trainer(cfg, device=init_from_env(a.device))  # refuses what is not ported
+    lead = trainer.mesh.rank == 0
 
     workdir = os.path.join(cfg.workdir, cfg.run_name)
-    os.makedirs(workdir, exist_ok=True)
-    with open(os.path.join(workdir, "config.json"), "w") as f:
-        f.write(cfg.to_json())
+    if lead:
+        os.makedirs(workdir, exist_ok=True)
+        with open(os.path.join(workdir, "config.json"), "w") as f:
+            f.write(cfg.to_json())
 
     train_ds = MDGenDataset(cfg, cfg.data.train_split)
     val_ds = MDGenDataset(cfg, cfg.data.val_split, repeat=a.val_repeat)
@@ -89,7 +103,8 @@ def main(argv=None):
     state = trainer.init_state(cfg.train.seed)
     if a.ckpt:
         state = trainer.restore_checkpoint(a.ckpt, state)
-        print(f"resumed from {a.ckpt} at step {state.step}", flush=True)
+        if lead:
+            print(f"resumed from {a.ckpt} at step {state.step}", flush=True)
 
     # --train_batches caps the epoch length (Lightning limit_train_batches,
     # reference train.py:49); --steps_per_epoch is the explicit override
@@ -99,13 +114,15 @@ def main(argv=None):
     gen = torch.Generator(device=trainer.device).manual_seed(cfg.train.seed + 1)
 
     def log_fn(m):
+        if not lead:
+            return
         print(json.dumps(m), flush=True)
         with open(log_path, "a") as f:
             f.write(json.dumps(m) + "\n")
 
     try:
         for epoch in range(cfg.train.epochs):
-            with profile_trace(a.profile_dir if epoch == 0 else None):
+            with profile_trace(a.profile_dir if epoch == 0 and lead else None):
                 state = trainer.fit(state, it, steps_per_epoch, gen,
                                     log_every=cfg.train.print_freq, log_fn=log_fn)
 
@@ -126,7 +143,8 @@ def main(argv=None):
 
             if (epoch + 1) % cfg.train.ckpt_freq == 0 or epoch == cfg.train.epochs - 1:
                 path = trainer.save_checkpoint(state)
-                print(f"saved {path}", flush=True)
+                if lead:
+                    print(f"saved {path}", flush=True)
     finally:
         it.close()
     return state

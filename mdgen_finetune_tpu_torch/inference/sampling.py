@@ -32,6 +32,16 @@ Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; without CUDA they raise. Randomness comes from an explicit
 ``torch.Generator``, or the draws are passed in (the prior ``zs0``, the
 SDE's ``noise``, the likelihood's ``probes``).
+
+With ``mesh`` (``parallel/``; JAX :63-77) every rank is handed the same
+batch and generator, and a sample's B elements split as a training step's
+do (``kernel_sharding.split_axes``): under the batch fold each rank samples
+its rows, on the flat Euler chain or the generic one; under the sequence
+split (B = 1) its rows of the batch axes, the trunk split over the rest.
+The prior and the SDE's noise are drawn for the whole batch and sliced;
+dopri5 takes the mean of its error norm over every rank's rows, so that all
+take the same steps. The result is all-gathered: every rank returns what
+the one-process engine returns. ``log_likelihood`` runs unsplit.
 """
 from __future__ import annotations
 
@@ -43,6 +53,9 @@ from ..data.featurize import featurize_atom14_batch
 from ..geometry import frames as G
 from ..geometry.rigid import Rigid, full_f32
 from ..models.denoiser import LatentMDGen, refuse_input_grad
+from ..parallel import comm
+from ..parallel.kernel_sharding import gather, kernel_mesh, split_axes
+from ..parallel.mesh import local_slice
 from ..tasks import prep_batch
 from ..transport import check_interval, create_transport, ode_likelihood, sample_ode
 from ..utils.weights import from_flax
@@ -88,16 +101,19 @@ class InferenceEngine:
     ``sde_opts`` go to ``Transport.make_sde_sampler`` (num_steps, method,
     diffusion_form, diffusion_norm, last_step, last_step_size).
     ``last_counts``: the counts of the last sample (``transport.samplers``:
-    accepted and rejected steps, drift evaluations)."""
+    accepted and rejected steps, drift evaluations); ``mesh``: the ranks'
+    (dp, sp) mesh to split samples over (module docstring), registered for
+    the trunk's sharded regions only inside ``_sample``."""
 
     def __init__(self, cfg: MDGenConfig, params, *, device="cuda", dtype=None,
-                 sampler: str = "ode", sde_opts: dict | None = None):
+                 sampler: str = "ode", sde_opts: dict | None = None, mesh=None):
         if sampler not in SAMPLERS:
             raise ValueError(f"unknown sampler {sampler!r}: one of {SAMPLERS}")
         if cfg.transport.sampling_method not in ODE_METHODS:
             raise NotImplementedError(cfg.transport.sampling_method)
         self.sampler = sampler
         self.sde_opts = dict(sde_opts or {})
+        self.mesh = mesh
         self.cfg = cfg
         self.transport = create_transport(cfg)
         self.last_counts = None
@@ -180,12 +196,40 @@ class InferenceEngine:
         the reverse SDE of ``transport.make_sde_sampler`` (``noise``, or
         drawn from ``generator`` after the prior), or the generic ODE solve
         of ``sample_ode`` over ``transport.drift_fn``."""
-        cfg, model = self.cfg, self.model
+        cfg = self.cfg
         if cfg.task.no_frames:
             raise NotImplementedError(
                 "sampling task.no_frames is not supported: the JAX package does not sample it "
                 "either (its _sample has no atom37 batch and no rigids to decode)")
         batch = self._batch(batch)
+        if self.mesh is None or self.mesh.size <= 1:
+            return self._sample_local(batch, zs0, generator, noise)
+        B, T, L = batch["trans"].shape[:3]
+        b_axes, s_axes = split_axes(self.mesh, B, T, L)
+        part = local_slice(self.mesh, b_axes, B)
+        if zs0 is None and not (cfg.task.mpnn or cfg.task.dynamic_mpnn):
+            zs0 = sample_prior_latent(generator, B, T, L, cfg.latent_dim, self.device,
+                                      design=cfg.task.design)
+        group = self.mesh.group(b_axes)
+
+        def mean(v):  # dopri5's error norm over every rank's rows
+            acc = torch.stack([v.sum(dtype=torch.float64),
+                               torch.tensor(v.numel(), dtype=torch.float64, device=v.device)])
+            acc = comm.all_reduce(acc, group)
+            return (acc[0] / acc[1]).to(v.dtype)
+
+        with kernel_mesh(self.mesh.sub(s_axes)):
+            out = self._sample_local(
+                {k: v[part] for k, v in batch.items()}, None if zs0 is None else zs0[part],
+                generator, None if noise is None else noise[:, part], rows=(part, B),
+                mean=None if group is None else mean)
+        return tuple(gather(o, group, 0) for o in out)
+
+    def _sample_local(self, batch: dict, zs0, generator, noise, rows=None, mean=None):
+        """``_sample`` on a batch of tensors on the engine's device; with
+        ``rows`` (slice, B) the batch is those rows of a sharded one, for the
+        SDE's noise; ``mean`` dopri5's (``_sample``)."""
+        cfg, model = self.cfg, self.model
         prep = prep_batch(cfg, batch)
         if cfg.task.mpnn or cfg.task.dynamic_mpnn:
             return self._sequence_only(batch, prep)
@@ -220,10 +264,10 @@ class InferenceEngine:
 
             if self.sampler == "sde":
                 sde = self.transport.make_sde_sampler(model_fn, **self.sde_opts)
-                xc, self.last_counts = sde(xc, generator=generator, noise=noise)
+                xc, self.last_counts = sde(xc, generator=generator, noise=noise, rows=rows)
             else:
                 xc, self.last_counts = sample_ode(self.transport.drift_fn(model_fn), xc, t0=t0,
-                                                  t1=t1, method=method, num_steps=n)
+                                                  t1=t1, method=method, num_steps=n, mean=mean)
         return self._decode(xc, prep["rigids"], batch["seqres"])
 
     # ------------------------------------------------------------------

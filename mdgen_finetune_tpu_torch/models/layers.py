@@ -131,13 +131,16 @@ class Dropout:
     generator's device) or taken from ``masks`` {key: bool tensor, its batch
 dims possibly unflattened}; every
     mask used is kept in ``drawn``, so that a step can be replayed with the
-    same masks on another device."""
+    same masks on another device. ``rows`` = (slice, B): the call sites
+    hold those rows of a batch of B elements (a rank's part of a sharded
+    step): each mask is drawn for the whole batch and sliced, so that it
+    equals the one-process step's."""
 
     def __init__(self, rate: float, generator: torch.Generator | None = None,
-                 masks: dict | None = None):
+                 masks: dict | None = None, rows: tuple | None = None):
         if not 0.0 < rate < 1.0:
             raise ValueError(f"dropout rate {rate} is not in (0, 1)")
-        self.rate, self.generator, self.masks = rate, generator, masks
+        self.rate, self.generator, self.masks, self.rows = rate, generator, masks, rows
         self.drawn: dict = {}
         self._calls: dict = {}
 
@@ -153,7 +156,12 @@ dims possibly unflattened}; every
             keep = keep.reshape(p.shape)  # JAX's (B, T, ...) batch dims as the port's (B*T, ...)
         else:
             dev = self.generator.device if self.generator is not None else p.device
-            keep = (torch.rand(p.shape, generator=self.generator, device=dev)
+            shape, part = p.shape, slice(None)
+            if self.rows is not None:  # dim 0 flattens the batch, batch-major
+                sl, B = self.rows
+                k = p.shape[0] // (sl.stop - sl.start)
+                shape, part = (B * k, *p.shape[1:]), slice(sl.start * k, sl.stop * k)
+            keep = (torch.rand(shape, generator=self.generator, device=dev)[part]
                     < 1.0 - self.rate).to(p.device)
         self.drawn[key] = keep
         return torch.where(keep, p / (1.0 - self.rate), torch.zeros((), dtype=p.dtype,

@@ -34,12 +34,15 @@ carrying head_dim**-0.5 * log2(e) (the base-2 fold).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .adaln_linear import adaln_linear, adaln_linear_math
 from .adaln_mlp import adaln_mlp
 from .fused_layer_bwd import fused_layer_bwd
 from .residue_block import residue_block
+from .sharded_trunk import sharded_trunk
 from .time_attention import MAX_L, residue_rows_block, time_attention_block
 
 # per-layer weight names (LatentMDGen.make_trunk_pack)
@@ -94,7 +97,14 @@ def fused_trunk(x, mods, ws, mask, *, num_heads: int, final=None, embed=None,
 
     Without ``embed``, ``x`` itself is updated in place as the trunk runs.
     Returns the trunk activation, the velocity (B, T, L, out) f32, or the
-    updated carry."""
+    updated carry. Under a registered mesh whose axes split T and L, the
+    fused layers run sequence-split (``ops/sharded_trunk.py``)."""
+    if layer is None:
+        out = sharded_trunk(x, mods, ws, mask, num_heads=num_heads, final=final, embed=embed,
+                            keys=LAYER_KEYS, local=functools.partial(fused_trunk,
+                                                                     num_heads=num_heads))
+        if out is not None:
+            return out if step_dt is None else x.add_(out, alpha=step_dt)
     B, T, L = mask.shape
     M = B * T * L
     if embed is not None:
@@ -261,7 +271,14 @@ def fused_trunk_train(x, mods, ws, mask, *, num_heads: int, final=None, remat: b
     ``ws`` the per-layer weight dicts; ``remat``: save only each layer's
     input and recompute the rest in the backward. Returns the velocity
     (B, T, L, out) f32, or without ``final`` the trunk's output
-    (B, T, L, C) in the compute dtype."""
+    (B, T, L, C) in the compute dtype. Under a registered mesh whose axes
+    split T and L, the trunk runs sequence-split, stage by stage
+    (``ops/sharded_trunk.py``; ``remat`` does not apply there)."""
+    out = sharded_trunk(x, mods, ws, mask, num_heads=num_heads, final=final, keys=LAYER_KEYS,
+                        local=functools.partial(fused_trunk_train, num_heads=num_heads,
+                                                remat=remat))
+    if out is not None:
+        return out
     flat = [w[k] for w in ws for k in LAYER_KEYS]
     return FusedTrunkFn.apply(x.contiguous(), mods, *(final or (None, None, None)),
                               mask.to(torch.float32).contiguous(), num_heads, remat, *flat)

@@ -19,6 +19,21 @@ design task's simplex point, and with ``model.dropout > 0`` the keep masks)
 comes from an explicit ``torch.Generator``: the masks from a generator
 seeded by one draw of the step's (JAX's ``split`` for ``rngs={"dropout":
 ...}``, :116-122).
+
+Over a (dp, sp) mesh of ``torch.distributed`` ranks (``parallel/``; JAX
+:49-54), every rank is handed the same global batch and draws every random
+tensor of the step at its global shape from the same generator, then keeps
+its rows (``kernel_sharding.split_axes``): under the batch fold (the batch
+divides the mesh) its B / (dp sp) elements, with no collective inside the
+model; under the sequence split (B = 1 at ATLAS, say) its rows of the
+batch axes, the trunk split over the rest (``ops/sharded_trunk.py``), the
+featurization, the encoder and the loss replicated there; else everything
+(replication). One all-reduce then averages the gradients and the metrics
+over the batch axes, before the global-norm clip, so that a sharded step
+equals the one-process step and every rank keeps equal parameters,
+optimizer and EMA state. The weights are broadcast from rank 0 at
+``init_state`` and ``restore_checkpoint``; only rank 0 writes a checkpoint
+or calls ``fit``'s ``log_fn``.
 """
 from __future__ import annotations
 
@@ -38,6 +53,9 @@ from ..geometry.rigid import full_f32
 from ..inference.sampling import resolve_device
 from ..models.denoiser import LatentMDGen
 from ..models.layers import Dropout
+from ..parallel import comm
+from ..parallel.kernel_sharding import kernel_mesh, split_axes
+from ..parallel.mesh import local_slice, make_mesh
 from ..tasks import prep_batch
 from ..transport import create_transport
 
@@ -143,10 +161,13 @@ def featurize(cfg: MDGenConfig, atom14: torch.Tensor, seqres: torch.Tensor,
 
 class Trainer:
     def __init__(self, cfg: MDGenConfig, device="cuda", dtype=None):
-        if cfg.train.dp_size > 1 or cfg.train.sp_size > 1:
-            raise NotImplementedError(
-                "train.dp_size / sp_size > 1 is not ported yet (ROADMAP.md queue 1 item 12)")
+        """``mesh``: the ranks' (dp, sp) mesh, ``make_mesh(train.dp_size or
+        None, train.sp_size)`` over the initialised default group (one
+        process without one: ``dp_size`` 2 raises JAX's ``ValueError``). It
+        is not registered for the whole process: a step splits the trunk
+        only inside its own ``kernel_mesh`` (``_loss_fn``)."""
         self.cfg = cfg
+        self.mesh = make_mesh(cfg.train.dp_size or None, cfg.train.sp_size)
         self.device = resolve_device(device)
         full_f32()
         self.dtype = dtype or (torch.bfloat16 if cfg.model.use_bf16 else torch.float32)
@@ -164,10 +185,32 @@ class Trainer:
             model = LatentMDGen(self.cfg, self.cfg.latent_dim, dtype=self.dtype)
         self.model = model.to(self.device)
         params = dict(self.model.named_parameters())
+        self._from_rank0(list(params.values()))
         ema = {k: p.detach().clone() for k, p in params.items()}
         return TrainState(step=0, params=params, opt_state=self.opt.init(params), ema_params=ema)
 
     # ------------------------------------------------------------------
+    def _from_rank0(self, tensors: list) -> None:
+        """Overwrite ``tensors`` in place with rank 0's (one broadcast)."""
+        if self.mesh.size <= 1:
+            return
+        with torch.no_grad():
+            for t, v in zip(tensors, comm.flat(tensors, lambda f: comm.broadcast(f, 0))):
+                t.copy_(v)
+
+    def _mean_over(self, axes, tensors: list) -> list:
+        """``tensors`` averaged over the ranks of ``axes`` (one all-reduce)."""
+        group = self.mesh.group(axes)
+        if group is None:
+            return tensors
+        n = self.mesh.count(axes)
+        return comm.flat(tensors, lambda f: comm.all_reduce(f, group).div_(n))
+
+    def layout(self, batch: dict) -> tuple:
+        """(batch axes, sequence axes) of a global batch on the mesh
+        (``kernel_sharding.split_axes``)."""
+        return split_axes(self.mesh, *batch["atom14"].shape[:3])
+
     def _device_batch(self, batch: dict) -> dict:
         return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v,
                                    device=self.device)
@@ -176,24 +219,39 @@ class Trainer:
     def _loss_fn(self, batch: dict, generator: Optional[torch.Generator] = None, t=None,
                  x0=None, x_d=None, dropout=None):
         """Mean flow-matching loss of a raw batch (atom14, seqres, mask) and
-        its metrics: featurize -> prep_batch -> training_losses."""
+        its metrics: featurize -> prep_batch -> training_losses. On a mesh
+        of more than one rank, ``batch`` (and t, x0, x_d when given) is the
+        global batch: the result is this rank's loss and metrics, means over
+        its rows (module docstring; ``_grads`` and ``eval_loss`` average them
+        over the batch axes)."""
         b = self._device_batch(batch)
+        rows = None
+        if self.mesh.size > 1:
+            b_axes, s_axes = self.layout(b)
+            part = local_slice(self.mesh, b_axes, b["atom14"].shape[0])
+            rows = (part, b["seqres"].long())
+            b = {k: v[part] for k, v in b.items()}
         feats = featurize(self.cfg, b["atom14"].float(), b["seqres"].long(), b["mask"].float())
-        return self._feature_loss(feats, generator, t, x0, x_d, dropout)
+        if rows is None:
+            return self._feature_loss(feats, generator, t, x0, x_d, dropout)
+        with kernel_mesh(self.mesh.sub(s_axes)):
+            return self._feature_loss(feats, generator, t, x0, x_d, dropout, rows=rows)
 
-    def dropout_for(self, generator: Optional[torch.Generator]) -> Optional[Dropout]:
+    def dropout_for(self, generator: Optional[torch.Generator],
+                    rows: Optional[tuple] = None) -> Optional[Dropout]:
         """The step's ``Dropout`` (``model.dropout > 0``): its masks drawn
         from a generator on ``generator``'s device seeded by one draw of
-        ``generator`` (None: the global one)."""
+        ``generator`` (None: the global one); ``rows`` (slice, B): this
+        rank's rows of a global batch of B (``Dropout``)."""
         rate = self.cfg.model.dropout
         if rate <= 0.0:
             return None
         dev = generator.device if generator is not None else self.device
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator, device=dev))
-        return Dropout(rate, torch.Generator(device=dev).manual_seed(seed))
+        return Dropout(rate, torch.Generator(device=dev).manual_seed(seed), rows=rows)
 
     def _feature_loss(self, feats: dict, generator=None, t=None, x0=None, x_d=None,
-                      dropout=None):
+                      dropout=None, rows=None):
         """``_loss_fn`` from a featurized batch (``featurize``): the mean
         loss and the metrics {loss, t_mean}, under ``design`` also
         {loss_discrete, loss_continuous} (JAX ``_loss_fn``, :111-137; the
@@ -202,13 +260,24 @@ class Trainer:
         drawn from ``generator`` unless given; with ``model.dropout > 0`` the
         keep masks come from ``dropout`` (``models.layers.Dropout``), else
         from ``dropout_for(generator)``, whose seed is drawn before t and x0
-        (JAX splits the dropout key off first)."""
+        (JAX splits the dropout key off first). ``rows`` = (slice, seqres
+        (B, L)): ``feats`` are those rows of a global batch of B; the draws
+        and the masks are made for the whole batch and sliced (t, x0 and
+        x_d, when given, are the global ones)."""
         prep = prep_batch(self.cfg, feats)
         kw = prep["model_kwargs"]
         design = self.cfg.task.design
         if dropout is None and self.cfg.model.dropout > 0.0:
-            dropout = self.dropout_for(generator)
+            dropout = self.dropout_for(
+                generator, None if rows is None else (rows[0], rows[1].shape[0]))
         extra = {} if dropout is None else {"dropout": dropout}
+        if rows is not None:
+            part, seqres = rows
+            x1 = prep["latents"]
+            drawn = self.transport.draws(generator, (seqres.shape[0], *x1.shape[1:]), x1.dtype,
+                                         x1.device, seqres if design else None, x0=x0, t=t,
+                                         x_d=x_d)
+            x0, t, x_d = (None if v is None else torch.as_tensor(v)[part] for v in drawn)
 
         def model_fn(x, tt, mask, **kwargs):
             return self.model(x, tt, mask.float(), **kwargs, **extra)
@@ -225,6 +294,8 @@ class Trainer:
         return loss, metrics
 
     def _grads(self, state: TrainState, batch: dict, generator):
+        """The metrics and the gradients of a batch, averaged over the mesh's
+        batch axes (one all-reduce) on a mesh of more than one rank."""
         for p in state.params.values():
             p.grad = None
         loss, metrics = self._loss_fn(batch, generator)
@@ -233,13 +304,23 @@ class Trainer:
                  for k, p in state.params.items()}
         for p in state.params.values():
             p.grad = None
-        return {k: v.detach() for k, v in metrics.items()}, grads
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if self.mesh.size > 1:
+            vals = self._mean_over(self.layout(batch)[0],
+                                   list(grads.values()) + list(metrics.values()))
+            grads = dict(zip(grads, vals[:len(grads)]))
+            metrics = dict(zip(metrics, vals[len(grads):]))
+        return metrics, grads
 
     def train_step(self, state: TrainState, batch: dict, generator: torch.Generator):
         """One step; ``state`` is updated in place and returned with the
         metrics {loss, t_mean, grad_norm} (under ``design`` also
         loss_discrete, loss_continuous) as device scalars."""
-        metrics, grads = self._grads(state, batch, generator)
+        return self.apply_grads(state, *self._grads(state, batch, generator))
+
+    def apply_grads(self, state: TrainState, metrics: dict, grads: dict):
+        """The rest of ``train_step`` after ``_grads``: the clip, the
+        optimizer and the EMA, in place; returns (state, metrics + grad_norm)."""
         metrics["grad_norm"] = global_norm(grads)
         self.opt.step(state.params, grads, state.opt_state)
         decay = self.cfg.train.ema_decay if self.cfg.train.ema else 0.0
@@ -262,7 +343,11 @@ class Trainer:
             for k, p in state.params.items():
                 p.copy_(state.ema_params[k])
         try:
-            return self._loss_fn(batch, generator)[1]
+            metrics = self._loss_fn(batch, generator)[1]
+            if self.mesh.size > 1:
+                metrics = dict(zip(metrics, self._mean_over(self.layout(batch)[0],
+                                                            list(metrics.values()))))
+            return metrics
         finally:
             if swap:
                 for k, p in state.params.items():
@@ -281,7 +366,9 @@ class Trainer:
         """``num_steps`` steps over ``batches``; every ``log_every`` steps
         (and at the last) one JSON line of the step's metrics (``train_step``)
         and {step, dur}. The mpnn tasks' ``loss_continuous`` is NaN there, as
-        in JAX (JSON's ``NaN``)."""
+        in JAX (JSON's ``NaN``). On a mesh every rank must be handed the same
+        global batches; the metrics are already the mean over the ranks
+        (``_grads``' all-reduce; JAX :182-195) and only rank 0 logs."""
         t_last = time.time()
         for i in range(num_steps):
             state, metrics = self.train_step(state, next(batches), generator)
@@ -289,14 +376,28 @@ class Trainer:
                 line = {k: float(v) for k, v in metrics.items()}
                 line.update(step=state.step, dur=time.time() - t_last)
                 t_last = time.time()
-                (log_fn or (lambda m: print(json.dumps(m), flush=True)))(line)
+                if self.mesh.rank == 0:
+                    (log_fn or (lambda m: print(json.dumps(m), flush=True)))(line)
         return state
 
     # ------------------------------------------------------------------
+    def _barrier(self) -> None:
+        """Wait for every rank of the mesh (a one-element all-reduce)."""
+        if self.mesh.size > 1:
+            comm.all_reduce(torch.zeros(1, device=self.device),
+                            self.mesh.group(self.mesh.axis_names))
+
     def save_checkpoint(self, state: TrainState, path: Optional[str] = None) -> str:
         """``torch.save`` of the step, parameters, optimizer state and EMA
-        into ``path/state.pt``, and the config as ``path/config.json``."""
+        into ``path/state.pt``, and the config as ``path/config.json``. On a
+        mesh rank 0 writes and the others wait for it."""
         path = os.path.abspath(path or os.path.join(self.workdir, f"ckpt_{state.step}"))
+        if self.mesh.rank == 0:
+            self._write_checkpoint(state, path)
+        self._barrier()
+        return path
+
+    def _write_checkpoint(self, state: TrainState, path: str) -> None:
         os.makedirs(path, exist_ok=True)
 
         def host(tree):
@@ -309,11 +410,37 @@ class Trainer:
                    os.path.join(path, "state.pt"))
         with open(os.path.join(path, "config.json"), "w") as f:
             f.write(self.cfg.to_json())
-        return path
 
     def restore_checkpoint(self, path: str, template: TrainState) -> TrainState:
         """Load a checkpoint into ``template``'s tensors (in place) and return
-        the restored state."""
+        the restored state; on a mesh rank 0 reads it and broadcasts every
+        tensor and counter."""
+        if self.mesh.rank == 0:
+            state = self._read_checkpoint(path, template)
+        else:
+            state = template
+        if self.mesh.size > 1:
+            tensors = []
+
+            def leaves(tree):
+                for v in tree.values():
+                    if isinstance(v, dict):
+                        leaves(v)
+                    elif torch.is_tensor(v):
+                        tensors.append(v)
+
+            for tree in (state.params, state.opt_state, state.ema_params):
+                leaves(tree)
+            ints = torch.tensor([state.step, state.opt_state["count"],
+                                 state.opt_state.get("mini_step", 0)], dtype=torch.float64,
+                                device=self.device)
+            self._from_rank0(tensors + [ints])
+            state.step, state.opt_state["count"] = int(ints[0]), int(ints[1])
+            if "mini_step" in state.opt_state:
+                state.opt_state["mini_step"] = int(ints[2])
+        return state
+
+    def _read_checkpoint(self, path: str, template: TrainState) -> TrainState:
         saved = torch.load(os.path.join(os.path.abspath(path), "state.pt"), map_location="cpu",
                            weights_only=True)
 

@@ -81,8 +81,11 @@ _DP_B4 = [5179 / 57600, 0.0, 7571 / 16695, 393 / 640, -92097 / 339200, 187 / 210
 
 
 def ode_dopri5(drift: Callable, x: torch.Tensor, t0: float, t1: float, atol: float = 1e-6,
-               rtol: float = 1e-3, max_steps: int = 1000):
-    """Adaptive RK45 from t0 to t1 (module docstring)."""
+               rtol: float = 1e-3, max_steps: int = 1000, mean: Optional[Callable] = None):
+    """Adaptive RK45 from t0 to t1 (module docstring); ``mean`` takes the
+    error norm's mean (default ``torch.mean``; a sharded batch passes the
+    mean over every rank's rows, so that all take the same steps)."""
+    mean = mean or torch.mean
     b5 = torch.tensor(_DP_B5, dtype=x.dtype, device=x.device)
     b4 = torch.tensor(_DP_B4, dtype=x.dtype, device=x.device)
     t0 = torch.tensor(t0, dtype=_F32)
@@ -90,7 +93,7 @@ def ode_dopri5(drift: Callable, x: torch.Tensor, t0: float, t1: float, atol: flo
 
     def err_norm(err, y0, y1):
         scale = atol + rtol * torch.maximum(y0.abs(), y1.abs())
-        return torch.sqrt(torch.mean((err / scale) ** 2))
+        return torch.sqrt(mean((err / scale) ** 2))
 
     f = drift(x, _tvec(t0, x))
     h = torch.tensor(0.01, dtype=_F32) * (t1 - t0)
@@ -122,27 +125,30 @@ def ode_dopri5(drift: Callable, x: torch.Tensor, t0: float, t1: float, atol: flo
 
 def sample_ode(drift: Callable, x: torch.Tensor, *, t0: float = 0.0, t1: float = 1.0,
                method: str = "dopri5", num_steps: int = 100, atol: float = 1e-6,
-               rtol: float = 1e-3):
+               rtol: float = 1e-3, mean: Optional[Callable] = None):
     """Integrate ``drift`` from t0 to t1 with ``method``; returns
-    (x_final, counts) (module docstring)."""
+    (x_final, counts) (module docstring; ``mean``: ``ode_dopri5``'s)."""
     if method == "euler":
         return ode_euler(drift, x, t0, t1, num_steps)
     if method == "heun":
         return ode_heun(drift, x, t0, t1, num_steps)
     if method == "dopri5":
-        return ode_dopri5(drift, x, t0, t1, atol=atol, rtol=rtol)
+        return ode_dopri5(drift, x, t0, t1, atol=atol, rtol=rtol, mean=mean)
     raise NotImplementedError(method)
 
 
-def _draw(generator: torch.Generator, x: torch.Tensor, rademacher: bool = False):
+def _draw(generator: torch.Generator, x: torch.Tensor, rademacher: bool = False,
+          rows: Optional[tuple] = None):
     """One standard normal (or +-1) draw of x's shape from ``generator``, on
-    x's device."""
+    x's device; ``rows`` (slice, B): x holds those rows of a batch of B,
+    and the draw is the batch's, sliced."""
+    shape = x.shape if rows is None else (rows[1], *x.shape[1:])
     if rademacher:
-        e = torch.randint(0, 2, x.shape, generator=generator, device=generator.device)
+        e = torch.randint(0, 2, shape, generator=generator, device=generator.device)
         e = e.to(x.dtype) * 2 - 1
     else:
-        e = torch.randn(x.shape, generator=generator, device=generator.device, dtype=x.dtype)
-    return e.to(x.device)
+        e = torch.randn(shape, generator=generator, device=generator.device, dtype=x.dtype)
+    return (e if rows is None else e[rows[0]]).to(x.device)
 
 
 def ode_likelihood(drift: Callable, x: torch.Tensor, *, t0: float = 0.0, t1: float = 1.0,
@@ -180,7 +186,7 @@ def sample_sde(drift: Callable, diffusion: Callable, score: Callable, x: torch.T
                t0: float, t1: float, num_steps: int = 250, method: str = "Euler",
                last_step: Optional[str] = "Mean", last_step_size: float = 0.04,
                generator: Optional[torch.Generator] = None,
-               noise: Optional[torch.Tensor] = None):
+               noise: Optional[torch.Tensor] = None, rows: Optional[tuple] = None):
     """Euler-Maruyama (``Euler``) or Heun SDE sampler (JAX :192-256; reference
     src/mdgen/transport/transport.py:294-405, integrators.py:26-45).
 
@@ -188,7 +194,8 @@ def sample_sde(drift: Callable, diffusion: Callable, score: Callable, x: torch.T
     score, t (B,); ``diffusion(x, te)`` takes t expanded against x. The SDE
     drift is drift + diffusion * score. On the grid t0 + dt * i each step
     takes w = noise[i] * sqrt(|dt|) (``noise`` (num_steps, *x.shape)
-    standard normals, else drawn from ``generator`` step by step):
+    standard normals, else drawn from ``generator`` step by step, for the
+    whole batch of a sharded one when ``rows`` = (slice, B) is given):
     Euler-Maruyama x + sde_drift dt + sqrt(2 diff) w; Heun perturbs first,
     xhat = x + sqrt(2 diff) w, then averages the SDE drift at xhat (t) and at
     xhat + dt k1 (t + dt). Then one last step of ``last_step_size`` at t1:
@@ -204,7 +211,8 @@ def sample_sde(drift: Callable, diffusion: Callable, score: Callable, x: torch.T
 
     for i, t in enumerate(ts):
         tv = _tvec(t, x)
-        z = noise[i].to(x.device, x.dtype) if noise is not None else _draw(generator, x)
+        z = noise[i].to(x.device, x.dtype) if noise is not None else _draw(generator, x,
+                                                                           rows=rows)
         w = z * sq_dt
         root = torch.sqrt(2 * diffusion(x, expand_t(tv, x)))
         if method == "Euler":

@@ -75,6 +75,29 @@ class Transport:
     def check_interval(self, **kw):
         return check_interval(self.cfg, **kw)
 
+    def draws(self, generator: Optional[torch.Generator], shape, dtype, device,
+              aatype1: Optional[torch.Tensor] = None, x0=None, t=None, x_d=None):
+        """``training_losses``' random draws for a latent batch of ``shape``
+        (B, T, L, K), in its order: x0 (a standard normal of ``shape``), t
+        (B,) uniform on the training interval, and with ``design`` (not
+        ``mpnn`` / ``dynamic_mpnn``) the simplex point x_d (B, L, 20), a
+        Dirichlet draw at the concentrations of ``aatype1`` and t. Those given
+        are kept. Returns (x0, t, x_d) on ``device`` (x_d on the generator's
+        device, or None)."""
+        if x0 is None:
+            x0 = torch.randn(shape, generator=generator, device=generator.device,
+                             dtype=dtype).to(device)
+        if t is None:
+            t0, t1 = self.check_interval()
+            u = torch.rand(shape[0], generator=generator, device=generator.device, dtype=dtype)
+            t = u.to(device) * (t1 - t0) + t0
+        task = self.cfg.task
+        if task.design and not (task.mpnn or task.dynamic_mpnn) and x_d is None:
+            alphas = 1 + _one_hot20(aatype1, dtype) * (
+                t_to_alpha(t, self.cfg.transport.alpha_max)[0][:, None, None] - 1)
+            x_d = torch._sample_dirichlet(alphas.to(generator.device), generator)
+        return x0, t, x_d
+
     def training_losses(self, model_fn: Callable, x1: torch.Tensor,
                         mask: Optional[torch.Tensor] = None,
                         model_kwargs: Optional[dict] = None,
@@ -104,13 +127,8 @@ class Transport:
         if design and self.prediction != "velocity":
             raise ValueError("the design tasks train the velocity objective only")
         B = x1.shape[0]
-        if x0 is None:
-            x0 = torch.randn(x1.shape, generator=generator, device=generator.device,
-                             dtype=x1.dtype).to(x1.device)
-        if t is None:
-            t0, t1 = self.check_interval()
-            u = torch.rand(B, generator=generator, device=generator.device, dtype=x1.dtype)
-            t = u.to(x1.device) * (t1 - t0) + t0
+        x0, t, x_d = self.draws(generator, x1.shape, x1.dtype, x1.device, aatype1, x0=x0, t=t,
+                                x_d=x_d)
         te = expand_t(t, x1)
         xt, ut = self.path.interpolate(te, x0, x1)
         if design:
@@ -118,10 +136,6 @@ class Transport:
             if mpnn:
                 t = torch.ones_like(t)
                 x_d = x1.new_zeros(B, L, 20)
-            elif x_d is None:
-                alphas = 1 + _one_hot20(aatype1, x1.dtype) * (
-                    t_to_alpha(t, self.cfg.transport.alpha_max)[0][:, None, None] - 1)
-                x_d = torch._sample_dirichlet(alphas.to(generator.device), generator)
             x_d = x_d.to(xt.device, xt.dtype)[:, None].expand(B, T, L, 20)
             xt = torch.cat([xt, x_d], dim=-1)
         out = model_fn(xt, t, **(model_kwargs or {}))
@@ -200,8 +214,8 @@ class Transport:
                          diffusion_norm: float = 1.0, last_step: str = "Mean",
                          last_step_size: float = 0.04) -> Callable:
         """The reverse-SDE sampler of ``model_fn`` (JAX :190-228; reference
-        transport.py:294-405): ``sample(x, generator=None, noise=None)`` ->
-        (x, counts) through ``samplers.sample_sde`` on [max(t0, 1e-3), t1]
+        transport.py:294-405): ``sample(x, generator=None, noise=None, rows=None)``
+        -> (x, counts) through ``samplers.sample_sde`` on [max(t0, 1e-3), t1]
         of ``check_interval(sde=True, eval=True, last_step_size=...)``
         (the score and the diffusion are singular at t = 0). The drift and
         the score of one (x, t) share one call of ``model_fn``. ``Tweedie``
@@ -219,12 +233,12 @@ class Transport:
         t0 = max(t0, 1e-3)
 
         def sample(x, generator: Optional[torch.Generator] = None,
-                   noise: Optional[torch.Tensor] = None):
+                   noise: Optional[torch.Tensor] = None, rows: Optional[tuple] = None):
             out, counts = sample_sde(drift, diffusion, score, x, t0=t0, t1=t1,
                                      num_steps=num_steps, method=method,
                                      last_step=None if last_step == "Tweedie" else last_step,
                                      last_step_size=last_step_size, generator=generator,
-                                     noise=noise)
+                                     noise=noise, rows=rows)
             if last_step == "Tweedie":
                 tv = torch.full((x.shape[0],), t1, dtype=x.dtype, device=x.device)
                 te = expand_t(tv, out)

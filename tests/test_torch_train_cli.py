@@ -11,10 +11,10 @@
   rolls out one window;
 - ``--design --inference_batches 1``: 2 steps and the designability probe's
   ``designability_*`` line;
-- the CLI's refusals before anything is written: ``--dp_size 2``, not
-  ported yet (``NotImplementedError`` naming the ROADMAP), and the card by
-  default without CUDA; the modular layer's flags and ``--dropout``, once
-  refused, train 2 steps.
+- the CLI's refusals before anything is written: ``--dp_size 2`` in one
+  process (JAX's ``make_mesh`` ``ValueError``: a mesh of 2 needs 2 ranks),
+  and the card by default without CUDA; the modular layer's flags and
+  ``--dropout``, once refused, train 2 steps.
 """
 import argparse
 import json
@@ -84,12 +84,13 @@ def test_train_cli_trains_validates_and_checkpoints(data, capsys):
 @pytest.mark.parametrize("flags", [["--hyena"], ["--dropout", "0.1"], ["--dp_size", "2"],
                                    ["--interleave_ipa"], ["--no_rope"]])
 def test_train_cli_refuses_unported_flags(data, flags):
-    """``--dp_size 2`` (ROADMAP item 12) is refused before anything is
-    written; the modular layer's flags and ``--dropout`` train: 2 steps with
-    finite losses and a checkpoint."""
+    """``--dp_size 2`` in one process raises JAX's ``make_mesh``
+    ``ValueError`` before anything is written (two ranks under torchrun:
+    ``tests/test_torch_parallel.py``); the modular layer's flags and
+    ``--dropout`` train: 2 steps with finite losses and a checkpoint."""
     name = "run_" + flags[0].strip("-")
     if flags[0] == "--dp_size":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices, have 1"):
             train.main(_argv(data, *flags, "--run_name", name, "--device", "cpu"))
         assert not (data / "work" / name).exists()
         return

@@ -19,8 +19,9 @@
   L > MAX_L (``residue_rows_block``, frame core ``tiled_attention``).
 - One optimizer step (clip, Adam or AdamW, MultiSteps, EMA) against optax.
 - A checkpoint round trip, ``fit`` on a synthetic dataset, the device rule,
-  the options the port does not train yet (dropout, ``dp_size`` > 1, the
-  modular layer), and ``grad_checkpointing`` leaving the
+  ``dp_size`` 2 in one process (JAX's ``make_mesh`` ``ValueError``), the
+  options once refused (dropout, the modular layer), and
+  ``grad_checkpointing`` leaving the
   loss and every gradient bit for bit as they are without it.
 
 Weights are seeded random (the init's zero AdaLN and FinalLayer would make
@@ -317,12 +318,14 @@ def test_grad_checkpointing_is_bit_identical():
     dict(model=tcfg.ModelConfig(interleave_ipa=True)),
 ])
 def test_unported_training_options_raise(change):
-    """``dp_size > 1`` (ROADMAP item 12) raises; dropout and the modular
-    layer's flags, once refused, now build their trainer (their training
-    against JAX: ``tests/test_torch_modular_train.py``)."""
+    """``dp_size`` 2 in one process raises JAX's ``make_mesh``
+    ``ValueError`` (a mesh of 2 needs 2 ranks; the sharded step:
+    ``tests/test_torch_parallel.py``); dropout and the modular layer's
+    flags, once refused, build their trainer (their training against JAX:
+    ``tests/test_torch_modular_train.py``)."""
     cfg = tcfg.MDGenConfig(**change)
     if cfg.train.dp_size > 1:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices, have 1"):
             Trainer(cfg, device="cpu").init_state(0)
         return
     state = Trainer(cfg, device="cpu").init_state(0)
